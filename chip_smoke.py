@@ -13,24 +13,42 @@ Phases, in order; any failure exits non-zero:
    against its plain PyTorch version (integer outputs exactly, the float
    gather-dot within the stated tolerance) and take the device time of the
    kernel, the plain version and, where one exists, the comparable single
-   PyTorch call (``ms``, ``plain_ms``, ``library_ms``, from torch.profiler
-   kernel durations), and the kernel's time per back-to-back call including
-   launch overhead (``call_ms``, from CUDA events);
-3. main path: ``run_recbole_cdr(model="CMF")`` on the card, BOTH:3 with
+   PyTorch call (``ms``, ``plain_ms``, ``library_ms``: calls queued behind
+   a spin kernel and timed by CUDA events, or, for a function that waits on
+   the device, torch.profiler kernel durations; see ``device_ms``), and the
+   kernel's time per back-to-back call including launch overhead
+   (``call_ms``, from CUDA events);
+   B5 and B6 are held and timed at the catalog path's shapes (phase 4):
+   B5's ids exactly on integer-valued factors, its scores within
+   ``B5_TOL`` on normal ones; B6, over ``B6_STEPS`` steps on one scratch,
+   within ``B6_TOL`` of its plain version and of ``torch.optim.SparseAdam``;
+3. dense path: ``run_recbole_cdr(model="CMF")`` on the card, BOTH:3 with
    validation every epoch, on a synthetic pair of the benchmark's shape
    (source 30k users / 8k items / 600k interactions, target 12k / 5k / 250k,
    2k shared items, generated with numpy from a fixed seed into
-   ``build/smoke_data``); every kernel's launch count over this run must be
-   positive, the metrics finite and the loss falling from epoch 0 to 2;
-4. report: the card's name and power limit, one JSON line of per-kernel
-   numbers, and the final ``{"ok": true, ...}`` line.
+   ``build/smoke_data``); K1-K4 must each launch, B5 and B6 never, the
+   metrics be finite and the loss fall from epoch 0 to 2;
+4. catalog path: ``run_recbole_cdr(model="CMF")`` with ``phase_optimizer:
+   sparse``, BOTH:2 with validation every epoch, on a synthetic catalog pair
+   (source 100k users / 300k items / 2M interactions, target 60k / 1.1M /
+   2.4M, 20k shared items, every item in at least one interaction, per-user
+   degree capped at 400, generated into ``build/smoke_catalog``): the target
+   item space exceeds the default ``streaming_topk_threshold`` of 1e6, so
+   every validation and the test pass stream through B5, and training steps
+   through B6. K1-K3, B5 and B6 must each launch, K4 never; no table
+   gradient may exist; the run's peak allocation up to each validation must
+   stay under the parameters and moments plus 2 GB; the metrics must be
+   finite and the loss fall from epoch 0 to 1;
+5. report: the card's name and power limit, one JSON line of per-kernel
+   numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --profile`` instead times one warm training epoch
-and one validation pass of the same run, then traces a repeat of each with
-``torch.profiler`` and prints the device time by kernel, the device-busy
-share of the unprofiled wall time, and the path of the Chrome trace it
-writes under ``chiprun_out/``; last, it times one more warm epoch in the
-same, now profiled, process.
+and one validation pass of the dense path's run, then traces a repeat of
+each with ``torch.profiler`` and prints the device time by kernel, the
+device-busy share of the unprofiled wall time, and the path of the Chrome
+trace it writes under ``chiprun_out/``; then it times one more warm epoch in
+the same, now profiled, process. It does the same for the catalog path,
+without writing its (large) traces.
 
 Nothing here imports jax or the JAX package.
 """
@@ -44,12 +62,28 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA_DIR = os.path.join(REPO, "build", "smoke_data")
+CATALOG_DIR = os.path.join(REPO, "build", "smoke_catalog")
 
 N_SRC_USERS, N_SRC_ITEMS, N_SRC_INTER = 30000, 8000, 600000
 N_TGT_USERS, N_TGT_ITEMS, N_TGT_INTER = 12000, 5000, 250000
 N_SHARED_ITEMS = 2000
 BATCH = 8192
 EPOCHS = 3
+
+#: the catalog pair: (users, items, interactions) per domain, shared items
+CATALOG_SRC = (100_000, 300_000, 2_000_000)
+CATALOG_TGT = (60_000, 1_100_000, 2_400_000)
+CATALOG_SHARED_ITEMS = 20_000
+CATALOG_DEGREE_CAP = 400
+CATALOG_EPOCHS = 2
+#: per-validation device memory allowed above the parameters and moments
+CATALOG_EVAL_HEADROOM = 2 * 2 ** 30
+
+#: the kernels each path must launch; the other kernels must not launch
+DENSE_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
+              "masked_topk")
+CATALOG_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
+                "streaming_topk", "sparse_adam")
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the float32 rate of
 #: the CUDA cores, used as the rate of the kernels' 32-bit scalar operations
@@ -61,6 +95,23 @@ PEAK_SCALAR_OPS_PER_S = 67e12
 #: atomics in a run-dependent order over every pair that shares a row
 K1_TOL = {"forward": (1e-4, 1e-5), "backward": (1e-3, 1e-5)}
 
+#: B5 score tolerance on normal factors, (atol, rtol): the kernel's fixed
+#: d-order FMA chain and torch.matmul add the 64 products in different
+#: orders; ids must agree wherever neighbouring scores differ by more
+B5_TOL = (1e-4, 1e-5)
+
+#: B6 tolerance on p, mu and nu after ``B6_STEPS`` steps, |got - ref| <=
+#: ATOL * max|ref| + RTOL * |ref| per tensor: the gradients are unit-scale
+#: multiples of 1/64, so the coalesced sums are exact in any order and only
+#: the moment and update formulas round (torch.optim.SparseAdam folds the
+#: bias corrections in float64 and updates the moments as old + (1-b)(g-old))
+B6_TOL = (1e-6, 1e-5)
+B6_STEPS = 3
+
+
+#: cycles of the spin kernel that holds the stream while the host queues
+#: the calls it times (about 0.1 s at the H100's clock)
+SPIN_CYCLES = 200_000_000
 
 #: prefix of the line on which the kernel-check child reports its records
 _RECORDS = "KERNEL_RECORDS "
@@ -104,6 +155,72 @@ def gen_data():
     open(marker, "w").write("ok")
 
 
+def gen_catalog():
+    """The catalog pair as atomic files, made once from numpy seed 13: one
+    interaction per item (so the whole item space survives the id remap, as
+    in ``bench.py``'s large-item pair), the rest with mildly skewed users and
+    items, deduplicated, per-user degree capped at ``CATALOG_DEGREE_CAP``."""
+    import numpy as np
+    import pandas as pd
+
+    marker = os.path.join(CATALOG_DIR, ".done_v1")
+    if os.path.exists(marker):
+        return
+    rng = np.random.default_rng(13)
+
+    def gen(name, prefix, n_users, n_items, n_inter, item_tokens):
+        base_u = rng.integers(1, n_users + 1, n_items)
+        base_i = np.arange(n_items)
+        extra = n_inter - n_items
+        ex_u = np.clip((1 + n_users * rng.random(extra) ** 1.5).astype(np.int64), 1, n_users)
+        ex_i = (n_items * rng.random(extra) ** 2.5).astype(np.int64)
+        base_keys = base_u.astype(np.int64) * n_items + base_i
+        keys = np.unique(np.concatenate([base_keys, ex_u * n_items + ex_i]))
+        uids, iids = keys // n_items, keys % n_items
+        is_base = np.zeros(len(keys), bool)
+        is_base[np.searchsorted(keys, base_keys)] = True
+        order = np.lexsort((~is_base, uids))  # per user: its item-covering rows first
+        uids, iids, is_base = uids[order], iids[order], is_base[order]
+        starts = np.searchsorted(uids, np.arange(n_users + 2))
+        keep = ((np.arange(len(uids)) - starts[uids]) < CATALOG_DEGREE_CAP) | is_base
+        uids, iids = uids[keep], iids[keep]
+        d = os.path.join(CATALOG_DIR, name)
+        os.makedirs(d, exist_ok=True)
+        pd.DataFrame({
+            "user_id:token": np.char.add(prefix + "_", uids.astype(str)),
+            "item_id:token": np.asarray(item_tokens)[iids],
+            "rating:float": rng.integers(1, 6, len(uids)),
+        }).to_csv(os.path.join(d, f"{name}.inter"), sep="\t", index=False)
+
+    shared = [f"item_{i}" for i in range(CATALOG_SHARED_ITEMS)]
+    n_users, n_items, n_inter = CATALOG_SRC
+    gen("cat-src", "su", n_users, n_items, n_inter,
+        shared + [f"src_item_{i}" for i in range(n_items - CATALOG_SHARED_ITEMS)])
+    n_users, n_items, n_inter = CATALOG_TGT
+    gen("cat-tgt", "tu", n_users, n_items, n_inter,
+        shared + [f"tgt_item_{i}" for i in range(n_items - CATALOG_SHARED_ITEMS)])
+    open(marker, "w").write("ok")
+
+
+def catalog_config():
+    """The catalog path: CMF at its published width, SparseAdam, the default
+    streaming threshold (1e6), float32."""
+    cfg = config_dict()
+    cfg.update({
+        "train_epochs": [f"BOTH:{CATALOG_EPOCHS}"],
+        "phase_optimizer": "sparse",
+        "embedding_size": 64,
+        "compute_dtype": "float32",
+        "source_dataset": "cat-src",
+        "target_dataset": "cat-tgt",
+        "source_data_path": CATALOG_DIR,
+        "target_data_path": CATALOG_DIR,
+        "checkpoint_dir": os.path.join(CATALOG_DIR, "saved"),
+        "log_dir": os.path.join(CATALOG_DIR, "log"),
+    })
+    return cfg
+
+
 def config_dict():
     return {
         "device": "cuda",
@@ -139,22 +256,39 @@ def _device_events(prof):
 
 
 def device_ms(fn, reps=20, warmup=3):
-    """Mean device milliseconds per call of ``fn``: the summed durations of
-    the kernels and copies it runs, from a torch.profiler trace of ``reps``
-    calls after ``warmup`` calls. Host time between launches is excluded."""
+    """(mean device milliseconds per call of ``fn`` after ``warmup`` calls,
+    the method: "queued" or "profiler").
+
+    A spin kernel holds the stream while the host queues ``reps`` calls, so
+    CUDA events around them time the device running the calls back to back
+    rather than the host's launch rate. A function whose host code waits on
+    the device releases the spin before the queue is full; it is timed by the
+    summed kernel and copy durations of a torch.profiler trace instead (a
+    trace can lose whole launches, which undercounts)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    queued = not start.query()  # the spin still runs: every call is queued
+    end.record()
+    torch.cuda.synchronize()
+    if queued:
+        return start.elapsed_time(end) / reps, "queued"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     events = _device_events(prof)
     assert events, "the profiler recorded no device activity"
-    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3, "profiler"
 
 
 def call_ms(fn, reps=20, warmup=3):
@@ -183,8 +317,9 @@ def bound(n_bytes, n_ops):
 
 
 def kernel_checks(dev):
-    """Hold K1-K4 against their plain versions at the main path's shapes and
-    time them. Returns {kernel name: record}."""
+    """Hold K1-K4 against their plain versions at the dense path's shapes,
+    B5 and B6 at the catalog path's, and time them. Returns {kernel name:
+    record}."""
     import numpy as np
     import torch
 
@@ -193,6 +328,7 @@ def kernel_checks(dev):
     from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator, _fused_eval_arrays
     from recbole_cdr_tpu_torch.ops import gather_dot as k1, masked_topk as k4
     from recbole_cdr_tpu_torch.ops import neg_sampler as k2, shuffle as k3
+    from recbole_cdr_tpu_torch.ops import sparse_adam as b6, topk as b5
     from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
     from recbole_cdr_tpu_torch.utils import init_seed
     from recbole_cdr_tpu_torch.utils.enums import TrainMode
@@ -209,19 +345,25 @@ def kernel_checks(dev):
 
     def record(name, kernel_fn, plain_fn, equal, n_bytes, n_ops, library_fn=None, reps=20):
         b_ms, b_by = bound(n_bytes, n_ops)
+        timed = {"ms": device_ms(kernel_fn, reps),
+                 "plain_ms": device_ms(plain_fn, max(3, reps // 4), 1)}
+        if library_fn:
+            timed["library_ms"] = device_ms(library_fn, reps)
         rec = {
             "max_abs_err": equal,
-            "ms": device_ms(kernel_fn, reps),
-            "plain_ms": device_ms(plain_fn, max(3, reps // 4), 1),
+            "ms": timed["ms"][0],
+            "plain_ms": timed["plain_ms"][0],
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": device_ms(library_fn, reps) if library_fn else None,
+            "library_ms": timed["library_ms"][0] if library_fn else None,
             "call_ms": call_ms(kernel_fn, reps),
+            "timing": {k: how for k, (_, how) in timed.items()},
         }
         out[name] = rec
         print(f"  {name}: max_abs_err {equal:.3g}  kernel {rec['ms']:.4f} ms  "
               f"plain {rec['plain_ms']:.4f} ms  library "
               f"{'-' if rec['library_ms'] is None else format(rec['library_ms'], '.4f')} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})  per call {rec['call_ms']:.4f} ms", flush=True)
+              f"bound {b_ms:.4f} ms ({b_by})  per call {rec['call_ms']:.4f} ms  "
+              f"timing {rec['timing']}", flush=True)
 
     # ---- K3: the epoch shuffle of both domains, one whole epoch ----------
     n_steps = loop.steps_per_epoch
@@ -322,12 +464,109 @@ def kernel_checks(dev):
            lambda: k4.masked_topk_plain(scores, rp, items[0], k),
            float(err), scores.numel() * 4 + rp.numel() * 4 + n_pairs * 4 + users.shape[0] * k * 4,
            scores.numel(), library_fn=library_topk)
+    del U, I, scores
+
+    # ---- the catalog path's data ----------------------------------------
+    cconfig = CDRConfig(model="CMF", config_dict=catalog_config(), _cli_args=[])
+    init_seed(cconfig["seed"], True)
+    cdataset = create_dataset(cconfig)
+    ctrain, cvalid, _ = data_preparation(cconfig, cdataset)
+    D = cconfig["embedding_size"]
+    cev = FullSortEvaluator(cconfig)
+
+    # ---- B5: one streaming tile of the validation split -----------------
+    n_items = cvalid.item_num
+    _, row_ptr, items = _fused_eval_arrays(cvalid, cev.STREAM_USER_BLOCK, dev)
+    B = min(cev.STREAM_USER_BLOCK, len(cvalid.uid_list))
+    rp, it = row_ptr[0, :B + 1], items[0]
+    k = cev.max_k
+    Ui = torch.randint(-3, 4, (B, D), device=dev, generator=g).float()
+    Ti = torch.randint(-3, 4, (n_items, D), device=dev, generator=g).float()
+    a, b = b5.streaming_topk(Ui, Ti, rp, it, k), b5.streaming_topk_plain(Ui, Ti, rp, it, k)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[0], b[0]), \
+        "streaming_topk disagrees with its plain version on integer-valued factors"
+    del Ui, Ti
+    Un = torch.randn(B, D, device=dev, generator=g)
+    Tn = torch.randn(n_items, D, device=dev, generator=g)
+    (a_s, a_i), (b_s, b_i) = (b5.streaming_topk(Un, Tn, rp, it, k),
+                              b5.streaming_topk_plain(Un, Tn, rp, it, k))
+    atol, rtol = B5_TOL
+    tol = atol + rtol * b_s.abs()
+    err = float((a_s - b_s).abs().max())
+    assert bool(((a_s - b_s).abs() <= tol).all()), f"streaming_topk score error {err}"
+    gap = torch.diff(b_s, dim=1).abs() > tol[:, 1:]
+    clear = torch.ones_like(gap[:, :1])
+    clear = torch.cat([clear, gap], 1) & torch.cat([gap, clear], 1)
+    assert torch.equal(a_i[clear], b_i[clear]), "streaming_topk ids differ where scores do not tie"
+    n_pairs = int(rp[-1])
+    rows_h = torch.repeat_interleave(torch.arange(B, device=dev), (rp[1:] - rp[:-1]).long())
+    it_h = it[:n_pairs].long()
+
+    def library_streaming():
+        sc = Un @ Tn.T  # [B, items]: 9 GB at the catalog's 1.1M items
+        sc[rows_h, it_h] = torch.finfo(torch.float32).min
+        sc[:, 0] = torch.finfo(torch.float32).min
+        return torch.topk(sc, k, dim=1).indices
+
+    record("streaming_topk",
+           lambda: b5.streaming_topk(Un, Tn, rp, it, k),
+           lambda: b5.streaming_topk_plain(Un, Tn, rp, it, k),
+           err, Tn.numel() * 4 + Un.numel() * 4 + (B + 1 + n_pairs) * 4 + B * k * 8,
+           2 * B * n_items * D, library_fn=library_streaming, reps=10)
+    del Un, Tn
+
+    # ---- B6: the item-table updates of three train steps -----------------
+    cloop = DeviceEpochLoop(TrainMode.BOTH, None, ctrain, cconfig["MODEL_INPUT_TYPE"], 1,
+                            cdataset.num_total_user, TorchRandomSource(1, dev), dev)
+    cxs = cloop._build_xs(cloop._shuffle_material(0), 0, 0, B6_STEPS)
+    step_ids = [torch.cat([cxs["source_item_id"][s], cxs["target_item_id"][s]]).to(torch.int32)
+                for s in range(B6_STEPS)]
+    del cloop, cxs
+    N, R = cdataset.num_total_item, step_ids[0].shape[0]
+    lr = float(cconfig["learning_rate"])
+    P0 = 0.1 * torch.randn(N, D, device=dev, generator=g)
+    grads = [torch.round(64 * torch.randn(R, D, device=dev, generator=g)) / 64
+             for _ in range(B6_STEPS)]
+    firstpos = b6.first_position_scratch(N, dev)
+    kern = (P0.clone(), torch.zeros_like(P0), torch.zeros_like(P0))
+    plain = (P0.clone(), torch.zeros_like(P0), torch.zeros_like(P0))
+    tp = torch.nn.Parameter(P0.clone())
+    topt = torch.optim.SparseAdam([tp], lr=lr)
+    for c, (ids, G) in enumerate(zip(step_ids, grads), 1):
+        step = b6.adam_step_size(lr, 0.9, 0.999, c)
+        b6.sparse_adam(*kern, G, ids, step, firstpos=firstpos)
+        b6.sparse_adam_plain(*plain, G, ids, step, 0.9, 0.999, 1e-8)
+        tp.grad = torch.sparse_coo_tensor(ids.long()[None], G, (N, D))
+        topt.step()
+    st = topt.state[tp]
+    atol, rtol = B6_TOL
+    err = err_torch = 0.0
+    for name, got, want, torch_want in zip(("p", "mu", "nu"), kern, plain,
+                                           (tp.detach(), st["exp_avg"], st["exp_avg_sq"])):
+        for ref_name, ref in (("plain", want), ("torch.optim.SparseAdam", torch_want)):
+            diff = (got - ref).abs()
+            assert bool((diff <= atol * float(ref.abs().max()) + rtol * ref.abs()).all()), \
+                f"sparse_adam {name} against {ref_name}: error {float(diff.max())}"
+        err = max(err, float((got - want).abs().max()))
+        err_torch = max(err_torch, float((got - torch_want).abs().max()))
+    print(f"  sparse_adam: {B6_STEPS} steps, max_abs_err against torch.optim.SparseAdam "
+          f"{err_torch:.3g}", flush=True)
+    assert bool((firstpos == b6.INT32_MAX).all()), "sparse_adam left its scratch dirty"
+    ids, G = step_ids[0], grads[0]
+    step = b6.adam_step_size(lr, 0.9, 0.999, 1)
+    n_rows = int(torch.unique(ids).numel())
+    record("sparse_adam",
+           lambda: b6.sparse_adam(*kern, G, ids, step, firstpos=firstpos),
+           lambda: b6.sparse_adam_plain(*plain, G, ids, step, 0.9, 0.999, 1e-8),
+           err, G.numel() * 4 + R * 4 + 6 * n_rows * D * 4, n_rows * D * 12 + R * D,
+           library_fn=topt.step)
     return out
 
 
-def profile_epoch(dev):
+def profile_epoch(dev, cfg, tag="", export=True):
     """Device time by kernel over one warm BOTH epoch and one validation
-    pass at the main path's configuration."""
+    pass of the configuration ``cfg``; with ``export``, Chrome traces of both
+    under ``chiprun_out/`` (names prefixed by ``tag``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -337,7 +576,7 @@ def profile_epoch(dev):
     from recbole_cdr_tpu_torch.trainer.trainer import CrossDomainTrainer
     from recbole_cdr_tpu_torch.utils import init_seed
 
-    config = CDRConfig(model="CMF", config_dict=config_dict(), _cli_args=[])
+    config = CDRConfig(model="CMF", config_dict=cfg, _cli_args=[])
     init_seed(config["seed"], True)
     dataset = create_dataset(config)
     train_data, valid_data, _ = data_preparation(config, dataset)
@@ -366,16 +605,18 @@ def profile_epoch(dev):
         for e in events:
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-        print(f"{name}: wall {wall_ms:.3f} ms unprofiled, device busy {busy_us / 1e3:.3f} ms "
-              f"({100 * busy_us / 1e3 / wall_ms:.1f}% of the unprofiled wall)", flush=True)
+        print(f"{tag}{name}: wall {wall_ms:.3f} ms unprofiled, device busy "
+              f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e3 / wall_ms:.1f}% of the "
+              "unprofiled wall)", flush=True)
         for key, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
             print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:100]}", flush=True)
-        path = os.path.join(out_dir, f"torch_{name}_trace.json")
-        prof.export_chrome_trace(path)
-        print(f"  trace: {os.path.relpath(path, REPO)}", flush=True)
+        if export:
+            path = os.path.join(out_dir, f"torch_{tag}{name}_trace.json")
+            prof.export_chrome_trace(path)
+            print(f"  trace: {os.path.relpath(path, REPO)}", flush=True)
     t0 = time.perf_counter()
     float(loop.run_epoch(2))
-    print(f"train_epoch after profiling, same process: "
+    print(f"{tag}train_epoch after profiling, same process: "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms unprofiled", flush=True)
 
 
@@ -386,7 +627,6 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    import numpy as np
 
     from recbole_cdr_tpu_torch import ops, run_recbole_cdr
     from recbole_cdr_tpu_torch.ops import build
@@ -415,14 +655,19 @@ def main():
     t0 = time.perf_counter()
     gen_data()
     print(f"synthetic pair ready in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    gen_catalog()
+    print(f"catalog pair ready in {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
-        profile_epoch(dev)
+        profile_epoch(dev, config_dict())
+        profile_epoch(dev, catalog_config(), "catalog_", export=False)  # traces of ~100 MB
         return 0
 
     # the checks time the kernels under torch.profiler; they run in a child
-    # process so that the main path below is timed in a process the profiler
+    # process so that the paths below are timed in a process the profiler
     # never ran in (``--profile`` times a warm epoch before and after tracing)
-    print("== phase 2: kernel checks at the main path's shapes", flush=True)
+    print("== phase 2: kernel checks at the paths' shapes", flush=True)
+    t0 = time.perf_counter()
     child = subprocess.run([sys.executable, os.path.abspath(__file__), "--kernel-checks"],
                            stdout=subprocess.PIPE, text=True, check=True)
     records = None
@@ -432,31 +677,40 @@ def main():
         else:
             print(line, flush=True)
     assert records is not None, "the kernel checks reported no records"
+    print(f"kernel checks took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("== phase 3: main path, run_recbole_cdr(model='CMF') on the card", flush=True)
+    print("== phase 3: dense path, run_recbole_cdr(model='CMF') on the card", flush=True)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     result = run_recbole_cdr(model="CMF", config_dict=config_dict(), saved=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    hist = result["history"]
-    for h in hist:
-        print(f"epoch {h['epoch']}: loss {h['loss']:.6f}  train {h['train_seconds']:.4f} s "
-              f"({h['train_examples'] / h['train_seconds']:.1f} examples/s)  valid "
-              f"{h['valid_seconds']:.4f} s for {h['valid_users']} users "
-              f"({h['valid_users'] / h['valid_seconds']:.1f} users/s)",
-              flush=True)
-    print(f"valid: {result['best_valid_result']}", flush=True)
-    print(f"test: {result['test_result']}", flush=True)
-    print(f"main path wall {wall:.2f} s", flush=True)
-    print("kernels " + json.dumps(counts), flush=True)
-    missing = [k for k, v in counts.items() if v <= 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
-    metrics = list(result["test_result"].values()) + list(result["best_valid_result"].values())
-    assert metrics and all(math.isfinite(v) for v in metrics), result
+    counts = {"dense": ops.launch_counts()}
+    hist = _report_run(result, wall, counts["dense"], DENSE_PATH)
     assert len(hist) == EPOCHS and hist[-1]["loss"] < hist[0]["loss"], hist
-    assert np.isfinite([h["loss"] for h in hist]).all()
+
+    print("== phase 4: catalog path, run_recbole_cdr(model='CMF', phase_optimizer='sparse') "
+          "with streaming evaluation", flush=True)
+    # each validation records the process's peak allocation so far, an upper
+    # bound of its own: count it from this run
+    del result
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_recbole_cdr(model="CMF", config_dict=catalog_config(), saved=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["catalog"] = ops.launch_counts()
+    hist = _report_run(result, wall, counts["catalog"], CATALOG_PATH)
+    model = result["model"]
+    assert all(p.grad is None for p in model.parameters()), "a table gradient was allocated"
+    state = 3 * sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"parameters + moments {state / 2 ** 30:.3f} GiB; peak allocation up to each "
+          "validation " + ", ".join(f"{h['valid_peak_bytes'] / 2 ** 30:.3f} GiB" for h in hist),
+          flush=True)
+    assert all(h["valid_peak_bytes"] - state < CATALOG_EVAL_HEADROOM for h in hist), hist
+    assert len(hist) == CATALOG_EPOCHS and hist[1]["loss"] < hist[0]["loss"], hist
 
     replaces = {
         "gather_dot_forward": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
@@ -469,10 +723,17 @@ def main():
                         "recbole_cdr_tpu/trainer/device_loop.py:63"),
         "masked_topk": ("recbole_cdr_tpu_torch/csrc/masked_topk.cu",
                         "recbole_cdr_tpu/evaluator/evaluator.py:40"),
+        "streaming_topk": ("recbole_cdr_tpu_torch/csrc/streaming_topk.cu",
+                           "recbole_cdr_tpu/ops/topk.py:150"),
+        "sparse_adam": ("recbole_cdr_tpu_torch/csrc/sparse_adam.cu",
+                        "recbole_cdr_tpu/trainer/trainer.py:274"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
-         "replaces": replaces[name][1], "launches": counts[name], **records[name]}
+         "replaces": replaces[name][1],
+         "launches": sum(c[name] for c in counts.values()),
+         "launches_by_path": {path: c[name] for path, c in counts.items()},
+         **records[name]}
         for name in ops.WRAPPERS
     ]
     print(smi, flush=True)
@@ -481,6 +742,33 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _report_run(result, wall, counts, path):
+    """Print a run's per-epoch numbers, metrics and launch counts; check that
+    exactly the kernels of ``path`` launched and that the metrics and losses
+    are finite. Returns the run's history."""
+    import numpy as np
+
+    hist = result["history"]
+    for h in hist:
+        print(f"epoch {h['epoch']}: loss {h['loss']:.6f}  train {h['train_seconds']:.4f} s "
+              f"({h['train_examples'] / h['train_seconds']:.1f} examples/s)  valid "
+              f"{h['valid_seconds']:.4f} s for {h['valid_users']} users "
+              f"({h['valid_users'] / h['valid_seconds']:.1f} users/s)",
+              flush=True)
+    print(f"valid: {result['best_valid_result']}", flush=True)
+    print(f"test: {result['test_result']}", flush=True)
+    print(f"path wall {wall:.2f} s", flush=True)
+    print("kernels " + json.dumps(counts), flush=True)
+    missing = [k for k in path if counts[k] <= 0]
+    assert not missing, f"kernels never launched on this path: {missing}"
+    stray = [k for k, v in counts.items() if k not in path and v != 0]
+    assert not stray, f"kernels of another path launched on this one: {stray}"
+    metrics = list(result["test_result"].values()) + list(result["best_valid_result"].values())
+    assert metrics and all(math.isfinite(v) for v in metrics), result
+    assert np.isfinite([h["loss"] for h in hist]).all()
+    return hist
 
 
 if __name__ == "__main__":

@@ -1,14 +1,20 @@
-"""Full-sort evaluation driver (dense path).
+"""Full-sort evaluation driver.
 
-Port of ``recbole_cdr_tpu/evaluator/evaluator.py::FullSortEvaluator`` for
-item spaces below ``streaming_topk_threshold``: per user tile, the score
-matmul (``torch.matmul`` in full float32), then kernel K4
-(``ops/masked_topk.py``) masks the tile's history and PAD column and selects
-the top-k ids; only the [B, k] ids leave the device. Hits and the
-recbole-exact metrics are computed on the host.
+Port of ``recbole_cdr_tpu/evaluator/evaluator.py::FullSortEvaluator``. Two
+device paths produce each eval user's top-k item ids; only those ids leave
+the device, and hits and the recbole-exact metrics are computed on the host.
 
-The streaming top-k path (ROADMAP.md A7) and GAUC (A9) are not ported yet
-and raise.
+- Dense (item spaces below ``streaming_topk_threshold``): per user tile, the
+  score matmul (``torch.matmul`` in full float32), then kernel K4
+  (``ops/masked_topk.py``) masks the tile's history and PAD column and
+  selects the top-k.
+- Streaming (:meth:`FullSortEvaluator.evaluate_streaming`, models with
+  dot-product factors): the factors are computed once per pass, then per
+  user tile kernel B5 (``ops/topk.py``) scores the item axis in chunks and
+  keeps each chunk's top-k, so no [B, items] score block exists.
+
+GAUC (ROADMAP.md A9) and the mesh-sharded streaming top-k (A13) are not
+ported yet and raise.
 """
 
 from typing import Dict
@@ -22,6 +28,7 @@ from recbole_cdr_tpu_torch.evaluator.metrics import (
     compute_topk_metrics,
 )
 from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk
+from recbole_cdr_tpu_torch.ops.topk import streaming_topk
 
 
 def _fused_eval_arrays(eval_batches, B: int, device):
@@ -77,7 +84,8 @@ class FullSortEvaluator:
             m for m in self.metrics
             if m != "gauc" and m not in NON_ACCURACY_METRICS
         ]
-        if "gauc" in self.metrics:
+        self.need_gauc = "gauc" in self.metrics
+        if self.need_gauc:
             raise NotImplementedError("GAUC is not ported yet (ROADMAP.md A9)")
         if config["eval_score_dtype"] not in (None, "float32"):
             raise NotImplementedError("only float32 eval scoring is ported (ROADMAP.md A10)")
@@ -86,6 +94,11 @@ class FullSortEvaluator:
         self.topk = config["topk"]
         self.max_k = max(self.topk)
         self.decimal_place = config["metric_decimal_place"] or 4
+
+    #: minimum user rows per streaming tile (the JAX package's
+    #: STREAM_USER_BLOCK); streaming memory is O(B * k * item chunks), not
+    #: O(B * items)
+    STREAM_USER_BLOCK = 2048
 
     def _empty_result(self) -> Dict[str, float]:
         out = {f"{m}@{k}": 0.0 for m in self.topk_metrics for k in self.topk}
@@ -157,12 +170,49 @@ class FullSortEvaluator:
             torch.backends.cuda.matmul.allow_tf32 = tf32
         return np.concatenate(out).astype(np.int64)
 
+    def streaming_topk_ids(self, factors_fn, eval_batches, device) -> np.ndarray:
+        """[U, max_k] top-k item ids of every eval user (host array) through
+        kernel B5. ``factors_fn(users [U] int64) -> (user_e [U, D],
+        item_table [item_num, D])`` on ``device``, called once per pass."""
+        U = len(eval_batches.uid_list)
+        B = max(eval_batches.user_batch, min(self.STREAM_USER_BLOCK, U))
+        uids, row_ptr, items = _fused_eval_arrays(eval_batches, B, device)
+        with torch.no_grad():
+            user_e, item_table = factors_fn(uids)
+            ids = []
+            for t in range(-(-U // B)):
+                block = user_e[t * B:(t + 1) * B]
+                n = block.shape[0]
+                ids.append(streaming_topk(block, item_table, row_ptr[t, :n + 1], items[t],
+                                          self.max_k)[1])
+            return torch.cat(ids).cpu().numpy().astype(np.int64)
+
+    def evaluate_streaming(self, factors_fn, eval_batches, device,
+                           mesh=None) -> Dict[str, float]:
+        """Full-sort evaluation via the streaming top-k: the [B, items] score
+        matrix never exists. GAUC needs full rank statistics, so callers
+        route it to :meth:`evaluate`."""
+        if self.need_gauc:
+            raise ValueError("GAUC requires dense full-sort evaluation, not streaming.")
+        if mesh is not None:
+            raise NotImplementedError(
+                "the mesh-sharded streaming top-k is not ported yet (ROADMAP.md A13)"
+            )
+        if len(eval_batches.uid_list) == 0:
+            return self._empty_result()
+        return self._result(self.streaming_topk_ids(factors_fn, eval_batches, device),
+                            eval_batches)
+
     def evaluate(self, score_fn, eval_batches, device) -> Dict[str, float]:
         """Returns {metric@k: value} averaged over the eval users."""
-        U = len(eval_batches.uid_list)
-        if U == 0:
+        if len(eval_batches.uid_list) == 0:
             return self._empty_result()
-        topk_idx = self.topk_ids(score_fn, eval_batches, device)
+        return self._result(self.topk_ids(score_fn, eval_batches, device), eval_batches)
+
+    def _result(self, topk_idx, eval_batches) -> Dict[str, float]:
+        """Hits of the [U, max_k] top-k ids against the positives, then the
+        metrics."""
+        U = len(eval_batches.uid_list)
         item_num = eval_batches.item_num
         pos_keys = eval_batches.pos_keys_sorted
         owners = np.arange(U, dtype=np.int64)[:, None]

@@ -109,13 +109,37 @@ class CrossDomainRecommender(nn.Module):
         trainable in this phase. Default: everything trainable."""
         return lambda name: True
 
+    def sparse_spec(self, phase: str):
+        """Optional row-sparse optimizer support (``phase_optimizer: sparse``):
+        ``{param_name: [batch_key, ...]}`` mapping each embedding table to the
+        batch fields whose ids index it in this phase's loss. Declaring a
+        table asserts that the loss reads it ONLY through those ids; the
+        training step then differentiates with respect to the gathered rows
+        and updates only touched rows. ``None`` (default): unsupported, the
+        phase falls back to the dense update."""
+        return None
+
     # -- contract -----------------------------------------------------------
 
     def loss_fn(self, phase: str):
         """Returns ``batch -> scalar loss`` for the phase."""
         raise NotImplementedError
 
+    def forward(self, batch, phase: str):
+        """The phase's loss on ``batch``; lets ``torch.func.functional_call``
+        run the loss with some parameters replaced (the sparse step's
+        gathered sub-tables)."""
+        return self.loss_fn(phase)(batch)
+
     def full_sort(self, users: torch.Tensor, phase: str = "TARGET") -> torch.Tensor:
         """``users [B] -> scores [B, item_space]``; target phases score the
         contiguous target prefix ``[0, target_num_items)``."""
         raise NotImplementedError
+
+    def full_sort_factors(self, phase: str = "TARGET"):
+        """Optional: ``users [B] -> (user_repr [B, D], item_repr
+        [item_space, D])`` for models whose full-sort score is a plain dot
+        product. Enables the streaming top-k evaluator for large item spaces
+        without materializing [B, items] scores. ``None`` (default): the
+        model has no such form."""
+        return None

@@ -8,7 +8,8 @@ interaction matrices with a BCE objective
 The pair scores of a step go through one call of kernel K1
 (``ops/gather_dot.py``) for both domains; full-sort scoring is one
 ``[B, D] @ [D, target_num_items]`` matmul against the contiguous target
-prefix of the item table.
+prefix of the item table, whose two factors ``full_sort_factors`` also hands
+to the streaming evaluator.
 """
 
 import torch
@@ -65,6 +66,19 @@ class CMF(CrossDomainRecommender):
     def loss_fn(self, phase: str):
         return self.loss
 
+    def sparse_spec(self, phase: str):
+        """Both tables are read only through batch ids (scores + EmbLoss on
+        the gathered rows), so every phase supports the row-sparse
+        optimizer."""
+        return {
+            "user_embedding": [self.SOURCE_USER_ID, self.TARGET_USER_ID],
+            "item_embedding": [self.SOURCE_ITEM_ID, self.TARGET_ITEM_ID],
+        }
+
     def full_sort(self, users, phase: str = "TARGET"):
-        user_e = self.user_embedding[users]
-        return torch.matmul(user_e, self.item_embedding[:self.target_num_items].T)
+        user_e, item_e = self.full_sort_factors(phase)(users)
+        return torch.matmul(user_e, item_e.T)
+
+    def full_sort_factors(self, phase: str = "TARGET"):
+        return lambda users: (self.user_embedding[users],
+                              self.item_embedding[:self.target_num_items])

@@ -1,11 +1,18 @@
-"""Hand-written CUDA kernels of the main path, one module per kernel.
+"""Hand-written CUDA kernels of the port, one module per kernel.
 
 Each module holds the wrapper (which launches the kernel for CUDA tensors
 and runs the plain PyTorch version for CPU tensors), the plain version, and
 a ``launches`` count on the wrapper that grows by one per kernel launch.
 """
 
-from recbole_cdr_tpu_torch.ops import gather_dot, masked_topk, neg_sampler, shuffle
+from recbole_cdr_tpu_torch.ops import (
+    gather_dot,
+    masked_topk,
+    neg_sampler,
+    shuffle,
+    sparse_adam,
+    topk,
+)
 
 #: kernel name -> wrapper carrying its launch count
 WRAPPERS = {
@@ -14,6 +21,8 @@ WRAPPERS = {
     "neg_sampler": neg_sampler.sample_negatives,
     "swap_or_not": shuffle.swap_or_not,
     "masked_topk": masked_topk.masked_topk,
+    "streaming_topk": topk.streaming_topk,
+    "sparse_adam": sparse_adam.sparse_adam,
 }
 
 

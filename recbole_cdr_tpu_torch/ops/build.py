@@ -23,7 +23,8 @@ import time
 import torch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("gather_dot", "neg_sampler", "shuffle", "masked_topk")
+SOURCES = ("gather_dot", "neg_sampler", "shuffle", "masked_topk", "streaming_topk",
+           "sparse_adam")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -31,6 +32,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signatures: name -> (symbol, argtypes)
 _SIGNATURES = {
     "gather_dot": {
@@ -43,6 +45,13 @@ _SIGNATURES = {
     },
     "shuffle": {"swap_or_not": [_P, _P, _I, _I, _I, _P, _P, _I, _P]},
     "masked_topk": {"masked_topk": [_P, _I, _I, _P, _P, _I, _P, _P]},
+    "streaming_topk": {
+        "streaming_topk": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+        "streaming_topk_chunk": [],
+    },
+    "sparse_adam": {
+        "sparse_adam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+    },
 }
 
 _lock = threading.Lock()

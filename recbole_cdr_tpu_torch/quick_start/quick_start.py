@@ -20,7 +20,8 @@ def run_recbole_cdr(model=None, config_file_list=None, config_dict=None, saved=T
     and evaluates the test split with them.
 
     Returns the JAX package's result keys plus ``history``, one record per
-    trained epoch (loss, seconds, examples; validation seconds and users)."""
+    trained epoch (loss, seconds, examples; validation seconds and users),
+    and ``model``, the trained module."""
     config = CDRConfig(model=model, config_file_list=config_file_list, config_dict=config_dict)
     resolve_device(config)  # fail before any data work when the card is missing
     init_seed(config["seed"], config["reproducibility"])
@@ -51,4 +52,5 @@ def run_recbole_cdr(model=None, config_file_list=None, config_dict=None, saved=T
         "best_valid_result": best_valid_result,
         "test_result": test_result,
         "history": trainer.history,
+        "model": model_obj,
     }

@@ -6,7 +6,9 @@ the loop builds every step's batch IN BULK (the epoch shuffle through kernel
 K3, ``ops/shuffle.py``; the negatives through kernel K2,
 ``ops/neg_sampler.py``), in segments bounded by ``SEGMENT_BYTES``, then a
 Python loop walks the per-step slices through the trainer's step function
-(loss -> backward -> optimizer step).
+(loss -> backward -> optimizer step; for ``phase_optimizer: sparse`` the
+step first re-bases the batch onto gathered sub-tables with
+:func:`rebase_sparse_batch`).
 
 All randomness comes from a *random source* (:class:`TorchRandomSource` by
 default, drawing from a ``torch.Generator`` on the training device): the
@@ -105,6 +107,37 @@ def _contiguous_ranges(ids: np.ndarray, max_ranges: int = 2):
     starts = np.concatenate([[0], breaks + 1])
     ends = np.concatenate([breaks + 1, [len(ids)]])
     return tuple((int(ids[s]), int(e - s)) for s, e in zip(starts, ends))
+
+
+def rebase_sparse_batch(batch, spec):
+    """Re-base a batch onto the gathered rows of each table of ``spec``
+    (``{table: [batch_key, ...]}``, ``model.sparse_spec``): every occurrence
+    of a batch id becomes its own row of an [R, D] sub-table, and the batch's
+    id fields are remapped to positions ``0..R-1``. Returns (the remapped
+    batch, ``{table: int32 [R] ids}``). A key that indexes several tables
+    must sit at the same offset in each of their concatenations.
+
+    Port of the sparse step body of ``recbole_cdr_tpu/trainer/
+    device_loop.py:619-648``."""
+    batch2 = dict(batch)
+    idx = {}
+    key_offset = {}
+    for name, keys in spec.items():
+        parts, off = [], 0
+        for k in keys:
+            a = batch[k].reshape(-1)
+            if key_offset.setdefault(k, off) != off:
+                raise ValueError(
+                    f"sparse_spec: batch key {k!r} sits at offsets {key_offset[k]} and "
+                    f"{off} in different tables' index concats; reorder the spec so "
+                    "shared keys align"
+                )
+            batch2[k] = (off + torch.arange(a.shape[0], dtype=a.dtype, device=a.device)
+                         ).reshape(batch[k].shape)
+            parts.append(a.to(torch.int32))
+            off += a.shape[0]
+        idx[name] = torch.cat(parts) if len(parts) > 1 else parts[0]
+    return batch2, idx
 
 
 class TorchRandomSource:

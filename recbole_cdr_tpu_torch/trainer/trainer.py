@@ -16,9 +16,20 @@ behaviour the JAX package's ``SingleOptimizer`` emulates. Order within a
 step: clip the raw grads, then L2 weight decay (inside the optimizer), then
 the update.
 
+``phase_optimizer: sparse`` (or ``single`` with ``learner: sparse_adam``)
+trains with :class:`SparseAdam` instead: torch.optim.SparseAdam semantics on
+the tables the model declares in ``sparse_spec``, whose gradients are taken
+with respect to the gathered rows (no [N, D] gradient exists) and applied by
+kernel B6 (``ops/sparse_adam.py``); other parameters, and phases without a
+spec, get dense torch-Adam on the same shared moments.
+
+Full-sort evaluation streams the item axis through kernel B5
+(``ops/topk.py``) when the item space reaches ``streaming_topk_threshold``
+and the model has dot-product factors; otherwise it takes the dense path.
+
 Not ported yet, and raising when configured: checkpoint files and resume
-(ROADMAP.md A12), SparseAdam (A11), profiling (A12), mesh / multi-GPU (A13),
-bfloat16 compute (A10), the host batch path (device_side_sampling False).
+(ROADMAP.md A12), profiling (A12), mesh / multi-GPU (A13), bfloat16 compute
+(A10), the host batch path (device_side_sampling False).
 """
 
 import time
@@ -28,7 +39,16 @@ import numpy as np
 import torch
 
 from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator
-from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
+from recbole_cdr_tpu_torch.ops.sparse_adam import (
+    adam_step_size,
+    first_position_scratch,
+    sparse_adam,
+)
+from recbole_cdr_tpu_torch.trainer.device_loop import (
+    DeviceEpochLoop,
+    TorchRandomSource,
+    rebase_sparse_batch,
+)
 from recbole_cdr_tpu_torch.utils import resolve_device, set_color
 from recbole_cdr_tpu_torch.utils.enums import train_mode2state
 
@@ -39,7 +59,7 @@ def build_optimizer(config, params) -> torch.optim.Optimizer:
     learner = (config["learner"] or "adam").lower()
     lr = float(config["learning_rate"])
     weight_decay = float(config["weight_decay"] or 0.0)
-    if learner == "adam":
+    if learner in ("adam", "sparse_adam"):  # per_phase sparse_adam: dense Adam, as in JAX
         return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
     if learner == "sgd":
         return torch.optim.SGD(params, lr=lr, weight_decay=weight_decay)
@@ -70,6 +90,125 @@ def make_train_step(model, optimizer, loss_fn, trainable, clip=None):
     return step
 
 
+class SparseAdam:
+    """torch.optim.SparseAdam semantics for embedding tables, with one
+    ``{"mu", "nu", "count"}`` state per parameter shared across phases.
+
+    Port of ``recbole_cdr_tpu/trainer/trainer.py::SparseAdam``:
+
+    - a table's step count ticks once per optimizer step, touched rows or
+      not;
+    - only the rows present in a step's gradient (duplicates coalesced by
+      summation) update their moments and receive an update; untouched rows
+      keep stale moments ("lazy");
+    - ``denom = sqrt(nu) + eps`` with both bias corrections folded into the
+      step size (not the dense-Adam form, where eps is added after
+      ``sqrt(nu / bc2)``);
+    - weight_decay and gradient clipping are rejected.
+
+    Tables in the model's ``sparse_spec`` take :meth:`row_update` (kernel B6
+    on the card); every other trainable parameter takes
+    :meth:`dense_entry_update`, torch's dense Adam on the same state."""
+
+    def __init__(self, config, model):
+        learner = (config["learner"] or "adam").lower()
+        if learner not in ("adam", "sparse_adam"):
+            raise ValueError(
+                f"phase_optimizer: 'sparse' supports adam/sparse_adam, got '{learner}'"
+            )
+        if float(config["weight_decay"] or 0.0) != 0.0:
+            raise ValueError(
+                "phase_optimizer: 'sparse' rejects weight_decay (as "
+                "torch.optim.SparseAdam does)"
+            )
+        if config["clip_grad_norm"]:
+            raise ValueError(
+                "phase_optimizer: 'sparse' does not support clip_grad_norm "
+                "(clipping needs the global grad norm, which defeats the "
+                "row-sparse update)"
+            )
+        self.lr = float(config["learning_rate"])
+        self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
+        self.params = dict(model.named_parameters())
+        self.state = {
+            "mu": {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for n, p in self.params.items()},
+            "nu": {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for n, p in self.params.items()},
+            "count": {n: 0 for n in self.params},
+        }
+        #: kernel B6's [N] first-occurrence scratch per table, kept so a
+        #: step costs O(rows touched), not O(N)
+        self._firstpos = {}
+
+    def row_update(self, p, mu, nu, g_rows, ids, c, firstpos=None):
+        """One SparseAdam step for one table, in place: ``g_rows[j]`` is the
+        grad of row ``ids[j]`` (duplicates allowed), ``c`` the table's step
+        count after this step's increment."""
+        sparse_adam(p, mu, nu, g_rows, ids, adam_step_size(self.lr, self.b1, self.b2, c),
+                    self.b1, self.b2, self.eps, firstpos=firstpos)
+
+    def dense_entry_update(self, g, mu, nu, c):
+        """torch dense-Adam step for one parameter: returns (update, mu, nu),
+        bias corrections in float32 as in the JAX package."""
+        f = np.float32
+        bc1 = float(f(1.0) - f(self.b1) ** f(c))
+        bc2 = float(f(1.0) - f(self.b2) ** f(c))
+        mu2 = self.b1 * mu + (1.0 - self.b1) * g
+        nu2 = self.b2 * nu + (1.0 - self.b2) * (g * g)
+        upd = -self.lr * (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + self.eps)
+        return upd, mu2, nu2
+
+    @torch.no_grad()
+    def step_table(self, name, g_rows, ids):
+        p = self.params[name]
+        if p.device.type == "cuda" and name not in self._firstpos:
+            self._firstpos[name] = first_position_scratch(p.shape[0], p.device)
+        self.state["count"][name] += 1
+        self.row_update(p.data, self.state["mu"][name], self.state["nu"][name],
+                        g_rows, ids, self.state["count"][name], self._firstpos.get(name))
+
+    @torch.no_grad()
+    def step_dense(self, name, grad):
+        p = self.params[name]
+        if grad is None:  # unused in the loss: JAX's grad is zeros
+            grad = torch.zeros_like(p)
+        self.state["count"][name] += 1
+        upd, self.state["mu"][name], self.state["nu"][name] = self.dense_entry_update(
+            grad, self.state["mu"][name], self.state["nu"][name], self.state["count"][name])
+        p.add_(upd)
+
+
+def make_sparse_train_step(model, optimizer, phase, spec, trainable):
+    """``batch -> loss`` performing one :class:`SparseAdam` step. The loss
+    runs (``torch.func.functional_call``) on [R, D] sub-tables gathered from
+    the tables of ``spec`` at the batch's ids, with the ids re-based onto
+    them, so the gradients are [R, D] rows and no [N, D] table gradient is
+    allocated; kernel B6 then updates the touched rows. Parameters outside
+    ``spec`` that pass ``trainable`` take a dense Adam step; the rest stay
+    frozen. With an empty ``spec`` this is the dense fallback of a phase
+    without one."""
+    named = dict(model.named_parameters())
+    top = lambda n: n.split(".", 1)[0]
+    rest = [n for n in named if top(n) not in spec]
+    dense = [n for n in rest if trainable(top(n))]
+
+    def step(batch):
+        batch2, idx = rebase_sparse_batch(batch, spec)
+        sub = {n: named[n].detach()[idx[n].long()].requires_grad_() for n in spec}
+        loss = torch.func.functional_call(model, sub, (batch2, phase))
+        loss.backward()
+        for n in spec:
+            optimizer.step_table(n, sub[n].grad, idx[n])
+        for n in dense:
+            optimizer.step_dense(n, named[n].grad)
+        for n in rest:
+            named[n].grad = None
+        return loss.detach()
+
+    return step
+
+
 def _check_supported(config):
     unsupported = {
         "resume_checkpoint_path": ("checkpoint files", "A12"),
@@ -86,12 +225,10 @@ def _check_supported(config):
         raise NotImplementedError(
             "the host batch path is not ported: use device_side_sampling True"
         )
-    learner = (config["learner"] or "adam").lower()
-    if (config["phase_optimizer"] or "single").lower() == "sparse" or learner == "sparse_adam":
-        raise NotImplementedError("SparseAdam is not ported yet (ROADMAP.md A11)")
-    if (config["phase_optimizer"] or "single").lower() not in ("single", "per_phase"):
+    if (config["phase_optimizer"] or "single").lower() not in ("single", "per_phase", "sparse"):
         raise ValueError(
-            f"phase_optimizer must be 'single' or 'per_phase', got {config['phase_optimizer']!r}"
+            f"phase_optimizer must be 'single', 'per_phase' or 'sparse', "
+            f"got {config['phase_optimizer']!r}"
         )
 
 
@@ -118,8 +255,13 @@ class CrossDomainTrainer:
         self.clip = float(clip.get("max_norm", 5.0)) if clip else None
 
         self.evaluator = FullSortEvaluator(config)
-        self.per_phase = (config["phase_optimizer"] or "single").lower() == "per_phase"
-        self.optimizer = build_optimizer(config, self.model.parameters())
+        mode = (config["phase_optimizer"] or "single").lower()
+        self.per_phase = mode == "per_phase"
+        learner = (config["learner"] or "adam").lower()
+        if mode == "sparse" or (mode == "single" and learner == "sparse_adam"):
+            self.optimizer = SparseAdam(config, self.model)
+        else:
+            self.optimizer = build_optimizer(config, self.model.parameters())
         #: every device random draw of training comes from this source
         self.random_source = TorchRandomSource(config["seed"] or 2022, self.device)
 
@@ -178,10 +320,21 @@ class CrossDomainTrainer:
                 self.model.total_num_users, self.random_source, self.device,
             )
         loop = self._loops[scheme]
-        loop.step_fn = make_train_step(
-            self.model, self.optimizer, self.model.loss_fn(scheme),
-            self.model.trainable_predicate(scheme), self.clip,
-        )
+        pred = self.model.trainable_predicate(scheme)
+        if isinstance(self.optimizer, SparseAdam):
+            spec = self.model.sparse_spec(scheme)
+            if not (spec and all(pred(name) for name in spec)):
+                self.logger.warning(
+                    f"phase_optimizer 'sparse': {type(self.model).__name__} declares no "
+                    f"sparse_spec for phase {scheme} — falling back to the dense update "
+                    "for this phase"
+                )
+                spec = {}
+            loop.step_fn = make_sparse_train_step(self.model, self.optimizer, scheme, spec, pred)
+        else:
+            loop.step_fn = make_train_step(
+                self.model, self.optimizer, self.model.loss_fn(scheme), pred, self.clip,
+            )
         return loop
 
     def _fit_phase_device(self, scheme, train_data, valid_data, verbose, saved):
@@ -211,6 +364,11 @@ class CrossDomainTrainer:
             valid_result = self._evaluate_batches(scheme, valid_data)
             record["valid_seconds"] = time.perf_counter() - t0
             record["valid_users"] = len(valid_data.uid_list)
+            if self.device.type == "cuda":
+                # the process's peak so far (never reset here): an upper
+                # bound of the pass's own peak, equal to it when the pass
+                # set a new one
+                record["valid_peak_bytes"] = torch.cuda.max_memory_allocated(self.device)
             valid_score = valid_result.get(self.valid_metric, 0.0)
             if verbose:
                 self.logger.info(set_color("valid result", "blue") + f": {valid_result}")
@@ -237,14 +395,15 @@ class CrossDomainTrainer:
     # ------------------------------------------------------------ validation
 
     def _evaluate_batches(self, scheme, eval_data):
+        """Streaming top-k for large item spaces when the model factors (the
+        JAX trainer's routing), the dense path otherwise."""
         threshold = int(self.config["streaming_topk_threshold"] or 32768)
-        if eval_data.item_num >= threshold:
-            raise NotImplementedError(
-                "streaming full-sort evaluation (item_num >= "
-                "streaming_topk_threshold) is not ported yet (ROADMAP.md A7)"
-            )
+        factors = self.model.full_sort_factors(scheme)
         self.model.eval()
         try:
+            if (factors is not None and eval_data.item_num >= threshold
+                    and not self.evaluator.need_gauc):
+                return self.evaluator.evaluate_streaming(factors, eval_data, self.device)
             return self.evaluator.evaluate(
                 lambda users: self.model.full_sort(users, scheme), eval_data, self.device
             )

@@ -16,6 +16,7 @@ _QUICK = {"state": "ERROR", "show_progress": False, "device": "cpu",
     {"train_epochs": ["BOTH:2"]},
     {"train_epochs": ["BOTH:2"], "clip_grad_norm": {"max_norm": 1.0}, "weight_decay": 1e-4},
     {"train_epochs": ["BOTH:1", "BOTH:1"], "phase_optimizer": "per_phase", "learner": "sgd"},
+    {"train_epochs": ["BOTH:2"], "phase_optimizer": "sparse", "streaming_topk_threshold": 1},
 ])
 def test_run_recbole_cdr_cmf_on_cpu(extra):
     result = run_recbole_cdr(model="CMF", config_dict={**_QUICK, **extra})
@@ -31,11 +32,11 @@ def test_run_recbole_cdr_cmf_on_cpu(extra):
     ("EMCDR", {}),
     ("CMF", {"compute_dtype": "bfloat16"}),
     ("CMF", {"mesh_shape": {"data": 2}}),
-    ("CMF", {"phase_optimizer": "sparse"}),
+    ("CMF", {"phase_optimizer": "sparse", "profile_steps": 1}),
     ("CMF", {"metrics": ["GAUC"]}),
     ("CMF", {"eval_args": {"split": {"RS": [0.8, 0.1, 0.1]}, "order": "RO",
                            "group_by": "user", "mode": "uniform 10"}}),
-    ("CMF", {"streaming_topk_threshold": 10}),
+    ("CMF", {"streaming_topk_threshold": 10, "eval_score_dtype": "bfloat16"}),
     ("CMF", {"train_epochs": ["TARGET:1"]}),
     ("CMF", {"neg_sampling": {"popularity": 1}}),
 ])

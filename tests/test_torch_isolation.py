@@ -1,6 +1,7 @@
 """The port imports neither jax nor the JAX package: a source scan of the
 package and chip_smoke.py, and a fresh interpreter that imports every module
-of the package and runs the entry point."""
+of the package and runs the entry point, on the dense path and on the sparse
+optimizer with the streaming evaluator."""
 
 import ast
 import os
@@ -45,9 +46,11 @@ import recbole_cdr_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if m.name != "recbole_cdr_tpu_torch.__main__":
         importlib.import_module(m.name)
-res = pkg.run_recbole_cdr(model="CMF", config_dict={
-    "state": "ERROR", "device": "cpu", "train_epochs": ["BOTH:1"], "train_batch_size": 2048})
-assert res["test_result"], res
+for extra in ({}, {"phase_optimizer": "sparse", "streaming_topk_threshold": 1}):
+    res = pkg.run_recbole_cdr(model="CMF", config_dict={
+        "state": "ERROR", "device": "cpu", "train_epochs": ["BOTH:1"],
+        "train_batch_size": 2048, **extra})
+    assert res["test_result"], res
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in {"jax", "jaxlib", "optax", "recbole_cdr_tpu"})
 print("LEAKED", leaked)
@@ -67,5 +70,6 @@ def test_every_module_is_scanned():
     mods = {m.name for m in pkgutil.walk_packages(recbole_cdr_tpu_torch.__path__,
                                                   "recbole_cdr_tpu_torch.")}
     assert {"recbole_cdr_tpu_torch.ops.gather_dot", "recbole_cdr_tpu_torch.trainer.device_loop",
-            "recbole_cdr_tpu_torch.evaluator.evaluator"} <= mods
+            "recbole_cdr_tpu_torch.evaluator.evaluator", "recbole_cdr_tpu_torch.ops.topk",
+            "recbole_cdr_tpu_torch.ops.sparse_adam"} <= mods
     assert len(list(_sources())) == len(mods) + 2  # + package __init__ + chip_smoke.py

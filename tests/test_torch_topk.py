@@ -1,0 +1,206 @@
+"""Kernel B5's plain version (``ops/topk.py``) and the port's streaming
+evaluator against the JAX package, on the CPU (where the wrapper runs the
+plain version).
+
+- The streaming top-k against JAX's ``streaming_topk_with_history`` (history
+  as a padded [B, H] matrix) and ``_stream_topk_hist_pairs`` (history as
+  item-tile-partitioned pair lists): item axes that are not a multiple of the
+  tile, k larger than the tile, rows with fewer than k unmasked items, and
+  integer-valued factors whose scores tie everywhere. Every score is then an
+  exact float32 value whatever the summation order, so the ids must be equal
+  exactly and the scores too.
+- The streaming evaluator against the port's dense evaluator and against
+  JAX's ``evaluate_streaming`` on the bundled pair (parameters quantized to
+  multiples of 1/64 so that both packages' scores are exact): equal ids and
+  metrics, and the trainer's routing by ``streaming_topk_threshold``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recbole_cdr_tpu.config import CDRConfig as JaxConfig
+from recbole_cdr_tpu.data.dataset import CrossDomainDataset as JaxDataset
+from recbole_cdr_tpu.data.utils import data_preparation as jax_data_preparation
+from recbole_cdr_tpu.evaluator.evaluator import FullSortEvaluator as JaxEvaluator
+from recbole_cdr_tpu.models.cmf import CMF as JaxCMF
+from recbole_cdr_tpu.ops.topk import _stream_topk_hist_pairs, streaming_topk_with_history
+from recbole_cdr_tpu.utils import init_seed as jax_init_seed
+
+from recbole_cdr_tpu_torch import run_recbole_cdr
+from recbole_cdr_tpu_torch.config import CDRConfig
+from recbole_cdr_tpu_torch.data.dataset import CrossDomainDataset
+from recbole_cdr_tpu_torch.data.utils import data_preparation
+from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator
+from recbole_cdr_tpu_torch.models.cmf import CMF
+from recbole_cdr_tpu_torch.ops import launch_counts, reset_launch_counts
+from recbole_cdr_tpu_torch.ops.topk import streaming_topk, streaming_topk_plain
+from recbole_cdr_tpu_torch.utils import init_seed
+from recbole_cdr_tpu_torch.utils.convert import params_from_jax
+
+
+def _case(B, I, D, max_hist, seed, heavy_rows=0):
+    """Integer-valued factors in {-3..3} and a random CSR history; the first
+    ``heavy_rows`` rows mask all but 3 items."""
+    rng = np.random.default_rng(seed)
+    U = rng.integers(-3, 4, (B, D)).astype(np.float32)
+    T = rng.integers(-3, 4, (I, D)).astype(np.float32)
+    hist = [rng.choice(I, rng.integers(0, max_hist + 1), replace=False) for _ in range(B)]
+    for r in range(heavy_rows):
+        hist[r] = rng.permutation(I)[:I - 3]
+    row_ptr = np.concatenate([[0], np.cumsum([len(h) for h in hist])]).astype(np.int32)
+    items = np.concatenate(hist).astype(np.int32)
+    return U, T, hist, row_ptr, items
+
+
+def _jax_matrix(hist, I):
+    H = max(max(len(h) for h in hist), 1)
+    m = np.full((len(hist), H), I, np.int32)  # sentinel >= I pads
+    for r, h in enumerate(hist):
+        m[r, :len(h)] = h
+    return m
+
+
+def _jax_pairs(hist, I, tile):
+    """[n_tiles, P] (row, item, valid) pair lists partitioned by item tile."""
+    n_tiles = -(-I // tile)
+    cells = [[] for _ in range(n_tiles)]
+    for r, h in enumerate(hist):
+        for it in h:
+            cells[it // tile].append((r, it))
+    P = max(max(len(c) for c in cells), 1)
+    rows = np.zeros((n_tiles, P), np.int32)
+    its = np.zeros((n_tiles, P), np.int32)
+    valid = np.zeros((n_tiles, P), bool)
+    for t, c in enumerate(cells):
+        for p, (r, it) in enumerate(c):
+            rows[t, p], its[t, p], valid[t, p] = r, it, True
+    return rows, its, valid
+
+
+# (B, I, D, k, tile, max_hist, heavy_rows): I not a multiple of the tile;
+# k > tile; rows with fewer than k unmasked items; one tile
+@pytest.mark.parametrize("B,I,D,k,tile,max_hist,heavy_rows", [
+    (13, 1000, 8, 10, 128, 40, 0),
+    (7, 300, 4, 20, 8, 30, 0),
+    (6, 61, 16, 30, 16, 20, 2),
+    (9, 2050, 12, 64, 512, 700, 1),
+    (4, 40, 3, 5, 64, 10, 1),
+])
+def test_streaming_topk_matches_jax(B, I, D, k, tile, max_hist, heavy_rows):
+    U, T, hist, row_ptr, items = _case(B, I, D, max_hist, seed=B * I + k, heavy_rows=heavy_rows)
+    want_s, want_i = streaming_topk_with_history(
+        jnp.asarray(U), jnp.asarray(T), jnp.asarray(_jax_matrix(hist, I)), k, tile)
+    rows, its, valid = _jax_pairs(hist, I, tile)
+    pair_s, pair_i = _stream_topk_hist_pairs(
+        jnp.asarray(U), jnp.asarray(T), jnp.asarray(rows), jnp.asarray(its),
+        jnp.asarray(valid), k, tile, 0, I)
+    np.testing.assert_array_equal(np.asarray(pair_i), np.asarray(want_i))
+
+    args = (torch.from_numpy(U), torch.from_numpy(T), torch.from_numpy(row_ptr),
+            torch.from_numpy(items), k)
+    got_s, got_i = streaming_topk_plain(*args, tile=tile)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    # the wrapper (the plain version at its default tile on CPU tensors)
+    # gives the same ids: the result does not depend on the tiling
+    reset_launch_counts()
+    w_s, w_i = streaming_topk(*args)
+    np.testing.assert_array_equal(w_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(w_s.numpy(), np.asarray(want_s))
+    assert launch_counts()["streaming_topk"] == 0  # no kernel on the CPU
+
+
+def test_streaming_topk_rejects_bad_arguments():
+    U, T, _, row_ptr, items = _case(3, 20, 4, 5, seed=0)
+    args = [torch.from_numpy(a) for a in (U, T, row_ptr, items)]
+    with pytest.raises(ValueError, match="k"):
+        streaming_topk(*args, 21)  # k > I
+    with pytest.raises(ValueError, match="k"):
+        streaming_topk(*args, 0)
+    with pytest.raises(TypeError):
+        streaming_topk(args[0].double(), *args[1:], 5)
+    with pytest.raises(ValueError, match="row_ptr"):
+        streaming_topk(args[0], args[1], args[2][:-1], args[3], 5)
+
+
+# ------------------------------------------------------------ evaluator
+
+METRICS = ["Recall", "MRR", "NDCG", "Hit", "Precision", "ItemCoverage", "GiniIndex"]
+
+
+def _setup():
+    cfg = {"state": "ERROR", "device": "cpu", "metrics": METRICS, "topk": [5, 10]}
+    jconfig = JaxConfig(model="CMF", config_dict=cfg, _cli_args=[])
+    jax_init_seed(jconfig["seed"], True)
+    jdataset = JaxDataset(jconfig)
+    _, _, jtest = jax_data_preparation(jconfig, jdataset)
+    jmodel = JaxCMF(jconfig, jdataset)
+    params = jax.device_get(jmodel.init_params(jax.random.PRNGKey(3)))
+    params = {k: (np.round(np.asarray(v) * 64) / 64).astype(np.float32)
+              for k, v in params.items()}
+
+    tconfig = CDRConfig(model="CMF", config_dict=cfg, _cli_args=[])
+    init_seed(tconfig["seed"], True)
+    tdataset = CrossDomainDataset(tconfig)
+    _, _, ttest = data_preparation(tconfig, tdataset)
+    model = CMF(tconfig, tdataset)
+    model.load_state_dict(params_from_jax(params))
+    return jconfig, jmodel, params, jtest, tconfig, model, ttest
+
+
+@pytest.mark.parametrize("block", [None, 16])
+def test_streaming_eval_matches_dense_and_jax(block, monkeypatch):
+    """``block=16`` splits the users into many streaming tiles, the last one
+    ragged; results must not change."""
+    jconfig, jmodel, params, jtest, tconfig, model, ttest = _setup()
+    jev = JaxEvaluator(jconfig)
+    want = jev.evaluate_streaming(jax.jit(jmodel.full_sort_factors("BOTH")), params, jtest)
+
+    if block is not None:
+        monkeypatch.setattr(FullSortEvaluator, "STREAM_USER_BLOCK", block)
+        ttest.user_batch = block
+    ev = FullSortEvaluator(tconfig)
+    factors = model.full_sort_factors("BOTH")
+    reset_launch_counts()
+    got_ids = ev.streaming_topk_ids(factors, ttest, "cpu")
+    dense_ids = ev.topk_ids(lambda users: model.full_sort(users), ttest, "cpu")
+    np.testing.assert_array_equal(got_ids, dense_ids)
+    got = ev.evaluate_streaming(factors, ttest, "cpu")
+    assert got == want
+    assert got == ev.evaluate(lambda users: model.full_sort(users), ttest, "cpu")
+    assert got["recall@10"] > 0
+    assert sum(launch_counts().values()) == 0
+
+    with pytest.raises(NotImplementedError, match="A13"):
+        ev.evaluate_streaming(factors, ttest, "cpu", mesh=object())
+    ev.need_gauc = True
+    with pytest.raises(ValueError, match="GAUC"):
+        ev.evaluate_streaming(factors, ttest, "cpu")
+
+
+def test_trainer_routes_by_streaming_threshold(monkeypatch):
+    """A lowered ``streaming_topk_threshold`` sends every validation and the
+    test pass through the streaming evaluator, with the dense path's
+    results (the pattern of tests/test_streaming_eval.py)."""
+    calls = {"streaming": 0, "dense": 0}
+    stream0, dense0 = FullSortEvaluator.streaming_topk_ids, FullSortEvaluator.topk_ids
+
+    def counting(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(FullSortEvaluator, "streaming_topk_ids", counting("streaming", stream0))
+    monkeypatch.setattr(FullSortEvaluator, "topk_ids", counting("dense", dense0))
+    base = {"state": "ERROR", "show_progress": False, "device": "cpu",
+            "train_batch_size": 1024, "train_epochs": ["BOTH:2"]}
+    dense = run_recbole_cdr(model="CMF", config_dict={**base, "streaming_topk_threshold": 10 ** 9})
+    assert calls == {"streaming": 0, "dense": 3}
+    streaming = run_recbole_cdr(model="CMF", config_dict={**base, "streaming_topk_threshold": 1})
+    assert calls == {"streaming": 3, "dense": 3}
+    assert streaming["test_result"] == dense["test_result"]
+    assert streaming["best_valid_result"] == dense["best_valid_result"]
