@@ -39,16 +39,32 @@ Phases, in order; any failure exits non-zero:
    gradient may exist; the run's peak allocation up to each validation must
    stay under the parameters and moments plus 2 GB; the metrics must be
    finite and the loss fall from epoch 0 to 1;
-5. report: the card's name and power limit, one JSON line of per-kernel
+5. BiTGCF path: ``run_recbole_cdr(model="BiTGCF")`` on the card, BOTH:3 with
+   validation every epoch, on the dense path's pair at BiTGCF's published
+   width (embedding 64, 2 layers, concat, dropout 0.3): K1-K4 and both B8
+   wrappers must launch, B5 and B6 never; B8 exactly 4 forward and 4
+   backward launches per training step (2 layers x 2 domains) and 4 forward
+   per evaluation pass (one propagation per pass, not per user tile, the
+   test pass included after the best parameters are loaded); the metrics
+   must be finite and the loss fall from epoch 0 to 2;
+6. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
+
+B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
+at the bench pair's source graph (about 50,400 rows and 441,000 nonzeros,
+D = 64, dropout 0.3 from random bits): within ``B8_TOL`` of its plain
+version, and two kernel runs bit-equal (a gather with no atomics). Its bytes
+bound charges the unique bytes (CSR, x, bits, the other dense operands, the
+outputs), not the nnz x D row gathers, which hit the L2 (x is 12.9 MB of its
+50 MB).
 
 ``python3 chip_smoke.py --profile`` instead times one warm training epoch
 and one validation pass of the dense path's run, then traces a repeat of
 each with ``torch.profiler`` and prints the device time by kernel, the
 device-busy share of the unprofiled wall time, and the path of the Chrome
 trace it writes under ``chiprun_out/``; then it times one more warm epoch in
-the same, now profiled, process. It does the same for the catalog path,
-without writing its (large) traces.
+the same, now profiled, process. It does the same for the BiTGCF path, and
+for the catalog path without writing its (large) traces.
 
 Nothing here imports jax or the JAX package.
 """
@@ -59,6 +75,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA_DIR = os.path.join(REPO, "build", "smoke_data")
@@ -84,6 +101,10 @@ DENSE_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_
               "masked_topk")
 CATALOG_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
                 "streaming_topk", "sparse_adam")
+BITGCF_PATH = DENSE_PATH + ("graph_layer_forward", "graph_layer_backward")
+
+#: B8 launches per training step and per evaluation pass: 2 layers x 2 domains
+B8_PER_PROPAGATION = 4
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the float32 rate of
 #: the CUDA cores, used as the rate of the kernels' 32-bit scalar operations
@@ -107,6 +128,12 @@ B5_TOL = (1e-4, 1e-5)
 #: bias corrections in float64 and updates the moments as old + (1-b)(g-old))
 B6_TOL = (1e-6, 1e-5)
 B6_STEPS = 3
+
+#: B8 tolerance, |kernel - plain| <= ATOL + RTOL * max|plain|: the kernel's
+#: FMA chain in CSR order and index_add_'s atomics add a row's products in
+#: different orders
+B8_TOL = {"forward": (1e-5, 1e-5), "backward": (1e-5, 1e-5)}
+B8_DROP = 0.3
 
 
 #: cycles of the spin kernel that holds the stream while the host queues
@@ -221,6 +248,14 @@ def catalog_config():
     return cfg
 
 
+def bitgcf_config():
+    """The BiTGCF path: the dense path's pair at BiTGCF's published width
+    (``properties/model/BiTGCF.yaml``: embedding 64, 2 layers, concat,
+    dropout 0.3), the best parameters reloaded for the test pass."""
+    return {**config_dict(), "embedding_size": 64, "n_layers": 2, "connect_way": "concat",
+            "drop_rate": B8_DROP}
+
+
 def config_dict():
     return {
         "device": "cuda",
@@ -327,6 +362,7 @@ def kernel_checks(dev):
     from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
     from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator, _fused_eval_arrays
     from recbole_cdr_tpu_torch.ops import gather_dot as k1, masked_topk as k4
+    from recbole_cdr_tpu_torch.ops import graph_layer as b8
     from recbole_cdr_tpu_torch.ops import neg_sampler as k2, shuffle as k3
     from recbole_cdr_tpu_torch.ops import sparse_adam as b6, topk as b5
     from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
@@ -466,6 +502,58 @@ def kernel_checks(dev):
            scores.numel(), library_fn=library_topk)
     del U, I, scores
 
+    # ---- B8: one graph layer of the source graph, forward and backward --
+    csr, csr_t = (b8.CSR(*(t.to(dev) for t in b8.csr_from_scipy(m)))
+                  for m in bitgcf_graph(dataset))
+    N, D, nnz = csr.row_ptr.shape[0] - 1, 64, csr.col.shape[0]
+    keep = 1.0 - B8_DROP
+    x = 0.1 * torch.randn(N, D, device=dev, generator=g)
+    gy = torch.randn(N, D, device=dev, generator=g)
+    bits = torch.randint(-2 ** 31, 2 ** 31, (N, D), dtype=torch.int32, device=dev, generator=g)
+    print(f"  graph_layer: N {N}, nnz {nnz}, D {D}, keep {keep}", flush=True)
+    new, side = b8.graph_layer_forward(csr, x, bits, keep)
+    p_new, p_side = b8.graph_layer_forward_plain(csr, x, bits, keep)
+    err = max(float((new - p_new).abs().max()), float((side - p_side).abs().max()))
+    atol, rtol = B8_TOL["forward"]
+    scale = max(float(p_new.abs().max()), float(p_side.abs().max()))
+    assert err <= atol + rtol * scale, f"graph_layer forward error {err}"
+    new2, side2 = b8.graph_layer_forward(csr, x, bits, keep)
+    assert torch.equal(new, new2) and torch.equal(side, side2), \
+        "graph_layer forward differs run to run"
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        Ls, Ls_t = (torch.sparse_csr_tensor(m.row_ptr.long(), m.col.long(), m.val, (N, N),
+                                            check_invariants=True) for m in (csr, csr_t))
+
+    def library_forward():
+        sd = torch.sparse.mm(Ls, x)
+        return torch.where(b8.keep_mask(bits, keep), (x + sd + x * sd) / keep, 0.0), sd
+
+    csr_bytes = 4 * (N + 1) + 8 * nnz
+    record("graph_layer_forward",
+           lambda: b8.graph_layer_forward(csr, x, bits, keep),
+           lambda: b8.graph_layer_forward_plain(csr, x, bits, keep),
+           err, csr_bytes + 4 * N * D * 4, 2 * nnz * D + 8 * N * D,
+           library_fn=library_forward)
+    gx = b8.graph_layer_backward(csr_t, x, side, bits, keep, gy)
+    p_gx = b8.graph_layer_backward_plain(csr_t, x, side, bits, keep, gy)
+    err = float((gx - p_gx).abs().max())
+    atol, rtol = B8_TOL["backward"]
+    assert err <= atol + rtol * float(p_gx.abs().max()), f"graph_layer backward error {err}"
+    assert torch.equal(gx, b8.graph_layer_backward(csr_t, x, side, bits, keep, gy)), \
+        "graph_layer backward differs run to run"
+
+    def library_backward():
+        gp = torch.where(b8.keep_mask(bits, keep), gy / keep, 0.0)
+        return (gp + gp * side) + torch.sparse.mm(Ls_t, gp + gp * x)
+
+    record("graph_layer_backward",
+           lambda: b8.graph_layer_backward(csr_t, x, side, bits, keep, gy),
+           lambda: b8.graph_layer_backward_plain(csr_t, x, side, bits, keep, gy),
+           err, csr_bytes + 5 * N * D * 4, 2 * nnz * D + 12 * N * D,
+           library_fn=library_backward)
+    del x, gy, bits, new, side, new2, side2, p_new, p_side, gx, p_gx, Ls, Ls_t
+
     # ---- the catalog path's data ----------------------------------------
     cconfig = CDRConfig(model="CMF", config_dict=catalog_config(), _cli_args=[])
     init_seed(cconfig["seed"], True)
@@ -563,24 +651,35 @@ def kernel_checks(dev):
     return out
 
 
-def profile_epoch(dev, cfg, tag="", export=True):
+def bitgcf_graph(dataset):
+    """BiTGCF's normalised source adjacency of ``dataset`` and its
+    transpose, as the model builds them (scipy, float32)."""
+    import numpy as np
+
+    from recbole_cdr_tpu_torch.models.bitgcf import _norm_adj
+
+    inter = dataset.inter_matrix(form="coo", domain="source").astype(np.float32)
+    L = _norm_adj(inter, dataset.num_total_user, dataset.num_total_item).astype(np.float32)
+    return L, L.T
+
+
+def profile_epoch(dev, cfg, tag="", export=True, model="CMF"):
     """Device time by kernel over one warm BOTH epoch and one validation
-    pass of the configuration ``cfg``; with ``export``, Chrome traces of both
-    under ``chiprun_out/`` (names prefixed by ``tag``)."""
+    pass of ``model`` in the configuration ``cfg``; with ``export``, Chrome
+    traces of both in the output directory (names prefixed by ``tag``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from recbole_cdr_tpu_torch.config import CDRConfig
     from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
-    from recbole_cdr_tpu_torch.models.cmf import CMF
     from recbole_cdr_tpu_torch.trainer.trainer import CrossDomainTrainer
-    from recbole_cdr_tpu_torch.utils import init_seed
+    from recbole_cdr_tpu_torch.utils import get_model, init_seed
 
-    config = CDRConfig(model="CMF", config_dict=cfg, _cli_args=[])
+    config = CDRConfig(model=model, config_dict=cfg, _cli_args=[])
     init_seed(config["seed"], True)
     dataset = create_dataset(config)
     train_data, valid_data, _ = data_preparation(config, dataset)
-    trainer = CrossDomainTrainer(config, CMF(config, dataset))
+    trainer = CrossDomainTrainer(config, get_model(model)(config, dataset))
     loop = trainer._loop_for("BOTH", train_data)
     float(loop.run_epoch(0))
     trainer._evaluate_batches("BOTH", valid_data)
@@ -633,6 +732,8 @@ def main():
 
     dev = torch.device("cuda")
     if "--kernel-checks" in sys.argv[1:]:
+        gen_data()
+        gen_catalog()
         print(_RECORDS + json.dumps(kernel_checks(dev)), flush=True)
         return 0
     smi = subprocess.run(
@@ -660,6 +761,7 @@ def main():
     print(f"catalog pair ready in {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
         profile_epoch(dev, config_dict())
+        profile_epoch(dev, bitgcf_config(), "bitgcf_", model="BiTGCF")
         profile_epoch(dev, catalog_config(), "catalog_", export=False)  # traces of ~100 MB
         return 0
 
@@ -712,6 +814,25 @@ def main():
     assert all(h["valid_peak_bytes"] - state < CATALOG_EVAL_HEADROOM for h in hist), hist
     assert len(hist) == CATALOG_EPOCHS and hist[1]["loss"] < hist[0]["loss"], hist
 
+    print("== phase 5: BiTGCF path, run_recbole_cdr(model='BiTGCF') on the card", flush=True)
+    del result, model
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_recbole_cdr(model="BiTGCF", config_dict=bitgcf_config(), saved=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["bitgcf"] = c = ops.launch_counts()
+    hist = _report_run(result, wall, c, BITGCF_PATH)
+    assert len(hist) == EPOCHS and hist[-1]["loss"] < hist[0]["loss"], hist
+    steps = c["gather_dot_backward"] // 2  # one K1 call per domain per step
+    passes = sum("valid_seconds" in h for h in hist) + 1  # the validations and the test
+    want = {"graph_layer_forward": B8_PER_PROPAGATION * (steps + passes),
+            "graph_layer_backward": B8_PER_PROPAGATION * steps}
+    print(f"{steps} training steps, {passes} evaluation passes: B8 launches "
+          f"{ {k: c[k] for k in want} }, expected {want}", flush=True)
+    assert all(c[k] == v for k, v in want.items()), (c, want)
+
     replaces = {
         "gather_dot_forward": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
                                "recbole_cdr_tpu/models/cmf.py:45"),
@@ -727,6 +848,10 @@ def main():
                            "recbole_cdr_tpu/ops/topk.py:150"),
         "sparse_adam": ("recbole_cdr_tpu_torch/csrc/sparse_adam.cu",
                         "recbole_cdr_tpu/trainer/trainer.py:274"),
+        "graph_layer_forward": ("recbole_cdr_tpu_torch/csrc/graph_layer.cu",
+                                "recbole_cdr_tpu/models/bitgcf.py:116"),
+        "graph_layer_backward": ("recbole_cdr_tpu_torch/csrc/graph_layer.cu",
+                                 "recbole_cdr_tpu/models/bitgcf.py:116"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],

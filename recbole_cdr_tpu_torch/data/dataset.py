@@ -3,9 +3,9 @@
 Standalone re-implementation of the observable dataset semantics of the
 reference (`recbole_cdr/data/dataset.py:28-707` plus inherited recbole 1.0.1
 ``Dataset`` load/filter/split behavior), built host-side on numpy/pandas and
-handing static numpy arrays to the device pipeline. The interaction-matrix
-helpers of the JAX package (sparse and padded history matrices, used by the
-graph and history models) come with those models (ROADMAP.md A8).
+handing static numpy arrays to the device pipeline. Of the JAX package's
+interaction-matrix helpers, the sparse matrix (BiTGCF's graph) is ported;
+the padded history matrices come with the history models (ROADMAP.md A8).
 
 The load-bearing invariant — the unified sectioned ID space
 (`recbole_cdr/data/dataset.py:344-445`):
@@ -28,6 +28,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import pandas as pd
+from scipy.sparse import coo_matrix
 
 from recbole_cdr_tpu_torch.data.atomic import find_atomic_files, load_atomic_file, load_link_file
 from recbole_cdr_tpu_torch.utils.enums import FeatureType
@@ -494,6 +495,26 @@ class DomainDataset:
             neg_prefix=self.neg_prefix,
         )
 
+    def get_sparse_matrix(self, user_num, item_num, form="coo", value_field=None):
+        """Sparse user x item interaction matrix over the unified ID space
+        (reference `dataset.py:151-186`). It holds every interaction of the
+        domain, the valid and test splits' included: splitting builds new
+        tables and leaves ``arrays`` whole."""
+        src = self.arrays[self.uid_field]
+        tgt = self.arrays[self.iid_field]
+        if value_field is None:
+            data = np.ones(len(src))
+        else:
+            if value_field not in self.arrays:
+                raise ValueError(f"Value_field [{value_field}] should be one of inter fields.")
+            data = self.arrays[value_field]
+        mat = coo_matrix((data, (src, tgt)), shape=(user_num, item_num))
+        if form == "coo":
+            return mat
+        if form == "csr":
+            return mat.tocsr()
+        raise NotImplementedError(f"Sparse matrix format [{form}] has not been implemented.")
+
 
 class InteractionTable:
     """A split of interactions as a dict of aligned numpy arrays — the
@@ -648,6 +669,12 @@ class CrossDomainDataset:
 
         self.source_domain_dataset.remap_to_ids(src_u_map, src_i_map, src_u_tokens, src_i_tokens)
         self.target_domain_dataset.remap_to_ids(tgt_u_map, tgt_i_map, tgt_u_tokens, tgt_i_tokens)
+
+    # ------------------------------------------------------------- matrices
+
+    def inter_matrix(self, form="coo", value_field=None, domain="source"):
+        ds = self.source_domain_dataset if domain == "source" else self.target_domain_dataset
+        return ds.get_sparse_matrix(self.num_total_user, self.num_total_item, form, value_field)
 
     # ------------------------------------------------------------------ build
 

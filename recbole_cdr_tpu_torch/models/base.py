@@ -97,6 +97,19 @@ class CrossDomainRecommender(nn.Module):
 
         self.OVERLAP_ID = dataset.overlap_id_field
         self.phase = None
+        #: generation counter of the parameters, for caches of values derived
+        #: from them (BiTGCF's propagated tables): the training step bumps it
+        #: after every optimizer step, ``load_state_dict`` after every load
+        self.params_version = 0
+
+    def notify_params_updated(self):
+        """Invalidate caches derived from the parameters."""
+        self.params_version += 1
+
+    def load_state_dict(self, *args, **kwargs):
+        out = super().load_state_dict(*args, **kwargs)
+        self.notify_params_updated()
+        return out
 
     # -- phase machinery ----------------------------------------------------
 
@@ -122,14 +135,18 @@ class CrossDomainRecommender(nn.Module):
     # -- contract -----------------------------------------------------------
 
     def loss_fn(self, phase: str):
-        """Returns ``batch -> scalar loss`` for the phase."""
+        """Returns ``(batch, rng=None) -> scalar loss`` for the phase. ``rng``
+        is the step's draw of random bits, ``rng(layer, domain, shape) ->
+        int32 bits`` (the epoch loop binds the random source's
+        ``dropout_bits`` to the epoch and step); models without training
+        noise ignore it, and None trains without noise."""
         raise NotImplementedError
 
-    def forward(self, batch, phase: str):
+    def forward(self, batch, phase: str, rng=None):
         """The phase's loss on ``batch``; lets ``torch.func.functional_call``
         run the loss with some parameters replaced (the sparse step's
         gathered sub-tables)."""
-        return self.loss_fn(phase)(batch)
+        return self.loss_fn(phase)(batch, rng)
 
     def full_sort(self, users: torch.Tensor, phase: str = "TARGET") -> torch.Tensor:
         """``users [B] -> scores [B, item_space]``; target phases score the

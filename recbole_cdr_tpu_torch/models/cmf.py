@@ -51,7 +51,7 @@ class CMF(CrossDomainRecommender):
             )
         return loss
 
-    def loss(self, batch):
+    def loss(self, batch, rng=None):
         su, si = batch[self.SOURCE_USER_ID], batch[self.SOURCE_ITEM_ID]
         tu, ti = batch[self.TARGET_USER_ID], batch[self.TARGET_ITEM_ID]
         # both domains' pairs in one kernel call

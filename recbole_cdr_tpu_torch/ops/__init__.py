@@ -7,6 +7,7 @@ a ``launches`` count on the wrapper that grows by one per kernel launch.
 
 from recbole_cdr_tpu_torch.ops import (
     gather_dot,
+    graph_layer,
     masked_topk,
     neg_sampler,
     shuffle,
@@ -23,6 +24,8 @@ WRAPPERS = {
     "masked_topk": masked_topk.masked_topk,
     "streaming_topk": topk.streaming_topk,
     "sparse_adam": sparse_adam.sparse_adam,
+    "graph_layer_forward": graph_layer.graph_layer_forward,
+    "graph_layer_backward": graph_layer.graph_layer_backward,
 }
 
 

@@ -24,7 +24,7 @@ import torch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = ("gather_dot", "neg_sampler", "shuffle", "masked_topk", "streaming_topk",
-           "sparse_adam")
+           "sparse_adam", "graph_layer")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,6 +51,11 @@ _SIGNATURES = {
     },
     "sparse_adam": {
         "sparse_adam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+    },
+    "graph_layer": {
+        "graph_layer_forward": [_P] * 8 + [_I, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _P],
+        "graph_layer_backward": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P,
+                                            _I, _I, _P],
     },
 }
 

@@ -13,16 +13,19 @@ step first re-bases the batch onto gathered sub-tables with
 All randomness comes from a *random source* (:class:`TorchRandomSource` by
 default, drawing from a ``torch.Generator`` on the training device): the
 swap-or-not keys and salts per domain (one set per source cycle in a BOTH
-phase) and the uint32 base bits of each segment's negatives. The JAX package
-draws the same quantities from threefry keys it derives per epoch and
-segment, so a test can hand its bits to this loop through the same interface.
+phase), the uint32 base bits of each segment's negatives, and the per-step
+dropout bits a model's loss asks for. The JAX package draws the same
+quantities from threefry keys it derives per epoch, segment and step, so a
+test can hand its bits to this loop through the same interface.
 
-This slice runs the BOTH phase of a pointwise model (CMF's schedule). The
-SOURCE / TARGET / OVERLAP streams and pairwise batches come with the models
-that train that way (ROADMAP.md A8); popularity-distribution sampling (the
-alias-table branch of ``_sample_negatives``) is not ported yet either. All
-of them raise.
+The loop runs the BOTH phase of a pointwise model (CMF's and BiTGCF's
+schedule). The SOURCE / TARGET / OVERLAP streams and pairwise batches come
+with the models that train that way (ROADMAP.md A8); popularity-distribution
+sampling (the alias-table branch of ``_sample_negatives``) is not ported yet
+either. All of them raise.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -144,9 +147,9 @@ class TorchRandomSource:
     """Default random source: every draw comes from one ``torch.Generator``
     on the training device, in the order the epoch loop asks.
 
-    A random source answers three requests; the (epoch, domain, step_lo)
-    arguments name the draw so that a source can derive it statelessly (the
-    JAX package's threefry keys are derived that way)."""
+    A random source answers four requests; the (epoch, domain, step_lo or
+    step, layer) arguments name the draw so that a source can derive it
+    statelessly (the JAX package's threefry keys are derived that way)."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
@@ -172,6 +175,12 @@ class TorchRandomSource:
     def heavy_bits(self, epoch: int, domain: str, step_lo: int, total: int):
         """int32 bit patterns of one uint32 per slot for the heavy-user draw."""
         return self._bits((total,))
+
+    def dropout_bits(self, epoch: int, step: int, layer: int, domain: str, shape):
+        """int32 bit patterns of one uint32 per element of a model's training
+        dropout mask (BiTGCF: per graph layer and domain, drawn only when
+        the model asks)."""
+        return self._bits(tuple(shape))
 
 
 class DomainDeviceData:
@@ -218,9 +227,11 @@ class DomainDeviceData:
 class DeviceEpochLoop:
     """Runs whole epochs of BOTH-phase train steps on the device.
 
-    ``step_fn(batch) -> loss`` performs one optimizer step on a dict of
+    ``step_fn(batch, rng) -> loss`` performs one optimizer step on a dict of
     per-step tensors (the layout ``data/batching.py`` produces) and returns
-    the step's loss as a device scalar."""
+    the step's loss as a device scalar; ``rng(layer, domain, shape)`` is the
+    random source's ``dropout_bits`` bound to the epoch and the step's index
+    within it (JAX's ``loss_fn(params, batch, fold_in(epoch_rng, step))``)."""
 
     def __init__(self, scheme: TrainMode, step_fn, train_data, input_type,
                  neg_num: int, num_users: int, random_source, device):
@@ -345,5 +356,6 @@ class DeviceEpochLoop:
             n_steps = min(self.seg_steps, self.steps_per_epoch - step_lo)
             xs = self._build_xs(shuf, epoch, step_lo, n_steps)
             for i in range(n_steps):
-                total = total + self.step_fn({k: v[i] for k, v in xs.items()})
+                rng = functools.partial(self.source.dropout_bits, epoch, step_lo + i)
+                total = total + self.step_fn({k: v[i] for k, v in xs.items()}, rng)
         return total

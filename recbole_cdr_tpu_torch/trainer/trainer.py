@@ -69,22 +69,25 @@ def build_optimizer(config, params) -> torch.optim.Optimizer:
 
 
 def make_train_step(model, optimizer, loss_fn, trainable, clip=None):
-    """``batch -> loss`` performing one optimizer step. Parameters whose
-    top-level name fails ``trainable`` get ``grad = None`` before the step,
-    so torch's optimizers leave them and their state untouched."""
+    """``(batch, rng=None) -> loss`` performing one optimizer step (``rng``:
+    the step's random draw, see ``CrossDomainRecommender.loss_fn``).
+    Parameters whose top-level name fails ``trainable`` get ``grad = None``
+    before the step, so torch's optimizers leave them and their state
+    untouched."""
     named = list(model.named_parameters())
     frozen = [p for n, p in named if not trainable(n.split(".", 1)[0])]
     params = [p for n, p in named if trainable(n.split(".", 1)[0])]
 
-    def step(batch):
+    def step(batch, rng=None):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch)
+        loss = loss_fn(batch, rng)
         loss.backward()
         for p in frozen:
             p.grad = None
         if clip is not None:
             torch.nn.utils.clip_grad_norm_([p for p in params if p.grad is not None], clip)
         optimizer.step()
+        model.notify_params_updated()
         return loss.detach()
 
     return step
@@ -180,7 +183,7 @@ class SparseAdam:
 
 
 def make_sparse_train_step(model, optimizer, phase, spec, trainable):
-    """``batch -> loss`` performing one :class:`SparseAdam` step. The loss
+    """``(batch, rng=None) -> loss`` performing one :class:`SparseAdam` step. The loss
     runs (``torch.func.functional_call``) on [R, D] sub-tables gathered from
     the tables of ``spec`` at the batch's ids, with the ids re-based onto
     them, so the gradients are [R, D] rows and no [N, D] table gradient is
@@ -193,10 +196,10 @@ def make_sparse_train_step(model, optimizer, phase, spec, trainable):
     rest = [n for n in named if top(n) not in spec]
     dense = [n for n in rest if trainable(top(n))]
 
-    def step(batch):
+    def step(batch, rng=None):
         batch2, idx = rebase_sparse_batch(batch, spec)
         sub = {n: named[n].detach()[idx[n].long()].requires_grad_() for n in spec}
-        loss = torch.func.functional_call(model, sub, (batch2, phase))
+        loss = torch.func.functional_call(model, sub, (batch2, phase, rng))
         loss.backward()
         for n in spec:
             optimizer.step_table(n, sub[n].grad, idx[n])
@@ -204,6 +207,7 @@ def make_sparse_train_step(model, optimizer, phase, spec, trainable):
             optimizer.step_dense(n, named[n].grad)
         for n in rest:
             named[n].grad = None
+        model.notify_params_updated()
         return loss.detach()
 
     return step

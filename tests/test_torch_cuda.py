@@ -23,6 +23,7 @@ import torch
 
 from recbole_cdr_tpu_torch import ops
 from recbole_cdr_tpu_torch.ops import gather_dot as k1
+from recbole_cdr_tpu_torch.ops import graph_layer as b8
 from recbole_cdr_tpu_torch.ops import masked_topk as k4
 from recbole_cdr_tpu_torch.ops import neg_sampler as k2
 from recbole_cdr_tpu_torch.ops import shuffle as k3
@@ -176,12 +177,88 @@ def test_sparse_adam_matches_plain(gen, N, D, R, kind):
     assert bool((firstpos == b6.INT32_MAX).all())  # the scratch is left ready
 
 
-def _run_on_the_card(tmp_path, monkeypatch, **extra):
+def _random_csr(N, nnz, gen):
+    """A random non-symmetric [N, N] CSR and its transpose's CSR: row 0 has
+    no nonzero, row 1 (and column 1) exactly one, rows 2 and 3 (and columns
+    2 and 3) 64 + 1 and 5,000 more than the rest, so that the kernel splits
+    them into several pieces; duplicates allowed."""
+    rows = _ints(0, N, (nnz,), gen).long()
+    cols = _ints(0, N, (nnz,), gen).long()
+    if N > 3:
+        keep = (rows != 0) & (rows != 1) & (cols != 1)
+        extra = [torch.full((n,), r, device="cuda") for r, n in ((2, 65), (3, 5000))]
+        extra_cols = _ints(4, N, (5065,), gen).long()
+        rows = torch.cat([rows[keep], torch.tensor([1, 2], device="cuda"), *extra, extra_cols])
+        cols = torch.cat([cols[keep], torch.tensor([N - 1, 1], device="cuda"), extra_cols,
+                          *extra])
+    vals = torch.randn(rows.shape[0], device="cuda", generator=gen)
+
+    def csr(r, c):
+        order = torch.argsort(r * N + c)
+        row_ptr = torch.zeros(N + 1, dtype=torch.int32, device="cuda")
+        row_ptr[1:] = torch.cumsum(torch.bincount(r, minlength=N), 0)
+        return b8.make_csr(row_ptr, c[order].int(), vals[order])
+
+    return csr(rows, cols), csr(cols, rows)
+
+
+def _close_to_exact(got, exact, absum, what):
+    """|got - exact| <= 1e-6 + 2e-5 * absum + 1e-6 * |exact| per element:
+    float32 sums of n terms in any order are off by at most ~n * eps *
+    sum|terms| from the exact sum; the kernel's chains are at most 64
+    nonzeros plus, for a row of several pieces, one sum over its pieces
+    (<= 79 here); the epilogue rounds once more."""
+    err = (got.double() - exact).abs()
+    bad = err > 1e-6 + 2e-5 * absum + 1e-6 * exact.abs()
+    assert not bool(bad.any()), (
+        f"{what}: {int(bad.sum())} elements out of tolerance, max error "
+        f"{float(err.max()):.3g}, rows {torch.nonzero(bad)[:5, 0].tolist()}")
+
+
+@pytest.mark.parametrize("N,nnz,D,drop", [(53_002, 1_000_000, 64, 0.3), (3000, 40_000, 48, 0.0),
+                                          (3000, 40_000, 192, 0.3), (1, 1, 64, 0.3),
+                                          (500, 4000, 37, 0.3), (500, 4000, 64, 0.0)])
+def test_graph_layer_matches_plain(gen, N, nnz, D, drop):
+    """Forward and backward against the plain version run in float64 on the
+    same inputs, within ``_close_to_exact``'s bound, and two kernel runs
+    bit-equal (no atomics)."""
+    csr, csr_t = _random_csr(N, nnz, gen)
+    x = torch.randn(N, D, device="cuda", generator=gen)
+    g = torch.randn(N, D, device="cuda", generator=gen)
+    bits = _ints(-2 ** 31, 2 ** 31, (N, D), gen) if drop else None
+    keep = 1.0 - drop
+    new, side = b8.graph_layer_forward(csr, x, bits, keep)
+    gx = b8.graph_layer_backward(csr_t, x, side, bits, keep, g)
+    torch.cuda.synchronize()
+
+    def f64(m):
+        return m._replace(val=m.val.double())
+
+    e_new, e_side = b8.graph_layer_forward_plain(f64(csr), x.double(), bits, keep)
+    absum = b8._spmm_plain(f64(csr)._replace(val=csr.val.double().abs()), x.double().abs())
+    _close_to_exact(side, e_side, absum, "side")
+    # new = x + side + x * side (/ keep): the error of side, scaled by |1 + x| / keep
+    _close_to_exact(new, e_new, absum * (1 + x.double().abs()) / keep + 1e-6, "new")
+    gp = b8._dropped_grad(g.double(), bits, keep)
+    e_gx = b8.graph_layer_backward_plain(f64(csr_t), x.double(), side.double(), bits, keep,
+                                         g.double())
+    absum_t = b8._spmm_plain(f64(csr_t)._replace(val=csr_t.val.double().abs()),
+                             (gp + gp * x.double()).abs())
+    _close_to_exact(gx, e_gx, absum_t + 1e-6, "gx")
+    new2, side2 = b8.graph_layer_forward(csr, x, bits, keep)
+    assert torch.equal(new, new2) and torch.equal(side, side2)
+    assert torch.equal(gx, b8.graph_layer_backward(csr_t, x, side, bits, keep, g))
+    if N > 3:  # the empty row: side 0; rows of several pieces on both sides
+        assert bool((side[0] == 0).all())
+        assert csr.heavy_row.shape[0] >= 2 and csr_t.heavy_row.shape[0] >= 2
+
+
+def _run_on_the_card(tmp_path, monkeypatch, model="CMF", **extra):
     from recbole_cdr_tpu_torch import run_recbole_cdr
 
     monkeypatch.chdir(tmp_path)
     ops.reset_launch_counts()
-    result = run_recbole_cdr(model="CMF", config_dict={
+    result = run_recbole_cdr(model=model, config_dict={
         "state": "ERROR", "device": "cuda", "train_epochs": ["BOTH:2"],
         "train_batch_size": 1024, **extra})
     assert all(math.isfinite(v) for v in result["test_result"].values())
@@ -203,3 +280,11 @@ def test_catalog_path_on_the_card(gen, tmp_path, monkeypatch):
             "streaming_topk", "sparse_adam")
     assert all(counts[k] > 0 for k in path), counts
     assert counts["masked_topk"] == 0, counts
+
+
+def test_bitgcf_on_the_card(gen, tmp_path, monkeypatch):
+    counts = _run_on_the_card(tmp_path, monkeypatch, model="BiTGCF")
+    path = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
+            "masked_topk", "graph_layer_forward", "graph_layer_backward")
+    assert all(counts[k] > 0 for k in path), counts
+    assert counts["streaming_topk"] == counts["sparse_adam"] == 0, counts

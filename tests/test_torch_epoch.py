@@ -35,10 +35,24 @@ def _u32_as_i32(a):
     return torch.from_numpy(np.asarray(a).view(np.int32).copy())
 
 
+def jax_dropout_draw(r_loss):
+    """The dropout bits a JAX model's loss draws from its step key
+    ``r_loss`` (``models/bitgcf.py:159-164``: per layer ``rng, r1, r2 =
+    split(rng, 3)``, r1 for the source graph, r2 for the target), served as
+    the port's per-step ``rng(layer, domain, shape)``."""
+    def draw(layer, domain, shape):
+        rng = r_loss
+        for _ in range(layer + 1):
+            rng, r1, r2 = jax.random.split(rng, 3)
+        key = {"src": r1, "tgt": r2}[domain]
+        return _u32_as_i32(jax.random.bits(key, tuple(shape), jnp.uint32))
+    return draw
+
+
 class JaxRandomSource:
     """The random draws of the JAX DeviceEpochLoop (run_epoch /
-    run_one_epoch / build_xs / _sample_negatives), served through the
-    port's random-source interface."""
+    run_one_epoch / build_xs / _sample_negatives, and the step key its loss
+    gets), served through the port's random-source interface."""
 
     def __init__(self, base_rng):
         self.base_rng = base_rng
@@ -63,6 +77,11 @@ class JaxRandomSource:
     def heavy_bits(self, epoch, domain, step_lo, total):
         rng = jax.random.fold_in(self._neg_rng(epoch, domain, step_lo), 2)
         return _u32_as_i32(jax.random.bits(rng, (total,), jnp.uint32))
+
+    def dropout_bits(self, epoch, step, layer, domain, shape):
+        # the loss gets fold_in(fold_in(base, epoch), step) (device_loop.py:592,771)
+        r_loss = jax.random.fold_in(self._epoch(epoch), step)
+        return jax_dropout_draw(r_loss)(layer, domain, shape)
 
 
 @pytest.mark.parametrize("hist_cap", [None, 12])
