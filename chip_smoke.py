@@ -47,7 +47,19 @@ Phases, in order; any failure exits non-zero:
    per evaluation pass (one propagation per pass, not per user tile, the
    test pass included after the best parameters are loaded); the metrics
    must be finite and the loss fall from epoch 0 to 2;
-6. report: the card's name and power limit, one JSON line of per-kernel
+6. NATR path: ``run_recbole_cdr(model="NATR")`` on the card at NATR's
+   published width (source and target embedding 64, ``max_inter_length``
+   50, ``reg_weight`` 1e-3) on the dense path's pair, which overlaps on
+   items (so the users are the anchors), SOURCE:2 then TARGET:3 with
+   validation every epoch and GAUC among the metrics, the best parameters
+   reloaded for the test pass: K1 exactly once forward and once backward per
+   SOURCE step and never elsewhere; B9's forward and backward once per
+   TARGET step; B9's full-sort form once per user tile of every TARGET
+   validation and of the test pass (the predict fallback's tiles of
+   ``user_batch`` rows); K4 and B7 once per tile of every validation and of
+   the test pass; B5, B6 and B8 never; the loss falls within each phase,
+   every metric is finite and GAUC lies in (0, 1);
+7. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
 B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
@@ -58,13 +70,36 @@ bound charges the unique bytes (CSR, x, bits, the other dense operands, the
 outputs), not the nnz x D row gathers, which hit the L2 (x is 12.9 MB of its
 50 MB).
 
+B7 (``rank_sum``) is held in phase 2 on the dense path's first validation
+tile ([2,048, 5,001]) with integer-valued scores (ties everywhere) and with
+the unit-scale scores K4 sees, a row without positives, a positive inside
+its row's history and one on the PAD column: equal to its plain version and
+to JAX's method (a row sort and two searchsorted, the library yardstick),
+and two kernel runs equal. B9 (``natr_attention_forward`` /
+``natr_attention_backward``) is held at a TARGET step's shapes (8,192
+pairs, H = 50, D = 64) in both overlap modes (user anchors with their item
+histories, item anchors with their user histories), empty-history anchors
+included, within ``B9_TOL`` of its plain version, and two kernel runs
+bit-equal; its full-sort form (``natr_full_sort``) on one tile of the
+predict fallback ([32 users, the target item space]) in both modes. B9's
+bounds charge the least work that computes the same function
+(``natr_work``): the transfer once per distinct source row the anchors
+gather (the kernel runs it once per slot of every pair's anchor in
+training, and of every tile's anchor in full-sort), the scores, softmax and
+weighted sum once per slot of a distinct anchor, the pair stage once per
+pair. K4 and B7 are also held and timed on that tile's probabilities, the
+shape of most of their launches on the NATR path, under the record's
+``shapes``.
+
 ``python3 chip_smoke.py --profile`` instead times one warm training epoch
 and one validation pass of the dense path's run, then traces a repeat of
 each with ``torch.profiler`` and prints the device time by kernel, the
 device-busy share of the unprofiled wall time, and the path of the Chrome
 trace it writes under ``chiprun_out/``; then it times one more warm epoch in
-the same, now profiled, process. It does the same for the BiTGCF path, and
-for the catalog path without writing its (large) traces.
+the same, now profiled, process. It does the same for the BiTGCF path, for
+the NATR path (a SOURCE epoch and its validation, then a TARGET epoch and
+its validation), and for the catalog path without writing its (large)
+traces.
 
 Nothing here imports jax or the JAX package.
 """
@@ -102,6 +137,12 @@ DENSE_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_
 CATALOG_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
                 "streaming_topk", "sparse_adam")
 BITGCF_PATH = DENSE_PATH + ("graph_layer_forward", "graph_layer_backward")
+NATR_PATH = DENSE_PATH + ("rank_sum", "natr_attention_forward", "natr_attention_backward",
+                          "natr_full_sort")
+
+#: NATR's epochs per phase, (SOURCE, TARGET), cut from its published 300 / 300
+NATR_EPOCHS = (2, 3)
+NATR_METRICS = ["Recall", "MRR", "NDCG", "Hit", "Precision", "GAUC"]
 
 #: B8 launches per training step and per evaluation pass: 2 layers x 2 domains
 B8_PER_PROPAGATION = 4
@@ -134,6 +175,14 @@ B6_STEPS = 3
 #: different orders
 B8_TOL = {"forward": (1e-5, 1e-5), "backward": (1e-5, 1e-5)}
 B8_DROP = 0.3
+
+#: B9 tolerance per output tensor, |kernel - plain| <= ATOL + RTOL * max|plain|:
+#: the kernel and torch sum the transfer's 64 products, the scores, the
+#: softmax and the blends in other orders (forward, and the full-sort
+#: probabilities); the weight gradients are sums over all 8,192 pairs x 50
+#: slots, which the kernel adds per block and then block by block, and
+#: autograd in its own order (backward)
+B9_TOL = {"forward": (1e-5, 1e-4), "full_sort": (1e-6, 1e-4), "backward": (1e-5, 1e-3)}
 
 
 #: cycles of the spin kernel that holds the stream while the host queues
@@ -256,6 +305,16 @@ def bitgcf_config():
             "drop_rate": B8_DROP}
 
 
+def natr_config():
+    """The NATR path: the dense path's pair at NATR's published width
+    (``properties/model/NATR.yaml``), SOURCE then TARGET, GAUC among the
+    metrics, the best parameters reloaded for the test pass."""
+    return {**config_dict(), "source_embedding_size": 64, "target_embedding_size": 64,
+            "max_inter_length": 50, "reg_weight": 1e-3, "metrics": NATR_METRICS,
+            "topk": [10],
+            "train_epochs": [f"SOURCE:{NATR_EPOCHS[0]}", f"TARGET:{NATR_EPOCHS[1]}"]}
+
+
 def config_dict():
     return {
         "device": "cuda",
@@ -360,8 +419,13 @@ def kernel_checks(dev):
 
     from recbole_cdr_tpu_torch.config import CDRConfig
     from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
-    from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator, _fused_eval_arrays
+    from recbole_cdr_tpu_torch.evaluator.evaluator import (
+        FullSortEvaluator,
+        _fused_eval_arrays,
+        _padded_positives,
+    )
     from recbole_cdr_tpu_torch.ops import gather_dot as k1, masked_topk as k4
+    from recbole_cdr_tpu_torch.ops import rank_sum as b7
     from recbole_cdr_tpu_torch.ops import graph_layer as b8
     from recbole_cdr_tpu_torch.ops import neg_sampler as k2, shuffle as k3
     from recbole_cdr_tpu_torch.ops import sparse_adam as b6, topk as b5
@@ -379,7 +443,11 @@ def kernel_checks(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
 
-    def record(name, kernel_fn, plain_fn, equal, n_bytes, n_ops, library_fn=None, reps=20):
+    def record(name, kernel_fn, plain_fn, equal, n_bytes, n_ops, library_fn=None, reps=20,
+               shape=None):
+        """Time a kernel, its plain version and its library call; with
+        ``shape``, as a second shape of an already recorded kernel, kept
+        under the record's ``shapes``."""
         b_ms, b_by = bound(n_bytes, n_ops)
         timed = {"ms": device_ms(kernel_fn, reps),
                  "plain_ms": device_ms(plain_fn, max(3, reps // 4), 1)}
@@ -394,8 +462,11 @@ def kernel_checks(dev):
             "call_ms": call_ms(kernel_fn, reps),
             "timing": {k: how for k, (_, how) in timed.items()},
         }
-        out[name] = rec
-        print(f"  {name}: max_abs_err {equal:.3g}  kernel {rec['ms']:.4f} ms  "
+        if shape:
+            out[name].setdefault("shapes", {})[shape] = rec
+        else:
+            out[name] = rec
+        print(f"  {name}{f' {shape}' if shape else ''}: max_abs_err {equal:.3g}  kernel {rec['ms']:.4f} ms  "
               f"plain {rec['plain_ms']:.4f} ms  library "
               f"{'-' if rec['library_ms'] is None else format(rec['library_ms'], '.4f')} ms  "
               f"bound {b_ms:.4f} ms ({b_by})  per call {rec['call_ms']:.4f} ms  "
@@ -485,22 +556,33 @@ def kernel_checks(dev):
     err = int((a - b).abs().max())
     assert err == 0, "masked_topk disagrees with its plain version"
     n_pairs = int(rp[-1])
-    rows_t = torch.repeat_interleave(torch.arange(users.shape[0], device=dev),
-                                     (rp[1:] - rp[:-1]).long())
-    it_t = items[0][:n_pairs].long()
-
-    def library_topk():
-        sc = scores.clone()
-        sc[rows_t, it_t] = torch.finfo(torch.float32).min
-        sc[:, 0] = torch.finfo(torch.float32).min
-        return torch.topk(sc, k, dim=1).indices
-
+    hist_t = history_pairs(rp, items[0])
     record("masked_topk",
            lambda: k4.masked_topk(scores, rp, items[0], k),
            lambda: k4.masked_topk_plain(scores, rp, items[0], k),
            float(err), scores.numel() * 4 + rp.numel() * 4 + n_pairs * 4 + users.shape[0] * k * 4,
-           scores.numel(), library_fn=library_topk)
-    del U, I, scores
+           scores.numel(), library_fn=lambda: library_topk(scores, hist_t, k))
+
+    # ---- B7: the GAUC rank sums of the same tile ---------------------------
+    nB, n_items = users.shape[0], scores.shape[1]
+    pos_all, pmask_all = _padded_positives(valid_data, dev)
+    pos, pmask = pos_all[:nB].clone(), pmask_all[:nB].clone()
+    pmask[1] = False                              # a row without positives
+    pos[3, 0], pmask[3, 0] = 0, True              # the PAD column
+    r = 4 + int(torch.nonzero(rp[5:] > rp[4:-1])[0])
+    pos[r, 0], pmask[r, 0] = items[0][int(rp[r])], True  # a positive inside the history
+    ties = torch.randint(-3, 4, scores.shape, device=dev, generator=g).float()
+    for sc in (ties, scores):
+        check_rank_sum(sc, rp, items[0], pos, pmask)
+    print(f"  rank_sum: [{nB}, {n_items}], {int(pmask.sum())} positives in rows of up to "
+          f"{pos.shape[1]}", flush=True)
+    record("rank_sum",
+           lambda: b7.rank_sum(ties, rp, items[0], pos, pmask),
+           lambda: b7.rank_sum_plain(ties, rp, items[0], pos, pmask),
+           0.0, ties.numel() * 4 + rp.numel() * 4 + n_pairs * 4 + pos.numel() * 5 + nB * 4,
+           2 * n_items * int(pmask.sum()),
+           library_fn=lambda: library_rank_sum(ties, rp, items[0], pos, pmask))
+    del U, I, scores, ties
 
     # ---- B8: one graph layer of the source graph, forward and backward --
     csr, csr_t = (b8.CSR(*(t.to(dev) for t in b8.csr_from_scipy(m)))
@@ -553,6 +635,9 @@ def kernel_checks(dev):
            err, csr_bytes + 5 * N * D * 4, 2 * nnz * D + 12 * N * D,
            library_fn=library_backward)
     del x, gy, bits, new, side, new2, side2, p_new, p_side, gx, p_gx, Ls, Ls_t
+
+    # ---- B9: NATR's attention at a TARGET step's and a full-sort tile's shapes
+    natr_checks(dev, g, config, dataset, train_data, valid_data, record)
 
     # ---- the catalog path's data ----------------------------------------
     cconfig = CDRConfig(model="CMF", config_dict=catalog_config(), _cli_args=[])
@@ -651,6 +736,238 @@ def kernel_checks(dev):
     return out
 
 
+def history_pairs(rp, items):
+    """The (row, column) pairs of a tile's CSR history."""
+    import torch
+
+    rows = torch.repeat_interleave(torch.arange(rp.shape[0] - 1, device=rp.device),
+                                   (rp[1:] - rp[:-1]).long())
+    return rows, items[:int(rp[-1])].long()
+
+
+def library_topk(scores, hist_pairs, k):
+    """K4's library yardstick: the history and PAD scattered to finfo.min,
+    then ``torch.topk``."""
+    import torch
+
+    sc = scores.clone()
+    sc[hist_pairs] = torch.finfo(torch.float32).min
+    sc[:, 0] = torch.finfo(torch.float32).min
+    return torch.topk(sc, k, dim=1).indices
+
+
+def library_rank_sum(scores, rp, items, pos, pmask):
+    """B7's library yardstick, JAX's method: the masked row sorted, two
+    searchsorted per positive."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import rank_sum as b7
+
+    m = b7.masked_scores_plain(scores, rp, items)
+    asc = torch.sort(m, dim=1).values
+    pv = torch.gather(m, 1, torch.where(pmask, pos, 0).long())
+    left = torch.searchsorted(asc, pv)
+    right = torch.searchsorted(asc, pv, right=True)
+    avg = (scores.shape[1] - right).float() + ((right - left).float() + 1.0) / 2.0
+    return torch.where(pmask, avg, 0.0).sum(1)
+
+
+def check_rank_sum(scores, rp, items, pos, pmask):
+    """B7 exactly equal to its plain version and to JAX's method, and two
+    kernel runs equal."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import rank_sum as b7
+
+    a = b7.rank_sum(scores, rp, items, pos, pmask)
+    b = b7.rank_sum_plain(scores, rp, items, pos, pmask)
+    assert torch.equal(a, b), f"rank_sum disagrees with its plain version: {float((a - b).abs().max())}"
+    assert torch.equal(a, library_rank_sum(scores, rp, items, pos, pmask)), \
+        "rank_sum disagrees with JAX's method"
+    assert torch.equal(a, b7.rank_sum(scores, rp, items, pos, pmask)), "rank_sum differs run to run"
+
+
+def natr_work(n_rows, n_slots, n_pairs, D, backward=False):
+    """Scalar operations of the least work that computes B9. The transfer
+    ``h = src[r] @ W + b`` depends on the source row alone, so it is charged
+    once per distinct source row the anchors gather (2 D^2 + D); the scores
+    (4 D), the softmax (4) and the weighted sum (2 D) once per slot of a
+    distinct anchor (``n_slots`` = distinct anchors x H); the pair stage once
+    per pair (the two gates, 8 D; the blend and its dot, 5 D; exp, divide and
+    sigmoid, 8). The backward recomputes that forward work and adds per
+    distinct row the outer product of dW and db (2 D^2 + D), after each
+    slot's d(h) is summed onto its row (D per slot); per slot the chain rule
+    through the scores and the softmax (about 10 D); per pair the blend's
+    chain rule (about 20 D)."""
+    row = 2 * D * D + D
+    slot = 6 * D + 4
+    pair = 13 * D + 8
+    if backward:
+        row *= 2
+        slot += 11 * D
+        pair += 20 * D
+    return n_rows * row + n_slots * slot + n_pairs * pair
+
+
+def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
+    """Hold B9 against its plain version at a TARGET step's shapes and on a
+    full-sort tile of the predict fallback, in both overlap modes, and time
+    the overlap_items mode (the NATR path's); then hold and time K4 and B7 on
+    that tile's probabilities, the shape of most of their NATR launches."""
+    import numpy as np
+    import torch
+
+    from recbole_cdr_tpu_torch.evaluator.evaluator import (
+        FullSortEvaluator,
+        _fused_eval_arrays,
+        _padded_positives,
+    )
+    from recbole_cdr_tpu_torch.ops import masked_topk as k4, rank_sum as b7
+    from recbole_cdr_tpu_torch.ops import natr_attention as b9
+    from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
+    from recbole_cdr_tpu_torch.trainer.trainer import make_predict_full_sort
+    from recbole_cdr_tpu_torch.utils.enums import TrainMode
+
+    D, H = 64, 50
+    nu, ni = dataset.num_total_user, dataset.num_total_item
+    n_target = dataset.num_overlap_item + dataset.num_target_only_item
+    rnd = lambda *shape, scale: scale * torch.randn(*shape, device=dev, generator=g)
+    w = b9.Weights(rnd(D, D, scale=0.2), rnd(D, scale=0.1), rnd(D, 1, scale=0.3),
+                   rnd(1, scale=0.1), rnd(D, 1, scale=0.3), rnd(1, scale=0.1))
+    tables = {"tu": rnd(nu, D, scale=0.3), "ti": rnd(ni, D, scale=0.3),
+              "su": rnd(nu, D, scale=0.3), "si": rnd(ni, D, scale=0.3)}
+    tloop = DeviceEpochLoop(TrainMode.TARGET, None, train_data, config["MODEL_INPUT_TYPE"], 1,
+                            nu, TorchRandomSource(2, dev), dev)
+    txs = tloop._build_xs(tloop._shuffle_material(0), 0, 0, 1)
+    step_users, step_items = txs["target_user_id"][0], txs["target_item_id"][0]
+    P = step_users.shape[0]
+    gz = torch.randn(P, device=dev, generator=g)
+
+    # one full-sort tile of the fallback: user_batch users x the items the
+    # trainer hands predict_grid
+    uids, fs_rp, fs_hist = _fused_eval_arrays(valid_data, valid_data.user_batch, dev)
+    fs_users = uids[:valid_data.user_batch]
+
+    class Grid:
+        def predict_grid(self, users, items):
+            self.items = items
+            return torch.zeros(users.shape[0], items.shape[0], device=dev)
+
+    grid = Grid()
+    make_predict_full_sort(grid, n_target)(fs_users)
+    grid_items = grid.items
+    assert torch.equal(grid_items, torch.arange(n_target, device=dev))
+
+    def close(got, want, tol, what):
+        atol, rtol = tol
+        err = float((got - want).abs().max())
+        assert err <= atol + rtol * float(want.abs().max()), f"{what}: error {err}"
+        return err
+
+    for mode in ("overlap_items", "overlap_users"):
+        items_mode = mode == "overlap_items"
+        hm, _, lens = (dataset.history_item_matrix if items_mode
+                       else dataset.history_user_matrix)(domain="target")
+        hm, lens = hm[:, :H], np.minimum(lens, H)
+        mask = np.arange(hm.shape[1])[None, :] < lens[:, None]
+        hist = b9.History(tables["si" if items_mode else "su"],
+                          torch.as_tensor(hm.astype(np.int32), device=dev),
+                          torch.as_tensor(mask, device=dev))
+        anchors = (step_users if items_mode else step_items).clone()
+        # empty histories: PAD, and a source-only entity (no target interaction)
+        anchors[:8], anchors[8:16] = 0, (nu if items_mode else ni) - 1
+        assert not bool(hist.mask[anchors[:16].long()].any())
+        own, other = ("tu", "ti") if items_mode else ("ti", "tu")
+        pu = tables[own][anchors.long()]
+        q = tables[other][(step_items if items_mode else step_users).long()]
+        print(f"  natr_attention [{mode}]: P {P}, H {hm.shape[1]}, D {D}, "
+              f"{int(torch.unique(anchors).numel())} distinct anchors", flush=True)
+
+        a = b9.natr_attention_forward(hist, anchors, pu, q, w)
+        b = b9.natr_attention_forward_plain(hist, anchors, pu, q, w)
+        err_f = close(a, b, B9_TOL["forward"], f"natr_attention_forward [{mode}]")
+        assert torch.equal(a, b9.natr_attention_forward(hist, anchors, pu, q, w)), \
+            "natr_attention_forward differs run to run"
+        ka = b9.natr_attention_backward(hist, anchors, pu, q, w, gz)
+        pa = b9.natr_attention_backward_plain(hist, anchors, pu, q, w, gz)
+        names = ("dpu", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da")
+        err_b = 0.0
+        for name, x, y in zip(names, ka, pa):
+            if name == "db_da":  # 0 in exact arithmetic: beta depends on b_s - b_p
+                assert float(x.abs().max()) <= B9_TOL["backward"][0], f"db_da {float(x)}"
+                continue
+            err_b = max(err_b, close(x, y, B9_TOL["backward"], f"natr_attention_backward {name} [{mode}]"))
+        again = b9.natr_attention_backward(hist, anchors, pu, q, w, gz)
+        assert all(torch.equal(x, y) for x, y in zip(ka, again)), \
+            "natr_attention_backward differs run to run"
+
+        # the full-sort tile: anchors on the rows (users) or the columns (items)
+        if items_mode:
+            fa, fp, fq = fs_users.to(torch.int32), tables["tu"][fs_users], tables["ti"][grid_items]
+        else:
+            fa, fp, fq = grid_items.to(torch.int32), tables["ti"][grid_items], tables["tu"][fs_users]
+        c = b9.natr_full_sort(hist, fa, fp, fq, w, items_mode)
+        d = b9.natr_full_sort_plain(hist, fa, fp, fq, w, items_mode)
+        assert c.shape == (fs_users.shape[0], grid_items.shape[0])
+        err_s = close(c, d, B9_TOL["full_sort"], f"natr_full_sort [{mode}]")
+        assert torch.equal(c, b9.natr_full_sort(hist, fa, fp, fq, w, items_mode))
+        print(f"  natr_attention [{mode}]: max_abs_err forward {err_f:.3g}, backward "
+              f"{err_b:.3g}, full-sort {err_s:.3g}", flush=True)
+        if not items_mode:
+            continue
+
+        n_anchor = int(torch.unique(anchors).numel())
+        rows = int(torch.unique(hist.ids[torch.unique(anchors).long()]).numel())
+        fixed = 4 * (D * D + 3 * D + 2)
+        fwd_bytes = n_anchor * H * 5 + rows * D * 4 + 2 * P * D * 4 + P * 8 + fixed
+        print(f"  natr_attention: {n_anchor} distinct anchors gather {rows} distinct "
+              f"source rows", flush=True)
+        record("natr_attention_forward",
+               lambda: b9.natr_attention_forward(hist, anchors, pu, q, w),
+               lambda: b9.natr_attention_forward_plain(hist, anchors, pu, q, w),
+               err_f, fwd_bytes, natr_work(rows, n_anchor * H, P, D))
+        record("natr_attention_backward",
+               lambda: b9.natr_attention_backward(hist, anchors, pu, q, w, gz),
+               lambda: b9.natr_attention_backward_plain(hist, anchors, pu, q, w, gz),
+               err_b, fwd_bytes + P * 4 + 2 * P * D * 4 + fixed,
+               natr_work(rows, n_anchor * H, P, D, backward=True))
+        B = fs_users.shape[0]
+        rows_f = int(torch.unique(hist.ids[fs_users.long()]).numel())
+        record("natr_full_sort",
+               lambda: b9.natr_full_sort(hist, fa, fp, fq, w, True),
+               lambda: b9.natr_full_sort_plain(hist, fa, fp, fq, w, True),
+               err_s, B * H * 5 + rows_f * D * 4 + (B + n_target) * D * 4 + B * n_target * 4
+               + fixed, natr_work(rows_f, B * H, B * n_target, D), reps=50)
+        fs_probs = c
+
+    # ---- K4 and B7 on the fallback tile's probabilities ------------------
+    B = fs_users.shape[0]
+    rp, it = fs_rp[0, :B + 1], fs_hist[0]
+    k = FullSortEvaluator(config).max_k
+    a = k4.masked_topk(fs_probs, rp, it, k)
+    assert torch.equal(a, k4.masked_topk_plain(fs_probs, rp, it, k)), \
+        "masked_topk disagrees with its plain version on the fallback tile"
+    pos_all, pmask_all = _padded_positives(valid_data, dev)
+    pos, pmask = pos_all[:B], pmask_all[:B]
+    check_rank_sum(fs_probs, rp, it, pos, pmask)
+    n_pairs = int(rp[-1])
+    hp = history_pairs(rp, it)
+    tile = f"[{B}, {n_target}]"
+    print(f"  fallback tile {tile}: {int(pmask.sum())} positives, {n_pairs} history entries",
+          flush=True)
+    record("masked_topk",
+           lambda: k4.masked_topk(fs_probs, rp, it, k),
+           lambda: k4.masked_topk_plain(fs_probs, rp, it, k),
+           0.0, fs_probs.numel() * 4 + rp.numel() * 4 + n_pairs * 4 + B * k * 4,
+           fs_probs.numel(), library_fn=lambda: library_topk(fs_probs, hp, k), shape=tile)
+    record("rank_sum",
+           lambda: b7.rank_sum(fs_probs, rp, it, pos, pmask),
+           lambda: b7.rank_sum_plain(fs_probs, rp, it, pos, pmask),
+           0.0, fs_probs.numel() * 4 + rp.numel() * 4 + n_pairs * 4 + pos.numel() * 5 + B * 4,
+           2 * n_target * int(pmask.sum()),
+           library_fn=lambda: library_rank_sum(fs_probs, rp, it, pos, pmask), shape=tile)
+
+
 def bitgcf_graph(dataset):
     """BiTGCF's normalised source adjacency of ``dataset`` and its
     transpose, as the model builds them (scipy, float32)."""
@@ -663,10 +980,11 @@ def bitgcf_graph(dataset):
     return L, L.T
 
 
-def profile_epoch(dev, cfg, tag="", export=True, model="CMF"):
-    """Device time by kernel over one warm BOTH epoch and one validation
-    pass of ``model`` in the configuration ``cfg``; with ``export``, Chrome
-    traces of both in the output directory (names prefixed by ``tag``)."""
+def profile_epoch(dev, cfg, tag="", export=True, model="CMF", scheme="BOTH"):
+    """Device time by kernel over one warm ``scheme`` epoch and one
+    validation pass of ``model`` in the configuration ``cfg``; with
+    ``export``, Chrome traces of both in the output directory (names
+    prefixed by ``tag``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -674,20 +992,24 @@ def profile_epoch(dev, cfg, tag="", export=True, model="CMF"):
     from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
     from recbole_cdr_tpu_torch.trainer.trainer import CrossDomainTrainer
     from recbole_cdr_tpu_torch.utils import get_model, init_seed
+    from recbole_cdr_tpu_torch.utils.enums import train_mode2state
 
     config = CDRConfig(model=model, config_dict=cfg, _cli_args=[])
     init_seed(config["seed"], True)
     dataset = create_dataset(config)
     train_data, valid_data, _ = data_preparation(config, dataset)
     trainer = CrossDomainTrainer(config, get_model(model)(config, dataset))
-    loop = trainer._loop_for("BOTH", train_data)
+    train_data.set_mode(train_mode2state[scheme])
+    trainer.model.set_phase(scheme)
+    valid_data = trainer._route_valid(scheme, valid_data)
+    loop = trainer._loop_for(scheme, train_data)
     float(loop.run_epoch(0))
-    trainer._evaluate_batches("BOTH", valid_data)
+    trainer._evaluate_batches(scheme, valid_data)
     torch.cuda.synchronize()
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     for name, fn in (("train_epoch", lambda: float(loop.run_epoch(1))),
-                     ("valid_pass", lambda: trainer._evaluate_batches("BOTH", valid_data))):
+                     ("valid_pass", lambda: trainer._evaluate_batches(scheme, valid_data))):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -762,6 +1084,9 @@ def main():
     if "--profile" in sys.argv[1:]:
         profile_epoch(dev, config_dict())
         profile_epoch(dev, bitgcf_config(), "bitgcf_", model="BiTGCF")
+        for scheme in ("SOURCE", "TARGET"):
+            profile_epoch(dev, natr_config(), f"natr_{scheme.lower()}_", model="NATR",
+                          scheme=scheme)
         profile_epoch(dev, catalog_config(), "catalog_", export=False)  # traces of ~100 MB
         return 0
 
@@ -833,6 +1158,19 @@ def main():
           f"{ {k: c[k] for k in want} }, expected {want}", flush=True)
     assert all(c[k] == v for k, v in want.items()), (c, want)
 
+    print("== phase 6: NATR path, run_recbole_cdr(model='NATR') on the card: SOURCE then "
+          "TARGET, GAUC among the metrics", flush=True)
+    del result
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_recbole_cdr(model="NATR", config_dict=natr_config(), saved=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["natr"] = c = ops.launch_counts()
+    hist = _report_run(result, wall, c, NATR_PATH)
+    check_natr_run(result, hist, c)
+
     replaces = {
         "gather_dot_forward": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
                                "recbole_cdr_tpu/models/cmf.py:45"),
@@ -852,6 +1190,14 @@ def main():
                                 "recbole_cdr_tpu/models/bitgcf.py:116"),
         "graph_layer_backward": ("recbole_cdr_tpu_torch/csrc/graph_layer.cu",
                                  "recbole_cdr_tpu/models/bitgcf.py:116"),
+        "rank_sum": ("recbole_cdr_tpu_torch/csrc/rank_sum.cu",
+                     "recbole_cdr_tpu/evaluator/evaluator.py:63"),
+        "natr_attention_forward": ("recbole_cdr_tpu_torch/csrc/natr_attention.cu",
+                                   "recbole_cdr_tpu/models/natr.py:101"),
+        "natr_attention_backward": ("recbole_cdr_tpu_torch/csrc/natr_attention.cu",
+                                    "recbole_cdr_tpu/models/natr.py:101"),
+        "natr_full_sort": ("recbole_cdr_tpu_torch/csrc/natr_attention.cu",
+                           "recbole_cdr_tpu/models/natr.py:101"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -867,6 +1213,49 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def check_natr_run(result, hist, c):
+    """Phase 6's checks: the phases and their falling losses, GAUC, and the
+    launches of K1, B9, K4 and B7 against the steps, validations and tiles
+    of the run."""
+    model = result["model"]
+    phases = [h["phase"] for h in hist]
+    assert phases == ["SOURCE"] * NATR_EPOCHS[0] + ["TARGET"] * NATR_EPOCHS[1], phases
+    for phase in ("SOURCE", "TARGET"):
+        losses = [h["loss"] for h in hist if h["phase"] == phase]
+        assert losses[-1] < losses[0], (phase, losses)
+    for res in (result["test_result"], result["best_valid_result"]):
+        assert 0 < res["gauc"] < 1, res
+    steps = {}
+    for phase in ("SOURCE", "TARGET"):
+        examples = sum(h["train_examples"] for h in hist if h["phase"] == phase)
+        assert examples % BATCH == 0  # 4,096 positives + 4,096 negatives per step
+        steps[phase] = examples // BATCH
+
+    def user_batch(users, item_num):  # FullSortEvalBatches.user_batch
+        return max(1, min(32, users), config_dict()["eval_batch_size"] // item_num)
+
+    n_target = model.target_num_items
+    n_source = model.total_num_items - model.target_num_items + model.overlapped_num_items
+    source_tiles = sum(-(-h["valid_users"] // max(user_batch(h["valid_users"], n_source),
+                                                   min(2048, h["valid_users"])))
+                       for h in hist if h["phase"] == "SOURCE")
+    target_tiles = sum(-(-h["valid_users"] // user_batch(h["valid_users"], n_target))
+                       for h in hist if h["phase"] == "TARGET")
+    test_tiles = -(-result["test_users"] // user_batch(result["test_users"], n_target))
+    want = {"gather_dot_forward": steps["SOURCE"], "gather_dot_backward": steps["SOURCE"],
+            "natr_attention_forward": steps["TARGET"],
+            "natr_attention_backward": steps["TARGET"],
+            "natr_full_sort": target_tiles + test_tiles,
+            "masked_topk": source_tiles + target_tiles + test_tiles,
+            "rank_sum": source_tiles + target_tiles + test_tiles}
+    print(f"{steps} training steps; evaluation tiles: SOURCE validations {source_tiles}, "
+          f"TARGET validations {target_tiles}, test {test_tiles} ({result['test_users']} "
+          f"users); launches "
+          f"{ {k: c[k] for k in want} }, expected {want}", flush=True)
+    assert all(c[k] == v for k, v in want.items()), (c, want)
+    assert all(math.isfinite(v) for v in result["test_result"].values())
 
 
 def _report_run(result, wall, counts, path):

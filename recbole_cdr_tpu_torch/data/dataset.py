@@ -515,6 +515,45 @@ class DomainDataset:
             return mat.tocsr()
         raise NotImplementedError(f"Sparse matrix format [{form}] has not been implemented.")
 
+    def get_history_matrix(self, user_num, item_num, row="user", value_field=None, max_len=None):
+        """Padded dense history matrix (reference `dataset.py:188-249`):
+        (history_matrix, history_value, history_len). Like
+        :meth:`get_sparse_matrix` it reads the whole domain, evaluation
+        interactions included; each row keeps its first ``max_len`` entries
+        in the stable order of ``arrays``."""
+        user_ids = self.arrays[self.uid_field]
+        item_ids = self.arrays[self.iid_field]
+        values = (
+            np.ones(len(user_ids))
+            if value_field is None
+            else self.arrays[value_field].astype(np.float64)
+        )
+        if row == "user":
+            row_num, row_ids, col_ids = user_num, user_ids, item_ids
+        else:
+            row_num, row_ids, col_ids = item_num, item_ids, user_ids
+
+        history_len = np.bincount(row_ids, minlength=row_num).astype(np.int64)
+        col_num = int(history_len.max()) if len(history_len) else 0
+        if max_len is not None:
+            col_num = min(col_num, max_len)
+
+        # stable sort rows; positions within each row via cumcount
+        order = np.argsort(row_ids, kind="stable")
+        sorted_rows = row_ids[order]
+        starts = np.zeros(row_num + 1, dtype=np.int64)
+        np.cumsum(history_len, out=starts[1:])
+        pos_within = np.arange(len(sorted_rows)) - starts[sorted_rows]
+
+        keep = pos_within < col_num
+        history_matrix = np.zeros((row_num, col_num), dtype=np.int64)
+        history_value = np.zeros((row_num, col_num), dtype=np.float64)
+        history_matrix[sorted_rows[keep], pos_within[keep]] = col_ids[order][keep]
+        history_value[sorted_rows[keep], pos_within[keep]] = values[order][keep]
+        if max_len is not None:
+            history_len = np.minimum(history_len, max_len)
+        return history_matrix, history_value, history_len
+
 
 class InteractionTable:
     """A split of interactions as a dict of aligned numpy arrays — the
@@ -675,6 +714,20 @@ class CrossDomainDataset:
     def inter_matrix(self, form="coo", value_field=None, domain="source"):
         ds = self.source_domain_dataset if domain == "source" else self.target_domain_dataset
         return ds.get_sparse_matrix(self.num_total_user, self.num_total_item, form, value_field)
+
+    def history_item_matrix(self, value_field=None, domain="source", max_len=None):
+        ds = self.source_domain_dataset if domain == "source" else self.target_domain_dataset
+        return ds.get_history_matrix(
+            self.num_total_user, self.num_total_item, row="user",
+            value_field=value_field, max_len=max_len,
+        )
+
+    def history_user_matrix(self, value_field=None, domain="source", max_len=None):
+        ds = self.source_domain_dataset if domain == "source" else self.target_domain_dataset
+        return ds.get_history_matrix(
+            self.num_total_user, self.num_total_item, row="item",
+            value_field=value_field, max_len=max_len,
+        )
 
     # ------------------------------------------------------------------ build
 

@@ -4,17 +4,19 @@ Port of ``recbole_cdr_tpu/evaluator/evaluator.py::FullSortEvaluator``. Two
 device paths produce each eval user's top-k item ids; only those ids leave
 the device, and hits and the recbole-exact metrics are computed on the host.
 
-- Dense (item spaces below ``streaming_topk_threshold``): per user tile, the
-  score matmul (``torch.matmul`` in full float32), then kernel K4
-  (``ops/masked_topk.py``) masks the tile's history and PAD column and
-  selects the top-k.
+- Dense (item spaces below ``streaming_topk_threshold``, and every GAUC
+  evaluation): per user tile, the scores (the model's full-sort form, a
+  ``torch.matmul`` in full float32, or the trainer's predict fallback), then
+  kernel K4 (``ops/masked_topk.py``) masks the tile's history and PAD column
+  and selects the top-k; with GAUC, kernel B7 (``ops/rank_sum.py``) sums the
+  ranks of each user's positives over the same masked row.
 - Streaming (:meth:`FullSortEvaluator.evaluate_streaming`, models with
   dot-product factors): the factors are computed once per pass, then per
   user tile kernel B5 (``ops/topk.py``) scores the item axis in chunks and
   keeps each chunk's top-k, so no [B, items] score block exists.
 
-GAUC (ROADMAP.md A9) and the mesh-sharded streaming top-k (A13) are not
-ported yet and raise.
+The mesh-sharded streaming top-k (ROADMAP.md A13) is not ported yet and
+raises.
 """
 
 from typing import Dict
@@ -26,9 +28,36 @@ from recbole_cdr_tpu_torch.evaluator.metrics import (
     NON_ACCURACY_METRICS,
     compute_non_accuracy_metrics,
     compute_topk_metrics,
+    gauc_,
 )
 from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk
+from recbole_cdr_tpu_torch.ops.rank_sum import rank_sum
 from recbole_cdr_tpu_torch.ops.topk import streaming_topk
+
+
+def _padded_positives(eval_batches, device):
+    """Every eval user's positives padded to the widest user's count:
+    int32 ids [U, P_pos] and a bool mask (``_fused_eval_arrays`` of the JAX
+    package, `evaluator/evaluator.py:145-156`), cached per device."""
+    key = ("pos", str(device))
+    cache = getattr(eval_batches, "_fused_arrays", None)
+    if cache is None:
+        cache = eval_batches._fused_arrays = {}
+    if key in cache:
+        return cache[key]
+    U = len(eval_batches.uid_list)
+    lens = eval_batches.pos_lens
+    P = max(int(lens.max()) if U else 0, 1)
+    pos = np.zeros((U, P), np.int32)
+    pmask = np.zeros((U, P), dtype=bool)
+    pp = eval_batches.pos_ptr
+    if pp[-1] > 0:
+        owners = np.repeat(np.arange(U), lens)
+        pos_in_row = np.arange(pp[-1]) - np.repeat(pp[:-1], lens)
+        pos[owners, pos_in_row] = eval_batches.pos_items
+        pmask[owners, pos_in_row] = True
+    cache[key] = (torch.as_tensor(pos, device=device), torch.as_tensor(pmask, device=device))
+    return cache[key]
 
 
 def _fused_eval_arrays(eval_batches, B: int, device):
@@ -77,6 +106,11 @@ class FullSortEvaluator:
     #: re-blocking cannot change metrics)
     DENSE_USER_BLOCK = 2048
 
+    #: per-segment element budget of pair-cost scorers (the predict
+    #: fallback: each score is a prediction, not a dot product); their tiles
+    #: keep ``user_batch`` rows
+    HEAVY_SEG_ELEMS = 1 << 23
+
     def __init__(self, config):
         self.metrics = [m.lower() for m in config["metrics"]]
         self.non_acc_metrics = [m for m in self.metrics if m in NON_ACCURACY_METRICS]
@@ -85,8 +119,6 @@ class FullSortEvaluator:
             if m != "gauc" and m not in NON_ACCURACY_METRICS
         ]
         self.need_gauc = "gauc" in self.metrics
-        if self.need_gauc:
-            raise NotImplementedError("GAUC is not ported yet (ROADMAP.md A9)")
         if config["eval_score_dtype"] not in (None, "float32"):
             raise NotImplementedError("only float32 eval scoring is ported (ROADMAP.md A10)")
         self.need_rec_items = bool(self.non_acc_metrics)
@@ -103,6 +135,8 @@ class FullSortEvaluator:
     def _empty_result(self) -> Dict[str, float]:
         out = {f"{m}@{k}": 0.0 for m in self.topk_metrics for k in self.topk}
         out.update({f"{m}@{k}": 0.0 for m in self.non_acc_metrics for k in self.topk})
+        if self.need_gauc:
+            out["gauc"] = 0.0
         return out
 
     def _add_non_accuracy(self, result, rec_items, eval_batches, item_num):
@@ -137,38 +171,53 @@ class FullSortEvaluator:
         seg = max(1, min(n_tiles, elems_budget // max(B * eval_batches.item_num, 1)))
         return seg, -(-n_tiles // seg)
 
-    def _dense_budget(self, eval_batches):
-        """(user-block rows, per-segment element budget) for the dense path."""
+    def _dense_budget(self, eval_batches, score_fn=None):
+        """(user-block rows, per-segment element budget) for the dense path,
+        by the scorer's cost class."""
+        if getattr(score_fn, "_pair_cost", False):
+            return eval_batches.user_batch, self.HEAVY_SEG_ELEMS
         U = len(eval_batches.uid_list)
         cap = max(self.DENSE_SEG_ELEMS // max(eval_batches.item_num, 1), 1)
         B = max(eval_batches.user_batch, min(self.DENSE_USER_BLOCK, U, cap))
         return B, self.DENSE_SEG_ELEMS
 
-    def topk_ids(self, score_fn, eval_batches, device) -> np.ndarray:
-        """[U, max_k] top-k item ids of every eval user (host array).
+    def topk_ids(self, score_fn, eval_batches, device, with_rank_sums=False):
+        """[U, max_k] top-k item ids of every eval user (host array); with
+        ``with_rank_sums``, also the [U] GAUC rank sums (None without GAUC).
         ``score_fn(users [B] int64) -> scores [B, item_num]`` on ``device``."""
         U = len(eval_batches.uid_list)
-        B, budget = self._dense_budget(eval_batches)
+        B, budget = self._dense_budget(eval_batches, score_fn)
         seg, n_segs = self._segmentation(eval_batches, budget, B)
         uids, row_ptr, items = _fused_eval_arrays(eval_batches, B, device)
+        if self.need_gauc:
+            pos, pmask = _padded_positives(eval_batches, device)
         n_tiles = -(-U // B)
-        out = []
+        out, sums = [], []
         tf32 = torch.backends.cuda.matmul.allow_tf32
         # top-k ids must match the float32 reference: no TF32 in the scores
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
             with torch.no_grad():
                 for s in range(n_segs):
-                    ids = []
+                    ids, rs = [], []
                     for t in range(s * seg, min((s + 1) * seg, n_tiles)):
                         users = uids[t * B:(t + 1) * B]
                         scores = score_fn(users)
                         n = users.shape[0]
-                        ids.append(masked_topk(scores, row_ptr[t, :n + 1], items[t], self.max_k))
+                        rp = row_ptr[t, :n + 1]
+                        ids.append(masked_topk(scores, rp, items[t], self.max_k))
+                        if self.need_gauc:
+                            rows = slice(t * B, t * B + n)
+                            rs.append(rank_sum(scores, rp, items[t], pos[rows], pmask[rows]))
                     out.append(torch.cat(ids).cpu().numpy())
+                    if rs:
+                        sums.append(torch.cat(rs).cpu().numpy())
         finally:
             torch.backends.cuda.matmul.allow_tf32 = tf32
-        return np.concatenate(out).astype(np.int64)
+        ids = np.concatenate(out).astype(np.int64)
+        if not with_rank_sums:
+            return ids
+        return ids, np.concatenate(sums) if self.need_gauc else None
 
     def streaming_topk_ids(self, factors_fn, eval_batches, device) -> np.ndarray:
         """[U, max_k] top-k item ids of every eval user (host array) through
@@ -204,14 +253,16 @@ class FullSortEvaluator:
                             eval_batches)
 
     def evaluate(self, score_fn, eval_batches, device) -> Dict[str, float]:
-        """Returns {metric@k: value} averaged over the eval users."""
+        """Returns {metric@k: value} averaged over the eval users, plus
+        ``gauc`` when asked for (from the full-row rank sums)."""
         if len(eval_batches.uid_list) == 0:
             return self._empty_result()
-        return self._result(self.topk_ids(score_fn, eval_batches, device), eval_batches)
+        ids, rank_sums = self.topk_ids(score_fn, eval_batches, device, with_rank_sums=True)
+        return self._result(ids, eval_batches, rank_sums)
 
-    def _result(self, topk_idx, eval_batches) -> Dict[str, float]:
+    def _result(self, topk_idx, eval_batches, rank_sums=None) -> Dict[str, float]:
         """Hits of the [U, max_k] top-k ids against the positives, then the
-        metrics."""
+        metrics; GAUC from the rank sums over rows of ``item_num`` items."""
         U = len(eval_batches.uid_list)
         item_num = eval_batches.item_num
         pos_keys = eval_batches.pos_keys_sorted
@@ -222,5 +273,7 @@ class FullSortEvaluator:
         pos_index = pos_keys[loc] == q if len(pos_keys) else np.zeros_like(q, bool)
         pos_len = eval_batches.pos_lens.astype(np.int64)
         result = compute_topk_metrics(pos_index, pos_len, self.topk_metrics, self.topk)
+        if rank_sums is not None:
+            result["gauc"] = gauc_(np.full(U, item_num, np.int64), pos_len, rank_sums)
         result = self._add_non_accuracy(result, topk_idx, eval_batches, item_num)
         return {k: round(v, self.decimal_place) for k, v in result.items()}

@@ -32,6 +32,21 @@ def init_embedding(num, dim, generator=None, dtype=torch.float32) -> torch.Tenso
     return xavier_normal((num, dim), generator, dtype)
 
 
+class Linear(nn.Module):
+    """``x @ w + b`` in the JAX package's layout, ``w`` [d_in, d_out] and
+    ``b`` [d_out] (``init_linear``, `models/base.py:40-46`): xavier-normal
+    weight, zero bias. The orientation is JAX's, not ``nn.Linear``'s, so
+    that weights carry over without a transpose."""
+
+    def __init__(self, d_in, d_out, generator=None, dtype=torch.float32):
+        super().__init__()
+        self.w = nn.Parameter(xavier_normal((d_in, d_out), generator, dtype))
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype))
+
+    def forward(self, x):
+        return x @ self.w + self.b
+
+
 # -------------------------------------------------------------------- losses
 
 def weighted_mean(values: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -62,6 +77,15 @@ def emb_loss(embeddings: Sequence[torch.Tensor], weight, norm: int = 2,
         else:
             total = total + torch.sum(torch.abs(masked) ** norm) ** (1.0 / norm)
     return total / denom
+
+
+def reg_loss(weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """recbole ``RegLoss``: sum of the L2 norms of whole parameter tensors."""
+    total = 0.0
+    for w in weights:
+        w = w.float()
+        total = total + torch.sqrt(torch.sum(w * w))
+    return total
 
 
 # ---------------------------------------------------------------- base class
@@ -148,10 +172,48 @@ class CrossDomainRecommender(nn.Module):
         gathered sub-tables)."""
         return self.loss_fn(phase)(batch, rng)
 
+    def predict(self, batch) -> torch.Tensor:
+        """Scores of the target (user, item) pairs of ``batch`` in the
+        current phase (``predict_fn``, `models/base.py:232-234`)."""
+        raise NotImplementedError
+
+    #: the default predict_grid's max items and max (user, item) pairs of one
+    #: chunk (``recbole_cdr_tpu/trainer/trainer.py:337-385``)
+    MAX_CHUNK, PAIR_BUDGET = 4096, 1 << 18
+
+    def predict_grid(self, users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+        """Scores of every (user, item) pair of ``users [B]`` x ``items [I]``,
+        as [B, I]: the predict fallback's hook (``trainer.
+        make_predict_full_sort``). The default scores the grid as the JAX
+        fallback's scan does: the item axis cut into chunks of at most
+        ``MAX_CHUNK`` items and ``PAIR_BUDGET`` pairs, the tail chunk clamped
+        onto the last item, each chunk flattened into pairs for
+        :meth:`predict`, and the duplicate columns sliced off. A model whose
+        scores share per-user or per-item work overrides it to score the
+        whole grid in one call."""
+        B, n = users.shape[0], items.shape[0]
+        chunk = min(self.MAX_CHUNK, max(128, self.PAIR_BUDGET // max(B, 1)),
+                    max(128, 1 << (n - 1).bit_length()))
+        n_chunks = -(-n // chunk)
+        pos = torch.clamp(torch.arange(n_chunks * chunk, device=items.device), max=n - 1)
+        tiles = []
+        for cols in items[pos].reshape(n_chunks, chunk):
+            batch = {self.TARGET_USER_ID: users.repeat_interleave(chunk),
+                     self.TARGET_ITEM_ID: cols.repeat(B)}
+            tiles.append(self.predict(batch).reshape(B, chunk))
+        return torch.cat(tiles, 1)[:, :n]
+
     def full_sort(self, users: torch.Tensor, phase: str = "TARGET") -> torch.Tensor:
         """``users [B] -> scores [B, item_space]``; target phases score the
         contiguous target prefix ``[0, target_num_items)``."""
         raise NotImplementedError
+
+    def full_sort_fn(self, phase: str = "TARGET"):
+        """``users [B] -> scores [B, item_space]`` for the phase, or None
+        when the model has no full-sort form there: the trainer then scores
+        through :meth:`predict_grid` (``trainer.make_predict_full_sort``),
+        as the JAX trainer's ``_score_fn_for`` does."""
+        return lambda users: self.full_sort(users, phase)
 
     def full_sort_factors(self, phase: str = "TARGET"):
         """Optional: ``users [B] -> (user_repr [B, D], item_repr

@@ -9,7 +9,9 @@ from recbole_cdr_tpu_torch.ops import (
     gather_dot,
     graph_layer,
     masked_topk,
+    natr_attention,
     neg_sampler,
+    rank_sum,
     shuffle,
     sparse_adam,
     topk,
@@ -26,6 +28,10 @@ WRAPPERS = {
     "sparse_adam": sparse_adam.sparse_adam,
     "graph_layer_forward": graph_layer.graph_layer_forward,
     "graph_layer_backward": graph_layer.graph_layer_backward,
+    "rank_sum": rank_sum.rank_sum,
+    "natr_attention_forward": natr_attention.natr_attention_forward,
+    "natr_attention_backward": natr_attention.natr_attention_backward,
+    "natr_full_sort": natr_attention.natr_full_sort,
 }
 
 

@@ -24,7 +24,7 @@ import torch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = ("gather_dot", "neg_sampler", "shuffle", "masked_topk", "streaming_topk",
-           "sparse_adam", "graph_layer")
+           "sparse_adam", "graph_layer", "rank_sum", "natr_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,6 +56,12 @@ _SIGNATURES = {
         "graph_layer_forward": [_P] * 8 + [_I, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _P],
         "graph_layer_backward": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P,
                                             _I, _I, _P],
+    },
+    "rank_sum": {"rank_sum": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P]},
+    "natr_attention": {
+        "natr_attention_forward": [_P] * 12 + [_I] * 6 + [_P, _P, _P],
+        "natr_attention_backward_blocks": [_I, _I, _I],
+        "natr_attention_backward": [_P] * 12 + [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     },
 }
 

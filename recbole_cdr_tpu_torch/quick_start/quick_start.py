@@ -21,7 +21,8 @@ def run_recbole_cdr(model=None, config_file_list=None, config_dict=None, saved=T
 
     Returns the JAX package's result keys plus ``history``, one record per
     trained epoch (loss, seconds, examples; validation seconds and users),
-    and ``model``, the trained module."""
+    ``test_users``, the users of the test pass, and ``model``, the trained
+    module."""
     config = CDRConfig(model=model, config_file_list=config_file_list, config_dict=config_dict)
     resolve_device(config)  # fail before any data work when the card is missing
     init_seed(config["seed"], config["reproducibility"])
@@ -52,5 +53,6 @@ def run_recbole_cdr(model=None, config_file_list=None, config_dict=None, saved=T
         "best_valid_result": best_valid_result,
         "test_result": test_result,
         "history": trainer.history,
+        "test_users": len(test_data.uid_list),
         "model": model_obj,
     }

@@ -18,11 +18,13 @@ dropout bits a model's loss asks for. The JAX package draws the same
 quantities from threefry keys it derives per epoch, segment and step, so a
 test can hand its bits to this loop through the same interface.
 
-The loop runs the BOTH phase of a pointwise model (CMF's and BiTGCF's
-schedule). The SOURCE / TARGET / OVERLAP streams and pairwise batches come
-with the models that train that way (ROADMAP.md A8); popularity-distribution
-sampling (the alias-table branch of ``_sample_negatives``) is not ported yet
-either. All of them raise.
+The loop runs the BOTH, SOURCE and TARGET phases of a pointwise model (CMF's
+and BiTGCF's BOTH schedule, NATR's SOURCE then TARGET). A single-domain
+phase streams that domain alone, with one un-cycled permutation per epoch.
+The OVERLAP stream and pairwise batches come with the models that train
+that way (ROADMAP.md A8); popularity-distribution sampling (the alias-table
+branch of ``_sample_negatives``) is not ported yet either. All of them
+raise.
 """
 
 import functools
@@ -225,7 +227,8 @@ class DomainDeviceData:
 
 
 class DeviceEpochLoop:
-    """Runs whole epochs of BOTH-phase train steps on the device.
+    """Runs whole epochs of BOTH-, SOURCE- or TARGET-phase train steps on
+    the device.
 
     ``step_fn(batch, rng) -> loss`` performs one optimizer step on a dict of
     per-step tensors (the layout ``data/batching.py`` produces) and returns
@@ -235,30 +238,43 @@ class DeviceEpochLoop:
 
     def __init__(self, scheme: TrainMode, step_fn, train_data, input_type,
                  neg_num: int, num_users: int, random_source, device):
-        if scheme != TrainMode.BOTH or input_type != InputType.POINTWISE:
+        phases = (TrainMode.BOTH, TrainMode.SOURCE, TrainMode.TARGET)
+        if scheme not in phases or input_type != InputType.POINTWISE:
             raise NotImplementedError(
-                f"the device epoch loop runs pointwise BOTH phases; {scheme.value} "
-                f"with {input_type.name} batches comes with the models that need "
-                "it (ROADMAP.md A8)"
+                f"the device epoch loop runs pointwise BOTH, SOURCE and TARGET phases; "
+                f"{scheme.value} with {input_type.name} batches comes with the models "
+                "that need it (ROADMAP.md A8)"
             )
+        self.scheme = scheme
         self.step_fn = step_fn
         self.source = random_source
         self.device = torch.device(device)
         self.neg_num = neg_num
         src_b = train_data.source_batcher
         tgt_b = train_data.target_batcher
-        self.src = DomainDeviceData(src_b.table, src_b.sampler, num_users, self.device)
-        self.tgt = DomainDeviceData(tgt_b.table, tgt_b.sampler, num_users, self.device)
-        self.step = tgt_b.step
-        self.src_step = src_b.step
-        self.steps_per_epoch = len(tgt_b)
-        # each source cycle of an epoch gets its own permutation
-        # (`data/batching.py` reshuffles the source on exhaustion)
-        self.src_batches_per_cycle = max(1, -(-self.src.n // self.src_step))
-        self.src_cycles = max(1, -(-self.steps_per_epoch // self.src_batches_per_cycle))
+        # only the domains the phase streams live on the device
+        self.src = self.tgt = None
+        if scheme != TrainMode.TARGET:
+            self.src = DomainDeviceData(src_b.table, src_b.sampler, num_users, self.device)
+        if scheme != TrainMode.SOURCE:
+            self.tgt = DomainDeviceData(tgt_b.table, tgt_b.sampler, num_users, self.device)
+        if scheme == TrainMode.SOURCE:
+            self.step = src_b.step
+            self.steps_per_epoch = len(src_b)
+        else:
+            self.step = tgt_b.step
+            self.steps_per_epoch = len(tgt_b)
+        ex_per_step = self.step
+        if scheme == TrainMode.BOTH:
+            self.src_step = src_b.step
+            ex_per_step += self.src_step
+            # each source cycle of an epoch gets its own permutation
+            # (`data/batching.py` reshuffles the source on exhaustion)
+            self.src_batches_per_cycle = max(1, -(-self.src.n // self.src_step))
+            self.src_cycles = max(1, -(-self.steps_per_epoch // self.src_batches_per_cycle))
 
         # ---- segment sizing: bound the per-epoch streams in device memory --
-        self.examples_per_step = (self.step + self.src_step) * (1 + neg_num)
+        self.examples_per_step = ex_per_step * (1 + neg_num)
         bytes_per_step = max(self.examples_per_step, 1) * 4 * 4  # ~4 int/float arrays
         self.seg_steps = max(1, min(self.steps_per_epoch, SEGMENT_BYTES // bytes_per_step))
 
@@ -280,7 +296,7 @@ class DeviceEpochLoop:
             slots = s[:, None] * dstep + cols[None, :]
         valid = slots < data.n
         rows = swap_or_not(
-            torch.where(valid, slots, 0).to(torch.int32), data.n, keys, salts,
+            (torch.where(valid, slots, 0) % max(data.n, 1)).to(torch.int32), data.n, keys, salts,
         ).long()
         uid = data.uid[rows]
         iid = data.iid[rows]
@@ -328,21 +344,34 @@ class DeviceEpochLoop:
         }
 
     def _build_xs(self, shuf, epoch, step_lo, n_steps):
-        xs = self._domain_xs(self.src, *self._domain_stream(
-            self.src, "src", shuf["src"], step_lo, n_steps, self.src_step, True, epoch))
-        xs.update(self._domain_xs(self.tgt, *self._domain_stream(
-            self.tgt, "tgt", shuf["tgt"], step_lo, n_steps, self.step, False, epoch)))
+        """Every step's batch of steps [step_lo, step_lo + n_steps): both
+        domains in a BOTH phase (the source cycling, with its own step),
+        else the phase's domain alone at the phase's step."""
+        xs = {}
+        if self.scheme == TrainMode.BOTH:
+            xs.update(self._domain_xs(self.src, *self._domain_stream(
+                self.src, "src", shuf["src"], step_lo, n_steps, self.src_step, True, epoch)))
+        elif self.scheme == TrainMode.SOURCE:
+            xs.update(self._domain_xs(self.src, *self._domain_stream(
+                self.src, "src", shuf["src"], step_lo, n_steps, self.step, False, epoch)))
+        if self.scheme != TrainMode.SOURCE:
+            xs.update(self._domain_xs(self.tgt, *self._domain_stream(
+                self.tgt, "tgt", shuf["tgt"], step_lo, n_steps, self.step, False, epoch)))
         return xs
 
     # -------------------------------------------------------------- epochs
 
     def _shuffle_material(self, epoch):
-        """This epoch's swap-or-not keys and salts, [K, ROUNDS] per domain:
-        one permutation per source cycle, one for the target."""
-        shuf = {
-            "src": self.source.shuffle_keys(epoch, "src", self.src.n, (self.src_cycles,)),
-            "tgt": self.source.shuffle_keys(epoch, "tgt", self.tgt.n),
-        }
+        """This epoch's swap-or-not keys and salts, [K, ROUNDS] per streamed
+        domain: in a BOTH phase one permutation per source cycle and one for
+        the target, else one for the phase's domain."""
+        shuf = {}
+        if self.scheme == TrainMode.BOTH:
+            shuf["src"] = self.source.shuffle_keys(epoch, "src", self.src.n, (self.src_cycles,))
+        elif self.scheme == TrainMode.SOURCE:
+            shuf["src"] = self.source.shuffle_keys(epoch, "src", self.src.n)
+        if self.scheme != TrainMode.SOURCE:
+            shuf["tgt"] = self.source.shuffle_keys(epoch, "tgt", self.tgt.n)
         return {k: (keys.reshape(-1, SHUFFLE_ROUNDS).to(self.device),
                     salts.reshape(-1, SHUFFLE_ROUNDS).to(self.device))
                 for k, (keys, salts) in shuf.items()}

@@ -25,7 +25,9 @@ spec, get dense torch-Adam on the same shared moments.
 
 Full-sort evaluation streams the item axis through kernel B5
 (``ops/topk.py``) when the item space reaches ``streaming_topk_threshold``
-and the model has dot-product factors; otherwise it takes the dense path.
+and the model has dot-product factors; otherwise it takes the dense path,
+scoring with the model's full-sort form or, in a phase where the model has
+none (NATR's target phases), with :func:`make_predict_full_sort`.
 
 Not ported yet, and raising when configured: checkpoint files and resume
 (ROADMAP.md A12), profiling (A12), mesh / multi-GPU (A13), bfloat16 compute
@@ -213,6 +215,25 @@ def make_sparse_train_step(model, optimizer, phase, spec, trainable):
     return step
 
 
+def make_predict_full_sort(model, item_num):
+    """Full-sort scores through the model's pair predictions, for a phase
+    where it has no full-sort form (recbole's repeated-predict fallback).
+
+    Port of ``recbole_cdr_tpu/trainer/trainer.py:337-385``: the users' grid
+    over the whole item axis goes to ``model.predict_grid``, whose default
+    scores it chunk by chunk as pairs through ``predict``, as JAX's scan
+    does; a model that shares work between the pairs of a grid scores it in
+    one call. The function carries ``_pair_cost``: each score costs a
+    prediction, not a dot product, and the evaluator budgets its tiles by
+    that."""
+
+    def full_sort(users):
+        return model.predict_grid(users, torch.arange(item_num, device=users.device))
+
+    full_sort._pair_cost = True
+    return full_sort
+
+
 def _check_supported(config):
     unsupported = {
         "resume_checkpoint_path": ("checkpoint files", "A12"),
@@ -398,6 +419,14 @@ class CrossDomainTrainer:
 
     # ------------------------------------------------------------ validation
 
+    def _score_fn_for(self, scheme, eval_data):
+        """The model's full-sort form for the phase, else the predict
+        fallback (the JAX trainer's ``_score_fn_for``)."""
+        fs = self.model.full_sort_fn(scheme)
+        if fs is not None:
+            return fs
+        return make_predict_full_sort(self.model, eval_data.item_num)
+
     def _evaluate_batches(self, scheme, eval_data):
         """Streaming top-k for large item spaces when the model factors (the
         JAX trainer's routing), the dense path otherwise."""
@@ -408,9 +437,8 @@ class CrossDomainTrainer:
             if (factors is not None and eval_data.item_num >= threshold
                     and not self.evaluator.need_gauc):
                 return self.evaluator.evaluate_streaming(factors, eval_data, self.device)
-            return self.evaluator.evaluate(
-                lambda users: self.model.full_sort(users, scheme), eval_data, self.device
-            )
+            return self.evaluator.evaluate(self._score_fn_for(scheme, eval_data), eval_data,
+                                           self.device)
         finally:
             self.model.train()
 

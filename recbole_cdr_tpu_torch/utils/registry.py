@@ -2,17 +2,17 @@
 
 Capability parity with ``get_model`` / ``get_trainer``
 (`recbole_cdr/utils/utils.py:16-59`) for the models this package has ported:
-CMF and BiTGCF, with the generic :class:`CrossDomainTrainer`. The other models of the JAX
+CMF, BiTGCF and NATR, with the generic :class:`CrossDomainTrainer`. The other models of the JAX
 package are queued in ROADMAP.md (item A8) and raise here.
 """
 
 import importlib
 
 #: model name -> module under ``recbole_cdr_tpu_torch.models``
-_PORTED = {"CMF": "cmf", "BiTGCF": "bitgcf"}
+_PORTED = {"CMF": "cmf", "BiTGCF": "bitgcf", "NATR": "natr"}
 
 #: models of the reference that are still to be ported (ROADMAP.md A8)
-_QUEUED = ("EMCDR", "CLFM", "CoNet", "DeepAPF", "DTCDR", "SSCDR", "DCDCSR", "NATR")
+_QUEUED = ("EMCDR", "CLFM", "CoNet", "DeepAPF", "DTCDR", "SSCDR", "DCDCSR")
 
 
 def get_model(model_name: str):

@@ -6,9 +6,13 @@ history widths with and without 16-byte loads, embedding widths that are
 not a multiple of the warp; every ``streaming_topk`` template at the
 catalog's 1,100,001 items, a history row longer than one chunk's bitmap and
 user blocks smaller than the kernel's row block; ``sparse_adam`` with every
-id on one row, more ids than rows, and odd widths. Plus the entry point on
-the card, on the dense path and on the catalog path (sparse optimizer,
-streaming evaluation).
+id on one row, more ids than rows, and odd widths; ``rank_sum`` with ties
+everywhere, history, masked positives, rows without positives and rows
+longer than its shared-memory chunk; the NATR attention's forward, backward
+and full-sort forms at every kernel width, with empty and single-slot
+histories, in both overlap modes. Plus the entry point on the card, on the
+dense path, on the catalog path (sparse optimizer, streaming evaluation),
+for BiTGCF and for NATR with GAUC.
 
 Marked ``cuda``; without a card every test skips. On the card (where jax is
 not installed, so the repository's conftest cannot load):
@@ -25,7 +29,9 @@ from recbole_cdr_tpu_torch import ops
 from recbole_cdr_tpu_torch.ops import gather_dot as k1
 from recbole_cdr_tpu_torch.ops import graph_layer as b8
 from recbole_cdr_tpu_torch.ops import masked_topk as k4
+from recbole_cdr_tpu_torch.ops import natr_attention as b9
 from recbole_cdr_tpu_torch.ops import neg_sampler as k2
+from recbole_cdr_tpu_torch.ops import rank_sum as b7
 from recbole_cdr_tpu_torch.ops import shuffle as k3
 from recbole_cdr_tpu_torch.ops import sparse_adam as b6
 from recbole_cdr_tpu_torch.ops import topk as b5
@@ -253,6 +259,101 @@ def test_graph_layer_matches_plain(gen, N, nnz, D, drop):
         assert csr.heavy_row.shape[0] >= 2 and csr_t.heavy_row.shape[0] >= 2
 
 
+@pytest.mark.parametrize("B,I,P,integer", [(64, 5001, 25, True), (64, 5001, 25, False),
+                                         (7, 70_000, 3, True), (3, 10, 40, True)])
+def test_rank_sum_matches_plain(gen, B, I, P, integer):
+    """Exactly equal to the plain version, and run to run: the counts are
+    integers. Row 0 has no positives, row 1 a positive inside its history
+    (holding -inf) and one on PAD; I = 70,000 spans several chunks."""
+    if integer:
+        scores = torch.randint(-3, 4, (B, I), device="cuda", generator=gen).float()
+    else:
+        scores = torch.randn(B, I, device="cuda", generator=gen)
+    scores[torch.rand(B, I, device="cuda", generator=gen) < 0.01] = -math.inf
+    hist = [torch.randint(0, I, (int(c),), device="cuda", generator=gen)
+            for c in torch.randint(0, max(I // 8, 2), (B,), generator=torch.Generator().manual_seed(I))]
+    hist[1] = torch.cat([hist[1], torch.tensor([5], device="cuda")])
+    row_ptr, items = _csr(hist)
+    pos = _ints(0, I, (B, P), gen)
+    pmask = torch.rand(B, P, device="cuda", generator=gen) < 0.7
+    pmask[0] = False
+    pos[1, 0], pmask[1, 0], scores[1, 5] = 5, True, -math.inf
+    pos[1, -1], pmask[1, -1] = 0, True
+    got = b7.rank_sum(scores, row_ptr, items, pos, pmask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, b7.rank_sum_plain(scores, row_ptr, items, pos, pmask))
+    assert torch.equal(got, b7.rank_sum(scores, row_ptr, items, pos, pmask))
+    assert float(got[0]) == 0.0
+
+
+def _natr_inputs(gen, D, H, N, n_anchor_ids, A):
+    """A random history matrix [n_anchor_ids, H] over a source table [N, D]
+    with lengths 0 to H (anchor 0 and anchor 1 empty, anchor 2 one slot,
+    anchor 3 full), A anchors drawn from it (the four first), and weights."""
+    ids = _ints(0, N, (n_anchor_ids, H), gen)
+    lens = torch.randint(0, H + 1, (n_anchor_ids,), device="cuda", generator=gen)
+    lens[:4] = torch.tensor([0, 0, 1, H])
+    mask = torch.arange(H, device="cuda")[None, :] < lens[:, None]
+    ids = torch.where(mask, ids, 0)
+    hist = b9.History(0.3 * torch.randn(N, D, device="cuda", generator=gen), ids, mask)
+    anchors = _ints(0, n_anchor_ids, (A,), gen)
+    anchors[:4] = torch.arange(4, dtype=torch.int32)
+    rnd = lambda *shape, scale: scale * torch.randn(*shape, device="cuda", generator=gen)
+    w = b9.Weights(rnd(D, D, scale=0.2), rnd(D, scale=0.1), rnd(D, 1, scale=0.3),
+                   rnd(1, scale=0.1), rnd(D, 1, scale=0.3), rnd(1, scale=0.1))
+    return hist, anchors, w
+
+
+def _natr_close(got, want, rtol, what):
+    """|got - want| <= 1e-5 + rtol * max|want|, as chip_smoke.py's B9_TOL."""
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 + rtol * float(want.abs().max()), f"{what}: error {err}"
+
+
+@pytest.mark.parametrize("D,H,A", [(64, 50, 8192), (64, 1, 300), (32, 70, 1000),
+                                   (128, 100, 500)])
+def test_natr_attention_matches_plain(gen, D, H, A):
+    hist, anchors, w = _natr_inputs(gen, D, H, 5000, 3000, A)
+    pu = 0.3 * torch.randn(A, D, device="cuda", generator=gen)
+    q = 0.3 * torch.randn(A, D, device="cuda", generator=gen)
+    g = torch.randn(A, device="cuda", generator=gen)
+    got = b9.natr_attention_forward(hist, anchors, pu, q, w)
+    torch.cuda.synchronize()
+    _natr_close(got, b9.natr_attention_forward_plain(hist, anchors, pu, q, w), 1e-4, "forward")
+    assert torch.equal(got, b9.natr_attention_forward(hist, anchors, pu, q, w))
+    grads = b9.natr_attention_backward(hist, anchors, pu, q, w, g)
+    torch.cuda.synchronize()
+    plain = b9.natr_attention_backward_plain(hist, anchors, pu, q, w, g)
+    names = ("dpu", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da")
+    for name, x, y in zip(names, grads, plain):
+        assert x.shape == y.shape, name
+        if name == "db_da":  # 0 in exact arithmetic: beta depends on b_s - b_p
+            assert float(x.abs().max()) <= 1e-5
+        else:
+            _natr_close(x, y, 1e-3, name)
+    again = b9.natr_attention_backward(hist, anchors, pu, q, w, g)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+@pytest.mark.parametrize("anchor_is_row", [True, False])
+def test_natr_full_sort_matches_plain(gen, anchor_is_row):
+    """A predict-fallback tile: 32 users x 8,192 items, the anchors on the
+    rows (overlap_items) or on the columns (overlap_users)."""
+    D, H = 64, 50
+    n_anchor = 32 if anchor_is_row else 8192
+    hist, _, w = _natr_inputs(gen, D, H, 5000, 9000, 4)
+    anchors = _ints(0, 9000, (n_anchor,), gen)
+    anchors[:2] = torch.tensor([0, 1], dtype=torch.int32)  # empty histories
+    pu = 0.3 * torch.randn(n_anchor, D, device="cuda", generator=gen)
+    q = 0.3 * torch.randn(8192 if anchor_is_row else 32, D, device="cuda", generator=gen)
+    got = b9.natr_full_sort(hist, anchors, pu, q, w, anchor_is_row)
+    torch.cuda.synchronize()
+    assert got.shape == (32, 8192)
+    _natr_close(got, b9.natr_full_sort_plain(hist, anchors, pu, q, w, anchor_is_row), 1e-4,
+                "full-sort")
+    assert torch.equal(got, b9.natr_full_sort(hist, anchors, pu, q, w, anchor_is_row))
+
+
 def _run_on_the_card(tmp_path, monkeypatch, model="CMF", **extra):
     from recbole_cdr_tpu_torch import run_recbole_cdr
 
@@ -288,3 +389,14 @@ def test_bitgcf_on_the_card(gen, tmp_path, monkeypatch):
             "masked_topk", "graph_layer_forward", "graph_layer_backward")
     assert all(counts[k] > 0 for k in path), counts
     assert counts["streaming_topk"] == counts["sparse_adam"] == 0, counts
+
+
+def test_natr_on_the_card(gen, tmp_path, monkeypatch):
+    counts = _run_on_the_card(tmp_path, monkeypatch, model="NATR",
+                              train_epochs=["SOURCE:1", "TARGET:1"],
+                              metrics=["Recall", "MRR", "NDCG", "Hit", "Precision", "GAUC"])
+    path = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
+            "masked_topk", "rank_sum", "natr_attention_forward", "natr_attention_backward",
+            "natr_full_sort")
+    assert all(counts[k] > 0 for k in path), counts
+    assert all(counts[k] == 0 for k in counts if k not in path), counts

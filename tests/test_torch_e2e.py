@@ -33,11 +33,11 @@ def test_run_recbole_cdr_cmf_on_cpu(extra):
     ("CMF", {"compute_dtype": "bfloat16"}),
     ("CMF", {"mesh_shape": {"data": 2}}),
     ("CMF", {"phase_optimizer": "sparse", "profile_steps": 1}),
-    ("CMF", {"metrics": ["GAUC"]}),
+    ("CMF", {"learner": "adagrad"}),
     ("CMF", {"eval_args": {"split": {"RS": [0.8, 0.1, 0.1]}, "order": "RO",
                            "group_by": "user", "mode": "uniform 10"}}),
     ("CMF", {"streaming_topk_threshold": 10, "eval_score_dtype": "bfloat16"}),
-    ("CMF", {"train_epochs": ["TARGET:1"]}),
+    ("CMF", {"train_epochs": ["OVERLAP:1"]}),
     ("CMF", {"neg_sampling": {"popularity": 1}}),
 ])
 def test_unported_options_raise(model, extra):

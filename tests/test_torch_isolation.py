@@ -1,7 +1,8 @@
 """The port imports neither jax nor the JAX package: a source scan of the
 package and chip_smoke.py, and a fresh interpreter that imports every module
 of the package and runs the entry point, on the dense path, on the sparse
-optimizer with the streaming evaluator, and for BiTGCF."""
+optimizer with the streaming evaluator, for BiTGCF, and for NATR with
+GAUC."""
 
 import ast
 import os
@@ -48,7 +49,9 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(m.name)
 for model, extra in (("CMF", {}),
                      ("CMF", {"phase_optimizer": "sparse", "streaming_topk_threshold": 1}),
-                     ("BiTGCF", {})):
+                     ("BiTGCF", {}),
+                     ("NATR", {"train_epochs": ["SOURCE:1", "TARGET:1"],
+                               "metrics": ["Recall", "GAUC"]})):
     res = pkg.run_recbole_cdr(model=model, config_dict={
         "state": "ERROR", "device": "cpu", "train_epochs": ["BOTH:1"],
         "train_batch_size": 2048, **extra})
@@ -74,5 +77,6 @@ def test_every_module_is_scanned():
     assert {"recbole_cdr_tpu_torch.ops.gather_dot", "recbole_cdr_tpu_torch.trainer.device_loop",
             "recbole_cdr_tpu_torch.evaluator.evaluator", "recbole_cdr_tpu_torch.ops.topk",
             "recbole_cdr_tpu_torch.ops.sparse_adam", "recbole_cdr_tpu_torch.ops.graph_layer",
-            "recbole_cdr_tpu_torch.models.bitgcf"} <= mods
+            "recbole_cdr_tpu_torch.models.bitgcf", "recbole_cdr_tpu_torch.models.natr",
+            "recbole_cdr_tpu_torch.ops.natr_attention", "recbole_cdr_tpu_torch.ops.rank_sum"} <= mods
     assert len(list(_sources())) == len(mods) + 2  # + package __init__ + chip_smoke.py
