@@ -54,11 +54,13 @@ Phases, in order; any failure exits non-zero:
    validation every epoch and GAUC among the metrics, the best parameters
    reloaded for the test pass: K1 exactly once forward and once backward per
    SOURCE step and never elsewhere; B9's forward and backward once per
-   TARGET step; B9's full-sort form once per user tile of every TARGET
-   validation and of the test pass (the predict fallback's tiles of
-   ``user_batch`` rows); K4 and B7 once per tile of every validation and of
-   the test pass; B5, B6 and B8 never; the loss falls within each phase,
-   every metric is finite and GAUC lies in (0, 1);
+   TARGET step; B9's anchor table once per TARGET evaluation pass (each
+   validation sees new parameters, the test pass the reloaded best ones) and
+   its pair grid once per user tile of every TARGET validation and of the
+   test pass (the predict fallback's tiles of ``user_batch`` rows); K4 and
+   B7 once per tile of every validation and of the test pass; B5, B6 and B8
+   never; the loss falls within each phase, every metric is finite and GAUC
+   lies in (0, 1);
 7. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
@@ -80,12 +82,17 @@ and two kernel runs equal. B9 (``natr_attention_forward`` /
 pairs, H = 50, D = 64) in both overlap modes (user anchors with their item
 histories, item anchors with their user histories), empty-history anchors
 included, within ``B9_TOL`` of its plain version, and two kernel runs
-bit-equal; its full-sort form (``natr_full_sort``) on one tile of the
-predict fallback ([32 users, the target item space]) in both modes. B9's
-bounds charge the least work that computes the same function
-(``natr_work``): the transfer once per distinct source row the anchors
-gather (the kernel runs it once per slot of every pair's anchor in
-training, and of every tile's anchor in full-sort), the scores, softmax and
+bit-equal; its full-sort form (``natr_full_sort``: the anchor table, then
+the pair grid) on one tile of the predict fallback ([32 users, the target
+item space]) in both modes, within ``B9_TOL["full_sort"]`` of the one-call
+plain version and bit-equal from run to run; the anchor table alone over
+every target user (the NATR run's anchor count) and the pair grid alone on
+that tile, each timed. B5's bound is its 3xTF32 products on the tensor
+cores; the CUDA-core bound of its first design is kept as
+``scalar_bound_ms``. B9's bounds charge the least work that computes the
+same function (``natr_work``): the transfer once per distinct source row
+the anchors gather (the kernel runs it once per slot of every pair's
+anchor in training, and of every anchor of the table), the scores, softmax and
 weighted sum once per slot of a distinct anchor, the pair stage once per
 pair. K4 and B7 are also held and timed on that tile's probabilities, the
 shape of most of their launches on the NATR path, under the record's
@@ -138,7 +145,7 @@ CATALOG_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swa
                 "streaming_topk", "sparse_adam")
 BITGCF_PATH = DENSE_PATH + ("graph_layer_forward", "graph_layer_backward")
 NATR_PATH = DENSE_PATH + ("rank_sum", "natr_attention_forward", "natr_attention_backward",
-                          "natr_full_sort")
+                          "natr_anchor_table", "natr_pair_grid")
 
 #: NATR's epochs per phase, (SOURCE, TARGET), cut from its published 300 / 300
 NATR_EPOCHS = (2, 3)
@@ -151,6 +158,10 @@ B8_PER_PROPAGATION = 4
 #: the CUDA cores, used as the rate of the kernels' 32-bit scalar operations
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
+#: and the dense TF32 tensor-core rate: B5 scores in 3xTF32, three TF32
+#: products (2 D flops each) per float32 score
+PEAK_TF32_OPS_PER_S = 495e12
+TF32_PRODUCTS_PER_SCORE = 3
 
 #: K1 tolerance, |kernel - plain| <= ATOL + RTOL * max|plain|: the forward
 #: sums the D products in another order than torch; the backward adds with
@@ -404,9 +415,12 @@ def call_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, tf32_ops=0):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their peak, ``n_ops`` 32-bit scalar
+    operations on the CUDA cores plus ``tf32_ops`` on the tensor cores."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_SCALAR_OPS_PER_S * 1e3
+    t_ops = (n_ops / PEAK_SCALAR_OPS_PER_S + tf32_ops / PEAK_TF32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -444,11 +458,11 @@ def kernel_checks(dev):
     out = {}
 
     def record(name, kernel_fn, plain_fn, equal, n_bytes, n_ops, library_fn=None, reps=20,
-               shape=None):
+               shape=None, tf32_ops=0):
         """Time a kernel, its plain version and its library call; with
         ``shape``, as a second shape of an already recorded kernel, kept
         under the record's ``shapes``."""
-        b_ms, b_by = bound(n_bytes, n_ops)
+        b_ms, b_by = bound(n_bytes, n_ops, tf32_ops)
         timed = {"ms": device_ms(kernel_fn, reps),
                  "plain_ms": device_ms(plain_fn, max(3, reps // 4), 1)}
         if library_fn:
@@ -681,11 +695,16 @@ def kernel_checks(dev):
         sc[:, 0] = torch.finfo(torch.float32).min
         return torch.topk(sc, k, dim=1).indices
 
+    b5_bytes = Tn.numel() * 4 + Un.numel() * 4 + (B + 1 + n_pairs) * 4 + B * k * 8
     record("streaming_topk",
            lambda: b5.streaming_topk(Un, Tn, rp, it, k),
            lambda: b5.streaming_topk_plain(Un, Tn, rp, it, k),
-           err, Tn.numel() * 4 + Un.numel() * 4 + (B + 1 + n_pairs) * 4 + B * k * 8,
-           2 * B * n_items * D, library_fn=library_streaming, reps=10)
+           err, b5_bytes, 0, library_fn=library_streaming, reps=10,
+           tf32_ops=TF32_PRODUCTS_PER_SCORE * 2 * B * n_items * D)
+    # the first design's bound, float32 FMAs on the CUDA cores, kept beside it
+    out["streaming_topk"]["scalar_bound_ms"] = bound(b5_bytes, 2 * B * n_items * D)[0]
+    print(f"  streaming_topk: [{B} x {D}] against [{n_items} x {D}], k {k}; bound on the "
+          f"CUDA cores {out['streaming_topk']['scalar_bound_ms']:.4f} ms", flush=True)
     del Un, Tn
 
     # ---- B6: the item-table updates of three train steps -----------------
@@ -793,15 +812,19 @@ def natr_work(n_rows, n_slots, n_pairs, D, backward=False):
     once per distinct source row the anchors gather (2 D^2 + D); the scores
     (4 D), the softmax (4) and the weighted sum (2 D) once per slot of a
     distinct anchor (``n_slots`` = distinct anchors x H); the pair stage once
-    per pair (the two gates, 8 D; the blend and its dot, 5 D; exp, divide and
-    sigmoid, 8). The backward recomputes that forward work and adds per
+    per pair, regrouped as the pair grid computes it: the products su_d q_d
+    and pu_d q_d (2 D), their relus (2 D), the two gates' multiply-adds
+    (4 D) and the two dots' adds on the same products (2 D), then 13
+    constants (two bias adds and two exps, beta's sum and divide, 1 - beta,
+    beta (su.q) + (1 - beta) (pu.q), the sigmoid's exp, add and divide).
+    The backward recomputes that forward work and adds per
     distinct row the outer product of dW and db (2 D^2 + D), after each
     slot's d(h) is summed onto its row (D per slot); per slot the chain rule
     through the scores and the softmax (about 10 D); per pair the blend's
     chain rule (about 20 D)."""
     row = 2 * D * D + D
     slot = 6 * D + 4
-    pair = 13 * D + 8
+    pair = 10 * D + 13
     if backward:
         row *= 2
         slot += 11 * D
@@ -931,13 +954,37 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
                lambda: b9.natr_attention_backward_plain(hist, anchors, pu, q, w, gz),
                err_b, fwd_bytes + P * 4 + 2 * P * D * 4 + fixed,
                natr_work(rows, n_anchor * H, P, D, backward=True))
+        # the anchor table as the NATR run builds it: every target user at once
+        tds = dataset.target_domain_dataset
+        n_tu = tds.num(tds.uid_field)
+        every = torch.arange(n_tu, dtype=torch.int32, device=dev)
+        t_pu = tables["tu"][:n_tu]
+        table = b9.natr_anchor_table(hist, every, t_pu, w)
+        err_t = close(table, b9.anchor_plain(hist, every, t_pu, w), B9_TOL["forward"],
+                      "natr_anchor_table")
+        assert torch.equal(table, b9.natr_anchor_table(hist, every, t_pu, w)), \
+            "natr_anchor_table differs run to run"
+        rows_t = int(torch.unique(hist.ids[every.long()]).numel())
+        print(f"  natr_anchor_table: {n_tu} anchors gather {rows_t} distinct source rows",
+              flush=True)
+        record("natr_anchor_table",
+               lambda: b9.natr_anchor_table(hist, every, t_pu, w),
+               lambda: b9.anchor_plain(hist, every, t_pu, w),
+               err_t, n_tu * H * 5 + rows_t * D * 4 + 2 * n_tu * D * 4 + fixed,
+               natr_work(rows_t, n_tu * H, 0, D), reps=10)
+        # the pair grid of one fallback tile, from the table's rows
         B = fs_users.shape[0]
-        rows_f = int(torch.unique(hist.ids[fs_users.long()]).numel())
-        record("natr_full_sort",
-               lambda: b9.natr_full_sort(hist, fa, fp, fq, w, True),
-               lambda: b9.natr_full_sort_plain(hist, fa, fp, fq, w, True),
-               err_s, B * H * 5 + rows_f * D * 4 + (B + n_target) * D * 4 + B * n_target * 4
-               + fixed, natr_work(rows_f, B * H, B * n_target, D), reps=50)
+        su_t = table[fs_users.long()]
+        g_k = b9.natr_pair_grid(su_t, fp, fq, w, True)
+        err_g = close(g_k, b9.pair_grid_plain(su_t, fp, fq, w, True), B9_TOL["full_sort"],
+                      "natr_pair_grid")
+        assert torch.equal(g_k, b9.natr_pair_grid(su_t, fp, fq, w, True)), \
+            "natr_pair_grid differs run to run"
+        record("natr_pair_grid",
+               lambda: b9.natr_pair_grid(su_t, fp, fq, w, True),
+               lambda: b9.pair_grid_plain(su_t, fp, fq, w, True),
+               err_g, (2 * B + n_target) * D * 4 + B * n_target * 4 + 4 * (D + 1),
+               natr_work(0, 0, B * n_target, D), reps=50)
         fs_probs = c
 
     # ---- K4 and B7 on the fallback tile's probabilities ------------------
@@ -984,10 +1031,17 @@ def profile_epoch(dev, cfg, tag="", export=True, model="CMF", scheme="BOTH"):
     """Device time by kernel over one warm ``scheme`` epoch and one
     validation pass of ``model`` in the configuration ``cfg``; with
     ``export``, Chrome traces of both in the output directory (names
-    prefixed by ``tag``)."""
+    prefixed by ``tag``). Each validation pass first marks the parameters
+    updated, as a training step does, so that it rebuilds what the model
+    caches per parameter version (NATR's anchor table, BiTGCF's
+    propagation). The traced call follows one untraced warm-up step of the
+    profiler and an idle pause, and the wrappers' launch counts of the
+    traced call are printed beside the trace's, so that launches a trace
+    lost show."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    from recbole_cdr_tpu_torch import ops
     from recbole_cdr_tpu_torch.config import CDRConfig
     from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
     from recbole_cdr_tpu_torch.trainer.trainer import CrossDomainTrainer
@@ -1003,20 +1057,35 @@ def profile_epoch(dev, cfg, tag="", export=True, model="CMF", scheme="BOTH"):
     trainer.model.set_phase(scheme)
     valid_data = trainer._route_valid(scheme, valid_data)
     loop = trainer._loop_for(scheme, train_data)
+
+    def valid_pass():
+        trainer.model.notify_params_updated()
+        trainer._evaluate_batches(scheme, valid_data)
+
     float(loop.run_epoch(0))
-    trainer._evaluate_batches(scheme, valid_data)
+    valid_pass()
     torch.cuda.synchronize()
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     for name, fn in (("train_epoch", lambda: float(loop.run_epoch(1))),
-                     ("valid_pass", lambda: trainer._evaluate_batches(scheme, valid_data))):
+                     ("valid_pass", valid_pass)):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3  # unprofiled
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
             torch.cuda.synchronize()
+            prof.step()
+            ops.reset_launch_counts()
+            # a trace drops the device activity of its first milliseconds
+            # (NATR's anchor table, the first tiles): give it idle time first
+            time.sleep(0.1)
+            fn()
+            torch.cuda.synchronize()
+            counted = {k: n for k, n in ops.launch_counts().items() if n}
+            prof.step()
         events = _device_events(prof)
         busy_us, end = 0.0, float("-inf")
         for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in events):
@@ -1031,6 +1100,7 @@ def profile_epoch(dev, cfg, tag="", export=True, model="CMF", scheme="BOTH"):
               "unprofiled wall)", flush=True)
         for key, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
             print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:100]}", flush=True)
+        print(f"  the wrappers counted: {counted}", flush=True)
         if export:
             path = os.path.join(out_dir, f"torch_{tag}{name}_trace.json")
             prof.export_chrome_trace(path)
@@ -1196,7 +1266,9 @@ def main():
                                    "recbole_cdr_tpu/models/natr.py:101"),
         "natr_attention_backward": ("recbole_cdr_tpu_torch/csrc/natr_attention.cu",
                                     "recbole_cdr_tpu/models/natr.py:101"),
-        "natr_full_sort": ("recbole_cdr_tpu_torch/csrc/natr_attention.cu",
+        "natr_anchor_table": ("recbole_cdr_tpu_torch/csrc/natr_attention.cu",
+                              "recbole_cdr_tpu/models/natr.py:101"),
+        "natr_pair_grid": ("recbole_cdr_tpu_torch/csrc/natr_attention.cu",
                            "recbole_cdr_tpu/models/natr.py:101"),
     }
     kernels = [
@@ -1244,10 +1316,12 @@ def check_natr_run(result, hist, c):
     target_tiles = sum(-(-h["valid_users"] // user_batch(h["valid_users"], n_target))
                        for h in hist if h["phase"] == "TARGET")
     test_tiles = -(-result["test_users"] // user_batch(result["test_users"], n_target))
+    target_passes = sum("valid_seconds" in h for h in hist if h["phase"] == "TARGET") + 1
     want = {"gather_dot_forward": steps["SOURCE"], "gather_dot_backward": steps["SOURCE"],
             "natr_attention_forward": steps["TARGET"],
             "natr_attention_backward": steps["TARGET"],
-            "natr_full_sort": target_tiles + test_tiles,
+            "natr_anchor_table": target_passes,  # new parameters each pass, the test's loaded
+            "natr_pair_grid": target_tiles + test_tiles,
             "masked_topk": source_tiles + target_tiles + test_tiles,
             "rank_sum": source_tiles + target_tiles + test_tiles}
     print(f"{steps} training steps; evaluation tiles: SOURCE validations {source_tiles}, "

@@ -19,15 +19,24 @@
 // gathered row once (a training step's ~2,100 distinct anchors gather ~4,000
 // distinct rows: 2 D^2 each, ~33 MFLOP) and does O(D) per slot and per pair;
 // a step then moves ~6 MB and the forward is bound near 2 us by bytes, the
-// backward near 3 us; a [32, ~5,000] full-sort tile near 2 us by its pairs'
-// O(D) blends. This kernel is far above those bounds: it runs the transfer
-// once per slot of every anchor it takes (H D^2 multiply-adds per anchor,
-// ~30 flops per gathered byte, so each anchor stage is compute-heavy) and,
-// in training, takes one anchor per pair. Design: su and pu depend only on
-// the anchor, so the anchor stage runs once per anchor it takes (a training
-// step takes one per pair; a full-sort grid one per user, or per item, of
-// the tile) and the pair stage once per pair, where JAX's fallback repeats
-// the whole attention for every pair. Anchor stage: persistent blocks of 256
+// backward near 3 us; a [32, ~5,000] full-sort tile near 1.6 us by its
+// pairs' O(D) blends (10 D + 13 operations a pair: the products su_d q_d and
+// pu_d q_d serve both the gates and the dots). The training kernels are far
+// above their bounds: they run the transfer once per slot of every anchor
+// they take (H D^2 multiply-adds per anchor, ~30 flops per gathered byte, so
+// each anchor stage is compute-heavy) and take one anchor per pair. Design:
+// su and pu depend only on the anchor, so the anchor stage runs once per
+// anchor it takes and the pair stage once per pair, where JAX's fallback
+// repeats the whole attention for every pair. Training takes one anchor per
+// pair. Full-sort scoring splits in two launches: the anchor table (the
+// anchor stage of every anchor row of the domain, once per parameter
+// version: the caller caches it, so an evaluation pass builds it once and
+// no user tile relaunches it) and the pair grid, one launch per tile, whose
+// blocks stage 8 anchor or query rows and 32 of the other side's in shared
+// memory with 16-byte loads and give each thread a 2 x 1 tile of pairs; one
+// pass over D keeps four sums per pair (both gates' sums and both dots), so
+// an item row is read from device memory once per block rather than once per
+// pair thread. Anchor stage: persistent blocks of 256
 // threads keep W in shared memory and take one anchor at a time: the block
 // gathers the H rows into shared memory (padded stride, no bank conflicts),
 // computes the transfer with a 4 x 4 register tile per thread, reduces the
@@ -44,8 +53,7 @@
 // product and a sum separately. Not done yet: transferring each distinct
 // source row once (one [rows, D] x [D, D] product, then gathering h),
 // sharing one anchor between the pairs of a training step that have it,
-// tensor cores for the transfer (3xTF32 keeps float32 accuracy), a
-// shared-memory tile of the full-sort grid's queries.
+// tensor cores for the transfer (3xTF32 keeps float32 accuracy).
 
 #include <cfloat>
 #include <cmath>
@@ -284,27 +292,135 @@ __device__ __forceinline__ float blend(const float* __restrict__ su, const float
   return acc;
 }
 
-// mode 0: `rows` aligned pairs (anchor i, query i) -> logits; mode 1: the
-// [rows, cols] grid with anchor r and query c -> probabilities; mode 2: the
-// grid with anchor c and query r -> probabilities
+// `n` aligned pairs (anchor i, query i) -> logits
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 pair_kernel(const float* __restrict__ su, const float* __restrict__ pu,
             const float* __restrict__ q, const float* __restrict__ w_da,
-            const float* __restrict__ b_da, int rows, int cols, int mode,
-            float* __restrict__ out) {
-  const long long n = mode == 0 ? (long long)rows : (long long)rows * cols;
+            const float* __restrict__ b_da, int n, float* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  long long a = i, c = i;
-  if (mode != 0) {
-    const long long r = i / cols, k = i - r * cols;
-    a = mode == 1 ? r : k;
-    c = mode == 1 ? k : r;
+  out[i] = blend<D>(su + i * D, pu + i * D, q + i * D, w_da, __ldg(b_da));
+}
+
+// ---- the full-sort grid -----------------------------------------------------
+
+constexpr int kGridThreads = 128;
+constexpr int kGridI = 2;      // output rows per thread (all of its warp's)
+constexpr int kGridJ = 1;      // output columns per thread (lane, lane + 32, ...)
+constexpr int kGridRows = kGridI * kGridThreads / 32;  // output rows per block
+constexpr int kGridCols = 32 * kGridJ;                 // output columns per block
+
+template <int D>
+size_t grid_smem_bytes() {
+  // the row side's vectors [kGridRows][D] (two of them at most), the column
+  // side's [kGridCols][D + 1] (two at most), w_da
+  return 4 * (2 * kGridRows * D + 2 * kGridCols * (D + 1) + D);
+}
+
+// out [R, C] = sigmoid(logit) of every (row r, column c) pair. With
+// kAnchorRow the anchors (su, pu) are the rows and the queries q the
+// columns, else the other way round. A block stages its rows' and columns'
+// vectors in shared memory with 16-byte loads (the columns at a padded
+// stride, so the lanes' reads fall in distinct banks), then each thread
+// walks D once for its kGridI x kGridJ pairs, keeping four sums per pair: the gates'
+// sum w.relu(su q) and w.relu(pu q), and the dots su.q and pu.q. Then
+// beta = exp(b_s) / (exp(b_s) + exp(b_p)), logit = beta su.q + (1 - beta)
+// pu.q: the pair stage's blend, regrouped.
+template <int D, bool kAnchorRow>
+__global__ void __launch_bounds__(kGridThreads)
+pair_grid_kernel(const float* __restrict__ su, const float* __restrict__ pu,
+                 const float* __restrict__ q, const float* __restrict__ w_da,
+                 const float* __restrict__ b_da, int R, int C, float* __restrict__ out) {
+  constexpr int C4 = D / 4;
+  constexpr int CST = D + 1;
+  extern __shared__ __align__(16) float gsm[];
+  float* row_a = gsm;                                // [kGridRows][D]: su, or q
+  float* row_b = row_a + kGridRows * D;              // [kGridRows][D]: pu
+  float* col_a = row_b + kGridRows * D;              // [kGridCols][CST]: q, or su
+  float* col_b = col_a + kGridCols * CST;            // [kGridCols][CST]: pu
+  float* w = col_b + kGridCols * CST;                // [D]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.y * kGridRows, c0 = blockIdx.x * kGridCols;
+
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = tid; e < kGridRows * C4; e += kGridThreads) {
+    const int r = e / C4, d = 4 * (e % C4);
+    const bool ok = r0 + r < R;
+    const long long at = (long long)(r0 + r) * D + d;
+    *reinterpret_cast<float4*>(row_a + r * D + d) = ok ? ldg4((kAnchorRow ? su : q) + at) : zero;
+    if (kAnchorRow)
+      *reinterpret_cast<float4*>(row_b + r * D + d) = ok ? ldg4(pu + at) : zero;
   }
-  float x = blend<D>(su + a * D, pu + a * D, q + c * D, w_da, __ldg(b_da));
-  if (mode != 0) x = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
-  out[i] = x;
+  for (int e = tid; e < kGridCols * C4; e += kGridThreads) {
+    const int c = e / C4, d = 4 * (e % C4);
+    const bool ok = c0 + c < C;
+    const long long at = (long long)(c0 + c) * D + d;
+    const float4 a = ok ? ldg4((kAnchorRow ? q : su) + at) : zero;
+    float* x = col_a + c * CST + d;
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    if (!kAnchorRow) {
+      const float4 b = ok ? ldg4(pu + at) : zero;
+      float* y = col_b + c * CST + d;
+      y[0] = b.x; y[1] = b.y; y[2] = b.z; y[3] = b.w;
+    }
+  }
+  for (int d = tid; d < D; d += kGridThreads) w[d] = __ldg(w_da + d);
+  __syncthreads();
+
+  float gs[kGridI][kGridJ], gp[kGridI][kGridJ], ds[kGridI][kGridJ], dp[kGridI][kGridJ];
+#pragma unroll
+  for (int i = 0; i < kGridI; ++i)
+#pragma unroll
+    for (int j = 0; j < kGridJ; ++j) gs[i][j] = gp[i][j] = ds[i][j] = dp[i][j] = 0.f;
+  const float* ra = row_a + (kGridI * warp) * D;
+  const float* rb = row_b + (kGridI * warp) * D;
+  const float* ca = col_a + lane * CST;
+  const float* cb = col_b + lane * CST;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const float wd = w[d];
+    float xa[kGridJ], xb[kGridJ], ya[kGridI], yb[kGridI];
+#pragma unroll
+    for (int j = 0; j < kGridJ; ++j) {
+      xa[j] = ca[32 * j * CST + d];
+      xb[j] = kAnchorRow ? 0.f : cb[32 * j * CST + d];
+    }
+#pragma unroll
+    for (int i = 0; i < kGridI; ++i) {
+      ya[i] = ra[i * D + d];
+      yb[i] = kAnchorRow ? rb[i * D + d] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kGridI; ++i)
+#pragma unroll
+      for (int j = 0; j < kGridJ; ++j) {
+        const float s = kAnchorRow ? ya[i] : xa[j];  // su
+        const float p = kAnchorRow ? yb[i] : xb[j];  // pu
+        const float x = kAnchorRow ? xa[j] : ya[i];  // q
+        const float ms = __fmul_rn(s, x), mp = __fmul_rn(p, x);
+        ds[i][j] = __fadd_rn(ds[i][j], ms);
+        dp[i][j] = __fadd_rn(dp[i][j], mp);
+        gs[i][j] = fmaf(fmaxf(ms, 0.f), wd, gs[i][j]);
+        gp[i][j] = fmaf(fmaxf(mp, 0.f), wd, gp[i][j]);
+      }
+  }
+  const float bda = __ldg(b_da);
+#pragma unroll
+  for (int i = 0; i < kGridI; ++i) {
+    const int r = r0 + kGridI * warp + i;
+    if (r >= R) break;
+#pragma unroll
+    for (int j = 0; j < kGridJ; ++j) {
+      const int c = c0 + lane + 32 * j;
+      if (c >= C) continue;
+      const float es = expf(__fadd_rn(gs[i][j], bda)), ep = expf(__fadd_rn(gp[i][j], bda));
+      const float beta = __fdiv_rn(es, __fadd_rn(es, ep));
+      const float logit =
+          __fadd_rn(__fmul_rn(beta, ds[i][j]), __fmul_rn(__fsub_rn(1.f, beta), dp[i][j]));
+      out[(long long)r * C + c] = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-logit)));
+    }
+  }
 }
 
 template <int D>
@@ -502,24 +618,46 @@ int persistent_blocks(K kernel, size_t smem, int work) {
   return (int)(full < work ? full : work);
 }
 
+// su [A, D] of anchors [A] with pu [A, D]: one persistent launch over every SM
 template <int D>
-int forward(const float* src, const int* ids, const uint8_t* mask, const int* anchors,
-            const float* pu, const float* q, const float* W, const float* b,
-            const float* w_ua, const float* b_ua, const float* w_da, const float* b_da,
-            int H, int A, int rows, int cols, int mode, float* su, float* out,
-            cudaStream_t stream) {
+int anchor_table(const float* src, const int* ids, const uint8_t* mask, const int* anchors,
+                 const float* pu, const float* W, const float* b, const float* w_ua,
+                 const float* b_ua, int H, int A, float* su, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, H);
   const int blocks = persistent_blocks(anchor_kernel<D>, smem, A);
   if (blocks < 0) return -blocks;
   if (blocks > 0)
     anchor_kernel<D><<<blocks, kThreads, smem, stream>>>(src, ids, mask, anchors, pu, W, b,
                                                            w_ua, b_ua, A, H, su);
-  cudaError_t e = cudaGetLastError();
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int forward(const float* src, const int* ids, const uint8_t* mask, const int* anchors,
+            const float* pu, const float* q, const float* W, const float* b,
+            const float* w_ua, const float* b_ua, const float* w_da, const float* b_da,
+            int H, int P, float* su, float* out, cudaStream_t stream) {
+  const int e = anchor_table<D>(src, ids, mask, anchors, pu, W, b, w_ua, b_ua, H, P, su, stream);
+  if (e != 0) return e;
+  if (P > 0)
+    pair_kernel<D><<<(unsigned)((P + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+        su, pu, q, w_da, b_da, P, out);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int pair_grid(const float* su, const float* pu, const float* q, const float* w_da,
+              const float* b_da, int A, int Nq, bool anchor_is_row, float* out,
+              cudaStream_t stream) {
+  const int R = anchor_is_row ? A : Nq, C = anchor_is_row ? Nq : A;
+  if (R <= 0 || C <= 0) return (int)cudaGetLastError();
+  const size_t smem = grid_smem_bytes<D>();
+  auto kernel = anchor_is_row ? pair_grid_kernel<D, true> : pair_grid_kernel<D, false>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const long long n = mode == 0 ? (long long)rows : (long long)rows * cols;
-  if (n > 0)
-    pair_kernel<D><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-        su, pu, q, w_da, b_da, rows, cols, mode, out);
+  const dim3 grid((C + kGridCols - 1) / kGridCols, (R + kGridRows - 1) / kGridRows);
+  kernel<<<grid, kGridThreads, smem, stream>>>(su, pu, q, w_da, b_da, R, C, out);
   return (int)cudaGetLastError();
 }
 
@@ -560,20 +698,56 @@ int backward(const float* src, const int* ids, const uint8_t* mask, const int* a
       (const float*)pu, (const float*)q, (const float*)W, (const float*)b,         \
       (const float*)w_ua, (const float*)b_ua, (const float*)w_da, (const float*)b_da, H
 
-// anchors: [A] rows of the history ids / mask [N_anchor, H]; pu: [A, D];
-// su: [A, D] scratch; out: [rows] logits (mode 0) or [rows, cols]
-// probabilities (modes 1, 2)
-extern "C" int natr_attention_forward(NATR_ARGS, int A, int rows, int cols, int mode,
-                                      void* su, void* out, void* stream) {
+// anchors: [P] rows of the history ids / mask [N_anchor, H]; pu, q: [P, D];
+// su: [P, D] scratch; out: [P] logits
+extern "C" int natr_attention_forward(NATR_ARGS, int P, void* su, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* s = (float*)su;
   float* o = (float*)out;
   switch (D) {
-    case 32: return forward<32>(NATR_PASS, A, rows, cols, mode, s, o, st);
-    case 64: return forward<64>(NATR_PASS, A, rows, cols, mode, s, o, st);
-    case 128: return forward<128>(NATR_PASS, A, rows, cols, mode, s, o, st);
+    case 32: return forward<32>(NATR_PASS, P, s, o, st);
+    case 64: return forward<64>(NATR_PASS, P, s, o, st);
+    case 128: return forward<128>(NATR_PASS, P, s, o, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// anchors: [A] rows of the history ids / mask [N_anchor, H]; pu: [A, D];
+// su: [A, D] out
+extern "C" int natr_anchor_table(const void* src, const void* ids, const void* mask,
+                                 const void* anchors, const void* pu, const void* W,
+                                 const void* b, const void* w_ua, const void* b_ua, int H, int D,
+                                 int A, void* su, void* stream) {
+#define NATR_TABLE(d)                                                                    \
+  anchor_table<d>((const float*)src, (const int*)ids, (const uint8_t*)mask,              \
+                  (const int*)anchors, (const float*)pu, (const float*)W, (const float*)b, \
+                  (const float*)w_ua, (const float*)b_ua, H, A, (float*)su,              \
+                  (cudaStream_t)stream)
+  switch (D) {
+    case 32: return NATR_TABLE(32);
+    case 64: return NATR_TABLE(64);
+    case 128: return NATR_TABLE(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef NATR_TABLE
+}
+
+// su, pu: [A, D] the anchors'; q: [Nq, D]; out: [A, Nq] probabilities when
+// anchor_is_row, else [Nq, A]
+extern "C" int natr_pair_grid(const void* su, const void* pu, const void* q, const void* w_da,
+                              const void* b_da, int A, int Nq, int D, int anchor_is_row,
+                              void* out, void* stream) {
+#define NATR_GRID(d)                                                                    \
+  pair_grid<d>((const float*)su, (const float*)pu, (const float*)q, (const float*)w_da, \
+               (const float*)b_da, A, Nq, anchor_is_row != 0, (float*)out,             \
+               (cudaStream_t)stream)
+  switch (D) {
+    case 32: return NATR_GRID(32);
+    case 64: return NATR_GRID(64);
+    case 128: return NATR_GRID(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef NATR_GRID
 }
 
 // the backward's block count for P pairs (its partial-sum scratch has one

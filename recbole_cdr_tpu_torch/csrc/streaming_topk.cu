@@ -2,34 +2,53 @@
 //
 // Replaces recbole_cdr_tpu/ops/topk.py:72-205 (streaming_topk_scores,
 // _stream_topk_hist_local, _stream_topk_hist_pairs,
-// streaming_topk_with_history and the merge of _merge_tile_topk): for a user
-// block U [B, D] against the item table T [I, D], the k best items of each
-// row of U T^T, where column 0 (PAD) and each row's history items score
-// finfo(float32).min and ties go to the lowest item id. The [B, I] score
-// matrix is never written: at I = 1.1M and B = 2048 it would be 9 GB.
+// streaming_topk_with_history and the merge of _merge_tile_topk, :48-69):
+// for a user block U [B, D] against the item table T [I, D], the k best items
+// of each row of U T^T, where column 0 (PAD) and each row's history items
+// score finfo(float32).min and ties go to the lowest item id. The [B, I]
+// score matrix is never written: at I = 1.1M and B = 2048 it would be 9 GB.
 //
-// Bound on an H100: operations. Each score is a D-long float32 dot product
-// (2 D flops) against 4 bytes of output candidates at most, so at D = 64 the
-// work is ~2 B I D flops over 67 TFLOP/s against a table read of 4 I D bytes.
-// The dot products use float32 FMAs in a fixed d-order (0 .. D-1), with no
-// TF32 and no bf16, so integer-valued factors score exactly.
+// Bound on an H100: tensor-core operations. The JAX reference scores in
+// float32, so each product runs as 3xTF32: both operands split into a TF32
+// high part (the top 19 bits) and the exact float32 rest, of which the tensor
+// core reads the TF32 part, and hi*hi + hi*lo + lo*hi accumulate in float32
+// (the dropped lo*lo term and the rest's cut are ~2^-21 of each product).
+// That is 3 TF32 products per score, 3 x 2 B I D flops over 495 TFLOP/s:
+// 1.75 ms for a [2048 x 64] tile against 1.1M items, where the table's bytes
+// take 0.08 ms. mma.sync, used here, issues below that peak (wgmma fed by
+// TMA is the full rate, not done yet). Integer-valued factors of small
+// magnitude are exact in TF32 (zero rest), so they still score exactly and
+// their ids match exactly.
 //
-// Design, two launches:
-//   1. grid (user-row block of kRows rows, item chunk of kChunk items). The
-//      block stages its user rows in shared memory once, marks its rows'
-//      history items that fall in the chunk in a shared bitmap (one bit per
-//      (row, item) of the chunk, from the block's CSR history), then walks
-//      the chunk in sub-tiles of kCols items: stage the sub-tile, each thread
-//      computes a 4 x 2 register tile of scores, the masked scores go to
-//      shared memory, and 8 threads per row fold them into sorted register
-//      top-K lists ordered by (score desc, id asc). At the chunk's end the 8
-//      lists of a row merge by k rounds of an 8-lane shuffle argmax into the
-//      chunk's candidates, written to cand [n_chunks, B, k].
-//   2. one warp per row merges the n_chunks * k candidates by the same order
-//      (each lane keeps a sorted register top-K of a strided slice, then k
-//      rounds of a warp argmax) into ids [B, k] and their scores.
-// A chunk with fewer than k real items pads its candidates with (-inf,
-// INT_MAX), which lose to every real column; k <= I makes them unreachable.
+// Design, three launches:
+//   1. hash: the block's CSR history goes into an open-addressing set of
+//      (row, item) keys in device memory (load factor <= 1/2), so a
+//      candidate is tested for masking in O(1).
+//   2. tile: grid (user-row block of kRows, item range); the ranges are few
+//      and long, so the grid fills the SMs about once. The block splits its
+//      user rows into TF32 hi/lo once, then walks its item range in tiles of
+//      kCols items, each staged in kDepth-wide slices of D through a ring of
+//      shared-memory stages filled by 16-byte cp.async (4-byte where D is not
+//      a multiple of 4), so the next slice's copy overlaps this slice's MMAs.
+//      D is zero-padded to the MMA depth (8) in shared memory. Eight warps
+//      each own a 32 x 32 block of scores as mma.sync m16n8k8 tf32
+//      accumulators, their fragments loaded by ldmatrix, the item side split
+//      in registers by one logic op and one subtraction. At a tile's end each
+//      thread tests its 32 scores straight from the registers against its
+//      row's threshold (the row's current k-th best): a score that does not
+//      beat it is dropped after one compare. Survivors go to a per-row buffer
+//      of kCap entries in shared memory; when a buffer fills, one warp tests
+//      its entries for PAD and the history set (one lane each; a masked one
+//      scores finfo.min) and merges them with the row's exact top-k (k
+//      entries, by k rounds of a warp argmax), and the threshold rises. The
+//      test sits in the merge and not in the tile's epilogue because there a
+//      probe of device memory held every warp of the block at its barrier
+//      once per tile. At the range's end each row's top-k is the range's
+//      candidates, written to cand [n_splits, B, k].
+//   3. merge: one warp per row merges the n_splits * k candidates by the same
+//      order (score desc, id asc) into ids [B, k] and their scores.
+// A range with fewer than k items pads its candidates with (-inf, INT_MAX),
+// which lose to every real column; k <= I makes them unreachable.
 
 #include <cfloat>
 #include <climits>
@@ -40,21 +59,404 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 32;          // user rows per block
-constexpr int kCols = 64;          // items per sub-tile
-constexpr int kChunk = 8192;       // items per block (one candidate list per row)
-constexpr int kGroup = kThreads / kRows;  // threads folding one row: 8
-constexpr int kUPad = kRows + 4;   // user tile row stride: float4-aligned
-constexpr int kTPad = kCols + 1;   // item / score tile row stride: no bank conflicts
-constexpr int kMaskWords = kChunk / 32;
+constexpr int kWarps = kThreads / 32;
+constexpr int kWarpsM = 2;                 // warp rows of a block, 32 user rows each
+constexpr int kWarpsN = kWarps / kWarpsM;  // warp columns
+constexpr int kNT = 4;                     // 8-item MMA fragments per warp and tile
+constexpr int kRows = 32 * kWarpsM;        // user rows per block
+constexpr int kCols = kWarpsN * 8 * kNT;   // items per tile
+constexpr int kDepth = 32;                 // floats of D per ring stage
+constexpr int kTStride = kDepth + 4;       // stage row stride: conflict-free fragments
+constexpr int kCap = 32;                   // survivor buffer per row
+constexpr int kMaxSmem = 227 * 1024;
+constexpr unsigned long long kEmpty = ~0ull;
+
+__host__ __device__ inline int pad8(int D) { return (D + 7) & ~7; }
+
+size_t tile_smem_bytes(int D, int k, int stages) {
+  const size_t ust = pad8(D) + 4;  // user row stride, = 4 mod 8: conflict-free fragments
+  return 4 * (2 * kRows * ust + (size_t)stages * kCols * kTStride) +
+         8 * ((size_t)kRows * k + (size_t)kRows * kCap) + 12 * (size_t)kRows;
+}
 
 __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
   return a > b || (a == b && ia < ib);
 }
 
+// ---- the history set ------------------------------------------------------
+
+__device__ __forceinline__ unsigned slot_of(unsigned long long key, int bits) {
+  return (unsigned)((key * 0x9E3779B97F4A7C15ull) >> (64 - bits));
+}
+
+__device__ __forceinline__ unsigned long long hist_key(int row, int item) {
+  return ((unsigned long long)(unsigned)row << 32) | (unsigned)item;
+}
+
+__global__ void __launch_bounds__(kThreads)
+hash_build_kernel(const int* __restrict__ row_ptr, const int* __restrict__ items, int B,
+                  unsigned long long* __restrict__ table, int bits) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= B) return;
+  const unsigned mask = (1u << bits) - 1;
+  const int p_end = row_ptr[row + 1];
+  for (int p = row_ptr[row] + lane; p < p_end; p += 32) {
+    const unsigned long long key = hist_key(row, items[p]);
+    for (unsigned s = slot_of(key, bits);; s = (s + 1) & mask) {
+      const unsigned long long old = atomicCAS(table + s, kEmpty, key);
+      if (old == kEmpty || old == key) break;
+    }
+  }
+}
+
+__device__ __forceinline__ bool in_history(const unsigned long long* __restrict__ table,
+                                           int bits, int row, int item) {
+  const unsigned long long key = hist_key(row, item);
+  const unsigned mask = (1u << bits) - 1;
+  for (unsigned s = slot_of(key, bits);; s = (s + 1) & mask) {
+    const unsigned long long v = __ldg(table + s);
+    if (v == key) return true;
+    if (v == kEmpty) return false;
+  }
+}
+
+// ---- copies and tensor-core products --------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x = hi + lo exactly: hi is x cut to TF32 (its top 19 bits, one logic op,
+// where cvt.rna.tf32 runs at a fraction of the ALU rate), lo the exact float32
+// rest, of which the tensor core reads the TF32 part: hi + lo as the MMA
+// sees it is x within 2^-21 |x|
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// four 8 x 4 fragments of 32-bit words from shared memory, one row address
+// per lane (lanes 8 j .. 8 j + 7 give matrix j's rows)
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- per-row top-k in shared memory ----------------------------------------
+
+struct Lists {
+  float* ls;     // [kRows][k] each row's top-k, best first
+  int* li;
+  float* bs;     // [kRows][kCap] survivors not merged yet
+  int* bi;
+  float* thr_s;  // [kRows] the row's k-th best: the bar to enter
+  int* thr_i;
+  int* cnt;      // [kRows] survivors buffered (may pass kCap: the rest wait)
+};
+
+// One warp per row whose buffer is full (or, with ``force``, not empty):
+// the buffered survivors test PAD and the history set (one lane each; a
+// masked one scores finfo.min), then the row's k best of its list and its
+// buffer by k rounds of a warp argmax.
+__device__ void merge_rows(const Lists& L, int k, bool force,
+                           const unsigned long long* __restrict__ table, int bits, int r0) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kRows; r += kWarps) {
+    const int c = L.cnt[r];
+    if (force ? c == 0 : c < kCap) continue;  // uniform across the warp
+    const int n = min(c, kCap);
+    float v[3];
+    int id[3];
+    v[0] = lane < k ? L.ls[r * k + lane] : -INFINITY;
+    id[0] = lane < k ? L.li[r * k + lane] : INT_MAX;
+    v[1] = lane + 32 < k ? L.ls[r * k + lane + 32] : -INFINITY;
+    id[1] = lane + 32 < k ? L.li[r * k + lane + 32] : INT_MAX;
+    v[2] = lane < n ? L.bs[r * kCap + lane] : -INFINITY;
+    id[2] = lane < n ? L.bi[r * kCap + lane] : INT_MAX;
+    if (lane < n && (id[2] == 0 || in_history(table, bits, r0 + r, id[2]))) v[2] = -FLT_MAX;
+    __syncwarp();
+    for (int q = 0; q < k; ++q) {
+      float bv = v[0];
+      int bid = id[0];
+#pragma unroll
+      for (int e = 1; e < 3; ++e)
+        if (better(v[e], id[e], bv, bid)) {
+          bv = v[e];
+          bid = id[e];
+        }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bid, off);
+        if (better(ov, oi, bv, bid)) {
+          bv = ov;
+          bid = oi;
+        }
+      }
+      if (lane == 0) {
+        L.ls[r * k + q] = bv;
+        L.li[r * k + q] = bid;
+      }
+#pragma unroll
+      for (int e = 0; e < 3; ++e)  // ids are unique but for the padding
+        if (id[e] == bid && v[e] == bv) {
+          v[e] = -INFINITY;
+          id[e] = INT_MAX;
+        }
+    }
+    if (lane == 0) {
+      L.thr_s[r] = L.ls[r * k + k - 1];
+      L.thr_i[r] = L.li[r * k + k - 1];
+      L.cnt[r] = 0;
+    }
+    __syncwarp();
+  }
+}
+
+template <bool kVec, int kStages>
+__global__ void __launch_bounds__(kThreads, 2)
+tile_topk_kernel(const float* __restrict__ U, const float* __restrict__ T, int B, int I, int D,
+                 int span, int k, const unsigned long long* __restrict__ table, int bits,
+                 float* __restrict__ cand_s, int* __restrict__ cand_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Dp = pad8(D), ust = Dp + 4;
+  uint32_t* uh = reinterpret_cast<uint32_t*>(smem);  // [kRows][ust] TF32 high parts
+  uint32_t* ul = uh + kRows * ust;                   // [kRows][ust] TF32 residuals
+  float* ring = reinterpret_cast<float*>(ul + kRows * ust);  // [kStages][kCols][kTStride]
+  Lists L;
+  L.ls = ring + kStages * kCols * kTStride;
+  L.li = reinterpret_cast<int*>(L.ls + kRows * k);
+  L.bs = reinterpret_cast<float*>(L.li + kRows * k);
+  L.bi = reinterpret_cast<int*>(L.bs + kRows * kCap);
+  L.thr_s = reinterpret_cast<float*>(L.bi + kRows * kCap);
+  L.thr_i = reinterpret_cast<int*>(L.thr_s + kRows);
+  L.cnt = L.thr_i + kRows;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;   // fragment row / column group
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;  // its 32 x 8 kNT block of a tile
+  const int r0 = blockIdx.x * kRows;
+  const int lo = blockIdx.y * span;
+  const int hi = min(I, lo + span);
+
+  // ---- the user rows, split once; empty lists ------------------------------
+  for (int r = warp; r < kRows; r += kWarps)
+    for (int d = lane; d < Dp; d += 32) {
+      const float x = (r0 + r < B && d < D) ? __ldg(U + (long long)(r0 + r) * D + d) : 0.f;
+      split(x, uh[r * ust + d], ul[r * ust + d]);
+    }
+  for (int e = tid; e < kRows * k; e += kThreads) {
+    L.ls[e] = -INFINITY;
+    L.li[e] = INT_MAX;
+  }
+  for (int r = tid; r < kRows; r += kThreads) {
+    L.thr_s[r] = -INFINITY;
+    L.thr_i[r] = INT_MAX;
+    L.cnt[r] = 0;
+  }
+
+  const int n_tiles = hi > lo ? (hi - lo + kCols - 1) / kCols : 0;
+  const int nk = (Dp + kDepth - 1) / kDepth;  // ring stages per tile
+  const int total = n_tiles * nk;
+
+  // stage (tile, slice) of the walk into ring buffer ``buf``; items past the
+  // range and columns past D are zero-filled
+  int is_tile = 0, is_kc = 0;
+  auto issue = [&](int buf) {
+    float* dst = ring + buf * kCols * kTStride;
+    const int item0 = lo + is_tile * kCols, c0 = is_kc * kDepth;
+    if (kVec) {
+      constexpr int kPieces = kDepth / 4;  // 16-byte pieces of a staged row
+      const int q = tid % kPieces, col = c0 + 4 * q;
+      for (int r = tid / kPieces; r < kCols; r += kThreads / kPieces) {
+        const bool ok = item0 + r < hi && col < D;
+        cp_async16(dst + r * kTStride + 4 * q, ok ? T + (long long)(item0 + r) * D + col : T,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int r = warp; r < kCols; r += kWarps)
+        for (int cc = lane; cc < kDepth; cc += 32) {
+          const bool ok = item0 + r < hi && c0 + cc < D;
+          cp_async4(dst + r * kTStride + cc, ok ? T + (long long)(item0 + r) * D + c0 + cc : T,
+                    ok ? 4 : 0);
+        }
+    }
+    if (++is_kc == nk) {
+      is_kc = 0;
+      ++is_tile;
+    }
+  };
+
+  // per-lane ldmatrix offsets: A rows (g, g + 8) x columns (0-3, 4-7) of a
+  // 16-row slab; B, two 8-item fragments of kt 0-3 and 4-7 per x4 load
+  const int a_off = (wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * ust + (lane >> 4) * 4;
+  const int b_off = (wn * 8 * kNT + (lane & 7) + (lane >> 4) * 8) * kTStride + ((lane >> 3) & 1) * 4;
+
+  float acc[2][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) issue(s);
+    cp_commit();
+  }
+  int tile = 0, kc = 0;
+  for (int it = 0; it < total; ++it) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // stage ``it`` landed; every thread is done with stage it - 1
+    if (it + kStages - 1 < total) issue((it + kStages - 1) % kStages);
+    cp_commit();
+
+    const float* tb = ring + (it % kStages) * kCols * kTStride;
+    const int c0 = kc * kDepth;
+    const int steps = min(kDepth, Dp - c0) >> 3;
+#pragma unroll
+    for (int ks = 0; ks < kDepth / 8; ++ks) {
+      if (ks >= steps) break;
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        ldsm4(ah[mt], uh + a_off + mt * 16 * ust + c0 + 8 * ks);
+        ldsm4(al[mt], ul + a_off + mt * 16 * ust + c0 + 8 * ks);
+      }
+      uint32_t bh[kNT][2], bl[kNT][2];
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t raw[4];
+        ldsm4(raw, tb + b_off + np * 16 * kTStride + 8 * ks);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split(__uint_as_float(raw[e]), bh[2 * np + (e >> 1)][e & 1], bl[2 * np + (e >> 1)][e & 1]);
+      }
+      // small terms first; each pass runs 2 kNT independent MMAs, so a
+      // tile's three products never wait on each other back to back
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+    }
+    if (++kc < nk) continue;
+
+    // ---- the tile's scores are complete: select from the registers --------
+    kc = 0;
+    const int item0 = lo + tile * kCols + wn * 8 * kNT + 2 * t;  // this thread's first column
+    ++tile;
+    float ts[4];
+    int ti[4];
+    auto load_thresholds = [&]() {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int rl = wm * 32 + (q >> 1) * 16 + g + 8 * (q & 1);
+        ts[q] = L.thr_s[rl];
+        ti[q] = L.thr_i[rl];
+      }
+    };
+    load_thresholds();
+    // bit (mt, nt, e): that score still wants a buffer slot
+    unsigned long long pend = 0;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = mt * 2 + (e >> 1);
+          const int row = r0 + wm * 32 + mt * 16 + g + 8 * (e >> 1);
+          const int id = item0 + nt * 8 + (e & 1);
+          if (row < B && id < hi && better(acc[mt][nt][e], id, ts[q], ti[q]))
+            pend |= 1ull << ((mt * kNT + nt) * 4 + e);
+        }
+    while (true) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const unsigned long long bit = 1ull << ((mt * kNT + nt) * 4 + e);
+            if (!(pend & bit)) continue;
+            const int q = mt * 2 + (e >> 1);
+            const int rl = wm * 32 + mt * 16 + g + 8 * (e >> 1);
+            const int id = item0 + nt * 8 + (e & 1);
+            const float s = acc[mt][nt][e];
+            if (!better(s, id, ts[q], ti[q])) {  // the bar rose meanwhile
+              pend &= ~bit;
+              continue;
+            }
+            const int pos = atomicAdd(L.cnt + rl, 1);
+            if (pos < kCap) {
+              L.bs[rl * kCap + pos] = s;
+              L.bi[rl * kCap + pos] = id;
+              pend &= ~bit;
+            }
+          }
+      if (!__syncthreads_or(pend != 0)) break;
+      merge_rows(L, k, false, table, bits, r0);  // full buffers: raise those thresholds
+      __syncthreads();
+      load_thresholds();
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  }
+  cp_wait<0>();
+  __syncthreads();
+  merge_rows(L, k, true, table, bits, r0);
+  __syncthreads();
+  for (int r = warp; r < kRows; r += kWarps) {
+    if (r0 + r >= B) break;
+    const long long at = ((long long)blockIdx.y * B + r0 + r) * k;
+    for (int q = lane; q < k; q += 32) {
+      cand_s[at + q] = L.ls[r * k + q];
+      cand_i[at + q] = L.li[r * k + q];
+    }
+  }
+}
+
+// ---- the merge of the ranges' candidates ----------------------------------
+
 template <int K>
-__device__ __forceinline__ void insert(float (&vals)[K], int (&idxs)[K], float v,
-                                       int i) {
+__device__ __forceinline__ void insert(float (&vals)[K], int (&idxs)[K], float v, int i) {
   if (!better(v, i, vals[K - 1], idxs[K - 1])) return;
   vals[K - 1] = v;
   idxs[K - 1] = i;
@@ -64,9 +466,9 @@ __device__ __forceinline__ void insert(float (&vals)[K], int (&idxs)[K], float v
       const float tv = vals[q];
       vals[q] = vals[q - 1];
       vals[q - 1] = tv;
-      const int ti = idxs[q];
+      const int tix = idxs[q];
       idxs[q] = idxs[q - 1];
-      idxs[q - 1] = ti;
+      idxs[q - 1] = tix;
     }
   }
 }
@@ -82,129 +484,12 @@ __device__ __forceinline__ void pop_front(float (&vals)[K], int (&idxs)[K]) {
   idxs[K - 1] = INT_MAX;
 }
 
-size_t tile_smem_bytes(int D) {
-  return sizeof(float) * ((size_t)D * kUPad + (size_t)D * kTPad + kRows * kTPad) +
-         sizeof(uint32_t) * kRows * kMaskWords;
-}
-
 template <int K>
 __global__ void __launch_bounds__(kThreads)
-chunk_topk_kernel(const float* __restrict__ U, const float* __restrict__ T,
-                  int B, int I, int D, const int* __restrict__ row_ptr,
-                  const int* __restrict__ items, int k,
-                  float* __restrict__ cand_s, int* __restrict__ cand_i) {
-  extern __shared__ float smem[];
-  float* us = smem;                             // [D][kUPad]
-  float* ts = us + (size_t)D * kUPad;           // [D][kTPad]
-  float* sc = ts + (size_t)D * kTPad;           // [kRows][kTPad]
-  uint32_t* hb = (uint32_t*)(sc + kRows * kTPad);  // [kRows][kMaskWords]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int r0 = blockIdx.x * kRows;
-  const int lo = blockIdx.y * kChunk;
-  const int hi = min(I, lo + kChunk);
-
-  // ---- user rows (zeros past B) and the chunk's history bitmap ----------
-  for (int e = tid; e < kRows * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    us[d * kUPad + r] = (r0 + r < B) ? U[(long long)(r0 + r) * D + d] : 0.f;
-  }
-  for (int w = tid; w < kRows * kMaskWords; w += kThreads) hb[w] = 0u;
-  __syncthreads();
-  for (int r = warp; r < kRows && r0 + r < B; r += kThreads / 32) {
-    const int p_end = row_ptr[r0 + r + 1];
-    for (int p = row_ptr[r0 + r] + lane; p < p_end; p += 32) {
-      const unsigned off = (unsigned)(items[p] - lo);
-      if (off < (unsigned)kChunk)
-        atomicOr(&hb[r * kMaskWords + (off >> 5)], 1u << (off & 31));
-    }
-  }
-
-  float vals[K];
-  int idxs[K];
-#pragma unroll
-  for (int q = 0; q < K; ++q) {
-    vals[q] = -INFINITY;
-    idxs[q] = INT_MAX;
-  }
-  const int ty = tid >> 5;   // compute: users 4 ty .. 4 ty + 3
-  const int tx = lane;       // compute: items tx and tx + 32 of the sub-tile
-  const int sr = tid / kGroup;  // fold: row of the score tile
-  const int sg = tid % kGroup;  // fold: columns sg, sg + 8, ...
-
-  for (int t0 = lo; t0 < hi; t0 += kCols) {
-    __syncthreads();  // the previous sub-tile's tiles are consumed
-    for (int e = tid; e < kCols * D; e += kThreads) {
-      const int c = e / D, d = e - c * D;
-      ts[d * kTPad + c] = (t0 + c < I) ? T[(long long)(t0 + c) * D + d] : 0.f;
-    }
-    __syncthreads();
-    float acc[4][2];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q][0] = acc[q][1] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(us + d * kUPad + 4 * ty);
-      const float b0 = ts[d * kTPad + tx];
-      const float b1 = ts[d * kTPad + tx + 32];
-      acc[0][0] = fmaf(a.x, b0, acc[0][0]);
-      acc[0][1] = fmaf(a.x, b1, acc[0][1]);
-      acc[1][0] = fmaf(a.y, b0, acc[1][0]);
-      acc[1][1] = fmaf(a.y, b1, acc[1][1]);
-      acc[2][0] = fmaf(a.z, b0, acc[2][0]);
-      acc[2][1] = fmaf(a.z, b1, acc[2][1]);
-      acc[3][0] = fmaf(a.w, b0, acc[3][0]);
-      acc[3][1] = fmaf(a.w, b1, acc[3][1]);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = 4 * ty + q;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = tx + 32 * h;
-        const int off = t0 + c - lo;
-        const bool masked = (t0 + c == 0) ||
-            ((hb[r * kMaskWords + (off >> 5)] >> (off & 31)) & 1u);
-        sc[r * kTPad + c] = masked ? -FLT_MAX : acc[q][h];
-      }
-    }
-    __syncthreads();
-    for (int c = sg; c < kCols && t0 + c < hi; c += kGroup)
-      insert<K>(vals, idxs, sc[sr * kTPad + c], t0 + c);
-  }
-
-  // ---- the chunk's candidates: k rounds of an 8-lane argmax per row -----
-  const int row = r0 + sr;
-  float* out_s = cand_s + ((long long)blockIdx.y * B + row) * k;
-  int* out_i = cand_i + ((long long)blockIdx.y * B + row) * k;
-  for (int r = 0; r < k; ++r) {
-    float bv = vals[0];
-    int bi = idxs[0];
-#pragma unroll
-    for (int off = kGroup / 2; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (sg == 0 && row < B) {
-      out_s[r] = bv;
-      out_i[r] = bi;
-    }
-    if (idxs[0] == bi) pop_front<K>(vals, idxs);
-  }
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
-             int B, int n_chunks, int k, float* __restrict__ out_s,
-             int* __restrict__ out_i) {
+merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i, int B,
+             int n_splits, int k, float* __restrict__ out_s, int* __restrict__ out_i) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= B) return;  // uniform across the warp
   float vals[K];
   int idxs[K];
@@ -213,11 +498,9 @@ merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
     vals[q] = -INFINITY;
     idxs[q] = INT_MAX;
   }
-  const int n = n_chunks * k;
-  for (int q = lane; q < n; q += 32) {
-    const int chunk = q / k;
-    const long long at = ((long long)chunk * B + row) * k + (q - chunk * k);
-    insert<K>(vals, idxs, cand_s[at], cand_i[at]);
+  for (int s = 0; s < n_splits; ++s) {
+    const long long at = ((long long)s * B + row) * k;
+    for (int q = lane; q < k; q += 32) insert<K>(vals, idxs, cand_s[at + q], cand_i[at + q]);
   }
   for (int r = 0; r < k; ++r) {
     float bv = vals[0];
@@ -239,49 +522,99 @@ merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
   }
 }
 
+// ---- host side --------------------------------------------------------------
+
+int stages_for(int D, int k) { return tile_smem_bytes(D, k, 3) <= (size_t)kMaxSmem ? 3 : 2; }
+
+template <bool V, int S>
+int tile_launch(const float* U, const float* T, int B, int I, int D, int span, int k,
+                const unsigned long long* table, int bits, int n_splits, float* cand_s,
+                int* cand_i, cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes(D, k, S);
+  const cudaError_t e = cudaFuncSetAttribute(
+      tile_topk_kernel<V, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((B + kRows - 1) / kRows, n_splits);
+  tile_topk_kernel<V, S><<<grid, kThreads, smem, stream>>>(U, T, B, I, D, span, k, table, bits,
+                                                            cand_s, cand_i);
+  return (int)cudaGetLastError();
+}
+
 template <int K>
-int launch(const float* U, const float* T, int B, int I, int D,
-           const int* row_ptr, const int* items, int k, float* cand_s,
-           int* cand_i, float* out_s, int* out_i, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(D);
-  cudaError_t e = cudaFuncSetAttribute(
-      chunk_topk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int n_chunks = (I + kChunk - 1) / kChunk;
-  const dim3 grid((B + kRows - 1) / kRows, n_chunks);
-  chunk_topk_kernel<K><<<grid, kThreads, smem, stream>>>(
-      U, T, B, I, D, row_ptr, items, k, cand_s, cand_i);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int rows_per_block = kThreads / 32;
-  merge_kernel<K><<<(B + rows_per_block - 1) / rows_per_block, kThreads, 0,
-                    stream>>>(cand_s, cand_i, B, n_chunks, k, out_s, out_i);
+int merge_launch(const float* cand_s, const int* cand_i, int B, int n_splits, int k,
+                 float* out_s, int* out_i, cudaStream_t stream) {
+  merge_kernel<K><<<(B + kWarps - 1) / kWarps, kThreads, 0, stream>>>(cand_s, cand_i, B,
+                                                                      n_splits, k, out_s, out_i);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int streaming_topk_chunk() { return kChunk; }
+// the item ranges of a call (the candidate scratch has one [B, k] slab per
+// range), or minus a CUDA error code: as many as fill every SM once
+extern "C" int streaming_topk_splits(int B, int I, int D, int k) {
+  if (B <= 0 || I <= 0 || D <= 0 || D > 256 || k <= 0 || k > 64)
+    return -(int)cudaErrorInvalidValue;
+  const int S = stages_for(D, k);
+  const size_t smem = tile_smem_bytes(D, k, S);
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  auto kernel = S == 3 ? tile_topk_kernel<true, 3> : tile_topk_kernel<true, 2>;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem);
+  if (e != cudaSuccess) return -(int)e;
+  const int row_blocks = (B + kRows - 1) / kRows;
+  const int slots = sms * (occ > 0 ? occ : 1);
+  const int tiles = (I + kCols - 1) / kCols;
+  int n = slots / row_blocks;
+  if (n < 1) n = 1;
+  if (n > tiles) n = tiles;
+  return n;
+}
 
-// U: [B, D], T: [I, D] float32; row_ptr: [B + 1] CSR offsets into items;
-// cand_s / cand_i: [ceil(I / chunk), B, k] scratch; out_s / out_i: [B, k]
+// U: [B, D], T: [I, D] float32 (T 16-byte aligned when D % 4 == 0); row_ptr:
+// [B + 1] CSR offsets into items; table: [2^bits] int64 scratch (bits >= 10,
+// 2^bits >= 2 * history entries); cand_s / cand_i: [n_splits, B, k] scratch;
+// out_s / out_i: [B, k]
 extern "C" int streaming_topk(const void* U, const void* T, int B, int I, int D,
-                              const void* row_ptr, const void* items, int k,
-                              void* cand_s, void* cand_i, void* out_s,
+                              const void* row_ptr, const void* items, int k, void* table,
+                              int bits, int n_splits, void* cand_s, void* cand_i, void* out_s,
                               void* out_i, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
+  if (I <= 0 || D <= 0 || D > 256 || k <= 0 || k > 64 || bits < 10 || bits > 30 ||
+      n_splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* tab = (unsigned long long*)table;
+  cudaError_t e = cudaMemsetAsync(tab, 0xff, sizeof(unsigned long long) << bits, st);
+  if (e != cudaSuccess) return (int)e;
+  hash_build_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      (const int*)row_ptr, (const int*)items, B, tab, bits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const int tiles_per_split = ((I + n_splits - 1) / n_splits + kCols - 1) / kCols;
+  const int span = tiles_per_split * kCols;
   const float* u = (const float*)U;
   const float* t = (const float*)T;
-  const int* rp = (const int*)row_ptr;
-  const int* it = (const int*)items;
   float* cs = (float*)cand_s;
   int* ci = (int*)cand_i;
+  const bool vec = D % 4 == 0 && ((uintptr_t)T & 15) == 0;
+  const int S = stages_for(D, k);
+  int err;
+  if (vec)
+    err = S == 3 ? tile_launch<true, 3>(u, t, B, I, D, span, k, tab, bits, n_splits, cs, ci, st)
+                 : tile_launch<true, 2>(u, t, B, I, D, span, k, tab, bits, n_splits, cs, ci, st);
+  else
+    err = S == 3 ? tile_launch<false, 3>(u, t, B, I, D, span, k, tab, bits, n_splits, cs, ci, st)
+                 : tile_launch<false, 2>(u, t, B, I, D, span, k, tab, bits, n_splits, cs, ci, st);
+  if (err != 0) return err;
   float* os = (float*)out_s;
   int* oi = (int*)out_i;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (k <= 16) return launch<16>(u, t, B, I, D, rp, it, k, cs, ci, os, oi, st);
-  if (k <= 32) return launch<32>(u, t, B, I, D, rp, it, k, cs, ci, os, oi, st);
-  if (k <= 64) return launch<64>(u, t, B, I, D, rp, it, k, cs, ci, os, oi, st);
-  return (int)cudaErrorInvalidValue;
+  if (k <= 16) return merge_launch<16>(cs, ci, B, n_splits, k, os, oi, st);
+  if (k <= 32) return merge_launch<32>(cs, ci, B, n_splits, k, os, oi, st);
+  return merge_launch<64>(cs, ci, B, n_splits, k, os, oi, st);
 }

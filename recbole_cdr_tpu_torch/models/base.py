@@ -122,13 +122,25 @@ class CrossDomainRecommender(nn.Module):
         self.OVERLAP_ID = dataset.overlap_id_field
         self.phase = None
         #: generation counter of the parameters, for caches of values derived
-        #: from them (BiTGCF's propagated tables): the training step bumps it
-        #: after every optimizer step, ``load_state_dict`` after every load
+        #: from them (BiTGCF's propagated tables, NATR's anchor table): the
+        #: training step bumps it after every optimizer step,
+        #: ``load_state_dict`` after every load
         self.params_version = 0
+        #: name -> (params_version, value), kept by :meth:`_per_version`
+        self._version_cache = {}
 
     def notify_params_updated(self):
         """Invalidate caches derived from the parameters."""
         self.params_version += 1
+
+    def _per_version(self, name: str, build):
+        """``build()``'s value, computed once per parameter version and kept
+        under ``name``; a stale value is freed before its rebuild."""
+        hit = self._version_cache.get(name)
+        if hit is None or hit[0] != self.params_version:
+            self._version_cache.pop(name, None)
+            self._version_cache[name] = hit = (self.params_version, build())
+        return hit[1]
 
     def load_state_dict(self, *args, **kwargs):
         out = super().load_state_dict(*args, **kwargs)

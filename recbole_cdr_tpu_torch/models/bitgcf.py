@@ -97,9 +97,6 @@ class BiTGCF(CrossDomainRecommender):
         for name, t in tables.items():
             setattr(self, name, nn.Parameter(t))
 
-        #: (params_version, (target user table, target item table))
-        self._eval_cache = None
-
     def _adj(self, domain):
         """(the adjacency's CSR, its transpose's CSR) of a domain."""
         return tuple(CSR(*(getattr(self, f"{domain}_{name}_{field}") for field in CSR._fields))
@@ -189,12 +186,10 @@ class BiTGCF(CrossDomainRecommender):
     def _eval_embeddings(self):
         """The propagated target tables, computed once per parameter
         version, without dropout or autograd."""
-        if self._eval_cache is None or self._eval_cache[0] != self.params_version:
-            self._eval_cache = None  # free the stale tables before propagating
+        def propagate():
             with torch.no_grad():
-                _, _, t_user_all, t_item_all = self._forward()
-            self._eval_cache = (self.params_version, (t_user_all, t_item_all))
-        return self._eval_cache[1]
+                return self._forward()[2:]
+        return self._per_version("eval_embeddings", propagate)
 
     def full_sort(self, users, phase: str = "TARGET"):
         user_e, item_e = self.full_sort_factors(phase)(users)

@@ -19,8 +19,9 @@ the port computes none.
 Full-sort scoring exists for the SOURCE phase only (the overlap prefix and
 the source-only suffix of the source item table, one matmul); every other
 phase scores through :meth:`predict_grid`, which the trainer's predict
-fallback calls: B9's full-sort form computes each anchor's attention once
-per call and the blend once per pair.
+fallback calls: B9's anchor table computes every anchor's attention once
+per parameter version (so once per evaluation pass), and B9's pair grid the
+blend once per pair of each tile.
 """
 
 import numpy as np
@@ -38,8 +39,9 @@ from recbole_cdr_tpu_torch.ops.gather_dot import gather_dot
 from recbole_cdr_tpu_torch.ops.natr_attention import (
     History,
     Weights,
+    natr_anchor_table,
     natr_attention,
-    natr_full_sort,
+    natr_pair_grid,
 )
 from recbole_cdr_tpu_torch.utils.enums import InputType
 
@@ -153,17 +155,35 @@ class NATR(CrossDomainRecommender):
         return torch.sigmoid(
             self._phase2_logit(batch[self.TARGET_USER_ID], batch[self.TARGET_ITEM_ID]))
 
+    def _anchor_table(self):
+        """``su`` of every anchor row of the target domain (every target user
+        in overlap_items mode, every target item otherwise), built by one
+        launch of B9's anchor table per parameter version (``params_version``,
+        bumped by the training step and by ``load_state_dict``), so an
+        evaluation pass builds it once and its tiles gather from it. Training
+        never reads it."""
+        def build():
+            if self.mode == "overlap_items":
+                n, table = self.target_num_users, self.target_user_embedding
+            else:
+                n, table = self.target_num_items, self.target_item_embedding
+            with torch.no_grad():
+                anchors = torch.arange(n, dtype=torch.int32, device=table.device)
+                return natr_anchor_table(self._history(), anchors, table[:n], self._weights())
+        return self._per_version("anchor_table", build)
+
     def predict_grid(self, users, items):
-        """Probabilities of the target pairs ``users [B]`` x ``items [I]``
-        through one call of B9's full-sort form: the anchors' attention once
-        each, the blend per pair."""
+        """Probabilities of the target pairs ``users [B]`` x ``items [I]``:
+        the anchors' ``su`` gathered from the pass's anchor table, then one
+        launch of B9's pair grid (the blend per pair)."""
+        su_all = self._anchor_table()
         user_e = self.target_user_embedding[users.long()]
         item_e = self.target_item_embedding[items.long()]
         if self.mode == "overlap_items":
-            return natr_full_sort(self._history(), users.to(torch.int32), user_e, item_e,
-                                  self._weights(), anchor_is_row=True)
-        return natr_full_sort(self._history(), items.to(torch.int32), item_e, user_e,
-                              self._weights(), anchor_is_row=False)
+            return natr_pair_grid(su_all[users.long()], user_e, item_e, self._weights(),
+                                  anchor_is_row=True)
+        return natr_pair_grid(su_all[items.long()], item_e, user_e, self._weights(),
+                              anchor_is_row=False)
 
     def full_sort(self, users, phase: str = "TARGET"):
         if phase != "SOURCE":

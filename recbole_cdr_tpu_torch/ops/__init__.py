@@ -31,7 +31,8 @@ WRAPPERS = {
     "rank_sum": rank_sum.rank_sum,
     "natr_attention_forward": natr_attention.natr_attention_forward,
     "natr_attention_backward": natr_attention.natr_attention_backward,
-    "natr_full_sort": natr_attention.natr_full_sort,
+    "natr_anchor_table": natr_attention.natr_anchor_table,
+    "natr_pair_grid": natr_attention.natr_pair_grid,
 }
 
 

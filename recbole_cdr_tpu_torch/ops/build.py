@@ -46,8 +46,8 @@ _SIGNATURES = {
     "shuffle": {"swap_or_not": [_P, _P, _I, _I, _I, _P, _P, _I, _P]},
     "masked_topk": {"masked_topk": [_P, _I, _I, _P, _P, _I, _P, _P]},
     "streaming_topk": {
-        "streaming_topk": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P],
-        "streaming_topk_chunk": [],
+        "streaming_topk": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+        "streaming_topk_splits": [_I, _I, _I, _I],
     },
     "sparse_adam": {
         "sparse_adam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P],
@@ -59,7 +59,9 @@ _SIGNATURES = {
     },
     "rank_sum": {"rank_sum": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P]},
     "natr_attention": {
-        "natr_attention_forward": [_P] * 12 + [_I] * 6 + [_P, _P, _P],
+        "natr_attention_forward": [_P] * 12 + [_I] * 3 + [_P, _P, _P],
+        "natr_anchor_table": [_P] * 9 + [_I] * 3 + [_P, _P],
+        "natr_pair_grid": [_P] * 5 + [_I] * 4 + [_P, _P],
         "natr_attention_backward_blocks": [_I, _I, _I],
         "natr_attention_backward": [_P] * 12 + [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     },

@@ -15,15 +15,21 @@ target embedding). With ``h_j = src[hist[a, j]] @ W + b`` for every slot
   form), ``logit = (beta su + (1 - beta) pu) . q``.
 
 ``su`` and ``pu`` depend on the anchor alone, so the kernels compute the
-anchor stage once per anchor and the O(D) pair stage per pair. Three
-wrappers, each counting its calls that launch (each issues two kernels):
+anchor stage once per anchor and the O(D) pair stage per pair. Four
+wrappers, each counting its calls that launch:
 
-- :func:`natr_attention_forward`: training, one anchor per pair, logits [P];
+- :func:`natr_attention_forward`: training, one anchor per pair, logits [P]
+  (two kernels);
 - :func:`natr_attention_backward`: the gradients of ``pu``, ``q``, ``W``,
   ``b``, ``w_ua``, ``b_ua``, ``w_da``, ``b_da`` (none for the source table,
-  which NATR freezes in the phase that runs this);
-- :func:`natr_full_sort`: a [rows, cols] grid of sigmoid probabilities, the
-  anchors on the rows (``overlap_items``) or on the columns.
+  which NATR freezes in the phase that runs this; two kernels);
+- :func:`natr_anchor_table`: ``su`` of a set of anchors, the anchor stage
+  alone (full-sort scoring builds it once per parameter version);
+- :func:`natr_pair_grid`: a [rows, cols] grid of sigmoid probabilities from
+  the anchors' ``su`` and ``pu``, the anchors on the rows
+  (``overlap_items``) or on the columns.
+
+:func:`natr_full_sort` composes the last two.
 
 The kernels are ``csrc/natr_attention.cu``; the plain versions below run for
 CPU tensors and serve as the kernels' reference (the plain backward is
@@ -99,13 +105,18 @@ def natr_attention_backward_plain(hist: History, anchors, pu, q, w: Weights, g):
         return torch.autograd.grad(logit, leaves, g)
 
 
-def natr_full_sort_plain(hist: History, anchors, pu, q, w: Weights, anchor_is_row: bool):
-    su = anchor_plain(hist, anchors, pu, w)
+def pair_grid_plain(su, pu, q, w: Weights, anchor_is_row: bool):
+    """Sigmoid probabilities of every (anchor, query) pair: [A, Nq] when
+    ``anchor_is_row``, else [Nq, A]."""
     if anchor_is_row:
         logit = blend_plain(su[:, None, :], pu[:, None, :], q[None, :, :], w)
     else:
         logit = blend_plain(su[None, :, :], pu[None, :, :], q[:, None, :], w)
     return torch.sigmoid(logit)
+
+
+def natr_full_sort_plain(hist: History, anchors, pu, q, w: Weights, anchor_is_row: bool):
+    return pair_grid_plain(anchor_plain(hist, anchors, pu, w), pu, q, w, anchor_is_row)
 
 
 # ---------------------------------------------------------------- checks
@@ -121,11 +132,30 @@ def smem_bytes(D: int, H: int) -> int:
     return 4 * floats + 4 * hp + hp
 
 
+def _on_card(what: str, D: int, floats, others=()) -> bool:
+    """The checks every wrapper shares: float32 ``floats``, every operand on
+    one device, a device with a version, and on the card a width the kernels
+    take. Returns whether the operands lie on the card."""
+    if any(t.dtype != torch.float32 for t in floats):
+        raise TypeError(f"{what} takes float32 tables, embeddings and weights")
+    if len({t.device for t in (*floats, *others)}) != 1:
+        raise ValueError(f"{what} operands must share one device")
+    dev = floats[0].device.type
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"{what} has no version for device {floats[0].device}")
+    if dev == "cuda" and D not in WIDTHS:
+        raise ValueError(f"{what}: the kernel takes widths {WIDTHS}, got {D}")
+    return dev == "cuda"
+
+
+def _aligned(*tensors):
+    """Contiguous copies, 16-byte aligned for the kernels' float4 loads."""
+    t = [x.contiguous() for x in tensors]
+    return [x.clone() if x.data_ptr() % 16 else x for x in t]
+
+
 def _check(hist: History, anchors, pu, q, w: Weights, *extra):
     src, ids, mask = hist
-    floats = (src, pu, q, *w, *extra)
-    if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError("natr_attention takes float32 tables, embeddings and weights")
     if ids.dtype != torch.int32 or anchors.dtype != torch.int32 or mask.dtype != torch.bool:
         raise TypeError("natr_attention takes int32 history and anchor ids and a bool mask")
     D = src.shape[1] if src.dim() == 2 else -1
@@ -140,25 +170,16 @@ def _check(hist: History, anchors, pu, q, w: Weights, *extra):
     for name, t in w._asdict().items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"natr_attention: {name} {tuple(t.shape)}, want {want[name]}")
-    if len({t.device for t in (*floats, ids, mask, anchors)}) != 1:
-        raise ValueError("natr_attention operands must share one device")
-    dev = src.device.type
-    if dev not in ("cpu", "cuda"):
-        raise ValueError(f"natr_attention has no version for device {src.device}")
-    if dev == "cuda":
-        if D not in WIDTHS:
-            raise ValueError(f"natr_attention: the kernel takes widths {WIDTHS}, got {D}")
-        if smem_bytes(D, ids.shape[1]) > SMEM_LIMIT:
-            raise ValueError(f"natr_attention: {ids.shape[1]} history slots at width {D} "
-                             "exceed the kernel's shared memory")
-    return dev == "cuda"
+    on_card = _on_card("natr_attention", D, (src, pu, q, *w, *extra), (ids, mask, anchors))
+    if on_card and smem_bytes(D, ids.shape[1]) > SMEM_LIMIT:
+        raise ValueError(f"natr_attention: {ids.shape[1]} history slots at width {D} "
+                         "exceed the kernel's shared memory")
+    return on_card
 
 
 def _args(hist: History, anchors, pu, q, w: Weights):
-    """Pointers and sizes shared by the C entry points: contiguous, and
-    16-byte aligned for the kernels' float4 loads."""
-    t = [x.contiguous() for x in (hist.src, hist.ids, hist.mask, anchors, pu, q, *w)]
-    t = [x.clone() if x.data_ptr() % 16 else x for x in t]
+    """Pointers and sizes shared by the C entry points."""
+    t = _aligned(hist.src, hist.ids, hist.mask, anchors, pu, q, *w)
     return t, [x.data_ptr() for x in t] + [hist.ids.shape[1], hist.src.shape[1]]
 
 
@@ -176,7 +197,7 @@ def natr_attention_forward(hist: History, anchors, pu, q, w: Weights):
     su = torch.empty(P, D, dtype=torch.float32, device=pu.device)
     out = torch.empty(P, dtype=torch.float32, device=pu.device)
     err = build.library("natr_attention").natr_attention_forward(
-        *args, P, P, 0, 0, su.data_ptr(), out.data_ptr(), build.stream_handle(pu))
+        *args, P, su.data_ptr(), out.data_ptr(), build.stream_handle(pu))
     build.check(err, "natr_attention_forward")
     natr_attention_forward.launches += 1
     return out
@@ -219,27 +240,61 @@ def natr_attention_backward(hist: History, anchors, pu, q, w: Weights, g):
 natr_attention_backward.launches = 0
 
 
-def natr_full_sort(hist: History, anchors, pu, q, w: Weights, anchor_is_row: bool):
-    """float32 sigmoid probabilities of a grid: [A, Nq] with anchor ``a`` on
-    row a and query ``c`` on column c when ``anchor_is_row``, else [Nq, A]
-    with the anchors on the columns."""
-    if not _check(hist, anchors, pu, q, w):
-        return natr_full_sort_plain(hist, anchors, pu, q, w, anchor_is_row)
-    keep, args = _args(hist, anchors, pu, q, w)
+def natr_anchor_table(hist: History, anchors, pu, w: Weights):
+    """su [A, D] of the anchors ``anchors`` (int32 [A]) with ``pu`` [A, D]:
+    the anchor stage of every anchor in one launch over all SMs. A full-sort
+    pass builds it once for every anchor row of the domain and gathers each
+    tile's rows from it (``NATR.predict_grid``)."""
+    if not _check(hist, anchors, pu, pu, w):
+        return anchor_plain(hist, anchors, pu, w)
+    keep, args = _args(hist, anchors, pu, pu, w)
     A, D = pu.shape
-    Nq = q.shape[0]
-    rows, cols = (A, Nq) if anchor_is_row else (Nq, A)
     su = torch.empty(A, D, dtype=torch.float32, device=pu.device)
-    out = torch.empty(rows, cols, dtype=torch.float32, device=pu.device)
-    err = build.library("natr_attention").natr_attention_forward(
-        *args, A, rows, cols, 1 if anchor_is_row else 2,
-        su.data_ptr(), out.data_ptr(), build.stream_handle(pu))
-    build.check(err, "natr_full_sort")
-    natr_full_sort.launches += 1
+    src, ids, mask, anchors_, pu_, _, W, b, w_ua, b_ua, _, _ = args[:12]
+    err = build.library("natr_attention").natr_anchor_table(
+        src, ids, mask, anchors_, pu_, W, b, w_ua, b_ua, hist.ids.shape[1], D, A,
+        su.data_ptr(), build.stream_handle(pu))
+    build.check(err, "natr_anchor_table")
+    natr_anchor_table.launches += 1
+    return su
+
+
+natr_anchor_table.launches = 0
+
+
+def natr_pair_grid(su, pu, q, w: Weights, anchor_is_row: bool):
+    """float32 sigmoid probabilities of a grid, from the anchors' ``su`` and
+    ``pu`` [A, D] and the queries ``q`` [Nq, D]: [A, Nq] with anchor ``a``
+    on row a and query ``c`` on column c when ``anchor_is_row``, else [Nq, A]
+    with the anchors on the columns."""
+    D = q.shape[1] if q.dim() == 2 else -1
+    if su.dim() != 2 or su.shape != pu.shape or q.dim() != 2 or su.shape[1] != D:
+        raise ValueError(f"natr_pair_grid: su {tuple(su.shape)}, pu {tuple(pu.shape)}, "
+                         f"q {tuple(q.shape)}")
+    if not _on_card("natr_pair_grid", D, (su, pu, q, *w)):
+        return pair_grid_plain(su, pu, q, w, anchor_is_row)
+    keep = _aligned(su, pu, q, w.w_da, w.b_da)
+    A, Nq = su.shape[0], q.shape[0]
+    out = torch.empty((A, Nq) if anchor_is_row else (Nq, A), dtype=torch.float32,
+                      device=su.device)
+    err = build.library("natr_attention").natr_pair_grid(
+        *(x.data_ptr() for x in keep), A, Nq, D, int(anchor_is_row), out.data_ptr(),
+        build.stream_handle(su))
+    build.check(err, "natr_pair_grid")
+    natr_pair_grid.launches += 1
     return out
 
 
-natr_full_sort.launches = 0
+natr_pair_grid.launches = 0
+
+
+def natr_full_sort(hist: History, anchors, pu, q, w: Weights, anchor_is_row: bool):
+    """float32 sigmoid probabilities of a grid: [A, Nq] with anchor ``a`` on
+    row a and query ``c`` on column c when ``anchor_is_row``, else [Nq, A]
+    with the anchors on the columns. The anchor table of ``anchors``, then
+    the pair grid: two launches, each counted by its own wrapper."""
+    su = natr_anchor_table(hist, anchors, pu, w)
+    return natr_pair_grid(su, pu, q, w, anchor_is_row)
 
 
 class _NatrAttention(torch.autograd.Function):

@@ -13,8 +13,10 @@ The [B, I] score matrix is never held.
 A row's history arrives in CSR form, ``items[row_ptr[r]:row_ptr[r + 1]]``
 (global item ids, any order): tail-robust like the JAX package's pair lists.
 The kernel is ``csrc/streaming_topk.cu``, which computes the score product
-itself; the plain version below runs for CPU tensors and serves as the
-kernel's reference.
+itself on the tensor cores in 3xTF32 (float32 accuracy: each operand split
+into a TF32 high part and residual, three products per score) and selects
+from the accumulators; the plain version below runs for CPU tensors and
+serves as the kernel's reference.
 """
 
 import torch
@@ -117,16 +119,24 @@ def streaming_topk(user_e, item_table, row_ptr, items, k: int):
     lib = build.library("streaming_topk")
     user_e, item_table = user_e.contiguous(), item_table.contiguous()
     row_ptr, items = row_ptr.contiguous(), items.contiguous()
-    n_chunks = -(-I // lib.streaming_topk_chunk())
     dev = user_e.device
-    cand_s = torch.empty((n_chunks, B, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((n_chunks, B, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out_s, out_i
+    n_splits = lib.streaming_topk_splits(B, I, D, k)
+    if n_splits < 0:
+        build.check(-n_splits, "streaming_topk")
+    # the history set: (row, item) keys at a load factor of at most 1/2,
+    # sized from the shape alone (no device sync)
+    bits = max(10, (2 * items.shape[0] - 1).bit_length())
+    table = torch.empty(1 << bits, dtype=torch.int64, device=dev)
+    cand_s = torch.empty((n_splits, B, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((n_splits, B, k), dtype=torch.int32, device=dev)
     err = lib.streaming_topk(
         user_e.data_ptr(), item_table.data_ptr(), B, I, D, row_ptr.data_ptr(),
-        items.data_ptr(), k, cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), build.stream_handle(user_e),
+        items.data_ptr(), k, table.data_ptr(), bits, n_splits, cand_s.data_ptr(),
+        cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), build.stream_handle(user_e),
     )
     build.check(err, "streaming_topk")
     streaming_topk.launches += 1

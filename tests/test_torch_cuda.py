@@ -4,13 +4,16 @@ template (k up to 64), a row too wide for static shared memory, fewer
 unmasked items than k, swap-or-not grids taller than one launch's grid,
 history widths with and without 16-byte loads, embedding widths that are
 not a multiple of the warp; every ``streaming_topk`` template at the
-catalog's 1,100,001 items, a history row longer than one chunk's bitmap and
+catalog's 1,100,001 items, a history row spanning many item ranges and
 user blocks smaller than the kernel's row block; ``sparse_adam`` with every
 id on one row, more ids than rows, and odd widths; ``rank_sum`` with ties
 everywhere, history, masked positives, rows without positives and rows
 longer than its shared-memory chunk; the NATR attention's forward, backward
 and full-sort forms at every kernel width, with empty and single-slot
-histories, in both overlap modes. Plus the entry point on the card, on the
+histories, in both overlap modes; ``streaming_topk``'s tensor-core edges
+(D of 8 to 256, k of 1 to 64, partial row blocks and item tiles, a row
+masked down to k items); the anchor table and the pair grid at every
+kernel width. Plus the entry point on the card, on the
 dense path, on the catalog path (sparse optimizer, streaming evaluation),
 for BiTGCF and for NATR with GAUC.
 
@@ -117,7 +120,7 @@ def _csr(hist):
 def test_streaming_topk_matches_plain(gen, B, I, D, k):
     """Integer-valued factors: every score is exact whatever the sum order,
     ties are everywhere, and the ids must equal the plain version's. Row 0's
-    history spans more than one 8192-item chunk; row 1 masks all but 3
+    history spans many item tiles and ranges; row 1 masks all but 3
     items, so masked ties decide its top-k."""
     U = torch.randint(-3, 4, (B, D), device="cuda", generator=gen).float()
     T = torch.randint(-3, 4, (I, D), device="cuda", generator=gen).float()
@@ -149,6 +152,44 @@ def test_streaming_topk_float_scores_within_tolerance(gen):
     clear[:, 1:] &= gap > 1e-4
     clear[:, :-1] &= gap > 1e-4
     assert torch.equal(got_i[clear], want_i[clear])
+
+
+@pytest.mark.parametrize("k", [1, 10, 64])
+@pytest.mark.parametrize("D", [8, 17, 32, 128, 256])
+def test_streaming_topk_tensor_core_edges(gen, D, k):
+    """The tensor-core kernel's edges, at 70 rows (not a multiple of its
+    64-row block): an item axis smaller than one 128-item tile and one of
+    313 tiles whose last is partial; row 2 masked down to exactly k items;
+    row 3's history inside the last, partial tile. Integer-valued factors
+    score exactly, so ids and scores equal the plain version's; normal
+    factors score within 1e-4 + 1e-5 |s| (chip_smoke.py's B5_TOL), their
+    ids equal wherever neighbouring scores differ by more."""
+    B = 70
+    for I in (100, 40_001):
+        hist = [torch.randperm(I, device="cuda", generator=gen)[:int(c)]
+                for c in torch.randint(0, 30, (B,), generator=torch.Generator().manual_seed(D))]
+        hist[2] = torch.randperm(I - 1, device="cuda", generator=gen)[:I - 1 - k] + 1
+        last = I - I % 128 if I % 128 else I - 128
+        hist[3] = torch.arange(max(last, 1), I, 2, device="cuda")
+        row_ptr, items = _csr(hist)
+        U = torch.randint(-3, 4, (B, D), device="cuda", generator=gen).float()
+        T = torch.randint(-3, 4, (I, D), device="cuda", generator=gen).float()
+        got_s, got_i = b5.streaming_topk(U, T, row_ptr, items, k)
+        torch.cuda.synchronize()
+        want_s, want_i = b5.streaming_topk_plain(U, T, row_ptr, items, k)
+        assert torch.equal(got_i, want_i), (I, D, k)
+        assert torch.equal(got_s, want_s), (I, D, k)
+        assert bool((got_s[2] > torch.finfo(torch.float32).min).all())  # its k unmasked items
+        U, T = torch.randn(B, D, device="cuda", generator=gen), torch.randn(I, D, device="cuda", generator=gen)
+        got_s, got_i = b5.streaming_topk(U, T, row_ptr, items, k)
+        want_s, want_i = b5.streaming_topk_plain(U, T, row_ptr, items, k)
+        tol = 1e-4 + 1e-5 * want_s.abs()
+        assert bool(((got_s - want_s).abs() <= tol).all()), (I, D, k)
+        gap = torch.diff(want_s, dim=1).abs() > tol[:, 1:]
+        clear = torch.ones_like(want_i, dtype=torch.bool)
+        clear[:, 1:] &= gap
+        clear[:, :-1] &= gap
+        assert torch.equal(got_i[clear], want_i[clear]), (I, D, k)
 
 
 @pytest.mark.parametrize("N,D,R,kind", [(1_400_000, 64, 32_768, "random"), (1000, 64, 5000, "random"),
@@ -354,6 +395,37 @@ def test_natr_full_sort_matches_plain(gen, anchor_is_row):
     assert torch.equal(got, b9.natr_full_sort(hist, anchors, pu, q, w, anchor_is_row))
 
 
+@pytest.mark.parametrize("anchor_is_row", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_natr_pair_grid_matches_plain(gen, D, anchor_is_row):
+    """The anchor table (every anchor row at once) and the pair grid of a
+    [33 users x 1,001 items] tile: neither side a multiple of the grid's
+    8 x 32 block, the anchors on the rows or on the columns. The table
+    within 1e-5 + 1e-4 max of the plain anchor stage, the grid within
+    1e-6 + 1e-4 max of the one-call plain full-sort (chip_smoke.py's
+    B9_TOL), and both bit-equal from run to run."""
+    H, n_users, n_items = 50, 33, 1001
+    n_anchor = n_users if anchor_is_row else n_items
+    hist, _, w = _natr_inputs(gen, D, H, 5000, 9000, 4)
+    table_pu = 0.3 * torch.randn(9000, D, device="cuda", generator=gen)
+    every = torch.arange(9000, dtype=torch.int32, device="cuda")
+    table = b9.natr_anchor_table(hist, every, table_pu, w)
+    torch.cuda.synchronize()
+    _natr_close(table, b9.anchor_plain(hist, every, table_pu, w), 1e-4, "anchor table")
+    assert torch.equal(table, b9.natr_anchor_table(hist, every, table_pu, w))
+    anchors = _ints(0, 9000, (n_anchor,), gen)
+    anchors[:2] = torch.tensor([0, 1], dtype=torch.int32)  # empty histories
+    pu = table_pu[anchors.long()]
+    q = 0.3 * torch.randn(n_items if anchor_is_row else n_users, D, device="cuda", generator=gen)
+    got = b9.natr_pair_grid(table[anchors.long()], pu, q, w, anchor_is_row)
+    torch.cuda.synchronize()
+    assert got.shape == (n_users, n_items)
+    want = b9.natr_full_sort_plain(hist, anchors, pu, q, w, anchor_is_row)
+    err = float((got - want).abs().max())
+    assert err <= 1e-6 + 1e-4 * float(want.abs().max()), f"pair grid: error {err}"
+    assert torch.equal(got, b9.natr_pair_grid(table[anchors.long()], pu, q, w, anchor_is_row))
+
+
 def _run_on_the_card(tmp_path, monkeypatch, model="CMF", **extra):
     from recbole_cdr_tpu_torch import run_recbole_cdr
 
@@ -397,6 +469,6 @@ def test_natr_on_the_card(gen, tmp_path, monkeypatch):
                               metrics=["Recall", "MRR", "NDCG", "Hit", "Precision", "GAUC"])
     path = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
             "masked_topk", "rank_sum", "natr_attention_forward", "natr_attention_backward",
-            "natr_full_sort")
+            "natr_anchor_table", "natr_pair_grid")
     assert all(counts[k] > 0 for k in path), counts
     assert all(counts[k] == 0 for k in counts if k not in path), counts

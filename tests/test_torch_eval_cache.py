@@ -44,9 +44,9 @@ def test_eval_cache_refreshes_after_a_step_and_a_load():
     users = torch.arange(1, 9)
     with torch.no_grad():
         scores_a = model.full_sort(users)
-        cached = model._eval_cache
+        cached = model._version_cache["eval_embeddings"]
         torch.testing.assert_close(model.full_sort(users), scores_a, rtol=0, atol=0)
-    assert model._eval_cache is cached  # a hit: no propagation
+    assert model._version_cache["eval_embeddings"] is cached  # a hit: no propagation
 
     # one optimizer step through the trainer's step function
     train_data.set_mode(train_mode2state["BOTH"])
@@ -59,7 +59,7 @@ def test_eval_cache_refreshes_after_a_step_and_a_load():
     assert model.params_version == v0 + 1
     with torch.no_grad():
         scores_b = model.full_sort(users)
-    assert model._eval_cache is not cached
+    assert model._version_cache["eval_embeddings"] is not cached
     assert not torch.allclose(scores_a, scores_b)
     state_b = {k: v.clone() for k, v in model.state_dict().items()}
     torch.testing.assert_close(scores_b, _fresh_scores(config, dataset, state_b, users),

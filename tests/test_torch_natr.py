@@ -16,10 +16,13 @@ its case:
 - the predict fallback's full-sort probabilities: atol 2e-6 (probabilities
   of logits that the two-stage form sums in another order); top-k ids equal
   wherever neighbouring scores differ by more than 2e-6;
+- the cached anchor table's grid against the one-call full-sort plain
+  version: atol 1e-6 (the table's batched transfer rounds apart);
 - one SOURCE and one TARGET epoch with JAX's shuffle and negative bits:
   rtol 5e-3 / atol 1e-5, the CMF epoch test's tolerance.
 """
 
+import copy
 import math
 
 import jax
@@ -39,6 +42,7 @@ from recbole_cdr_tpu.utils import init_seed as jax_init_seed
 from recbole_cdr_tpu.utils.enums import TrainMode as JaxTrainMode
 from recbole_cdr_tpu.utils.enums import train_mode2state as jax_mode2state
 
+import recbole_cdr_tpu_torch.models.natr as natr_module
 import recbole_cdr_tpu_torch.trainer.device_loop as torch_loop
 from recbole_cdr_tpu_torch import ops, run_recbole_cdr
 from recbole_cdr_tpu_torch.config import CDRConfig
@@ -47,7 +51,12 @@ from recbole_cdr_tpu_torch.data.utils import data_preparation
 from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator
 from recbole_cdr_tpu_torch.models.base import CrossDomainRecommender
 from recbole_cdr_tpu_torch.models.natr import NATR
-from recbole_cdr_tpu_torch.ops.natr_attention import History, Weights, natr_attention
+from recbole_cdr_tpu_torch.ops.natr_attention import (
+    History,
+    Weights,
+    natr_attention,
+    natr_full_sort_plain,
+)
 from recbole_cdr_tpu_torch.trainer.trainer import (
     build_optimizer,
     make_predict_full_sort,
@@ -283,7 +292,58 @@ def test_predict_fallback_matches_jax(pair):
                                                    FullSortEvaluator.HEAVY_SEG_ELEMS)
     ops.reset_launch_counts()
     ev.topk_ids(fs, pair["ttest"], "cpu")
-    assert ops.launch_counts()["natr_full_sort"] == 0  # plain on the CPU
+    counts = ops.launch_counts()  # plain on the CPU
+    assert counts["natr_anchor_table"] == counts["natr_pair_grid"] == 0
+
+
+def test_anchor_table_cache(pair, monkeypatch):
+    """``predict_grid`` serves every tile of a pass from one anchor table,
+    equal to B9's one-call full-sort plain version on the tile's anchors
+    (atol 1e-6: the table's batched transfer rounds apart from the tile's);
+    an optimizer step and a ``load_state_dict`` each rebuild it, and the
+    training step never reads it."""
+    model = copy.deepcopy(pair["tmodel"])
+    model.set_phase("TARGET")
+    model._version_cache.clear()  # a table an earlier test built is no longer counted
+    builds = []
+    build = natr_module.natr_anchor_table
+    monkeypatch.setattr(natr_module, "natr_anchor_table",
+                        lambda *a: builds.append(1) or build(*a))
+    users, items = torch.arange(1, 41), torch.arange(pair["ttest"].item_num)
+
+    def grid():
+        with torch.no_grad():
+            return torch.cat([model.predict_grid(users[:16], items),
+                              model.predict_grid(users[16:], items)])
+
+    @torch.no_grad()
+    def plain():
+        U, I = model.target_user_embedding, model.target_item_embedding
+        if model.mode == "overlap_items":
+            return natr_full_sort_plain(model._history(), users.int(), U[users], I[items],
+                                        model._weights(), True)
+        return natr_full_sort_plain(model._history(), items.int(), I[items], U[users],
+                                    model._weights(), False)
+
+    first = grid()
+    assert len(builds) == 1  # two tiles, one table
+    torch.testing.assert_close(first, plain(), rtol=0, atol=1e-6)
+
+    step = make_train_step(model, build_optimizer(pair["tconfig"], model.parameters()),
+                           model.loss_fn("TARGET"), model.trainable_predicate("TARGET"))
+    with monkeypatch.context() as m:
+        m.setattr(model, "_anchor_table", lambda: pytest.fail("training read the anchor table"))
+        step(_tbatch(_batch(pair["jtrain"], "TARGET")))
+    second = grid()
+    assert len(builds) == 2
+    assert not torch.allclose(first, second)
+    torch.testing.assert_close(second, plain(), rtol=0, atol=1e-6)
+
+    model.load_state_dict({k: 1.5 * v for k, v in model.state_dict().items()})
+    third = grid()
+    assert len(builds) == 3
+    assert not torch.allclose(second, third)
+    torch.testing.assert_close(third, plain(), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("phase", ["SOURCE", "TARGET"])
@@ -350,7 +410,12 @@ def test_run_recbole_cdr_natr_on_cpu(monkeypatch):
     cfg = {"state": "ERROR", "show_progress": False, "device": "cpu",
            "train_batch_size": 1024, "train_epochs": ["SOURCE:1", "TARGET:2"],
            "metrics": ["Recall", "MRR", "NDCG", "Hit", "Precision", "GAUC"]}
+    builds = []
+    build = natr_module.natr_anchor_table
+    monkeypatch.setattr(natr_module, "natr_anchor_table",
+                        lambda *a: builds.append(1) or build(*a))
     result = run_recbole_cdr(model="NATR", config_dict=cfg)
+    assert len(builds) == 3  # one anchor table per TARGET validation and for the test
     assert result["model"].phase == "OVERLAP"
     for res in (result["test_result"], result["best_valid_result"]):
         assert all(math.isfinite(v) for v in res.values())
