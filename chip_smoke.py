@@ -61,7 +61,23 @@ Phases, in order; any failure exits non-zero:
    B7 once per tile of every validation and of the test pass; B5, B6 and B8
    never; the loss falls within each phase, every metric is finite and GAUC
    lies in (0, 1);
-7. report: the card's name and power limit, one JSON line of per-kernel
+7. DTCDR paths: ``run_recbole_cdr(model="DTCDR")`` on the card at DTCDR's
+   published width (``properties/model/DTCDR.yaml``: embedding 64,
+   ``mlp_hidden_size`` [32, 16], dropout 0.1, alpha 0.5) on the dense path's
+   pair, four runs: (a) NeuMF, BOTH:3, full-sort through the predict
+   fallback with GAUC: K2, K3, K4 and B7 launch, B11 never; (b) DMF, BOTH:3,
+   the same: B11 forward and backward exactly 4 times per training step
+   (one launch per linear table over both domains' pairs), the forward 4
+   more per evaluation pass (the tower tables, once per parameter version:
+   3 validations + 1 test), K4 and B7 once per fallback tile; (c) DMF,
+   BOTH:2, eval mode ``uniform 100``: B10 and B7's candidate form exactly
+   once per candidate batch of every pass, K4 and B7's full-sort form
+   never, and a test hit@10 above (b)'s; (d) DMF, BOTH:2, eval mode
+   ``labeled`` (``threshold`` rating >= 4, AUC, MAE, RMSE, LogLoss): no
+   evaluation kernel, AUC in [0, 1], RMSE >= MAE >= 0, LogLoss finite. In
+   every run B5, B6, B8 and B9 never launch, the loss falls and the
+   metrics are finite;
+8. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
 B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
@@ -98,6 +114,19 @@ pair. K4 and B7 are also held and timed on that tile's probabilities, the
 shape of most of their launches on the NATR path, under the record's
 ``shapes``.
 
+B11 (``rating_vector_forward`` / ``rating_vector_backward``) is held in
+phase 2 at a DMF training step's shapes (16,384 ids, both domains' pairs)
+on each of its four histories, the source item side (every id's history of
+source users, N ~ 27.8k) timed, and at the tower tables' shape (every target
+item), within ``B11_TOL`` of its plain version; two backward runs within it
+too (atomics), the error of each element against the sum of its terms'
+absolute values. Its bound charges the distinct rows' work: each distinct
+id's history entries and the table rows they name read once, the ids, the
+output and one add per entry and column. B10 (``candidate_topk``) and B7's
+candidate form (``rank_sum_candidates``) are held exactly at the shape of
+phase 7c's candidate batches ([users per batch, max positives x 101]) with
+integer-valued (ties everywhere) and normal scores.
+
 ``python3 chip_smoke.py --profile`` instead times one warm training epoch
 and one validation pass of the dense path's run, then traces a repeat of
 each with ``torch.profiler`` and prints the device time by kernel, the
@@ -105,8 +134,9 @@ device-busy share of the unprofiled wall time, and the path of the Chrome
 trace it writes under ``chiprun_out/``; then it times one more warm epoch in
 the same, now profiled, process. It does the same for the BiTGCF path, for
 the NATR path (a SOURCE epoch and its validation, then a TARGET epoch and
-its validation), and for the catalog path without writing its (large)
-traces.
+its validation), and for DTCDR's NeuMF, DMF and DMF ``uniform 100`` runs
+and the catalog path without writing their traces (the copy-back is
+bounded).
 
 Nothing here imports jax or the JAX package.
 """
@@ -154,6 +184,26 @@ NATR_METRICS = ["Recall", "MRR", "NDCG", "Hit", "Precision", "GAUC"]
 #: B8 launches per training step and per evaluation pass: 2 layers x 2 domains
 B8_PER_PROPAGATION = 4
 
+#: DTCDR's runs of phase 7: (name, base model, eval mode, BOTH epochs), the
+#: epochs cut from the published 300
+DTCDR_RUNS = (("dtcdr_neumf", "NeuMF", "full", 3), ("dtcdr_dmf", "DMF", "full", 3),
+              ("dtcdr_uniform", "DMF", "uniform 100", 2),
+              ("dtcdr_labeled", "DMF", "labeled", 2))
+DTCDR_LABELED_METRICS = ["AUC", "MAE", "RMSE", "LogLoss"]
+#: the kernels each DTCDR run may and must launch
+DTCDR_PATHS = {
+    "dtcdr_neumf": ("neg_sampler", "swap_or_not", "masked_topk", "rank_sum"),
+    "dtcdr_dmf": ("neg_sampler", "swap_or_not", "masked_topk", "rank_sum",
+                  "rating_vector_forward", "rating_vector_backward"),
+    "dtcdr_uniform": ("neg_sampler", "swap_or_not", "candidate_topk", "rank_sum_candidates",
+                      "rating_vector_forward", "rating_vector_backward"),
+    "dtcdr_labeled": ("neg_sampler", "swap_or_not", "rating_vector_forward",
+                      "rating_vector_backward"),
+}
+#: B11 launches per DMF training step (forward and backward) and per
+#: evaluation pass (forward): one per linear table
+B11_PER_STEP = 4
+
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the float32 rate of
 #: the CUDA cores, used as the rate of the kernels' 32-bit scalar operations
 PEAK_BYTES_PER_S = 3.35e12
@@ -194,6 +244,14 @@ B8_DROP = 0.3
 #: slots, which the kernel adds per block and then block by block, and
 #: autograd in its own order (backward)
 B9_TOL = {"forward": (1e-5, 1e-4), "full_sort": (1e-6, 1e-4), "backward": (1e-5, 1e-3)}
+
+#: B11 tolerance per output element, |kernel - plain| <= ATOL + RTOL * the
+#: sum of the absolute values of the terms the element adds: the kernel sums
+#: a row in pieces of 32 entries added by atomics (the backward also adds
+#: every id's gradient into shared rows by atomics), index_add_ in its own
+#: order, and two float32 sums of the same terms in any two orders differ by
+#: a small multiple of 2^-24 times that sum (RTOL is 64 of them)
+B11_TOL = (1e-6, 2 ** -18)
 
 
 #: cycles of the spin kernel that holds the stream while the host queues
@@ -324,6 +382,20 @@ def natr_config():
             "max_inter_length": 50, "reg_weight": 1e-3, "metrics": NATR_METRICS,
             "topk": [10],
             "train_epochs": [f"SOURCE:{NATR_EPOCHS[0]}", f"TARGET:{NATR_EPOCHS[1]}"]}
+
+
+def dtcdr_config(base_model, mode, epochs):
+    """A DTCDR run of phase 7: the dense path's pair at DTCDR's published
+    width, BOTH:``epochs``, eval mode ``mode`` (``full``, ``uniform N`` or
+    ``labeled``) on the default RS 0.8 / 0.1 / 0.1 split."""
+    cfg = {**config_dict(), "embedding_size": 64, "mlp_hidden_size": [32, 16],
+           "dropout_prob": 0.1, "alpha": 0.5, "base_model": base_model,
+           "train_epochs": [f"BOTH:{epochs}"], "metrics": NATR_METRICS, "topk": [10],
+           "eval_args": {"split": {"RS": [0.8, 0.1, 0.1]}, "group_by": "user", "order": "RO",
+                         "mode": mode}}
+    if mode == "labeled":
+        cfg.update(threshold={"rating": 4}, metrics=DTCDR_LABELED_METRICS, valid_metric="AUC")
+    return cfg
 
 
 def config_dict():
@@ -652,6 +724,9 @@ def kernel_checks(dev):
 
     # ---- B9: NATR's attention at a TARGET step's and a full-sort tile's shapes
     natr_checks(dev, g, config, dataset, train_data, valid_data, record)
+
+    # ---- B11, B10 and B7's candidate form at the DTCDR paths' shapes ----
+    dtcdr_checks(dev, g, record)
 
     # ---- the catalog path's data ----------------------------------------
     cconfig = CDRConfig(model="CMF", config_dict=catalog_config(), _cli_args=[])
@@ -1015,6 +1090,169 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
            library_fn=lambda: library_rank_sum(fs_probs, rp, it, pos, pmask), shape=tile)
 
 
+def dtcdr_checks(dev, g, record):
+    """Hold B11 against its plain version at a DMF training step's shapes on
+    its four histories and at the tower tables' shape, and time the source
+    item side; hold and time B10 and B7's candidate form at the shape of
+    phase 7c's candidate batches."""
+    import numpy as np
+    import torch
+
+    from recbole_cdr_tpu_torch.config import CDRConfig
+    from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_cdr_tpu_torch.models.dtcdr import DTCDR
+    from recbole_cdr_tpu_torch.ops import candidate_topk as b10
+    from recbole_cdr_tpu_torch.ops import rank_sum as b7
+    from recbole_cdr_tpu_torch.ops import rating_vector as b11
+    from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
+    from recbole_cdr_tpu_torch.utils import init_seed
+    from recbole_cdr_tpu_torch.utils.enums import TrainMode
+
+    _, base, mode, _ = DTCDR_RUNS[2]
+    config = CDRConfig(model="DTCDR", config_dict=dtcdr_config(base, mode, 1), _cli_args=[])
+    init_seed(config["seed"], True)
+    dataset = create_dataset(config)
+    train_data, valid_data, _ = data_preparation(config, dataset)
+    model = DTCDR(config, dataset).to(dev)
+    loop = DeviceEpochLoop(TrainMode.BOTH, None, train_data, config["MODEL_INPUT_TYPE"], 1,
+                           dataset.num_total_user, TorchRandomSource(3, dev), dev)
+    xs = loop._build_xs(loop._shuffle_material(0), 0, 0, 1)
+    users = torch.cat([xs["source_user_id"][0], xs["target_user_id"][0]]).to(torch.int32)
+    items = torch.cat([xs["source_item_id"][0], xs["target_item_id"][0]]).to(torch.int32)
+    D = config["embedding_size"]
+
+    def close(got, want, absum, what):
+        """B11_TOL against ``absum``, the same sums over the terms' absolute
+        values."""
+        atol, rtol = B11_TOL
+        diff = (got - want).abs()
+        used = float((diff / (atol + rtol * absum)).max())
+        assert used <= 1.0, f"{what}: error {float(diff.max())}, {used:.3g} of the tolerance"
+        print(f"  {what}: max_abs_err {float(diff.max()):.3g}, {used:.3g} of the tolerance",
+              flush=True)
+        return float(diff.max())
+
+    def b11_work(csr, ids):
+        """(distinct ids, their entries, distinct table rows they name)."""
+        uniq = torch.unique(ids)
+        owner, entry = b11._expand(csr, uniq)
+        rows = int(torch.unique(csr.cols[entry]).numel())
+        return int(uniq.numel()), int(entry.numel()), rows
+
+    errs = {"forward": 0.0, "backward": 0.0}
+    timed = None
+    for name, table, ids in (("s_items", model.source_user_linear, users),
+                             ("t_items", model.target_user_linear, users),
+                             ("s_users", model.source_item_linear, items),
+                             ("t_users", model.target_item_linear, items)):
+        csr = model._csr(name)
+        N = table.shape[0]
+        x = 0.3 * torch.randn(N, D, device=dev, generator=g)
+        gout = torch.randn(ids.shape[0], D, device=dev, generator=g)
+        errs["forward"] = max(errs["forward"], close(
+            b11.rating_vector_forward(csr, x, ids), b11.rating_vector_plain(csr, x, ids),
+            b11.rating_vector_plain(csr, x.abs(), ids), f"rating_vector_forward [{name}]"))
+        want = b11.rating_vector_backward_plain(csr, N, ids, gout)
+        absum = b11.rating_vector_backward_plain(csr, N, ids, gout.abs())
+        for run in ("", ", second run"):
+            errs["backward"] = max(errs["backward"], close(
+                b11.rating_vector_backward(csr, N, ids, gout), want, absum,
+                f"rating_vector_backward [{name}{run}]"))
+        n_ids, n_entries, n_rows = b11_work(csr, ids)
+        print(f"  rating_vector [{name}]: {ids.shape[0]} ids, {n_ids} distinct, "
+              f"{n_entries} history entries naming {n_rows} of [{N} x {D}]'s rows", flush=True)
+        if name == "s_users":
+            timed = (csr, x, ids, gout, N, n_ids, n_entries, n_rows)
+    # the tower tables' shape: every target item on the source user side
+    csr, x, _, _, N, _, _, _ = timed
+    every = torch.arange(model.target_num_items, dtype=torch.int32, device=dev)
+    errs["forward"] = max(errs["forward"], close(
+        b11.rating_vector_forward(csr, x, every), b11.rating_vector_plain(csr, x, every),
+        b11.rating_vector_plain(csr, x.abs(), every), "rating_vector_forward [tower table]"))
+
+    csr, x, ids, gout, N, n_ids, n_entries, n_rows = timed
+    B = ids.shape[0]
+    owner, entry = b11._expand(csr, ids)
+    flat = csr.cols[entry].long()
+    lens = csr.ptr[ids.long() + 1] - csr.ptr[ids.long()]
+    offsets = torch.cumsum(lens, 0) - lens
+    vec = torch.zeros(B, N, device=dev)
+    vec[owner, flat] = 1.0
+    jax_ms = device_ms(lambda: vec @ x, 10)[0]
+    csr_bytes = 8 * n_ids + 4 * n_entries
+    record("rating_vector_forward",
+           lambda: b11.rating_vector_forward(csr, x, ids),
+           lambda: b11.rating_vector_plain(csr, x, ids),
+           errs["forward"], n_rows * D * 4 + 4 * B + csr_bytes + B * D * 4, n_entries * D,
+           library_fn=lambda: torch.nn.functional.embedding_bag(
+               flat, x, offsets.long(), mode="sum"), reps=10)
+    g_rows = gout[owner]
+    record("rating_vector_backward",
+           lambda: b11.rating_vector_backward(csr, N, ids, gout),
+           lambda: b11.rating_vector_backward_plain(csr, N, ids, gout),
+           errs["backward"], B * D * 4 + 4 * B + csr_bytes + N * D * 4, n_entries * D + B * D,
+           library_fn=lambda: torch.zeros(N, D, device=dev).index_add_(0, flat, g_rows), reps=10)
+    for name in ("rating_vector_forward", "rating_vector_backward"):
+        print(f"  {name}: library yardstick "
+              + ("embedding_bag(mode='sum')" if name.endswith("forward") else
+                 "index_add_ of the prebuilt [entries, D] gradient rows")
+              + f" over {int(flat.numel())} entries with repeats", flush=True)
+    print(f"  rating_vector_forward: JAX's form (dense [{B} x {N}] vector @ table) "
+          f"{jax_ms:.4f} ms", flush=True)
+    del vec, g_rows, flat
+
+    # ---- B10 and B7's candidate form on phase 7c's first candidate batch
+    users_b, cand, cand_mask, pos_mask, n_real = next(iter(valid_data))
+    B, C = cand.shape
+    k = min(10, C)
+    cm = torch.as_tensor(cand_mask, device=dev)
+    pm = torch.as_tensor(pos_mask, device=dev)
+    ties = torch.randint(-3, 4, (B, C), device=dev, generator=g).float()
+    normal = torch.randn(B, C, device=dev, generator=g)
+    for sc in (ties, normal):
+        assert torch.equal(b10.candidate_topk(sc, cm, k), b10.candidate_topk_plain(sc, cm, k)), \
+            "candidate_topk disagrees with its plain version"
+        a = b7.rank_sum_candidates(sc, cm, pm)
+        assert torch.equal(a, b7.rank_sum_candidates_plain(sc, cm, pm)), \
+            "rank_sum_candidates disagrees with its plain version"
+        assert torch.equal(a, library_rank_sum_candidates(sc, cm, pm)), \
+            "rank_sum_candidates disagrees with JAX's method"
+        assert torch.equal(a, b7.rank_sum_candidates(sc, cm, pm)), "rank_sum_candidates run to run"
+    lib = torch.topk(torch.where(cm, normal, torch.finfo(torch.float32).min), k, dim=1)
+    kth = lib.values[:, -1:]
+    clear = (torch.where(cm, normal, torch.finfo(torch.float32).min) == kth).sum(1) == 1
+    assert torch.equal(lib.indices[clear].int(), b10.candidate_topk(normal, cm, k)[clear]), \
+        "candidate_topk disagrees with torch.topk on rows without ties at the k-th score"
+    n_pos = int(pm.sum())
+    print(f"  candidate batch [{B}, {C}]: {int(cm.sum())} candidates, {n_pos} positives, "
+          f"k {k}", flush=True)
+    record("candidate_topk",
+           lambda: b10.candidate_topk(ties, cm, k),
+           lambda: b10.candidate_topk_plain(ties, cm, k),
+           0.0, B * C * 5 + B * k * 4, B * C,
+           library_fn=lambda: torch.topk(
+               torch.where(cm, ties, torch.finfo(torch.float32).min), k, dim=1).indices)
+    record("rank_sum_candidates",
+           lambda: b7.rank_sum_candidates(ties, cm, pm),
+           lambda: b7.rank_sum_candidates_plain(ties, cm, pm),
+           0.0, B * C * 6 + B * 4, 2 * C * n_pos,
+           library_fn=lambda: library_rank_sum_candidates(ties, cm, pm))
+
+
+def library_rank_sum_candidates(scores, cand_mask, pos_mask):
+    """B7's candidate-form yardstick, JAX's method: the row (padded slots at
+    -inf) sorted, two searchsorted per column, the positives' ranks
+    summed."""
+    import torch
+
+    m = torch.where(cand_mask, scores, -torch.inf)
+    asc = torch.sort(m, dim=1).values
+    left = torch.searchsorted(asc, m)
+    right = torch.searchsorted(asc, m, right=True)
+    avg = (scores.shape[1] - right).float() + ((right - left).float() + 1.0) / 2.0
+    return torch.where(pos_mask, avg, 0.0).sum(1)
+
+
 def bitgcf_graph(dataset):
     """BiTGCF's normalised source adjacency of ``dataset`` and its
     transpose, as the model builds them (scipy, float32)."""
@@ -1157,6 +1395,9 @@ def main():
         for scheme in ("SOURCE", "TARGET"):
             profile_epoch(dev, natr_config(), f"natr_{scheme.lower()}_", model="NATR",
                           scheme=scheme)
+        for name, base, mode, epochs in DTCDR_RUNS[:3]:
+            profile_epoch(dev, dtcdr_config(base, mode, epochs), f"{name}_", export=False,
+                          model="DTCDR")
         profile_epoch(dev, catalog_config(), "catalog_", export=False)  # traces of ~100 MB
         return 0
 
@@ -1241,6 +1482,12 @@ def main():
     hist = _report_run(result, wall, c, NATR_PATH)
     check_natr_run(result, hist, c)
 
+    print("== phase 7: DTCDR paths, run_recbole_cdr(model='DTCDR') on the card: NeuMF and DMF, "
+          "full-sort, candidate and labeled evaluation", flush=True)
+    del result
+    torch.cuda.empty_cache()
+    run_dtcdr_paths(counts)
+
     replaces = {
         "gather_dot_forward": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
                                "recbole_cdr_tpu/models/cmf.py:45"),
@@ -1270,6 +1517,14 @@ def main():
                               "recbole_cdr_tpu/models/natr.py:101"),
         "natr_pair_grid": ("recbole_cdr_tpu_torch/csrc/natr_attention.cu",
                            "recbole_cdr_tpu/models/natr.py:101"),
+        "rating_vector_forward": ("recbole_cdr_tpu_torch/csrc/rating_vector.cu",
+                                  "recbole_cdr_tpu/models/dtcdr.py:127"),
+        "rating_vector_backward": ("recbole_cdr_tpu_torch/csrc/rating_vector.cu",
+                                   "recbole_cdr_tpu/models/dtcdr.py:127"),
+        "candidate_topk": ("recbole_cdr_tpu_torch/csrc/masked_topk.cu",
+                           "recbole_cdr_tpu/evaluator/evaluator.py:88"),
+        "rank_sum_candidates": ("recbole_cdr_tpu_torch/csrc/rank_sum.cu",
+                                "recbole_cdr_tpu/evaluator/evaluator.py:661"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -1330,6 +1585,85 @@ def check_natr_run(result, hist, c):
           f"{ {k: c[k] for k in want} }, expected {want}", flush=True)
     assert all(c[k] == v for k, v in want.items()), (c, want)
     assert all(math.isfinite(v) for v in result["test_result"].values())
+
+
+def run_dtcdr_paths(counts):
+    """Phase 7: the DTCDR runs of ``DTCDR_RUNS``, each checked; their launch
+    counts go into ``counts`` under the run's name."""
+    import torch
+
+    from recbole_cdr_tpu_torch import ops, run_recbole_cdr
+
+    tests = {}
+    for name, base, mode, epochs in DTCDR_RUNS:
+        print(f"-- {name}: {base}, BOTH:{epochs}, eval mode {mode}", flush=True)
+        cfg = dtcdr_config(base, mode, epochs)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run_recbole_cdr(model="DTCDR", config_dict=cfg, saved=True)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = c = ops.launch_counts()
+        hist = _report_run(result, wall, c, DTCDR_PATHS[name])
+        check_dtcdr_run(mode, cfg, result, hist, c)
+        tests[name] = result["test_result"]
+        del result
+    # ~100x fewer candidates than full-sort
+    assert tests["dtcdr_uniform"]["hit@10"] > tests["dtcdr_dmf"]["hit@10"], tests
+
+
+def check_dtcdr_run(mode, cfg, result, hist, c):
+    """Phase 7's checks of one DTCDR run: its falling loss, the metrics'
+    ranges, and the launches of B11 against the steps and evaluation passes
+    and of the evaluation kernels against the tiles or candidate batches of
+    every pass."""
+    import numpy as np
+
+    from recbole_cdr_tpu_torch.config import CDRConfig
+    from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_cdr_tpu_torch.utils import init_seed
+
+    assert [h["phase"] for h in hist] == ["BOTH"] * len(hist) and len(hist) > 1, hist
+    assert hist[-1]["loss"] < hist[0]["loss"], [h["loss"] for h in hist]
+    examples = sum(h["train_examples"] for h in hist)
+    assert examples % (2 * BATCH) == 0  # 2 domains x (4,096 positives + 4,096 negatives)
+    steps = examples // (2 * BATCH)
+    n_valid = sum("valid_seconds" in h for h in hist)
+    passes = n_valid + 1  # the validations and the test
+    want = {}
+    if cfg["base_model"] == "DMF":
+        want = {"rating_vector_forward": B11_PER_STEP * (steps + passes),
+                "rating_vector_backward": B11_PER_STEP * steps}
+    if mode == "full":
+        n_target = result["model"].target_num_items
+
+        def tiles(users):  # the predict fallback's tiles: FullSortEvalBatches.user_batch
+            return -(-users // max(1, min(32, users), cfg["eval_batch_size"] // n_target))
+
+        n_tiles = sum(tiles(h["valid_users"]) for h in hist if "valid_seconds" in h)
+        n_tiles += tiles(result["test_users"])
+        want.update(masked_topk=n_tiles, rank_sum=n_tiles)
+    elif mode.startswith("uniform"):
+        config = CDRConfig(model="DTCDR", config_dict=cfg, _cli_args=[])
+        init_seed(config["seed"], True)
+        _, valid_data, test_data = data_preparation(config, create_dataset(config))
+        assert len(valid_data.uid_list) == hist[0]["valid_users"]
+        batches = n_valid * len(valid_data) + len(test_data)
+        want.update(candidate_topk=batches, rank_sum_candidates=batches)
+        print(f"candidate lists of {valid_data.max_cand} slots, {valid_data.user_batch} users "
+              "per batch", flush=True)
+    res = result["test_result"]
+    if mode == "labeled":
+        assert sorted(res) == sorted(m.lower() for m in DTCDR_LABELED_METRICS), res
+        assert 0.0 <= res["auc"] <= 1.0 and res["rmse"] >= res["mae"] >= 0.0, res
+        assert np.isfinite(res["logloss"]), res
+    else:
+        for r in (res, result["best_valid_result"]):
+            assert 0 < r["gauc"] < 1, r
+    print(f"{steps} training steps, {passes} evaluation passes; launches "
+          f"{ {k: c[k] for k in want} }, expected {want}", flush=True)
+    assert all(c[k] == v for k, v in want.items()), (c, want)
 
 
 def _report_run(result, wall, counts, path):

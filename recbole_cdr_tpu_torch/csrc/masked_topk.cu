@@ -14,6 +14,14 @@
 // scans a strided, coalesced slice of the row keeping a register-resident
 // sorted top-K list (K a template bound >= k); k rounds of a block-wide
 // argmax over the list heads, ordered by (score desc, index asc), merge them.
+//
+// B10, the candidate top-k, shares the selection through the kCand template
+// flag. It replaces recbole_cdr_tpu/evaluator/evaluator.py:88-93
+// _candidate_topk: over [B, C] scores of each user's sampled candidate list,
+// the slots a row's cand_mask leaves out are set to finfo(float32).min and
+// the k best positions are taken, ties to the lowest position. There is no
+// history and no PAD column: column 0 is a row's first positive. Bound:
+// bytes, the scores and the mask read once.
 
 #include <cfloat>
 #include <climits>
@@ -30,11 +38,13 @@ __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
   return a > b || (a == b && ia < ib);
 }
 
-template <int K>
+template <int K, bool kCand>
 __global__ void __launch_bounds__(kThreads)
 masked_topk_kernel(const float* __restrict__ scores, int I,
                    const int* __restrict__ row_ptr,
-                   const int* __restrict__ items, int k, int* __restrict__ out) {
+                   const int* __restrict__ items,
+                   const unsigned char* __restrict__ cand_mask, int k,
+                   int* __restrict__ out) {
   extern __shared__ uint32_t mask[];
   __shared__ float wv[kWarps];
   __shared__ int wi[kWarps];
@@ -44,15 +54,17 @@ masked_topk_kernel(const float* __restrict__ scores, int I,
   const int warp = threadIdx.x >> 5;
   const int words = (I + 31) >> 5;
 
-  for (int w = threadIdx.x; w < words; w += kThreads) mask[w] = 0u;
-  __syncthreads();
-  if (threadIdx.x == 0) atomicOr(&mask[0], 1u);  // PAD column
-  const int p_end = row_ptr[row + 1];
-  for (int p = row_ptr[row] + threadIdx.x; p < p_end; p += kThreads) {
-    const int it = items[p];
-    if (it >= 0 && it < I) atomicOr(&mask[it >> 5], 1u << (it & 31));
+  if (!kCand) {
+    for (int w = threadIdx.x; w < words; w += kThreads) mask[w] = 0u;
+    __syncthreads();
+    if (threadIdx.x == 0) atomicOr(&mask[0], 1u);  // PAD column
+    const int p_end = row_ptr[row + 1];
+    for (int p = row_ptr[row] + threadIdx.x; p < p_end; p += kThreads) {
+      const int it = items[p];
+      if (it >= 0 && it < I) atomicOr(&mask[it >> 5], 1u << (it & 31));
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   float vals[K];
   int idxs[K];
@@ -62,8 +74,10 @@ masked_topk_kernel(const float* __restrict__ scores, int I,
     idxs[q] = INT_MAX;
   }
   const float* srow = scores + (long long)row * I;
+  const unsigned char* crow = kCand ? cand_mask + (long long)row * I : nullptr;
   for (int j = threadIdx.x; j < I; j += kThreads) {
-    const float v = ((mask[j >> 5] >> (j & 31)) & 1u) ? -FLT_MAX : srow[j];
+    const bool masked = kCand ? crow[j] == 0 : ((mask[j >> 5] >> (j & 31)) & 1u);
+    const float v = masked ? -FLT_MAX : srow[j];
     if (better(v, j, vals[K - 1], idxs[K - 1])) {
       vals[K - 1] = v;
       idxs[K - 1] = j;
@@ -128,18 +142,19 @@ masked_topk_kernel(const float* __restrict__ scores, int I,
   }
 }
 
-template <int K>
+template <int K, bool kCand>
 int launch(const float* scores, int B, int I, const int* row_ptr,
-           const int* items, int k, int* out, cudaStream_t stream) {
-  const size_t smem = (size_t)((I + 31) >> 5) * sizeof(uint32_t);
+           const int* items, const unsigned char* cand_mask, int k, int* out,
+           cudaStream_t stream) {
+  const size_t smem = kCand ? 0 : (size_t)((I + 31) >> 5) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        masked_topk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        masked_topk_kernel<K, kCand>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  masked_topk_kernel<K><<<B, kThreads, smem, stream>>>(scores, I, row_ptr,
-                                                       items, k, out);
+  masked_topk_kernel<K, kCand><<<B, kThreads, smem, stream>>>(
+      scores, I, row_ptr, items, cand_mask, k, out);
   return (int)cudaGetLastError();
 }
 
@@ -155,8 +170,23 @@ extern "C" int masked_topk(const void* scores, int B, int I,
   const int* it = (const int*)items;
   int* o = (int*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  if (k <= 16) return launch<16>(s, B, I, rp, it, k, o, st);
-  if (k <= 32) return launch<32>(s, B, I, rp, it, k, o, st);
-  if (k <= 64) return launch<64>(s, B, I, rp, it, k, o, st);
+  if (k <= 16) return launch<16, false>(s, B, I, rp, it, nullptr, k, o, st);
+  if (k <= 32) return launch<32, false>(s, B, I, rp, it, nullptr, k, o, st);
+  if (k <= 64) return launch<64, false>(s, B, I, rp, it, nullptr, k, o, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B10. scores: [B, C] float32; cand_mask: [B, C] bool (1 byte each); out: [B, k]
+extern "C" int candidate_topk(const void* scores, int B, int C,
+                              const void* cand_mask, int k, void* out,
+                              void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  const float* s = (const float*)scores;
+  const unsigned char* cm = (const unsigned char*)cand_mask;
+  int* o = (int*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k <= 16) return launch<16, true>(s, B, C, nullptr, nullptr, cm, k, o, st);
+  if (k <= 32) return launch<32, true>(s, B, C, nullptr, nullptr, cm, k, o, st);
+  if (k <= 64) return launch<64, true>(s, B, C, nullptr, nullptr, cm, k, o, st);
   return (int)cudaErrorInvalidValue;
 }

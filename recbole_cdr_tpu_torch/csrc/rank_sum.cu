@@ -27,6 +27,13 @@
 // the chunk in registers; warps reduce their counts and add them to
 // per-positive shared counters, and one warp sums the ranks. Integer counts
 // and exact sums make the result exact and bit-reproducible.
+//
+// Candidate form (rank_sum_candidates), for evaluation over sampled
+// candidate lists (recbole_cdr_tpu/evaluator/evaluator.py:661-675): the row
+// is np.where(cand_mask, scores, -inf), the positives are columns (pos[r, j]
+// = j) and there is no history and no PAD column, since column 0 is a row's
+// first positive. The same kernel runs with the bitmap marking the row's
+// padded slots, which take -inf, and skips the PAD step.
 
 #include <cfloat>
 #include <cmath>
@@ -44,9 +51,12 @@ __device__ __forceinline__ float history_min(float v) {
   return (v != v || v < -FLT_MAX) ? v : -FLT_MAX;
 }
 
+// cmask null: the full-sort form (history CSR, PAD column); else the
+// candidate form (row_ptr and items unused)
 __global__ void __launch_bounds__(kThreads)
 rank_sum_kernel(const float* __restrict__ scores, int I,
                 const int* __restrict__ row_ptr, const int* __restrict__ items,
+                const uint8_t* __restrict__ cmask,
                 const int* __restrict__ pos, const uint8_t* __restrict__ pmask,
                 int P, int chunk, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -63,14 +73,21 @@ rank_sum_kernel(const float* __restrict__ scores, int I,
   const int warp = threadIdx.x >> 5;
   const float* srow = scores + (long long)row * I;
 
+  const bool cand = cmask != nullptr;
   for (int w = threadIdx.x; w < words; w += kThreads) bitmap[w] = 0u;
   for (int j = threadIdx.x; j < P; j += kThreads) gt[j] = eq[j] = 0;
   __syncthreads();
-  if (threadIdx.x == 0) atomicOr(&bitmap[0], 1u);  // PAD column
-  const int h_end = row_ptr[row + 1];
-  for (int h = row_ptr[row] + threadIdx.x; h < h_end; h += kThreads) {
-    const int it = items[h];
-    if (it >= 0 && it < I) atomicOr(&bitmap[it >> 5], 1u << (it & 31));
+  if (cand) {  // the row's padded slots
+    const uint8_t* crow = cmask + (long long)row * I;
+    for (int c = threadIdx.x; c < I; c += kThreads)
+      if (!crow[c]) atomicOr(&bitmap[c >> 5], 1u << (c & 31));
+  } else {
+    if (threadIdx.x == 0) atomicOr(&bitmap[0], 1u);  // PAD column
+    const int h_end = row_ptr[row + 1];
+    for (int h = row_ptr[row] + threadIdx.x; h < h_end; h += kThreads) {
+      const int it = items[h];
+      if (it >= 0 && it < I) atomicOr(&bitmap[it >> 5], 1u << (it & 31));
+    }
   }
   __syncthreads();
 
@@ -85,7 +102,9 @@ rank_sum_kernel(const float* __restrict__ scores, int I,
       const unsigned ballot = __ballot_sync(0xffffffffu, valid);
       if (valid) {
         float v = srow[p];
-        if (p == 0) v = -FLT_MAX;
+        if (cand) {
+          if ((bitmap[p >> 5] >> (p & 31)) & 1u) v = -INFINITY;
+        } else if (p == 0) v = -FLT_MAX;
         else if ((bitmap[p >> 5] >> (p & 31)) & 1u) v = history_min(v);
         pval[base + __popc(ballot & ((1u << lane) - 1u))] = v;
       }
@@ -110,7 +129,9 @@ rank_sum_kernel(const float* __restrict__ scores, int I,
       for (int u = 0; u < kLoads; ++u) {
         const int i = i0 + u * kThreads, c = lo + i;
         if (i < n) {
-          if (c == 0) v[u] = -FLT_MAX;
+          if (cand) {
+            if ((bitmap[c >> 5] >> (c & 31)) & 1u) v[u] = -INFINITY;
+          } else if (c == 0) v[u] = -FLT_MAX;
           else if ((bitmap[c >> 5] >> (c & 31)) & 1u) v[u] = history_min(v[u]);
           buf[i] = v[u];
         }
@@ -160,9 +181,11 @@ rank_sum_kernel(const float* __restrict__ scores, int I,
 
 // scores: [B, I] float32; row_ptr: [B + 1] CSR offsets into items; pos,
 // pmask: [B, P]; out: [B]
-extern "C" int rank_sum(const void* scores, int B, int I, const void* row_ptr,
-                        const void* items, const void* pos, const void* pmask,
-                        int P, int chunk, void* out, void* stream) {
+namespace {
+
+int launch(const float* scores, int B, int I, const int* row_ptr, const int* items,
+           const uint8_t* cmask, const int* pos, const uint8_t* pmask, int P,
+           int chunk, float* out, cudaStream_t stream) {
   if (B <= 0) return (int)cudaGetLastError();
   const size_t smem = (size_t)((I + 31) >> 5) * 4 + (size_t)chunk * 4 +
                       (size_t)(P > 0 ? P : 1) * 12;
@@ -171,8 +194,27 @@ extern "C" int rank_sum(const void* scores, int B, int I, const void* row_ptr,
         rank_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  rank_sum_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)scores, I, (const int*)row_ptr, (const int*)items,
-      (const int*)pos, (const uint8_t*)pmask, P, chunk, (float*)out);
+  rank_sum_kernel<<<B, kThreads, smem, stream>>>(scores, I, row_ptr, items, cmask,
+                                                 pos, pmask, P, chunk, out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int rank_sum(const void* scores, int B, int I, const void* row_ptr,
+                        const void* items, const void* pos, const void* pmask,
+                        int P, int chunk, void* out, void* stream) {
+  return launch((const float*)scores, B, I, (const int*)row_ptr, (const int*)items,
+                nullptr, (const int*)pos, (const uint8_t*)pmask, P, chunk, (float*)out,
+                (cudaStream_t)stream);
+}
+
+// the candidate form. scores, cand_mask: [B, C]; pos, pmask: [B, P]; out: [B]
+extern "C" int rank_sum_candidates(const void* scores, int B, int C,
+                                   const void* cand_mask, const void* pos,
+                                   const void* pmask, int P, int chunk, void* out,
+                                   void* stream) {
+  return launch((const float*)scores, B, C, nullptr, nullptr, (const uint8_t*)cand_mask,
+                (const int*)pos, (const uint8_t*)pmask, P, chunk, (float*)out,
+                (cudaStream_t)stream);
 }

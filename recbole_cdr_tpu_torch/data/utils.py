@@ -1,8 +1,10 @@
 """Data factories: dataset creation, split + dataloader preparation.
 
-Capability parity with `recbole_cdr/data/utils.py:28-180` for full-sort
-evaluation. Candidate-ranking (``uniform N``) and labeled (value-metric) eval
-modes are not ported yet (ROADMAP.md A9) and raise.
+Capability parity with `recbole_cdr/data/utils.py:28-180`: the target eval
+sets are full-sort (eval mode ``full``), candidate-ranking (``uniform N`` /
+``popularity N``, with their own sampler when the distribution differs from
+training's) or labeled (``labeled``, value metrics), routed as the JAX
+package's ``data_preparation`` routes them.
 """
 
 import os
@@ -12,6 +14,8 @@ from logging import getLogger
 import numpy as np
 
 from recbole_cdr_tpu_torch.data.batching import CrossDomainLoader, FullSortEvalBatches
+from recbole_cdr_tpu_torch.data.candidate_eval import CandidateEvalBatches
+from recbole_cdr_tpu_torch.data.labeled_eval import LabeledEvalBatches
 from recbole_cdr_tpu_torch.data.dataset import CrossDomainDataset
 from recbole_cdr_tpu_torch.sampler import CrossDomainSourceSampler, DomainNegSampler
 from recbole_cdr_tpu_torch.utils import set_color
@@ -81,11 +85,6 @@ def data_preparation(config, dataset: CrossDomainDataset):
     Returns ``(train_data, valid_data, test_data)``; ``valid_data`` is a
     ``(source_valid, target_valid)`` tuple when a SOURCE phase exists.
     """
-    if config["eval_neg_sample_args"]["strategy"] != "full":
-        raise NotImplementedError(
-            f"eval mode [{config['eval_args']['mode']}] is not ported yet: only "
-            "full-sort evaluation is (ROADMAP.md A9)"
-        )
     cached = load_split_dataloaders(config) if config["save_dataloaders"] else None
     if cached is not None:
         return cached
@@ -104,8 +103,23 @@ def data_preparation(config, dataset: CrossDomainDataset):
     )
     target_train_sampler = target_sampler.set_phase("train")
 
-    target_valid_sampler = target_sampler.set_phase("valid")
-    target_test_sampler = target_sampler.set_phase("test")
+    # eval sampling may use a different distribution than training (eval mode
+    # `popularity N` vs uniform train sampling — recbole's create_samplers
+    # builds eval samplers from eval_neg_sample_args)
+    eval_distribution = config["eval_neg_sample_args"].get("distribution", "uniform")
+    if (config["eval_neg_sample_args"]["strategy"] == "by"
+            and eval_distribution != distribution):
+        eval_sampler = DomainNegSampler(
+            ["train", "valid", "test"],
+            [tgt_train, tgt_valid, tgt_test],
+            num_items=dataset.num_overlap_item + dataset.num_target_only_item,
+            distribution=eval_distribution,
+            seed=seed,
+        )
+    else:
+        eval_sampler = target_sampler
+    target_valid_sampler = eval_sampler.set_phase("valid")
+    target_test_sampler = eval_sampler.set_phase("test")
 
     target_item_num = dataset.num_overlap_item + dataset.num_target_only_item
 
@@ -116,11 +130,21 @@ def data_preparation(config, dataset: CrossDomainDataset):
     ).astype(np.int64)
 
     def make_target_eval(table, sampler):
-        """Full-sort eval set (the reference's get_dataloader routing,
-        `data/utils.py:131-153`, for eval mode ``full``)."""
-        batches = FullSortEvalBatches(
-            table, sampler, target_item_num, config["eval_batch_size"]
-        )
+        """full-sort or candidate-ranking eval set per eval mode (the
+        reference's get_dataloader routing, `data/utils.py:131-153`)."""
+        eval_args = config["eval_neg_sample_args"]
+        if eval_args["strategy"] == "by":
+            batches = CandidateEvalBatches(
+                table, sampler, neg_num=eval_args["by"], item_num=target_item_num,
+                eval_batch_size=config["eval_batch_size"], seed=seed,
+            )
+        elif eval_args["strategy"] == "none":
+            # mode `labeled`: value metrics over the split's labeled triples
+            batches = LabeledEvalBatches(table, config["eval_batch_size"])
+        else:
+            batches = FullSortEvalBatches(
+                table, sampler, target_item_num, config["eval_batch_size"]
+            )
         batches.train_item_counts = target_train_counts
         return batches
 
@@ -131,6 +155,11 @@ def data_preparation(config, dataset: CrossDomainDataset):
         source_train_sampler = source_sampler.set_phase("train")
         source_valid_sampler = source_sampler.set_phase("valid")
         source_item_num = dataset.num_overlap_item + dataset.num_source_only_item
+        if config["eval_neg_sample_args"]["strategy"] == "none":
+            raise NotImplementedError(
+                "labeled (value-metric) eval is not supported together with a "
+                "SOURCE training phase: source validation is ranking-based"
+            )
         source_valid_data = FullSortEvalBatches(
             src_valid,
             source_valid_sampler,

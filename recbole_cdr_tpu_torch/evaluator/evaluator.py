@@ -15,10 +15,20 @@ the device, and hits and the recbole-exact metrics are computed on the host.
   user tile kernel B5 (``ops/topk.py``) scores the item axis in chunks and
   keeps each chunk's top-k, so no [B, items] score block exists.
 
+- Candidate ranking (:meth:`FullSortEvaluator.evaluate_candidates`, eval
+  mode ``uniform N`` / ``popularity N``): per batch of users, the model's
+  ``predict`` scores each user's sampled candidate list, kernel B10
+  (``ops/candidate_topk.py``) takes the top-k positions and, with GAUC, B7's
+  candidate form (``ops/rank_sum.py``) the positives' rank sums.
+
+:class:`ValueEvaluator` computes the value metrics (AUC, MAE, RMSE, LogLoss)
+of eval mode ``labeled`` from ``predict`` over the labeled triples.
+
 The mesh-sharded streaming top-k (ROADMAP.md A13) is not ported yet and
 raises.
 """
 
+import contextlib
 from typing import Dict
 
 import numpy as np
@@ -28,11 +38,26 @@ from recbole_cdr_tpu_torch.evaluator.metrics import (
     NON_ACCURACY_METRICS,
     compute_non_accuracy_metrics,
     compute_topk_metrics,
+    compute_value_metrics,
     gauc_,
 )
+from recbole_cdr_tpu_torch.ops.candidate_topk import candidate_topk
 from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk
-from recbole_cdr_tpu_torch.ops.rank_sum import rank_sum
+from recbole_cdr_tpu_torch.ops.rank_sum import rank_sum, rank_sum_candidates
 from recbole_cdr_tpu_torch.ops.topk import streaming_topk
+
+
+@contextlib.contextmanager
+def _float32_scores():
+    """No TF32 in the scores' products: top-k ids and ranks must match the
+    float32 reference."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def _padded_positives(eval_batches, device):
@@ -193,27 +218,21 @@ class FullSortEvaluator:
             pos, pmask = _padded_positives(eval_batches, device)
         n_tiles = -(-U // B)
         out, sums = [], []
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        # top-k ids must match the float32 reference: no TF32 in the scores
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            with torch.no_grad():
-                for s in range(n_segs):
-                    ids, rs = [], []
-                    for t in range(s * seg, min((s + 1) * seg, n_tiles)):
-                        users = uids[t * B:(t + 1) * B]
-                        scores = score_fn(users)
-                        n = users.shape[0]
-                        rp = row_ptr[t, :n + 1]
-                        ids.append(masked_topk(scores, rp, items[t], self.max_k))
-                        if self.need_gauc:
-                            rows = slice(t * B, t * B + n)
-                            rs.append(rank_sum(scores, rp, items[t], pos[rows], pmask[rows]))
-                    out.append(torch.cat(ids).cpu().numpy())
-                    if rs:
-                        sums.append(torch.cat(rs).cpu().numpy())
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
+        with _float32_scores():
+            for s in range(n_segs):
+                ids, rs = [], []
+                for t in range(s * seg, min((s + 1) * seg, n_tiles)):
+                    users = uids[t * B:(t + 1) * B]
+                    scores = score_fn(users)
+                    n = users.shape[0]
+                    rp = row_ptr[t, :n + 1]
+                    ids.append(masked_topk(scores, rp, items[t], self.max_k))
+                    if self.need_gauc:
+                        rows = slice(t * B, t * B + n)
+                        rs.append(rank_sum(scores, rp, items[t], pos[rows], pmask[rows]))
+                out.append(torch.cat(ids).cpu().numpy())
+                if rs:
+                    sums.append(torch.cat(rs).cpu().numpy())
         ids = np.concatenate(out).astype(np.int64)
         if not with_rank_sums:
             return ids
@@ -276,4 +295,80 @@ class FullSortEvaluator:
         if rank_sums is not None:
             result["gauc"] = gauc_(np.full(U, item_num, np.int64), pos_len, rank_sums)
         result = self._add_non_accuracy(result, topk_idx, eval_batches, item_num)
+        return {k: round(v, self.decimal_place) for k, v in result.items()}
+
+    def evaluate_candidates(self, predict_fn, eval_batches, device, uid_key: str,
+                            iid_key: str) -> Dict[str, float]:
+        """Candidate-ranking evaluation (eval mode ``uniform N``): rank each
+        user's positives among their sampled candidate list (JAX
+        ``evaluate_candidates``, `evaluator.py:625-696`). ``predict_fn(batch)
+        -> scores`` scores a dict of target user and item ids."""
+        all_pos_index, all_pos_len = [], []
+        all_rank_sum, all_user_len = [], []
+        all_rec_items = []
+        with _float32_scores():
+            for users, cand, cand_mask, pos_mask, n_real in eval_batches:
+                C = cand.shape[1]
+                u = torch.as_tensor(users, device=device)
+                c = torch.as_tensor(cand, device=device)
+                cm = torch.as_tensor(cand_mask, device=device)
+                scores = predict_fn({uid_key: u.repeat_interleave(C),
+                                     iid_key: c.reshape(-1)}).reshape(cand.shape)
+                k_eff = min(self.max_k, C)
+                topk_idx = candidate_topk(scores, cm, k_eff).cpu().numpy().astype(np.int64)
+                if self.need_rec_items:
+                    # positions -> item ids; ranks beyond the candidate count
+                    # pad with PAD id 0
+                    all_rec_items.append(self._pad_to_max_k(
+                        np.take_along_axis(cand[:n_real], topk_idx[:n_real], axis=1)))
+                if self.need_gauc:
+                    # ranks among each row's candidates, padded slots at -inf
+                    pm = torch.as_tensor(pos_mask, device=device)
+                    rs = rank_sum_candidates(scores, cm, pm).cpu().numpy()
+                    all_rank_sum.extend(rs[:n_real])
+                    all_user_len.extend(cand_mask[:n_real].sum(axis=1))
+                all_pos_index.append(self._pad_to_max_k(
+                    np.take_along_axis(pos_mask[:n_real], topk_idx[:n_real], axis=1)))
+                all_pos_len.append(pos_mask[:n_real].sum(axis=1))
+
+        if not all_pos_index:
+            return self._empty_result()
+        pos_index = np.concatenate(all_pos_index, axis=0)
+        pos_len = np.concatenate(all_pos_len).astype(np.int64)
+        result = compute_topk_metrics(pos_index, pos_len, self.topk_metrics, self.topk)
+        if self.need_gauc:
+            result["gauc"] = gauc_(np.array(all_user_len, np.int64), pos_len,
+                                   np.array(all_rank_sum))
+        rec_items = np.concatenate(all_rec_items) if all_rec_items else None
+        result = self._add_non_accuracy(result, rec_items, eval_batches, eval_batches.item_num)
+        return {k: round(v, self.decimal_place) for k, v in result.items()}
+
+    def _pad_to_max_k(self, a):
+        """``a`` [n, k_eff] widened to [n, max_k] with zeros (PAD ids, no
+        hits) where a list has fewer candidates than ``max_k``."""
+        return np.pad(a, ((0, 0), (0, self.max_k - a.shape[1])))
+
+
+class ValueEvaluator:
+    """Value-metric evaluation over labeled (user, item, label) triples —
+    the recbole 1.0.1 ``eval_args mode: labeled`` path (AUC / MAE / RMSE /
+    LogLoss, pooled over the whole eval split). Port of the JAX package's
+    ``ValueEvaluator`` (`evaluator.py:699-726`)."""
+
+    def __init__(self, config):
+        self.metrics = [m.lower() for m in config["metrics"]]
+        self.decimal_place = config["metric_decimal_place"] or 4
+
+    def evaluate(self, predict_fn, eval_batches, device, uid_key: str,
+                 iid_key: str) -> Dict[str, float]:
+        preds, trues = [], []
+        with _float32_scores():
+            for users, items, labels, n_real in eval_batches:
+                out = predict_fn({uid_key: torch.as_tensor(users, device=device),
+                                  iid_key: torch.as_tensor(items, device=device)})
+                preds.append(out.cpu().numpy()[:n_real])
+                trues.append(labels[:n_real])
+        if not preds:
+            return {m: 0.0 for m in self.metrics}
+        result = compute_value_metrics(np.concatenate(trues), np.concatenate(preds), self.metrics)
         return {k: round(v, self.decimal_place) for k, v in result.items()}

@@ -191,6 +191,14 @@ class BiTGCF(CrossDomainRecommender):
                 return self._forward()[2:]
         return self._per_version("eval_embeddings", propagate)
 
+    def predict(self, batch):
+        """Target scores (logits, as the JAX package's ``predict_fn``,
+        `models/bitgcf.py:228-236`) of the pairs of ``batch`` from the
+        pass's propagated tables, through K1's forward."""
+        t_user_all, t_item_all = self._eval_embeddings()
+        return gather_dot(t_user_all, t_item_all, batch[self.TARGET_USER_ID].to(torch.int32),
+                          batch[self.TARGET_ITEM_ID].to(torch.int32))
+
     def full_sort(self, users, phase: str = "TARGET"):
         user_e, item_e = self.full_sort_factors(phase)(users)
         return torch.matmul(user_e, item_e.T)

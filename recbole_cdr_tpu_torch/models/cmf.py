@@ -75,6 +75,12 @@ class CMF(CrossDomainRecommender):
             "item_embedding": [self.SOURCE_ITEM_ID, self.TARGET_ITEM_ID],
         }
 
+    def predict(self, batch):
+        """Target probabilities of the pairs of ``batch`` through K1's
+        forward (``predict_fn``, `models/cmf.py:80-86`)."""
+        return torch.sigmoid(self._score(batch[self.TARGET_USER_ID].to(torch.int32),
+                                         batch[self.TARGET_ITEM_ID].to(torch.int32)))
+
     def full_sort(self, users, phase: str = "TARGET"):
         user_e, item_e = self.full_sort_factors(phase)(users)
         return torch.matmul(user_e, item_e.T)

@@ -6,12 +6,14 @@ a ``launches`` count on the wrapper that grows by one per kernel launch.
 """
 
 from recbole_cdr_tpu_torch.ops import (
+    candidate_topk,
     gather_dot,
     graph_layer,
     masked_topk,
     natr_attention,
     neg_sampler,
     rank_sum,
+    rating_vector,
     shuffle,
     sparse_adam,
     topk,
@@ -33,6 +35,10 @@ WRAPPERS = {
     "natr_attention_backward": natr_attention.natr_attention_backward,
     "natr_anchor_table": natr_attention.natr_anchor_table,
     "natr_pair_grid": natr_attention.natr_pair_grid,
+    "rating_vector_forward": rating_vector.rating_vector_forward,
+    "rating_vector_backward": rating_vector.rating_vector_backward,
+    "candidate_topk": candidate_topk.candidate_topk,
+    "rank_sum_candidates": rank_sum.rank_sum_candidates,
 }
 
 

@@ -24,7 +24,7 @@ import torch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = ("gather_dot", "neg_sampler", "shuffle", "masked_topk", "streaming_topk",
-           "sparse_adam", "graph_layer", "rank_sum", "natr_attention")
+           "sparse_adam", "graph_layer", "rank_sum", "natr_attention", "rating_vector")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,7 +44,8 @@ _SIGNATURES = {
                         _I, _I, _I, _P, _P],
     },
     "shuffle": {"swap_or_not": [_P, _P, _I, _I, _I, _P, _P, _I, _P]},
-    "masked_topk": {"masked_topk": [_P, _I, _I, _P, _P, _I, _P, _P]},
+    "masked_topk": {"masked_topk": [_P, _I, _I, _P, _P, _I, _P, _P],
+                    "candidate_topk": [_P, _I, _I, _P, _I, _P, _P]},
     "streaming_topk": {
         "streaming_topk": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
         "streaming_topk_splits": [_I, _I, _I, _I],
@@ -57,13 +58,18 @@ _SIGNATURES = {
         "graph_layer_backward": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P,
                                             _I, _I, _P],
     },
-    "rank_sum": {"rank_sum": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P]},
+    "rank_sum": {"rank_sum": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+                 "rank_sum_candidates": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P]},
     "natr_attention": {
         "natr_attention_forward": [_P] * 12 + [_I] * 3 + [_P, _P, _P],
         "natr_anchor_table": [_P] * 9 + [_I] * 3 + [_P, _P],
         "natr_pair_grid": [_P] * 5 + [_I] * 4 + [_P, _P],
         "natr_attention_backward_blocks": [_I, _I, _I],
         "natr_attention_backward": [_P] * 12 + [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    },
+    "rating_vector": {
+        "rating_vector_forward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+        "rating_vector_backward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     },
 }
 

@@ -14,6 +14,13 @@ any order, while a row's sum stays below 2^23 (for example 5,001 items and
 up to 1,600 positives): there the kernel equals the plain version and JAX
 exactly. The kernel is ``csrc/rank_sum.cu``; the plain version below runs
 for CPU tensors and serves as the kernel's reference.
+
+The candidate form (:func:`rank_sum_candidates`) ranks over sampled
+candidate lists, as ``evaluate_candidates`` does (`evaluator.py:661-675`):
+the row is ``np.where(cand_mask, scores, -inf)``, each row's positives are
+the columns ``pos_mask`` marks, and there is no history and no PAD column
+(column 0 is the row's first positive). The same kernel runs it with the
+padded slots in place of the history.
 """
 
 import torch
@@ -97,3 +104,50 @@ def rank_sum(scores, row_ptr, items, pos, pos_mask):
 
 
 rank_sum.launches = 0
+
+
+def rank_sum_candidates_plain(scores, cand_mask, pos_mask):
+    s = torch.where(cand_mask, scores, -torch.inf)
+    out = torch.zeros(s.shape[0], dtype=torch.float32, device=s.device)
+    for j in torch.nonzero(pos_mask.any(0)).flatten().tolist():  # positive columns only
+        v = s[:, j:j + 1]
+        greater = (s > v).sum(1).to(torch.float32)
+        tied = (s == v).sum(1).to(torch.float32)
+        out += torch.where(pos_mask[:, j], greater + (tied + 1.0) / 2.0, 0.0)
+    return out
+
+
+def rank_sum_candidates(scores, cand_mask, pos_mask):
+    """float32 [B] sums of the average descending ranks of each row's
+    positives (the columns ``pos_mask`` marks) over its candidate row, padded
+    slots at -inf.
+
+    scores: float32 [B, C]; cand_mask, pos_mask: bool [B, C]."""
+    if scores.dtype != torch.float32 or scores.dim() != 2:
+        raise TypeError("rank_sum_candidates takes float32 [B, C] scores")
+    if cand_mask.dtype != torch.bool or pos_mask.dtype != torch.bool \
+            or cand_mask.shape != scores.shape or pos_mask.shape != scores.shape:
+        raise TypeError("rank_sum_candidates takes bool masks of the scores' shape")
+    if len({t.device for t in (scores, cand_mask, pos_mask)}) != 1:
+        raise ValueError("rank_sum_candidates operands must share one device")
+    if scores.device.type == "cpu":
+        return rank_sum_candidates_plain(scores, cand_mask, pos_mask)
+    if scores.device.type != "cuda":
+        raise ValueError(f"rank_sum_candidates has no version for device {scores.device}")
+    B, C = scores.shape
+    if smem_bytes(C, C) > SMEM_LIMIT:
+        raise ValueError(f"rank_sum_candidates: {C} candidates per row exceed the kernel's "
+                         "shared memory")
+    scores, cand_mask, pos_mask = (t.contiguous() for t in (scores, cand_mask, pos_mask))
+    pos = torch.arange(C, dtype=torch.int32, device=scores.device).expand(B, C).contiguous()
+    out = torch.empty(B, dtype=torch.float32, device=scores.device)
+    err = build.library("rank_sum").rank_sum_candidates(
+        scores.data_ptr(), B, C, cand_mask.data_ptr(), pos.data_ptr(), pos_mask.data_ptr(),
+        C, CHUNK, out.data_ptr(), build.stream_handle(scores),
+    )
+    build.check(err, "rank_sum_candidates")
+    rank_sum_candidates.launches += 1
+    return out
+
+
+rank_sum_candidates.launches = 0

@@ -8,6 +8,7 @@ from logging import getLogger
 
 from recbole_cdr_tpu_torch.config import CDRConfig
 from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
+from recbole_cdr_tpu_torch.trainer.trainer import eval_users
 from recbole_cdr_tpu_torch.utils import (
     get_model, get_trainer, init_logger, init_seed, resolve_device, set_color,
 )
@@ -53,6 +54,6 @@ def run_recbole_cdr(model=None, config_file_list=None, config_dict=None, saved=T
         "best_valid_result": best_valid_result,
         "test_result": test_result,
         "history": trainer.history,
-        "test_users": len(test_data.uid_list),
+        "test_users": eval_users(test_data),
         "model": model_obj,
     }

@@ -23,11 +23,14 @@ with respect to the gathered rows (no [N, D] gradient exists) and applied by
 kernel B6 (``ops/sparse_adam.py``); other parameters, and phases without a
 spec, get dense torch-Adam on the same shared moments.
 
-Full-sort evaluation streams the item axis through kernel B5
-(``ops/topk.py``) when the item space reaches ``streaming_topk_threshold``
-and the model has dot-product factors; otherwise it takes the dense path,
-scoring with the model's full-sort form or, in a phase where the model has
-none (NATR's target phases), with :func:`make_predict_full_sort`.
+Labeled eval sets go to :class:`ValueEvaluator` and candidate-ranking ones
+to ``FullSortEvaluator.evaluate_candidates``, both scoring through the
+model's ``predict``. Full-sort evaluation streams the item axis through
+kernel B5 (``ops/topk.py``) when the item space reaches
+``streaming_topk_threshold`` and the model has dot-product factors;
+otherwise it takes the dense path, scoring with the model's full-sort form
+or, in a phase where the model has none (NATR's target phases, DTCDR), with
+:func:`make_predict_full_sort`.
 
 Not ported yet, and raising when configured: checkpoint files and resume
 (ROADMAP.md A12), profiling (A12), mesh / multi-GPU (A13), bfloat16 compute
@@ -40,7 +43,7 @@ from logging import getLogger
 import numpy as np
 import torch
 
-from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator
+from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator, ValueEvaluator
 from recbole_cdr_tpu_torch.ops.sparse_adam import (
     adam_step_size,
     first_position_scratch,
@@ -234,6 +237,13 @@ def make_predict_full_sort(model, item_num):
     return full_sort
 
 
+def eval_users(eval_data) -> int:
+    """The users an eval set covers (a labeled set's distinct users)."""
+    if hasattr(eval_data, "uid_list"):
+        return len(eval_data.uid_list)
+    return len(np.unique(eval_data.users))
+
+
 def _check_supported(config):
     unsupported = {
         "resume_checkpoint_path": ("checkpoint files", "A12"),
@@ -280,6 +290,7 @@ class CrossDomainTrainer:
         self.clip = float(clip.get("max_norm", 5.0)) if clip else None
 
         self.evaluator = FullSortEvaluator(config)
+        self.value_evaluator = ValueEvaluator(config)
         mode = (config["phase_optimizer"] or "single").lower()
         self.per_phase = mode == "per_phase"
         learner = (config["learner"] or "adam").lower()
@@ -388,7 +399,7 @@ class CrossDomainTrainer:
             t0 = time.perf_counter()
             valid_result = self._evaluate_batches(scheme, valid_data)
             record["valid_seconds"] = time.perf_counter() - t0
-            record["valid_users"] = len(valid_data.uid_list)
+            record["valid_users"] = eval_users(valid_data)
             if self.device.type == "cuda":
                 # the process's peak so far (never reset here): an upper
                 # bound of the pass's own peak, equal to it when the pass
@@ -428,12 +439,20 @@ class CrossDomainTrainer:
         return make_predict_full_sort(self.model, eval_data.item_num)
 
     def _evaluate_batches(self, scheme, eval_data):
-        """Streaming top-k for large item spaces when the model factors (the
-        JAX trainer's routing), the dense path otherwise."""
+        """Labeled and candidate eval sets to their evaluators; full-sort sets
+        to the streaming top-k for large item spaces when the model factors,
+        the dense path otherwise (the JAX trainer's routing)."""
         threshold = int(self.config["streaming_topk_threshold"] or 32768)
         factors = self.model.full_sort_factors(scheme)
+        keys = (self.model.TARGET_USER_ID, self.model.TARGET_ITEM_ID)
         self.model.eval()
         try:
+            if getattr(eval_data, "is_labeled", False):
+                return self.value_evaluator.evaluate(self.model.predict, eval_data,
+                                                     self.device, *keys)
+            if getattr(eval_data, "is_candidate", False):
+                return self.evaluator.evaluate_candidates(self.model.predict, eval_data,
+                                                          self.device, *keys)
             if (factors is not None and eval_data.item_num >= threshold
                     and not self.evaluator.need_gauc):
                 return self.evaluator.evaluate_streaming(factors, eval_data, self.device)

@@ -13,9 +13,15 @@ and full-sort forms at every kernel width, with empty and single-slot
 histories, in both overlap modes; ``streaming_topk``'s tensor-core edges
 (D of 8 to 256, k of 1 to 64, partial row blocks and item tiles, a row
 masked down to k items); the anchor table and the pair grid at every
-kernel width. Plus the entry point on the card, on the
+kernel width; DTCDR's rating-vector product (B11) with empty rows, rows of
+many pieces, repeated ids and widths above one 128-column slice, its
+backward twice within its tolerance; the candidate top-k (B10) and the
+candidate form of ``rank_sum`` with fewer candidates than k, fully padded
+rows and ties; the streaming evaluator's metrics against the dense path's
+for CMF on real-valued factors. Plus the entry point on the card, on the
 dense path, on the catalog path (sparse optimizer, streaming evaluation),
-for BiTGCF and for NATR with GAUC.
+for BiTGCF, for NATR with GAUC, and for DTCDR in the candidate and labeled
+eval modes.
 
 Marked ``cuda``; without a card every test skips. On the card (where jax is
 not installed, so the repository's conftest cannot load):
@@ -29,12 +35,14 @@ import pytest
 import torch
 
 from recbole_cdr_tpu_torch import ops
+from recbole_cdr_tpu_torch.ops import candidate_topk as b10
 from recbole_cdr_tpu_torch.ops import gather_dot as k1
 from recbole_cdr_tpu_torch.ops import graph_layer as b8
 from recbole_cdr_tpu_torch.ops import masked_topk as k4
 from recbole_cdr_tpu_torch.ops import natr_attention as b9
 from recbole_cdr_tpu_torch.ops import neg_sampler as k2
 from recbole_cdr_tpu_torch.ops import rank_sum as b7
+from recbole_cdr_tpu_torch.ops import rating_vector as b11
 from recbole_cdr_tpu_torch.ops import shuffle as k3
 from recbole_cdr_tpu_torch.ops import sparse_adam as b6
 from recbole_cdr_tpu_torch.ops import topk as b5
@@ -426,6 +434,116 @@ def test_natr_pair_grid_matches_plain(gen, D, anchor_is_row):
     assert torch.equal(got, b9.natr_pair_grid(table[anchors.long()], pu, q, w, anchor_is_row))
 
 
+#: B11 tolerance per element, |kernel - plain| <= ATOL + RTOL * the sum of
+#: the absolute values of the element's terms (chip_smoke.py's B11_TOL): the
+#: kernel and index_add_ add the terms in different orders, with atomics
+B11_TOL = (1e-6, 2 ** -18)
+
+
+def _b11_close(got, want, absum, what):
+    diff = (got - want).abs()
+    assert bool((diff <= B11_TOL[0] + B11_TOL[1] * absum).all()), \
+        f"{what}: error {float(diff.max())}"
+
+
+@pytest.mark.parametrize("R,N,D,B", [(3000, 27_800, 64, 16_384), (500, 1000, 48, 777),
+                                     (40, 300, 130, 100)])
+def test_rating_vector_matches_plain(gen, R, N, D, B):
+    """Row 0 empty, row 1 of 5,000 entries (157 pieces), the rest of 0 to
+    200; ids repeat (the first 64 all row 1, others drawn from 50 rows);
+    an id whose row is empty among them."""
+    lens = torch.randint(0, 200, (R,), generator=torch.Generator().manual_seed(R))
+    lens[0], lens[1] = 0, min(5000, N - 1)
+    rows = [torch.randperm(N - 1, generator=torch.Generator().manual_seed(r))[:int(c)] + 1
+            for r, c in enumerate(lens)]
+    ptr, cols = b11.history_csr(torch.repeat_interleave(torch.arange(R), lens).numpy(),
+                                torch.cat(rows).numpy(), R)
+    csr = b11.HistoryCSR(torch.from_numpy(ptr).cuda(), torch.from_numpy(cols).cuda())
+    ids = _ints(0, min(R, 50), (B,), gen)
+    ids[:64], ids[64] = 1, 0
+    table = torch.randn(N, D, device="cuda", generator=gen)
+    g = torch.randn(B, D, device="cuda", generator=gen)
+    got = b11.rating_vector_forward(csr, table, ids)
+    torch.cuda.synchronize()
+    _b11_close(got, b11.rating_vector_plain(csr, table, ids),
+               b11.rating_vector_plain(csr, table.abs(), ids), "forward")
+    assert bool((got[64] == 0).all()) and torch.equal(got[0], got[63])
+    dt = b11.rating_vector_backward(csr, N, ids, g)
+    torch.cuda.synchronize()
+    want = b11.rating_vector_backward_plain(csr, N, ids, g)
+    absum = b11.rating_vector_backward_plain(csr, N, ids, g.abs())
+    _b11_close(dt, want, absum, "backward")
+    _b11_close(b11.rating_vector_backward(csr, N, ids, g), want, absum, "backward, second run")
+    t = table.clone().requires_grad_()  # through autograd, both directions
+    b11.rating_vector(csr, t, ids).backward(g)
+    _b11_close(t.grad, want, absum, "autograd")
+
+
+@pytest.mark.parametrize("B,C,k", [(25, 2525, 10), (40, 7, 7), (3, 1, 1), (64, 300, 64)])
+def test_candidate_topk_and_rank_sum_match_plain(gen, B, C, k):
+    """Integer scores (ties everywhere); row 0 fully padded, row 1 with
+    fewer candidates than 10, the rest padded at random lengths; positives
+    first in each row, so column 0 is one. B10 and the candidate rank sums
+    exactly equal to their plain versions, and run to run."""
+    scores = torch.randint(-3, 4, (B, C), device="cuda", generator=gen).float()
+    lens = torch.randint(1, C + 1, (B,), device="cuda", generator=gen)
+    lens[0] = 0
+    if B > 1:
+        lens[1] = min(C, 5)
+    cand = torch.arange(C, device="cuda")[None, :] < lens[:, None]
+    n_pos = torch.minimum(torch.randint(1, 26, (B,), device="cuda", generator=gen), lens)
+    pos = torch.arange(C, device="cuda")[None, :] < n_pos[:, None]
+    got = b10.candidate_topk(scores, cand, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, b10.candidate_topk_plain(scores, cand, k))
+    rs = b7.rank_sum_candidates(scores, cand, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(rs, b7.rank_sum_candidates_plain(scores, cand, pos))
+    assert torch.equal(rs, b7.rank_sum_candidates(scores, cand, pos))
+    assert float(rs[0]) == 0.0
+    normal = torch.randn(B, C, device="cuda", generator=gen)
+    assert torch.equal(b10.candidate_topk(normal, cand, k), b10.candidate_topk_plain(normal, cand, k))
+    assert torch.equal(b7.rank_sum_candidates(normal, cand, pos),
+                       b7.rank_sum_candidates_plain(normal, cand, pos))
+
+
+def test_streaming_and_dense_metrics_agree(gen):
+    """CMF on the bundled pair with real-valued (normal) factors: the
+    streaming path (B5 in 3xTF32) and the dense path (float32 matmul, K4)
+    give the same metrics; the top-k ids agree wherever the dense scores of
+    neighbouring ranks differ by more than B5's tolerance."""
+    from recbole_cdr_tpu_torch.config import CDRConfig
+    from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
+    from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator
+    from recbole_cdr_tpu_torch.models.cmf import CMF
+    from recbole_cdr_tpu_torch.utils import init_seed
+
+    config = CDRConfig(model="CMF", config_dict={"state": "ERROR", "device": "cuda"},
+                       _cli_args=[])
+    init_seed(config["seed"], True)
+    dataset = create_dataset(config)
+    _, _, test_data = data_preparation(config, dataset)
+    model = CMF(config, dataset).cuda()
+    with torch.no_grad():
+        model.user_embedding.normal_(generator=gen)
+        model.item_embedding.normal_(generator=gen)
+    ev = FullSortEvaluator(config)
+    factors = model.full_sort_factors("TARGET")
+    dense = ev.evaluate(lambda users: model.full_sort(users), test_data, "cuda")
+    stream = ev.evaluate_streaming(factors, test_data, "cuda")
+    print(f"dense {dense}\nstreaming {stream}")
+    ids_d = ev.topk_ids(lambda users: model.full_sort(users), test_data, "cuda")
+    ids_s = ev.streaming_topk_ids(factors, test_data, "cuda")
+    uids = torch.as_tensor(test_data.uid_list, device="cuda")
+    with torch.no_grad():
+        top = torch.gather(model.full_sort(uids), 1, torch.as_tensor(ids_d, device="cuda"))
+    gap = torch.diff(top, dim=1).abs() > 1e-4 + 1e-5 * top[:, 1:].abs()
+    clear = torch.ones_like(gap[:, :1])
+    clear = (torch.cat([clear, gap], 1) & torch.cat([gap, clear], 1)).cpu().numpy()
+    assert (ids_d[clear] == ids_s[clear]).all()
+    assert dense == stream
+
+
 def _run_on_the_card(tmp_path, monkeypatch, model="CMF", **extra):
     from recbole_cdr_tpu_torch import run_recbole_cdr
 
@@ -470,5 +588,27 @@ def test_natr_on_the_card(gen, tmp_path, monkeypatch):
     path = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
             "masked_topk", "rank_sum", "natr_attention_forward", "natr_attention_backward",
             "natr_anchor_table", "natr_pair_grid")
+    assert all(counts[k] > 0 for k in path), counts
+    assert all(counts[k] == 0 for k in counts if k not in path), counts
+
+
+@pytest.mark.parametrize("mode", ["full", "uniform 20", "labeled"])
+def test_dtcdr_on_the_card(gen, tmp_path, monkeypatch, mode):
+    """DTCDR (DMF) in each eval mode: B11 forward and backward in training,
+    the mode's kernels in evaluation (K4 for full-sort, B10 and the
+    candidate B7 for candidates, none for labeled), B5, B6, B8 and B9
+    never."""
+    eval_args = {"split": {"RS": [0.8, 0.1, 0.1]}, "group_by": "user", "order": "RO",
+                 "mode": mode}
+    extra = {"base_model": "DMF", "eval_args": eval_args}
+    if mode == "labeled":
+        extra.update(threshold={"rating": 4}, source_val_interval=None, target_val_interval=None,
+                     metrics=["AUC", "MAE", "RMSE", "LogLoss"], valid_metric="AUC")
+    else:
+        extra["metrics"] = ["Recall", "MRR", "NDCG", "Hit", "Precision", "GAUC"]
+    counts = _run_on_the_card(tmp_path, monkeypatch, model="DTCDR", **extra)
+    path = {"full": ("masked_topk", "rank_sum"),
+            "uniform 20": ("candidate_topk", "rank_sum_candidates"), "labeled": ()}[mode]
+    path += ("neg_sampler", "swap_or_not", "rating_vector_forward", "rating_vector_backward")
     assert all(counts[k] > 0 for k in path), counts
     assert all(counts[k] == 0 for k in counts if k not in path), counts

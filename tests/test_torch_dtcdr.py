@@ -1,0 +1,406 @@
+"""DTCDR (NeuMF and DMF) in the PyTorch port against the JAX model, on the
+CPU (where kernel B11's wrappers run their plain versions), on the bundled
+ml-1m -> ml-100k pair.
+
+The same weights (``params_from_jax``, whose lists of ``{w, b}`` become
+``source_mlp.0.w`` and the like) and, for the epoch, the same random bits go
+to both. Tolerances, each with its case:
+
+- the CSR histories: exactly the nonzero columns of JAX's ``_rating_vector``;
+- B11's plain version against the dense ``_rating_vector(...) @ table`` and
+  its ``jax.vjp``: ``LOSS_TOL`` / ``GRAD_TOL`` (the gather-sum adds a row's
+  entries in another order than the matmul);
+- loss and every parameter's gradient, dropout 0: ``LOSS_TOL`` /
+  ``GRAD_TOL`` (``tests/test_oracle_equivalence.py:31-32``);
+- ``predict`` (training and evaluation mode) and the cached ``predict_grid``
+  against JAX's ``predict_fn`` and ``make_predict_full_sort``: atol 2e-6 on
+  probabilities (the tower tables and the grid's product sum in another
+  order than JAX's per-pair logits), as NATR's fallback test;
+- one BOTH epoch with JAX's shuffle and negative bits: rtol 5e-3 / atol
+  1e-5, the CMF and NATR epoch tests' tolerance.
+"""
+
+import copy
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import recbole_cdr_tpu.trainer.device_loop as jax_loop
+from recbole_cdr_tpu.config import CDRConfig as JaxConfig
+from recbole_cdr_tpu.data.dataset import CrossDomainDataset as JaxDataset
+from recbole_cdr_tpu.data.utils import data_preparation as jax_data_preparation
+from recbole_cdr_tpu.models.dtcdr import DTCDR as JaxDTCDR
+from recbole_cdr_tpu.trainer.trainer import SingleOptimizer
+from recbole_cdr_tpu.trainer.trainer import make_predict_full_sort as jax_predict_full_sort
+from recbole_cdr_tpu.utils import init_seed as jax_init_seed
+from recbole_cdr_tpu.utils.enums import TrainMode as JaxTrainMode
+
+import recbole_cdr_tpu_torch.models.dtcdr as dtcdr_module
+import recbole_cdr_tpu_torch.trainer.device_loop as torch_loop
+from recbole_cdr_tpu_torch import ops, run_recbole_cdr
+from recbole_cdr_tpu_torch.config import CDRConfig
+from recbole_cdr_tpu_torch.data.dataset import CrossDomainDataset
+from recbole_cdr_tpu_torch.data.utils import data_preparation
+from recbole_cdr_tpu_torch.models.base import CrossDomainRecommender
+from recbole_cdr_tpu_torch.models.dtcdr import DTCDR
+from recbole_cdr_tpu_torch.ops.graph_layer import keep_mask
+from recbole_cdr_tpu_torch.ops.rating_vector import (
+    HistoryCSR,
+    history_csr,
+    rating_vector,
+    rating_vector_backward_plain,
+    rating_vector_plain,
+)
+from recbole_cdr_tpu_torch.trainer.trainer import (
+    build_optimizer,
+    make_predict_full_sort,
+    make_train_step,
+)
+from recbole_cdr_tpu_torch.utils import get_model, init_seed
+from recbole_cdr_tpu_torch.utils.convert import params_from_jax
+from recbole_cdr_tpu_torch.utils.enums import TrainMode
+from test_torch_epoch import JaxRandomSource
+from test_torch_model import GRAD_TOL, LOSS_TOL, _tbatch
+
+BASES = ("NeuMF", "DMF")
+#: JAX's history attribute of each of the port's CSRs, and its width
+_JAX_HISTORIES = {"s_items": ("_s_hist_items", "source_num_items"),
+                  "t_items": ("_t_hist_items", "target_num_items"),
+                  "s_users": ("_s_hist_users", "source_num_users"),
+                  "t_users": ("_t_hist_users", "target_num_users")}
+
+
+def _models(base, extra=None):
+    cfg = {"state": "ERROR", "train_batch_size": 512, "device": "cpu", "base_model": base,
+           "dropout_prob": 0.0, **(extra or {})}
+    jconfig = JaxConfig(model="DTCDR", config_dict=cfg, _cli_args=[])
+    jax_init_seed(jconfig["seed"], True)
+    jdataset = JaxDataset(jconfig)
+    jtrain, _, jtest = jax_data_preparation(jconfig, jdataset)
+    jmodel = JaxDTCDR(jconfig, jdataset)
+    params = jax.device_get(jmodel.init_params(jax.random.PRNGKey(7)))
+    tconfig = CDRConfig(model="DTCDR", config_dict=cfg, _cli_args=[])
+    init_seed(tconfig["seed"], True)
+    tdataset = CrossDomainDataset(tconfig)
+    ttrain, _, ttest = data_preparation(tconfig, tdataset)
+    tmodel = DTCDR(tconfig, tdataset)
+    tmodel.load_state_dict(params_from_jax(params))
+    return dict(jconfig=jconfig, jmodel=jmodel, params=params, jtrain=jtrain, jtest=jtest,
+                tconfig=tconfig, tmodel=tmodel, ttrain=ttrain, ttest=ttest)
+
+
+@pytest.fixture(scope="module")
+def neumf():
+    return _models("NeuMF")
+
+
+@pytest.fixture(scope="module")
+def dmf():
+    return _models("DMF")
+
+
+@pytest.fixture(params=BASES)
+def pair(request):
+    return request.getfixturevalue(request.param.lower())
+
+
+def _jax_leaf(tree, name):
+    node = tree
+    for part in name.split("."):
+        node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
+    return np.asarray(node)
+
+
+def _batch(train_data):
+    batch = next(iter(train_data))
+    train_data.source_batcher.pr = train_data.target_batcher.pr = 0
+    return batch
+
+
+def test_get_model_resolves_dtcdr():
+    assert get_model("DTCDR") is DTCDR
+
+
+def test_params_from_jax_walks_lists(pair):
+    """Every leaf of JAX's pytree, lists of ``{w, b}`` included, lands on
+    the port's parameter of the same dotted name, and nothing is left
+    over."""
+    params, tmodel = pair["params"], pair["tmodel"]
+    converted = params_from_jax(params)
+    named = dict(tmodel.named_parameters())
+    assert sorted(converted) == sorted(named)
+    stack = "source_mlp" if tmodel.base_model == "NeuMF" else "source_user_fc"
+    assert {f"{stack}.0.w", f"{stack}.0.b", f"{stack}.1.w"} <= set(converted)
+    for name, value in converted.items():
+        np.testing.assert_array_equal(named[name].detach().numpy(), _jax_leaf(params, name))
+        assert named[name].shape == value.shape
+    nested = params_from_jax({"a": [{"w": np.ones(2)}, [np.zeros(1)]]})
+    assert sorted(nested) == ["a.0.w", "a.1.0"]
+
+
+def test_histories_equal_jax_rating_vectors(dmf):
+    """Row by row, each CSR holds exactly the nonzero columns of JAX's
+    ``_rating_vector`` (deduplicated, PAD zeroed, source ids compacted)."""
+    jmodel, tmodel = dmf["jmodel"], dmf["tmodel"]
+    rv = jax.jit(jmodel._rating_vector, static_argnums=2)
+    for name, (attr, width) in _JAX_HISTORIES.items():
+        hist = getattr(jmodel, attr)
+        csr = tmodel._csr(name)
+        ptr, cols = csr.ptr.numpy(), csr.cols.numpy()
+        assert ptr.shape == (hist.shape[0] + 1,) and cols.max() < getattr(jmodel, width)
+        for lo in range(0, hist.shape[0], 2048):
+            ids = jnp.arange(lo, min(lo + 2048, hist.shape[0]))
+            dense = np.asarray(rv(hist, ids, getattr(jmodel, width)))
+            rows, nz = np.nonzero(dense)
+            want_ptr = np.searchsorted(rows, np.arange(len(ids) + 1))
+            np.testing.assert_array_equal(ptr[lo:lo + len(ids) + 1] - ptr[lo], want_ptr,
+                                          err_msg=name)
+            np.testing.assert_array_equal(cols[ptr[lo]:ptr[lo + len(ids)]], nz, err_msg=name)
+
+
+def test_rating_vector_plain_matches_dense_form():
+    """B11's plain forward and backward, through the autograd function on
+    CPU tensors, against JAX's dense ``_rating_vector(hist, ids, N) @
+    table`` and its ``jax.vjp``, on a history with duplicates, PAD entries,
+    an empty row, and repeated ids in the batch (numpy seed 3)."""
+    rng = np.random.default_rng(3)
+    R, N, D, H, B = 40, 70, 16, 12, 300
+    hist = rng.integers(0, N, (R, H))
+    hist[:, 1] = hist[:, 0]       # duplicates
+    hist[::3, 2:5] = 0            # PAD
+    hist[5] = 0                   # an empty row
+    lens = rng.integers(0, H + 1, R)
+    hist = np.where(np.arange(H)[None, :] < lens[:, None], hist, 0)
+    ids = rng.integers(0, R, B)
+    ids[:4] = 5
+    table = rng.normal(size=(N, D)).astype(np.float32)
+    g = rng.normal(size=(B, D)).astype(np.float32)
+
+    def dense(t):
+        vec = jnp.zeros((B, N)).at[jnp.repeat(jnp.arange(B), H), jnp.asarray(hist[ids]).reshape(-1)].set(1.0)
+        return vec.at[:, 0].set(0.0) @ t
+
+    want, vjp = jax.vjp(dense, jnp.asarray(table))
+    (want_g,) = vjp(jnp.asarray(g))
+
+    rows = np.repeat(np.arange(R), H)
+    ptr, cols = history_csr(rows, hist.reshape(-1), R)
+    csr = HistoryCSR(torch.from_numpy(ptr), torch.from_numpy(cols))
+    t = torch.from_numpy(table).requires_grad_()
+    tid = torch.from_numpy(ids.astype(np.int32))
+    ops.reset_launch_counts()
+    got = rating_vector(csr, t, tid)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **LOSS_TOL)
+    np.testing.assert_array_equal(got[:4].detach().numpy(), 0.0)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(want_g), **GRAD_TOL)
+    torch.testing.assert_close(rating_vector_backward_plain(csr, N, tid, torch.from_numpy(g)),
+                               t.grad, rtol=0, atol=0)
+    torch.testing.assert_close(rating_vector_plain(csr, t.detach(), tid), got.detach(),
+                               rtol=0, atol=0)
+    counts = ops.launch_counts()  # plain on the CPU
+    assert counts["rating_vector_forward"] == counts["rating_vector_backward"] == 0
+
+
+def test_dtcdr_loss_and_grads_match_jax(pair):
+    """Dropout 0: the BOTH loss and every parameter's gradient."""
+    jmodel, tmodel, params = pair["jmodel"], pair["tmodel"], pair["params"]
+    batch = _batch(pair["jtrain"])
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jmodel.loss_fn("BOTH")(p, b, None)
+    ))(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    tmodel.zero_grad(set_to_none=True)
+    tloss = tmodel.loss_fn("BOTH")(_tbatch(batch))
+    tloss.backward()
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), **LOSS_TOL)
+    for name, p in tmodel.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), _jax_leaf(jgrads, name), err_msg=name,
+                                   **GRAD_TOL)
+
+
+def test_neumf_dropout_mask_from_bits(neumf):
+    """NeuMF's training dropout: each layer's mask is ``keep_mask`` of the
+    bits the step's ``rng(layer, domain, shape)`` hands it, kept entries
+    scaled by 1 / keep; over 2^16 random bits the drop rate is
+    ``dropout_prob`` within 1%."""
+    model = copy.deepcopy(neumf["tmodel"])
+    model.dropout_prob = 0.25
+    keep = 0.75
+    gen = torch.Generator().manual_seed(0)
+    draws = []
+
+    def rng(layer, domain, shape):
+        bits = torch.randint(-2 ** 31, 2 ** 31, tuple(shape), dtype=torch.int32, generator=gen)
+        draws.append((layer, domain, bits))
+        return bits
+
+    x = torch.rand(256, 2 * model.embedding_size) + 0.5
+    got = model._mlp(model.source_mlp, x, rng, "source")
+    assert [(layer, domain) for layer, domain, _ in draws] == [(0, "source"), (1, "source")]
+    h = x
+    for (_, _, bits), layer in zip(draws, model.source_mlp):
+        mask = keep_mask(bits, keep)
+        h = torch.relu(layer(torch.where(mask, h / keep, 0.0)))
+    torch.testing.assert_close(got, h, rtol=0, atol=0)
+    # the first layer's input: kept units scaled by 1 / keep, the rest 0
+    probe = []
+    handle = model.source_mlp[0].register_forward_pre_hook(lambda mod, args: probe.append(args[0]))
+    try:
+        draws.clear()
+        model._mlp(model.source_mlp, x, rng, "source")
+    finally:
+        handle.remove()
+    mask = keep_mask(draws[0][2], keep)
+    torch.testing.assert_close(probe[0][mask], x[mask] / keep, rtol=0, atol=0)
+    assert not bool(probe[0][~mask].any())
+    bits = torch.randint(-2 ** 31, 2 ** 31, (1 << 16,), dtype=torch.int32, generator=gen)
+    assert abs(1.0 - float(keep_mask(bits, keep).float().mean()) - 0.25) < 0.01
+    # without the step's bits no unit drops
+    h = x
+    for layer in model.source_mlp:
+        h = torch.relu(layer(h))
+    torch.testing.assert_close(model._mlp(model.source_mlp, x), h, rtol=0, atol=0)
+
+
+def test_predict_and_grid_match_jax(pair):
+    """``predict`` in training mode (B11 per pair) and in evaluation mode
+    (the tower tables), and the fallback's grid, against JAX's
+    ``predict_fn`` and ``make_predict_full_sort`` from the same weights;
+    ``predict_grid`` equals the default chunked grid over ``predict``."""
+    jmodel, params = pair["jmodel"], pair["params"]
+    tmodel = copy.deepcopy(pair["tmodel"])
+    item_num = pair["ttest"].item_num
+    rng = np.random.default_rng(5)
+    users = rng.integers(0, tmodel.target_num_users, 300)
+    items = rng.integers(0, item_num, 300)
+    uid, iid = tmodel.TARGET_USER_ID, tmodel.TARGET_ITEM_ID
+    want = np.asarray(jmodel.predict_fn()(params, {uid: jnp.asarray(users), iid: jnp.asarray(items)}))
+    batch = {uid: torch.from_numpy(users), iid: torch.from_numpy(items)}
+    with torch.no_grad():
+        tmodel.train()
+        np.testing.assert_allclose(tmodel.predict(batch).numpy(), want, rtol=0, atol=2e-6)
+        tmodel.eval()
+        np.testing.assert_allclose(tmodel.predict(batch).numpy(), want, rtol=0, atol=2e-6)
+
+    assert tmodel.full_sort_fn("TARGET") is None  # the trainer's cue for the fallback
+    assert tmodel.full_sort_factors("TARGET") is None
+    grid_users = np.arange(1, 41)
+    want = np.asarray(jax_predict_full_sort(jmodel, "TARGET", item_num)(params, jnp.asarray(grid_users)))
+    with torch.no_grad():
+        got = make_predict_full_sort(tmodel, item_num)(torch.from_numpy(grid_users)).numpy()
+        pairs = CrossDomainRecommender.predict_grid(tmodel, torch.from_numpy(grid_users),
+                                                    torch.arange(item_num))
+    assert got.shape == want.shape == (len(grid_users), item_num)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+    torch.testing.assert_close(torch.from_numpy(got), pairs, rtol=0, atol=2e-6)
+
+
+def test_tower_tables_cached_per_version(dmf, monkeypatch):
+    """One tower table per parameter version: two grid tiles and the
+    candidate path's predictions share one build (four B11 calls); an
+    optimizer step and a ``load_state_dict`` each rebuild it; training
+    never reads it."""
+    model = copy.deepcopy(dmf["tmodel"])
+    model.eval()
+    calls = []
+    real = dtcdr_module.rating_vector
+    monkeypatch.setattr(dtcdr_module, "rating_vector", lambda *a: calls.append(1) or real(*a))
+    users, items = torch.arange(1, 41), torch.arange(model.target_num_items)
+    uid, iid = model.TARGET_USER_ID, model.TARGET_ITEM_ID
+
+    def score():
+        with torch.no_grad():
+            grid = torch.cat([model.predict_grid(users[:16], items),
+                              model.predict_grid(users[16:], items)])
+            pairs = model.predict({uid: users.repeat_interleave(3), iid: items[:3].repeat(40)})
+        return grid, pairs
+
+    first, pairs = score()
+    assert len(calls) == 4
+    torch.testing.assert_close(pairs, first[:, :3].reshape(-1), rtol=0, atol=0)
+
+    model.train()
+    step = make_train_step(model, build_optimizer(dmf["tconfig"], model.parameters()),
+                           model.loss_fn("BOTH"), lambda n: True)
+    with monkeypatch.context() as m:
+        m.setattr(model, "_tower_tables", lambda: pytest.fail("training read the tower tables"))
+        step(_tbatch(_batch(dmf["jtrain"])))
+    assert len(calls) == 8  # one training step: one launch per table
+    model.eval()
+    second, _ = score()
+    assert len(calls) == 12 and not torch.allclose(first, second)
+    model.load_state_dict({k: 1.5 * v for k, v in model.state_dict().items()})
+    third, _ = score()
+    assert len(calls) == 16 and not torch.allclose(second, third)
+
+
+@pytest.mark.parametrize("base", BASES)
+def test_one_epoch_dtcdr_parameter_match(base):
+    """One BOTH epoch of the port's loop (torch Adam, plain K2, K3 and B11)
+    against JAX's DeviceEpochLoop from the same weights, with JAX's shuffle
+    and negative bits through the random source; dropout 0."""
+    cfg = {"state": "ERROR", "train_batch_size": 2048, "device": "cpu", "base_model": base,
+           "dropout_prob": 0.0, "train_epochs": ["BOTH:1"]}
+    base_rng = jax.random.PRNGKey(1)
+    jconfig = JaxConfig(model="DTCDR", config_dict=cfg, _cli_args=[])
+    jax_init_seed(jconfig["seed"], True)
+    jdataset = JaxDataset(jconfig)
+    jtrain, _, _ = jax_data_preparation(jconfig, jdataset)
+    jmodel = JaxDTCDR(jconfig, jdataset)
+    params0 = jmodel.init_params(jax.random.PRNGKey(7))
+    sopt = SingleOptimizer(jconfig)
+    tx = sopt.for_phase(lambda k: True, list(params0))
+    jl = jax_loop.DeviceEpochLoop(
+        JaxTrainMode.BOTH, jmodel.loss_fn("BOTH"), tx, jtrain, jconfig["MODEL_INPUT_TYPE"], 1,
+        jmodel.total_num_users, base_rng, donate=False,
+    )
+    jparams, _, jloss = jl.run_epoch(params0, sopt.init(params0), 0)
+
+    tconfig = CDRConfig(model="DTCDR", config_dict=cfg, _cli_args=[])
+    init_seed(tconfig["seed"], True)
+    tdataset = CrossDomainDataset(tconfig)
+    ttrain, _, _ = data_preparation(tconfig, tdataset)
+    model = DTCDR(tconfig, tdataset)
+    model.load_state_dict(params_from_jax(jax.device_get(params0)))
+    step = make_train_step(model, build_optimizer(tconfig, model.parameters()),
+                           model.loss_fn("BOTH"), lambda n: True)
+    tl = torch_loop.DeviceEpochLoop(
+        TrainMode.BOTH, step, ttrain, tconfig["MODEL_INPUT_TYPE"], 1,
+        model.total_num_users, JaxRandomSource(base_rng), "cpu",
+    )
+    assert (tl.steps_per_epoch, tl.seg_steps) == (jl.steps_per_epoch, jl.seg_steps)
+    assert tl.steps_per_epoch > 1
+    tloss = tl.run_epoch(0)
+
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=5e-3, atol=1e-5)
+    jparams = jax.device_get(jparams)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), _jax_leaf(jparams, name),
+                                   rtol=5e-3, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("base", BASES)
+def test_run_recbole_cdr_dtcdr_on_cpu(base, monkeypatch):
+    """BOTH:2 at the published widths with dropout, validated every epoch
+    through the predict fallback, the test pass with the best parameters:
+    finite metrics, GAUC in (0, 1); DMF builds one tower table per
+    validation and for the test."""
+    cfg = {"state": "ERROR", "show_progress": False, "device": "cpu", "base_model": base,
+           "train_batch_size": 2048, "train_epochs": ["BOTH:2"],
+           "metrics": ["Recall", "MRR", "NDCG", "Hit", "Precision", "GAUC"]}
+    builds = []
+    real = DTCDR._tower_tables
+    monkeypatch.setattr(DTCDR, "_tower_tables", lambda self: builds.append(
+        self.params_version) or real(self))
+    result = run_recbole_cdr(model="DTCDR", config_dict=cfg)
+    assert len(set(builds)) == 3  # two validations and the test
+    for res in (result["test_result"], result["best_valid_result"]):
+        assert all(math.isfinite(v) for v in res.values())
+        assert 0 < res["gauc"] < 1
+    hist = result["history"]
+    assert [h["phase"] for h in hist] == ["BOTH", "BOTH"]
+    assert all(math.isfinite(h["loss"]) and "valid_seconds" in h for h in hist)

@@ -34,8 +34,7 @@ def test_run_recbole_cdr_cmf_on_cpu(extra):
     ("CMF", {"mesh_shape": {"data": 2}}),
     ("CMF", {"phase_optimizer": "sparse", "profile_steps": 1}),
     ("CMF", {"learner": "adagrad"}),
-    ("CMF", {"eval_args": {"split": {"RS": [0.8, 0.1, 0.1]}, "order": "RO",
-                           "group_by": "user", "mode": "uniform 10"}}),
+    ("CMF", {"learner": "rmsprop"}),
     ("CMF", {"streaming_topk_threshold": 10, "eval_score_dtype": "bfloat16"}),
     ("CMF", {"train_epochs": ["OVERLAP:1"]}),
     ("CMF", {"neg_sampling": {"popularity": 1}}),
