@@ -77,7 +77,26 @@ Phases, in order; any failure exits non-zero:
    evaluation kernel, AUC in [0, 1], RMSE >= MAE >= 0, LogLoss finite. In
    every run B5, B6, B8 and B9 never launch, the loss falls and the
    metrics are finite;
-8. report: the card's name and power limit, one JSON line of per-kernel
+8. mapping paths: ``run_recbole_cdr`` on the card for the three mapping
+   models on the dense path's pair at their published widths
+   (``properties/model/*.yaml``), every phase cut to 2 epochs:
+   (a) DCDCSR (64, MLP [128], k 10, ``map_batch_size`` 1024), SOURCE,
+   TARGET, BOTH, TARGET: the BPR phases on the pairwise stream (K1 forward
+   and backward once per step, K2 and K3 once per epoch), BOTH on the host
+   batch path with no validation, B12 exactly once (on entry into BOTH);
+   (b) EMCDR (64 / 64, ``non_linear``, MLP [128], CE, ``reg_weight`` 1e-2,
+   ``overlap_batch_size`` 100), SOURCE, TARGET, OVERLAP: K1 once per MF
+   step, K3 once per OVERLAP epoch (the OVERLAP stream) and K2 never there;
+   (c) SSCDR (64, lambda 0.25, margin 1, MLP [128], ``overlap_batch_size``
+   100), SOURCE, TARGET, OVERLAP: the triplet phases on the pairwise stream,
+   OVERLAP on the host path (neighbours drawn on the host). In every run K4
+   once per evaluation tile, the other kernels never, the loss falls within
+   every phase and the metrics are finite. B12 is then held against its
+   plain version on the run's own tables at BOTH entry (ids exact wherever
+   the k-th and (k+1)-th similarity differ by more than ``B12_GAP``, the
+   all-zero rows' ids 0..k-1, the rows within ``B12_TOL``) and timed with
+   its bound, plain and library times;
+9. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
 B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
@@ -136,7 +155,10 @@ the same, now profiled, process. It does the same for the BiTGCF path, for
 the NATR path (a SOURCE epoch and its validation, then a TARGET epoch and
 its validation), and for DTCDR's NeuMF, DMF and DMF ``uniform 100`` runs
 and the catalog path without writing their traces (the copy-back is
-bounded).
+bounded); and for the mapping models' phases, each entered after the
+phases before it in the schedule: DCDCSR's TARGET (the pairwise stream)
+and BOTH (the host batch path, which has no validation), EMCDR's OVERLAP
+(the OVERLAP stream), SSCDR's OVERLAP (the host path).
 
 Nothing here imports jax or the JAX package.
 """
@@ -204,6 +226,30 @@ DTCDR_PATHS = {
 #: evaluation pass (forward): one per linear table
 B11_PER_STEP = 4
 
+#: phase 8's runs: (name, model, schedule), each phase cut to
+#: ``MAPPING_EPOCHS`` epochs from the published 300 (DCDCSR's BOTH: 50)
+MAPPING_EPOCHS = 2
+MAPPING_RUNS = (("dcdcsr", "DCDCSR", ("SOURCE", "TARGET", "BOTH", "TARGET")),
+                ("emcdr", "EMCDR", ("SOURCE", "TARGET", "OVERLAP")),
+                ("sscdr", "SSCDR", ("SOURCE", "TARGET", "OVERLAP")))
+#: the published widths of each (``properties/model/<model>.yaml``)
+MAPPING_WIDTHS = {
+    "DCDCSR": {"latent_factor_model": "BPR", "embedding_size": 64, "mlp_hidden_size": [128],
+               "k": 10, "map_batch_size": 1024},
+    "EMCDR": {"latent_factor_model": "MF", "loss_type": "CE", "source_embedding_size": 64,
+              "target_embedding_size": 64, "reg_weight": 1e-2,
+              "mapping_function": "non_linear", "mlp_hidden_size": [128],
+              "overlap_batch_size": 100},
+    "SSCDR": {"embedding_size": 64, "lambda": 0.25, "margin": 1, "mlp_hidden_size": [128],
+              "overlap_batch_size": 100},
+}
+MAPPING_PATHS = {
+    "dcdcsr": ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
+               "masked_topk", "benchmark_topk"),
+    "emcdr": ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
+              "masked_topk"),
+    "sscdr": ("neg_sampler", "swap_or_not", "masked_topk"),
+}
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the float32 rate of
 #: the CUDA cores, used as the rate of the kernels' 32-bit scalar operations
 PEAK_BYTES_PER_S = 3.35e12
@@ -252,6 +298,15 @@ B9_TOL = {"forward": (1e-5, 1e-4), "full_sort": (1e-6, 1e-4), "backward": (1e-5,
 #: order, and two float32 sums of the same terms in any two orders differ by
 #: a small multiple of 2^-24 times that sum (RTOL is 64 of them)
 B11_TOL = (1e-6, 2 ** -18)
+
+
+#: B12 tolerance on a benchmark row, |kernel - plain| <= ATOL + RTOL * |plain|,
+#: where the row's k-th and (k+1)-th similarity differ by more than
+#: ``B12_GAP`` (nearer ties may order differently: the kernel adds a
+#: similarity's D products in d order, cuBLAS in its own); ids equal there
+#: as sets, and position by position on all-zero rows (every similarity 0)
+B12_TOL = (1e-5, 1e-5)
+B12_GAP = 1e-5
 
 
 #: cycles of the spin kernel that holds the stream while the host queues
@@ -398,6 +453,13 @@ def dtcdr_config(base_model, mode, epochs):
     return cfg
 
 
+def mapping_config(model, schedule):
+    """A phase-8 run: the dense path's pair at ``model``'s published width,
+    every phase of ``schedule`` for ``MAPPING_EPOCHS`` epochs."""
+    return {**config_dict(), **MAPPING_WIDTHS[model],
+            "train_epochs": [f"{p}:{MAPPING_EPOCHS}" for p in schedule]}
+
+
 def config_dict():
     return {
         "device": "cuda",
@@ -496,6 +558,43 @@ def bound(n_bytes, n_ops, tf32_ops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def make_recorder(out):
+    """``record(name, kernel_fn, plain_fn, equal, n_bytes, n_ops, ...)``:
+    times a kernel, its plain version and its library call and keeps the
+    record under ``out[name]``."""
+
+    def record(name, kernel_fn, plain_fn, equal, n_bytes, n_ops, library_fn=None, reps=20,
+               shape=None, tf32_ops=0):
+        """Time a kernel, its plain version and its library call; with
+        ``shape``, as a second shape of an already recorded kernel, kept
+        under the record's ``shapes``."""
+        b_ms, b_by = bound(n_bytes, n_ops, tf32_ops)
+        timed = {"ms": device_ms(kernel_fn, reps),
+                 "plain_ms": device_ms(plain_fn, max(3, reps // 4), 1)}
+        if library_fn:
+            timed["library_ms"] = device_ms(library_fn, reps)
+        rec = {
+            "max_abs_err": equal,
+            "ms": timed["ms"][0],
+            "plain_ms": timed["plain_ms"][0],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timed["library_ms"][0] if library_fn else None,
+            "call_ms": call_ms(kernel_fn, reps),
+            "timing": {k: how for k, (_, how) in timed.items()},
+        }
+        if shape:
+            out[name].setdefault("shapes", {})[shape] = rec
+        else:
+            out[name] = rec
+        print(f"  {name}{f' {shape}' if shape else ''}: max_abs_err {equal:.3g}  kernel {rec['ms']:.4f} ms  "
+              f"plain {rec['plain_ms']:.4f} ms  library "
+              f"{'-' if rec['library_ms'] is None else format(rec['library_ms'], '.4f')} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})  per call {rec['call_ms']:.4f} ms  "
+              f"timing {rec['timing']}", flush=True)
+
+    return record
+
+
 def kernel_checks(dev):
     """Hold K1-K4 against their plain versions at the dense path's shapes,
     B5 and B6 at the catalog path's, and time them. Returns {kernel name:
@@ -529,34 +628,7 @@ def kernel_checks(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
 
-    def record(name, kernel_fn, plain_fn, equal, n_bytes, n_ops, library_fn=None, reps=20,
-               shape=None, tf32_ops=0):
-        """Time a kernel, its plain version and its library call; with
-        ``shape``, as a second shape of an already recorded kernel, kept
-        under the record's ``shapes``."""
-        b_ms, b_by = bound(n_bytes, n_ops, tf32_ops)
-        timed = {"ms": device_ms(kernel_fn, reps),
-                 "plain_ms": device_ms(plain_fn, max(3, reps // 4), 1)}
-        if library_fn:
-            timed["library_ms"] = device_ms(library_fn, reps)
-        rec = {
-            "max_abs_err": equal,
-            "ms": timed["ms"][0],
-            "plain_ms": timed["plain_ms"][0],
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timed["library_ms"][0] if library_fn else None,
-            "call_ms": call_ms(kernel_fn, reps),
-            "timing": {k: how for k, (_, how) in timed.items()},
-        }
-        if shape:
-            out[name].setdefault("shapes", {})[shape] = rec
-        else:
-            out[name] = rec
-        print(f"  {name}{f' {shape}' if shape else ''}: max_abs_err {equal:.3g}  kernel {rec['ms']:.4f} ms  "
-              f"plain {rec['plain_ms']:.4f} ms  library "
-              f"{'-' if rec['library_ms'] is None else format(rec['library_ms'], '.4f')} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})  per call {rec['call_ms']:.4f} ms  "
-              f"timing {rec['timing']}", flush=True)
+    record = make_recorder(out)
 
     # ---- K3: the epoch shuffle of both domains, one whole epoch ----------
     n_steps = loop.steps_per_epoch
@@ -1265,7 +1337,7 @@ def bitgcf_graph(dataset):
     return L, L.T
 
 
-def profile_epoch(dev, cfg, tag="", export=True, model="CMF", scheme="BOTH"):
+def profile_epoch(dev, cfg, tag="", export=True, model="CMF", scheme="BOTH", prelude=()):
     """Device time by kernel over one warm ``scheme`` epoch and one
     validation pass of ``model`` in the configuration ``cfg``; with
     ``export``, Chrome traces of both in the output directory (names
@@ -1275,38 +1347,49 @@ def profile_epoch(dev, cfg, tag="", export=True, model="CMF", scheme="BOTH"):
     propagation). The traced call follows one untraced warm-up step of the
     profiler and an idle pause, and the wrappers' launch counts of the
     traced call are printed beside the trace's, so that launches a trace
-    lost show."""
+    lost show. The phases of ``prelude`` are entered first, untrained, with
+    their parameter surgery (DCDCSR's BOTH follows its SOURCE and TARGET);
+    a phase the trainer runs on the host batch path is profiled there, and
+    one the model's trainer does not validate has no validation pass."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from recbole_cdr_tpu_torch import ops
     from recbole_cdr_tpu_torch.config import CDRConfig
     from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
-    from recbole_cdr_tpu_torch.trainer.trainer import CrossDomainTrainer
-    from recbole_cdr_tpu_torch.utils import get_model, init_seed
+    from recbole_cdr_tpu_torch.utils import get_model, get_trainer, init_seed
     from recbole_cdr_tpu_torch.utils.enums import train_mode2state
 
     config = CDRConfig(model=model, config_dict=cfg, _cli_args=[])
     init_seed(config["seed"], True)
     dataset = create_dataset(config)
     train_data, valid_data, _ = data_preparation(config, dataset)
-    trainer = CrossDomainTrainer(config, get_model(model)(config, dataset))
-    train_data.set_mode(train_mode2state[scheme])
-    trainer.model.set_phase(scheme)
+    trainer = get_trainer(None, model)(config, get_model(model)(config, dataset))
+    for phase in tuple(prelude) + (scheme,):
+        train_data.set_mode(train_mode2state[phase])
+        trainer.model.set_phase(phase)
+        trainer.model.mutate_params_on_phase(phase)
     valid_data = trainer._route_valid(scheme, valid_data)
-    loop = trainer._loop_for(scheme, train_data)
+    if trainer._use_device_loop(scheme):
+        loop = trainer._loop_for(scheme, train_data)
+        run_epoch = lambda epoch: float(loop.run_epoch(epoch))
+    else:
+        step = trainer._step_fn_for(scheme)
+        run_epoch = lambda epoch: float(trainer._host_epoch(scheme, train_data, step, epoch)[0])
 
     def valid_pass():
         trainer.model.notify_params_updated()
         trainer._evaluate_batches(scheme, valid_data)
 
-    float(loop.run_epoch(0))
-    valid_pass()
+    run_epoch(0)
+    calls = [("train_epoch", lambda: run_epoch(1))]
+    if valid_data is not None:
+        valid_pass()
+        calls.append(("valid_pass", valid_pass))
     torch.cuda.synchronize()
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    for name, fn in (("train_epoch", lambda: float(loop.run_epoch(1))),
-                     ("valid_pass", valid_pass)):
+    for name, fn in calls:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1344,7 +1427,7 @@ def profile_epoch(dev, cfg, tag="", export=True, model="CMF", scheme="BOTH"):
             prof.export_chrome_trace(path)
             print(f"  trace: {os.path.relpath(path, REPO)}", flush=True)
     t0 = time.perf_counter()
-    float(loop.run_epoch(2))
+    run_epoch(2)
     print(f"{tag}train_epoch after profiling, same process: "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms unprofiled", flush=True)
 
@@ -1398,6 +1481,14 @@ def main():
         for name, base, mode, epochs in DTCDR_RUNS[:3]:
             profile_epoch(dev, dtcdr_config(base, mode, epochs), f"{name}_", export=False,
                           model="DTCDR")
+        for model, scheme, prelude in (("DCDCSR", "TARGET", ("SOURCE",)),
+                                       ("DCDCSR", "BOTH", ("SOURCE", "TARGET")),
+                                       ("EMCDR", "OVERLAP", ("SOURCE", "TARGET")),
+                                       ("SSCDR", "OVERLAP", ("SOURCE", "TARGET"))):
+            schedule = next(r[2] for r in MAPPING_RUNS if r[1] == model)
+            profile_epoch(dev, mapping_config(model, schedule),
+                          f"{model.lower()}_{scheme.lower()}_", export=False, model=model,
+                          scheme=scheme, prelude=prelude)
         profile_epoch(dev, catalog_config(), "catalog_", export=False)  # traces of ~100 MB
         return 0
 
@@ -1488,6 +1579,11 @@ def main():
     torch.cuda.empty_cache()
     run_dtcdr_paths(counts)
 
+    print("== phase 8: mapping paths, run_recbole_cdr(model='DCDCSR' | 'EMCDR' | 'SSCDR') on "
+          "the card: pairwise and OVERLAP streams, the host batch path, B12", flush=True)
+    torch.cuda.empty_cache()
+    run_mapping_paths(counts, records)
+
     replaces = {
         "gather_dot_forward": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
                                "recbole_cdr_tpu/models/cmf.py:45"),
@@ -1525,6 +1621,8 @@ def main():
                            "recbole_cdr_tpu/evaluator/evaluator.py:88"),
         "rank_sum_candidates": ("recbole_cdr_tpu_torch/csrc/rank_sum.cu",
                                 "recbole_cdr_tpu/evaluator/evaluator.py:661"),
+        "benchmark_topk": ("recbole_cdr_tpu_torch/csrc/benchmark_topk.cu",
+                           "recbole_cdr_tpu/models/dcdcsr.py:179"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -1666,6 +1764,144 @@ def check_dtcdr_run(mode, cfg, result, hist, c):
     assert all(c[k] == v for k, v in want.items()), (c, want)
 
 
+def dense_tiles(users, item_num):
+    """The dense evaluator's tiles of a pass over ``users`` users
+    (``FullSortEvaluator._dense_budget`` for a full-sort form)."""
+    user_batch = max(1, min(32, users), config_dict()["eval_batch_size"] // item_num)
+    return -(-users // max(user_batch, min(2048, users, (1 << 29) // item_num)))
+
+
+def run_mapping_paths(counts, records):
+    """Phase 8: the runs of ``MAPPING_RUNS``, each checked, their launch
+    counts kept in ``counts`` under the run's name; then B12 held against its
+    plain version on the DCDCSR run's tables at BOTH entry and timed into
+    ``records``."""
+    import torch
+
+    import recbole_cdr_tpu_torch.models.dcdcsr as dcdcsr_module
+    from recbole_cdr_tpu_torch import ops, run_recbole_cdr
+
+    captured = []
+    real = dcdcsr_module.benchmark_topk
+
+    def capture(*args):  # the wrapper itself counts the launch
+        captured.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return real(*args)
+
+    dcdcsr_module.benchmark_topk = capture
+    try:
+        for name, model, schedule in MAPPING_RUNS:
+            print(f"-- {name}: {model}, {', '.join(schedule)}, {MAPPING_EPOCHS} epochs each",
+                  flush=True)
+            cfg = mapping_config(model, schedule)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = run_recbole_cdr(model=model, config_dict=cfg, saved=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts[name] = c = ops.launch_counts()
+            hist = _report_run(result, wall, c, MAPPING_PATHS[name])
+            check_mapping_run(model, schedule, result, hist, c)
+            del result
+            torch.cuda.empty_cache()
+    finally:
+        dcdcsr_module.benchmark_topk = real
+    assert len(captured) == 1, len(captured)
+    check_b12(captured[0], records)
+
+
+def check_mapping_run(model, schedule, result, hist, c):
+    """Phase 8's checks of one run: the schedule, a falling loss within every
+    phase, validation in every phase but DCDCSR's BOTH, and the launches of
+    K1-K4 and B12 against the run's steps, epochs and evaluation tiles."""
+    from recbole_cdr_tpu_torch.trainer.device_loop import SEGMENT_BYTES
+
+    E = MAPPING_EPOCHS
+    assert [h["phase"] for h in hist] == [p for p in schedule for _ in range(E)], hist
+    for i, phase in enumerate(schedule):
+        losses = [h["loss"] for h in hist[i * E:(i + 1) * E]]
+        assert losses[-1] < losses[0], (phase, losses)
+    validated = [not (model == "DCDCSR" and h["phase"] == "BOTH") for h in hist]
+    assert ["valid_seconds" in h for h in hist] == validated, hist
+    m = result["model"]
+    n_source = m.total_num_items - m.target_num_items + m.overlapped_num_items
+    tiles = sum(dense_tiles(h["valid_users"], n_source if h["phase"] == "SOURCE"
+                            else m.target_num_items) for h in hist if "valid_seconds" in h)
+    tiles += dense_tiles(result["test_users"], m.target_num_items)
+    dot_steps = neg_launches = shuffle_launches = 0
+    for h in hist:
+        if m.needs_host_augment(h["phase"]):
+            continue  # the host batch path samples on the host: no K2, K3
+        # examples per step: BATCH in the pairwise and pointwise (4,096
+        # positives + 4,096 negatives) streams, overlap_batch_size in OVERLAP
+        ex = MAPPING_WIDTHS[model]["overlap_batch_size"] if h["phase"] == "OVERLAP" else BATCH
+        assert h["train_examples"] % ex == 0, h
+        steps = h["train_examples"] // ex
+        segments = -(-steps // max(1, min(steps, SEGMENT_BYTES // (ex * 16))))
+        shuffle_launches += segments
+        if h["phase"] != "OVERLAP":
+            neg_launches += segments
+            dot_steps += steps
+    want = {"masked_topk": tiles, "neg_sampler": neg_launches,
+            "swap_or_not": shuffle_launches,
+            "benchmark_topk": int(model == "DCDCSR")}
+    if model != "SSCDR":
+        want.update(gather_dot_forward=dot_steps, gather_dot_backward=dot_steps)
+    print(f"{dot_steps} steps on the domain streams, {tiles} evaluation tiles; launches "
+          f"{ {k: c[k] for k in want} }, expected {want}", flush=True)
+    assert all(c[k] == v for k, v in want.items()), (c, want)
+
+
+def check_b12(args, records):
+    """Hold B12 against its plain version on ``args``, the DCDCSR run's own
+    tables at BOTH entry, and time it, its plain version and the library
+    route (matmul, ``torch.topk``, gather, blend) into ``records``."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import benchmark_topk as b12
+
+    rest, src, s_pop, t_pop, k = args
+    M, D = rest.shape
+    n_ov = src.shape[0]
+    out, idx, sim = b12.benchmark_topk(*args)
+    p_out, p_idx, p_sim = b12.benchmark_topk_plain(*args)
+    zero = (rest == 0).all(1)
+    assert (idx[zero] == torch.arange(k, device=rest.device)).all(), "tie rule"
+    top = torch.topk(rest.double() @ src.double().T, min(k + 1, n_ov), 1).values
+    clear = zero | (top[:, k - 1] - top[:, k] > B12_GAP if n_ov > k
+                    else torch.ones_like(zero))
+    assert torch.equal(idx[clear].sort(1).values, p_idx[clear].sort(1).values), "B12 ids"
+    atol, rtol = B12_TOL
+    torch.testing.assert_close(sim, p_sim, atol=atol, rtol=rtol)
+    torch.testing.assert_close(out[clear], p_out[clear], atol=atol, rtol=rtol, equal_nan=True)
+    diff = (out[clear] - p_out[clear]).abs()
+    err = float(diff[torch.isfinite(diff)].max()) if diff.numel() else 0.0
+    print(f"B12 at BOTH entry: [{M}, {D}] rows against [{n_ov}, {D}], k {k}; "
+          f"{int(zero.sum())} all-zero rows, {int(clear.sum())} rows clear of a near tie "
+          f"at the k-th, {int(torch.isnan(out).any(1).sum())} NaN rows (sn + t_pop = 0)",
+          flush=True)
+
+    def library():
+        sims = torch.matmul(rest, src.T)
+        top_s, top_i = torch.topk(sims, k, 1)
+        sn = s_pop[top_i].mean(1)
+        beta = sn / (sn + t_pop)
+        sum_sim = top_s.sum(1)
+        sum_sim = torch.where(sum_sim > 0, sum_sim, torch.ones_like(sum_sim))
+        sim_e = torch.einsum("mk,mkd->md", top_s, src[top_i]) / sum_sim[:, None]
+        return (1 - beta)[:, None] * rest + beta[:, None] * sim_e
+
+    flops = 2 * M * n_ov * D
+    n_bytes = 4 * (M * D + n_ov * D + n_ov + M) + 4 * M * D + 8 * M * k
+    make_recorder(records)("benchmark_topk", lambda: b12.benchmark_topk(*args),
+                           lambda: b12.benchmark_topk_plain(*args), err, n_bytes, flops,
+                           library_fn=library)
+    # beside the CUDA-core bound: the same product in 3xTF32 on the tensor
+    # cores, the form B5 computes its scores in
+    records["benchmark_topk"]["tf32_bound_ms"] = (
+        TF32_PRODUCTS_PER_SCORE * flops / PEAK_TF32_OPS_PER_S * 1e3)
+
+
 def _report_run(result, wall, counts, path):
     """Print a run's per-epoch numbers, metrics and launch counts; check that
     exactly the kernels of ``path`` launched and that the metrics and losses
@@ -1674,10 +1910,12 @@ def _report_run(result, wall, counts, path):
 
     hist = result["history"]
     for h in hist:
-        print(f"epoch {h['epoch']}: loss {h['loss']:.6f}  train {h['train_seconds']:.4f} s "
-              f"({h['train_examples'] / h['train_seconds']:.1f} examples/s)  valid "
-              f"{h['valid_seconds']:.4f} s for {h['valid_users']} users "
-              f"({h['valid_users'] / h['valid_seconds']:.1f} users/s)",
+        valid = (f"  valid {h['valid_seconds']:.4f} s for {h['valid_users']} users "
+                 f"({h['valid_users'] / h['valid_seconds']:.1f} users/s)"
+                 if "valid_seconds" in h else "  no validation")
+        print(f"{h['phase']} epoch {h['epoch']}: loss {h['loss']:.6f}  train "
+              f"{h['train_seconds']:.4f} s "
+              f"({h['train_examples'] / h['train_seconds']:.1f} examples/s){valid}",
               flush=True)
     print(f"valid: {result['best_valid_result']}", flush=True)
     print(f"test: {result['test_result']}", flush=True)

@@ -47,6 +47,12 @@ class Linear(nn.Module):
         return x @ self.w + self.b
 
 
+def mlp(dims, generator=None) -> nn.ModuleList:
+    """``init_mlp`` (`models/base.py:49-54`): one :class:`Linear` per
+    consecutive pair of ``dims``, named ``0``, ``1``, ... as JAX's list."""
+    return nn.ModuleList(Linear(dims[i], dims[i + 1], generator) for i in range(len(dims) - 1))
+
+
 # -------------------------------------------------------------------- losses
 
 def weighted_mean(values: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -60,6 +66,11 @@ def bce_loss(logits, labels, weight) -> torch.Tensor:
     """Binary cross-entropy on logits (== BCELoss(sigmoid(x), y), stable)."""
     per = torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
     return weighted_mean(per, weight)
+
+
+def bpr_loss(pos_score, neg_score, weight, gamma: float = 1e-10) -> torch.Tensor:
+    """-log(gamma + sigmoid(pos - neg)), recbole ``BPRLoss`` semantics."""
+    return weighted_mean(-torch.log(gamma + torch.sigmoid(pos_score - neg_score)), weight)
 
 
 def emb_loss(embeddings: Sequence[torch.Tensor], weight, norm: int = 2,
@@ -129,6 +140,34 @@ class CrossDomainRecommender(nn.Module):
         #: name -> (params_version, value), kept by :meth:`_per_version`
         self._version_cache = {}
 
+    def _overlap_mode(self, model: str) -> str:
+        """The mapping models' mode (DCDCSR, EMCDR, SSCDR): the pair must
+        overlap on users or on items, not both."""
+        assert self.overlapped_num_items == 1 or self.overlapped_num_users == 1, (
+            f"{model} model only support user overlapped or item overlapped dataset! "
+        )
+        if self.overlapped_num_users > 1:
+            return "overlap_users"
+        return "overlap_items" if self.overlapped_num_items > 1 else "non_overlap"
+
+    def _domain_tables(self, d_source: int, d_target: int, generator) -> None:
+        """The mapping models' four embedding tables over the unified id
+        space, each domain's rows outside it zeroed (reference
+        `emcdr.py:73-78`): ``source_user_embedding`` [users, d_source] and
+        the like."""
+        for name, n, dim, lo, hi in (
+                ("source_user_embedding", self.total_num_users, d_source,
+                 self.overlapped_num_users, self.target_num_users),
+                ("source_item_embedding", self.total_num_items, d_source,
+                 self.overlapped_num_items, self.target_num_items),
+                ("target_user_embedding", self.total_num_users, d_target,
+                 self.target_num_users, self.total_num_users),
+                ("target_item_embedding", self.total_num_items, d_target,
+                 self.target_num_items, self.total_num_items)):
+            table = init_embedding(n, dim, generator)
+            table[lo:hi] = 0.0
+            setattr(self, name, nn.Parameter(table))
+
     def notify_params_updated(self):
         """Invalidate caches derived from the parameters."""
         self.params_version += 1
@@ -142,8 +181,21 @@ class CrossDomainRecommender(nn.Module):
             self._version_cache[name] = hit = (self.params_version, build())
         return hit[1]
 
-    def load_state_dict(self, *args, **kwargs):
-        out = super().load_state_dict(*args, **kwargs)
+    def load_state_dict(self, state_dict, *args, **kwargs):
+        """``nn.Module.load_state_dict``, after which every cache derived from
+        the parameters is stale. A buffer of ``state_dict`` whose shape
+        differs from the module's is taken at its new shape: derived tables
+        (DCDCSR's benchmark and affine embeddings) change shape on phase
+        entry, and a snapshot taken after that must load into a module
+        still holding the placeholder, and the other way round."""
+        for name, buf in list(self.named_buffers()):
+            value = state_dict.get(name)
+            if value is not None and value.shape != buf.shape:
+                owner, _, leaf = name.rpartition(".")
+                module = self.get_submodule(owner) if owner else self
+                module._buffers[leaf] = torch.empty(value.shape, dtype=buf.dtype,
+                                                    device=buf.device)
+        out = super().load_state_dict(state_dict, *args, **kwargs)
         self.notify_params_updated()
         return out
 
@@ -152,6 +204,23 @@ class CrossDomainRecommender(nn.Module):
     def set_phase(self, phase: str):
         """Host-side phase switch (default no-op beyond recording)."""
         self.phase = phase
+
+    def mutate_params_on_phase(self, phase: str):
+        """Parameter surgery on phase entry, in place (DCDCSR builds its
+        benchmark and affine tables here); a model that writes a table calls
+        :meth:`notify_params_updated`. Default: nothing."""
+
+    def needs_host_augment(self, phase: str) -> bool:
+        """True when the phase needs :meth:`augment_batch` on the host: the
+        trainer then trains it on the host batch path, not the device epoch
+        loop."""
+        return False
+
+    def augment_batch(self, batch: dict, phase: str) -> dict:
+        """Host-side batch augmentation before the batch moves to the device
+        (SSCDR's neighbour sampling, DCDCSR's map-batch draw). Default:
+        the batch unchanged."""
+        return batch
 
     def trainable_predicate(self, phase: str):
         """Returns f(param_name) -> bool: whether a top-level parameter is

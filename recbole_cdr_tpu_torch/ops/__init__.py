@@ -6,6 +6,7 @@ a ``launches`` count on the wrapper that grows by one per kernel launch.
 """
 
 from recbole_cdr_tpu_torch.ops import (
+    benchmark_topk,
     candidate_topk,
     gather_dot,
     graph_layer,
@@ -39,6 +40,7 @@ WRAPPERS = {
     "rating_vector_backward": rating_vector.rating_vector_backward,
     "candidate_topk": candidate_topk.candidate_topk,
     "rank_sum_candidates": rank_sum.rank_sum_candidates,
+    "benchmark_topk": benchmark_topk.benchmark_topk,
 }
 
 

@@ -24,7 +24,8 @@ import torch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = ("gather_dot", "neg_sampler", "shuffle", "masked_topk", "streaming_topk",
-           "sparse_adam", "graph_layer", "rank_sum", "natr_attention", "rating_vector")
+           "sparse_adam", "graph_layer", "rank_sum", "natr_attention", "rating_vector",
+           "benchmark_topk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -71,6 +72,7 @@ _SIGNATURES = {
         "rating_vector_forward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P],
         "rating_vector_backward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     },
+    "benchmark_topk": {"benchmark_topk": [_P] * 4 + [_I] * 5 + [_P] * 6},
 }
 
 _lock = threading.Lock()

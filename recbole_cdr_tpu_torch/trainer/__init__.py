@@ -1,3 +1,3 @@
-from recbole_cdr_tpu_torch.trainer.trainer import CrossDomainTrainer
+from recbole_cdr_tpu_torch.trainer.trainer import CrossDomainTrainer, DCDCSRTrainer
 
-__all__ = ["CrossDomainTrainer"]
+__all__ = ["CrossDomainTrainer", "DCDCSRTrainer"]

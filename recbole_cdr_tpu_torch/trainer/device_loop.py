@@ -18,13 +18,16 @@ dropout bits a model's loss asks for. The JAX package draws the same
 quantities from threefry keys it derives per epoch, segment and step, so a
 test can hand its bits to this loop through the same interface.
 
-The loop runs the BOTH, SOURCE and TARGET phases of a pointwise model (CMF's
-and BiTGCF's BOTH schedule, NATR's SOURCE then TARGET). A single-domain
-phase streams that domain alone, with one un-cycled permutation per epoch.
-The OVERLAP stream and pairwise batches come with the models that train
-that way (ROADMAP.md A8); popularity-distribution sampling (the alias-table
-branch of ``_sample_negatives``) is not ported yet either. All of them
-raise.
+The loop runs the BOTH, SOURCE and TARGET phases of a pointwise or a
+pairwise model (CMF's and BiTGCF's BOTH schedule, NATR's SOURCE then
+TARGET, the BPR and triplet phases of DCDCSR, EMCDR and SSCDR), and the
+OVERLAP phase (EMCDR's mapping). A single-domain phase streams that domain
+alone, with one un-cycled permutation per epoch; a pairwise batch carries
+its negatives in a ``neg_<item id>`` column and no label; the OVERLAP
+stream serves the overlapped entities' ids, shuffled by K3, in batches of
+``overlap_batch_size`` with a validity weight. Popularity-distribution
+sampling (the alias-table branch of ``_sample_negatives``, kernel B2a) is
+not ported yet and raises.
 """
 
 import functools
@@ -164,7 +167,8 @@ class TorchRandomSource:
 
     def shuffle_keys(self, epoch: int, domain: str, n: int, shape=()):
         """(keys int32 in [0, n), salts int32 bit patterns), each
-        ``shape + (SHUFFLE_ROUNDS,)``."""
+        ``shape + (SHUFFLE_ROUNDS,)``; ``domain`` is ``"src"``, ``"tgt"`` or
+        ``"over"`` (the OVERLAP stream)."""
         shape = tuple(shape) + (SHUFFLE_ROUNDS,)
         keys = torch.randint(0, max(n, 1), shape, dtype=torch.int32,
                              device=self.device, generator=self.gen)
@@ -196,10 +200,12 @@ class DomainDeviceData:
         self.uid_field = table.uid_field
         self.iid_field = table.iid_field
         self.label_field = table.label_field
+        self.neg_iid_field = table.neg_prefix + table.iid_field
         self.weight_field = table.uid_field.split("_", 1)[0] + "_sample_weight"
         if getattr(sampler, "distribution", "uniform") != "uniform":
             raise NotImplementedError(
-                "device-side popularity sampling is not ported yet (ROADMAP.md A4)"
+                "device-side popularity sampling (kernel B2a) is not ported yet "
+                "(ROADMAP.md A3/A4)"
             )
         # raise the cap until the worst-case complement total fits the budget
         n_cand = len(sampler.candidate_ids)
@@ -227,8 +233,8 @@ class DomainDeviceData:
 
 
 class DeviceEpochLoop:
-    """Runs whole epochs of BOTH-, SOURCE- or TARGET-phase train steps on
-    the device.
+    """Runs whole epochs of BOTH-, SOURCE-, TARGET- or OVERLAP-phase train
+    steps on the device.
 
     ``step_fn(batch, rng) -> loss`` performs one optimizer step on a dict of
     per-step tensors (the layout ``data/batching.py`` produces) and returns
@@ -238,27 +244,35 @@ class DeviceEpochLoop:
 
     def __init__(self, scheme: TrainMode, step_fn, train_data, input_type,
                  neg_num: int, num_users: int, random_source, device):
-        phases = (TrainMode.BOTH, TrainMode.SOURCE, TrainMode.TARGET)
-        if scheme not in phases or input_type != InputType.POINTWISE:
+        if input_type not in (InputType.POINTWISE, InputType.PAIRWISE):
             raise NotImplementedError(
-                f"the device epoch loop runs pointwise BOTH, SOURCE and TARGET phases; "
-                f"{scheme.value} with {input_type.name} batches comes with the models "
-                "that need it (ROADMAP.md A8)"
+                f"the device epoch loop streams pointwise and pairwise batches, not "
+                f"{input_type.name}"
             )
         self.scheme = scheme
         self.step_fn = step_fn
         self.source = random_source
         self.device = torch.device(device)
         self.neg_num = neg_num
+        self.pointwise = input_type == InputType.POINTWISE
         src_b = train_data.source_batcher
         tgt_b = train_data.target_batcher
-        # only the domains the phase streams live on the device
-        self.src = self.tgt = None
-        if scheme != TrainMode.TARGET:
+        over_b = train_data.overlap_batcher
+        # only the data the phase streams lives on the device
+        self.src = self.tgt = self.overlap_ids = None
+        if scheme in (TrainMode.BOTH, TrainMode.SOURCE):
             self.src = DomainDeviceData(src_b.table, src_b.sampler, num_users, self.device)
-        if scheme != TrainMode.SOURCE:
+        if scheme in (TrainMode.BOTH, TrainMode.TARGET):
             self.tgt = DomainDeviceData(tgt_b.table, tgt_b.sampler, num_users, self.device)
-        if scheme == TrainMode.SOURCE:
+        per_example = (1 + neg_num) if self.pointwise else 1
+        if scheme == TrainMode.OVERLAP:
+            self.overlap_ids = torch.as_tensor(np.asarray(over_b.overlap.ids, np.int32),
+                                               device=self.device)
+            self.n_over = len(over_b.overlap)
+            self.step = over_b.step
+            self.steps_per_epoch = max(1, -(-self.n_over // self.step))
+            per_example = 1
+        elif scheme == TrainMode.SOURCE:
             self.step = src_b.step
             self.steps_per_epoch = len(src_b)
         else:
@@ -274,7 +288,7 @@ class DeviceEpochLoop:
             self.src_cycles = max(1, -(-self.steps_per_epoch // self.src_batches_per_cycle))
 
         # ---- segment sizing: bound the per-epoch streams in device memory --
-        self.examples_per_step = ex_per_step * (1 + neg_num)
+        self.examples_per_step = ex_per_step * per_example
         bytes_per_step = max(self.examples_per_step, 1) * 4 * 4  # ~4 int/float arrays
         self.seg_steps = max(1, min(self.steps_per_epoch, SEGMENT_BYTES // bytes_per_step))
 
@@ -328,12 +342,19 @@ class DeviceEpochLoop:
         return torch.where(is_h, concat[(offs[hs] + r).long()], neg)
 
     def _domain_xs(self, data, uid, iid, weight, neg):
-        """Per-step pointwise batch arrays in the layout TrainBatcher produces
-        (`data/batching.py`), stacked over steps: ``dstep`` positives, then
-        ``neg_num`` blocks of negatives, labels 1 then 0."""
+        """Per-step batch arrays in the layout TrainBatcher produces
+        (`data/batching.py`), stacked over steps. Pointwise: ``dstep``
+        positives, then ``neg_num`` blocks of negatives, labels 1 then 0.
+        Pairwise: the positives with their negatives in the ``neg_<item
+        id>`` column, ``neg_num`` blocks of ``dstep``, and no label."""
         n_steps, dstep = uid.shape
         neg_num = self.neg_num
         negf = neg.permute(1, 0, 2).reshape(n_steps, neg_num * dstep)
+        if not self.pointwise:
+            out = {data.uid_field: uid, data.iid_field: iid, data.weight_field: weight}
+            if neg_num > 0:
+                out[data.neg_iid_field] = negf
+            return out
         label = torch.zeros(dstep * (1 + neg_num), device=self.device)
         label[:dstep] = 1.0
         return {
@@ -343,10 +364,25 @@ class DeviceEpochLoop:
             data.label_field: label.expand(n_steps, -1),
         }
 
+    def _overlap_xs(self, shuf, step_lo, n_steps):
+        """The OVERLAP stream of steps [step_lo, step_lo + n_steps): every
+        step's ``overlap_batch_size`` slots of one K3 permutation of the
+        overlapped ids, the slots past the end weighted 0
+        (``recbole_cdr_tpu/trainer/device_loop.py:560-570``)."""
+        keys, salts = shuf
+        s = step_lo + torch.arange(n_steps, device=self.device)
+        slots = s[:, None] * self.step + torch.arange(self.step, device=self.device)[None, :]
+        valid = slots < self.n_over
+        n = max(self.n_over, 1)
+        pos = swap_or_not((torch.where(valid, slots, 0) % n).to(torch.int32), n, keys, salts)
+        return {"overlap": self.overlap_ids[pos.long()],
+                "overlap_sample_weight": valid.to(torch.float32)}
+
     def _build_xs(self, shuf, epoch, step_lo, n_steps):
         """Every step's batch of steps [step_lo, step_lo + n_steps): both
         domains in a BOTH phase (the source cycling, with its own step),
-        else the phase's domain alone at the phase's step."""
+        else the phase's domain, or the OVERLAP stream, alone at the phase's
+        step."""
         xs = {}
         if self.scheme == TrainMode.BOTH:
             xs.update(self._domain_xs(self.src, *self._domain_stream(
@@ -354,7 +390,9 @@ class DeviceEpochLoop:
         elif self.scheme == TrainMode.SOURCE:
             xs.update(self._domain_xs(self.src, *self._domain_stream(
                 self.src, "src", shuf["src"], step_lo, n_steps, self.step, False, epoch)))
-        if self.scheme != TrainMode.SOURCE:
+        elif self.scheme == TrainMode.OVERLAP:
+            xs.update(self._overlap_xs(shuf["over"], step_lo, n_steps))
+        if self.tgt is not None:
             xs.update(self._domain_xs(self.tgt, *self._domain_stream(
                 self.tgt, "tgt", shuf["tgt"], step_lo, n_steps, self.step, False, epoch)))
         return xs
@@ -362,15 +400,17 @@ class DeviceEpochLoop:
     # -------------------------------------------------------------- epochs
 
     def _shuffle_material(self, epoch):
-        """This epoch's swap-or-not keys and salts, [K, ROUNDS] per streamed
-        domain: in a BOTH phase one permutation per source cycle and one for
-        the target, else one for the phase's domain."""
+        """This epoch's swap-or-not keys and salts, [K, ROUNDS] per stream:
+        in a BOTH phase one permutation per source cycle and one for the
+        target, else one for the phase's domain or the OVERLAP stream."""
         shuf = {}
         if self.scheme == TrainMode.BOTH:
             shuf["src"] = self.source.shuffle_keys(epoch, "src", self.src.n, (self.src_cycles,))
         elif self.scheme == TrainMode.SOURCE:
             shuf["src"] = self.source.shuffle_keys(epoch, "src", self.src.n)
-        if self.scheme != TrainMode.SOURCE:
+        elif self.scheme == TrainMode.OVERLAP:
+            shuf["over"] = self.source.shuffle_keys(epoch, "over", self.n_over)
+        if self.tgt is not None:
             shuf["tgt"] = self.source.shuffle_keys(epoch, "tgt", self.tgt.n)
         return {k: (keys.reshape(-1, SHUFFLE_ROUNDS).to(self.device),
                     salts.reshape(-1, SHUFFLE_ROUNDS).to(self.device))

@@ -1,12 +1,25 @@
-"""Phase-scheduled trainer: the four-mode schedule over the device epoch loop.
+"""Phase-scheduled trainer: the four-mode schedule over the device epoch loop
+or the host batch path.
 
 Port of ``recbole_cdr_tpu/trainer/trainer.py::CrossDomainTrainer`` (itself
 capability parity with `recbole_cdr/trainer/trainer.py:19-137` plus the
 inherited recbole ``Trainer`` epoch loop): per phase, reset early stopping,
-flip the dataloader mode and model phase, run epochs on the device loop,
-validate every ``eval_step`` epochs, stop after ``stopping_step``
-non-improving validations, keep the best parameters in memory, and finally
-evaluate with them.
+flip the dataloader mode and model phase, let the model rebuild its derived
+tables (``mutate_params_on_phase``), run epochs, validate every
+``eval_step`` epochs, stop after ``stopping_step`` non-improving
+validations, keep the best parameters in memory, and finally evaluate with
+them.
+
+A phase runs on the device epoch loop (``trainer/device_loop.py``) unless
+``device_side_sampling`` is False, the training negatives are drawn by a
+distribution the loop does not take, or the model needs a host hook in the
+phase (``needs_host_augment``: DCDCSR's BOTH, SSCDR's OVERLAP); such a phase
+iterates the host loader (``data/batching.py::CrossDomainLoader``), passes
+every batch through ``model.augment_batch``, moves it to the trainer's
+device and takes one optimizer step per batch (the JAX trainer's
+``_fit_phase``, whose ``steps_per_call`` stacking is a TPU dispatch
+optimisation with no counterpart here). :class:`DCDCSRTrainer` runs no
+validation in the BOTH phase.
 
 The optimizer is ``torch.optim.Adam`` (or SGD), built once per trainer by
 default (``phase_optimizer: single``, recbole semantics): Adam's state is
@@ -34,9 +47,10 @@ or, in a phase where the model has none (NATR's target phases, DTCDR), with
 
 Not ported yet, and raising when configured: checkpoint files and resume
 (ROADMAP.md A12), profiling (A12), mesh / multi-GPU (A13), bfloat16 compute
-(A10), the host batch path (device_side_sampling False).
+(A10).
 """
 
+import functools
 import time
 from logging import getLogger
 
@@ -256,10 +270,6 @@ def _check_supported(config):
             raise NotImplementedError(f"{key}: {what} is not ported yet (ROADMAP.md {item})")
     if (config["compute_dtype"] or "float32") not in ("float32", "fp32"):
         raise NotImplementedError("only float32 compute is ported (ROADMAP.md A10)")
-    if config["device_side_sampling"] is False:
-        raise NotImplementedError(
-            "the host batch path is not ported: use device_side_sampling True"
-        )
     if (config["phase_optimizer"] or "single").lower() not in ("single", "per_phase", "sparse"):
         raise ValueError(
             f"phase_optimizer must be 'single', 'per_phase' or 'sparse', "
@@ -331,10 +341,18 @@ class CrossDomainTrainer:
                 self.logger.info(f"Start training with {scheme} mode")
             train_data.set_mode(train_mode2state[scheme])
             self.model.set_phase(scheme)
+            self.model.mutate_params_on_phase(scheme)
             if self.per_phase and phase_idx > 0:
                 self.optimizer = build_optimizer(self.config, self.model.parameters())
-            self._fit_phase_device(scheme, train_data,
-                                   self._route_valid(scheme, valid_data), verbose, saved)
+            if self._use_device_loop(scheme):
+                loop = self._loop_for(scheme, train_data)
+                run_epoch = lambda epoch: (loop.run_epoch(epoch),
+                                           loop.examples_per_step * loop.steps_per_epoch)
+            else:
+                run_epoch = functools.partial(self._host_epoch, scheme, train_data,
+                                              self._step_fn_for(scheme))
+            self._fit_phase(scheme, run_epoch, self._route_valid(scheme, valid_data),
+                            verbose, saved)
         self.model.set_phase("OVERLAP")
         return self.best_valid_score, self.best_valid_result
 
@@ -344,18 +362,19 @@ class CrossDomainTrainer:
             return source_valid if scheme == "SOURCE" else target_valid
         return valid_data
 
-    def _loop_for(self, scheme, train_data):
-        """The phase's epoch loop (its device data is built once), with a
-        step function bound to the current optimizer."""
-        if scheme not in self._loops:
-            neg_args = self.config["train_neg_sample_args"]
-            neg_num = neg_args.get("by", 0) if neg_args["strategy"] == "by" else 0
-            self._loops[scheme] = DeviceEpochLoop(
-                train_mode2state[scheme], None, train_data,
-                self.config["MODEL_INPUT_TYPE"], neg_num,
-                self.model.total_num_users, self.random_source, self.device,
-            )
-        loop = self._loops[scheme]
+    def _use_device_loop(self, scheme) -> bool:
+        """The JAX trainer's routing rule (``_use_device_loop``)."""
+        return bool(
+            self.config["device_side_sampling"]
+            and self.config["train_neg_sample_args"]["distribution"]
+            in ("uniform", "popularity", "none")
+            and not self.model.needs_host_augment(scheme)
+        )
+
+    def _step_fn_for(self, scheme):
+        """The phase's step function, bound to the current optimizer and to
+        the model's loss for the phase as it stands now (DCDCSR's second
+        TARGET phase has another loss than its first)."""
         pred = self.model.trainable_predicate(scheme)
         if isinstance(self.optimizer, SparseAdam):
             spec = self.model.sparse_spec(scheme)
@@ -366,26 +385,58 @@ class CrossDomainTrainer:
                     "for this phase"
                 )
                 spec = {}
-            loop.step_fn = make_sparse_train_step(self.model, self.optimizer, scheme, spec, pred)
-        else:
-            loop.step_fn = make_train_step(
-                self.model, self.optimizer, self.model.loss_fn(scheme), pred, self.clip,
+            return make_sparse_train_step(self.model, self.optimizer, scheme, spec, pred)
+        return make_train_step(self.model, self.optimizer, self.model.loss_fn(scheme), pred,
+                               self.clip)
+
+    def _loop_for(self, scheme, train_data):
+        """The phase's epoch loop (its device data is built once per phase
+        name), with a step function bound anew on every phase entry."""
+        if scheme not in self._loops:
+            neg_args = self.config["train_neg_sample_args"]
+            neg_num = neg_args.get("by", 0) if neg_args["strategy"] == "by" else 0
+            self._loops[scheme] = DeviceEpochLoop(
+                train_mode2state[scheme], None, train_data,
+                self.config["MODEL_INPUT_TYPE"], neg_num,
+                self.model.total_num_users, self.random_source, self.device,
             )
+        loop = self._loops[scheme]
+        loop.step_fn = self._step_fn_for(scheme)
         return loop
 
-    def _fit_phase_device(self, scheme, train_data, valid_data, verbose, saved):
-        """Device-resident epochs: bulk sampling and batch assembly per epoch,
-        then the step loop (see trainer/device_loop.py)."""
-        loop = self._loop_for(scheme, train_data)
+    def _device_batch(self, batch):
+        """A host batch on the trainer's device: integer fields as int32 (the
+        device loop's id type), the rest as float32."""
+        return {k: torch.as_tensor(np.asarray(v, np.int32 if np.asarray(v).dtype.kind in "iu"
+                                              else np.float32), device=self.device)
+                for k, v in batch.items()}
+
+    def _host_epoch(self, scheme, train_data, step_fn, epoch):
+        """One epoch of the host batch path: every batch of the loader through
+        ``model.augment_batch``, to the device, one optimizer step. Returns
+        (summed loss as a device scalar, examples: the batches' weighted
+        slots)."""
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        examples = 0
+        for i, batch in enumerate(train_data):
+            batch = self.model.augment_batch(batch, scheme)
+            examples += sum(len(v) for k, v in batch.items() if k.endswith("sample_weight"))
+            rng = functools.partial(self.random_source.dropout_bits, epoch, i)
+            total = total + step_fn(self._device_batch(batch), rng)
+        return total, examples
+
+    def _fit_phase(self, scheme, run_epoch, valid_data, verbose, saved):
+        """The phase's epochs, ``run_epoch(epoch) -> (loss, examples)`` each,
+        with validation every ``eval_step`` epochs and early stopping."""
         self.model.train()
         for epoch_idx in range(self.epochs):
             t0 = time.perf_counter()
-            epoch_loss = float(loop.run_epoch(epoch_idx))  # synchronizes
+            epoch_loss, examples = run_epoch(epoch_idx)
+            epoch_loss = float(epoch_loss)  # synchronizes
             dt = time.perf_counter() - t0
             self.train_loss_dict[epoch_idx] = epoch_loss
             record = {"phase": scheme, "epoch": epoch_idx, "loss": epoch_loss,
-                      "train_seconds": dt,
-                      "train_examples": loop.examples_per_step * loop.steps_per_epoch}
+                      "train_seconds": dt, "train_examples": examples}
             self.history.append(record)
             if verbose:
                 self.logger.info(
@@ -472,3 +523,14 @@ class CrossDomainTrainer:
         if self.model.phase != "OVERLAP":
             self.model.set_phase("OVERLAP")
         return self._evaluate_batches("OVERLAP", eval_data)
+
+
+class DCDCSRTrainer(CrossDomainTrainer):
+    """DCDCSR's variant: no validation during the BOTH (mapping) phase
+    (``recbole_cdr_tpu/trainer/trainer.py:1068-1075``, reference
+    `trainer/trainer.py:124-125`)."""
+
+    def _route_valid(self, scheme, valid_data):
+        if scheme == "BOTH":
+            return None
+        return super()._route_valid(scheme, valid_data)

@@ -6,7 +6,11 @@ nested dicts become dotted names (NATR's ``{"transfer": {"w", "b"}}`` is the
 port's ``transfer.w`` and ``transfer.b``) and lists take their positions
 (DTCDR's ``{"source_mlp": [{"w", "b"}, ...]}`` is ``source_mlp.0.w``, ...,
 the names of an ``nn.ModuleList``), so the JAX and torch versions of a model
-can run from one set of weights.
+can run from one set of weights. Entries the port keeps as buffers, not
+parameters (DCDCSR's ``benchmark_embedding`` and ``affine_embedding``),
+convert the same way, at whatever shape the JAX tree holds them:
+``CrossDomainRecommender.load_state_dict`` takes a buffer at the state
+dict's shape.
 """
 
 import numpy as np

@@ -2,24 +2,27 @@
 
 Capability parity with ``get_model`` / ``get_trainer``
 (`recbole_cdr/utils/utils.py:16-59`) for the models this package has ported:
-CMF, BiTGCF, NATR and DTCDR, with the generic :class:`CrossDomainTrainer`. The other models of the JAX
-package are queued in ROADMAP.md (item A8) and raise here.
+CMF, BiTGCF, NATR, DTCDR, DCDCSR, EMCDR and SSCDR. A model trains with
+``<Model>Trainer`` where ``recbole_cdr_tpu_torch.trainer`` has one (DCDCSR),
+else with the generic :class:`CrossDomainTrainer`. CLFM, CoNet and DeepAPF
+are queued in ROADMAP.md (item A8.2) and raise here.
 """
 
 import importlib
 
 #: model name -> module under ``recbole_cdr_tpu_torch.models``
-_PORTED = {"CMF": "cmf", "BiTGCF": "bitgcf", "NATR": "natr", "DTCDR": "dtcdr"}
+_PORTED = {"CMF": "cmf", "BiTGCF": "bitgcf", "NATR": "natr", "DTCDR": "dtcdr",
+           "DCDCSR": "dcdcsr", "EMCDR": "emcdr", "SSCDR": "sscdr"}
 
-#: models of the reference that are still to be ported (ROADMAP.md A8)
-_QUEUED = ("EMCDR", "CLFM", "CoNet", "DeepAPF", "SSCDR", "DCDCSR")
+#: models of the reference that are still to be ported (ROADMAP.md A8.2)
+_QUEUED = ("CLFM", "CoNet", "DeepAPF")
 
 
 def get_model(model_name: str):
     """Resolve a model name (e.g. ``"CMF"``) to its model class."""
     if model_name in _QUEUED:
         raise NotImplementedError(
-            f"Model [{model_name}] is not ported to PyTorch yet (ROADMAP.md A8)"
+            f"Model [{model_name}] is not ported to PyTorch yet (ROADMAP.md A8.2)"
         )
     if model_name not in _PORTED:
         raise ValueError(f"Model [{model_name}] not found")
@@ -30,9 +33,10 @@ def get_model(model_name: str):
 
 
 def get_trainer(model_type, model_name: str):
-    """Resolve the trainer class for a model: every ported model trains with
-    the generic :class:`CrossDomainTrainer`."""
+    """Resolve the trainer class for a model: ``<Model>Trainer`` if the
+    trainer package has one, else the generic :class:`CrossDomainTrainer`
+    (``recbole_cdr_tpu/utils/registry.py:23-29``)."""
     get_model(model_name)
-    from recbole_cdr_tpu_torch.trainer import CrossDomainTrainer
-
-    return CrossDomainTrainer
+    trainer_module = importlib.import_module("recbole_cdr_tpu_torch.trainer")
+    return getattr(trainer_module, f"{model_name}Trainer",
+                   trainer_module.CrossDomainTrainer)

@@ -20,8 +20,12 @@ candidate form of ``rank_sum`` with fewer candidates than k, fully padded
 rows and ties; the streaming evaluator's metrics against the dense path's
 for CMF on real-valued factors. Plus the entry point on the card, on the
 dense path, on the catalog path (sparse optimizer, streaming evaluation),
-for BiTGCF, for NATR with GAUC, and for DTCDR in the candidate and labeled
-eval modes.
+for BiTGCF, for NATR with GAUC, for DTCDR in the candidate and labeled
+eval modes, and for DCDCSR, EMCDR (both forms) and SSCDR. DCDCSR's benchmark
+top-k (B12) at every list width (k of 1 to 32), D not a multiple of 4 and
+above one 64-column chunk, fewer overlapped rows than one staged tile, more
+column splits than the card needs, all-zero rows (ties: ids 0..k-1) and NaN
+where ``sn + t_pop`` is 0, and two runs bit-equal.
 
 Marked ``cuda``; without a card every test skips. On the card (where jax is
 not installed, so the repository's conftest cannot load):
@@ -35,6 +39,7 @@ import pytest
 import torch
 
 from recbole_cdr_tpu_torch import ops
+from recbole_cdr_tpu_torch.ops import benchmark_topk as b12
 from recbole_cdr_tpu_torch.ops import candidate_topk as b10
 from recbole_cdr_tpu_torch.ops import gather_dot as k1
 from recbole_cdr_tpu_torch.ops import graph_layer as b8
@@ -612,3 +617,53 @@ def test_dtcdr_on_the_card(gen, tmp_path, monkeypatch, mode):
     path += ("neg_sampler", "swap_or_not", "rating_vector_forward", "rating_vector_backward")
     assert all(counts[k] > 0 for k in path), counts
     assert all(counts[k] == 0 for k in counts if k not in path), counts
+
+
+@pytest.mark.parametrize("M,n_ov,D,k", [(9000, 2001, 64, 10), (300, 20, 37, 1),
+                                        (1000, 500, 130, 17), (70, 33, 8, 32),
+                                        (5, 2001, 64, 16)])
+def test_benchmark_topk_matches_plain(gen, M, n_ov, D, k):
+    """B12 against its plain version: ids exact where the k-th and (k+1)-th
+    similarity differ by more than 1e-5 (the all-zero rows: exactly 0..k-1),
+    the rows within 1e-5 + 1e-5·|x| there, NaN where ``sn + t_pop`` is 0;
+    two runs bit-equal."""
+    rest = torch.randn((M, D), generator=gen, device="cuda") * 0.3
+    src = torch.randn((n_ov, D), generator=gen, device="cuda") * 0.3
+    rest[::3] = 0.0
+    s_pop = _ints(0, 5, (n_ov,), gen).float()
+    t_pop = _ints(0, 5, (M,), gen).float()
+    out, idx, sim = b12.benchmark_topk(rest, src, s_pop, t_pop, k)
+    out2, idx2, sim2 = b12.benchmark_topk(rest, src, s_pop, t_pop, k)
+    assert torch.equal(idx, idx2) and torch.equal(sim, sim2)
+    assert torch.equal(out.nan_to_num(7.0), out2.nan_to_num(7.0))
+    p_out, p_idx, p_sim = b12.benchmark_topk_plain(rest, src, s_pop, t_pop, k)
+    zero = (rest == 0).all(1)
+    assert (idx[zero] == torch.arange(k, device="cuda")).all()
+    srt = torch.sort((rest.double() @ src.double().T), 1, descending=True).values
+    clear = (srt[:, k - 1] - srt[:, k] > 1e-5 if n_ov > k
+             else torch.ones(M, dtype=torch.bool, device="cuda")) | zero
+    assert clear.float().mean() > 0.5
+    assert torch.equal(idx[clear].sort(1).values, p_idx[clear].sort(1).values)
+    torch.testing.assert_close(sim, p_sim, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out[clear], p_out[clear], atol=1e-5, rtol=1e-5, equal_nan=True)
+    assert torch.isnan(out).any() == torch.isnan(p_out).any()
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("DCDCSR", {"train_epochs": ["SOURCE:1", "TARGET:1", "BOTH:1", "TARGET:1"]}),
+    ("EMCDR", {"train_epochs": ["SOURCE:1", "TARGET:1", "OVERLAP:1"]}),
+    ("EMCDR", {"train_epochs": ["SOURCE:1", "TARGET:1", "OVERLAP:1"], "loss_type": "BPR",
+               "latent_factor_model": "BPR"}),
+    ("SSCDR", {"train_epochs": ["SOURCE:1", "TARGET:1", "OVERLAP:1"]}),
+], ids=["DCDCSR", "EMCDR-CE", "EMCDR-BPR", "SSCDR"])
+def test_mapping_models_on_the_card(gen, tmp_path, monkeypatch, model, extra):
+    """The three mapping models' schedules: K2 and K3 in the device-path
+    phases, K4 in evaluation, K1 for the dot-product models, B12 once per
+    DCDCSR run; B5 to B11 never."""
+    counts = _run_on_the_card(tmp_path, monkeypatch, model=model, **extra)
+    path = ("neg_sampler", "swap_or_not", "masked_topk")
+    if model != "SSCDR":
+        path += ("gather_dot_forward", "gather_dot_backward")
+    assert all(counts[k] > 0 for k in path), counts
+    assert counts["benchmark_topk"] == (model == "DCDCSR"), counts
+    assert all(counts[k] == 0 for k in counts if k not in path + ("benchmark_topk",)), counts

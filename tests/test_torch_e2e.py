@@ -17,6 +17,7 @@ _QUICK = {"state": "ERROR", "show_progress": False, "device": "cpu",
     {"train_epochs": ["BOTH:2"], "clip_grad_norm": {"max_norm": 1.0}, "weight_decay": 1e-4},
     {"train_epochs": ["BOTH:1", "BOTH:1"], "phase_optimizer": "per_phase", "learner": "sgd"},
     {"train_epochs": ["BOTH:2"], "phase_optimizer": "sparse", "streaming_topk_threshold": 1},
+    {"train_epochs": ["BOTH:2"], "device_side_sampling": False},  # the host batch path
 ])
 def test_run_recbole_cdr_cmf_on_cpu(extra):
     result = run_recbole_cdr(model="CMF", config_dict={**_QUICK, **extra})
@@ -29,14 +30,14 @@ def test_run_recbole_cdr_cmf_on_cpu(extra):
 
 
 @pytest.mark.parametrize("model,extra", [
-    ("EMCDR", {}),
+    ("EMCDR", {"loss_type": "BPR", "neg_sampling": {"popularity": 1}}),
     ("CMF", {"compute_dtype": "bfloat16"}),
     ("CMF", {"mesh_shape": {"data": 2}}),
     ("CMF", {"phase_optimizer": "sparse", "profile_steps": 1}),
     ("CMF", {"learner": "adagrad"}),
     ("CMF", {"learner": "rmsprop"}),
     ("CMF", {"streaming_topk_threshold": 10, "eval_score_dtype": "bfloat16"}),
-    ("CMF", {"train_epochs": ["OVERLAP:1"]}),
+    ("CMF", {"resume_checkpoint_path": "saved/CMF.pth"}),
     ("CMF", {"neg_sampling": {"popularity": 1}}),
 ])
 def test_unported_options_raise(model, extra):

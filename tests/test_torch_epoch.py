@@ -61,8 +61,9 @@ class JaxRandomSource:
         return jax.random.fold_in(self.base_rng, epoch)
 
     def shuffle_keys(self, epoch, domain, n, shape=()):
-        r_s, r_t, _ = jax.random.split(jax.random.fold_in(self._epoch(epoch), 0xC0FFEE), 3)
-        keys, salts = jax_loop._shuffle_keys({"src": r_s, "tgt": r_t}[domain], n, tuple(shape))
+        r_s, r_t, r_o = jax.random.split(jax.random.fold_in(self._epoch(epoch), 0xC0FFEE), 3)
+        keys, salts = jax_loop._shuffle_keys({"src": r_s, "tgt": r_t, "over": r_o}[domain], n,
+                                             tuple(shape))
         return torch.from_numpy(np.asarray(keys).copy()), _u32_as_i32(salts)
 
     def _neg_rng(self, epoch, domain, step_lo):
@@ -132,3 +133,66 @@ def test_one_epoch_adam_parameter_match(hist_cap, monkeypatch):
         np.testing.assert_allclose(getattr(model, name).detach().numpy(),
                                    np.asarray(jparams[name]), rtol=5e-3, atol=1e-5,
                                    err_msg=name)
+
+
+def recording(loss_fn, seen):
+    """``loss_fn`` that also appends every step's batch, as numpy, to
+    ``seen`` in step order (an ordered host callback inside the JAX epoch's
+    scan)."""
+    def loss(params, batch, rng=None):
+        jax.debug.callback(lambda b: seen.append({k: np.asarray(v) for k, v in b.items()}),
+                           dict(batch), ordered=True)
+        return loss_fn(params, batch, rng)
+    return loss
+
+
+def assert_streams_equal(jax_batches, torch_batches):
+    """The two loops' batches, step by step: the same fields, bit-equal."""
+    assert len(torch_batches) == len(jax_batches) >= 2
+    for step, (j, t) in enumerate(zip(jax_batches, torch_batches)):
+        assert sorted(j) == sorted(t), (step, sorted(j), sorted(t))
+        for k in j:
+            np.testing.assert_array_equal(t[k], j[k], err_msg=f"step {step} {k}")
+
+
+@pytest.mark.parametrize("phase", ["SOURCE", "TARGET"])
+def test_pairwise_stream_matches_jax(phase):
+    """One epoch of a PAIRWISE phase (DCDCSR's BPR): every step's users,
+    positives, ``neg_<item id>`` column and weights bit-equal to the JAX
+    DeviceEpochLoop's under JAX's bits, and no label field."""
+    from recbole_cdr_tpu.models.dcdcsr import DCDCSR as JaxDCDCSR
+
+    cfg = {"state": "ERROR", "train_batch_size": 512, "device": "cpu"}
+    base_rng = jax.random.PRNGKey(5)
+    jconfig = JaxConfig(model="DCDCSR", config_dict=cfg, _cli_args=[])
+    jax_init_seed(jconfig["seed"], True)
+    jdataset = JaxDataset(jconfig)
+    jtrain, _, _ = jax_data_preparation(jconfig, jdataset)
+    jmodel = JaxDCDCSR(jconfig, jdataset)
+    params0 = jmodel.init_params(jax.random.PRNGKey(7))
+    assert jconfig["MODEL_INPUT_TYPE"].name == "PAIRWISE"
+    sopt = SingleOptimizer(jconfig)
+    seen = []
+    jl = jax_loop.DeviceEpochLoop(
+        JaxTrainMode[phase], recording(jmodel.loss_fn(phase), seen),
+        sopt.for_phase(lambda k: True, list(params0)), jtrain, jconfig["MODEL_INPUT_TYPE"], 1,
+        jmodel.total_num_users, base_rng, donate=False)
+    jax.block_until_ready(jl.run_epoch(params0, sopt.init(params0), 0))
+    jax.effects_barrier()
+
+    tconfig = CDRConfig(model="DCDCSR", config_dict=cfg, _cli_args=[])
+    init_seed(tconfig["seed"], True)
+    ttrain, _, _ = data_preparation(tconfig, CrossDomainDataset(tconfig))
+    got = []
+
+    def step(batch, rng=None):
+        got.append({k: v.numpy().copy() for k, v in batch.items()})
+        return torch.zeros(())
+
+    tl = torch_loop.DeviceEpochLoop(
+        TrainMode[phase], step, ttrain, tconfig["MODEL_INPUT_TYPE"], 1,
+        jmodel.total_num_users, JaxRandomSource(base_rng), "cpu")
+    tl.run_epoch(0)
+    assert tl.examples_per_step == tl.step
+    assert not any(k.endswith("label") for k in got[0])
+    assert_streams_equal(seen, got)

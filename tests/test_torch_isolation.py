@@ -1,8 +1,8 @@
 """The port imports neither jax nor the JAX package: a source scan of the
 package and chip_smoke.py, and a fresh interpreter that imports every module
 of the package and runs the entry point, on the dense path, on the sparse
-optimizer with the streaming evaluator, for BiTGCF, and for NATR with
-GAUC."""
+optimizer with the streaming evaluator, for BiTGCF, for NATR with GAUC,
+and for DCDCSR's and SSCDR's phases (the host batch path included)."""
 
 import ast
 import os
@@ -51,7 +51,10 @@ for model, extra in (("CMF", {}),
                      ("CMF", {"phase_optimizer": "sparse", "streaming_topk_threshold": 1}),
                      ("BiTGCF", {}),
                      ("NATR", {"train_epochs": ["SOURCE:1", "TARGET:1"],
-                               "metrics": ["Recall", "GAUC"]})):
+                               "metrics": ["Recall", "GAUC"]}),
+                     ("DCDCSR", {"train_epochs": ["SOURCE:1", "TARGET:1", "BOTH:1",
+                                                  "TARGET:1"]}),
+                     ("SSCDR", {"train_epochs": ["TARGET:1", "OVERLAP:1"]})):
     res = pkg.run_recbole_cdr(model=model, config_dict={
         "state": "ERROR", "device": "cpu", "train_epochs": ["BOTH:1"],
         "train_batch_size": 2048, **extra})
@@ -78,5 +81,7 @@ def test_every_module_is_scanned():
             "recbole_cdr_tpu_torch.evaluator.evaluator", "recbole_cdr_tpu_torch.ops.topk",
             "recbole_cdr_tpu_torch.ops.sparse_adam", "recbole_cdr_tpu_torch.ops.graph_layer",
             "recbole_cdr_tpu_torch.models.bitgcf", "recbole_cdr_tpu_torch.models.natr",
-            "recbole_cdr_tpu_torch.ops.natr_attention", "recbole_cdr_tpu_torch.ops.rank_sum"} <= mods
+            "recbole_cdr_tpu_torch.ops.natr_attention", "recbole_cdr_tpu_torch.ops.rank_sum",
+            "recbole_cdr_tpu_torch.ops.benchmark_topk", "recbole_cdr_tpu_torch.models.dcdcsr",
+            "recbole_cdr_tpu_torch.models.emcdr", "recbole_cdr_tpu_torch.models.sscdr"} <= mods
     assert len(list(_sources())) == len(mods) + 2  # + package __init__ + chip_smoke.py

@@ -175,3 +175,67 @@ def test_one_epoch_sparse_parameter_match(sparse):
                                        np.asarray(jstate[moment][name]), rtol=5e-3, atol=1e-7,
                                        err_msg=f"{moment} {name}")
         assert opt.state["count"][name] == int(jstate["count"][name]) == tl.steps_per_epoch
+
+
+@pytest.mark.parametrize("name,phase", [("DCDCSR", "SOURCE"), ("DCDCSR", "TARGET#2"),
+                                        ("EMCDR", "OVERLAP")])
+def test_one_epoch_sparse_parameter_match_mapping_models(name, phase):
+    """The mapping models on the sparse route: DCDCSR's BPR phases (the
+    second TARGET after its affine surgery, with only the non-affine table
+    in the spec) and EMCDR's OVERLAP (``overlap`` indexes two tables at
+    offset 0), one epoch each against the JAX sparse DeviceEpochLoop."""
+    from recbole_cdr_tpu.models.dcdcsr import DCDCSR as JaxDCDCSR
+    from recbole_cdr_tpu.models.emcdr import EMCDR as JaxEMCDR
+
+    from recbole_cdr_tpu_torch.models.dcdcsr import DCDCSR
+    from recbole_cdr_tpu_torch.models.emcdr import EMCDR
+    from test_torch_dcdcsr import build_pair, jax_leaf
+
+    classes = {"DCDCSR": (JaxDCDCSR, DCDCSR), "EMCDR": (JaxEMCDR, EMCDR)}[name]
+    m = build_pair(name, *classes, {"phase_optimizer": "sparse", "overlap_batch_size": 16})
+    jmodel, params, tmodel = m["jmodel"], m["params"], m["tmodel"]
+    schedule = ("SOURCE", "TARGET", "BOTH", "TARGET") if phase == "TARGET#2" else (phase,)
+    for ph in schedule:
+        jmodel.set_phase(ph)
+        params = jmodel.mutate_params_on_phase(params, ph)
+        tmodel.set_phase(ph)
+        tmodel.mutate_params_on_phase(ph)
+    ph = schedule[-1]
+    spec, pred = jmodel.sparse_spec(ph), jmodel.trainable_predicate(ph)
+    assert spec == tmodel.sparse_spec(ph) and all(pred(t) for t in spec)
+    base_rng = jax.random.PRNGKey(4)
+    jopt = JaxSparseAdam(m["jconfig"])
+    jl = jax_loop.DeviceEpochLoop(
+        JaxTrainMode[ph], jmodel.loss_fn(ph), jopt.for_phase(pred, list(params)), m["jtrain"],
+        m["jconfig"]["MODEL_INPUT_TYPE"], 1, jmodel.total_num_users, base_rng, donate=False,
+        sparse=(spec, jopt, {k: bool(pred(k)) for k in params}))
+    jparams, jstate, jloss = jl.run_epoch(params, jopt.init(params), 0)
+
+    opt = SparseAdam(m["tconfig"], tmodel)
+    step = make_sparse_train_step(tmodel, opt, ph, spec, tmodel.trainable_predicate(ph))
+    tl = torch_loop.DeviceEpochLoop(
+        TrainMode[ph], step, m["ttrain"], m["tconfig"]["MODEL_INPUT_TYPE"], 1,
+        tmodel.total_num_users, JaxRandomSource(base_rng), "cpu")
+    assert tl.steps_per_epoch >= 2
+    np.testing.assert_allclose(float(tl.run_epoch(0)), float(jloss), **EPOCH_TOL)
+    for pname, p in tmodel.named_parameters():
+        assert p.grad is None or pname.split(".")[0] not in spec
+        np.testing.assert_allclose(p.detach().numpy(), jax_leaf(jparams, pname),
+                                   err_msg=pname, **EPOCH_TOL)
+    for table in spec:
+        assert opt.state["count"][table] == int(jstate["count"][table]) == tl.steps_per_epoch
+
+
+def test_rebase_rejects_a_shared_key_at_two_offsets():
+    """A batch key that indexes two tables must sit at one offset in both
+    index concatenations (JAX ``device_loop.py:626-637``): EMCDR's OVERLAP
+    spec re-bases ``overlap`` onto the same positions of both sub-tables; a
+    spec that puts it second in one table raises the JAX ValueError."""
+    batch = {"overlap": torch.tensor([3, 1, 3], dtype=torch.int32),
+             "other": torch.tensor([5, 6], dtype=torch.int32)}
+    shared = {"source_item_embedding": ["overlap"], "target_item_embedding": ["overlap"]}
+    batch2, idx = torch_loop.rebase_sparse_batch(batch, shared)
+    assert batch2["overlap"].tolist() == [0, 1, 2]
+    assert idx["source_item_embedding"].tolist() == idx["target_item_embedding"].tolist() == [3, 1, 3]
+    with pytest.raises(ValueError, match="reorder the spec so shared keys align"):
+        torch_loop.rebase_sparse_batch(batch, {"a": ["overlap"], "b": ["other", "overlap"]})
