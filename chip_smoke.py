@@ -96,7 +96,29 @@ Phases, in order; any failure exits non-zero:
    the k-th and (k+1)-th similarity differ by more than ``B12_GAP``, the
    all-zero rows' ids 0..k-1, the rows within ``B12_TOL``) and timed with
    its bound, plain and library times;
-9. report: the card's name and power limit, one JSON line of per-kernel
+9. mixed precision and popularity negatives: (a) the catalog path of phase
+   4 under ``compute_dtype`` and ``eval_score_dtype`` bfloat16: K1's bf16
+   form exactly once forward and once backward per step, B6 twice per step,
+   B13 (``streaming_topk_bf16``) once per streaming tile of every
+   validation and the test pass, B5 and K1's float32 form never, the
+   parameters float32, the peak allocation under phase 4's limit, and the
+   test Recall@10 printed beside phase 4's; (b) CMF on the dense pair with
+   popularity training negatives and adagrad (``ADAGRAD_LR``), BOTH:3;
+   (c) EMCDR's BPR form at its published width with popularity negatives
+   and rmsprop (``RMSPROP_LR``), SOURCE, TARGET, OVERLAP, 2 epochs each. In
+   (b) and (c) B2a (``neg_sampler_popularity``) launches exactly once per
+   epoch and stream and K2 never, every phase's loss drops by more than
+   ``LEARN_LOSS_DROP`` and the test Recall@10 reaches
+   ``LEARN_RECALL_OVER_RANDOM`` times a random ranking's, which a learner
+   that does not move the weights fails; (b) prints the first step's
+   gradient RMS and the target negatives' frequency of the 10 most popular
+   items beside their popularity shares. In every run the metrics are
+   finite. Then K1-bf16 is held against its plain version on (a)'s first
+   sparse step (its gathered sub-tables), and every B2a call of (b) and (c)
+   exactly against its plain version; these two kernels' top-level records
+   are timed there (the largest B2a call), their phase-2 records kept under
+   ``shapes``;
+10. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
 B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
@@ -133,6 +155,18 @@ pair. K4 and B7 are also held and timed on that tile's probabilities, the
 shape of most of their launches on the NATR path, under the record's
 ``shapes``.
 
+Phase 2 holds this slice's kernels too: K1's bf16 form forward and
+backward at the dense step's pairs (``K1_BF16_TOL``; the backward's library
+yardstick is one ``index_add_`` per table, as for B1's); B13 on phase 4's
+streaming tile cast to bf16 (scores within ``B13_TOL``, ids equal wherever
+neighbouring scores differ by more; bound: one bf16 tensor-core product a
+score; library: B5's route on the exactly upcast operands); B2a exactly,
+at a catalog source-stream epoch (one slot per source interaction, the
+stream's history matrix, the alias table of its items). B2a's bound
+(``b2a_work``) charges bytes: the two bit streams, the uids and the output,
+each distinct user's real history entries and the alias table, once each,
+and one draw's operations per slot.
+
 B11 (``rating_vector_forward`` / ``rating_vector_backward``) is held in
 phase 2 at a DMF training step's shapes (16,384 ids, both domains' pairs)
 on each of its four histories, the source item side (every id's history of
@@ -158,7 +192,10 @@ and the catalog path without writing their traces (the copy-back is
 bounded); and for the mapping models' phases, each entered after the
 phases before it in the schedule: DCDCSR's TARGET (the pairwise stream)
 and BOTH (the host batch path, which has no validation), EMCDR's OVERLAP
-(the OVERLAP stream), SSCDR's OVERLAP (the host path).
+(the OVERLAP stream), SSCDR's OVERLAP (the host path); and phase 9's
+paths: CMF's BOTH with popularity negatives and adagrad, EMCDR's BPR SOURCE
+phase with popularity negatives and rmsprop, and the catalog path in bf16,
+last.
 
 Nothing here imports jax or the JAX package.
 """
@@ -258,6 +295,18 @@ PEAK_SCALAR_OPS_PER_S = 67e12
 #: products (2 D flops each) per float32 score
 PEAK_TF32_OPS_PER_S = 495e12
 TF32_PRODUCTS_PER_SCORE = 3
+#: the dense bf16 tensor-core rate: B13 scores in one bf16 product
+PEAK_BF16_OPS_PER_S = 989e12
+
+#: phase 9's paths: (a) the catalog path in bf16, (b) CMF on the dense pair
+#: with popularity negatives and adagrad, (c) EMCDR BPR with popularity
+#: negatives and rmsprop
+BF16_CATALOG_PATH = ("gather_dot_forward_bf16", "gather_dot_backward_bf16", "neg_sampler",
+                     "swap_or_not", "streaming_topk_bf16", "sparse_adam")
+POPULARITY_CMF_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler_popularity",
+                       "swap_or_not", "masked_topk")
+POPULARITY_EMCDR_PATH = POPULARITY_CMF_PATH
+POPULARITY_EMCDR_SCHEDULE = ("SOURCE", "TARGET", "OVERLAP")
 
 #: K1 tolerance, |kernel - plain| <= ATOL + RTOL * max|plain|: the forward
 #: sums the D products in another order than torch; the backward adds with
@@ -307,6 +356,20 @@ B11_TOL = (1e-6, 2 ** -18)
 #: as sets, and position by position on all-zero rows (every similarity 0)
 B12_TOL = (1e-5, 1e-5)
 B12_GAP = 1e-5
+
+#: B13 score tolerance, |kernel - plain| <= ATOL + RTOL * the sum of the
+#: absolute values of a score's D products: both sides multiply bf16 values
+#: exactly in float32 and sum in float32 in other orders (the tensor cores
+#: may cut rather than round each add); D <= 64 adds of at most 2^-23 each
+#: bound the difference by 2^-17 of that sum, RTOL doubles it. Ids must agree
+#: wherever neighbouring scores differ by more
+B13_TOL = (1e-6, 2 ** -16)
+
+#: K1-bf16 tolerance: scores within one bf16 ulp of the plain version's plus
+#: ``RTOL`` of the sum of the products' magnitudes (both sum in float32 and
+#: round once); gradients within 2^-8 of the sum of the magnitudes of the
+#: terms each adds (float32 atomics, one rounding to bf16)
+K1_BF16_TOL = {"forward": 2 ** -18, "backward": 2 ** -8}
 
 
 #: cycles of the spin kernel that holds the stream while the host queues
@@ -549,12 +612,14 @@ def call_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes, n_ops, tf32_ops=0):
+def bound(n_bytes, n_ops, tf32_ops=0, bf16_ops=0):
     """(least ms, "bytes" or "operations"): the larger of the bytes over the
     memory rate and the operations over their peak, ``n_ops`` 32-bit scalar
-    operations on the CUDA cores plus ``tf32_ops`` on the tensor cores."""
+    operations on the CUDA cores plus ``tf32_ops`` and ``bf16_ops`` on the
+    tensor cores."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (n_ops / PEAK_SCALAR_OPS_PER_S + tf32_ops / PEAK_TF32_OPS_PER_S) * 1e3
+    t_ops = (n_ops / PEAK_SCALAR_OPS_PER_S + tf32_ops / PEAK_TF32_OPS_PER_S
+             + bf16_ops / PEAK_BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -564,11 +629,11 @@ def make_recorder(out):
     record under ``out[name]``."""
 
     def record(name, kernel_fn, plain_fn, equal, n_bytes, n_ops, library_fn=None, reps=20,
-               shape=None, tf32_ops=0):
+               shape=None, tf32_ops=0, bf16_ops=0):
         """Time a kernel, its plain version and its library call; with
         ``shape``, as a second shape of an already recorded kernel, kept
         under the record's ``shapes``."""
-        b_ms, b_by = bound(n_bytes, n_ops, tf32_ops)
+        b_ms, b_by = bound(n_bytes, n_ops, tf32_ops, bf16_ops)
         timed = {"ms": device_ms(kernel_fn, reps),
                  "plain_ms": device_ms(plain_fn, max(3, reps // 4), 1)}
         if library_fn:
@@ -697,7 +762,12 @@ def kernel_checks(dev):
     record("gather_dot_backward",
            lambda: k1.gather_dot_backward(U, I, uu, ii, gg),
            lambda: k1.gather_dot_backward_plain(U, I, uu, ii, gg),
-           err, 12 * P + rows + (U.numel() + I.numel()) * 4, 4 * P * D)
+           err, 12 * P + rows + (U.numel() + I.numel()) * 4, 4 * P * D,
+           library_fn=lambda: library_gather_dot_backward(U, I, uu, ii, gg))
+
+    # ---- K1-bf16: the same step's pairs on bf16 tables (compute_dtype) --
+    check_k1_bf16(record, U.to(torch.bfloat16), I.to(torch.bfloat16), uu, ii,
+                  gg.to(torch.bfloat16))
 
     # ---- K4: one dense eval tile of the validation split ----------------
     ev = FullSortEvaluator(config)
@@ -852,7 +922,37 @@ def kernel_checks(dev):
     out["streaming_topk"]["scalar_bound_ms"] = bound(b5_bytes, 2 * B * n_items * D)[0]
     print(f"  streaming_topk: [{B} x {D}] against [{n_items} x {D}], k {k}; bound on the "
           f"CUDA cores {out['streaming_topk']['scalar_bound_ms']:.4f} ms", flush=True)
+
+    # ---- B13: the same tile on bf16 factors (eval_score_dtype bfloat16) --
+    Ub, Tb = Un.to(torch.bfloat16), Tn.to(torch.bfloat16)
     del Un, Tn
+    (a_s, a_i), (b_s, b_i) = (b5.streaming_topk_bf16(Ub, Tb, rp, it, k),
+                              b5.streaming_topk_bf16_plain(Ub, Tb, rp, it, k))
+    absum = (Ub.float().abs()[:, None, :] * Tb.float().abs()[b_i.long()]).sum(-1)
+    tol = B13_TOL[0] + B13_TOL[1] * absum
+    err = float((a_s - b_s).abs().max())
+    assert bool(((a_s - b_s).abs() <= tol).all()), f"streaming_topk_bf16 score error {err}"
+    gap = torch.diff(b_s, dim=1).abs() > tol[:, 1:]
+    clear = torch.ones_like(gap[:, :1])
+    clear = torch.cat([clear, gap], 1) & torch.cat([gap, clear], 1)
+    assert torch.equal(a_i[clear], b_i[clear]), "streaming_topk_bf16 ids differ where scores do not tie"
+    print(f"  streaming_topk_bf16: {int(clear.sum())} of {clear.numel()} ids clear of a near "
+          f"tie, all equal; max score error {err:.3g}", flush=True)
+    Uu, Tu = Ub.float(), Tb.float()  # the exact upcast: the library route's operands
+
+    def library_streaming_bf16():
+        sc = Uu @ Tu.T
+        sc[rows_h, it_h] = torch.finfo(torch.float32).min
+        sc[:, 0] = torch.finfo(torch.float32).min
+        return torch.topk(sc, k, dim=1).indices
+
+    b13_bytes = Tb.numel() * 2 + Ub.numel() * 2 + (B + 1 + n_pairs) * 4 + B * k * 8
+    record("streaming_topk_bf16",
+           lambda: b5.streaming_topk_bf16(Ub, Tb, rp, it, k),
+           lambda: b5.streaming_topk_bf16_plain(Ub, Tb, rp, it, k),
+           err, b13_bytes, 0, library_fn=library_streaming_bf16, reps=10,
+           bf16_ops=2 * B * n_items * D)
+    del Ub, Tb, Uu, Tu
 
     # ---- B6: the item-table updates of three train steps -----------------
     cloop = DeviceEpochLoop(TrainMode.BOTH, None, ctrain, cconfig["MODEL_INPUT_TYPE"], 1,
@@ -899,7 +999,141 @@ def kernel_checks(dev):
            lambda: b6.sparse_adam_plain(*plain, G, ids, step, 0.9, 0.999, 1e-8),
            err, G.numel() * 4 + R * 4 + 6 * n_rows * D * 4, n_rows * D * 12 + R * D,
            library_fn=topt.step)
+    del kern, plain, tp, topt, P0, grads, firstpos
+
+    # ---- B2a: popularity negatives of one epoch of the source stream ------
+    popularity_checks(dev, g, ctrain, cdataset, record)
     return out
+
+
+def check_k1_bf16(record, Ub, Ib, uu, ii, gb):
+    """Hold K1's bf16 form, forward and backward, against its plain version
+    on one step's 16-bit tables, ids and score gradients within
+    ``K1_BF16_TOL``, and time both directions through ``record``."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import gather_dot as k1
+
+    P, D = uu.shape[0], Ub.shape[1]
+    a = k1.gather_dot_forward_bf16(Ub, Ib, uu, ii)
+    b = k1.gather_dot_plain(Ub, Ib, uu, ii)
+    absum = k1.gather_dot_plain(Ub.float().abs(), Ib.float().abs(), uu, ii)
+    diff = (a.float() - b.float()).abs()
+    tol = torch.finfo(torch.bfloat16).eps * b.float().abs() + K1_BF16_TOL["forward"] * absum
+    assert a.dtype == torch.bfloat16 and bool((diff <= tol).all()), \
+        f"gather_dot_forward_bf16 error {float(diff.max())}"
+    rows16 = 2 * D * (torch.unique(uu).numel() + torch.unique(ii).numel())
+    print(f"  K1-bf16: {P} pairs on [{Ub.shape[0]}, {D}] and [{Ib.shape[0]}, {D}] bf16 tables",
+          flush=True)
+    record("gather_dot_forward_bf16",
+           lambda: k1.gather_dot_forward_bf16(Ub, Ib, uu, ii),
+           lambda: k1.gather_dot_plain(Ub, Ib, uu, ii),
+           float(diff.max()), 8 * P + rows16 + 2 * P, 2 * P * D,
+           library_fn=lambda: (Ub[uu] * Ib[ii]).sum(-1))
+    dU, dI = k1.gather_dot_backward_bf16(Ub, Ib, uu, ii, gb)
+    pU, pI = k1.gather_dot_backward_plain(Ub, Ib, uu, ii, gb)
+    aU, aI = k1.gather_dot_backward_plain(Ub.float().abs(), Ib.float().abs(), uu, ii,
+                                          gb.float().abs())
+    err = 0.0
+    for got, want, absum in ((dU, pU, aU), (dI, pI, aI)):
+        diff = (got.float() - want.float()).abs()
+        assert got.dtype == torch.bfloat16 and bool(
+            (diff <= K1_BF16_TOL["backward"] * absum + 1e-6).all()), \
+            f"gather_dot_backward_bf16 error {float(diff.max())}"
+        err = max(err, float(diff.max()))
+    record("gather_dot_backward_bf16",
+           lambda: k1.gather_dot_backward_bf16(Ub, Ib, uu, ii, gb),
+           lambda: k1.gather_dot_backward_plain(Ub, Ib, uu, ii, gb),
+           err, 10 * P + rows16 + (Ub.numel() + Ib.numel()) * 2, 4 * P * D,
+           library_fn=lambda: library_gather_dot_backward(Ub, Ib, uu, ii, gb))
+
+
+def library_gather_dot_backward(U, I, u, i, g):
+    """K1's backward as PyTorch calls: one ``index_add_`` of ``g * other
+    row`` into each table, in the tables' type."""
+    import torch
+
+    u, i = u.long(), i.long()
+    return (torch.zeros_like(U).index_add_(0, u, g[:, None] * I[i]),
+            torch.zeros_like(I).index_add_(0, i, g[:, None] * U[u]))
+
+
+def popularity_checks(dev, g, ctrain, cdataset, record):
+    """B2a held exactly against its plain version at a catalog source-stream
+    epoch's shapes: one slot per source interaction (its user, in a random
+    order), the stream's full-width history matrix and the alias table of
+    its training interactions' items, and timed."""
+    import numpy as np
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import neg_sampler as k2
+    from recbole_cdr_tpu_torch.sampler.sampler import _AliasTable
+    from recbole_cdr_tpu_torch.trainer.device_loop import DomainDeviceData
+
+    table = ctrain.source_batcher.table
+    data = DomainDeviceData(table, ctrain.source_batcher.sampler, cdataset.num_total_user, dev)
+    at = _AliasTable(np.asarray(table[table.iid_field]))
+    alias = (torch.as_tensor(np.asarray(at.values, np.int32), device=dev),
+             torch.as_tensor(np.asarray(at.prob, np.float32), device=dev),
+             torch.as_tensor(np.asarray(at.alias, np.int32), device=dev))
+    uid = data.uid[torch.randperm(data.n, device=dev, generator=g)]
+    T, H, n = uid.shape[0], data.hist.shape[1], at.values.shape[0]
+    bits = lambda: torch.randint(-2 ** 31, 2 ** 31, (T,), dtype=torch.int32, device=dev,  # noqa: E731
+                                 generator=g)
+    base, accept = bits(), bits()
+    print(f"  neg_sampler_popularity at a catalog source-stream epoch: {T} slots, history "
+          f"[{data.hist.shape[0]}, {H}], alias table of {n} items", flush=True)
+    out = k2.sample_negatives_popularity(base, accept, uid, data.hist, alias, 1)
+    check_b2a(record, (base, accept, uid, data.hist, alias, 1, out))
+
+
+def b2a_work(uids, hist, alias, neg_num):
+    """(bytes, operations) that B2a's function needs for one call: the two
+    bit streams, the uids and the output, each distinct user's real history
+    entries (the padding id, the item count, is the matrix's largest entry)
+    and the alias table, each once; one draw per slot (its first round,
+    about 24 32-bit operations: two murmur3 finalisers, the modulo, the
+    acceptance test and the selects). The rounds a slot redraws and the
+    membership tests are not charged."""
+    import torch
+
+    T = uids.shape[0] * neg_num
+    rows = hist[torch.unique(uids).long()]
+    real = int((rows < hist.max()).sum())
+    return 12 * T + 4 * uids.shape[0] + 4 * real + 12 * alias[0].shape[0], 24 * T
+
+
+def check_b2a(record, call):
+    """Hold one B2a call (base, accept, uids, hist, alias, neg_num, out)
+    exactly against its plain version on the same inputs, and time it
+    through ``record``."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import neg_sampler as k2
+
+    base, accept, uids, hist, alias, neg_num, out = call
+    want = k2.sample_negatives_plain(base, uids, hist, None, neg_num, alias, accept)
+    assert torch.equal(out, want), "neg_sampler_popularity disagrees with its plain version"
+    n_bytes, n_ops = b2a_work(uids, hist, alias, neg_num)
+    record("neg_sampler_popularity",
+           lambda: k2.sample_negatives_popularity(base, accept, uids, hist, alias, neg_num),
+           lambda: k2.sample_negatives_plain(base, uids, hist, None, neg_num, alias, accept),
+           0.0, n_bytes, n_ops, reps=5)
+
+
+def main_path_recorder(records, where):
+    """A ``record`` that keeps a kernel's record at the main path's shapes
+    (``where``) as its top-level record, and the phase-2 record under its
+    ``shapes``."""
+    record = make_recorder(records)
+
+    def at_main_path(name, *args, **kwargs):
+        earlier = records.pop(name)
+        shapes = {"phase 2": earlier, **earlier.pop("shapes", {})}
+        record(name, *args, **kwargs)
+        records[name].update(shapes=shapes, at=where)
+
+    return at_main_path
 
 
 def history_pairs(rp, items):
@@ -1489,7 +1723,11 @@ def main():
             profile_epoch(dev, mapping_config(model, schedule),
                           f"{model.lower()}_{scheme.lower()}_", export=False, model=model,
                           scheme=scheme, prelude=prelude)
+        profile_epoch(dev, popularity_cmf_config(), "popularity_cmf_", export=False)
+        profile_epoch(dev, popularity_emcdr_config(), "popularity_emcdr_source_",
+                      export=False, model="EMCDR", scheme="SOURCE")
         profile_epoch(dev, catalog_config(), "catalog_", export=False)  # traces of ~100 MB
+        profile_epoch(dev, bf16_catalog_config(), "bf16_catalog_", export=False)
         return 0
 
     # the checks time the kernels under torch.profiler; they run in a child
@@ -1540,6 +1778,7 @@ def main():
           flush=True)
     assert all(h["valid_peak_bytes"] - state < CATALOG_EVAL_HEADROOM for h in hist), hist
     assert len(hist) == CATALOG_EPOCHS and hist[1]["loss"] < hist[0]["loss"], hist
+    catalog_recall = result["test_result"]["recall@10"]
 
     print("== phase 5: BiTGCF path, run_recbole_cdr(model='BiTGCF') on the card", flush=True)
     del result, model
@@ -1584,6 +1823,12 @@ def main():
     torch.cuda.empty_cache()
     run_mapping_paths(counts, records)
 
+    print("== phase 9: mixed precision and popularity negatives: the catalog path in bf16, "
+          "CMF with popularity negatives and adagrad, EMCDR BPR with popularity negatives "
+          "and rmsprop", flush=True)
+    torch.cuda.empty_cache()
+    run_precision_and_popularity_paths(counts, records, catalog_recall)
+
     replaces = {
         "gather_dot_forward": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
                                "recbole_cdr_tpu/models/cmf.py:45"),
@@ -1623,6 +1868,14 @@ def main():
                                 "recbole_cdr_tpu/evaluator/evaluator.py:661"),
         "benchmark_topk": ("recbole_cdr_tpu_torch/csrc/benchmark_topk.cu",
                            "recbole_cdr_tpu/models/dcdcsr.py:179"),
+        "gather_dot_forward_bf16": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
+                                    "recbole_cdr_tpu/models/cmf.py:45"),
+        "gather_dot_backward_bf16": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
+                                     "recbole_cdr_tpu/models/cmf.py:45"),
+        "streaming_topk_bf16": ("recbole_cdr_tpu_torch/csrc/streaming_topk.cu",
+                                "recbole_cdr_tpu/evaluator/evaluator.py:511"),
+        "neg_sampler_popularity": ("recbole_cdr_tpu_torch/csrc/neg_sampler.cu",
+                                   "recbole_cdr_tpu/trainer/device_loop.py:250"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -1808,6 +2061,225 @@ def run_mapping_paths(counts, records):
         dcdcsr_module.benchmark_topk = real
     assert len(captured) == 1, len(captured)
     check_b12(captured[0], records)
+
+
+def bf16_catalog_config():
+    """Phase 9a: the catalog path under ``compute_dtype`` and
+    ``eval_score_dtype`` bfloat16 (float32 master parameters and SparseAdam
+    state)."""
+    return {**catalog_config(), "compute_dtype": "bfloat16", "eval_score_dtype": "bfloat16"}
+
+
+#: the learning rates of phases 9b and 9c. Both learners divide by a root
+#: that starts far above the squared gradients of a mean loss over 8,192
+#: pairs: phase 9b prints the first step's gradient RMS per entry of the
+#: rows it touched, about 6e-7 on the dense pair (9c's is about 1.3e-6).
+#: Adagrad's accumulator starts at 0.1 and rmsprop's eps 1e-8 sits inside
+#: its root, so a step moves an entry by about ``lr * g / sqrt(0.1)`` or
+#: ``lr * g / 1e-4`` until the gradients grow: some 6e-4 and 4e-4 at these
+#: rates, 1e-5 and 1.3e-5 at optax's usual 1e-3, which leave the scores
+#: near 0 and the loss flat. Above 0.03 rmsprop's steps throw EMCDR's
+#: mapping phase off (its first epoch's loss in the hundreds)
+ADAGRAD_LR = 300.0
+RMSPROP_LR = 0.03
+#: a learner that learns lowers each phase's epoch loss by more than this
+#: share from its first epoch to its last; with scores near 0 every epoch's
+#: loss stays within about 3e-5 of n ln 2 (its BCE or BPR terms at score 0),
+#: whatever the negatives ...
+LEARN_LOSS_DROP = 1e-3
+#: ... and reaches a test Recall@10 this many times a random ranking's
+#: (k over the target items not in the user's training history)
+LEARN_RECALL_OVER_RANDOM = 5
+def popularity_cmf_config():
+    """Phase 9b: CMF on the dense pair, popularity negatives, adagrad (the
+    default ``phase_optimizer: single`` falls back to per phase)."""
+    return {**config_dict(), "embedding_size": 64, "neg_sampling": {"popularity": 1},
+            "learner": "adagrad", "learning_rate": ADAGRAD_LR}
+
+
+def popularity_emcdr_config():
+    """Phase 9c: EMCDR's BPR form at its published width on the dense pair,
+    popularity negatives, rmsprop."""
+    return {**mapping_config("EMCDR", POPULARITY_EMCDR_SCHEDULE), "loss_type": "BPR",
+            "latent_factor_model": "BPR", "neg_sampling": {"popularity": 1},
+            "learner": "rmsprop", "learning_rate": RMSPROP_LR,
+            "phase_optimizer": "per_phase"}
+
+
+def run_precision_and_popularity_paths(counts, records, catalog_recall):
+    """Phase 9: (a) the catalog path in bf16: K1's bf16 form once forward
+    and once backward per step, B6, K2, K3, and B13 once per streaming tile
+    of every validation and the test pass, never B5; the loss falls, the
+    metrics are finite and the peak allocation stays under phase 4's limit;
+    (b) CMF with popularity negatives and adagrad and (c) EMCDR BPR with
+    popularity negatives and rmsprop: B2a once per epoch and stream, never
+    K2; every phase's loss drops by more than ``LEARN_LOSS_DROP`` and the
+    test Recall@10 reaches ``LEARN_RECALL_OVER_RANDOM`` times a random
+    ranking's; the metrics are finite. (b) prints the first step's gradient
+    RMS and the empirical negative frequency of the target domain's 10 most
+    popular items beside their popularity shares. Then the kernels are held
+    against their plain versions at these paths' own shapes and timed into
+    ``records``: K1-bf16 on the first sparse step of (a) (its sub-tables),
+    every B2a call of (b) and (c) exactly, the largest timed."""
+    import numpy as np
+    import torch
+
+    import recbole_cdr_tpu_torch.ops.gather_dot as k1
+    import recbole_cdr_tpu_torch.trainer.device_loop as loop_module
+    import recbole_cdr_tpu_torch.trainer.trainer as trainer_module
+    from recbole_cdr_tpu_torch import ops, run_recbole_cdr
+    from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator
+
+    print("-- 9a: catalog path, compute_dtype and eval_score_dtype bfloat16", flush=True)
+    k1_step = []
+    real_k1 = k1._backward
+
+    def capture_k1(U, I, u, i, g, name):  # the launcher under the counting wrapper
+        if not k1_step and name == "gather_dot_backward_bf16":
+            k1_step.append(tuple(t.clone() for t in (U, I, u, i, g)))
+        return real_k1(U, I, u, i, g, name)
+
+    k1._backward = capture_k1
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run_recbole_cdr(model="CMF", config_dict=bf16_catalog_config(), saved=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        k1._backward = real_k1
+    counts["bf16_catalog"] = c = ops.launch_counts()
+    hist = _report_run(result, wall, c, BF16_CATALOG_PATH)
+    model = result["model"]
+    assert all(p.dtype == torch.float32 and p.grad is None for p in model.parameters())
+    state = 3 * sum(p.numel() * p.element_size() for p in model.parameters())
+    assert all(h["valid_peak_bytes"] - state < CATALOG_EVAL_HEADROOM for h in hist), hist
+    assert len(hist) == CATALOG_EPOCHS and hist[-1]["loss"] < hist[0]["loss"], hist
+    block = FullSortEvaluator.STREAM_USER_BLOCK
+    tiles = sum(-(-h["valid_users"] // block) for h in hist) + -(-result["test_users"] // block)
+    # a BOTH step: each domain's BATCH slots (positives and their negatives)
+    steps = sum(h["train_examples"] for h in hist) // (2 * BATCH)
+    want = {"streaming_topk_bf16": tiles, "gather_dot_forward_bf16": steps,
+            "gather_dot_backward_bf16": steps, "sparse_adam": 2 * steps}
+    print(f"{steps} steps, {tiles} streaming tiles; launches {({k: c[k] for k in want})}, "
+          f"expected {want}; peak allocation up to each validation "
+          + ", ".join(f"{h['valid_peak_bytes'] / 2 ** 30:.3f} GiB" for h in hist), flush=True)
+    assert all(c[k] == v for k, v in want.items()), (c, want)
+    print(f"test recall@10: bf16 {result['test_result']['recall@10']} beside float32 "
+          f"{catalog_recall} (phase 4)", flush=True)
+    del result, model
+    torch.cuda.empty_cache()
+
+    drawn = []
+    grad_rms = []
+    real_b2a = loop_module.sample_negatives_popularity
+
+    def capture_b2a(base, accept, uids, hist_m, alias, neg_num):
+        out = real_b2a(base, accept, uids, hist_m, alias, neg_num)
+        drawn.append((base, accept, uids, hist_m, alias, neg_num, out.clone()))
+        return out
+
+    real_steps = {cls: cls.step for cls in (trainer_module.OptaxAdagrad,
+                                            trainer_module.OptaxRMSprop)}
+
+    def first_step_rms(real_step):
+        def step(self):
+            if not grad_rms:  # the entries of the rows the step's pairs touched
+                g = torch.cat([p.grad[p.grad.abs().sum(-1) > 0].flatten()
+                               for grp in self.param_groups for p in grp["params"]
+                               if p.grad is not None and p.grad.dim() == 2])
+                grad_rms.append(float(g.pow(2).mean().sqrt()))
+            return real_step(self)
+        return step
+
+    for name, model, cfg, path, schedule in (
+            ("popularity_cmf", "CMF", popularity_cmf_config(), POPULARITY_CMF_PATH,
+             ("BOTH",)),
+            ("popularity_emcdr", "EMCDR", popularity_emcdr_config(), POPULARITY_EMCDR_PATH,
+             POPULARITY_EMCDR_SCHEDULE)):
+        print(f"-- {'9b' if model == 'CMF' else '9c'}: {model}, popularity negatives, "
+              f"{cfg['learner']} at lr {cfg['learning_rate']}, {', '.join(cfg['train_epochs'])}",
+              flush=True)
+        first = len(drawn)
+        grad_rms.clear()
+        loop_module.sample_negatives_popularity = capture_b2a
+        for cls, real_step in real_steps.items():
+            cls.step = first_step_rms(real_step)
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = run_recbole_cdr(model=model, config_dict=cfg, saved=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            loop_module.sample_negatives_popularity = real_b2a
+            for cls, real_step in real_steps.items():
+                cls.step = real_step
+        counts[name] = c = ops.launch_counts()
+        hist = _report_run(result, wall, c, path)
+        print(f"first {cfg['learner']} step: gradient RMS {grad_rms[0]:.4g} per entry of the "
+              "touched rows", flush=True)
+        for phase in schedule:
+            losses = [h["loss"] for h in hist if h["phase"] == phase]
+            assert len(losses) > 1 and losses[-1] < (1 - LEARN_LOSS_DROP) * losses[0], \
+                (phase, losses)
+        tmodel = result["model"]
+        n_target = tmodel.target_num_items
+        # a random ranking's Recall@10 is k over a user's candidates: the
+        # target items less the PAD id and its training history, which
+        # gen_data caps at 5% of the items
+        random_recall = 10 / (n_target - 1 - max(50, N_TGT_ITEMS // 20))
+        recall = result["test_result"]["recall@10"]
+        print(f"test recall@10 {recall} against a random ranking's {random_recall:.5f}",
+              flush=True)
+        assert recall >= LEARN_RECALL_OVER_RANDOM * random_recall, (recall, random_recall)
+        streams = sum(2 if h["phase"] == "BOTH" else int(h["phase"] != "OVERLAP")
+                      for h in hist)
+        print(f"B2a launches {c['neg_sampler_popularity']}, expected {streams} (one per "
+              "epoch and stream)", flush=True)
+        assert c["neg_sampler_popularity"] == streams == len(drawn) - first, (c, streams)
+        if model == "CMF":
+            # the target stream's draws: its alias table holds target item
+            # ids only (the source's also holds source-only ids, above them)
+            tgt = [(d[4], d[6]) for d in drawn[first:] if int(d[4][0].max()) < n_target]
+            share = alias_shares(tgt[0][0], n_target)
+            neg = torch.cat([out for _, out in tgt]).cpu().numpy()
+            freq = np.bincount(neg, minlength=n_target) / len(neg)
+            top = np.argsort(-share)[:10]
+            print("target negatives, the 10 most popular items (item: popularity share, "
+                  "negative frequency): " + "; ".join(
+                      f"{i}: {share[i]:.5f}, {freq[i]:.5f}" for i in top), flush=True)
+        del result, tmodel
+        torch.cuda.empty_cache()
+
+    print("-- the kernels of phase 9 at its own shapes", flush=True)
+    check_k1_bf16(main_path_recorder(records, "9a, the first sparse step's sub-tables"),
+                  *k1_step[0])
+    for call in drawn:
+        check_b2a(lambda *a, **k: None, call)
+    largest = max(drawn, key=lambda d: d[2].shape[0])
+    print(f"B2a: all {len(drawn)} calls of 9b and 9c equal to the plain version; timed at "
+          f"the largest, {largest[2].shape[0]} slots on history [{largest[3].shape[0]}, "
+          f"{largest[3].shape[1]}]", flush=True)
+    check_b2a(main_path_recorder(records, "9b, the largest B2a call"), largest)
+
+
+def alias_shares(alias, n_items):
+    """The law an alias table draws from, per item id: each column keeps
+    ``prob`` of its 1/n share (all of it when its alias is -1) and hands the
+    rest to its alias column. These are the popularity shares of the
+    interactions the sampler counted."""
+    import numpy as np
+
+    values, prob, ali = (t.cpu().numpy() for t in alias)
+    n = len(values)
+    keep = np.where(ali < 0, 1.0, prob.astype(np.float64))
+    share = np.bincount(values, weights=keep / n, minlength=n_items)
+    moved = ali >= 0
+    share += np.bincount(values[ali[moved]], weights=(1.0 - keep[moved]) / n,
+                         minlength=n_items)
+    return share
 
 
 def check_mapping_run(model, schedule, result, hist, c):

@@ -49,12 +49,31 @@
 //      order (score desc, id asc) into ids [B, k] and their scores.
 // A range with fewer than k items pads its candidates with (-inf, INT_MAX),
 // which lose to every real column; k <= I makes them unreachable.
+//
+// B13, the bf16 form (eval_score_dtype or compute_dtype bfloat16; float16
+// through the same template). Replaces the same JAX functions on bf16 factors,
+// whose tile product is _score_dot (recbole_cdr_tpu/ops/topk.py:37-46) with
+// preferred_element_type float32, as cast in evaluator/evaluator.py:511-531
+// and :593-595. The tile kernel is B5's with one change of product: the user
+// rows and item slices stay 16-bit in shared memory (no split; a ring stage
+// holds 64 values of D, the same 128 bytes as B5's 32 floats, so the stage
+// stride, the ldmatrix addressing and its conflict-free banks carry over
+// byte for byte), and each 32-byte depth step is one
+// mma.sync.m16n8k16.f32.bf16.bf16.f32 whose fragments are loaded by the same
+// ldmatrix.x4 of 16-bit rows (A: rows g / g + 8 at k 0-7 / 8-15; B: two
+// 8-item fragments at k 0-7 / 8-15). bf16 x bf16 products are exact in
+// float32, so the card and JAX differ only in the order of the float32 sums.
+// Bound: one tensor-core product per score, 2 B I D flops over the dense
+// bf16 rate of 989 TFLOP/s (0.29 ms for [2048 x 64] against 1.1M items),
+// against B5's three TF32 products; the item table is half B5's bytes.
+// Accumulators, selection, masking and the merge are B5's.
 
 #include <cfloat>
 #include <climits>
 #include <cmath>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -65,17 +84,36 @@ constexpr int kWarpsN = kWarps / kWarpsM;  // warp columns
 constexpr int kNT = 4;                     // 8-item MMA fragments per warp and tile
 constexpr int kRows = 32 * kWarpsM;        // user rows per block
 constexpr int kCols = kWarpsN * 8 * kNT;   // items per tile
-constexpr int kDepth = 32;                 // floats of D per ring stage
-constexpr int kTStride = kDepth + 4;       // stage row stride: conflict-free fragments
 constexpr int kCap = 32;                   // survivor buffer per row
 constexpr int kMaxSmem = 227 * 1024;
 constexpr unsigned long long kEmpty = ~0ull;
 
-__host__ __device__ inline int pad8(int D) { return (D + 7) & ~7; }
+// the factors' type: B5 scores float32 factors in 3xTF32, B13 bf16 (and
+// float16) factors in one 16-bit product
+enum : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
+// per type: bytes of a value, the MMA depth, and the layout in values. A ring
+// stage holds 128 bytes of D per item (32 floats or 64 16-bit values) at a
+// row stride of 144 bytes (36 words, 4 mod 8: conflict-free ldmatrix rows);
+// the user rows pad D to the MMA depth plus 16 bytes, the same property
+template <int kType>
+struct Layout {
+  static constexpr int kBytes = kType == kF32 ? 4 : 2;
+  static constexpr int kVals16 = 16 / kBytes;       // values per 16 bytes
+  static constexpr int kMmaK = 32 / kBytes;         // MMA depth: 8 tf32, 16 bf16
+  static constexpr int kDepth = 128 / kBytes;       // values of D per ring stage
+  static constexpr int kTStride = kDepth + kVals16;  // stage row stride
+  static constexpr int kUserArrays = kType == kF32 ? 2 : 1;  // TF32 hi and lo, or raw
+  using Val = std::conditional_t<kType == kF32, float, uint16_t>;
+  __host__ __device__ static int pad(int D) { return (D + kMmaK - 1) / kMmaK * kMmaK; }
+  __host__ __device__ static int ust(int D) { return pad(D) + kVals16; }
+};
+
+template <int kType>
 size_t tile_smem_bytes(int D, int k, int stages) {
-  const size_t ust = pad8(D) + 4;  // user row stride, = 4 mod 8: conflict-free fragments
-  return 4 * (2 * kRows * ust + (size_t)stages * kCols * kTStride) +
+  using L = Layout<kType>;
+  return (size_t)L::kBytes * ((size_t)L::kUserArrays * kRows * L::ust(D) +
+                              (size_t)stages * kCols * L::kTStride) +
          8 * ((size_t)kRows * k + (size_t)kRows * kCap) + 12 * (size_t)kRows;
 }
 
@@ -166,6 +204,22 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// one 16 x 8 x 16 product of 16-bit operands, float32 accumulators
+template <int kType>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (kType == kBF16)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // ---- per-row top-k in shared memory ----------------------------------------
 
 struct Lists {
@@ -237,18 +291,25 @@ __device__ void merge_rows(const Lists& L, int k, bool force,
   }
 }
 
-template <bool kVec, int kStages>
+template <int kType, bool kVec, int kStages>
 __global__ void __launch_bounds__(kThreads, 2)
-tile_topk_kernel(const float* __restrict__ U, const float* __restrict__ T, int B, int I, int D,
+tile_topk_kernel(const typename Layout<kType>::Val* __restrict__ U,
+                 const typename Layout<kType>::Val* __restrict__ T, int B, int I, int D,
                  int span, int k, const unsigned long long* __restrict__ table, int bits,
                  float* __restrict__ cand_s, int* __restrict__ cand_i) {
+  using Lay = Layout<kType>;
+  using Val = typename Lay::Val;
+  constexpr int kDepth = Lay::kDepth, kTStride = Lay::kTStride, kV16 = Lay::kVals16;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Dp = pad8(D), ust = Dp + 4;
-  uint32_t* uh = reinterpret_cast<uint32_t*>(smem);  // [kRows][ust] TF32 high parts
-  uint32_t* ul = uh + kRows * ust;                   // [kRows][ust] TF32 residuals
-  float* ring = reinterpret_cast<float*>(ul + kRows * ust);  // [kStages][kCols][kTStride]
+  const int Dp = Lay::pad(D), ust = Lay::ust(D);
+  // float32: [kRows][ust] TF32 high parts, then residuals; 16-bit: the raw rows
+  uint32_t* uh = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* ul = uh + kRows * ust;
+  uint16_t* us = reinterpret_cast<uint16_t*>(smem);
+  Val* ring = kType == kF32 ? reinterpret_cast<Val*>(ul + kRows * ust)
+                            : reinterpret_cast<Val*>(us + kRows * ust);  // [kStages][kCols][kTStride]
   Lists L;
-  L.ls = ring + kStages * kCols * kTStride;
+  L.ls = reinterpret_cast<float*>(ring + kStages * kCols * kTStride);
   L.li = reinterpret_cast<int*>(L.ls + kRows * k);
   L.bs = reinterpret_cast<float*>(L.li + kRows * k);
   L.bi = reinterpret_cast<int*>(L.bs + kRows * kCap);
@@ -263,11 +324,15 @@ tile_topk_kernel(const float* __restrict__ U, const float* __restrict__ T, int B
   const int lo = blockIdx.y * span;
   const int hi = min(I, lo + span);
 
-  // ---- the user rows, split once; empty lists ------------------------------
+  // ---- the user rows, split once (float32) or staged raw; empty lists -----
   for (int r = warp; r < kRows; r += kWarps)
     for (int d = lane; d < Dp; d += 32) {
-      const float x = (r0 + r < B && d < D) ? __ldg(U + (long long)(r0 + r) * D + d) : 0.f;
-      split(x, uh[r * ust + d], ul[r * ust + d]);
+      const bool in = r0 + r < B && d < D;
+      if constexpr (kType == kF32)
+        split(in ? __ldg(U + (long long)(r0 + r) * D + d) : 0.f, uh[r * ust + d],
+              ul[r * ust + d]);
+      else
+        us[r * ust + d] = in ? __ldg(U + (long long)(r0 + r) * D + d) : (uint16_t)0;
     }
   for (int e = tid; e < kRows * k; e += kThreads) {
     L.ls[e] = -INFINITY;
@@ -287,22 +352,27 @@ tile_topk_kernel(const float* __restrict__ U, const float* __restrict__ T, int B
   // range and columns past D are zero-filled
   int is_tile = 0, is_kc = 0;
   auto issue = [&](int buf) {
-    float* dst = ring + buf * kCols * kTStride;
+    Val* dst = ring + buf * kCols * kTStride;
     const int item0 = lo + is_tile * kCols, c0 = is_kc * kDepth;
     if (kVec) {
-      constexpr int kPieces = kDepth / 4;  // 16-byte pieces of a staged row
-      const int q = tid % kPieces, col = c0 + 4 * q;
+      constexpr int kPieces = kDepth / kV16;  // 16-byte pieces of a staged row
+      const int q = tid % kPieces, col = c0 + kV16 * q;
       for (int r = tid / kPieces; r < kCols; r += kThreads / kPieces) {
         const bool ok = item0 + r < hi && col < D;
-        cp_async16(dst + r * kTStride + 4 * q, ok ? T + (long long)(item0 + r) * D + col : T,
+        cp_async16(dst + r * kTStride + kV16 * q, ok ? T + (long long)(item0 + r) * D + col : T,
                    ok ? 16 : 0);
       }
     } else {
       for (int r = warp; r < kCols; r += kWarps)
         for (int cc = lane; cc < kDepth; cc += 32) {
           const bool ok = item0 + r < hi && c0 + cc < D;
-          cp_async4(dst + r * kTStride + cc, ok ? T + (long long)(item0 + r) * D + c0 + cc : T,
-                    ok ? 4 : 0);
+          if constexpr (kType == kF32)
+            cp_async4(dst + r * kTStride + cc,
+                      ok ? T + (long long)(item0 + r) * D + c0 + cc : T, ok ? 4 : 0);
+          else  // no 2-byte cp.async: a plain copy, seen by the readers after the
+                // barrier that precedes this stage's use
+            dst[r * kTStride + cc] = ok ? __ldg(T + (long long)(item0 + r) * D + c0 + cc)
+                                        : (uint16_t)0;
         }
     }
     if (++is_kc == nk) {
@@ -313,8 +383,9 @@ tile_topk_kernel(const float* __restrict__ U, const float* __restrict__ T, int B
 
   // per-lane ldmatrix offsets: A rows (g, g + 8) x columns (0-3, 4-7) of a
   // 16-row slab; B, two 8-item fragments of kt 0-3 and 4-7 per x4 load
-  const int a_off = (wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * ust + (lane >> 4) * 4;
-  const int b_off = (wn * 8 * kNT + (lane & 7) + (lane >> 4) * 8) * kTStride + ((lane >> 3) & 1) * 4;
+  const int a_off = (wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * ust + (lane >> 4) * kV16;
+  const int b_off =
+      (wn * 8 * kNT + (lane & 7) + (lane >> 4) * 8) * kTStride + ((lane >> 3) & 1) * kV16;
 
   float acc[2][kNT][4];
 #pragma unroll
@@ -336,41 +407,61 @@ tile_topk_kernel(const float* __restrict__ U, const float* __restrict__ T, int B
     if (it + kStages - 1 < total) issue((it + kStages - 1) % kStages);
     cp_commit();
 
-    const float* tb = ring + (it % kStages) * kCols * kTStride;
+    const Val* tb = ring + (it % kStages) * kCols * kTStride;
     const int c0 = kc * kDepth;
-    const int steps = min(kDepth, Dp - c0) >> 3;
+    constexpr int kK = Lay::kMmaK;
+    const int steps = min(kDepth, Dp - c0) / kK;
 #pragma unroll
-    for (int ks = 0; ks < kDepth / 8; ++ks) {
+    for (int ks = 0; ks < kDepth / kK; ++ks) {
       if (ks >= steps) break;
-      uint32_t ah[2][4], al[2][4];
+      if constexpr (kType != kF32) {
+        // one 16-bit product per score
+        uint32_t a[2][4], b[kNT][2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        ldsm4(ah[mt], uh + a_off + mt * 16 * ust + c0 + 8 * ks);
-        ldsm4(al[mt], ul + a_off + mt * 16 * ust + c0 + 8 * ks);
+        for (int mt = 0; mt < 2; ++mt) ldsm4(a[mt], us + a_off + mt * 16 * ust + c0 + kK * ks);
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t raw[4];
+          ldsm4(raw, tb + b_off + np * 16 * kTStride + kK * ks);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) b[2 * np + (e >> 1)][e & 1] = raw[e];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) mma16<kType>(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+      } else {
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          ldsm4(ah[mt], uh + a_off + mt * 16 * ust + c0 + 8 * ks);
+          ldsm4(al[mt], ul + a_off + mt * 16 * ust + c0 + 8 * ks);
+        }
+        uint32_t bh[kNT][2], bl[kNT][2];
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t raw[4];
+          ldsm4(raw, tb + b_off + np * 16 * kTStride + 8 * ks);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split(__uint_as_float(raw[e]), bh[2 * np + (e >> 1)][e & 1],
+                  bl[2 * np + (e >> 1)][e & 1]);
+        }
+        // small terms first; each pass runs 2 kNT independent MMAs, so a
+        // tile's three products never wait on each other back to back
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
       }
-      uint32_t bh[kNT][2], bl[kNT][2];
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        uint32_t raw[4];
-        ldsm4(raw, tb + b_off + np * 16 * kTStride + 8 * ks);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          split(__uint_as_float(raw[e]), bh[2 * np + (e >> 1)][e & 1], bl[2 * np + (e >> 1)][e & 1]);
-      }
-      // small terms first; each pass runs 2 kNT independent MMAs, so a
-      // tile's three products never wait on each other back to back
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
     }
     if (++kc < nk) continue;
 
@@ -524,19 +615,23 @@ merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i, i
 
 // ---- host side --------------------------------------------------------------
 
-int stages_for(int D, int k) { return tile_smem_bytes(D, k, 3) <= (size_t)kMaxSmem ? 3 : 2; }
+template <int kType>
+int stages_for(int D, int k) {
+  return tile_smem_bytes<kType>(D, k, 3) <= (size_t)kMaxSmem ? 3 : 2;
+}
 
-template <bool V, int S>
-int tile_launch(const float* U, const float* T, int B, int I, int D, int span, int k,
+template <int kType, bool V, int S>
+int tile_launch(const void* U, const void* T, int B, int I, int D, int span, int k,
                 const unsigned long long* table, int bits, int n_splits, float* cand_s,
                 int* cand_i, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(D, k, S);
+  using Val = typename Layout<kType>::Val;
+  const size_t smem = tile_smem_bytes<kType>(D, k, S);
   const cudaError_t e = cudaFuncSetAttribute(
-      tile_topk_kernel<V, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      tile_topk_kernel<kType, V, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + kRows - 1) / kRows, n_splits);
-  tile_topk_kernel<V, S><<<grid, kThreads, smem, stream>>>(U, T, B, I, D, span, k, table, bits,
-                                                            cand_s, cand_i);
+  tile_topk_kernel<kType, V, S><<<grid, kThreads, smem, stream>>>(
+      (const Val*)U, (const Val*)T, B, I, D, span, k, table, bits, cand_s, cand_i);
   return (int)cudaGetLastError();
 }
 
@@ -548,19 +643,14 @@ int merge_launch(const float* cand_s, const int* cand_i, int B, int n_splits, in
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// the item ranges of a call (the candidate scratch has one [B, k] slab per
-// range), or minus a CUDA error code: as many as fill every SM once
-extern "C" int streaming_topk_splits(int B, int I, int D, int k) {
-  if (B <= 0 || I <= 0 || D <= 0 || D > 256 || k <= 0 || k > 64)
-    return -(int)cudaErrorInvalidValue;
-  const int S = stages_for(D, k);
-  const size_t smem = tile_smem_bytes(D, k, S);
+template <int kType>
+int splits_for(int B, int I, int D, int k) {
+  const int S = stages_for<kType>(D, k);
+  const size_t smem = tile_smem_bytes<kType>(D, k, S);
   int dev = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  auto kernel = S == 3 ? tile_topk_kernel<true, 3> : tile_topk_kernel<true, 2>;
+  auto kernel = S == 3 ? tile_topk_kernel<kType, true, 3> : tile_topk_kernel<kType, true, 2>;
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
@@ -575,17 +665,47 @@ extern "C" int streaming_topk_splits(int B, int I, int D, int k) {
   return n;
 }
 
-// U: [B, D], T: [I, D] float32 (T 16-byte aligned when D % 4 == 0); row_ptr:
-// [B + 1] CSR offsets into items; table: [2^bits] int64 scratch (bits >= 10,
-// 2^bits >= 2 * history entries); cand_s / cand_i: [n_splits, B, k] scratch;
-// out_s / out_i: [B, k]
+template <int kType>
+int tiles_launch(const void* U, const void* T, int B, int I, int D, int span, int k,
+                 const unsigned long long* tab, int bits, int n_splits, float* cs, int* ci,
+                 cudaStream_t st) {
+  const bool vec = D % Layout<kType>::kVals16 == 0 && ((uintptr_t)T & 15) == 0;
+  const int S = stages_for<kType>(D, k);
+  if (vec)
+    return S == 3 ? tile_launch<kType, true, 3>(U, T, B, I, D, span, k, tab, bits, n_splits,
+                                                cs, ci, st)
+                  : tile_launch<kType, true, 2>(U, T, B, I, D, span, k, tab, bits, n_splits,
+                                                cs, ci, st);
+  return S == 3 ? tile_launch<kType, false, 3>(U, T, B, I, D, span, k, tab, bits, n_splits, cs,
+                                               ci, st)
+                : tile_launch<kType, false, 2>(U, T, B, I, D, span, k, tab, bits, n_splits, cs,
+                                               ci, st);
+}
+
+}  // namespace
+
+// the item ranges of a call (the candidate scratch has one [B, k] slab per
+// range), or minus a CUDA error code: as many as fill every SM once. dtype:
+// 0 float32 factors (B5), 1 bfloat16 (B13), 2 float16
+extern "C" int streaming_topk_splits(int B, int I, int D, int k, int dtype) {
+  if (B <= 0 || I <= 0 || D <= 0 || D > 256 || k <= 0 || k > 64 || dtype < 0 || dtype > 2)
+    return -(int)cudaErrorInvalidValue;
+  if (dtype == kF32) return splits_for<kF32>(B, I, D, k);
+  return dtype == kBF16 ? splits_for<kBF16>(B, I, D, k) : splits_for<kF16>(B, I, D, k);
+}
+
+// U: [B, D], T: [I, D] of the factors' type ``dtype`` (T 16-byte aligned when
+// 16 bytes hold whole values of D); row_ptr: [B + 1] CSR offsets into items;
+// table: [2^bits] int64 scratch (bits >= 10, 2^bits >= 2 * history entries);
+// cand_s / cand_i: [n_splits, B, k] scratch; out_s / out_i: [B, k] float32
+// scores and int32 ids
 extern "C" int streaming_topk(const void* U, const void* T, int B, int I, int D,
                               const void* row_ptr, const void* items, int k, void* table,
                               int bits, int n_splits, void* cand_s, void* cand_i, void* out_s,
-                              void* out_i, void* stream) {
+                              void* out_i, int dtype, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
   if (I <= 0 || D <= 0 || D > 256 || k <= 0 || k > 64 || bits < 10 || bits > 30 ||
-      n_splits <= 0)
+      n_splits <= 0 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   unsigned long long* tab = (unsigned long long*)table;
@@ -598,19 +718,15 @@ extern "C" int streaming_topk(const void* U, const void* T, int B, int I, int D,
 
   const int tiles_per_split = ((I + n_splits - 1) / n_splits + kCols - 1) / kCols;
   const int span = tiles_per_split * kCols;
-  const float* u = (const float*)U;
-  const float* t = (const float*)T;
   float* cs = (float*)cand_s;
   int* ci = (int*)cand_i;
-  const bool vec = D % 4 == 0 && ((uintptr_t)T & 15) == 0;
-  const int S = stages_for(D, k);
   int err;
-  if (vec)
-    err = S == 3 ? tile_launch<true, 3>(u, t, B, I, D, span, k, tab, bits, n_splits, cs, ci, st)
-                 : tile_launch<true, 2>(u, t, B, I, D, span, k, tab, bits, n_splits, cs, ci, st);
+  if (dtype == kF32)
+    err = tiles_launch<kF32>(U, T, B, I, D, span, k, tab, bits, n_splits, cs, ci, st);
+  else if (dtype == kBF16)
+    err = tiles_launch<kBF16>(U, T, B, I, D, span, k, tab, bits, n_splits, cs, ci, st);
   else
-    err = S == 3 ? tile_launch<false, 3>(u, t, B, I, D, span, k, tab, bits, n_splits, cs, ci, st)
-                 : tile_launch<false, 2>(u, t, B, I, D, span, k, tab, bits, n_splits, cs, ci, st);
+    err = tiles_launch<kF16>(U, T, B, I, D, span, k, tab, bits, n_splits, cs, ci, st);
   if (err != 0) return err;
   float* os = (float*)out_s;
   int* oi = (int*)out_i;

@@ -13,7 +13,17 @@ the device, and hits and the recbole-exact metrics are computed on the host.
 - Streaming (:meth:`FullSortEvaluator.evaluate_streaming`, models with
   dot-product factors): the factors are computed once per pass, then per
   user tile kernel B5 (``ops/topk.py``) scores the item axis in chunks and
-  keeps each chunk's top-k, so no [B, items] score block exists.
+  keeps each chunk's top-k, so no [B, items] score block exists. With
+  ``eval_score_dtype: bfloat16`` the factors are cast to bf16 first (JAX
+  ``evaluator.py:224-228,511-531,593-595``), and bf16 factors, which
+  ``compute_dtype: bfloat16`` also yields, go to B13, the same top-k on
+  bf16 products accumulated in float32.
+
+Scores of a 16-bit ``compute_dtype`` (the dense path's full-sort form or
+predict fallback, the candidate and labeled paths' predictions) reach K4,
+B7, B10 and the host metrics through an exact ``.float()`` upcast: every
+bf16 or float16 value is a float32 value, so ids, ranks and ties are those
+of the 16-bit scores. The upcast is no fallback to float32 compute.
 
 - Candidate ranking (:meth:`FullSortEvaluator.evaluate_candidates`, eval
   mode ``uniform N`` / ``popularity N``): per batch of users, the model's
@@ -45,6 +55,11 @@ from recbole_cdr_tpu_torch.ops.candidate_topk import candidate_topk
 from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk
 from recbole_cdr_tpu_torch.ops.rank_sum import rank_sum, rank_sum_candidates
 from recbole_cdr_tpu_torch.ops.topk import streaming_topk
+
+#: ``eval_score_dtype`` values: the type the streaming path casts its score
+#: factors to (JAX ``jnp.dtype(eval_score_dtype)``)
+SCORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
 
 
 @contextlib.contextmanager
@@ -144,8 +159,14 @@ class FullSortEvaluator:
             if m != "gauc" and m not in NON_ACCURACY_METRICS
         ]
         self.need_gauc = "gauc" in self.metrics
-        if config["eval_score_dtype"] not in (None, "float32"):
-            raise NotImplementedError("only float32 eval scoring is ported (ROADMAP.md A10)")
+        # eval_score_dtype: the streaming path casts its score factors to it
+        # (half the item table's bytes in bf16); accumulation and top-k stay
+        # float32. The dense path ignores it, as in JAX.
+        sd = config["eval_score_dtype"]
+        if sd is not None and str(sd).lower() not in SCORE_DTYPES:
+            raise ValueError(f"eval_score_dtype must be one of {sorted(SCORE_DTYPES)}, "
+                             f"got {sd!r}")
+        self.score_dtype = SCORE_DTYPES[str(sd).lower()] if sd is not None else None
         self.need_rec_items = bool(self.non_acc_metrics)
         self.tail_ratio = config["tail_ratio"] or 0.1
         self.topk = config["topk"]
@@ -223,7 +244,7 @@ class FullSortEvaluator:
                 ids, rs = [], []
                 for t in range(s * seg, min((s + 1) * seg, n_tiles)):
                     users = uids[t * B:(t + 1) * B]
-                    scores = score_fn(users)
+                    scores = score_fn(users).float()  # exact for 16-bit scores
                     n = users.shape[0]
                     rp = row_ptr[t, :n + 1]
                     ids.append(masked_topk(scores, rp, items[t], self.max_k))
@@ -240,13 +261,18 @@ class FullSortEvaluator:
 
     def streaming_topk_ids(self, factors_fn, eval_batches, device) -> np.ndarray:
         """[U, max_k] top-k item ids of every eval user (host array) through
-        kernel B5. ``factors_fn(users [U] int64) -> (user_e [U, D],
-        item_table [item_num, D])`` on ``device``, called once per pass."""
+        kernel B5 (float32 factors) or B13 (bfloat16 or float16 factors).
+        ``factors_fn(users [U] int64) -> (user_e [U, D], item_table
+        [item_num, D])`` on ``device``, called once per pass; the factors
+        are cast to ``eval_score_dtype`` when it is set."""
         U = len(eval_batches.uid_list)
         B = max(eval_batches.user_batch, min(self.STREAM_USER_BLOCK, U))
         uids, row_ptr, items = _fused_eval_arrays(eval_batches, B, device)
         with torch.no_grad():
             user_e, item_table = factors_fn(uids)
+            if self.score_dtype is not None:
+                user_e = user_e.to(self.score_dtype)
+                item_table = item_table.to(self.score_dtype)
             ids = []
             for t in range(-(-U // B)):
                 block = user_e[t * B:(t + 1) * B]
@@ -313,7 +339,7 @@ class FullSortEvaluator:
                 c = torch.as_tensor(cand, device=device)
                 cm = torch.as_tensor(cand_mask, device=device)
                 scores = predict_fn({uid_key: u.repeat_interleave(C),
-                                     iid_key: c.reshape(-1)}).reshape(cand.shape)
+                                     iid_key: c.reshape(-1)}).reshape(cand.shape).float()
                 k_eff = min(self.max_k, C)
                 topk_idx = candidate_topk(scores, cm, k_eff).cpu().numpy().astype(np.int64)
                 if self.need_rec_items:
@@ -366,7 +392,7 @@ class ValueEvaluator:
             for users, items, labels, n_real in eval_batches:
                 out = predict_fn({uid_key: torch.as_tensor(users, device=device),
                                   iid_key: torch.as_tensor(items, device=device)})
-                preds.append(out.cpu().numpy()[:n_real])
+                preds.append(out.float().cpu().numpy()[:n_real])
                 trues.append(labels[:n_real])
         if not preds:
             return {m: 0.0 for m in self.metrics}

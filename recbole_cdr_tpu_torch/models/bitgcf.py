@@ -33,6 +33,7 @@ from recbole_cdr_tpu_torch.models.base import (
 from recbole_cdr_tpu_torch.ops.gather_dot import gather_dot
 from recbole_cdr_tpu_torch.ops.graph_layer import CSR, csr_from_scipy, graph_layer
 from recbole_cdr_tpu_torch.utils.enums import InputType
+from recbole_cdr_tpu_torch.utils.precision import require_float32_compute
 
 
 def _norm_adj(interaction_coo, n_users, n_items):
@@ -55,6 +56,7 @@ class BiTGCF(CrossDomainRecommender):
 
     def __init__(self, config, dataset):
         super().__init__(config, dataset)
+        require_float32_compute(config, "BiTGCF (kernel B8)")
         self.latent_dim = config["embedding_size"]
         self.n_layers = config["n_layers"]
         self.reg_weight = float(config["reg_weight"])

@@ -43,6 +43,7 @@ from recbole_cdr_tpu_torch.models.base import (
 from recbole_cdr_tpu_torch.ops.graph_layer import keep_mask
 from recbole_cdr_tpu_torch.ops.rating_vector import HistoryCSR, history_csr, rating_vector
 from recbole_cdr_tpu_torch.utils.enums import InputType
+from recbole_cdr_tpu_torch.utils.precision import require_float32_compute
 
 #: DMF's histories: name -> (domain, history of users or of items)
 _HISTORIES = {"s_items": ("source", "user"), "t_items": ("target", "user"),
@@ -60,6 +61,8 @@ class DTCDR(CrossDomainRecommender):
         self.base_model = config["base_model"]
         self.alpha = float(config["alpha"])
         assert self.base_model in ("NeuMF", "DMF"), f"based model {self.base_model} is not supported! "
+        if self.base_model == "DMF":
+            require_float32_compute(config, "DTCDR's DMF (kernel B11)")
 
         gen = torch.Generator().manual_seed(int(config["seed"] or 2022))
         D = self.embedding_size

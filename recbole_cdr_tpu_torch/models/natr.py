@@ -44,6 +44,7 @@ from recbole_cdr_tpu_torch.ops.natr_attention import (
     natr_pair_grid,
 )
 from recbole_cdr_tpu_torch.utils.enums import InputType
+from recbole_cdr_tpu_torch.utils.precision import require_float32_compute
 
 
 class NATR(CrossDomainRecommender):
@@ -51,6 +52,7 @@ class NATR(CrossDomainRecommender):
 
     def __init__(self, config, dataset):
         super().__init__(config, dataset)
+        require_float32_compute(config, "NATR (kernel B9)")
         assert self.overlapped_num_items == 1 or self.overlapped_num_users == 1, (
             "NATR model only support user overlapped or item overlapped dataset! "
         )

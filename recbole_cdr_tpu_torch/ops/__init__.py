@@ -41,6 +41,10 @@ WRAPPERS = {
     "candidate_topk": candidate_topk.candidate_topk,
     "rank_sum_candidates": rank_sum.rank_sum_candidates,
     "benchmark_topk": benchmark_topk.benchmark_topk,
+    "gather_dot_forward_bf16": gather_dot.gather_dot_forward_bf16,
+    "gather_dot_backward_bf16": gather_dot.gather_dot_backward_bf16,
+    "streaming_topk_bf16": topk.streaming_topk_bf16,
+    "neg_sampler_popularity": neg_sampler.sample_negatives_popularity,
 }
 
 

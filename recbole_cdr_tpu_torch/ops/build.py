@@ -37,19 +37,22 @@ _F = ctypes.c_float
 #: C signatures: name -> (symbol, argtypes)
 _SIGNATURES = {
     "gather_dot": {
-        "gather_dot_forward": [_P, _P, _P, _P, _P, _I, _I, _P],
-        "gather_dot_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "gather_dot_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "gather_dot_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "neg_sampler": {
         "neg_sampler": [_P, _P, _I, _P, _I, ctypes.c_longlong, ctypes.c_uint,
                         _I, _I, _I, _P, _P],
+        "neg_sampler_popularity": [_P, _P, _P, _I, _P, _I, ctypes.c_longlong, _P, _P, _P,
+                                   ctypes.c_uint, _P, _P],
     },
     "shuffle": {"swap_or_not": [_P, _P, _I, _I, _I, _P, _P, _I, _P]},
     "masked_topk": {"masked_topk": [_P, _I, _I, _P, _P, _I, _P, _P],
                     "candidate_topk": [_P, _I, _I, _P, _I, _P, _P]},
     "streaming_topk": {
-        "streaming_topk": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
-        "streaming_topk_splits": [_I, _I, _I, _I],
+        "streaming_topk": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
+                           _P],
+        "streaming_topk_splits": [_I, _I, _I, _I, _I],
     },
     "sparse_adam": {
         "sparse_adam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P],

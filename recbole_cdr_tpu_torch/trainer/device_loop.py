@@ -26,8 +26,10 @@ alone, with one un-cycled permutation per epoch; a pairwise batch carries
 its negatives in a ``neg_<item id>`` column and no label; the OVERLAP
 stream serves the overlapped entities' ids, shuffled by K3, in batches of
 ``overlap_batch_size`` with a validity weight. Popularity-distribution
-sampling (the alias-table branch of ``_sample_negatives``, kernel B2a) is
-not ported yet and raises.
+negatives (``neg_sampling: {popularity: N}``) go through kernel B2a
+(``ops/neg_sampler.py::sample_negatives_popularity``) over the sampler's
+alias table, with their acceptance stream from the random source's
+``accept_bits``.
 """
 
 import functools
@@ -36,7 +38,10 @@ import numpy as np
 import torch
 
 from recbole_cdr_tpu_torch.ops.hashing import as_u32
-from recbole_cdr_tpu_torch.ops.neg_sampler import sample_negatives
+from recbole_cdr_tpu_torch.ops.neg_sampler import (
+    sample_negatives,
+    sample_negatives_popularity,
+)
 from recbole_cdr_tpu_torch.ops.shuffle import SHUFFLE_ROUNDS, swap_or_not
 from recbole_cdr_tpu_torch.utils.enums import InputType, TrainMode
 
@@ -152,7 +157,7 @@ class TorchRandomSource:
     """Default random source: every draw comes from one ``torch.Generator``
     on the training device, in the order the epoch loop asks.
 
-    A random source answers four requests; the (epoch, domain, step_lo or
+    A random source answers five requests; the (epoch, domain, step_lo or
     step, layer) arguments name the draw so that a source can derive it
     statelessly (the JAX package's threefry keys are derived that way)."""
 
@@ -176,6 +181,11 @@ class TorchRandomSource:
 
     def negative_bits(self, epoch: int, domain: str, step_lo: int, total: int):
         """int32 bit patterns of one uint32 base per negative slot."""
+        return self._bits((total,))
+
+    def accept_bits(self, epoch: int, domain: str, step_lo: int, total: int):
+        """int32 bit patterns of one uint32 per slot for the popularity
+        draw's acceptance stream (JAX ``fold_in(rng, 1)``)."""
         return self._bits((total,))
 
     def heavy_bits(self, epoch: int, domain: str, step_lo: int, total: int):
@@ -202,21 +212,23 @@ class DomainDeviceData:
         self.label_field = table.label_field
         self.neg_iid_field = table.neg_prefix + table.iid_field
         self.weight_field = table.uid_field.split("_", 1)[0] + "_sample_weight"
-        if getattr(sampler, "distribution", "uniform") != "uniform":
-            raise NotImplementedError(
-                "device-side popularity sampling (kernel B2a) is not ported yet "
-                "(ROADMAP.md A3/A4)"
+        popularity = getattr(sampler, "distribution", "uniform") == "popularity"
+        if popularity:
+            # no complement-uniform equivalent: the membership matrix stays
+            # full-width (the rejection must see every item), as in JAX, so
+            # no user is heavy
+            cap = 1 << 30
+        else:
+            # raise the cap until the worst-case complement total fits the budget
+            n_cand = len(sampler.candidate_ids)
+            counts = np.bincount(
+                (sampler.used.keys // sampler.used.num_items).astype(np.int64),
+                minlength=num_users,
             )
-        # raise the cap until the worst-case complement total fits the budget
-        n_cand = len(sampler.candidate_ids)
-        counts = np.bincount(
-            (sampler.used.keys // sampler.used.num_items).astype(np.int64),
-            minlength=num_users,
-        )
-        max_deg = int(counts.max()) if len(counts) else 0
-        cap = HIST_WIDTH_CAP
-        while cap < max_deg and int((counts > cap).sum()) * n_cand > COMPLEMENT_BUDGET:
-            cap *= 2
+            max_deg = int(counts.max()) if len(counts) else 0
+            cap = HIST_WIDTH_CAP
+            while cap < max_deg and int((counts > cap).sum()) * n_cand > COMPLEMENT_BUDGET:
+                cap *= 2
         hist_np, heavy_uids = _device_hist(sampler.used, num_users, cap)
         self.hist = put(hist_np)
         self.heavy = None
@@ -224,8 +236,16 @@ class DomainDeviceData:
             self.heavy = tuple(put(a) for a in _heavy_complements(
                 sampler.used, heavy_uids, np.asarray(sampler.candidate_ids), num_users,
             ))
+        # the popularity draw's alias table (values, prob, alias) on the
+        # device (JAX :378-387); the uniform draw's candidate runs
+        self.alias = None
         self.cand_ranges = _contiguous_ranges(sampler.candidate_ids)
-        if self.cand_ranges is None:
+        if popularity:
+            at = sampler._alias
+            self.alias = (put(at.values),
+                          torch.as_tensor(np.asarray(at.prob, np.float32), device=device),
+                          put(at.alias))
+        elif self.cand_ranges is None:
             raise NotImplementedError(
                 "candidate lists of more than two contiguous id runs are not "
                 "ported (the sectioned ID space never produces them)"
@@ -318,10 +338,15 @@ class DeviceEpochLoop:
         if self.neg_num > 0:
             total = n_steps * dstep * self.neg_num
             flat_uid = uid.reshape(-1)
-            neg = sample_negatives(
-                self.source.negative_bits(epoch, domain, step_lo, total),
-                flat_uid, data.hist, data.cand_ranges, self.neg_num,
-            )
+            base = self.source.negative_bits(epoch, domain, step_lo, total)
+            if data.alias is not None:
+                neg = sample_negatives_popularity(
+                    base, self.source.accept_bits(epoch, domain, step_lo, total),
+                    flat_uid, data.hist, data.alias, self.neg_num,
+                )
+            else:
+                neg = sample_negatives(base, flat_uid, data.hist, data.cand_ranges,
+                                       self.neg_num)
             if data.heavy is not None:
                 neg = self._heavy_override(data, domain, flat_uid, neg, epoch, step_lo)
             neg = neg.reshape(self.neg_num, n_steps, dstep)
@@ -331,7 +356,9 @@ class DeviceEpochLoop:
 
     def _heavy_override(self, data, domain, flat_uid, neg, epoch, step_lo):
         """Heavy-tail users' rows are truncated, so their rejection result is
-        replaced by a uniform draw from their exact complement list."""
+        replaced by a uniform draw from their exact complement list (uniform
+        under popularity sampling too, as in JAX :309-322; the loop's
+        full-width popularity history has no heavy user)."""
         heavy_idx, offs, lens, concat = data.heavy
         h = heavy_idx[flat_uid.long().repeat(self.neg_num)]
         is_h = h >= 0

@@ -45,9 +45,13 @@ otherwise it takes the dense path, scoring with the model's full-sort form
 or, in a phase where the model has none (NATR's target phases, DTCDR), with
 :func:`make_predict_full_sort`.
 
+``compute_dtype: bfloat16`` (or float16) runs every loss, predict,
+full-sort and factors function on 16-bit copies of the model's floating
+parameters and buffers (``utils/precision.py``), where the JAX trainer
+wraps them; parameters and optimizer state stay float32.
+
 Not ported yet, and raising when configured: checkpoint files and resume
-(ROADMAP.md A12), profiling (A12), mesh / multi-GPU (A13), bfloat16 compute
-(A10).
+(ROADMAP.md A12), profiling (A12), mesh / multi-GPU (A13).
 """
 
 import functools
@@ -70,11 +74,87 @@ from recbole_cdr_tpu_torch.trainer.device_loop import (
 )
 from recbole_cdr_tpu_torch.utils import resolve_device, set_color
 from recbole_cdr_tpu_torch.utils.enums import train_mode2state
+from recbole_cdr_tpu_torch.utils.precision import (
+    call_with,
+    resolve_compute_dtype,
+    with_compute_dtype,
+)
+
+
+class OptaxAdagrad(torch.optim.Optimizer):
+    """``optax.adagrad`` (optax 0.2.6: ``scale_by_rss`` then the learning
+    rate), which torch.optim.Adagrad does not match: the accumulator starts
+    at ``initial_accumulator_value`` 0.1, and the update is
+    ``g * rsqrt(acc + eps)`` with eps 1e-7 inside the root, 0 where acc is
+    0. ``weight_decay`` adds ``wd * p`` to the gradient first
+    (``optax.add_decayed_weights``). Parameters without a gradient are
+    skipped, as torch's optimizers skip them."""
+
+    def __init__(self, params, lr, weight_decay=0.0, initial_accumulator_value=0.1, eps=1e-7):
+        super().__init__(params, {"lr": lr, "weight_decay": weight_decay,
+                                  "initial_accumulator_value": initial_accumulator_value,
+                                  "eps": eps})
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                state = self.state[p]
+                if not state:
+                    state["sum_of_squares"] = torch.full_like(
+                        p, group["initial_accumulator_value"],
+                        memory_format=torch.preserve_format)
+                acc = state["sum_of_squares"]
+                acc.copy_(g * g + acc)
+                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]), 0.0)
+                p.add_(-group["lr"] * (scale * g))
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop`` (optax 0.2.6: ``scale_by_rms`` then the learning
+    rate), which torch.optim.RMSprop does not match: the second moment
+    starts at ``initial_scale`` 0 and decays by 0.9, and eps 1e-8 sits
+    inside the root, ``g * rsqrt(nu + eps)``. ``weight_decay`` and skipped
+    parameters as in :class:`OptaxAdagrad`."""
+
+    def __init__(self, params, lr, weight_decay=0.0, decay=0.9, eps=1e-8, initial_scale=0.0):
+        super().__init__(params, {"lr": lr, "weight_decay": weight_decay, "decay": decay,
+                                  "eps": eps, "initial_scale": initial_scale})
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.full_like(p, group["initial_scale"],
+                                                  memory_format=torch.preserve_format)
+                decay = group["decay"]
+                nu = state["nu"]
+                nu.copy_((1 - decay) * (g * g) + decay * nu)
+                p.add_(-group["lr"] * (torch.rsqrt(nu + group["eps"]) * g))
+
+
+#: learners without a shared-state form: ``phase_optimizer: single`` falls
+#: back to ``per_phase`` for them, as the JAX trainer's ``SingleOptimizer``
+#: refuses them (``recbole_cdr_tpu/trainer/trainer.py:95-101,485-492``)
+PER_PHASE_LEARNERS = ("adagrad", "rmsprop")
 
 
 def build_optimizer(config, params) -> torch.optim.Optimizer:
     """torch optimizer mirroring recbole's learner/learning_rate/weight_decay
-    settings (weight decay as the L2 term torch adds to the grad)."""
+    settings (weight decay as the L2 term added to the grad); adagrad and
+    rmsprop in optax's form, as the JAX package builds them."""
     learner = (config["learner"] or "adam").lower()
     lr = float(config["learning_rate"])
     weight_decay = float(config["weight_decay"] or 0.0)
@@ -82,9 +162,21 @@ def build_optimizer(config, params) -> torch.optim.Optimizer:
         return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
     if learner == "sgd":
         return torch.optim.SGD(params, lr=lr, weight_decay=weight_decay)
-    raise NotImplementedError(
-        f"learner [{learner}] is not ported yet: use adam or sgd (ROADMAP.md A3, A11)"
-    )
+    if learner == "adagrad":
+        return OptaxAdagrad(params, lr=lr, weight_decay=weight_decay)
+    if learner == "rmsprop":
+        return OptaxRMSprop(params, lr=lr, weight_decay=weight_decay)
+    raise ValueError(f"learner [{learner}] is not supported: use adam, sgd, adagrad, "
+                     "rmsprop or sparse_adam")
+
+
+def phase_loss(model, phase):
+    """``(batch, rng=None) -> loss`` that looks the phase's loss up at every
+    call, through the model's ``forward``: under a substitution of the
+    model's tensors (a cast, the sparse step's sub-tables) the loss must read
+    the substitutes, and a model may bind its tables when it builds the loss
+    (DCDCSR's second TARGET phase)."""
+    return lambda batch, rng=None: model(batch, phase, rng)
 
 
 def make_train_step(model, optimizer, loss_fn, trainable, clip=None):
@@ -201,7 +293,8 @@ class SparseAdam:
         p.add_(upd)
 
 
-def make_sparse_train_step(model, optimizer, phase, spec, trainable):
+def make_sparse_train_step(model, optimizer, phase, spec, trainable,
+                           compute_dtype=torch.float32):
     """``(batch, rng=None) -> loss`` performing one :class:`SparseAdam` step. The loss
     runs (``torch.func.functional_call``) on [R, D] sub-tables gathered from
     the tables of ``spec`` at the batch's ids, with the ids re-based onto
@@ -209,16 +302,19 @@ def make_sparse_train_step(model, optimizer, phase, spec, trainable):
     allocated; kernel B6 then updates the touched rows. Parameters outside
     ``spec`` that pass ``trainable`` take a dense Adam step; the rest stay
     frozen. With an empty ``spec`` this is the dense fallback of a phase
-    without one."""
+    without one. Under a 16-bit ``compute_dtype`` the loss runs on cast
+    copies of the sub-tables and the other parameters; the row gradients
+    come back float32 through the cast."""
     named = dict(model.named_parameters())
     top = lambda n: n.split(".", 1)[0]
     rest = [n for n in named if top(n) not in spec]
     dense = [n for n in rest if trainable(top(n))]
+    loss_fn = with_compute_dtype(phase_loss(model, phase), compute_dtype, model)
 
     def step(batch, rng=None):
         batch2, idx = rebase_sparse_batch(batch, spec)
         sub = {n: named[n].detach()[idx[n].long()].requires_grad_() for n in spec}
-        loss = torch.func.functional_call(model, sub, (batch2, phase, rng))
+        loss = call_with(model, sub, loss_fn, batch2, rng)
         loss.backward()
         for n in spec:
             optimizer.step_table(n, sub[n].grad, idx[n])
@@ -232,7 +328,7 @@ def make_sparse_train_step(model, optimizer, phase, spec, trainable):
     return step
 
 
-def make_predict_full_sort(model, item_num):
+def make_predict_full_sort(model, item_num, compute_dtype=torch.float32):
     """Full-sort scores through the model's pair predictions, for a phase
     where it has no full-sort form (recbole's repeated-predict fallback).
 
@@ -242,10 +338,12 @@ def make_predict_full_sort(model, item_num):
     does; a model that shares work between the pairs of a grid scores it in
     one call. The function carries ``_pair_cost``: each score costs a
     prediction, not a dot product, and the evaluator budgets its tiles by
-    that."""
+    that. The predictions run in ``compute_dtype``
+    (``make_predict_full_sort(compute_dtype=)``, JAX :338-355)."""
+    predict_grid = with_compute_dtype(model.predict_grid, compute_dtype, model)
 
     def full_sort(users):
-        return model.predict_grid(users, torch.arange(item_num, device=users.device))
+        return predict_grid(users, torch.arange(item_num, device=users.device))
 
     full_sort._pair_cost = True
     return full_sort
@@ -268,8 +366,7 @@ def _check_supported(config):
     for key, (what, item) in unsupported.items():
         if config[key]:
             raise NotImplementedError(f"{key}: {what} is not ported yet (ROADMAP.md {item})")
-    if (config["compute_dtype"] or "float32") not in ("float32", "fp32"):
-        raise NotImplementedError("only float32 compute is ported (ROADMAP.md A10)")
+    resolve_compute_dtype(config)
     if (config["phase_optimizer"] or "single").lower() not in ("single", "per_phase", "sparse"):
         raise ValueError(
             f"phase_optimizer must be 'single', 'per_phase' or 'sparse', "
@@ -301,9 +398,18 @@ class CrossDomainTrainer:
 
         self.evaluator = FullSortEvaluator(config)
         self.value_evaluator = ValueEvaluator(config)
+        #: mixed precision: float32 master parameters, compute in this dtype
+        self.compute_dtype = resolve_compute_dtype(config)
         mode = (config["phase_optimizer"] or "single").lower()
-        self.per_phase = mode == "per_phase"
         learner = (config["learner"] or "adam").lower()
+        if mode == "single" and learner in PER_PHASE_LEARNERS:
+            # no shared-state form: keep the per-phase path, as the JAX
+            # trainer does, so a config that trained before still trains
+            self.logger.warning(
+                f"phase_optimizer: 'single' supports adam/sgd, got '{learner}' — use "
+                "phase_optimizer: 'per_phase'; falling back to per_phase")
+            mode = "per_phase"
+        self.per_phase = mode == "per_phase"
         if mode == "sparse" or (mode == "single" and learner == "sparse_adam"):
             self.optimizer = SparseAdam(config, self.model)
         else:
@@ -385,9 +491,11 @@ class CrossDomainTrainer:
                     "for this phase"
                 )
                 spec = {}
-            return make_sparse_train_step(self.model, self.optimizer, scheme, spec, pred)
-        return make_train_step(self.model, self.optimizer, self.model.loss_fn(scheme), pred,
-                               self.clip)
+            return make_sparse_train_step(self.model, self.optimizer, scheme, spec, pred,
+                                          self.compute_dtype)
+        loss_fn = with_compute_dtype(phase_loss(self.model, scheme), self.compute_dtype,
+                                     self.model)
+        return make_train_step(self.model, self.optimizer, loss_fn, pred, self.clip)
 
     def _loop_for(self, scheme, train_data):
         """The phase's epoch loop (its device data is built once per phase
@@ -484,26 +592,27 @@ class CrossDomainTrainer:
     def _score_fn_for(self, scheme, eval_data):
         """The model's full-sort form for the phase, else the predict
         fallback (the JAX trainer's ``_score_fn_for``)."""
-        fs = self.model.full_sort_fn(scheme)
+        fs = with_compute_dtype(self.model.full_sort_fn(scheme), self.compute_dtype, self.model)
         if fs is not None:
             return fs
-        return make_predict_full_sort(self.model, eval_data.item_num)
+        return make_predict_full_sort(self.model, eval_data.item_num, self.compute_dtype)
 
     def _evaluate_batches(self, scheme, eval_data):
         """Labeled and candidate eval sets to their evaluators; full-sort sets
         to the streaming top-k for large item spaces when the model factors,
         the dense path otherwise (the JAX trainer's routing)."""
         threshold = int(self.config["streaming_topk_threshold"] or 32768)
-        factors = self.model.full_sort_factors(scheme)
+        factors = with_compute_dtype(self.model.full_sort_factors(scheme), self.compute_dtype,
+                                     self.model)
+        predict = with_compute_dtype(self.model.predict, self.compute_dtype, self.model)
         keys = (self.model.TARGET_USER_ID, self.model.TARGET_ITEM_ID)
         self.model.eval()
         try:
             if getattr(eval_data, "is_labeled", False):
-                return self.value_evaluator.evaluate(self.model.predict, eval_data,
-                                                     self.device, *keys)
+                return self.value_evaluator.evaluate(predict, eval_data, self.device, *keys)
             if getattr(eval_data, "is_candidate", False):
-                return self.evaluator.evaluate_candidates(self.model.predict, eval_data,
-                                                          self.device, *keys)
+                return self.evaluator.evaluate_candidates(predict, eval_data, self.device,
+                                                          *keys)
             if (factors is not None and eval_data.item_num >= threshold
                     and not self.evaluator.need_gauc):
                 return self.evaluator.evaluate_streaming(factors, eval_data, self.device)

@@ -25,7 +25,11 @@ eval modes, and for DCDCSR, EMCDR (both forms) and SSCDR. DCDCSR's benchmark
 top-k (B12) at every list width (k of 1 to 32), D not a multiple of 4 and
 above one 64-column chunk, fewer overlapped rows than one staged tile, more
 column splits than the card needs, all-zero rows (ties: ids 0..k-1) and NaN
-where ``sn + t_pop`` is 0, and two runs bit-equal.
+where ``sn + t_pop`` is 0, and two runs bit-equal. The bf16 forms: B13
+against its plain version (bf16 and float16 factors, widths through the
+element-wise staging path) and against B5 on the upcast operands, B2a
+bit-exact, K1-bf16 forward and backward; and the entry point on the
+catalog path in bf16 and with popularity negatives on both streams.
 
 Marked ``cuda``; without a card every test skips. On the card (where jax is
 not installed, so the repository's conftest cannot load):
@@ -667,3 +671,152 @@ def test_mapping_models_on_the_card(gen, tmp_path, monkeypatch, model, extra):
     assert all(counts[k] > 0 for k in path), counts
     assert counts["benchmark_topk"] == (model == "DCDCSR"), counts
     assert all(counts[k] == 0 for k in counts if k not in path + ("benchmark_topk",)), counts
+
+
+# ---- B13 (bf16 streaming top-k), B2a (popularity negatives), K1-bf16
+
+#: B13 against its plain version, |kernel - plain| <= ATOL + RTOL * the sum of
+#: the absolute values of a score's D products: the products are exact in
+#: float32 on both sides, the float32 sums run in other orders (the tensor
+#: cores may cut rather than round each add), D <= 64 adds of at most
+#: 2^-23 each bound the difference by 2^-17 of that sum; RTOL doubles it
+B13_TOL = (1e-6, 2 ** -16)
+
+
+def _bf16_case(gen, B, I, D, integer, dtype=torch.bfloat16):
+    if integer:
+        U = torch.randint(-3, 4, (B, D), device="cuda", generator=gen).to(dtype)
+        T = torch.randint(-3, 4, (I, D), device="cuda", generator=gen).to(dtype)
+    else:
+        U = torch.randn(B, D, device="cuda", generator=gen).to(dtype)
+        T = torch.randn(I, D, device="cuda", generator=gen).to(dtype)
+    hist = [torch.randperm(I, device="cuda", generator=gen)[:int(c)]
+            for c in torch.randint(0, 50, (B,), generator=torch.Generator().manual_seed(B))]
+    hist[0] = torch.randperm(I - 1, device="cuda", generator=gen)[:I - 1 - 10] + 1
+    return U, T, *_csr(hist)
+
+
+def _b13_tol(U, T, ids):
+    absum = (U.float().abs()[:, None, :] * T.float().abs()[ids.long()]).sum(-1)
+    return B13_TOL[0] + B13_TOL[1] * absum
+
+
+@pytest.mark.parametrize("B,I,D,k,dtype", [(40, 1_100_001, 64, 10, torch.bfloat16),
+                                           (70, 40_001, 64, 64, torch.bfloat16),
+                                           (33, 20_000, 16, 1, torch.bfloat16),
+                                           (9, 3000, 24, 32, torch.bfloat16),
+                                           (5, 90, 136, 10, torch.bfloat16),
+                                           (70, 40_001, 64, 10, torch.float16),
+                                           (9, 3000, 24, 32, torch.float16)])
+def test_streaming_topk_bf16_matches_plain(gen, B, I, D, k, dtype):
+    """B13 on bf16 factors (and its float16 instance): integer-valued ones
+    score exactly (ids and scores equal the plain version's, row 0 masked
+    down to 10 items); normal ones within ``B13_TOL``, ids equal wherever
+    neighbouring scores differ by more. D of 24 and 136 take the
+    element-wise staging path."""
+    for integer in (True, False):
+        U, T, row_ptr, items = _bf16_case(gen, B, I, D, integer, dtype)
+        ops.reset_launch_counts()
+        got_s, got_i = b5.streaming_topk(U, T, row_ptr, items, k)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["streaming_topk_bf16"] == 1
+        assert ops.launch_counts()["streaming_topk"] == 0
+        want_s, want_i = b5.streaming_topk_bf16(U.cpu(), T.cpu(), row_ptr.cpu(), items.cpu(), k)
+        want_s, want_i = want_s.cuda(), want_i.cuda()
+        if integer:
+            assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+            continue
+        tol = _b13_tol(U, T, want_i)
+        assert bool(((got_s - want_s).abs() <= tol).all())
+        gap = torch.diff(want_s, dim=1).abs() > tol[:, 1:]
+        clear = torch.ones_like(want_i, dtype=torch.bool)
+        clear[:, 1:] &= gap
+        clear[:, :-1] &= gap
+        assert torch.equal(got_i[clear], want_i[clear])
+
+
+def test_streaming_topk_bf16_against_b5(gen):
+    """B13 and B5 on the same values (B5 on the exact float32 upcast): the
+    same function, one bf16 product against three TF32 products a score."""
+    U, T, row_ptr, items = _bf16_case(gen, 64, 300_001, 64, integer=False)
+    a_s, a_i = b5.streaming_topk(U, T, row_ptr, items, 10)
+    b_s, b_i = b5.streaming_topk(U.float(), T.float(), row_ptr, items, 10)
+    tol = _b13_tol(U, T, b_i) + 1e-4 + 1e-5 * b_s.abs()  # plus B5's own tolerance
+    assert bool(((a_s - b_s).abs() <= tol).all())
+    gap = torch.diff(b_s, dim=1).abs() > tol[:, 1:]
+    clear = torch.ones_like(b_i, dtype=torch.bool)
+    clear[:, 1:] &= gap
+    clear[:, :-1] &= gap
+    assert torch.equal(a_i[clear], b_i[clear])
+
+
+@pytest.mark.parametrize("n_alias,H,neg_num", [(300_000, 400, 1), (40, 37, 2), (1, 8, 1)])
+def test_neg_sampler_popularity_matches_plain(gen, n_alias, H, neg_num):
+    """B2a bit-exact: the alias draw and the rejection, a one-column table
+    included."""
+    n_users = 4000
+    values = torch.randperm(2 * n_alias, device="cuda", generator=gen)[:n_alias].to(torch.int32) + 1
+    prob = torch.rand(n_alias, device="cuda", generator=gen) * 1.2
+    alias = _ints(-1, n_alias, (n_alias,), gen)
+    hist = _ints(0, 2 * n_alias + 1, (n_users, H), gen)
+    uids = _ints(0, n_users, (30_000,), gen)
+    base = _ints(-2 ** 31, 2 ** 31, (30_000 * neg_num,), gen)
+    accept = _ints(-2 ** 31, 2 ** 31, (30_000 * neg_num,), gen)
+    got = k2.sample_negatives_popularity(base, accept, uids, hist, (values, prob, alias), neg_num)
+    torch.cuda.synchronize()
+    want = k2.sample_negatives_plain(base, uids, hist, None, neg_num, (values, prob, alias),
+                                     accept)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 48, 100])
+def test_gather_dot_bf16_matches_plain(gen, D, dtype):
+    """K1's 16-bit form: scores within one ulp of the type of the plain
+    version's (both sum in float32 and round once; plus 2^-18 of the sum of
+    the products' magnitudes, the float32 sums' order), gradients within 2^-8
+    of the sum of the magnitudes of the terms each adds (float32 atomics,
+    then one rounding to the type)."""
+    U = torch.randn(3000, D, device="cuda", generator=gen).to(dtype)
+    I = torch.randn(900, D, device="cuda", generator=gen).to(dtype)
+    u = _ints(0, 3000, (20_000,), gen)
+    i = _ints(0, 900, (20_000,), gen)
+    g = torch.randn(20_000, device="cuda", generator=gen).to(dtype)
+    got, want = k1.gather_dot_forward(U, I, u, i), k1.gather_dot_plain(U, I, u, i)
+    assert got.dtype == dtype
+    # one ulp, plus the float32 sums' order where they cancel to near 0
+    absum = k1.gather_dot_plain(U.float().abs(), I.float().abs(), u, i)
+    ulp = torch.finfo(dtype).eps * want.float().abs() + 2 ** -18 * absum
+    assert bool(((got.float() - want.float()).abs() <= ulp).all())
+    dU, dI = k1.gather_dot_backward(U, I, u, i, g)
+    pU, pI = k1.gather_dot_backward_plain(U, I, u, i, g)
+    gabs = g.float().abs()
+    aU, aI = k1.gather_dot_backward_plain(U.float().abs(), I.float().abs(), u, i, gabs)
+    for got, want, absum in ((dU, pU, aU), (dI, pI, aI)):
+        assert got.dtype == dtype
+        assert bool(((got.float() - want.float()).abs() <= 2 ** -8 * absum + 1e-6).all())
+
+
+def test_bf16_catalog_path_on_the_card(gen, tmp_path, monkeypatch):
+    """compute_dtype and eval_score_dtype bfloat16 with the sparse optimizer
+    and streaming evaluation: K1's bf16 form, B6 and B13, never B5."""
+    counts = _run_on_the_card(tmp_path, monkeypatch, phase_optimizer="sparse",
+                              streaming_topk_threshold=1, compute_dtype="bfloat16",
+                              eval_score_dtype="bfloat16")
+    path = ("gather_dot_forward_bf16", "gather_dot_backward_bf16", "neg_sampler",
+            "swap_or_not", "streaming_topk_bf16", "sparse_adam")
+    assert all(counts[k] > 0 for k in path), counts
+    assert all(counts[k] == 0 for k in counts if k not in path), counts
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("CMF", {"learner": "adagrad", "phase_optimizer": "per_phase"}),
+    ("EMCDR", {"train_epochs": ["SOURCE:1", "TARGET:1", "OVERLAP:1"], "loss_type": "BPR",
+               "latent_factor_model": "BPR", "learner": "rmsprop"}),
+], ids=["CMF-adagrad", "EMCDR-BPR-rmsprop"])
+def test_popularity_negatives_on_the_card(gen, tmp_path, monkeypatch, model, extra):
+    """Popularity training negatives through B2a on the pointwise and the
+    pairwise stream; the uniform sampler never launches."""
+    counts = _run_on_the_card(tmp_path, monkeypatch, model=model,
+                              neg_sampling={"popularity": 1}, **extra)
+    assert counts["neg_sampler_popularity"] > 0 and counts["neg_sampler"] == 0, counts

@@ -75,6 +75,10 @@ class JaxRandomSource:
         return _u32_as_i32(jax.random.bits(self._neg_rng(epoch, domain, step_lo),
                                            (total,), jnp.uint32))
 
+    def accept_bits(self, epoch, domain, step_lo, total):
+        rng = jax.random.fold_in(self._neg_rng(epoch, domain, step_lo), 1)
+        return _u32_as_i32(jax.random.bits(rng, (total,), jnp.uint32))
+
     def heavy_bits(self, epoch, domain, step_lo, total):
         rng = jax.random.fold_in(self._neg_rng(epoch, domain, step_lo), 2)
         return _u32_as_i32(jax.random.bits(rng, (total,), jnp.uint32))

@@ -13,6 +13,10 @@ plain version).
   JAX's ``evaluate_streaming`` on the bundled pair (parameters quantized to
   multiples of 1/64 so that both packages' scores are exact): equal ids and
   metrics, and the trainer's routing by ``streaming_topk_threshold``.
+- B13 (bf16 factors): the plain version against JAX's
+  ``_stream_topk_hist_pairs`` on the same bf16 values within ``B13_TOL``,
+  ids equal except at near-ties; dispatch by dtype; and the streaming
+  evaluator under ``eval_score_dtype: bfloat16`` against JAX's.
 """
 
 import jax
@@ -36,7 +40,11 @@ from recbole_cdr_tpu_torch.data.utils import data_preparation
 from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator
 from recbole_cdr_tpu_torch.models.cmf import CMF
 from recbole_cdr_tpu_torch.ops import launch_counts, reset_launch_counts
-from recbole_cdr_tpu_torch.ops.topk import streaming_topk, streaming_topk_plain
+from recbole_cdr_tpu_torch.ops.topk import (
+    streaming_topk,
+    streaming_topk_bf16,
+    streaming_topk_plain,
+)
 from recbole_cdr_tpu_torch.utils import init_seed
 from recbole_cdr_tpu_torch.utils.convert import params_from_jax
 
@@ -113,6 +121,60 @@ def test_streaming_topk_matches_jax(B, I, D, k, tile, max_hist, heavy_rows):
     assert launch_counts()["streaming_topk"] == 0  # no kernel on the CPU
 
 
+#: B13's plain version against JAX on the same bf16 factors: both multiply
+#: exactly (a bf16 x bf16 product is exact in float32) and sum the D products
+#: in float32 in their own orders, so a score is within about 1e-5 |s| + 1e-6
+#: of JAX's, and ids agree wherever neighbouring scores differ by more
+B13_TOL = (1e-6, 1e-5)
+
+
+@pytest.mark.parametrize("B,I,D,k,tile,max_hist", [
+    (13, 1000, 64, 10, 128, 40),
+    (7, 300, 16, 20, 64, 30),
+    (9, 2050, 8, 64, 512, 700),
+])
+def test_streaming_topk_bf16_matches_jax(B, I, D, k, tile, max_hist):
+    """B13: JAX's ``_stream_topk_hist_pairs`` on bf16 factors against the
+    port's wrapper (the plain version on the CPU) on the same bf16 values,
+    normal (real-valued) factors."""
+    rng = np.random.default_rng(B + I + D)
+    U = jnp.asarray(rng.standard_normal((B, D), np.float32)).astype(jnp.bfloat16)
+    T = jnp.asarray(rng.standard_normal((I, D), np.float32)).astype(jnp.bfloat16)
+    _, _, hist, row_ptr, items = _case(B, I, D, max_hist, seed=B * I + k)
+    rows, its, valid = _jax_pairs(hist, I, tile)
+    want_s, want_i = (np.asarray(a) for a in _stream_topk_hist_pairs(
+        U, T, jnp.asarray(rows), jnp.asarray(its), jnp.asarray(valid), k, tile, 0, I))
+    to_torch = lambda a: torch.tensor(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)  # noqa: E731
+    reset_launch_counts()
+    got_s, got_i = streaming_topk(to_torch(U), to_torch(T), torch.from_numpy(row_ptr),
+                                  torch.from_numpy(items), k)
+    assert got_s.dtype == torch.float32 and launch_counts()["streaming_topk_bf16"] == 0
+    got_s, got_i = got_s.numpy(), got_i.numpy()
+    atol, rtol = B13_TOL
+    tol = atol + rtol * np.abs(want_s)
+    np.testing.assert_array_less(np.abs(got_s - want_s), tol + 1e-30)
+    gap = np.abs(np.diff(want_s, axis=1)) > tol[:, 1:]
+    edge = np.ones_like(gap[:, :1])
+    clear = np.concatenate([edge, gap], 1) & np.concatenate([gap, edge], 1)
+    np.testing.assert_array_equal(got_i[clear], want_i[clear])
+    assert clear.mean() > 0.9
+
+
+def test_streaming_topk_dispatches_by_dtype():
+    """bf16 factors go to B13, float32 to B5, mixed types are refused (no
+    silent conversion)."""
+    U, T, _, row_ptr, items = _case(3, 20, 8, 5, seed=1)
+    args = [torch.from_numpy(a) for a in (U, T, row_ptr, items)]
+    bf = [args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)]
+    s16, i16 = streaming_topk(*bf, *args[2:], 5)
+    s32, i32 = streaming_topk(*args, 5)  # integer factors: exact in bf16 too
+    assert torch.equal(i16, i32) and torch.equal(s16, s32)
+    with pytest.raises(TypeError):
+        streaming_topk(bf[0], args[1], *args[2:], 5)
+    with pytest.raises(TypeError):
+        streaming_topk_bf16(*args, 5)
+
+
 def test_streaming_topk_rejects_bad_arguments():
     U, T, _, row_ptr, items = _case(3, 20, 4, 5, seed=0)
     args = [torch.from_numpy(a) for a in (U, T, row_ptr, items)]
@@ -179,6 +241,27 @@ def test_streaming_eval_matches_dense_and_jax(block, monkeypatch):
     ev.need_gauc = True
     with pytest.raises(ValueError, match="GAUC"):
         ev.evaluate_streaming(factors, ttest, "cpu")
+
+
+def test_streaming_eval_bf16_matches_jax():
+    """``eval_score_dtype: bfloat16``: the port's streaming evaluator casts
+    the factors to bf16 and scores through B13's plain version; JAX's
+    ``evaluate_streaming`` casts them the same way. The parameters are
+    multiples of 1/64 of at most 8 significant bits, exact in bf16, so both
+    scores are exact and the metrics equal; the dense path ignores the knob,
+    as in JAX."""
+    jconfig, jmodel, params, jtest, tconfig, model, ttest = _setup()
+    jconfig["eval_score_dtype"] = tconfig["eval_score_dtype"] = "bfloat16"
+    jev = JaxEvaluator(jconfig)
+    want = jev.evaluate_streaming(jax.jit(jmodel.full_sort_factors("BOTH")), params, jtest)
+    ev = FullSortEvaluator(tconfig)
+    assert ev.score_dtype == torch.bfloat16
+    got = ev.evaluate_streaming(model.full_sort_factors("BOTH"), ttest, "cpu")
+    assert got == want
+    assert got == ev.evaluate(lambda users: model.full_sort(users), ttest, "cpu")
+    tconfig["eval_score_dtype"] = "int8"
+    with pytest.raises(ValueError, match="eval_score_dtype"):
+        FullSortEvaluator(tconfig)
 
 
 def test_trainer_routes_by_streaming_threshold(monkeypatch):
