@@ -118,7 +118,25 @@ Phases, in order; any failure exits non-zero:
    exactly against its plain version; these two kernels' top-level records
    are timed there (the largest B2a call), their phase-2 records kept under
    ``shapes``;
-10. report: the card's name and power limit, one JSON line of per-kernel
+10. mesh, in a child process (so that no process group outlives it): (a)
+   B14 (``sharded_topk_local`` on every shard at its offset, then
+   ``sharded_topk_merge``) at phase 4's streaming tile (B 2,048, D 64,
+   I 1,100,001, k 10) for ``B14_SHARDS`` shards, the last padded with rows
+   that would win if they competed: on integer-valued factors ids and scores
+   exactly equal to one B5 call over the whole table and to the plain
+   version; on normal ones within ``B5_TOL`` of the plain version, ids
+   equal wherever neighbours are clear of a near tie; once in bf16 against
+   B13 (exactly on integer-valued factors); each stage timed at one shard
+   and at the main path's width (one shard: the whole table); (b) the
+   catalog path through ``run_recbole_cdr(model="CMF")`` with dense Adam,
+   BOTH:2, over a one-rank NCCL mesh (``mesh_shape`` 1 x 1, ``distributed``
+   on ``tcp://127.0.0.1:<free port>``): B14's local stage and merge exactly
+   once per validation and test tile, K1-K3 launch, B5, B6 and K4 never,
+   the process group gone afterwards, the loss falls, and every test metric
+   equal to the same run without the mesh; (c) the dense pair's host batch path under
+   the same mesh, BOTH:2, dense evaluation (K1, K4): the loss falls, the
+   metrics are finite;
+11. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
 B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
@@ -308,6 +326,21 @@ POPULARITY_CMF_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler
 POPULARITY_EMCDR_PATH = POPULARITY_CMF_PATH
 POPULARITY_EMCDR_SCHEDULE = ("SOURCE", "TARGET", "OVERLAP")
 
+#: phase 10's paths: (b) the catalog pair over a one-rank NCCL mesh, dense
+#: Adam, B14 in place of B5; (c) the dense pair's host batch path under the
+#: same mesh, dense evaluation
+MESH_CATALOG_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
+                     "sharded_topk_local", "sharded_topk_merge")
+MESH_HOST_PATH = ("gather_dot_forward", "gather_dot_backward", "masked_topk")
+#: the model-axis widths at which phase 10a holds B14 against B5; one shard
+#: is the main path's (10b's one-rank mesh), whose numbers lead its records
+B14_SHARDS = (1, 2, 4)
+#: phase 4's streaming tile: users, embedding width, items, k
+B14_TILE = (2048, 64, 1_100_001, 10)
+#: phase 10b's epochs: the second shows the mesh's cost once its NCCL
+#: communicators exist
+MESH_EPOCHS = 2
+
 #: K1 tolerance, |kernel - plain| <= ATOL + RTOL * max|plain|: the forward
 #: sums the D products in another order than torch; the backward adds with
 #: atomics in a run-dependent order over every pair that shares a row
@@ -378,6 +411,8 @@ SPIN_CYCLES = 200_000_000
 
 #: prefix of the line on which the kernel-check child reports its records
 _RECORDS = "KERNEL_RECORDS "
+#: prefix of the line on which the mesh child reports its records and counts
+_MESH = "MESH_RESULTS "
 
 
 def gen_data():
@@ -1683,6 +1718,11 @@ def main():
         gen_catalog()
         print(_RECORDS + json.dumps(kernel_checks(dev)), flush=True)
         return 0
+    if "--mesh" in sys.argv[1:]:
+        gen_data()
+        gen_catalog()
+        print(_MESH + json.dumps(run_mesh_paths(dev)), flush=True)
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1829,6 +1869,23 @@ def main():
     torch.cuda.empty_cache()
     run_precision_and_popularity_paths(counts, records, catalog_recall)
 
+    print("== phase 10: mesh: B14 against B5, the catalog path over a one-rank NCCL mesh, "
+          "the host path under it", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--mesh"],
+                           stdout=subprocess.PIPE, text=True, check=True)
+    mesh = None
+    for line in child.stdout.splitlines():
+        if line.startswith(_MESH):
+            mesh = json.loads(line[len(_MESH):])
+        else:
+            print(line, flush=True)
+    assert mesh is not None, "the mesh phase reported no results"
+    records.update(mesh["records"])
+    counts.update(mesh["counts"])
+    print(f"mesh phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
     replaces = {
         "gather_dot_forward": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
                                "recbole_cdr_tpu/models/cmf.py:45"),
@@ -1876,6 +1933,10 @@ def main():
                                 "recbole_cdr_tpu/evaluator/evaluator.py:511"),
         "neg_sampler_popularity": ("recbole_cdr_tpu_torch/csrc/neg_sampler.cu",
                                    "recbole_cdr_tpu/trainer/device_loop.py:250"),
+        "sharded_topk_local": ("recbole_cdr_tpu_torch/csrc/streaming_topk.cu",
+                               "recbole_cdr_tpu/ops/topk.py:208"),
+        "sharded_topk_merge": ("recbole_cdr_tpu_torch/csrc/streaming_topk.cu",
+                               "recbole_cdr_tpu/ops/topk.py:253"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -2372,6 +2433,221 @@ def check_b12(args, records):
     # cores, the form B5 computes its scores in
     records["benchmark_topk"]["tf32_bound_ms"] = (
         TF32_PRODUCTS_PER_SCORE * flops / PEAK_TF32_OPS_PER_S * 1e3)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_config(base):
+    """``base`` over a one-rank (data 1 x model 1) mesh whose NCCL group
+    meets on ``tcp://127.0.0.1:<free port>``."""
+    return {**base, "mesh_shape": {"data": 1, "model": 1},
+            "distributed": {"coordinator_address": f"127.0.0.1:{_free_port()}",
+                            "num_processes": 1, "process_id": 0}}
+
+
+def mesh_catalog_config():
+    """Phase 10b's configuration without the mesh: the catalog path at CMF's
+    published width with dense Adam, ``MESH_EPOCHS`` epochs."""
+    return {**catalog_config(), "phase_optimizer": "single",
+            "train_epochs": [f"BOTH:{MESH_EPOCHS}"]}
+
+
+def mesh_host_config():
+    """Phase 10c's configuration without the mesh: the dense pair on the host
+    batch path, BOTH:2."""
+    return {**config_dict(), "device_side_sampling": False, "train_epochs": ["BOTH:2"]}
+
+
+def check_b14(dev, record):
+    """Phase 10a: B14 at phase 4's streaming tile (``B14_TILE``, a history of
+    0-64 random items a row, one row of 400) for every width of
+    ``B14_SHARDS``, the table split into shards of ceil(I / m) rows whose
+    last is padded with rows of 100 (they would win every row if they
+    competed). Holds the local stages and the merge against one B5 call over
+    the whole table and against the plain version (see the phase's entry in
+    the module's docstring), then times each stage at one shard (the last:
+    a nonzero offset and the pad rows) into ``record``, one shard (the whole
+    table, the main path's width) as the top-level record."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import topk as b5
+
+    B, D, I, k = B14_TILE
+    g = torch.Generator(device=dev).manual_seed(14)
+    deg = torch.randint(0, 65, (B,), generator=torch.Generator().manual_seed(14))
+    deg[0] = 400
+    rp = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+    rp[1:] = torch.cumsum(deg, 0).to(dev)
+    it = torch.randint(1, I, (int(deg.sum()),), dtype=torch.int32, device=dev, generator=g)
+    rows_h = torch.repeat_interleave(torch.arange(B, device=dev), deg.to(dev))
+    neg = torch.finfo(torch.float32).min
+
+    def split(T, m):
+        L = -(-I // m)
+        pad = torch.full((L * m - I, D), 100.0, dtype=T.dtype, device=dev)
+        return L, torch.cat([T, pad]).split(L)
+
+    def lists(local, U, shards, L):
+        out = [local(U, s, rp, it, k, j * L, I) for j, s in enumerate(shards)]
+        return torch.stack([s for s, _ in out]), torch.stack([i for _, i in out])
+
+    def b14(U, shards, L):
+        return b5.sharded_topk_merge(*lists(b5.sharded_topk_local, U, shards, L), k)
+
+    def plain(U, shards, L):
+        return b5.sharded_topk_merge_plain(*lists(b5.sharded_topk_local_plain, U, shards, L), k)
+
+    def clear_of_ties(want_s, tol):
+        gap = torch.diff(want_s, dim=1).abs() > tol[:, 1:]
+        edge = torch.ones_like(gap[:, :1])
+        return torch.cat([edge, gap], 1) & torch.cat([gap, edge], 1)
+
+    Ui = torch.randint(-3, 4, (B, D), device=dev, generator=g).float()
+    Ti = torch.randint(-3, 4, (I, D), device=dev, generator=g).float()
+    Un = torch.randn(B, D, device=dev, generator=g)
+    Tn = torch.randn(I, D, device=dev, generator=g)
+    one_i, one_n = b5.streaming_topk(Ui, Ti, rp, it, k), b5.streaming_topk(Un, Tn, rp, it, k)
+    errs = {}
+    for m in B14_SHARDS:
+        L, shards = split(Ti, m)
+        a, p = b14(Ui, shards, L), plain(Ui, shards, L)
+        assert all(torch.equal(x, y) for x, y in zip(a, one_i)), f"B14 at m={m} differs from B5"
+        assert all(torch.equal(x, y) for x, y in zip(a, p)), f"B14 at m={m} differs from plain"
+        L, shards = split(Tn, m)
+        (a_s, a_i), (p_s, p_i) = b14(Un, shards, L), plain(Un, shards, L)
+        tol = B5_TOL[0] + B5_TOL[1] * p_s.abs()
+        errs[m] = float((a_s - p_s).abs().max())
+        assert bool(((a_s - p_s).abs() <= tol).all()), f"B14 at m={m}: score error {errs[m]}"
+        clear = clear_of_ties(p_s, tol)
+        assert torch.equal(a_i[clear], p_i[clear]), f"B14 at m={m}: ids differ off near ties"
+        print(f"  B14 at m={m}: integer factors equal B5 and the plain version exactly; normal "
+              f"factors max error {errs[m]:.3g}, {int(clear.sum())} of {clear.numel()} ids clear "
+              f"of a near tie, all equal; ids equal to B5's call {bool(torch.equal(a_i, one_n[1]))}, "
+              f"scores {bool(torch.equal(a_s, one_n[0]))}", flush=True)
+    # bf16 once, against B13
+    m = B14_SHARDS[-1]
+    Ub, Tb = Ui.to(torch.bfloat16), Ti.to(torch.bfloat16)
+    L, shards = split(Tb, m)
+    a, one = b14(Ub, shards, L), b5.streaming_topk_bf16(Ub, Tb, rp, it, k)
+    assert all(torch.equal(x, y) for x, y in zip(a, one)), "B14 in bf16 differs from B13"
+    Ub, Tb = Un.to(torch.bfloat16), Tn.to(torch.bfloat16)
+    L, shards = split(Tb, m)
+    (a_s, a_i), (p_s, p_i) = b14(Ub, shards, L), plain(Ub, shards, L)
+    absum = (Ub.float().abs()[:, None, :] * Tb.float().abs()[p_i.long()]).sum(-1)
+    tol = B13_TOL[0] + B13_TOL[1] * absum
+    assert bool(((a_s - p_s).abs() <= tol).all()), "B14 in bf16: score error"
+    assert torch.equal(a_i[clear_of_ties(p_s, tol)], p_i[clear_of_ties(p_s, tol)])
+    print(f"  B14 in bf16 at m={m}: integer factors equal B13 exactly; normal factors max "
+          f"error {float((a_s - p_s).abs().max()):.3g}", flush=True)
+    del Ub, Tb, Ui, Ti
+
+    for m in B14_SHARDS:
+        L, shards = split(Tn, m)
+        off = (m - 1) * L
+        shard = shards[-1]
+        n = min(L, I - off)
+        sel = (it >= off) & (it < off + n)
+        rows_s, it_s = rows_h[sel], (it[sel] - off).long()
+
+        def library_local():
+            sc = Un @ shard[:n].T
+            sc[rows_s, it_s] = neg
+            if off == 0:
+                sc[:, 0] = neg
+            return torch.topk(sc, k, dim=1).indices
+
+        shape = None if m == 1 else f"m={m}"
+        record("sharded_topk_local",
+               lambda: b5.sharded_topk_local(Un, shard, rp, it, k, off, I),
+               lambda: b5.sharded_topk_local_plain(Un, shard, rp, it, k, off, I),
+               errs[m], n * D * 4 + B * D * 4 + (B + 1 + int(rp[-1])) * 4 + B * k * 8, 0,
+               library_fn=library_local, reps=10, shape=shape,
+               tf32_ops=TF32_PRODUCTS_PER_SCORE * 2 * B * n * D)
+        cs, ci = lists(b5.sharded_topk_local, Un, shards, L)
+        ref = b5.sharded_topk_merge_plain(cs, ci, k)
+        got = b5.sharded_topk_merge(cs, ci, k)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
+            f"sharded_topk_merge differs from its plain version at m={m}"
+        cat_s, cat_i = cs.transpose(0, 1).reshape(B, m * k), ci.transpose(0, 1).reshape(B, m * k)
+
+        def library_merge():
+            v, pos = torch.topk(cat_s, k, dim=1)
+            return v, cat_i.gather(1, pos)
+
+        record("sharded_topk_merge", lambda: b5.sharded_topk_merge(cs, ci, k),
+               lambda: b5.sharded_topk_merge_plain(cs, ci, k), 0.0, (m + 1) * B * k * 8,
+               m * B * k, library_fn=library_merge, shape=shape)
+
+
+def run_mesh_paths(dev):
+    """Phase 10 (the ``--mesh`` child): 10a ``check_b14``, then the 10b and
+    10c runs with their checks. Returns {"records": B14's records, "counts":
+    {"mesh": 10b's launch counts, "mesh_host": 10c's}}."""
+    import torch
+    import torch.distributed as dist
+
+    from recbole_cdr_tpu_torch import ops, run_recbole_cdr
+
+    records = {}
+    print("-- 10a: B14's local stage and merge against B5 at phase 4's streaming tile",
+          flush=True)
+    t0 = time.perf_counter()
+    check_b14(dev, make_recorder(records))
+    torch.cuda.empty_cache()
+    print(f"10a took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("-- 10b: the catalog path, dense Adam, over a one-rank NCCL mesh", flush=True)
+    counts = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_recbole_cdr(model="CMF", config_dict=mesh_config(mesh_catalog_config()),
+                             saved=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["mesh"] = c = ops.launch_counts()
+    hist = _report_run(result, wall, c, MESH_CATALOG_PATH)
+    assert not dist.is_initialized(), "the run left its process group behind"
+    assert len(hist) == MESH_EPOCHS and hist[-1]["loss"] < hist[0]["loss"], hist
+    tiles = sum(-(-u // min(2048, u)) for u in
+                [h["valid_users"] for h in hist if "valid_users" in h] + [result["test_users"]])
+    want = {"sharded_topk_local": tiles, "sharded_topk_merge": tiles}
+    print(f"{tiles} streaming tiles (validations and the test pass); B14 launches "
+          f"{ {n: c[n] for n in want} }, expected {want}", flush=True)
+    assert all(c[n] == v for n, v in want.items()), (c, want)
+    mesh_test = result["test_result"]
+    del result
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = run_recbole_cdr(model="CMF", config_dict=mesh_catalog_config(), saved=False)
+    torch.cuda.synchronize()
+    print(f"the same run without the mesh (B5): wall {time.perf_counter() - t0:.2f} s", flush=True)
+    for h, r in zip(hist, ref["history"]):
+        print(f"  epoch {h['epoch']}: train {h['train_seconds']:.4f} s on the mesh, "
+              f"{r['train_seconds']:.4f} s without; validation {h['valid_seconds']:.4f} s, "
+              f"{r['valid_seconds']:.4f} s; loss {h['loss']:.6f}, {r['loss']:.6f}", flush=True)
+    print(f"test: {ref['test_result']} without the mesh", flush=True)
+    assert mesh_test == ref["test_result"], (mesh_test, ref["test_result"])
+    del ref
+    torch.cuda.empty_cache()
+
+    print("-- 10c: the dense pair's host batch path over the same mesh", flush=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_recbole_cdr(model="CMF", config_dict=mesh_config(mesh_host_config()),
+                             saved=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["mesh_host"] = ops.launch_counts()
+    hist = _report_run(result, wall, counts["mesh_host"], MESH_HOST_PATH)
+    assert not dist.is_initialized(), "the run left its process group behind"
+    assert hist[-1]["loss"] < hist[0]["loss"], hist
+    return {"records": records, "counts": counts}
 
 
 def _report_run(result, wall, counts, path):

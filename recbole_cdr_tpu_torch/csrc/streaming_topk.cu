@@ -67,6 +67,23 @@
 // bf16 rate of 989 TFLOP/s (0.29 ms for [2048 x 64] against 1.1M items),
 // against B5's three TF32 products; the item table is half B5's bytes.
 // Accumulators, selection, masking and the merge are B5's.
+//
+// B14, the local stage and merge of the mesh-sharded streaming top-k.
+// Replaces recbole_cdr_tpu/ops/topk.py:208-269 (make_sharded_streaming_topk),
+// whose local stage is _stream_topk_hist_local (:107-147) on a shard of the
+// item table at the shard's column offset, and whose merge of the m gathered
+// [B, k] lists is the top_k of :253-258. Local stage: the tile kernel above
+// (either type) with the ids of its columns shifted by col_offset, so that
+// PAD is global column 0, a row's CSR history is matched by global id, and
+// the candidates carry global ids; the caller hands it only the shard's rows
+// below the total item count, so the pad rows of the last shard never enter
+// (a shard with fewer than k such rows pads its list with (-inf, INT_MAX), as
+// a short range does). Between the stages the lists travel by an all_gather
+// over the model group, outside the kernels. Merge: B5's merge kernel over the
+// [m, B, k] lists in shard order, by (score desc, id asc): the shards' ids
+// ascend with the shard, so this is the stable merge of the lists
+// concatenated in shard order, and ties go to the lowest global id, as in one
+// top-k over the whole row: ids equal the unsharded top-k exactly.
 
 #include <cfloat>
 #include <climits>
@@ -296,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 tile_topk_kernel(const typename Layout<kType>::Val* __restrict__ U,
                  const typename Layout<kType>::Val* __restrict__ T, int B, int I, int D,
                  int span, int k, const unsigned long long* __restrict__ table, int bits,
-                 float* __restrict__ cand_s, int* __restrict__ cand_i) {
+                 int col_offset, float* __restrict__ cand_s, int* __restrict__ cand_i) {
   using Lay = Layout<kType>;
   using Val = typename Lay::Val;
   constexpr int kDepth = Lay::kDepth, kTStride = Lay::kTStride, kV16 = Lay::kVals16;
@@ -491,7 +508,7 @@ tile_topk_kernel(const typename Layout<kType>::Val* __restrict__ U,
           const int q = mt * 2 + (e >> 1);
           const int row = r0 + wm * 32 + mt * 16 + g + 8 * (e >> 1);
           const int id = item0 + nt * 8 + (e & 1);
-          if (row < B && id < hi && better(acc[mt][nt][e], id, ts[q], ti[q]))
+          if (row < B && id < hi && better(acc[mt][nt][e], col_offset + id, ts[q], ti[q]))
             pend |= 1ull << ((mt * kNT + nt) * 4 + e);
         }
     while (true) {
@@ -505,7 +522,7 @@ tile_topk_kernel(const typename Layout<kType>::Val* __restrict__ U,
             if (!(pend & bit)) continue;
             const int q = mt * 2 + (e >> 1);
             const int rl = wm * 32 + mt * 16 + g + 8 * (e >> 1);
-            const int id = item0 + nt * 8 + (e & 1);
+            const int id = col_offset + item0 + nt * 8 + (e & 1);  // global id
             const float s = acc[mt][nt][e];
             if (!better(s, id, ts[q], ti[q])) {  // the bar rose meanwhile
               pend &= ~bit;
@@ -622,8 +639,8 @@ int stages_for(int D, int k) {
 
 template <int kType, bool V, int S>
 int tile_launch(const void* U, const void* T, int B, int I, int D, int span, int k,
-                const unsigned long long* table, int bits, int n_splits, float* cand_s,
-                int* cand_i, cudaStream_t stream) {
+                const unsigned long long* table, int bits, int col_offset, int n_splits,
+                float* cand_s, int* cand_i, cudaStream_t stream) {
   using Val = typename Layout<kType>::Val;
   const size_t smem = tile_smem_bytes<kType>(D, k, S);
   const cudaError_t e = cudaFuncSetAttribute(
@@ -631,7 +648,7 @@ int tile_launch(const void* U, const void* T, int B, int I, int D, int span, int
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + kRows - 1) / kRows, n_splits);
   tile_topk_kernel<kType, V, S><<<grid, kThreads, smem, stream>>>(
-      (const Val*)U, (const Val*)T, B, I, D, span, k, table, bits, cand_s, cand_i);
+      (const Val*)U, (const Val*)T, B, I, D, span, k, table, bits, col_offset, cand_s, cand_i);
   return (int)cudaGetLastError();
 }
 
@@ -667,19 +684,26 @@ int splits_for(int B, int I, int D, int k) {
 
 template <int kType>
 int tiles_launch(const void* U, const void* T, int B, int I, int D, int span, int k,
-                 const unsigned long long* tab, int bits, int n_splits, float* cs, int* ci,
-                 cudaStream_t st) {
+                 const unsigned long long* tab, int bits, int off, int n_splits, float* cs,
+                 int* ci, cudaStream_t st) {
   const bool vec = D % Layout<kType>::kVals16 == 0 && ((uintptr_t)T & 15) == 0;
   const int S = stages_for<kType>(D, k);
   if (vec)
-    return S == 3 ? tile_launch<kType, true, 3>(U, T, B, I, D, span, k, tab, bits, n_splits,
-                                                cs, ci, st)
-                  : tile_launch<kType, true, 2>(U, T, B, I, D, span, k, tab, bits, n_splits,
-                                                cs, ci, st);
-  return S == 3 ? tile_launch<kType, false, 3>(U, T, B, I, D, span, k, tab, bits, n_splits, cs,
-                                               ci, st)
-                : tile_launch<kType, false, 2>(U, T, B, I, D, span, k, tab, bits, n_splits, cs,
-                                               ci, st);
+    return S == 3 ? tile_launch<kType, true, 3>(U, T, B, I, D, span, k, tab, bits, off,
+                                                n_splits, cs, ci, st)
+                  : tile_launch<kType, true, 2>(U, T, B, I, D, span, k, tab, bits, off,
+                                                n_splits, cs, ci, st);
+  return S == 3 ? tile_launch<kType, false, 3>(U, T, B, I, D, span, k, tab, bits, off, n_splits,
+                                               cs, ci, st)
+                : tile_launch<kType, false, 2>(U, T, B, I, D, span, k, tab, bits, off, n_splits,
+                                               cs, ci, st);
+}
+
+int merge_any(const float* cs, const int* ci, int B, int n, int k, float* os, int* oi,
+              cudaStream_t st) {
+  if (k <= 16) return merge_launch<16>(cs, ci, B, n, k, os, oi, st);
+  if (k <= 32) return merge_launch<32>(cs, ci, B, n, k, os, oi, st);
+  return merge_launch<64>(cs, ci, B, n, k, os, oi, st);
 }
 
 }  // namespace
@@ -695,17 +719,18 @@ extern "C" int streaming_topk_splits(int B, int I, int D, int k, int dtype) {
 }
 
 // U: [B, D], T: [I, D] of the factors' type ``dtype`` (T 16-byte aligned when
-// 16 bytes hold whole values of D); row_ptr: [B + 1] CSR offsets into items;
+// 16 bytes hold whole values of D); row T[j] is global item col_offset + j
+// (B5 and B13: 0); row_ptr: [B + 1] CSR offsets into items, global item ids;
 // table: [2^bits] int64 scratch (bits >= 10, 2^bits >= 2 * history entries);
 // cand_s / cand_i: [n_splits, B, k] scratch; out_s / out_i: [B, k] float32
-// scores and int32 ids
+// scores and int32 global ids
 extern "C" int streaming_topk(const void* U, const void* T, int B, int I, int D,
                               const void* row_ptr, const void* items, int k, void* table,
                               int bits, int n_splits, void* cand_s, void* cand_i, void* out_s,
-                              void* out_i, int dtype, void* stream) {
+                              void* out_i, int dtype, int col_offset, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
   if (I <= 0 || D <= 0 || D > 256 || k <= 0 || k > 64 || bits < 10 || bits > 30 ||
-      n_splits <= 0 || dtype < 0 || dtype > 2)
+      n_splits <= 0 || dtype < 0 || dtype > 2 || col_offset < 0 || col_offset > INT_MAX - I)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   unsigned long long* tab = (unsigned long long*)table;
@@ -720,17 +745,25 @@ extern "C" int streaming_topk(const void* U, const void* T, int B, int I, int D,
   const int span = tiles_per_split * kCols;
   float* cs = (float*)cand_s;
   int* ci = (int*)cand_i;
+  const int off = col_offset;
   int err;
   if (dtype == kF32)
-    err = tiles_launch<kF32>(U, T, B, I, D, span, k, tab, bits, n_splits, cs, ci, st);
+    err = tiles_launch<kF32>(U, T, B, I, D, span, k, tab, bits, off, n_splits, cs, ci, st);
   else if (dtype == kBF16)
-    err = tiles_launch<kBF16>(U, T, B, I, D, span, k, tab, bits, n_splits, cs, ci, st);
+    err = tiles_launch<kBF16>(U, T, B, I, D, span, k, tab, bits, off, n_splits, cs, ci, st);
   else
-    err = tiles_launch<kF16>(U, T, B, I, D, span, k, tab, bits, n_splits, cs, ci, st);
+    err = tiles_launch<kF16>(U, T, B, I, D, span, k, tab, bits, off, n_splits, cs, ci, st);
   if (err != 0) return err;
-  float* os = (float*)out_s;
-  int* oi = (int*)out_i;
-  if (k <= 16) return merge_launch<16>(cs, ci, B, n_splits, k, os, oi, st);
-  if (k <= 32) return merge_launch<32>(cs, ci, B, n_splits, k, os, oi, st);
-  return merge_launch<64>(cs, ci, B, n_splits, k, os, oi, st);
+  return merge_any(cs, ci, B, n_splits, k, (float*)out_s, (int*)out_i, st);
+}
+
+// B14's merge: the k best of n candidate lists per row by (score desc, id
+// asc). cand_s / cand_i: [n, B, k] (the model group's lists in shard order);
+// out_s / out_i: [B, k]
+extern "C" int streaming_topk_merge(const void* cand_s, const void* cand_i, int B, int n, int k,
+                                    void* out_s, void* out_i, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  if (n <= 0 || k <= 0 || k > 64) return (int)cudaErrorInvalidValue;
+  return merge_any((const float*)cand_s, (const int*)cand_i, B, n, k, (float*)out_s,
+                   (int*)out_i, (cudaStream_t)stream);
 }

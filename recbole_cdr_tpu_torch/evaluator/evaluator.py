@@ -34,8 +34,14 @@ of the 16-bit scores. The upcast is no fallback to float32 compute.
 :class:`ValueEvaluator` computes the value metrics (AUC, MAE, RMSE, LogLoss)
 of eval mode ``labeled`` from ``predict`` over the labeled triples.
 
-The mesh-sharded streaming top-k (ROADMAP.md A13) is not ported yet and
-raises.
+Under a (data, model) mesh (``evaluate_streaming(mesh=...)``, JAX
+``evaluator.py:561-610``) each streaming tile's users are split over
+``data`` and the item columns over ``model``: kernel B14
+(``ops/topk.py::sharded_streaming_topk``) takes each rank's top-k over its
+rows of the item table and merges the model group's lists, then the [B/d,
+k] ids are gathered over ``data``, so every rank computes the same host
+metrics. The dense path under the mesh scores every user on every rank,
+from the tables gathered over ``model`` (the model's full-sort form).
 """
 
 import contextlib
@@ -54,7 +60,7 @@ from recbole_cdr_tpu_torch.evaluator.metrics import (
 from recbole_cdr_tpu_torch.ops.candidate_topk import candidate_topk
 from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk
 from recbole_cdr_tpu_torch.ops.rank_sum import rank_sum, rank_sum_candidates
-from recbole_cdr_tpu_torch.ops.topk import streaming_topk
+from recbole_cdr_tpu_torch.ops.topk import sharded_streaming_topk, streaming_topk
 
 #: ``eval_score_dtype`` values: the type the streaming path casts its score
 #: factors to (JAX ``jnp.dtype(eval_score_dtype)``)
@@ -259,17 +265,19 @@ class FullSortEvaluator:
             return ids
         return ids, np.concatenate(sums) if self.need_gauc else None
 
-    def streaming_topk_ids(self, factors_fn, eval_batches, device) -> np.ndarray:
+    def streaming_topk_ids(self, factors_fn, eval_batches, device, mesh=None) -> np.ndarray:
         """[U, max_k] top-k item ids of every eval user (host array) through
         kernel B5 (float32 factors) or B13 (bfloat16 or float16 factors).
         ``factors_fn(users [U] int64) -> (user_e [U, D], item_table
         [item_num, D])`` on ``device``, called once per pass; the factors
-        are cast to ``eval_score_dtype`` when it is set."""
+        are cast to ``eval_score_dtype`` when it is set. Under ``mesh`` the
+        factors are ``(user_e, this rank's rows of the item table, their
+        first global item)`` and every tile runs B14."""
         U = len(eval_batches.uid_list)
         B = max(eval_batches.user_batch, min(self.STREAM_USER_BLOCK, U))
         uids, row_ptr, items = _fused_eval_arrays(eval_batches, B, device)
         with torch.no_grad():
-            user_e, item_table = factors_fn(uids)
+            user_e, item_table, *offset = factors_fn(uids)
             if self.score_dtype is not None:
                 user_e = user_e.to(self.score_dtype)
                 item_table = item_table.to(self.score_dtype)
@@ -277,24 +285,42 @@ class FullSortEvaluator:
             for t in range(-(-U // B)):
                 block = user_e[t * B:(t + 1) * B]
                 n = block.shape[0]
-                ids.append(streaming_topk(block, item_table, row_ptr[t, :n + 1], items[t],
-                                          self.max_k)[1])
+                if mesh is None:
+                    ids.append(streaming_topk(block, item_table, row_ptr[t, :n + 1], items[t],
+                                              self.max_k)[1])
+                else:
+                    ids.append(self._sharded_tile(block, item_table, offset[0],
+                                                  row_ptr[t, :n + 1], items[t],
+                                                  eval_batches.item_num, mesh))
             return torch.cat(ids).cpu().numpy().astype(np.int64)
+
+    def _sharded_tile(self, users, block, col_offset, row_ptr, items, item_num, mesh):
+        """One streaming tile over the mesh: this rank's ``data`` slice of the
+        tile's users (ceil(n / d) rows, the last slice padded with zero rows
+        and empty histories), B14 over the model group, then the slices' ids
+        gathered over ``data``: [n, k] on every rank."""
+        n = users.shape[0]
+        per = -(-n // mesh.data)
+        lo = min(mesh.data_index * per, n)
+        hi = min(lo + per, n)
+        local = users.new_zeros((per, users.shape[1]))
+        local[:hi - lo] = users[lo:hi]
+        rp = row_ptr[torch.clamp(torch.arange(lo, lo + per + 1, device=row_ptr.device), max=hi)]
+        _, ids = sharded_streaming_topk(local, block, rp, items, self.max_k, col_offset,
+                                        item_num, mesh.model_group)
+        return mesh.gather_data(ids)[:n]
 
     def evaluate_streaming(self, factors_fn, eval_batches, device,
                            mesh=None) -> Dict[str, float]:
         """Full-sort evaluation via the streaming top-k: the [B, items] score
         matrix never exists. GAUC needs full rank statistics, so callers
-        route it to :meth:`evaluate`."""
+        route it to :meth:`evaluate`. With ``mesh``, the users of each tile
+        are split over 'data' and the items over 'model' (B14)."""
         if self.need_gauc:
             raise ValueError("GAUC requires dense full-sort evaluation, not streaming.")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded streaming top-k is not ported yet (ROADMAP.md A13)"
-            )
         if len(eval_batches.uid_list) == 0:
             return self._empty_result()
-        return self._result(self.streaming_topk_ids(factors_fn, eval_batches, device),
+        return self._result(self.streaming_topk_ids(factors_fn, eval_batches, device, mesh),
                             eval_batches)
 
     def evaluate(self, score_fn, eval_batches, device) -> Dict[str, float]:

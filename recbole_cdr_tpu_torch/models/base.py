@@ -16,6 +16,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from recbole_cdr_tpu_torch.parallel.embedding import sharded_lookup
 from recbole_cdr_tpu_torch.utils.enums import ModelType
 
 
@@ -55,17 +56,28 @@ def mlp(dims, generator=None) -> nn.ModuleList:
 
 # -------------------------------------------------------------------- losses
 
-def weighted_mean(values: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Mean over real (unpadded) samples: sum(v*w)/sum(w), in float32."""
+def weighted_sums(values: torch.Tensor, weight: torch.Tensor):
+    """(sum(v*w), sum(w)) in float32: the batch sums of :func:`weighted_mean`."""
     values = values.float()
     weight = weight.float()
-    return torch.sum(values * weight) / torch.clamp(torch.sum(weight), min=1.0)
+    return torch.sum(values * weight), torch.sum(weight)
+
+
+def weighted_mean(values: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Mean over real (unpadded) samples: sum(v*w)/sum(w), in float32."""
+    num, den = weighted_sums(values, weight)
+    return num / torch.clamp(den, min=1.0)
+
+
+def bce_terms(logits, labels) -> torch.Tensor:
+    """Per-sample binary cross-entropy on logits (== BCELoss(sigmoid(x), y),
+    stable)."""
+    return torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
 
 
 def bce_loss(logits, labels, weight) -> torch.Tensor:
-    """Binary cross-entropy on logits (== BCELoss(sigmoid(x), y), stable)."""
-    per = torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
-    return weighted_mean(per, weight)
+    """Binary cross-entropy on logits, weighted mean over the batch."""
+    return weighted_mean(bce_terms(logits, labels), weight)
 
 
 def bpr_loss(pos_score, neg_score, weight, gamma: float = 1e-10) -> torch.Tensor:
@@ -73,20 +85,25 @@ def bpr_loss(pos_score, neg_score, weight, gamma: float = 1e-10) -> torch.Tensor
     return weighted_mean(-torch.log(gamma + torch.sigmoid(pos_score - neg_score)), weight)
 
 
+def emb_sums(embeddings: Sequence[torch.Tensor], weight, norm: int = 2):
+    """sum(|E_i * w|^p) of each table's rows: the batch sums of
+    :func:`emb_loss`."""
+    weight = weight.float()
+    out = []
+    for e in embeddings:
+        w = weight.reshape((-1,) + (1,) * (e.dim() - 1))
+        out.append(torch.sum(torch.abs(e.float() * w) ** norm))
+    return out
+
+
 def emb_loss(embeddings: Sequence[torch.Tensor], weight, norm: int = 2,
              require_pow: bool = False) -> torch.Tensor:
     """recbole ``EmbLoss``: sum_i ||E_i||_p [/ p if require_pow] / batch_size,
     restricted to real (unpadded) rows via ``weight``."""
-    weight = weight.float()
-    denom = torch.clamp(torch.sum(weight), min=1.0)
+    denom = torch.clamp(torch.sum(weight.float()), min=1.0)
     total = 0.0
-    for e in embeddings:
-        w = weight.reshape((-1,) + (1,) * (e.dim() - 1))
-        masked = e.float() * w
-        if require_pow:
-            total = total + torch.sum(torch.abs(masked) ** norm) / norm
-        else:
-            total = total + torch.sum(torch.abs(masked) ** norm) ** (1.0 / norm)
+    for s in emb_sums(embeddings, weight, norm):
+        total = total + (s / norm if require_pow else s ** (1.0 / norm))
     return total / denom
 
 
@@ -167,6 +184,53 @@ class CrossDomainRecommender(nn.Module):
             table = init_embedding(n, dim, generator)
             table[lo:hi] = 0.0
             setattr(self, name, nn.Parameter(table))
+
+    # -- the mesh -------------------------------------------------------------
+
+    #: the (data, model) mesh the model trains over and the row shards of its
+    #: tables, ``{name: TableShard}`` (``parallel/mesh.py::shard_params``);
+    #: None and empty off the mesh
+    mesh = None
+    table_shards = {}
+    #: whether the model trains and evaluates under ``mesh_shape`` (ROADMAP.md
+    #: A13 remainder: only CMF so far)
+    MESH_READY = False
+
+    def rows(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of table ``name``: a gather, or for a row-sharded
+        table the lookup over the model group (``parallel/embedding.py``)."""
+        table = getattr(self, name)
+        shard = self.table_shards.get(name)
+        if shard is None:
+            return table[ids.long()]
+        return sharded_lookup(table, ids, shard.offset, self.mesh.model_group)
+
+    def table_columns(self, name: str, n: int):
+        """(this rank's rows of ``table[:n]``, their first global row): the
+        whole prefix and 0 off the model axis."""
+        table = getattr(self, name)
+        shard = self.table_shards.get(name)
+        if shard is None:
+            return table[:n], 0
+        return table[:max(0, min(table.shape[0], n - shard.offset))], shard.offset
+
+    def full_table(self, name: str) -> torch.Tensor:
+        """Table ``name`` whole: a row-sharded one gathered over the model
+        group, once per parameter version (the dense evaluation's scores)."""
+        table = getattr(self, name)
+        shard = self.table_shards.get(name)
+        if shard is None:
+            return table
+        return self._per_version(f"full:{name}",
+                                 lambda: self.mesh.gather_rows(table.detach())[:shard.rows])
+
+    def batch_sums(self, *sums: torch.Tensor):
+        """A loss's batch sums over the whole global batch: as they are off
+        the mesh, summed over the data group under it (each rank's gradient
+        is then its slice's part of the global batch's)."""
+        if self.mesh is None:
+            return sums
+        return tuple(self.mesh.batch_sum(torch.stack(sums)).unbind())
 
     def notify_params_updated(self):
         """Invalidate caches derived from the parameters."""

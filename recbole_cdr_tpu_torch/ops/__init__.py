@@ -45,6 +45,8 @@ WRAPPERS = {
     "gather_dot_backward_bf16": gather_dot.gather_dot_backward_bf16,
     "streaming_topk_bf16": topk.streaming_topk_bf16,
     "neg_sampler_popularity": neg_sampler.sample_negatives_popularity,
+    "sharded_topk_local": topk.sharded_topk_local,
+    "sharded_topk_merge": topk.sharded_topk_merge,
 }
 
 

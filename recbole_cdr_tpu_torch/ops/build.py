@@ -51,8 +51,9 @@ _SIGNATURES = {
                     "candidate_topk": [_P, _I, _I, _P, _I, _P, _P]},
     "streaming_topk": {
         "streaming_topk": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
-                           _P],
+                           _I, _P],
         "streaming_topk_splits": [_I, _I, _I, _I, _I],
+        "streaming_topk_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
     "sparse_adam": {
         "sparse_adam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P],

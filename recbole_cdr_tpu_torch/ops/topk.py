@@ -1,8 +1,10 @@
-"""B5: streaming full-sort top-k with history masking.
+"""B5: streaming full-sort top-k with history masking; B13, its bf16 form;
+B14, its mesh-sharded form.
 
 Port of ``recbole_cdr_tpu/ops/topk.py`` (``streaming_topk_scores``,
 ``_stream_topk_hist_local``, ``_stream_topk_hist_pairs``,
-``streaming_topk_with_history``, ``_merge_tile_topk``, ``_tile_k``): the
+``streaming_topk_with_history``, ``_merge_tile_topk``, ``_tile_k``,
+``make_sharded_streaming_topk``): the
 scores of a user block against the item table are taken tile by tile along
 the item axis, each tile keeps its own top ``min(k, tile)``, and one stable
 merge of the candidates in (tile, rank) order gives the global top-k. Column
@@ -17,11 +19,18 @@ itself on the tensor cores in 3xTF32 (float32 accuracy: each operand split
 into a TF32 high part and residual, three products per score) and selects
 from the accumulators; B13 is its bf16 form (``streaming_topk_bf16``: one
 16-bit product per score, float32 accumulation, as JAX's ``_score_dot``
-with ``preferred_element_type`` float32). The plain version below runs for
-CPU tensors and serves as the kernels' reference.
+with ``preferred_element_type`` float32). B14
+(:func:`sharded_streaming_topk`) splits the item axis over a mesh's
+``model`` axis: each rank runs the same tile kernel on its rows of the table
+at their global offset (:func:`sharded_topk_local`), an ``all_gather`` over
+the model group collects the m [B, k] lists, and B5's merge kernel merges
+them (:func:`sharded_topk_merge`); the ids equal one call over the whole
+table. The plain versions below run for CPU tensors and serve as the
+kernels' reference.
 """
 
 import torch
+import torch.distributed as dist
 
 from recbole_cdr_tpu_torch.ops import build
 
@@ -34,13 +43,7 @@ STREAM_ITEM_TILE = 32768
 MAX_D = 256
 
 
-def _tile_k(k: int, tile: int, n_tiles: int) -> int:
-    """Per-tile keep count: min(k, tile). A tile holds only ``tile``
-    candidates, so keeping them all stays exact when k > tile."""
-    kt = min(k, tile)
-    if n_tiles * kt < k:
-        raise ValueError(f"top-k {k} exceeds the padded item axis ({n_tiles}x{tile})")
-    return kt
+INT32_MAX = 2 ** 31 - 1
 
 
 def _stable_topk(scores, k: int):
@@ -50,44 +53,59 @@ def _stable_topk(scores, k: int):
     return scores.gather(1, order), order
 
 
-def _merge_tile_topk(ss, ii, k: int):
-    """[n_tiles, B, kt] per-tile winners -> global (scores, ids) [B, k]. The
-    candidates concatenate in (tile, rank) order, so the stable merge keeps
-    the lowest-id tie-break."""
-    n_tiles, B, kt = ss.shape
-    cat_s = ss.transpose(0, 1).reshape(B, n_tiles * kt)
-    cat_i = ii.transpose(0, 1).reshape(B, n_tiles * kt)
+def _merge_lists(ss, ii, k: int):
+    """[n, B, kt] candidate lists -> global (scores, ids) [B, k]. The
+    candidates concatenate in (list, rank) order, so the stable merge keeps
+    the lowest-id tie-break when the lists' ids ascend with the list; fewer
+    than k candidates pad with (-inf, INT32_MAX)."""
+    n, B, kt = ss.shape
+    cat_s = ss.transpose(0, 1).reshape(B, n * kt)
+    cat_i = ii.transpose(0, 1).reshape(B, n * kt)
+    if n * kt < k:
+        cat_s = torch.cat([cat_s, cat_s.new_full((B, k - n * kt), -torch.inf)], 1)
+        cat_i = torch.cat([cat_i, cat_i.new_full((B, k - n * kt), INT32_MAX)], 1)
     best, pos = _stable_topk(cat_s, k)
     return best, cat_i.gather(1, pos)
 
 
-def streaming_topk_plain(user_e, item_table, row_ptr, items, k: int,
-                         tile: int = STREAM_ITEM_TILE):
-    """The JAX package's tiled algorithm on the padded item axis: columns at
-    or past I score ``finfo.min`` with ids >= I, as there."""
+def _stream_plain(user_e, block, row_ptr, items, k: int, col_offset: int, n_valid: int,
+                  tile: int):
+    """The JAX package's tiled algorithm (``_stream_topk_hist_local``) over
+    rows ``[0, n_valid)`` of ``block``, whose row j is global item
+    ``col_offset + j``: per tile the scores, global column 0 (PAD) and each
+    row's history (global ids) at ``finfo.min``, the tile's top
+    ``min(k, tile)``, then one stable merge. Columns past ``n_valid`` never
+    compete: they pad a tile with (-inf, INT32_MAX), as the kernel pads a
+    short item range."""
     B = user_e.shape[0]
-    I = item_table.shape[0]
-    n_tiles = -(-I // tile)
-    kt = _tile_k(k, tile, n_tiles)
+    dev = user_e.device
     neg = torch.finfo(torch.float32).min
     counts = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
-    rows = torch.repeat_interleave(torch.arange(B, device=user_e.device), counts)
+    rows = torch.repeat_interleave(torch.arange(B, device=dev), counts)
     lo = int(row_ptr[0])
-    hist = items[lo:lo + rows.shape[0]].to(torch.int64)
+    hist = items[lo:lo + rows.shape[0]].to(torch.int64) - col_offset  # local columns
     ss, ii = [], []
-    for t in range(n_tiles):
-        start = t * tile
-        scores = torch.full((B, tile), neg, dtype=torch.float32, device=user_e.device)
-        block = item_table[start:start + tile]
-        scores[:, :block.shape[0]] = user_e @ block.T
-        if start == 0:
+    for start in range(0, max(n_valid, 1), tile):
+        n = max(0, min(tile, n_valid - start))
+        scores = torch.full((B, tile), -torch.inf, dtype=torch.float32, device=dev)
+        ids = torch.full((tile,), INT32_MAX, dtype=torch.int32, device=dev)
+        scores[:, :n] = user_e @ block[start:start + n].T
+        ids[:n] = torch.arange(col_offset + start, col_offset + start + n, dtype=torch.int32,
+                               device=dev)
+        if col_offset == 0 and start == 0 and n > 0:
             scores[:, 0] = neg
-        sel = (hist >= start) & (hist < start + tile)
+        sel = (hist >= start) & (hist < start + n)
         scores[rows[sel], hist[sel] - start] = neg
-        s, p = _stable_topk(scores, kt)
+        s, p = _stable_topk(scores, min(k, tile))
         ss.append(s)
-        ii.append(p.to(torch.int32) + start)
-    return _merge_tile_topk(torch.stack(ss), torch.stack(ii), k)
+        ii.append(ids[p])
+    return _merge_lists(torch.stack(ss), torch.stack(ii), k)
+
+
+def streaming_topk_plain(user_e, item_table, row_ptr, items, k: int,
+                         tile: int = STREAM_ITEM_TILE):
+    """The JAX package's tiled algorithm over the whole item table."""
+    return _stream_plain(user_e, item_table, row_ptr, items, k, 0, item_table.shape[0], tile)
 
 
 #: the factors' types of the kernels: float32 (B5), and bfloat16 (B13) or
@@ -95,7 +113,7 @@ def streaming_topk_plain(user_e, item_table, row_ptr, items, k: int,
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def _check(user_e, item_table, row_ptr, items, k: int):
+def _check(user_e, item_table, row_ptr, items, k: int, total_items=None):
     if user_e.dtype not in DTYPES or item_table.dtype != user_e.dtype:
         raise TypeError(f"streaming_topk takes factors of one type of {tuple(DTYPES)}: "
                         f"{user_e.dtype}, {item_table.dtype}")
@@ -105,7 +123,7 @@ def _check(user_e, item_table, row_ptr, items, k: int):
     if row_ptr.dtype != torch.int32 or items.dtype != torch.int32:
         raise TypeError("streaming_topk takes int32 row_ptr and items")
     B = user_e.shape[0]
-    I = item_table.shape[0]
+    I = item_table.shape[0] if total_items is None else total_items
     if row_ptr.shape != (B + 1,) or items.dim() != 1:
         raise ValueError(f"streaming_topk: row_ptr {row_ptr.shape} for {B} rows, "
                          f"items {items.shape}")
@@ -117,8 +135,9 @@ def _check(user_e, item_table, row_ptr, items, k: int):
         raise ValueError(f"streaming_topk has no version for device {user_e.device}")
 
 
-def _launch(user_e, item_table, row_ptr, items, k: int, name: str):
-    """One call of the kernel for the factors' type (B5 or B13)."""
+def _launch(user_e, item_table, row_ptr, items, k: int, name: str, col_offset: int = 0):
+    """One call of the kernel for the factors' type (B5 or B13; B14's local
+    stage with the rows' global offset)."""
     B, D = user_e.shape
     I = item_table.shape[0]
     if D > MAX_D:
@@ -144,7 +163,7 @@ def _launch(user_e, item_table, row_ptr, items, k: int, name: str):
     err = lib.streaming_topk(
         user_e.data_ptr(), item_table.data_ptr(), B, I, D, row_ptr.data_ptr(),
         items.data_ptr(), k, table.data_ptr(), bits, n_splits, cand_s.data_ptr(),
-        cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), code,
+        cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), code, col_offset,
         build.stream_handle(user_e),
     )
     build.check(err, name)
@@ -194,3 +213,109 @@ def streaming_topk_bf16(user_e, item_table, row_ptr, items, k: int):
 
 
 streaming_topk_bf16.launches = 0
+
+
+def sharded_topk_local_plain(user_e, block, row_ptr, items, k: int, col_offset: int,
+                             total_items: int, tile: int = STREAM_ITEM_TILE):
+    """B14's local stage, plain: the streaming top-k of ``block`` (row j is
+    global item ``col_offset + j``; rows at or past ``total_items`` are
+    padding and never compete), 16-bit factors upcast exactly."""
+    n_valid = max(0, min(block.shape[0], total_items - col_offset))
+    return _stream_plain(user_e.float(), block.float(), row_ptr, items, k, col_offset,
+                         n_valid, tile)
+
+
+def sharded_topk_local(user_e, block, row_ptr, items, k: int, col_offset: int,
+                       total_items: int):
+    """B14's local stage: (scores float32 [B, k], global ids int32 [B, k]),
+    the k best of each row of ``user_e @ block.T`` by (score desc, id asc),
+    where row j of ``block`` is global item ``col_offset + j``, global column
+    0 (PAD) and each row's history items (CSR of global ids, as
+    :func:`streaming_topk`) score ``finfo(float32).min``, and the rows at or
+    past ``total_items`` (the last shard's padding) never compete: a shard
+    with fewer than k such rows pads its list with (-inf, INT32_MAX).
+    Float32 factors run B5's tile kernel, 16-bit ones B13's, at the offset;
+    1 <= k <= min(64, total_items)."""
+    _check(user_e, block, row_ptr, items, k, total_items)
+    if user_e.device.type == "cpu":
+        return sharded_topk_local_plain(user_e, block, row_ptr, items, k, col_offset,
+                                        total_items)
+    n_valid = max(0, min(block.shape[0], total_items - col_offset))
+    if n_valid == 0:  # a shard wholly past the items: nothing to launch
+        B = user_e.shape[0]
+        return (torch.full((B, k), -torch.inf, device=user_e.device),
+                torch.full((B, k), INT32_MAX, dtype=torch.int32, device=user_e.device))
+    out = _launch(user_e, block[:n_valid], row_ptr, items, k, "sharded_topk_local",
+                  col_offset)
+    sharded_topk_local.launches += 1
+    return out
+
+
+sharded_topk_local.launches = 0
+
+
+def sharded_topk_merge_plain(cand_s, cand_i, k: int):
+    """B14's merge, plain: the stable merge of the lists concatenated in
+    shard order (JAX ``top_k`` over the gathered candidates)."""
+    return _merge_lists(cand_s, cand_i, k)
+
+
+def sharded_topk_merge(cand_s, cand_i, k: int):
+    """B14's merge: (scores [B, k], ids [B, k]) of the k best of the m
+    candidate lists ``cand_s`` float32 / ``cand_i`` int32 [m, B, k] (the
+    model group's local stages, in shard order) by (score desc, id asc)."""
+    if (cand_s.dim() != 3 or cand_s.shape != cand_i.shape or cand_s.dtype != torch.float32
+            or cand_i.dtype != torch.int32 or cand_s.device != cand_i.device):
+        raise ValueError(f"sharded_topk_merge takes float32 / int32 lists [m, B, k]: "
+                         f"{cand_s.shape} {cand_s.dtype}, {cand_i.shape} {cand_i.dtype}")
+    if not 1 <= k <= MAX_K or cand_s.shape[2] != k:
+        raise ValueError(f"sharded_topk_merge takes lists of k, 1 <= k <= {MAX_K}: "
+                         f"{cand_s.shape[2]}, k={k}")
+    if cand_s.device.type == "cpu":
+        return sharded_topk_merge_plain(cand_s, cand_i, k)
+    if cand_s.device.type != "cuda":
+        raise ValueError(f"sharded_topk_merge has no version for device {cand_s.device}")
+    m, B, _ = cand_s.shape
+    out_s = torch.empty((B, k), dtype=torch.float32, device=cand_s.device)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=cand_s.device)
+    cand_s, cand_i = cand_s.contiguous(), cand_i.contiguous()
+    err = build.library("streaming_topk").streaming_topk_merge(
+        cand_s.data_ptr(), cand_i.data_ptr(), B, m, k, out_s.data_ptr(), out_i.data_ptr(),
+        build.stream_handle(cand_s))
+    build.check(err, "sharded_topk_merge")
+    sharded_topk_merge.launches += 1
+    return out_s, out_i
+
+
+sharded_topk_merge.launches = 0
+
+
+def sharded_streaming_topk(user_e, block, row_ptr, items, k: int, col_offset: int,
+                           total_items: int, group):
+    """B14: the streaming top-k of ``user_e`` against an item table split
+    over ``group`` (the model group: rank j holds rows ``[j L, (j + 1) L)``
+    as ``block``, at ``col_offset`` = j L): the local stage on this rank's
+    rows, an ``all_gather`` of the m [B, k] lists over ``group``, then the
+    merge. Every rank of the group passes the same users and history and
+    gets the same (scores, ids) [B, k], equal to one :func:`streaming_topk`
+    over the whole table."""
+    s, i = sharded_topk_local(user_e, block, row_ptr, items, k, col_offset, total_items)
+    return sharded_topk_merge(_all_gather(s, group), _all_gather(i, group), k)
+
+
+def _all_gather(t, group):
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.stack(parts)
+
+
+def sharded_streaming_topk_plain(user_e, item_table, row_ptr, items, k: int, m: int):
+    """B14 in one process, plain: the table split into m shards of
+    ceil(I / m) rows, each shard's local stage at its offset, then the merge.
+    Equals :func:`streaming_topk_plain` over the whole table."""
+    I = item_table.shape[0]
+    L = -(-I // m)
+    lists = [sharded_topk_local_plain(user_e, item_table[j * L:(j + 1) * L], row_ptr, items, k,
+                                      j * L, I) for j in range(m)]
+    return sharded_topk_merge_plain(torch.stack([s for s, _ in lists]),
+                                    torch.stack([i for _, i in lists]), k)

@@ -4,10 +4,16 @@ Port of ``recbole_cdr_tpu/quick_start/quick_start.py::run_recbole_cdr``
 (capability parity with `recbole_cdr/quick_start/quick_start.py:20-130`).
 """
 
+import logging
 from logging import getLogger
 
 from recbole_cdr_tpu_torch.config import CDRConfig
 from recbole_cdr_tpu_torch.data.utils import create_dataset, data_preparation
+from recbole_cdr_tpu_torch.parallel.distributed import (
+    initialize_from_config,
+    is_coordinator,
+    shutdown,
+)
 from recbole_cdr_tpu_torch.trainer.trainer import eval_users
 from recbole_cdr_tpu_torch.utils import (
     get_model, get_trainer, init_logger, init_seed, resolve_device, set_color,
@@ -23,11 +29,27 @@ def run_recbole_cdr(model=None, config_file_list=None, config_dict=None, saved=T
     Returns the JAX package's result keys plus ``history``, one record per
     trained epoch (loss, seconds, examples; validation seconds and users),
     ``test_users``, the users of the test pass, and ``model``, the trained
-    module."""
+    module (under a mesh, this rank's shards). ``distributed`` and
+    ``mesh_shape`` run it as one rank of a process group
+    (``parallel/distributed.py``): every rank returns the same metrics."""
     config = CDRConfig(model=model, config_file_list=config_file_list, config_dict=config_dict)
     resolve_device(config)  # fail before any data work when the card is missing
+    # the process group precedes the dataset (JAX quick_start.py:23-26); a
+    # group this run creates is destroyed with it, whatever happens
+    group = initialize_from_config(config)
+    try:
+        return _run(config, saved)
+    finally:
+        if group is not None:
+            shutdown()
+
+
+def _run(config, saved):
     init_seed(config["seed"], config["reproducibility"])
-    init_logger(config)
+    if is_coordinator():  # only the coordinator logs
+        init_logger(config)
+    else:
+        logging.getLogger().setLevel(logging.WARNING)
     logger = getLogger()
     logger.info(config)
 

@@ -30,6 +30,13 @@ negatives (``neg_sampling: {popularity: N}``) go through kernel B2a
 (``ops/neg_sampler.py::sample_negatives_popularity``) over the sampler's
 alias table, with their acceptance stream from the random source's
 ``accept_bits``.
+
+Under a (data, model) mesh (``parallel/mesh.py``) every rank draws the
+GLOBAL epoch stream from the same seed (the K3 shuffle, the K2 or B2a
+negatives, the dropout bits) and trains on its ``data`` slice of each
+step's columns: the JAX loop's ``P(None, "data")`` constraint
+(``recbole_cdr_tpu/trainer/device_loop.py:400-416``), which keeps the
+random stream of one device.
 """
 
 import functools
@@ -37,6 +44,7 @@ import functools
 import numpy as np
 import torch
 
+from recbole_cdr_tpu_torch.parallel.distributed import put_sharded
 from recbole_cdr_tpu_torch.ops.hashing import as_u32
 from recbole_cdr_tpu_torch.ops.neg_sampler import (
     sample_negatives,
@@ -263,7 +271,7 @@ class DeviceEpochLoop:
     within it (JAX's ``loss_fn(params, batch, fold_in(epoch_rng, step))``)."""
 
     def __init__(self, scheme: TrainMode, step_fn, train_data, input_type,
-                 neg_num: int, num_users: int, random_source, device):
+                 neg_num: int, num_users: int, random_source, device, mesh=None):
         if input_type not in (InputType.POINTWISE, InputType.PAIRWISE):
             raise NotImplementedError(
                 f"the device epoch loop streams pointwise and pairwise batches, not "
@@ -274,6 +282,7 @@ class DeviceEpochLoop:
         self.source = random_source
         self.device = torch.device(device)
         self.neg_num = neg_num
+        self.mesh = mesh
         self.pointwise = input_type == InputType.POINTWISE
         src_b = train_data.source_batcher
         tgt_b = train_data.target_batcher
@@ -453,5 +462,8 @@ class DeviceEpochLoop:
             xs = self._build_xs(shuf, epoch, step_lo, n_steps)
             for i in range(n_steps):
                 rng = functools.partial(self.source.dropout_bits, epoch, step_lo + i)
-                total = total + self.step_fn({k: v[i] for k, v in xs.items()}, rng)
+                batch = {k: v[i] for k, v in xs.items()}
+                if self.mesh is not None:  # this rank's data slice of the step
+                    batch = {k: put_sharded(v, self.mesh) for k, v in batch.items()}
+                total = total + self.step_fn(batch, rng)
         return total

@@ -50,8 +50,18 @@ full-sort and factors function on 16-bit copies of the model's floating
 parameters and buffers (``utils/precision.py``), where the JAX trainer
 wraps them; parameters and optimizer state stay float32.
 
+``mesh_shape`` (with ``distributed`` for more than one process) trains
+CMF over a (data, model) mesh of processes (``parallel/mesh.py``): the
+tables are padded and row-sharded at construction, every rank draws the
+global batch stream and trains on its ``data`` slice, the loss takes its
+batch sums over the data group, and after the backward the gradients are
+summed over it (``clip_grad_norm`` takes the norm over the whole sharded
+tables); evaluation passes the mesh, so the streaming path runs B14. Under
+the mesh, the other models, ``phase_optimizer: sparse`` and a 16-bit
+``compute_dtype`` raise (ROADMAP.md A13 remainder).
+
 Not ported yet, and raising when configured: checkpoint files and resume
-(ROADMAP.md A12), profiling (A12), mesh / multi-GPU (A13).
+(ROADMAP.md A12), profiling (A12).
 """
 
 import functools
@@ -62,6 +72,8 @@ import numpy as np
 import torch
 
 from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator, ValueEvaluator
+from recbole_cdr_tpu_torch.parallel.distributed import put_replicated, put_sharded
+from recbole_cdr_tpu_torch.parallel.mesh import make_mesh, shard_params
 from recbole_cdr_tpu_torch.ops.sparse_adam import (
     adam_step_size,
     first_position_scratch,
@@ -179,15 +191,17 @@ def phase_loss(model, phase):
     return lambda batch, rng=None: model(batch, phase, rng)
 
 
-def make_train_step(model, optimizer, loss_fn, trainable, clip=None):
+def make_train_step(model, optimizer, loss_fn, trainable, clip=None, mesh=None):
     """``(batch, rng=None) -> loss`` performing one optimizer step (``rng``:
     the step's random draw, see ``CrossDomainRecommender.loss_fn``).
     Parameters whose top-level name fails ``trainable`` get ``grad = None``
     before the step, so torch's optimizers leave them and their state
-    untouched."""
+    untouched. Under ``mesh`` the gradients are summed over the data group
+    first, and the clip takes the norm over the whole sharded tables."""
     named = list(model.named_parameters())
     frozen = [p for n, p in named if not trainable(n.split(".", 1)[0])]
-    params = [p for n, p in named if trainable(n.split(".", 1)[0])]
+    live = [(n, p) for n, p in named if trainable(n.split(".", 1)[0])]
+    params = [p for _, p in live]
 
     def step(batch, rng=None):
         optimizer.zero_grad(set_to_none=True)
@@ -195,7 +209,11 @@ def make_train_step(model, optimizer, loss_fn, trainable, clip=None):
         loss.backward()
         for p in frozen:
             p.grad = None
-        if clip is not None:
+        if mesh is not None:
+            mesh.reduce_gradients(params)
+            if clip is not None:
+                mesh.clip_grad_norm_(live, clip, model.table_shards)
+        elif clip is not None:
             torch.nn.utils.clip_grad_norm_([p for p in params if p.grad is not None], clip)
         optimizer.step()
         model.notify_params_updated()
@@ -356,22 +374,31 @@ def eval_users(eval_data) -> int:
     return len(np.unique(eval_data.users))
 
 
-def _check_supported(config):
+def _check_supported(config, model):
     unsupported = {
         "resume_checkpoint_path": ("checkpoint files", "A12"),
-        "mesh_shape": ("mesh / multi-GPU training", "A13"),
-        "distributed": ("multi-process training", "A13"),
         "profile_steps": ("profiling", "A12"),
     }
     for key, (what, item) in unsupported.items():
         if config[key]:
             raise NotImplementedError(f"{key}: {what} is not ported yet (ROADMAP.md {item})")
-    resolve_compute_dtype(config)
-    if (config["phase_optimizer"] or "single").lower() not in ("single", "per_phase", "sparse"):
+    compute_dtype = resolve_compute_dtype(config)
+    mode = (config["phase_optimizer"] or "single").lower()
+    if mode not in ("single", "per_phase", "sparse"):
         raise ValueError(
             f"phase_optimizer must be 'single', 'per_phase' or 'sparse', "
             f"got {config['phase_optimizer']!r}"
         )
+    if not config["mesh_shape"]:
+        return
+    sparse = mode == "sparse" or (mode == "single"
+                                  and (config["learner"] or "adam").lower() == "sparse_adam")
+    for what, unported in ((f"model {type(model).__name__}", not model.MESH_READY),
+                           ("phase_optimizer: sparse (B6 on row shards)", sparse),
+                           (f"compute_dtype {compute_dtype}", compute_dtype != torch.float32)):
+        if unported:
+            raise NotImplementedError(f"mesh_shape: {what} under the mesh is not ported yet "
+                                      "(ROADMAP.md A13 remainder)")
 
 
 class CrossDomainTrainer:
@@ -379,11 +406,18 @@ class CrossDomainTrainer:
     the dataloader mode + model phase, and runs the epoch loop."""
 
     def __init__(self, config, model):
-        _check_supported(config)
+        _check_supported(config, model)
         self.config = config
         self.device = resolve_device(config)
-        self.model = model.to(self.device)
         self.logger = getLogger()
+        #: the (data, model) mesh, tables padded and row-sharded on it (JAX
+        #: ``trainer.py:441-458``), or None
+        self.mesh = None
+        if config["mesh_shape"]:
+            self.mesh = make_mesh(config["mesh_shape"], self.device)
+            shard_params(model, self.mesh)
+            self.logger.info(f"training over mesh {self.mesh.shape}")
+        self.model = model.to(self.device)
 
         self.train_modes = config["train_modes"]
         self.train_epochs = config["epoch_num"]
@@ -495,7 +529,7 @@ class CrossDomainTrainer:
                                           self.compute_dtype)
         loss_fn = with_compute_dtype(phase_loss(self.model, scheme), self.compute_dtype,
                                      self.model)
-        return make_train_step(self.model, self.optimizer, loss_fn, pred, self.clip)
+        return make_train_step(self.model, self.optimizer, loss_fn, pred, self.clip, self.mesh)
 
     def _loop_for(self, scheme, train_data):
         """The phase's epoch loop (its device data is built once per phase
@@ -506,7 +540,7 @@ class CrossDomainTrainer:
             self._loops[scheme] = DeviceEpochLoop(
                 train_mode2state[scheme], None, train_data,
                 self.config["MODEL_INPUT_TYPE"], neg_num,
-                self.model.total_num_users, self.random_source, self.device,
+                self.model.total_num_users, self.random_source, self.device, self.mesh,
             )
         loop = self._loops[scheme]
         loop.step_fn = self._step_fn_for(scheme)
@@ -514,10 +548,20 @@ class CrossDomainTrainer:
 
     def _device_batch(self, batch):
         """A host batch on the trainer's device: integer fields as int32 (the
-        device loop's id type), the rest as float32."""
-        return {k: torch.as_tensor(np.asarray(v, np.int32 if np.asarray(v).dtype.kind in "iu"
-                                              else np.float32), device=self.device)
-                for k, v in batch.items()}
+        device loop's id type), the rest as float32; under the mesh each
+        per-example field is this rank's ``data`` slice of the global batch
+        (JAX ``_device_batch``, ``trainer.py:602-619``)."""
+        out = {}
+        for k, v in batch.items():
+            v = np.asarray(v)
+            v = v.astype(np.int32 if v.dtype.kind in "iu" else np.float32)
+            if self.mesh is None:
+                out[k] = torch.as_tensor(v, device=self.device)
+            elif v.ndim == 1:
+                out[k] = put_sharded(v, self.mesh)
+            else:
+                out[k] = put_replicated(v, self.mesh)
+        return out
 
     def _host_epoch(self, scheme, train_data, step_fn, epoch):
         """One epoch of the host batch path: every batch of the loader through
@@ -615,7 +659,8 @@ class CrossDomainTrainer:
                                                           *keys)
             if (factors is not None and eval_data.item_num >= threshold
                     and not self.evaluator.need_gauc):
-                return self.evaluator.evaluate_streaming(factors, eval_data, self.device)
+                return self.evaluator.evaluate_streaming(factors, eval_data, self.device,
+                                                         mesh=self.mesh)
             return self.evaluator.evaluate(self._score_fn_for(scheme, eval_data), eval_data,
                                            self.device)
         finally:

@@ -29,7 +29,11 @@ where ``sn + t_pop`` is 0, and two runs bit-equal. The bf16 forms: B13
 against its plain version (bf16 and float16 factors, widths through the
 element-wise staging path) and against B5 on the upcast operands, B2a
 bit-exact, K1-bf16 forward and backward; and the entry point on the
-catalog path in bf16 and with popularity negatives on both streams.
+catalog path in bf16 and with popularity negatives on both streams. B14,
+the mesh-sharded streaming top-k (its local stage at each shard's offset,
+then its merge), against its plain version and one B5 (or B13) call over
+the whole table, pad rows past the items included; and CMF over a one-rank
+NCCL mesh through the entry point.
 
 Marked ``cuda``; without a card every test skips. On the card (where jax is
 not installed, so the repository's conftest cannot load):
@@ -820,3 +824,113 @@ def test_popularity_negatives_on_the_card(gen, tmp_path, monkeypatch, model, ext
     counts = _run_on_the_card(tmp_path, monkeypatch, model=model,
                               neg_sampling={"popularity": 1}, **extra)
     assert counts["neg_sampler_popularity"] > 0 and counts["neg_sampler"] == 0, counts
+
+
+def _b14(U, shards, row_ptr, items, k, L, I):
+    """B14 in one process: every shard's local stage at its offset, then the
+    merge kernel over the lists in shard order."""
+    lists = [b5.sharded_topk_local(U, s, row_ptr, items, k, j * L, I) for j, s in enumerate(shards)]
+    return b5.sharded_topk_merge(torch.stack([s for s, _ in lists]),
+                                 torch.stack([i for _, i in lists]), k)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("B,I,D,k", [(40, 1_100_001, 64, 10), (33, 20_003, 64, 64),
+                                     (70, 9001, 17, 16), (5, 70, 8, 20)])
+def test_sharded_topk_matches_plain_and_b5(gen, m, B, I, D, k):
+    """B14's local stage and merge: the table split into m shards of ceil(I /
+    m) rows, the last padded with random rows that must never win (at I = 70,
+    m = 4 the last shard holds 16 rows, fewer than k, its list padded).
+    Integer-valued factors: ids and scores equal the plain version's and one
+    B5 call over the whole table; row 0's history spans every shard, row 1
+    masks all but 3 items (masked ties decide). Normal factors: within
+    1e-4 + 1e-5 |s| of the plain version, ids equal wherever neighbours
+    differ by more. Each wrapper launches once per call."""
+    L = -(-I // m)
+    hist = [torch.randperm(I, device="cuda", generator=gen)[:int(c)]
+            for c in torch.randint(0, 50, (B,), generator=torch.Generator().manual_seed(B))]
+    hist[0] = torch.randperm(I, device="cuda", generator=gen)[:min(I - 1, 20_000)]
+    hist[1] = torch.randperm(I, device="cuda", generator=gen)[:I - 3]
+    row_ptr, items = _csr(hist)
+    for integer in (True, False):
+        if integer:
+            U = torch.randint(-3, 4, (B, D), device="cuda", generator=gen).float()
+            T = torch.randint(-3, 4, (L * m, D), device="cuda", generator=gen).float()
+        else:
+            U = torch.randn(B, D, device="cuda", generator=gen)
+            T = torch.randn(L * m, D, device="cuda", generator=gen)
+        T[I:] = 100.0  # pad rows: they would win every row if they competed
+        shards = T.split(L)
+        ops.reset_launch_counts()
+        got_s, got_i = _b14(U, shards, row_ptr, items, k, L, I)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts["sharded_topk_local"] == sum(j * L < I for j in range(m))
+        assert counts["sharded_topk_merge"] == 1 and counts["streaming_topk"] == 0
+        lists = [b5.sharded_topk_local_plain(U, s, row_ptr, items, k, j * L, I)
+                 for j, s in enumerate(shards)]
+        want_s, want_i = b5.sharded_topk_merge_plain(torch.stack([s for s, _ in lists]),
+                                                     torch.stack([i for _, i in lists]), k)
+        if integer:
+            assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+            one_s, one_i = b5.streaming_topk(U, T[:I], row_ptr, items, k)
+            assert torch.equal(got_i, one_i) and torch.equal(got_s, one_s)
+            continue
+        tol = 1e-4 + 1e-5 * want_s.abs()
+        assert bool(((got_s - want_s).abs() <= tol).all())
+        gap = torch.diff(want_s, dim=1).abs() > tol[:, 1:]
+        clear = torch.ones_like(want_i, dtype=torch.bool)
+        clear[:, 1:] &= gap
+        clear[:, :-1] &= gap
+        assert torch.equal(got_i[clear], want_i[clear])
+
+
+def test_sharded_topk_bf16_against_b13(gen):
+    """B14 on bf16 factors goes through B13's tile kernel at each shard's
+    offset: on integer-valued factors ids and scores equal one B13 call over
+    the whole table; on normal ones within ``B13_TOL`` of the plain version."""
+    I, m, k = 300_001, 4, 10
+    L = -(-I // m)
+    for integer in (True, False):
+        U, T, row_ptr, items = _bf16_case(gen, 64, L * m, 64, integer)
+        T[I:] = 100.0
+        row_ptr, items = _csr([torch.randperm(I, device="cuda", generator=gen)[:30]
+                               for _ in range(64)])
+        got_s, got_i = _b14(U, T.split(L), row_ptr, items, k, L, I)
+        if integer:
+            one_s, one_i = b5.streaming_topk(U, T[:I], row_ptr, items, k)
+            assert torch.equal(got_i, one_i) and torch.equal(got_s, one_s)
+            continue
+        want_s, want_i = b5.sharded_streaming_topk_plain(U, T[:I], row_ptr, items, k, m)
+        tol = _b13_tol(U, T, want_i)
+        assert bool(((got_s - want_s).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("distributed", [False, True])
+def test_mesh_on_the_card(gen, tmp_path, monkeypatch, distributed):
+    """CMF over a one-rank NCCL mesh (``mesh_shape`` alone: an in-process
+    store; with ``distributed``: a TCP one), streaming forced: B14's local
+    stage and merge launch, B5 never; the metrics equal the run without the
+    mesh; the process group is gone afterwards."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    extra = {"mesh_shape": {"data": 1, "model": 1}, "streaming_topk_threshold": 1}
+    if distributed:
+        extra["distributed"] = {"coordinator_address": f"127.0.0.1:{port}",
+                                "num_processes": 1, "process_id": 0}
+    from recbole_cdr_tpu_torch import run_recbole_cdr
+
+    monkeypatch.chdir(tmp_path)
+    cfg = {"state": "ERROR", "device": "cuda", "train_epochs": ["BOTH:2"],
+           "train_batch_size": 1024, "streaming_topk_threshold": 1}
+    ops.reset_launch_counts()
+    mesh = run_recbole_cdr(model="CMF", config_dict={**cfg, **extra})
+    counts = ops.launch_counts()
+    assert not torch.distributed.is_initialized()
+    assert counts["sharded_topk_local"] == counts["sharded_topk_merge"] > 0, counts
+    assert counts["streaming_topk"] == counts["masked_topk"] == 0, counts
+    single = run_recbole_cdr(model="CMF", config_dict=cfg)
+    assert mesh["test_result"] == single["test_result"]

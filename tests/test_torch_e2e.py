@@ -1,8 +1,8 @@
 """End to end through the port's entry point on the CPU: run_recbole_cdr on
 the bundled pair trains CMF and evaluates with finite metrics, the options
 that raised until they were ported (bf16 compute and scores, adagrad,
-rmsprop, popularity negatives) run, and the parts not ported yet raise
-instead of running something else."""
+rmsprop, popularity negatives, a one-rank mesh) run, and the parts not
+ported yet raise instead of running something else."""
 
 import math
 
@@ -33,7 +33,8 @@ def test_run_recbole_cdr_cmf_on_cpu(extra):
 
 #: the configurations that raised until their code was ported: each now
 #: runs (bf16 compute, the optax-form learners, bf16 streaming scores,
-#: popularity negatives on the pointwise and the pairwise stream)
+#: popularity negatives on the pointwise and the pairwise stream, a one-rank
+#: mesh: a gloo group in this process, which the run destroys)
 @pytest.mark.parametrize("model,extra", [
     ("EMCDR", {"train_epochs": ["SOURCE:1", "TARGET:1", "OVERLAP:1"], "loss_type": "BPR",
                "latent_factor_model": "BPR", "neg_sampling": {"popularity": 1}}),
@@ -42,6 +43,7 @@ def test_run_recbole_cdr_cmf_on_cpu(extra):
     ("CMF", {"learner": "rmsprop"}),
     ("CMF", {"streaming_topk_threshold": 10, "eval_score_dtype": "bfloat16"}),
     ("CMF", {"neg_sampling": {"popularity": 1}}),
+    ("CMF", {"mesh_shape": {"data": 1, "model": 1}}),
 ])
 def test_ported_options_run(model, extra):
     result = run_recbole_cdr(model=model,
@@ -53,7 +55,8 @@ def test_ported_options_run(model, extra):
 #: the cases that still raise keep the ids they had among the ones that
 #: moved to ``test_ported_options_run``
 @pytest.mark.parametrize("model,extra", [
-    pytest.param("CMF", {"mesh_shape": {"data": 2}}, id="CMF-extra2"),
+    pytest.param("CMF", {"mesh_shape": {"data": 1, "model": 1}, "phase_optimizer": "sparse"},
+                 id="CMF-extra2"),
     pytest.param("CMF", {"phase_optimizer": "sparse", "profile_steps": 1}, id="CMF-extra3"),
     pytest.param("CMF", {"resume_checkpoint_path": "saved/CMF.pth"}, id="CMF-extra7"),
     pytest.param("BiTGCF", {"compute_dtype": "bfloat16"}, id="BiTGCF-bf16"),

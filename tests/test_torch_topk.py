@@ -45,6 +45,7 @@ from recbole_cdr_tpu_torch.ops.topk import (
     streaming_topk_bf16,
     streaming_topk_plain,
 )
+from recbole_cdr_tpu_torch.parallel import make_mesh
 from recbole_cdr_tpu_torch.utils import init_seed
 from recbole_cdr_tpu_torch.utils.convert import params_from_jax
 
@@ -236,8 +237,16 @@ def test_streaming_eval_matches_dense_and_jax(block, monkeypatch):
     assert got["recall@10"] > 0
     assert sum(launch_counts().values()) == 0
 
-    with pytest.raises(NotImplementedError, match="A13"):
-        ev.evaluate_streaming(factors, ttest, "cpu", mesh=object())
+    # the mesh form (B14's plain version) over a one-rank mesh: the same
+    # metrics; factors under a mesh carry their rows' first global item
+    torch.distributed.init_process_group("gloo", store=torch.distributed.HashStore(),
+                                         world_size=1, rank=0)
+    try:
+        mesh = make_mesh({"data": 1, "model": 1})
+        assert ev.evaluate_streaming(lambda users: (*factors(users), 0), ttest, "cpu",
+                                     mesh=mesh) == got
+    finally:
+        torch.distributed.destroy_process_group()
     ev.need_gauc = True
     with pytest.raises(ValueError, match="GAUC"):
         ev.evaluate_streaming(factors, ttest, "cpu")
