@@ -185,6 +185,22 @@ stream's history matrix, the alias table of its items). B2a's bound
 each distinct user's real history entries and the alias table, once each,
 and one draw's operations per slot.
 
+Phase 2 also reads the SASS of the built libraries (``check_sass``,
+``cuobjdump --dump-sass``): every instantiation of B13's tile kernel must
+hold HGMMA (wgmma), UTMALDG (TMA loads) and SYNCS (mbarriers) and at most
+the one block barrier before its roles split, and K4's kernel (B10's too)
+the cluster barriers (UCGABAR) of its short-tile form; it prints the counts.
+B13's time is printed beside B5's from the same run, with its launch plan
+and the item bytes the plan reads from L2 into the SMs (modelled from the
+plan, not read from a counter), and beside the time of the same call on
+factors whose scores fall with the item id, so that after a range's first
+tile no score reaches a row's threshold: the products and the pipeline
+without the selection's exact tests and merges. K4's launch plans (the dense
+and the fallback tile) and B10's are printed, with K4's time on the fallback
+tile's first 128 columns (one warp a row, one merge, no cluster): the floor
+of a launch of that kernel. The plans and probes are printed on lines of
+their own and kept out of the ``kernels`` records.
+
 B11 (``rating_vector_forward`` / ``rating_vector_backward``) is held in
 phase 2 at a DMF training step's shapes (16,384 ids, both domains' pairs)
 on each of its four histories, the source item side (every id's history of
@@ -695,6 +711,49 @@ def make_recorder(out):
     return record
 
 
+#: SASS opcodes the redesigned kernels must hold (``check_sass``): every
+#: instantiation of B13's tile kernel its warpgroup products (HGMMA) and
+#: mbarrier operations (SYNCS), the TMA ones their TMA loads (UTMALDG), and
+#: at most the one block barrier before its roles split; every instantiation
+#: of K4's kernel (B10's too) the cluster barriers of its short-tile form
+#: (UCGABAR). Source -> (kernel, opcodes in every instantiation, opcodes in
+#: at least one, opcodes counted)
+SASS_OPCODES = {
+    "streaming_topk": ("tile16_kernel", ("HGMMA", "SYNCS"), ("UTMALDG",),
+                       ("HGMMA", "UTMALDG", "SYNCS", "BAR.SYNC")),
+    "masked_topk": ("masked_topk_kernel", ("UCGABAR",), (), ("UCGABAR", "BAR.SYNC")),
+}
+
+
+def check_sass():
+    """Count the opcodes of ``SASS_OPCODES`` in each instantiation of B13's
+    and K4's kernels (``cuobjdump --dump-sass`` of the built libraries) and
+    fail where one is absent, or where B13's selection holds a block
+    barrier."""
+    import re
+
+    from recbole_cdr_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    build.build_all()  # a run of phase 2 alone has built nothing yet
+    for source, (kernel, each, some, counted) in SASS_OPCODES.items():
+        sass = subprocess.run([cuobjdump, "--dump-sass", build._lib_path(source)],
+                              capture_output=True, text=True, check=True).stdout
+        funcs = [f for f in sass.split("Function : ")[1:] if kernel in f.split("\n", 1)[0]]
+        assert funcs, f"{source}: no {kernel} in the SASS"
+        counts = [{op: len(re.findall(r"\b" + re.escape(op), f)) for op in counted}
+                  for f in funcs]
+        total = {op: sum(c[op] for c in counts) for op in counted}
+        print(f"  SASS {source}.cu {kernel} ({len(funcs)} instantiations): "
+              + ", ".join(f"{op} {n}" for op, n in total.items()), flush=True)
+        for op in each:
+            assert all(c[op] for c in counts), f"an instantiation of {kernel} has no {op}"
+        for op in some:
+            assert total[op], f"no instantiation of {kernel} has {op}"
+        if source == "streaming_topk":
+            assert all(c["BAR.SYNC"] <= 1 for c in counts), f"{kernel} holds block barriers"
+
+
 def kernel_checks(dev):
     """Hold K1-K4 against their plain versions at the dense path's shapes,
     B5 and B6 at the catalog path's, and time them. Returns {kernel name:
@@ -711,6 +770,7 @@ def kernel_checks(dev):
     )
     from recbole_cdr_tpu_torch.ops import gather_dot as k1, masked_topk as k4
     from recbole_cdr_tpu_torch.ops import rank_sum as b7
+    from recbole_cdr_tpu_torch.ops.masked_topk import sm_count
     from recbole_cdr_tpu_torch.ops import graph_layer as b8
     from recbole_cdr_tpu_torch.ops import neg_sampler as k2, shuffle as k3
     from recbole_cdr_tpu_torch.ops import sparse_adam as b6, topk as b5
@@ -718,6 +778,7 @@ def kernel_checks(dev):
     from recbole_cdr_tpu_torch.utils import init_seed
     from recbole_cdr_tpu_torch.utils.enums import TrainMode
 
+    check_sass()
     config = CDRConfig(model="CMF", config_dict=config_dict(), _cli_args=[])
     init_seed(config["seed"], True)
     dataset = create_dataset(config)
@@ -825,6 +886,8 @@ def kernel_checks(dev):
            lambda: k4.masked_topk_plain(scores, rp, items[0], k),
            float(err), scores.numel() * 4 + rp.numel() * 4 + n_pairs * 4 + users.shape[0] * k * 4,
            scores.numel(), library_fn=lambda: library_topk(scores, hist_t, k))
+    print(f"  masked_topk plan {k4.masked_topk_plan(*scores.shape, k, sm_count(dev))}",
+          flush=True)
 
     # ---- B7: the GAUC rank sums of the same tile ---------------------------
     nB, n_items = users.shape[0], scores.shape[1]
@@ -987,7 +1050,27 @@ def kernel_checks(dev):
            lambda: b5.streaming_topk_bf16_plain(Ub, Tb, rp, it, k),
            err, b13_bytes, 0, library_fn=library_streaming_bf16, reps=10,
            bf16_ops=2 * B * n_items * D)
-    del Ub, Tb, Uu, Tu
+    del Uu, Tu
+    plan = b5.streaming_topk_bf16_plan(B, n_items, D, k, sm_count(dev))
+    print(f"  streaming_topk_bf16 beside B5 in this run: {out['streaming_topk_bf16']['ms']:.4f} "
+          f"against {out['streaming_topk']['ms']:.4f} ms; plan {plan}; L2-to-SM item bytes "
+          f"modelled from the plan {plan['l2_bytes'] / 1e9:.3f} GB", flush=True)
+    # probe: the same call on factors whose scores fall with the item id for
+    # every row (x_i = 1 - i / 2^21, exact as the sum of three bf16 terms), so
+    # that no score after a range's first tile reaches a row's threshold
+    x = 1.0 - torch.arange(n_items, device=dev, dtype=torch.float64) / 2.0 ** 21
+    Tp = torch.zeros_like(Tb)
+    for j in range(3):
+        Tp[:, j] = x.to(torch.bfloat16)
+        x = x - Tp[:, j].double()
+    Up = torch.zeros_like(Ub)
+    Up[:, :3] = 1
+    assert torch.equal(b5.streaming_topk_bf16(Up, Tp, rp, it, k)[1],
+                       b5.streaming_topk_bf16_plain(Up, Tp, rp, it, k)[1])
+    falling_ms = device_ms(lambda: b5.streaming_topk_bf16(Up, Tp, rp, it, k), 10)[0]
+    print(f"  streaming_topk_bf16 probe: scores falling with the item id {falling_ms:.4f} ms "
+          f"against {out['streaming_topk_bf16']['ms']:.4f} ms on the normal factors", flush=True)
+    del Ub, Tb, Up, Tp
 
     # ---- B6: the item-table updates of three train steps -----------------
     cloop = DeviceEpochLoop(TrainMode.BOTH, None, ctrain, cconfig["MODEL_INPUT_TYPE"], 1,
@@ -1423,6 +1506,13 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
            lambda: k4.masked_topk_plain(fs_probs, rp, it, k),
            0.0, fs_probs.numel() * 4 + rp.numel() * 4 + n_pairs * 4 + B * k * 4,
            fs_probs.numel(), library_fn=lambda: library_topk(fs_probs, hp, k), shape=tile)
+    print(f"  masked_topk {tile} plan {k4.masked_topk_plan(*fs_probs.shape, k, k4.sm_count(dev))}",
+          flush=True)
+    # probe: the tile's first 128 columns, one warp a row and no cluster
+    head = fs_probs[:, :128].contiguous()
+    head_ms = device_ms(lambda: k4.masked_topk(head, rp, it, k), 50)[0]
+    print(f"  masked_topk probe: [{B}, 128] (plan {k4.masked_topk_plan(B, 128, k, k4.sm_count(dev))}) "
+          f"{head_ms:.4f} ms", flush=True)
     record("rank_sum",
            lambda: b7.rank_sum(fs_probs, rp, it, pos, pmask),
            lambda: b7.rank_sum_plain(fs_probs, rp, it, pos, pmask),
@@ -1445,6 +1535,7 @@ def dtcdr_checks(dev, g, record):
     from recbole_cdr_tpu_torch.ops import candidate_topk as b10
     from recbole_cdr_tpu_torch.ops import rank_sum as b7
     from recbole_cdr_tpu_torch.ops import rating_vector as b11
+    from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk_plan, sm_count
     from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
     from recbole_cdr_tpu_torch.utils import init_seed
     from recbole_cdr_tpu_torch.utils.enums import TrainMode
@@ -1573,6 +1664,8 @@ def dtcdr_checks(dev, g, record):
            0.0, B * C * 5 + B * k * 4, B * C,
            library_fn=lambda: torch.topk(
                torch.where(cm, ties, torch.finfo(torch.float32).min), k, dim=1).indices)
+    print(f"  candidate_topk plan {masked_topk_plan(B, C, k, sm_count(dev), cand=True)}",
+          flush=True)
     record("rank_sum_candidates",
            lambda: b7.rank_sum_candidates(ties, cm, pm),
            lambda: b7.rank_sum_candidates_plain(ties, cm, pm),

@@ -47,12 +47,14 @@ _SIGNATURES = {
                                    ctypes.c_uint, _P, _P],
     },
     "shuffle": {"swap_or_not": [_P, _P, _I, _I, _I, _P, _P, _I, _P]},
-    "masked_topk": {"masked_topk": [_P, _I, _I, _P, _P, _I, _P, _P],
-                    "candidate_topk": [_P, _I, _I, _P, _I, _P, _P]},
+    "masked_topk": {"masked_topk": [_P, _I, _I, _P, _P, _I] + [_I] * 5 + [_P, _P],
+                    "candidate_topk": [_P, _I, _I, _P, _I] + [_I] * 5 + [_P, _P]},
     "streaming_topk": {
         "streaming_topk": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
-                           _I, _P],
-        "streaming_topk_splits": [_I, _I, _I, _I, _I],
+                           _P],
+        "streaming_topk_splits": [_I, _I, _I, _I],
+        "streaming_topk_16": [_P, _P, _I, _I, _I, _P, _P, _I, _P] + [_I] * 7
+                             + [_P] * 4 + [_I, _I, _P],
         "streaming_topk_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
     "sparse_adam": {

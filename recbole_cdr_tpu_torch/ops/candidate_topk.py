@@ -7,14 +7,19 @@ set to ``finfo(float32).min`` and the positions of the k best scores of each
 row are taken, ties going to the lowest position, as ``lax.top_k`` does.
 There is no history and no PAD column: column 0 is a row's first positive.
 The kernel is the candidate form of ``csrc/masked_topk.cu`` (K4's selection
-under a template flag); the plain version below runs for CPU tensors and
-serves as the kernel's reference.
+under a template flag, on K4's launch plan ``masked_topk_plan``); the plain
+version below runs for CPU tensors and serves as the kernel's reference.
 """
 
 import torch
 
 from recbole_cdr_tpu_torch.ops import build
-from recbole_cdr_tpu_torch.ops.masked_topk import MAX_K
+from recbole_cdr_tpu_torch.ops.masked_topk import (
+    MAX_K,
+    launch_plan_args,
+    masked_topk_plan,
+    sm_count,
+)
 
 
 def candidate_topk_plain(scores, cand_mask, k: int):
@@ -42,9 +47,10 @@ def candidate_topk(scores, cand_mask, k: int):
         raise ValueError(f"candidate_topk has no version for device {scores.device}")
     scores, cand_mask = scores.contiguous(), cand_mask.contiguous()
     out = torch.empty((B, k), dtype=torch.int32, device=scores.device)
+    plan = masked_topk_plan(B, C, k, sm_count(scores.device), cand=True)
     err = build.library("masked_topk").candidate_topk(
-        scores.data_ptr(), B, C, cand_mask.data_ptr(), k, out.data_ptr(),
-        build.stream_handle(scores),
+        scores.data_ptr(), B, C, cand_mask.data_ptr(), k, *launch_plan_args(plan),
+        out.data_ptr(), build.stream_handle(scores),
     )
     build.check(err, "candidate_topk")
     candidate_topk.launches += 1

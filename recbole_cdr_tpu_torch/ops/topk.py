@@ -17,12 +17,14 @@ A row's history arrives in CSR form, ``items[row_ptr[r]:row_ptr[r + 1]]``
 The kernel is ``csrc/streaming_topk.cu``, which computes the score product
 itself on the tensor cores in 3xTF32 (float32 accuracy: each operand split
 into a TF32 high part and residual, three products per score) and selects
-from the accumulators; B13 is its bf16 form (``streaming_topk_bf16``: one
-16-bit product per score, float32 accumulation, as JAX's ``_score_dot``
-with ``preferred_element_type`` float32). B14
+from the accumulators. B13 (``streaming_topk_bf16``: one 16-bit product per
+score, float32 accumulation, as JAX's ``_score_dot`` with
+``preferred_element_type`` float32) has its own tile kernel in the same
+source, on wgmma fed by TMA with a warp-private selection, under the launch
+plan :func:`streaming_topk_bf16_plan`. B14
 (:func:`sharded_streaming_topk`) splits the item axis over a mesh's
-``model`` axis: each rank runs the same tile kernel on its rows of the table
-at their global offset (:func:`sharded_topk_local`), an ``all_gather`` over
+``model`` axis: each rank runs B5's or B13's tile kernel on its rows of the
+table at their global offset (:func:`sharded_topk_local`), an ``all_gather`` over
 the model group collects the m [B, k] lists, and B5's merge kernel merges
 them (:func:`sharded_topk_merge`); the ids equal one call over the whole
 table. The plain versions below run for CPU tensors and serve as the
@@ -135,6 +137,88 @@ def _check(user_e, item_table, row_ptr, items, k: int, total_items=None):
         raise ValueError(f"streaming_topk has no version for device {user_e.device}")
 
 
+#: B13's tile kernel (``streaming_topk_16``): items per tile (the wgmma N),
+#: values of D per 128-byte swizzled box, survivor slots per row (the
+#: source's kCap16), the bounds
+#: of its ring of item boxes, and its consumer warpgroups of 64 user rows (4
+#: where the shared memory allows: the more warps, the more of the
+#: selection's latency hides)
+B13_TILE = 64
+B13_BOX = 64
+B13_CAP = 32
+B13_MIN_STAGES = 4
+B13_MAX_STAGES = 8
+B13_WARPGROUPS = (4, 2)
+#: shared memory a block may use on an H100
+SMEM_LIMIT = 232_448
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def b13_smem_bytes(wgs: int, boxes: int, stages: int, k: int) -> int:
+    """B13's shared memory (``smem16_bytes`` in the source, plus 1,024 bytes
+    to align it): the block's 64 ``wgs`` user rows, the ring of [64 items x
+    128 B] item boxes, each row's list and buffer of (score, id) pairs (the
+    buffer's row stride B13_CAP + 1), and the ring's and the user rows' full
+    and empty barriers."""
+    rows = 64 * wgs
+    return (boxes * rows * 128 + stages * B13_TILE * 128 + 8 * rows * (k + B13_CAP + 1)
+            + 8 * (2 * stages + 2) + 1024)
+
+
+def streaming_topk_bf16_plan(B: int, I: int, D: int, k: int, n_sms: int) -> dict:
+    """B13's launch plan for [B, D] users against [I, D] items: a pure
+    function of the shape and the SM count.
+
+    A block holds ``rows`` = 64 ``wgs`` user rows (``wgs`` consumer
+    warpgroups of one m64 tile each: 4, so that every item tile fetched
+    serves 256 users, where the shared memory allows, else 2) and a ring of
+    ``stages`` item boxes (one box per 64 values of D, at least 4 and at
+    least one tile's boxes). The item axis splits into ``n_ranges`` ranges
+    of ``span`` items (a multiple of the 64-item tile); the work items are
+    (row block, range) pairs, ``row_blocks`` x ``n_ranges`` of them, at most
+    one per SM where the row blocks allow (a row's threshold then rises over
+    one long range: the fewer ranges, the fewer survivors), walked by a
+    persistent grid of ``grid`` blocks (one per SM) with the row block
+    fastest, so the blocks that run together read one item range. ``tma``:
+    TMA stages the boxes (16-byte row pitch, D % 8 == 0), else the producer
+    warp stages them element-wise. ``smem``: a block's bytes. ``l2_bytes``:
+    the item bytes read from L2 into the SMs (every row block reads the
+    whole table once)."""
+    if B < 1 or I < 1 or not 1 <= D <= MAX_D or not 1 <= k <= min(MAX_K, I) or n_sms < 1:
+        raise ValueError(f"streaming_topk_bf16_plan: no plan for B={B}, I={I}, D={D}, "
+                         f"k={k}, sms={n_sms}")
+    boxes = _cdiv(D, B13_BOX)
+    least = max(B13_MIN_STAGES, boxes)
+    fits = ((wgs, s) for wgs in B13_WARPGROUPS
+            for s in range(max(B13_MAX_STAGES, least), least - 1, -1)
+            if b13_smem_bytes(wgs, boxes, s, k) <= SMEM_LIMIT)
+    wgs, stages = next(fits, (None, None))
+    if wgs is None:
+        raise ValueError(f"streaming_topk_bf16: D={D}, k={k} do not fit one block's "
+                         "shared memory")
+    rows = 64 * wgs
+    row_blocks = _cdiv(B, rows)
+    tiles = _cdiv(I, B13_TILE)
+    n_ranges = min(tiles, max(1, n_sms // row_blocks))
+    span = _cdiv(tiles, n_ranges) * B13_TILE
+    n_ranges = _cdiv(I, span)
+    return {"wgs": wgs, "rows": rows, "stages": stages, "boxes": boxes, "span": span,
+            "n_ranges": n_ranges, "row_blocks": row_blocks,
+            "grid": min(row_blocks * n_ranges, n_sms), "tma": D % 8 == 0,
+            "smem": b13_smem_bytes(wgs, boxes, stages, k),
+            "l2_bytes": row_blocks * I * D * 2}
+
+
+def _history_table(items, dev):
+    """The history set's scratch: (row, item) keys at a load factor of at
+    most 1/2, sized from the shape alone (no device sync)."""
+    bits = max(10, (2 * items.shape[0] - 1).bit_length())
+    return torch.empty(1 << bits, dtype=torch.int64, device=dev), bits
+
+
 def _launch(user_e, item_table, row_ptr, items, k: int, name: str, col_offset: int = 0):
     """One call of the kernel for the factors' type (B5 or B13; B14's local
     stage with the rows' global offset)."""
@@ -143,7 +227,6 @@ def _launch(user_e, item_table, row_ptr, items, k: int, name: str, col_offset: i
     if D > MAX_D:
         raise ValueError(f"streaming_topk stages rows of at most {MAX_D} values, got D={D}")
     lib = build.library("streaming_topk")
-    code = DTYPES[user_e.dtype]
     user_e, item_table = user_e.contiguous(), item_table.contiguous()
     row_ptr, items = row_ptr.contiguous(), items.contiguous()
     dev = user_e.device
@@ -151,21 +234,31 @@ def _launch(user_e, item_table, row_ptr, items, k: int, name: str, col_offset: i
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
         return out_s, out_i
-    n_splits = lib.streaming_topk_splits(B, I, D, k, code)
-    if n_splits < 0:
-        build.check(-n_splits, name)
-    # the history set: (row, item) keys at a load factor of at most 1/2,
-    # sized from the shape alone (no device sync)
-    bits = max(10, (2 * items.shape[0] - 1).bit_length())
-    table = torch.empty(1 << bits, dtype=torch.int64, device=dev)
-    cand_s = torch.empty((n_splits, B, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((n_splits, B, k), dtype=torch.int32, device=dev)
-    err = lib.streaming_topk(
-        user_e.data_ptr(), item_table.data_ptr(), B, I, D, row_ptr.data_ptr(),
-        items.data_ptr(), k, table.data_ptr(), bits, n_splits, cand_s.data_ptr(),
-        cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), code, col_offset,
-        build.stream_handle(user_e),
-    )
+    table, bits = _history_table(items, dev)
+    if user_e.dtype == torch.float32:
+        n_splits = lib.streaming_topk_splits(B, I, D, k)
+        if n_splits < 0:
+            build.check(-n_splits, name)
+        cand_s = torch.empty((n_splits, B, k), dtype=torch.float32, device=dev)
+        cand_i = torch.empty((n_splits, B, k), dtype=torch.int32, device=dev)
+        err = lib.streaming_topk(
+            user_e.data_ptr(), item_table.data_ptr(), B, I, D, row_ptr.data_ptr(),
+            items.data_ptr(), k, table.data_ptr(), bits, n_splits, cand_s.data_ptr(),
+            cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), col_offset,
+            build.stream_handle(user_e),
+        )
+    else:
+        plan = streaming_topk_bf16_plan(
+            B, I, D, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        cand_s = torch.empty((plan["n_ranges"], B, k), dtype=torch.float32, device=dev)
+        cand_i = torch.empty((plan["n_ranges"], B, k), dtype=torch.int32, device=dev)
+        err = lib.streaming_topk_16(
+            user_e.data_ptr(), item_table.data_ptr(), B, I, D, row_ptr.data_ptr(),
+            items.data_ptr(), k, table.data_ptr(), bits, plan["wgs"], plan["stages"],
+            plan["span"], plan["n_ranges"], plan["grid"], int(plan["tma"]),
+            cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            DTYPES[user_e.dtype], col_offset, build.stream_handle(user_e),
+        )
     build.check(err, name)
     return out_s, out_i
 
@@ -198,7 +291,9 @@ def streaming_topk_bf16_plain(user_e, item_table, row_ptr, items, k: int):
 
 def streaming_topk_bf16(user_e, item_table, row_ptr, items, k: int):
     """B13: :func:`streaming_topk` on bfloat16 (or float16) factors, each
-    product of 16-bit operands accumulated in float32 on the tensor cores.
+    product of 16-bit operands accumulated in float32 on the tensor cores
+    (wgmma), one launch of the tile kernel a call under
+    :func:`streaming_topk_bf16_plan`.
     The plain version upcasts both operands exactly (``.float()``) and runs
     :func:`streaming_topk_plain`: every 16-bit product is exact in float32,
     so the two differ only in the order of the float32 sums."""

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-over the edge cases the main path's shapes do not reach: every ``masked_topk``
-template (k up to 64), a row too wide for static shared memory, fewer
-unmasked items than k, swap-or-not grids taller than one launch's grid,
+over the edge cases the main path's shapes do not reach: ``masked_topk`` with
+k up to 64 and every branch of its launch plan (a row split over a
+thread-block cluster, eight rows a block, wide history bitmaps), run to run,
+fewer unmasked items than k, swap-or-not grids taller than one launch's grid,
 history widths with and without 16-byte loads, embedding widths that are
 not a multiple of the warp; every ``streaming_topk`` template at the
 catalog's 1,100,001 items, a history row spanning many item ranges and
@@ -27,7 +28,8 @@ above one 64-column chunk, fewer overlapped rows than one staged tile, more
 column splits than the card needs, all-zero rows (ties: ids 0..k-1) and NaN
 where ``sn + t_pop`` is 0, and two runs bit-equal. The bf16 forms: B13
 against its plain version (bf16 and float16 factors, widths through the
-element-wise staging path) and against B5 on the upcast operands, B2a
+element-wise staging path) and against B5 on the upcast operands, its
+wgmma / TMA tile kernel at the edges of its launch plan, B2a
 bit-exact, K1-bf16 forward and backward; and the entry point on the
 catalog path in bf16 and with popularity negatives on both streams. B14,
 the mesh-sharded streaming top-k (its local stage at each shard's offset,
@@ -75,7 +77,12 @@ def _ints(lo, hi, shape, gen):
 
 
 @pytest.mark.parametrize("B,I,k", [(64, 5001, 10), (33, 700, 32), (17, 300, 50),
-                                   (8, 600_000, 10), (5, 12, 10)])
+                                   (8, 600_000, 10), (5, 12, 10),
+                                   # every branch of masked_topk_plan: a row a cluster
+                                   # (B <= 4 rows per SM), 8 rows a block, wide bitmaps
+                                   (1, 4980, 64), (25, 4980, 10), (32, 4980, 10),
+                                   (33, 4981, 64), (2048, 4980, 10), (2048, 4980, 64),
+                                   (600, 1_000_000, 10)])
 def test_masked_topk_matches_plain(gen, B, I, k):
     scores = torch.round(torch.randn(B, I, device="cuda", generator=gen) * 4) / 4  # ties
     counts = torch.randint(0, min(40, I), (B,), device="cuda", generator=gen)
@@ -87,6 +94,7 @@ def test_masked_topk_matches_plain(gen, B, I, k):
     got = k4.masked_topk(scores, row_ptr, items, k)
     torch.cuda.synchronize()
     assert torch.equal(got, k4.masked_topk_plain(scores, row_ptr, items, k))
+    assert torch.equal(got, k4.masked_topk(scores, row_ptr, items, k))  # run to run
 
 
 @pytest.mark.parametrize("R,L,n,per_row", [(49, 4096, 200_000, False), (49, 4096, 150_000, True),
@@ -492,7 +500,9 @@ def test_rating_vector_matches_plain(gen, R, N, D, B):
     _b11_close(t.grad, want, absum, "autograd")
 
 
-@pytest.mark.parametrize("B,C,k", [(25, 2525, 10), (40, 7, 7), (3, 1, 1), (64, 300, 64)])
+@pytest.mark.parametrize("B,C,k", [(25, 2525, 10), (40, 7, 7), (3, 1, 1), (64, 300, 64),
+                                   (1, 2525, 10), (32, 2525, 10), (33, 2525, 64),
+                                   (2048, 2525, 10)])
 def test_candidate_topk_and_rank_sum_match_plain(gen, B, C, k):
     """Integer scores (ties everywhere); row 0 fully padded, row 1 with
     fewer candidates than 10, the rest padded at random lengths; positives
@@ -509,6 +519,7 @@ def test_candidate_topk_and_rank_sum_match_plain(gen, B, C, k):
     got = b10.candidate_topk(scores, cand, k)
     torch.cuda.synchronize()
     assert torch.equal(got, b10.candidate_topk_plain(scores, cand, k))
+    assert torch.equal(got, b10.candidate_topk(scores, cand, k))  # run to run
     rs = b7.rank_sum_candidates(scores, cand, pos)
     torch.cuda.synchronize()
     assert torch.equal(rs, b7.rank_sum_candidates_plain(scores, cand, pos))
@@ -754,6 +765,48 @@ def test_streaming_topk_bf16_against_b5(gen):
     assert torch.equal(a_i[clear], b_i[clear])
 
 
+@pytest.mark.parametrize("B,I,D,k,dtype", [
+    # D: one box (TMA, zero-filled to the k16 depth), several boxes a stage,
+    # and widths TMA cannot address (element-wise staging: 20, 100)
+    (63, 40_001, 8, 10, torch.bfloat16), (64, 90, 16, 1, torch.bfloat16),
+    (65, 40_001, 24, 64, torch.bfloat16), (129, 90, 64, 10, torch.bfloat16),
+    (1, 40_001, 136, 10, torch.bfloat16), (63, 3000, 256, 64, torch.bfloat16),
+    (65, 3000, 20, 10, torch.bfloat16), (33, 90, 100, 64, torch.float16),
+    (129, 64, 64, 64, torch.bfloat16), (1, 10, 64, 10, torch.float16),
+    (2048, 1_100_001, 64, 10, torch.bfloat16), (40, 1_100_001, 64, 1, torch.float16),
+    (2048, 40_001, 256, 10, torch.float16), (65, 40_001, 136, 64, torch.float16)])
+def test_streaming_topk_bf16_hopper_edges(gen, B, I, D, k, dtype):
+    """B13's wgmma / TMA tile kernel at the edges of its launch plan: every
+    staging form, two and four consumer warpgroups and partial row blocks, an item axis of exactly k, shorter than one 64-item tile,
+    and the catalog's 1,100,001. Row 0 masked down to fewer than k items
+    (masked ties decide its tail). Integer-valued factors: ids and scores
+    equal the plain version's (run on the card); normal ones within
+    ``B13_TOL``, ids equal wherever neighbours differ by more. One launch a
+    call."""
+    for integer in (True, False):
+        U, T, _, _ = _bf16_case(gen, B, I, D, integer, dtype)
+        hist = [torch.randperm(I, device="cuda", generator=gen)[:int(c)]
+                for c in torch.randint(0, min(50, I), (B,), generator=torch.Generator().manual_seed(D))]
+        hist[0] = torch.randperm(I - 1, device="cuda", generator=gen)[:I - k] + 1  # k - 1 left
+        row_ptr, items = _csr(hist)
+        ops.reset_launch_counts()
+        got_s, got_i = b5.streaming_topk_bf16(U, T, row_ptr, items, k)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["streaming_topk_bf16"] == 1
+        want_s, want_i = b5.streaming_topk_bf16_plain(U, T, row_ptr, items, k)
+        assert bool((got_s[0, k - 1:] == torch.finfo(torch.float32).min).all())  # masked tail
+        if integer:
+            assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+            continue
+        tol = _b13_tol(U, T, want_i)
+        assert bool(((got_s - want_s).abs() <= tol).all())
+        gap = torch.diff(want_s, dim=1).abs() > tol[:, 1:]
+        clear = torch.ones_like(want_i, dtype=torch.bool)
+        clear[:, 1:] &= gap
+        clear[:, :-1] &= gap
+        assert torch.equal(got_i[clear], want_i[clear])
+
+
 @pytest.mark.parametrize("n_alias,H,neg_num", [(300_000, 400, 1), (40, 37, 2), (1, 8, 1)])
 def test_neg_sampler_popularity_matches_plain(gen, n_alias, H, neg_num):
     """B2a bit-exact: the alias draw and the rejection, a one-column table
@@ -904,6 +957,23 @@ def test_sharded_topk_bf16_against_b13(gen):
         want_s, want_i = b5.sharded_streaming_topk_plain(U, T[:I], row_ptr, items, k, m)
         tol = _b13_tol(U, T, want_i)
         assert bool(((got_s - want_s).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+def test_sharded_topk_bf16_bit_equal_b13(gen, m):
+    """B14's 16-bit local stage is B13's tile kernel at each shard's offset:
+    on integer-valued factors ids and scores equal one B13 call over the
+    whole table at m = 1, 2 and 4 shards (the last padded with rows that
+    would win if they competed)."""
+    I, k = 300_001, 10
+    L = -(-I // m)
+    U, T, _, _ = _bf16_case(gen, 64, L * m, 64, True)
+    T[I:] = 100.0
+    row_ptr, items = _csr([torch.randperm(I, device="cuda", generator=gen)[:30]
+                           for _ in range(64)])
+    got_s, got_i = _b14(U, T.split(L), row_ptr, items, k, L, I)
+    one_s, one_i = b5.streaming_topk(U, T[:I], row_ptr, items, k)
+    assert torch.equal(got_i, one_i) and torch.equal(got_s, one_s)
 
 
 @pytest.mark.parametrize("distributed", [False, True])
