@@ -136,7 +136,20 @@ Phases, in order; any failure exits non-zero:
    equal to the same run without the mesh; (c) the dense pair's host batch path under
    the same mesh, BOTH:2, dense evaluation (K1, K4): the loss falls, the
    metrics are finite;
-11. report: the card's name and power limit, one JSON line of per-kernel
+11. CLFM, DeepAPF and CoNet: ``run_recbole_cdr`` on the card for each at
+   its published width (``properties/model/<model>.yaml``: CLFM user 64,
+   item 64, shared 32; DeepAPF 64; CoNet 64 with ``mlp_hidden_size`` [64,
+   32, 16, 8]) on the dense path's pair (overlapping on items), BOTH:2 with
+   validation every epoch: K2 and K3 twice per epoch, K4 once per
+   evaluation tile; DeepAPF's B16 (``deepapf_forward`` /
+   ``deepapf_backward``) exactly once each per training step and its grid
+   (``deepapf_grid``) once per tile of the predict fallback; CoNet's B15
+   (``conet_tower``) once per dense tile, and what each of its validation
+   passes allocates beyond what the run holds as it starts less than
+   ``CONET_VALID_HEADROOM`` (the pass's peak above parameters and moments
+   printed beside it); no other kernel; the loss falls and the
+   metrics are finite;
+12. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
 B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
@@ -214,6 +227,22 @@ candidate form (``rank_sum_candidates``) are held exactly at the shape of
 phase 7c's candidate batches ([users per batch, max positives x 101]) with
 integer-valued (ties everywhere) and normal scores.
 
+B16 (``deepapf_forward`` / ``deepapf_backward`` / ``deepapf_grid``) is held
+in phase 2 at a training step's 16,384 pairs of both domains and on a
+fallback tile ([32 users, every target item]), at D 32, 64 and 128, with
+the items and, on the same ids, the users as the entity, entity ids equal
+to the overlapped count and one above it among the pairs: within
+``B16_TOL`` of its plain version, the masked share rows' gradient exactly
+0, two runs bit-equal; timed at the main path's (D 64, items). Its library
+yardstick is the torch chain on cuBLAS with both attention branches in one
+product. B15 (``conet_tower``) is held at the published tower and at D 32
+with [32, 16], for 1, 32 and 2,048 users against every target item,
+within ``B15_TOL`` of its plain version per probability, bit-equal from
+run to run, a call whose every logit exceeds 17 equal to it (all 1.0), and
+K4's ids on the dense tile's probabilities equal wherever neighbours are
+clear of the tolerance; timed at the dense tile, its library yardstick the
+torch chain over the whole [2,048, 4,980, 64] hidden (JAX's form).
+
 ``python3 chip_smoke.py --profile`` instead times one warm training epoch
 and one validation pass of the dense path's run, then traces a repeat of
 each with ``torch.profiler`` and prints the device time by kernel, the
@@ -229,7 +258,7 @@ and BOTH (the host batch path, which has no validation), EMCDR's OVERLAP
 (the OVERLAP stream), SSCDR's OVERLAP (the host path); and phase 9's
 paths: CMF's BOTH with popularity negatives and adagrad, EMCDR's BPR SOURCE
 phase with popularity negatives and rmsprop, and the catalog path in bf16,
-last.
+last; phase 11's three models come before phase 9's paths.
 
 Nothing here imports jax or the JAX package.
 """
@@ -421,6 +450,57 @@ B13_TOL = (1e-6, 2 ** -16)
 K1_BF16_TOL = {"forward": 2 ** -18, "backward": 2 ** -8}
 
 
+#: B16 tolerance per output tensor, |kernel - plain| <= ATOL + RTOL *
+#: max|plain| (B9's form): the kernel sums x @ W's D products, the attention
+#: logit's D terms and the predict dot in other orders than cuBLAS and torch
+#: (forward; the grid's probabilities); the weight gradients are sums over
+#: every pair, which the kernel adds per block and then block by block,
+#: autograd in its own order (backward)
+B16_TOL = {"forward": (1e-5, 1e-4), "grid": (1e-6, 1e-4), "backward": (1e-5, 1e-3)}
+#: the widths phase 2 holds B16 at; the main path's, 64, is timed
+B16_WIDTHS = (32, 64, 128)
+
+#: B15 tolerance per probability, |kernel - plain| <= ATOL + RTOL * A, with A
+#: the logit's absolute chain (``b15_scale``: the tower on |hu| + |hi|, |W|,
+#: |b|, no relu): each side rounds every layer's sums of at most 65 terms in
+#: float32, at most 65 * 2^-24 of their magnitudes, carried through the later
+#: layers' |W| into A; four layers, two sides, and the sigmoid's slope of at
+#: most 1/4 keep the difference under 2^-17 A; RTOL doubles it
+B15_TOL = (1e-6, 2 ** -16)
+#: the towers phase 2 holds B15 at, (D, mlp_hidden_size): the published one
+#: (the main path's, timed at the dense tile), and a narrower one
+B15_TOWERS = ((64, [64, 32, 16, 8]), (32, [32, 16]))
+#: the user counts of a call: one user, a fallback tile's, a dense tile's
+B15_USERS = (1, 32, 2048)
+
+#: phase 11's runs: (name, model, published widths, ``properties/model/
+#: <model>.yaml``), BOTH:``PHASE11_EPOCHS`` each, cut from the published 300
+PHASE11_EPOCHS = 2
+PHASE11_RUNS = (
+    ("clfm", "CLFM", {"user_embedding_size": 64, "source_item_embedding_size": 64,
+                      "target_item_embedding_size": 64, "share_embedding_size": 32,
+                      "alpha": 0.5, "reg_weight": 1e-4}),
+    ("deepapf", "DeepAPF", {"embedding_size": 64}),
+    ("conet", "CoNet", {"embedding_size": 64, "reg_weight": 1e-2,
+                        "mlp_hidden_size": [64, 32, 16, 8]}),
+)
+PHASE11_PATHS = {
+    "clfm": ("neg_sampler", "swap_or_not", "masked_topk"),
+    "deepapf": ("neg_sampler", "swap_or_not", "masked_topk", "deepapf_forward",
+                "deepapf_backward", "deepapf_grid"),
+    "conet": ("neg_sampler", "swap_or_not", "masked_topk", "conet_tower"),
+}
+#: CoNet's device memory a validation pass may allocate beyond what the run
+#: holds as it starts; JAX's form of one dense tile's first hidden alone is
+#: 2.6 GB
+CONET_VALID_HEADROOM = 256 * 2 ** 20
+
+
+#: traces ``device_ms`` takes of a function that waits on the device before it
+#: fails: a torch.profiler trace now and then records no device
+#: activity at all
+PROFILER_TRACES = 3
+
 #: cycles of the spin kernel that holds the stream while the host queues
 #: the calls it times (about 0.1 s at the H100's clock)
 SPIN_CYCLES = 200_000_000
@@ -574,6 +654,13 @@ def mapping_config(model, schedule):
             "train_epochs": [f"{p}:{MAPPING_EPOCHS}" for p in schedule]}
 
 
+def phase11_config(model):
+    """A phase-11 run: the dense path's pair at ``model``'s published width,
+    BOTH:``PHASE11_EPOCHS`` with validation every epoch."""
+    widths = next(w for _, m, w in PHASE11_RUNS if m == model)
+    return {**config_dict(), **widths, "train_epochs": [f"BOTH:{PHASE11_EPOCHS}"]}
+
+
 def config_dict():
     return {
         "device": "cuda",
@@ -635,12 +722,15 @@ def device_ms(fn, reps=20, warmup=3):
     torch.cuda.synchronize()
     if queued:
         return start.elapsed_time(end) / reps, "queued"
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    assert events, "the profiler recorded no device activity"
+    for _ in range(PROFILER_TRACES):  # a trace can come back without any device activity
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events:
+            break
+    assert events, f"the profiler recorded no device activity in {PROFILER_TRACES} traces"
     return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3, "profiler"
 
 
@@ -967,6 +1057,9 @@ def kernel_checks(dev):
 
     # ---- B11, B10 and B7's candidate form at the DTCDR paths' shapes ----
     dtcdr_checks(dev, g, record)
+
+    # ---- B16 and B15: DeepAPF's attention and CoNet's tower (phase 11) ---
+    deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii)
 
     # ---- the catalog path's data ----------------------------------------
     cconfig = CDRConfig(model="CMF", config_dict=catalog_config(), _cli_args=[])
@@ -1687,6 +1780,235 @@ def library_rank_sum_candidates(scores, cand_mask, pos_mask):
     return torch.where(pos_mask, avg, 0.0).sum(1)
 
 
+def deepapf_work(n_pairs, D, backward=False):
+    """Scalar operations of B16 on ``n_pairs`` pairs: per pair the two
+    attention products (2 x 2 D^2), their bias, relu and ``w2`` dot (2 x 3
+    D), the products x_s, x_o, the blend and the predict dot (6 D); the
+    backward adds dW's and dx's products (2 x 2 x 2 D^2) and the rows'
+    gradients (about 10 D)."""
+    fwd = 2 * (2 * D * D + 3 * D) + 6 * D
+    return n_pairs * (fwd + (8 * D * D + 10 * D if backward else 0))
+
+
+def conet_work(n_pairs, widths):
+    """Scalar operations of B15 on ``n_pairs`` pairs of a tower of
+    ``widths`` (H0, then each later layer's): the first layer's add and relu
+    and the sigmoid (3 H0 + 3), the later layers' products (2 d_in d_out) and
+    the output dot (2 d_last)."""
+    prods = sum(a * b for a, b in zip(widths, widths[1:]))
+    return n_pairs * (3 * widths[0] + 2 * prods + 2 * widths[-1] + 3)
+
+
+def library_deepapf(share, only, other, mask, w):
+    """B16's library route: the torch chain on cuBLAS, both attention
+    branches in one product."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops.deepapf_attention import MASKED
+
+    P = share.shape[0]
+    a = torch.relu(torch.cat([share * other, only * other]) @ w.W + w.b) @ w.w2
+    a = torch.stack([a[:P, 0].masked_fill(mask, MASKED), a[P:, 0]], 1)
+    alpha = torch.softmax(a, 1)
+    ent = alpha[:, :1] * share + alpha[:, 1:] * only
+    return ((ent * other) @ w.pl)[:, 0]
+
+
+def library_deepapf_backward(share, only, other, mask, w, g):
+    import torch
+
+    from recbole_cdr_tpu_torch.ops.deepapf_attention import Weights
+
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (share, only, other, *w)]
+        logit = library_deepapf(*leaves[:3], mask, Weights(*leaves[3:]))
+        return torch.autograd.grad(logit, leaves, g)
+
+
+def library_conet(hu, hi, layers, out_layer):
+    """B15's library route: the torch chain on cuBLAS over the whole [B, I,
+    H0] hidden at once (JAX's form)."""
+    import torch
+
+    h = torch.relu(hu[:, None, :] + hi[None, :, :])
+    for W, b in layers:
+        h = torch.relu(h @ W + b)
+    return torch.sigmoid((h @ out_layer[0] + out_layer[1])[..., 0])
+
+
+def b15_scale(hu, hi, layers, out_layer, chunk=512):
+    """Each probability's tolerance scale: the tower's absolute chain (|hu|
+    + |hi|, then |W| and |b| at every layer, no relu), [B, I]."""
+    import torch
+
+    parts = []
+    for lo in range(0, hi.shape[0], chunk):
+        h = hu.abs()[:, None, :] + hi[lo:lo + chunk].abs()[None, :, :]
+        for W, b in layers:
+            h = h @ W.abs() + b.abs()
+        parts.append((h @ out_layer[0].abs() + out_layer[1].abs())[..., 0])
+    return torch.cat(parts, 1)
+
+
+def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
+    """Hold B16 (forward, backward, grid) against its plain version in both
+    modes at D 32, 64 and 128, a training step's pairs (``uu``, ``ii``: both
+    domains' 16,384) and a fallback tile, ids at and above the overlapped
+    count among them, two runs bit-equal, and time the main path's (D 64,
+    items as the entity); hold B15 at the published tower and at a
+    narrower one for 1, 32 and 2,048 users against every target item, a
+    saturating call included, K4's ids on its probabilities where
+    neighbours are clear of the tolerance, and time the dense tile."""
+    import torch
+
+    from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator, _fused_eval_arrays
+    from recbole_cdr_tpu_torch.ops import conet_tower as b15
+    from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
+    from recbole_cdr_tpu_torch.ops import masked_topk as k4
+
+    nu, ni = dataset.num_total_user, dataset.num_total_item
+    n_target = dataset.num_overlap_item + dataset.num_target_only_item
+    n_ov = {"item": dataset.num_overlap_item, "user": nu // 4}  # the user mode: any count
+    rnd = lambda *shape, scale: scale * torch.randn(*shape, device=dev, generator=g)
+    P = uu.shape[0]
+    gz = torch.randn(P, device=dev, generator=g)
+    fs_uids = _fused_eval_arrays(valid_data, valid_data.user_batch, dev)[0]
+    fs_users = fs_uids[:valid_data.user_batch]
+    grid_items = torch.arange(n_target, device=dev)
+
+    def close(got, want, tol, what):
+        atol, rtol = tol
+        err = float((got - want).abs().max())
+        assert err <= atol + rtol * float(want.abs().max()), f"{what}: error {err}"
+        return err
+
+    for D in B16_WIDTHS:
+        w = b16.Weights(rnd(D, D, scale=D ** -0.5), rnd(D, scale=0.1), rnd(D, 1, scale=0.3),
+                        rnd(D, 1, scale=0.3))
+        tabs = {s: (rnd(nu, D, scale=0.3), rnd(nu, D, scale=0.3)) for s in ("user",)}
+        tabs["item"] = (rnd(ni, D, scale=0.3), rnd(ni, D, scale=0.3))
+        for side in ("item", "user"):
+            other_side = "user" if side == "item" else "item"
+            ent, oth = (ii, uu) if side == "item" else (uu, ii)
+            ent = ent.clone()
+            ent[:4] = torch.tensor([n_ov[side], n_ov[side] + 1, n_ov[side], 0], device=dev)
+            share_t, only_t = tabs[side]
+            other_t = tabs[other_side][1]
+            share, only, other = share_t[ent.long()], only_t[ent.long()], other_t[oth.long()]
+            mask = ent > n_ov[side]
+            tag = f"D {D}, {side}s the entity"
+            a = b16.deepapf_forward(share, only, other, mask, w)
+            err_f = close(a, b16.deepapf_forward_plain(share, only, other, mask, w),
+                          B16_TOL["forward"], f"deepapf_forward [{tag}]")
+            assert torch.equal(a, b16.deepapf_forward(share, only, other, mask, w)), \
+                "deepapf_forward differs run to run"
+            ka = b16.deepapf_backward(share, only, other, mask, w, gz)
+            pa = b16.deepapf_backward_plain(share, only, other, mask, w, gz)
+            err_b = 0.0
+            for name, x, y in zip(("d_share", "d_only", "d_other", "dW", "db", "dw2", "dpl"),
+                                  ka, pa):
+                err_b = max(err_b, close(x, y, B16_TOL["backward"],
+                                         f"deepapf_backward {name} [{tag}]"))
+            assert not bool(ka[0][mask].any()), "a masked share row got a gradient"
+            assert bool(ka[0][~mask].any())
+            again = b16.deepapf_backward(share, only, other, mask, w, gz)
+            assert all(torch.equal(x, y) for x, y in zip(ka, again)), \
+                "deepapf_backward differs run to run"
+            grid_args = (share_t, only_t, other_t, fs_users, grid_items, n_ov[side],
+                         side == "item", w)
+            c = b16.deepapf_grid(*grid_args)
+            assert c.shape == (fs_users.shape[0], n_target)
+            err_g = close(c, b16.deepapf_grid_plain(*grid_args), B16_TOL["grid"],
+                          f"deepapf_grid [{tag}]")
+            assert torch.equal(c, b16.deepapf_grid(*grid_args)), "deepapf_grid differs run to run"
+            print(f"  deepapf_attention [{tag}]: P {P}, {int(mask.sum())} masked; max_abs_err "
+                  f"forward {err_f:.3g}, backward {err_b:.3g}, grid {err_g:.3g}", flush=True)
+            if D != 64 or side != "item":
+                continue
+            row_bytes = 3 * P * D * 4
+            fixed = 4 * (D * D + 3 * D)
+            record("deepapf_forward",
+                   lambda: b16.deepapf_forward(share, only, other, mask, w),
+                   lambda: b16.deepapf_forward_plain(share, only, other, mask, w),
+                   err_f, row_bytes + P + 4 * P + fixed, deepapf_work(P, D),
+                   library_fn=lambda: library_deepapf(share, only, other, mask, w))
+            record("deepapf_backward",
+                   lambda: b16.deepapf_backward(share, only, other, mask, w, gz),
+                   lambda: b16.deepapf_backward_plain(share, only, other, mask, w, gz),
+                   err_b, 2 * row_bytes + P + 4 * P + 2 * fixed, deepapf_work(P, D, True),
+                   library_fn=lambda: library_deepapf_backward(share, only, other, mask, w, gz))
+            B = fs_users.shape[0]
+
+            def library_grid():
+                e, o = b16.grid_pairs(fs_users, grid_items, True)
+                e, o = e.long(), o.long()
+                return torch.sigmoid(library_deepapf(share_t[e], only_t[e], other_t[o],
+                                                     e > n_ov[side], w)).reshape(B, -1)
+
+            record("deepapf_grid", lambda: b16.deepapf_grid(*grid_args),
+                   lambda: b16.deepapf_grid_plain(*grid_args), err_g,
+                   3 * (B + n_target) * D * 4 + 4 * B * n_target + fixed,
+                   deepapf_work(B * n_target, D) + 3 * B * n_target,
+                   library_fn=library_grid, reps=20)
+        del tabs
+
+    # ---- B15: the target tower of CoNet over every target item -----------
+    ev = FullSortEvaluator(config)
+    B_dense, _ = ev._dense_budget(valid_data)
+    assert B_dense == B15_USERS[-1], B_dense
+    uids, row_ptr, items = _fused_eval_arrays(valid_data, B_dense, dev)
+    k = ev.max_k
+    for (D, hidden) in B15_TOWERS:
+        dims = [2 * D] + hidden
+        hi_all = rnd(n_target, hidden[0], scale=0.5)
+        layers = [(rnd(a, b, scale=(2 / (a + b)) ** 0.5), rnd(b, scale=0.1))
+                  for a, b in zip(hidden, hidden[1:])]
+        out = (rnd(hidden[-1], 1, scale=(2 / (hidden[-1] + 1)) ** 0.5), rnd(1, scale=0.1))
+        for B in B15_USERS:
+            hu = rnd(B, hidden[0], scale=0.5)
+            got = b15.conet_tower(hu, hi_all, layers, out)
+            want = b15.conet_tower_plain(hu, hi_all, layers, out)
+            scale = b15_scale(hu, hi_all, layers, out)
+            tol = B15_TOL[0] + B15_TOL[1] * scale
+            diff = (got - want).abs()
+            err = float(diff.max())
+            assert got.shape == (B, n_target) and bool((diff <= tol).all()), \
+                f"conet_tower [D {D}, {hidden}, B {B}]: error {err}"
+            assert torch.equal(got, b15.conet_tower(hu, hi_all, layers, out))
+            # a saturating call: every logit above 17, every probability 1.0
+            sat_out = (out[0], out[1] + 40.0)
+            sat = b15.conet_tower(hu, hi_all, layers, sat_out)
+            assert bool((sat == 1.0).all()) and torch.equal(
+                sat, b15.conet_tower_plain(hu, hi_all, layers, sat_out))
+            print(f"  conet_tower [D {D}, tower {dims}, B {B}, I {n_target}]: max_abs_err "
+                  f"{err:.3g} (at most {float((diff / tol).max()):.3g} of the tolerance); "
+                  "saturated call all 1.0", flush=True)
+            if B != B_dense or D != 64:
+                continue
+            # K4 on the tile: ids equal wherever neighbours are clear of the tolerance
+            users = uids[:B]
+            rp = row_ptr[0, :B + 1]
+            a_i = k4.masked_topk(got, rp, items[0], k)
+            b_i = k4.masked_topk(want, rp, items[0], k)
+            b_s = torch.gather(want, 1, b_i.long())
+            t_row = tol.max(1, keepdim=True).values
+            gap = torch.diff(b_s, dim=1).abs() > t_row
+            clear = torch.ones_like(gap[:, :1])
+            clear = torch.cat([clear, gap], 1) & torch.cat([gap, clear], 1)
+            assert torch.equal(a_i[clear], b_i[clear]), "conet_tower ids differ where clear"
+            print(f"  conet_tower: K4 ids on the [{B}, {n_target}] tile equal where clear "
+                  f"({int(clear.sum())} of {clear.numel()}); {users.shape[0]} eval users",
+                  flush=True)
+            widths = hidden
+            record("conet_tower", lambda: b15.conet_tower(hu, hi_all, layers, out),
+                   lambda: b15.conet_tower_plain(hu, hi_all, layers, out), err,
+                   4 * ((B + n_target) * hidden[0] + B * n_target
+                        + sum(a * b + b for a, b in zip(widths, widths[1:])) + widths[-1] + 1),
+                   conet_work(B * n_target, widths),
+                   library_fn=lambda: library_conet(hu, hi_all, layers, out), reps=10)
+        del hi_all
+
+
 def bitgcf_graph(dataset):
     """BiTGCF's normalised source adjacency of ``dataset`` and its
     transpose, as the model builds them (scipy, float32)."""
@@ -1856,6 +2178,9 @@ def main():
             profile_epoch(dev, mapping_config(model, schedule),
                           f"{model.lower()}_{scheme.lower()}_", export=False, model=model,
                           scheme=scheme, prelude=prelude)
+        for _, model, _ in PHASE11_RUNS:
+            profile_epoch(dev, phase11_config(model), f"{model.lower()}_", export=False,
+                          model=model)
         profile_epoch(dev, popularity_cmf_config(), "popularity_cmf_", export=False)
         profile_epoch(dev, popularity_emcdr_config(), "popularity_emcdr_source_",
                       export=False, model="EMCDR", scheme="SOURCE")
@@ -1979,6 +2304,13 @@ def main():
     counts.update(mesh["counts"])
     print(f"mesh phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("== phase 11: CLFM, DeepAPF and CoNet, run_recbole_cdr on the card: B16 in "
+          "training and the predict fallback, B15 in the dense evaluation", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_phase11_paths(counts)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     replaces = {
         "gather_dot_forward": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
                                "recbole_cdr_tpu/models/cmf.py:45"),
@@ -2030,6 +2362,14 @@ def main():
                                "recbole_cdr_tpu/ops/topk.py:208"),
         "sharded_topk_merge": ("recbole_cdr_tpu_torch/csrc/streaming_topk.cu",
                                "recbole_cdr_tpu/ops/topk.py:253"),
+        "conet_tower": ("recbole_cdr_tpu_torch/csrc/conet_tower.cu",
+                        "recbole_cdr_tpu/models/conet.py:150"),
+        "deepapf_forward": ("recbole_cdr_tpu_torch/csrc/deepapf_attention.cu",
+                            "recbole_cdr_tpu/models/deepapf.py:70"),
+        "deepapf_backward": ("recbole_cdr_tpu_torch/csrc/deepapf_attention.cu",
+                             "recbole_cdr_tpu/models/deepapf.py:70"),
+        "deepapf_grid": ("recbole_cdr_tpu_torch/csrc/deepapf_attention.cu",
+                         "recbole_cdr_tpu/models/deepapf.py:70"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -2741,6 +3081,97 @@ def run_mesh_paths(dev):
     assert not dist.is_initialized(), "the run left its process group behind"
     assert hist[-1]["loss"] < hist[0]["loss"], hist
     return {"records": records, "counts": counts}
+
+
+def run_phase11_paths(counts):
+    """Phase 11: the runs of ``PHASE11_RUNS``, each checked, their launch
+    counts kept in ``counts`` under the run's name; the peak allocation
+    counted from each run's start."""
+    import torch
+
+    import recbole_cdr_tpu_torch.trainer.trainer as trainer_module
+    from recbole_cdr_tpu_torch import ops, run_recbole_cdr
+
+    real = trainer_module.CrossDomainTrainer._evaluate_batches
+    before = []
+
+    def own_peak(self, *args, **kwargs):
+        """Each evaluation pass's own peak: the trainer records the peak since
+        the last reset, so reset it at the pass's start, after keeping the
+        run's peak so far (training's included) and what the run holds
+        allocated as the pass starts."""
+        before.append((torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+        return real(self, *args, **kwargs)
+
+    for name, model, _ in PHASE11_RUNS:
+        print(f"-- {name}: {model}, BOTH:{PHASE11_EPOCHS}, published widths", flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        before.clear()
+        if name == "conet":
+            trainer_module.CrossDomainTrainer._evaluate_batches = own_peak
+        t0 = time.perf_counter()
+        try:
+            result = run_recbole_cdr(model=model, config_dict=phase11_config(model), saved=True)
+        finally:
+            trainer_module.CrossDomainTrainer._evaluate_batches = real
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = c = ops.launch_counts()
+        hist = _report_run(result, wall, c, PHASE11_PATHS[name])
+        check_phase11_run(name, result, hist, c, before)
+        del result
+
+
+def check_phase11_run(name, result, hist, c, before):
+    """Phase 11's checks of one run: BOTH epochs each validated with a
+    falling loss; B16 once forward and once backward per step (both
+    domains' pairs in one call) and its grid once per fallback tile; B15 and
+    K4 once per dense tile; K2 and K3 twice per epoch (a stream per domain);
+    for CoNet, what each validation pass allocates beyond what the run
+    holds at its start (``before``: the run's peak so far and its
+    allocation at each pass's start) within ``CONET_VALID_HEADROOM``; the
+    pass's peak above parameters and moments (``valid_peak_bytes``) and the
+    run's resident tensors are printed beside it."""
+    E = PHASE11_EPOCHS
+    assert [h["phase"] for h in hist] == ["BOTH"] * E, hist
+    assert all("valid_seconds" in h for h in hist), hist
+    assert hist[-1]["loss"] < hist[0]["loss"], [h["loss"] for h in hist]
+    examples = sum(h["train_examples"] for h in hist)
+    assert examples % (2 * BATCH) == 0  # 2 domains x (4,096 positives + 4,096 negatives)
+    steps = examples // (2 * BATCH)
+    model = result["model"]
+    n_target = model.target_num_items
+    users = [h["valid_users"] for h in hist] + [result["test_users"]]
+    if name == "deepapf":  # the predict fallback's tiles: FullSortEvalBatches.user_batch
+        batch = lambda u: max(1, min(32, u), config_dict()["eval_batch_size"] // n_target)
+        tiles = sum(-(-u // batch(u)) for u in users)
+    else:
+        tiles = sum(dense_tiles(u, n_target) for u in users)
+    want = {"masked_topk": tiles, "neg_sampler": 2 * E, "swap_or_not": 2 * E}
+    if name == "deepapf":
+        want.update(deepapf_forward=steps, deepapf_backward=steps, deepapf_grid=tiles)
+    if name == "conet":
+        want.update(conet_tower=tiles)
+    print(f"{steps} training steps, {len(users)} evaluation passes of {tiles} tiles; launches "
+          f"{ {k: c[k] for k in want} }, expected {want}", flush=True)
+    assert all(c[k] == v for k, v in want.items()), (c, want)
+    if name == "conet":
+        state = 3 * sum(p.numel() * p.element_size() for p in model.parameters())
+        peaks = [h["valid_peak_bytes"] for h in hist]
+        held = [at_start for _, at_start in before[:len(hist)]]
+        own = [p - a for p, a in zip(peaks, held)]
+        mib = lambda xs: ", ".join(f"{x / 2 ** 20:.1f} MiB" for x in xs)  # noqa: E731
+        print(f"CoNet parameters + moments {state / 2 ** 20:.1f} MiB; above them: each "
+              f"validation pass's peak {mib(p - state for p in peaks)}, held as it starts "
+              f"{mib(a - state for a in held)}, the run's peak before it (training "
+              f"included) {mib(b - state for b, _ in before[:len(hist)])}; each pass's own "
+              f"allocation {mib(own)} (limit {CONET_VALID_HEADROOM / 2 ** 20:.0f} MiB)",
+              flush=True)
+        assert all(a >= state for a in held) and all(0 < o < CONET_VALID_HEADROOM for o in own), \
+            (state, held, peaks)
 
 
 def _report_run(result, wall, counts, path):

@@ -8,6 +8,8 @@ a ``launches`` count on the wrapper that grows by one per kernel launch.
 from recbole_cdr_tpu_torch.ops import (
     benchmark_topk,
     candidate_topk,
+    conet_tower,
+    deepapf_attention,
     gather_dot,
     graph_layer,
     masked_topk,
@@ -47,6 +49,10 @@ WRAPPERS = {
     "neg_sampler_popularity": neg_sampler.sample_negatives_popularity,
     "sharded_topk_local": topk.sharded_topk_local,
     "sharded_topk_merge": topk.sharded_topk_merge,
+    "conet_tower": conet_tower.conet_tower,
+    "deepapf_forward": deepapf_attention.deepapf_forward,
+    "deepapf_backward": deepapf_attention.deepapf_backward,
+    "deepapf_grid": deepapf_attention.deepapf_grid,
 }
 
 

@@ -25,7 +25,7 @@ import torch
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = ("gather_dot", "neg_sampler", "shuffle", "masked_topk", "streaming_topk",
            "sparse_adam", "graph_layer", "rank_sum", "natr_attention", "rating_vector",
-           "benchmark_topk")
+           "benchmark_topk", "conet_tower", "deepapf_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -79,6 +79,13 @@ _SIGNATURES = {
         "rating_vector_backward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     },
     "benchmark_topk": {"benchmark_topk": [_P] * 4 + [_I] * 5 + [_P] * 6},
+    "conet_tower": {"conet_tower": [_P, _P, _I, _I, _P] + [_I] * 7 + [_P, _P]},
+    "deepapf_attention": {
+        "deepapf_forward": [_P] * 8 + [_I, _I, _P, _P],
+        "deepapf_grid": [_P] * 5 + [_I] * 4 + [_P] * 4 + [_I, _P, _P],
+        "deepapf_backward_blocks": [_I, _I],
+        "deepapf_backward": [_P] * 8 + [_I, _I] + [_P] * 5 + [_I, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

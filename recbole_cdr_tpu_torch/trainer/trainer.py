@@ -50,6 +50,11 @@ full-sort and factors function on 16-bit copies of the model's floating
 parameters and buffers (``utils/precision.py``), where the JAX trainer
 wraps them; parameters and optimizer state stay float32.
 
+``log_wandb`` logs each epoch's loss (``train/<phase>_loss``) and each
+validation's metrics (``valid/<metric>``) to Weights & Biases when the
+``wandb`` package imports, and warns "wandb logging disabled: ..." when it
+does not, as the JAX trainer does.
+
 ``mesh_shape`` (with ``distributed`` for more than one process) trains
 CMF over a (data, model) mesh of processes (``parallel/mesh.py``): the
 tables are padded and row-sharded at construction, every rank draws the
@@ -72,7 +77,7 @@ import numpy as np
 import torch
 
 from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator, ValueEvaluator
-from recbole_cdr_tpu_torch.parallel.distributed import put_replicated, put_sharded
+from recbole_cdr_tpu_torch.parallel.distributed import is_coordinator, put_replicated, put_sharded
 from recbole_cdr_tpu_torch.parallel.mesh import make_mesh, shard_params
 from recbole_cdr_tpu_torch.ops.sparse_adam import (
     adam_step_size,
@@ -460,6 +465,19 @@ class CrossDomainTrainer:
         self.history = []
         self._loops = {}
 
+        # optional Weights & Biases logging (JAX trainer.py:495-505); one run
+        # per job, so under a process group only the coordinator logs
+        self._wandb = None
+        if config["log_wandb"] and is_coordinator():
+            try:
+                import wandb
+
+                self._wandb = wandb
+                wandb.init(project=config["wandb_project"] or "recbole_cdr_tpu",
+                           config=dict(config.final_config_dict))
+            except Exception as e:  # wandb is optional
+                self.logger.warning(f"wandb logging disabled: {e}")
+
     # ---------------------------------------------------------------- phases
 
     def _reinit(self, phase_idx):
@@ -590,6 +608,8 @@ class CrossDomainTrainer:
             record = {"phase": scheme, "epoch": epoch_idx, "loss": epoch_loss,
                       "train_seconds": dt, "train_examples": examples}
             self.history.append(record)
+            if self._wandb is not None:
+                self._wandb.log({f"train/{scheme}_loss": epoch_loss, "epoch": epoch_idx})
             if verbose:
                 self.logger.info(
                     set_color(f"epoch {epoch_idx} training", "green")
@@ -611,6 +631,8 @@ class CrossDomainTrainer:
             valid_score = valid_result.get(self.valid_metric, 0.0)
             if verbose:
                 self.logger.info(set_color("valid result", "blue") + f": {valid_result}")
+            if self._wandb is not None:
+                self._wandb.log({f"valid/{k}": v for k, v in valid_result.items()})
             improved = (
                 valid_score > self.best_valid_score
                 if self.valid_metric_bigger

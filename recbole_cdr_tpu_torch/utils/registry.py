@@ -1,29 +1,22 @@
 """Model / trainer registries.
 
 Capability parity with ``get_model`` / ``get_trainer``
-(`recbole_cdr/utils/utils.py:16-59`) for the models this package has ported:
-CMF, BiTGCF, NATR, DTCDR, DCDCSR, EMCDR and SSCDR. A model trains with
-``<Model>Trainer`` where ``recbole_cdr_tpu_torch.trainer`` has one (DCDCSR),
-else with the generic :class:`CrossDomainTrainer`. CLFM, CoNet and DeepAPF
-are queued in ROADMAP.md (item A8.2) and raise here.
+(`recbole_cdr/utils/utils.py:16-59`) for every model of the reference:
+CMF, CLFM, BiTGCF, CoNet, DeepAPF, NATR, DTCDR, DCDCSR, EMCDR and SSCDR. A
+model trains with ``<Model>Trainer`` where ``recbole_cdr_tpu_torch.trainer``
+has one (DCDCSR), else with the generic :class:`CrossDomainTrainer`.
 """
 
 import importlib
 
 #: model name -> module under ``recbole_cdr_tpu_torch.models``
-_PORTED = {"CMF": "cmf", "BiTGCF": "bitgcf", "NATR": "natr", "DTCDR": "dtcdr",
-           "DCDCSR": "dcdcsr", "EMCDR": "emcdr", "SSCDR": "sscdr"}
-
-#: models of the reference that are still to be ported (ROADMAP.md A8.2)
-_QUEUED = ("CLFM", "CoNet", "DeepAPF")
+_PORTED = {"CMF": "cmf", "CLFM": "clfm", "BiTGCF": "bitgcf", "CoNet": "conet",
+           "DeepAPF": "deepapf", "NATR": "natr", "DTCDR": "dtcdr", "DCDCSR": "dcdcsr",
+           "EMCDR": "emcdr", "SSCDR": "sscdr"}
 
 
 def get_model(model_name: str):
     """Resolve a model name (e.g. ``"CMF"``) to its model class."""
-    if model_name in _QUEUED:
-        raise NotImplementedError(
-            f"Model [{model_name}] is not ported to PyTorch yet (ROADMAP.md A8.2)"
-        )
     if model_name not in _PORTED:
         raise ValueError(f"Model [{model_name}] not found")
     module = importlib.import_module(

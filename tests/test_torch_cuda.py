@@ -35,7 +35,13 @@ catalog path in bf16 and with popularity negatives on both streams. B14,
 the mesh-sharded streaming top-k (its local stage at each shard's offset,
 then its merge), against its plain version and one B5 (or B13) call over
 the whole table, pad rows past the items included; and CMF over a one-rank
-NCCL mesh through the entry point.
+NCCL mesh through the entry point. B16, DeepAPF's attention-gated score
+(forward, backward and grid) at every kernel width, partial tiles, masked
+pairs and the overlapped count's boundary; B15, CoNet's tower, at the
+published tower, widths padded to a multiple of 4, a one-layer tower and
+the largest (weights staged layer by layer), a saturating call; both
+refusing what the kernels do not take; and CLFM, DeepAPF and CoNet through
+the entry point.
 
 Marked ``cuda``; without a card every test skips. On the card (where jax is
 not installed, so the repository's conftest cannot load):
@@ -1004,3 +1010,145 @@ def test_mesh_on_the_card(gen, tmp_path, monkeypatch, distributed):
     assert counts["streaming_topk"] == counts["masked_topk"] == 0, counts
     single = run_recbole_cdr(model="CMF", config_dict=cfg)
     assert mesh["test_result"] == single["test_result"]
+
+
+# ---- B16 (DeepAPF's attention-gated score) and B15 (CoNet's tower)
+
+#: B16 against its plain version per output tensor, |kernel - plain| <= ATOL
+#: + RTOL * max|plain| (B9's form): the kernel sums x @ W's products, the
+#: attention logit and the predict dot in other orders than cuBLAS and
+#: torch; the weight gradients add per block, then block by block
+B16_TOL = {"forward": (1e-5, 1e-4), "grid": (1e-6, 1e-4), "backward": (1e-5, 1e-3)}
+
+#: B15 per probability, |kernel - plain| <= ATOL + RTOL * the logit's
+#: absolute chain (see ``chip_smoke.py::B15_TOL``)
+B15_TOL = (1e-6, 2 ** -16)
+
+
+def _b16_close(got, want, what):
+    atol, rtol = B16_TOL[what]
+    assert float((got - want).abs().max()) <= atol + rtol * float(want.abs().max()), what
+
+
+def _b16_weights(gen, D):
+    from recbole_cdr_tpu_torch.ops.deepapf_attention import Weights
+
+    r = lambda *s, scale: scale * torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    return Weights(r(D, D, scale=D ** -0.5), r(D, scale=0.1), r(D, 1, scale=0.3),
+                   r(D, 1, scale=0.3))
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("P", [16_384, 37, 1])
+def test_deepapf_attention_matches_plain(gen, D, P):
+    """B16's forward and backward against their plain versions, every tile
+    size's tail, the masked pairs' share rows exactly without gradient,
+    two runs bit-equal."""
+    from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
+
+    rows = [0.3 * torch.randn(P, D, device="cuda", generator=gen) for _ in range(3)]
+    mask = torch.rand(P, device="cuda", generator=gen) < 0.4
+    mask[0] = False
+    w = _b16_weights(gen, D)
+    g = torch.randn(P, device="cuda", generator=gen)
+    a = b16.deepapf_forward(*rows, mask, w)
+    _b16_close(a, b16.deepapf_forward_plain(*rows, mask, w), "forward")
+    assert torch.equal(a, b16.deepapf_forward(*rows, mask, w))
+    ka = b16.deepapf_backward(*rows, mask, w, g)
+    for x, y in zip(ka, b16.deepapf_backward_plain(*rows, mask, w, g)):
+        _b16_close(x, y, "backward")
+    assert not ka[0][mask].any() and ka[0][~mask].any()
+    assert all(torch.equal(x, y) for x, y in zip(ka, b16.deepapf_backward(*rows, mask, w, g)))
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("entity_is_item", [True, False])
+@pytest.mark.parametrize("B,I", [(32, 4980), (1, 7), (33, 129)])
+def test_deepapf_grid_matches_plain(gen, D, entity_is_item, B, I):
+    """B16's grid form from the tables and ids, the overlapped count's
+    boundary among the entities, against its plain version; bit-equal
+    reruns."""
+    from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
+
+    n = 6000
+    tabs = [0.3 * torch.randn(n, D, device="cuda", generator=gen) for _ in range(3)]
+    users = _ints(0, n, (B,), gen)
+    items = _ints(0, n, (I,), gen)
+    ov = 2000
+    (items if entity_is_item else users)[:2] = torch.tensor([ov, ov + 1], device="cuda")[:min(
+        2, I if entity_is_item else B)]
+    w = _b16_weights(gen, D)
+    args = (*tabs, users, items, ov, entity_is_item, w)
+    got = b16.deepapf_grid(*args)
+    assert got.shape == (B, I)
+    _b16_close(got, b16.deepapf_grid_plain(*args), "grid")
+    assert torch.equal(got, b16.deepapf_grid(*args))
+
+
+def test_deepapf_rejects_other_widths(gen):
+    from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
+
+    rows = [torch.randn(8, 48, device="cuda", generator=gen) for _ in range(3)]
+    mask = torch.zeros(8, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="widths"):
+        b16.deepapf_forward(*rows, mask, _b16_weights(gen, 48))
+
+
+def _b15_case(gen, H0, later, B, I):
+    r = lambda *s, scale=0.5: scale * torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    dims = [H0] + later
+    layers = [(r(a, b, scale=(2 / (a + b)) ** 0.5), r(b, scale=0.1))
+              for a, b in zip(dims, dims[1:])]
+    out = (r(dims[-1], 1, scale=(2 / (dims[-1] + 1)) ** 0.5), r(1, scale=0.1))
+    return r(B, H0), r(I, H0), layers, out
+
+
+@pytest.mark.parametrize("H0,later,B,I", [
+    (64, [32, 16, 8], 2048, 4980),   # the published tower at a dense tile
+    (64, [32, 16, 8], 1, 7),
+    (32, [16], 33, 4980),
+    (6, [5, 3], 33, 129),            # widths padded to a multiple of 4
+    (16, [], 5, 300),                # one layer: the output straight after it
+    (128, [128] * 5, 9, 1000),       # the largest tower: weights staged per layer
+])
+def test_conet_tower_matches_plain(gen, H0, later, B, I):
+    """B15 against its plain version per probability within ``B15_TOL`` of
+    the logit's absolute chain; bit-equal reruns; a saturating call (every
+    logit above 17) exactly 1.0 as the plain version."""
+    from recbole_cdr_tpu_torch.ops import conet_tower as b15
+
+    hu, hi, layers, out = _b15_case(gen, H0, later, B, I)
+    got = b15.conet_tower(hu, hi, layers, out)
+    want = b15.conet_tower_plain(hu, hi, layers, out)
+    a = hu.abs()[:, None, :] + hi.abs()[None, :, :]
+    for W, b in layers:
+        a = a @ W.abs() + b.abs()
+    scale = (a @ out[0].abs() + out[1].abs())[..., 0]
+    assert got.shape == (B, I)
+    assert bool(((got - want).abs() <= B15_TOL[0] + B15_TOL[1] * scale).all())
+    assert torch.equal(got, b15.conet_tower(hu, hi, layers, out))
+    sat = (out[0], out[1] + 40.0)
+    assert bool((b15.conet_tower(hu, hi, layers, sat) == 1.0).all())
+    assert bool((b15.conet_tower_plain(hu, hi, layers, sat) == 1.0).all())
+
+
+def test_conet_tower_rejects_wide_towers(gen):
+    from recbole_cdr_tpu_torch.ops import conet_tower as b15
+
+    hu, hi, layers, out = _b15_case(gen, 64, [132], 4, 10)
+    with pytest.raises(ValueError, match="at most"):
+        b15.conet_tower(hu, hi, layers, out)
+
+
+@pytest.mark.parametrize("model", ["CLFM", "DeepAPF", "CoNet"])
+def test_both_phase_models_on_the_card(gen, tmp_path, monkeypatch, model):
+    """CLFM (dense full-sort), DeepAPF (B16 in training and the predict
+    fallback's grid) and CoNet (B15 in the dense full-sort): K2, K3 and K4
+    and the model's kernels, no other."""
+    counts = _run_on_the_card(tmp_path, monkeypatch, model=model)
+    path = ("neg_sampler", "swap_or_not", "masked_topk")
+    path += {"CLFM": (), "DeepAPF": ("deepapf_forward", "deepapf_backward", "deepapf_grid"),
+             "CoNet": ("conet_tower",)}[model]
+    assert all(counts[k] > 0 for k in path), counts
+    assert all(counts[k] == 0 for k in counts if k not in path), counts
+    assert counts.get("deepapf_forward", 0) == counts.get("deepapf_backward", 0)

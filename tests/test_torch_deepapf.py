@@ -1,0 +1,253 @@
+"""DeepAPF in the PyTorch port against the JAX model, on the CPU (where
+kernel B16's wrappers run their plain versions), in both overlap modes: the
+bundled ml-1m -> ml-100k pair overlaps on items, the small synthetic pair
+of ``tests/test_user_overlap.py`` on users. The same weights
+(``params_from_jax``: ``user_mlp.0.w``, ``user_mlp.1.w``, ...) and, for the
+epoch, the same random bits go to both. Tolerances, each with its case:
+
+- B16's plain forward and backward on random rows against JAX's
+  ``_forward`` and its ``jax.vjp``, and the loss and every parameter's
+  gradient on a batch: ``LOSS_TOL`` / ``GRAD_TOL``
+  (``tests/test_oracle_equivalence.py:31-32``);
+- ``predict`` and the predict fallback's full-sort probabilities
+  (``predict_grid``, one B16 grid call a tile) against JAX's ``predict_fn``
+  and ``make_predict_full_sort``: rtol 2e-4, atol 2e-5
+  (``tests/test_oracle_equivalence.py::_check_full_sort``);
+- one BOTH epoch with JAX's shuffle and negative bits: rtol 5e-3 / atol
+  1e-5, the CMF epoch test's tolerance;
+- the mask's boundary (an entity id equal to the overlapped count keeps its
+  share logit, one above it is masked) and the masked share row's gradient:
+  exactly 0, as JAX's.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recbole_cdr_tpu.models.deepapf import DeepAPF as JaxDeepAPF
+from recbole_cdr_tpu.trainer.trainer import make_predict_full_sort as jax_predict_full_sort
+
+from recbole_cdr_tpu_torch import ops, run_recbole_cdr
+from recbole_cdr_tpu_torch.models.base import CrossDomainRecommender
+from recbole_cdr_tpu_torch.models.deepapf import DeepAPF
+from recbole_cdr_tpu_torch.ops.deepapf_attention import (
+    Weights,
+    deepapf_attention,
+    deepapf_grid,
+    deepapf_grid_plain,
+)
+from recbole_cdr_tpu_torch.trainer.trainer import (
+    build_optimizer,
+    make_predict_full_sort,
+    make_train_step,
+)
+from recbole_cdr_tpu_torch.utils import get_model
+from recbole_cdr_tpu_torch.utils.convert import params_from_jax
+from test_torch_clfm import (
+    SCORE_TOL,
+    check_predict,
+    one_epoch_match,
+    user_overlap_cfg,
+)
+from test_torch_dcdcsr import assert_loss_and_grads_match, build_pair, jax_leaf, phase_batch
+from test_torch_model import GRAD_TOL, LOSS_TOL, _tbatch
+from test_user_overlap import pair_root  # noqa: F401  (fixture)
+
+MODES = ("overlap_items", "overlap_users")
+
+
+@pytest.fixture(scope="module")
+def items_pair():
+    return build_pair("DeepAPF", JaxDeepAPF, DeepAPF)
+
+
+@pytest.fixture(scope="module")
+def users_pair(pair_root):  # noqa: F811
+    return build_pair("DeepAPF", JaxDeepAPF, DeepAPF, user_overlap_cfg(pair_root))
+
+
+@pytest.fixture(params=MODES)
+def pair(request):
+    m = request.getfixturevalue("items_pair" if request.param == "overlap_items"
+                                else "users_pair")
+    assert m["jmodel"].mode == m["tmodel"].mode == request.param
+    return m
+
+
+def _dead(mode):
+    side = "item" if mode == "overlap_users" else "user"
+    return {f"share_{side}_embedding", f"{side}_mlp"}
+
+
+def test_get_model_resolves_deepapf():
+    assert get_model("DeepAPF") is DeepAPF
+
+
+def test_params_from_jax_names(pair):
+    """Every leaf of JAX's pytree lands on the port's parameter of the same
+    dotted name (the MLPs' second layer: ``w`` alone)."""
+    named = dict(pair["tmodel"].named_parameters())
+    converted = params_from_jax(pair["params"])
+    assert sorted(converted) == sorted(named)
+    assert {"user_mlp.0.w", "user_mlp.0.b", "user_mlp.1.w", "item_mlp.1.w",
+            "predict_layer"} <= set(named)
+    assert "user_mlp.1.b" not in named
+
+
+def _entity_ids(model, rng, n):
+    """Random target pairs whose entity ids include the overlapped count and
+    the one above it (the strict ``>``), PAD and the largest id."""
+    users = rng.integers(0, model.total_num_users, n)
+    items = rng.integers(0, model.total_num_items, n)
+    ent, n_ov, total = ((users, model.overlapped_num_users, model.total_num_users)
+                        if model.mode == "overlap_users"
+                        else (items, model.overlapped_num_items, model.total_num_items))
+    ent[:4] = [n_ov, n_ov + 1, 0, total - 1]
+    return users, items
+
+
+def test_b16_plain_matches_forward_and_vjp(pair):
+    """B16's plain forward and backward, through ``deepapf_attention`` on
+    CPU tensors, against ``_forward`` and its ``jax.vjp`` with random
+    weights (numpy seed 0) and a random cotangent; the masked share rows
+    get exactly zero gradient, the unmasked ones do not."""
+    jmodel, tmodel = pair["jmodel"], pair["tmodel"]
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(
+        lambda a: (0.3 * rng.normal(size=a.shape)).astype(np.float32), pair["params"])
+    users, items = _entity_ids(tmodel, rng, 64)
+    g = rng.normal(size=64).astype(np.float32)
+    want, vjp = jax.vjp(jax.jit(lambda p: jmodel._forward(p, jnp.asarray(users),
+                                                          jnp.asarray(items), "target")), params)
+    (want_g,) = vjp(jnp.asarray(g))
+
+    t = {k: torch.from_numpy(np.array(v)).requires_grad_()
+         for k, v in params_from_jax(params).items()}
+    side = "user" if tmodel.mode == "overlap_users" else "item"
+    other_side = "item" if side == "user" else "user"
+    ent = torch.from_numpy(users if side == "user" else items)
+    oth = torch.from_numpy(items if side == "user" else users)
+    n_ov = tmodel.overlapped_num_users if side == "user" else tmodel.overlapped_num_items
+    mask = ent > n_ov
+    assert mask.tolist()[:2] == [False, True]
+    w = Weights(t[f"{side}_mlp.0.w"], t[f"{side}_mlp.0.b"], t[f"{side}_mlp.1.w"],
+                t["predict_layer"])
+    ops.reset_launch_counts()
+    got = deepapf_attention(t[f"share_{side}_embedding"][ent], t[f"target_{side}_embedding"][ent],
+                            t[f"target_{other_side}_embedding"][oth], mask, w)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **LOSS_TOL)
+    got.backward(torch.from_numpy(g))
+    for name in (f"share_{side}_embedding", f"target_{side}_embedding",
+                 f"target_{other_side}_embedding", f"{side}_mlp.0.w", f"{side}_mlp.0.b",
+                 f"{side}_mlp.1.w", "predict_layer"):
+        np.testing.assert_allclose(t[name].grad.numpy(), jax_leaf(want_g, name), err_msg=name,
+                                   **GRAD_TOL)
+    share_g = t[f"share_{side}_embedding"].grad
+    masked = torch.unique(ent[mask])
+    assert torch.all(share_g[masked] == 0)
+    assert torch.all(share_g[n_ov].abs().sum() > 0)
+    assert not any(ops.launch_counts().values())  # plain on the CPU
+
+
+def test_deepapf_loss_and_grads_match_jax(pair):
+    """Both domains' pairs through one B16 call; every parameter, the dead
+    side's with JAX's zero gradient and none in the port."""
+    batch = phase_batch(pair["jtrain"], "BOTH")
+    tmodel = pair["tmodel"]
+    assert_loss_and_grads_match(pair["jmodel"], pair["params"], tmodel, "BOTH", batch)
+    dead = _dead(tmodel.mode)
+    for name, p in tmodel.named_parameters():
+        assert (p.grad is None) == (name.split(".", 1)[0] in dead), name
+
+
+def test_dead_side_never_moves(pair):
+    """A training step leaves the other side's share table and attention MLP
+    untouched, and the optimizer never creates state for them."""
+    import copy
+
+    model = copy.deepcopy(pair["tmodel"])
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = build_optimizer(pair["tconfig"], model.parameters())
+    step = make_train_step(model, opt, model.loss_fn("BOTH"), model.trainable_predicate("BOTH"))
+    step(_tbatch(phase_batch(pair["jtrain"], "BOTH")))
+    dead = _dead(model.mode)
+    for name, p in model.named_parameters():
+        moved = not torch.equal(p.detach(), before[name])
+        assert moved != (name.split(".", 1)[0] in dead), name
+        assert (p in opt.state) != (name.split(".", 1)[0] in dead), name
+
+
+def test_predict_matches_jax(pair):
+    check_predict(pair)
+
+
+def test_predict_fallback_matches_jax(pair):
+    """The full-sort probabilities of the predict fallback against JAX's
+    ``make_predict_full_sort``: one B16 grid call a tile; the default
+    chunked hook (pairs through ``predict``) agrees on the item axis
+    reversed."""
+    jmodel, tmodel, params = pair["jmodel"], pair["tmodel"], pair["params"]
+    item_num = pair["ttest"].item_num
+    users = np.arange(1, 41)
+    want = np.asarray(jax_predict_full_sort(jmodel, "TARGET", item_num)(params,
+                                                                        jnp.asarray(users)))
+    assert tmodel.full_sort_fn("TARGET") is None
+    fs = make_predict_full_sort(tmodel, item_num)
+    with torch.no_grad():
+        got = fs(torch.from_numpy(users)).numpy()
+        items = torch.arange(item_num).flip(0)
+        grid = tmodel.predict_grid(torch.from_numpy(users), items)
+        pairs = CrossDomainRecommender.predict_grid(tmodel, torch.from_numpy(users), items)
+    assert got.shape == want.shape == (len(users), item_num)
+    np.testing.assert_allclose(got, want, **SCORE_TOL)
+    torch.testing.assert_close(grid, pairs, rtol=0, atol=1e-6)
+    torch.testing.assert_close(grid, torch.from_numpy(got).flip(1), rtol=0, atol=0)
+
+
+def test_grid_plain_chunks(monkeypatch):
+    """The plain grid over more pairs than one chunk agrees with it in one
+    chunk (the chunking only bounds memory) within 1e-6: torch's CPU matmul
+    rounds a row by the shape of the batch it sits in."""
+    import recbole_cdr_tpu_torch.ops.deepapf_attention as b16
+
+    g = torch.Generator().manual_seed(0)
+    D = 8
+    tabs = [torch.randn(30, D, generator=g) for _ in range(3)]
+    w = Weights(torch.randn(D, D, generator=g), torch.randn(D, generator=g),
+                torch.randn(D, 1, generator=g), torch.randn(D, 1, generator=g))
+    users, items = torch.arange(0, 30, 3), torch.arange(29, -1, -1)
+    whole = deepapf_grid(*tabs, users, items, 12, True, w)
+    monkeypatch.setattr(b16, "PAIR_BUDGET", 7)
+    chunked = deepapf_grid_plain(*tabs, users, items, 12, True, w)
+    assert whole.shape == (10, 30)
+    torch.testing.assert_close(chunked, whole, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_one_epoch_deepapf_parameter_match(mode, request):
+    extra = {} if mode == "overlap_items" else {
+        **user_overlap_cfg(request.getfixturevalue("pair_root")), "train_batch_size": 256}
+    model, params0 = one_epoch_match("DeepAPF", JaxDeepAPF, DeepAPF, extra)
+    assert model.mode == mode
+    for name, p in model.named_parameters():
+        if name.split(".", 1)[0] in _dead(mode):
+            np.testing.assert_array_equal(p.detach().numpy(), jax_leaf(params0, name))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_run_recbole_cdr_deepapf_on_cpu(mode, request):
+    """BOTH:1 with validation through the predict fallback, finite metrics;
+    no kernel launches on the CPU."""
+    extra = {} if mode == "overlap_items" else user_overlap_cfg(request.getfixturevalue("pair_root"))
+    ops.reset_launch_counts()
+    result = run_recbole_cdr(model="DeepAPF", config_dict={
+        "state": "ERROR", "show_progress": False, "device": "cpu", "train_batch_size": 1024,
+        "train_epochs": ["BOTH:1"], "eval_step": 1, **extra})
+    assert result["model"].mode == mode
+    assert all(math.isfinite(v) for v in result["test_result"].values())
+    assert all(math.isfinite(h["loss"]) for h in result["history"])
+    assert not any(ops.launch_counts().values())

@@ -60,6 +60,8 @@ def test_ported_options_run(model, extra):
     pytest.param("CMF", {"phase_optimizer": "sparse", "profile_steps": 1}, id="CMF-extra3"),
     pytest.param("CMF", {"resume_checkpoint_path": "saved/CMF.pth"}, id="CMF-extra7"),
     pytest.param("BiTGCF", {"compute_dtype": "bfloat16"}, id="BiTGCF-bf16"),
+    pytest.param("CoNet", {"compute_dtype": "bfloat16"}, id="CoNet-bf16"),
+    pytest.param("DeepAPF", {"compute_dtype": "bfloat16"}, id="DeepAPF-bf16"),
 ])
 def test_unported_options_raise(model, extra):
     with pytest.raises(NotImplementedError):

@@ -2,7 +2,8 @@
 package and chip_smoke.py, and a fresh interpreter that imports every module
 of the package and runs the entry point, on the dense path, on the sparse
 optimizer with the streaming evaluator, for BiTGCF, for NATR with GAUC,
-and for DCDCSR's and SSCDR's phases (the host batch path included)."""
+for DCDCSR's and SSCDR's phases (the host batch path included), and for
+CLFM, DeepAPF and CoNet."""
 
 import ast
 import os
@@ -54,7 +55,8 @@ for model, extra in (("CMF", {}),
                                "metrics": ["Recall", "GAUC"]}),
                      ("DCDCSR", {"train_epochs": ["SOURCE:1", "TARGET:1", "BOTH:1",
                                                   "TARGET:1"]}),
-                     ("SSCDR", {"train_epochs": ["TARGET:1", "OVERLAP:1"]})):
+                     ("SSCDR", {"train_epochs": ["TARGET:1", "OVERLAP:1"]}),
+                     ("CLFM", {}), ("DeepAPF", {}), ("CoNet", {})):
     res = pkg.run_recbole_cdr(model=model, config_dict={
         "state": "ERROR", "device": "cpu", "train_epochs": ["BOTH:1"],
         "train_batch_size": 2048, **extra})
@@ -83,5 +85,8 @@ def test_every_module_is_scanned():
             "recbole_cdr_tpu_torch.models.bitgcf", "recbole_cdr_tpu_torch.models.natr",
             "recbole_cdr_tpu_torch.ops.natr_attention", "recbole_cdr_tpu_torch.ops.rank_sum",
             "recbole_cdr_tpu_torch.ops.benchmark_topk", "recbole_cdr_tpu_torch.models.dcdcsr",
-            "recbole_cdr_tpu_torch.models.emcdr", "recbole_cdr_tpu_torch.models.sscdr"} <= mods
+            "recbole_cdr_tpu_torch.models.emcdr", "recbole_cdr_tpu_torch.models.sscdr",
+            "recbole_cdr_tpu_torch.models.clfm", "recbole_cdr_tpu_torch.models.deepapf",
+            "recbole_cdr_tpu_torch.models.conet", "recbole_cdr_tpu_torch.ops.deepapf_attention",
+            "recbole_cdr_tpu_torch.ops.conet_tower"} <= mods
     assert len(list(_sources())) == len(mods) + 2  # + package __init__ + chip_smoke.py

@@ -25,7 +25,8 @@ package, on the CPU (K1's plain version on bf16 tables).
 - The master parameters and the optimizer state stay float32; bf16 quality
   within 0.04 of float32 for CMF over 3 epochs; bf16 on the host batch path
   (the analogues of ``tests/test_precision.py``).
-- BiTGCF, NATR and DTCDR's DMF raise under bf16, naming their ROADMAP item.
+- BiTGCF, NATR, DTCDR's DMF, CoNet and DeepAPF raise under bf16, naming
+  their ROADMAP item.
 """
 
 import math
@@ -220,6 +221,8 @@ def test_bf16_host_path():
     ("BiTGCF", {}, "B8"),
     ("NATR", {}, "B9"),
     ("DTCDR", {"base_model": "DMF"}, "B11"),
+    ("CoNet", {}, "B15"),
+    ("DeepAPF", {}, "B16"),
 ])
 def test_models_without_a_bf16_kernel_raise(model, extra, kernel):
     config = CDRConfig(model=model, config_dict={**_QUICK, "compute_dtype": "bfloat16",
