@@ -149,7 +149,14 @@ Phases, in order; any failure exits non-zero:
    ``CONET_VALID_HEADROOM`` (the pass's peak above parameters and moments
    printed beside it); no other kernel; the loss falls and the
    metrics are finite;
-12. report: the card's name and power limit, one JSON line of per-kernel
+12. BiTGCF, NATR and DTCDR's DMF under ``compute_dtype: bfloat16``, each
+   with the configuration of its float32 run (phases 5, 6 and 7b), epochs
+   unchanged: every kernel of the float32 run launches exactly as often,
+   in its 16-bit form where it has one (K1-bf16; the 16-bit forms of B8, B9
+   and B11, ``*_bf16``) and as itself otherwise (K2-K4, B7); the float32
+   B8, B9 and B11 never; every phase's loss falls; the test Recall@10 within
+   ``PHASE12_RECALL_TOL`` of the float32 run's (both printed);
+13. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
 B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
@@ -243,6 +250,19 @@ K4's ids on the dense tile's probabilities equal wherever neighbours are
 clear of the tolerance; timed at the dense tile, its library yardstick the
 torch chain over the whole [2,048, 4,980, 64] hidden (JAX's form).
 
+Phase 2 holds the 16-bit forms of B8, B9 and B11 on the same operands as
+their float32 forms, rounded to bf16, against their plain versions: B8-bf16
+at the source graph (``B8_BF16_TOL``, two runs bit-equal; library route
+``torch.sparse.mm`` on a bf16 CSR where torch takes one), B9-bf16's training
+forward and backward and full-sort form in both overlap modes, its anchor
+table over every target user and its pair grid on the fallback tile
+(``B9_BF16_TOL``, reruns bit-equal; library route the torch chain in bf16,
+``library_natr_*``, which the float32 B9 rows are now timed against too),
+B11-bf16 on the four histories of a DMF step (forward within ``B11_TOL``,
+backward within ``B11_BF16_TOL``, twice; library routes ``embedding_bag``
+on the bf16 table and ``index_add_`` then one rounding). Their bounds charge
+the 16-bit operands' two bytes.
+
 ``python3 chip_smoke.py --profile`` instead times one warm training epoch
 and one validation pass of the dense path's run, then traces a repeat of
 each with ``torch.profiler`` and prints the device time by kernel, the
@@ -258,7 +278,12 @@ and BOTH (the host batch path, which has no validation), EMCDR's OVERLAP
 (the OVERLAP stream), SSCDR's OVERLAP (the host path); and phase 9's
 paths: CMF's BOTH with popularity negatives and adagrad, EMCDR's BPR SOURCE
 phase with popularity negatives and rmsprop, and the catalog path in bf16,
-last; phase 11's three models come before phase 9's paths.
+last; phase 11's three models and phase 12's bf16 runs (BiTGCF's BOTH,
+NATR's SOURCE and TARGET, DMF's BOTH) come before phase 9's paths. Each
+16-bit run also prints the per-call parameter cast apart from the kernels
+(``report_casts``): the wrapped calls of its epoch and validation pass, the
+device time of one cast of every floating parameter and buffer, and their
+product.
 
 Nothing here imports jax or the JAX package.
 """
@@ -450,6 +475,33 @@ B13_TOL = (1e-6, 2 ** -16)
 K1_BF16_TOL = {"forward": 2 ** -18, "backward": 2 ** -8}
 
 
+#: one step of a 16-bit value v is at most 2^-7 |v| in bf16; the 16-bit forms
+#: of B8, B9 and B11 and their plain versions sum in float32 in other orders
+#: and round once where JAX's value is 16-bit, so a rounded value may land
+#: one step apart from the plain version's and carry that step on
+BF16_STEP = 2 ** -7
+BF16 = "bfloat16"
+
+#: B8-bf16 tolerance per element: side within one step of the plain
+#: version's plus 2^-16 of the sum of its terms' magnitudes (float32 sums in
+#: another order); new within two steps of what it adds, |new| + |side| (1 +
+#: |x|), over keep; gx within one step plus 2^-16 of its product's terms
+B8_BF16_TOL = {"side": (BF16_STEP, 2 ** -16), "new": 2 * BF16_STEP,
+               "gx": (BF16_STEP, 2 ** -16)}
+
+#: B9-bf16 tolerance per output tensor, |kernel - plain| <= ATOL + RTOL *
+#: max|plain|: both round h, the scores, the softmax, su, the gates, beta,
+#: zu and the logit (the grid's sigmoid) from float32 sums in other orders
+#: (cuBLAS for the plain transfer), so an intermediate may land a step apart;
+#: four steps of the tensor's largest value, plus B9_TOL's absolute term
+#: (db_ua is 0 in exact arithmetic: a sum of rounding noise)
+B9_BF16_TOL = (1e-5, 4 * BF16_STEP)
+
+#: B11-bf16 tolerance: the forward's float32 sums as B11_TOL; the backward's
+#: float32 sums (within B11_TOL of each other) rounded once, so within one
+#: step of the plain version's plus twice B11's relative term
+B11_BF16_TOL = (1e-6, 2 ** -17, BF16_STEP)
+
 #: B16 tolerance per output tensor, |kernel - plain| <= ATOL + RTOL *
 #: max|plain| (B9's form): the kernel sums x @ W's D products, the attention
 #: logit's D terms and the predict dot in other orders than cuBLAS and torch
@@ -495,6 +547,20 @@ PHASE11_PATHS = {
 #: 2.6 GB
 CONET_VALID_HEADROOM = 256 * 2 ** 20
 
+
+#: phase 12's runs: (name, model, the float32 run of phases 5-7 whose
+#: configuration it repeats with ``compute_dtype: bfloat16``, epochs
+#: unchanged)
+PHASE12_RUNS = (("bitgcf_bf16", "BiTGCF", "bitgcf"), ("natr_bf16", "NATR", "natr"),
+                ("dmf_bf16", "DTCDR", "dtcdr_dmf"))
+#: the float32 kernels whose 16-bit forms the bf16 runs launch in their place
+BF16_FORMS = {k: k + "_bf16" for k in (
+    "gather_dot_forward", "gather_dot_backward", "graph_layer_forward", "graph_layer_backward",
+    "natr_attention_forward", "natr_attention_backward", "natr_anchor_table", "natr_pair_grid",
+    "rating_vector_forward", "rating_vector_backward")}
+#: a bf16 run's test Recall@10 within max(ABS, REL x) of its float32 run's
+#: (``results/parity_oracle.md``'s tolerance)
+PHASE12_RECALL_TOL = (0.02, 0.20)
 
 #: traces ``device_ms`` takes of a function that waits on the device before it
 #: fails: a torch.profiler trace now and then records no device
@@ -613,6 +679,14 @@ def catalog_config():
         "log_dir": os.path.join(CATALOG_DIR, "log"),
     })
     return cfg
+
+
+def phase12_config(ref):
+    """A phase-12 run: the configuration of the float32 run ``ref`` (phase
+    5, 6 or 7b) with ``compute_dtype: bfloat16``."""
+    cfg = {"bitgcf": bitgcf_config, "natr": natr_config,
+           "dtcdr_dmf": lambda: dtcdr_config(*DTCDR_RUNS[1][1:])}[ref]()
+    return {**cfg, "compute_dtype": BF16}
 
 
 def bitgcf_config():
@@ -1050,7 +1124,9 @@ def kernel_checks(dev):
            lambda: b8.graph_layer_backward_plain(csr_t, x, side, bits, keep, gy),
            err, csr_bytes + 5 * N * D * 4, 2 * nnz * D + 12 * N * D,
            library_fn=library_backward)
-    del x, gy, bits, new, side, new2, side2, p_new, p_side, gx, p_gx, Ls, Ls_t
+    del new, side, new2, side2, p_new, p_side, gx, p_gx, Ls, Ls_t
+    b8_bf16_checks(record, csr, csr_t, x, gy, bits, keep)
+    del x, gy, bits
 
     # ---- B9: NATR's attention at a TARGET step's and a full-sort tile's shapes
     natr_checks(dev, g, config, dataset, train_data, valid_data, record)
@@ -1398,6 +1474,84 @@ def check_rank_sum(scores, rp, items, pos, pmask):
     assert torch.equal(a, b7.rank_sum(scores, rp, items, pos, pmask)), "rank_sum differs run to run"
 
 
+def within(got, want, tol, what):
+    """max |got - want| after asserting it within the per-element tolerance
+    ``tol``; prints it and the largest share of the tolerance used."""
+    diff = (got.float() - want.float()).abs()
+    used = float((diff / tol).max())
+    assert used <= 1.0, f"{what}: error {float(diff.max())}, {used:.3g} of the tolerance"
+    print(f"  {what}: max_abs_err {float(diff.max()):.3g}, {used:.3g} of the tolerance",
+          flush=True)
+    return float(diff.max())
+
+
+def b8_bf16_checks(record, csr, csr_t, x, gy, bits, keep):
+    """B8-bf16 on phase 2's source-graph layer rounded to bf16 (the table, the
+    CSRs' values, the upstream gradient): within ``B8_BF16_TOL`` of its plain
+    version, two runs bit-equal; timed beside its plain version and, where
+    torch takes a bf16 CSR, ``torch.sparse.mm`` with the torch epilogue."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import graph_layer as b8
+
+    dt = getattr(torch, BF16)
+    c16, ct16 = (m._replace(val=m.val.to(dt)) for m in (csr, csr_t))
+    x16, g16 = x.to(dt), gy.to(dt)
+    N, D, nnz = x.shape[0], x.shape[1], csr.col.shape[0]
+    new, side = b8.graph_layer_forward(c16, x16, bits, keep)
+    assert new.dtype == side.dtype == dt
+    p_new, p_side = b8.graph_layer_forward_plain(c16, x16, bits, keep)
+    absum = b8._spmm_plain(c16._replace(val=c16.val.abs()), x16.abs())
+    step, rel = B8_BF16_TOL["side"]
+    err = within(side, p_side, step * p_side.float().abs() + rel * absum + 1e-30,
+                 "graph_layer_forward_bf16 side")
+    scale = (p_new.float().abs() + (p_side.float().abs() + rel * absum)
+             * (1 + x16.float().abs())) / keep
+    err = max(err, within(new, p_new, B8_BF16_TOL["new"] * scale + 1e-6,
+                          "graph_layer_forward_bf16 new"))
+    new2, side2 = b8.graph_layer_forward(c16, x16, bits, keep)
+    assert torch.equal(new, new2) and torch.equal(side, side2), \
+        "graph_layer_forward_bf16 differs run to run"
+    gx = b8.graph_layer_backward(ct16, x16, side, bits, keep, g16)
+    p_gx = b8.graph_layer_backward_plain(ct16, x16, side, bits, keep, g16)
+    gp = b8._dropped_grad(g16.float(), bits, keep)
+    absum_t = b8._spmm_plain(ct16._replace(val=ct16.val.abs()), (gp + gp * x16.float()).abs())
+    step, rel = B8_BF16_TOL["gx"]
+    err_b = within(gx, p_gx, step * p_gx.float().abs() + rel * absum_t + 1e-6,
+                   "graph_layer_backward_bf16")
+    assert torch.equal(gx, b8.graph_layer_backward(ct16, x16, side, bits, keep, g16)), \
+        "graph_layer_backward_bf16 differs run to run"
+    mask = b8.keep_mask(bits, keep)
+    library = library_t = None
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        try:
+            Ls, Ls_t = (torch.sparse_csr_tensor(m.row_ptr.long(), m.col.long(), m.val, (N, N))
+                        for m in (c16, ct16))
+            torch.sparse.mm(Ls, x16)
+
+            def library():
+                sd = torch.sparse.mm(Ls, x16)
+                return torch.where(mask, (x16 + sd + x16 * sd) / keep, 0.0), sd
+
+            def library_t():
+                gq = torch.where(mask, g16 / keep, 0.0)
+                return (gq + gq * side) + torch.sparse.mm(Ls_t, gq + gq * x16)
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"  graph_layer_*_bf16: no library route, torch.sparse.mm refuses a bf16 CSR "
+                  f"({str(e).splitlines()[0][:160]})", flush=True)
+    csr_bytes = 4 * (N + 1) + 6 * nnz
+    record("graph_layer_forward_bf16",
+           lambda: b8.graph_layer_forward(c16, x16, bits, keep),
+           lambda: b8.graph_layer_forward_plain(c16, x16, bits, keep),
+           err, csr_bytes + N * D * (3 * 2 + 4), 2 * nnz * D + 8 * N * D, library_fn=library)
+    record("graph_layer_backward_bf16",
+           lambda: b8.graph_layer_backward(ct16, x16, side, bits, keep, g16),
+           lambda: b8.graph_layer_backward_plain(ct16, x16, side, bits, keep, g16),
+           err_b, csr_bytes + N * D * (4 * 2 + 4), 2 * nnz * D + 12 * N * D,
+           library_fn=library_t)
+
+
 def natr_work(n_rows, n_slots, n_pairs, D, backward=False):
     """Scalar operations of the least work that computes B9. The transfer
     ``h = src[r] @ W + b`` depends on the source row alone, so it is charged
@@ -1528,6 +1682,7 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
         assert torch.equal(c, b9.natr_full_sort(hist, fa, fp, fq, w, items_mode))
         print(f"  natr_attention [{mode}]: max_abs_err forward {err_f:.3g}, backward "
               f"{err_b:.3g}, full-sort {err_s:.3g}", flush=True)
+        bf16 = natr_bf16_checks(hist, anchors, pu, q, w, gz, fa, fp, fq, items_mode, mode)
         if not items_mode:
             continue
 
@@ -1540,12 +1695,29 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
         record("natr_attention_forward",
                lambda: b9.natr_attention_forward(hist, anchors, pu, q, w),
                lambda: b9.natr_attention_forward_plain(hist, anchors, pu, q, w),
-               err_f, fwd_bytes, natr_work(rows, n_anchor * H, P, D))
+               err_f, fwd_bytes, natr_work(rows, n_anchor * H, P, D),
+               library_fn=lambda: library_natr_forward(hist, anchors, pu, q, w))
         record("natr_attention_backward",
                lambda: b9.natr_attention_backward(hist, anchors, pu, q, w, gz),
                lambda: b9.natr_attention_backward_plain(hist, anchors, pu, q, w, gz),
                err_b, fwd_bytes + P * 4 + 2 * P * D * 4 + fixed,
-               natr_work(rows, n_anchor * H, P, D, backward=True))
+               natr_work(rows, n_anchor * H, P, D, backward=True),
+               library_fn=lambda: library_natr_backward(hist, anchors, pu, q, w, gz))
+        # the 16-bit forms on the same operands rounded to bf16: 2-byte floats
+        h16, a16, pu16, q16, w16, gz16 = bf16["training"]
+        fixed16 = 2 * (D * D + 3 * D + 2)
+        fwd16 = n_anchor * H * 5 + rows * D * 2 + 2 * P * D * 2 + P * 6 + fixed16
+        record("natr_attention_forward_bf16",
+               lambda: b9.natr_attention_forward(h16, a16, pu16, q16, w16),
+               lambda: b9.natr_attention_forward_plain(h16, a16, pu16, q16, w16),
+               bf16["errors"]["forward"], fwd16, natr_work(rows, n_anchor * H, P, D),
+               library_fn=lambda: library_natr_forward(h16, a16, pu16, q16, w16))
+        record("natr_attention_backward_bf16",
+               lambda: b9.natr_attention_backward(h16, a16, pu16, q16, w16, gz16),
+               lambda: b9.natr_attention_backward_plain(h16, a16, pu16, q16, w16, gz16),
+               bf16["errors"]["backward"], fwd16 + P * 2 + 2 * P * D * 2 + fixed16,
+               natr_work(rows, n_anchor * H, P, D, backward=True),
+               library_fn=lambda: library_natr_backward(h16, a16, pu16, q16, w16, gz16))
         # the anchor table as the NATR run builds it: every target user at once
         tds = dataset.target_domain_dataset
         n_tu = tds.num(tds.uid_field)
@@ -1563,7 +1735,19 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
                lambda: b9.natr_anchor_table(hist, every, t_pu, w),
                lambda: b9.anchor_plain(hist, every, t_pu, w),
                err_t, n_tu * H * 5 + rows_t * D * 4 + 2 * n_tu * D * 4 + fixed,
-               natr_work(rows_t, n_tu * H, 0, D), reps=10)
+               natr_work(rows_t, n_tu * H, 0, D), reps=10,
+               library_fn=lambda: library_natr_anchor(hist, every, t_pu, w))
+        t_pu16 = t_pu.to(pu16.dtype)
+        table16 = b9.natr_anchor_table(h16, every, t_pu16, w16)
+        err_t16 = close16(table16, b9.anchor_plain(h16, every, t_pu16, w16), "natr_anchor_table_bf16")
+        assert torch.equal(table16, b9.natr_anchor_table(h16, every, t_pu16, w16)), \
+            "natr_anchor_table_bf16 differs run to run"
+        record("natr_anchor_table_bf16",
+               lambda: b9.natr_anchor_table(h16, every, t_pu16, w16),
+               lambda: b9.anchor_plain(h16, every, t_pu16, w16),
+               err_t16, n_tu * H * 5 + rows_t * D * 2 + 2 * n_tu * D * 2 + fixed16,
+               natr_work(rows_t, n_tu * H, 0, D), reps=10,
+               library_fn=lambda: library_natr_anchor(h16, every, t_pu16, w16))
         # the pair grid of one fallback tile, from the table's rows
         B = fs_users.shape[0]
         su_t = table[fs_users.long()]
@@ -1576,7 +1760,20 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
                lambda: b9.natr_pair_grid(su_t, fp, fq, w, True),
                lambda: b9.pair_grid_plain(su_t, fp, fq, w, True),
                err_g, (2 * B + n_target) * D * 4 + B * n_target * 4 + 4 * (D + 1),
-               natr_work(0, 0, B * n_target, D), reps=50)
+               natr_work(0, 0, B * n_target, D), reps=50,
+               library_fn=lambda: library_natr_grid(su_t, fp, fq, w))
+        su16, fp16, fq16 = table16[fs_users.long()], fp.to(pu16.dtype), fq.to(pu16.dtype)
+        g16 = b9.natr_pair_grid(su16, fp16, fq16, w16, True)
+        err_g16 = close16(g16, b9.pair_grid_plain(su16, fp16, fq16, w16, True),
+                          "natr_pair_grid_bf16")
+        assert torch.equal(g16, b9.natr_pair_grid(su16, fp16, fq16, w16, True)), \
+            "natr_pair_grid_bf16 differs run to run"
+        record("natr_pair_grid_bf16",
+               lambda: b9.natr_pair_grid(su16, fp16, fq16, w16, True),
+               lambda: b9.pair_grid_plain(su16, fp16, fq16, w16, True),
+               err_g16, (2 * B + n_target) * D * 2 + B * n_target * 2 + 2 * (D + 1),
+               natr_work(0, 0, B * n_target, D), reps=50,
+               library_fn=lambda: library_natr_grid(su16, fp16, fq16, w16))
         fs_probs = c
 
     # ---- K4 and B7 on the fallback tile's probabilities ------------------
@@ -1612,6 +1809,100 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
            0.0, fs_probs.numel() * 4 + rp.numel() * 4 + n_pairs * 4 + pos.numel() * 5 + B * 4,
            2 * n_target * int(pmask.sum()),
            library_fn=lambda: library_rank_sum(fs_probs, rp, it, pos, pmask), shape=tile)
+
+
+def close16(got, want, what):
+    """A 16-bit form of B9 against its plain version: ``B9_BF16_TOL``."""
+    import torch
+
+    assert got.dtype == want.dtype == getattr(torch, BF16), (what, got.dtype, want.dtype)
+    atol, rtol = B9_BF16_TOL
+    tol = atol + rtol * float(want.float().abs().max())
+    return within(got, want, torch.full_like(want, tol, dtype=torch.float32), what)
+
+
+def natr_bf16_checks(hist, anchors, pu, q, w, gz, fa, fp, fq, items_mode, mode):
+    """B9's 16-bit training forward and backward and its full-sort form on the
+    operands of phase 2's float32 checks rounded to bf16, against their plain
+    versions (``B9_BF16_TOL``), reruns bit-equal. Returns the operands and
+    the errors."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import natr_attention as b9
+
+    dt = getattr(torch, BF16)
+    h16 = b9.History(hist.src.to(dt), hist.ids, hist.mask)
+    w16 = b9.Weights(*(t.to(dt) for t in w))
+    pu16, q16, gz16 = pu.to(dt), q.to(dt), gz.to(dt)
+    a = b9.natr_attention_forward(h16, anchors, pu16, q16, w16)
+    err_f = close16(a, b9.natr_attention_forward_plain(h16, anchors, pu16, q16, w16),
+                    f"natr_attention_forward_bf16 [{mode}]")
+    assert torch.equal(a, b9.natr_attention_forward(h16, anchors, pu16, q16, w16)), \
+        "natr_attention_forward_bf16 differs run to run"
+    ka = b9.natr_attention_backward(h16, anchors, pu16, q16, w16, gz16)
+    pa = b9.natr_attention_backward_plain(h16, anchors, pu16, q16, w16, gz16)
+    err_b = 0.0
+    for name, x, y in zip(("dpu", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da"), ka, pa):
+        if name == "db_da":  # 0 in exact arithmetic: beta depends on b_s - b_p
+            assert float(x.float().abs().max()) <= 1e-5, f"db_da {float(x)}"
+            continue
+        err_b = max(err_b, close16(x, y, f"natr_attention_backward_bf16 {name} [{mode}]"))
+    again = b9.natr_attention_backward(h16, anchors, pu16, q16, w16, gz16)
+    assert all(torch.equal(x, y) for x, y in zip(ka, again)), \
+        "natr_attention_backward_bf16 differs run to run"
+    fp16, fq16 = fp.to(dt), fq.to(dt)
+    c = b9.natr_full_sort(h16, fa, fp16, fq16, w16, items_mode)
+    err_s = close16(c, b9.natr_full_sort_plain(h16, fa, fp16, fq16, w16, items_mode),
+                    f"natr_full_sort_bf16 [{mode}]")
+    assert torch.equal(c, b9.natr_full_sort(h16, fa, fp16, fq16, w16, items_mode))
+    return {"training": (h16, anchors, pu16, q16, w16, gz16),
+            "errors": {"forward": err_f, "backward": err_b, "full_sort": err_s}}
+
+
+def library_natr_anchor(hist, anchors, pu, w):
+    """B9's library yardstick, the anchor stage as a torch chain in the
+    operands' type: the transfer of the [A x H] gathered rows in one cuBLAS
+    product with its bias, the masked scores, softmax and weighted sum."""
+    import torch
+
+    a, H, D = anchors.long(), hist.ids.shape[1], pu.shape[1]
+    he = torch.addmm(w.b, hist.src[hist.ids[a].reshape(-1).long()], w.W).view(-1, H, D)
+    s = (torch.relu(pu[:, None, :] * he) @ w.w_ua).squeeze(-1) + w.b_ua
+    s = s + torch.where(hist.mask[a], 0.0, -10000.0).to(s.dtype)
+    return torch.bmm(torch.softmax(s, 1)[:, None, :], he).squeeze(1)
+
+
+def library_natr_blend(su, pu, q, w):
+    """The pair stage as a torch chain: both gates in one product, beta as a
+    softmax over the two (JAX's exp(b_s) / (exp(b_s) + exp(b_p)))."""
+    import torch
+
+    gates = torch.relu(torch.stack([su * q, pu * q])) @ w.w_da + w.b_da
+    beta = torch.softmax(gates, 0)[0]
+    return ((beta * su + (1 - beta) * pu) * q).sum(-1)
+
+
+def library_natr_forward(hist, anchors, pu, q, w):
+    return library_natr_blend(library_natr_anchor(hist, anchors, pu, w), pu, q, w)
+
+
+def library_natr_backward(hist, anchors, pu, q, w, g):
+    """Autograd of the torch chain for the gradients B9's backward returns."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops.natr_attention import Weights
+
+    leaves = [t.detach().requires_grad_() for t in (pu, q, *w)]
+    with torch.enable_grad():
+        out = library_natr_forward(hist, anchors, leaves[0], leaves[1], Weights(*leaves[2:]))
+        return torch.autograd.grad(out, leaves, g)
+
+
+def library_natr_grid(su, pu, q, w):
+    """The torch chain over a grid's pairs (anchors on the rows)."""
+    import torch
+
+    return torch.sigmoid(library_natr_blend(su[:, None, :], pu[:, None, :], q[None, :, :], w))
 
 
 def dtcdr_checks(dev, g, record):
@@ -1664,7 +1955,8 @@ def dtcdr_checks(dev, g, record):
         rows = int(torch.unique(csr.cols[entry]).numel())
         return int(uniq.numel()), int(entry.numel()), rows
 
-    errs = {"forward": 0.0, "backward": 0.0}
+    errs = {"forward": 0.0, "backward": 0.0, "forward_bf16": 0.0, "backward_bf16": 0.0}
+    dt16 = getattr(torch, BF16)
     timed = None
     for name, table, ids in (("s_items", model.source_user_linear, users),
                              ("t_items", model.target_user_linear, users),
@@ -1683,6 +1975,19 @@ def dtcdr_checks(dev, g, record):
             errs["backward"] = max(errs["backward"], close(
                 b11.rating_vector_backward(csr, N, ids, gout), want, absum,
                 f"rating_vector_backward [{name}{run}]"))
+        # B11-bf16 on the table rounded to bf16 (gout stays float32, as the towers)
+        x16 = x.to(dt16)
+        errs["forward_bf16"] = max(errs["forward_bf16"], close(
+            b11.rating_vector_forward(csr, x16, ids), b11.rating_vector_plain(csr, x16, ids),
+            b11.rating_vector_plain(csr, x16.abs(), ids), f"rating_vector_forward_bf16 [{name}]"))
+        want16 = b11.rating_vector_backward_plain(csr, N, ids, gout, dt16)
+        atol, rtol, step = B11_BF16_TOL
+        for run in ("", ", second run"):
+            got16 = b11.rating_vector_backward(csr, N, ids, gout, dt16)
+            assert got16.dtype == dt16
+            errs["backward_bf16"] = max(errs["backward_bf16"], within(
+                got16, want16, atol + rtol * absum + step * want16.float().abs(),
+                f"rating_vector_backward_bf16 [{name}{run}]"))
         n_ids, n_entries, n_rows = b11_work(csr, ids)
         print(f"  rating_vector [{name}]: {ids.shape[0]} ids, {n_ids} distinct, "
               f"{n_entries} history entries naming {n_rows} of [{N} x {D}]'s rows", flush=True)
@@ -1724,6 +2029,24 @@ def dtcdr_checks(dev, g, record):
               + f" over {int(flat.numel())} entries with repeats", flush=True)
     print(f"  rating_vector_forward: JAX's form (dense [{B} x {N}] vector @ table) "
           f"{jax_ms:.4f} ms", flush=True)
+    # the 16-bit form: 2-byte table rows and gradient, float32 sums, out and gout
+    x16 = x.to(dt16)
+    record("rating_vector_forward_bf16",
+           lambda: b11.rating_vector_forward(csr, x16, ids),
+           lambda: b11.rating_vector_plain(csr, x16, ids),
+           errs["forward_bf16"], n_rows * D * 2 + 4 * B + csr_bytes + B * D * 4, n_entries * D,
+           library_fn=lambda: torch.nn.functional.embedding_bag(
+               flat, x16, offsets.long(), mode="sum"), reps=10)
+    record("rating_vector_backward_bf16",
+           lambda: b11.rating_vector_backward(csr, N, ids, gout, dt16),
+           lambda: b11.rating_vector_backward_plain(csr, N, ids, gout, dt16),
+           errs["backward_bf16"], B * D * 4 + 4 * B + csr_bytes + N * D * 2,
+           n_entries * D + B * D,
+           library_fn=lambda: torch.zeros(N, D, device=dev).index_add_(0, flat, g_rows).to(dt16),
+           reps=10)
+    print("  rating_vector_*_bf16: library yardsticks embedding_bag(mode='sum') on the bf16 "
+          "table (bf16 out), and index_add_ of the float32 gradient rows then one rounding",
+          flush=True)
     del vec, g_rows, flat
 
     # ---- B10 and B7's candidate form on phase 7c's first candidate batch
@@ -2114,6 +2437,51 @@ def profile_epoch(dev, cfg, tag="", export=True, model="CMF", scheme="BOTH", pre
     run_epoch(2)
     print(f"{tag}train_epoch after profiling, same process: "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms unprofiled", flush=True)
+    if trainer.compute_dtype != torch.float32 and cfg.get("phase_optimizer") != "sparse":
+        report_casts(trainer.model, trainer.compute_dtype, calls, tag)
+
+
+def report_casts(model, dtype, calls, tag):
+    """The per-call parameter cast of 16-bit compute, apart from the kernels:
+    the trainer casts every floating parameter and buffer of the model (the
+    CSRs' values and the degrees included) on each wrapped call, so each
+    step and each evaluation tile pays one cast, also where the model then
+    answers from its per-version cache (the sparse step casts its gathered
+    sub-tables instead, which this does not time: its caller skips it).
+    Prints the wrapped calls of each of
+    ``calls`` (counted around ``utils.precision.call_with``), the device time
+    of one cast, and their product."""
+    import torch
+
+    import recbole_cdr_tpu_torch.utils.precision as precision
+
+    tensors = dict(model.named_parameters())
+    tensors.update(model.named_buffers())
+    floats = [t for t in tensors.values() if t.is_floating_point()]
+    n_bytes = sum(t.numel() * t.element_size() for t in floats)
+
+    def cast():
+        with torch.no_grad():
+            return precision.cast_floats(tensors, dtype)
+
+    cast_ms = device_ms(cast, 10)[0]
+    real = precision.call_with
+    for name, fn in calls:
+        n = [0]
+
+        def counting(*args, **kwargs):
+            n[0] += 1
+            return real(*args, **kwargs)
+
+        precision.call_with = counting
+        try:
+            fn()
+        finally:
+            precision.call_with = real
+        torch.cuda.synchronize()
+        print(f"{tag}{name}: per-call parameter cast {n[0]} calls x {cast_ms:.4f} ms = "
+              f"{n[0] * cast_ms:.3f} ms of device time ({len(floats)} tensors, "
+              f"{n_bytes / 2 ** 20:.1f} MiB of float32 read per cast)", flush=True)
 
 
 def main():
@@ -2181,6 +2549,10 @@ def main():
         for _, model, _ in PHASE11_RUNS:
             profile_epoch(dev, phase11_config(model), f"{model.lower()}_", export=False,
                           model=model)
+        for name, model, ref in PHASE12_RUNS:
+            for scheme in ("SOURCE", "TARGET") if model == "NATR" else ("BOTH",):
+                profile_epoch(dev, phase12_config(ref), f"{name}_{scheme.lower()}_",
+                              export=False, model=model, scheme=scheme)
         profile_epoch(dev, popularity_cmf_config(), "popularity_cmf_", export=False)
         profile_epoch(dev, popularity_emcdr_config(), "popularity_emcdr_source_",
                       export=False, model="EMCDR", scheme="SOURCE")
@@ -2248,6 +2620,7 @@ def main():
     wall = time.perf_counter() - t0
     counts["bitgcf"] = c = ops.launch_counts()
     hist = _report_run(result, wall, c, BITGCF_PATH)
+    recalls = {"bitgcf": result["test_result"]["recall@10"]}
     assert len(hist) == EPOCHS and hist[-1]["loss"] < hist[0]["loss"], hist
     steps = c["gather_dot_backward"] // 2  # one K1 call per domain per step
     passes = sum("valid_seconds" in h for h in hist) + 1  # the validations and the test
@@ -2269,12 +2642,13 @@ def main():
     counts["natr"] = c = ops.launch_counts()
     hist = _report_run(result, wall, c, NATR_PATH)
     check_natr_run(result, hist, c)
+    recalls["natr"] = result["test_result"]["recall@10"]
 
     print("== phase 7: DTCDR paths, run_recbole_cdr(model='DTCDR') on the card: NeuMF and DMF, "
           "full-sort, candidate and labeled evaluation", flush=True)
     del result
     torch.cuda.empty_cache()
-    run_dtcdr_paths(counts)
+    recalls["dtcdr_dmf"] = run_dtcdr_paths(counts)["dtcdr_dmf"]["recall@10"]
 
     print("== phase 8: mapping paths, run_recbole_cdr(model='DCDCSR' | 'EMCDR' | 'SSCDR') on "
           "the card: pairwise and OVERLAP streams, the host batch path, B12", flush=True)
@@ -2310,6 +2684,13 @@ def main():
     t0 = time.perf_counter()
     run_phase11_paths(counts)
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("== phase 12: BiTGCF, NATR and DTCDR DMF under compute_dtype bfloat16: the 16-bit "
+          "forms of B8, B9 and B11", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_phase12_paths(counts, recalls)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {
         "gather_dot_forward": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
@@ -2371,6 +2752,10 @@ def main():
         "deepapf_grid": ("recbole_cdr_tpu_torch/csrc/deepapf_attention.cu",
                          "recbole_cdr_tpu/models/deepapf.py:70"),
     }
+    for name in ("graph_layer_forward", "graph_layer_backward", "natr_attention_forward",
+                 "natr_attention_backward", "natr_anchor_table", "natr_pair_grid",
+                 "rating_vector_forward", "rating_vector_backward"):
+        replaces[BF16_FORMS[name]] = replaces[name]
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
          "replaces": replaces[name][1],
@@ -2456,6 +2841,7 @@ def run_dtcdr_paths(counts):
         del result
     # ~100x fewer candidates than full-sort
     assert tests["dtcdr_uniform"]["hit@10"] > tests["dtcdr_dmf"]["hit@10"], tests
+    return tests
 
 
 def check_dtcdr_run(mode, cfg, result, hist, c):
@@ -3172,6 +3558,44 @@ def check_phase11_run(name, result, hist, c, before):
               flush=True)
         assert all(a >= state for a in held) and all(0 < o < CONET_VALID_HEADROOM for o in own), \
             (state, held, peaks)
+
+
+def run_phase12_paths(counts, recalls):
+    """Phase 12: BiTGCF, NATR and DTCDR DMF with the configurations of their
+    float32 runs (phases 5, 6 and 7b) under ``compute_dtype: bfloat16``.
+    Each must launch, for every kernel of its float32 run, that kernel's
+    16-bit form (``BF16_FORMS``) where it has one and else the kernel itself,
+    exactly as many times as the float32 run did, and no other kernel (the
+    float32 B8, B9 and B11 never); every phase's loss falls; the test
+    Recall@10 lies within ``PHASE12_RECALL_TOL`` of the float32 run's."""
+    import torch
+
+    from recbole_cdr_tpu_torch import ops, run_recbole_cdr
+
+    for name, model, ref in PHASE12_RUNS:
+        print(f"-- {name}: {model} as {ref}, compute_dtype bfloat16", flush=True)
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run_recbole_cdr(model=model, config_dict=phase12_config(ref), saved=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = c = ops.launch_counts()
+        want = {BF16_FORMS.get(k, k): n for k, n in counts[ref].items() if n}
+        hist = _report_run(result, wall, c, tuple(want))
+        assert [h["phase"] for h in hist] == [h["phase"] for h in result["history"]]
+        for phase in dict.fromkeys(h["phase"] for h in hist):
+            losses = [h["loss"] for h in hist if h["phase"] == phase]
+            assert len(losses) > 1 and losses[-1] < losses[0], (phase, losses)
+        print(f"launches {want}, as the float32 run's of their float32 forms", flush=True)
+        assert {k: c[k] for k in want} == want, (c, want)
+        assert all(p.dtype == torch.float32 for p in result["model"].parameters())
+        got, ref_recall = result["test_result"]["recall@10"], recalls[ref]
+        absolute, relative = PHASE12_RECALL_TOL
+        print(f"test Recall@10: bf16 {got:.4f}, float32 {ref_recall:.4f} (tolerance "
+              f"{max(absolute, relative * ref_recall):.4f})", flush=True)
+        assert abs(got - ref_recall) <= max(absolute, relative * ref_recall), (got, ref_recall)
+        del result
 
 
 def _report_run(result, wall, counts, path):

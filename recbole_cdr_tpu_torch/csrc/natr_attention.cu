@@ -54,16 +54,96 @@
 // source row once (one [rows, D] x [D, D] product, then gathering h),
 // sharing one anchor between the pairs of a training step that have it,
 // tensor cores for the transfer (3xTF32 keeps float32 accuracy).
+//
+// B9-bf16, the 16-bit form (NATR under compute_dtype: bfloat16; float16
+// through the same template): every operand and output is 16-bit (the
+// source table, the history rows, pu, q, the weights, the upstream gradient;
+// the logits, su, the grid's probabilities, every gradient). Values are
+// widened exactly as they are staged (shared memory stays float32); each dot
+// and each sum over H or D accumulates in float32 and is rounded to the
+// 16-bit type where JAX's bf16 _phase2_logit has a named intermediate:
+// h = hist_e @ W + b, the attention logits with the -10000 mask (-9984 in
+// bf16), the softmax, su, b_s and b_p, beta, zu (per element) and the logit;
+// the grid's sigmoid too. With zu rounded per element the grid cannot
+// regroup its dots as the float32 form does, so its 16-bit instances walk D
+// twice (the gates, then the blend). The backward is the float32 chain rule
+// on those rounded values (the rounding passes gradients through
+// unchanged), beta's and the softmax's slopes at their unrounded values, and every gradient
+// rounded once to the operands' type: the weight gradients after the
+// block-order sum. The float32 form is the same template with every
+// rounding the identity.
 
 #include <cfloat>
 #include <cmath>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+// ---- the operands' types -----------------------------------------------------
+
+template <typename T>
+constexpr bool kWide = std::is_same_v<T, float>;
+
+// a 16-bit value's bits widened to float32, and float32 rounded to nearest
+// in T as bits
+template <typename T>
+__device__ __forceinline__ float from_bits(unsigned b);
+template <>
+__device__ __forceinline__ float from_bits<__nv_bfloat16>(unsigned b) {
+  return __uint_as_float(b << 16);
+}
+template <>
+__device__ __forceinline__ float from_bits<__half>(unsigned b) {
+  return __half2float(__ushort_as_half((unsigned short)b));
+}
+template <typename T>
+__device__ __forceinline__ unsigned to_bits(float x);
+template <>
+__device__ __forceinline__ unsigned to_bits<__nv_bfloat16>(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+template <>
+__device__ __forceinline__ unsigned to_bits<__half>(float x) {
+  return __half_as_ushort(__float2half_rn(x));
+}
+
+// x rounded to nearest in T, as a float32 (the identity for float32)
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (kWide<T>) return x;
+  else return from_bits<T>(to_bits<T>(x));
+}
+
+// one value of T widened, four consecutive ones widened, one stored (the
+// value already rounded to T)
+template <typename T>
+__device__ __forceinline__ float ld1(const T* p) {
+  if constexpr (kWide<T>) return __ldg(p);
+  else return from_bits<T>(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+template <typename T>
+__device__ __forceinline__ float4 ld4(const T* p) {
+  if constexpr (kWide<T>) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  } else {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_float4(from_bits<T>(t.x & 0xFFFFu), from_bits<T>(t.x >> 16),
+                       from_bits<T>(t.y & 0xFFFFu), from_bits<T>(t.y >> 16));
+  }
+}
+template <typename T>
+__device__ __forceinline__ void st1(T* p, float v) {
+  if constexpr (kWide<T>) *p = v;
+  else *reinterpret_cast<unsigned short*>(p) = (unsigned short)to_bits<T>(v);
+}
 
 template <int D>
 struct Shape {
@@ -91,8 +171,8 @@ struct Smem {
   float* W;    // [D, D] transfer weight
   float* E;    // [hp, D + 1] gathered history rows
   float* T;    // [hp, D] transferred rows (the backward overwrites them with dT)
-  float* att;  // [hp] softmax
-  float* s;    // [hp] scores, then their gradient
+  float* att;  // [hp] softmax, rounded to the operands' type
+  float* s;    // [hp] scores, then the unrounded softmax, then the scores' gradient
   float* da;   // [hp] gradient of att
   float* pu;   // [D]
   float* su;   // [D]
@@ -135,26 +215,23 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
 __device__ __forceinline__ float relu_mul(float a, float b) {
   return fmaxf(__fmul_rn(a, b), 0.f);
 }
 
-template <int D>
-__device__ void stage_weight(const float* __restrict__ W, Smem& m) {
-  for (int i = threadIdx.x; i < D * D; i += kThreads) m.W[i] = __ldg(W + i);
+template <int D, typename T>
+__device__ void stage_weight(const T* __restrict__ W, Smem& m) {
+  for (int i = threadIdx.x; i < D * D; i += kThreads) m.W[i] = ld1(W + i);
 }
 
 // The anchor stage of one anchor, by the whole block: leaves m.T (the
-// transferred rows), m.att (the softmax), m.su and m.pu. Ends synchronised.
-template <int D>
-__device__ void anchor_stage(const float* __restrict__ src, const int* __restrict__ ids,
+// transferred rows), m.att (the softmax), m.su and m.pu, each rounded to T.
+// Ends synchronised.
+template <int D, typename T>
+__device__ void anchor_stage(const T* __restrict__ src, const int* __restrict__ ids,
                              const uint8_t* __restrict__ mask, int aid, int H, int hp,
-                             const float* __restrict__ pu_row, const float* __restrict__ b,
-                             const float* __restrict__ w_ua, float b_ua, Smem& m) {
+                             const T* __restrict__ pu_row, const T* __restrict__ b,
+                             const T* __restrict__ w_ua, float b_ua, Smem& m) {
   using S = Shape<D>;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = tid; j < hp; j += kThreads) {
@@ -162,11 +239,11 @@ __device__ void anchor_stage(const float* __restrict__ src, const int* __restric
     m.hid[j] = real ? __ldg(ids + (long long)aid * H + j) : 0;
     m.msk[j] = real ? __ldg(mask + (long long)aid * H + j) : 0;
   }
-  for (int d = tid; d < D; d += kThreads) m.pu[d] = __ldg(pu_row + d);
+  for (int d = tid; d < D; d += kThreads) m.pu[d] = ld1(pu_row + d);
   __syncthreads();
   for (int i = tid; i < hp * D; i += kThreads) {
     const int j = i / D, k = i - j * D;
-    m.E[j * S::EST + k] = j < H ? __ldg(src + (long long)m.hid[j] * D + k) : 0.f;
+    m.E[j * S::EST + k] = j < H ? ld1(src + (long long)m.hid[j] * D + k) : 0.f;
   }
   __syncthreads();
 
@@ -174,7 +251,7 @@ __device__ void anchor_stage(const float* __restrict__ src, const int* __restric
   const int tx = tid % S::C4, ty = tid / S::C4;
   float bias[4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) bias[c] = __ldg(b + 4 * tx + c);
+  for (int c = 0; c < 4; ++c) bias[c] = ld1(b + 4 * tx + c);
   for (int j0 = 0; j0 < hp; j0 += S::RPASS) {
     float acc[4][4];
 #pragma unroll
@@ -198,8 +275,8 @@ __device__ void anchor_stage(const float* __restrict__ src, const int* __restric
     for (int r = 0; r < 4; ++r) {
       const int j = j0 + ty + S::RT * r;
       *reinterpret_cast<float4*>(m.T + j * D + 4 * tx) = make_float4(
-          __fadd_rn(acc[r][0], bias[0]), __fadd_rn(acc[r][1], bias[1]),
-          __fadd_rn(acc[r][2], bias[2]), __fadd_rn(acc[r][3], bias[3]));
+          rnd<T>(__fadd_rn(acc[r][0], bias[0])), rnd<T>(__fadd_rn(acc[r][1], bias[1])),
+          rnd<T>(__fadd_rn(acc[r][2], bias[2])), rnd<T>(__fadd_rn(acc[r][3], bias[3])));
     }
   }
   __syncthreads();
@@ -207,9 +284,10 @@ __device__ void anchor_stage(const float* __restrict__ src, const int* __restric
   for (int j = warp; j < H; j += kWarps) {
     float acc = 0.f;
     for (int d = lane; d < D; d += 32)
-      acc = fmaf(relu_mul(m.pu[d], m.T[j * D + d]), __ldg(w_ua + d), acc);
+      acc = fmaf(relu_mul(m.pu[d], m.T[j * D + d]), ld1(w_ua + d), acc);
     acc = warp_sum(acc);
-    if (lane == 0) m.s[j] = __fadd_rn(__fadd_rn(acc, b_ua), m.msk[j] ? 0.f : -10000.f);
+    if (lane == 0)
+      m.s[j] = rnd<T>(__fadd_rn(__fadd_rn(acc, b_ua), m.msk[j] ? 0.f : -10000.f));
   }
   __syncthreads();
 
@@ -224,48 +302,54 @@ __device__ void anchor_stage(const float* __restrict__ src, const int* __restric
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < H; j += 32) m.att[j] = __fdiv_rn(m.att[j], sum);
+    // the weights rounded to T for the weighted sum; the unrounded ones, in
+    // place of the scores, for the softmax's backward
+    for (int j = lane; j < H; j += 32) {
+      const float a = __fdiv_rn(m.att[j], sum);
+      m.s[j] = a;
+      m.att[j] = rnd<T>(a);
+    }
   }
   __syncthreads();
 
   for (int d = tid; d < D; d += kThreads) {
     float acc = 0.f;
     for (int j = 0; j < H; ++j) acc = fmaf(m.att[j], m.T[j * D + d], acc);
-    m.su[d] = acc;
+    m.su[d] = rnd<T>(acc);
   }
   __syncthreads();
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-anchor_kernel(const float* __restrict__ src, const int* __restrict__ ids,
+anchor_kernel(const T* __restrict__ src, const int* __restrict__ ids,
               const uint8_t* __restrict__ mask, const int* __restrict__ anchors,
-              const float* __restrict__ pu, const float* __restrict__ W,
-              const float* __restrict__ b, const float* __restrict__ w_ua,
-              const float* __restrict__ b_ua, int A, int H, float* __restrict__ su) {
+              const T* __restrict__ pu, const T* __restrict__ W, const T* __restrict__ b,
+              const T* __restrict__ w_ua, const T* __restrict__ b_ua, int A, int H,
+              T* __restrict__ su) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hp = hpad(H, Shape<D>::RPASS);
   Smem m = carve<D>(smem, hp);
-  stage_weight<D>(W, m);
+  stage_weight<D, T>(W, m);
   __syncthreads();
-  const float bua = __ldg(b_ua);
+  const float bua = ld1(b_ua);
   for (int a = blockIdx.x; a < A; a += gridDim.x) {
-    anchor_stage<D>(src, ids, mask, __ldg(anchors + a), H, hp, pu + (long long)a * D, b,
-                    w_ua, bua, m);
-    for (int d = threadIdx.x; d < D; d += kThreads) su[(long long)a * D + d] = m.su[d];
+    anchor_stage<D, T>(src, ids, mask, __ldg(anchors + a), H, hp, pu + (long long)a * D, b,
+                       w_ua, bua, m);
+    for (int d = threadIdx.x; d < D; d += kThreads) st1(su + (long long)a * D + d, m.su[d]);
     __syncthreads();
   }
 }
 
-// the pair stage of one pair: its logit
-template <int D>
-__device__ __forceinline__ float blend(const float* __restrict__ su, const float* __restrict__ pu,
-                                       const float* __restrict__ q, const float* __restrict__ w,
+// the pair stage of one pair: its logit, rounded to T
+template <int D, typename T>
+__device__ __forceinline__ float blend(const T* __restrict__ su, const T* __restrict__ pu,
+                                       const T* __restrict__ q, const T* __restrict__ w,
                                        float b_da) {
   float bs = 0.f, bp = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    const float4 s = ldg4(su + d), p = ldg4(pu + d), x = ldg4(q + d), ww = ldg4(w + d);
+    const float4 s = ld4(su + d), p = ld4(pu + d), x = ld4(q + d), ww = ld4(w + d);
     bs = fmaf(relu_mul(s.x, x.x), ww.x, bs);
     bs = fmaf(relu_mul(s.y, x.y), ww.y, bs);
     bs = fmaf(relu_mul(s.z, x.z), ww.z, bs);
@@ -275,32 +359,32 @@ __device__ __forceinline__ float blend(const float* __restrict__ su, const float
     bp = fmaf(relu_mul(p.z, x.z), ww.z, bp);
     bp = fmaf(relu_mul(p.w, x.w), ww.w, bp);
   }
-  bs = __fadd_rn(bs, b_da);
-  bp = __fadd_rn(bp, b_da);
+  bs = rnd<T>(__fadd_rn(bs, b_da));
+  bp = rnd<T>(__fadd_rn(bp, b_da));
   const float es = expf(bs), ep = expf(bp);
-  const float beta = __fdiv_rn(es, __fadd_rn(es, ep));
+  const float beta = rnd<T>(__fdiv_rn(es, __fadd_rn(es, ep)));
   const float omb = __fsub_rn(1.f, beta);
   float acc = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    const float4 s = ldg4(su + d), p = ldg4(pu + d), x = ldg4(q + d);
-    acc = fmaf(__fadd_rn(__fmul_rn(beta, s.x), __fmul_rn(omb, p.x)), x.x, acc);
-    acc = fmaf(__fadd_rn(__fmul_rn(beta, s.y), __fmul_rn(omb, p.y)), x.y, acc);
-    acc = fmaf(__fadd_rn(__fmul_rn(beta, s.z), __fmul_rn(omb, p.z)), x.z, acc);
-    acc = fmaf(__fadd_rn(__fmul_rn(beta, s.w), __fmul_rn(omb, p.w)), x.w, acc);
+    const float4 s = ld4(su + d), p = ld4(pu + d), x = ld4(q + d);
+    acc = fmaf(rnd<T>(__fadd_rn(__fmul_rn(beta, s.x), __fmul_rn(omb, p.x))), x.x, acc);
+    acc = fmaf(rnd<T>(__fadd_rn(__fmul_rn(beta, s.y), __fmul_rn(omb, p.y))), x.y, acc);
+    acc = fmaf(rnd<T>(__fadd_rn(__fmul_rn(beta, s.z), __fmul_rn(omb, p.z))), x.z, acc);
+    acc = fmaf(rnd<T>(__fadd_rn(__fmul_rn(beta, s.w), __fmul_rn(omb, p.w))), x.w, acc);
   }
-  return acc;
+  return rnd<T>(acc);
 }
 
 // `n` aligned pairs (anchor i, query i) -> logits
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-pair_kernel(const float* __restrict__ su, const float* __restrict__ pu,
-            const float* __restrict__ q, const float* __restrict__ w_da,
-            const float* __restrict__ b_da, int n, float* __restrict__ out) {
+pair_kernel(const T* __restrict__ su, const T* __restrict__ pu, const T* __restrict__ q,
+            const T* __restrict__ w_da, const T* __restrict__ b_da, int n,
+            T* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  out[i] = blend<D>(su + i * D, pu + i * D, q + i * D, w_da, __ldg(b_da));
+  st1(out + i, blend<D, T>(su + i * D, pu + i * D, q + i * D, w_da, ld1(b_da)));
 }
 
 // ---- the full-sort grid -----------------------------------------------------
@@ -321,17 +405,20 @@ size_t grid_smem_bytes() {
 // out [R, C] = sigmoid(logit) of every (row r, column c) pair. With
 // kAnchorRow the anchors (su, pu) are the rows and the queries q the
 // columns, else the other way round. A block stages its rows' and columns'
-// vectors in shared memory with 16-byte loads (the columns at a padded
-// stride, so the lanes' reads fall in distinct banks), then each thread
-// walks D once for its kGridI x kGridJ pairs, keeping four sums per pair: the gates'
-// sum w.relu(su q) and w.relu(pu q), and the dots su.q and pu.q. Then
-// beta = exp(b_s) / (exp(b_s) + exp(b_p)), logit = beta su.q + (1 - beta)
-// pu.q: the pair stage's blend, regrouped.
-template <int D, bool kAnchorRow>
+// vectors in shared memory with 16-byte loads (8-byte for 16-bit operands;
+// the columns at a padded stride, so the lanes' reads fall in distinct
+// banks), then each thread walks D for its kGridI x kGridJ pairs. The
+// float32 form walks it once, keeping four sums per pair: the gates' sum
+// w.relu(su q) and w.relu(pu q), and the dots su.q and pu.q; then beta =
+// exp(b_s) / (exp(b_s) + exp(b_p)), logit = beta su.q + (1 - beta) pu.q:
+// the pair stage's blend, regrouped. The 16-bit form rounds zu per element,
+// which does not regroup: it walks D for the gates, then again for the sum
+// of zu_d q_d.
+template <int D, bool kAnchorRow, typename T>
 __global__ void __launch_bounds__(kGridThreads)
-pair_grid_kernel(const float* __restrict__ su, const float* __restrict__ pu,
-                 const float* __restrict__ q, const float* __restrict__ w_da,
-                 const float* __restrict__ b_da, int R, int C, float* __restrict__ out) {
+pair_grid_kernel(const T* __restrict__ su, const T* __restrict__ pu, const T* __restrict__ q,
+                 const T* __restrict__ w_da, const T* __restrict__ b_da, int R, int C,
+                 T* __restrict__ out) {
   constexpr int C4 = D / 4;
   constexpr int CST = D + 1;
   extern __shared__ __align__(16) float gsm[];
@@ -348,24 +435,24 @@ pair_grid_kernel(const float* __restrict__ su, const float* __restrict__ pu,
     const int r = e / C4, d = 4 * (e % C4);
     const bool ok = r0 + r < R;
     const long long at = (long long)(r0 + r) * D + d;
-    *reinterpret_cast<float4*>(row_a + r * D + d) = ok ? ldg4((kAnchorRow ? su : q) + at) : zero;
+    *reinterpret_cast<float4*>(row_a + r * D + d) = ok ? ld4((kAnchorRow ? su : q) + at) : zero;
     if (kAnchorRow)
-      *reinterpret_cast<float4*>(row_b + r * D + d) = ok ? ldg4(pu + at) : zero;
+      *reinterpret_cast<float4*>(row_b + r * D + d) = ok ? ld4(pu + at) : zero;
   }
   for (int e = tid; e < kGridCols * C4; e += kGridThreads) {
     const int c = e / C4, d = 4 * (e % C4);
     const bool ok = c0 + c < C;
     const long long at = (long long)(c0 + c) * D + d;
-    const float4 a = ok ? ldg4((kAnchorRow ? q : su) + at) : zero;
+    const float4 a = ok ? ld4((kAnchorRow ? q : su) + at) : zero;
     float* x = col_a + c * CST + d;
     x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
     if (!kAnchorRow) {
-      const float4 b = ok ? ldg4(pu + at) : zero;
+      const float4 b = ok ? ld4(pu + at) : zero;
       float* y = col_b + c * CST + d;
       y[0] = b.x; y[1] = b.y; y[2] = b.z; y[3] = b.w;
     }
   }
-  for (int d = tid; d < D; d += kGridThreads) w[d] = __ldg(w_da + d);
+  for (int d = tid; d < D; d += kGridThreads) w[d] = ld1(w_da + d);
   __syncthreads();
 
   float gs[kGridI][kGridJ], gp[kGridI][kGridJ], ds[kGridI][kGridJ], dp[kGridI][kGridJ];
@@ -399,13 +486,40 @@ pair_grid_kernel(const float* __restrict__ su, const float* __restrict__ pu,
         const float p = kAnchorRow ? yb[i] : xb[j];  // pu
         const float x = kAnchorRow ? xa[j] : ya[i];  // q
         const float ms = __fmul_rn(s, x), mp = __fmul_rn(p, x);
-        ds[i][j] = __fadd_rn(ds[i][j], ms);
-        dp[i][j] = __fadd_rn(dp[i][j], mp);
+        if constexpr (kWide<T>) {
+          ds[i][j] = __fadd_rn(ds[i][j], ms);
+          dp[i][j] = __fadd_rn(dp[i][j], mp);
+        }
         gs[i][j] = fmaf(fmaxf(ms, 0.f), wd, gs[i][j]);
         gp[i][j] = fmaf(fmaxf(mp, 0.f), wd, gp[i][j]);
       }
   }
-  const float bda = __ldg(b_da);
+  const float bda = ld1(b_da);
+  float beta[kGridI][kGridJ];
+#pragma unroll
+  for (int i = 0; i < kGridI; ++i)
+#pragma unroll
+    for (int j = 0; j < kGridJ; ++j) {
+      const float es = expf(rnd<T>(__fadd_rn(gs[i][j], bda)));
+      const float ep = expf(rnd<T>(__fadd_rn(gp[i][j], bda)));
+      beta[i][j] = rnd<T>(__fdiv_rn(es, __fadd_rn(es, ep)));
+    }
+  if constexpr (!kWide<T>) {  // zu_d = round(beta su_d + (1 - beta) pu_d); ds holds sum zu_d q_d
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+#pragma unroll
+      for (int i = 0; i < kGridI; ++i)
+#pragma unroll
+        for (int j = 0; j < kGridJ; ++j) {
+          const float s = kAnchorRow ? ra[i * D + d] : ca[32 * j * CST + d];
+          const float p = kAnchorRow ? rb[i * D + d] : cb[32 * j * CST + d];
+          const float x = kAnchorRow ? ca[32 * j * CST + d] : ra[i * D + d];
+          const float b = beta[i][j];
+          const float z = rnd<T>(__fadd_rn(__fmul_rn(b, s), __fmul_rn(__fsub_rn(1.f, b), p)));
+          ds[i][j] = fmaf(z, x, ds[i][j]);
+        }
+    }
+  }
 #pragma unroll
   for (int i = 0; i < kGridI; ++i) {
     const int r = r0 + kGridI * warp + i;
@@ -414,36 +528,37 @@ pair_grid_kernel(const float* __restrict__ su, const float* __restrict__ pu,
     for (int j = 0; j < kGridJ; ++j) {
       const int c = c0 + lane + 32 * j;
       if (c >= C) continue;
-      const float es = expf(__fadd_rn(gs[i][j], bda)), ep = expf(__fadd_rn(gp[i][j], bda));
-      const float beta = __fdiv_rn(es, __fadd_rn(es, ep));
-      const float logit =
-          __fadd_rn(__fmul_rn(beta, ds[i][j]), __fmul_rn(__fsub_rn(1.f, beta), dp[i][j]));
-      out[(long long)r * C + c] = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-logit)));
+      float logit;
+      if constexpr (kWide<T>)
+        logit = __fadd_rn(__fmul_rn(beta[i][j], ds[i][j]),
+                          __fmul_rn(__fsub_rn(1.f, beta[i][j]), dp[i][j]));
+      else
+        logit = rnd<T>(ds[i][j]);
+      st1(out + (long long)r * C + c, rnd<T>(__fdiv_rn(1.f, __fadd_rn(1.f, expf(-logit)))));
     }
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-backward_kernel(const float* __restrict__ src, const int* __restrict__ ids,
+backward_kernel(const T* __restrict__ src, const int* __restrict__ ids,
                 const uint8_t* __restrict__ mask, const int* __restrict__ anchors,
-                const float* __restrict__ pu, const float* __restrict__ q,
-                const float* __restrict__ W, const float* __restrict__ b,
-                const float* __restrict__ w_ua, const float* __restrict__ b_ua,
-                const float* __restrict__ w_da, const float* __restrict__ b_da,
-                int P, int H, const float* __restrict__ g, float* __restrict__ dpu,
-                float* __restrict__ dq, float* __restrict__ partial) {
+                const T* __restrict__ pu, const T* __restrict__ q, const T* __restrict__ W,
+                const T* __restrict__ b, const T* __restrict__ w_ua,
+                const T* __restrict__ b_ua, const T* __restrict__ w_da,
+                const T* __restrict__ b_da, int P, int H, const T* __restrict__ g,
+                T* __restrict__ dpu, T* __restrict__ dq, float* __restrict__ partial) {
   using S = Shape<D>;
   constexpr int V = D / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   const int hp = hpad(H, S::RPASS);
   Smem m = carve<D>(smem, hp);
-  stage_weight<D>(W, m);
+  stage_weight<D, T>(W, m);
   __syncthreads();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid % S::C4, ty = tid / S::C4;  // dW tile
   const int pd = tid % D, jg = tid / D;          // (j, d) pass
-  const float bua = __ldg(b_ua), bda = __ldg(b_da);
+  const float bua = ld1(b_ua), bda = ld1(b_da);
 
   float acc_w[S::RK][4];
 #pragma unroll
@@ -456,12 +571,12 @@ backward_kernel(const float* __restrict__ src, const int* __restrict__ ids,
   for (int v = 0; v < V; ++v) acc_wda[v] = 0.f;
 
   for (int p = blockIdx.x; p < P; p += gridDim.x) {
-    anchor_stage<D>(src, ids, mask, __ldg(anchors + p), H, hp, pu + (long long)p * D, b, w_ua,
-                    bua, m);
+    anchor_stage<D, T>(src, ids, mask, __ldg(anchors + p), H, hp, pu + (long long)p * D, b,
+                       w_ua, bua, m);
 
     // the pair stage's chain rule, one warp: d(su), the direct d(pu), d(q)
     if (warp == 0) {
-      const float gp = __ldg(g + p);
+      const float gp = ld1(g + p);
       float sv[V], pv[V], qv[V], wv[V];
       float bs = 0.f, bp = 0.f;
 #pragma unroll
@@ -469,22 +584,25 @@ backward_kernel(const float* __restrict__ src, const int* __restrict__ ids,
         const int d = lane + 32 * v;
         sv[v] = m.su[d];
         pv[v] = m.pu[d];
-        qv[v] = __ldg(q + (long long)p * D + d);
-        wv[v] = __ldg(w_da + d);
+        qv[v] = ld1(q + (long long)p * D + d);
+        wv[v] = ld1(w_da + d);
         bs = fmaf(relu_mul(sv[v], qv[v]), wv[v], bs);
         bp = fmaf(relu_mul(pv[v], qv[v]), wv[v], bp);
       }
-      bs = __fadd_rn(warp_sum(bs), bda);
-      bp = __fadd_rn(warp_sum(bp), bda);
+      bs = rnd<T>(__fadd_rn(warp_sum(bs), bda));
+      bp = rnd<T>(__fadd_rn(warp_sum(bp), bda));
       const float es = expf(bs), ep = expf(bp);
-      const float beta = __fdiv_rn(es, __fadd_rn(es, ep));
+      // beta's value is rounded to T, its slope taken at the unrounded quotient
+      const float beta_q = __fdiv_rn(es, __fadd_rn(es, ep));
+      const float beta = rnd<T>(beta_q);
       const float omb = __fsub_rn(1.f, beta);
       float dbeta = 0.f;
 #pragma unroll
       for (int v = 0; v < V; ++v)
         dbeta = fmaf(__fmul_rn(gp, qv[v]), __fsub_rn(sv[v], pv[v]), dbeta);
       dbeta = warp_sum(dbeta);
-      const float dbs = __fmul_rn(__fmul_rn(dbeta, beta), omb);  // d b_s; d b_p = -d b_s
+      // d b_s; d b_p = -d b_s
+      const float dbs = __fmul_rn(__fmul_rn(dbeta, beta_q), __fsub_rn(1.f, beta_q));
       const float dbp = -dbs;
 #pragma unroll
       for (int v = 0; v < V; ++v) {
@@ -495,8 +613,9 @@ backward_kernel(const float* __restrict__ src, const int* __restrict__ ids,
         const float gq = up > 0.f ? __fmul_rn(dbp, wv[v]) : 0.f;
         m.dsu[d] = fmaf(gs, qv[v], __fmul_rn(beta, dz));
         m.dpu[d] = fmaf(gq, qv[v], __fmul_rn(omb, dz));
-        const float z = __fadd_rn(__fmul_rn(beta, sv[v]), __fmul_rn(omb, pv[v]));
-        dq[(long long)p * D + d] = fmaf(gq, pv[v], fmaf(gs, sv[v], __fmul_rn(gp, z)));
+        const float z = rnd<T>(__fadd_rn(__fmul_rn(beta, sv[v]), __fmul_rn(omb, pv[v])));
+        st1(dq + (long long)p * D + d,
+            rnd<T>(fmaf(gq, pv[v], fmaf(gs, sv[v], __fmul_rn(gp, z)))));
         acc_wda[v] = fmaf(dbs, fmaxf(us, 0.f), fmaf(dbp, fmaxf(up, 0.f), acc_wda[v]));
       }
       if (lane == 0) acc_bda = __fadd_rn(acc_bda, __fadd_rn(dbs, dbp));
@@ -511,18 +630,19 @@ backward_kernel(const float* __restrict__ src, const int* __restrict__ ids,
       if (lane == 0) m.da[j] = acc;
     }
     __syncthreads();
-    // the softmax's backward: d(s_j) = att_j (d(att_j) - sum_k att_k d(att_k))
+    // the softmax's backward at its unrounded weights (in m.s):
+    // d(s_j) = att_j (d(att_j) - sum_k att_k d(att_k))
     if (warp == 0) {
       float c = 0.f;
-      for (int j = lane; j < H; j += 32) c = fmaf(m.att[j], m.da[j], c);
+      for (int j = lane; j < H; j += 32) c = fmaf(m.s[j], m.da[j], c);
       c = warp_sum(c);
-      for (int j = lane; j < H; j += 32) m.s[j] = __fmul_rn(m.att[j], __fsub_rn(m.da[j], c));
+      for (int j = lane; j < H; j += 32) m.s[j] = __fmul_rn(m.s[j], __fsub_rn(m.da[j], c));
     }
     __syncthreads();
 
     // (j, d) pass: d(pu) and d(w_ua) through the scores, then dT in place
     {
-      const float pud = m.pu[pd], wud = __ldg(w_ua + pd), dsud = m.dsu[pd];
+      const float pud = m.pu[pd], wud = ld1(w_ua + pd), dsud = m.dsu[pd];
       float dpu_part = 0.f;
       for (int j = jg; j < H; j += S::JG) {
         const float t = m.T[j * D + pd];
@@ -543,7 +663,7 @@ backward_kernel(const float* __restrict__ src, const int* __restrict__ ids,
     if (tid < D) {
       float s = m.dpu[tid];
       for (int k = 0; k < S::JG; ++k) s = __fadd_rn(s, m.red[k * D + tid]);
-      dpu[(long long)p * D + tid] = s;
+      st1(dpu + (long long)p * D + tid, rnd<T>(s));
     }
     // dW += E^T dT over the real slots
     for (int j = 0; j < H; ++j) {
@@ -592,14 +712,15 @@ backward_kernel(const float* __restrict__ src, const int* __restrict__ ids,
   }
 }
 
-// out[i] = sum over blocks k, in order, of partial[k, i]
+// out[i] = sum over blocks k, in order, of partial[k, i], rounded to T
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-reduce_kernel(const float* __restrict__ partial, int blocks, int n, float* __restrict__ out) {
+reduce_kernel(const float* __restrict__ partial, int blocks, int n, T* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
   for (int k = 0; k < blocks; ++k) s = __fadd_rn(s, partial[(long long)k * n + i]);
-  out[i] = s;
+  st1(out + i, rnd<T>(s));
 }
 
 // blocks of a persistent launch: every SM full, never more blocks than work
@@ -619,40 +740,39 @@ int persistent_blocks(K kernel, size_t smem, int work) {
 }
 
 // su [A, D] of anchors [A] with pu [A, D]: one persistent launch over every SM
-template <int D>
-int anchor_table(const float* src, const int* ids, const uint8_t* mask, const int* anchors,
-                 const float* pu, const float* W, const float* b, const float* w_ua,
-                 const float* b_ua, int H, int A, float* su, cudaStream_t stream) {
+template <int D, typename T>
+int anchor_table(const T* src, const int* ids, const uint8_t* mask, const int* anchors,
+                 const T* pu, const T* W, const T* b, const T* w_ua, const T* b_ua, int H,
+                 int A, T* su, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, H);
-  const int blocks = persistent_blocks(anchor_kernel<D>, smem, A);
+  const int blocks = persistent_blocks(anchor_kernel<D, T>, smem, A);
   if (blocks < 0) return -blocks;
   if (blocks > 0)
-    anchor_kernel<D><<<blocks, kThreads, smem, stream>>>(src, ids, mask, anchors, pu, W, b,
-                                                           w_ua, b_ua, A, H, su);
+    anchor_kernel<D, T><<<blocks, kThreads, smem, stream>>>(src, ids, mask, anchors, pu, W, b,
+                                                              w_ua, b_ua, A, H, su);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int forward(const float* src, const int* ids, const uint8_t* mask, const int* anchors,
-            const float* pu, const float* q, const float* W, const float* b,
-            const float* w_ua, const float* b_ua, const float* w_da, const float* b_da,
-            int H, int P, float* su, float* out, cudaStream_t stream) {
-  const int e = anchor_table<D>(src, ids, mask, anchors, pu, W, b, w_ua, b_ua, H, P, su, stream);
+template <int D, typename T>
+int forward(const T* src, const int* ids, const uint8_t* mask, const int* anchors,
+            const T* pu, const T* q, const T* W, const T* b, const T* w_ua, const T* b_ua,
+            const T* w_da, const T* b_da, int H, int P, T* su, T* out, cudaStream_t stream) {
+  const int e =
+      anchor_table<D, T>(src, ids, mask, anchors, pu, W, b, w_ua, b_ua, H, P, su, stream);
   if (e != 0) return e;
   if (P > 0)
-    pair_kernel<D><<<(unsigned)((P + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+    pair_kernel<D, T><<<(unsigned)((P + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
         su, pu, q, w_da, b_da, P, out);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int pair_grid(const float* su, const float* pu, const float* q, const float* w_da,
-              const float* b_da, int A, int Nq, bool anchor_is_row, float* out,
-              cudaStream_t stream) {
+template <int D, typename T>
+int pair_grid(const T* su, const T* pu, const T* q, const T* w_da, const T* b_da, int A,
+              int Nq, bool anchor_is_row, T* out, cudaStream_t stream) {
   const int R = anchor_is_row ? A : Nq, C = anchor_is_row ? Nq : A;
   if (R <= 0 || C <= 0) return (int)cudaGetLastError();
   const size_t smem = grid_smem_bytes<D>();
-  auto kernel = anchor_is_row ? pair_grid_kernel<D, true> : pair_grid_kernel<D, false>;
+  auto kernel = anchor_is_row ? pair_grid_kernel<D, true, T> : pair_grid_kernel<D, false, T>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -661,19 +781,18 @@ int pair_grid(const float* su, const float* pu, const float* q, const float* w_d
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int backward(const float* src, const int* ids, const uint8_t* mask, const int* anchors,
-             const float* pu, const float* q, const float* W, const float* b,
-             const float* w_ua, const float* b_ua, const float* w_da, const float* b_da,
-             int H, int P, const float* g, float* dpu, float* dq, float* partial, int blocks,
-             float* out, cudaStream_t stream) {
+template <int D, typename T>
+int backward(const T* src, const int* ids, const uint8_t* mask, const int* anchors,
+             const T* pu, const T* q, const T* W, const T* b, const T* w_ua, const T* b_ua,
+             const T* w_da, const T* b_da, int H, int P, const T* g, T* dpu, T* dq,
+             float* partial, int blocks, T* out, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, H);
   const int n = Shape<D>::NPART;
   if (blocks > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
-        backward_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        backward_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    backward_kernel<D><<<blocks, kThreads, smem, stream>>>(
+    backward_kernel<D, T><<<blocks, kThreads, smem, stream>>>(
         src, ids, mask, anchors, pu, q, W, b, w_ua, b_ua, w_da, b_da, P, H, g, dpu, dq,
         partial);
     const cudaError_t e2 = cudaGetLastError();
@@ -682,34 +801,47 @@ int backward(const float* src, const int* ids, const uint8_t* mask, const int* a
     const cudaError_t e = cudaMemsetAsync(partial, 0, (size_t)n * sizeof(float), stream);
     if (e != cudaSuccess) return (int)e;
   }
-  reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+  reduce_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       partial, blocks > 0 ? blocks : 1, n, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Each entry takes the operands' type code, dtype: 0 float32, 1 bfloat16, 2
+// float16 (every floating operand and output of one call has that type), and
+// the width D (32, 64 or 128); the pair (D, dtype) picks the instance.
+#define NATR_DISPATCH(CALL)                                           \
+  switch (dtype * 1000 + D) {                                         \
+    case 32: return CALL(32, float);                                  \
+    case 64: return CALL(64, float);                                  \
+    case 128: return CALL(128, float);                                \
+    case 1032: return CALL(32, __nv_bfloat16);                        \
+    case 1064: return CALL(64, __nv_bfloat16);                        \
+    case 1128: return CALL(128, __nv_bfloat16);                       \
+    case 2032: return CALL(32, __half);                               \
+    case 2064: return CALL(64, __half);                               \
+    case 2128: return CALL(128, __half);                              \
+    default: return (int)cudaErrorInvalidValue;                       \
+  }
+
 #define NATR_ARGS                                                                  \
   const void *src, const void *ids, const void *mask, const void *anchors,         \
       const void *pu, const void *q, const void *W, const void *b, const void *w_ua, \
       const void *b_ua, const void *w_da, const void *b_da, int H, int D
-#define NATR_PASS                                                                  \
-  (const float*)src, (const int*)ids, (const uint8_t*)mask, (const int*)anchors,   \
-      (const float*)pu, (const float*)q, (const float*)W, (const float*)b,         \
-      (const float*)w_ua, (const float*)b_ua, (const float*)w_da, (const float*)b_da, H
+#define NATR_PASS(T)                                                               \
+  (const T*)src, (const int*)ids, (const uint8_t*)mask, (const int*)anchors,       \
+      (const T*)pu, (const T*)q, (const T*)W, (const T*)b, (const T*)w_ua,         \
+      (const T*)b_ua, (const T*)w_da, (const T*)b_da, H
 
 // anchors: [P] rows of the history ids / mask [N_anchor, H]; pu, q: [P, D];
 // su: [P, D] scratch; out: [P] logits
-extern "C" int natr_attention_forward(NATR_ARGS, int P, void* su, void* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  float* s = (float*)su;
-  float* o = (float*)out;
-  switch (D) {
-    case 32: return forward<32>(NATR_PASS, P, s, o, st);
-    case 64: return forward<64>(NATR_PASS, P, s, o, st);
-    case 128: return forward<128>(NATR_PASS, P, s, o, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+extern "C" int natr_attention_forward(NATR_ARGS, int P, void* su, void* out, int dtype,
+                                      void* stream) {
+#define NATR_FWD(d, T) \
+  forward<d, T>(NATR_PASS(T), P, (T*)su, (T*)out, (cudaStream_t)stream)
+  NATR_DISPATCH(NATR_FWD)
+#undef NATR_FWD
 }
 
 // anchors: [A] rows of the history ids / mask [N_anchor, H]; pu: [A, D];
@@ -717,18 +849,12 @@ extern "C" int natr_attention_forward(NATR_ARGS, int P, void* su, void* out, voi
 extern "C" int natr_anchor_table(const void* src, const void* ids, const void* mask,
                                  const void* anchors, const void* pu, const void* W,
                                  const void* b, const void* w_ua, const void* b_ua, int H, int D,
-                                 int A, void* su, void* stream) {
-#define NATR_TABLE(d)                                                                    \
-  anchor_table<d>((const float*)src, (const int*)ids, (const uint8_t*)mask,              \
-                  (const int*)anchors, (const float*)pu, (const float*)W, (const float*)b, \
-                  (const float*)w_ua, (const float*)b_ua, H, A, (float*)su,              \
-                  (cudaStream_t)stream)
-  switch (D) {
-    case 32: return NATR_TABLE(32);
-    case 64: return NATR_TABLE(64);
-    case 128: return NATR_TABLE(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                                 int A, void* su, int dtype, void* stream) {
+#define NATR_TABLE(d, T)                                                                 \
+  anchor_table<d, T>((const T*)src, (const int*)ids, (const uint8_t*)mask,               \
+                     (const int*)anchors, (const T*)pu, (const T*)W, (const T*)b,        \
+                     (const T*)w_ua, (const T*)b_ua, H, A, (T*)su, (cudaStream_t)stream)
+  NATR_DISPATCH(NATR_TABLE)
 #undef NATR_TABLE
 }
 
@@ -736,43 +862,42 @@ extern "C" int natr_anchor_table(const void* src, const void* ids, const void* m
 // anchor_is_row, else [Nq, A]
 extern "C" int natr_pair_grid(const void* su, const void* pu, const void* q, const void* w_da,
                               const void* b_da, int A, int Nq, int D, int anchor_is_row,
-                              void* out, void* stream) {
-#define NATR_GRID(d)                                                                    \
-  pair_grid<d>((const float*)su, (const float*)pu, (const float*)q, (const float*)w_da, \
-               (const float*)b_da, A, Nq, anchor_is_row != 0, (float*)out,             \
-               (cudaStream_t)stream)
-  switch (D) {
-    case 32: return NATR_GRID(32);
-    case 64: return NATR_GRID(64);
-    case 128: return NATR_GRID(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                              void* out, int dtype, void* stream) {
+#define NATR_GRID(d, T)                                                                  \
+  pair_grid<d, T>((const T*)su, (const T*)pu, (const T*)q, (const T*)w_da,               \
+                  (const T*)b_da, A, Nq, anchor_is_row != 0, (T*)out, (cudaStream_t)stream)
+  NATR_DISPATCH(NATR_GRID)
 #undef NATR_GRID
 }
 
 // the backward's block count for P pairs (its partial-sum scratch has one
 // row per block), or minus a CUDA error code
-extern "C" int natr_attention_backward_blocks(int D, int H, int P) {
+extern "C" int natr_attention_backward_blocks(int D, int H, int P, int dtype) {
   const size_t smem = smem_bytes(D, H);
-  switch (D) {
-    case 32: return persistent_blocks(backward_kernel<32>, smem, P);
-    case 64: return persistent_blocks(backward_kernel<64>, smem, P);
-    case 128: return persistent_blocks(backward_kernel<128>, smem, P);
+#define NATR_BLOCKS(d, T) persistent_blocks(backward_kernel<d, T>, smem, P)
+  switch (dtype * 1000 + D) {
+    case 32: return NATR_BLOCKS(32, float);
+    case 64: return NATR_BLOCKS(64, float);
+    case 128: return NATR_BLOCKS(128, float);
+    case 1032: return NATR_BLOCKS(32, __nv_bfloat16);
+    case 1064: return NATR_BLOCKS(64, __nv_bfloat16);
+    case 1128: return NATR_BLOCKS(128, __nv_bfloat16);
+    case 2032: return NATR_BLOCKS(32, __half);
+    case 2064: return NATR_BLOCKS(64, __half);
+    case 2128: return NATR_BLOCKS(128, __half);
     default: return -(int)cudaErrorInvalidValue;
   }
+#undef NATR_BLOCKS
 }
 
-// g: [P]; dpu, dq: [P, D]; partial: [max(blocks, 1), D*D + 3D + 2]; out: the
-// summed weight gradients [dW | db | dw_ua | db_ua | dw_da | db_da]
+// g: [P]; dpu, dq: [P, D]; partial: float32 [max(blocks, 1), D*D + 3D + 2];
+// out: the summed weight gradients [dW | db | dw_ua | db_ua | dw_da | db_da]
 extern "C" int natr_attention_backward(NATR_ARGS, int P, const void* g, void* dpu, void* dq,
-                                       void* partial, int blocks, void* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* gg = (const float*)g;
-  float *a = (float*)dpu, *c = (float*)dq, *pa = (float*)partial, *o = (float*)out;
-  switch (D) {
-    case 32: return backward<32>(NATR_PASS, P, gg, a, c, pa, blocks, o, st);
-    case 64: return backward<64>(NATR_PASS, P, gg, a, c, pa, blocks, o, st);
-    case 128: return backward<128>(NATR_PASS, P, gg, a, c, pa, blocks, o, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                                       void* partial, int blocks, void* out, int dtype,
+                                       void* stream) {
+#define NATR_BWD(d, T)                                                                  \
+  backward<d, T>(NATR_PASS(T), P, (const T*)g, (T*)dpu, (T*)dq, (float*)partial, blocks, \
+                 (T*)out, (cudaStream_t)stream)
+  NATR_DISPATCH(NATR_BWD)
+#undef NATR_BWD
 }

@@ -37,8 +37,20 @@
 // So both directions cost the distinct rows' entries times D, not B times
 // the rows' lengths. A row of one piece sums in a fixed order; longer rows
 // and the backward's shared table rows add in a run-dependent order.
+//
+// B11-bf16, the 16-bit form (DMF under compute_dtype: bfloat16; float16
+// through the same template). JAX's rating vector stays float32
+// (dtcdr.py:132), and float32 @ bf16 promotes to float32, so the forward
+// reads 16-bit table rows (half the bytes), widens them exactly and sums
+// them in float32 into a float32 output. The backward's gout is float32 (the
+// towers run in float32); the table's gradient passes back through the
+// promotion's cast, so it is the float32 row sum rounded once to the
+// table's type: the pieces add into a float32 scratch table, and one
+// elementwise launch rounds it into the 16-bit gradient.
 
 #include <climits>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,6 +62,19 @@ constexpr int kPiece = 32;   // history entries per piece: one column id per lan
 constexpr int kLanes = 4;    // columns per lane in a 128-column slice
 constexpr int kSlice = 32 * kLanes;
 constexpr int kGrid = 1056;  // 132 SMs x 8 blocks of 8 warps
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half narrow<__half>(float x) { return __float2half_rn(x); }
 
 __global__ void first_position_kernel(const int* __restrict__ ids, int B, int R,
                                       int* __restrict__ firstpos) {
@@ -120,9 +145,10 @@ __device__ __forceinline__ int head_of_piece(const int* piece_start, int B, int 
   return lo;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 forward_pieces_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
-                      const float* __restrict__ table, const int* __restrict__ ids,
+                      const T* __restrict__ table, const int* __restrict__ ids,
                       const int* __restrict__ piece_start, int B, int D,
                       float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
@@ -140,11 +166,11 @@ forward_pieces_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
       for (int t = 0; t < kLanes; ++t) acc[t] = 0.f;
 #pragma unroll 4
       for (int i = 0; i < n; ++i) {
-        const float* row = table + (long long)__shfl_sync(0xffffffffu, my_col, i) * D;
+        const T* row = table + (long long)__shfl_sync(0xffffffffu, my_col, i) * D;
 #pragma unroll
         for (int t = 0; t < kLanes; ++t) {
           const int d = d0 + lane + 32 * t;
-          if (d < D) acc[t] += row[d];
+          if (d < D) acc[t] += widen(row[d]);
         }
       }
 #pragma unroll
@@ -209,6 +235,14 @@ backward_pieces_kernel(const int* __restrict__ ptr, const int* __restrict__ cols
   }
 }
 
+// the float32 gradient table rounded once into the 16-bit one
+template <typename T>
+__global__ void round_kernel(const float* __restrict__ src, long long n, T* __restrict__ dst) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kThreads)
+    dst[i] = narrow<T>(src[i]);
+}
+
 int plan(const int* ptr, int R, const int* ids, int B, int* firstpos, int* head_of,
          int* piece_start, cudaStream_t st) {
   first_position_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, st>>>(ids, B, R, firstpos);
@@ -218,50 +252,83 @@ int plan(const int* ptr, int R, const int* ids, int B, int* firstpos, int* head_
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// ptr: [R + 1], cols: [nnz] (each row's distinct entries); table: [N, D];
-// ids: [B]; firstpos: [R] filled with INT_MAX; head_of: [B]; piece_start:
-// [B + 1]; out: [B, D], zeroed
-extern "C" int rating_vector_forward(const void* ptr, const void* cols, int R,
-                                     const void* table, int D, const void* ids, int B,
-                                     void* firstpos, void* head_of, void* piece_start,
-                                     void* out, void* stream) {
+template <typename T>
+int forward_launch(const void* ptr, const void* cols, int R, const void* table, int D,
+                   const void* ids, int B, void* firstpos, void* head_of, void* piece_start,
+                   void* out, cudaStream_t st) {
   if (B <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
   const int* p = (const int*)ptr;
   const int* id = (const int*)ids;
   int* ho = (int*)head_of;
   int* ps = (int*)piece_start;
   int e = plan(p, R, id, B, (int*)firstpos, ho, ps, st);
   if (e != 0) return e;
-  forward_pieces_kernel<<<kGrid, kThreads, 0, st>>>(p, (const int*)cols, (const float*)table,
-                                                    id, ps, B, D, (float*)out);
+  forward_pieces_kernel<T><<<kGrid, kThreads, 0, st>>>(p, (const int*)cols, (const T*)table,
+                                                       id, ps, B, D, (float*)out);
   e = (int)cudaGetLastError();
   if (e != 0) return e;
   copy_from_head_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0, st>>>(ho, B, D, (float*)out);
   return (int)cudaGetLastError();
 }
 
-// gout: [B, D]; gsum: [B, D] zeroed scratch; dtable: [N, D], zeroed; the rest
-// as in the forward
+template <typename T>
+int round_launch(const float* src, long long n, void* dst, cudaStream_t st) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  round_kernel<T><<<(unsigned)(blocks < kGrid ? blocks : kGrid), kThreads, 0, st>>>(src, n,
+                                                                                   (T*)dst);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ptr: [R + 1], cols: [nnz] (each row's distinct entries); table: [N, D] of
+// the type of dtype (0 float32, 1 bfloat16, 2 float16); ids: [B]; firstpos:
+// [R] filled with INT_MAX; head_of: [B]; piece_start: [B + 1]; out: float32
+// [B, D], zeroed
+extern "C" int rating_vector_forward(const void* ptr, const void* cols, int R,
+                                     const void* table, int D, const void* ids, int B,
+                                     void* firstpos, void* head_of, void* piece_start,
+                                     void* out, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define B11_FWD(T) \
+  forward_launch<T>(ptr, cols, R, table, D, ids, B, firstpos, head_of, piece_start, out, st)
+  if (dtype == 0) return B11_FWD(float);
+  if (dtype == 1) return B11_FWD(__nv_bfloat16);
+  if (dtype == 2) return B11_FWD(__half);
+#undef B11_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// gout: float32 [B, D]; gsum: [B, D] zeroed scratch; dtable: float32 [N, D],
+// zeroed (the gradient for dtype 0, else the scratch the 16-bit gradient
+// dtable16 [N, D] of the table's type is rounded from); the rest as in the
+// forward
 extern "C" int rating_vector_backward(const void* ptr, const void* cols, int R,
                                       const void* gout, int D, const void* ids, int B,
                                       void* firstpos, void* head_of, void* piece_start,
-                                      void* gsum, void* dtable, void* stream) {
-  if (B <= 0) return (int)cudaGetLastError();
+                                      void* gsum, void* dtable, int N, int dtype,
+                                      void* dtable16, void* stream) {
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int* p = (const int*)ptr;
-  const int* id = (const int*)ids;
-  int* ho = (int*)head_of;
-  int* ps = (int*)piece_start;
-  int e = plan(p, R, id, B, (int*)firstpos, ho, ps, st);
-  if (e != 0) return e;
-  coalesce_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0, st>>>((const float*)gout, ho, B, D,
-                                                                   (float*)gsum);
-  e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  backward_pieces_kernel<<<kGrid, kThreads, 0, st>>>(p, (const int*)cols, (const float*)gsum, id,
-                                                     ps, B, D, (float*)dtable);
+  if (B > 0) {
+    const int* p = (const int*)ptr;
+    const int* id = (const int*)ids;
+    int* ho = (int*)head_of;
+    int* ps = (int*)piece_start;
+    int e = plan(p, R, id, B, (int*)firstpos, ho, ps, st);
+    if (e != 0) return e;
+    coalesce_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0, st>>>((const float*)gout, ho, B,
+                                                                     D, (float*)gsum);
+    e = (int)cudaGetLastError();
+    if (e != 0) return e;
+    backward_pieces_kernel<<<kGrid, kThreads, 0, st>>>(p, (const int*)cols, (const float*)gsum,
+                                                       id, ps, B, D, (float*)dtable);
+    e = (int)cudaGetLastError();
+    if (e != 0) return e;
+  }
+  const long long n = (long long)N * D;
+  if (dtype == 1) return round_launch<__nv_bfloat16>((const float*)dtable, n, dtable16, st);
+  if (dtype == 2) return round_launch<__half>((const float*)dtable, n, dtable16, st);
   return (int)cudaGetLastError();
 }

@@ -37,7 +37,11 @@ class Linear(nn.Module):
     """``x @ w + b`` in the JAX package's layout, ``w`` [d_in, d_out] and
     ``b`` [d_out] (``init_linear``, `models/base.py:40-46`): xavier-normal
     weight, zero bias. The orientation is JAX's, not ``nn.Linear``'s, so
-    that weights carry over without a transpose."""
+    that weights carry over without a transpose. An input of another
+    floating type than the weights' is promoted as JAX promotes ``x @ w +
+    b``: float32 inputs on 16-bit copies of the weights (DMF's towers under
+    ``compute_dtype: bfloat16``) compute in float32 on the exactly upcast
+    weights."""
 
     def __init__(self, d_in, d_out, generator=None, dtype=torch.float32):
         super().__init__()
@@ -45,7 +49,11 @@ class Linear(nn.Module):
         self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype))
 
     def forward(self, x):
-        return x @ self.w + self.b
+        w, b = self.w, self.b
+        if x.dtype != w.dtype:
+            dtype = torch.promote_types(x.dtype, w.dtype)
+            x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+        return x @ w + b
 
 
 def mlp(dims, generator=None) -> nn.ModuleList:

@@ -17,6 +17,17 @@ propagated tables.
 Evaluation propagates once per parameter version (``params_version``, bumped
 by the training step and by ``load_state_dict``) and serves every user tile
 of the pass from that cache, as the JAX package's ``_eval_embeddings`` does.
+
+Under ``compute_dtype: bfloat16`` the model runs on the trainer's 16-bit
+copies of its tables and buffers, the adjacency values and the degrees
+included (the JAX package builds them in the compute type,
+``bitgcf.py:62-88``): the graph layers go through B8's 16-bit form, the
+transfer layer, degree blend and normalisation run in bf16 torch, the pair
+scores through K1's 16-bit form, and the propagated tables and the dense
+scores of an evaluation stay 16-bit (the evaluator upcasts them exactly).
+The trainer casts every table and CSR on each wrapped call, also each
+evaluation tile's, before the per-version cache answers: where JAX marks
+these functions ``_no_jit`` and casts inside its cached propagation.
 """
 
 import numpy as np
@@ -33,7 +44,6 @@ from recbole_cdr_tpu_torch.models.base import (
 from recbole_cdr_tpu_torch.ops.gather_dot import gather_dot
 from recbole_cdr_tpu_torch.ops.graph_layer import CSR, csr_from_scipy, graph_layer
 from recbole_cdr_tpu_torch.utils.enums import InputType
-from recbole_cdr_tpu_torch.utils.precision import require_float32_compute
 
 
 def _norm_adj(interaction_coo, n_users, n_items):
@@ -56,7 +66,6 @@ class BiTGCF(CrossDomainRecommender):
 
     def __init__(self, config, dataset):
         super().__init__(config, dataset)
-        require_float32_compute(config, "BiTGCF (kernel B8)")
         self.latent_dim = config["embedding_size"]
         self.n_layers = config["n_layers"]
         self.reg_weight = float(config["reg_weight"])

@@ -14,7 +14,11 @@ with the item's history.
   domain, shape)``, as BiTGCF's does, not from ``jax.random.bernoulli``.
 - DMF: four towers, each the product of an id's binary rating vector over
   its history with a linear table, through kernel B11
-  (``ops/rating_vector.py``): a user's source and target item histories, an
+  (``ops/rating_vector.py``; its 16-bit form B11-bf16 on the 16-bit copies
+  of ``compute_dtype: bfloat16``, still summing into float32 as JAX's
+  float32 vector promotes the product, so the towers and the logits stay
+  float32 there, the ``fc`` weights upcast by :class:`Linear`): a user's
+  source and target item histories, an
   item's source and target user histories (source ids compacted into the
   dense source axis, ``[overlap | source-only]``). A training step makes one
   B11 launch per table, forward and backward, over both domains' ids. The
@@ -43,7 +47,6 @@ from recbole_cdr_tpu_torch.models.base import (
 from recbole_cdr_tpu_torch.ops.graph_layer import keep_mask
 from recbole_cdr_tpu_torch.ops.rating_vector import HistoryCSR, history_csr, rating_vector
 from recbole_cdr_tpu_torch.utils.enums import InputType
-from recbole_cdr_tpu_torch.utils.precision import require_float32_compute
 
 #: DMF's histories: name -> (domain, history of users or of items)
 _HISTORIES = {"s_items": ("source", "user"), "t_items": ("target", "user"),
@@ -61,8 +64,6 @@ class DTCDR(CrossDomainRecommender):
         self.base_model = config["base_model"]
         self.alpha = float(config["alpha"])
         assert self.base_model in ("NeuMF", "DMF"), f"based model {self.base_model} is not supported! "
-        if self.base_model == "DMF":
-            require_float32_compute(config, "DTCDR's DMF (kernel B11)")
 
         gen = torch.Generator().manual_seed(int(config["seed"] or 2022))
         D = self.embedding_size

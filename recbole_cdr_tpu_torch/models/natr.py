@@ -16,6 +16,12 @@ In the TARGET phase B9 receives the source table detached: the phase freezes
 it, and where JAX computes its gradient and the optimizer mask discards it,
 the port computes none.
 
+Under ``compute_dtype: bfloat16`` both phases run on the trainer's 16-bit
+copies: SOURCE through K1's 16-bit form (also on the sparse step's
+sub-tables), TARGET through B9's 16-bit forms with the whole-table RegLoss
+on the 16-bit tables reduced in float32 (``base.reg_loss``), and the anchor
+table and the grid's probabilities are 16-bit.
+
 Full-sort scoring exists for the SOURCE phase only (the overlap prefix and
 the source-only suffix of the source item table, one matmul); every other
 phase scores through :meth:`predict_grid`, which the trainer's predict
@@ -44,7 +50,6 @@ from recbole_cdr_tpu_torch.ops.natr_attention import (
     natr_pair_grid,
 )
 from recbole_cdr_tpu_torch.utils.enums import InputType
-from recbole_cdr_tpu_torch.utils.precision import require_float32_compute
 
 
 class NATR(CrossDomainRecommender):
@@ -52,7 +57,6 @@ class NATR(CrossDomainRecommender):
 
     def __init__(self, config, dataset):
         super().__init__(config, dataset)
-        require_float32_compute(config, "NATR (kernel B9)")
         assert self.overlapped_num_items == 1 or self.overlapped_num_users == 1, (
             "NATR model only support user overlapped or item overlapped dataset! "
         )

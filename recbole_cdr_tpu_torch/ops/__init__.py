@@ -53,6 +53,14 @@ WRAPPERS = {
     "deepapf_forward": deepapf_attention.deepapf_forward,
     "deepapf_backward": deepapf_attention.deepapf_backward,
     "deepapf_grid": deepapf_attention.deepapf_grid,
+    "rating_vector_forward_bf16": rating_vector.rating_vector_forward_bf16,
+    "rating_vector_backward_bf16": rating_vector.rating_vector_backward_bf16,
+    "graph_layer_forward_bf16": graph_layer.graph_layer_forward_bf16,
+    "graph_layer_backward_bf16": graph_layer.graph_layer_backward_bf16,
+    "natr_attention_forward_bf16": natr_attention.natr_attention_forward_bf16,
+    "natr_attention_backward_bf16": natr_attention.natr_attention_backward_bf16,
+    "natr_anchor_table_bf16": natr_attention.natr_anchor_table_bf16,
+    "natr_pair_grid_bf16": natr_attention.natr_pair_grid_bf16,
 }
 
 

@@ -31,6 +31,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: the operand types of the kernels that take more than float32, and the
+#: type code each C entry takes for them (0 float32, 1 bfloat16, 2 float16)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the 16-bit types among them
+FLOAT16 = (torch.bfloat16, torch.float16)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -61,22 +67,23 @@ _SIGNATURES = {
         "sparse_adam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P],
     },
     "graph_layer": {
-        "graph_layer_forward": [_P] * 8 + [_I, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _P],
+        "graph_layer_forward": [_P] * 8 + [_I, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
         "graph_layer_backward": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P,
-                                            _I, _I, _P],
+                                            _I, _I, _I, _P],
     },
     "rank_sum": {"rank_sum": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
                  "rank_sum_candidates": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P]},
     "natr_attention": {
-        "natr_attention_forward": [_P] * 12 + [_I] * 3 + [_P, _P, _P],
-        "natr_anchor_table": [_P] * 9 + [_I] * 3 + [_P, _P],
-        "natr_pair_grid": [_P] * 5 + [_I] * 4 + [_P, _P],
-        "natr_attention_backward_blocks": [_I, _I, _I],
-        "natr_attention_backward": [_P] * 12 + [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+        "natr_attention_forward": [_P] * 12 + [_I] * 3 + [_P, _P, _I, _P],
+        "natr_anchor_table": [_P] * 9 + [_I] * 3 + [_P, _I, _P],
+        "natr_pair_grid": [_P] * 5 + [_I] * 4 + [_P, _I, _P],
+        "natr_attention_backward_blocks": [_I, _I, _I, _I],
+        "natr_attention_backward": [_P] * 12 + [_I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P],
     },
     "rating_vector": {
-        "rating_vector_forward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P],
-        "rating_vector_backward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+        "rating_vector_forward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P],
+        "rating_vector_backward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P,
+                                   _P],
     },
     "benchmark_topk": {"benchmark_topk": [_P] * 4 + [_I] * 5 + [_P] * 6},
     "conet_tower": {"conet_tower": [_P, _P, _I, _I, _P] + [_I] * 7 + [_P, _P]},

@@ -21,7 +21,7 @@ from recbole_cdr_tpu_torch.ops import build
 #: 16-bit form (K1-bf16, float16 through the same template) that loads
 #: 16-bit rows, multiplies and sums in float32 and rounds the score once to
 #: the tables' type
-DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPES = build.DTYPES
 
 
 def gather_dot_plain(U, I, u, i):

@@ -14,6 +14,15 @@ as JAX's ``bernoulli`` derives it from its uniform draw: ``u =
 bitcast_f32((bits >> 9) | 0x3F800000) - 1``, ``mask = u < keep``; fed the
 bits of ``jax.random.bits`` under the same key, the mask is JAX's.
 
+Under ``compute_dtype: bfloat16`` every operand is 16-bit: ``x``, the CSR's
+values (cast per call with the model's buffers; :func:`make_csr` keeps them
+float32), the upstream gradient, and the outputs. The 16-bit form (B8-bf16,
+float16 through the same template) sums each row in float32 and rounds where
+JAX's value has a 16-bit type: ``side``, ``new`` (from the 16-bit ``x`` and
+``side``), the dropout's ``new / keep``; in the backward ``g / keep``, ``h =
+g' + g' x`` (the cotangent of ``side``) and ``gx``. The float32 form is the
+same arithmetic with every rounding the identity.
+
 The kernels are ``csrc/graph_layer.cu``; the plain versions below run for CPU
 tensors and serve as the kernels' reference.
 """
@@ -28,6 +37,7 @@ from recbole_cdr_tpu_torch.ops import build
 
 #: nonzeros per piece of the kernel's work (``csrc/graph_layer.cu``)
 PIECE = 64
+DTYPES = build.DTYPES
 
 
 class CSR(NamedTuple):
@@ -86,19 +96,39 @@ def keep_mask(bits, keep: float):
     return (mant.view(torch.float32) - 1.0) < keep
 
 
+def _wide(dtype):
+    """The plain versions' working type: float32 for a 16-bit table, else the
+    table's own (float64 in the card tests' exact references)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _spmm_plain(csr: CSR, x):
+    """``L @ x`` in the working type: 16-bit values and rows widened to
+    float32 and the products summed in float32."""
+    wide = _wide(x.dtype)
     rows = torch.repeat_interleave(
         torch.arange(csr.row_ptr.shape[0] - 1, device=x.device),
         (csr.row_ptr[1:] - csr.row_ptr[:-1]).long())
-    return torch.zeros_like(x).index_add_(0, rows, csr.val[:, None] * x[csr.col.long()])
+    out = torch.zeros(x.shape, dtype=wide, device=x.device)
+    return out.index_add_(0, rows, csr.val.to(wide)[:, None] * x[csr.col.long()].to(wide))
+
+
+def _rounding(dtype):
+    """A working-type tensor rounded to nearest in ``dtype``: the identity
+    unless ``dtype`` is 16-bit."""
+    if _wide(dtype) == dtype:
+        return lambda t: t
+    return lambda t: t.to(dtype).to(_wide(dtype))
 
 
 def graph_layer_forward_plain(csr: CSR, x, bits, keep: float):
-    side = _spmm_plain(csr, x)
-    new = x + side + x * side
+    """(new, side) in ``x``'s type."""
+    r, xw = _rounding(x.dtype), x.to(_wide(x.dtype))
+    side = r(_spmm_plain(csr, x))
+    new = r(xw + side + xw * side)
     if bits is not None:
-        new = torch.where(keep_mask(bits, keep), new / keep, 0.0)
-    return new, side
+        new = torch.where(keep_mask(bits, keep), r(new / keep), 0.0)
+    return new.to(x.dtype), side.to(x.dtype)
 
 
 def _dropped_grad(g, bits, keep):
@@ -106,24 +136,28 @@ def _dropped_grad(g, bits, keep):
 
 
 def graph_layer_backward_plain(csr_t: CSR, x, side, bits, keep: float, g):
-    gp = _dropped_grad(g, bits, keep)
-    return (gp + gp * side) + _spmm_plain(csr_t, gp + gp * x)
+    """gx in ``x``'s type."""
+    r, wide = _rounding(x.dtype), _wide(x.dtype)
+    gp = r(_dropped_grad(g.to(wide), bits, keep))
+    h = r(gp + gp * x.to(wide))
+    return r((gp + gp * side.to(wide)) + _spmm_plain(csr_t, h)).to(x.dtype)
 
 
-def _check(csr: CSR, x, bits, *dense):
-    if x.dtype != torch.float32 or x.dim() != 2:
-        raise TypeError("graph_layer takes a float32 [N, D] table")
+def _check(csr: CSR, x, bits, *dense, types=tuple(DTYPES)):
+    if x.dtype not in types or x.dim() != 2:
+        raise TypeError(f"graph_layer takes a [N, D] table of a type of {types}, got {x.dtype}")
     n = x.shape[0]
     if csr.row_ptr.dtype != torch.int32 or csr.col.dtype != torch.int32 \
-            or csr.val.dtype != torch.float32:
-        raise TypeError("graph_layer takes an int32 row_ptr and col and float32 values")
+            or csr.val.dtype != x.dtype:
+        raise TypeError("graph_layer takes an int32 row_ptr and col and values of the "
+                        f"table's type {x.dtype}, got {csr.val.dtype}")
     if csr.row_ptr.shape != (n + 1,) or csr.col.shape != csr.val.shape or csr.col.dim() != 1:
         raise ValueError(f"graph_layer: CSR of {csr.row_ptr.shape[0] - 1} rows, "
                          f"{csr.col.shape[0]} / {csr.val.shape[0]} nonzeros, for {n} rows")
     if bits is not None and (bits.dtype != torch.int32 or bits.shape != x.shape):
         raise ValueError("graph_layer: dropout bits must be int32 of the table's shape")
-    if any(t.dtype != torch.float32 or t.shape != x.shape for t in dense):
-        raise ValueError("graph_layer: dense operands must be float32 of the table's shape")
+    if any(t.dtype != x.dtype or t.shape != x.shape for t in dense):
+        raise ValueError("graph_layer: dense operands must be of the table's type and shape")
     if csr.piece_row.dtype != torch.int32 \
             or csr.heavy_ptr.shape != (csr.heavy_row.shape[0] + 1,):
         raise ValueError("graph_layer: the CSR has no schedule: build it with make_csr")
@@ -148,33 +182,21 @@ def _schedule_args(csr: CSR, D: int):
     return args, partial
 
 
-def graph_layer_forward(csr: CSR, x, bits=None, keep: float = 1.0):
-    """(new, side) of one graph layer; ``bits`` None means no dropout."""
-    _check(csr, x, bits)
-    if x.device.type == "cpu":
-        return graph_layer_forward_plain(csr, x, bits, keep)
+def _forward(csr: CSR, x, bits, keep, name):
     x = x.contiguous()
     bits = None if bits is None else bits.contiguous()
     new, side = torch.empty_like(x), torch.empty_like(x)
     sched, partial = _schedule_args(csr, x.shape[1])
     err = build.library("graph_layer").graph_layer_forward(
         *sched, x.data_ptr(), _ptr(bits), float(np.float32(keep)), new.data_ptr(),
-        side.data_ptr(), partial.data_ptr(), x.shape[0], x.shape[1], build.stream_handle(x),
+        side.data_ptr(), partial.data_ptr(), x.shape[0], x.shape[1], DTYPES[x.dtype],
+        build.stream_handle(x),
     )
-    build.check(err, "graph_layer_forward")
-    graph_layer_forward.launches += 1
+    build.check(err, name)
     return new, side
 
 
-graph_layer_forward.launches = 0
-
-
-def graph_layer_backward(csr_t: CSR, x, side, bits, keep: float, g):
-    """Gradient of the layer's input from the gradient ``g`` of its output;
-    ``csr_t`` is the CSR of the adjacency's transpose."""
-    _check(csr_t, x, bits, side, g)
-    if x.device.type == "cpu":
-        return graph_layer_backward_plain(csr_t, x, side, bits, keep, g)
+def _backward(csr_t: CSR, x, side, bits, keep, g, name):
     x, side, g = x.contiguous(), side.contiguous(), g.contiguous()
     bits = None if bits is None else bits.contiguous()
     h, gx = torch.empty_like(x), torch.empty_like(x)
@@ -182,14 +204,70 @@ def graph_layer_backward(csr_t: CSR, x, side, bits, keep: float, g):
     err = build.library("graph_layer").graph_layer_backward(
         *sched, x.data_ptr(), side.data_ptr(), _ptr(bits), float(np.float32(keep)),
         g.data_ptr(), h.data_ptr(), gx.data_ptr(), partial.data_ptr(), x.shape[0],
-        x.shape[1], build.stream_handle(x),
+        x.shape[1], DTYPES[x.dtype], build.stream_handle(x),
     )
-    build.check(err, "graph_layer_backward")
+    build.check(err, name)
+    return gx
+
+
+def graph_layer_forward(csr: CSR, x, bits=None, keep: float = 1.0):
+    """(new, side) of one graph layer; ``bits`` None means no dropout. A
+    16-bit table goes to :func:`graph_layer_forward_bf16`."""
+    _check(csr, x, bits)
+    if x.device.type == "cpu":
+        return graph_layer_forward_plain(csr, x, bits, keep)
+    if x.dtype != torch.float32:
+        return graph_layer_forward_bf16(csr, x, bits, keep)
+    out = _forward(csr, x, bits, keep, "graph_layer_forward")
+    graph_layer_forward.launches += 1
+    return out
+
+
+graph_layer_forward.launches = 0
+
+
+def graph_layer_forward_bf16(csr: CSR, x, bits=None, keep: float = 1.0):
+    """B8's 16-bit form: a bfloat16 (or float16) table and CSR values, float32
+    sums, (new, side) in the table's type."""
+    _check(csr, x, bits, types=build.FLOAT16)
+    if x.device.type == "cpu":
+        return graph_layer_forward_plain(csr, x, bits, keep)
+    out = _forward(csr, x, bits, keep, "graph_layer_forward_bf16")
+    graph_layer_forward_bf16.launches += 1
+    return out
+
+
+graph_layer_forward_bf16.launches = 0
+
+
+def graph_layer_backward(csr_t: CSR, x, side, bits, keep: float, g):
+    """Gradient of the layer's input from the gradient ``g`` of its output;
+    ``csr_t`` is the CSR of the adjacency's transpose. A 16-bit table goes
+    to :func:`graph_layer_backward_bf16`."""
+    _check(csr_t, x, bits, side, g)
+    if x.device.type == "cpu":
+        return graph_layer_backward_plain(csr_t, x, side, bits, keep, g)
+    if x.dtype != torch.float32:
+        return graph_layer_backward_bf16(csr_t, x, side, bits, keep, g)
+    gx = _backward(csr_t, x, side, bits, keep, g, "graph_layer_backward")
     graph_layer_backward.launches += 1
     return gx
 
 
 graph_layer_backward.launches = 0
+
+
+def graph_layer_backward_bf16(csr_t: CSR, x, side, bits, keep: float, g):
+    """B8's 16-bit backward: float32 sums, ``gx`` in the table's type."""
+    _check(csr_t, x, bits, side, g, types=build.FLOAT16)
+    if x.device.type == "cpu":
+        return graph_layer_backward_plain(csr_t, x, side, bits, keep, g)
+    gx = _backward(csr_t, x, side, bits, keep, g, "graph_layer_backward_bf16")
+    graph_layer_backward_bf16.launches += 1
+    return gx
+
+
+graph_layer_backward_bf16.launches = 0
 
 
 class _GraphLayer(torch.autograd.Function):
@@ -208,6 +286,8 @@ class _GraphLayer(torch.autograd.Function):
 
 
 def graph_layer(x, csr: CSR, csr_t: CSR, bits=None, keep: float = 1.0):
-    """Differentiable graph layer: ``x`` [N, D] -> new [N, D]; ``bits`` None
-    means no dropout, else int32 [N, D] bits and the keep probability."""
+    """Differentiable graph layer: ``x`` [N, D] -> new [N, D] in ``x``'s type
+    (float32, bfloat16 or float16, the CSRs' values of the same type);
+    ``bits`` None means no dropout, else int32 [N, D] bits and the keep
+    probability."""
     return _GraphLayer.apply(x, csr, csr_t, bits, keep)

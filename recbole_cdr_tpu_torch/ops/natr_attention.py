@@ -31,6 +31,17 @@ wrappers, each counting its calls that launch:
 
 :func:`natr_full_sort` composes the last two.
 
+Under ``compute_dtype: bfloat16`` every floating operand is 16-bit (the
+source table, ``pu``, ``q``, the weights) and so is every output. The
+16-bit forms (``*_bf16``, float16 through the same templates) accumulate
+each dot and each sum over H or D in float32 and round to the operands'
+type where JAX's bf16 ``_phase2_logit`` has a named intermediate: ``h``,
+the masked attention logits (the mask's -10000 is -9984 in bf16), the
+softmax, ``su``, ``b_s`` and ``b_p``, ``beta``, ``zu`` (per element), the
+logit, and the grid's sigmoid. Their backward is the float32 chain rule on
+those rounded values (a rounding passes its gradient through unchanged),
+each gradient rounded once to the operands' type.
+
 The kernels are ``csrc/natr_attention.cu``; the plain versions below run for
 CPU tensors and serve as the kernels' reference (the plain backward is
 autograd through the plain forward).
@@ -45,6 +56,7 @@ from recbole_cdr_tpu_torch.ops import build
 #: the kernels' widths (D = source width = target width), threads per block
 #: and shared-memory budget
 WIDTHS = (32, 64, 128)
+DTYPES = build.DTYPES
 THREADS = 256
 SMEM_LIMIT = 227 * 1024
 
@@ -73,46 +85,89 @@ class History(NamedTuple):
 
 # ------------------------------------------------------------------ plain
 
-def anchor_plain(hist: History, anchors, pu, w: Weights):
-    """su [A, D] of the anchors ``anchors`` (int32 [A]) with ``pu`` [A, D]."""
-    a = anchors.long()
-    he = hist.src[hist.ids[a].long()] @ w.W + w.b                       # [A, H, D]
+def _wide(dtype):
+    """The plain versions' working type: float32 for 16-bit operands."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _rounding(dtype):
+    """A working-type tensor rounded to nearest in ``dtype`` with its
+    gradient passed through unchanged (the kernels' backward): the identity
+    unless ``dtype`` is 16-bit."""
+    if _wide(dtype) == dtype:
+        return lambda t: t
+    return lambda t: t + (t.to(dtype).to(t.dtype) - t).detach()
+
+
+def _widen(*tensors):
+    return [t.to(_wide(t.dtype)) for t in tensors]
+
+
+def _anchor(src, ids, mask, a, pu, w: Weights, r):
+    he = r(src[ids[a].long()] @ w.W + w.b)                              # [A, H, D]
     att = (torch.relu(pu[:, None, :] * he) @ w.w_ua + w.b_ua).squeeze(-1)
-    att = att + torch.where(hist.mask[a], 0.0, -10000.0)
-    att = torch.softmax(att, dim=1)
-    return torch.einsum("bh,bhd->bd", att, he)
+    att = r(att + torch.where(mask[a], 0.0, -10000.0))
+    att = r(torch.softmax(att, dim=1))
+    return r(torch.einsum("bh,bhd->bd", att, he))
+
+
+def _blend(su, pu, q, w: Weights, r):
+    b_s = r(torch.relu(su * q) @ w.w_da + w.b_da)
+    b_p = r(torch.relu(pu * q) @ w.w_da + w.b_da)
+    beta = r(torch.exp(b_s) / (torch.exp(b_s) + torch.exp(b_p)))
+    zu = r(beta * su + (1 - beta) * pu)
+    return r((zu * q).sum(-1))
+
+
+def anchor_plain(hist: History, anchors, pu, w: Weights):
+    """su [A, D] of the anchors ``anchors`` (int32 [A]) with ``pu`` [A, D],
+    in ``pu``'s type."""
+    src, pu_w, *ws = _widen(hist.src, pu, *w)
+    su = _anchor(src, hist.ids, hist.mask, anchors.long(), pu_w, Weights(*ws),
+                 _rounding(pu.dtype))
+    return su.to(pu.dtype)
 
 
 def blend_plain(su, pu, q, w: Weights):
-    """Logits of the pair stage; ``su``, ``pu`` and ``q`` broadcast
-    against each other over their leading dimensions."""
-    b_s = torch.relu(su * q) @ w.w_da + w.b_da
-    b_p = torch.relu(pu * q) @ w.w_da + w.b_da
-    beta = torch.exp(b_s) / (torch.exp(b_s) + torch.exp(b_p))
-    zu = beta * su + (1 - beta) * pu
-    return (zu * q).sum(-1)
+    """Logits of the pair stage, in ``su``'s type; ``su``, ``pu`` and ``q``
+    broadcast against each other over their leading dimensions."""
+    dtype = su.dtype
+    su, pu, q, *ws = _widen(su, pu, q, *w)
+    return _blend(su, pu, q, Weights(*ws), _rounding(dtype)).to(dtype)
+
+
+def _forward_wide(hist: History, anchors, pu, q, w: Weights, dtype):
+    """The logits in the working type, from working-type ``pu``, ``q`` and
+    weights, rounded as ``dtype`` computes."""
+    r = _rounding(dtype)
+    su = _anchor(hist.src.to(_wide(dtype)), hist.ids, hist.mask, anchors.long(), pu, w, r)
+    return _blend(su, pu, q, w, r)
 
 
 def natr_attention_forward_plain(hist: History, anchors, pu, q, w: Weights):
-    return blend_plain(anchor_plain(hist, anchors, pu, w), pu, q, w)
+    pu_w, q_w, *ws = _widen(pu, q, *w)
+    return _forward_wide(hist, anchors, pu_w, q_w, Weights(*ws), pu.dtype).to(pu.dtype)
 
 
 def natr_attention_backward_plain(hist: History, anchors, pu, q, w: Weights, g):
+    dtype = pu.dtype
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (pu, q, *w)]
-        logit = natr_attention_forward_plain(hist, anchors, leaves[0], leaves[1],
-                                             Weights(*leaves[2:]))
-        return torch.autograd.grad(logit, leaves, g)
+        leaves = [t.detach().to(_wide(dtype)).requires_grad_() for t in (pu, q, *w)]
+        logit = _forward_wide(hist, anchors, leaves[0], leaves[1], Weights(*leaves[2:]), dtype)
+        grads = torch.autograd.grad(logit, leaves, g.to(logit.dtype))
+    return tuple(x.to(dtype) for x in grads)
 
 
 def pair_grid_plain(su, pu, q, w: Weights, anchor_is_row: bool):
     """Sigmoid probabilities of every (anchor, query) pair: [A, Nq] when
-    ``anchor_is_row``, else [Nq, A]."""
+    ``anchor_is_row``, else [Nq, A], in ``su``'s type."""
+    dtype, r = su.dtype, _rounding(su.dtype)
+    su, pu, q, *ws = _widen(su, pu, q, *w)
     if anchor_is_row:
-        logit = blend_plain(su[:, None, :], pu[:, None, :], q[None, :, :], w)
+        logit = _blend(su[:, None, :], pu[:, None, :], q[None, :, :], Weights(*ws), r)
     else:
-        logit = blend_plain(su[None, :, :], pu[None, :, :], q[:, None, :], w)
-    return torch.sigmoid(logit)
+        logit = _blend(su[None, :, :], pu[None, :, :], q[:, None, :], Weights(*ws), r)
+    return r(torch.sigmoid(logit)).to(dtype)
 
 
 def natr_full_sort_plain(hist: History, anchors, pu, q, w: Weights, anchor_is_row: bool):
@@ -132,12 +187,14 @@ def smem_bytes(D: int, H: int) -> int:
     return 4 * floats + 4 * hp + hp
 
 
-def _on_card(what: str, D: int, floats, others=()) -> bool:
-    """The checks every wrapper shares: float32 ``floats``, every operand on
-    one device, a device with a version, and on the card a width the kernels
-    take. Returns whether the operands lie on the card."""
-    if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError(f"{what} takes float32 tables, embeddings and weights")
+def _on_card(what: str, D: int, floats, others=(), types=tuple(DTYPES)) -> bool:
+    """The checks every wrapper shares: ``floats`` all of one type of
+    ``types``, every operand on one device, a device with a version, and on
+    the card a width the kernels take. Returns whether the operands lie on
+    the card."""
+    if floats[0].dtype not in types or any(t.dtype != floats[0].dtype for t in floats):
+        raise TypeError(f"{what} takes tables, embeddings and weights of one type of {types}, "
+                        f"got {sorted({str(t.dtype) for t in floats})}")
     if len({t.device for t in (*floats, *others)}) != 1:
         raise ValueError(f"{what} operands must share one device")
     dev = floats[0].device.type
@@ -154,7 +211,7 @@ def _aligned(*tensors):
     return [x.clone() if x.data_ptr() % 16 else x for x in t]
 
 
-def _check(hist: History, anchors, pu, q, w: Weights, *extra):
+def _check(hist: History, anchors, pu, q, w: Weights, *extra, types=tuple(DTYPES)):
     src, ids, mask = hist
     if ids.dtype != torch.int32 or anchors.dtype != torch.int32 or mask.dtype != torch.bool:
         raise TypeError("natr_attention takes int32 history and anchor ids and a bool mask")
@@ -170,7 +227,8 @@ def _check(hist: History, anchors, pu, q, w: Weights, *extra):
     for name, t in w._asdict().items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"natr_attention: {name} {tuple(t.shape)}, want {want[name]}")
-    on_card = _on_card("natr_attention", D, (src, pu, q, *w, *extra), (ids, mask, anchors))
+    on_card = _on_card("natr_attention", D, (src, pu, q, *w, *extra), (ids, mask, anchors),
+                       types)
     if on_card and smem_bytes(D, ids.shape[1]) > SMEM_LIMIT:
         raise ValueError(f"natr_attention: {ids.shape[1]} history slots at width {D} "
                          "exceed the kernel's shared memory")
@@ -185,20 +243,28 @@ def _args(hist: History, anchors, pu, q, w: Weights):
 
 # --------------------------------------------------------------- wrappers
 
-def natr_attention_forward(hist: History, anchors, pu, q, w: Weights):
-    """float32 [P] logits of P pairs, pair p anchored at ``anchors[p]`` with
-    ``pu[p]`` and queried by ``q[p]``."""
-    if not _check(hist, anchors, pu, q, w):
-        return natr_attention_forward_plain(hist, anchors, pu, q, w)
+def _forward(hist: History, anchors, pu, q, w: Weights, name):
     if q.shape[0] != pu.shape[0]:
-        raise ValueError("natr_attention_forward: one query per pair")
+        raise ValueError(f"{name}: one query per pair")
     keep, args = _args(hist, anchors, pu, q, w)
     P, D = pu.shape
-    su = torch.empty(P, D, dtype=torch.float32, device=pu.device)
-    out = torch.empty(P, dtype=torch.float32, device=pu.device)
+    su = torch.empty(P, D, dtype=pu.dtype, device=pu.device)
+    out = torch.empty(P, dtype=pu.dtype, device=pu.device)
     err = build.library("natr_attention").natr_attention_forward(
-        *args, P, su.data_ptr(), out.data_ptr(), build.stream_handle(pu))
-    build.check(err, "natr_attention_forward")
+        *args, P, su.data_ptr(), out.data_ptr(), DTYPES[pu.dtype], build.stream_handle(pu))
+    build.check(err, name)
+    return out
+
+
+def natr_attention_forward(hist: History, anchors, pu, q, w: Weights):
+    """[P] logits of P pairs, pair p anchored at ``anchors[p]`` with
+    ``pu[p]`` and queried by ``q[p]``, in the operands' type; 16-bit
+    operands go to :func:`natr_attention_forward_bf16`."""
+    if not _check(hist, anchors, pu, q, w):
+        return natr_attention_forward_plain(hist, anchors, pu, q, w)
+    if pu.dtype != torch.float32:
+        return natr_attention_forward_bf16(hist, anchors, pu, q, w)
+    out = _forward(hist, anchors, pu, q, w, "natr_attention_forward")
     natr_attention_forward.launches += 1
     return out
 
@@ -206,15 +272,22 @@ def natr_attention_forward(hist: History, anchors, pu, q, w: Weights):
 natr_attention_forward.launches = 0
 
 
-def natr_attention_backward(hist: History, anchors, pu, q, w: Weights, g):
-    """(dpu, dq, dW, db, dw_ua, db_ua, dw_da, db_da) from the gradient ``g``
-    [P] of the logits. The weight gradients are sums over the pairs: each
-    block of the kernel writes its partial sums and a second launch adds
-    them in block order, so the result does not change from run to run."""
-    if not _check(hist, anchors, pu, q, w, g):
-        return natr_attention_backward_plain(hist, anchors, pu, q, w, g)
+def natr_attention_forward_bf16(hist: History, anchors, pu, q, w: Weights):
+    """B9's 16-bit training forward: bfloat16 (or float16) operands, float32
+    sums, logits rounded at JAX's bf16 intermediates."""
+    if not _check(hist, anchors, pu, q, w, types=build.FLOAT16):
+        return natr_attention_forward_plain(hist, anchors, pu, q, w)
+    out = _forward(hist, anchors, pu, q, w, "natr_attention_forward_bf16")
+    natr_attention_forward_bf16.launches += 1
+    return out
+
+
+natr_attention_forward_bf16.launches = 0
+
+
+def _backward(hist: History, anchors, pu, q, w: Weights, g, name):
     if q.shape[0] != pu.shape[0] or g.shape != (pu.shape[0],):
-        raise ValueError("natr_attention_backward: one query and one gradient per pair")
+        raise ValueError(f"{name}: one query and one gradient per pair")
     keep, args = _args(hist, anchors, pu, q, w)
     g = g.contiguous()
     P, D = pu.shape
@@ -222,39 +295,75 @@ def natr_attention_backward(hist: History, anchors, pu, q, w: Weights, g):
     dq = torch.empty_like(keep[5])
     n_part = D * D + 3 * D + 2
     lib = build.library("natr_attention")
-    blocks = lib.natr_attention_backward_blocks(D, hist.ids.shape[1], P)
+    blocks = lib.natr_attention_backward_blocks(D, hist.ids.shape[1], P, DTYPES[pu.dtype])
     if blocks < 0:
-        build.check(-blocks, "natr_attention_backward")
+        build.check(-blocks, name)
     partial = torch.empty(max(blocks, 1), n_part, dtype=torch.float32, device=pu.device)
-    flat = torch.empty(n_part, dtype=torch.float32, device=pu.device)
+    flat = torch.empty(n_part, dtype=pu.dtype, device=pu.device)
     err = lib.natr_attention_backward(
         *args, P, g.data_ptr(), dpu.data_ptr(), dq.data_ptr(), partial.data_ptr(), blocks,
-        flat.data_ptr(), build.stream_handle(pu))
-    build.check(err, "natr_attention_backward")
-    natr_attention_backward.launches += 1
+        flat.data_ptr(), DTYPES[pu.dtype], build.stream_handle(pu))
+    build.check(err, name)
     dW, db, dw_ua, db_ua, dw_da, db_da = torch.split(flat, [D * D, D, D, 1, D, 1])
     return (dpu, dq, dW.reshape(D, D), db, dw_ua.reshape(D, 1), db_ua,
             dw_da.reshape(D, 1), db_da)
 
 
+def natr_attention_backward(hist: History, anchors, pu, q, w: Weights, g):
+    """(dpu, dq, dW, db, dw_ua, db_ua, dw_da, db_da) from the gradient ``g``
+    [P] of the logits, in the operands' type. The weight gradients are sums
+    over the pairs: each block of the kernel writes its partial sums and a
+    second launch adds them in block order, so the result does not change
+    from run to run. 16-bit operands go to
+    :func:`natr_attention_backward_bf16`."""
+    if not _check(hist, anchors, pu, q, w, g):
+        return natr_attention_backward_plain(hist, anchors, pu, q, w, g)
+    if pu.dtype != torch.float32:
+        return natr_attention_backward_bf16(hist, anchors, pu, q, w, g)
+    out = _backward(hist, anchors, pu, q, w, g, "natr_attention_backward")
+    natr_attention_backward.launches += 1
+    return out
+
+
 natr_attention_backward.launches = 0
+
+
+def natr_attention_backward_bf16(hist: History, anchors, pu, q, w: Weights, g):
+    """B9's 16-bit backward: the float32 chain rule on the forward's rounded
+    values, float32 partial sums, each gradient rounded once."""
+    if not _check(hist, anchors, pu, q, w, g, types=build.FLOAT16):
+        return natr_attention_backward_plain(hist, anchors, pu, q, w, g)
+    out = _backward(hist, anchors, pu, q, w, g, "natr_attention_backward_bf16")
+    natr_attention_backward_bf16.launches += 1
+    return out
+
+
+natr_attention_backward_bf16.launches = 0
+
+
+def _anchor_table(hist: History, anchors, pu, w: Weights, name):
+    keep, args = _args(hist, anchors, pu, pu, w)
+    A, D = pu.shape
+    su = torch.empty(A, D, dtype=pu.dtype, device=pu.device)
+    src, ids, mask, anchors_, pu_, _, W, b, w_ua, b_ua, _, _ = args[:12]
+    err = build.library("natr_attention").natr_anchor_table(
+        src, ids, mask, anchors_, pu_, W, b, w_ua, b_ua, hist.ids.shape[1], D, A,
+        su.data_ptr(), DTYPES[pu.dtype], build.stream_handle(pu))
+    build.check(err, name)
+    return su
 
 
 def natr_anchor_table(hist: History, anchors, pu, w: Weights):
     """su [A, D] of the anchors ``anchors`` (int32 [A]) with ``pu`` [A, D]:
     the anchor stage of every anchor in one launch over all SMs. A full-sort
     pass builds it once for every anchor row of the domain and gathers each
-    tile's rows from it (``NATR.predict_grid``)."""
+    tile's rows from it (``NATR.predict_grid``). 16-bit operands go to
+    :func:`natr_anchor_table_bf16`."""
     if not _check(hist, anchors, pu, pu, w):
         return anchor_plain(hist, anchors, pu, w)
-    keep, args = _args(hist, anchors, pu, pu, w)
-    A, D = pu.shape
-    su = torch.empty(A, D, dtype=torch.float32, device=pu.device)
-    src, ids, mask, anchors_, pu_, _, W, b, w_ua, b_ua, _, _ = args[:12]
-    err = build.library("natr_attention").natr_anchor_table(
-        src, ids, mask, anchors_, pu_, W, b, w_ua, b_ua, hist.ids.shape[1], D, A,
-        su.data_ptr(), build.stream_handle(pu))
-    build.check(err, "natr_anchor_table")
+    if pu.dtype != torch.float32:
+        return natr_anchor_table_bf16(hist, anchors, pu, w)
+    su = _anchor_table(hist, anchors, pu, w, "natr_anchor_table")
     natr_anchor_table.launches += 1
     return su
 
@@ -262,25 +371,48 @@ def natr_anchor_table(hist: History, anchors, pu, w: Weights):
 natr_anchor_table.launches = 0
 
 
-def natr_pair_grid(su, pu, q, w: Weights, anchor_is_row: bool):
-    """float32 sigmoid probabilities of a grid, from the anchors' ``su`` and
-    ``pu`` [A, D] and the queries ``q`` [Nq, D]: [A, Nq] with anchor ``a``
-    on row a and query ``c`` on column c when ``anchor_is_row``, else [Nq, A]
-    with the anchors on the columns."""
+def natr_anchor_table_bf16(hist: History, anchors, pu, w: Weights):
+    """B9's 16-bit anchor table: ``su`` in the operands' type."""
+    if not _check(hist, anchors, pu, pu, w, types=build.FLOAT16):
+        return anchor_plain(hist, anchors, pu, w)
+    su = _anchor_table(hist, anchors, pu, w, "natr_anchor_table_bf16")
+    natr_anchor_table_bf16.launches += 1
+    return su
+
+
+natr_anchor_table_bf16.launches = 0
+
+
+def _check_grid(su, pu, q, w: Weights, types):
     D = q.shape[1] if q.dim() == 2 else -1
     if su.dim() != 2 or su.shape != pu.shape or q.dim() != 2 or su.shape[1] != D:
         raise ValueError(f"natr_pair_grid: su {tuple(su.shape)}, pu {tuple(pu.shape)}, "
                          f"q {tuple(q.shape)}")
-    if not _on_card("natr_pair_grid", D, (su, pu, q, *w)):
-        return pair_grid_plain(su, pu, q, w, anchor_is_row)
+    return _on_card("natr_pair_grid", D, (su, pu, q, *w), types=types)
+
+
+def _pair_grid(su, pu, q, w: Weights, anchor_is_row: bool, name):
     keep = _aligned(su, pu, q, w.w_da, w.b_da)
-    A, Nq = su.shape[0], q.shape[0]
-    out = torch.empty((A, Nq) if anchor_is_row else (Nq, A), dtype=torch.float32,
-                      device=su.device)
+    A, Nq, D = su.shape[0], q.shape[0], q.shape[1]
+    out = torch.empty((A, Nq) if anchor_is_row else (Nq, A), dtype=su.dtype, device=su.device)
     err = build.library("natr_attention").natr_pair_grid(
         *(x.data_ptr() for x in keep), A, Nq, D, int(anchor_is_row), out.data_ptr(),
-        build.stream_handle(su))
-    build.check(err, "natr_pair_grid")
+        DTYPES[su.dtype], build.stream_handle(su))
+    build.check(err, name)
+    return out
+
+
+def natr_pair_grid(su, pu, q, w: Weights, anchor_is_row: bool):
+    """Sigmoid probabilities of a grid in the operands' type, from the
+    anchors' ``su`` and ``pu`` [A, D] and the queries ``q`` [Nq, D]: [A, Nq]
+    with anchor ``a`` on row a and query ``c`` on column c when
+    ``anchor_is_row``, else [Nq, A] with the anchors on the columns. 16-bit
+    operands go to :func:`natr_pair_grid_bf16`."""
+    if not _check_grid(su, pu, q, w, tuple(DTYPES)):
+        return pair_grid_plain(su, pu, q, w, anchor_is_row)
+    if su.dtype != torch.float32:
+        return natr_pair_grid_bf16(su, pu, q, w, anchor_is_row)
+    out = _pair_grid(su, pu, q, w, anchor_is_row, "natr_pair_grid")
     natr_pair_grid.launches += 1
     return out
 
@@ -288,8 +420,21 @@ def natr_pair_grid(su, pu, q, w: Weights, anchor_is_row: bool):
 natr_pair_grid.launches = 0
 
 
+def natr_pair_grid_bf16(su, pu, q, w: Weights, anchor_is_row: bool):
+    """B9's 16-bit pair grid: gates, then the blend with ``zu`` rounded per
+    element, the logit and its sigmoid rounded to the operands' type."""
+    if not _check_grid(su, pu, q, w, build.FLOAT16):
+        return pair_grid_plain(su, pu, q, w, anchor_is_row)
+    out = _pair_grid(su, pu, q, w, anchor_is_row, "natr_pair_grid_bf16")
+    natr_pair_grid_bf16.launches += 1
+    return out
+
+
+natr_pair_grid_bf16.launches = 0
+
+
 def natr_full_sort(hist: History, anchors, pu, q, w: Weights, anchor_is_row: bool):
-    """float32 sigmoid probabilities of a grid: [A, Nq] with anchor ``a`` on
+    """Sigmoid probabilities of a grid in the operands' type: [A, Nq] with anchor ``a`` on
     row a and query ``c`` on column c when ``anchor_is_row``, else [Nq, A]
     with the anchors on the columns. The anchor table of ``anchors``, then
     the pair grid: two launches, each counted by its own wrapper."""

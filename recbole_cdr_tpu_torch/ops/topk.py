@@ -112,7 +112,7 @@ def streaming_topk_plain(user_e, item_table, row_ptr, items, k: int,
 
 #: the factors' types of the kernels: float32 (B5), and bfloat16 (B13) or
 #: float16 through B13's template; the C interface's type code
-DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPES = build.DTYPES
 
 
 def _check(user_e, item_table, row_ptr, items, k: int, total_items=None):

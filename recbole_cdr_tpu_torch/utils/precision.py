@@ -84,5 +84,5 @@ def require_float32_compute(config, what: str) -> None:
     if resolve_compute_dtype(config) != torch.float32:
         raise NotImplementedError(
             f"{what} under compute_dtype {config['compute_dtype']!r} is not ported yet "
-            "(ROADMAP.md A10 remainder: bf16 forms of B8, B9, B11, B15, B16)"
+            "(ROADMAP.md A10 remainder: bf16 forms of B15, B16)"
         )

@@ -41,7 +41,12 @@ pairs and the overlapped count's boundary; B15, CoNet's tower, at the
 published tower, widths padded to a multiple of 4, a one-layer tower and
 the largest (weights staged layer by layer), a saturating call; both
 refusing what the kernels do not take; and CLFM, DeepAPF and CoNet through
-the entry point.
+the entry point. The 16-bit forms of B8 (light and heavy rows, D 32 / 64 /
+128, dropout on and off), B9 (training forward and backward, anchor table
+and pair grid, both overlap modes, D 32 / 64 / 128) and B11 against their
+plain versions in bfloat16 and float16, two runs bit-equal where no atomics
+add; and BiTGCF, NATR and DTCDR's DMF under bf16 compute through the entry
+point.
 
 Marked ``cuda``; without a card every test skips. On the card (where jax is
 not installed, so the repository's conftest cannot load):
@@ -1152,3 +1157,217 @@ def test_both_phase_models_on_the_card(gen, tmp_path, monkeypatch, model):
     assert all(counts[k] > 0 for k in path), counts
     assert all(counts[k] == 0 for k in counts if k not in path), counts
     assert counts.get("deepapf_forward", 0) == counts.get("deepapf_backward", 0)
+
+
+# ---- the 16-bit forms of B8, B9 and B11 (compute_dtype: bfloat16) ----------
+
+#: one 16-bit step of a value v is at most 2^-7 |v| in bf16 (2^-10 |v| in
+#: float16); the kernels and the plain versions sum in float32 in other
+#: orders, so a rounded value may land one step apart, and a value computed
+#: from a rounded one carries that step on
+STEP = 2 ** -7
+
+
+def _to(csr, dtype):
+    return csr._replace(val=csr.val.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("N,nnz,D,drop", [(53_002, 1_000_000, 64, 0.3), (3000, 40_000, 32, 0.0),
+                                          (3000, 40_000, 128, 0.3), (500, 4000, 64, 0.0),
+                                          (500, 4000, 37, 0.3)])
+def test_graph_layer_bf16_matches_plain(gen, N, nnz, D, drop, dtype):
+    """B8's 16-bit form against its plain version on the same 16-bit inputs
+    (light rows and rows of several pieces, D 32 / 64 / 128 and one without
+    vector loads, dropout on and off): side within one step of the plain
+    version's plus 2^-16 of its terms' magnitudes (float32 sums in another
+    order), new within two steps of the magnitudes it adds, gx within one
+    step of its own plus 2^-16 of its product's terms; two runs bit-equal
+    (no atomics); the wrappers count the 16-bit launches only."""
+    csr, csr_t = (_to(m, dtype) for m in _random_csr(N, nnz, gen))
+    x = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
+    bits = _ints(-2 ** 31, 2 ** 31, (N, D), gen) if drop else None
+    keep = 1.0 - drop
+    ops.reset_launch_counts()
+    new, side = b8.graph_layer_forward(csr, x, bits, keep)
+    gx = b8.graph_layer_backward(csr_t, x, side, bits, keep, g)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["graph_layer_forward_bf16"] == counts["graph_layer_backward_bf16"] == 1
+    assert counts["graph_layer_forward"] == counts["graph_layer_backward"] == 0
+    assert new.dtype == side.dtype == gx.dtype == dtype
+    p_new, p_side = (t.float() for t in b8.graph_layer_forward_plain(csr, x, bits, keep))
+    absum = b8._spmm_plain(csr._replace(val=csr.val.abs()), x.abs()).float()
+    xa = x.float().abs()
+    assert bool(((side.float() - p_side).abs() <= STEP * p_side.abs() + 2 ** -16 * absum).all())
+    scale = (p_new.abs() + (p_side.abs() + 2 ** -16 * absum) * (1 + xa)) / keep
+    assert bool(((new.float() - p_new).abs() <= 2 * STEP * scale + 1e-6).all()), "new"
+    p_gx = b8.graph_layer_backward_plain(csr_t, x, side, bits, keep, g).float()
+    gp = b8._dropped_grad(g.float(), bits, keep)
+    absum_t = b8._spmm_plain(csr_t._replace(val=csr_t.val.abs()),
+                             (gp + gp * x.float()).abs()).float()
+    assert bool(((gx.float() - p_gx).abs() <= STEP * p_gx.abs() + 2 ** -16 * absum_t
+                 + 1e-6).all()), "gx"
+    new2, side2 = b8.graph_layer_forward(csr, x, bits, keep)
+    assert torch.equal(new, new2) and torch.equal(side, side2)
+    assert torch.equal(gx, b8.graph_layer_backward(csr_t, x, side, bits, keep, g))
+
+
+def test_graph_layer_bf16_refuses_mixed_types(gen):
+    """A 16-bit table with float32 CSR values (or the other way round) is
+    refused: the kernel reads both in one type."""
+    csr, _ = _random_csr(500, 4000, gen)
+    x = torch.randn(500, 64, device="cuda", generator=gen)
+    with pytest.raises(TypeError):
+        b8.graph_layer_forward(csr, x.bfloat16())
+    with pytest.raises(TypeError):
+        b8.graph_layer_forward(_to(csr, torch.bfloat16), x)
+
+
+def _natr16(hist, anchors, w, dtype, *dense):
+    return (b9.History(hist.src.to(dtype), hist.ids, hist.mask), anchors,
+            b9.Weights(*(t.to(dtype) for t in w)), *(t.to(dtype) for t in dense))
+
+
+def _natr16_close(got, want, what):
+    """Within 1e-5 (the float32 form's absolute term: ``db_ua`` is 0 in exact
+    arithmetic, a sum of rounding noise over every pair and slot) plus four
+    16-bit steps of the tensor's largest value: each side rounds h, the
+    scores, the softmax, su, the gates, beta, zu and the logit from float32
+    sums taken in other orders (cuBLAS for the plain version's transfer), so
+    a rounded intermediate may land a step apart."""
+    assert got.dtype == want.dtype, what
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 1e-5 + 4 * STEP * float(want.float().abs().max()), f"{what}: error {err}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D,H,A", [(64, 50, 8192), (32, 70, 1000), (128, 100, 500), (64, 1, 300)])
+def test_natr_attention_bf16_matches_plain(gen, D, H, A, dtype):
+    """B9's 16-bit training forward and backward against their plain
+    versions on the same 16-bit inputs (empty, one-slot and full
+    histories), within ``_natr16_close``; two runs bit-equal; the 16-bit
+    wrappers count, the float32 ones do not."""
+    hist, anchors, w = _natr_inputs(gen, D, H, 5000, 3000, A)
+    pu = 0.3 * torch.randn(A, D, device="cuda", generator=gen)
+    q = 0.3 * torch.randn(A, D, device="cuda", generator=gen)
+    g = torch.randn(A, device="cuda", generator=gen)
+    hist, anchors, w, pu, q, g = _natr16(hist, anchors, w, dtype, pu, q, g)
+    ops.reset_launch_counts()
+    got = b9.natr_attention_forward(hist, anchors, pu, q, w)
+    grads = b9.natr_attention_backward(hist, anchors, pu, q, w, g)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["natr_attention_forward_bf16"] == counts["natr_attention_backward_bf16"] == 1
+    assert counts["natr_attention_forward"] == counts["natr_attention_backward"] == 0
+    _natr16_close(got, b9.natr_attention_forward_plain(hist, anchors, pu, q, w), "forward")
+    assert torch.equal(got, b9.natr_attention_forward(hist, anchors, pu, q, w))
+    plain = b9.natr_attention_backward_plain(hist, anchors, pu, q, w, g)
+    names = ("dpu", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da")
+    for name, x, y in zip(names, grads, plain):
+        assert x.shape == y.shape and x.dtype == dtype, name
+        if name == "db_da":  # 0 in exact arithmetic: beta depends on b_s - b_p
+            assert float(x.float().abs().max()) <= 1e-5
+        else:
+            _natr16_close(x, y, name)
+    again = b9.natr_attention_backward(hist, anchors, pu, q, w, g)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("anchor_is_row", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_natr_pair_grid_bf16_matches_plain(gen, D, anchor_is_row, dtype):
+    """B9's 16-bit anchor table (every anchor row at once) and pair grid of
+    a [33 users x 1,001 items] tile, both overlap modes, against the plain
+    versions within ``_natr16_close``, 16-bit outputs, bit-equal reruns."""
+    H, n_users, n_items = 50, 33, 1001
+    n_anchor = n_users if anchor_is_row else n_items
+    hist, _, w = _natr_inputs(gen, D, H, 5000, 9000, 4)
+    table_pu = 0.3 * torch.randn(9000, D, device="cuda", generator=gen)
+    q = 0.3 * torch.randn(n_items if anchor_is_row else n_users, D, device="cuda", generator=gen)
+    every = torch.arange(9000, dtype=torch.int32, device="cuda")
+    hist, every, w, table_pu, q = _natr16(hist, every, w, dtype, table_pu, q)
+    ops.reset_launch_counts()
+    table = b9.natr_anchor_table(hist, every, table_pu, w)
+    torch.cuda.synchronize()
+    assert table.dtype == dtype
+    _natr16_close(table, b9.anchor_plain(hist, every, table_pu, w), "anchor table")
+    assert torch.equal(table, b9.natr_anchor_table(hist, every, table_pu, w))
+    anchors = _ints(0, 9000, (n_anchor,), gen)
+    anchors[:2] = torch.tensor([0, 1], dtype=torch.int32)  # empty histories
+    pu, su = table_pu[anchors.long()], table[anchors.long()]
+    got = b9.natr_pair_grid(su, pu, q, w, anchor_is_row)
+    torch.cuda.synchronize()
+    assert got.shape == (n_users, n_items) and got.dtype == dtype
+    _natr16_close(got, b9.pair_grid_plain(su, pu, q, w, anchor_is_row), "pair grid")
+    assert torch.equal(got, b9.natr_pair_grid(su, pu, q, w, anchor_is_row))
+    counts = ops.launch_counts()
+    assert counts["natr_anchor_table_bf16"] == 2 and counts["natr_pair_grid_bf16"] == 2
+    assert counts["natr_anchor_table"] == counts["natr_pair_grid"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("R,N,D,B", [(3000, 27_800, 64, 16_384), (500, 1000, 32, 777),
+                                     (40, 300, 128, 100), (40, 300, 130, 100)])
+def test_rating_vector_bf16_matches_plain(gen, R, N, D, B, dtype):
+    """B11's 16-bit form: 16-bit rows summed in float32 (float32 out, within
+    B11_TOL of the plain version), the backward's float32 sums rounded once
+    to the table's type (within one step of the plain version's plus
+    2^-17 of the terms' magnitudes), twice, and through autograd."""
+    lens = torch.randint(0, 200, (R,), generator=torch.Generator().manual_seed(R))
+    lens[0], lens[1] = 0, min(5000, N - 1)
+    rows = [torch.randperm(N - 1, generator=torch.Generator().manual_seed(r))[:int(c)] + 1
+            for r, c in enumerate(lens)]
+    ptr, cols = b11.history_csr(torch.repeat_interleave(torch.arange(R), lens).numpy(),
+                                torch.cat(rows).numpy(), R)
+    csr = b11.HistoryCSR(torch.from_numpy(ptr).cuda(), torch.from_numpy(cols).cuda())
+    ids = _ints(0, min(R, 50), (B,), gen)
+    ids[:64], ids[64] = 1, 0
+    table = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(B, D, device="cuda", generator=gen)
+    ops.reset_launch_counts()
+    got = b11.rating_vector_forward(csr, table, ids)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    _b11_close(got, b11.rating_vector_plain(csr, table, ids),
+               b11.rating_vector_plain(csr, table.abs(), ids), "forward")
+    assert bool((got[64] == 0).all()) and torch.equal(got[0], got[63])
+    want = b11.rating_vector_backward_plain(csr, N, ids, g, dtype)
+    absum = b11.rating_vector_backward_plain(csr, N, ids, g.abs())
+    for what in ("backward", "backward, second run"):
+        dt = b11.rating_vector_backward(csr, N, ids, g, dtype)
+        torch.cuda.synchronize()
+        assert dt.dtype == dtype
+        diff = (dt.float() - want.float()).abs()
+        assert bool((diff <= 1e-6 + 2 ** -17 * absum + STEP * want.float().abs()).all()), what
+    t = table.clone().requires_grad_()
+    b11.rating_vector(csr, t, ids).backward(g)
+    assert t.grad.dtype == dtype
+    counts = ops.launch_counts()
+    assert counts["rating_vector_forward_bf16"] == 2 and counts["rating_vector_backward_bf16"] == 3
+    assert counts["rating_vector_forward"] == counts["rating_vector_backward"] == 0
+
+
+@pytest.mark.parametrize("model,extra,path", [
+    ("BiTGCF", {}, ("graph_layer_forward_bf16", "graph_layer_backward_bf16",
+                    "gather_dot_forward_bf16", "gather_dot_backward_bf16", "masked_topk")),
+    ("NATR", {"train_epochs": ["SOURCE:1", "TARGET:1"]},
+     ("gather_dot_forward_bf16", "gather_dot_backward_bf16", "natr_attention_forward_bf16",
+      "natr_attention_backward_bf16", "natr_anchor_table_bf16", "natr_pair_grid_bf16",
+      "masked_topk")),
+    ("DTCDR", {"base_model": "DMF"}, ("rating_vector_forward_bf16",
+                                      "rating_vector_backward_bf16", "masked_topk")),
+])
+def test_bf16_models_on_the_card(gen, tmp_path, monkeypatch, model, extra, path):
+    """BiTGCF, NATR (SOURCE then TARGET) and DTCDR's DMF under compute_dtype
+    bfloat16 through the entry point: the 16-bit forms launch, the float32
+    B8, B9 and B11 never."""
+    counts = _run_on_the_card(tmp_path, monkeypatch, model=model, compute_dtype="bfloat16",
+                              **extra)
+    assert all(counts[k] > 0 for k in path), counts
+    float32 = ("graph_layer_forward", "graph_layer_backward", "natr_attention_forward",
+               "natr_attention_backward", "natr_anchor_table", "natr_pair_grid",
+               "rating_vector_forward", "rating_vector_backward")
+    assert all(counts[k] == 0 for k in float32), counts

@@ -83,8 +83,9 @@ def build_pair(name, jax_cls, torch_cls, extra=None, params_fn=None):
     ttrain, _, ttest = data_preparation(tconfig, tdataset)
     tmodel = torch_cls(tconfig, tdataset)
     tmodel.load_state_dict(params_from_jax(params))
-    return dict(jconfig=jconfig, jmodel=jmodel, params=params, jtrain=jtrain, jtest=jtest,
-                tconfig=tconfig, tmodel=tmodel, ttrain=ttrain, ttest=ttest)
+    return dict(jconfig=jconfig, jdataset=jdataset, jmodel=jmodel, params=params,
+                jtrain=jtrain, jtest=jtest, tconfig=tconfig, tmodel=tmodel, ttrain=ttrain,
+                ttest=ttest)
 
 
 def phase_batch(train_data, phase):

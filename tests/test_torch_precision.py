@@ -25,8 +25,18 @@ package, on the CPU (K1's plain version on bf16 tables).
 - The master parameters and the optimizer state stay float32; bf16 quality
   within 0.04 of float32 for CMF over 3 epochs; bf16 on the host batch path
   (the analogues of ``tests/test_precision.py``).
-- BiTGCF, NATR, DTCDR's DMF, CoNet and DeepAPF raise under bf16, naming
-  their ROADMAP item.
+- BiTGCF (BOTH, no dropout), NATR (TARGET; its frozen source tables get
+  no gradient) and DTCDR's DMF (BOTH) take the same loss and gradient checks
+  through the plain versions of B8's, B9's and B11's 16-bit forms; the
+  observed ratio ``|g - g_f32| / |g_jax - g_f32|`` of their matrix
+  gradients is 0.90-0.92 (BiTGCF's tables), 0.96-1.40 (NATR's tables and
+  weights) and 1.00-1.09 (DMF's tables and tower weights), 0.000 for each
+  with the port in float32. Their 16-bit evaluation against JAX's, each
+  tolerance in units of u: BiTGCF's propagated tables and full-sort
+  scores, NATR's predict-fallback probabilities and top-10 ids, DMF's tower
+  tables and ``predict``; and one short schedule of each through the entry
+  point.
+- CoNet and DeepAPF raise under bf16, naming their ROADMAP item.
 """
 
 import math
@@ -37,17 +47,22 @@ import numpy as np
 import pytest
 import torch
 
+from recbole_cdr_tpu.config import CDRConfig as JaxConfig
+from recbole_cdr_tpu.models.bitgcf import BiTGCF as JaxBiTGCF
 from recbole_cdr_tpu.models.cmf import CMF as JaxCMF
 from recbole_cdr_tpu.models.dtcdr import DTCDR as JaxDTCDR
 from recbole_cdr_tpu.models.emcdr import EMCDR as JaxEMCDR
+from recbole_cdr_tpu.models.natr import NATR as JaxNATR
 from recbole_cdr_tpu.utils.precision import with_compute_dtype as jax_with_compute_dtype
 
 from recbole_cdr_tpu_torch import run_recbole_cdr
 from recbole_cdr_tpu_torch.config import CDRConfig
 from recbole_cdr_tpu_torch.data.dataset import CrossDomainDataset
+from recbole_cdr_tpu_torch.models.bitgcf import BiTGCF
 from recbole_cdr_tpu_torch.models.cmf import CMF
 from recbole_cdr_tpu_torch.models.dtcdr import DTCDR
 from recbole_cdr_tpu_torch.models.emcdr import EMCDR
+from recbole_cdr_tpu_torch.models.natr import NATR
 from recbole_cdr_tpu_torch.utils import get_model
 from recbole_cdr_tpu_torch.utils.precision import (
     cast_floats,
@@ -71,6 +86,9 @@ _MODELS = {
     "EMCDR-BPR": (JaxEMCDR, EMCDR, {"loss_type": "BPR", "latent_factor_model": "BPR"},
                   "TARGET"),
     "DTCDR-NeuMF": (JaxDTCDR, DTCDR, {"base_model": "NeuMF", "dropout_prob": 0.0}, "BOTH"),
+    "DTCDR-DMF": (JaxDTCDR, DTCDR, {"base_model": "DMF"}, "BOTH"),
+    "BiTGCF": (JaxBiTGCF, BiTGCF, {"drop_rate": 0.0}, "BOTH"),
+    "NATR": (JaxNATR, NATR, {}, "TARGET"),
 }
 
 
@@ -120,11 +138,17 @@ def _loss_and_grads(name, dtype):
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
 
-    def jax_grads(dtype):
+    def jax_grads(dtype, jmodel=jmodel):
         loss_fn = jax_with_compute_dtype(jmodel.loss_fn(phase), dtype)
         return jax.jit(jax.value_and_grad(lambda p: loss_fn(p, jbatch, None)))(jparams)
 
-    jloss, jgrads = jax_grads(jnp.bfloat16)
+    jmodel16 = jmodel
+    if jax_cls is JaxBiTGCF:  # its adjacency and degrees take the compute type at construction
+        cfg = {"state": "ERROR", "train_batch_size": 512, "device": "cpu", **extra,
+               "compute_dtype": "bfloat16"}
+        jmodel16 = jax_cls(JaxConfig(model=name, config_dict=cfg, _cli_args=[]), m["jdataset"])
+        jmodel16.set_phase(phase)
+    jloss, jgrads = jax_grads(jnp.bfloat16, jmodel16)
     _, grads32 = jax_grads(jnp.float32)
     tmodel.zero_grad(set_to_none=True)
     tloss = with_compute_dtype(tmodel.loss_fn(phase), dtype, tmodel)(_tbatch(batch))
@@ -136,7 +160,11 @@ def _check_bf16(tloss, tmodel, jloss, jgrads, grads32):
     assert tloss.dtype == torch.float32
     assert abs(float(tloss.detach()) - float(jloss)) <= LOSS_TOL * abs(float(jloss))
     checked = 0
+    trained = tmodel.trainable_predicate(tmodel.phase)
     for pname, p in tmodel.named_parameters():
+        if not trained(pname.split(".")[0]):  # frozen in the phase (NATR's source tables)
+            assert p.grad is None, pname
+            continue
         want = jax_leaf(jgrads, pname).astype(np.float32)
         exact = jax_leaf(grads32, pname)
         assert p.dtype == torch.float32
@@ -217,15 +245,177 @@ def test_bf16_host_path():
     assert all(math.isfinite(h["loss"]) for h in result["history"])
 
 
+#: the models still without a 16-bit form of their kernel; the three that
+#: gained one (BiTGCF, NATR, DTCDR's DMF) left with the raise they tested,
+#: and the two that stay keep their ids
 @pytest.mark.parametrize("model,extra,kernel", [
-    ("BiTGCF", {}, "B8"),
-    ("NATR", {}, "B9"),
-    ("DTCDR", {"base_model": "DMF"}, "B11"),
-    ("CoNet", {}, "B15"),
-    ("DeepAPF", {}, "B16"),
+    pytest.param("CoNet", {}, "B15", id="CoNet-extra3-B15"),
+    pytest.param("DeepAPF", {}, "B16", id="DeepAPF-extra4-B16"),
 ])
 def test_models_without_a_bf16_kernel_raise(model, extra, kernel):
     config = CDRConfig(model=model, config_dict={**_QUICK, "compute_dtype": "bfloat16",
                                                  **extra}, _cli_args=[])
     with pytest.raises(NotImplementedError, match=f"{kernel}.*A10 remainder"):
         get_model(model)(config, CrossDomainDataset(config))
+
+
+# ------------------------------------------------- 16-bit evaluation vs JAX
+
+def _eval_models(name, extra=None, params_fn=None):
+    """The JAX and the port's model in evaluation on the same weights, the
+    JAX one built under ``compute_dtype: bfloat16`` (BiTGCF's adjacency
+    takes it at construction)."""
+    jax_cls, torch_cls, base, _ = _MODELS[name]
+    m = build_pair(name.split("-")[0], jax_cls, torch_cls,
+                   {**base, **(extra or {}), "compute_dtype": "bfloat16"}, params_fn)
+    m["tmodel"].eval()
+    m["jparams"] = jax.tree_util.tree_map(jnp.asarray, m["params"])
+    return m
+
+
+def test_bf16_bitgcf_eval_matches_jax():
+    """BiTGCF's propagated target tables and its full-sort scores under bf16
+    against JAX's (``_eval_embeddings`` and ``full_sort_fn``, which cast
+    inside the cached propagation): both 16-bit. Both sides round each
+    layer's 16-bit values at other points (XLA fuses the transfer layer's
+    elementwise chain, torch rounds per operation; B8's plain version sums a
+    row in float32 and rounds once), so a propagated value differs by at most
+    ``2u`` (seen 1.5u; the normalised layers' values are below 1), and a
+    score by at most ``2u`` times the sum of its products' magnitudes (seen
+    1.13 of ``u`` times it)."""
+    m = _eval_models("BiTGCF")
+    jmodel, tmodel = m["jmodel"], m["tmodel"]
+    jmodel.set_phase("TARGET")
+    tmodel.set_phase("TARGET")
+    want = [np.asarray(t.astype(jnp.float32)) for t in jmodel._eval_embeddings(m["jparams"])]
+    with torch.no_grad():
+        got = with_compute_dtype(lambda: tmodel._eval_embeddings(), torch.bfloat16, tmodel)()
+    for w, g in zip(want, got):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert np.abs(g.float().numpy() - w).max() <= 2 * U_BF16
+    users = np.arange(1, 65)
+    js = np.asarray(jmodel.full_sort_fn("TARGET")(m["jparams"], jnp.asarray(users))
+                    .astype(jnp.float32))
+    with torch.no_grad():
+        ts = with_compute_dtype(tmodel.full_sort_fn("TARGET"), torch.bfloat16,
+                                tmodel)(torch.from_numpy(users))
+    assert ts.dtype == torch.bfloat16 and ts.shape == js.shape
+    chain = np.abs(want[0][users]) @ np.abs(want[1][:js.shape[1]]).T
+    assert np.all(np.abs(ts.float().numpy() - js) <= 2 * U_BF16 * chain)
+
+
+def _scaled_tables(jmodel, params):
+    """The initial weights with NATR's four tables scaled by 4, so that the
+    grid's probabilities spread over about (0.19, 0.82) rather than lying
+    within a few bf16 steps of 0.5, where whole rows tie."""
+    return {k: v * 4 if k.endswith("_embedding") else v for k, v in params.items()}
+
+
+def test_bf16_natr_grid_and_ids_match_jax():
+    """NATR's predict fallback under bf16 (B9's 16-bit anchor table and pair
+    grid, plain on the CPU) against JAX's ``make_predict_full_sort`` under
+    bf16: 16-bit probabilities within ``2u`` of JAX's (two bf16 steps of a
+    probability; seen 2u at most, a third of them apart by one step: the
+    two sides round the attention's intermediates at other points). The
+    top-10 ids through K4's plain version, with the PAD column masked as the
+    evaluator does: K4 breaks ties as ``lax.top_k`` does (lower index first),
+    exactly, on the port's own probabilities; against JAX's ids, equal
+    wherever JAX's neighbouring top scores differ by more than ``4u`` (twice
+    the tolerance), and at every rank the two lists' items score within
+    ``4u`` of each other under JAX's probabilities."""
+    from recbole_cdr_tpu.trainer.trainer import make_predict_full_sort as jax_predict_full_sort
+
+    from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk_plain
+    from recbole_cdr_tpu_torch.trainer.trainer import make_predict_full_sort
+
+    m = _eval_models("NATR", params_fn=_scaled_tables)
+    jmodel, tmodel = m["jmodel"], m["tmodel"]
+    jmodel.set_phase("TARGET")
+    tmodel.set_phase("TARGET")
+    item_num, users, k = m["ttest"].item_num, np.arange(1, 65), 10
+    want = jax_predict_full_sort(jmodel, "TARGET", item_num, compute_dtype=jnp.bfloat16)(
+        m["jparams"], jnp.asarray(users))
+    assert want.dtype == jnp.bfloat16
+    want = np.array(want.astype(jnp.float32))
+    with torch.no_grad():
+        got = make_predict_full_sort(tmodel, item_num, torch.bfloat16)(torch.from_numpy(users))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    got = got.float()
+    assert np.abs(got.numpy() - want).max() <= 2 * U_BF16
+    lowest = float(np.finfo(np.float32).min)
+    want[:, 0] = lowest
+    masked = got.clone()
+    masked[:, 0] = lowest
+    no_history = (torch.zeros(len(users) + 1, dtype=torch.int32), torch.zeros(0, dtype=torch.int32))
+    ids = masked_topk_plain(got, *no_history, k).numpy()
+    np.testing.assert_array_equal(ids, np.asarray(jax.lax.top_k(jnp.asarray(masked.numpy()), k)[1]))
+    jids = np.asarray(jax.lax.top_k(jnp.asarray(want), k)[1])
+    top = np.take_along_axis(want, jids, 1)
+    after = -np.sort(-want, 1)[:, k]
+    apart = np.abs(np.diff(np.concatenate([top, after[:, None]], 1), axis=1)) > 4 * U_BF16
+    clear = apart.copy()
+    clear[:, 1:] &= apart[:, :-1]
+    assert clear.any()
+    np.testing.assert_array_equal(ids[clear], jids[clear])
+    assert np.all(np.abs(np.take_along_axis(want, ids, 1) - top) <= 4 * U_BF16)
+
+
+def test_bf16_dmf_predict_and_towers_match_jax():
+    """DTCDR's DMF under bf16: the rating-vector products sum 16-bit table
+    rows in float32 (B11's 16-bit form) and the towers run float32 on the
+    upcast weights, as JAX promotes ``float32 @ bf16``, so the tower tables
+    and ``predict`` are float32 and agree with JAX's to float32 rounding:
+    within ``u^2`` (2^-16) of the largest value (seen 3e-7 relative)."""
+    from recbole_cdr_tpu.utils.precision import cast_floats as jax_cast_floats
+
+    m = _eval_models("DTCDR-DMF")
+    jmodel, tmodel = m["jmodel"], m["tmodel"]
+    p16 = jax_cast_floats(m["jparams"], jnp.bfloat16)
+    towers = []
+    for side, n, hists in (("user", tmodel.target_num_users,
+                            ((jmodel._s_hist_items, jmodel.source_num_items, "source"),
+                             (jmodel._t_hist_items, jmodel.target_num_items, "target"))),
+                           ("item", tmodel.target_num_items,
+                            ((jmodel._s_hist_users, jmodel.source_num_users, "source"),
+                             (jmodel._t_hist_users, jmodel.target_num_users, "target")))):
+        ids = jnp.arange(n)
+        e = jnp.maximum(*(jmodel._rating_vector(h, ids, length) @ p16[f"{d}_{side}_linear"]
+                          for h, length, d in hists))
+        towers.append(np.asarray(jmodel._plain_mlp(p16[f"target_{side}_fc"], e)))
+    with torch.no_grad():
+        got = with_compute_dtype(lambda: tmodel._tower_tables(), torch.bfloat16, tmodel)()
+    for w, g in zip(towers, got):
+        assert w.dtype == np.float32 and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=U_BF16 ** 2 * np.abs(w).max())
+    users, items = np.repeat(np.arange(1, 33), 50), np.tile(np.arange(1, 51), 32)
+    keys = (tmodel.TARGET_USER_ID, tmodel.TARGET_ITEM_ID)
+    want = np.asarray(jax_with_compute_dtype(jmodel.predict_fn(), jnp.bfloat16)(
+        m["jparams"], dict(zip(keys, (jnp.asarray(users), jnp.asarray(items))))))
+    with torch.no_grad():
+        got = with_compute_dtype(tmodel.predict, torch.bfloat16, tmodel)(
+            dict(zip(keys, (torch.from_numpy(users).int(), torch.from_numpy(items).int()))))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=U_BF16 ** 2)
+
+
+#: one short schedule per model through the entry point under bf16, NATR's
+#: SOURCE then TARGET also on the sparse step (K1's 16-bit form on the
+#: gathered sub-tables)
+@pytest.mark.parametrize("model,extra", [
+    pytest.param("BiTGCF", {"train_epochs": ["BOTH:1"]}, id="BiTGCF"),
+    pytest.param("DTCDR", {"base_model": "DMF", "train_epochs": ["BOTH:1"]}, id="DTCDR-DMF"),
+    pytest.param("NATR", {"train_epochs": ["SOURCE:1", "TARGET:1"]}, id="NATR"),
+    pytest.param("NATR", {"train_epochs": ["SOURCE:1", "TARGET:1"], "phase_optimizer": "sparse"},
+                 id="NATR-sparse"),
+])
+def test_bf16_models_train_on_cpu(model, extra):
+    """The analogue of ``tests/test_precision.py::test_all_models_train_bf16``:
+    finite losses and test metrics in [0, 1], float32 master parameters."""
+    result = run_recbole_cdr(model=model, config_dict={**_QUICK, "compute_dtype": "bfloat16",
+                                                        **extra})
+    assert [h["phase"] for h in result["history"]] == [e.split(":")[0]
+                                                       for e in extra["train_epochs"]]
+    assert all(math.isfinite(h["loss"]) for h in result["history"])
+    for key in ("recall@10", "mrr@10", "ndcg@10"):
+        assert 0.0 <= result["test_result"][key] <= 1.0, result["test_result"]
+    assert all(p.dtype == torch.float32 for p in result["model"].parameters())
