@@ -156,7 +156,20 @@ Phases, in order; any failure exits non-zero:
    and B11, ``*_bf16``) and as itself otherwise (K2-K4, B7); the float32
    B8, B9 and B11 never; every phase's loss falls; the test Recall@10 within
    ``PHASE12_RECALL_TOL`` of the float32 run's (both printed);
-13. report: the card's name and power limit, one JSON line of per-kernel
+13. DeepAPF and CoNet under ``compute_dtype: bfloat16`` with phase 11's
+   configurations: every kernel of the float32 run launches exactly as
+   often, B16 and B15 in their 16-bit forms (``deepapf_*_bf16``,
+   ``conet_tower_bf16``), K2-K4 as themselves; the float32 B15 and B16
+   never; the loss falls; the test Recall@10 within ``PHASE12_RECALL_TOL``
+   of the float32 run's trained model evaluated under bf16, and of the
+   float32 run's own wherever the bf16 run's own probabilities resolve a
+   ranking (``run_phase13_paths``); B16-bf16's grid on the bf16 DeepAPF's
+   trained model against its plain version, on its own tables and on
+   tables scaled until the probabilities spread (``deepapf_trained_grid``);
+   CoNet's validation passes' own
+   allocations printed beside phase 11's and held to the same
+   ``CONET_VALID_HEADROOM``;
+14. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
 B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
@@ -263,6 +276,21 @@ backward within ``B11_BF16_TOL``, twice; library routes ``embedding_bag``
 on the bf16 table and ``index_add_`` then one rounding). Their bounds charge
 the 16-bit operands' two bytes.
 
+Phase 2 holds the 16-bit forms of B16 and B15 the same way, at the main
+path's shapes, in bfloat16 (the record) and float16 (the record's
+``shapes``): B16-bf16's forward and backward on the training step's pairs
+within ``B16_BF16_TOL``, the masked share rows' gradient exactly 0; the
+16-bit probabilities of B16-bf16's grid on the fallback tile (D 64, items
+the entity, the tables doubled so that they spread) and of B15-bf16 at the
+dense tile by ``close_prob16``: each within a few steps of its plain
+version's, at most ``PROB16_SHARE`` of them apart at all, and two controls
+(a constant 0.5, and the float32 form rounded only at its output) must fail
+that check; reruns bit-equal. Their bounds are the float32 forms' bytes on
+2-byte operands and their operations, the matrix products at the card's
+16-bit tensor rate and the rest on the CUDA cores; their library routes the
+same torch chains in 16 bits (for B15 JAX's whole-hidden form on a [2,048,
+4,980, 64] 16-bit hidden, 1.3 GB).
+
 ``python3 chip_smoke.py --profile`` instead times one warm training epoch
 and one validation pass of the dense path's run, then traces a repeat of
 each with ``torch.profiler`` and prints the device time by kernel, the
@@ -278,8 +306,9 @@ and BOTH (the host batch path, which has no validation), EMCDR's OVERLAP
 (the OVERLAP stream), SSCDR's OVERLAP (the host path); and phase 9's
 paths: CMF's BOTH with popularity negatives and adagrad, EMCDR's BPR SOURCE
 phase with popularity negatives and rmsprop, and the catalog path in bf16,
-last; phase 11's three models and phase 12's bf16 runs (BiTGCF's BOTH,
-NATR's SOURCE and TARGET, DMF's BOTH) come before phase 9's paths. Each
+last; phase 11's three models and phase 12's and 13's bf16 runs (BiTGCF's BOTH,
+NATR's SOURCE and TARGET, DMF's BOTH, DeepAPF's and CoNet's BOTH) come
+before phase 9's paths. Each
 16-bit run also prints the per-call parameter cast apart from the kernels
 (``report_casts``): the wrapped calls of its epoch and validation pass, the
 device time of one cast of every floating parameter and buffer, and their
@@ -511,6 +540,10 @@ B11_BF16_TOL = (1e-6, 2 ** -17, BF16_STEP)
 B16_TOL = {"forward": (1e-5, 1e-4), "grid": (1e-6, 1e-4), "backward": (1e-5, 1e-3)}
 #: the widths phase 2 holds B16 at; the main path's, 64, is timed
 B16_WIDTHS = (32, 64, 128)
+#: B16-bf16 tolerance per output tensor (B9_BF16_TOL's form): both round x,
+#: z, the a's, alpha, entity_e and the logit (the grid's sigmoid) from
+#: float32 sums in other orders, so an intermediate may land a step apart
+B16_BF16_TOL = (1e-5, 4 * 2 ** -7)
 
 #: B15 tolerance per probability, |kernel - plain| <= ATOL + RTOL * A, with A
 #: the logit's absolute chain (``b15_scale``: the tower on |hu| + |hi|, |W|,
@@ -524,6 +557,25 @@ B15_TOL = (1e-6, 2 ** -16)
 B15_TOWERS = ((64, [64, 32, 16, 8]), (32, [32, 16]))
 #: the user counts of a call: one user, a fallback tile's, a dense tile's
 B15_USERS = (1, 32, 2048)
+#: a 16-bit probability p of B15-bf16 or of B16-bf16's grid against its
+#: plain version (``close_prob16``): |kernel - plain| <= EPS (2 |p| + 4 p (1 -
+#: p) |z|) + EPS TINY, with EPS and TINY the type's and z the logit of p.
+#: Both sides round the same named values from float32 sums in other orders,
+#: so a value lands a step apart only where its float32 sum lies within the
+#: sums' order error of a rounding point: two to four steps of p, four steps
+#: of the logit through the sigmoid's slope p (1 - p), and the smallest
+#: subnormal step. At most ``PROB16_SHARE`` of the probabilities may differ
+#: at all: with float64 sums in place of float32 ones, 0.02% did on the CPU
+#: (``_b15_case`` and phase 2's grid operands at the main path's shapes),
+#: and 9% to 12% for the float32 forms rounded only at their output, which
+#: stay within the per-value bound
+PROB16_SHARE = 0.01
+#: the factor phase 2's B16 tables are scaled by for B16-bf16's grid, so that
+#: its probabilities spread over about (0.03, 0.97)
+GRID16_SCALE = 2.0
+#: the RMS phase 13 scales each table of the trained DeepAPF to for its grid
+#: check, so that its probabilities spread as phase 2's doubled tables'
+GRID16_RMS = 0.6
 
 #: phase 11's runs: (name, model, published widths, ``properties/model/
 #: <model>.yaml``), BOTH:``PHASE11_EPOCHS`` each, cut from the published 300
@@ -557,7 +609,11 @@ PHASE12_RUNS = (("bitgcf_bf16", "BiTGCF", "bitgcf"), ("natr_bf16", "NATR", "natr
 BF16_FORMS = {k: k + "_bf16" for k in (
     "gather_dot_forward", "gather_dot_backward", "graph_layer_forward", "graph_layer_backward",
     "natr_attention_forward", "natr_attention_backward", "natr_anchor_table", "natr_pair_grid",
-    "rating_vector_forward", "rating_vector_backward")}
+    "rating_vector_forward", "rating_vector_backward", "conet_tower", "deepapf_forward",
+    "deepapf_backward", "deepapf_grid")}
+#: phase 13's runs: (name, model, the phase-11 run whose configuration it
+#: repeats with ``compute_dtype: bfloat16``)
+PHASE13_RUNS = (("deepapf_bf16", "DeepAPF", "deepapf"), ("conet_bf16", "CoNet", "conet"))
 #: a bf16 run's test Recall@10 within max(ABS, REL x) of its float32 run's
 #: (``results/parity_oracle.md``'s tolerance)
 PHASE12_RECALL_TOL = (0.02, 0.20)
@@ -733,6 +789,12 @@ def phase11_config(model):
     BOTH:``PHASE11_EPOCHS`` with validation every epoch."""
     widths = next(w for _, m, w in PHASE11_RUNS if m == model)
     return {**config_dict(), **widths, "train_epochs": [f"BOTH:{PHASE11_EPOCHS}"]}
+
+
+def phase13_config(model):
+    """A phase-13 run: ``model``'s phase-11 configuration under
+    ``compute_dtype: bfloat16``."""
+    return {**phase11_config(model), "compute_dtype": BF16}
 
 
 def config_dict():
@@ -1578,6 +1640,13 @@ def natr_work(n_rows, n_slots, n_pairs, D, backward=False):
     return n_rows * row + n_slots * slot + n_pairs * pair
 
 
+def natr_products(n_rows, D, backward=False):
+    """The matrix products' share of ``natr_work`` (the transfer ``src @ W``;
+    the backward's dW and dx): what a 16-bit form may run on the tensor
+    cores."""
+    return n_rows * 2 * D * D * (2 if backward else 1)
+
+
 def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
     """Hold B9 against its plain version at a TARGET step's shapes and on a
     full-sort tile of the predict fallback, in both overlap modes, and time
@@ -1710,13 +1779,16 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
         record("natr_attention_forward_bf16",
                lambda: b9.natr_attention_forward(h16, a16, pu16, q16, w16),
                lambda: b9.natr_attention_forward_plain(h16, a16, pu16, q16, w16),
-               bf16["errors"]["forward"], fwd16, natr_work(rows, n_anchor * H, P, D),
+               bf16["errors"]["forward"], fwd16,
+               natr_work(rows, n_anchor * H, P, D) - natr_products(rows, D),
+               bf16_ops=natr_products(rows, D),
                library_fn=lambda: library_natr_forward(h16, a16, pu16, q16, w16))
         record("natr_attention_backward_bf16",
                lambda: b9.natr_attention_backward(h16, a16, pu16, q16, w16, gz16),
                lambda: b9.natr_attention_backward_plain(h16, a16, pu16, q16, w16, gz16),
                bf16["errors"]["backward"], fwd16 + P * 2 + 2 * P * D * 2 + fixed16,
-               natr_work(rows, n_anchor * H, P, D, backward=True),
+               natr_work(rows, n_anchor * H, P, D, backward=True)
+               - natr_products(rows, D, True), bf16_ops=natr_products(rows, D, True),
                library_fn=lambda: library_natr_backward(h16, a16, pu16, q16, w16, gz16))
         # the anchor table as the NATR run builds it: every target user at once
         tds = dataset.target_domain_dataset
@@ -1746,7 +1818,8 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
                lambda: b9.natr_anchor_table(h16, every, t_pu16, w16),
                lambda: b9.anchor_plain(h16, every, t_pu16, w16),
                err_t16, n_tu * H * 5 + rows_t * D * 2 + 2 * n_tu * D * 2 + fixed16,
-               natr_work(rows_t, n_tu * H, 0, D), reps=10,
+               natr_work(rows_t, n_tu * H, 0, D) - natr_products(rows_t, D),
+               bf16_ops=natr_products(rows_t, D), reps=10,
                library_fn=lambda: library_natr_anchor(h16, every, t_pu16, w16))
         # the pair grid of one fallback tile, from the table's rows
         B = fs_users.shape[0]
@@ -1811,12 +1884,43 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
            library_fn=lambda: library_rank_sum(fs_probs, rp, it, pos, pmask), shape=tile)
 
 
-def close16(got, want, what):
-    """A 16-bit form of B9 against its plain version: ``B9_BF16_TOL``."""
+def close_prob16(got, want, what, controls):
+    """16-bit probabilities ``got`` of a kernel against ``want``, its plain
+    version's, by ``PROB16_SHARE``'s rule; each of ``controls`` (name ->
+    probabilities that a wrong kernel would give) must fail the same rule.
+    Returns the largest error."""
     import torch
 
-    assert got.dtype == want.dtype == getattr(torch, BF16), (what, got.dtype, want.dtype)
-    atol, rtol = B9_BF16_TOL
+    assert got.dtype == want.dtype and got.shape == want.shape, (what, got.dtype, want.dtype)
+    fi = torch.finfo(want.dtype)
+    p = want.float()
+    z = torch.nan_to_num(torch.log(p) - torch.log1p(-p), nan=0.0, posinf=0.0, neginf=0.0)
+    tol = fi.eps * (2 * p + 4 * p * (1 - p) * z.abs()) + fi.eps * fi.tiny
+
+    def rule(x):
+        diff = (x.float() - p).abs()
+        return diff, float((diff / tol).max()), float((diff > 0).float().mean())
+
+    diff, used, share = rule(got)
+    print(f"  {what}: max_abs_err {float(diff.max()):.3g}, {used:.3g} of the tolerance, "
+          f"{share:.5f} of the probabilities differ (at most {PROB16_SHARE}); plain "
+          f"probabilities in [{float(p.min()):.4g}, {float(p.max()):.4g}]", flush=True)
+    assert used <= 1.0 and share <= PROB16_SHARE, f"{what}: error {float(diff.max())}"
+    for name, x in controls.items():
+        _, c_used, c_share = rule(x.to(want.dtype))
+        print(f"    control {name}: {c_used:.3g} of the tolerance, {c_share:.5f} differ: "
+              "fails, as it must", flush=True)
+        assert c_used > 1.0 or c_share > PROB16_SHARE, f"{what}: control {name} passes"
+    return float(diff.max())
+
+
+def close16(got, want, what, dtype=BF16, tol=B9_BF16_TOL):
+    """A 16-bit form of B9 (B16) against its plain version: ``B9_BF16_TOL``
+    (``B16_BF16_TOL``), both of type ``dtype``."""
+    import torch
+
+    assert got.dtype == want.dtype == getattr(torch, dtype), (what, got.dtype, want.dtype)
+    atol, rtol = tol
     tol = atol + rtol * float(want.float().abs().max())
     return within(got, want, torch.full_like(want, tol, dtype=torch.float32), what)
 
@@ -2104,22 +2208,34 @@ def library_rank_sum_candidates(scores, cand_mask, pos_mask):
 
 
 def deepapf_work(n_pairs, D, backward=False):
-    """Scalar operations of B16 on ``n_pairs`` pairs: per pair the two
-    attention products (2 x 2 D^2), their bias, relu and ``w2`` dot (2 x 3
-    D), the products x_s, x_o, the blend and the predict dot (6 D); the
-    backward adds dW's and dx's products (2 x 2 x 2 D^2) and the rows'
-    gradients (about 10 D)."""
+    """Operations of B16 on ``n_pairs`` pairs: per pair the two attention
+    products (2 x 2 D^2), their bias, relu and ``w2`` dot (2 x 3 D), the
+    products x_s, x_o, the blend and the predict dot (6 D); the backward
+    adds dW's and dx's products (2 x 2 x 2 D^2) and the rows' gradients
+    (about 10 D)."""
     fwd = 2 * (2 * D * D + 3 * D) + 6 * D
     return n_pairs * (fwd + (8 * D * D + 10 * D if backward else 0))
 
 
+def deepapf_products(n_pairs, D, backward=False):
+    """The matrix products' share of ``deepapf_work`` (x @ W; the backward's
+    dW and dx): what a 16-bit form may run on the tensor cores."""
+    return n_pairs * (4 * D * D + (8 * D * D if backward else 0))
+
+
 def conet_work(n_pairs, widths):
-    """Scalar operations of B15 on ``n_pairs`` pairs of a tower of
-    ``widths`` (H0, then each later layer's): the first layer's add and relu
-    and the sigmoid (3 H0 + 3), the later layers' products (2 d_in d_out) and
-    the output dot (2 d_last)."""
+    """Operations of B15 on ``n_pairs`` pairs of a tower of ``widths`` (H0,
+    then each later layer's): the first layer's two adds and relu and the
+    sigmoid (3 H0 + 3), the later layers' products (2 d_in d_out) and the
+    output dot (2 d_last)."""
+    return n_pairs * (3 * widths[0] + 3) + conet_products(n_pairs, widths)
+
+
+def conet_products(n_pairs, widths):
+    """The matrix products' share of ``conet_work``: what a 16-bit form may
+    run on the tensor cores."""
     prods = sum(a * b for a, b in zip(widths, widths[1:]))
-    return n_pairs * (3 * widths[0] + 2 * prods + 2 * widths[-1] + 3)
+    return n_pairs * (2 * prods + 2 * widths[-1])
 
 
 def library_deepapf(share, only, other, mask, w):
@@ -2131,7 +2247,8 @@ def library_deepapf(share, only, other, mask, w):
 
     P = share.shape[0]
     a = torch.relu(torch.cat([share * other, only * other]) @ w.W + w.b) @ w.w2
-    a = torch.stack([a[:P, 0].masked_fill(mask, MASKED), a[P:, 0]], 1)
+    masked = max(MASKED, torch.finfo(a.dtype).min)  # float16 holds no -1e31
+    a = torch.stack([a[:P, 0].masked_fill(mask, masked), a[P:, 0]], 1)
     alpha = torch.softmax(a, 1)
     ent = alpha[:, :1] * share + alpha[:, 1:] * only
     return ((ent * other) @ w.pl)[:, 0]
@@ -2148,25 +2265,25 @@ def library_deepapf_backward(share, only, other, mask, w, g):
         return torch.autograd.grad(logit, leaves, g)
 
 
-def library_conet(hu, hi, layers, out_layer):
+def library_conet(hu, hi, b0, layers, out_layer):
     """B15's library route: the torch chain on cuBLAS over the whole [B, I,
     H0] hidden at once (JAX's form)."""
     import torch
 
-    h = torch.relu(hu[:, None, :] + hi[None, :, :])
+    h = torch.relu(hu[:, None, :] + hi[None, :, :] + b0)
     for W, b in layers:
         h = torch.relu(h @ W + b)
     return torch.sigmoid((h @ out_layer[0] + out_layer[1])[..., 0])
 
 
-def b15_scale(hu, hi, layers, out_layer, chunk=512):
+def b15_scale(hu, hi, b0, layers, out_layer, chunk=512):
     """Each probability's tolerance scale: the tower's absolute chain (|hu|
-    + |hi|, then |W| and |b| at every layer, no relu), [B, I]."""
+    + |hi| + |b0|, then |W| and |b| at every layer, no relu), [B, I]."""
     import torch
 
     parts = []
     for lo in range(0, hi.shape[0], chunk):
-        h = hu.abs()[:, None, :] + hi[lo:lo + chunk].abs()[None, :, :]
+        h = hu.abs()[:, None, :] + hi[lo:lo + chunk].abs()[None, :, :] + b0.abs()
         for W, b in layers:
             h = h @ W.abs() + b.abs()
         parts.append((h @ out_layer[0].abs() + out_layer[1].abs())[..., 0])
@@ -2273,6 +2390,7 @@ def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
                    3 * (B + n_target) * D * 4 + 4 * B * n_target + fixed,
                    deepapf_work(B * n_target, D) + 3 * B * n_target,
                    library_fn=library_grid, reps=20)
+            b16_bf16_checks(record, (share, only, other), mask, w, gz, grid_args)
         del tabs
 
     # ---- B15: the target tower of CoNet over every target item -----------
@@ -2284,25 +2402,26 @@ def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
     for (D, hidden) in B15_TOWERS:
         dims = [2 * D] + hidden
         hi_all = rnd(n_target, hidden[0], scale=0.5)
+        b0 = rnd(hidden[0], scale=0.1)
         layers = [(rnd(a, b, scale=(2 / (a + b)) ** 0.5), rnd(b, scale=0.1))
                   for a, b in zip(hidden, hidden[1:])]
         out = (rnd(hidden[-1], 1, scale=(2 / (hidden[-1] + 1)) ** 0.5), rnd(1, scale=0.1))
         for B in B15_USERS:
             hu = rnd(B, hidden[0], scale=0.5)
-            got = b15.conet_tower(hu, hi_all, layers, out)
-            want = b15.conet_tower_plain(hu, hi_all, layers, out)
-            scale = b15_scale(hu, hi_all, layers, out)
+            got = b15.conet_tower(hu, hi_all, b0, layers, out)
+            want = b15.conet_tower_plain(hu, hi_all, b0, layers, out)
+            scale = b15_scale(hu, hi_all, b0, layers, out)
             tol = B15_TOL[0] + B15_TOL[1] * scale
             diff = (got - want).abs()
             err = float(diff.max())
             assert got.shape == (B, n_target) and bool((diff <= tol).all()), \
                 f"conet_tower [D {D}, {hidden}, B {B}]: error {err}"
-            assert torch.equal(got, b15.conet_tower(hu, hi_all, layers, out))
+            assert torch.equal(got, b15.conet_tower(hu, hi_all, b0, layers, out))
             # a saturating call: every logit above 17, every probability 1.0
             sat_out = (out[0], out[1] + 40.0)
-            sat = b15.conet_tower(hu, hi_all, layers, sat_out)
+            sat = b15.conet_tower(hu, hi_all, b0, layers, sat_out)
             assert bool((sat == 1.0).all()) and torch.equal(
-                sat, b15.conet_tower_plain(hu, hi_all, layers, sat_out))
+                sat, b15.conet_tower_plain(hu, hi_all, b0, layers, sat_out))
             print(f"  conet_tower [D {D}, tower {dims}, B {B}, I {n_target}]: max_abs_err "
                   f"{err:.3g} (at most {float((diff / tol).max()):.3g} of the tolerance); "
                   "saturated call all 1.0", flush=True)
@@ -2323,13 +2442,135 @@ def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
                   f"({int(clear.sum())} of {clear.numel()}); {users.shape[0]} eval users",
                   flush=True)
             widths = hidden
-            record("conet_tower", lambda: b15.conet_tower(hu, hi_all, layers, out),
-                   lambda: b15.conet_tower_plain(hu, hi_all, layers, out), err,
-                   4 * ((B + n_target) * hidden[0] + B * n_target
+            record("conet_tower", lambda: b15.conet_tower(hu, hi_all, b0, layers, out),
+                   lambda: b15.conet_tower_plain(hu, hi_all, b0, layers, out), err,
+                   4 * ((B + n_target + 1) * hidden[0] + B * n_target
                         + sum(a * b + b for a, b in zip(widths, widths[1:])) + widths[-1] + 1),
                    conet_work(B * n_target, widths),
-                   library_fn=lambda: library_conet(hu, hi_all, layers, out), reps=10)
+                   library_fn=lambda: library_conet(hu, hi_all, b0, layers, out), reps=10)
+            b15_bf16_checks(record, hu, hi_all, b0, layers, out)
         del hi_all
+
+
+def b16_bf16_checks(record, rows, mask, w, gz, grid_args):
+    """B16-bf16's forward, backward and grid on the main path's operands of
+    phase 2's float32 checks (a training step's pairs at D 64, the items the
+    entity, and a fallback tile, its tables scaled by ``GRID16_SCALE``),
+    rounded to bfloat16 (the records) and to float16 (their ``shapes``),
+    against their plain versions (forward and backward ``B16_BF16_TOL``, the
+    grid's probabilities ``close_prob16`` with the float32 grid rounded only
+    at its output a control that must fail), the masked share rows' gradient
+    exactly 0, reruns bit-equal, and timed: bounds the float32 forms' work
+    on 2-byte operands, the products at the 16-bit tensor rate; library
+    routes the torch chains in 16 bits."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
+
+    P, D = rows[0].shape
+    fixed = 2 * (D * D + 3 * D)
+    share_t, only_t, other_t, users, items, n_ov, entity_is_item, _ = grid_args
+    B, I = users.shape[0], items.shape[0]
+    for dt_name in (BF16, "float16"):
+        dt = getattr(torch, dt_name)
+        share, only, other = (t.to(dt) for t in rows)
+        w16, g16 = b16.Weights(*(t.to(dt) for t in w)), gz.to(dt)
+        tag = f"[D {D}, items the entity, {dt_name}]"
+        a = b16.deepapf_forward(share, only, other, mask, w16)
+        err_f = close16(a, b16.deepapf_forward_plain(share, only, other, mask, w16),
+                        f"deepapf_forward_bf16 {tag}", dt_name, B16_BF16_TOL)
+        assert torch.equal(a, b16.deepapf_forward(share, only, other, mask, w16)), \
+            "deepapf_forward_bf16 differs run to run"
+        ka = b16.deepapf_backward(share, only, other, mask, w16, g16)
+        pa = b16.deepapf_backward_plain(share, only, other, mask, w16, g16)
+        err_b = max(close16(x, y, f"deepapf_backward_bf16 {name} {tag}", dt_name,
+                            B16_BF16_TOL)
+                    for name, x, y in zip(("d_share", "d_only", "d_other", "dW", "db", "dw2",
+                                           "dpl"), ka, pa))
+        assert not bool(ka[0][mask].any()) and bool(ka[0][~mask].any())
+        assert all(torch.equal(x, y) for x, y in
+                   zip(ka, b16.deepapf_backward(share, only, other, mask, w16, g16))), \
+            "deepapf_backward_bf16 differs run to run"
+        tabs = [(GRID16_SCALE * t).to(dt) for t in (share_t, only_t, other_t)]
+        gargs = (*tabs, users, items, n_ov, entity_is_item, w16)
+        c = b16.deepapf_grid(*gargs)
+        want = b16.deepapf_grid_plain(*gargs)
+        wide = b16.deepapf_grid(*(t.float() for t in tabs), users, items, n_ov, entity_is_item,
+                                b16.Weights(*(t.float() for t in w16)))
+        err_g = close_prob16(c, want, f"deepapf_grid_bf16 {tag}",
+                             {"constant 0.5": torch.full_like(want, 0.5),
+                              "float32 grid rounded at its output": wide})
+        assert torch.equal(c, b16.deepapf_grid(*gargs)), "deepapf_grid_bf16 differs run to run"
+        print(f"  deepapf_attention_bf16 {tag}: max_abs_err forward {err_f:.3g}, backward "
+              f"{err_b:.3g}, grid {err_g:.3g}", flush=True)
+        shape = None if dt_name == BF16 else dt_name
+        row_bytes = 3 * P * D * 2
+
+        def library_grid():
+            e, o = b16.grid_pairs(users, items, entity_is_item)
+            e, o = e.long(), o.long()
+            return torch.sigmoid(library_deepapf(gargs[0][e], gargs[1][e], gargs[2][o],
+                                                 e > n_ov, w16)).reshape(B, -1)
+
+        record("deepapf_forward_bf16",
+               lambda: b16.deepapf_forward(share, only, other, mask, w16),
+               lambda: b16.deepapf_forward_plain(share, only, other, mask, w16),
+               err_f, row_bytes + P + 2 * P + fixed,
+               deepapf_work(P, D) - deepapf_products(P, D), bf16_ops=deepapf_products(P, D),
+               library_fn=lambda: library_deepapf(share, only, other, mask, w16), shape=shape)
+        record("deepapf_backward_bf16",
+               lambda: b16.deepapf_backward(share, only, other, mask, w16, g16),
+               lambda: b16.deepapf_backward_plain(share, only, other, mask, w16, g16),
+               err_b, 2 * row_bytes + P + 2 * P + 2 * fixed,
+               deepapf_work(P, D, True) - deepapf_products(P, D, True),
+               bf16_ops=deepapf_products(P, D, True),
+               library_fn=lambda: library_deepapf_backward(share, only, other, mask, w16, g16),
+               shape=shape)
+        record("deepapf_grid_bf16", lambda: b16.deepapf_grid(*gargs),
+               lambda: b16.deepapf_grid_plain(*gargs), err_g,
+               3 * (B + I) * D * 2 + 2 * B * I + fixed,
+               deepapf_work(B * I, D) - deepapf_products(B * I, D) + 3 * B * I,
+               bf16_ops=deepapf_products(B * I, D), library_fn=library_grid, reps=20,
+               shape=shape)
+
+
+def b15_bf16_checks(record, hu, hi, b0, layers, out):
+    """B15-bf16 at the dense tile on phase 2's float32 operands rounded to
+    bfloat16 (the record) and float16 (its ``shapes``): its probabilities
+    against its plain version's by ``close_prob16``, the float32 kernel on
+    the same 16-bit values rounded only at its output a control that must
+    fail; 16-bit output, reruns bit-equal, and timed: bound the float32
+    form's work on 2-byte operands, the products at the 16-bit tensor rate;
+    library route JAX's whole-hidden form in 16 bits."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import conet_tower as b15
+
+    B, I, H0 = hu.shape[0], hi.shape[0], hu.shape[1]
+    widths = [H0] + [W.shape[1] for W, _ in layers]
+    for dt_name in (BF16, "float16"):
+        dt = getattr(torch, dt_name)
+        args = (hu.to(dt), hi.to(dt), b0.to(dt), [(W.to(dt), b.to(dt)) for W, b in layers],
+                tuple(t.to(dt) for t in out))
+        got = b15.conet_tower(*args)
+        want = b15.conet_tower_plain(*args)
+        assert got.dtype == want.dtype == dt and got.shape == (B, I)
+        wide = b15.conet_tower(*(t.float() for t in args[:3]),
+                               [(W.float(), b.float()) for W, b in args[3]],
+                               tuple(t.float() for t in args[4]))
+        err = close_prob16(got, want, f"conet_tower_bf16 [{dt_name}, B {B}, I {I}]",
+                           {"constant 0.5": torch.full_like(want, 0.5),
+                            "float32 tower rounded at its output": wide})
+        del wide
+        assert torch.equal(got, b15.conet_tower(*args)), "conet_tower_bf16 differs run to run"
+        n_ops = conet_work(B * I, widths)
+        products = conet_products(B * I, widths)
+        record("conet_tower_bf16", lambda: b15.conet_tower(*args),
+               lambda: b15.conet_tower_plain(*args), err,
+               2 * ((B + I + 1) * H0 + B * I
+                    + sum(a * b + b for a, b in zip(widths, widths[1:])) + widths[-1] + 1),
+               n_ops - products, bf16_ops=products, library_fn=lambda: library_conet(*args),
+               reps=10, shape=None if dt_name == BF16 else dt_name)
 
 
 def bitgcf_graph(dataset):
@@ -2553,6 +2794,8 @@ def main():
             for scheme in ("SOURCE", "TARGET") if model == "NATR" else ("BOTH",):
                 profile_epoch(dev, phase12_config(ref), f"{name}_{scheme.lower()}_",
                               export=False, model=model, scheme=scheme)
+        for name, model, _ in PHASE13_RUNS:
+            profile_epoch(dev, phase13_config(model), f"{name}_", export=False, model=model)
         profile_epoch(dev, popularity_cmf_config(), "popularity_cmf_", export=False)
         profile_epoch(dev, popularity_emcdr_config(), "popularity_emcdr_source_",
                       export=False, model="EMCDR", scheme="SOURCE")
@@ -2682,7 +2925,8 @@ def main():
           "training and the predict fallback, B15 in the dense evaluation", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    run_phase11_paths(counts)
+    allocs = {}
+    run_phase11_paths(counts, recalls, allocs)
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("== phase 12: BiTGCF, NATR and DTCDR DMF under compute_dtype bfloat16: the 16-bit "
@@ -2691,6 +2935,13 @@ def main():
     t0 = time.perf_counter()
     run_phase12_paths(counts, recalls)
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("== phase 13: DeepAPF and CoNet under compute_dtype bfloat16: the 16-bit forms of "
+          "B16 and B15", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_phase13_paths(counts, recalls, allocs)
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {
         "gather_dot_forward": ("recbole_cdr_tpu_torch/csrc/gather_dot.cu",
@@ -2754,7 +3005,8 @@ def main():
     }
     for name in ("graph_layer_forward", "graph_layer_backward", "natr_attention_forward",
                  "natr_attention_backward", "natr_anchor_table", "natr_pair_grid",
-                 "rating_vector_forward", "rating_vector_backward"):
+                 "rating_vector_forward", "rating_vector_backward", "conet_tower",
+                 "deepapf_forward", "deepapf_backward", "deepapf_grid"):
         replaces[BF16_FORMS[name]] = replaces[name]
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -3469,17 +3721,25 @@ def run_mesh_paths(dev):
     return {"records": records, "counts": counts}
 
 
-def run_phase11_paths(counts):
-    """Phase 11: the runs of ``PHASE11_RUNS``, each checked, their launch
-    counts kept in ``counts`` under the run's name; the peak allocation
-    counted from each run's start."""
+def _run_tracking_passes(model, cfg, track):
+    """``run_recbole_cdr(model, cfg)`` on the card, timed, its launch counts
+    from a reset; with ``track``, each evaluation pass's (the run's peak so
+    far, the allocation at the pass's start), the peak counted from the
+    run's start. Returns (result, wall seconds, counts, passes); the run's
+    trainer and test data are kept as ``result["trainer"]`` and
+    ``result["test_data"]``."""
     import torch
 
     import recbole_cdr_tpu_torch.trainer.trainer as trainer_module
     from recbole_cdr_tpu_torch import ops, run_recbole_cdr
 
     real = trainer_module.CrossDomainTrainer._evaluate_batches
-    before = []
+    real_evaluate = trainer_module.CrossDomainTrainer.evaluate
+    before, kept = [], {}
+
+    def keep(self, eval_data, *args, **kwargs):
+        kept.update(trainer=self, test_data=eval_data)
+        return real_evaluate(self, eval_data, *args, **kwargs)
 
     def own_peak(self, *args, **kwargs):
         """Each evaluation pass's own peak: the trainer records the peak since
@@ -3490,25 +3750,137 @@ def run_phase11_paths(counts):
         torch.cuda.reset_peak_memory_stats()
         return real(self, *args, **kwargs)
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    if track:
+        trainer_module.CrossDomainTrainer._evaluate_batches = own_peak
+    trainer_module.CrossDomainTrainer.evaluate = keep
+    t0 = time.perf_counter()
+    try:
+        result = run_recbole_cdr(model=model, config_dict=cfg, saved=True)
+    finally:
+        trainer_module.CrossDomainTrainer._evaluate_batches = real
+        trainer_module.CrossDomainTrainer.evaluate = real_evaluate
+    torch.cuda.synchronize()
+    wall, counts = time.perf_counter() - t0, ops.launch_counts()
+    return {**result, **kept}, wall, counts, before
+
+
+def first_tile_distinct(trainer, test_data):
+    """The most distinct probabilities a row of the first fallback-sized
+    test tile (users 1-32 against every item) holds under the trainer's
+    compute type."""
+    import torch
+
+    users = torch.arange(1, 33, device="cuda")
+    with torch.no_grad():
+        scores = trainer._score_fn_for("OVERLAP", test_data)(users)
+    return max(int(row.unique().numel()) for row in scores)
+
+
+def evaluated_in_bf16(result):
+    """The trained model of a float32 run evaluated as a bf16 run evaluates
+    (the trainer's ``compute_dtype`` set to bfloat16 after training): (its
+    test Recall@10, ``first_tile_distinct`` in bf16). Its launches come
+    after the run's counts were taken and before the next run resets
+    them."""
+    import torch
+
+    trainer, test_data = result["trainer"], result["test_data"]
+    trainer.compute_dtype = getattr(torch, BF16)
+    try:
+        recall = trainer.evaluate(test_data, load_best_model=False)["recall@10"]
+        distinct = first_tile_distinct(trainer, test_data)
+    finally:
+        trainer.compute_dtype = torch.float32
+    return recall, distinct
+
+
+def deepapf_trained_grid(result):
+    """B16-bf16's grid on the trained model of phase 13's DeepAPF run: the
+    first fallback-sized test tile (users 1-32 against every item) through
+    the model's ``predict_grid`` on its bf16 copies, as the run's evaluation
+    calls it, against ``deepapf_grid_plain`` on the same operands by
+    ``close_prob16``; once on the trained tables, where at two epochs every
+    bf16 probability may round to 0.5 and a wrong kernel could pass, and
+    once with each table scaled to RMS ``GRID16_RMS``, where the
+    probabilities spread and the controls (a constant 0.5, the float32 grid
+    rounded at its output) must fail. Its launches come after the run's
+    counts were taken."""
+    import torch
+
+    from recbole_cdr_tpu_torch.models import deepapf as deepapf_module
+    from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
+    from recbole_cdr_tpu_torch.utils.precision import call_with, cast_floats
+
+    model, test_data = result["model"], result["test_data"]
+    users = torch.arange(1, 33, device="cuda")
+    items = torch.arange(test_data.item_num, device="cuda")
+    dt = getattr(torch, BF16)
+    tensors = {n: t.detach() for n, t in [*model.named_parameters(), *model.named_buffers()]}
+
+    def grid(ts):
+        return call_with(model, ts, model.predict_grid, users, items)
+
+    for scaled in (False, True):
+        ts = {n: t * (GRID16_RMS / t.pow(2).mean().sqrt())
+              if scaled and n.endswith("_embedding") else t for n, t in tensors.items()}
+        t16 = cast_floats(ts, dt)
+        with torch.no_grad():
+            got = grid(t16)
+            deepapf_module.deepapf_grid = b16.deepapf_grid_plain
+            try:
+                want = grid(t16)
+            finally:
+                deepapf_module.deepapf_grid = b16.deepapf_grid
+            controls = {"constant 0.5": torch.full_like(want, 0.5),
+                        "float32 grid rounded at its output": grid(ts)} if scaled else {}
+        close_prob16(got, want, "deepapf_grid_bf16 on the trained model's first test tile"
+                     + (f", tables at RMS {GRID16_RMS}" if scaled else ""), controls)
+
+
+def run_phase11_paths(counts, recalls, allocs):
+    """Phase 11: the runs of ``PHASE11_RUNS``, each checked, their launch
+    counts kept in ``counts`` and their test Recall@10 in ``recalls`` under
+    the run's name, CoNet's validation passes' own allocations in
+    ``allocs``."""
     for name, model, _ in PHASE11_RUNS:
         print(f"-- {name}: {model}, BOTH:{PHASE11_EPOCHS}, published widths", flush=True)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        before.clear()
-        if name == "conet":
-            trainer_module.CrossDomainTrainer._evaluate_batches = own_peak
-        t0 = time.perf_counter()
-        try:
-            result = run_recbole_cdr(model=model, config_dict=phase11_config(model), saved=True)
-        finally:
-            trainer_module.CrossDomainTrainer._evaluate_batches = real
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts[name] = c = ops.launch_counts()
+        result, wall, c, before = _run_tracking_passes(model, phase11_config(model),
+                                                       name == "conet")
+        counts[name] = c
         hist = _report_run(result, wall, c, PHASE11_PATHS[name])
-        check_phase11_run(name, result, hist, c, before)
+        allocs[name] = check_phase11_run(name, result, hist, c, before)
+        recalls[name] = result["test_result"]["recall@10"]
+        if any(ref == name for _, _, ref in PHASE13_RUNS):
+            recalls[name + "@bf16"] = evaluated_in_bf16(result)
+            print(f"{model}'s trained model evaluated under bf16 compute: test Recall@10 "
+                  f"{recalls[name + '@bf16'][0]:.4f}; at most {recalls[name + '@bf16'][1]} "
+                  "distinct bf16 probabilities in a row of the first test tile", flush=True)
         del result
+
+
+def conet_pass_allocs(model, hist, before):
+    """CoNet's validation passes: what each allocates beyond what the run
+    holds as it starts, printed with the pass's peak above parameters and
+    moments, what the run holds as it starts and the run's peak before it;
+    each within ``CONET_VALID_HEADROOM``. Returns the passes' own
+    allocations."""
+    state = 3 * sum(p.numel() * p.element_size() for p in model.parameters())
+    peaks = [h["valid_peak_bytes"] for h in hist]
+    held = [at_start for _, at_start in before[:len(hist)]]
+    own = [p - a for p, a in zip(peaks, held)]
+    mib = lambda xs: ", ".join(f"{x / 2 ** 20:.1f} MiB" for x in xs)  # noqa: E731
+    print(f"CoNet parameters + moments {state / 2 ** 20:.1f} MiB; above them: each "
+          f"validation pass's peak {mib(p - state for p in peaks)}, held as it starts "
+          f"{mib(a - state for a in held)}, the run's peak before it (training "
+          f"included) {mib(b - state for b, _ in before[:len(hist)])}; each pass's own "
+          f"allocation {mib(own)} (limit {CONET_VALID_HEADROOM / 2 ** 20:.0f} MiB)",
+          flush=True)
+    assert all(a >= state for a in held) and all(0 < o < CONET_VALID_HEADROOM for o in own), \
+        (state, held, peaks)
+    return own
 
 
 def check_phase11_run(name, result, hist, c, before):
@@ -3545,19 +3917,8 @@ def check_phase11_run(name, result, hist, c, before):
           f"{ {k: c[k] for k in want} }, expected {want}", flush=True)
     assert all(c[k] == v for k, v in want.items()), (c, want)
     if name == "conet":
-        state = 3 * sum(p.numel() * p.element_size() for p in model.parameters())
-        peaks = [h["valid_peak_bytes"] for h in hist]
-        held = [at_start for _, at_start in before[:len(hist)]]
-        own = [p - a for p, a in zip(peaks, held)]
-        mib = lambda xs: ", ".join(f"{x / 2 ** 20:.1f} MiB" for x in xs)  # noqa: E731
-        print(f"CoNet parameters + moments {state / 2 ** 20:.1f} MiB; above them: each "
-              f"validation pass's peak {mib(p - state for p in peaks)}, held as it starts "
-              f"{mib(a - state for a in held)}, the run's peak before it (training "
-              f"included) {mib(b - state for b, _ in before[:len(hist)])}; each pass's own "
-              f"allocation {mib(own)} (limit {CONET_VALID_HEADROOM / 2 ** 20:.0f} MiB)",
-              flush=True)
-        assert all(a >= state for a in held) and all(0 < o < CONET_VALID_HEADROOM for o in own), \
-            (state, held, peaks)
+        return conet_pass_allocs(model, hist, before)
+    return None
 
 
 def run_phase12_paths(counts, recalls):
@@ -3595,6 +3956,64 @@ def run_phase12_paths(counts, recalls):
         print(f"test Recall@10: bf16 {got:.4f}, float32 {ref_recall:.4f} (tolerance "
               f"{max(absolute, relative * ref_recall):.4f})", flush=True)
         assert abs(got - ref_recall) <= max(absolute, relative * ref_recall), (got, ref_recall)
+        del result
+
+
+def run_phase13_paths(counts, recalls, allocs):
+    """Phase 13: DeepAPF and CoNet with phase 11's configurations under
+    ``compute_dtype: bfloat16``. Each must launch, for every kernel of its
+    float32 run, that kernel's 16-bit form (``BF16_FORMS``: B16's and B15's)
+    where it has one and else the kernel itself, exactly as many times as
+    the float32 run did, and no other kernel (the float32 B15 and B16
+    never); the loss falls; the test Recall@10 lies within
+    ``PHASE12_RECALL_TOL`` of the float32 run's trained model evaluated
+    under bf16 (``evaluated_in_bf16``: the effect of training in bf16), and
+    of the float32 run's own wherever the bf16 run's own probabilities
+    resolve a ranking (``first_tile_distinct``): where every probability of
+    a test row rounds to one bf16 value (DeepAPF at phase 11's two epochs:
+    all of them 0.5), the evaluator ranks by K4's tie order, lax.top_k's
+    (lower id first), as JAX's bf16 evaluation does, and that comparison
+    says nothing of the kernels; it is printed, not held, and B16-bf16's
+    grid is held on the run's trained model instead (``deepapf_trained_grid``).
+    CoNet's validation passes' own allocations are printed beside phase 11's
+    and held to its limit."""
+    import torch
+
+    for name, model, ref in PHASE13_RUNS:
+        print(f"-- {name}: {model} as {ref}, compute_dtype bfloat16", flush=True)
+        result, wall, c, before = _run_tracking_passes(model, phase13_config(model),
+                                                       ref == "conet")
+        counts[name] = c
+        want = {BF16_FORMS.get(k, k): n for k, n in counts[ref].items() if n}
+        hist = _report_run(result, wall, c, tuple(want))
+        losses = [h["loss"] for h in hist]
+        assert [h["phase"] for h in hist] == ["BOTH"] * PHASE11_EPOCHS, hist
+        assert losses[-1] < losses[0], losses
+        print(f"launches {want}, as the float32 run's of their float32 forms", flush=True)
+        assert {k: c[k] for k in want} == want, (c, want)
+        assert all(p.dtype == torch.float32 for p in result["model"].parameters())
+        got, ref_recall = result["test_result"]["recall@10"], recalls[ref]
+        at16, _ = recalls[ref + "@bf16"]
+        distinct = first_tile_distinct(result["trainer"], result["test_data"])
+        absolute, relative = PHASE12_RECALL_TOL
+        tol = lambda r: max(absolute, relative * r)  # noqa: E731
+        print(f"test Recall@10: bf16 {got:.4f} (at most {distinct} distinct bf16 probabilities "
+              f"a row of its first test tile); the float32 run's {ref_recall:.4f} (tolerance "
+              f"{tol(ref_recall):.4f}), its trained model evaluated under bf16 {at16:.4f} "
+              f"(tolerance {tol(at16):.4f})", flush=True)
+        assert abs(got - at16) <= tol(at16), (got, at16)
+        if distinct > 1:
+            assert abs(got - ref_recall) <= tol(ref_recall), (got, ref_recall)
+        else:
+            print("  every bf16 probability of a test row is one value: the bf16 ranking is "
+                  "K4's tie order, so the float32 run's Recall@10 is not held", flush=True)
+        if ref == "deepapf":
+            deepapf_trained_grid(result)
+        if ref == "conet":
+            own = conet_pass_allocs(result["model"], hist, before)
+            print("CoNet validation passes' own allocation: bf16 " + ", ".join(
+                f"{x / 2 ** 20:.1f}" for x in own) + " MiB, float32 (phase 11) " + ", ".join(
+                f"{x / 2 ** 20:.1f}" for x in allocs[ref]) + " MiB", flush=True)
         del result
 
 

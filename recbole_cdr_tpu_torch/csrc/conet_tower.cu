@@ -4,11 +4,11 @@
 // XLA materialises the [B, I, H0] first hidden of a tile of users against
 // every target item (2.6 GB in float32 at the dense evaluator's [2,048,
 // 4,980] tile) and runs the rest of the target tower on it. Inputs: the user
-// half hu [B, H0] (u @ W_u + b0) and the item half hi [I, H0] (i @ W_i,
-// built once per parameter version by the caller). For every (user b, item
-// i) of the tile:
+// half hu [B, H0] (u @ W_u), the item half hi [I, H0] (i @ W_i, built once
+// per parameter version by the caller) and the first layer's bias b0 [H0].
+// For every (user b, item i) of the tile:
 //
-//   h = relu(hu[b] + hi[i]);  h = relu(h @ W_l + b_l) for each later layer l;
+//   h = relu((hu[b] + hi[i]) + b0);  h = relu(h @ W_l + b_l) for each later l;
 //   out[b, i] = sigmoid(h . w_out + b_out)
 //
 // Bound on an H100: operations. A pair costs H0 adds and relus and
@@ -33,10 +33,22 @@
 // weights (a padded unit's relu is 0). Not done yet: the later layers on
 // the tensor cores (3xTF32 keeps float32 accuracy) and a register-resident
 // hidden.
+//
+// B15-bf16, the 16-bit form (CoNet under compute_dtype: bfloat16; float16
+// through the same template): hu, hi and the packed weights are 16-bit and
+// so are the [B, I] probabilities, as JAX's bf16 full_sort returns them.
+// Values are widened exactly as they are staged into the same float32
+// shared-memory tower; each sum accumulates in float32 and is rounded to the
+// 16-bit type where JAX's value has a name: hu + hi, then its sum with b0
+// (JAX's order), each later layer's h @ W + b, the logit and the sigmoid (a
+// relu of a rounded value is exact). The float32 form is the same template
+// with every rounding the identity.
 
 #include <cmath>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "float16.cuh"
 
 namespace {
 
@@ -85,18 +97,16 @@ inline size_t smem_bytes(const Tower& t, bool resident) {
   return 4 * ((size_t)weight_floats(t, resident) + 2 * (size_t)max_width(t) * HS);
 }
 
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
+template <typename T>
+__device__ void stage(float* dst, const T* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = ld1(src + i);
 }
 
-__device__ void stage(float* dst, const float* __restrict__ src, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = __ldg(src + i);
-}
-
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-tower_kernel(const float* __restrict__ hu, const float* __restrict__ hi, int B, int I,
-             const float* __restrict__ weights, Tower tw, int resident,
-             float* __restrict__ out) {
+tower_kernel(const T* __restrict__ hu, const T* __restrict__ hi, const T* __restrict__ b0,
+             int B, int I, const T* __restrict__ weights, Tower tw, int resident,
+             T* __restrict__ out) {
   extern __shared__ __align__(16) float sm[];
   const int n_out = out_offset(tw);
   const int wf = weight_floats(tw, resident);
@@ -111,17 +121,20 @@ tower_kernel(const float* __restrict__ hu, const float* __restrict__ hi, int B, 
   const long long n_ib = (I + kItems - 1) / kItems;
   const long long tiles = (long long)((B + kUsers - 1) / kUsers) * n_ib;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int b0 = (int)(t / n_ib) * kUsers, i0 = (int)(t % n_ib) * kItems;
-    // the first layer: h[k][p] = relu(hu[b][k] + hi[i][k]), pair p = (user
-    // p / kItems, item p % kItems)
+    const int u0 = (int)(t / n_ib) * kUsers, i0 = (int)(t % n_ib) * kItems;
+    // the first layer: h[k][p] = relu((hu[b][k] + hi[i][k]) + b0[k]), pair p
+    // = (user p / kItems, item p % kItems), each sum rounded to T
     for (int e = tid; e < kPairs * (H0 / 4); e += kThreads) {
       const int p = e % kPairs, k = 4 * (e / kPairs);
-      const int b = b0 + p / kItems, i = i0 + p % kItems;
+      const int b = u0 + p / kItems, i = i0 + p % kItems;
       float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
       if (b < B && i < I) {
-        const float4 u = ldg4(hu + (long long)b * H0 + k), v = ldg4(hi + (long long)i * H0 + k);
-        h = make_float4(fmaxf(__fadd_rn(u.x, v.x), 0.f), fmaxf(__fadd_rn(u.y, v.y), 0.f),
-                        fmaxf(__fadd_rn(u.z, v.z), 0.f), fmaxf(__fadd_rn(u.w, v.w), 0.f));
+        const float4 u = ld4(hu + (long long)b * H0 + k), v = ld4(hi + (long long)i * H0 + k);
+        const float4 c = ld4(b0 + k);
+        h = make_float4(fmaxf(rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(u.x, v.x)), c.x)), 0.f),
+                        fmaxf(rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(u.y, v.y)), c.y)), 0.f),
+                        fmaxf(rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(u.z, v.z)), c.z)), 0.f),
+                        fmaxf(rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(u.w, v.w)), c.w)), 0.f));
       }
       float* dst = buf[0] + k * HS + p;
       dst[0] = h.x;
@@ -164,10 +177,10 @@ tower_kernel(const float* __restrict__ hu, const float* __restrict__ hi, int B, 
         for (int c = 0; c < 4; ++c) {
           const float bc = bias[4 * cg + c];
           *reinterpret_cast<float4*>(dst + (4 * cg + c) * HS + 4 * pg) =
-              make_float4(fmaxf(__fadd_rn(acc[0][c], bc), 0.f),
-                          fmaxf(__fadd_rn(acc[1][c], bc), 0.f),
-                          fmaxf(__fadd_rn(acc[2][c], bc), 0.f),
-                          fmaxf(__fadd_rn(acc[3][c], bc), 0.f));
+              make_float4(fmaxf(rnd<T>(__fadd_rn(acc[0][c], bc)), 0.f),
+                          fmaxf(rnd<T>(__fadd_rn(acc[1][c], bc)), 0.f),
+                          fmaxf(rnd<T>(__fadd_rn(acc[2][c], bc)), 0.f),
+                          fmaxf(rnd<T>(__fadd_rn(acc[3][c], bc)), 0.f));
         }
       }
       __syncthreads();
@@ -177,27 +190,50 @@ tower_kernel(const float* __restrict__ hu, const float* __restrict__ hi, int B, 
 
     // the output layer and the sigmoid, one thread a pair
     if (tid < kPairs) {
-      const int b = b0 + tid / kItems, i = i0 + tid % kItems;
+      const int b = u0 + tid / kItems, i = i0 + tid % kItems;
       const int d_last = tw.w[tw.n];
       const float* h = buf[cur] + tid;
       float acc = 0.f;
       for (int k = 0; k < d_last; ++k) acc = fmaf(h[k * HS], wout[k], acc);
-      const float logit = __fadd_rn(acc, wout[d_last]);
+      const float logit = rnd<T>(__fadd_rn(acc, wout[d_last]));
       if (b < B && i < I)
-        out[(long long)b * I + i] = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-logit)));
+        st1(out + (long long)b * I + i, rnd<T>(__fdiv_rn(1.f, __fadd_rn(1.f, expf(-logit)))));
     }
     __syncthreads();
   }
 }
 
+template <typename T>
+int launch(const void* hu, const void* hi, const void* b0, int B, int I, const void* weights,
+           const Tower& tw, bool resident, size_t smem, void* out, cudaStream_t stream) {
+  int dev = 0, sms = 0, occ = 0;
+  const long long tiles =
+      (long long)((B + kUsers - 1) / kUsers) * ((I + kItems - 1) / kItems);
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(tower_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, tower_kernel<T>, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long full = (long long)sms * (occ > 0 ? occ : 1);
+  const int blocks = (int)(full < tiles ? full : tiles);
+  tower_kernel<T><<<blocks, kThreads, smem, stream>>>((const T*)hu, (const T*)hi, (const T*)b0,
+                                                      B, I, (const T*)weights, tw,
+                                                      resident ? 1 : 0, (T*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// hu [B, w0], hi [I, w0]; weights: per product l, W_l [w_l, w_{l+1}] then
+// hu [B, w0], hi [I, w0], b0 [w0]; weights: per product l, W_l [w_l, w_{l+1}] then
 // b_l [w_{l+1}], then w_out [w_n] and b_out padded to 4 (every width a
-// multiple of 4, padded with zeros); out [B, I] sigmoid probabilities
-extern "C" int conet_tower(const void* hu, const void* hi, int B, int I, const void* weights,
-                           int n, int w0, int w1, int w2, int w3, int w4, int w5, void* out,
-                           void* stream) {
+// multiple of 4, padded with zeros); out [B, I] sigmoid probabilities; every
+// one of them of the type dtype: 0 float32, 1 bfloat16, 2 float16
+extern "C" int conet_tower(const void* hu, const void* hi, const void* b0, int B, int I,
+                           const void* weights, int n, int w0, int w1, int w2, int w3,
+                           int w4, int w5, void* out, int dtype, void* stream) {
   Tower tw{};
   tw.n = n;
   const int ws[kMaxLayers + 1] = {w0, w1, w2, w3, w4, w5};
@@ -212,19 +248,12 @@ extern "C" int conet_tower(const void* hu, const void* hi, int B, int I, const v
   const bool resident = smem_bytes(tw, true) <= kSmemLimit;
   const size_t smem = smem_bytes(tw, resident);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, occ = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(tower_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, tower_kernel, kThreads, smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long full = (long long)sms * (occ > 0 ? occ : 1);
-  const int blocks = (int)(full < tiles ? full : tiles);
-  tower_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)hu, (const float*)hi, B, I, (const float*)weights, tw, resident ? 1 : 0,
-      (float*)out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return launch<float>(hu, hi, b0, B, I, weights, tw, resident, smem, out, st);
+    case 1:
+      return launch<__nv_bfloat16>(hu, hi, b0, B, I, weights, tw, resident, smem, out, st);
+    case 2: return launch<__half>(hu, hi, b0, B, I, weights, tw, resident, smem, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -48,15 +48,38 @@
 // adds the blocks' partials in block order. No atomics: every result is
 // bit-reproducible from run to run. Not done yet: the two D x D products on
 // the tensor cores (3xTF32 keeps float32 accuracy).
+//
+// B16-bf16, the 16-bit form (DeepAPF under compute_dtype: bfloat16; float16
+// through the same templates): every operand and output is 16-bit (the rows
+// or tables, the weights, the logits' gradient; the logits, the grid's
+// probabilities, every gradient). Values are widened exactly as they are
+// staged (shared memory stays float32, the tiling unchanged); each dot and
+// each sum accumulates in float32 and is rounded to the 16-bit type where
+// JAX's bf16 _forward has a named intermediate: x_s and x_o, x @ W + b, the
+// a's, alpha after the softmax, entity_e, the logit, and the grid's sigmoid.
+// The masked share logit stays the float32 kMasked: under float16 JAX's
+// -1e31 is -inf, and both give alpha_s = 0 exactly and no NaN. The backward
+// is the float32 chain rule on those rounded values (a rounding passes its
+// gradient through unchanged; the softmax's slope at its unrounded value),
+// each gradient rounded once to the operands' type: the rows' as they are
+// written, the weights' after the block-order sum. The float32 form is the
+// same template with every rounding the identity.
 
 #include <cmath>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "float16.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr float kMasked = -1e31f;
+
+template <typename T>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<T>(v.x), rnd<T>(v.y), rnd<T>(v.z), rnd<T>(v.w));
+}
 
 template <int D>
 struct Shape {
@@ -98,7 +121,7 @@ struct Smem {
   float* pl;     // [D]
   float* a;      // [ROWS] attention logits
   float* da;     // [ROWS] their gradients (backward)
-  float* al;     // [2 TP] al_s, then al_o
+  float* al;     // [2 TP] al_s, then al_o, rounded to the operands' type
   float* g;      // [TP] the logits' gradients (backward)
   int* msk;      // [TP] the share logit is masked
   int* ent;      // [TP] entity row, -1 past the last pair
@@ -133,10 +156,11 @@ __device__ Smem carve(unsigned char* base, bool backward) {
 // where a launch's pairs come from: gathered rows (pair q is row q of
 // share, only, other) or, for the grid, the tables and the ids (pair q =
 // b I + i of users[b] x items[i])
+template <typename T>
 struct Pairs {
-  const float* share;
-  const float* only;
-  const float* other;
+  const T* share;
+  const T* only;
+  const T* other;
   const uint8_t* mask;  // pair mode: the share logit is masked
   const int* users;     // grid mode
   const int* items;
@@ -145,10 +169,6 @@ struct Pairs {
   int entity_is_item;
   long long n;          // pairs
 };
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
 
 __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
   return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y), __fmul_rn(a.z, b.z),
@@ -162,26 +182,26 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <int D>
-__device__ void stage_weights(const float* __restrict__ W, const float* __restrict__ b,
-                              const float* __restrict__ w2, const float* __restrict__ pl,
+template <int D, typename T>
+__device__ void stage_weights(const T* __restrict__ W, const T* __restrict__ b,
+                              const T* __restrict__ w2, const T* __restrict__ pl,
                               bool transpose, Smem& m) {
   for (int i = threadIdx.x; i < D * D; i += kThreads) {
-    const float w = __ldg(W + i);
+    const float w = ld1(W + i);
     m.W[i] = w;
     if (transpose) m.WT[(i % D) * D + i / D] = w;
   }
   for (int d = threadIdx.x; d < D; d += kThreads) {
-    m.b[d] = __ldg(b + d);
-    m.w2[d] = __ldg(w2 + d);
-    m.pl[d] = __ldg(pl + d);
+    m.b[d] = ld1(b + d);
+    m.w2[d] = ld1(w2 + d);
+    m.pl[d] = ld1(pl + d);
   }
 }
 
-// The tile of pairs [q0, q0 + TP): their rows, x, masks (and the logits'
-// gradients). Ends synchronised.
-template <int D, bool kGrid>
-__device__ void load_tile(const Pairs& pr, long long q0, const float* __restrict__ g, Smem& m) {
+// The tile of pairs [q0, q0 + TP): their rows, x (rounded to T), masks (and
+// the logits' gradients). Ends synchronised.
+template <int D, bool kGrid, typename T>
+__device__ void load_tile(const Pairs<T>& pr, long long q0, const T* __restrict__ g, Smem& m) {
   using S = Shape<D>;
   const int tid = threadIdx.x;
   for (int j = tid; j < S::TP; j += kThreads) {
@@ -201,7 +221,7 @@ __device__ void load_tile(const Pairs& pr, long long q0, const float* __restrict
     m.ent[j] = ent;
     m.oth[j] = oth;
     m.msk[j] = masked;
-    if (g != nullptr) m.g[j] = ok ? __ldg(g + q) : 0.f;
+    if (g != nullptr) m.g[j] = ok ? ld1(g + q) : 0.f;
   }
   __syncthreads();
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -211,15 +231,15 @@ __device__ void load_tile(const Pairs& pr, long long q0, const float* __restrict
     float4 ev = zero, ov = zero, tv = zero;
     if (ent >= 0) {
       const long long er = (long long)ent * D + d, orow = (long long)m.oth[j] * D + d;
-      ev = ldg4(pr.share + er);
-      ov = ldg4(pr.only + er);
-      tv = ldg4(pr.other + orow);
+      ev = ld4(pr.share + er);
+      ov = ld4(pr.only + er);
+      tv = ld4(pr.other + orow);
     }
     *reinterpret_cast<float4*>(m.E + j * S::PS + d) = ev;
     *reinterpret_cast<float4*>(m.O + j * S::PS + d) = ov;
     *reinterpret_cast<float4*>(m.T + j * S::PS + d) = tv;
-    *reinterpret_cast<float4*>(m.X + j * S::XS + d) = mul4(ev, tv);
-    *reinterpret_cast<float4*>(m.X + (S::TP + j) * S::XS + d) = mul4(ov, tv);
+    *reinterpret_cast<float4*>(m.X + j * S::XS + d) = rnd4<T>(mul4(ev, tv));
+    *reinterpret_cast<float4*>(m.X + (S::TP + j) * S::XS + d) = rnd4<T>(mul4(ov, tv));
   }
   __syncthreads();
 }
@@ -251,8 +271,8 @@ __device__ __forceinline__ void product(const float* __restrict__ in, const floa
 }
 
 // z = x @ W + b into acc (kept for the backward) and a = relu(z) . w2 of
-// every row into m.a. Ends synchronised.
-template <int D>
+// every row into m.a, each rounded to T. Ends synchronised.
+template <int D, typename T>
 __device__ void attention_logits(Smem& m, float z[4][4]) {
   using S = Shape<D>;
   const int tx = threadIdx.x % S::C4, ty = threadIdx.x / S::C4;
@@ -262,16 +282,16 @@ __device__ void attention_logits(Smem& m, float z[4][4]) {
     float part = 0.f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      z[r][c] = __fadd_rn(z[r][c], m.b[4 * tx + c]);
+      z[r][c] = rnd<T>(__fadd_rn(z[r][c], m.b[4 * tx + c]));
       part = fmaf(fmaxf(z[r][c], 0.f), m.w2[4 * tx + c], part);
     }
     part = group_sum<S::C4>(part);
-    if (tx == 0) m.a[ty + S::RT * r] = part;
+    if (tx == 0) m.a[ty + S::RT * r] = rnd<T>(part);
   }
   __syncthreads();
 }
 
-// the softmax of pair j: (al_s, al_o)
+// the softmax of pair j: (al_s, al_o), unrounded
 template <int D>
 __device__ __forceinline__ void softmax2(const Smem& m, int j, float& als, float& alo) {
   using S = Shape<D>;
@@ -284,11 +304,10 @@ __device__ __forceinline__ void softmax2(const Smem& m, int j, float& als, float
   alo = __fdiv_rn(eo, sum);
 }
 
-template <int D, bool kGrid>
+template <int D, bool kGrid, typename T>
 __global__ void __launch_bounds__(kThreads)
-forward_kernel(Pairs pr, const float* __restrict__ W, const float* __restrict__ b,
-               const float* __restrict__ w2, const float* __restrict__ pl,
-               float* __restrict__ out) {
+forward_kernel(Pairs<T> pr, const T* __restrict__ W, const T* __restrict__ b,
+               const T* __restrict__ w2, const T* __restrict__ pl, T* __restrict__ out) {
   using S = Shape<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   Smem m = carve<D>(smem, false);
@@ -297,32 +316,33 @@ forward_kernel(Pairs pr, const float* __restrict__ W, const float* __restrict__ 
   const long long tiles = (pr.n + S::TP - 1) / S::TP;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long q0 = t * S::TP;
-    load_tile<D, kGrid>(pr, q0, nullptr, m);
+    load_tile<D, kGrid>(pr, q0, (const T*)nullptr, m);
     float z[4][4];
-    attention_logits<D>(m, z);
+    attention_logits<D, T>(m, z);
     float als, alo;
     softmax2<D>(m, j, als, alo);
+    als = rnd<T>(als);
+    alo = rnd<T>(alo);
     float acc = 0.f;
 #pragma unroll
     for (int v = 0; v < S::V; ++v) {
       const int d = l + S::G * v;
-      const float ent = __fadd_rn(__fmul_rn(als, m.E[j * S::PS + d]),
-                                  __fmul_rn(alo, m.O[j * S::PS + d]));
+      const float ent = rnd<T>(__fadd_rn(__fmul_rn(als, m.E[j * S::PS + d]),
+                                         __fmul_rn(alo, m.O[j * S::PS + d])));
       acc = fmaf(__fmul_rn(ent, m.T[j * S::PS + d]), m.pl[d], acc);
     }
-    acc = group_sum<S::G>(acc);
+    acc = rnd<T>(group_sum<S::G>(acc));
     if (l == 0 && q0 + j < pr.n)
-      out[q0 + j] = kGrid ? __fdiv_rn(1.f, __fadd_rn(1.f, expf(-acc))) : acc;
+      st1(out + q0 + j, kGrid ? rnd<T>(__fdiv_rn(1.f, __fadd_rn(1.f, expf(-acc)))) : acc);
     __syncthreads();
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-backward_kernel(Pairs pr, const float* __restrict__ W, const float* __restrict__ b,
-                const float* __restrict__ w2, const float* __restrict__ pl,
-                const float* __restrict__ g, float* __restrict__ d_share,
-                float* __restrict__ d_only, float* __restrict__ d_other,
+backward_kernel(Pairs<T> pr, const T* __restrict__ W, const T* __restrict__ b,
+                const T* __restrict__ w2, const T* __restrict__ pl, const T* __restrict__ g,
+                T* __restrict__ d_share, T* __restrict__ d_only, T* __restrict__ d_other,
                 float* __restrict__ partial) {
   using S = Shape<D>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -347,10 +367,11 @@ backward_kernel(Pairs pr, const float* __restrict__ W, const float* __restrict__
     const long long q0 = t * S::TP;
     load_tile<D, false>(pr, q0, g, m);
     float z[4][4];
-    attention_logits<D>(m, z);
+    attention_logits<D, T>(m, z);
 
     // the pair stage's chain rule: d(al) from d(ent) = g t pl, then the
-    // softmax's d(a_s) = al_s al_o (d al_s - d al_o), d(a_o) = -d(a_s)
+    // softmax's d(a_s) = al_s al_o (d al_s - d al_o), d(a_o) = -d(a_s), its
+    // slope at the unrounded al; the rounded al stay for the rows' gradients
     {
       float als, alo;
       softmax2<D>(m, j, als, alo);
@@ -370,8 +391,8 @@ backward_kernel(Pairs pr, const float* __restrict__ W, const float* __restrict__
             m.msk[j] ? 0.f : __fmul_rn(__fmul_rn(als, alo), __fsub_rn(ds, dov));
         m.da[j] = das;
         m.da[S::TP + j] = -das;
-        m.al[j] = als;
-        m.al[S::TP + j] = alo;
+        m.al[j] = rnd<T>(als);
+        m.al[S::TP + j] = rnd<T>(alo);
       }
     }
     __syncthreads();
@@ -428,14 +449,15 @@ backward_kernel(Pairs pr, const float* __restrict__ W, const float* __restrict__
         const int d = l + S::G * v;
         const float e = m.E[j * S::PS + d], o = m.O[j * S::PS + d], tt = m.T[j * S::PS + d];
         const float dxs = m.X[j * S::XS + d], dxo = m.X[(S::TP + j) * S::XS + d];
-        const float ent = __fadd_rn(__fmul_rn(als, e), __fmul_rn(alo, o));
+        const float ent = rnd<T>(__fadd_rn(__fmul_rn(als, e), __fmul_rn(alo, o)));
         const float gent = __fmul_rn(gj, ent);
         const float dent = __fmul_rn(__fmul_rn(gj, tt), m.pl[d]);
         acc_pl[v] = fmaf(gent, tt, acc_pl[v]);
         if (ok) {
-          d_share[q * D + d] = fmaf(dxs, tt, __fmul_rn(als, dent));
-          d_only[q * D + d] = fmaf(dxo, tt, __fmul_rn(alo, dent));
-          d_other[q * D + d] = fmaf(dxo, o, fmaf(dxs, e, __fmul_rn(gent, m.pl[d])));
+          st1(d_share + q * D + d, rnd<T>(fmaf(dxs, tt, __fmul_rn(als, dent))));
+          st1(d_only + q * D + d, rnd<T>(fmaf(dxo, tt, __fmul_rn(alo, dent))));
+          st1(d_other + q * D + d,
+              rnd<T>(fmaf(dxo, o, fmaf(dxs, e, __fmul_rn(gent, m.pl[d])))));
         }
       }
     }
@@ -478,14 +500,15 @@ backward_kernel(Pairs pr, const float* __restrict__ W, const float* __restrict__
   }
 }
 
-// out[i] = sum over blocks k, in order, of partial[k, i]
+// out[i] = sum over blocks k, in order, of partial[k, i], rounded to T
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-reduce_kernel(const float* __restrict__ partial, int blocks, int n, float* __restrict__ out) {
+reduce_kernel(const float* __restrict__ partial, int blocks, int n, T* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
   for (int k = 0; k < blocks; ++k) s = __fadd_rn(s, partial[(long long)k * n + i]);
-  out[i] = s;
+  st1(out + i, rnd<T>(s));
 }
 
 // blocks of a persistent launch: every SM full, never more blocks than tiles
@@ -504,70 +527,103 @@ int persistent_blocks(K kernel, size_t smem, long long tiles) {
   return (int)(full < tiles ? full : tiles);
 }
 
-template <int D, bool kGrid>
-int forward(const Pairs& pr, const float* W, const float* b, const float* w2, const float* pl,
-            float* out, cudaStream_t stream) {
+template <int D, bool kGrid, typename T>
+int forward(const Pairs<T>& pr, const T* W, const T* b, const T* w2, const T* pl, T* out,
+            cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(false);
   const long long tiles = (pr.n + Shape<D>::TP - 1) / Shape<D>::TP;
-  const int blocks = persistent_blocks(forward_kernel<D, kGrid>, smem, tiles);
+  const int blocks = persistent_blocks(forward_kernel<D, kGrid, T>, smem, tiles);
   if (blocks < 0) return -blocks;
   if (blocks > 0)
-    forward_kernel<D, kGrid><<<blocks, kThreads, smem, stream>>>(pr, W, b, w2, pl, out);
+    forward_kernel<D, kGrid, T><<<blocks, kThreads, smem, stream>>>(pr, W, b, w2, pl, out);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int backward(const Pairs& pr, const float* W, const float* b, const float* w2, const float* pl,
-             const float* g, float* d_share, float* d_only, float* d_other, float* partial,
-             int blocks, float* out, cudaStream_t stream) {
+template <int D, typename T>
+int backward(const Pairs<T>& pr, const T* W, const T* b, const T* w2, const T* pl, const T* g,
+             T* d_share, T* d_only, T* d_other, float* partial, int blocks, T* out,
+             cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(true);
   const int n = Shape<D>::NPART;
   if (blocks > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
-        backward_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        backward_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    backward_kernel<D><<<blocks, kThreads, smem, stream>>>(pr, W, b, w2, pl, g, d_share,
-                                                            d_only, d_other, partial);
+    backward_kernel<D, T><<<blocks, kThreads, smem, stream>>>(pr, W, b, w2, pl, g, d_share,
+                                                               d_only, d_other, partial);
     const cudaError_t e2 = cudaGetLastError();
     if (e2 != cudaSuccess) return (int)e2;
   } else {
     const cudaError_t e = cudaMemsetAsync(partial, 0, (size_t)n * sizeof(float), stream);
     if (e != cudaSuccess) return (int)e;
   }
-  reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+  reduce_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       partial, blocks > 0 ? blocks : 1, n, out);
   return (int)cudaGetLastError();
 }
 
-Pairs gathered(const void* share, const void* only, const void* other, const void* mask,
-               int P) {
-  Pairs pr{};
-  pr.share = (const float*)share;
-  pr.only = (const float*)only;
-  pr.other = (const float*)other;
+template <typename T>
+Pairs<T> gathered(const void* share, const void* only, const void* other, const void* mask,
+                  int P) {
+  Pairs<T> pr{};
+  pr.share = (const T*)share;
+  pr.only = (const T*)only;
+  pr.other = (const T*)other;
   pr.mask = (const uint8_t*)mask;
   pr.n = P;
   return pr;
 }
 
+template <typename T>
+Pairs<T> grid_pairs(const void* share_tab, const void* only_tab, const void* other_tab,
+                    const void* users, const void* items, int B, int I, int overlapped,
+                    int entity_is_item) {
+  Pairs<T> pr{};
+  pr.share = (const T*)share_tab;
+  pr.only = (const T*)only_tab;
+  pr.other = (const T*)other_tab;
+  pr.users = (const int*)users;
+  pr.items = (const int*)items;
+  pr.I = I;
+  pr.overlapped = overlapped;
+  pr.entity_is_item = entity_is_item;
+  pr.n = (long long)B * I;
+  return pr;
+}
+
 }  // namespace
 
-#define DEEPAPF_W (const float*)W, (const float*)b, (const float*)w2, (const float*)pl
+// Each entry takes the operands' type code, dtype: 0 float32, 1 bfloat16, 2
+// float16 (every floating operand and output of one call has that type; the
+// partial sums stay float32), and the width D (32, 64 or 128); the pair (D,
+// dtype) picks the instance, and any other pair returns INVALID.
+#define DEEPAPF_DISPATCH(CALL, INVALID)                               \
+  switch (dtype * 1000 + D) {                                         \
+    case 32: return CALL(32, float);                                  \
+    case 64: return CALL(64, float);                                  \
+    case 128: return CALL(128, float);                                \
+    case 1032: return CALL(32, __nv_bfloat16);                        \
+    case 1064: return CALL(64, __nv_bfloat16);                        \
+    case 1128: return CALL(128, __nv_bfloat16);                       \
+    case 2032: return CALL(32, __half);                               \
+    case 2064: return CALL(64, __half);                               \
+    case 2128: return CALL(128, __half);                              \
+    default: return (INVALID);                                        \
+  }
+
+#define DEEPAPF_W(T) (const T*)W, (const T*)b, (const T*)w2, (const T*)pl
 
 // share, only, other: [P, D] gathered rows; mask: [P] bool; W [D, D], b
 // [D], w2 [D], pl [D]; out: [P] logits
 extern "C" int deepapf_forward(const void* share, const void* only, const void* other,
                                const void* mask, const void* W, const void* b, const void* w2,
-                               const void* pl, int P, int D, void* out, void* stream) {
-  const Pairs pr = gathered(share, only, other, mask, P);
-  cudaStream_t st = (cudaStream_t)stream;
-  float* o = (float*)out;
-  switch (D) {
-    case 32: return forward<32, false>(pr, DEEPAPF_W, o, st);
-    case 64: return forward<64, false>(pr, DEEPAPF_W, o, st);
-    case 128: return forward<128, false>(pr, DEEPAPF_W, o, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                               const void* pl, int P, int D, void* out, int dtype,
+                               void* stream) {
+#define DEEPAPF_FWD(d, T)                                                                 \
+  forward<d, false, T>(gathered<T>(share, only, other, mask, P), DEEPAPF_W(T), (T*)out,   \
+                       (cudaStream_t)stream)
+  DEEPAPF_DISPATCH(DEEPAPF_FWD, (int)cudaErrorInvalidValue)
+#undef DEEPAPF_FWD
 }
 
 // share_tab, only_tab: the entity side's tables; other_tab: the other
@@ -575,58 +631,36 @@ extern "C" int deepapf_forward(const void* share, const void* only, const void* 
 extern "C" int deepapf_grid(const void* share_tab, const void* only_tab, const void* other_tab,
                             const void* users, const void* items, int B, int I, int overlapped,
                             int entity_is_item, const void* W, const void* b, const void* w2,
-                            const void* pl, int D, void* out, void* stream) {
-  Pairs pr{};
-  pr.share = (const float*)share_tab;
-  pr.only = (const float*)only_tab;
-  pr.other = (const float*)other_tab;
-  pr.users = (const int*)users;
-  pr.items = (const int*)items;
-  pr.I = I;
-  pr.overlapped = overlapped;
-  pr.entity_is_item = entity_is_item;
-  pr.n = (long long)B * I;
-  cudaStream_t st = (cudaStream_t)stream;
-  float* o = (float*)out;
-  switch (D) {
-    case 32: return forward<32, true>(pr, DEEPAPF_W, o, st);
-    case 64: return forward<64, true>(pr, DEEPAPF_W, o, st);
-    case 128: return forward<128, true>(pr, DEEPAPF_W, o, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                            const void* pl, int D, void* out, int dtype, void* stream) {
+#define DEEPAPF_GRID(d, T)                                                              \
+  forward<d, true, T>(grid_pairs<T>(share_tab, only_tab, other_tab, users, items, B, I, \
+                                    overlapped, entity_is_item),                        \
+                      DEEPAPF_W(T), (T*)out, (cudaStream_t)stream)
+  DEEPAPF_DISPATCH(DEEPAPF_GRID, (int)cudaErrorInvalidValue)
+#undef DEEPAPF_GRID
 }
 
 // the backward's block count for P pairs (its partial-sum scratch has one
 // row per block), or minus a CUDA error code
-extern "C" int deepapf_backward_blocks(int D, int P) {
-#define DEEPAPF_BLOCKS(d)                                                       \
-  persistent_blocks(backward_kernel<d>, smem_bytes<d>(true),                   \
+extern "C" int deepapf_backward_blocks(int D, int P, int dtype) {
+#define DEEPAPF_BLOCKS(d, T)                                                    \
+  persistent_blocks(backward_kernel<d, T>, smem_bytes<d>(true),                 \
                     ((long long)P + Shape<d>::TP - 1) / Shape<d>::TP)
-  switch (D) {
-    case 32: return DEEPAPF_BLOCKS(32);
-    case 64: return DEEPAPF_BLOCKS(64);
-    case 128: return DEEPAPF_BLOCKS(128);
-    default: return -(int)cudaErrorInvalidValue;
-  }
+  DEEPAPF_DISPATCH(DEEPAPF_BLOCKS, -(int)cudaErrorInvalidValue)
 #undef DEEPAPF_BLOCKS
 }
 
-// g: [P]; d_share, d_only, d_other: [P, D]; partial: [max(blocks, 1), D*D +
-// 3D]; out: the summed weight gradients [dW | db | dw2 | dpl]
+// g: [P]; d_share, d_only, d_other: [P, D]; partial: float32 [max(blocks,
+// 1), D*D + 3D]; out: the summed weight gradients [dW | db | dw2 | dpl]
 extern "C" int deepapf_backward(const void* share, const void* only, const void* other,
                                 const void* mask, const void* W, const void* b, const void* w2,
                                 const void* pl, int P, int D, const void* g, void* d_share,
                                 void* d_only, void* d_other, void* partial, int blocks,
-                                void* out, void* stream) {
-  const Pairs pr = gathered(share, only, other, mask, P);
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* gg = (const float*)g;
-  float *ds = (float*)d_share, *dn = (float*)d_only, *dt = (float*)d_other;
-  float *pa = (float*)partial, *o = (float*)out;
-  switch (D) {
-    case 32: return backward<32>(pr, DEEPAPF_W, gg, ds, dn, dt, pa, blocks, o, st);
-    case 64: return backward<64>(pr, DEEPAPF_W, gg, ds, dn, dt, pa, blocks, o, st);
-    case 128: return backward<128>(pr, DEEPAPF_W, gg, ds, dn, dt, pa, blocks, o, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                                void* out, int dtype, void* stream) {
+#define DEEPAPF_BWD(d, T)                                                                   \
+  backward<d, T>(gathered<T>(share, only, other, mask, P), DEEPAPF_W(T), (const T*)g,       \
+                 (T*)d_share, (T*)d_only, (T*)d_other, (float*)partial, blocks, (T*)out,     \
+                 (cudaStream_t)stream)
+  DEEPAPF_DISPATCH(DEEPAPF_BWD, (int)cudaErrorInvalidValue)
+#undef DEEPAPF_BWD
 }

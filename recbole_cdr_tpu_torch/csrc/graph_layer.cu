@@ -52,12 +52,10 @@
 // cotangent of side) and gx. The float32 form is the same template with
 // every rounding the identity.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "float16.cuh"
 
 namespace {
 
@@ -68,44 +66,6 @@ template <int VEC>
 struct F {
   float v[VEC];
 };
-
-// one value of type T, widened to float32
-__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
-  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
-}
-__device__ __forceinline__ float ld1(const __half* p) {
-  return __half2float(__ushort_as_half(__ldg(reinterpret_cast<const unsigned short*>(p))));
-}
-
-// a 16-bit value's bits widened to float32
-template <typename T>
-__device__ __forceinline__ float from_bits(unsigned b);
-template <>
-__device__ __forceinline__ float from_bits<__nv_bfloat16>(unsigned b) {
-  return __uint_as_float(b << 16);
-}
-template <>
-__device__ __forceinline__ float from_bits<__half>(unsigned b) {
-  return __half2float(__ushort_as_half((unsigned short)b));
-}
-
-// float32 rounded to nearest in T: its bits, and the rounded value widened
-template <typename T>
-__device__ __forceinline__ unsigned to_bits(float x);
-template <>
-__device__ __forceinline__ unsigned to_bits<__nv_bfloat16>(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-template <>
-__device__ __forceinline__ unsigned to_bits<__half>(float x) {
-  return __half_as_ushort(__float2half_rn(x));
-}
-template <typename T>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (std::is_same_v<T, float>) return x;
-  else return from_bits<T>(to_bits<T>(x));
-}
 
 template <int VEC, typename T>
 __device__ __forceinline__ F<VEC> load(const T* p) {

@@ -75,75 +75,15 @@
 
 #include <cfloat>
 #include <cmath>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "float16.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-// ---- the operands' types -----------------------------------------------------
-
-template <typename T>
-constexpr bool kWide = std::is_same_v<T, float>;
-
-// a 16-bit value's bits widened to float32, and float32 rounded to nearest
-// in T as bits
-template <typename T>
-__device__ __forceinline__ float from_bits(unsigned b);
-template <>
-__device__ __forceinline__ float from_bits<__nv_bfloat16>(unsigned b) {
-  return __uint_as_float(b << 16);
-}
-template <>
-__device__ __forceinline__ float from_bits<__half>(unsigned b) {
-  return __half2float(__ushort_as_half((unsigned short)b));
-}
-template <typename T>
-__device__ __forceinline__ unsigned to_bits(float x);
-template <>
-__device__ __forceinline__ unsigned to_bits<__nv_bfloat16>(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-template <>
-__device__ __forceinline__ unsigned to_bits<__half>(float x) {
-  return __half_as_ushort(__float2half_rn(x));
-}
-
-// x rounded to nearest in T, as a float32 (the identity for float32)
-template <typename T>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (kWide<T>) return x;
-  else return from_bits<T>(to_bits<T>(x));
-}
-
-// one value of T widened, four consecutive ones widened, one stored (the
-// value already rounded to T)
-template <typename T>
-__device__ __forceinline__ float ld1(const T* p) {
-  if constexpr (kWide<T>) return __ldg(p);
-  else return from_bits<T>(__ldg(reinterpret_cast<const unsigned short*>(p)));
-}
-template <typename T>
-__device__ __forceinline__ float4 ld4(const T* p) {
-  if constexpr (kWide<T>) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  } else {
-    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-    return make_float4(from_bits<T>(t.x & 0xFFFFu), from_bits<T>(t.x >> 16),
-                       from_bits<T>(t.y & 0xFFFFu), from_bits<T>(t.y >> 16));
-  }
-}
-template <typename T>
-__device__ __forceinline__ void st1(T* p, float v) {
-  if constexpr (kWide<T>) *p = v;
-  else *reinterpret_cast<unsigned short*>(p) = (unsigned short)to_bits<T>(v);
-}
 
 template <int D>
 struct Shape {

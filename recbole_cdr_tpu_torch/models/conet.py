@@ -11,10 +11,16 @@ start with each domain's rows outside it zeroed.
 Training runs the towers as torch products with autograd, as the JAX
 package leaves them to XLA. ``predict`` runs the target tower alone. The
 full-sort form goes through kernel B15 (``ops/conet_tower.py``): the first
-layer splits into a user half ``u @ W_u + b0``, built per tile, and an
-item half ``i @ W_i`` over the target item prefix, built once per parameter
-version; the kernel runs the rest of the tower on every (user, item) pair
-of the tile without materialising the [B, I, H0] hidden.
+layer splits into a user half ``u @ W_u``, built per tile, and an item half
+``i @ W_i`` over the target item prefix, built once per parameter version;
+the kernel adds the layer's bias to their sum and runs the rest of the
+tower on every (user, item) pair of the tile without materialising the [B,
+I, H0] hidden.
+
+Under ``compute_dtype: bfloat16`` (or float16) the trainer hands every call
+16-bit copies of the parameters: the towers train in 16 bits, as JAX's
+``_coupled_towers`` does under its cast (``reg_loss`` upcasts), and the
+full-sort reaches B15's 16-bit form with the item half cached in that type.
 """
 
 import torch
@@ -30,7 +36,6 @@ from recbole_cdr_tpu_torch.models.base import (
 )
 from recbole_cdr_tpu_torch.ops.conet_tower import conet_tower
 from recbole_cdr_tpu_torch.utils.enums import InputType
-from recbole_cdr_tpu_torch.utils.precision import require_float32_compute
 
 
 class CoNet(CrossDomainRecommender):
@@ -38,7 +43,6 @@ class CoNet(CrossDomainRecommender):
 
     def __init__(self, config, dataset):
         super().__init__(config, dataset)
-        require_float32_compute(config, "CoNet (kernel B15)")
         self.mode = self._overlap_mode("CoNet")
         self.latent_dim = config["embedding_size"]
         self.reg_weight = float(config["reg_weight"])
@@ -105,18 +109,20 @@ class CoNet(CrossDomainRecommender):
     def _item_half(self):
         """``i @ W_i`` of every target item, once per parameter version
         (``params_version``, bumped by the training step and by
-        ``load_state_dict``): an evaluation pass builds it once."""
+        ``load_state_dict``) and compute type: an evaluation pass builds it
+        once."""
+        w_i = self.target_tower[0].w[self.latent_dim:]
+
         def build():
             with torch.no_grad():
-                w_i = self.target_tower[0].w[self.latent_dim:]
                 return torch.matmul(self.target_item_embedding[:self.target_num_items], w_i)
-        return self._per_version("item_half", build)
+        return self._per_version(f"item_half:{w_i.dtype}", build)
 
     def full_sort(self, users, phase: str = "TARGET"):
         """[B, target_num_items] probabilities of the target tower, through
-        one B15 launch."""
+        one B15 launch (its 16-bit form under a 16-bit ``compute_dtype``)."""
         first = self.target_tower[0]
-        hu = torch.matmul(self.target_user_embedding[users.long()],
-                          first.w[:self.latent_dim]) + first.b
+        hu = torch.matmul(self.target_user_embedding[users.long()], first.w[:self.latent_dim])
         layers = [(layer.w, layer.b) for layer in self.target_tower[1:]]
-        return conet_tower(hu, self._item_half(), layers, (self.target_out.w, self.target_out.b))
+        return conet_tower(hu, self._item_half(), first.b, layers,
+                           (self.target_out.w, self.target_out.b))

@@ -17,6 +17,10 @@ No full-sort form, as in JAX: the trainer scores full-sort evaluation
 through :meth:`predict_grid`, the predict fallback, which scores a whole
 tile in one launch of B16's grid form (the rows read from the tables by
 id, no [B I, D] pair tensor).
+
+Under ``compute_dtype: bfloat16`` (or float16) the trainer hands every call
+16-bit copies of the tables and weights, so the pairs and the grid reach
+B16's 16-bit forms (``deepapf_*_bf16``): 16-bit logits and probabilities.
 """
 
 import torch
@@ -31,7 +35,6 @@ from recbole_cdr_tpu_torch.models.base import (
 )
 from recbole_cdr_tpu_torch.ops.deepapf_attention import Weights, deepapf_attention, deepapf_grid
 from recbole_cdr_tpu_torch.utils.enums import InputType
-from recbole_cdr_tpu_torch.utils.precision import require_float32_compute
 
 
 class _Head(nn.Module):
@@ -48,7 +51,6 @@ class DeepAPF(CrossDomainRecommender):
 
     def __init__(self, config, dataset):
         super().__init__(config, dataset)
-        require_float32_compute(config, "DeepAPF (kernel B16)")
         assert self.overlapped_num_items == 1 or self.overlapped_num_users == 1, (
             "DeepAPF model only support user overlapped or item overlapped dataset! "
         )

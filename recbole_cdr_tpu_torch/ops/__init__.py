@@ -61,6 +61,10 @@ WRAPPERS = {
     "natr_attention_backward_bf16": natr_attention.natr_attention_backward_bf16,
     "natr_anchor_table_bf16": natr_attention.natr_anchor_table_bf16,
     "natr_pair_grid_bf16": natr_attention.natr_pair_grid_bf16,
+    "conet_tower_bf16": conet_tower.conet_tower_bf16,
+    "deepapf_forward_bf16": deepapf_attention.deepapf_forward_bf16,
+    "deepapf_backward_bf16": deepapf_attention.deepapf_backward_bf16,
+    "deepapf_grid_bf16": deepapf_attention.deepapf_grid_bf16,
 }
 
 

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ctypes. All sources compile in parallel (one ``nvcc`` process each) on first
 use, into ``build/kernels/`` beside the package (override with the
 ``RECBOLE_CDR_TORCH_BUILD_DIR`` environment variable). A library's file name
-carries a hash of its source and flags, so an edited source rebuilds and an
-unchanged one is reused.
+carries a hash of its source, the shared headers of ``csrc/`` (``*.cuh``)
+and the flags, so an edited source or header rebuilds and an unchanged one
+is reused.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code.
@@ -36,6 +37,22 @@ NVCC_FLAGS = (
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the 16-bit types among them
 FLOAT16 = (torch.bfloat16, torch.float16)
+
+
+def wide(dtype):
+    """The plain versions' working type: float32 for 16-bit operands, else
+    the operands' own (float64 in the card tests' exact references)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def rounding(dtype):
+    """A working-type tensor rounded to nearest in ``dtype`` with its
+    gradient passed through unchanged (the kernels' backward): the identity
+    unless ``dtype`` is 16-bit. The plain 16-bit versions round with it where
+    the kernels round."""
+    if wide(dtype) == dtype:
+        return lambda t: t
+    return lambda t: t + (t.to(dtype).to(t.dtype) - t).detach()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,12 +103,12 @@ _SIGNATURES = {
                                    _P],
     },
     "benchmark_topk": {"benchmark_topk": [_P] * 4 + [_I] * 5 + [_P] * 6},
-    "conet_tower": {"conet_tower": [_P, _P, _I, _I, _P] + [_I] * 7 + [_P, _P]},
+    "conet_tower": {"conet_tower": [_P, _P, _P, _I, _I, _P] + [_I] * 7 + [_P, _I, _P]},
     "deepapf_attention": {
-        "deepapf_forward": [_P] * 8 + [_I, _I, _P, _P],
-        "deepapf_grid": [_P] * 5 + [_I] * 4 + [_P] * 4 + [_I, _P, _P],
-        "deepapf_backward_blocks": [_I, _I],
-        "deepapf_backward": [_P] * 8 + [_I, _I] + [_P] * 5 + [_I, _P, _P],
+        "deepapf_forward": [_P] * 8 + [_I, _I, _P, _I, _P],
+        "deepapf_grid": [_P] * 5 + [_I] * 4 + [_P] * 4 + [_I, _P, _I, _P],
+        "deepapf_backward_blocks": [_I, _I, _I],
+        "deepapf_backward": [_P] * 8 + [_I, _I] + [_P] * 5 + [_I, _P, _I, _P],
     },
 }
 
@@ -117,9 +134,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(build_dir(), f"{name}-{digest[:16]}.so")
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC_DIR, name + ".cu")] + sorted(
+            os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(build_dir(), f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all() -> float:

@@ -2,10 +2,11 @@
 
 Port of ``recbole_cdr_tpu/models/conet.py:150-169 CoNet.full_sort_fn``.
 The target tower's first layer on ``[user_e || item_e]`` splits into a user
-half ``hu = user_e @ W_u + b0`` [B, H0] and an item half ``hi = item_e @
-W_i`` [I, H0]; for every (user, item) of a tile the kernel takes
+half ``hu = user_e @ W_u`` [B, H0], an item half ``hi = item_e @ W_i`` [I,
+H0] and the layer's bias ``b0`` [H0]; for every (user, item) of a tile the
+kernel takes
 
-    h = relu(hu[b] + hi[i]),  h = relu(h @ W_l + b_l) for the later layers,
+    h = relu((hu[b] + hi[i]) + b0),  h = relu(h @ W_l + b_l) for the later layers,
     out[b, i] = sigmoid(h @ w_out + b_out)
 
 and writes only the [B, I] probabilities: no [B, I, H0] hidden exists in
@@ -18,13 +19,19 @@ The kernel takes towers of up to ``MAX_LAYERS`` products after the first
 layer, every width at most ``MAX_WIDTH``; the wrapper pads each width to a
 multiple of 4 with zero weights (a padded unit's relu is 0) and raises on
 the card beyond those limits.
+
+Under ``compute_dtype: bfloat16`` the halves and the weights are 16-bit and
+so are the probabilities, as JAX's bf16 ``full_sort`` returns them. The
+16-bit form (:func:`conet_tower_bf16`, float16 through the same template)
+sums in float32 and rounds to the operands' type where JAX's value has a
+name: ``hu + hi``, then its sum with ``b0`` (JAX's order), each later
+layer's ``h @ W + b``, the logit and the sigmoid.
 """
 
 import torch
 import torch.nn.functional as F
 
 from recbole_cdr_tpu_torch.ops import build
-
 MAX_LAYERS = 5
 MAX_WIDTH = 128
 #: max (user, item) pairs of one chunk of the plain version (the predict
@@ -32,17 +39,21 @@ MAX_WIDTH = 128
 PAIR_BUDGET = 1 << 18
 
 
-def conet_tower_plain(hu, hi, layers, out_layer):
-    """[B, I] probabilities of the tower, item chunk by item chunk."""
+def conet_tower_plain(hu, hi, b0, layers, out_layer):
+    """[B, I] probabilities of the tower in the operands' type, item chunk by
+    item chunk (in float32 for 16-bit operands, rounded as they compute)."""
     B, I = hu.shape[0], hi.shape[0]
-    w_out, b_out = out_layer
+    dtype, r = hu.dtype, build.rounding(hu.dtype)
+    hu, hi, b0 = (t.to(build.wide(dtype)) for t in (hu, hi, b0))
+    layers = [(W.to(hu.dtype), b.to(hu.dtype)) for W, b in layers]
+    w_out, b_out = (t.to(hu.dtype) for t in out_layer)
     chunk = max(1, PAIR_BUDGET // max(B, 1))
-    parts = [torch.zeros(B, 0, dtype=hu.dtype, device=hu.device)]
+    parts = [torch.zeros(B, 0, dtype=dtype, device=hu.device)]
     for lo in range(0, I, chunk):
-        h = torch.relu(hu[:, None, :] + hi[None, lo:lo + chunk, :])
+        h = torch.relu(r(r(hu[:, None, :] + hi[None, lo:lo + chunk, :]) + b0))
         for W, b in layers:
-            h = torch.relu(h @ W + b)
-        parts.append(torch.sigmoid((h @ w_out + b_out).squeeze(-1)))
+            h = torch.relu(r(h @ W + b))
+        parts.append(r(torch.sigmoid(r(h @ w_out + b_out).squeeze(-1))).to(dtype))
     return torch.cat(parts, 1)
 
 
@@ -51,7 +62,7 @@ def _pad4(n: int) -> int:
 
 
 def packed_weights(layers, out_layer):
-    """(one float32 buffer of the padded weights, the padded widths): per
+    """(one buffer of the padded weights in their type, the padded widths): per
     layer ``W`` [w_l, w_{l+1}] then ``b``, then ``w_out`` and ``b_out`` padded
     to 4, as ``csrc/conet_tower.cu`` reads them."""
     parts, widths = [], []
@@ -66,10 +77,11 @@ def packed_weights(layers, out_layer):
     return torch.cat(parts).contiguous(), widths
 
 
-def _check(hu, hi, layers, out_layer) -> bool:
-    tensors = [hu, hi, *(t for layer in layers for t in layer), *out_layer]
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("conet_tower takes float32 halves and weights")
+def _check(hu, hi, b0, layers, out_layer, types=tuple(build.DTYPES)) -> bool:
+    tensors = [hu, hi, b0, *(t for layer in layers for t in layer), *out_layer]
+    if hu.dtype not in types or any(t.dtype != hu.dtype for t in tensors):
+        raise TypeError(f"conet_tower takes halves and weights of one type of {types}, "
+                        f"got {sorted({str(t.dtype) for t in tensors})}")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("conet_tower operands must share one device")
     dims = [hu.shape[-1]]
@@ -79,9 +91,10 @@ def _check(hu, hi, layers, out_layer) -> bool:
         dims.append(W.shape[1])
     w_out, b_out = out_layer
     if (hu.dim() != 2 or hi.dim() != 2 or hi.shape[1] != hu.shape[1]
-            or w_out.shape != (dims[-1], 1) or b_out.shape != (1,)):
+            or b0.shape != (hu.shape[1],) or w_out.shape != (dims[-1], 1)
+            or b_out.shape != (1,)):
         raise ValueError(f"conet_tower: hu {tuple(hu.shape)}, hi {tuple(hi.shape)}, "
-                         f"out {tuple(w_out.shape)}")
+                         f"b0 {tuple(b0.shape)}, out {tuple(w_out.shape)}")
     dev = hu.device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"conet_tower has no version for device {hu.device}")
@@ -91,26 +104,48 @@ def _check(hu, hi, layers, out_layer) -> bool:
     return dev == "cuda"
 
 
-def conet_tower(hu, hi, layers, out_layer):
-    """float32 [B, I] sigmoid probabilities of every (user b, item i) from
-    the user half ``hu`` [B, H0], the item half ``hi`` [I, H0], the later
-    layers ``[(W [d_in, d_out], b [d_out]), ...]`` and the output layer
-    ``(w_out [d_last, 1], b_out [1])``."""
-    if not _check(hu, hi, layers, out_layer):
-        return conet_tower_plain(hu, hi, layers, out_layer)
+def _tower(hu, hi, b0, layers, out_layer, name):
     H0 = _pad4(hu.shape[1])
-    hu = F.pad(hu, (0, H0 - hu.shape[1])).contiguous()
-    hi = F.pad(hi, (0, H0 - hi.shape[1])).contiguous()
+    hu, hi, b0 = (F.pad(t, (0, H0 - hu.shape[1])).contiguous() for t in (hu, hi, b0))
     weights, widths = packed_weights(layers, out_layer)  # widths[0] == H0
     B, I = hu.shape[0], hi.shape[0]
-    out = torch.empty(B, I, dtype=torch.float32, device=hu.device)
+    out = torch.empty(B, I, dtype=hu.dtype, device=hu.device)
     args = widths + [0] * (MAX_LAYERS + 1 - len(widths))
     err = build.library("conet_tower").conet_tower(
-        hu.data_ptr(), hi.data_ptr(), B, I, weights.data_ptr(), len(layers), *args,
-        out.data_ptr(), build.stream_handle(hu))
-    build.check(err, "conet_tower")
+        hu.data_ptr(), hi.data_ptr(), b0.data_ptr(), B, I, weights.data_ptr(), len(layers),
+        *args, out.data_ptr(), build.DTYPES[hu.dtype], build.stream_handle(hu))
+    build.check(err, name)
+    return out
+
+
+def conet_tower(hu, hi, b0, layers, out_layer):
+    """[B, I] sigmoid probabilities of every (user b, item i) from the user
+    half ``hu`` [B, H0], the item half ``hi`` [I, H0], the first layer's bias
+    ``b0`` [H0], the later layers
+    ``[(W [d_in, d_out], b [d_out]), ...]`` and the output layer ``(w_out
+    [d_last, 1], b_out [1])``, in the operands' type; 16-bit operands go to
+    :func:`conet_tower_bf16`."""
+    if not _check(hu, hi, b0, layers, out_layer):
+        return conet_tower_plain(hu, hi, b0, layers, out_layer)
+    if hu.dtype != torch.float32:
+        return conet_tower_bf16(hu, hi, b0, layers, out_layer)
+    out = _tower(hu, hi, b0, layers, out_layer, "conet_tower")
     conet_tower.launches += 1
     return out
 
 
 conet_tower.launches = 0
+
+
+def conet_tower_bf16(hu, hi, b0, layers, out_layer):
+    """B15's 16-bit form: bfloat16 (or float16) halves and weights staged
+    into the float32 tower, every layer rounded to the operands' type, 16-bit
+    probabilities."""
+    if not _check(hu, hi, b0, layers, out_layer, build.FLOAT16):
+        return conet_tower_plain(hu, hi, b0, layers, out_layer)
+    out = _tower(hu, hi, b0, layers, out_layer, "conet_tower_bf16")
+    conet_tower_bf16.launches += 1
+    return out
+
+
+conet_tower_bf16.launches = 0

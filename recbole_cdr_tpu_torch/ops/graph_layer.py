@@ -96,16 +96,10 @@ def keep_mask(bits, keep: float):
     return (mant.view(torch.float32) - 1.0) < keep
 
 
-def _wide(dtype):
-    """The plain versions' working type: float32 for a 16-bit table, else the
-    table's own (float64 in the card tests' exact references)."""
-    return torch.promote_types(dtype, torch.float32)
-
-
 def _spmm_plain(csr: CSR, x):
     """``L @ x`` in the working type: 16-bit values and rows widened to
     float32 and the products summed in float32."""
-    wide = _wide(x.dtype)
+    wide = build.wide(x.dtype)
     rows = torch.repeat_interleave(
         torch.arange(csr.row_ptr.shape[0] - 1, device=x.device),
         (csr.row_ptr[1:] - csr.row_ptr[:-1]).long())
@@ -113,17 +107,9 @@ def _spmm_plain(csr: CSR, x):
     return out.index_add_(0, rows, csr.val.to(wide)[:, None] * x[csr.col.long()].to(wide))
 
 
-def _rounding(dtype):
-    """A working-type tensor rounded to nearest in ``dtype``: the identity
-    unless ``dtype`` is 16-bit."""
-    if _wide(dtype) == dtype:
-        return lambda t: t
-    return lambda t: t.to(dtype).to(_wide(dtype))
-
-
 def graph_layer_forward_plain(csr: CSR, x, bits, keep: float):
     """(new, side) in ``x``'s type."""
-    r, xw = _rounding(x.dtype), x.to(_wide(x.dtype))
+    r, xw = build.rounding(x.dtype), x.to(build.wide(x.dtype))
     side = r(_spmm_plain(csr, x))
     new = r(xw + side + xw * side)
     if bits is not None:
@@ -137,7 +123,7 @@ def _dropped_grad(g, bits, keep):
 
 def graph_layer_backward_plain(csr_t: CSR, x, side, bits, keep: float, g):
     """gx in ``x``'s type."""
-    r, wide = _rounding(x.dtype), _wide(x.dtype)
+    r, wide = build.rounding(x.dtype), build.wide(x.dtype)
     gp = r(_dropped_grad(g.to(wide), bits, keep))
     h = r(gp + gp * x.to(wide))
     return r((gp + gp * side.to(wide)) + _spmm_plain(csr_t, h)).to(x.dtype)

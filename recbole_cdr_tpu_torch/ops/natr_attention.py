@@ -85,22 +85,8 @@ class History(NamedTuple):
 
 # ------------------------------------------------------------------ plain
 
-def _wide(dtype):
-    """The plain versions' working type: float32 for 16-bit operands."""
-    return torch.promote_types(dtype, torch.float32)
-
-
-def _rounding(dtype):
-    """A working-type tensor rounded to nearest in ``dtype`` with its
-    gradient passed through unchanged (the kernels' backward): the identity
-    unless ``dtype`` is 16-bit."""
-    if _wide(dtype) == dtype:
-        return lambda t: t
-    return lambda t: t + (t.to(dtype).to(t.dtype) - t).detach()
-
-
 def _widen(*tensors):
-    return [t.to(_wide(t.dtype)) for t in tensors]
+    return [t.to(build.wide(t.dtype)) for t in tensors]
 
 
 def _anchor(src, ids, mask, a, pu, w: Weights, r):
@@ -124,7 +110,7 @@ def anchor_plain(hist: History, anchors, pu, w: Weights):
     in ``pu``'s type."""
     src, pu_w, *ws = _widen(hist.src, pu, *w)
     su = _anchor(src, hist.ids, hist.mask, anchors.long(), pu_w, Weights(*ws),
-                 _rounding(pu.dtype))
+                 build.rounding(pu.dtype))
     return su.to(pu.dtype)
 
 
@@ -133,14 +119,14 @@ def blend_plain(su, pu, q, w: Weights):
     broadcast against each other over their leading dimensions."""
     dtype = su.dtype
     su, pu, q, *ws = _widen(su, pu, q, *w)
-    return _blend(su, pu, q, Weights(*ws), _rounding(dtype)).to(dtype)
+    return _blend(su, pu, q, Weights(*ws), build.rounding(dtype)).to(dtype)
 
 
 def _forward_wide(hist: History, anchors, pu, q, w: Weights, dtype):
     """The logits in the working type, from working-type ``pu``, ``q`` and
     weights, rounded as ``dtype`` computes."""
-    r = _rounding(dtype)
-    su = _anchor(hist.src.to(_wide(dtype)), hist.ids, hist.mask, anchors.long(), pu, w, r)
+    r = build.rounding(dtype)
+    su = _anchor(hist.src.to(build.wide(dtype)), hist.ids, hist.mask, anchors.long(), pu, w, r)
     return _blend(su, pu, q, w, r)
 
 
@@ -152,7 +138,7 @@ def natr_attention_forward_plain(hist: History, anchors, pu, q, w: Weights):
 def natr_attention_backward_plain(hist: History, anchors, pu, q, w: Weights, g):
     dtype = pu.dtype
     with torch.enable_grad():
-        leaves = [t.detach().to(_wide(dtype)).requires_grad_() for t in (pu, q, *w)]
+        leaves = [t.detach().to(build.wide(dtype)).requires_grad_() for t in (pu, q, *w)]
         logit = _forward_wide(hist, anchors, leaves[0], leaves[1], Weights(*leaves[2:]), dtype)
         grads = torch.autograd.grad(logit, leaves, g.to(logit.dtype))
     return tuple(x.to(dtype) for x in grads)
@@ -161,7 +147,7 @@ def natr_attention_backward_plain(hist: History, anchors, pu, q, w: Weights, g):
 def pair_grid_plain(su, pu, q, w: Weights, anchor_is_row: bool):
     """Sigmoid probabilities of every (anchor, query) pair: [A, Nq] when
     ``anchor_is_row``, else [Nq, A], in ``su``'s type."""
-    dtype, r = su.dtype, _rounding(su.dtype)
+    dtype, r = su.dtype, build.rounding(su.dtype)
     su, pu, q, *ws = _widen(su, pu, q, *w)
     if anchor_is_row:
         logit = _blend(su[:, None, :], pu[:, None, :], q[None, :, :], Weights(*ws), r)

@@ -77,12 +77,3 @@ def with_compute_dtype(fn, dtype, model: nn.Module):
         wrapped._pair_cost = True
     return wrapped
 
-
-def require_float32_compute(config, what: str) -> None:
-    """Raise for a 16-bit ``compute_dtype`` where ``what`` (a model whose
-    kernel has no 16-bit form yet) would otherwise compute in float32."""
-    if resolve_compute_dtype(config) != torch.float32:
-        raise NotImplementedError(
-            f"{what} under compute_dtype {config['compute_dtype']!r} is not ported yet "
-            "(ROADMAP.md A10 remainder: bf16 forms of B15, B16)"
-        )

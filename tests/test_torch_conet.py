@@ -148,12 +148,13 @@ def test_tower_plain_chunks_and_padding(monkeypatch):
 
     g = torch.Generator().manual_seed(0)
     hu, hi = torch.randn(5, 6, generator=g), torch.randn(23, 6, generator=g)
+    b0 = torch.randn(6, generator=g)
     layers = [(torch.randn(6, 5, generator=g), torch.randn(5, generator=g)),
               (torch.randn(5, 3, generator=g), torch.randn(3, generator=g))]
     out = (torch.randn(3, 1, generator=g), torch.randn(1, generator=g))
-    whole = conet_tower(hu, hi, layers, out)
+    whole = conet_tower(hu, hi, b0, layers, out)
     monkeypatch.setattr(b15, "PAIR_BUDGET", 7)
-    torch.testing.assert_close(conet_tower_plain(hu, hi, layers, out), whole, rtol=0, atol=1e-6)
+    torch.testing.assert_close(conet_tower_plain(hu, hi, b0, layers, out), whole, rtol=0, atol=1e-6)
     assert whole.shape == (5, 23)
     flat, widths = packed_weights(layers, out)
     assert widths == [8, 8, 4]

@@ -43,10 +43,13 @@ the largest (weights staged layer by layer), a saturating call; both
 refusing what the kernels do not take; and CLFM, DeepAPF and CoNet through
 the entry point. The 16-bit forms of B8 (light and heavy rows, D 32 / 64 /
 128, dropout on and off), B9 (training forward and backward, anchor table
-and pair grid, both overlap modes, D 32 / 64 / 128) and B11 against their
-plain versions in bfloat16 and float16, two runs bit-equal where no atomics
-add; and BiTGCF, NATR and DTCDR's DMF under bf16 compute through the entry
-point.
+and pair grid, both overlap modes, D 32 / 64 / 128), B11, B16 (forward,
+backward and grid, D 32 / 64 / 128, both entity sides, the float16 masked
+logit that JAX's -1e31 makes -inf) and B15 (the published tower at a dense
+tile, padded widths, the largest tower) against their plain versions in
+bfloat16 and float16, two runs bit-equal where no atomics add; and
+BiTGCF, NATR, DTCDR's DMF, CoNet and DeepAPF under bf16 compute through the
+entry point.
 
 Marked ``cuda``; without a card every test skips. On the card (where jax is
 not installed, so the repository's conftest cannot load):
@@ -62,6 +65,8 @@ import torch
 from recbole_cdr_tpu_torch import ops
 from recbole_cdr_tpu_torch.ops import benchmark_topk as b12
 from recbole_cdr_tpu_torch.ops import candidate_topk as b10
+from recbole_cdr_tpu_torch.ops import conet_tower as b15
+from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
 from recbole_cdr_tpu_torch.ops import gather_dot as k1
 from recbole_cdr_tpu_torch.ops import graph_layer as b8
 from recbole_cdr_tpu_torch.ops import masked_topk as k4
@@ -1105,7 +1110,7 @@ def _b15_case(gen, H0, later, B, I):
     layers = [(r(a, b, scale=(2 / (a + b)) ** 0.5), r(b, scale=0.1))
               for a, b in zip(dims, dims[1:])]
     out = (r(dims[-1], 1, scale=(2 / (dims[-1] + 1)) ** 0.5), r(1, scale=0.1))
-    return r(B, H0), r(I, H0), layers, out
+    return r(B, H0), r(I, H0), r(H0, scale=0.1), layers, out
 
 
 @pytest.mark.parametrize("H0,later,B,I", [
@@ -1122,27 +1127,27 @@ def test_conet_tower_matches_plain(gen, H0, later, B, I):
     logit above 17) exactly 1.0 as the plain version."""
     from recbole_cdr_tpu_torch.ops import conet_tower as b15
 
-    hu, hi, layers, out = _b15_case(gen, H0, later, B, I)
-    got = b15.conet_tower(hu, hi, layers, out)
-    want = b15.conet_tower_plain(hu, hi, layers, out)
-    a = hu.abs()[:, None, :] + hi.abs()[None, :, :]
+    hu, hi, b0, layers, out = _b15_case(gen, H0, later, B, I)
+    got = b15.conet_tower(hu, hi, b0, layers, out)
+    want = b15.conet_tower_plain(hu, hi, b0, layers, out)
+    a = hu.abs()[:, None, :] + hi.abs()[None, :, :] + b0.abs()
     for W, b in layers:
         a = a @ W.abs() + b.abs()
     scale = (a @ out[0].abs() + out[1].abs())[..., 0]
     assert got.shape == (B, I)
     assert bool(((got - want).abs() <= B15_TOL[0] + B15_TOL[1] * scale).all())
-    assert torch.equal(got, b15.conet_tower(hu, hi, layers, out))
+    assert torch.equal(got, b15.conet_tower(hu, hi, b0, layers, out))
     sat = (out[0], out[1] + 40.0)
-    assert bool((b15.conet_tower(hu, hi, layers, sat) == 1.0).all())
-    assert bool((b15.conet_tower_plain(hu, hi, layers, sat) == 1.0).all())
+    assert bool((b15.conet_tower(hu, hi, b0, layers, sat) == 1.0).all())
+    assert bool((b15.conet_tower_plain(hu, hi, b0, layers, sat) == 1.0).all())
 
 
 def test_conet_tower_rejects_wide_towers(gen):
     from recbole_cdr_tpu_torch.ops import conet_tower as b15
 
-    hu, hi, layers, out = _b15_case(gen, 64, [132], 4, 10)
+    hu, hi, b0, layers, out = _b15_case(gen, 64, [132], 4, 10)
     with pytest.raises(ValueError, match="at most"):
-        b15.conet_tower(hu, hi, layers, out)
+        b15.conet_tower(hu, hi, b0, layers, out)
 
 
 @pytest.mark.parametrize("model", ["CLFM", "DeepAPF", "CoNet"])
@@ -1166,6 +1171,33 @@ def test_both_phase_models_on_the_card(gen, tmp_path, monkeypatch, model):
 #: orders, so a rounded value may land one step apart, and a value computed
 #: from a rounded one carries that step on
 STEP = 2 ** -7
+#: of the 16-bit probabilities of B15-bf16 and B16-bf16's grid, the share
+#: that may differ from the plain version's at all (``_prob16_close``)
+PROB16_SHARE = 0.01
+
+
+def _prob16_close(got, want, controls=()):
+    """16-bit probabilities against their plain version's: each within EPS
+    (2 |p| + 4 p (1 - p) |z|) + EPS TINY, EPS and TINY the type's and z the
+    logit of p (two to four steps of p, four steps of the logit through the
+    sigmoid's slope: both sides round the same named values from float32
+    sums in other orders, so a value lands a step apart only near a rounding
+    point), and at most ``PROB16_SHARE`` of them (one at least) apart at
+    all. Each of ``controls``, probabilities a wrong kernel would give, must
+    fail that rule."""
+    fi = torch.finfo(want.dtype)
+    p = want.float()
+    z = torch.nan_to_num(torch.log(p) - torch.log1p(-p), nan=0.0, posinf=0.0, neginf=0.0)
+    tol = fi.eps * (2 * p + 4 * p * (1 - p) * z.abs()) + fi.eps * fi.tiny
+    allowed = max(1, int(PROB16_SHARE * p.numel()))
+
+    def passes(x):
+        diff = (x.to(want.dtype).float() - p).abs()
+        return bool((diff <= tol).all()) and int((diff > 0).sum()) <= allowed
+
+    assert got.dtype == want.dtype and passes(got)
+    for x in controls:
+        assert not passes(x)
 
 
 def _to(csr, dtype):
@@ -1350,6 +1382,128 @@ def test_rating_vector_bf16_matches_plain(gen, R, N, D, B, dtype):
     assert counts["rating_vector_forward"] == counts["rating_vector_backward"] == 0
 
 
+# ---- the 16-bit forms of B16 and B15 ---------------------------------------
+
+def _b16_16(gen, D, dtype, P):
+    rows = [(0.3 * torch.randn(P, D, device="cuda", generator=gen)).to(dtype) for _ in range(3)]
+    w = b16.Weights(*(t.to(dtype) for t in _b16_weights(gen, D)))
+    g = torch.randn(P, device="cuda", generator=gen).to(dtype)
+    return rows, w, g
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("P", [16_384, 37])
+def test_deepapf_attention_bf16_matches_plain(gen, D, P, dtype):
+    """B16's 16-bit forward and backward against their plain versions on the
+    same 16-bit operands within ``_natr16_close`` (both round x, z, the a's,
+    alpha, entity_e and the logit from float32 sums in other orders), every
+    output 16-bit, the masked share rows exactly without gradient, two runs
+    bit-equal; the 16-bit wrappers count, the float32 ones do not."""
+    rows, w, g = _b16_16(gen, D, dtype, P)
+    mask = torch.rand(P, device="cuda", generator=gen) < 0.4
+    mask[0] = False
+    ops.reset_launch_counts()
+    a = b16.deepapf_forward(*rows, mask, w)
+    ka = b16.deepapf_backward(*rows, mask, w, g)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["deepapf_forward_bf16"] == counts["deepapf_backward_bf16"] == 1
+    assert counts["deepapf_forward"] == counts["deepapf_backward"] == 0
+    assert a.dtype == dtype and all(x.dtype == dtype for x in ka)
+    _natr16_close(a, b16.deepapf_forward_plain(*rows, mask, w), "forward")
+    assert torch.equal(a, b16.deepapf_forward(*rows, mask, w))
+    names = ("d_share", "d_only", "d_other", "dW", "db", "dw2", "dpl")
+    for name, x, y in zip(names, ka, b16.deepapf_backward_plain(*rows, mask, w, g)):
+        assert x.shape == y.shape, name
+        _natr16_close(x, y, name)
+    assert not ka[0][mask].any() and ka[0][~mask].any()
+    assert all(torch.equal(x, y) for x, y in zip(ka, b16.deepapf_backward(*rows, mask, w, g)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("entity_is_item", [True, False])
+def test_deepapf_grid_bf16_matches_plain(gen, D, entity_is_item, dtype):
+    """B16's 16-bit grid on a [33 x 1,001] tile from 16-bit tables whose
+    probabilities spread, the overlapped count's boundary among the
+    entities, against its plain version within ``_prob16_close``, which a
+    constant 0.5 fails; 16-bit probabilities; bit-equal reruns."""
+    n, B, I, ov = 6000, 33, 1001, 2000
+    tabs = [(0.6 * torch.randn(n, D, device="cuda", generator=gen)).to(dtype) for _ in range(3)]
+    users, items = _ints(0, n, (B,), gen), _ints(0, n, (I,), gen)
+    (items if entity_is_item else users)[:2] = torch.tensor([ov, ov + 1], device="cuda")
+    w = b16.Weights(*(t.to(dtype) for t in _b16_weights(gen, D)))
+    args = (*tabs, users, items, ov, entity_is_item, w)
+    ops.reset_launch_counts()
+    got = b16.deepapf_grid(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["deepapf_grid_bf16"] == 1
+    assert ops.launch_counts()["deepapf_grid"] == 0
+    assert got.shape == (B, I) and got.dtype == dtype
+    want = b16.deepapf_grid_plain(*args)
+    _prob16_close(got, want, (torch.full_like(want, 0.5),))
+    assert torch.equal(got, b16.deepapf_grid(*args))
+
+
+def test_deepapf_float16_masked_logit_has_no_nan(gen):
+    """Under float16 JAX's -1e31 share logit is -inf; the kernels keep their
+    float32 mask, so with every pair masked alpha_s is exactly 0: the
+    logits, the probabilities and every gradient are finite and equal to
+    the plain versions' within ``_natr16_close``, the share rows' gradients
+    exactly 0. Large attention logits (wide rows) included."""
+    P, D, dtype = 4096, 64, torch.float16
+    rows, w, g = _b16_16(gen, D, dtype, P)
+    rows = [(4 * r.float()).to(dtype) for r in rows]
+    mask = torch.ones(P, dtype=torch.bool, device="cuda")
+    a = b16.deepapf_forward(*rows, mask, w)
+    ka = b16.deepapf_backward(*rows, mask, w, g)
+    assert bool(torch.isfinite(a).all()) and all(bool(torch.isfinite(x).all()) for x in ka)
+    _natr16_close(a, b16.deepapf_forward_plain(*rows, mask, w), "forward")
+    assert not ka[0].any()
+    for x, y in zip(ka, b16.deepapf_backward_plain(*rows, mask, w, g)):
+        _natr16_close(x, y, "backward")
+    ids = torch.arange(64, dtype=torch.int32, device="cuda")
+    grid = b16.deepapf_grid(*rows, ids, ids, -1, True, w)  # every entity above -1: masked
+    assert bool(torch.isfinite(grid).all())
+    _natr16_close(grid, b16.deepapf_grid_plain(*rows, ids, ids, -1, True, w), "grid")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("H0,later,B,I", [
+    (64, [32, 16, 8], 2048, 4980),   # the published tower at a dense tile
+    (64, [32, 16, 8], 1, 7),
+    (6, [5, 3], 33, 129),            # widths padded to a multiple of 4
+    (128, [128] * 5, 9, 1000),       # the largest tower: weights staged per layer
+])
+def test_conet_tower_bf16_matches_plain(gen, H0, later, B, I, dtype):
+    """B15's 16-bit form against its plain version on the same 16-bit
+    operands within ``_prob16_close``; at the dense tile a constant 0.5 and
+    the float32 kernel on the same values, rounded only at its output, fail
+    that check; 16-bit output; bit-equal reruns; a saturating call exactly
+    1.0; the 16-bit wrapper counts, the float32 one does not."""
+    hu, hi, b0, layers, out = _b15_case(gen, H0, later, B, I)
+    hu, hi, b0 = hu.to(dtype), hi.to(dtype), b0.to(dtype)
+    layers = [(W.to(dtype), b.to(dtype)) for W, b in layers]
+    out = tuple(t.to(dtype) for t in out)
+    ops.reset_launch_counts()
+    got = b15.conet_tower(hu, hi, b0, layers, out)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["conet_tower_bf16"] == 1 and ops.launch_counts()["conet_tower"] == 0
+    assert got.shape == (B, I) and got.dtype == dtype
+    want = b15.conet_tower_plain(hu, hi, b0, layers, out)
+    controls = ()
+    if B * I > 10 ** 6:
+        wide = b15.conet_tower(hu.float(), hi.float(), b0.float(),
+                               [(W.float(), b.float()) for W, b in layers],
+                               tuple(t.float() for t in out))
+        controls = (torch.full_like(want, 0.5), wide)
+    _prob16_close(got, want, controls)
+    assert torch.equal(got, b15.conet_tower(hu, hi, b0, layers, out))
+    sat = (out[0], (out[1].float() + 40.0).to(dtype))
+    assert bool((b15.conet_tower(hu, hi, b0, layers, sat) == 1.0).all())
+
+
 @pytest.mark.parametrize("model,extra,path", [
     ("BiTGCF", {}, ("graph_layer_forward_bf16", "graph_layer_backward_bf16",
                     "gather_dot_forward_bf16", "gather_dot_backward_bf16", "masked_topk")),
@@ -1359,15 +1513,19 @@ def test_rating_vector_bf16_matches_plain(gen, R, N, D, B, dtype):
       "masked_topk")),
     ("DTCDR", {"base_model": "DMF"}, ("rating_vector_forward_bf16",
                                       "rating_vector_backward_bf16", "masked_topk")),
+    ("CoNet", {}, ("neg_sampler", "swap_or_not", "masked_topk", "conet_tower_bf16")),
+    ("DeepAPF", {}, ("neg_sampler", "swap_or_not", "masked_topk", "deepapf_forward_bf16",
+                     "deepapf_backward_bf16", "deepapf_grid_bf16")),
 ])
 def test_bf16_models_on_the_card(gen, tmp_path, monkeypatch, model, extra, path):
-    """BiTGCF, NATR (SOURCE then TARGET) and DTCDR's DMF under compute_dtype
-    bfloat16 through the entry point: the 16-bit forms launch, the float32
-    B8, B9 and B11 never."""
+    """BiTGCF, NATR (SOURCE then TARGET), DTCDR's DMF, CoNet and DeepAPF
+    under compute_dtype bfloat16 through the entry point: the 16-bit forms
+    launch, the float32 B8, B9, B11, B15 and B16 never."""
     counts = _run_on_the_card(tmp_path, monkeypatch, model=model, compute_dtype="bfloat16",
                               **extra)
     assert all(counts[k] > 0 for k in path), counts
     float32 = ("graph_layer_forward", "graph_layer_backward", "natr_attention_forward",
                "natr_attention_backward", "natr_anchor_table", "natr_pair_grid",
-               "rating_vector_forward", "rating_vector_backward")
+               "rating_vector_forward", "rating_vector_backward", "conet_tower",
+               "deepapf_forward", "deepapf_backward", "deepapf_grid")
     assert all(counts[k] == 0 for k in float32), counts

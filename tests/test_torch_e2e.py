@@ -34,8 +34,9 @@ def test_run_recbole_cdr_cmf_on_cpu(extra):
 #: the configurations that raised until their code was ported: each now
 #: runs (bf16 compute, the optax-form learners, bf16 streaming scores,
 #: popularity negatives on the pointwise and the pairwise stream, a one-rank
-#: mesh: a gloo group in this process, which the run destroys; BiTGCF under
-#: bf16 compute, with the id it had among the raising cases)
+#: mesh: a gloo group in this process, which the run destroys; BiTGCF,
+#: CoNet and DeepAPF under bf16 compute, with the ids they had among the
+#: raising cases)
 @pytest.mark.parametrize("model,extra", [
     ("EMCDR", {"train_epochs": ["SOURCE:1", "TARGET:1", "OVERLAP:1"], "loss_type": "BPR",
                "latent_factor_model": "BPR", "neg_sampling": {"popularity": 1}}),
@@ -46,6 +47,8 @@ def test_run_recbole_cdr_cmf_on_cpu(extra):
     ("CMF", {"neg_sampling": {"popularity": 1}}),
     ("CMF", {"mesh_shape": {"data": 1, "model": 1}}),
     pytest.param("BiTGCF", {"compute_dtype": "bfloat16"}, id="BiTGCF-bf16"),
+    pytest.param("CoNet", {"compute_dtype": "bfloat16"}, id="CoNet-bf16"),
+    pytest.param("DeepAPF", {"compute_dtype": "bfloat16"}, id="DeepAPF-bf16"),
 ])
 def test_ported_options_run(model, extra):
     result = run_recbole_cdr(model=model,
@@ -61,8 +64,6 @@ def test_ported_options_run(model, extra):
                  id="CMF-extra2"),
     pytest.param("CMF", {"phase_optimizer": "sparse", "profile_steps": 1}, id="CMF-extra3"),
     pytest.param("CMF", {"resume_checkpoint_path": "saved/CMF.pth"}, id="CMF-extra7"),
-    pytest.param("CoNet", {"compute_dtype": "bfloat16"}, id="CoNet-bf16"),
-    pytest.param("DeepAPF", {"compute_dtype": "bfloat16"}, id="DeepAPF-bf16"),
 ])
 def test_unported_options_raise(model, extra):
     with pytest.raises(NotImplementedError):

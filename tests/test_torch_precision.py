@@ -26,17 +26,21 @@ package, on the CPU (K1's plain version on bf16 tables).
   within 0.04 of float32 for CMF over 3 epochs; bf16 on the host batch path
   (the analogues of ``tests/test_precision.py``).
 - BiTGCF (BOTH, no dropout), NATR (TARGET; its frozen source tables get
-  no gradient) and DTCDR's DMF (BOTH) take the same loss and gradient checks
-  through the plain versions of B8's, B9's and B11's 16-bit forms; the
-  observed ratio ``|g - g_f32| / |g_jax - g_f32|`` of their matrix
+  no gradient), DTCDR's DMF (BOTH), CoNet (BOTH) and DeepAPF (BOTH) take the
+  same loss and gradient checks through the plain versions of the 16-bit
+  forms of B8, B9, B11 and B16 (CoNet's towers train as torch products);
+  the observed ratio ``|g - g_f32| / |g_jax - g_f32|`` of their matrix
   gradients is 0.90-0.92 (BiTGCF's tables), 0.96-1.40 (NATR's tables and
-  weights) and 1.00-1.09 (DMF's tables and tower weights), 0.000 for each
-  with the port in float32. Their 16-bit evaluation against JAX's, each
-  tolerance in units of u: BiTGCF's propagated tables and full-sort
-  scores, NATR's predict-fallback probabilities and top-10 ids, DMF's tower
-  tables and ``predict``; and one short schedule of each through the entry
-  point.
-- CoNet and DeepAPF raise under bf16, naming their ROADMAP item.
+  weights), 1.00-1.09 (DMF's tables and tower weights), 1.00-1.18 (CoNet's
+  tables, tower weights and cross matrices) and 0.67-1.01 (DeepAPF's tables,
+  attention weights and predict layer), 0.000 for each with the port in
+  float32. Their 16-bit evaluation against JAX's, each tolerance in units
+  of u: BiTGCF's propagated tables and full-sort scores, NATR's and
+  DeepAPF's predict-fallback probabilities and top-10 ids, CoNet's full-sort
+  probabilities (B15's 16-bit form) and top-10 ids, DMF's tower tables and
+  ``predict``; and one short schedule of each through the entry point.
+- B15's and B16's wrappers refuse operands of mixed types, and their 16-bit
+  forms float32 ones: a 16-bit operand never reaches a float32 kernel.
 """
 
 import math
@@ -50,6 +54,8 @@ import torch
 from recbole_cdr_tpu.config import CDRConfig as JaxConfig
 from recbole_cdr_tpu.models.bitgcf import BiTGCF as JaxBiTGCF
 from recbole_cdr_tpu.models.cmf import CMF as JaxCMF
+from recbole_cdr_tpu.models.conet import CoNet as JaxCoNet
+from recbole_cdr_tpu.models.deepapf import DeepAPF as JaxDeepAPF
 from recbole_cdr_tpu.models.dtcdr import DTCDR as JaxDTCDR
 from recbole_cdr_tpu.models.emcdr import EMCDR as JaxEMCDR
 from recbole_cdr_tpu.models.natr import NATR as JaxNATR
@@ -60,10 +66,11 @@ from recbole_cdr_tpu_torch.config import CDRConfig
 from recbole_cdr_tpu_torch.data.dataset import CrossDomainDataset
 from recbole_cdr_tpu_torch.models.bitgcf import BiTGCF
 from recbole_cdr_tpu_torch.models.cmf import CMF
+from recbole_cdr_tpu_torch.models.conet import CoNet
+from recbole_cdr_tpu_torch.models.deepapf import DeepAPF
 from recbole_cdr_tpu_torch.models.dtcdr import DTCDR
 from recbole_cdr_tpu_torch.models.emcdr import EMCDR
 from recbole_cdr_tpu_torch.models.natr import NATR
-from recbole_cdr_tpu_torch.utils import get_model
 from recbole_cdr_tpu_torch.utils.precision import (
     cast_floats,
     resolve_compute_dtype,
@@ -89,6 +96,8 @@ _MODELS = {
     "DTCDR-DMF": (JaxDTCDR, DTCDR, {"base_model": "DMF"}, "BOTH"),
     "BiTGCF": (JaxBiTGCF, BiTGCF, {"drop_rate": 0.0}, "BOTH"),
     "NATR": (JaxNATR, NATR, {}, "TARGET"),
+    "CoNet": (JaxCoNet, CoNet, {}, "BOTH"),
+    "DeepAPF": (JaxDeepAPF, DeepAPF, {}, "BOTH"),
 }
 
 
@@ -245,18 +254,50 @@ def test_bf16_host_path():
     assert all(math.isfinite(h["loss"]) for h in result["history"])
 
 
-#: the models still without a 16-bit form of their kernel; the three that
-#: gained one (BiTGCF, NATR, DTCDR's DMF) left with the raise they tested,
-#: and the two that stay keep their ids
-@pytest.mark.parametrize("model,extra,kernel", [
-    pytest.param("CoNet", {}, "B15", id="CoNet-extra3-B15"),
-    pytest.param("DeepAPF", {}, "B16", id="DeepAPF-extra4-B16"),
-])
-def test_models_without_a_bf16_kernel_raise(model, extra, kernel):
-    config = CDRConfig(model=model, config_dict={**_QUICK, "compute_dtype": "bfloat16",
-                                                 **extra}, _cli_args=[])
-    with pytest.raises(NotImplementedError, match=f"{kernel}.*A10 remainder"):
-        get_model(model)(config, CrossDomainDataset(config))
+def _mixed_cases():
+    """(wrapper, arguments) of B16 and B15 whose floating operands are not of
+    one 16-bit type, or are float32 handed to a 16-bit form."""
+    from recbole_cdr_tpu_torch.ops import conet_tower as b15
+    from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
+
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    rows, mask, g = [r(6, 32) for _ in range(3)], torch.zeros(6, dtype=torch.bool), r(6)
+    w = b16.Weights(r(32, 32), r(32), r(32, 1), r(32, 1))
+    w16 = b16.Weights(*(t.to(bf) for t in w))
+    rows16 = [t.to(bf) for t in rows]
+    ids = torch.arange(3, dtype=torch.int32)
+    hu, hi, b0, layers, out = r(3, 8), r(5, 8), r(8), [(r(8, 4), r(4))], (r(4, 1), r(1))
+    return {
+        "forward-weights": (b16.deepapf_forward, (*rows16, mask, w)),
+        "backward-gradient": (b16.deepapf_backward, (*rows16, mask, w16, g)),
+        "backward-fp16-row": (b16.deepapf_backward,
+                              (*rows16[:2], rows[2].half(), mask, w16, g.to(bf))),
+        "grid-tables": (b16.deepapf_grid, (*rows16[:2], rows[2], ids, ids, 2, True, w16)),
+        "grid_bf16-float32": (b16.deepapf_grid_bf16, (*rows, ids, ids, 2, True, w)),
+        "tower-layers": (b15.conet_tower, (hu.to(bf), hi.to(bf), b0.to(bf), layers,
+                                           tuple(t.to(bf) for t in out))),
+        "tower_bf16-float32": (b15.conet_tower_bf16, (hu, hi, b0, layers, out)),
+    }
+
+
+@pytest.mark.parametrize("case", ["forward-weights", "backward-gradient", "backward-fp16-row",
+                                  "grid-tables", "grid_bf16-float32", "tower-layers",
+                                  "tower_bf16-float32"])
+def test_b16_and_b15_reject_mixed_types(case):
+    """B16's and B15's wrappers dispatch on the operands' type (float32 to
+    the float32 kernel, 16-bit to the 16-bit instances) and raise a
+    ``TypeError`` for operands of mixed types, and their 16-bit forms for
+    float32 ones, before any launch: the same check runs on the CPU, so a
+    16-bit operand never reaches a float32 kernel on the card."""
+    from recbole_cdr_tpu_torch import ops
+
+    fn, args = _mixed_cases()[case]
+    ops.reset_launch_counts()
+    with pytest.raises(TypeError, match="one type of"):
+        fn(*args)
+    assert not any(ops.launch_counts().values())
 
 
 # ------------------------------------------------- 16-bit evaluation vs JAX
@@ -304,11 +345,42 @@ def test_bf16_bitgcf_eval_matches_jax():
     assert np.all(np.abs(ts.float().numpy() - js) <= 2 * U_BF16 * chain)
 
 
-def _scaled_tables(jmodel, params):
-    """The initial weights with NATR's four tables scaled by 4, so that the
-    grid's probabilities spread over about (0.19, 0.82) rather than lying
-    within a few bf16 steps of 0.5, where whole rows tie."""
-    return {k: v * 4 if k.endswith("_embedding") else v for k, v in params.items()}
+def _scaled_tables(jmodel, params, factor=4):
+    """The initial weights with the model's embedding tables scaled by
+    ``factor``, so that the probabilities spread (NATR's over about (0.19,
+    0.82) at 4) rather than lying within a few bf16 steps of 0.5, where
+    whole rows tie."""
+    return {k: v * factor if k.endswith("_embedding") else v for k, v in params.items()}
+
+
+def _assert_top10_match(got, want, k=10):
+    """Top-``k`` ids of the 16-bit probabilities ``got`` through K4's plain
+    version, with the PAD column masked as the evaluator does: K4 breaks ties
+    as ``lax.top_k`` does (lower index first), exactly, on the port's own
+    probabilities; against JAX's ids (``want``'s), equal wherever JAX's
+    neighbouring top scores differ by more than ``4u``, and at every rank the
+    two lists' items score within ``4u`` of each other under JAX's
+    probabilities."""
+    from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk_plain
+
+    want = want.copy()
+    lowest = float(np.finfo(np.float32).min)
+    want[:, 0] = lowest
+    masked = got.clone()
+    masked[:, 0] = lowest
+    no_history = (torch.zeros(got.shape[0] + 1, dtype=torch.int32),
+                  torch.zeros(0, dtype=torch.int32))
+    ids = masked_topk_plain(got, *no_history, k).numpy()
+    np.testing.assert_array_equal(ids, np.asarray(jax.lax.top_k(jnp.asarray(masked.numpy()), k)[1]))
+    jids = np.asarray(jax.lax.top_k(jnp.asarray(want), k)[1])
+    top = np.take_along_axis(want, jids, 1)
+    after = -np.sort(-want, 1)[:, k]
+    apart = np.abs(np.diff(np.concatenate([top, after[:, None]], 1), axis=1)) > 4 * U_BF16
+    clear = apart.copy()
+    clear[:, 1:] &= apart[:, :-1]
+    assert clear.any()
+    np.testing.assert_array_equal(ids[clear], jids[clear])
+    assert np.all(np.abs(np.take_along_axis(want, ids, 1) - top) <= 4 * U_BF16)
 
 
 def test_bf16_natr_grid_and_ids_match_jax():
@@ -325,7 +397,6 @@ def test_bf16_natr_grid_and_ids_match_jax():
     ``4u`` of each other under JAX's probabilities."""
     from recbole_cdr_tpu.trainer.trainer import make_predict_full_sort as jax_predict_full_sort
 
-    from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk_plain
     from recbole_cdr_tpu_torch.trainer.trainer import make_predict_full_sort
 
     m = _eval_models("NATR", params_fn=_scaled_tables)
@@ -342,22 +413,63 @@ def test_bf16_natr_grid_and_ids_match_jax():
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     got = got.float()
     assert np.abs(got.numpy() - want).max() <= 2 * U_BF16
-    lowest = float(np.finfo(np.float32).min)
-    want[:, 0] = lowest
-    masked = got.clone()
-    masked[:, 0] = lowest
-    no_history = (torch.zeros(len(users) + 1, dtype=torch.int32), torch.zeros(0, dtype=torch.int32))
-    ids = masked_topk_plain(got, *no_history, k).numpy()
-    np.testing.assert_array_equal(ids, np.asarray(jax.lax.top_k(jnp.asarray(masked.numpy()), k)[1]))
-    jids = np.asarray(jax.lax.top_k(jnp.asarray(want), k)[1])
-    top = np.take_along_axis(want, jids, 1)
-    after = -np.sort(-want, 1)[:, k]
-    apart = np.abs(np.diff(np.concatenate([top, after[:, None]], 1), axis=1)) > 4 * U_BF16
-    clear = apart.copy()
-    clear[:, 1:] &= apart[:, :-1]
-    assert clear.any()
-    np.testing.assert_array_equal(ids[clear], jids[clear])
-    assert np.all(np.abs(np.take_along_axis(want, ids, 1) - top) <= 4 * U_BF16)
+    _assert_top10_match(got, want, k)
+
+
+def test_bf16_conet_full_sort_matches_jax():
+    """CoNet's full-sort under bf16 (B15's 16-bit form, plain on the CPU,
+    with the item half cached in bf16) against JAX's ``full_sort_fn`` under
+    its cast on users 1-64, the tables scaled by 16 so that the
+    probabilities spread over about (0.21, 0.90): 16-bit probabilities
+    within ``2u`` of JAX's (two bf16 steps of a probability above 0.5; seen
+    1u, 27% of them a step apart: XLA on the CPU rounds the sigmoid's
+    ``exp(-z)``, ``1 + exp(-z)`` and quotient each to bf16 where the port
+    rounds the sigmoid once; rounded as XLA does, the port's probabilities
+    come out the same, whichever order ``b0`` is added in), and the top-10
+    ids as :func:`_assert_top10_match`."""
+    from recbole_cdr_tpu.utils.precision import with_compute_dtype as jax_cast
+
+    m = _eval_models("CoNet", params_fn=lambda j, p: _scaled_tables(j, p, 16))
+    jmodel, tmodel = m["jmodel"], m["tmodel"]
+    users = np.arange(1, 65)
+    want = jax_cast(jmodel.full_sort_fn("TARGET"), jnp.bfloat16)(m["jparams"],
+                                                                 jnp.asarray(users))
+    assert want.dtype == jnp.bfloat16
+    want = np.array(want.astype(jnp.float32))
+    with torch.no_grad():
+        got = with_compute_dtype(tmodel.full_sort_fn("TARGET"), torch.bfloat16,
+                                 tmodel)(torch.from_numpy(users))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert tmodel._version_cache[f"item_half:{torch.bfloat16}"][1].dtype == torch.bfloat16
+    got = got.float()
+    assert np.abs(got.numpy() - want).max() <= 2 * U_BF16
+    _assert_top10_match(got, want)
+
+
+def test_bf16_deepapf_grid_and_ids_match_jax():
+    """DeepAPF's predict fallback under bf16 (B16's 16-bit grid, plain on the
+    CPU) against JAX's ``make_predict_full_sort`` under bf16 on users 1-64,
+    the tables scaled by 4 so that the probabilities spread over about
+    (0.37, 0.62): 16-bit probabilities within ``2u`` of JAX's (seen 1u, a
+    third of them a step apart: the two sides round the attention's sums at
+    other points), and the top-10 ids as :func:`_assert_top10_match`."""
+    from recbole_cdr_tpu.trainer.trainer import make_predict_full_sort as jax_predict_full_sort
+
+    from recbole_cdr_tpu_torch.trainer.trainer import make_predict_full_sort
+
+    m = _eval_models("DeepAPF", params_fn=_scaled_tables)
+    jmodel, tmodel = m["jmodel"], m["tmodel"]
+    item_num, users = m["ttest"].item_num, np.arange(1, 65)
+    want = jax_predict_full_sort(jmodel, "TARGET", item_num, compute_dtype=jnp.bfloat16)(
+        m["jparams"], jnp.asarray(users))
+    assert want.dtype == jnp.bfloat16
+    want = np.array(want.astype(jnp.float32))
+    with torch.no_grad():
+        got = make_predict_full_sort(tmodel, item_num, torch.bfloat16)(torch.from_numpy(users))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    got = got.float()
+    assert np.abs(got.numpy() - want).max() <= 2 * U_BF16
+    _assert_top10_match(got, want)
 
 
 def test_bf16_dmf_predict_and_towers_match_jax():
@@ -407,6 +519,8 @@ def test_bf16_dmf_predict_and_towers_match_jax():
     pytest.param("NATR", {"train_epochs": ["SOURCE:1", "TARGET:1"]}, id="NATR"),
     pytest.param("NATR", {"train_epochs": ["SOURCE:1", "TARGET:1"], "phase_optimizer": "sparse"},
                  id="NATR-sparse"),
+    pytest.param("CoNet", {"train_epochs": ["BOTH:1"]}, id="CoNet"),
+    pytest.param("DeepAPF", {"train_epochs": ["BOTH:1"]}, id="DeepAPF"),
 ])
 def test_bf16_models_train_on_cpu(model, extra):
     """The analogue of ``tests/test_precision.py::test_all_models_train_bf16``:
