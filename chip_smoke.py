@@ -169,7 +169,28 @@ Phases, in order; any failure exits non-zero:
    CoNet's validation passes' own
    allocations printed beside phase 11's and held to the same
    ``CONET_VALID_HEADROOM``;
-14. report: the card's name and power limit, one JSON line of per-kernel
+14. the sparse optimizer, 16-bit compute and the mapping models under the
+   mesh, in phase 10's child after 10c: (b) phase 9a's configuration (the
+   bf16 catalog, ``phase_optimizer: sparse``) over a one-rank NCCL mesh,
+   BOTH:2: exactly ``MESH_BF16_CATALOG_PATH`` launches, K1-bf16 once each
+   per step, B6 (its row-shard form at offset 0) once per table and step
+   (1,928), B14 once per streaming tile; the loss falls, every epoch's
+   loss is within ``MESH_LOSS_RTOL`` of phase 9a's and the test Recall@10
+   within ``MESH_RECALL_TOL``; (a) B6's
+   row-shard form on the item table's first step of (b) (its global
+   occurrences and gradient rows as the run gathered them) for
+   ``B6_SHARDS`` shards of ceil(N / m) rows, the last padded: on every
+   shard the rows touched once bit-equal to the plain version and the
+   coalesced ones within ``B6_TOL``, the padding untouched; each timed at
+   the last shard (a nonzero offset and the pad rows), its library
+   yardstick ``torch.optim.SparseAdam.step`` on the shard's own
+   occurrences, and ``Mesh.gather_occurrences`` at that step's shape on
+   the host clock (a one-rank group: its collectives and the host's wait
+   for the lengths); (c) phase 8's DCDCSR and EMCDR runs over the same
+   mesh: phase 8's launch checks (``check_mapping_run``), B12 once, and
+   every test metric within ``MESH_MAPPING_TOL`` of phase 8's run, every
+   epoch's loss within ``MESH_LOSS_RTOL`` of phase 8's;
+15. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
 B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
@@ -439,6 +460,24 @@ B14_TILE = (2048, 64, 1_100_001, 10)
 #: phase 10b's epochs: the second shows the mesh's cost once its NCCL
 #: communicators exist
 MESH_EPOCHS = 2
+
+#: phase 14's paths: (b) phase 9a's bf16 sparse catalog over the one-rank
+#: mesh, B14's 16-bit local stage in place of B13; (c) the mapping models
+#: over it, phase 8's kernels
+MESH_BF16_CATALOG_PATH = ("gather_dot_forward_bf16", "gather_dot_backward_bf16",
+                          "neg_sampler", "swap_or_not", "sharded_topk_local",
+                          "sharded_topk_merge", "sparse_adam")
+#: the model-axis widths at which phase 14a holds B6's row-shard form
+B6_SHARDS = (1, 2, 4)
+#: 14b's test Recall@10 against phase 9a's (the same training on one rank;
+#: B14's 16-bit local stage returns B13's ids)
+MESH_RECALL_TOL = 0.002
+#: 14c's test metrics against phase 8's runs
+MESH_MAPPING_TOL = 0.02
+#: 14b's and 14c's epoch losses against phase 9a's and phase 8's, relative:
+#: one rank does the same arithmetic apart from the order of K1's and B6's
+#: float32 atomics
+MESH_LOSS_RTOL = 1e-5
 
 #: K1 tolerance, |kernel - plain| <= ATOL + RTOL * max|plain|: the forward
 #: sums the D products in another order than torch; the backward adds with
@@ -2745,7 +2784,8 @@ def main():
     if "--mesh" in sys.argv[1:]:
         gen_data()
         gen_catalog()
-        print(_MESH + json.dumps(run_mesh_paths(dev)), flush=True)
+        refs = json.loads(sys.argv[sys.argv.index("--mesh") + 1])
+        print(_MESH + json.dumps(run_mesh_paths(dev, refs)), flush=True)
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2896,20 +2936,21 @@ def main():
     print("== phase 8: mapping paths, run_recbole_cdr(model='DCDCSR' | 'EMCDR' | 'SSCDR') on "
           "the card: pairwise and OVERLAP streams, the host batch path, B12", flush=True)
     torch.cuda.empty_cache()
-    run_mapping_paths(counts, records)
+    refs = {"mapping": run_mapping_paths(counts, records)}
 
     print("== phase 9: mixed precision and popularity negatives: the catalog path in bf16, "
           "CMF with popularity negatives and adagrad, EMCDR BPR with popularity negatives "
           "and rmsprop", flush=True)
     torch.cuda.empty_cache()
-    run_precision_and_popularity_paths(counts, records, catalog_recall)
+    refs["bf16_catalog"] = run_precision_and_popularity_paths(counts, records, catalog_recall)
 
     print("== phase 10: mesh: B14 against B5, the catalog path over a one-rank NCCL mesh, "
-          "the host path under it", flush=True)
+          "the host path under it; phase 14 in the same child: the bf16 sparse catalog "
+          "(B6's row-shard form) and the mapping models over the mesh", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--mesh"],
-                           stdout=subprocess.PIPE, text=True, check=True)
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--mesh",
+                            json.dumps(refs)], stdout=subprocess.PIPE, text=True, check=True)
     mesh = None
     for line in child.stdout.splitlines():
         if line.startswith(_MESH):
@@ -2918,6 +2959,7 @@ def main():
             print(line, flush=True)
     assert mesh is not None, "the mesh phase reported no results"
     records.update(mesh["records"])
+    records["sparse_adam"].setdefault("shapes", {}).update(mesh["b6_shapes"])
     counts.update(mesh["counts"])
     print(f"mesh phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3160,7 +3202,8 @@ def run_mapping_paths(counts, records):
     """Phase 8: the runs of ``MAPPING_RUNS``, each checked, their launch
     counts kept in ``counts`` under the run's name; then B12 held against its
     plain version on the DCDCSR run's tables at BOTH entry and timed into
-    ``records``."""
+    ``records``. Returns {run name: {"test": its test metrics, "losses":
+    [(phase, loss) per epoch]}} (phase 14c's references)."""
     import torch
 
     import recbole_cdr_tpu_torch.models.dcdcsr as dcdcsr_module
@@ -3174,6 +3217,7 @@ def run_mapping_paths(counts, records):
         return real(*args)
 
     dcdcsr_module.benchmark_topk = capture
+    tests = {}
     try:
         for name, model, schedule in MAPPING_RUNS:
             print(f"-- {name}: {model}, {', '.join(schedule)}, {MAPPING_EPOCHS} epochs each",
@@ -3187,12 +3231,15 @@ def run_mapping_paths(counts, records):
             counts[name] = c = ops.launch_counts()
             hist = _report_run(result, wall, c, MAPPING_PATHS[name])
             check_mapping_run(model, schedule, result, hist, c)
+            tests[name] = {"test": result["test_result"],
+                           "losses": [(h["phase"], h["loss"]) for h in hist]}
             del result
             torch.cuda.empty_cache()
     finally:
         dcdcsr_module.benchmark_topk = real
     assert len(captured) == 1, len(captured)
     check_b12(captured[0], records)
+    return tests
 
 
 def bf16_catalog_config():
@@ -3252,7 +3299,9 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
     popular items beside their popularity shares. Then the kernels are held
     against their plain versions at these paths' own shapes and timed into
     ``records``: K1-bf16 on the first sparse step of (a) (its sub-tables),
-    every B2a call of (b) and (c) exactly, the largest timed."""
+    every B2a call of (b) and (c) exactly, the largest timed. Returns (a)'s
+    test Recall@10 and its epochs' seconds and losses (phase 14b's
+    reference)."""
     import numpy as np
     import torch
 
@@ -3300,6 +3349,9 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
     assert all(c[k] == v for k, v in want.items()), (c, want)
     print(f"test recall@10: bf16 {result['test_result']['recall@10']} beside float32 "
           f"{catalog_recall} (phase 4)", flush=True)
+    ref_9a = {"recall@10": result["test_result"]["recall@10"],
+              "epochs": [{k: h[k] for k in ("train_seconds", "valid_seconds", "loss")}
+                         for h in hist]}
     del result, model
     torch.cuda.empty_cache()
 
@@ -3395,6 +3447,7 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
           f"the largest, {largest[2].shape[0]} slots on history [{largest[3].shape[0]}, "
           f"{largest[3].shape[1]}]", flush=True)
     check_b2a(main_path_recorder(records, "9b, the largest B2a call"), largest)
+    return ref_9a
 
 
 def alias_shares(alias, n_items):
@@ -3656,10 +3709,12 @@ def check_b14(dev, record):
                m * B * k, library_fn=library_merge, shape=shape)
 
 
-def run_mesh_paths(dev):
+def run_mesh_paths(dev, refs):
     """Phase 10 (the ``--mesh`` child): 10a ``check_b14``, then the 10b and
-    10c runs with their checks. Returns {"records": B14's records, "counts":
-    {"mesh": 10b's launch counts, "mesh_host": 10c's}}."""
+    10c runs with their checks; then phase 14 (``run_phase14_paths``) against
+    ``refs``, phase 9a's and phase 8's results. Returns {"records": B14's
+    records, "b6_shapes": B6's row-shard records, "counts": {"mesh": 10b's
+    launch counts, "mesh_host": 10c's, and phase 14's}}."""
     import torch
     import torch.distributed as dist
 
@@ -3718,7 +3773,210 @@ def run_mesh_paths(dev):
     hist = _report_run(result, wall, counts["mesh_host"], MESH_HOST_PATH)
     assert not dist.is_initialized(), "the run left its process group behind"
     assert hist[-1]["loss"] < hist[0]["loss"], hist
-    return {"records": records, "counts": counts}
+    del result
+    torch.cuda.empty_cache()
+
+    print("== phase 14: the bf16 sparse catalog (B6's row-shard form) and the mapping "
+          "models over the one-rank NCCL mesh", flush=True)
+    t0 = time.perf_counter()
+    b6_shapes = run_phase14_paths(dev, refs, counts)
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"records": records, "b6_shapes": b6_shapes, "counts": counts}
+
+
+def run_phase14_paths(dev, refs, counts):
+    """Phase 14 (see the module's docstring): 14b, then 14a on 14b's first
+    item-table step, then 14c. Keeps the runs' launch counts in ``counts``;
+    returns B6's row-shard records by shape."""
+    import torch
+    import torch.distributed as dist
+
+    import recbole_cdr_tpu_torch.trainer.trainer as trainer_module
+    from recbole_cdr_tpu_torch import ops, run_recbole_cdr
+
+    print("-- 14b: phase 9a's bf16 sparse catalog over the one-rank NCCL mesh", flush=True)
+    calls = []
+    real_b6 = trainer_module.sparse_adam
+
+    def capture_b6(p, mu, nu, g_rows, ids, *args, **kwargs):  # the first step's two tables
+        if len(calls) < 2:
+            calls.append((p.shape, g_rows.clone(), ids.clone(), kwargs["row_offset"]))
+        return real_b6(p, mu, nu, g_rows, ids, *args, **kwargs)
+
+    trainer_module.sparse_adam = capture_b6
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run_recbole_cdr(model="CMF", config_dict=mesh_config(bf16_catalog_config()),
+                                 saved=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_module.sparse_adam = real_b6
+    counts["mesh_bf16_catalog"] = c = ops.launch_counts()
+    hist = _report_run(result, wall, c, MESH_BF16_CATALOG_PATH)
+    assert not dist.is_initialized(), "the run left its process group behind"
+    assert len(hist) == CATALOG_EPOCHS and hist[-1]["loss"] < hist[0]["loss"], hist
+    tiles = sum(-(-u // min(2048, u)) for u in
+                [h["valid_users"] for h in hist] + [result["test_users"]])
+    steps = sum(h["train_examples"] for h in hist) // (2 * BATCH)
+    want = {"gather_dot_forward_bf16": steps, "gather_dot_backward_bf16": steps,
+            "sparse_adam": 2 * steps, "sharded_topk_local": tiles, "sharded_topk_merge": tiles}
+    print(f"{steps} steps, {tiles} streaming tiles; launches {({k: c[k] for k in want})}, "
+          f"expected {want}", flush=True)
+    assert all(c[k] == v for k, v in want.items()), (c, want)
+    ref = refs["bf16_catalog"]
+    for h, r in zip(hist, ref["epochs"]):
+        print(f"  epoch {h['epoch']}: train {h['train_seconds']:.4f} s on the mesh, "
+              f"{r['train_seconds']:.4f} s in 9a; validation {h['valid_seconds']:.4f} s, "
+              f"{r['valid_seconds']:.4f} s; loss {h['loss']:.6f}, {r['loss']:.6f}", flush=True)
+    check_mesh_losses([h["loss"] for h in hist], [r["loss"] for r in ref["epochs"]])
+    recall = result["test_result"]["recall@10"]
+    print(f"test recall@10 {recall} over the mesh, {ref['recall@10']} in 9a", flush=True)
+    assert abs(recall - ref["recall@10"]) <= MESH_RECALL_TOL, (recall, ref["recall@10"])
+    del result
+    torch.cuda.empty_cache()
+
+    print("-- 14a: B6's row-shard form on the item table's first step of 14b", flush=True)
+    shape, g_rows, ids, offset = max(calls, key=lambda call: call[0][0])
+    assert offset == 0, offset
+    out = {"sparse_adam": {}}
+    check_b6_shards(dev, make_recorder(out), shape, g_rows, ids)
+    time_occurrence_gather(dev, g_rows, ids)
+
+    print("-- 14c: phase 8's DCDCSR and EMCDR over the one-rank NCCL mesh", flush=True)
+    for name, model, schedule in MAPPING_RUNS[:2]:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run_recbole_cdr(model=model,
+                                 config_dict=mesh_config(mapping_config(model, schedule)),
+                                 saved=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[f"mesh_{name}"] = c = ops.launch_counts()
+        hist = _report_run(result, wall, c, MAPPING_PATHS[name])
+        assert not dist.is_initialized(), "the run left its process group behind"
+        check_mapping_run(model, schedule, result, hist, c)
+        want = refs["mapping"][name]
+        assert [h["phase"] for h in hist] == [p for p, _ in want["losses"]], hist
+        check_mesh_losses([h["loss"] for h in hist], [loss for _, loss in want["losses"]])
+        want = want["test"]
+        print(f"test over the mesh {result['test_result']}, phase 8's {want}", flush=True)
+        assert all(abs(result["test_result"][k] - v) <= MESH_MAPPING_TOL
+                   for k, v in want.items()), (result["test_result"], want)
+        del result
+        torch.cuda.empty_cache()
+    return out["sparse_adam"]["shapes"]
+
+
+def check_mesh_losses(got, want):
+    """Phase 14: a run's epoch losses over the one-rank mesh against the
+    same run's without it, within ``MESH_LOSS_RTOL``."""
+    assert len(got) == len(want), (got, want)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"  epoch losses within {worst:.3g} of the run without the mesh (relative)", flush=True)
+    assert worst <= MESH_LOSS_RTOL, (got, want)
+
+
+def check_b6_shards(dev, record, shape, g_rows, ids):
+    """Phase 14a: B6's row-shard form on ``ids`` (a step's global
+    occurrences) and ``g_rows`` for a table of ``shape``, split into ``m``
+    shards of ceil(N / m) rows for every m of ``B6_SHARDS``, the last padded:
+    every shard against the plain version from the same random table and
+    moments (rows touched once bit-equal, coalesced rows within ``B6_TOL``,
+    untouched and pad rows unchanged), the last shard timed into
+    ``record`` under ``row shard m=<m>``, its library yardstick
+    ``torch.optim.SparseAdam.step`` on the shard's own occurrences."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import sparse_adam as b6
+
+    N, D = shape
+    R = ids.shape[0]
+    g = torch.Generator(device=dev).manual_seed(146)
+    step = b6.adam_step_size(1e-3, 0.9, 0.999, 5)
+    atol, rtol = B6_TOL
+    for m in B6_SHARDS:
+        L = -(-N // m)
+        table = torch.zeros(L * m, D, device=dev)
+        table[:N] = 0.1 * torch.randn(N, D, device=dev, generator=g)
+        mu0 = 1e-3 * torch.randn(L * m, D, device=dev, generator=g)
+        nu0 = 1e-6 * torch.rand(L * m, D, device=dev, generator=g)
+        err = 0.0
+        for j in range(m):
+            off = j * L
+            rows = slice(off, off + L)
+            start = {"p": table[rows], "mu": mu0[rows], "nu": nu0[rows]}
+            kern = tuple(t.clone() for t in start.values())
+            plain = tuple(t.clone() for t in start.values())
+            firstpos = b6.first_position_scratch(L, dev)
+            b6.sparse_adam(*kern, g_rows, ids, step, firstpos=firstpos, row_offset=off)
+            b6.sparse_adam_plain(*plain, g_rows, ids, step, 0.9, 0.999, 1e-8, off)
+            local = ids.long() - off
+            local = local[(local >= 0) & (local < L)]
+            hits = torch.bincount(local, minlength=L)
+            once, untouched = hits == 1, hits == 0
+            for (name, before), got, want in zip(start.items(), kern, plain):
+                assert torch.equal(got[once], want[once]), \
+                    f"sparse_adam m={m} shard {j}: {name} of a row touched once differs"
+                diff = (got - want).abs()
+                assert bool((diff <= atol * float(want.abs().max()) + rtol * want.abs()).all()), \
+                    f"sparse_adam m={m} shard {j}: {name} error {float(diff.max())}"
+                assert torch.equal(got[untouched], before[untouched]), \
+                    f"sparse_adam m={m} shard {j}: {name} of an untouched row changed"
+                err = max(err, float(diff.max()))
+            assert bool((firstpos == b6.INT32_MAX).all()), "sparse_adam left its scratch dirty"
+        n_own, n_rows = int(hits.sum()), int((hits > 0).sum())
+        print(f"  sparse_adam row shards m={m}: {R} occurrences a shard walks, the last shard "
+              f"(offset {off}, {L * m - N} pad rows) owns {n_own} of them in {n_rows} rows; "
+              f"rows touched once bit-equal, max error {err:.3g}", flush=True)
+        own = ids.long() - off
+        own_mask = (own >= 0) & (own < L)
+        tp = torch.nn.Parameter(table[rows].clone())
+        topt = torch.optim.SparseAdam([tp], lr=1e-3)
+        sparse_grad = torch.sparse_coo_tensor(own[own_mask][None], g_rows[own_mask], (L, D))
+
+        def library():
+            tp.grad = sparse_grad
+            topt.step()
+
+        record("sparse_adam",
+               lambda: b6.sparse_adam(*kern, g_rows, ids, step, firstpos=firstpos, row_offset=off),
+               lambda: b6.sparse_adam_plain(*plain, g_rows, ids, step, 0.9, 0.999, 1e-8, off),
+               err, R * 4 + n_own * D * 4 + 6 * n_rows * D * 4, n_rows * D * 12 + n_own * D,
+               library_fn=library, shape=f"row shard m={m}")
+        del kern, plain, start, tp, topt, table, mu0, nu0
+
+
+def time_occurrence_gather(dev, g_rows, ids, reps=50):
+    """Phase 14a: ``Mesh.gather_occurrences`` of one table's step over a
+    one-rank NCCL group, on the host clock with the device synchronised per
+    call (it waits for the slices' lengths), beside one synchronised empty
+    step: the gather's own cost in the training loop."""
+    import torch
+
+    from recbole_cdr_tpu_torch.parallel import distributed, make_mesh
+
+    distributed.initialize_distributed(dev)
+    try:
+        mesh = make_mesh({"data": 1, "model": 1}, dev)
+        for _ in range(5):
+            mesh.gather_occurrences(ids, g_rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mesh.gather_occurrences(ids, g_rows)
+            torch.cuda.synchronize()
+        gather_ms = (time.perf_counter() - t0) / reps * 1e3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            torch.cuda.synchronize()
+        sync_ms = (time.perf_counter() - t0) / reps * 1e3
+    finally:
+        distributed.shutdown()
+    print(f"  gather_occurrences of {ids.shape[0]} ids and [{g_rows.shape[0]}, "
+          f"{g_rows.shape[1]}] rows over a one-rank NCCL group: {gather_ms:.4f} ms a call "
+          f"(host clock, synchronised; a bare synchronise {sync_ms:.4f} ms)", flush=True)
 
 
 def _run_tracking_passes(model, cfg, track):

@@ -11,6 +11,7 @@ init/loss helpers (`recbole.model.init.xavier_normal_initialization`,
 `recbole.model.loss.EmbLoss`).
 """
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -88,9 +89,11 @@ def bce_loss(logits, labels, weight) -> torch.Tensor:
     return weighted_mean(bce_terms(logits, labels), weight)
 
 
-def bpr_loss(pos_score, neg_score, weight, gamma: float = 1e-10) -> torch.Tensor:
-    """-log(gamma + sigmoid(pos - neg)), recbole ``BPRLoss`` semantics."""
-    return weighted_mean(-torch.log(gamma + torch.sigmoid(pos_score - neg_score)), weight)
+def bpr_terms(pos_score, neg_score, gamma: float = 1e-10) -> torch.Tensor:
+    """Per-sample -log(gamma + sigmoid(pos - neg)): recbole ``BPRLoss``'s
+    terms, whose weighted mean is the loss
+    (``CrossDomainRecommender.batch_mean``)."""
+    return -torch.log(gamma + torch.sigmoid(pos_score - neg_score))
 
 
 def emb_sums(embeddings: Sequence[torch.Tensor], weight, norm: int = 2):
@@ -102,6 +105,24 @@ def emb_sums(embeddings: Sequence[torch.Tensor], weight, norm: int = 2):
         w = weight.reshape((-1,) + (1,) * (e.dim() - 1))
         out.append(torch.sum(torch.abs(e.float() * w) ** norm))
     return out
+
+
+def domain_sums(terms, weight, embeddings=None) -> list:
+    """The batch sums of a domain's loss: (sum(terms * w), sum(w)), then, where
+    ``embeddings`` are given, EmbLoss's squared norm of each (``emb_sums``)."""
+    return list(weighted_sums(terms, weight)) + (emb_sums(embeddings, weight)
+                                                  if embeddings else [])
+
+
+def domain_loss(sums, coef) -> torch.Tensor:
+    """The loss from :func:`domain_sums`' values (summed over the global batch
+    under a mesh): the weighted mean of the terms, plus ``coef`` times
+    EmbLoss where the sums hold its norms."""
+    den = torch.clamp(sums[1], min=1.0)
+    loss = sums[0] / den
+    if len(sums) > 2:
+        loss = loss + coef * (sum(s ** 0.5 for s in sums[2:]) / den)
+    return loss
 
 
 def emb_loss(embeddings: Sequence[torch.Tensor], weight, norm: int = 2,
@@ -201,17 +222,41 @@ class CrossDomainRecommender(nn.Module):
     mesh = None
     table_shards = {}
     #: whether the model trains and evaluates under ``mesh_shape`` (ROADMAP.md
-    #: A13 remainder: only CMF so far)
+    #: A13 remainder: CMF, EMCDR and DCDCSR so far)
     MESH_READY = False
 
     def rows(self, name: str, ids: torch.Tensor) -> torch.Tensor:
-        """Rows ``ids`` of table ``name``: a gather, or for a row-sharded
-        table the lookup over the model group (``parallel/embedding.py``)."""
+        """Rows ``ids`` of table ``name`` (a parameter or a buffer): a
+        gather, or for a row-sharded table the lookup over the model group
+        (``parallel/embedding.py``)."""
         table = getattr(self, name)
         shard = self.table_shards.get(name)
         if shard is None:
             return table[ids.long()]
         return sharded_lookup(table, ids, shard.offset, self.mesh.model_group)
+
+    def pair_rows(self, user_name: str, item_name: str, user, item):
+        """K1's operands for the pairs (user, item) of two tables: the tables
+        and the int32 ids, or, where either table is row-sharded, the rows
+        the lookup gathered and each pair's position in them."""
+        if user_name not in self.table_shards and item_name not in self.table_shards:
+            return (getattr(self, user_name), getattr(self, item_name),
+                    user.to(torch.int32), item.to(torch.int32))
+        pos = torch.arange(user.shape[0], dtype=torch.int32, device=user.device)
+        return self.rows(user_name, user), self.rows(item_name, item), pos, pos
+
+    @contextlib.contextmanager
+    def shards_suspended(self, names):
+        """Within the block, the tables ``names`` read as whole tables: the
+        sparse step substitutes each by the [R, D] sub-table of the step's
+        rows (gathered once through the lookup), so :meth:`rows` must index
+        the substitute directly, not at the shard's offset."""
+        saved = self.table_shards
+        self.table_shards = {n: s for n, s in saved.items() if n not in names}
+        try:
+            yield
+        finally:
+            self.table_shards = saved
 
     def table_columns(self, name: str, n: int):
         """(this rank's rows of ``table[:n]``, their first global row): the
@@ -224,13 +269,38 @@ class CrossDomainRecommender(nn.Module):
 
     def full_table(self, name: str) -> torch.Tensor:
         """Table ``name`` whole: a row-sharded one gathered over the model
-        group, once per parameter version (the dense evaluation's scores)."""
+        group, once per parameter version and type (the dense evaluation's
+        scores, a 16-bit compute's cast copy apart from the float32 one)."""
         table = getattr(self, name)
         shard = self.table_shards.get(name)
         if shard is None:
             return table
-        return self._per_version(f"full:{name}",
+        return self._per_version(f"full:{name}:{table.dtype}",
                                  lambda: self.mesh.gather_rows(table.detach())[:shard.rows])
+
+    def whole_items(self, side):
+        """The whole item side of a full-sort score: ``side`` is ``(table, n)``,
+        the first n rows of a table (gathered over the model group when it is
+        row-sharded), or a block every rank holds whole (built from gathered
+        tables, or a replicated buffer), returned as it is."""
+        if isinstance(side, tuple):
+            name, n = side
+            return self.full_table(name)[:n]
+        return side
+
+    def item_factors(self, user_e, side):
+        """Streaming factors against ``side`` (as :meth:`whole_items`):
+        ``(user_e, items)``, and under a mesh ``(user_e, this rank's rows of
+        them, their first row)`` (B14's operands): a table prefix's rows that
+        the shard holds, or this model rank's contiguous share of a block, so
+        that B14's merge sees each item once."""
+        if self.mesh is None:
+            return user_e, self.whole_items(side)
+        if isinstance(side, tuple):
+            return (user_e, *self.table_columns(*side))
+        per = -(-side.shape[0] // self.mesh.model)
+        lo = min(self.mesh.model_index * per, side.shape[0])
+        return user_e, side[lo:lo + per], lo
 
     def batch_sums(self, *sums: torch.Tensor):
         """A loss's batch sums over the whole global batch: as they are off
@@ -239,6 +309,12 @@ class CrossDomainRecommender(nn.Module):
         if self.mesh is None:
             return sums
         return tuple(self.mesh.batch_sum(torch.stack(sums)).unbind())
+
+    def batch_mean(self, values, weight) -> torch.Tensor:
+        """:func:`weighted_mean` over the global batch (its sums through
+        :meth:`batch_sums`)."""
+        num, den = self.batch_sums(*weighted_sums(values, weight))
+        return num / torch.clamp(den, min=1.0)
 
     def notify_params_updated(self):
         """Invalidate caches derived from the parameters."""

@@ -27,9 +27,9 @@ from torch import nn
 from recbole_cdr_tpu_torch.models.base import (
     CrossDomainRecommender,
     bce_terms,
-    emb_sums,
+    domain_loss,
+    domain_sums,
     init_embedding,
-    weighted_sums,
 )
 from recbole_cdr_tpu_torch.ops.gather_dot import gather_dot
 from recbole_cdr_tpu_torch.utils.enums import InputType
@@ -54,31 +54,11 @@ class CMF(CrossDomainRecommender):
     MESH_READY = True
 
     def _pairs(self, user, item):
-        """K1's operands for the pairs (user, item): the tables and the ids,
-        or, for row-sharded tables, the rows the lookup gathered and each
-        pair's position in them."""
-        if not self.table_shards:
-            return self.user_embedding, self.item_embedding, user, item
-        pos = torch.arange(user.shape[0], dtype=torch.int32, device=user.device)
-        return self.rows("user_embedding", user), self.rows("item_embedding", item), pos, pos
+        """K1's operands for the pairs (user, item) (``pair_rows``)."""
+        return self.pair_rows("user_embedding", "item_embedding", user, item)
 
     def _score(self, user, item):
         return gather_dot(*self._pairs(user, item))  # logits
-
-    def _domain_sums(self, logits, label, weight, coef, rows):
-        """The batch sums of a domain's loss: BCE's (sum, weight sum), then,
-        unless ``coef`` is 0 (it would add exactly 0 to the loss and its
-        grads), EmbLoss's squared norms of the user and item rows."""
-        sums = list(weighted_sums(bce_terms(logits, label), weight))
-        return sums + (emb_sums(rows(), weight) if coef else [])
-
-    @staticmethod
-    def _domain_loss(sums, coef):
-        den = torch.clamp(sums[1], min=1.0)
-        loss = sums[0] / den
-        if coef:
-            loss = loss + coef * ((sums[2] ** 0.5 + sums[3] ** 0.5) / den)
-        return loss
 
     def loss(self, batch, rng=None):
         su, si = batch[self.SOURCE_USER_ID], batch[self.SOURCE_ITEM_ID]
@@ -87,14 +67,16 @@ class CMF(CrossDomainRecommender):
         # both domains' pairs in one kernel call
         U, I, u, i = self._pairs(torch.cat([su, tu]), torch.cat([si, ti]))
         logits = gather_dot(U, I, u, i)
-        rows = lambda part: (lambda: [U[u[part].long()], I[i[part].long()]])
-        sums_s = self._domain_sums(logits[:n], batch[self.SOURCE_LABEL],
-                                   batch["source_sample_weight"], self.lamda, rows(slice(0, n)))
-        sums_t = self._domain_sums(logits[n:], batch[self.TARGET_LABEL],
-                                   batch["target_sample_weight"], self.gamma, rows(slice(n, None)))
-        sums = self.batch_sums(*sums_s, *sums_t)
-        loss_s = self._domain_loss(sums[:len(sums_s)], self.lamda)
-        loss_t = self._domain_loss(sums[len(sums_s):], self.gamma)
+        # EmbLoss's norms only where its coefficient is not 0 (they would add
+        # exactly 0 to the loss and its grads)
+        rows = lambda part, coef: [U[u[part].long()], I[i[part].long()]] if coef else None
+        sums_s = domain_sums(bce_terms(logits[:n], batch[self.SOURCE_LABEL]),
+                             batch["source_sample_weight"], rows(slice(0, n), self.lamda))
+        sums_t = domain_sums(bce_terms(logits[n:], batch[self.TARGET_LABEL]),
+                             batch["target_sample_weight"], rows(slice(n, None), self.gamma))
+        sums = self.batch_sums(*sums_s, *sums_t)  # one reduction for both domains
+        loss_s = domain_loss(sums[:len(sums_s)], self.lamda)
+        loss_t = domain_loss(sums[len(sums_s):], self.gamma)
         return loss_s * self.alpha + loss_t * (1.0 - self.alpha)
 
     def loss_fn(self, phase: str):
@@ -116,15 +98,12 @@ class CMF(CrossDomainRecommender):
                                          batch[self.TARGET_ITEM_ID].to(torch.int32)))
 
     def full_sort(self, users, phase: str = "TARGET"):
-        user_e = self.rows("user_embedding", users)
-        return torch.matmul(user_e, self.full_table("item_embedding")[:self.target_num_items].T)
+        items = self.whole_items(("item_embedding", self.target_num_items))
+        return torch.matmul(self.rows("user_embedding", users), items.T)
 
     def full_sort_factors(self, phase: str = "TARGET"):
         """``users -> (user rows, the target item prefix)``; under a mesh
         ``(user rows, this rank's rows of the prefix, their first global
         row)``."""
-        if self.mesh is None:
-            return lambda users: (self.user_embedding[users],
-                                  self.item_embedding[:self.target_num_items])
-        return lambda users: (self.rows("user_embedding", users),
-                              *self.table_columns("item_embedding", self.target_num_items))
+        return lambda users: self.item_factors(self.rows("user_embedding", users),
+                                               ("item_embedding", self.target_num_items))

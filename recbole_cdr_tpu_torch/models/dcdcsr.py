@@ -18,12 +18,23 @@ phase entry, ``[1, D]`` to ``[n_total, D]`` and ``[n_units, D]``, which
 positives and negatives, go through one call of kernel K1
 (``ops/gather_dot.py``). The popularities are the interaction counts of the
 whole domain, the valid and test splits' included, as in JAX.
+
+Under a (data, model) mesh (``MESH_READY``) the losses read the tables
+through ``rows`` and take their batch sums through ``batch_sums``; BOTH's
+``map_sample_idx`` is split over ``data`` with the rest of the host batch,
+so its mean goes through ``batch_sums`` with its own count. The
+phase-entry surgery reads prefixes of row-sharded tables: it runs on the
+tables gathered over the model group (``full_table``), so every rank builds
+the same benchmark (B12) and affine tables, and both stay replicated
+buffers. The SOURCE phase's item block joins two disjoint ranges of the
+source item table, so it is built the same way and every model rank scores
+its share of it (``item_factors``).
 """
 
 import numpy as np
 import torch
 
-from recbole_cdr_tpu_torch.models.base import CrossDomainRecommender, bpr_loss, mlp
+from recbole_cdr_tpu_torch.models.base import CrossDomainRecommender, bpr_terms, mlp
 from recbole_cdr_tpu_torch.ops.benchmark_topk import benchmark_topk
 from recbole_cdr_tpu_torch.ops.gather_dot import gather_dot, gather_dot_forward
 from recbole_cdr_tpu_torch.utils.enums import InputType
@@ -64,6 +75,9 @@ class DCDCSR(CrossDomainRecommender):
         # derived tables, rebuilt on phase entry (mutate_params_on_phase)
         self.register_buffer("benchmark_embedding", torch.zeros(1, D))
         self.register_buffer("affine_embedding", torch.zeros(1, D))
+
+    #: trains and evaluates under ``mesh_shape``
+    MESH_READY = True
 
     # ------------------------------------------------------------ phase hooks
 
@@ -129,12 +143,12 @@ class DCDCSR(CrossDomainRecommender):
         top-k blend by kernel B12."""
         if self.mode == "overlap_users":
             n_total, n_ov = self.total_num_users, self.overlapped_num_users
-            src_overlap = self.source_user_embedding[:n_ov]
-            tgt_emb = self.target_user_embedding
+            src_overlap = self.full_table("source_user_embedding")[:n_ov]
+            tgt_emb = self.full_table("target_user_embedding")
         else:
             n_total, n_ov = self.total_num_items, self.overlapped_num_items
-            src_overlap = self.source_item_embedding[:n_ov]
-            tgt_emb = self.target_item_embedding
+            src_overlap = self.full_table("source_item_embedding")[:n_ov]
+            tgt_emb = self.full_table("target_item_embedding")
         s_pop, t_pop = self._source_pop, self._target_pop
 
         denom = s_pop[:n_ov] + t_pop[:n_ov]
@@ -153,9 +167,9 @@ class DCDCSR(CrossDomainRecommender):
             self.notify_params_updated()
         if phase == "TARGET" and self.phase2count["TARGET"] == 2:
             if self.mode == "overlap_users":
-                src = self.target_user_embedding[:self.target_num_users]
+                src = self.full_table("target_user_embedding")[:self.target_num_users]
             else:
-                src = self.target_item_embedding[:self.target_num_items]
+                src = self.full_table("target_item_embedding")[:self.target_num_items]
             normal, mean_, max_ = self._maxmin_normalize(src)
             self.affine_embedding = self._map(normal) * (max_ - mean_) + mean_
             self.notify_params_updated()
@@ -178,81 +192,92 @@ class DCDCSR(CrossDomainRecommender):
     # ----------------------------------------------------------------- losses
 
     def _bpr(self, batch, user_table, item_table, uid_key, iid_key, neg_key, w_key):
-        """BPR over the step's pairs, positives and negatives scored by one
-        K1 call."""
-        u = batch[uid_key].to(torch.int32)
-        items = torch.cat([batch[iid_key], batch[neg_key]]).to(torch.int32)
-        scores = gather_dot(user_table, item_table, torch.cat([u, u]), items)
-        return bpr_loss(scores[:u.shape[0]], scores[u.shape[0]:], batch[w_key])
+        """BPR over the step's pairs of tables ``user_table`` and
+        ``item_table`` (names), positives and negatives scored by one K1
+        call."""
+        u, n = batch[uid_key], batch[uid_key].shape[0]
+        scores = gather_dot(*self.pair_rows(user_table, item_table, torch.cat([u, u]),
+                                            torch.cat([batch[iid_key], batch[neg_key]])))
+        return self.batch_mean(bpr_terms(scores[:n], scores[n:]), batch[w_key])
 
     def loss_fn(self, phase: str):
         count = self.phase2count.get(phase, 0)
         if phase == "SOURCE":
             return lambda batch, rng=None: self._bpr(
-                batch, self.source_user_embedding, self.source_item_embedding,
+                batch, "source_user_embedding", "source_item_embedding",
                 self.SOURCE_USER_ID, self.SOURCE_ITEM_ID, self.SOURCE_NEG_ITEM_ID,
                 "source_sample_weight")
         if phase == "BOTH":
             def loss(batch, rng=None):
-                idx = batch["map_sample_idx"].long()
-                table = (self.target_user_embedding if self.mode == "overlap_users"
-                         else self.target_item_embedding)
-                unit_n, _, _ = self._maxmin_normalize(table[idx])
-                bench_n, _, _ = self._maxmin_normalize(self.benchmark_embedding[idx])
-                return torch.mean((self._map(unit_n) - bench_n) ** 2)
+                idx = batch["map_sample_idx"]
+                unit = ("target_user_embedding" if self.mode == "overlap_users"
+                        else "target_item_embedding")
+                unit_n, _, _ = self._maxmin_normalize(self.rows(unit, idx))
+                bench_n, _, _ = self._maxmin_normalize(self.rows("benchmark_embedding", idx))
+                sq = (self._map(unit_n) - bench_n) ** 2
+                # the mean over the global sample: its own count, not a weight's
+                total, count = self.batch_sums(torch.sum(sq), sq.new_tensor(float(sq.numel())))
+                return total / count
             return loss
         if phase == "TARGET" and count == 2:
             if self.mode == "overlap_users":
-                tables = (self.affine_embedding, self.target_item_embedding)
+                tables = ("affine_embedding", "target_item_embedding")
             else:
-                tables = (self.target_user_embedding, self.affine_embedding)
+                tables = ("target_user_embedding", "affine_embedding")
             return lambda batch, rng=None: self._bpr(
                 batch, *tables, self.TARGET_USER_ID, self.TARGET_ITEM_ID,
                 self.TARGET_NEG_ITEM_ID, "target_sample_weight")
         return lambda batch, rng=None: self._bpr(
-            batch, self.target_user_embedding, self.target_item_embedding,
+            batch, "target_user_embedding", "target_item_embedding",
             self.TARGET_USER_ID, self.TARGET_ITEM_ID, self.TARGET_NEG_ITEM_ID,
             "target_sample_weight")
 
     # ---------------------------------------------------------------- scoring
 
-    def _tables_for_scoring(self, phase):
+    def _scoring_tables(self, phase):
+        """The names of the user and item tables the phase scores with."""
         count = self.phase2count.get(phase, 0)
         use_affine = (phase == "TARGET" and count >= 2) or phase in ("OVERLAP", "BOTH")
-        item_table = self.target_item_embedding[:self.target_num_items]
         if use_affine and self.mode == "overlap_users":
-            return self.affine_embedding, item_table
+            return "affine_embedding", "target_item_embedding"
         if use_affine and self.mode == "overlap_items":
-            return self.target_user_embedding, self.affine_embedding
-        return self.target_user_embedding, item_table
+            return "target_user_embedding", "affine_embedding"
+        return "target_user_embedding", "target_item_embedding"
 
-    def _source_items(self):
-        """The compacted source item space: overlap prefix ++ source-only
-        suffix."""
-        return torch.cat([self.source_item_embedding[:self.overlapped_num_items],
-                          self.source_item_embedding[self.target_num_items:]], 0)
+    def _scorers(self, phase):
+        """The phase's user table and the item side of its full-sort score
+        (``whole_items``): a prefix of the target item table, the affine
+        buffer, or SOURCE's compacted item space (overlap prefix ++
+        source-only suffix) built from the table gathered over the model
+        group under a mesh."""
+        if phase == "SOURCE":
+            table = self.full_table("source_item_embedding")
+            return "source_user_embedding", torch.cat(
+                [table[:self.overlapped_num_items], table[self.target_num_items:]], 0)
+        user_table, item_table = self._scoring_tables(phase)
+        if item_table == "affine_embedding":  # a replicated buffer
+            return user_table, self.affine_embedding[:self.target_num_items]
+        return user_table, (item_table, self.target_num_items)
 
     def predict(self, batch):
         """Scores of the batch's pairs (``predict_fn``, `dcdcsr.py:294-309`)
         through K1's forward."""
         if self.phase == "SOURCE" and self.phase2count["SOURCE"] == 1:
-            tables = (self.source_user_embedding, self.source_item_embedding)
+            tables = ("source_user_embedding", "source_item_embedding")
             keys = (self.SOURCE_USER_ID, self.SOURCE_ITEM_ID)
         else:
-            tables = self._tables_for_scoring(self.phase)
+            tables = self._scoring_tables(self.phase)
             keys = (self.TARGET_USER_ID, self.TARGET_ITEM_ID)
-        return gather_dot_forward(*tables, batch[keys[0]].to(torch.int32),
-                                  batch[keys[1]].to(torch.int32))
+        return gather_dot_forward(*self.pair_rows(*tables, batch[keys[0]], batch[keys[1]]))
 
     def full_sort(self, users, phase: str = "TARGET"):
-        user_e, item_e = self.full_sort_factors(phase)(users)
-        return torch.matmul(user_e, item_e.T)
+        user_table, items = self._scorers(phase)
+        return torch.matmul(self.rows(user_table, users), self.whole_items(items).T)
 
     def full_sort_factors(self, phase: str = "TARGET"):
-        if phase == "SOURCE":
-            return lambda users: (self.source_user_embedding[users], self._source_items())
-
+        """``users -> (user rows, item table)``; under a mesh the item side
+        is this rank's share of it and its first row."""
         def factors(users):
-            user_table, item_table = self._tables_for_scoring(phase)
-            return user_table[users], item_table
+            user_table, items = self._scorers(phase)
+            return self.item_factors(self.rows(user_table, users), items)
         return factors

@@ -10,6 +10,16 @@ stream). At inference the overlapped entities score through their mapped
 source embedding. The MF dots of a step go through one call of kernel K1
 (``ops/gather_dot.py``); ``full_sort_factors`` puts the mapped scoring on
 the streaming evaluator for catalogs.
+
+Under a (data, model) mesh (``MESH_READY``) every read of a table goes
+through ``rows`` and every batch sum through ``batch_sums``, the OVERLAP
+mapping loss's too, and the mapping MLP's gradients are summed over the
+data group by the trainer. The SOURCE phase's item block joins two disjoint
+ranges of the source item table (the overlapped prefix and the source-only
+suffix), and the OVERLAP phase's item block of the item-overlap mode maps
+the overlapped prefix: neither has one column offset on a row shard, so
+each is built from the tables gathered over the model group (``full_table``)
+and every model rank scores its contiguous share of it (``item_factors``).
 """
 
 import torch
@@ -17,10 +27,10 @@ from torch import nn
 
 from recbole_cdr_tpu_torch.models.base import (
     CrossDomainRecommender,
-    bpr_loss,
-    emb_loss,
+    bpr_terms,
+    domain_loss,
+    domain_sums,
     mlp,
-    weighted_mean,
     xavier_normal,
 )
 from recbole_cdr_tpu_torch.ops.gather_dot import gather_dot, gather_dot_forward
@@ -50,6 +60,9 @@ class EMCDR(CrossDomainRecommender):
             self.mapping = nn.Parameter(xavier_normal((Ds, Dt), gen))
         else:
             self.mapping = mlp([Ds] + list(self.mlp_hidden_size) + [Dt], gen)
+
+    #: trains and evaluates under ``mesh_shape``
+    MESH_READY = True
 
     def trainable_predicate(self, phase: str):
         """Exactly the parameters the phase's loss reaches (torch's optimizers
@@ -94,24 +107,24 @@ class EMCDR(CrossDomainRecommender):
                 x = torch.tanh(x)
         return x
 
-    def _tables(self, prefix):
-        return (getattr(self, f"{prefix}_user_embedding"),
-                getattr(self, f"{prefix}_item_embedding"))
+    @staticmethod
+    def _names(prefix):
+        return f"{prefix}_user_embedding", f"{prefix}_item_embedding"
 
     def _domain_loss(self, batch, prefix, uid_key, iid_key, neg_key, label_key, w_key):
-        user_table, item_table = self._tables(prefix)
-        w = batch[w_key]
-        user = batch[uid_key].to(torch.int32)
+        user, n = batch[uid_key], batch[uid_key].shape[0]
         if not self.is_pairwise:
-            pred = gather_dot(user_table, item_table, user, batch[iid_key].to(torch.int32))
-            base = weighted_mean((pred - batch[label_key]) ** 2, w)  # MSE
+            U, I, u, i = self.pair_rows(*self._names(prefix), user, batch[iid_key])
+            terms = (gather_dot(U, I, u, i) - batch[label_key]) ** 2  # MSE
         else:
-            items = torch.cat([batch[iid_key], batch[neg_key]]).to(torch.int32)
-            scores = gather_dot(user_table, item_table, torch.cat([user, user]), items)
-            base = bpr_loss(scores[:user.shape[0]], scores[user.shape[0]:], w)
-        reg = emb_loss([user_table[batch[uid_key].long()], item_table[batch[iid_key].long()]],
-                       w)
-        return base + self.reg_weight * reg
+            U, I, u, i = self.pair_rows(*self._names(prefix), torch.cat([user, user]),
+                                        torch.cat([batch[iid_key], batch[neg_key]]))
+            scores = gather_dot(U, I, u, i)
+            terms = bpr_terms(scores[:n], scores[n:])
+        # the loss's and EmbLoss's batch sums in one reduction
+        sums = self.batch_sums(*domain_sums(terms, batch[w_key],
+                                            [U[u[:n].long()], I[i[:n].long()]]))
+        return domain_loss(sums, self.reg_weight)
 
     # ----------------------------------------------------------------- losses
 
@@ -122,12 +135,12 @@ class EMCDR(CrossDomainRecommender):
                 self.SOURCE_NEG_ITEM_ID, self.SOURCE_LABEL, "source_sample_weight")
         if phase == "OVERLAP":
             def loss(batch, rng=None):
-                idx = batch["overlap"].long()
+                idx = batch["overlap"]
                 ent = "user" if self.mode == "overlap_users" else "item"
-                src_e = getattr(self, f"source_{ent}_embedding")[idx]
-                tgt_e = getattr(self, f"target_{ent}_embedding")[idx]
-                return weighted_mean(torch.mean((self._map(src_e) - tgt_e) ** 2, -1),
-                                     batch["overlap_sample_weight"])
+                src_e = self.rows(f"source_{ent}_embedding", idx)
+                tgt_e = self.rows(f"target_{ent}_embedding", idx)
+                return self.batch_mean(torch.mean((self._map(src_e) - tgt_e) ** 2, -1),
+                                       batch["overlap_sample_weight"])
             return loss
         return lambda batch, rng=None: self._domain_loss(
             batch, "target", self.TARGET_USER_ID, self.TARGET_ITEM_ID,
@@ -136,8 +149,8 @@ class EMCDR(CrossDomainRecommender):
     # ---------------------------------------------------------------- scoring
 
     def _mapped_user_e(self, user):
-        mapped = self._map(self.source_user_embedding[user])
-        direct = self.target_user_embedding[user]
+        mapped = self._map(self.rows("source_user_embedding", user))
+        direct = self.rows("target_user_embedding", user)
         return torch.where((user < self.overlapped_num_users)[:, None], mapped, direct)
 
     def predict(self, batch):
@@ -147,43 +160,48 @@ class EMCDR(CrossDomainRecommender):
             prefix = self.phase.lower()
             key = self.SOURCE_USER_ID if prefix == "source" else self.TARGET_USER_ID
             ikey = self.SOURCE_ITEM_ID if prefix == "source" else self.TARGET_ITEM_ID
-            return gather_dot_forward(*self._tables(prefix), batch[key].to(torch.int32),
-                                      batch[ikey].to(torch.int32))
+            return gather_dot_forward(*self.pair_rows(*self._names(prefix), batch[key],
+                                                      batch[ikey]))
         user = batch[self.TARGET_USER_ID].long()
         item = batch[self.TARGET_ITEM_ID].long()
         if self.mode == "overlap_users":
             user_e = self._mapped_user_e(user)
-            item_e = self.target_item_embedding[item]
+            item_e = self.rows("target_item_embedding", item)
         else:
-            user_e = self.target_user_embedding[user]
-            mapped = self._map(self.source_item_embedding[item])
-            direct = self.target_item_embedding[item]
+            user_e = self.rows("target_user_embedding", user)
+            mapped = self._map(self.rows("source_item_embedding", item))
+            direct = self.rows("target_item_embedding", item)
             item_e = torch.where((item < self.overlapped_num_items)[:, None], mapped, direct)
         return torch.sum(user_e * item_e, -1)
 
+    def _items(self, phase):
+        """The item side of the phase's full-sort score (``whole_items``):
+        the target items' prefix, or a block built from the tables gathered
+        over the model group under a mesh (SOURCE's two ranges, the
+        item-overlap mode's mapped overlap)."""
+        n_ov, n_tgt = self.overlapped_num_items, self.target_num_items
+        if phase == "SOURCE":
+            table = self.full_table("source_item_embedding")
+            return torch.cat([table[:n_ov], table[n_tgt:]], 0)
+        if phase == "TARGET" or self.mode == "overlap_users":
+            return "target_item_embedding", n_tgt
+        overlap_item_e = self._map(self.full_table("source_item_embedding")[:n_ov])
+        return torch.cat([overlap_item_e, self.full_table("target_item_embedding")[n_ov:n_tgt]],
+                         0)
+
+    def _user_repr(self, phase, users):
+        if phase == "SOURCE":
+            return self.rows("source_user_embedding", users)
+        if phase == "TARGET" or self.mode != "overlap_users":
+            return self.rows("target_user_embedding", users)
+        return self._mapped_user_e(users)
+
     def full_sort(self, users, phase: str = "TARGET"):
-        user_e, item_e = self.full_sort_factors(phase)(users)
-        return torch.matmul(user_e, item_e.T)
+        user_e = self._user_repr(phase, users)
+        return torch.matmul(user_e, self.whole_items(self._items(phase)).T)
 
     def full_sort_factors(self, phase: str = "TARGET"):
         """``users -> (user representation, item table)``: the full-sort
-        score is their product (`emcdr.py:262-303`)."""
-        if phase == "SOURCE":
-            return lambda users: (
-                self.source_user_embedding[users],
-                torch.cat([self.source_item_embedding[:self.overlapped_num_items],
-                           self.source_item_embedding[self.target_num_items:]], 0))
-        if phase == "TARGET":
-            return lambda users: (self.target_user_embedding[users],
-                                  self.target_item_embedding[:self.target_num_items])
-
-        def factors(users):
-            if self.mode == "overlap_users":
-                return (self._mapped_user_e(users),
-                        self.target_item_embedding[:self.target_num_items])
-            overlap_item_e = self._map(self.source_item_embedding[:self.overlapped_num_items])
-            target_item_e = self.target_item_embedding[
-                self.overlapped_num_items:self.target_num_items]
-            return (self.target_user_embedding[users],
-                    torch.cat([overlap_item_e, target_item_e], 0))
-        return factors
+        score is their product (`emcdr.py:262-303`); under a mesh the item
+        side is this rank's share of it and its first row."""
+        return lambda users: self.item_factors(self._user_repr(phase, users), self._items(phase))

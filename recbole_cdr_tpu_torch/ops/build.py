@@ -81,7 +81,8 @@ _SIGNATURES = {
         "streaming_topk_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
     "sparse_adam": {
-        "sparse_adam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+        "sparse_adam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                        _P],
     },
     "graph_layer": {
         "graph_layer_forward": [_P] * 8 + [_I, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P],

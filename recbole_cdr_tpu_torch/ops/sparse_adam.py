@@ -8,6 +8,15 @@ first occurrence, and each touched row takes one lazy Adam step with
 ``step_size`` (:func:`adam_step_size`). ``p``, ``mu`` and ``nu`` are updated
 in place; untouched rows are neither read nor written.
 
+Row-shard form (``row_offset``): under a mesh whose ``model`` axis shards the
+table, ``p``, ``mu`` and ``nu`` are this rank's rows ``[row_offset,
+row_offset + L)`` and ``ids`` the GLOBAL rows of every occurrence of the step
+(every data rank's, ``parallel/mesh.py::Mesh.gather_occurrences``); an
+occurrence outside the shard, padding included, is skipped, so duplicates
+coalesce into their first occurrence in the global order, as JAX's
+``row_update`` does on the whole table, and each rank updates only its own
+rows. ``row_offset`` 0 with ``L`` = N is the whole table.
+
 The kernel is ``csrc/sparse_adam.cu``; the plain version below runs for CPU
 tensors and serves as the kernel's reference.
 """
@@ -31,17 +40,21 @@ def adam_step_size(lr: float, b1: float, b2: float, count: int) -> float:
 
 
 def first_position_scratch(n_rows: int, device) -> torch.Tensor:
-    """The kernel's [N] int32 first-occurrence scratch, filled with INT32_MAX
-    once; every kernel call leaves it so."""
+    """The kernel's int32 first-occurrence scratch of a table (or shard) of
+    ``n_rows`` rows, filled with INT32_MAX once; every kernel call leaves it
+    so."""
     return torch.full((n_rows,), INT32_MAX, dtype=torch.int32, device=device)
 
 
 def sparse_adam_plain(p, mu, nu, g_rows, ids, step_size: float, b1: float, b2: float,
-                      eps: float):
-    N, R = p.shape[0], ids.shape[0]
+                      eps: float, row_offset: int = 0):
+    L = p.shape[0]
+    local = ids.long() - row_offset
+    own = (local >= 0) & (local < L)  # the shard's occurrences, in their order
+    ids64, g_rows = local[own], g_rows[own]
+    R = ids64.shape[0]
     pos = torch.arange(R, device=p.device)
-    ids64 = ids.long()
-    firstpos = torch.full((N,), R, dtype=torch.int64, device=p.device)
+    firstpos = torch.full((L,), R, dtype=torch.int64, device=p.device)
     firstpos.scatter_reduce_(0, ids64, pos, "amin")
     fp = firstpos[ids64]
     head = fp == pos
@@ -56,12 +69,13 @@ def sparse_adam_plain(p, mu, nu, g_rows, ids, step_size: float, b1: float, b2: f
 
 
 def sparse_adam(p, mu, nu, g_rows, ids, step_size: float, b1: float = 0.9,
-                b2: float = 0.999, eps: float = 1e-8, firstpos=None):
-    """One SparseAdam step of table ``p`` [N, D] (and its moments ``mu``,
-    ``nu``) in place, from gradient rows ``g_rows`` [R, D] of rows ``ids``
-    [R] int32 (in [0, N), duplicates allowed). On the card, ``firstpos`` is
-    the table's scratch from :func:`first_position_scratch`, kept by the
-    caller across steps so that a step costs O(R), not O(N)."""
+                b2: float = 0.999, eps: float = 1e-8, firstpos=None, row_offset: int = 0):
+    """One SparseAdam step of table ``p`` [L, D], global rows ``[row_offset,
+    row_offset + L)`` (and its moments ``mu``, ``nu``), in place, from
+    gradient rows ``g_rows`` [R, D] of global rows ``ids`` [R] int32
+    (duplicates allowed; ids outside the shard are skipped). On the card,
+    ``firstpos`` is the table's scratch from :func:`first_position_scratch`,
+    kept by the caller across steps so that a step costs O(R), not O(L)."""
     if any(t.dtype != torch.float32 for t in (p, mu, nu, g_rows)):
         raise TypeError("sparse_adam takes float32 tables, moments and gradients")
     if ids.dtype != torch.int32 or ids.dim() != 1:
@@ -72,8 +86,10 @@ def sparse_adam(p, mu, nu, g_rows, ids, step_size: float, b1: float = 0.9,
         raise ValueError(f"sparse_adam: g_rows {g_rows.shape} for {ids.shape[0]} ids")
     if len({t.device for t in (p, mu, nu, g_rows, ids)}) != 1:
         raise ValueError("sparse_adam operands must share one device")
+    if not 0 <= row_offset <= INT32_MAX - p.shape[0]:
+        raise ValueError(f"sparse_adam: row_offset {row_offset} for {p.shape[0]} rows")
     if p.device.type == "cpu":
-        return sparse_adam_plain(p, mu, nu, g_rows, ids, step_size, b1, b2, eps)
+        return sparse_adam_plain(p, mu, nu, g_rows, ids, step_size, b1, b2, eps, row_offset)
     if p.device.type != "cuda":
         raise ValueError(f"sparse_adam has no version for device {p.device}")
     if not all(t.is_contiguous() for t in (p, mu, nu)):
@@ -86,8 +102,8 @@ def sparse_adam(p, mu, nu, g_rows, ids, step_size: float, b1: float = 0.9,
     f = np.float32
     err = build.library("sparse_adam").sparse_adam(
         p.data_ptr(), mu.data_ptr(), nu.data_ptr(), g_rows.data_ptr(), ids.data_ptr(),
-        firstpos.data_ptr(), acc.data_ptr(), ids.shape[0], p.shape[1],
-        float(f(step_size)), float(f(b1)), float(f(1.0 - b1)), float(f(b2)),
+        firstpos.data_ptr(), acc.data_ptr(), ids.shape[0], p.shape[1], p.shape[0],
+        int(row_offset), float(f(step_size)), float(f(b1)), float(f(1.0 - b1)), float(f(b2)),
         float(f(1.0 - b2)), float(f(eps)), build.stream_handle(p),
     )
     build.check(err, "sparse_adam")

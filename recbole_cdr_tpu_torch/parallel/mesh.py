@@ -16,7 +16,9 @@ rank's place in a process grid with explicit collectives:
   ``[mi L, (mi + 1) L)``), the rest replicated; lookups go through
   ``parallel/embedding.py``;
 - batches are split over ``data``; gradients are summed over the data group
-  after the backward.
+  after the backward; under the row-sparse optimizer the occurrences of a
+  step's rows and their gradient rows are gathered over it instead
+  (:meth:`Mesh.gather_occurrences`), and each rank updates its own rows.
 
 With one rank the collectives still run through the process group: no code
 path special-cases a world of one.
@@ -35,6 +37,11 @@ from recbole_cdr_tpu_torch.parallel.embedding import sharded_lookup
 #: parameters are replicated (sharding tiny tables costs more in collectives
 #: than it saves)
 MIN_SHARD_ROWS = 128
+
+#: the id :meth:`Mesh.gather_occurrences` pads a short data slice's
+#: occurrences with: past every shard of every table, so the row-sparse
+#: update (kernel B6) skips it
+OCCURRENCE_PAD = 2 ** 31 - 1
 
 
 class TableShard(NamedTuple):
@@ -98,6 +105,22 @@ class Mesh:
     def gather_data(self, t: torch.Tensor) -> torch.Tensor:
         """The data group's equal-length ``t`` concatenated in data order."""
         return self._gather(t, self.data_group, self.data)
+
+    def gather_occurrences(self, ids: torch.Tensor, rows: torch.Tensor):
+        """The data group's ``(ids [R_i], rows [R_i, D])`` concatenated in
+        data order, which is the global batch's order (``put_sharded``
+        splits it contiguously): every rank gets every occurrence of the
+        step. The slices may differ in length (``tensor_split``), so the
+        lengths are gathered first and each slice is padded to the longest
+        with ``OCCURRENCE_PAD`` ids and zero rows."""
+        lens = self._gather(torch.tensor([ids.shape[0]], device=ids.device),
+                            self.data_group, self.data).tolist()
+        pad = max(lens) - ids.shape[0]
+        if pad:
+            ids = torch.cat([ids, ids.new_full((pad,), OCCURRENCE_PAD)])
+            rows = torch.cat([rows, rows.new_zeros((pad,) + tuple(rows.shape[1:]))])
+        return (self._gather(ids, self.data_group, self.data),
+                self._gather(rows, self.data_group, self.data))
 
     def reduce_gradients(self, params) -> None:
         """Sum every gradient over the data group, in place. Every rank holds

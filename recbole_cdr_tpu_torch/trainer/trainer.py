@@ -56,14 +56,17 @@ validation's metrics (``valid/<metric>``) to Weights & Biases when the
 does not, as the JAX trainer does.
 
 ``mesh_shape`` (with ``distributed`` for more than one process) trains
-CMF over a (data, model) mesh of processes (``parallel/mesh.py``): the
-tables are padded and row-sharded at construction, every rank draws the
-global batch stream and trains on its ``data`` slice, the loss takes its
-batch sums over the data group, and after the backward the gradients are
-summed over it (``clip_grad_norm`` takes the norm over the whole sharded
-tables); evaluation passes the mesh, so the streaming path runs B14. Under
-the mesh, the other models, ``phase_optimizer: sparse`` and a 16-bit
-``compute_dtype`` raise (ROADMAP.md A13 remainder).
+CMF, EMCDR and DCDCSR (``MESH_READY``) over a (data, model) mesh of
+processes (``parallel/mesh.py``): the tables are padded and row-sharded at
+construction, every rank draws the global batch stream and trains on its
+``data`` slice, the loss takes its batch sums over the data group, and after
+the backward the gradients are summed over it (``clip_grad_norm`` takes the
+norm over the whole sharded tables); under ``phase_optimizer: sparse`` the
+step's occurrences and their gradient rows are gathered over the data group
+instead and each rank updates the rows of its shards (B6's row-shard form).
+A 16-bit ``compute_dtype`` casts this rank's shards. Evaluation passes the
+mesh, so the streaming path runs B14. Under the mesh the other models raise
+(ROADMAP.md A13 remainder).
 
 Not ported yet, and raising when configured: checkpoint files and resume
 (ROADMAP.md A12), profiling (A12).
@@ -245,7 +248,10 @@ class SparseAdam:
 
     Tables in the model's ``sparse_spec`` take :meth:`row_update` (kernel B6
     on the card); every other trainable parameter takes
-    :meth:`dense_entry_update`, torch's dense Adam on the same state."""
+    :meth:`dense_entry_update`, torch's dense Adam on the same state. Under a
+    mesh a row-sharded table's moments and scratch are its shard's, and
+    :meth:`step_table` takes the step's global occurrences and updates the
+    shard's rows of them (B6's row-shard form)."""
 
     def __init__(self, config, model):
         learner = (config["learner"] or "adam").lower()
@@ -274,16 +280,19 @@ class SparseAdam:
                    for n, p in self.params.items()},
             "count": {n: 0 for n in self.params},
         }
-        #: kernel B6's [N] first-occurrence scratch per table, kept so a
-        #: step costs O(rows touched), not O(N)
+        #: kernel B6's first-occurrence scratch per table (or shard), kept
+        #: so a step costs O(rows touched), not O(rows)
         self._firstpos = {}
+        #: the first global row of each row-sharded table's shard
+        self.row_offsets = {n: s.offset for n, s in getattr(model, "table_shards", {}).items()}
 
-    def row_update(self, p, mu, nu, g_rows, ids, c, firstpos=None):
+    def row_update(self, p, mu, nu, g_rows, ids, c, firstpos=None, row_offset=0):
         """One SparseAdam step for one table, in place: ``g_rows[j]`` is the
-        grad of row ``ids[j]`` (duplicates allowed), ``c`` the table's step
-        count after this step's increment."""
+        grad of global row ``ids[j]`` (duplicates allowed; rows outside
+        ``p``'s ``[row_offset, row_offset + len(p))`` skipped), ``c`` the
+        table's step count after this step's increment."""
         sparse_adam(p, mu, nu, g_rows, ids, adam_step_size(self.lr, self.b1, self.b2, c),
-                    self.b1, self.b2, self.eps, firstpos=firstpos)
+                    self.b1, self.b2, self.eps, firstpos=firstpos, row_offset=row_offset)
 
     def dense_entry_update(self, g, mu, nu, c):
         """torch dense-Adam step for one parameter: returns (update, mu, nu),
@@ -303,7 +312,8 @@ class SparseAdam:
             self._firstpos[name] = first_position_scratch(p.shape[0], p.device)
         self.state["count"][name] += 1
         self.row_update(p.data, self.state["mu"][name], self.state["nu"][name],
-                        g_rows, ids, self.state["count"][name], self._firstpos.get(name))
+                        g_rows, ids, self.state["count"][name], self._firstpos.get(name),
+                        self.row_offsets.get(name, 0))
 
     @torch.no_grad()
     def step_dense(self, name, grad):
@@ -327,20 +337,39 @@ def make_sparse_train_step(model, optimizer, phase, spec, trainable,
     frozen. With an empty ``spec`` this is the dense fallback of a phase
     without one. Under a 16-bit ``compute_dtype`` the loss runs on cast
     copies of the sub-tables and the other parameters; the row gradients
-    come back float32 through the cast."""
+    come back float32 through the cast.
+
+    Under the model's mesh the batch is this rank's data slice: the
+    sub-tables are gathered once through the row-sharded lookup and the loss
+    runs with those tables' shards suspended (``rows`` then reads the
+    sub-tables), taking its batch sums over the data group; after the
+    backward each table's occurrences and gradient rows are gathered over
+    the data group in the global order and B6's row-shard form updates this
+    rank's rows of them, and the dense entries' gradients are summed over
+    the data group first."""
     named = dict(model.named_parameters())
     top = lambda n: n.split(".", 1)[0]
     rest = [n for n in named if top(n) not in spec]
     dense = [n for n in rest if trainable(top(n))]
     loss_fn = with_compute_dtype(phase_loss(model, phase), compute_dtype, model)
+    mesh = model.mesh
 
     def step(batch, rng=None):
         batch2, idx = rebase_sparse_batch(batch, spec)
-        sub = {n: named[n].detach()[idx[n].long()].requires_grad_() for n in spec}
-        loss = call_with(model, sub, loss_fn, batch2, rng)
+        with torch.no_grad():
+            sub = {n: model.rows(n, idx[n]) for n in spec}
+        for t in sub.values():
+            t.requires_grad_()
+        with model.shards_suspended(spec):
+            loss = call_with(model, sub, loss_fn, batch2, rng)
         loss.backward()
         for n in spec:
-            optimizer.step_table(n, sub[n].grad, idx[n])
+            ids, g_rows = idx[n], sub[n].grad
+            if mesh is not None:
+                ids, g_rows = mesh.gather_occurrences(ids, g_rows)
+            optimizer.step_table(n, g_rows, ids)
+        if mesh is not None:
+            mesh.reduce_gradients(named[n] for n in dense)
         for n in dense:
             optimizer.step_dense(n, named[n].grad)
         for n in rest:
@@ -387,23 +416,16 @@ def _check_supported(config, model):
     for key, (what, item) in unsupported.items():
         if config[key]:
             raise NotImplementedError(f"{key}: {what} is not ported yet (ROADMAP.md {item})")
-    compute_dtype = resolve_compute_dtype(config)
+    resolve_compute_dtype(config)  # an unknown type raises here
     mode = (config["phase_optimizer"] or "single").lower()
     if mode not in ("single", "per_phase", "sparse"):
         raise ValueError(
             f"phase_optimizer must be 'single', 'per_phase' or 'sparse', "
             f"got {config['phase_optimizer']!r}"
         )
-    if not config["mesh_shape"]:
-        return
-    sparse = mode == "sparse" or (mode == "single"
-                                  and (config["learner"] or "adam").lower() == "sparse_adam")
-    for what, unported in ((f"model {type(model).__name__}", not model.MESH_READY),
-                           ("phase_optimizer: sparse (B6 on row shards)", sparse),
-                           (f"compute_dtype {compute_dtype}", compute_dtype != torch.float32)):
-        if unported:
-            raise NotImplementedError(f"mesh_shape: {what} under the mesh is not ported yet "
-                                      "(ROADMAP.md A13 remainder)")
+    if config["mesh_shape"] and not model.MESH_READY:
+        raise NotImplementedError(f"mesh_shape: model {type(model).__name__} under the mesh "
+                                  "is not ported yet (ROADMAP.md A13 remainder)")
 
 
 class CrossDomainTrainer:

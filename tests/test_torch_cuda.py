@@ -269,6 +269,44 @@ def test_sparse_adam_matches_plain(gen, N, D, R, kind):
     assert bool((firstpos == b6.INT32_MAX).all())  # the scratch is left ready
 
 
+@pytest.mark.parametrize("N,D,m", [(1000, 64, 2), (1000, 33, 3), (77, 65, 4)])
+def test_sparse_adam_row_shards_match_plain(gen, N, D, m):
+    """B6's row-shard form: every shard of ceil(N / m) rows (the last
+    padded) at its offset, two steps on the global occurrences of the step
+    (every shard's rows, duplicates across them, and ``OCCURRENCE_PAD``
+    padding, which every shard skips): rows touched once equal the plain
+    version exactly, coalesced rows within ``test_sparse_adam_matches_plain``'s
+    tolerance, the pad rows untouched, the scratch left ready."""
+    from recbole_cdr_tpu_torch.parallel.mesh import OCCURRENCE_PAD
+
+    L = -(-N // m)
+    R = 6 * N
+    start = torch.zeros(L * m, D, device="cuda")
+    start[:N] = torch.randn(N, D, device="cuda", generator=gen)
+    for j in range(m):
+        off = j * L
+        p, mu, nu = start[off:off + L].clone(), torch.zeros(L, D, device="cuda"), \
+            torch.zeros(L, D, device="cuda")
+        pp, pmu, pnu = p.clone(), mu.clone(), nu.clone()
+        firstpos = b6.first_position_scratch(L, "cuda")
+        for c in range(1, 3):
+            ids = _ints(0, N, (R,), gen)
+            ids[::7] = OCCURRENCE_PAD
+            g = torch.randn(R, D, device="cuda", generator=gen)
+            step = b6.adam_step_size(1e-3, 0.9, 0.999, c)
+            b6.sparse_adam(p, mu, nu, g, ids, step, firstpos=firstpos, row_offset=off)
+            b6.sparse_adam_plain(pp, pmu, pnu, g, ids, step, 0.9, 0.999, 1e-8, off)
+            torch.cuda.synchronize()
+            local = ids.long() - off
+            hits = torch.bincount(local[(local >= 0) & (local < L)], minlength=L)
+            for got, want in ((p, pp), (mu, pmu), (nu, pnu)):
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+                if c == 1:
+                    assert torch.equal(got[hits == 1], want[hits == 1])
+        assert torch.equal(p[N - off:], start[N:off + L])  # the padding
+        assert bool((firstpos == b6.INT32_MAX).all())
+
+
 def _random_csr(N, nnz, gen):
     """A random non-symmetric [N, N] CSR and its transpose's CSR: row 0 has
     no nonzero, row 1 (and column 1) exactly one, rows 2 and 3 (and columns
@@ -1020,6 +1058,35 @@ def test_mesh_on_the_card(gen, tmp_path, monkeypatch, distributed):
     assert counts["streaming_topk"] == counts["masked_topk"] == 0, counts
     single = run_recbole_cdr(model="CMF", config_dict=cfg)
     assert mesh["test_result"] == single["test_result"]
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("CMF", {"phase_optimizer": "sparse", "compute_dtype": "bfloat16",
+             "eval_score_dtype": "bfloat16"}),
+    ("EMCDR", {"train_epochs": ["SOURCE:1", "TARGET:1", "OVERLAP:1"],
+               "phase_optimizer": "sparse"}),
+    ("DCDCSR", {"train_epochs": ["SOURCE:1", "TARGET:1", "BOTH:1", "TARGET:1"]}),
+])
+def test_mesh_options_on_the_card(gen, tmp_path, monkeypatch, model, extra):
+    """The sparse optimizer (B6's row-shard form at offset 0), bf16 compute
+    (B14's 16-bit local stage) and the mapping models over a one-rank NCCL
+    mesh, streaming forced: the test metrics within 0.02 of the run without
+    the mesh; B6 launches wherever the sparse optimizer trains."""
+    from recbole_cdr_tpu_torch import run_recbole_cdr
+
+    monkeypatch.chdir(tmp_path)
+    cfg = {"state": "ERROR", "device": "cuda", "train_epochs": ["BOTH:2"],
+           "train_batch_size": 1024, "streaming_topk_threshold": 1, **extra}
+    ops.reset_launch_counts()
+    mesh = run_recbole_cdr(model=model, config_dict={**cfg,
+                                                     "mesh_shape": {"data": 1, "model": 1}})
+    counts = ops.launch_counts()
+    assert not torch.distributed.is_initialized()
+    assert counts["sharded_topk_local"] == counts["sharded_topk_merge"] > 0, counts
+    assert (counts["sparse_adam"] > 0) == (cfg.get("phase_optimizer") == "sparse"), counts
+    single = run_recbole_cdr(model=model, config_dict=cfg)
+    for k, v in single["test_result"].items():
+        assert abs(mesh["test_result"][k] - v) < 0.02, (k, mesh["test_result"][k], v)
 
 
 # ---- B16 (DeepAPF's attention-gated score) and B15 (CoNet's tower)

@@ -46,6 +46,8 @@ def test_run_recbole_cdr_cmf_on_cpu(extra):
     ("CMF", {"streaming_topk_threshold": 10, "eval_score_dtype": "bfloat16"}),
     ("CMF", {"neg_sampling": {"popularity": 1}}),
     ("CMF", {"mesh_shape": {"data": 1, "model": 1}}),
+    pytest.param("CMF", {"mesh_shape": {"data": 1, "model": 1}, "phase_optimizer": "sparse"},
+                 id="CMF-mesh-sparse"),
     pytest.param("BiTGCF", {"compute_dtype": "bfloat16"}, id="BiTGCF-bf16"),
     pytest.param("CoNet", {"compute_dtype": "bfloat16"}, id="CoNet-bf16"),
     pytest.param("DeepAPF", {"compute_dtype": "bfloat16"}, id="DeepAPF-bf16"),
@@ -58,10 +60,12 @@ def test_ported_options_run(model, extra):
 
 
 #: the cases that still raise keep the ids they had among the ones that
-#: moved to ``test_ported_options_run``
+#: moved to ``test_ported_options_run``; CMF with the sparse optimizer under
+#: a mesh runs now (``CMF-mesh-sparse`` there), and what still raises there
+#: is a model that is not ``MESH_READY``
 @pytest.mark.parametrize("model,extra", [
-    pytest.param("CMF", {"mesh_shape": {"data": 1, "model": 1}, "phase_optimizer": "sparse"},
-                 id="CMF-extra2"),
+    pytest.param("NATR", {"mesh_shape": {"data": 1, "model": 1}, "phase_optimizer": "sparse"},
+                 id="NATR-mesh-sparse"),
     pytest.param("CMF", {"phase_optimizer": "sparse", "profile_steps": 1}, id="CMF-extra3"),
     pytest.param("CMF", {"resume_checkpoint_path": "saved/CMF.pth"}, id="CMF-extra7"),
 ])

@@ -17,15 +17,28 @@ clock.
 3. One device-loop epoch of CMF on the bundled pair at 2 x 2 against the
    port's single-process epoch, without and with a gradient clip: loss
    within rtol 1e-4, parameters within rtol 1e-3 / atol 1e-5.
+   The same epoch with ``phase_optimizer: sparse`` (B6's row-shard form's
+   plain version on each rank's shards), in float32 within the same
+   tolerance and in bfloat16 within one bf16 step (rtol 2^-8) of the
+   port's single-process sparse epoch, the moments and step counts
+   included; and ``Mesh.gather_occurrences`` on data slices of unequal
+   length (data order, ``OCCURRENCE_PAD`` padding).
 4. ``run_recbole_cdr`` for CMF at 2 x 2 with streaming forced, on the device
    loop (joined through the explicit ``distributed`` dict) and on the host
    batch path (``distributed: auto``, torchrun's environment variables),
    and with the dense evaluation (the tables gathered over ``model``):
    every rank returns the same test metrics, each within 0.02 of the
-   single-process run.
-5. What raises under ``mesh_shape``: a model other than CMF, the sparse
-   optimizer, a 16-bit ``compute_dtype`` (NotImplementedError), and a mesh
-   that does not match the world (ValueError).
+   single-process run. In the same spawn, over one process group the
+   script creates: EMCDR's (SOURCE, TARGET, OVERLAP) and DCDCSR's (SOURCE,
+   TARGET, BOTH, TARGET) whole schedules with dense Adam and with the
+   sparse optimizer, and CMF's ``uniform 20`` candidate evaluation, held
+   the same way.
+5. What raises under ``mesh_shape``: a model that is not ``MESH_READY``
+   (NotImplementedError), and a mesh that does not match the world
+   (ValueError); what runs in one process over a one-rank group: the
+   sparse optimizer and bfloat16 compute, with the metrics of the run
+   without the mesh. ``full_table`` keeps a cast copy apart from the
+   float32 gather of the same parameter version.
 """
 
 import json
@@ -51,9 +64,15 @@ from recbole_cdr_tpu_torch.data.utils import data_preparation
 from recbole_cdr_tpu_torch.models.cmf import CMF
 from recbole_cdr_tpu_torch.ops.topk import sharded_streaming_topk_plain
 from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
-from recbole_cdr_tpu_torch.trainer.trainer import build_optimizer, make_train_step
+from recbole_cdr_tpu_torch.trainer.trainer import (
+    SparseAdam,
+    build_optimizer,
+    make_sparse_train_step,
+    make_train_step,
+)
 from recbole_cdr_tpu_torch.utils import init_seed
 from recbole_cdr_tpu_torch.utils.enums import TrainMode
+from recbole_cdr_tpu_torch.utils.precision import resolve_compute_dtype
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: seconds a spawn of the four workers may take, all of them together
@@ -107,6 +126,73 @@ E2E_PATHS = {"device_loop": {}, "host_path": {"device_side_sampling": False},
              "dense_eval": {"streaming_topk_threshold": 1_000_000}}
 #: the epoch's gradient clip: none, and one far below the gradients' norm
 CLIPS = (None, 1e-3)
+#: a trained state over the mesh against one process (``EPOCH_TOL`` of
+#: ``tests/test_torch_sparse_adam.py``)
+EPOCH_TOL = dict(rtol=5e-3, atol=1e-5)
+#: the sparse epoch's compute types
+SPARSE_DTYPES = ("float32", "bfloat16")
+#: the data slices' lengths of the occurrence gather (rank = data index)
+OCC_LENS = (3, 2)
+_SCHEDULE = {"EMCDR": ["SOURCE:1", "TARGET:1", "OVERLAP:1"],
+             "DCDCSR": ["SOURCE:1", "TARGET:1", "BOTH:1", "TARGET:1"]}
+#: the runs of the entry point over one process group: (model, config)
+MESH_RUNS = {
+    "emcdr_dense": ("EMCDR", {"train_epochs": _SCHEDULE["EMCDR"]}),
+    "emcdr_sparse": ("EMCDR", {"train_epochs": _SCHEDULE["EMCDR"],
+                               "phase_optimizer": "sparse", "streaming_topk_threshold": 1}),
+    "dcdcsr_dense": ("DCDCSR", {"train_epochs": _SCHEDULE["DCDCSR"],
+                                "streaming_topk_threshold": 1}),
+    "dcdcsr_sparse": ("DCDCSR", {"train_epochs": _SCHEDULE["DCDCSR"],
+                                 "phase_optimizer": "sparse"}),
+    "cmf_uniform": ("CMF", {"eval_args": {"split": {"RS": [0.8, 0.1, 0.1]},
+                                          "group_by": "user", "order": "RO",
+                                          "mode": "uniform 20"}}),
+}
+
+
+def entry_point_state(model, config_dict):
+    # run_recbole_cdr of one of MESH_RUNS: (test metrics, [[phase, loss] per
+    # epoch], {key: array} of the final parameters and buffers, each
+    # row-sharded table gathered whole, and the optimizer's two moments,
+    # {parameter: step count})
+    import recbole_cdr_tpu_torch.quick_start.quick_start as quick_start
+    from recbole_cdr_tpu_torch import run_recbole_cdr
+    from recbole_cdr_tpu_torch.trainer.trainer import SparseAdam
+
+    trainers = []
+    get_trainer = quick_start.get_trainer
+
+    def keep(*args):
+        cls = get_trainer(*args)
+        return lambda config, m: trainers.append(cls(config, m)) or trainers[-1]
+
+    quick_start.get_trainer = keep
+    try:
+        result = run_recbole_cdr(model=model, config_dict=config_dict)
+    finally:
+        quick_start.get_trainer = get_trainer
+    module, opt = result["model"], trainers[0].optimizer
+    shards = getattr(module, "table_shards", {})
+
+    def whole(name, t):
+        t = t.detach()
+        return (module.mesh.gather_rows(t)[:shards[name].rows] if name in shards else t).numpy()
+
+    state = {f"param {n}": whole(n, p) for n, p in module.named_parameters()}
+    state.update({f"buffer {n}": b.numpy() for n, b in module.named_buffers()})
+    if isinstance(opt, SparseAdam):
+        for moment in ("mu", "nu"):
+            state.update({f"{moment} {n}": whole(n, t) for n, t in opt.state[moment].items()})
+        counts = opt.state["count"]
+    else:  # torch's Adam: the parameters it has stepped
+        counts = {}
+        for n, p in module.named_parameters():
+            if p in opt.state:
+                counts[n] = int(opt.state[p]["step"])
+                for moment in ("exp_avg", "exp_avg_sq"):
+                    state[f"{moment} {n}"] = whole(n, opt.state[p][moment])
+    losses = [[h["phase"], h["loss"]] for h in result["history"]]
+    return result["test_result"], losses, state, counts
 
 
 def _toy():
@@ -142,9 +228,11 @@ from recbole_cdr_tpu_torch.data.dataset import CrossDomainDataset
 from recbole_cdr_tpu_torch.data.utils import data_preparation
 from recbole_cdr_tpu_torch.models.cmf import CMF
 from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
-from recbole_cdr_tpu_torch.trainer.trainer import build_optimizer, make_train_step
+from recbole_cdr_tpu_torch.trainer.trainer import (
+    SparseAdam, build_optimizer, make_sparse_train_step, make_train_step)
 from recbole_cdr_tpu_torch.utils import init_seed
 from recbole_cdr_tpu_torch.utils.enums import TrainMode
+from recbole_cdr_tpu_torch.utils.precision import resolve_compute_dtype
 """
 
 _MESH_SCRIPT = _PRELUDE + r"""
@@ -205,6 +293,32 @@ for clip in CLIPS:
                            "cpu", mesh)
     out[f"epoch_loss_{clip}"] = float(loop.run_epoch(0))
     np.savez(os.path.join(OUT, f"epoch{RANK}_{clip}.npz"), **fetch_replicated(model, mesh))
+
+# ... with the sparse optimizer, in float32 and bfloat16
+for dtype in SPARSE_DTYPES:
+    sconfig = CDRConfig(model="CMF", config_dict={**EPOCH_CFG, "phase_optimizer": "sparse",
+                                                  "compute_dtype": dtype}, _cli_args=[])
+    model = shard_params(CMF(sconfig, dataset), mesh)
+    opt = SparseAdam(sconfig, model)
+    step = make_sparse_train_step(model, opt, "BOTH", model.sparse_spec("BOTH"),
+                                  lambda n: True, resolve_compute_dtype(sconfig))
+    loop = DeviceEpochLoop(TrainMode.BOTH, step, train_data, sconfig["MODEL_INPUT_TYPE"], 1,
+                           model.total_num_users, TorchRandomSource(sconfig["seed"], "cpu"),
+                           "cpu", mesh)
+    out[f"sparse_loss_{dtype}"] = float(loop.run_epoch(0))
+    out[f"sparse_count_{dtype}"] = opt.state["count"]
+    state = fetch_replicated(model, mesh)
+    for moment in ("mu", "nu"):
+        for n, t in opt.state[moment].items():
+            state[f"{moment}:{n}"] = (mesh.gather_rows(t)[:model.table_shards[n].rows]
+                                      if n in model.table_shards else t).numpy()
+    np.savez(os.path.join(OUT, f"sparse{RANK}_{dtype}.npz"), **state)
+
+# the occurrence gather over data slices of unequal length
+n = OCC_LENS[mesh.data_index]
+ids = torch.arange(n, dtype=torch.int32) + 10 * mesh.data_index
+g_ids, g_rows = mesh.gather_occurrences(ids, ids[:, None].float().repeat(1, 2))
+out["occurrences"] = [g_ids.tolist(), g_rows[:, 0].tolist()]
 dist.destroy_process_group()
 json.dump(out, open(os.path.join(OUT, f"rank{RANK}.json"), "w"))
 """
@@ -301,28 +415,128 @@ for (name, extra), join in zip(E2E_PATHS.items(), joins):
         **E2E_CFG, **extra, "mesh_shape": MESHES["d2m2"], "distributed": join})
     assert not dist.is_initialized()
     out[name] = result["test_result"]
+# the runs over one group this script creates and the runs leave in place
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{sys.argv[6]}",
+                        world_size=WORLD, rank=RANK)
+for name, (model, extra) in MESH_RUNS.items():
+    test, losses, state, counts = entry_point_state(
+        model, {**EPOCH_CFG, **extra, "mesh_shape": MESHES["d2m2"]})
+    out[name] = {"test": test, "losses": losses, "counts": counts}
+    np.savez(os.path.join(OUT, f"{name}{RANK}.npz"), **state)
+dist.destroy_process_group()
 json.dump(out, open(os.path.join(OUT, f"rank{RANK}.json"), "w"))
 """
 
 
 @pytest.fixture(scope="module")
 def e2e_run(tmp_path_factory):
-    return _spawn(_E2E_SCRIPT, tmp_path_factory.mktemp("e2e"), _free_port(), _free_port(),
-                  _free_port())
+    out = tmp_path_factory.mktemp("e2e")
+    return out, _spawn(_E2E_SCRIPT, out, _free_port(), _free_port(), _free_port(),
+                       _free_port())
 
 
 @pytest.mark.parametrize("path", list(E2E_PATHS))
 def test_run_recbole_cdr_mesh_matches_single_process(e2e_run, path):
     single = run_recbole_cdr(model="CMF", config_dict={**E2E_CFG, **E2E_PATHS[path]})
     want = single["test_result"]
-    for res in e2e_run:
-        assert res[path] == e2e_run[0][path]
+    results = e2e_run[1]
+    for res in results:
+        assert res[path] == results[0][path]
         assert set(res[path]) == set(want)
         for k, v in want.items():
             assert abs(res[path][k] - v) < 0.02, (k, res[path][k], v)
 
 
-# ---- what raises -------------------------------------------------------------------
+@pytest.mark.parametrize("name", list(MESH_RUNS))
+def test_mesh_schedules_match_single_process(e2e_run, name):
+    """EMCDR's and DCDCSR's whole schedules (per-phase freezing, DCDCSR's
+    phase-entry surgery on gathered tables and its host-path BOTH, EMCDR's
+    OVERLAP stream) with dense Adam and the sparse optimizer, and CMF's
+    candidate evaluation with sharded parameters, at 2 x 2: every rank's test
+    metrics within 0.02 of one process; each epoch's loss within rtol 1e-4;
+    the step counts equal; the final parameters and buffers (the mapping MLP,
+    DCDCSR's benchmark and affine tables) and the optimizer's moments within
+    ``EPOCH_TOL``'s rtol, its atol taken relative to each array's largest
+    entry (the second moments are some 1e-9)."""
+    model, extra = MESH_RUNS[name]
+    want, losses, state, counts = entry_point_state(model, {**EPOCH_CFG, **extra})
+    out, results = e2e_run
+    for r, res in enumerate(results):
+        got = res[name]
+        assert got["test"] == results[0][name]["test"]
+        assert set(got["test"]) == set(want)
+        for k, v in want.items():
+            assert abs(got["test"][k] - v) < 0.02, (k, got["test"][k], v)
+        assert [p for p, _ in got["losses"]] == [p for p, _ in losses]
+        np.testing.assert_allclose([l for _, l in got["losses"]], [l for _, l in losses],
+                                   rtol=1e-4)
+        assert got["counts"] == counts
+        arrays = np.load(out / f"{name}{r}.npz")
+        assert set(arrays.files) == set(state)
+        for key, v in state.items():
+            np.testing.assert_allclose(arrays[key], v, rtol=EPOCH_TOL["rtol"],
+                                       atol=EPOCH_TOL["atol"] * float(np.abs(v).max()),
+                                       err_msg=key)
+
+
+def _sparse_epoch(dtype):
+    """The port's single-process sparse epoch of the spawn's CMF: (loss,
+    model, optimizer)."""
+    config = CDRConfig(model="CMF", config_dict={**EPOCH_CFG, "phase_optimizer": "sparse",
+                                                 "compute_dtype": dtype}, _cli_args=[])
+    init_seed(config["seed"], True)
+    dataset = CrossDomainDataset(config)
+    train_data, _, _ = data_preparation(config, dataset)
+    model = CMF(config, dataset)
+    opt = SparseAdam(config, model)
+    step = make_sparse_train_step(model, opt, "BOTH", model.sparse_spec("BOTH"),
+                                  lambda n: True, resolve_compute_dtype(config))
+    loop = DeviceEpochLoop(TrainMode.BOTH, step, train_data, config["MODEL_INPUT_TYPE"], 1,
+                           model.total_num_users, TorchRandomSource(config["seed"], "cpu"),
+                           "cpu")
+    return float(loop.run_epoch(0)), model, opt, loop.steps_per_epoch
+
+
+#: the sparse epoch's tolerance on the parameters: ``EPOCH_TOL`` in float32;
+#: in bfloat16 one bf16 step, since a per-pair gradient whose float32 value
+#: the mesh's batch sums move by an ulp may round to the neighbouring bf16
+#: value
+SPARSE_TOL = {"float32": EPOCH_TOL, "bfloat16": dict(rtol=2 ** -8, atol=1e-5)}
+
+
+@pytest.mark.parametrize("dtype", SPARSE_DTYPES)
+def test_sparse_epoch_mesh_matches_single_process(mesh_run, dtype):
+    """One device-loop epoch of CMF with ``phase_optimizer: sparse`` at 2 x 2
+    (row-shard B6 on the gathered occurrences) against one process: loss,
+    parameters, both moments and the step counts."""
+    out, results = mesh_run
+    ref_loss, model, opt, steps = _sparse_epoch(dtype)
+    for r, res in enumerate(results):
+        np.testing.assert_allclose(res[f"sparse_loss_{dtype}"], ref_loss, rtol=1e-4)
+        assert res[f"sparse_count_{dtype}"] == opt.state["count"]
+        assert set(opt.state["count"].values()) == {steps}
+        got = np.load(out / f"sparse{r}_{dtype}.npz")
+        for n, p in model.named_parameters():
+            np.testing.assert_allclose(got[n], p.detach().numpy(), **SPARSE_TOL[dtype],
+                                       err_msg=n)
+            for moment in ("mu", "nu"):
+                np.testing.assert_allclose(got[f"{moment}:{n}"], opt.state[moment][n].numpy(),
+                                           rtol=SPARSE_TOL[dtype]["rtol"], atol=1e-7,
+                                           err_msg=f"{moment} {n}")
+
+
+def test_gather_occurrences_keeps_the_data_order(mesh_run):
+    """Slices of 3 and 2 occurrences (data ranks 0 and 1): every rank gets
+    both, in data order, the short one padded with ``OCCURRENCE_PAD`` and a
+    zero row."""
+    from recbole_cdr_tpu_torch.parallel.mesh import OCCURRENCE_PAD
+
+    want_ids = [0, 1, 2, 10, 11, OCCURRENCE_PAD]
+    for res in mesh_run[1]:
+        assert res["occurrences"] == [want_ids, [0.0, 1.0, 2.0, 10.0, 11.0, 0.0]]
+
+
+# ---- what raises, and what runs over a one-rank group ------------------------------
 
 _QUICK = {"state": "ERROR", "show_progress": False, "device": "cpu",
           "train_batch_size": 1024, "train_epochs": ["BOTH:1"]}
@@ -331,10 +545,6 @@ _ONE = {"mesh_shape": {"data": 1, "model": 1}}
 
 @pytest.mark.parametrize("model,extra,error", [
     pytest.param("BiTGCF", _ONE, NotImplementedError, id="other-model"),
-    pytest.param("CMF", {**_ONE, "phase_optimizer": "sparse"}, NotImplementedError,
-                 id="sparse"),
-    pytest.param("CMF", {**_ONE, "compute_dtype": "bfloat16"}, NotImplementedError,
-                 id="bf16"),
     pytest.param("CMF", {"mesh_shape": {"data": 2, "model": 1}}, ValueError,
                  id="world-mismatch"),
 ])
@@ -343,3 +553,39 @@ def test_mesh_options_raise(model, extra, error):
                        else "does not match"):
         run_recbole_cdr(model=model, config_dict={**_QUICK, **extra})
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("extra", [
+    pytest.param({"phase_optimizer": "sparse", "streaming_topk_threshold": 1}, id="sparse"),
+    pytest.param({"compute_dtype": "bfloat16", "streaming_topk_threshold": 1}, id="bf16"),
+])
+def test_one_rank_mesh_options_run(extra):
+    """The options that once raised under ``mesh_shape`` run over a
+    one-rank gloo group in this process, with the metrics of the run without
+    the mesh."""
+    want = run_recbole_cdr(model="CMF", config_dict={**_QUICK, **extra})["test_result"]
+    got = run_recbole_cdr(model="CMF", config_dict={**_QUICK, **extra, **_ONE})["test_result"]
+    assert not torch.distributed.is_initialized()
+    assert got == want
+
+
+def test_full_table_is_kept_per_type():
+    """A row-sharded table gathered in float32 and then read under a 16-bit
+    compute in the same parameter version: the second read is the cast
+    gather, not the float32 one from the cache (and the other way round)."""
+    from types import SimpleNamespace
+
+    from recbole_cdr_tpu_torch.parallel.mesh import TableShard
+    from recbole_cdr_tpu_torch.utils.precision import with_compute_dtype
+
+    config = CDRConfig(model="CMF", config_dict=_QUICK, _cli_args=[])
+    init_seed(config["seed"], True)
+    model = CMF(config, CrossDomainDataset(config))
+    model.mesh = SimpleNamespace(gather_rows=lambda t: t.clone())
+    model.table_shards = {"item_embedding": TableShard(model.item_embedding.shape[0], 0)}
+    read = lambda: model.full_table("item_embedding")
+    f32 = read()
+    bf16 = with_compute_dtype(read, torch.bfloat16, model)()
+    assert f32.dtype == torch.float32 and bf16.dtype == torch.bfloat16
+    assert torch.equal(bf16, model.item_embedding.detach().to(torch.bfloat16))
+    assert read() is f32 and with_compute_dtype(read, torch.bfloat16, model)() is bf16

@@ -4,6 +4,11 @@ package's ``SparseAdam`` and against ``torch.optim.SparseAdam``, on the CPU
 
 - ``row_update`` over several steps with unique, duplicate and all-duplicate
   ids (coalescing by summation, row-lazy moments, the per-table step count);
+- B6's row-shard form (``row_offset``) at m = 1, 2 and 4 shards, every
+  shard's offset, on the global occurrences of three data slices of unequal
+  length (padded as ``Mesh.gather_occurrences`` pads them) with duplicates
+  across the slices: each shard equals JAX's ``row_update`` on the whole
+  table cut to the shard's rows;
 - ``dense_entry_update`` (torch dense Adam on the shared moments);
 - the rejections of weight_decay, gradient clipping and other learners;
 - one sparse BOTH epoch of CMF, and one epoch of the dense fallback of a
@@ -93,6 +98,49 @@ def test_row_update_matches_jax_and_torch(ids_kind):
     untouched = np.setdiff1d(np.arange(N), ids) if ids_kind == "all_duplicate" else []
     assert (p.numpy()[untouched] == p0[untouched]).all()  # lazy: never-touched rows stay
     assert launch_counts()["sparse_adam"] == 0  # the plain version on the CPU
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+def test_row_shard_form_matches_jax_on_each_shard(m):
+    """Each of ``m`` shards of a 50-row table (padded to a multiple of m)
+    takes the shard form on the global occurrences of three data slices of
+    10, 9 and 9 ids (``tensor_split``'s lengths), every slice padded to the
+    longest with ``OCCURRENCE_PAD`` and zero rows and gathered in data order;
+    ids repeat within and across the slices. Four steps; the pad rows stay
+    zero and the shards together equal JAX's whole-table update."""
+    from recbole_cdr_tpu_torch.parallel.mesh import OCCURRENCE_PAD
+
+    N, D, steps = 50, 8, 4
+    L = -(-N // m)
+    rng = np.random.default_rng(m)
+    p0 = np.zeros((L * m, D), np.float32)
+    p0[:N] = rng.normal(size=(N, D))
+    cfg = _Cfg(learning_rate=0.01, learner="adam")
+    jopt, opt = JaxSparseAdam(cfg), SparseAdam(cfg, _table(L, D))
+    jp, jmu, jnu = jnp.asarray(p0[:N]), jnp.zeros((N, D)), jnp.zeros((N, D))
+    shards = [(torch.tensor(p0[j * L:(j + 1) * L]), torch.zeros(L, D), torch.zeros(L, D))
+              for j in range(m)]
+    for c in range(1, steps + 1):
+        glob = rng.integers(0, N, 28).astype(np.int32)
+        glob[20:23] = glob[:3]  # the third slice repeats the first's rows
+        g = rng.normal(size=(28, D)).astype(np.float32)
+        jp, jmu, jnu = jopt.row_update(jp, jmu, jnu, jnp.asarray(g), jnp.asarray(glob),
+                                       jnp.int32(c))
+        ids, rows = [], []
+        for part_i, part_g in zip(np.array_split(glob, 3), np.array_split(g, 3)):
+            pad = 10 - len(part_i)
+            ids.append(np.concatenate([part_i, np.full(pad, OCCURRENCE_PAD, np.int32)]))
+            rows.append(np.concatenate([part_g, np.zeros((pad, D), np.float32)]))
+        ids, rows = torch.from_numpy(np.concatenate(ids)), torch.from_numpy(np.concatenate(rows))
+        for j, (p, mu, nu) in enumerate(shards):
+            opt.row_update(p, mu, nu, rows, ids, c, row_offset=j * L)
+        for name, got, want in ((k, torch.cat([s[t] for s in shards]), w) for k, t, w in
+                                (("p", 0, jp), ("mu", 1, jmu), ("nu", 2, jnu))):
+            np.testing.assert_allclose(got[:N].numpy(), np.asarray(want), **STEP_TOL,
+                                       err_msg=f"{name} step {c}, m={m}")
+            if name != "p":
+                assert not got[N:].any()  # pad rows: no occurrence reaches them
+    assert (torch.cat([s[0] for s in shards])[N:] == 0).all()
 
 
 def test_dense_entry_update_matches_jax():
