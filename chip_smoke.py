@@ -206,7 +206,10 @@ tile ([2,048, 5,001]) with integer-valued scores (ties everywhere) and with
 the unit-scale scores K4 sees, a row without positives, a positive inside
 its row's history and one on the PAD column: equal to its plain version and
 to JAX's method (a row sort and two searchsorted, the library yardstick),
-and two kernel runs equal. B9 (``natr_attention_forward`` /
+and two kernel runs equal; its launch plan (``ops/rank_sum.py::
+rank_sum_plan``: one block a row on that dense tile, a row over a
+thread-block cluster on the fallback tile and the candidate batches) is
+printed beside each of its records. B9 (``natr_attention_forward`` /
 ``natr_attention_backward``) is held at a TARGET step's shapes (8,192
 pairs, H = 50, D = 64) in both overlap modes (user anchors with their item
 histories, item anchors with their user histories), empty-history anchors
@@ -242,8 +245,10 @@ and one draw's operations per slot.
 Phase 2 also reads the SASS of the built libraries (``check_sass``,
 ``cuobjdump --dump-sass``): every instantiation of B13's tile kernel must
 hold HGMMA (wgmma), UTMALDG (TMA loads) and SYNCS (mbarriers) and at most
-the one block barrier before its roles split, and K4's kernel (B10's too)
-the cluster barriers (UCGABAR) of its short-tile form; it prints the counts.
+the one block barrier before its roles split, K4's kernel (B10's too) and
+B7's the cluster barriers (UCGABAR) of their short-tile forms, and every
+instantiation of B16's grid kernel its tensor-core products (HMMA); it
+prints the counts.
 B13's time is printed beside B5's from the same run, with its launch plan
 and the item bytes the plan reads from L2 into the SMs (modelled from the
 plan, not read from a counter), and beside the time of the same call on
@@ -266,23 +271,29 @@ id's history entries and the table rows they name read once, the ids, the
 output and one add per entry and column. B10 (``candidate_topk``) and B7's
 candidate form (``rank_sum_candidates``) are held exactly at the shape of
 phase 7c's candidate batches ([users per batch, max positives x 101]) with
-integer-valued (ties everywhere) and normal scores.
+integer-valued (ties everywhere) and normal scores; the candidate form takes
+each positive's column from its index (no positions tensor).
 
-B16 (``deepapf_forward`` / ``deepapf_backward`` / ``deepapf_grid``) is held
-in phase 2 at a training step's 16,384 pairs of both domains and on a
+B16 (``deepapf_forward`` / ``deepapf_backward`` / ``deepapf_grid``) is
+held in phase 2 at a training step's 16,384 pairs of both domains and on a
 fallback tile ([32 users, every target item]), at D 32, 64 and 128, with
 the items and, on the same ids, the users as the entity, entity ids equal
 to the overlapped count and one above it among the pairs: within
 ``B16_TOL`` of its plain version, the masked share rows' gradient exactly
 0, two runs bit-equal; timed at the main path's (D 64, items). Its library
 yardstick is the torch chain on cuBLAS with both attention branches in one
-product. B15 (``conet_tower``) is held at the published tower and at D 32
-with [32, 16], for 1, 32 and 2,048 users against every target item,
-within ``B15_TOL`` of its plain version per probability, bit-equal from
-run to run, a call whose every logit exceeds 17 equal to it (all 1.0), and
-K4's ids on the dense tile's probabilities equal wherever neighbours are
-clear of the tolerance; timed at the dense tile, its library yardstick the
-torch chain over the whole [2,048, 4,980, 64] hidden (JAX's form).
+product. The grid's bound is its products in 3xTF32 on the tensor cores
+(the form the kernel runs, ``mma.sync``) and the rest on the CUDA cores;
+the bound with every operation on the CUDA cores (the earlier pair
+kernels' form) is printed beside it, with the grid's tile
+(``probe_deepapf_grid.py`` splits the grid's time). B15 (``conet_tower``)
+is held at the published tower and at D 32 with [32, 16], for 1, 32 and
+2,048 users against every target item, within ``B15_TOL`` of its plain
+version per probability, bit-equal from run to run, a call whose every
+logit exceeds 17 equal to it (all 1.0), and K4's ids on the dense tile's
+probabilities equal wherever neighbours are clear of the tolerance; timed
+at the dense tile, its library yardstick the torch chain over the whole
+[2,048, 4,980, 64] hidden (JAX's form).
 
 Phase 2 holds the 16-bit forms of B8, B9 and B11 on the same operands as
 their float32 forms, rounded to bf16, against their plain versions: B8-bf16
@@ -312,7 +323,7 @@ that check; reruns bit-equal. Their bounds are the float32 forms' bytes on
 same torch chains in 16 bits (for B15 JAX's whole-hidden form on a [2,048,
 4,980, 64] 16-bit hidden, 1.3 GB).
 
-``python3 chip_smoke.py --profile`` instead times one warm training epoch
+``python3 chip_smoke.py --profile [tag ...]`` instead times one warm training epoch
 and one validation pass of the dense path's run, then traces a repeat of
 each with ``torch.profiler`` and prints the device time by kernel, the
 device-busy share of the unprofiled wall time, and the path of the Chrome
@@ -329,7 +340,9 @@ paths: CMF's BOTH with popularity negatives and adagrad, EMCDR's BPR SOURCE
 phase with popularity negatives and rmsprop, and the catalog path in bf16,
 last; phase 11's three models and phase 12's and 13's bf16 runs (BiTGCF's BOTH,
 NATR's SOURCE and TARGET, DMF's BOTH, DeepAPF's and CoNet's BOTH) come
-before phase 9's paths. Each
+before phase 9's paths. Given tags, it traces only the paths whose output
+prefix starts with one of them (``natr_target``, ``deepapf``; ``dense``
+for the dense path). Each
 16-bit run also prints the per-call parameter cast apart from the kernels
 (``report_casts``): the wrapped calls of its epoch and validation pass, the
 device time of one cast of every floating parameter and buffer, and their
@@ -980,21 +993,25 @@ def make_recorder(out):
 #: instantiation of B13's tile kernel its warpgroup products (HGMMA) and
 #: mbarrier operations (SYNCS), the TMA ones their TMA loads (UTMALDG), and
 #: at most the one block barrier before its roles split; every instantiation
-#: of K4's kernel (B10's too) the cluster barriers of its short-tile form
-#: (UCGABAR). Source -> (kernel, opcodes in every instantiation, opcodes in
-#: at least one, opcodes counted)
+#: of K4's kernel (B10's too) and of B7's the cluster barriers of their
+#: short-tile forms (UCGABAR); every instantiation of B16's grid kernel its
+#: tensor-core products (HMMA: 3xTF32 in float32, bf16 / f16 in 16 bits).
+#: Source -> (kernel, opcodes in every instantiation, opcodes in at least
+#: one, opcodes counted)
 SASS_OPCODES = {
     "streaming_topk": ("tile16_kernel", ("HGMMA", "SYNCS"), ("UTMALDG",),
                        ("HGMMA", "UTMALDG", "SYNCS", "BAR.SYNC")),
     "masked_topk": ("masked_topk_kernel", ("UCGABAR",), (), ("UCGABAR", "BAR.SYNC")),
+    "rank_sum": ("rank_sum_kernel", ("UCGABAR",), (), ("UCGABAR", "BAR.SYNC")),
+    "deepapf_attention": ("grid_kernel", ("HMMA",), (), ("HMMA", "BAR.SYNC")),
 }
 
 
 def check_sass():
-    """Count the opcodes of ``SASS_OPCODES`` in each instantiation of B13's
-    and K4's kernels (``cuobjdump --dump-sass`` of the built libraries) and
-    fail where one is absent, or where B13's selection holds a block
-    barrier."""
+    """Count the opcodes of ``SASS_OPCODES`` in each instantiation of B13's,
+    K4's, B7's and B16's grid kernels (``cuobjdump --dump-sass`` of the
+    built libraries) and fail where one is absent, or where B13's selection
+    holds a block barrier."""
     import re
 
     from recbole_cdr_tpu_torch.ops import build
@@ -1171,8 +1188,10 @@ def kernel_checks(dev):
            lambda: b7.rank_sum(ties, rp, items[0], pos, pmask),
            lambda: b7.rank_sum_plain(ties, rp, items[0], pos, pmask),
            0.0, ties.numel() * 4 + rp.numel() * 4 + n_pairs * 4 + pos.numel() * 5 + nB * 4,
-           2 * n_items * int(pmask.sum()),
+           rank_sum_search_ops(n_items, pmask),
            library_fn=lambda: library_rank_sum(ties, rp, items[0], pos, pmask))
+    print(f"  rank_sum plan {b7.rank_sum_plan(nB, n_items, pos.shape[1], sm_count(dev))}",
+          flush=True)
     del U, I, scores, ties
 
     # ---- B8: one graph layer of the source graph, forward and backward --
@@ -1560,6 +1579,17 @@ def library_rank_sum(scores, rp, items, pos, pmask):
     return torch.where(pmask, avg, 0.0).sum(1)
 
 
+def rank_sum_search_ops(n_cols, pmask):
+    """B7's compares on its rows' data: every column of a row with valid
+    positives searches the row's sorted list (a power of 2 N >= their
+    count) twice, log2 N + 1 compares each."""
+    ops = 0
+    for n in pmask.sum(1).tolist():
+        if n:
+            ops += n_cols * 2 * ((int(n) - 1).bit_length() + 1)
+    return ops
+
+
 def check_rank_sum(scores, rp, items, pos, pmask):
     """B7 exactly equal to its plain version and to JAX's method, and two
     kernel runs equal."""
@@ -1919,8 +1949,10 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
            lambda: b7.rank_sum(fs_probs, rp, it, pos, pmask),
            lambda: b7.rank_sum_plain(fs_probs, rp, it, pos, pmask),
            0.0, fs_probs.numel() * 4 + rp.numel() * 4 + n_pairs * 4 + pos.numel() * 5 + B * 4,
-           2 * n_target * int(pmask.sum()),
+           rank_sum_search_ops(n_target, pmask),
            library_fn=lambda: library_rank_sum(fs_probs, rp, it, pos, pmask), shape=tile)
+    print(f"  rank_sum {tile} plan {b7.rank_sum_plan(B, n_target, pos.shape[1], k4.sm_count(dev))}",
+          flush=True)
 
 
 def close_prob16(got, want, what, controls):
@@ -2228,8 +2260,10 @@ def dtcdr_checks(dev, g, record):
     record("rank_sum_candidates",
            lambda: b7.rank_sum_candidates(ties, cm, pm),
            lambda: b7.rank_sum_candidates_plain(ties, cm, pm),
-           0.0, B * C * 6 + B * 4, 2 * C * n_pos,
+           0.0, B * C * 6 + B * 4, rank_sum_search_ops(C, pm),
            library_fn=lambda: library_rank_sum_candidates(ties, cm, pm))
+    print(f"  rank_sum_candidates plan {b7.rank_sum_plan(B, C, C, sm_count(dev), cand=True)}",
+          flush=True)
 
 
 def library_rank_sum_candidates(scores, cand_mask, pos_mask):
@@ -2424,11 +2458,18 @@ def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
                 return torch.sigmoid(library_deepapf(share_t[e], only_t[e], other_t[o],
                                                      e > n_ov[side], w)).reshape(B, -1)
 
+            n_pairs = B * n_target
+            grid_bytes = 3 * (B + n_target) * D * 4 + 4 * n_pairs + fixed
             record("deepapf_grid", lambda: b16.deepapf_grid(*grid_args),
-                   lambda: b16.deepapf_grid_plain(*grid_args), err_g,
-                   3 * (B + n_target) * D * 4 + 4 * B * n_target + fixed,
-                   deepapf_work(B * n_target, D) + 3 * B * n_target,
+                   lambda: b16.deepapf_grid_plain(*grid_args), err_g, grid_bytes,
+                   deepapf_work(n_pairs, D) - deepapf_products(n_pairs, D) + 3 * n_pairs,
+                   tf32_ops=TF32_PRODUCTS_PER_SCORE * deepapf_products(n_pairs, D),
                    library_fn=library_grid, reps=20)
+            # beside the 3xTF32 bound (the kernel's products): all of it on
+            # the CUDA cores, the form of the earlier pair kernels
+            cuda_core_ms = bound(grid_bytes, deepapf_work(n_pairs, D) + 3 * n_pairs)[0]
+            print(f"  deepapf_grid: tiles of {min(8, B)} users x 16 items; bound on the CUDA "
+                  f"cores {cuda_core_ms:.4f} ms", flush=True)
             b16_bf16_checks(record, (share, only, other), mask, w, gz, grid_args)
         del tabs
 
@@ -2811,36 +2852,42 @@ def main():
     gen_catalog()
     print(f"catalog pair ready in {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
-        profile_epoch(dev, config_dict())
-        profile_epoch(dev, bitgcf_config(), "bitgcf_", model="BiTGCF")
+        # ``--profile tag ...`` traces only the paths whose tag starts with
+        # one of them (``natr_target``, ``deepapf``; the dense path's tag is
+        # ``dense``); no tag traces every path
+        only = sys.argv[sys.argv.index("--profile") + 1:]
+
+        def trace(dev, cfg, tag="", *args, **kwargs):
+            if not only or any((tag or "dense").startswith(t) for t in only):
+                profile_epoch(dev, cfg, tag, *args, **kwargs)
+
+        trace(dev, config_dict())
+        trace(dev, bitgcf_config(), "bitgcf_", model="BiTGCF")
         for scheme in ("SOURCE", "TARGET"):
-            profile_epoch(dev, natr_config(), f"natr_{scheme.lower()}_", model="NATR",
-                          scheme=scheme)
+            trace(dev, natr_config(), f"natr_{scheme.lower()}_", model="NATR", scheme=scheme)
         for name, base, mode, epochs in DTCDR_RUNS[:3]:
-            profile_epoch(dev, dtcdr_config(base, mode, epochs), f"{name}_", export=False,
-                          model="DTCDR")
+            trace(dev, dtcdr_config(base, mode, epochs), f"{name}_", export=False,
+                  model="DTCDR")
         for model, scheme, prelude in (("DCDCSR", "TARGET", ("SOURCE",)),
                                        ("DCDCSR", "BOTH", ("SOURCE", "TARGET")),
                                        ("EMCDR", "OVERLAP", ("SOURCE", "TARGET")),
                                        ("SSCDR", "OVERLAP", ("SOURCE", "TARGET"))):
             schedule = next(r[2] for r in MAPPING_RUNS if r[1] == model)
-            profile_epoch(dev, mapping_config(model, schedule),
-                          f"{model.lower()}_{scheme.lower()}_", export=False, model=model,
-                          scheme=scheme, prelude=prelude)
+            trace(dev, mapping_config(model, schedule), f"{model.lower()}_{scheme.lower()}_",
+                  export=False, model=model, scheme=scheme, prelude=prelude)
         for _, model, _ in PHASE11_RUNS:
-            profile_epoch(dev, phase11_config(model), f"{model.lower()}_", export=False,
-                          model=model)
+            trace(dev, phase11_config(model), f"{model.lower()}_", export=False, model=model)
         for name, model, ref in PHASE12_RUNS:
             for scheme in ("SOURCE", "TARGET") if model == "NATR" else ("BOTH",):
-                profile_epoch(dev, phase12_config(ref), f"{name}_{scheme.lower()}_",
-                              export=False, model=model, scheme=scheme)
+                trace(dev, phase12_config(ref), f"{name}_{scheme.lower()}_", export=False,
+                      model=model, scheme=scheme)
         for name, model, _ in PHASE13_RUNS:
-            profile_epoch(dev, phase13_config(model), f"{name}_", export=False, model=model)
-        profile_epoch(dev, popularity_cmf_config(), "popularity_cmf_", export=False)
-        profile_epoch(dev, popularity_emcdr_config(), "popularity_emcdr_source_",
-                      export=False, model="EMCDR", scheme="SOURCE")
-        profile_epoch(dev, catalog_config(), "catalog_", export=False)  # traces of ~100 MB
-        profile_epoch(dev, bf16_catalog_config(), "bf16_catalog_", export=False)
+            trace(dev, phase13_config(model), f"{name}_", export=False, model=model)
+        trace(dev, popularity_cmf_config(), "popularity_cmf_", export=False)
+        trace(dev, popularity_emcdr_config(), "popularity_emcdr_source_", export=False,
+              model="EMCDR", scheme="SOURCE")
+        trace(dev, catalog_config(), "catalog_", export=False)  # traces of ~100 MB
+        trace(dev, bf16_catalog_config(), "bf16_catalog_", export=False)
         return 0
 
     # the checks time the kernels under torch.profiler; they run in a child

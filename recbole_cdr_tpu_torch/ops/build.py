@@ -89,8 +89,8 @@ _SIGNATURES = {
         "graph_layer_backward": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P,
                                             _I, _I, _I, _P],
     },
-    "rank_sum": {"rank_sum": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
-                 "rank_sum_candidates": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P]},
+    "rank_sum": {"rank_sum": [_P, _I, _I, _P, _P, _P, _P] + [_I] * 5 + [_P, _P],
+                 "rank_sum_candidates": [_P, _I, _I, _P, _P] + [_I] * 4 + [_P, _P]},
     "natr_attention": {
         "natr_attention_forward": [_P] * 12 + [_I] * 3 + [_P, _P, _I, _P],
         "natr_anchor_table": [_P] * 9 + [_I] * 3 + [_P, _I, _P],

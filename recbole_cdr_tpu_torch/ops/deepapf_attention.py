@@ -21,7 +21,9 @@ Three wrappers, each counting its calls that launch:
   gradients into the tables stays the gathers' own autograd;
 - :func:`deepapf_grid`: sigmoid probabilities [B, I] of users [B] x items
   [I], the rows read from the tables by id (the predict fallback's tile; no
-  [B I, D] pair tensor exists).
+  [B I, D] pair tensor exists), in 2-D tiles of at most 8 users x 16 items
+  whose rows the kernel stages once each, both products on the tensor
+  cores.
 
 :func:`deepapf_attention` is the differentiable form.
 

@@ -13,23 +13,69 @@ Every rank is a half-integer below 2^22, so the float32 sums are exact, in
 any order, while a row's sum stays below 2^23 (for example 5,001 items and
 up to 1,600 positives): there the kernel equals the plain version and JAX
 exactly. The kernel is ``csrc/rank_sum.cu``; the plain version below runs
-for CPU tensors and serves as the kernel's reference.
+for CPU tensors and serves as the kernel's reference. :func:`rank_sum_plan`
+is the kernel's launch plan, handed to its C entries: one block a row on
+dense tiles, a row over a thread-block cluster on short ones.
 
 The candidate form (:func:`rank_sum_candidates`) ranks over sampled
 candidate lists, as ``evaluate_candidates`` does (`evaluator.py:661-675`):
 the row is ``np.where(cand_mask, scores, -inf)``, each row's positives are
 the columns ``pos_mask`` marks, and there is no history and no PAD column
 (column 0 is the row's first positive). The same kernel runs it with the
-padded slots in place of the history.
+padded slots in place of the history; a positive's column is its own id.
 """
+
+import functools
 
 import torch
 
 from recbole_cdr_tpu_torch.ops import build
+from recbole_cdr_tpu_torch.ops.masked_topk import sm_count
 
-#: the kernel's chunk of a row staged in shared memory, and its budget
-CHUNK = 2048
-SMEM_LIMIT = 227 * 1024
+#: the kernel's block (8 warps), the portable thread-block cluster size, the
+#: fewest columns a block of a cluster takes, and a block's shared memory
+#: on an H100
+THREADS = 256
+MAX_CLUSTER = 8
+MIN_SPAN = 256
+SMEM_LIMIT = 232_448
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def rank_sum_plan(B: int, I: int, P: int, n_sms: int, cand: bool = False) -> dict:
+    """The launch plan of B7 on [B, I] scores with P positive slots a row
+    (the candidate form, ``cand``: P = I): a pure function of the shape and
+    the SM count.
+
+    Dense tiles (``B`` at least ``n_sms``): one block a row (``cluster``
+    1). Short tiles: each row's columns split over a cluster of ``cluster``
+    blocks, as many as fill the SMs (at most ``MAX_CLUSTER``, at least
+    ``MIN_SPAN`` columns a block), block x taking columns [x span, (x + 1)
+    span), ``span`` a multiple of 32. ``grid`` is (cluster, B); ``cap`` the
+    sorted positives' room (a power of 2 >= P); ``smem`` a block's bytes:
+    the sorted list and, for the full-sort form, the row's history bitmap."""
+    if B < 1 or I < 1 or P < 0 or n_sms < 1:
+        raise ValueError(f"rank_sum_plan: no plan for B={B}, I={I}, P={P}, sms={n_sms}")
+    cluster = 1
+    if B < n_sms:
+        cluster = max(1, min(MAX_CLUSTER, _cdiv(n_sms, B), _cdiv(I, MIN_SPAN)))
+    span = _cdiv(_cdiv(I, cluster), 32) * 32
+    cluster = _cdiv(I, span)  # no empty block
+    cap = 1 << max(0, P - 1).bit_length()
+    smem = 4 * cap + (0 if cand else 4 * _cdiv(I, 32))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"rank_sum: {I} items and {P} positives per row exceed one block's "
+                         "shared memory")
+    return {"cluster": cluster, "span": span, "grid": (cluster, B), "cap": cap, "smem": smem}
+
+
+def launch_plan_args(plan: dict):
+    """The plan's ints in the order of the C entries."""
+    return plan["cluster"], plan["span"], plan["cap"], plan["smem"]
 
 
 def masked_scores_plain(scores, row_ptr, items):
@@ -57,12 +103,6 @@ def rank_sum_plain(scores, row_ptr, items, pos, pos_mask):
     return out
 
 
-def smem_bytes(I: int, P: int) -> int:
-    """The kernel's dynamic shared memory: the row's mask bitmap, a staged
-    chunk, and per valid positive its masked score and two counters."""
-    return 4 * ((I + 31) // 32) + 4 * CHUNK + 12 * max(P, 1)
-
-
 def rank_sum(scores, row_ptr, items, pos, pos_mask):
     """float32 [B] sums of the average descending ranks of each row's valid
     positives over its masked row.
@@ -88,15 +128,16 @@ def rank_sum(scores, row_ptr, items, pos, pos_mask):
     if scores.device.type != "cuda":
         raise ValueError(f"rank_sum has no version for device {scores.device}")
     P = pos.shape[1]
-    if smem_bytes(I, P) > SMEM_LIMIT:
-        raise ValueError(f"rank_sum: {I} items and {P} positives per row exceed the "
-                         "kernel's shared memory")
+    out = torch.empty(B, dtype=torch.float32, device=scores.device)
+    if B == 0:
+        return out
+    plan = rank_sum_plan(B, I, P, sm_count(scores.device))
     scores, row_ptr, items, pos, pos_mask = (
         t.contiguous() for t in (scores, row_ptr, items, pos, pos_mask))
-    out = torch.empty(B, dtype=torch.float32, device=scores.device)
     err = build.library("rank_sum").rank_sum(
         scores.data_ptr(), B, I, row_ptr.data_ptr(), items.data_ptr(), pos.data_ptr(),
-        pos_mask.data_ptr(), P, CHUNK, out.data_ptr(), build.stream_handle(scores),
+        pos_mask.data_ptr(), P, *launch_plan_args(plan), out.data_ptr(),
+        build.stream_handle(scores),
     )
     build.check(err, "rank_sum")
     rank_sum.launches += 1
@@ -135,15 +176,14 @@ def rank_sum_candidates(scores, cand_mask, pos_mask):
     if scores.device.type != "cuda":
         raise ValueError(f"rank_sum_candidates has no version for device {scores.device}")
     B, C = scores.shape
-    if smem_bytes(C, C) > SMEM_LIMIT:
-        raise ValueError(f"rank_sum_candidates: {C} candidates per row exceed the kernel's "
-                         "shared memory")
-    scores, cand_mask, pos_mask = (t.contiguous() for t in (scores, cand_mask, pos_mask))
-    pos = torch.arange(C, dtype=torch.int32, device=scores.device).expand(B, C).contiguous()
     out = torch.empty(B, dtype=torch.float32, device=scores.device)
+    if B == 0:
+        return out
+    plan = rank_sum_plan(B, C, C, sm_count(scores.device), cand=True)
+    scores, cand_mask, pos_mask = (t.contiguous() for t in (scores, cand_mask, pos_mask))
     err = build.library("rank_sum").rank_sum_candidates(
-        scores.data_ptr(), B, C, cand_mask.data_ptr(), pos.data_ptr(), pos_mask.data_ptr(),
-        C, CHUNK, out.data_ptr(), build.stream_handle(scores),
+        scores.data_ptr(), B, C, cand_mask.data_ptr(), pos_mask.data_ptr(),
+        *launch_plan_args(plan), out.data_ptr(), build.stream_handle(scores),
     )
     build.check(err, "rank_sum_candidates")
     rank_sum_candidates.launches += 1

@@ -9,7 +9,10 @@ catalog's 1,100,001 items, a history row spanning many item ranges and
 user blocks smaller than the kernel's row block; ``sparse_adam`` with every
 id on one row, more ids than rows, and odd widths; ``rank_sum`` with ties
 everywhere, history, masked positives, rows without positives and rows
-longer than its shared-memory chunk; the NATR attention's forward, backward
+longer than its shared-memory chunk, at shapes reaching every branch of its
+launch plan (a row over a thread-block cluster, one block a row), 1,600
+positives in a row, the candidate form at its shared-memory limit; the NATR
+attention's forward, backward
 and full-sort forms at every kernel width, with empty and single-slot
 histories, in both overlap modes; ``streaming_topk``'s tensor-core edges
 (D of 8 to 256, k of 1 to 64, partial row blocks and item tiles, a row
@@ -37,7 +40,8 @@ then its merge), against its plain version and one B5 (or B13) call over
 the whole table, pad rows past the items included; and CMF over a one-rank
 NCCL mesh through the entry point. B16, DeepAPF's attention-gated score
 (forward, backward and grid) at every kernel width, partial tiles, masked
-pairs and the overlapped count's boundary; B15, CoNet's tower, at the
+pairs and the overlapped count's boundary, the grid's 2-D tiles ragged in
+both directions with every entity masked or none, in float32 and float16; B15, CoNet's tower, at the
 published tower, widths padded to a multiple of 4, a one-layer tower and
 the largest (weights staged layer by layer), a saturating call; both
 refusing what the kernels do not take; and CLFM, DeepAPF and CoNet through
@@ -408,6 +412,86 @@ def test_rank_sum_matches_plain(gen, B, I, P, integer):
     assert torch.equal(got, b7.rank_sum_plain(scores, row_ptr, items, pos, pmask))
     assert torch.equal(got, b7.rank_sum(scores, row_ptr, items, pos, pmask))
     assert float(got[0]) == 0.0
+
+
+def _rank_sum_case(gen, B, I, P):
+    """Integer scores (ties everywhere, so ties straddle every span of a
+    cluster), 1% -inf; random histories; P positive slots a row at 70%:
+    row 0 without valid positives, row 1 with one inside its history (at
+    -inf) and one on PAD, row 2 with a positive at each span's first column
+    and the same score on both sides of the boundary."""
+    scores = torch.randint(-3, 4, (B, I), device="cuda", generator=gen).float()
+    scores[torch.rand(B, I, device="cuda", generator=gen) < 0.01] = -math.inf
+    hist = [torch.randint(0, I, (int(c),), device="cuda", generator=gen)
+            for c in torch.randint(0, max(I // 8, 2), (B,), generator=torch.Generator().manual_seed(I))]
+    pos = _ints(0, I, (B, P), gen)
+    pmask = torch.rand(B, P, device="cuda", generator=gen) < 0.7
+    pmask[0] = False
+    if B > 1 and P > 1:
+        j = I // 2
+        hist[1] = torch.cat([hist[1], torch.tensor([j], device="cuda")])
+        pos[1, 0], pmask[1, 0], scores[1, j] = j, True, -math.inf
+        pos[1, -1], pmask[1, -1] = 0, True
+    if B > 2:
+        span = b7.rank_sum_plan(B, I, P, torch.cuda.get_device_properties(0).multi_processor_count)["span"]
+        for k, c in enumerate(range(span, I, span)):
+            if k < P:
+                pos[2, k], pmask[2, k] = c, True
+                scores[2, c - 1] = scores[2, c] = 1.0
+    row_ptr, items = _csr(hist)
+    return scores, row_ptr, items, pos, pmask
+
+
+@pytest.mark.parametrize("I", [1, 31, 4980, 5001])
+@pytest.mark.parametrize("B", [1, 7, 32, 133, 2048])
+def test_rank_sum_plan_shapes_match_plain(gen, B, I):
+    """B7 at shapes that reach every branch of its launch plan (a row over
+    a cluster of up to 8 blocks, one block a row past the SM count, rows
+    narrower than one block's least span) exactly equal to its plain
+    version and run to run."""
+    args = _rank_sum_case(gen, B, I, 30)
+    got = b7.rank_sum(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, b7.rank_sum_plain(*args))
+    assert torch.equal(got, b7.rank_sum(*args))
+    assert float(got[0]) == 0.0
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_rank_sum_many_positives(gen, integer):
+    """1,600 positives in 5,001-wide rows: the block's bitonic sort (past
+    one warp's 32) and sums up to 2^23, exact."""
+    B, I, P = 5, 5001, 1600
+    scores, row_ptr, items, _, _ = _rank_sum_case(gen, B, I, 1)
+    if not integer:
+        scores = torch.randn(B, I, device="cuda", generator=gen)
+    pos = torch.stack([torch.randperm(I, device="cuda", generator=gen)[:P] for _ in range(B)]).int()
+    pmask = torch.ones(B, P, dtype=torch.bool, device="cuda")
+    pmask[0] = False
+    got = b7.rank_sum(scores, row_ptr, items, pos, pmask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, b7.rank_sum_plain(scores, row_ptr, items, pos, pmask))
+    assert torch.equal(got, b7.rank_sum(scores, row_ptr, items, pos, pmask))
+
+
+@pytest.mark.parametrize("C", [32_768, 4097])
+def test_rank_sum_candidates_at_the_memory_limit(gen, C):
+    """The candidate form's widest rows (32,768 candidates: one block's
+    128 KiB sorted list) and a row just past a power of 2, row 1 with 200
+    positives (the block's bitonic sort), ties everywhere; wider rows
+    raise."""
+    B = 3
+    scores = torch.randint(-3, 4, (B, C), device="cuda", generator=gen).float()
+    cand = torch.rand(B, C, device="cuda", generator=gen) < 0.9
+    pos = torch.rand(B, C, device="cuda", generator=gen) < 0.01
+    pos[1] = torch.arange(C, device="cuda") < 200  # sums below 2^23: the plain sum is exact
+    got = b7.rank_sum_candidates(scores, cand, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, b7.rank_sum_candidates_plain(scores, cand, pos))
+    assert torch.equal(got, b7.rank_sum_candidates(scores, cand, pos))
+    wide = torch.zeros(B, 32_769, device="cuda")
+    with pytest.raises(ValueError):
+        b7.rank_sum_candidates(wide, wide > 0, wide > 0)
 
 
 def _natr_inputs(gen, D, H, N, n_anchor_ids, A):
@@ -1160,6 +1244,33 @@ def test_deepapf_grid_matches_plain(gen, D, entity_is_item, B, I):
     assert got.shape == (B, I)
     _b16_close(got, b16.deepapf_grid_plain(*args), "grid")
     assert torch.equal(got, b16.deepapf_grid(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("entity_is_item", [True, False])
+@pytest.mark.parametrize("B,I", [(1, 1), (7, 4979), (33, 1), (33, 4979)])
+def test_deepapf_grid_tiles_match_plain(gen, B, I, D, entity_is_item, dtype):
+    """The grid's 2-D tiles (8 users x 16 items) with B and I ragged against
+    them, every entity overlapped, none, and the boundary, against the plain
+    version (float32 within ``B16_TOL``, float16 within ``_prob16_close``);
+    bit-equal reruns."""
+    n = 6000
+    tabs = [(0.3 * torch.randn(n, D, device="cuda", generator=gen)).to(dtype) for _ in range(3)]
+    users, items = _ints(0, n, (B,), gen), _ints(0, n, (I,), gen)
+    w = b16.Weights(*(t.to(dtype) for t in _b16_weights(gen, D)))
+    ents = items if entity_is_item else users
+    for ov in (n, -1, int(ents[0])):  # none masked, all masked, the boundary
+        args = (*tabs, users, items, ov, entity_is_item, w)
+        got = b16.deepapf_grid(*args)
+        torch.cuda.synchronize()
+        want = b16.deepapf_grid_plain(*args)
+        assert got.shape == (B, I) and got.dtype == dtype
+        if dtype == torch.float32:
+            _b16_close(got, want, "grid")
+        else:
+            _prob16_close(got, want)
+        assert torch.equal(got, b16.deepapf_grid(*args))
 
 
 def test_deepapf_rejects_other_widths(gen):
