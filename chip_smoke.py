@@ -69,14 +69,17 @@ Phases, in order; any failure exits non-zero:
    the same: B11 forward and backward exactly 4 times per training step
    (one launch per linear table over both domains' pairs), the forward 4
    more per evaluation pass (the tower tables, once per parameter version:
-   3 validations + 1 test), K4 and B7 once per fallback tile; (c) DMF,
+   3 validations + 1 test), B11's plan twice per step and pass (the users'
+   and the items' ids), K4 and B7 once per fallback tile; (c) DMF,
    BOTH:2, eval mode ``uniform 100``: B10 and B7's candidate form exactly
    once per candidate batch of every pass, K4 and B7's full-sort form
    never, and a test hit@10 above (b)'s; (d) DMF, BOTH:2, eval mode
    ``labeled`` (``threshold`` rating >= 4, AUC, MAE, RMSE, LogLoss): no
-   evaluation kernel, AUC in [0, 1], RMSE >= MAE >= 0, LogLoss finite. In
-   every run B5, B6, B8 and B9 never launch, the loss falls and the
-   metrics are finite;
+   evaluation kernel, AUC in [0, 1], RMSE >= MAE >= 0, LogLoss finite; (d)
+   runs a second time with the same seed (its added seconds printed): the
+   trained parameters ``torch.equal``, every epoch's loss and every metric
+   equal. In every run B5, B6, B8 and B9 never launch, the loss falls and
+   the metrics are finite;
 8. mapping paths: ``run_recbole_cdr`` on the card for the three mapping
    models on the dense path's pair at their published widths
    (``properties/model/*.yaml``), every phase cut to 2 epochs:
@@ -247,8 +250,9 @@ Phase 2 also reads the SASS of the built libraries (``check_sass``,
 hold HGMMA (wgmma), UTMALDG (TMA loads) and SYNCS (mbarriers) and at most
 the one block barrier before its roles split, K4's kernel (B10's too) and
 B7's the cluster barriers (UCGABAR) of their short-tile forms, and every
-instantiation of B16's grid kernel its tensor-core products (HMMA); it
-prints the counts.
+instantiation of B16's grid kernel its tensor-core products (HMMA), and
+every one of B15's its products (HMMA, or HGMMA where the published
+tower runs on wgmma); it prints the counts.
 B13's time is printed beside B5's from the same run, with its launch plan
 and the item bytes the plan reads from L2 into the SMs (modelled from the
 plan, not read from a counter), and beside the time of the same call on
@@ -263,12 +267,18 @@ their own and kept out of the ``kernels`` records.
 B11 (``rating_vector_forward`` / ``rating_vector_backward``) is held in
 phase 2 at a DMF training step's shapes (16,384 ids, both domains' pairs)
 on each of its four histories, the source item side (every id's history of
-source users, N ~ 27.8k) timed, and at the tower tables' shape (every target
-item), within ``B11_TOL`` of its plain version; two backward runs within it
-too (atomics), the error of each element against the sum of its terms'
-absolute values. Its bound charges the distinct rows' work: each distinct
-id's history entries and the table rows they name read once, the ids, the
-output and one add per entry and column. B10 (``candidate_topk``) and B7's
+source users, N ~ 27.8k) timed, on that side's longest row (over 100 pieces)
+at every other id of the batch, and at the tower tables' shape (every
+target item), within ``B11_TOL`` of its plain version, the error of each
+element against the sum of its terms' absolute values; a second run of the
+forward and of the backward ``torch.equal`` to the first, in both forms
+(B11 has no float atomic: ``check_sass`` fails on one in its library). Its
+plan (``rating_vector_plan``) is held equal to its plain version (a stable
+sort) on each ids tensor and timed beside ``torch.sort(stable=True)``; the
+forward and backward are timed from one plan. Their bound charges the
+distinct rows' work: each distinct id's history entries and the table rows
+they name read once, the ids, the output and one add per entry and
+column. B10 (``candidate_topk``) and B7's
 candidate form (``rank_sum_candidates``) are held exactly at the shape of
 phase 7c's candidate batches ([users per batch, max positives x 101]) with
 integer-valued (ties everywhere) and normal scores; the candidate form takes
@@ -287,13 +297,17 @@ product. The grid's bound is its products in 3xTF32 on the tensor cores
 the bound with every operation on the CUDA cores (the earlier pair
 kernels' form) is printed beside it, with the grid's tile
 (``probe_deepapf_grid.py`` splits the grid's time). B15 (``conet_tower``)
-is held at the published tower and at D 32 with [32, 16], for 1, 32 and
-2,048 users against every target item, within ``B15_TOL`` of its plain
-version per probability, bit-equal from run to run, a call whose every
-logit exceeds 17 equal to it (all 1.0), and K4's ids on the dense tile's
-probabilities equal wherever neighbours are clear of the tolerance; timed
-at the dense tile, its library yardstick the torch chain over the whole
-[2,048, 4,980, 64] hidden (JAX's form).
+is held at the published tower, at D 32 with [32, 16] and at D 20 with
+[40, 24, 10] (widths the wrapper pads to the kernel's tile unit), for 1, 32
+and 2,048 users against every target item (4,980, not a multiple of the
+16-item tile), within ``B15_TOL`` of its plain version per probability,
+bit-equal from run to run, a call whose every logit exceeds 17 equal to it
+(all 1.0), and K4's ids on the dense tile's probabilities equal wherever
+neighbours are clear of the tolerance; timed at the dense tile, its bound
+the products in 3xTF32 on the tensor cores (the form the kernel runs) and
+the rest on the CUDA cores (the bound with every operation on the CUDA
+cores is printed beside it), its library yardstick the torch chain over
+the whole [2,048, 4,980, 64] hidden (JAX's form).
 
 Phase 2 holds the 16-bit forms of B8, B9 and B11 on the same operands as
 their float32 forms, rounded to bf16, against their plain versions: B8-bf16
@@ -303,9 +317,10 @@ forward and backward and full-sort form in both overlap modes, its anchor
 table over every target user and its pair grid on the fallback tile
 (``B9_BF16_TOL``, reruns bit-equal; library route the torch chain in bf16,
 ``library_natr_*``, which the float32 B9 rows are now timed against too),
-B11-bf16 on the four histories of a DMF step (forward within ``B11_TOL``,
-backward within ``B11_BF16_TOL``, twice; library routes ``embedding_bag``
-on the bf16 table and ``index_add_`` then one rounding). Their bounds charge
+B11-bf16 on the four histories of a DMF step and the longest row (forward
+within ``B11_TOL``, backward within ``B11_BF16_TOL``, reruns bit-equal;
+library routes ``embedding_bag`` on the bf16 table and ``index_add_`` then
+one rounding). Their bounds charge
 the 16-bit operands' two bytes.
 
 Phase 2 holds the 16-bit forms of B16 and B15 the same way, at the main
@@ -404,15 +419,21 @@ DTCDR_LABELED_METRICS = ["AUC", "MAE", "RMSE", "LogLoss"]
 DTCDR_PATHS = {
     "dtcdr_neumf": ("neg_sampler", "swap_or_not", "masked_topk", "rank_sum"),
     "dtcdr_dmf": ("neg_sampler", "swap_or_not", "masked_topk", "rank_sum",
-                  "rating_vector_forward", "rating_vector_backward"),
+                  "rating_vector_forward", "rating_vector_backward", "rating_vector_plan"),
     "dtcdr_uniform": ("neg_sampler", "swap_or_not", "candidate_topk", "rank_sum_candidates",
-                      "rating_vector_forward", "rating_vector_backward"),
+                      "rating_vector_forward", "rating_vector_backward", "rating_vector_plan"),
     "dtcdr_labeled": ("neg_sampler", "swap_or_not", "rating_vector_forward",
-                      "rating_vector_backward"),
+                      "rating_vector_backward", "rating_vector_plan"),
 }
+#: the DTCDR run that phase 7 repeats with the same seed: DMF trains and
+#: evaluates bit for bit the same (B11 sums in a fixed order)
+DTCDR_REPEATED = "dtcdr_labeled"
 #: B11 launches per DMF training step (forward and backward) and per
 #: evaluation pass (forward): one per linear table
 B11_PER_STEP = 4
+#: B11 plans per DMF training step and evaluation pass: one per ids tensor
+#: (the users', the items'), shared by both tables of a side and the backward
+B11_PLANS_PER_STEP = 2
 
 #: phase 8's runs: (name, model, schedule), each phase cut to
 #: ``MAPPING_EPOCHS`` epochs from the published 300 (DCDCSR's BOTH: 50)
@@ -526,10 +547,10 @@ B9_TOL = {"forward": (1e-5, 1e-4), "full_sort": (1e-6, 1e-4), "backward": (1e-5,
 
 #: B11 tolerance per output element, |kernel - plain| <= ATOL + RTOL * the
 #: sum of the absolute values of the terms the element adds: the kernel sums
-#: a row in pieces of 32 entries added by atomics (the backward also adds
-#: every id's gradient into shared rows by atomics), index_add_ in its own
-#: order, and two float32 sums of the same terms in any two orders differ by
-#: a small multiple of 2^-24 times that sum (RTOL is 64 of them)
+#: a row in a fixed order of its own (row groups of a warp, pieces of 64
+#: entries added in piece order), index_add_ in its own order, and two
+#: float32 sums of the same terms in any two orders differ by a small
+#: multiple of 2^-24 times that sum (RTOL is 64 of them)
 B11_TOL = (1e-6, 2 ** -18)
 
 
@@ -600,13 +621,16 @@ B16_BF16_TOL = (1e-5, 4 * 2 ** -7)
 #: B15 tolerance per probability, |kernel - plain| <= ATOL + RTOL * A, with A
 #: the logit's absolute chain (``b15_scale``: the tower on |hu| + |hi|, |W|,
 #: |b|, no relu): each side rounds every layer's sums of at most 65 terms in
-#: float32, at most 65 * 2^-24 of their magnitudes, carried through the later
-#: layers' |W| into A; four layers, two sides, and the sigmoid's slope of at
-#: most 1/4 keep the difference under 2^-17 A; RTOL doubles it
+#: float32, at most 65 * 2^-24 of their magnitudes, and the kernel's 3xTF32
+#: products drop at most about 2^-21 of each |a b| (the lo x lo term and
+#: TF32's cut of lo), carried through the later layers' |W| into A; four
+#: layers, two sides, and the sigmoid's slope of at most 1/4 keep the
+#: difference under 2^-17 A; RTOL doubles it
 B15_TOL = (1e-6, 2 ** -16)
 #: the towers phase 2 holds B15 at, (D, mlp_hidden_size): the published one
-#: (the main path's, timed at the dense tile), and a narrower one
-B15_TOWERS = ((64, [64, 32, 16, 8]), (32, [32, 16]))
+#: (the main path's, timed at the dense tile), a narrower one, and one whose
+#: widths the wrapper pads to the kernel's tile unit (48, 32, 16)
+B15_TOWERS = ((64, [64, 32, 16, 8]), (32, [32, 16]), (20, [40, 24, 10]))
 #: the user counts of a call: one user, a fallback tile's, a dense tile's
 B15_USERS = (1, 32, 2048)
 #: a 16-bit probability p of B15-bf16 or of B16-bf16's grid against its
@@ -995,7 +1019,9 @@ def make_recorder(out):
 #: at most the one block barrier before its roles split; every instantiation
 #: of K4's kernel (B10's too) and of B7's the cluster barriers of their
 #: short-tile forms (UCGABAR); every instantiation of B16's grid kernel its
-#: tensor-core products (HMMA: 3xTF32 in float32, bf16 / f16 in 16 bits).
+#: tensor-core products (HMMA: 3xTF32 in float32, bf16 / f16 in 16 bits);
+#: every instantiation of B15's its tensor-core products (HMMA on mma.sync,
+#: HGMMA on wgmma: the published tower's), HGMMA in one.
 #: Source -> (kernel, opcodes in every instantiation, opcodes in at least
 #: one, opcodes counted)
 SASS_OPCODES = {
@@ -1004,14 +1030,18 @@ SASS_OPCODES = {
     "masked_topk": ("masked_topk_kernel", ("UCGABAR",), (), ("UCGABAR", "BAR.SYNC")),
     "rank_sum": ("rank_sum_kernel", ("UCGABAR",), (), ("UCGABAR", "BAR.SYNC")),
     "deepapf_attention": ("grid_kernel", ("HMMA",), (), ("HMMA", "BAR.SYNC")),
+    "conet_tower": ("tower_kernel", (), ("HGMMA",), ("HMMA", "HGMMA", "BAR.SYNC")),
 }
+#: a float atomic in SASS (RED or ATOM on F16, BF16, F32 or F64): B11's
+#: library must hold none, so that its sums run in a fixed order
+FLOAT_ATOMIC = r"\b(?:RED|ATOMG?|ATOMS)\.[A-Z0-9_.]*\b(?:F16|BF16|F32|F64)"
 
 
 def check_sass():
     """Count the opcodes of ``SASS_OPCODES`` in each instantiation of B13's,
-    K4's, B7's and B16's grid kernels (``cuobjdump --dump-sass`` of the
-    built libraries) and fail where one is absent, or where B13's selection
-    holds a block barrier."""
+    K4's, B7's, B16's grid and B15's kernels (``cuobjdump --dump-sass`` of
+    the built libraries) and fail where one is absent, where B13's selection
+    holds a block barrier, or where B11's library holds a float atomic."""
     import re
 
     from recbole_cdr_tpu_torch.ops import build
@@ -1034,6 +1064,16 @@ def check_sass():
             assert total[op], f"no instantiation of {kernel} has {op}"
         if source == "streaming_topk":
             assert all(c["BAR.SYNC"] <= 1 for c in counts), f"{kernel} holds block barriers"
+        if source == "conet_tower":
+            assert all(c["HMMA"] or c["HGMMA"] for c in counts), \
+                f"an instantiation of {kernel} has no tensor-core product"
+    sass = subprocess.run([cuobjdump, "--dump-sass", build._lib_path("rating_vector")],
+                          capture_output=True, text=True, check=True).stdout
+    atomics = re.findall(FLOAT_ATOMIC, sass)
+    n_all = len(re.findall(r"\b(?:RED|ATOMG?|ATOMS)\.", sass))
+    print(f"  SASS rating_vector.cu: {len(atomics)} float atomics of {n_all} atomics",
+          flush=True)
+    assert not atomics, f"rating_vector.cu holds float atomics: {sorted(set(atomics))}"
 
 
 def kernel_checks(dev):
@@ -2133,6 +2173,51 @@ def dtcdr_checks(dev, g, record):
     errs = {"forward": 0.0, "backward": 0.0, "forward_bf16": 0.0, "backward_bf16": 0.0}
     dt16 = getattr(torch, BF16)
     timed = None
+
+    def hold_b11(name, csr, N, ids, x, gout):
+        """B11 and B11-bf16 on one history and one ids tensor from one plan:
+        forward and backward within tolerance of their plain versions, and
+        a second run of each bit-equal."""
+        plan = b11.rating_vector_plan(ids, csr.ptr.shape[0] - 1)
+        check_plan(plan, ids)
+        for key, table in (("", x), ("_bf16", x.to(dt16))):
+            dtype = table.dtype
+            got = b11.rating_vector_forward(csr, table, ids, plan)
+            errs["forward" + key] = max(errs["forward" + key], close(
+                got, b11.rating_vector_plain(csr, table, ids),
+                b11.rating_vector_plain(csr, table.abs(), ids),
+                f"rating_vector_forward{key} [{name}]"))
+            assert torch.equal(got, b11.rating_vector_forward(csr, table, ids, plan)), \
+                f"rating_vector_forward{key} [{name}] differs run to run"
+            dt = b11.rating_vector_backward(csr, N, ids, gout, dtype, plan)
+            want = b11.rating_vector_backward_plain(csr, N, ids, gout, dtype)
+            absum = b11.rating_vector_backward_plain(csr, N, ids, gout.abs())
+            assert dt.dtype == dtype
+            if key:
+                atol, rtol, step = B11_BF16_TOL
+                err = within(dt, want, atol + rtol * absum + step * want.float().abs(),
+                             f"rating_vector_backward_bf16 [{name}]")
+            else:
+                err = close(dt, want, absum, f"rating_vector_backward [{name}]")
+            errs["backward" + key] = max(errs["backward" + key], err)
+            assert torch.equal(dt, b11.rating_vector_backward(csr, N, ids, gout, dtype, plan)), \
+                f"rating_vector_backward{key} [{name}] differs run to run"
+        print(f"  rating_vector [{name}]: both forms' forward and backward bit-equal over two "
+              "runs", flush=True)
+        return plan
+
+    def check_plan(plan, ids):
+        """The plan kernel against its plain version: equal, but for the
+        order of the big heads' list."""
+        want = b11.rating_vector_plan_plain(ids, plan.R)
+        H = int(want.meta[0])
+        assert torch.equal(plan.meta, want.meta), (plan.meta, want.meta)
+        for field, n in (("row_head", None), ("head_row", H), ("head_start", H + 1),
+                         ("pos", None)):
+            assert torch.equal(getattr(plan, field)[:n], getattr(want, field)[:n]), field
+        n_big = int(want.meta[1])
+        assert torch.equal(torch.sort(plan.big[:n_big]).values, want.big[:n_big]), "big"
+
     for name, table, ids in (("s_items", model.source_user_linear, users),
                              ("t_items", model.target_user_linear, users),
                              ("s_users", model.source_item_linear, items),
@@ -2141,41 +2226,31 @@ def dtcdr_checks(dev, g, record):
         N = table.shape[0]
         x = 0.3 * torch.randn(N, D, device=dev, generator=g)
         gout = torch.randn(ids.shape[0], D, device=dev, generator=g)
-        errs["forward"] = max(errs["forward"], close(
-            b11.rating_vector_forward(csr, x, ids), b11.rating_vector_plain(csr, x, ids),
-            b11.rating_vector_plain(csr, x.abs(), ids), f"rating_vector_forward [{name}]"))
-        want = b11.rating_vector_backward_plain(csr, N, ids, gout)
-        absum = b11.rating_vector_backward_plain(csr, N, ids, gout.abs())
-        for run in ("", ", second run"):
-            errs["backward"] = max(errs["backward"], close(
-                b11.rating_vector_backward(csr, N, ids, gout), want, absum,
-                f"rating_vector_backward [{name}{run}]"))
-        # B11-bf16 on the table rounded to bf16 (gout stays float32, as the towers)
-        x16 = x.to(dt16)
-        errs["forward_bf16"] = max(errs["forward_bf16"], close(
-            b11.rating_vector_forward(csr, x16, ids), b11.rating_vector_plain(csr, x16, ids),
-            b11.rating_vector_plain(csr, x16.abs(), ids), f"rating_vector_forward_bf16 [{name}]"))
-        want16 = b11.rating_vector_backward_plain(csr, N, ids, gout, dt16)
-        atol, rtol, step = B11_BF16_TOL
-        for run in ("", ", second run"):
-            got16 = b11.rating_vector_backward(csr, N, ids, gout, dt16)
-            assert got16.dtype == dt16
-            errs["backward_bf16"] = max(errs["backward_bf16"], within(
-                got16, want16, atol + rtol * absum + step * want16.float().abs(),
-                f"rating_vector_backward_bf16 [{name}{run}]"))
+        plan = hold_b11(name, csr, N, ids, x, gout)
         n_ids, n_entries, n_rows = b11_work(csr, ids)
         print(f"  rating_vector [{name}]: {ids.shape[0]} ids, {n_ids} distinct, "
               f"{n_entries} history entries naming {n_rows} of [{N} x {D}]'s rows", flush=True)
         if name == "s_users":
-            timed = (csr, x, ids, gout, N, n_ids, n_entries, n_rows)
+            timed = (csr, x, ids, gout, N, n_ids, n_entries, n_rows, plan)
+    # the longest history row (over 100 pieces) in a batch of heavily
+    # repeating ids: half the batch that row, the rest 64 other rows
+    csr, x, ids, gout, N = timed[:5]
+    lens = csr.ptr[1:] - csr.ptr[:-1]
+    longest = int(torch.argmax(lens))
+    assert int(lens[longest]) > 100 * b11.PIECE, int(lens[longest])
+    heavy = torch.where(torch.arange(ids.shape[0], device=dev) % 2 == 0, longest,
+                        ids[torch.arange(ids.shape[0], device=dev) % 64]).to(torch.int32)
+    hold_b11(f"s_users, row {longest} of {int(lens[longest])} entries at every other id",
+             csr, N, heavy, x, gout)
     # the tower tables' shape: every target item on the source user side
-    csr, x, _, _, N, _, _, _ = timed
     every = torch.arange(model.target_num_items, dtype=torch.int32, device=dev)
+    every_plan = b11.rating_vector_plan(every, csr.ptr.shape[0] - 1)
     errs["forward"] = max(errs["forward"], close(
-        b11.rating_vector_forward(csr, x, every), b11.rating_vector_plain(csr, x, every),
+        b11.rating_vector_forward(csr, x, every, every_plan),
+        b11.rating_vector_plain(csr, x, every),
         b11.rating_vector_plain(csr, x.abs(), every), "rating_vector_forward [tower table]"))
 
-    csr, x, ids, gout, N, n_ids, n_entries, n_rows = timed
+    csr, x, ids, gout, N, n_ids, n_entries, n_rows, plan = timed
     B = ids.shape[0]
     owner, entry = b11._expand(csr, ids)
     flat = csr.cols[entry].long()
@@ -2185,15 +2260,24 @@ def dtcdr_checks(dev, g, record):
     vec[owner, flat] = 1.0
     jax_ms = device_ms(lambda: vec @ x, 10)[0]
     csr_bytes = 8 * n_ids + 4 * n_entries
+    R = csr.ptr.shape[0] - 1
+    # the plan: the ids read; the row map, heads, starts and positions written
+    record("rating_vector_plan", lambda: b11.rating_vector_plan(ids, R),
+           lambda: b11.rating_vector_plan_plain(ids, R), 0.0,
+           4 * (B + (R + 1) + 2 * n_ids + 1 + B), 0,
+           library_fn=lambda: torch.sort(ids, stable=True), reps=10)
+    print(f"  rating_vector_plan: {B} ids over {R + 1} keys, {n_ids} heads; library yardstick "
+          "torch.sort(stable=True) of the ids; the forward and backward below are timed from "
+          "one plan (a step builds one per ids tensor, 2 a step, for 8 B11 calls)", flush=True)
     record("rating_vector_forward",
-           lambda: b11.rating_vector_forward(csr, x, ids),
+           lambda: b11.rating_vector_forward(csr, x, ids, plan),
            lambda: b11.rating_vector_plain(csr, x, ids),
            errs["forward"], n_rows * D * 4 + 4 * B + csr_bytes + B * D * 4, n_entries * D,
            library_fn=lambda: torch.nn.functional.embedding_bag(
                flat, x, offsets.long(), mode="sum"), reps=10)
     g_rows = gout[owner]
     record("rating_vector_backward",
-           lambda: b11.rating_vector_backward(csr, N, ids, gout),
+           lambda: b11.rating_vector_backward(csr, N, ids, gout, torch.float32, plan),
            lambda: b11.rating_vector_backward_plain(csr, N, ids, gout),
            errs["backward"], B * D * 4 + 4 * B + csr_bytes + N * D * 4, n_entries * D + B * D,
            library_fn=lambda: torch.zeros(N, D, device=dev).index_add_(0, flat, g_rows), reps=10)
@@ -2207,13 +2291,13 @@ def dtcdr_checks(dev, g, record):
     # the 16-bit form: 2-byte table rows and gradient, float32 sums, out and gout
     x16 = x.to(dt16)
     record("rating_vector_forward_bf16",
-           lambda: b11.rating_vector_forward(csr, x16, ids),
+           lambda: b11.rating_vector_forward(csr, x16, ids, plan),
            lambda: b11.rating_vector_plain(csr, x16, ids),
            errs["forward_bf16"], n_rows * D * 2 + 4 * B + csr_bytes + B * D * 4, n_entries * D,
            library_fn=lambda: torch.nn.functional.embedding_bag(
                flat, x16, offsets.long(), mode="sum"), reps=10)
     record("rating_vector_backward_bf16",
-           lambda: b11.rating_vector_backward(csr, N, ids, gout, dt16),
+           lambda: b11.rating_vector_backward(csr, N, ids, gout, dt16, plan),
            lambda: b11.rating_vector_backward_plain(csr, N, ids, gout, dt16),
            errs["backward_bf16"], B * D * 4 + 4 * B + csr_bytes + N * D * 2,
            n_entries * D + B * D,
@@ -2522,11 +2606,18 @@ def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
                   f"({int(clear.sum())} of {clear.numel()}); {users.shape[0]} eval users",
                   flush=True)
             widths = hidden
+            n_bytes = 4 * ((B + n_target + 1) * hidden[0] + B * n_target
+                           + sum(a * b + b for a, b in zip(widths, widths[1:])) + widths[-1] + 1)
+            n_ops, products = conet_work(B * n_target, widths), conet_products(B * n_target,
+                                                                               widths)
+            tf32_ms = bound(n_bytes, n_ops - products, tf32_ops=3 * products)[0]
+            print(f"  conet_tower: the published tower on wgmma, block tiles of 64 items x "
+                  f"16 users, the products in 3xTF32; bound in 3xTF32 {tf32_ms:.4f} ms, on "
+                  f"the CUDA cores "
+                  f"{bound(n_bytes, n_ops)[0]:.4f} ms", flush=True)
             record("conet_tower", lambda: b15.conet_tower(hu, hi_all, b0, layers, out),
                    lambda: b15.conet_tower_plain(hu, hi_all, b0, layers, out), err,
-                   4 * ((B + n_target + 1) * hidden[0] + B * n_target
-                        + sum(a * b + b for a, b in zip(widths, widths[1:])) + widths[-1] + 1),
-                   conet_work(B * n_target, widths),
+                   n_bytes, n_ops - products, tf32_ops=3 * products,
                    library_fn=lambda: library_conet(hu, hi_all, b0, layers, out), reps=10)
             b15_bf16_checks(record, hu, hi_all, b0, layers, out)
         del hi_all
@@ -3065,6 +3156,8 @@ def main():
                                   "recbole_cdr_tpu/models/dtcdr.py:127"),
         "rating_vector_backward": ("recbole_cdr_tpu_torch/csrc/rating_vector.cu",
                                    "recbole_cdr_tpu/models/dtcdr.py:127"),
+        "rating_vector_plan": ("recbole_cdr_tpu_torch/csrc/rating_vector.cu",
+                               "recbole_cdr_tpu/models/dtcdr.py:127"),
         "candidate_topk": ("recbole_cdr_tpu_torch/csrc/masked_topk.cu",
                            "recbole_cdr_tpu/evaluator/evaluator.py:88"),
         "rank_sum_candidates": ("recbole_cdr_tpu_torch/csrc/rank_sum.cu",
@@ -3160,7 +3253,8 @@ def check_natr_run(result, hist, c):
 
 def run_dtcdr_paths(counts):
     """Phase 7: the DTCDR runs of ``DTCDR_RUNS``, each checked; their launch
-    counts go into ``counts`` under the run's name."""
+    counts go into ``counts`` under the run's name. ``DTCDR_REPEATED`` runs
+    a second time (``check_repeats``)."""
     import torch
 
     from recbole_cdr_tpu_torch import ops, run_recbole_cdr
@@ -3179,10 +3273,37 @@ def run_dtcdr_paths(counts):
         hist = _report_run(result, wall, c, DTCDR_PATHS[name])
         check_dtcdr_run(mode, cfg, result, hist, c)
         tests[name] = result["test_result"]
+        if name == DTCDR_REPEATED:
+            check_repeats(cfg, result)
         del result
     # ~100x fewer candidates than full-sort
     assert tests["dtcdr_uniform"]["hit@10"] > tests["dtcdr_dmf"]["hit@10"], tests
     return tests
+
+
+def check_repeats(cfg, first):
+    """The run of ``cfg`` again with the same seed (its launches counted in
+    no path): its trained parameters bit-equal to ``first``'s, every
+    epoch's loss and every metric equal."""
+    import torch
+
+    from recbole_cdr_tpu_torch import run_recbole_cdr
+
+    t0 = time.perf_counter()
+    second = run_recbole_cdr(model="DTCDR", config_dict=cfg, saved=True)
+    torch.cuda.synchronize()
+    added = time.perf_counter() - t0
+    a, b = first["model"].state_dict(), second["model"].state_dict()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    losses = [[h["loss"] for h in r["history"]] for r in (first, second)]
+    print(f"repeated run (+{added:.2f} s): {len(a) - len(differ)} of {len(a)} parameters "
+          f"bit-equal; losses {losses[0]} and {losses[1]}; test {second['test_result']}",
+          flush=True)
+    assert sorted(a) == sorted(b) and not differ, f"parameters differ run to run: {differ}"
+    assert losses[0] == losses[1], losses
+    assert first["test_result"] == second["test_result"], (first["test_result"],
+                                                           second["test_result"])
+    assert first["best_valid_result"] == second["best_valid_result"]
 
 
 def check_dtcdr_run(mode, cfg, result, hist, c):
@@ -3206,7 +3327,8 @@ def check_dtcdr_run(mode, cfg, result, hist, c):
     want = {}
     if cfg["base_model"] == "DMF":
         want = {"rating_vector_forward": B11_PER_STEP * (steps + passes),
-                "rating_vector_backward": B11_PER_STEP * steps}
+                "rating_vector_backward": B11_PER_STEP * steps,
+                "rating_vector_plan": B11_PLANS_PER_STEP * (steps + passes)}
     if mode == "full":
         n_target = result["model"].target_num_items
 

@@ -13,9 +13,7 @@ repository root on a machine with one NVIDIA GPU:
     python3 probe_deepapf_grid.py
 """
 
-import ctypes
 import os
-import subprocess
 import sys
 
 #: where the variants cut the kernel: the epilogue's start and its end, and
@@ -48,26 +46,7 @@ def variants(build):
         sys.exit("the kernel source no longer holds the probe's marks")
     products = src[:src.index(epi)] + SUM_ALL + src[src.index(end):]
     texts = {"products": products, "staging": products.replace(call, NO_PRODUCTS)}
-    out_dir = os.path.join(build.build_dir(), "grid_probe")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, text in texts.items():
-        path = os.path.join(out_dir, name + ".cu")
-        with open(path, "w") as f:
-            f.write(text)
-        procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC_DIR, "-o", path[:-3] + ".so", path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            sys.exit(f"the {name} variant did not build:\n{log}")
-        fn = ctypes.CDLL(os.path.join(out_dir, name + ".so")).deepapf_grid
-        fn.argtypes = build._SIGNATURES["deepapf_attention"]["deepapf_grid"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+    return build.build_variants("deepapf_attention", "deepapf_grid", texts, "grid_probe")
 
 
 def main():

@@ -7,36 +7,47 @@
 // distinct non-PAD entries the same function is
 //
 //   forward:  out[b] = sum over j in row(ids[b]) of table[cols[j]]
-//   backward: dtable[cols[j]] += gout[b] for every b and every j in row(ids[b])
+//   backward: dtable[c] = sum over b with c in row(ids[b]) of gout[b]
 //
 // Bound on an H100: bytes. The dense form reads a [B, N] vector (0.9 GB at
 // B = 8,192 and N = 27.8k); the gather-sum reads each distinct id's history
 // entries and the table rows they name (D floats each, L2-resident: the
 // tables are at most ~11 MB), one add per entry and column.
 //
-// Design. Batches repeat popular ids (a popular item is in hundreds of the
-// batch's pairs, with thousands of history entries), so every launch works
-// per distinct id:
-//   1. one thread per id: atomicMin of its position into firstpos[row] (an
-//      [R] int32 scratch the caller fills with INT_MAX), so each row's first
-//      position in the batch is its "head";
-//   2. one block plans the work: each head's row is cut into pieces of
-//      kPiece entries, and an exclusive scan of the pieces per position
-//      gives piece_start (piece_start[B] = the total);
-//   3. a fixed grid of warps strides over the pieces; a warp finds its
-//      piece's head by binary search in piece_start, loads the piece's
-//      column ids in one coalesced read, and sums (forward) or scatters
-//      (backward) the table rows, each lane holding up to 4 columns of a
-//      128-column slice. Pieces keep the work balanced whatever the rows'
-//      lengths (the smoke pair's rows reach 13.9k entries);
-//   4. forward: heads add their pieces' partial sums into out[head] with
-//      atomicAdd (the caller zeroes out), then every non-head copies its
-//      head's row. Backward: every position first adds its gout row into
-//      its head's slot of a zeroed [B, D] scratch, then the pieces add the
-//      head's summed gradient into each entry's table row with atomicAdd.
-// So both directions cost the distinct rows' entries times D, not B times
-// the rows' lengths. A row of one piece sums in a fixed order; longer rows
-// and the backward's shared table rows add in a run-dependent order.
+// Design. Every float sum runs in an order that depends on the inputs
+// alone, so two runs on the same inputs are bit-equal: there is no float
+// atomic. Batches repeat popular ids (a popular item is in hundreds of a
+// step's pairs, with thousands of history entries), so all work is per
+// distinct id ("head"):
+//   1. the plan (plan_kernel, one cooperative launch of many blocks, built
+//      once per ids tensor and shared by every table and direction that
+//      takes it): the positions counted per id with integer atomics, a scan
+//      of the counts over the ids, each position placed in its id's bucket
+//      by an integer ticket, then ordered inside the bucket by counting the
+//      bucket's smaller positions. Out come the heads in id order, each
+//      head's positions in position order, and a map from history row to
+//      head (-1 for a row absent from the batch);
+//   2. one fixed-order gather-sum (warp_sum), "CSR rows x dense rows ->
+//      float32 rows", used three ways: forward, the head's history row of
+//      the table; backward (a), the head's positions' rows of gout into
+//      gsum[head]; backward (b), for table row c, gsum of every present
+//      history row that holds c, walking the transposed history (a CSR from
+//      table row to history rows, built once on the host). A warp takes 32
+//      entries at a time, packs the kept ones to the front, and its RW row
+//      groups (32 / RW lanes each, 16-byte loads of a row) add every RW-th
+//      kept entry in order; the groups' sums are added pairwise;
+//   3. rows of more than `piece` entries (64) are cut into static pieces of
+//      that many entries (on the host, once per history and direction): the
+//      pieces' partial sums go to a scratch table, and a second pass adds
+//      them in piece order, a warp a row, or a block a row of more than 32
+//      pieces (the host's lists of both; the block's 8 warps each sum a
+//      contiguous run, then warp 0's, 1's, ... sums are added in order). A
+//      head of more than kBigPositions positions is summed by a block the
+//      same way.
+// The forward writes each head's sum to every one of its positions and the
+// backward writes every table row once (0 where no present row holds it),
+// so nothing is zeroed before a launch; the 16-bit form rounds each table
+// row's float32 sum once as it writes it.
 //
 // B11-bf16, the 16-bit form (DMF under compute_dtype: bfloat16; float16
 // through the same template). JAX's rating vector stays float32
@@ -45,290 +56,563 @@
 // them in float32 into a float32 output. The backward's gout is float32 (the
 // towers run in float32); the table's gradient passes back through the
 // promotion's cast, so it is the float32 row sum rounded once to the
-// table's type: the pieces add into a float32 scratch table, and one
-// elementwise launch rounds it into the 16-bit gradient.
+// table's type.
 
-#include <climits>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "float16.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPlanThreads = 1024;
-constexpr int kPiece = 32;   // history entries per piece: one column id per lane
-constexpr int kLanes = 4;    // columns per lane in a 128-column slice
-constexpr int kSlice = 32 * kLanes;
-constexpr int kGrid = 1056;  // 132 SMs x 8 blocks of 8 warps
+constexpr int kUnroll = 4;           // rows a row group loads before it adds them
+constexpr int kBigPositions = 64;    // a head with more positions is summed by a block
+constexpr int kMaxPlanBlocks = 1024;
+constexpr int kMaxD = 1024;          // the block sums' shared memory: (kWarps + 1) D floats
+constexpr int kGridPerSM = 8;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+// the plan's bucket of an id: itself, or R for an id outside [0, R)
+__device__ __forceinline__ int key_of(int id, int R) { return id >= 0 && id < R ? id : R; }
 
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half narrow<__half>(float x) { return __float2half_rn(x); }
+// a warp's lanes over a row of D values: RW row groups of G lanes, VEC
+// consecutive values a lane (one 16-byte float32 or 8-byte 16-bit load when
+// VEC is 4), `steps` column steps of G VEC values
+struct Geo {
+  int G, RW, steps;
+};
 
-__global__ void first_position_kernel(const int* __restrict__ ids, int B, int R,
-                                      int* __restrict__ firstpos) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  const int r = ids[b];
-  if (r >= 0 && r < R) atomicMin(firstpos + r, b);
+template <int VEC>
+__host__ __device__ inline Geo geo(int D) {
+  const int need = (D + VEC - 1) / VEC;
+  const int G = VEC == 1 || need > 16 ? 32 : need > 8 ? 16 : 8;
+  return {G, 32 / G, (need + G - 1) / G};
 }
 
-__device__ __forceinline__ int n_pieces(const int* ptr, int r) {
-  return (ptr[r + 1] - ptr[r] + kPiece - 1) / kPiece;
-}
-
-// One block of kPlanThreads: head_of[b] is the first position of ids[b] (b
-// itself for an id out of [0, R), which then has no pieces); piece_start is
-// the exclusive scan of the heads' piece counts, piece_start[B] the total.
-__global__ void __launch_bounds__(kPlanThreads)
-plan_kernel(const int* __restrict__ ids, const int* __restrict__ ptr,
-            const int* __restrict__ firstpos, int B, int R,
-            int* __restrict__ head_of, int* __restrict__ piece_start) {
-  __shared__ int warp_sums[kPlanThreads / 32];
-  const int per = (B + kPlanThreads - 1) / kPlanThreads;
-  const int lo = min(B, (int)threadIdx.x * per), hi = min(B, lo + per);
-  int local = 0;
-  for (int b = lo; b < hi; ++b) {
-    const int r = ids[b];
-    const bool valid = r >= 0 && r < R;
-    const int h = valid ? firstpos[r] : b;
-    head_of[b] = h;
-    if (valid && h == b) local += n_pieces(ptr, r);
+template <int VEC, typename T>
+__device__ __forceinline__ void load(const T* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 x = ld4(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    v[0] = ld1(p);
   }
+}
+
+// VEC float32 values stored as T (rounded once when T is 16-bit)
+template <int VEC, typename T>
+__device__ __forceinline__ void store(T* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4 && kWide<T>) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(to_bits<T>(v[0]) | to_bits<T>(v[1]) << 16,
+                                              to_bits<T>(v[2]) | to_bits<T>(v[3]) << 16);
+  } else {
+    st1(p, v[0]);
+  }
+}
+
+// The warp's sum, at columns d .. d + VEC, of the rows src[row_of(j)] for j
+// in [lo, hi), skipping j where row_of(j) < 0. Entries come 32 at a time, one
+// a lane; the kept ones are packed to the front in entry order, and row group
+// `sub` adds kept entries sub, sub + RW, sub + 2 RW, ... in that order; the
+// RW groups' sums are then added pairwise (lanes G apart, then 2 G), so every
+// lane ends with the same sum in an order fixed by the entries alone.
+template <int VEC, typename T, typename RowOf>
+__device__ __forceinline__ void warp_sum(int lo, int hi, RowOf row_of,
+                                         const T* __restrict__ src, int D, int d,
+                                         const Geo& g, float (&acc)[VEC]) {
+  const int lane = threadIdx.x & 31, sub = lane / g.G;
+#pragma unroll
+  for (int t = 0; t < VEC; ++t) acc[t] = 0.f;
+  for (int base = lo; base < hi; base += 32) {
+    const int r = base + lane < hi ? row_of(base + lane) : -1;
+    const unsigned keep = __ballot_sync(0xffffffffu, r >= 0);
+    const int n = __popc(keep);
+    const int packed = __shfl_sync(0xffffffffu, r, lane < n ? __fns(keep, 0, lane + 1) : 0);
+    for (int e0 = 0; e0 < n; e0 += g.RW * kUnroll) {
+      float v[kUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int e = e0 + u * g.RW + sub;
+        const int row = __shfl_sync(0xffffffffu, packed, e & 31);
+        if (e < n && d < D) load<VEC>(src + (long long)row * D + d, v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (e0 + u * g.RW + sub < n && d < D) {
+#pragma unroll
+          for (int t = 0; t < VEC; ++t) acc[t] += v[u][t];
+        }
+    }
+  }
+  for (int off = g.G; off < 32; off <<= 1) {
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], off);
+  }
+}
+
+// The warp's VEC values v at column d stored to row pos[q] of out for every
+// q in [q0, q1): 32 positions loaded at once, row group `sub` taking every
+// RW-th of them.
+template <int VEC>
+__device__ __forceinline__ void warp_scatter(int q0, int q1, const int* __restrict__ pos,
+                                             float* __restrict__ out, int D, int d,
+                                             const Geo& g, const float (&v)[VEC]) {
+  const int lane = threadIdx.x & 31, sub = lane / g.G;
+  for (int base = q0; base < q1; base += 32) {
+    const int n = min(32, q1 - base);
+    const int mine = lane < n ? pos[base + lane] : 0;
+    for (int k = 0; k < n; k += g.RW) {
+      const int p = __shfl_sync(0xffffffffu, mine, (k + sub) & 31);
+      if (k + sub < n && d < D) store<VEC>(out + (long long)p * D + d, v);
+    }
+  }
+}
+
+// The block's sum of the same over [lo, hi), into red[kWarps * D .. + D):
+// warp w sums the w-th of kWarps contiguous runs, then the warps' sums are
+// added in warp order. Every thread of the block calls it.
+template <int VEC, typename T, typename RowOf>
+__device__ void block_sum(int lo, int hi, RowOf row_of, const T* __restrict__ src, int D,
+                          float* red) {
+  const Geo g = geo<VEC>(D);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int run = (hi - lo + kWarps - 1) / kWarps;
+  const int a = min(hi, lo + warp * run), b = min(hi, a + run);
+  for (int s = 0; s < g.steps; ++s) {
+    const int d = (s * g.G + lane % g.G) * VEC;
+    float acc[VEC];
+    warp_sum<VEC>(a, b, row_of, src, D, d, g, acc);
+    if (lane < g.G && d < D) {
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) red[warp * D + d + t] = acc[t];
+    }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    float s = red[d];
+    for (int w = 1; w < kWarps; ++w) s += red[w * D + d];
+    red[kWarps * D + d] = s;
+  }
+  __syncthreads();
+}
+
+// ---- the plan ----------------------------------------------------------------
+
+// block-wide exclusive scan of (a, b); returns the block's totals
+__device__ __forceinline__ int2 block_scan(int& a, int& b) {
+  __shared__ int2 warp_tot[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = local;  // inclusive scan within the warp
+  int x = a, y = b;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, off);
-    if (lane >= off) x += y;
+    const int px = __shfl_up_sync(0xffffffffu, x, off), py = __shfl_up_sync(0xffffffffu, y, off);
+    if (lane >= off) x += px, y += py;
   }
-  if (lane == 31) warp_sums[warp] = x;
+  if (lane == 31) warp_tot[warp] = make_int2(x, y);
   __syncthreads();
-  if (warp == 0) {
-    int w = warp_sums[lane];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += y;
-    }
-    warp_sums[lane] = w;
+  int2 before = make_int2(0, 0), total = make_int2(0, 0);
+  for (int w = 0; w < kWarps; ++w) {
+    const int2 t = warp_tot[w];
+    if (w < warp) before.x += t.x, before.y += t.y;
+    total.x += t.x, total.y += t.y;
   }
+  a = before.x + x - a;
+  b = before.y + y - b;
   __syncthreads();
-  int start = x - local + (warp > 0 ? warp_sums[warp - 1] : 0);
-  for (int b = lo; b < hi; ++b) {
-    piece_start[b] = start;
-    const int r = ids[b];
-    if (head_of[b] == b && r >= 0 && r < R) start += n_pieces(ptr, r);
-  }
-  if (threadIdx.x == kPlanThreads - 1) piece_start[B] = start;
+  return total;
 }
 
-// the head b whose pieces hold piece w: piece_start[b] <= w < piece_start[b + 1]
-__device__ __forceinline__ int head_of_piece(const int* piece_start, int B, int w) {
-  int lo = 0, hi = B;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (piece_start[mid] <= w) lo = mid;
-    else hi = mid;
-  }
-  return lo;
-}
-
-template <typename T>
+// Keys 0..R (R for an id outside [0, R)). Out: meta[0] the heads H, meta[1]
+// the big heads; row_head[k] the head of key k or -1; head_row[h] its key;
+// head_start[h] .. head_start[h + 1] its positions pos[] in increasing order;
+// big[0 .. meta[1]) the heads of more than kBigPositions positions (in no set
+// order: each is summed on its own). Scratch: cnt, start, fill [R + 1], tmp
+// [B], bsum [2 gridDim.x].
 __global__ void __launch_bounds__(kThreads)
-forward_pieces_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
-                      const T* __restrict__ table, const int* __restrict__ ids,
-                      const int* __restrict__ piece_start, int B, int D,
-                      float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int total = piece_start[B];
+plan_kernel(const int* __restrict__ ids, int B, int R, int* meta, int* row_head,
+            int* head_row, int* head_start, int* pos, int* big, int* cnt, int* start,
+            int* fill, int* tmp, int* bsum) {
+  cg::grid_group grid = cg::this_grid();
+  const int K = R + 1;
+  const int n_threads = gridDim.x * kThreads;
+  const int gtid = blockIdx.x * kThreads + threadIdx.x;
+  for (int k = gtid; k < K; k += n_threads) cnt[k] = 0, fill[k] = 0;
+  if (gtid == 0) meta[1] = 0;
+  grid.sync();
+  for (int b = gtid; b < B; b += n_threads) atomicAdd(cnt + key_of(ids[b], R), 1);
+  grid.sync();
+  // each block scans its run of keys: positions before each key, heads before it
+  const int per_block = (K + gridDim.x - 1) / gridDim.x;
+  const int k0 = min(K, (int)blockIdx.x * per_block), k1 = min(K, k0 + per_block);
+  int run_pos = 0, run_heads = 0;
+  for (int base = k0; base < k1; base += kThreads) {
+    const int k = base + threadIdx.x;
+    int c = k < k1 ? cnt[k] : 0, h = c > 0;
+    const int2 tot = block_scan(c, h);
+    if (k < k1) start[k] = run_pos + c, row_head[k] = run_heads + h;
+    run_pos += tot.x, run_heads += tot.y;
+  }
+  if (threadIdx.x == 0) bsum[2 * blockIdx.x] = run_pos, bsum[2 * blockIdx.x + 1] = run_heads;
+  grid.sync();
+  int off_pos = 0, off_heads = 0;
+  for (int j = 0; j < (int)blockIdx.x; ++j) off_pos += bsum[2 * j], off_heads += bsum[2 * j + 1];
+  for (int k = k0 + threadIdx.x; k < k1; k += kThreads) {
+    const int c = cnt[k], s = off_pos + start[k];
+    start[k] = s;
+    if (c > 0) {
+      const int h = off_heads + row_head[k];
+      row_head[k] = h, head_row[h] = k, head_start[h] = s;
+      if (c > kBigPositions) big[atomicAdd(meta + 1, 1)] = h;
+    } else {
+      row_head[k] = -1;
+    }
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
+    meta[0] = off_heads + run_heads;
+    head_start[off_heads + run_heads] = B;
+  }
+  grid.sync();
+  for (int b = gtid; b < B; b += n_threads) {
+    const int k = key_of(ids[b], R);
+    tmp[start[k] + atomicAdd(fill + k, 1)] = b;
+  }
+  grid.sync();
+  // a position's place in its bucket: the bucket's positions below it
+  for (int b = gtid; b < B; b += n_threads) {
+    const int k = key_of(ids[b], R), s = start[k], n = cnt[k];
+    int rank = 0;
+#pragma unroll 8
+    for (int j = s; j < s + n; ++j) rank += tmp[j] < b;
+    pos[s + rank] = b;
+  }
+}
+
+// ---- the gather-sums -----------------------------------------------------------
+
+// Forward, first pass: the heads whose rows are short, a warp each, their
+// sums written to all their positions; the pieces of long rows of present
+// heads, a warp each, into part[piece].
+template <int VEC, typename T>
+__global__ void __launch_bounds__(kThreads)
+forward_kernel(const int* __restrict__ ptr, const int* __restrict__ cols, int R,
+               const int* __restrict__ p_row, const int* __restrict__ p_first, int n_pieces,
+               int piece, const T* __restrict__ table, int D, const int* __restrict__ meta,
+               const int* __restrict__ row_head, const int* __restrict__ head_row,
+               const int* __restrict__ head_start, const int* __restrict__ pos,
+               float* __restrict__ part, float* __restrict__ out) {
+  const Geo g = geo<VEC>(D);
+  const int lane = threadIdx.x & 31, sub = lane / g.G;
+  const int H = meta[0], total = H + n_pieces;
+  const auto col_of = [&](int j) { return cols[j]; };
   for (int w = blockIdx.x * kWarps + (threadIdx.x >> 5); w < total; w += gridDim.x * kWarps) {
-    const int b = head_of_piece(piece_start, B, w);
-    const int r = ids[b];
-    const int j0 = ptr[r] + (w - piece_start[b]) * kPiece;
-    const int n = min(kPiece, ptr[r + 1] - j0);
-    const int my_col = lane < n ? cols[j0 + lane] : 0;
-    float* o = out + (long long)b * D;
-    for (int d0 = 0; d0 < D; d0 += kSlice) {
-      float acc[kLanes];
-#pragma unroll
-      for (int t = 0; t < kLanes; ++t) acc[t] = 0.f;
-#pragma unroll 4
-      for (int i = 0; i < n; ++i) {
-        const T* row = table + (long long)__shfl_sync(0xffffffffu, my_col, i) * D;
-#pragma unroll
-        for (int t = 0; t < kLanes; ++t) {
-          const int d = d0 + lane + 32 * t;
-          if (d < D) acc[t] += widen(row[d]);
+    if (w < H) {
+      const int r = head_row[w];
+      int lo = 0, hi = 0;
+      if (r < R) {
+        if (p_first[r + 1] > p_first[r]) continue;  // a long row: the pieces and combine_kernel
+        lo = ptr[r], hi = ptr[r + 1];
+      }
+      const int q0 = head_start[w], q1 = head_start[w + 1];
+      for (int s = 0; s < g.steps; ++s) {
+        const int d = (s * g.G + lane % g.G) * VEC;
+        float acc[VEC];
+        warp_sum<VEC>(lo, hi, col_of, table, D, d, g, acc);
+        warp_scatter<VEC>(q0, q1, pos, out, D, d, g, acc);
+      }
+    } else {
+      const int p = w - H, r = p_row[p];
+      if (row_head[r] < 0) continue;
+      const int lo = ptr[r] + (p - p_first[r]) * piece, hi = min(lo + piece, ptr[r + 1]);
+      for (int s = 0; s < g.steps; ++s) {
+        const int d = (s * g.G + lane % g.G) * VEC;
+        float acc[VEC];
+        warp_sum<VEC>(lo, hi, col_of, table, D, d, g, acc);
+        if (sub == 0 && d < D) store<VEC>(part + (long long)p * D + d, acc);
+      }
+    }
+  }
+}
+
+// Second pass over the rows of more than `piece` entries (of the history in
+// the forward, of its transpose in the backward): each row's partial sums
+// added in piece order, a block for each row of big_rows (more than 32
+// pieces), a warp for each of small_rows. The forward skips a row absent
+// from the batch and writes the sum to all its head's positions (out
+// float32); the backward writes table row r once in T.
+template <int VEC, typename T, bool kFwd>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(const int* __restrict__ p_first, const int* __restrict__ big_rows, int n_big,
+               const int* __restrict__ small_rows, int n_small,
+               const int* __restrict__ row_head, const int* __restrict__ head_start,
+               const int* __restrict__ pos, const float* __restrict__ part, int D,
+               T* __restrict__ out) {
+  extern __shared__ float red[];
+  const Geo g = geo<VEC>(D);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, sub = lane / g.G;
+  const auto same = [](int j) { return j; };
+  for (int i = blockIdx.x; i < n_big; i += gridDim.x) {
+    const int r = big_rows[i];
+    if (kFwd && row_head[r] < 0) continue;
+    block_sum<VEC>(p_first[r], p_first[r + 1], same, part, D, red);
+    const float* sum = red + kWarps * D;
+    if constexpr (kFwd) {
+      const int h = row_head[r], q1 = head_start[h + 1];
+      for (int base = head_start[h] + 32 * warp; base < q1; base += 32 * kWarps) {
+        const int n = min(32, q1 - base);
+        const int mine = lane < n ? pos[base + lane] : 0;
+        for (int k = 0; k < n; ++k) {
+          const long long p = __shfl_sync(0xffffffffu, mine, k);
+          for (int d = lane; d < D; d += 32) out[p * D + d] = sum[d];
         }
       }
-#pragma unroll
-      for (int t = 0; t < kLanes; ++t) {
-        const int d = d0 + lane + 32 * t;
-        if (d < D) atomicAdd(o + d, acc[t]);
+    } else {
+      for (int d = threadIdx.x; d < D; d += kThreads) st1(out + (long long)r * D + d, sum[d]);
+    }
+    __syncthreads();
+  }
+  for (int w = blockIdx.x * kWarps + warp; w < n_small; w += gridDim.x * kWarps) {
+    const int r = small_rows[w];
+    if (kFwd && row_head[r] < 0) continue;
+    for (int s = 0; s < g.steps; ++s) {
+      const int d = (s * g.G + lane % g.G) * VEC;
+      float acc[VEC];
+      warp_sum<VEC>(p_first[r], p_first[r + 1], same, part, D, d, g, acc);
+      if constexpr (kFwd) {
+        const int h = row_head[r];
+        warp_scatter<VEC>(head_start[h], head_start[h + 1], pos, out, D, d, g, acc);
+      } else if (sub == 0 && d < D) {
+        store<VEC>(out + (long long)r * D + d, acc);
       }
     }
   }
 }
 
-// one warp per position: a non-head copies its head's row
-__global__ void copy_from_head_kernel(const int* __restrict__ head_of, int B, int D,
-                                      float* __restrict__ out) {
-  const long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= B) return;
-  const long long h = head_of[b];
-  if (h == b) return;
-  for (int d = threadIdx.x & 31; d < D; d += 32) out[b * D + d] = out[h * D + d];
-}
-
-// one warp per position: its gradient row into its head's slot
-__global__ void coalesce_kernel(const float* __restrict__ gout,
-                                const int* __restrict__ head_of, int B, int D,
-                                float* __restrict__ gsum) {
-  const long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= B) return;
-  const long long h = head_of[b];
-  for (int d = threadIdx.x & 31; d < D; d += 32) atomicAdd(gsum + h * D + d, gout[b * D + d]);
-}
-
+// Backward (a): gsum[h] = the head's positions' gout rows in position
+// order: a block for each big head, a warp for each other head.
+template <int VEC>
 __global__ void __launch_bounds__(kThreads)
-backward_pieces_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
-                       const float* __restrict__ gsum, const int* __restrict__ ids,
-                       const int* __restrict__ piece_start, int B, int D,
-                       float* __restrict__ dtable) {
-  const int lane = threadIdx.x & 31;
-  const int total = piece_start[B];
-  for (int w = blockIdx.x * kWarps + (threadIdx.x >> 5); w < total; w += gridDim.x * kWarps) {
-    const int b = head_of_piece(piece_start, B, w);
-    const int r = ids[b];
-    const int j0 = ptr[r] + (w - piece_start[b]) * kPiece;
-    const int n = min(kPiece, ptr[r + 1] - j0);
-    const int my_col = lane < n ? cols[j0 + lane] : 0;
-    const float* g = gsum + (long long)b * D;
-    for (int d0 = 0; d0 < D; d0 += kSlice) {
-      float gv[kLanes];
-#pragma unroll
-      for (int t = 0; t < kLanes; ++t) {
-        const int d = d0 + lane + 32 * t;
-        gv[t] = d < D ? g[d] : 0.f;
-      }
-      for (int i = 0; i < n; ++i) {
-        float* row = dtable + (long long)__shfl_sync(0xffffffffu, my_col, i) * D;
-#pragma unroll
-        for (int t = 0; t < kLanes; ++t) {
-          const int d = d0 + lane + 32 * t;
-          if (d < D) atomicAdd(row + d, gv[t]);
-        }
-      }
+head_sum_kernel(const int* __restrict__ meta, const int* __restrict__ head_start,
+                const int* __restrict__ pos, const int* __restrict__ big,
+                const float* __restrict__ gout, int D, float* __restrict__ gsum) {
+  extern __shared__ float red[];
+  const Geo g = geo<VEC>(D);
+  const int lane = threadIdx.x & 31, sub = lane / g.G;
+  const int H = meta[0], n_big = meta[1];
+  const auto pos_of = [&](int j) { return pos[j]; };
+  for (int i = blockIdx.x; i < n_big; i += gridDim.x) {
+    const int h = big[i];
+    block_sum<VEC>(head_start[h], head_start[h + 1], pos_of, gout, D, red);
+    for (int d = threadIdx.x; d < D; d += kThreads) gsum[(long long)h * D + d] = red[kWarps * D + d];
+    __syncthreads();
+  }
+  for (int h = blockIdx.x * kWarps + (threadIdx.x >> 5); h < H; h += gridDim.x * kWarps) {
+    const int q0 = head_start[h], q1 = head_start[h + 1];
+    if (q1 - q0 > kBigPositions) continue;
+    for (int s = 0; s < g.steps; ++s) {
+      const int d = (s * g.G + lane % g.G) * VEC;
+      float acc[VEC];
+      warp_sum<VEC>(q0, q1, pos_of, gout, D, d, g, acc);
+      if (sub == 0 && d < D) store<VEC>(gsum + (long long)h * D + d, acc);
     }
   }
 }
 
-// the float32 gradient table rounded once into the 16-bit one
-template <typename T>
-__global__ void round_kernel(const float* __restrict__ src, long long n, T* __restrict__ dst) {
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads)
-    dst[i] = narrow<T>(src[i]);
+// Backward (b), first pass: table row c sums gsum over the present history
+// rows of its transposed row, a warp a short row, written once in T (0 where
+// none is present); the pieces of long rows, a warp each, into part[piece].
+template <int VEC, typename T>
+__global__ void __launch_bounds__(kThreads)
+table_kernel(const int* __restrict__ tptr, const int* __restrict__ tcols, int N,
+             const int* __restrict__ p_row, const int* __restrict__ p_first, int n_pieces,
+             int piece, const int* __restrict__ row_head, const float* __restrict__ gsum, int D,
+             float* __restrict__ part, T* __restrict__ dtable) {
+  const Geo g = geo<VEC>(D);
+  const int lane = threadIdx.x & 31, sub = lane / g.G;
+  const int total = N + n_pieces;
+  const auto head_of = [&](int j) { return row_head[tcols[j]]; };
+  for (int w = blockIdx.x * kWarps + (threadIdx.x >> 5); w < total; w += gridDim.x * kWarps) {
+    const bool whole = w < N;
+    const int p = w - N, c = whole ? w : p_row[p];
+    if (whole && p_first[c + 1] > p_first[c]) continue;  // a long row: its pieces
+    const int lo = whole ? tptr[c] : tptr[c] + (p - p_first[c]) * piece;
+    const int hi = whole ? tptr[c + 1] : min(lo + piece, tptr[c + 1]);
+    for (int s = 0; s < g.steps; ++s) {
+      const int d = (s * g.G + lane % g.G) * VEC;
+      float acc[VEC];
+      warp_sum<VEC>(lo, hi, head_of, gsum, D, d, g, acc);
+      if (sub != 0 || d >= D) continue;
+      if (whole) store<VEC>(dtable + (long long)c * D + d, acc);
+      else store<VEC>(part + (long long)p * D + d, acc);
+    }
+  }
 }
 
-int plan(const int* ptr, int R, const int* ids, int B, int* firstpos, int* head_of,
-         int* piece_start, cudaStream_t st) {
-  first_position_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, st>>>(ids, B, R, firstpos);
+int grid_blocks(int per_sm) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+size_t red_bytes(int D) { return sizeof(float) * (size_t)(kWarps + 1) * D; }
+
+// the second pass's blocks: one for each big row and a warp for each small
+// one, at most `most`
+int combine_blocks(int n_big, int n_small, int most) {
+  int need = (n_small + kWarps - 1) / kWarps;
+  need = need > n_big ? need : n_big;
+  return need < most ? need : most;
+}
+
+template <int VEC, typename T>
+int forward_launch(const int* ptr, const int* cols, int R, const int* p_row, const int* p_first,
+                   int n_pieces, const int* big_rows, int n_big, const int* small_rows,
+                   int n_small, int piece, const void* table,
+                   int D, const int* meta, const int* row_head, const int* head_row,
+                   const int* head_start, const int* pos, float* part, float* out,
+                   cudaStream_t st) {
+  const int blocks = grid_blocks(kGridPerSM);
+  if (blocks <= 0) return (int)cudaErrorInvalidDevice;
+  forward_kernel<VEC, T><<<blocks, kThreads, 0, st>>>(ptr, cols, R, p_row, p_first, n_pieces,
+                                                     piece, (const T*)table, D, meta, row_head,
+                                                     head_row, head_start, pos, part, out);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  plan_kernel<<<1, kPlanThreads, 0, st>>>(ids, ptr, firstpos, B, R, head_of, piece_start);
+  if (e != cudaSuccess || n_big + n_small == 0) return (int)e;
+  combine_kernel<VEC, float, true>
+      <<<combine_blocks(n_big, n_small, blocks), kThreads, red_bytes(D), st>>>(
+          p_first, big_rows, n_big, small_rows, n_small, row_head, head_start, pos, part, D,
+          out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int forward_launch(const void* ptr, const void* cols, int R, const void* table, int D,
-                   const void* ids, int B, void* firstpos, void* head_of, void* piece_start,
-                   void* out, cudaStream_t st) {
-  if (B <= 0) return (int)cudaGetLastError();
-  const int* p = (const int*)ptr;
-  const int* id = (const int*)ids;
-  int* ho = (int*)head_of;
-  int* ps = (int*)piece_start;
-  int e = plan(p, R, id, B, (int*)firstpos, ho, ps, st);
-  if (e != 0) return e;
-  forward_pieces_kernel<T><<<kGrid, kThreads, 0, st>>>(p, (const int*)cols, (const T*)table,
-                                                       id, ps, B, D, (float*)out);
-  e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  copy_from_head_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0, st>>>(ho, B, D, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int round_launch(const float* src, long long n, void* dst, cudaStream_t st) {
-  if (n <= 0) return (int)cudaGetLastError();
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  round_kernel<T><<<(unsigned)(blocks < kGrid ? blocks : kGrid), kThreads, 0, st>>>(src, n,
-                                                                                   (T*)dst);
+template <int VEC, typename T>
+int backward_launch(const int* tptr, const int* tcols, int N, const int* p_row,
+                    const int* p_first, int n_pieces, const int* big_rows, int n_big,
+                    const int* small_rows, int n_small, int piece, const float* gout, int D, const int* meta, const int* row_head,
+                    const int* head_start, const int* pos, const int* big, float* gsum,
+                    float* part, void* dtable, cudaStream_t st) {
+  const int blocks = grid_blocks(kGridPerSM);
+  if (blocks <= 0) return (int)cudaErrorInvalidDevice;
+  head_sum_kernel<VEC><<<blocks, kThreads, red_bytes(D), st>>>(meta, head_start, pos, big,
+                                                               gout, D, gsum);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || N == 0) return (int)e;
+  table_kernel<VEC, T><<<blocks, kThreads, 0, st>>>(tptr, tcols, N, p_row, p_first, n_pieces,
+                                                   piece, row_head, gsum, D, part, (T*)dtable);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_big + n_small == 0) return (int)e;
+  combine_kernel<VEC, T, false>
+      <<<combine_blocks(n_big, n_small, blocks), kThreads, red_bytes(D), st>>>(
+          p_first, big_rows, n_big, small_rows, n_small, row_head, head_start, pos, part, D,
+          (T*)dtable);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// ptr: [R + 1], cols: [nnz] (each row's distinct entries); table: [N, D] of
-// the type of dtype (0 float32, 1 bfloat16, 2 float16); ids: [B]; firstpos:
-// [R] filled with INT_MAX; head_of: [B]; piece_start: [B + 1]; out: float32
-// [B, D], zeroed
-extern "C" int rating_vector_forward(const void* ptr, const void* cols, int R,
-                                     const void* table, int D, const void* ids, int B,
-                                     void* firstpos, void* head_of, void* piece_start,
-                                     void* out, int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define B11_FWD(T) \
-  forward_launch<T>(ptr, cols, R, table, D, ids, B, firstpos, head_of, piece_start, out, st)
-  if (dtype == 0) return B11_FWD(float);
-  if (dtype == 1) return B11_FWD(__nv_bfloat16);
-  if (dtype == 2) return B11_FWD(__half);
-#undef B11_FWD
-  return (int)cudaErrorInvalidValue;
+// The plan of ids [B] over keys 0..R (see plan_kernel): meta [2], row_head
+// [R + 1], head_row [B], head_start [B + 1], pos [B], big [B] out; cnt,
+// start, fill [R + 1], tmp [B], bsum [2 * 1024] scratch; all int32.
+extern "C" int rating_vector_plan(const void* ids, int B, int R, void* meta, void* row_head,
+                                  void* head_row, void* head_start, void* pos, void* big,
+                                  void* cnt, void* start, void* fill, void* tmp, void* bsum,
+                                  void* stream) {
+  if (B < 0 || R < 0) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, plan_kernel, kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  const int need = ((B > R + 1 ? B : R + 1) + kThreads - 1) / kThreads;
+  int blocks = sms * (occ < 2 ? occ : 2);
+  blocks = blocks < need ? blocks : need;
+  blocks = blocks < kMaxPlanBlocks ? blocks : kMaxPlanBlocks;
+  if (blocks < 1) blocks = 1;
+  const int* i = (const int*)ids;
+  int *m = (int*)meta, *rh = (int*)row_head, *hr = (int*)head_row, *hs = (int*)head_start,
+      *p = (int*)pos, *bg = (int*)big, *c = (int*)cnt, *s = (int*)start, *f = (int*)fill,
+      *t = (int*)tmp, *bs = (int*)bsum;
+  void* args[] = {&i, &B, &R, &m, &rh, &hr, &hs, &p, &bg, &c, &s, &f, &t, &bs};
+  e = cudaLaunchCooperativeKernel((const void*)plan_kernel, blocks, kThreads, args, 0,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
-// gout: float32 [B, D]; gsum: [B, D] zeroed scratch; dtable: float32 [N, D],
-// zeroed (the gradient for dtype 0, else the scratch the 16-bit gradient
-// dtable16 [N, D] of the table's type is rounded from); the rest as in the
-// forward
-extern "C" int rating_vector_backward(const void* ptr, const void* cols, int R,
-                                      const void* gout, int D, const void* ids, int B,
-                                      void* firstpos, void* head_of, void* piece_start,
-                                      void* gsum, void* dtable, int N, int dtype,
-                                      void* dtable16, void* stream) {
-  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
+// Forward: out float32 [B, D] (every row written) from the table [N, D] of
+// dtype (0 float32, 1 bfloat16, 2 float16), the history (ptr [R + 1], cols)
+// with its static pieces (p_row [n_pieces], p_first [R + 1], `piece` entries
+// each; the cut rows of more than 32 pieces big_rows [n_big], the others
+// small_rows [n_small]) and the plan of the ids; part: float32
+// [n_pieces, D] scratch. vec: 4 when D % 4 == 0 and every row is 16-byte
+// (float32) or 8-byte (16-bit) aligned, else 1.
+extern "C" int rating_vector_forward(const void* ptr, const void* cols, int R, const void* p_row,
+                                     const void* p_first, int n_pieces, const void* big_rows,
+                                     int n_big, const void* small_rows, int n_small, int piece,
+                                     const void* table, int D,
+                                     int dtype, int vec, const void* meta, const void* row_head,
+                                     const void* head_row, const void* head_start,
+                                     const void* pos, void* part, void* out, void* stream) {
+  if (D <= 0 || D > kMaxD || piece <= 0 || (vec != 1 && vec != 4) || (vec == 4 && D % 4))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (B > 0) {
-    const int* p = (const int*)ptr;
-    const int* id = (const int*)ids;
-    int* ho = (int*)head_of;
-    int* ps = (int*)piece_start;
-    int e = plan(p, R, id, B, (int*)firstpos, ho, ps, st);
-    if (e != 0) return e;
-    coalesce_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0, st>>>((const float*)gout, ho, B,
-                                                                     D, (float*)gsum);
-    e = (int)cudaGetLastError();
-    if (e != 0) return e;
-    backward_pieces_kernel<<<kGrid, kThreads, 0, st>>>(p, (const int*)cols, (const float*)gsum,
-                                                       id, ps, B, D, (float*)dtable);
-    e = (int)cudaGetLastError();
-    if (e != 0) return e;
+#define B11_FWD(V, T)                                                                         \
+  forward_launch<V, T>((const int*)ptr, (const int*)cols, R, (const int*)p_row,               \
+                       (const int*)p_first, n_pieces, (const int*)big_rows, n_big,            \
+                       (const int*)small_rows, n_small, piece,                                \
+                       table, D, (const int*)meta, (const int*)row_head,                      \
+                       (const int*)head_row, (const int*)head_start, (const int*)pos,         \
+                       (float*)part, (float*)out, st)
+  switch (dtype * 2 + (vec == 4)) {
+    case 0: return B11_FWD(1, float);
+    case 1: return B11_FWD(4, float);
+    case 2: return B11_FWD(1, __nv_bfloat16);
+    case 3: return B11_FWD(4, __nv_bfloat16);
+    case 4: return B11_FWD(1, __half);
+    case 5: return B11_FWD(4, __half);
+    default: return (int)cudaErrorInvalidValue;
   }
-  const long long n = (long long)N * D;
-  if (dtype == 1) return round_launch<__nv_bfloat16>((const float*)dtable, n, dtable16, st);
-  if (dtype == 2) return round_launch<__half>((const float*)dtable, n, dtable16, st);
-  return (int)cudaGetLastError();
+#undef B11_FWD
+}
+
+// Backward: dtable [N, D] of dtype (every row written once) from gout
+// float32 [B, D], the plan of the ids, and the transposed history (tptr [N +
+// 1], tcols: the history rows holding each table row, increasing) with its
+// static pieces; gsum float32 [B, D] and part float32 [n_pieces, D] scratch.
+extern "C" int rating_vector_backward(const void* tptr, const void* tcols, int N,
+                                      const void* p_row, const void* p_first, int n_pieces,
+                                      const void* big_rows, int n_big, const void* small_rows,
+                                      int n_small, int piece,
+                                      const void* gout, int D, int vec, const void* meta,
+                                      const void* row_head, const void* head_start,
+                                      const void* pos, const void* big, void* gsum, void* part,
+                                      int dtype, void* dtable, void* stream) {
+  if (D <= 0 || D > kMaxD || piece <= 0 || (vec != 1 && vec != 4) || (vec == 4 && D % 4))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define B11_BWD(V, T)                                                                          \
+  backward_launch<V, T>((const int*)tptr, (const int*)tcols, N, (const int*)p_row,             \
+                        (const int*)p_first, n_pieces, (const int*)big_rows, n_big,            \
+                        (const int*)small_rows, n_small, piece,                                \
+                        (const float*)gout, D, (const int*)meta, (const int*)row_head,         \
+                        (const int*)head_start, (const int*)pos, (const int*)big,              \
+                        (float*)gsum, (float*)part, dtable, st)
+  switch (dtype * 2 + (vec == 4)) {
+    case 0: return B11_BWD(1, float);
+    case 1: return B11_BWD(4, float);
+    case 2: return B11_BWD(1, __nv_bfloat16);
+    case 3: return B11_BWD(4, __nv_bfloat16);
+    case 4: return B11_BWD(1, __half);
+    case 5: return B11_BWD(4, __half);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef B11_BWD
 }

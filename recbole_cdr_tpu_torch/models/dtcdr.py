@@ -21,8 +21,11 @@ with the item's history.
   source and target item histories, an
   item's source and target user histories (source ids compacted into the
   dense source axis, ``[overlap | source-only]``). A training step makes one
-  B11 launch per table, forward and backward, over both domains' ids. The
-  histories are CSRs of each row's distinct non-PAD entries: the JAX
+  B11 launch per table, forward and backward, over both domains' ids, and
+  one B11 plan per ids tensor (users, items), which both tables of that
+  side and both directions share. The
+  histories are CSRs of each row's distinct non-PAD entries, each with the
+  kernels' layout (its transpose and the pieces of its long rows): the JAX
   package's padded ``[rows, max degree]`` matrices would take ~1.2 GB of host
   memory at the smoke pair's widths. Like NATR's, they hold every
   interaction of the domain, the valid and test splits' included.
@@ -45,12 +48,22 @@ from recbole_cdr_tpu_torch.models.base import (
     xavier_normal,
 )
 from recbole_cdr_tpu_torch.ops.graph_layer import keep_mask
-from recbole_cdr_tpu_torch.ops.rating_vector import HistoryCSR, history_csr, rating_vector
+from recbole_cdr_tpu_torch.ops.rating_vector import (
+    HistoryCSR,
+    HistoryLayout,
+    history_csr,
+    history_tensors,
+    rating_vector,
+    rating_vector_plan,
+)
 from recbole_cdr_tpu_torch.utils.enums import InputType
 
 #: DMF's histories: name -> (domain, history of users or of items)
 _HISTORIES = {"s_items": ("source", "user"), "t_items": ("target", "user"),
               "s_users": ("source", "item"), "t_users": ("target", "item")}
+#: the table each history's rows sum (its rows are the history's columns)
+_TABLES = {"s_items": "source_user_linear", "t_items": "target_user_linear",
+           "s_users": "source_item_linear", "t_users": "target_item_linear"}
 
 
 class DTCDR(CrossDomainRecommender):
@@ -94,25 +107,30 @@ class DTCDR(CrossDomainRecommender):
         self.target_user_fc, self.target_item_fc = stack(fc_dims), stack(fc_dims)
 
     def _build_histories(self, dataset):
-        """The four CSR histories as buffers (moved by .to(), kept out of the
-        state dict): rows over the unified id space, source columns compacted
-        (`dtcdr.py:52-56`)."""
+        """The four CSR histories and their kernel layouts as buffers (moved
+        by .to(), kept out of the state dict): rows over the unified id
+        space, source columns compacted (`dtcdr.py:52-56`)."""
         gap = {"item": self.target_num_items - self.overlapped_num_items,
                "user": self.target_num_users - self.overlapped_num_users}
         n_overlap = {"item": self.overlapped_num_items, "user": self.overlapped_num_users}
         n_rows = {"user": self.total_num_users, "item": self.total_num_items}
+        n_cols = {"s_items": self.source_num_items, "t_items": self.target_num_items,
+                  "s_users": self.source_num_users, "t_users": self.target_num_users}
         for name, (domain, row) in _HISTORIES.items():
             ds = getattr(dataset, f"{domain}_domain_dataset")
             uids, iids = ds.arrays[ds.uid_field], ds.arrays[ds.iid_field]
             rows, cols, col = (uids, iids, "item") if row == "user" else (iids, uids, "user")
             if domain == "source":
                 cols = cols - gap[col] * (cols >= n_overlap[col])
-            ptr, cols = history_csr(rows, cols, n_rows[row])
-            self.register_buffer(f"{name}_ptr", torch.as_tensor(ptr), persistent=False)
-            self.register_buffer(f"{name}_cols", torch.as_tensor(cols), persistent=False)
+            csr = history_tensors(*history_csr(rows, cols, n_rows[row]), n_cols[name])
+            for field, value in (*zip(("ptr", "cols"), csr[:2]),
+                                 *zip(HistoryLayout._fields, csr.layout)):
+                self.register_buffer(f"{name}_{field}", value, persistent=False)
 
     def _csr(self, name):
-        return HistoryCSR(getattr(self, f"{name}_ptr"), getattr(self, f"{name}_cols"))
+        return HistoryCSR(getattr(self, f"{name}_ptr"), getattr(self, f"{name}_cols"),
+                          HistoryLayout(*(getattr(self, f"{name}_{field}")
+                                          for field in HistoryLayout._fields)))
 
     # ------------------------------------------------------------------ NeuMF
 
@@ -139,13 +157,15 @@ class DTCDR(CrossDomainRecommender):
 
     def _dmf_embeddings(self, user, item):
         """The towers' inputs of pairs (``user``, ``item``): four B11
-        launches, one per linear table."""
-        user, item = user.to(torch.int32), item.to(torch.int32)
-        user_e = torch.maximum(rating_vector(self._csr("s_items"), self.source_user_linear, user),
-                               rating_vector(self._csr("t_items"), self.target_user_linear, user))
-        item_e = torch.maximum(rating_vector(self._csr("s_users"), self.source_item_linear, item),
-                               rating_vector(self._csr("t_users"), self.target_item_linear, item))
-        return user_e, item_e
+        launches, one per linear table, from one plan per side."""
+        def side(names, ids, n_rows):
+            ids = ids.to(torch.int32)
+            plan = rating_vector_plan(ids, n_rows)
+            return torch.maximum(*(rating_vector(self._csr(n), getattr(self, _TABLES[n]), ids,
+                                                 plan) for n in names))
+
+        return (side(("s_items", "t_items"), user, self.total_num_users),
+                side(("s_users", "t_users"), item, self.total_num_items))
 
     def _dmf_head(self, user_e, item_e, domain):
         user_h = self._mlp(getattr(self, f"{domain}_user_fc"), user_e)

@@ -99,9 +99,11 @@ _SIGNATURES = {
         "natr_attention_backward": [_P] * 12 + [_I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P],
     },
     "rating_vector": {
-        "rating_vector_forward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P],
-        "rating_vector_backward": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P,
-                                   _P],
+        "rating_vector_plan": [_P, _I, _I] + [_P] * 12,
+        "rating_vector_forward": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I]
+                                 + [_P] * 8,
+        "rating_vector_backward": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I]
+                                  + [_P] * 7 + [_I, _P, _P],
     },
     "benchmark_topk": {"benchmark_topk": [_P] * 4 + [_I] * 5 + [_P] * 6},
     "conet_tower": {"conet_tower": [_P, _P, _P, _I, _I, _P] + [_I] * 7 + [_P, _I, _P]},
@@ -181,6 +183,33 @@ def build_all() -> float:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
         return time.perf_counter() - t0
+
+
+def build_variants(source: str, entry: str, texts: dict, subdir: str) -> dict:
+    """{name: the ``entry`` function of each variant text of
+    ``csrc/{source}.cu``}, every variant compiled at once into
+    ``build_dir()/subdir``: for probes that time a kernel beside cuts of its
+    source."""
+    out_dir = os.path.join(build_dir(), subdir)
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        path = os.path.join(out_dir, name + ".cu")
+        with open(path, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", path[:-3] + ".so", path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} variant of {source}.cu:\n{out}")
+        fn = getattr(ctypes.CDLL(os.path.join(out_dir, name + ".so")), entry)
+        fn.argtypes = _SIGNATURES[source][entry]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
 
 
 def library(name: str) -> ctypes.CDLL:

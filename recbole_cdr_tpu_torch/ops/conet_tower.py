@@ -15,10 +15,12 @@ calls that launch. The plain version runs the same chain in torch over item
 chunks of at most ``PAIR_BUDGET`` pairs, for CPU tensors and as the
 kernel's reference.
 
-The kernel takes towers of up to ``MAX_LAYERS`` products after the first
-layer, every width at most ``MAX_WIDTH``; the wrapper pads each width to a
-multiple of 4 with zero weights (a padded unit's relu is 0) and raises on
-the card beyond those limits.
+The kernel runs the products on the tensor cores with the hidden in
+registers (3xTF32 in float32). It takes towers of up to ``MAX_LAYERS``
+products after the first layer, every width at most ``MAX_WIDTH``; the
+wrapper pads every product's input width to a multiple of 16 and the last
+width to 8 with zero weights (:func:`padded_tower`; a padded unit's relu is
+0) and raises on the card beyond those limits.
 
 Under ``compute_dtype: bfloat16`` the halves and the weights are 16-bit and
 so are the probabilities, as JAX's bf16 ``full_sort`` returns them. The
@@ -57,24 +59,36 @@ def conet_tower_plain(hu, hi, b0, layers, out_layer):
     return torch.cat(parts, 1)
 
 
-def _pad4(n: int) -> int:
-    return -(-n // 4) * 4
+def tower_widths(dims):
+    """The kernel's widths of a tower of ``dims`` (H0, then each product's
+    output): every product's input padded to a multiple of 16 (the k of an
+    m16n8k16 product, two of TF32's k8), the last width to 8 (an n-tile)."""
+    units = [16] * (len(dims) - 1) + [8]
+    return [-(-d // u) * u for d, u in zip(dims, units)]
+
+
+def padded_tower(hu, hi, b0, layers, out_layer):
+    """The operands zero-padded to :func:`tower_widths`: a padded unit's
+    relu is 0 and its weights are 0, so the tower is unchanged."""
+    widths = tower_widths([hu.shape[1]] + [W.shape[1] for W, _ in layers])
+
+    def pad(t, cols, rows=None):  # no copy where nothing is padded
+        pads = (0, cols - t.shape[-1]) + (() if rows is None else (0, rows - t.shape[0]))
+        return F.pad(t, pads) if any(pads) else t
+
+    hu, hi, b0 = (pad(t, widths[0]) for t in (hu, hi, b0))
+    layers = [(pad(W, b, a), pad(bias, b)) for (W, bias), a, b in zip(layers, widths, widths[1:])]
+    w_out, b_out = out_layer
+    return hu, hi, b0, layers, (pad(w_out, 1, widths[-1]), b_out)
 
 
 def packed_weights(layers, out_layer):
-    """(one buffer of the padded weights in their type, the padded widths): per
-    layer ``W`` [w_l, w_{l+1}] then ``b``, then ``w_out`` and ``b_out`` padded
-    to 4, as ``csrc/conet_tower.cu`` reads them."""
-    parts, widths = [], []
-    for W, b in layers:
-        d_in, d_out = _pad4(W.shape[0]), _pad4(W.shape[1])
-        widths.append(d_in)
-        parts += [F.pad(W, (0, d_out - W.shape[1], 0, d_in - W.shape[0])).reshape(-1),
-                  F.pad(b, (0, d_out - b.shape[0]))]
-    w_out, b_out = out_layer
-    widths.append(_pad4(w_out.shape[0]))
-    parts += [F.pad(w_out.reshape(-1), (0, widths[-1] - w_out.shape[0])), F.pad(b_out, (0, 3))]
-    return torch.cat(parts).contiguous(), widths
+    """One buffer of the weights (already padded, :func:`padded_tower`) in
+    their type: per layer ``W`` [w_l, w_{l+1}] then ``b``, then ``w_out`` and
+    ``b_out``, as ``csrc/conet_tower.cu`` reads them."""
+    parts = [t.reshape(-1) for W, b in layers for t in (W, b)]
+    parts += [out_layer[0].reshape(-1), out_layer[1].reshape(-1)]
+    return torch.cat(parts).contiguous()
 
 
 def _check(hu, hi, b0, layers, out_layer, types=tuple(build.DTYPES)) -> bool:
@@ -105,9 +119,12 @@ def _check(hu, hi, b0, layers, out_layer, types=tuple(build.DTYPES)) -> bool:
 
 
 def _tower(hu, hi, b0, layers, out_layer, name):
-    H0 = _pad4(hu.shape[1])
-    hu, hi, b0 = (F.pad(t, (0, H0 - hu.shape[1])).contiguous() for t in (hu, hi, b0))
-    weights, widths = packed_weights(layers, out_layer)  # widths[0] == H0
+    hu, hi, b0, layers, out_layer = padded_tower(hu, hi, b0, layers, out_layer)
+    hu, hi, b0 = hu.contiguous(), hi.contiguous(), b0.contiguous()
+    if hi.data_ptr() % 16:  # the kernel copies hi's rows in 16-byte pieces
+        hi = hi.clone()
+    weights = packed_weights(layers, out_layer)
+    widths = [hu.shape[1]] + [W.shape[1] for W, _ in layers]
     B, I = hu.shape[0], hi.shape[0]
     out = torch.empty(B, I, dtype=hu.dtype, device=hu.device)
     args = widths + [0] * (MAX_LAYERS + 1 - len(widths))
@@ -138,9 +155,9 @@ conet_tower.launches = 0
 
 
 def conet_tower_bf16(hu, hi, b0, layers, out_layer):
-    """B15's 16-bit form: bfloat16 (or float16) halves and weights staged
-    into the float32 tower, every layer rounded to the operands' type, 16-bit
-    probabilities."""
+    """B15's 16-bit form: bfloat16 (or float16) halves and weights, the
+    products on the 16-bit tensor cores with float32 sums, every layer
+    rounded to the operands' type, 16-bit probabilities."""
     if not _check(hu, hi, b0, layers, out_layer, build.FLOAT16):
         return conet_tower_plain(hu, hi, b0, layers, out_layer)
     out = _tower(hu, hi, b0, layers, out_layer, "conet_tower_bf16")

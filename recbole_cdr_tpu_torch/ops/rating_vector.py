@@ -6,9 +6,10 @@ scatters each id's padded history row into a dense binary [B, N] vector
 multiplies by an [N, D] table, four times per logit. The vector is a set, so
 with the history held as a CSR of each row's distinct non-PAD entries
 (:func:`history_csr`) the same function is a gather-sum,
-``out[b] = sum over j in row(ids[b]) of table[cols[j]]``, and its gradient a
-scatter-add of ``gout[b]`` into those rows; neither direction builds the
-[B, N] vector (0.9 GB per call at the smoke pair's shapes).
+``out[b] = sum over j in row(ids[b]) of table[cols[j]]``, and its gradient
+``dtable[c]`` the sum of ``gout[b]`` over the ids whose rows hold ``c``;
+neither direction builds the [B, N] vector (0.9 GB per call at the smoke
+pair's shapes).
 
 Under ``compute_dtype: bfloat16`` the table is a 16-bit copy while JAX's
 rating vector stays float32, and ``float32 @ bf16`` promotes to float32:
@@ -17,8 +18,13 @@ rows, sums them in float32 and returns float32, and the table's gradient is
 the float32 row sum rounded once to the table's type (the promotion's
 cast).
 
-The kernels are ``csrc/rating_vector.cu`` (one distinct id's row summed
-once per launch, in pieces of 32 entries); the plain versions below, an
+The kernels are ``csrc/rating_vector.cu``. Every float sum there runs in an
+order fixed by the inputs, so two runs are bit-equal. They work per distinct
+id of a batch, from a plan (:func:`rating_vector_plan`, a kernel of its own)
+built once per ids tensor and shared by every table and direction that takes
+those ids; the backward walks the transposed history, and rows longer than
+``PIECE`` entries are cut into static pieces, both built once per history on
+the host (:func:`history_layout`). The plain versions below, an
 ``index_add_`` over the gathered [nnz, D] rows, run for CPU tensors and
 serve as the kernels' reference.
 """
@@ -30,15 +36,63 @@ import torch
 
 from recbole_cdr_tpu_torch.ops import build
 
-INT32_MAX = 2 ** 31 - 1
 DTYPES = build.DTYPES
+#: history entries of a static piece: a row with more is summed piece by
+#: piece, and the pieces' partial sums are added in piece order
+PIECE = 64
+#: pieces of a row whose partial sums a block adds (a warp adds fewer)
+BIG_PIECES = 32
+#: the plan kernel's scratch for its blocks' sums (two ints a block)
+_PLAN_BLOCK_SUMS = 2 * 1024
+
+
+class HistoryLayout(NamedTuple):
+    """The kernels' static view of a history of R rows over N table rows
+    (:func:`history_layout`), int32 tensors: the rows of more than
+    ``PIECE`` entries cut into pieces (piece p of row ``p_row[p]``, row r's
+    pieces ``p_first[r]`` .. ``p_first[r + 1]``; the rows of more than
+    ``BIG_PIECES`` pieces ``p_big``, the other cut rows ``p_small``); the
+    transposed history (``tcols[tptr[c]:tptr[c + 1]]`` the
+    rows that hold table row c, increasing) and its long rows' pieces the
+    same way."""
+    p_row: torch.Tensor
+    p_first: torch.Tensor
+    p_big: torch.Tensor
+    p_small: torch.Tensor
+    tptr: torch.Tensor
+    tcols: torch.Tensor
+    tp_row: torch.Tensor
+    tp_first: torch.Tensor
+    tp_big: torch.Tensor
+    tp_small: torch.Tensor
 
 
 class HistoryCSR(NamedTuple):
     """Per row, its distinct non-PAD entries, sorted: ``cols[ptr[r]:ptr[r + 1]]``
-    (int32 ``ptr`` [R + 1], int32 ``cols`` [nnz])."""
+    (int32 ``ptr`` [R + 1], int32 ``cols`` [nnz]), and the kernels' layout
+    of it, built with it once (:func:`history_tensors`)."""
     ptr: torch.Tensor
     cols: torch.Tensor
+    layout: HistoryLayout
+
+
+class Plan(NamedTuple):
+    """A batch of ids grouped by id (:func:`rating_vector_plan`), int32
+    tensors: ``meta[0]`` the distinct ids ("heads") H, ``meta[1]`` the heads
+    of more than 64 positions; ``row_head[k]`` the head of key k (an id in
+    [0, R), or R for every other id) or -1; ``head_row[h]`` head h's key, in
+    increasing order; ``pos[head_start[h]:head_start[h + 1]]`` its positions,
+    increasing; ``big[:meta[1]]`` the heads of more than 64 positions (the
+    kernel lists them in no set order). Only the first H (H + 1) entries of
+    ``head_row`` (``head_start``) are defined."""
+    R: int
+    B: int
+    meta: torch.Tensor
+    row_head: torch.Tensor
+    head_row: torch.Tensor
+    head_start: torch.Tensor
+    pos: torch.Tensor
+    big: torch.Tensor
 
 
 def history_csr(rows: np.ndarray, cols: np.ndarray, n_rows: int):
@@ -52,6 +106,49 @@ def history_csr(rows: np.ndarray, cols: np.ndarray, n_rows: int):
     ptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(np.bincount(keys // n_cols, minlength=n_rows), out=ptr[1:])
     return ptr.astype(np.int32), (keys % n_cols).astype(np.int32)
+
+
+def transpose_history(ptr: np.ndarray, cols: np.ndarray, n_cols: int):
+    """(tptr [n_cols + 1], tcols) int32: for every table row c, the history
+    rows that hold it, in increasing order."""
+    ptr = np.asarray(ptr, np.int64)
+    cols = np.asarray(cols, np.int64)
+    rows = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
+    order = np.argsort(cols, kind="stable")  # rows stay increasing within a column
+    tptr = np.zeros(n_cols + 1, np.int64)
+    np.cumsum(np.bincount(cols, minlength=n_cols), out=tptr[1:])
+    return tptr.astype(np.int32), rows[order].astype(np.int32)
+
+
+def long_pieces(ptr: np.ndarray):
+    """(row, first, big, small) int32: the rows of more than ``PIECE``
+    entries cut into pieces of ``PIECE`` (piece p of row ``row[p]``, row r's
+    pieces ``first[r]`` .. ``first[r + 1]``), those of more than
+    ``BIG_PIECES`` pieces, and the others."""
+    lens = np.diff(np.asarray(ptr, np.int64))
+    n = np.where(lens > PIECE, -(-lens // PIECE), 0)
+    first = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(n, out=first[1:])
+    return (np.repeat(np.arange(len(lens)), n).astype(np.int32), first.astype(np.int32),
+            np.flatnonzero(n > BIG_PIECES).astype(np.int32),
+            np.flatnonzero((n > 0) & (n <= BIG_PIECES)).astype(np.int32))
+
+
+def history_layout(ptr: np.ndarray, cols: np.ndarray, n_cols: int) -> HistoryLayout:
+    """The :class:`HistoryLayout` (of numpy int32 arrays) of a history over
+    ``n_cols`` table rows."""
+    tptr, tcols = transpose_history(ptr, cols, n_cols)
+    return HistoryLayout(*long_pieces(ptr), tptr, tcols, *long_pieces(tptr))
+
+
+def history_tensors(ptr: np.ndarray, cols: np.ndarray, n_cols: int, device=None) -> HistoryCSR:
+    """The :class:`HistoryCSR` of a :func:`history_csr` (``ptr``, ``cols``)
+    over ``n_cols`` table rows, with its layout, as tensors on ``device``."""
+    def tensor(a):
+        return torch.as_tensor(a, device=device)
+
+    return HistoryCSR(tensor(ptr), tensor(cols),
+                      HistoryLayout(*map(tensor, history_layout(ptr, cols, n_cols))))
 
 
 def _expand(csr: HistoryCSR, ids):
@@ -81,11 +178,59 @@ def rating_vector_backward_plain(csr: HistoryCSR, n_rows: int, ids, gout,
     return dtable.index_add_(0, csr.cols[entry].long(), gout[owner]).to(dtype)
 
 
+def rating_vector_plan_plain(ids, R: int) -> Plan:
+    """The plan of ``ids`` over keys 0..R in torch (a stable sort by key)."""
+    B, dev = ids.shape[0], ids.device
+    key = torch.where((ids >= 0) & (ids < R), ids, R).long()
+    order = torch.sort(key, stable=True).indices
+    heads, counts = torch.unique_consecutive(key[order], return_counts=True)
+    H = heads.shape[0]
+    row_head = torch.full((R + 1,), -1, dtype=torch.int32, device=dev)
+    row_head[heads] = torch.arange(H, dtype=torch.int32, device=dev)
+    head_start = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+    head_start[1:H + 1] = torch.cumsum(counts, 0).to(torch.int32)
+    big = torch.nonzero(counts > 64).flatten().to(torch.int32)
+    head_row = torch.zeros(B, dtype=torch.int32, device=dev)
+    head_row[:H] = heads.to(torch.int32)
+    meta = torch.tensor([H, big.shape[0]], dtype=torch.int32, device=dev)
+    return Plan(R, B, meta, row_head, head_row, head_start, order.to(torch.int32),
+                torch.cat([big, torch.zeros(B - big.shape[0], dtype=torch.int32, device=dev)]))
+
+
+def _check_ids(ids, what):
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise TypeError(f"{what} takes 1-D int32 ids")
+    if ids.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} has no version for device {ids.device}")
+
+
+def rating_vector_plan(ids, R: int) -> Plan:
+    """The :class:`Plan` of int32 ``ids`` [B] over history rows [0, R): one
+    per ids tensor, shared by every table and direction that takes it."""
+    _check_ids(ids, "rating_vector_plan")
+    if ids.device.type == "cpu":
+        return rating_vector_plan_plain(ids, R)
+    ids = ids.contiguous()
+    B = ids.shape[0]
+    sizes = (2, R + 1, B, B + 1, B, B, R + 1, R + 1, R + 1, B, _PLAN_BLOCK_SUMS)
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=ids.device)
+    parts = torch.split(buf, sizes)
+    err = build.library("rating_vector").rating_vector_plan(
+        ids.data_ptr(), B, R, *(t.data_ptr() for t in parts), build.stream_handle(ids))
+    build.check(err, "rating_vector_plan")
+    rating_vector_plan.launches += 1
+    return Plan(R, B, *parts[:6])
+
+
+rating_vector_plan.launches = 0
+
+
 def _check(csr: HistoryCSR, ids, dense, what, types=(torch.float32,)):
-    if csr.ptr.dtype != torch.int32 or csr.cols.dtype != torch.int32 or ids.dtype != torch.int32:
-        raise TypeError(f"{what} takes an int32 CSR and int32 ids")
-    if csr.ptr.dim() != 1 or csr.cols.dim() != 1 or ids.dim() != 1:
-        raise ValueError(f"{what}: ptr, cols and ids must be 1-D")
+    if csr.ptr.dtype != torch.int32 or csr.cols.dtype != torch.int32:
+        raise TypeError(f"{what} takes an int32 CSR")
+    _check_ids(ids, what)
+    if csr.ptr.dim() != 1 or csr.cols.dim() != 1:
+        raise ValueError(f"{what}: ptr and cols must be 1-D")
     if dense.dtype not in types or dense.dim() != 2:
         raise TypeError(f"{what} takes a [rows, D] operand of a type of {types}, "
                         f"got {dense.dtype}")
@@ -95,56 +240,79 @@ def _check(csr: HistoryCSR, ids, dense, what, types=(torch.float32,)):
         raise ValueError(f"{what} has no version for device {dense.device}")
 
 
-def _scratch(csr: HistoryCSR, B: int, device):
-    """(firstpos [R] at INT32_MAX, head_of [B], piece_start [B + 1])."""
-    return (torch.full((csr.ptr.shape[0] - 1,), INT32_MAX, dtype=torch.int32, device=device),
-            torch.empty(B, dtype=torch.int32, device=device),
-            torch.empty(B + 1, dtype=torch.int32, device=device))
+def _kernel_args(csr: HistoryCSR, n_cols: int, ids, plan, device, what):
+    """(the CSR contiguous, its layout) for a launch, once the layout and
+    the plan are checked against the history and the ids."""
+    layout = csr.layout
+    R = csr.ptr.shape[0] - 1
+    if layout.p_first.shape[0] != R + 1 or layout.tptr.shape[0] != n_cols + 1:
+        raise ValueError(f"{what}: a layout of {layout.p_first.shape[0] - 1} rows over "
+                         f"{layout.tptr.shape[0] - 1} table rows for a history of {R} over "
+                         f"{n_cols}")
+    if plan.R != R or plan.B != ids.shape[0] or plan.meta.device != device:
+        raise ValueError(f"{what}: a plan of {plan.B} ids over {plan.R} rows for {ids.shape[0]} "
+                         f"ids over {R}")
+    return HistoryCSR(csr.ptr.contiguous(), csr.cols.contiguous(), layout), layout
 
 
-def _forward(csr: HistoryCSR, table, ids, name):
-    csr, table, ids = HistoryCSR(*(t.contiguous() for t in csr)), table.contiguous(), ids.contiguous()
+def _vec(D: int, *tensors) -> int:
+    """4 when every row of the tensors starts at a 4-value load's alignment."""
+    ok = D % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+    return 4 if ok else 1
+
+
+def _forward(csr: HistoryCSR, table, ids, plan, name):
+    table = table.contiguous()
+    csr, lay = _kernel_args(csr, table.shape[0], ids, plan, table.device, name)
     B, D = ids.shape[0], table.shape[1]
-    firstpos, head_of, piece_start = _scratch(csr, B, table.device)
-    out = torch.zeros(B, D, dtype=torch.float32, device=table.device)
+    n_pieces = lay.p_row.shape[0]
+    part = torch.empty(max(n_pieces, 1), D, dtype=torch.float32, device=table.device)
+    out = torch.empty(B, D, dtype=torch.float32, device=table.device)
     err = build.library("rating_vector").rating_vector_forward(
-        csr.ptr.data_ptr(), csr.cols.data_ptr(), csr.ptr.shape[0] - 1, table.data_ptr(), D,
-        ids.data_ptr(), B, firstpos.data_ptr(), head_of.data_ptr(), piece_start.data_ptr(),
-        out.data_ptr(), DTYPES[table.dtype], build.stream_handle(table),
+        csr.ptr.data_ptr(), csr.cols.data_ptr(), csr.ptr.shape[0] - 1, lay.p_row.data_ptr(),
+        lay.p_first.data_ptr(), n_pieces, lay.p_big.data_ptr(), lay.p_big.shape[0],
+        lay.p_small.data_ptr(), lay.p_small.shape[0], PIECE,
+        table.data_ptr(), D, DTYPES[table.dtype], _vec(D, table, out), plan.meta.data_ptr(),
+        plan.row_head.data_ptr(), plan.head_row.data_ptr(), plan.head_start.data_ptr(),
+        plan.pos.data_ptr(), part.data_ptr(), out.data_ptr(), build.stream_handle(table),
     )
     build.check(err, name)
     return out
 
 
-def _backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype, name):
-    """The kernel adds into a zeroed float32 table; a 16-bit table's
-    gradient is that table rounded once, in the same call."""
-    csr, ids, gout = HistoryCSR(*(t.contiguous() for t in csr)), ids.contiguous(), gout.contiguous()
+def _backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype, plan, name):
+    """Every table row is written once: the float32 sum over the transposed
+    history, rounded once to a 16-bit ``dtype``."""
+    gout = gout.contiguous()
+    csr, lay = _kernel_args(csr, n_rows, ids, plan, gout.device, name)
     B, D = ids.shape[0], gout.shape[1]
-    firstpos, head_of, piece_start = _scratch(csr, B, gout.device)
-    gsum = torch.zeros(B, D, dtype=torch.float32, device=gout.device)
-    dtable = torch.zeros(n_rows, D, dtype=torch.float32, device=gout.device)
-    out = dtable if dtype == torch.float32 else torch.empty(n_rows, D, dtype=dtype,
-                                                           device=gout.device)
+    n_pieces = lay.tp_row.shape[0]
+    gsum = torch.empty(max(B, 1), D, dtype=torch.float32, device=gout.device)
+    part = torch.empty(max(n_pieces, 1), D, dtype=torch.float32, device=gout.device)
+    out = torch.empty(n_rows, D, dtype=dtype, device=gout.device)
     err = build.library("rating_vector").rating_vector_backward(
-        csr.ptr.data_ptr(), csr.cols.data_ptr(), csr.ptr.shape[0] - 1, gout.data_ptr(), D,
-        ids.data_ptr(), B, firstpos.data_ptr(), head_of.data_ptr(), piece_start.data_ptr(),
-        gsum.data_ptr(), dtable.data_ptr(), n_rows, DTYPES[dtype], out.data_ptr(),
-        build.stream_handle(gout),
+        lay.tptr.data_ptr(), lay.tcols.data_ptr(), n_rows, lay.tp_row.data_ptr(),
+        lay.tp_first.data_ptr(), n_pieces, lay.tp_big.data_ptr(), lay.tp_big.shape[0],
+        lay.tp_small.data_ptr(), lay.tp_small.shape[0], PIECE,
+        gout.data_ptr(), D, _vec(D, gout, out), plan.meta.data_ptr(), plan.row_head.data_ptr(),
+        plan.head_start.data_ptr(), plan.pos.data_ptr(), plan.big.data_ptr(), gsum.data_ptr(),
+        part.data_ptr(), DTYPES[dtype], out.data_ptr(), build.stream_handle(gout),
     )
     build.check(err, name)
     return out
 
 
-def rating_vector_forward(csr: HistoryCSR, table, ids):
+def rating_vector_forward(csr: HistoryCSR, table, ids, plan: Plan):
     """float32 [B, D]: the sum of ``table``'s rows at each id's history; a
-    16-bit table goes to :func:`rating_vector_forward_bf16`."""
+    16-bit table goes to :func:`rating_vector_forward_bf16`. ``plan``: these
+    ids' :func:`rating_vector_plan` (the plain version on the CPU reads
+    none)."""
     _check(csr, ids, table, "rating_vector_forward", tuple(DTYPES))
     if table.device.type == "cpu":
         return rating_vector_plain(csr, table, ids)
     if table.dtype != torch.float32:
-        return rating_vector_forward_bf16(csr, table, ids)
-    out = _forward(csr, table, ids, "rating_vector_forward")
+        return rating_vector_forward_bf16(csr, table, ids, plan)
+    out = _forward(csr, table, ids, plan, "rating_vector_forward")
     rating_vector_forward.launches += 1
     return out
 
@@ -152,13 +320,13 @@ def rating_vector_forward(csr: HistoryCSR, table, ids):
 rating_vector_forward.launches = 0
 
 
-def rating_vector_forward_bf16(csr: HistoryCSR, table, ids):
+def rating_vector_forward_bf16(csr: HistoryCSR, table, ids, plan: Plan):
     """B11's 16-bit form: a bfloat16 (or float16) table's rows at each id's
     history, widened and summed in float32, float32 [B, D]."""
     _check(csr, ids, table, "rating_vector_forward_bf16", build.FLOAT16)
     if table.device.type == "cpu":
         return rating_vector_plain(csr, table, ids)
-    out = _forward(csr, table, ids, "rating_vector_forward_bf16")
+    out = _forward(csr, table, ids, plan, "rating_vector_forward_bf16")
     rating_vector_forward_bf16.launches += 1
     return out
 
@@ -173,17 +341,17 @@ def _check_backward(ids, gout, dtype, what):
         raise TypeError(f"{what}: no table type {dtype}")
 
 
-def rating_vector_backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype=torch.float32):
-    """[n_rows, D] of the table's type ``dtype``: ``gout[b]`` (float32) added
-    into the table row of every entry of each id's history; a 16-bit
-    ``dtype`` goes to :func:`rating_vector_backward_bf16`."""
+def rating_vector_backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype, plan: Plan):
+    """[n_rows, D] of the table's type ``dtype``: for each table row, the
+    sum of ``gout[b]`` (float32) over the ids whose history holds it; a
+    16-bit ``dtype`` goes to :func:`rating_vector_backward_bf16`."""
     _check(csr, ids, gout, "rating_vector_backward")
     _check_backward(ids, gout, dtype, "rating_vector_backward")
     if gout.device.type == "cpu":
         return rating_vector_backward_plain(csr, n_rows, ids, gout, dtype)
     if dtype != torch.float32:
-        return rating_vector_backward_bf16(csr, n_rows, ids, gout, dtype)
-    out = _backward(csr, n_rows, ids, gout, dtype, "rating_vector_backward")
+        return rating_vector_backward_bf16(csr, n_rows, ids, gout, dtype, plan)
+    out = _backward(csr, n_rows, ids, gout, dtype, plan, "rating_vector_backward")
     rating_vector_backward.launches += 1
     return out
 
@@ -191,17 +359,16 @@ def rating_vector_backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype=torch.
 rating_vector_backward.launches = 0
 
 
-def rating_vector_backward_bf16(csr: HistoryCSR, n_rows: int, ids, gout,
-                                dtype=torch.bfloat16):
-    """B11's 16-bit backward: the float32 gradient rows summed into a float32
-    table by atomics, rounded once to ``dtype`` (bfloat16 or float16)."""
+def rating_vector_backward_bf16(csr: HistoryCSR, n_rows: int, ids, gout, dtype, plan: Plan):
+    """B11's 16-bit backward: each table row's float32 gradient sum rounded
+    once to ``dtype`` (bfloat16 or float16) as it is written."""
     _check(csr, ids, gout, "rating_vector_backward_bf16")
     _check_backward(ids, gout, dtype, "rating_vector_backward_bf16")
     if dtype == torch.float32:
         raise TypeError("rating_vector_backward_bf16 returns a 16-bit gradient")
     if gout.device.type == "cpu":
         return rating_vector_backward_plain(csr, n_rows, ids, gout, dtype)
-    out = _backward(csr, n_rows, ids, gout, dtype, "rating_vector_backward_bf16")
+    out = _backward(csr, n_rows, ids, gout, dtype, plan, "rating_vector_backward_bf16")
     rating_vector_backward_bf16.launches += 1
     return out
 
@@ -211,21 +378,21 @@ rating_vector_backward_bf16.launches = 0
 
 class _RatingVector(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, ptr, cols, ids):
-        ctx.save_for_backward(ptr, cols, ids)
+    def forward(ctx, table, csr, ids, plan):
+        ctx.csr, ctx.ids, ctx.plan = csr, ids, plan
         ctx.n_rows, ctx.dtype = table.shape[0], table.dtype
-        return rating_vector_forward(HistoryCSR(ptr, cols), table, ids)
+        return rating_vector_forward(csr, table, ids, plan)
 
     @staticmethod
     def backward(ctx, g):
-        ptr, cols, ids = ctx.saved_tensors
-        return (rating_vector_backward(HistoryCSR(ptr, cols), ctx.n_rows, ids, g.contiguous(),
-                                       ctx.dtype),
+        return (rating_vector_backward(ctx.csr, ctx.n_rows, ctx.ids, g.contiguous(), ctx.dtype,
+                                       ctx.plan),
                 None, None, None)
 
 
-def rating_vector(csr: HistoryCSR, table, ids):
+def rating_vector(csr: HistoryCSR, table, ids, plan: Plan):
     """Differentiable (in ``table``) ``_rating_vector(history, ids, N) @ table``
     for int32 ``ids``: the sum of ``table``'s rows at each id's history,
-    float32 for a float32, bfloat16 or float16 table."""
-    return _RatingVector.apply(table, csr.ptr, csr.cols, ids)
+    float32 for a float32, bfloat16 or float16 table. The forward and the
+    backward both read ``plan``, these ids' :func:`rating_vector_plan`."""
+    return _RatingVector.apply(table, csr, ids, plan)

@@ -142,7 +142,8 @@ def test_full_sort_matches_jax(pair):
 def test_tower_plain_chunks_and_padding(monkeypatch):
     """B15's plain version over more pairs than one chunk agrees with it in
     one chunk within 1e-6 (torch's CPU matmul rounds a row by its batch's
-    shape); the padded weights the kernel reads hold the weights at the
+    shape); the padded weights the kernel reads (every product's input
+    width a multiple of 16, the last width of 8) hold the weights at the
     front of each row and zeros after."""
     import recbole_cdr_tpu_torch.ops.conet_tower as b15
 
@@ -156,12 +157,38 @@ def test_tower_plain_chunks_and_padding(monkeypatch):
     monkeypatch.setattr(b15, "PAIR_BUDGET", 7)
     torch.testing.assert_close(conet_tower_plain(hu, hi, b0, layers, out), whole, rtol=0, atol=1e-6)
     assert whole.shape == (5, 23)
-    flat, widths = packed_weights(layers, out)
-    assert widths == [8, 8, 4]
-    W0 = flat[:64].reshape(8, 8)
+    p_hu, _, _, p_layers, p_out = b15.padded_tower(hu, hi, b0, layers, out)
+    assert [p_hu.shape[1]] + [W.shape[1] for W, _ in p_layers] == [16, 16, 8]
+    flat = packed_weights(p_layers, p_out)
+    W0 = flat[:256].reshape(16, 16)
     torch.testing.assert_close(W0[:6, :5], layers[0][0], rtol=0, atol=0)
     assert not W0[6:].any() and not W0[:, 5:].any()
-    assert flat.numel() == 64 + 8 + 8 * 4 + 4 + 4 + 4
+    assert flat.numel() == 256 + 16 + 16 * 8 + 8 + 8 + 1
+
+
+def test_tower_padding_keeps_jax_full_sort():
+    """B15's padding to the kernel's tile unit (every product's input width
+    to a multiple of 16, the last width to 8) on a tower of widths 20 -> 12
+    -> 6: the plain version on the padded operands agrees with JAX's
+    ``full_sort_fn`` within ``SCORE_TOL`` and with itself unpadded within
+    1e-6 (a matmul rounds by its shape)."""
+    import recbole_cdr_tpu_torch.ops.conet_tower as b15
+
+    pair = build_pair("CoNet", JaxCoNet, CoNet,
+                      {"embedding_size": 10, "mlp_hidden_size": [20, 12, 6]})
+    model, users = pair["tmodel"], np.arange(1, 41)
+    want = np.asarray(pair["jmodel"].full_sort_fn("TARGET")(pair["params"], jnp.asarray(users)))
+    with torch.no_grad():
+        first = model.target_tower[0]
+        hu = model.target_user_embedding[torch.from_numpy(users)] @ first.w[:model.latent_dim]
+        args = (hu, model._item_half(), first.b,
+                [(layer.w, layer.b) for layer in model.target_tower[1:]],
+                (model.target_out.w, model.target_out.b))
+        padded = b15.padded_tower(*args)
+        got = conet_tower_plain(*padded)
+    assert [padded[0].shape[1]] + [W.shape[1] for W, _ in padded[3]] == [32, 16, 8]
+    np.testing.assert_allclose(got.numpy(), want, **SCORE_TOL)
+    torch.testing.assert_close(got, conet_tower_plain(*args), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -198,3 +225,4 @@ def test_run_recbole_cdr_conet_on_cpu(mode, request, monkeypatch):
     assert all(math.isfinite(h["loss"]) for h in result["history"])
     assert len(builds) == 2
     assert not any(ops.launch_counts().values())
+

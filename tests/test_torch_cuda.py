@@ -18,8 +18,9 @@ histories, in both overlap modes; ``streaming_topk``'s tensor-core edges
 (D of 8 to 256, k of 1 to 64, partial row blocks and item tiles, a row
 masked down to k items); the anchor table and the pair grid at every
 kernel width; DTCDR's rating-vector product (B11) with empty rows, rows of
-many pieces, repeated ids and widths above one 128-column slice, its
-backward twice within its tolerance; the candidate top-k (B10) and the
+many pieces, repeated ids, every id the same and widths above one
+128-column slice, both directions bit-equal over two runs and one plan
+serving two tables and both directions; the candidate top-k (B10) and the
 candidate form of ``rank_sum`` with fewer candidates than k, fully padded
 rows and ties; the streaming evaluator's metrics against the dense path's
 for CMF on real-valued factors. Plus the entry point on the card, on the
@@ -605,37 +606,57 @@ def _b11_close(got, want, absum, what):
         f"{what}: error {float(diff.max())}"
 
 
-@pytest.mark.parametrize("R,N,D,B", [(3000, 27_800, 64, 16_384), (500, 1000, 48, 777),
-                                     (40, 300, 130, 100)])
-def test_rating_vector_matches_plain(gen, R, N, D, B):
-    """Row 0 empty, row 1 of 5,000 entries (157 pieces), the rest of 0 to
-    200; ids repeat (the first 64 all row 1, others drawn from 50 rows);
-    an id whose row is empty among them."""
+def _b11_plan_shared(csr, table, ids, g, plan, want, absum):
+    """Two tables on the same ids from one plan, through autograd: each
+    gradient within tolerance of the plain one, the two bit-equal; the plan
+    built once for the forward of both and the backward of both."""
+    ops.reset_launch_counts()
+    t, t2 = table.clone().requires_grad_(), (2 * table).requires_grad_()
+    (b11.rating_vector(csr, t, ids, plan) + b11.rating_vector(csr, t2, ids, plan)).backward(g)
+    _b11_close(t.grad.float(), want.float(), absum, "autograd")
+    assert torch.equal(t.grad, t2.grad)
+    built = b11.rating_vector_plan(ids, csr.ptr.shape[0] - 1)
+    assert ops.launch_counts()["rating_vector_plan"] == 1  # the one just above
+    assert torch.equal(built.pos, plan.pos) and torch.equal(built.row_head, plan.row_head)
+
+
+@pytest.mark.parametrize("R,N,D,B,same", [(3000, 27_800, 64, 16_384, False),
+                                          (500, 1000, 48, 777, False),
+                                          (40, 300, 130, 100, False),
+                                          (3000, 27_800, 64, 4096, True)])
+def test_rating_vector_matches_plain(gen, R, N, D, B, same):
+    """Row 0 empty, row 1 of 5,000 entries (79 pieces of 64), the rest of 0
+    to 200; ids repeat (the first 64 all row 1, others drawn from 50 rows);
+    an id whose row is empty among them, or (``same``) every id row 1.
+    Forward and backward within ``B11_TOL`` and bit-equal over two runs;
+    one plan serves two tables and both directions."""
     lens = torch.randint(0, 200, (R,), generator=torch.Generator().manual_seed(R))
     lens[0], lens[1] = 0, min(5000, N - 1)
     rows = [torch.randperm(N - 1, generator=torch.Generator().manual_seed(r))[:int(c)] + 1
             for r, c in enumerate(lens)]
     ptr, cols = b11.history_csr(torch.repeat_interleave(torch.arange(R), lens).numpy(),
                                 torch.cat(rows).numpy(), R)
-    csr = b11.HistoryCSR(torch.from_numpy(ptr).cuda(), torch.from_numpy(cols).cuda())
+    csr = b11.history_tensors(ptr, cols, N, "cuda")
     ids = _ints(0, min(R, 50), (B,), gen)
     ids[:64], ids[64] = 1, 0
+    if same:
+        ids[:] = 1
+    plan = b11.rating_vector_plan(ids, R)
     table = torch.randn(N, D, device="cuda", generator=gen)
     g = torch.randn(B, D, device="cuda", generator=gen)
-    got = b11.rating_vector_forward(csr, table, ids)
+    got = b11.rating_vector_forward(csr, table, ids, plan)
     torch.cuda.synchronize()
     _b11_close(got, b11.rating_vector_plain(csr, table, ids),
                b11.rating_vector_plain(csr, table.abs(), ids), "forward")
-    assert bool((got[64] == 0).all()) and torch.equal(got[0], got[63])
-    dt = b11.rating_vector_backward(csr, N, ids, g)
+    assert torch.equal(got[0], got[63]) and (same or bool((got[64] == 0).all()))
+    assert torch.equal(got, b11.rating_vector_forward(csr, table, ids, plan))
+    dt = b11.rating_vector_backward(csr, N, ids, g, torch.float32, plan)
     torch.cuda.synchronize()
     want = b11.rating_vector_backward_plain(csr, N, ids, g)
     absum = b11.rating_vector_backward_plain(csr, N, ids, g.abs())
     _b11_close(dt, want, absum, "backward")
-    _b11_close(b11.rating_vector_backward(csr, N, ids, g), want, absum, "backward, second run")
-    t = table.clone().requires_grad_()  # through autograd, both directions
-    b11.rating_vector(csr, t, ids).backward(g)
-    _b11_close(t.grad, want, absum, "autograd")
+    assert torch.equal(dt, b11.rating_vector_backward(csr, N, ids, g, torch.float32, plan))
+    _b11_plan_shared(csr, table, ids, g, plan, want, absum)
 
 
 @pytest.mark.parametrize("B,C,k", [(25, 2525, 10), (40, 7, 7), (3, 1, 1), (64, 300, 64),
@@ -756,8 +777,8 @@ def test_natr_on_the_card(gen, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["full", "uniform 20", "labeled"])
 def test_dtcdr_on_the_card(gen, tmp_path, monkeypatch, mode):
-    """DTCDR (DMF) in each eval mode: B11 forward and backward in training,
-    the mode's kernels in evaluation (K4 for full-sort, B10 and the
+    """DTCDR (DMF) in each eval mode: B11 forward and backward and its plan
+    in training, the mode's kernels in evaluation (K4 for full-sort, B10 and the
     candidate B7 for candidates, none for labeled), B5, B6, B8 and B9
     never."""
     eval_args = {"split": {"RS": [0.8, 0.1, 0.1]}, "group_by": "user", "order": "RO",
@@ -771,7 +792,8 @@ def test_dtcdr_on_the_card(gen, tmp_path, monkeypatch, mode):
     counts = _run_on_the_card(tmp_path, monkeypatch, model="DTCDR", **extra)
     path = {"full": ("masked_topk", "rank_sum"),
             "uniform 20": ("candidate_topk", "rank_sum_candidates"), "labeled": ()}[mode]
-    path += ("neg_sampler", "swap_or_not", "rating_vector_forward", "rating_vector_backward")
+    path += ("neg_sampler", "swap_or_not", "rating_vector_forward", "rating_vector_backward",
+             "rating_vector_plan")
     assert all(counts[k] > 0 for k in path), counts
     assert all(counts[k] == 0 for k in counts if k not in path), counts
 
@@ -1295,9 +1317,10 @@ def _b15_case(gen, H0, later, B, I):
     (64, [32, 16, 8], 2048, 4980),   # the published tower at a dense tile
     (64, [32, 16, 8], 1, 7),
     (32, [16], 33, 4980),
-    (6, [5, 3], 33, 129),            # widths padded to a multiple of 4
+    (6, [5, 3], 33, 129),            # widths padded to 16, the last to 8
+    (40, [24, 10], 1, 4981),         # one user; 4,981 items: a ragged last item tile
     (16, [], 5, 300),                # one layer: the output straight after it
-    (128, [128] * 5, 9, 1000),       # the largest tower: weights staged per layer
+    (128, [128] * 5, 9, 1000),       # the largest tower: its fragments read from memory
 ])
 def test_conet_tower_matches_plain(gen, H0, later, B, I):
     """B15 against its plain version per probability within ``B15_TOL`` of
@@ -1519,45 +1542,62 @@ def test_natr_pair_grid_bf16_matches_plain(gen, D, anchor_is_row, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("R,N,D,B", [(3000, 27_800, 64, 16_384), (500, 1000, 32, 777),
-                                     (40, 300, 128, 100), (40, 300, 130, 100)])
-def test_rating_vector_bf16_matches_plain(gen, R, N, D, B, dtype):
+@pytest.mark.parametrize("R,N,D,B,same", [(3000, 27_800, 64, 16_384, False),
+                                          (500, 1000, 32, 777, False),
+                                          (40, 300, 128, 100, False),
+                                          (40, 300, 130, 100, False),
+                                          (3000, 27_800, 64, 4096, True)])
+def test_rating_vector_bf16_matches_plain(gen, R, N, D, B, same, dtype):
     """B11's 16-bit form: 16-bit rows summed in float32 (float32 out, within
     B11_TOL of the plain version), the backward's float32 sums rounded once
     to the table's type (within one step of the plain version's plus
-    2^-17 of the terms' magnitudes), twice, and through autograd."""
+    2^-17 of the terms' magnitudes), twice, bit-equal, and through autograd
+    (one plan for two tables and both directions); ``same``: every id row
+    1, of 5,000 entries."""
     lens = torch.randint(0, 200, (R,), generator=torch.Generator().manual_seed(R))
     lens[0], lens[1] = 0, min(5000, N - 1)
     rows = [torch.randperm(N - 1, generator=torch.Generator().manual_seed(r))[:int(c)] + 1
             for r, c in enumerate(lens)]
     ptr, cols = b11.history_csr(torch.repeat_interleave(torch.arange(R), lens).numpy(),
                                 torch.cat(rows).numpy(), R)
-    csr = b11.HistoryCSR(torch.from_numpy(ptr).cuda(), torch.from_numpy(cols).cuda())
+    csr = b11.history_tensors(ptr, cols, N, "cuda")
     ids = _ints(0, min(R, 50), (B,), gen)
     ids[:64], ids[64] = 1, 0
+    if same:
+        ids[:] = 1
+    plan = b11.rating_vector_plan(ids, R)
     table = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
     g = torch.randn(B, D, device="cuda", generator=gen)
     ops.reset_launch_counts()
-    got = b11.rating_vector_forward(csr, table, ids)
+    got = b11.rating_vector_forward(csr, table, ids, plan)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32
     _b11_close(got, b11.rating_vector_plain(csr, table, ids),
                b11.rating_vector_plain(csr, table.abs(), ids), "forward")
-    assert bool((got[64] == 0).all()) and torch.equal(got[0], got[63])
+    assert torch.equal(got[0], got[63]) and (same or bool((got[64] == 0).all()))
+    assert torch.equal(got, b11.rating_vector_forward(csr, table, ids, plan))
     want = b11.rating_vector_backward_plain(csr, N, ids, g, dtype)
     absum = b11.rating_vector_backward_plain(csr, N, ids, g.abs())
+    runs = []
     for what in ("backward", "backward, second run"):
-        dt = b11.rating_vector_backward(csr, N, ids, g, dtype)
+        dt = b11.rating_vector_backward(csr, N, ids, g, dtype, plan)
         torch.cuda.synchronize()
         assert dt.dtype == dtype
         diff = (dt.float() - want.float()).abs()
         assert bool((diff <= 1e-6 + 2 ** -17 * absum + STEP * want.float().abs()).all()), what
+        runs.append(dt)
+    assert torch.equal(*runs)
     t = table.clone().requires_grad_()
-    b11.rating_vector(csr, t, ids).backward(g)
+    b11.rating_vector(csr, t, ids, plan).backward(g)
     assert t.grad.dtype == dtype
     counts = ops.launch_counts()
-    assert counts["rating_vector_forward_bf16"] == 2 and counts["rating_vector_backward_bf16"] == 3
+    assert counts["rating_vector_forward_bf16"] == 3 and counts["rating_vector_backward_bf16"] == 3
     assert counts["rating_vector_forward"] == counts["rating_vector_backward"] == 0
+    ops.reset_launch_counts()
+    t, t2 = table.clone().requires_grad_(), (2 * table).requires_grad_()
+    (b11.rating_vector(csr, t, ids, plan) + b11.rating_vector(csr, t2, ids, plan)).backward(g)
+    assert ops.launch_counts()["rating_vector_plan"] == 0
+    assert torch.equal(t.grad, t2.grad) and t.grad.dtype == dtype
 
 
 # ---- the 16-bit forms of B16 and B15 ---------------------------------------
@@ -1651,8 +1691,9 @@ def test_deepapf_float16_masked_logit_has_no_nan(gen):
 @pytest.mark.parametrize("H0,later,B,I", [
     (64, [32, 16, 8], 2048, 4980),   # the published tower at a dense tile
     (64, [32, 16, 8], 1, 7),
-    (6, [5, 3], 33, 129),            # widths padded to a multiple of 4
-    (128, [128] * 5, 9, 1000),       # the largest tower: weights staged per layer
+    (6, [5, 3], 33, 129),            # widths padded to 16, the last to 8
+    (40, [24, 10], 1, 4981),         # one user; 4,981 items: a ragged last item tile
+    (128, [128] * 5, 9, 1000),       # the largest tower: 164 KB of fragments staged
 ])
 def test_conet_tower_bf16_matches_plain(gen, H0, later, B, I, dtype):
     """B15's 16-bit form against its plain version on the same 16-bit
@@ -1690,7 +1731,8 @@ def test_conet_tower_bf16_matches_plain(gen, H0, later, B, I, dtype):
       "natr_attention_backward_bf16", "natr_anchor_table_bf16", "natr_pair_grid_bf16",
       "masked_topk")),
     ("DTCDR", {"base_model": "DMF"}, ("rating_vector_forward_bf16",
-                                      "rating_vector_backward_bf16", "masked_topk")),
+                                      "rating_vector_backward_bf16", "rating_vector_plan",
+                                      "masked_topk")),
     ("CoNet", {}, ("neg_sampler", "swap_or_not", "masked_topk", "conet_tower_bf16")),
     ("DeepAPF", {}, ("neg_sampler", "swap_or_not", "masked_topk", "deepapf_forward_bf16",
                      "deepapf_backward_bf16", "deepapf_grid_bf16")),

@@ -49,11 +49,15 @@ from recbole_cdr_tpu_torch.models.base import CrossDomainRecommender
 from recbole_cdr_tpu_torch.models.dtcdr import DTCDR
 from recbole_cdr_tpu_torch.ops.graph_layer import keep_mask
 from recbole_cdr_tpu_torch.ops.rating_vector import (
-    HistoryCSR,
+    BIG_PIECES,
+    PIECE,
     history_csr,
+    history_layout,
+    history_tensors,
     rating_vector,
     rating_vector_backward_plain,
     rating_vector_plain,
+    rating_vector_plan,
 )
 from recbole_cdr_tpu_torch.trainer.trainer import (
     build_optimizer,
@@ -162,13 +166,13 @@ def test_histories_equal_jax_rating_vectors(dmf):
             np.testing.assert_array_equal(cols[ptr[lo]:ptr[lo + len(ids)]], nz, err_msg=name)
 
 
-def test_rating_vector_plain_matches_dense_form():
-    """B11's plain forward and backward, through the autograd function on
-    CPU tensors, against JAX's dense ``_rating_vector(hist, ids, N) @
-    table`` and its ``jax.vjp``, on a history with duplicates, PAD entries,
-    an empty row, and repeated ids in the batch (numpy seed 3)."""
+def _dense_case(R=40, N=70, H=12):
+    """A history of R rows of up to H entries over N table rows with
+    duplicates, PAD entries and an empty row, repeated ids in the batch
+    (numpy seed 3), and JAX's dense ``_rating_vector(hist, ids, N) @ table``
+    with its ``jax.vjp`` of ``g``."""
     rng = np.random.default_rng(3)
-    R, N, D, H, B = 40, 70, 16, 12, 300
+    D, B = 16, 300
     hist = rng.integers(0, N, (R, H))
     hist[:, 1] = hist[:, 0]       # duplicates
     hist[::3, 2:5] = 0            # PAD
@@ -186,14 +190,23 @@ def test_rating_vector_plain_matches_dense_form():
 
     want, vjp = jax.vjp(dense, jnp.asarray(table))
     (want_g,) = vjp(jnp.asarray(g))
+    ptr, cols = history_csr(np.repeat(np.arange(R), H), hist.reshape(-1), R)
+    return dict(R=R, N=N, ids=ids, table=table, g=g, want=np.asarray(want),
+                want_g=np.asarray(want_g), ptr=ptr, cols=cols)
 
-    rows = np.repeat(np.arange(R), H)
-    ptr, cols = history_csr(rows, hist.reshape(-1), R)
-    csr = HistoryCSR(torch.from_numpy(ptr), torch.from_numpy(cols))
+
+def test_rating_vector_plain_matches_dense_form():
+    """B11's plain forward and backward, through the autograd function on
+    CPU tensors, against JAX's dense ``_rating_vector(hist, ids, N) @
+    table`` and its ``jax.vjp`` (``_dense_case``)."""
+    case = _dense_case()
+    N, ids, table, g = case["N"], case["ids"], case["table"], case["g"]
+    want, want_g, ptr, cols = case["want"], case["want_g"], case["ptr"], case["cols"]
+    csr = history_tensors(ptr, cols, N)
     t = torch.from_numpy(table).requires_grad_()
     tid = torch.from_numpy(ids.astype(np.int32))
     ops.reset_launch_counts()
-    got = rating_vector(csr, t, tid)
+    got = rating_vector(csr, t, tid, rating_vector_plan(tid, case["R"]))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **LOSS_TOL)
     np.testing.assert_array_equal(got[:4].detach().numpy(), 0.0)
     got.backward(torch.from_numpy(g))
@@ -204,6 +217,75 @@ def test_rating_vector_plain_matches_dense_form():
                                rtol=0, atol=0)
     counts = ops.launch_counts()  # plain on the CPU
     assert counts["rating_vector_forward"] == counts["rating_vector_backward"] == 0
+
+
+def test_transposed_gradient_matches_dense_form():
+    """The backward as the kernels walk it, in torch: each id's gradient
+    summed per history row, then each table row's sum over the rows of its
+    transposed history (``history_layout``), against JAX's ``vec.T @ gout``
+    (``GRAD_TOL``), on 200 rows of up to 140 entries over 170 table rows; the
+    layout's pieces cover exactly the entries of the rows of more than
+    ``PIECE`` entries, ``PIECE`` at a time."""
+    case = _dense_case(200, 170, 140)
+    R, N, ptr, cols = case["R"], case["N"], case["ptr"], case["cols"]
+    layout = history_layout(ptr, cols, N)
+    g_rows = torch.zeros(R, case["g"].shape[1]).index_add_(
+        0, torch.from_numpy(case["ids"]), torch.from_numpy(case["g"]))
+    owner = torch.repeat_interleave(torch.arange(N), torch.from_numpy(np.diff(layout.tptr)).long())
+    got = torch.zeros(N, g_rows.shape[1]).index_add_(0, owner, g_rows[layout.tcols])
+    np.testing.assert_allclose(got.numpy(), case["want_g"], **GRAD_TOL)
+    for p_row, p_first, big, small, rptr in ((*layout[:4], ptr), (*layout[6:], layout.tptr)):
+        lens = np.diff(rptr)
+        assert set(big) | set(small) == set(np.flatnonzero(lens > PIECE)) and len(small) > 0
+        np.testing.assert_array_equal(np.diff(p_first), -(-lens // PIECE) * (lens > PIECE))
+        np.testing.assert_array_equal(np.bincount(p_row, minlength=len(lens)), np.diff(p_first))
+        assert (np.diff(p_first)[big] > BIG_PIECES).all()
+        assert (np.diff(p_first)[small] <= BIG_PIECES).all()
+
+
+def test_transposed_histories_equal_jax(dmf):
+    """Each history's transpose (``{name}_tptr`` / ``{name}_tcols``): for
+    every table row, the rows of JAX's padded history matrix that hold it
+    (PAD and duplicates out), in increasing order."""
+    jmodel, tmodel = dmf["jmodel"], dmf["tmodel"]
+    for name, (attr, width) in _JAX_HISTORIES.items():
+        hist = np.asarray(getattr(jmodel, attr)).astype(np.int64)
+        R, N = hist.shape[0], getattr(jmodel, width)
+        rows, cols = np.repeat(np.arange(R), hist.shape[1]), hist.reshape(-1)
+        keys = np.unique(cols[cols != 0] * R + rows[cols != 0])
+        want_ptr = np.searchsorted(keys // R, np.arange(N + 1))
+        np.testing.assert_array_equal(getattr(tmodel, f"{name}_tptr").numpy(), want_ptr,
+                                      err_msg=name)
+        np.testing.assert_array_equal(getattr(tmodel, f"{name}_tcols").numpy(), keys % R,
+                                      err_msg=name)
+
+
+def test_plan_plain_groups_ids():
+    """B11's plan in torch: the keys (ids, an out-of-range id as R), each
+    key's positions increasing, the heads of more than 64 positions, and a
+    shared plan leaving the rating vector unchanged."""
+    rng = np.random.default_rng(5)
+    R, B = 30, 500
+    ids = rng.integers(0, R, B).astype(np.int32)
+    ids[:100], ids[100], ids[101] = 7, -1, R + 3
+    plan = rating_vector_plan(torch.from_numpy(ids), R)
+    key = np.where((ids >= 0) & (ids < R), ids, R)
+    heads = np.unique(key)
+    H = len(heads)
+    assert plan.meta.tolist() == [H, int((np.bincount(key)[heads] > 64).sum())]
+    np.testing.assert_array_equal(plan.head_row[:H].numpy(), heads)
+    np.testing.assert_array_equal(plan.pos.numpy(), np.argsort(key, kind="stable"))
+    np.testing.assert_array_equal(plan.head_start[:H + 1].numpy(),
+                                  np.searchsorted(np.sort(key), np.append(heads, R + 1)))
+    row_head = np.full(R + 1, -1)
+    row_head[heads] = np.arange(H)
+    np.testing.assert_array_equal(plan.row_head.numpy(), row_head)
+    assert plan.head_row[plan.big[:plan.meta[1]].long()].tolist() == [7]
+    case = _dense_case(200, 170, 140)
+    csr = history_tensors(case["ptr"], case["cols"], case["N"])
+    tid, t = torch.from_numpy(case["ids"].astype(np.int32)), torch.from_numpy(case["table"])
+    torch.testing.assert_close(rating_vector(csr, t, tid, rating_vector_plan(tid, case["R"])),
+                               rating_vector_plain(csr, t, tid), rtol=0, atol=0)
 
 
 def test_dtcdr_loss_and_grads_match_jax(pair):
