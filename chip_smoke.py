@@ -20,14 +20,23 @@ Phases, in order; any failure exits non-zero:
    (``call_ms``, from CUDA events);
    B5 and B6 are held and timed at the catalog path's shapes (phase 4):
    B5's ids exactly on integer-valued factors, its scores within
-   ``B5_TOL`` on normal ones; B6, over ``B6_STEPS`` steps on one scratch,
-   within ``B6_TOL`` of its plain version and of ``torch.optim.SparseAdam``;
+   ``B5_TOL`` on normal ones; B6, over ``B6_STEPS`` steps of random normal
+   gradients, each grouped by the plan (``group_rows``) on one kept
+   scratch, bit-equal run to run and within ``B6_TOL`` of its plain version
+   on CPU copies and of ``torch.optim.SparseAdam``; K1's backward (both
+   forms) bit-equal to its plain version on CPU copies and run to run; the
+   plan equal to its plain version, timed at B6's step and at K1's dense
+   step; the row-sharded lookup's backward (``row_sum``) bit-equal to its
+   plain version at a dense step's user ids over half the user table;
 3. dense path: ``run_recbole_cdr(model="CMF")`` on the card, BOTH:3 with
    validation every epoch, on a synthetic pair of the benchmark's shape
    (source 30k users / 8k items / 600k interactions, target 12k / 5k / 250k,
    2k shared items, generated with numpy from a fixed seed into
-   ``build/smoke_data``); K1-K4 must each launch, B5 and B6 never, the
-   metrics be finite and the loss fall from epoch 0 to 2;
+   ``build/smoke_data``); K1-K4 must each launch and the plan once per K1
+   backward, B5 and B6 never, the metrics be finite and the loss fall from
+   epoch 0 to 2; then the run again with the same seed (``check_repeats``):
+   the trained parameters ``torch.equal``, every epoch's loss and every
+   metric equal (K1 sums in a fixed order);
 4. catalog path: ``run_recbole_cdr(model="CMF")`` with ``phase_optimizer:
    sparse``, BOTH:2 with validation every epoch, on a synthetic catalog pair
    (source 100k users / 300k items / 2M interactions, target 60k / 1.1M /
@@ -35,7 +44,8 @@ Phases, in order; any failure exits non-zero:
    degree capped at 400, generated into ``build/smoke_catalog``): the target
    item space exceeds the default ``streaming_topk_threshold`` of 1e6, so
    every validation and the test pass stream through B5, and training steps
-   through B6. K1-K3, B5 and B6 must each launch, K4 never; no table
+   through B6, each call after its plan, K1 on the step's sub-tables by
+   position (no plan). K1-K3, B5 and B6 must each launch, K4 never; no table
    gradient may exist; the run's peak allocation up to each validation must
    stay under the parameters and moments plus 2 GB; the metrics must be
    finite and the loss fall from epoch 0 to 1;
@@ -105,7 +115,9 @@ Phases, in order; any failure exits non-zero:
    B13 (``streaming_topk_bf16``) once per streaming tile of every
    validation and the test pass, B5 and K1's float32 form never, the
    parameters float32, the peak allocation under phase 4's limit, and the
-   test Recall@10 printed beside phase 4's; (b) CMF on the dense pair with
+   test Recall@10 printed beside phase 4's, and the run repeated with the
+   same seed as phase 3's is (bit-equal parameters, equal losses and
+   metrics); (b) CMF on the dense pair with
    popularity training negatives and adagrad (``ADAGRAD_LR``), BOTH:3;
    (c) EMCDR's BPR form at its published width with popularity negatives
    and rmsprop (``RMSPROP_LR``), SOURCE, TARGET, OVERLAP, 2 epochs each. In
@@ -116,10 +128,11 @@ Phases, in order; any failure exits non-zero:
    that does not move the weights fails; (b) prints the first step's
    gradient RMS and the target negatives' frequency of the 10 most popular
    items beside their popularity shares. In every run the metrics are
-   finite. Then K1-bf16 is held against its plain version on (a)'s first
-   sparse step (its gathered sub-tables), and every B2a call of (b) and (c)
-   exactly against its plain version; these two kernels' top-level records
-   are timed there (the largest B2a call), their phase-2 records kept under
+   finite. Then K1-bf16, and K1 on the same operands in float32, are held
+   against their plain versions on (a)'s first sparse step (its gathered
+   sub-tables, read by position), and every B2a call of (b) and (c)
+   exactly against its plain version; these kernels' top-level records are
+   timed there (the largest B2a call), their phase-2 records kept under
    ``shapes``;
 10. mesh, in a child process (so that no process group outlives it): (a)
    B14 (``sharded_topk_local`` on every shard at its offset, then
@@ -177,22 +190,23 @@ Phases, in order; any failure exits non-zero:
    bf16 catalog, ``phase_optimizer: sparse``) over a one-rank NCCL mesh,
    BOTH:2: exactly ``MESH_BF16_CATALOG_PATH`` launches, K1-bf16 once each
    per step, B6 (its row-shard form at offset 0) once per table and step
-   (1,928), B14 once per streaming tile; the loss falls, every epoch's
-   loss is within ``MESH_LOSS_RTOL`` of phase 9a's and the test Recall@10
-   within ``MESH_RECALL_TOL``; (a) B6's
+   (1,928) after its plan, B14 once per streaming tile; the loss falls,
+   every epoch's loss equals phase 9a's and the test Recall@10 is within
+   ``MESH_RECALL_TOL``; (a) B6's
    row-shard form on the item table's first step of (b) (its global
    occurrences and gradient rows as the run gathered them) for
    ``B6_SHARDS`` shards of ceil(N / m) rows, the last padded: on every
-   shard the rows touched once bit-equal to the plain version and the
-   coalesced ones within ``B6_TOL``, the padding untouched; each timed at
-   the last shard (a nonzero offset and the pad rows), its library
+   shard bit-equal run to run and within ``B6_TOL`` of the plain version on
+   CPU copies, the plan equal to its plain version, the padding untouched;
+   the update and the plan each timed at the last shard (a nonzero offset
+   and the pad rows), the update's library
    yardstick ``torch.optim.SparseAdam.step`` on the shard's own
    occurrences, and ``Mesh.gather_occurrences`` at that step's shape on
    the host clock (a one-rank group: its collectives and the host's wait
    for the lengths); (c) phase 8's DCDCSR and EMCDR runs over the same
    mesh: phase 8's launch checks (``check_mapping_run``), B12 once, and
    every test metric within ``MESH_MAPPING_TOL`` of phase 8's run, every
-   epoch's loss within ``MESH_LOSS_RTOL`` of phase 8's;
+   epoch's loss equal to phase 8's;
 15. report: the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path), and the final ``{"ok": true, ...}`` line.
 
@@ -234,7 +248,8 @@ shape of most of their launches on the NATR path, under the record's
 ``shapes``.
 
 Phase 2 holds this slice's kernels too: K1's bf16 form forward and
-backward at the dense step's pairs (``K1_BF16_TOL``; the backward's library
+backward at the dense step's pairs (the forward within ``K1_BF16_TOL``, the
+backward bit-equal to its plain version on CPU copies; its library
 yardstick is one ``index_add_`` per table, as for B1's); B13 on phase 4's
 streaming tile cast to bf16 (scores within ``B13_TOL``, ids equal wherever
 neighbouring scores differ by more; bound: one bf16 tensor-core product a
@@ -252,7 +267,8 @@ the one block barrier before its roles split, K4's kernel (B10's too) and
 B7's the cluster barriers (UCGABAR) of their short-tile forms, and every
 instantiation of B16's grid kernel its tensor-core products (HMMA), and
 every one of B15's its products (HMMA, or HGMMA where the published
-tower runs on wgmma); it prints the counts.
+tower runs on wgmma); it prints the counts, and fails where the library
+of B11, K1, B6 or the plan (``FIXED_ORDER_SOURCES``) holds a float atomic.
 B13's time is printed beside B5's from the same run, with its launch plan
 and the item bytes the plan reads from L2 into the SMs (modelled from the
 plan, not read from a counter), and beside the time of the same call on
@@ -394,10 +410,10 @@ CATALOG_EPOCHS = 2
 CATALOG_EVAL_HEADROOM = 2 * 2 ** 30
 
 #: the kernels each path must launch; the other kernels must not launch
-DENSE_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
-              "masked_topk")
-CATALOG_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
-                "streaming_topk", "sparse_adam")
+DENSE_PATH = ("gather_dot_forward", "gather_dot_backward", "group_rows", "neg_sampler",
+              "swap_or_not", "masked_topk")
+CATALOG_PATH = ("gather_dot_forward", "gather_dot_backward", "group_rows", "neg_sampler",
+                "swap_or_not", "streaming_topk", "sparse_adam")
 BITGCF_PATH = DENSE_PATH + ("graph_layer_forward", "graph_layer_backward")
 NATR_PATH = DENSE_PATH + ("rank_sum", "natr_attention_forward", "natr_attention_backward",
                           "natr_anchor_table", "natr_pair_grid")
@@ -453,10 +469,10 @@ MAPPING_WIDTHS = {
               "overlap_batch_size": 100},
 }
 MAPPING_PATHS = {
-    "dcdcsr": ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
-               "masked_topk", "benchmark_topk"),
-    "emcdr": ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
-              "masked_topk"),
+    "dcdcsr": ("gather_dot_forward", "gather_dot_backward", "group_rows", "neg_sampler",
+               "swap_or_not", "masked_topk", "benchmark_topk"),
+    "emcdr": ("gather_dot_forward", "gather_dot_backward", "group_rows", "neg_sampler",
+              "swap_or_not", "masked_topk"),
     "sscdr": ("neg_sampler", "swap_or_not", "masked_topk"),
 }
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the float32 rate of
@@ -473,19 +489,19 @@ PEAK_BF16_OPS_PER_S = 989e12
 #: phase 9's paths: (a) the catalog path in bf16, (b) CMF on the dense pair
 #: with popularity negatives and adagrad, (c) EMCDR BPR with popularity
 #: negatives and rmsprop
-BF16_CATALOG_PATH = ("gather_dot_forward_bf16", "gather_dot_backward_bf16", "neg_sampler",
-                     "swap_or_not", "streaming_topk_bf16", "sparse_adam")
-POPULARITY_CMF_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler_popularity",
-                       "swap_or_not", "masked_topk")
+BF16_CATALOG_PATH = ("gather_dot_forward_bf16", "gather_dot_backward_bf16", "group_rows",
+                     "neg_sampler", "swap_or_not", "streaming_topk_bf16", "sparse_adam")
+POPULARITY_CMF_PATH = ("gather_dot_forward", "gather_dot_backward", "group_rows",
+                       "neg_sampler_popularity", "swap_or_not", "masked_topk")
 POPULARITY_EMCDR_PATH = POPULARITY_CMF_PATH
 POPULARITY_EMCDR_SCHEDULE = ("SOURCE", "TARGET", "OVERLAP")
 
 #: phase 10's paths: (b) the catalog pair over a one-rank NCCL mesh, dense
 #: Adam, B14 in place of B5; (c) the dense pair's host batch path under the
 #: same mesh, dense evaluation
-MESH_CATALOG_PATH = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
-                     "sharded_topk_local", "sharded_topk_merge")
-MESH_HOST_PATH = ("gather_dot_forward", "gather_dot_backward", "masked_topk")
+MESH_CATALOG_PATH = ("gather_dot_forward", "gather_dot_backward", "group_rows", "neg_sampler",
+                     "swap_or_not", "sharded_topk_local", "sharded_topk_merge")
+MESH_HOST_PATH = ("gather_dot_forward", "gather_dot_backward", "group_rows", "masked_topk")
 #: the model-axis widths at which phase 10a holds B14 against B5; one shard
 #: is the main path's (10b's one-rank mesh), whose numbers lead its records
 B14_SHARDS = (1, 2, 4)
@@ -498,7 +514,7 @@ MESH_EPOCHS = 2
 #: phase 14's paths: (b) phase 9a's bf16 sparse catalog over the one-rank
 #: mesh, B14's 16-bit local stage in place of B13; (c) the mapping models
 #: over it, phase 8's kernels
-MESH_BF16_CATALOG_PATH = ("gather_dot_forward_bf16", "gather_dot_backward_bf16",
+MESH_BF16_CATALOG_PATH = ("gather_dot_forward_bf16", "gather_dot_backward_bf16", "group_rows",
                           "neg_sampler", "swap_or_not", "sharded_topk_local",
                           "sharded_topk_merge", "sparse_adam")
 #: the model-axis widths at which phase 14a holds B6's row-shard form
@@ -508,15 +524,12 @@ B6_SHARDS = (1, 2, 4)
 MESH_RECALL_TOL = 0.002
 #: 14c's test metrics against phase 8's runs
 MESH_MAPPING_TOL = 0.02
-#: 14b's and 14c's epoch losses against phase 9a's and phase 8's, relative:
-#: one rank does the same arithmetic apart from the order of K1's and B6's
-#: float32 atomics
-MESH_LOSS_RTOL = 1e-5
 
 #: K1 tolerance, |kernel - plain| <= ATOL + RTOL * max|plain|: the forward
-#: sums the D products in another order than torch; the backward adds with
-#: atomics in a run-dependent order over every pair that shares a row
-K1_TOL = {"forward": (1e-4, 1e-5), "backward": (1e-3, 1e-5)}
+#: sums the D products in another order than torch; the backward adds each
+#: row's terms in position order with no contraction, as the plain version's
+#: index_add_ does on the CPU, so it must equal that bit for bit
+K1_TOL = {"forward": (1e-4, 1e-5), "backward": (0.0, 0.0)}
 
 #: B5 score tolerance on normal factors, (atol, rtol): the kernel's fixed
 #: d-order FMA chain and torch.matmul add the 64 products in different
@@ -524,11 +537,13 @@ K1_TOL = {"forward": (1e-4, 1e-5), "backward": (1e-3, 1e-5)}
 B5_TOL = (1e-4, 1e-5)
 
 #: B6 tolerance on p, mu and nu after ``B6_STEPS`` steps, |got - ref| <=
-#: ATOL * max|ref| + RTOL * |ref| per tensor: the gradients are unit-scale
-#: multiples of 1/64, so the coalesced sums are exact in any order and only
-#: the moment and update formulas round (torch.optim.SparseAdam folds the
-#: bias corrections in float64 and updates the moments as old + (1-b)(g-old))
-B6_TOL = (1e-6, 1e-5)
+#: ATOL * max|ref| + RTOL * |ref| per tensor. Against its plain version run
+#: on CPU copies: none, the kernel must equal it bit for bit (each row's
+#: gradient rows added in position order, as index_add_ adds them there,
+#: then the same correctly rounded operations). Against
+#: ``torch.optim.SparseAdam`` the second pair: it folds the bias corrections
+#: in float64 and updates the moments as old + (1-b)(g-old)
+B6_TOL = {"plain": (0.0, 0.0), "torch.optim.SparseAdam": (1e-6, 1e-5)}
 B6_STEPS = 3
 
 #: B8 tolerance, |kernel - plain| <= ATOL + RTOL * max|plain|: the kernel's
@@ -572,9 +587,9 @@ B13_TOL = (1e-6, 2 ** -16)
 
 #: K1-bf16 tolerance: scores within one bf16 ulp of the plain version's plus
 #: ``RTOL`` of the sum of the products' magnitudes (both sum in float32 and
-#: round once); gradients within 2^-8 of the sum of the magnitudes of the
-#: terms each adds (float32 atomics, one rounding to bf16)
-K1_BF16_TOL = {"forward": 2 ** -18, "backward": 2 ** -8}
+#: round once); gradients within ``K1_TOL["backward"]``: each row's float32
+#: sum in position order, rounded once to bf16, as the plain version's
+K1_BF16_TOL = {"forward": 2 ** -18}
 
 
 #: one step of a 16-bit value v is at most 2^-7 |v| in bf16; the 16-bit forms
@@ -1032,16 +1047,20 @@ SASS_OPCODES = {
     "deepapf_attention": ("grid_kernel", ("HMMA",), (), ("HMMA", "BAR.SYNC")),
     "conet_tower": ("tower_kernel", (), ("HGMMA",), ("HMMA", "HGMMA", "BAR.SYNC")),
 }
-#: a float atomic in SASS (RED or ATOM on F16, BF16, F32 or F64): B11's
-#: library must hold none, so that its sums run in a fixed order
+#: a float atomic in SASS (RED or ATOM on F16, BF16, F32 or F64): the
+#: libraries of ``FIXED_ORDER_SOURCES`` must hold none, so that their sums
+#: run in a fixed order: B11's, K1's, B6's and the plan's with the
+#: row-sharded lookup's backward
 FLOAT_ATOMIC = r"\b(?:RED|ATOMG?|ATOMS)\.[A-Z0-9_.]*\b(?:F16|BF16|F32|F64)"
+FIXED_ORDER_SOURCES = ("rating_vector", "gather_dot", "sparse_adam", "row_groups")
 
 
 def check_sass():
     """Count the opcodes of ``SASS_OPCODES`` in each instantiation of B13's,
     K4's, B7's, B16's grid and B15's kernels (``cuobjdump --dump-sass`` of
     the built libraries) and fail where one is absent, where B13's selection
-    holds a block barrier, or where B11's library holds a float atomic."""
+    holds a block barrier, or where a library of ``FIXED_ORDER_SOURCES``
+    holds a float atomic."""
     import re
 
     from recbole_cdr_tpu_torch.ops import build
@@ -1067,13 +1086,14 @@ def check_sass():
         if source == "conet_tower":
             assert all(c["HMMA"] or c["HGMMA"] for c in counts), \
                 f"an instantiation of {kernel} has no tensor-core product"
-    sass = subprocess.run([cuobjdump, "--dump-sass", build._lib_path("rating_vector")],
-                          capture_output=True, text=True, check=True).stdout
-    atomics = re.findall(FLOAT_ATOMIC, sass)
-    n_all = len(re.findall(r"\b(?:RED|ATOMG?|ATOMS)\.", sass))
-    print(f"  SASS rating_vector.cu: {len(atomics)} float atomics of {n_all} atomics",
-          flush=True)
-    assert not atomics, f"rating_vector.cu holds float atomics: {sorted(set(atomics))}"
+    for source in FIXED_ORDER_SOURCES:
+        sass = subprocess.run([cuobjdump, "--dump-sass", build._lib_path(source)],
+                              capture_output=True, text=True, check=True).stdout
+        atomics = re.findall(FLOAT_ATOMIC, sass)
+        n_all = len(re.findall(r"\b(?:RED|ATOMG?|ATOMS)\.", sass))
+        print(f"  SASS {source}.cu: {len(atomics)} float atomics of {n_all} atomics",
+              flush=True)
+        assert not atomics, f"{source}.cu holds float atomics: {sorted(set(atomics))}"
 
 
 def kernel_checks(dev):
@@ -1095,7 +1115,7 @@ def kernel_checks(dev):
     from recbole_cdr_tpu_torch.ops.masked_topk import sm_count
     from recbole_cdr_tpu_torch.ops import graph_layer as b8
     from recbole_cdr_tpu_torch.ops import neg_sampler as k2, shuffle as k3
-    from recbole_cdr_tpu_torch.ops import sparse_adam as b6, topk as b5
+    from recbole_cdr_tpu_torch.ops import row_groups, sparse_adam as b6, topk as b5
     from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
     from recbole_cdr_tpu_torch.utils import init_seed
     from recbole_cdr_tpu_torch.utils.enums import TrainMode
@@ -1160,32 +1180,11 @@ def kernel_checks(dev):
     ii = torch.cat([xs["source_item_id"][0], xs["target_item_id"][0]])
     gg = torch.randn(uu.shape[0], device=dev, generator=g)
     P, D = uu.shape[0], U.shape[1]
-    rows = (torch.unique(uu).numel() + torch.unique(ii).numel()) * D * 4
-    a = k1.gather_dot_forward(U, I, uu, ii)
-    b = k1.gather_dot_plain(U, I, uu, ii)
-    err = float((a - b).abs().max())
-    atol, rtol = K1_TOL["forward"]
-    assert err <= atol + rtol * float(b.abs().max()), f"gather_dot forward error {err}"
-    record("gather_dot_forward",
-           lambda: k1.gather_dot_forward(U, I, uu, ii),
-           lambda: k1.gather_dot_plain(U, I, uu, ii),
-           err, 8 * P + rows + 4 * P, 2 * P * D,
-           library_fn=lambda: (U[uu] * I[ii]).sum(-1))
-    dU, dI = k1.gather_dot_backward(U, I, uu, ii, gg)
-    pU, pI = k1.gather_dot_backward_plain(U, I, uu, ii, gg)
-    err = max(float((dU - pU).abs().max()), float((dI - pI).abs().max()))
-    atol, rtol = K1_TOL["backward"]
-    scale = max(float(pU.abs().max()), float(pI.abs().max()))
-    assert err <= atol + rtol * scale, f"gather_dot backward error {err}"
-    record("gather_dot_backward",
-           lambda: k1.gather_dot_backward(U, I, uu, ii, gg),
-           lambda: k1.gather_dot_backward_plain(U, I, uu, ii, gg),
-           err, 12 * P + rows + (U.numel() + I.numel()) * 4, 4 * P * D,
-           library_fn=lambda: library_gather_dot_backward(U, I, uu, ii, gg))
+    check_k1(record, U, I, uu, ii, gg)
+    k1_step = (U, I, uu, ii)  # its plan is timed after B6's
 
     # ---- K1-bf16: the same step's pairs on bf16 tables (compute_dtype) --
-    check_k1_bf16(record, U.to(torch.bfloat16), I.to(torch.bfloat16), uu, ii,
-                  gg.to(torch.bfloat16))
+    check_k1(record, U.to(torch.bfloat16), I.to(torch.bfloat16), uu, ii, gg.to(torch.bfloat16))
 
     # ---- K4: one dense eval tile of the validation split ----------------
     ev = FullSortEvaluator(config)
@@ -1411,88 +1410,161 @@ def kernel_checks(dev):
     N, R = cdataset.num_total_item, step_ids[0].shape[0]
     lr = float(cconfig["learning_rate"])
     P0 = 0.1 * torch.randn(N, D, device=dev, generator=g)
-    grads = [torch.round(64 * torch.randn(R, D, device=dev, generator=g)) / 64
-             for _ in range(B6_STEPS)]
-    firstpos = b6.first_position_scratch(N, dev)
-    kern = (P0.clone(), torch.zeros_like(P0), torch.zeros_like(P0))
-    plain = (P0.clone(), torch.zeros_like(P0), torch.zeros_like(P0))
+    grads = [torch.randn(R, D, device=dev, generator=g) for _ in range(B6_STEPS)]
+    scratch = row_groups.group_scratch(N, dev)
+    runs = [(P0.clone(), torch.zeros_like(P0), torch.zeros_like(P0)) for _ in range(2)]
+    plain = (P0.cpu(), torch.zeros(N, D), torch.zeros(N, D))
     tp = torch.nn.Parameter(P0.clone())
     topt = torch.optim.SparseAdam([tp], lr=lr)
     for c, (ids, G) in enumerate(zip(step_ids, grads), 1):
         step = b6.adam_step_size(lr, 0.9, 0.999, c)
-        b6.sparse_adam(*kern, G, ids, step, firstpos=firstpos)
-        b6.sparse_adam_plain(*plain, G, ids, step, 0.9, 0.999, 1e-8)
+        for state in runs:  # each run groups the ids anew on the same kept scratch
+            b6.sparse_adam(*state, G, ids, step, groups=row_groups.group_rows(ids, N, scratch))
+        b6.sparse_adam_plain(*plain, G.cpu(), ids.cpu(), step, 0.9, 0.999, 1e-8)
         tp.grad = torch.sparse_coo_tensor(ids.long()[None], G, (N, D))
         topt.step()
     st = topt.state[tp]
-    atol, rtol = B6_TOL
+    kern = runs[0]
     err = err_torch = 0.0
-    for name, got, want, torch_want in zip(("p", "mu", "nu"), kern, plain,
-                                           (tp.detach(), st["exp_avg"], st["exp_avg_sq"])):
-        for ref_name, ref in (("plain", want), ("torch.optim.SparseAdam", torch_want)):
-            diff = (got - ref).abs()
-            assert bool((diff <= atol * float(ref.abs().max()) + rtol * ref.abs()).all()), \
-                f"sparse_adam {name} against {ref_name}: error {float(diff.max())}"
-        err = max(err, float((got - want).abs().max()))
-        err_torch = max(err_torch, float((got - torch_want).abs().max()))
-    print(f"  sparse_adam: {B6_STEPS} steps, max_abs_err against torch.optim.SparseAdam "
-          f"{err_torch:.3g}", flush=True)
-    assert bool((firstpos == b6.INT32_MAX).all()), "sparse_adam left its scratch dirty"
+    for name, got, again, want, torch_want in zip(
+            ("p", "mu", "nu"), kern, runs[1], plain,
+            (tp.detach(), st["exp_avg"], st["exp_avg_sq"])):
+        assert torch.equal(got, again), f"sparse_adam {name} does not repeat"
+        check_b6_plain(name, got, want)
+        atol, rtol = B6_TOL["torch.optim.SparseAdam"]
+        diff, scale = (got - torch_want).abs(), torch_want.abs()
+        assert bool((diff <= atol * float(scale.max()) + rtol * scale).all()), \
+            f"sparse_adam {name} against torch.optim.SparseAdam: error {float(diff.max())}"
+        err = max(err, float((got.cpu() - want).abs().max()))
+        err_torch = max(err_torch, float(diff.max()))
+    assert not scratch[0].any(), "group_rows left its counters dirty"
+    print(f"  sparse_adam: {B6_STEPS} steps on random normal gradients, max_abs_err {err:.3g} "
+          f"against the plain version on CPU copies, bit-equal run to run; max_abs_err "
+          f"against torch.optim.SparseAdam {err_torch:.3g}", flush=True)
     ids, G = step_ids[0], grads[0]
     step = b6.adam_step_size(lr, 0.9, 0.999, 1)
-    n_rows = int(torch.unique(ids).numel())
+    groups = row_groups.group_rows(ids, N, scratch)
+    check_plan(groups, ids, N)
+    n_own, n_rows = (int(x) for x in groups.meta[:2])
+    plain_dev = (P0.clone(), torch.zeros_like(P0), torch.zeros_like(P0))
     record("sparse_adam",
-           lambda: b6.sparse_adam(*kern, G, ids, step, firstpos=firstpos),
-           lambda: b6.sparse_adam_plain(*plain, G, ids, step, 0.9, 0.999, 1e-8),
-           err, G.numel() * 4 + R * 4 + 6 * n_rows * D * 4, n_rows * D * 12 + R * D,
+           lambda: b6.sparse_adam(*kern, G, ids, step, groups=groups),
+           lambda: b6.sparse_adam_plain(*plain_dev, G, ids, step, 0.9, 0.999, 1e-8),
+           err, 4 * n_own + G.numel() * 4 + 6 * n_rows * D * 4, n_rows * D * 12 + R * D,
            library_fn=topt.step)
-    del kern, plain, tp, topt, P0, grads, firstpos
+    record("group_rows",
+           lambda: row_groups.group_rows(ids, N, scratch),
+           lambda: row_groups.group_rows_plain(ids, N),
+           0.0, *plan_work(R, n_own, n_rows), library_fn=lambda: torch.sort(ids, stable=True))
+    del runs, kern, plain, plain_dev, tp, topt, P0, grads, scratch
+
+    # ---- the plan of K1's dense step (both tables' ids in one launch) ------
+    Uk, Ik, uu, ii = k1_step
+    P, D = uu.shape[0], Uk.shape[1]
+    gu, gi = k1.backward_groups(Uk, Ik, uu, ii)  # anew: a plan's row_head holds until the next
+    check_plan(gu, uu, Uk.shape[0])
+    check_plan(gi, ii, Ik.shape[0])
+    n_heads = int(gu.meta[1]) + int(gi.meta[1])
+    record("group_rows",
+           lambda: k1.backward_groups(Uk, Ik, uu, ii),
+           lambda: (row_groups.group_rows_plain(uu, Uk.shape[0]),
+                    row_groups.group_rows_plain(ii, Ik.shape[0])),
+           0.0, *plan_work(2 * P, 2 * P, n_heads),
+           library_fn=lambda: (torch.sort(uu, stable=True), torch.sort(ii, stable=True)),
+           shape="K1's dense step, both tables")
+
+    # ---- the row-sharded lookup's backward: a dense step's user rows, m = 2
+    L = -(-Uk.shape[0] // 2)
+    src = torch.randn(P, D, device=dev, generator=g)
+    lookup = row_groups.group_rows(uu, L, row_groups.group_scratch(L, dev))
+    got = row_groups.row_sum(src, uu, lookup)
+    want = row_groups.row_sum_plain(src.cpu(), lookup, uu.cpu())
+    assert torch.equal(got.cpu(), want) and torch.equal(got, row_groups.row_sum(src, uu, lookup)), \
+        "row_sum differs from its plain version or between runs"
+    n_own, n_rows = (int(x) for x in lookup.meta[:2])
+    own = uu.long() < L
+    record("row_sum", lambda: row_groups.row_sum(src, uu, lookup),
+           lambda: row_groups.row_sum_plain(src, lookup, uu),
+           0.0, 4 * n_own + n_own * D * 4 + L * D * 4, n_own * D,
+           library_fn=lambda: torch.zeros(L, D, device=dev).index_add_(
+               0, uu.long()[own], src[own]))
 
     # ---- B2a: popularity negatives of one epoch of the source stream ------
     popularity_checks(dev, g, ctrain, cdataset, record)
     return out
 
 
-def check_k1_bf16(record, Ub, Ib, uu, ii, gb):
-    """Hold K1's bf16 form, forward and backward, against its plain version
-    on one step's 16-bit tables, ids and score gradients within
-    ``K1_BF16_TOL``, and time both directions through ``record``."""
+def k1_rescans(dev):
+    """The count of K1 backward tables read by position whose ids broke
+    the promise and were recomputed, on ``dev`` so far."""
+    from recbole_cdr_tpu_torch.ops import gather_dot as k1
+
+    return k1.positions_rescans(dev)
+
+
+def check_no_rescans(dev, before, where):
+    """Fail if a K1 backward of the run since ``before`` (the count of
+    :func:`k1_rescans`) had to recompute a table read by position: the
+    path's ids must keep the promise, or it runs many times slower."""
+    after = k1_rescans(dev)
+    print(f"K1 positions-form rescans in {where}: {after - before}", flush=True)
+    assert after == before, f"{where}: K1 recomputed {after - before} tables read by position"
+
+
+def check_k1(record, U, I, uu, ii, gg, positions=(False, False), shape=None):
+    """Hold K1 on one step's tables, ids and score gradients, forward and
+    backward, against its plain version, and time both directions through
+    ``record`` (under ``shape`` when given): float32 tables through
+    ``gather_dot_*`` (the forward within ``K1_TOL``), 16-bit ones through
+    ``gather_dot_*_bf16`` (within ``K1_BF16_TOL``); the backward, in the
+    forms ``positions`` asks for (``gather_dot.backward_groups``), within
+    ``K1_TOL["backward"]`` of the plain version on CPU copies and bit-equal
+    to a second run. Returns the backward's forms."""
     import torch
 
     from recbole_cdr_tpu_torch.ops import gather_dot as k1
 
-    P, D = uu.shape[0], Ub.shape[1]
-    a = k1.gather_dot_forward_bf16(Ub, Ib, uu, ii)
-    b = k1.gather_dot_plain(Ub, Ib, uu, ii)
-    absum = k1.gather_dot_plain(Ub.float().abs(), Ib.float().abs(), uu, ii)
+    P, D = uu.shape[0], U.shape[1]
+    wide = U.dtype == torch.float32
+    fwd, bwd = ("gather_dot_forward", "gather_dot_backward") if wide else \
+        ("gather_dot_forward_bf16", "gather_dot_backward_bf16")
+    forward, backward = getattr(k1, fwd), getattr(k1, bwd)
+    a = forward(U, I, uu, ii)
+    b = k1.gather_dot_plain(U, I, uu, ii)
+    assert a.dtype == U.dtype and torch.equal(a, forward(U, I, uu, ii)), f"{fwd} does not repeat"
     diff = (a.float() - b.float()).abs()
-    tol = torch.finfo(torch.bfloat16).eps * b.float().abs() + K1_BF16_TOL["forward"] * absum
-    assert a.dtype == torch.bfloat16 and bool((diff <= tol).all()), \
-        f"gather_dot_forward_bf16 error {float(diff.max())}"
-    rows16 = 2 * D * (torch.unique(uu).numel() + torch.unique(ii).numel())
-    print(f"  K1-bf16: {P} pairs on [{Ub.shape[0]}, {D}] and [{Ib.shape[0]}, {D}] bf16 tables",
-          flush=True)
-    record("gather_dot_forward_bf16",
-           lambda: k1.gather_dot_forward_bf16(Ub, Ib, uu, ii),
-           lambda: k1.gather_dot_plain(Ub, Ib, uu, ii),
-           float(diff.max()), 8 * P + rows16 + 2 * P, 2 * P * D,
-           library_fn=lambda: (Ub[uu] * Ib[ii]).sum(-1))
-    dU, dI = k1.gather_dot_backward_bf16(Ub, Ib, uu, ii, gb)
-    pU, pI = k1.gather_dot_backward_plain(Ub, Ib, uu, ii, gb)
-    aU, aI = k1.gather_dot_backward_plain(Ub.float().abs(), Ib.float().abs(), uu, ii,
-                                          gb.float().abs())
+    if wide:
+        atol, rtol = K1_TOL["forward"]
+        ok = float(diff.max()) <= atol + rtol * float(b.abs().max())
+    else:
+        absum = k1.gather_dot_plain(U.float().abs(), I.float().abs(), uu, ii)
+        ok = bool((diff <= torch.finfo(U.dtype).eps * b.float().abs()
+                   + K1_BF16_TOL["forward"] * absum).all())
+    assert ok, f"{fwd} error {float(diff.max())}"
+    size = U.element_size()
+    rows = size * D * (torch.unique(uu).numel() + torch.unique(ii).numel())
+    record(fwd, lambda: forward(U, I, uu, ii), lambda: k1.gather_dot_plain(U, I, uu, ii),
+           float(diff.max()), 8 * P + rows + size * P, 2 * P * D,
+           library_fn=lambda: (U[uu] * I[ii]).sum(-1), shape=shape)
+    groups = k1.backward_groups(U, I, uu, ii, positions)
+    runs = [backward(U, I, uu, ii, gg, groups) for _ in range(2)]
+    want = k1.gather_dot_backward_plain(*(t.cpu() for t in (U, I, uu, ii, gg)))
+    atol, rtol = K1_TOL["backward"]
     err = 0.0
-    for got, want, absum in ((dU, pU, aU), (dI, pI, aI)):
-        diff = (got.float() - want.float()).abs()
-        assert got.dtype == torch.bfloat16 and bool(
-            (diff <= K1_BF16_TOL["backward"] * absum + 1e-6).all()), \
-            f"gather_dot_backward_bf16 error {float(diff.max())}"
-        err = max(err, float(diff.max()))
-    record("gather_dot_backward_bf16",
-           lambda: k1.gather_dot_backward_bf16(Ub, Ib, uu, ii, gb),
-           lambda: k1.gather_dot_backward_plain(Ub, Ib, uu, ii, gb),
-           err, 10 * P + rows16 + (Ub.numel() + Ib.numel()) * 2, 4 * P * D,
-           library_fn=lambda: library_gather_dot_backward(Ub, Ib, uu, ii, gb))
+    for got, again, ref in zip(*runs, want):
+        assert got.dtype == U.dtype and torch.equal(got, again), f"{bwd} does not repeat"
+        d = float((got.cpu().float() - ref.float()).abs().max())
+        assert d <= atol + rtol * float(ref.float().abs().max()), f"{bwd} error {d}"
+        err = max(err, d)
+    forms = ["positions" if s == k1.POSITIONS else "grouped" for s in groups]
+    print(f"  K1 {U.dtype}: {P} pairs on [{U.shape[0]}, {D}] and [{I.shape[0]}, {D}] tables, "
+          f"backward forms {forms}: bit-equal to the plain version on CPU copies and run to "
+          "run", flush=True)
+    record(bwd, lambda: backward(U, I, uu, ii, gg, groups),
+           lambda: k1.gather_dot_backward_plain(U, I, uu, ii, gg),
+           err, (8 + size) * P + rows + (U.numel() + I.numel()) * size, 4 * P * D,
+           library_fn=lambda: library_gather_dot_backward(U, I, uu, ii, gg), shape=shape)
+    return groups
 
 
 def library_gather_dot_backward(U, I, u, i, g):
@@ -1503,6 +1575,41 @@ def library_gather_dot_backward(U, I, u, i, g):
     u, i = u.long(), i.long()
     return (torch.zeros_like(U).index_add_(0, u, g[:, None] * I[i]),
             torch.zeros_like(I).index_add_(0, i, g[:, None] * U[u]))
+
+
+def check_b6_plain(name, got, want):
+    """B6's ``got`` (p, mu or nu on the card) against the plain version's
+    ``want`` on CPU copies, within ``B6_TOL["plain"]``."""
+    atol, rtol = B6_TOL["plain"]
+    diff = (got.cpu() - want).abs()
+    assert bool((diff <= atol * float(want.abs().max()) + rtol * want.abs()).all()), \
+        f"sparse_adam {name}: error {float(diff.max())} against its plain version"
+
+
+def check_plan(groups, ids, n_rows, offset=0):
+    """A plan of the card (``ops/row_groups.py::group_rows``) equal to its
+    plain version on CPU copies, heads in row order (the card's come in no
+    set order), every head's ``row_head`` entry naming it, the same heads
+    listed as big."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import row_groups
+
+    want = row_groups.group_rows_plain(ids.cpu(), n_rows, offset)
+    assert torch.equal(groups.meta[:3].cpu(), want.meta[:3]), (groups.meta, want.meta)
+    for a, b in zip(row_groups.canonical(groups), row_groups.canonical(want)):
+        assert torch.equal(a, b), "group_rows differs from its plain version"
+    H, n_big = int(want.meta[1]), int(want.meta[2])
+    heads = groups.row_head[groups.head_row[:H].long()]
+    assert torch.equal(heads.cpu(), torch.arange(H, dtype=torch.int32)), "row_head"
+    big_rows = [torch.sort(g.head_row[g.big[:n_big].long()].cpu()).values for g in (groups, want)]
+    assert torch.equal(*big_rows), "group_rows lists other big heads"
+
+
+def plan_work(R, n_own, n_heads):
+    """(bytes, operations) a plan must move and do: read R ids, write the
+    own positions, and per head its row, start, length and map entry."""
+    return 4 * R + 4 * n_own + 16 * n_heads + 8, 4 * R
 
 
 def popularity_checks(dev, g, ctrain, cdataset, record):
@@ -3006,6 +3113,9 @@ def main():
     counts = {"dense": ops.launch_counts()}
     hist = _report_run(result, wall, counts["dense"], DENSE_PATH)
     assert len(hist) == EPOCHS and hist[-1]["loss"] < hist[0]["loss"], hist
+    c = counts["dense"]  # one plan launch (both tables' ids) per K1 backward
+    assert c["group_rows"] == c["gather_dot_backward"], c
+    check_repeats("CMF", config_dict(), result, saved=False)
 
     print("== phase 4: catalog path, run_recbole_cdr(model='CMF', phase_optimizer='sparse') "
           "with streaming evaluation", flush=True)
@@ -3015,12 +3125,16 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    rescans = k1_rescans(dev)
     t0 = time.perf_counter()
     result = run_recbole_cdr(model="CMF", config_dict=catalog_config(), saved=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts["catalog"] = ops.launch_counts()
+    counts["catalog"] = c = ops.launch_counts()
     hist = _report_run(result, wall, counts["catalog"], CATALOG_PATH)
+    # K1 reads the step's sub-tables by position: one plan per B6 call
+    assert c["group_rows"] == c["sparse_adam"] == 2 * c["gather_dot_backward"], c
+    check_no_rescans(dev, rescans, "phase 4")
     model = result["model"]
     assert all(p.grad is None for p in model.parameters()), "a table gradient was allocated"
     state = 3 * sum(p.numel() * p.element_size() for p in model.parameters())
@@ -3097,7 +3211,8 @@ def main():
             print(line, flush=True)
     assert mesh is not None, "the mesh phase reported no results"
     records.update(mesh["records"])
-    records["sparse_adam"].setdefault("shapes", {}).update(mesh["b6_shapes"])
+    for name, shapes in mesh["b6_shapes"].items():  # B6's and its plan's
+        records[name].setdefault("shapes", {}).update(shapes)
     counts.update(mesh["counts"])
     print(f"mesh phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3184,6 +3299,10 @@ def main():
                              "recbole_cdr_tpu/models/deepapf.py:70"),
         "deepapf_grid": ("recbole_cdr_tpu_torch/csrc/deepapf_attention.cu",
                          "recbole_cdr_tpu/models/deepapf.py:70"),
+        "group_rows": ("recbole_cdr_tpu_torch/csrc/row_groups.cu",
+                       "recbole_cdr_tpu/trainer/trainer.py:274"),
+        "row_sum": ("recbole_cdr_tpu_torch/csrc/row_groups.cu",
+                    "recbole_cdr_tpu/parallel/mesh.py:131"),
     }
     for name in ("graph_layer_forward", "graph_layer_backward", "natr_attention_forward",
                  "natr_attention_backward", "natr_anchor_table", "natr_pair_grid",
@@ -3274,31 +3393,35 @@ def run_dtcdr_paths(counts):
         check_dtcdr_run(mode, cfg, result, hist, c)
         tests[name] = result["test_result"]
         if name == DTCDR_REPEATED:
-            check_repeats(cfg, result)
+            check_repeats("DTCDR", cfg, result, saved=True)
         del result
     # ~100x fewer candidates than full-sort
     assert tests["dtcdr_uniform"]["hit@10"] > tests["dtcdr_dmf"]["hit@10"], tests
     return tests
 
 
-def check_repeats(cfg, first):
-    """The run of ``cfg`` again with the same seed (its launches counted in
-    no path): its trained parameters bit-equal to ``first``'s, every
-    epoch's loss and every metric equal."""
+def check_repeats(model, cfg, first, saved):
+    """The run of ``model`` under ``cfg`` (``run_recbole_cdr``'s ``saved``)
+    again with the same seed (its launches counted in no path): its trained
+    parameters bit-equal to ``first``'s, every epoch's loss and every metric
+    equal."""
     import torch
 
-    from recbole_cdr_tpu_torch import run_recbole_cdr
+    from recbole_cdr_tpu_torch import ops, run_recbole_cdr
 
+    counts = ops.launch_counts()
     t0 = time.perf_counter()
-    second = run_recbole_cdr(model="DTCDR", config_dict=cfg, saved=True)
+    second = run_recbole_cdr(model=model, config_dict=cfg, saved=saved)
     torch.cuda.synchronize()
     added = time.perf_counter() - t0
+    for name, fn in ops.WRAPPERS.items():  # the first run's counts stay its own
+        fn.launches = counts[name]
     a, b = first["model"].state_dict(), second["model"].state_dict()
     differ = [k for k in a if not torch.equal(a[k], b[k])]
     losses = [[h["loss"] for h in r["history"]] for r in (first, second)]
-    print(f"repeated run (+{added:.2f} s): {len(a) - len(differ)} of {len(a)} parameters "
-          f"bit-equal; losses {losses[0]} and {losses[1]}; test {second['test_result']}",
-          flush=True)
+    print(f"repeated {model} run (+{added:.2f} s): {len(a) - len(differ)} of {len(a)} "
+          f"parameters bit-equal; losses {losses[0]} and {losses[1]}; test "
+          f"{second['test_result']}", flush=True)
     assert sorted(a) == sorted(b) and not differ, f"parameters differ run to run: {differ}"
     assert losses[0] == losses[1], losses
     assert first["test_result"] == second["test_result"], (first["test_result"],
@@ -3484,12 +3607,14 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
     k1_step = []
     real_k1 = k1._backward
 
-    def capture_k1(U, I, u, i, g, name):  # the launcher under the counting wrapper
+    def capture_k1(U, I, u, i, g, groups, name):  # the launcher under the counting wrapper
         if not k1_step and name == "gather_dot_backward_bf16":
-            k1_step.append(tuple(t.clone() for t in (U, I, u, i, g)))
-        return real_k1(U, I, u, i, g, name)
+            k1_step.append((*(t.clone() for t in (U, I, u, i, g)),
+                            tuple(s == k1.POSITIONS for s in groups)))
+        return real_k1(U, I, u, i, g, groups, name)
 
     k1._backward = capture_k1
+    rescans = k1_rescans("cuda")
     try:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -3500,6 +3625,7 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
     finally:
         k1._backward = real_k1
     counts["bf16_catalog"] = c = ops.launch_counts()
+    check_no_rescans("cuda", rescans, "9a")
     hist = _report_run(result, wall, c, BF16_CATALOG_PATH)
     model = result["model"]
     assert all(p.dtype == torch.float32 and p.grad is None for p in model.parameters())
@@ -3510,8 +3636,10 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
     tiles = sum(-(-h["valid_users"] // block) for h in hist) + -(-result["test_users"] // block)
     # a BOTH step: each domain's BATCH slots (positives and their negatives)
     steps = sum(h["train_examples"] for h in hist) // (2 * BATCH)
+    # K1 reads the step's sub-tables by position: the plans are B6's alone
     want = {"streaming_topk_bf16": tiles, "gather_dot_forward_bf16": steps,
-            "gather_dot_backward_bf16": steps, "sparse_adam": 2 * steps}
+            "gather_dot_backward_bf16": steps, "sparse_adam": 2 * steps,
+            "group_rows": 2 * steps}
     print(f"{steps} steps, {tiles} streaming tiles; launches {({k: c[k] for k in want})}, "
           f"expected {want}; peak allocation up to each validation "
           + ", ".join(f"{h['valid_peak_bytes'] / 2 ** 30:.3f} GiB" for h in hist), flush=True)
@@ -3521,7 +3649,9 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
     ref_9a = {"recall@10": result["test_result"]["recall@10"],
               "epochs": [{k: h[k] for k in ("train_seconds", "valid_seconds", "loss")}
                          for h in hist]}
-    del result, model
+    del model
+    check_repeats("CMF", bf16_catalog_config(), result, saved=False)
+    del result
     torch.cuda.empty_cache()
 
     drawn = []
@@ -3607,8 +3737,12 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
         torch.cuda.empty_cache()
 
     print("-- the kernels of phase 9 at its own shapes", flush=True)
-    check_k1_bf16(main_path_recorder(records, "9a, the first sparse step's sub-tables"),
-                  *k1_step[0])
+    Ub, Ib, u, i, gb, positions = k1_step[0]
+    assert all(positions), "9a's K1 did not read its sub-tables by position"
+    check_k1(main_path_recorder(records, "9a, the first sparse step's sub-tables"),
+             Ub, Ib, u, i, gb, positions)
+    check_k1(main_path_recorder(records, "9a's first sparse step's sub-tables in float32"),
+             Ub.float(), Ib.float(), u, i, gb.float(), positions)
     for call in drawn:
         check_b2a(lambda *a, **k: None, call)
     largest = max(drawn, key=lambda d: d[2].shape[0])
@@ -3882,8 +4016,9 @@ def run_mesh_paths(dev, refs):
     """Phase 10 (the ``--mesh`` child): 10a ``check_b14``, then the 10b and
     10c runs with their checks; then phase 14 (``run_phase14_paths``) against
     ``refs``, phase 9a's and phase 8's results. Returns {"records": B14's
-    records, "b6_shapes": B6's row-shard records, "counts": {"mesh": 10b's
-    launch counts, "mesh_host": 10c's, and phase 14's}}."""
+    records, "b6_shapes": the row-shard records of B6 and its plan by kernel,
+    "counts": {"mesh": 10b's launch counts, "mesh_host": 10c's, and phase
+    14's}}."""
     import torch
     import torch.distributed as dist
 
@@ -3956,7 +4091,7 @@ def run_mesh_paths(dev, refs):
 def run_phase14_paths(dev, refs, counts):
     """Phase 14 (see the module's docstring): 14b, then 14a on 14b's first
     item-table step, then 14c. Keeps the runs' launch counts in ``counts``;
-    returns B6's row-shard records by shape."""
+    returns the row-shard records of B6 and its plan by kernel and shape."""
     import torch
     import torch.distributed as dist
 
@@ -3973,6 +4108,7 @@ def run_phase14_paths(dev, refs, counts):
         return real_b6(p, mu, nu, g_rows, ids, *args, **kwargs)
 
     trainer_module.sparse_adam = capture_b6
+    rescans = k1_rescans(dev)
     try:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3983,6 +4119,7 @@ def run_phase14_paths(dev, refs, counts):
     finally:
         trainer_module.sparse_adam = real_b6
     counts["mesh_bf16_catalog"] = c = ops.launch_counts()
+    check_no_rescans(dev, rescans, "14b")
     hist = _report_run(result, wall, c, MESH_BF16_CATALOG_PATH)
     assert not dist.is_initialized(), "the run left its process group behind"
     assert len(hist) == CATALOG_EPOCHS and hist[-1]["loss"] < hist[0]["loss"], hist
@@ -3990,7 +4127,8 @@ def run_phase14_paths(dev, refs, counts):
                 [h["valid_users"] for h in hist] + [result["test_users"]])
     steps = sum(h["train_examples"] for h in hist) // (2 * BATCH)
     want = {"gather_dot_forward_bf16": steps, "gather_dot_backward_bf16": steps,
-            "sparse_adam": 2 * steps, "sharded_topk_local": tiles, "sharded_topk_merge": tiles}
+            "sparse_adam": 2 * steps, "group_rows": 2 * steps, "sharded_topk_local": tiles,
+            "sharded_topk_merge": tiles}
     print(f"{steps} steps, {tiles} streaming tiles; launches {({k: c[k] for k in want})}, "
           f"expected {want}", flush=True)
     assert all(c[k] == v for k, v in want.items()), (c, want)
@@ -4009,7 +4147,7 @@ def run_phase14_paths(dev, refs, counts):
     print("-- 14a: B6's row-shard form on the item table's first step of 14b", flush=True)
     shape, g_rows, ids, offset = max(calls, key=lambda call: call[0][0])
     assert offset == 0, offset
-    out = {"sparse_adam": {}}
+    out = {"sparse_adam": {}, "group_rows": {}}
     check_b6_shards(dev, make_recorder(out), shape, g_rows, ids)
     time_occurrence_gather(dev, g_rows, ids)
 
@@ -4035,36 +4173,37 @@ def run_phase14_paths(dev, refs, counts):
                    for k, v in want.items()), (result["test_result"], want)
         del result
         torch.cuda.empty_cache()
-    return out["sparse_adam"]["shapes"]
+    return {name: rec["shapes"] for name, rec in out.items()}
 
 
 def check_mesh_losses(got, want):
-    """Phase 14: a run's epoch losses over the one-rank mesh against the
-    same run's without it, within ``MESH_LOSS_RTOL``."""
-    assert len(got) == len(want), (got, want)
-    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
-    print(f"  epoch losses within {worst:.3g} of the run without the mesh (relative)", flush=True)
-    assert worst <= MESH_LOSS_RTOL, (got, want)
+    """Phase 14: a run's epoch losses over the one-rank mesh equal to the
+    same run's without it: one rank does the same arithmetic, and every sum
+    of K1, B6 and their plan runs in a fixed order."""
+    print(f"  epoch losses {got} over the mesh, {want} without it", flush=True)
+    assert got == want, (got, want)
 
 
 def check_b6_shards(dev, record, shape, g_rows, ids):
     """Phase 14a: B6's row-shard form on ``ids`` (a step's global
     occurrences) and ``g_rows`` for a table of ``shape``, split into ``m``
     shards of ceil(N / m) rows for every m of ``B6_SHARDS``, the last padded:
-    every shard against the plain version from the same random table and
-    moments (rows touched once bit-equal, coalesced rows within ``B6_TOL``,
-    untouched and pad rows unchanged), the last shard timed into
-    ``record`` under ``row shard m=<m>``, its library yardstick
-    ``torch.optim.SparseAdam.step`` on the shard's own occurrences."""
+    every shard, its plan built on the shard's kept scratch, against the
+    plain version on CPU copies from the same random table and moments
+    (``check_b6_plain``) and against a second run (bit-equal), untouched and
+    pad rows unchanged; the last shard's update
+    and plan timed into ``record`` under ``row shard m=<m>``, the update's
+    library yardstick ``torch.optim.SparseAdam.step`` on the shard's own
+    occurrences."""
     import torch
 
-    from recbole_cdr_tpu_torch.ops import sparse_adam as b6
+    from recbole_cdr_tpu_torch.ops import row_groups, sparse_adam as b6
 
     N, D = shape
     R = ids.shape[0]
     g = torch.Generator(device=dev).manual_seed(146)
     step = b6.adam_step_size(1e-3, 0.9, 0.999, 5)
-    atol, rtol = B6_TOL
+    ids_cpu, g_cpu = ids.cpu(), g_rows.cpu()
     for m in B6_SHARDS:
         L = -(-N // m)
         table = torch.zeros(L * m, D, device=dev)
@@ -4076,45 +4215,54 @@ def check_b6_shards(dev, record, shape, g_rows, ids):
             off = j * L
             rows = slice(off, off + L)
             start = {"p": table[rows], "mu": mu0[rows], "nu": nu0[rows]}
-            kern = tuple(t.clone() for t in start.values())
-            plain = tuple(t.clone() for t in start.values())
-            firstpos = b6.first_position_scratch(L, dev)
-            b6.sparse_adam(*kern, g_rows, ids, step, firstpos=firstpos, row_offset=off)
-            b6.sparse_adam_plain(*plain, g_rows, ids, step, 0.9, 0.999, 1e-8, off)
+            scratch = row_groups.group_scratch(L, dev)
+            runs = []
+            for _ in range(2):
+                state = tuple(t.clone() for t in start.values())
+                groups = row_groups.group_rows(ids, L, scratch, off)
+                b6.sparse_adam(*state, g_rows, ids, step, groups=groups, row_offset=off)
+                runs.append(state)
+            plain = tuple(t.cpu() for t in start.values())
+            b6.sparse_adam_plain(*plain, g_cpu, ids_cpu, step, 0.9, 0.999, 1e-8, off)
+            check_plan(groups, ids, L, off)
             local = ids.long() - off
             local = local[(local >= 0) & (local < L)]
-            hits = torch.bincount(local, minlength=L)
-            once, untouched = hits == 1, hits == 0
-            for (name, before), got, want in zip(start.items(), kern, plain):
-                assert torch.equal(got[once], want[once]), \
-                    f"sparse_adam m={m} shard {j}: {name} of a row touched once differs"
-                diff = (got - want).abs()
-                assert bool((diff <= atol * float(want.abs().max()) + rtol * want.abs()).all()), \
-                    f"sparse_adam m={m} shard {j}: {name} error {float(diff.max())}"
+            untouched = torch.bincount(local, minlength=L) == 0
+            for (name, before), got, again, want in zip(start.items(), *runs, plain):
+                assert torch.equal(got, again), f"sparse_adam m={m} shard {j}: {name} differs"
+                check_b6_plain(f"m={m} shard {j}: {name}", got, want)
                 assert torch.equal(got[untouched], before[untouched]), \
                     f"sparse_adam m={m} shard {j}: {name} of an untouched row changed"
-                err = max(err, float(diff.max()))
-            assert bool((firstpos == b6.INT32_MAX).all()), "sparse_adam left its scratch dirty"
-        n_own, n_rows = int(hits.sum()), int((hits > 0).sum())
-        print(f"  sparse_adam row shards m={m}: {R} occurrences a shard walks, the last shard "
-              f"(offset {off}, {L * m - N} pad rows) owns {n_own} of them in {n_rows} rows; "
-              f"rows touched once bit-equal, max error {err:.3g}", flush=True)
+                err = max(err, float((got.cpu() - want).abs().max()))
+            assert not scratch[0].any(), "group_rows left its counters dirty"
+        kern = runs[0]
+        n_own, n_rows = (int(x) for x in groups.meta[:2])
+        print(f"  sparse_adam row shards m={m}: the plan walks {R} occurrences, the update the "
+              f"last shard's own (offset {off}, {L * m - N} pad rows): {n_own} of them in "
+              f"{n_rows} rows; as the plain version (max_abs_err {err:.3g}), bit-equal run to "
+              "run", flush=True)
         own = ids.long() - off
         own_mask = (own >= 0) & (own < L)
         tp = torch.nn.Parameter(table[rows].clone())
         topt = torch.optim.SparseAdam([tp], lr=1e-3)
         sparse_grad = torch.sparse_coo_tensor(own[own_mask][None], g_rows[own_mask], (L, D))
+        plain_dev = tuple(t.clone() for t in start.values())
 
         def library():
             tp.grad = sparse_grad
             topt.step()
 
         record("sparse_adam",
-               lambda: b6.sparse_adam(*kern, g_rows, ids, step, firstpos=firstpos, row_offset=off),
-               lambda: b6.sparse_adam_plain(*plain, g_rows, ids, step, 0.9, 0.999, 1e-8, off),
-               err, R * 4 + n_own * D * 4 + 6 * n_rows * D * 4, n_rows * D * 12 + n_own * D,
+               lambda: b6.sparse_adam(*kern, g_rows, ids, step, groups=groups, row_offset=off),
+               lambda: b6.sparse_adam_plain(*plain_dev, g_rows, ids, step, 0.9, 0.999, 1e-8,
+                                            off),
+               err, 4 * n_own + n_own * D * 4 + 6 * n_rows * D * 4, n_rows * D * 12 + n_own * D,
                library_fn=library, shape=f"row shard m={m}")
-        del kern, plain, start, tp, topt, table, mu0, nu0
+        record("group_rows", lambda: row_groups.group_rows(ids, L, scratch, off),
+               lambda: row_groups.group_rows_plain(ids, L, off), 0.0,
+               *plan_work(R, n_own, n_rows), library_fn=lambda: torch.sort(ids, stable=True),
+               shape=f"row shard m={m}")
+        del kern, runs, plain, plain_dev, start, tp, topt, table, mu0, nu0
 
 
 def time_occurrence_gather(dev, g_rows, ids, reps=50):

@@ -7,16 +7,20 @@ parameters are ``torch.equal`` between the two runs, the largest difference
 of the others, and whether every epoch's loss and every test metric agree:
 
 - CMF on ``chip_smoke.py``'s dense pair (phase 3's configuration): K1's
-  backward adds each row's gradients by float atomics;
+  backward, which adds each row's gradients in position order;
 - DTCDR NeuMF (phase 7a's configuration, BOTH:2): torch's index backward
   behind the embedding gathers;
-- DTCDR DMF (phase 7d's, labeled): B11, whose sums run in a fixed order.
+- DTCDR DMF (phase 7d's, labeled): B11, whose sums run in a fixed order;
+- CLFM, DeepAPF and CoNet (phase 11's configurations, BOTH:2): torch's
+  index backward behind their embedding gathers.
 
-Run from the repository root on a machine with one NVIDIA GPU:
+Run from the repository root on a machine with one NVIDIA GPU; names after
+the script keep only the runs whose name starts with one of them:
 
-    python3 probe_repeatability.py
+    python3 probe_repeatability.py [CLFM DeepAPF ...]
 """
 
+import subprocess
 import sys
 import time
 
@@ -26,7 +30,8 @@ def runs():
 
     return (("CMF", "CMF", cs.config_dict()),
             ("DTCDR NeuMF", "DTCDR", cs.dtcdr_config("NeuMF", "full", 2)),
-            ("DTCDR DMF labeled", "DTCDR", cs.dtcdr_config("DMF", "labeled", 2)))
+            ("DTCDR DMF labeled", "DTCDR", cs.dtcdr_config("DMF", "labeled", 2)),
+            *((model, model, cs.phase11_config(model)) for model in ("CLFM", "DeepAPF", "CoNet")))
 
 
 def main():
@@ -38,8 +43,14 @@ def main():
     import chip_smoke as cs
     from recbole_cdr_tpu_torch import run_recbole_cdr
 
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     cs.gen_data()
+    only = sys.argv[1:]
     for name, model, cfg in runs():
+        if only and not any(name.startswith(o) for o in only):
+            continue
         results = []
         for _ in range(2):
             t0 = time.perf_counter()

@@ -2,139 +2,137 @@
 //
 // Replaces recbole_cdr_tpu/trainer/trainer.py:274-311 SparseAdam.row_update
 // (XLA scatter-min, scatter-add, gathers and scatters over the touched rows).
-// g[j] is the gradient of row ids[j]; duplicate ids are coalesced by summing
-// into the slot of their first occurrence ("head"), then every head row r
-// takes one lazy Adam step:
+// g[j] is the gradient of row ids[j]; duplicate ids are coalesced by
+// summation, then every touched row r takes one lazy Adam step:
 //   mu[r] = b1 mu[r] + (1 - b1) g_r,   nu[r] = b2 nu[r] + (1 - b2) g_r g_r
 //   p[r] += (-step_size) mu[r] / (sqrt(nu[r]) + eps)
 // with step_size = lr sqrt(1 - b2^c) / (1 - b1^c) computed by the caller in
 // float32. Rows that no id touches are not read or written.
 //
 // Row-shard form (a table row-sharded over a mesh's model axis): the table
-// passed in is one shard, global rows [row_offset, row_offset + L), and ids
-// are the GLOBAL rows of every occurrence of the step, every data rank's
+// passed in is one shard, global rows [row_offset, row_offset + L), and the
+// step's ids are the GLOBAL rows of every occurrence, every data rank's
 // (parallel/mesh.py::Mesh.gather_occurrences, padded with ids past every
-// shard). An occurrence outside [row_offset, row_offset + L) is skipped by
-// all three launches, so heads are the first occurrences of the shard's rows
-// in the global order and each rank updates only the rows it owns.
-// row_offset = 0 with L = N is the whole table. Every rank walks all R
-// occurrences of the step; about 1/m of them are its own.
+// shard). The plan of those ids over the shard's rows leaves out every
+// occurrence outside them, so each rank walks its own rows' occurrences
+// only. row_offset = 0 with L = N is the whole table.
 //
 // Bound on an H100: bytes. Per touched row the step reads p, mu, nu and
 // writes them back (6 D floats) plus its gradient rows; about 2 flops per
-// byte. In the row-shard form every rank also reads all R ids (and the
-// gradient rows of its own occurrences). Design, three launches, all O(R)
-// with no O(L) pass (r = ids[j] - row_offset below):
-//   1. one thread per occurrence: atomicMin of its position into firstpos[r]
-//      (an [L] int32 scratch the caller keeps filled with INT_MAX);
-//   2. one warp per occurrence: atomicAdd of its gradient row into the [R, D]
-//      accumulator slot of its head (the caller zeroes it). Duplicates add in
-//      a run-dependent order, so a coalesced row's last bits vary between
-//      runs; a row touched once is exact;
-//   3. one warp per occurrence: heads update their row in place and reset
-//      firstpos[r] to INT_MAX, so the scratch is ready for the next step
-//      without an O(N) fill. A non-head reads either its head's position or
-//      INT_MAX, never its own position, so the reset cannot race.
-// The arithmetic uses round-to-nearest intrinsics, so no multiply-add is
-// contracted and each operation rounds as torch's (and XLA's) separate
-// elementwise ops do.
+// byte.
+//
+// Design: one launch over the step's plan (csrc/row_groups.cu: each touched
+// row and its occurrences' positions, ascending; built by the caller, O(R)
+// with no pass over the table). G lanes a touched row (16 at D = 64: two rows
+// a warp), in 16-byte loads, add its occurrences' gradient rows in position
+// order (the order of the plain version's index_add_ on the CPU and of
+// torch's coalesce), then take the Adam step on p, mu and nu in registers;
+// a row of more than kBigTerms occurrences is summed by a whole block
+// (block_terms), then stepped a column a thread.
+// No float atomic, no [R, D] accumulator, no zero fill: two runs are
+// bit-equal. The arithmetic uses round-to-nearest intrinsics, so no
+// multiply-add is contracted and each operation rounds as torch's (and
+// XLA's) separate elementwise ops do.
 
-#include <climits>
 #include <cuda_runtime.h>
+
+#include "row_groups.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// ids[j]'s row in the shard [row_offset, row_offset + L), or -1 outside it
-__device__ __forceinline__ long long shard_row(const int* __restrict__ ids,
-                                               long long j, int L,
-                                               int row_offset) {
-  const long long r = (long long)ids[j] - row_offset;
-  return (r >= 0 && r < L) ? r : -1;
+// one element's Adam step from its coalesced gradient gc, in place
+__device__ __forceinline__ void adam(float& p, float& mu, float& nu, float gc, float neg_step,
+                                     float b1, float omb1, float b2, float omb2, float eps) {
+  const float m = __fadd_rn(__fmul_rn(b1, mu), __fmul_rn(omb1, gc));
+  const float v = __fadd_rn(__fmul_rn(b2, nu), __fmul_rn(__fmul_rn(omb2, gc), gc));
+  p = __fadd_rn(p, __fdiv_rn(__fmul_rn(neg_step, m), __fadd_rn(__fsqrt_rn(v), eps)));
+  mu = m;
+  nu = v;
 }
 
-__global__ void first_position_kernel(const int* __restrict__ ids,
-                                      int* __restrict__ firstpos, int R, int L,
-                                      int row_offset) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= R) return;
-  const long long r = shard_row(ids, j, L, row_offset);
-  if (r >= 0) atomicMin(firstpos + r, j);
-}
-
-__global__ void coalesce_kernel(const float* __restrict__ g,
-                                const int* __restrict__ ids,
-                                const int* __restrict__ firstpos,
-                                float* __restrict__ acc, int R, int D, int L,
-                                int row_offset) {
-  const long long j = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (j >= R) return;  // uniform across the warp
-  const long long r = shard_row(ids, j, L, row_offset);
-  if (r < 0) return;  // another shard's row, or padding
-  const long long fp = firstpos[r];
-  for (int d = lane; d < D; d += 32)
-    atomicAdd(acc + fp * D + d, g[j * D + d]);
-}
-
-__global__ void row_update_kernel(float* __restrict__ p, float* __restrict__ mu,
-                                  float* __restrict__ nu,
-                                  const int* __restrict__ ids,
-                                  int* __restrict__ firstpos,
-                                  const float* __restrict__ acc, int R, int D,
-                                  int L, int row_offset, float neg_step,
-                                  float b1, float omb1, float b2, float omb2,
-                                  float eps) {
-  const long long j = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (j >= R) return;
-  const long long r = shard_row(ids, j, L, row_offset);
-  if (r < 0) return;
-  const bool head = firstpos[r] == j;
-  __syncwarp();  // every lane has read firstpos before the head resets it
-  if (!head) return;
-  const long long row = r * D;
-  for (int d = lane; d < D; d += 32) {
-    const float gc = acc[j * D + d];
-    const float m = __fadd_rn(__fmul_rn(b1, mu[row + d]), __fmul_rn(omb1, gc));
-    const float v = __fadd_rn(__fmul_rn(b2, nu[row + d]),
-                              __fmul_rn(__fmul_rn(omb2, gc), gc));
-    const float upd = __fdiv_rn(__fmul_rn(neg_step, m),
-                                __fadd_rn(__fsqrt_rn(v), eps));
-    p[row + d] = __fadd_rn(p[row + d], upd);
-    mu[row + d] = m;
-    nu[row + d] = v;
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+adam_kernel(float* __restrict__ p, float* __restrict__ mu, float* __restrict__ nu,
+            const float* __restrict__ g, int D, GroupsView gr, float neg_step, float b1,
+            float omb1, float b2, float omb2, float eps) {
+  extern __shared__ float smem[];
+  const RowGeo geo = row_geo<VEC>(D);
+  const int lane = threadIdx.x & 31, sub = lane / geo.G, gl = lane % geo.G;
+  const int H = __ldg(gr.meta + 1);
+  const long long warp = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const long long warps = ((long long)gridDim.x * kThreads) >> 5;
+  for (long long h0 = warp * geo.per_warp; h0 < H; h0 += warps * geo.per_warp) {
+    const int h = (int)(h0 + sub);
+    if (h >= H) continue;  // a whole row group: add_terms shuffles within it
+    const long long row = (long long)__ldg(gr.head_row + h) * D;
+    const int st = __ldg(gr.head_start + h), n = __ldg(gr.head_len + h);
+    if (n > kBigTerms) continue;  // a block's, below
+    for (int s = 0; s < geo.steps; ++s) {
+      const int d = (s * geo.G + gl) * VEC;
+      float gc[VEC];
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) gc[t] = 0.f;
+      // a head's occurrences are few (more go to a block): 4 rows in flight
+      add_terms<VEC, 4, false>(n, [&](int k) { return Term{__ldg(gr.pos + st + k), 1.f}; }, g,
+                               D, d, geo, gc);
+      if (d >= D) continue;
+      float pv[VEC], mv[VEC], nv[VEC];
+      load_vec<VEC>(p + row + d, pv);
+      load_vec<VEC>(mu + row + d, mv);
+      load_vec<VEC>(nu + row + d, nv);
+#pragma unroll
+      for (int t = 0; t < VEC; ++t)
+        adam(pv[t], mv[t], nv[t], gc[t], neg_step, b1, omb1, b2, omb2, eps);
+      store_vec<VEC>(p + row + d, pv);
+      store_vec<VEC>(mu + row + d, mv);
+      store_vec<VEC>(nu + row + d, nv);
+    }
   }
-  if (lane == 0) firstpos[r] = INT_MAX;
+  // the heads of more than kBigTerms occurrences, a block each
+  const int n_big = __ldg(gr.meta + 2);
+  for (int b = blockIdx.x; b < n_big; b += gridDim.x) {
+    const int h = __ldg(gr.big + b), st = __ldg(gr.head_start + h);
+    const float* gc = block_terms<VEC, false>(
+        __ldg(gr.head_len + h), [&](int k) { return Term{__ldg(gr.pos + st + k), 1.f}; }, g, D,
+        smem);
+    const long long row = (long long)__ldg(gr.head_row + h) * D;
+    for (int c = threadIdx.x; c < D; c += kThreads)
+      adam(p[row + c], mu[row + c], nu[row + c], gc[c], neg_step, b1, omb1, b2, omb2, eps);
+    __syncthreads();  // gc is rewritten by the next head
+  }
+}
+
+template <int VEC>
+int launch(float* p, float* mu, float* nu, const float* g, int R, int D, const GroupsView& gr,
+           float neg_step, float b1, float omb1, float b2, float omb2, float eps,
+           cudaStream_t st) {
+  // at most R heads; the kernel reads how many there are
+  const int blocks = grid_for(R, kWarps * row_geo<VEC>(D).per_warp, 8);
+  if (blocks <= 0) return (int)cudaErrorInvalidDevice;
+  adam_kernel<VEC><<<blocks, kThreads, big_smem_bytes(D), st>>>(p, mu, nu, g, D, gr, neg_step,
+                                                                b1, omb1, b2, omb2, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// p, mu, nu: [L, D] float32, global rows [row_offset, row_offset + L),
-// updated in place; g: [R, D]; ids: [R] global rows (others skipped);
-// firstpos: [L] int32 holding INT_MAX (left so); acc: [R, D] zeros
-extern "C" int sparse_adam(void* p, void* mu, void* nu, const void* g,
-                           const void* ids, void* firstpos, void* acc, int R,
-                           int D, int L, int row_offset, float step_size,
-                           float b1, float omb1, float b2, float omb2,
-                           float eps, void* stream) {
-  if (R <= 0) return (int)cudaGetLastError();
+// p, mu, nu: [L, D] float32, the shard's rows, updated in place; g: [R, D]
+// the occurrences' gradient rows; plan: the plan of the occurrences' ids over
+// the shard's rows (meta, head_row, head_start, head_len, pos, row_head, big;
+// csrc/row_groups.cu). vec: 1 when D % 4 == 0 and p, mu, nu, g are 16-byte
+// aligned, else 0.
+extern "C" int sparse_adam(void* p, void* mu, void* nu, const void* g, int R, int D,
+                           const void* const* plan, float step_size, float b1, float omb1,
+                           float b2, float omb2, float eps, int vec, void* stream) {
+  if (D <= 0 || D > kMaxD || R < 0) return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaGetLastError();
+  const GroupsView gr = groups_view(plan);
   cudaStream_t st = (cudaStream_t)stream;
-  const int* id = (const int*)ids;
-  int* fp = (int*)firstpos;
-  first_position_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      id, fp, R, L, row_offset);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const unsigned warp_blocks = (unsigned)((R + kWarps - 1) / kWarps);
-  coalesce_kernel<<<warp_blocks, kThreads, 0, st>>>(
-      (const float*)g, id, fp, (float*)acc, R, D, L, row_offset);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  row_update_kernel<<<warp_blocks, kThreads, 0, st>>>(
-      (float*)p, (float*)mu, (float*)nu, id, fp, (const float*)acc, R, D, L,
-      row_offset, -step_size, b1, omb1, b2, omb2, eps);
-  return (int)cudaGetLastError();
+  return vec ? launch<4>((float*)p, (float*)mu, (float*)nu, (const float*)g, R, D, gr,
+                         -step_size, b1, omb1, b2, omb2, eps, st)
+             : launch<1>((float*)p, (float*)mu, (float*)nu, (const float*)g, R, D, gr,
+                         -step_size, b1, omb1, b2, omb2, eps, st);
 }

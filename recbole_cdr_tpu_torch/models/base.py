@@ -238,25 +238,34 @@ class CrossDomainRecommender(nn.Module):
     def pair_rows(self, user_name: str, item_name: str, user, item):
         """K1's operands for the pairs (user, item) of two tables: the tables
         and the int32 ids, or, where either table is row-sharded, the rows
-        the lookup gathered and each pair's position in them."""
+        the lookup gathered and each pair's position in them; last, which
+        tables the pairs read by position (``gather_dot``'s ``positions``):
+        gathered rows, and the sparse step's sub-tables (:meth:`sub_tables`),
+        whose row r is the step's r-th occurrence."""
         if user_name not in self.table_shards and item_name not in self.table_shards:
             return (getattr(self, user_name), getattr(self, item_name),
-                    user.to(torch.int32), item.to(torch.int32))
+                    user.to(torch.int32), item.to(torch.int32),
+                    (user_name in self.sub_table_names, item_name in self.sub_table_names))
         pos = torch.arange(user.shape[0], dtype=torch.int32, device=user.device)
-        return self.rows(user_name, user), self.rows(item_name, item), pos, pos
+        return self.rows(user_name, user), self.rows(item_name, item), pos, pos, (True, True)
+
+    #: the tables the sparse step has substituted by sub-tables (:meth:`sub_tables`)
+    sub_table_names = frozenset()
 
     @contextlib.contextmanager
-    def shards_suspended(self, names):
-        """Within the block, the tables ``names`` read as whole tables: the
-        sparse step substitutes each by the [R, D] sub-table of the step's
-        rows (gathered once through the lookup), so :meth:`rows` must index
-        the substitute directly, not at the shard's offset."""
-        saved = self.table_shards
-        self.table_shards = {n: s for n, s in saved.items() if n not in names}
+    def sub_tables(self, names):
+        """Within the block, the tables ``names`` are the sparse step's [R, D]
+        sub-tables of the step's occurrences (gathered once, through the
+        lookup for a row-sharded table), which the batch's re-based ids index
+        by position: :meth:`rows` indexes each directly, not at a shard's
+        offset, and :meth:`pair_rows` marks it read by position."""
+        saved = self.table_shards, self.sub_table_names
+        self.table_shards = {n: s for n, s in saved[0].items() if n not in names}
+        self.sub_table_names = frozenset(names)
         try:
             yield
         finally:
-            self.table_shards = saved
+            self.table_shards, self.sub_table_names = saved
 
     def table_columns(self, name: str, n: int):
         """(this rank's rows of ``table[:n]``, their first global row): the

@@ -65,8 +65,8 @@ class CMF(CrossDomainRecommender):
         tu, ti = batch[self.TARGET_USER_ID], batch[self.TARGET_ITEM_ID]
         n = su.shape[0]
         # both domains' pairs in one kernel call
-        U, I, u, i = self._pairs(torch.cat([su, tu]), torch.cat([si, ti]))
-        logits = gather_dot(U, I, u, i)
+        U, I, u, i, positions = self._pairs(torch.cat([su, tu]), torch.cat([si, ti]))
+        logits = gather_dot(U, I, u, i, positions)
         # EmbLoss's norms only where its coefficient is not 0 (they would add
         # exactly 0 to the loss and its grads)
         rows = lambda part, coef: [U[u[part].long()], I[i[part].long()]] if coef else None

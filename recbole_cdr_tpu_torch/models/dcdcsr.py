@@ -268,7 +268,7 @@ class DCDCSR(CrossDomainRecommender):
         else:
             tables = self._scoring_tables(self.phase)
             keys = (self.TARGET_USER_ID, self.TARGET_ITEM_ID)
-        return gather_dot_forward(*self.pair_rows(*tables, batch[keys[0]], batch[keys[1]]))
+        return gather_dot_forward(*self.pair_rows(*tables, batch[keys[0]], batch[keys[1]])[:4])
 
     def full_sort(self, users, phase: str = "TARGET"):
         user_table, items = self._scorers(phase)

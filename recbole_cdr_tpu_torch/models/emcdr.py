@@ -114,12 +114,12 @@ class EMCDR(CrossDomainRecommender):
     def _domain_loss(self, batch, prefix, uid_key, iid_key, neg_key, label_key, w_key):
         user, n = batch[uid_key], batch[uid_key].shape[0]
         if not self.is_pairwise:
-            U, I, u, i = self.pair_rows(*self._names(prefix), user, batch[iid_key])
-            terms = (gather_dot(U, I, u, i) - batch[label_key]) ** 2  # MSE
+            U, I, u, i, positions = self.pair_rows(*self._names(prefix), user, batch[iid_key])
+            terms = (gather_dot(U, I, u, i, positions) - batch[label_key]) ** 2  # MSE
         else:
-            U, I, u, i = self.pair_rows(*self._names(prefix), torch.cat([user, user]),
-                                        torch.cat([batch[iid_key], batch[neg_key]]))
-            scores = gather_dot(U, I, u, i)
+            U, I, u, i, positions = self.pair_rows(*self._names(prefix), torch.cat([user, user]),
+                                                   torch.cat([batch[iid_key], batch[neg_key]]))
+            scores = gather_dot(U, I, u, i, positions)
             terms = bpr_terms(scores[:n], scores[n:])
         # the loss's and EmbLoss's batch sums in one reduction
         sums = self.batch_sums(*domain_sums(terms, batch[w_key],
@@ -161,7 +161,7 @@ class EMCDR(CrossDomainRecommender):
             key = self.SOURCE_USER_ID if prefix == "source" else self.TARGET_USER_ID
             ikey = self.SOURCE_ITEM_ID if prefix == "source" else self.TARGET_ITEM_ID
             return gather_dot_forward(*self.pair_rows(*self._names(prefix), batch[key],
-                                                      batch[ikey]))
+                                                      batch[ikey])[:4])
         user = batch[self.TARGET_USER_ID].long()
         item = batch[self.TARGET_ITEM_ID].long()
         if self.mode == "overlap_users":

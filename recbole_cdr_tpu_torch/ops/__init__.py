@@ -17,6 +17,7 @@ from recbole_cdr_tpu_torch.ops import (
     neg_sampler,
     rank_sum,
     rating_vector,
+    row_groups,
     shuffle,
     sparse_adam,
     topk,
@@ -66,6 +67,8 @@ WRAPPERS = {
     "deepapf_forward_bf16": deepapf_attention.deepapf_forward_bf16,
     "deepapf_backward_bf16": deepapf_attention.deepapf_backward_bf16,
     "deepapf_grid_bf16": deepapf_attention.deepapf_grid_bf16,
+    "group_rows": row_groups.group_rows,
+    "row_sum": row_groups.row_sum,
 }
 
 

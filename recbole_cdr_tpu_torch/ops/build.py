@@ -26,7 +26,7 @@ import torch
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = ("gather_dot", "neg_sampler", "shuffle", "masked_topk", "streaming_topk",
            "sparse_adam", "graph_layer", "rank_sum", "natr_attention", "rating_vector",
-           "benchmark_topk", "conet_tower", "deepapf_attention")
+           "benchmark_topk", "conet_tower", "deepapf_attention", "row_groups")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,8 +60,9 @@ _F = ctypes.c_float
 #: C signatures: name -> (symbol, argtypes)
 _SIGNATURES = {
     "gather_dot": {
-        "gather_dot_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "gather_dot_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "gather_dot_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "gather_dot_backward": [_P] * 5 + [_I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                                           _P],
     },
     "neg_sampler": {
         "neg_sampler": [_P, _P, _I, _P, _I, ctypes.c_longlong, ctypes.c_uint,
@@ -81,8 +82,7 @@ _SIGNATURES = {
         "streaming_topk_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
     "sparse_adam": {
-        "sparse_adam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-                        _P],
+        "sparse_adam": [_P] * 4 + [_I, _I, _P] + [_F] * 6 + [_I, _P],
     },
     "graph_layer": {
         "graph_layer_forward": [_P] * 8 + [_I, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
@@ -112,6 +112,10 @@ _SIGNATURES = {
         "deepapf_grid": [_P] * 5 + [_I] * 4 + [_P] * 4 + [_I, _P, _I, _P],
         "deepapf_backward_blocks": [_I, _I, _I],
         "deepapf_backward": [_P] * 8 + [_I, _I] + [_P] * 5 + [_I, _P, _I, _P],
+    },
+    "row_groups": {
+        "row_groups_plan": [_I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P],
+        "row_sum": [_P] + [_I] * 4 + [_P] * 3,
     },
 }
 

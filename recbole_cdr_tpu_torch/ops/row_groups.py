@@ -1,0 +1,224 @@
+"""A step's ids grouped by row, and the row sum that reads the grouping.
+
+The grouping ("plan", :func:`group_rows`) of ids [R] over the rows
+``[offset, offset + L)`` of a table or of a shard of one lists each distinct
+row the ids name ("head") with the positions of its occurrences, in
+ascending order; ids outside the rows are left out. The fixed-order sums
+read it: K1's backward (``ops/gather_dot.py``), B6 (``ops/sparse_adam.py``)
+and the row-sharded lookup's backward (:func:`row_sum`), so that each runs
+in an order the ids alone fix and two runs on the card are bit-equal. It
+replaces the grouping XLA does inside its scatter-add and scatter-min
+(``recbole_cdr_tpu/models/cmf.py:45-48``'s autodiff,
+``recbole_cdr_tpu/trainer/trainer.py:274-311``).
+
+The kernels are ``csrc/row_groups.cu``: the plan is integer work only and
+O(R) a step, with two int32 arrays of L kept with the table between steps
+(:func:`group_scratch`), so a 1.1M-row table costs nothing per step. The
+card's heads come in no set order; each head's positions are in position
+order. The plain versions below (a stable sort, heads in row order) run for
+CPU tensors and serve as the kernels' reference.
+"""
+
+import ctypes
+import torch
+
+from recbole_cdr_tpu_torch.ops import build
+
+#: a head of more positions is summed by a whole block in the kernels that
+#: read a grouping (``kBigTerms`` of ``csrc/row_groups.cuh``)
+BIG_TERMS = 64
+
+
+class Groups:
+    """A grouping of ``R`` ids over rows ``[offset, offset + L)``, int32
+    tensors: ``meta[0]`` the ids inside the rows, ``meta[1]`` the heads H,
+    ``meta[2]`` the heads of more than :data:`BIG_TERMS` positions; for h <
+    H, ``head_row[h]`` its row (local: id - offset) and
+    ``pos[head_start[h]:head_start[h] + head_len[h]]`` its positions,
+    ascending; ``row_head[r]`` the head of local row r where
+    ``head_row[row_head[r]] == r`` (on the card the array is kept between
+    steps and never cleared, so other entries are stale; -1 in the plain
+    version); ``big[:meta[2]]`` the heads of more than :data:`BIG_TERMS`
+    positions, which the kernels sum a block each (in no set order on the
+    card). All but ``row_head`` lie in one int32 buffer: ``meta`` (4), then
+    ``head_row``, ``head_start``, ``head_len``, ``pos`` and ``big`` of
+    max(R, 1) each (and the card's scratch after them); the fields are views
+    of it."""
+
+    __slots__ = ("R", "L", "offset", "buf", "row_head")
+    _FIELDS = ("head_row", "head_start", "head_len", "pos", "big")
+
+    def __init__(self, R, L, offset, buf, row_head):
+        self.R, self.L, self.offset, self.buf, self.row_head = R, L, offset, buf, row_head
+
+    @property
+    def meta(self):
+        return self.buf[:4]
+
+    def _field(self, k):
+        n = max(self.R, 1)
+        return self.buf[4 + k * n:4 + (k + 1) * n]
+
+    head_row = property(lambda self: self._field(0))
+    head_start = property(lambda self: self._field(1))
+    head_len = property(lambda self: self._field(2))
+    pos = property(lambda self: self._field(3))
+    big = property(lambda self: self._field(4))
+
+    def pointers(self):
+        """A C array of the seven arrays' addresses (meta, head_row,
+        head_start, head_len, pos, row_head, big), in the order the kernels
+        take them (the caller keeps it alive across the launch)."""
+        base, n = self.buf.data_ptr(), 4 * max(self.R, 1)
+        return (ctypes.c_void_p * 7)(base, base + 16, base + 16 + n, base + 16 + 2 * n,
+                                     base + 16 + 3 * n, self.row_head.data_ptr(),
+                                     base + 16 + 4 * n)
+
+
+def group_scratch(n_rows: int, device) -> torch.Tensor:
+    """The kept scratch of a table (or shard) of ``n_rows`` rows: int32 [2,
+    n_rows], the counters (zeros, which every plan leaves so) and the row ->
+    head map (never cleared)."""
+    return torch.zeros((2, n_rows), dtype=torch.int32, device=device)
+
+
+def _local(ids, n_rows, offset):
+    local = ids.long() - offset
+    return local, (local >= 0) & (local < n_rows)
+
+
+def group_rows_plain(ids, n_rows: int, offset: int = 0) -> Groups:
+    """The grouping in torch: heads in row order, each head's positions
+    ascending (a stable sort by row)."""
+    R, dev = ids.shape[0], ids.device
+    local, own = _local(ids, n_rows, offset)
+    where = torch.nonzero(own).flatten()
+    order = torch.sort(local[where], stable=True).indices
+    pos = where[order]
+    heads, counts = torch.unique_consecutive(local[pos], return_counts=True)
+    H = heads.shape[0]
+
+    def padded(t):
+        out = torch.zeros(max(R, 1), dtype=torch.int32, device=dev)
+        out[:t.shape[0]] = t.to(torch.int32)
+        return out
+
+    row_head = torch.full((n_rows,), -1, dtype=torch.int32, device=dev)
+    row_head[heads] = torch.arange(H, dtype=torch.int32, device=dev)
+    big = torch.nonzero(counts > BIG_TERMS).flatten()
+    meta = torch.tensor([pos.shape[0], H, big.shape[0], 0], dtype=torch.int32, device=dev)
+    buf = torch.cat([meta, padded(heads), padded(torch.cumsum(counts, 0) - counts),
+                     padded(counts), padded(pos), padded(big)])
+    return Groups(R, n_rows, offset, buf, row_head)
+
+
+def canonical(groups: Groups):
+    """``(rows, lengths, positions)`` of a grouping with its heads in row
+    order, as int64 tensors on the CPU: equal for the card's plan and the
+    plain version's."""
+    meta = groups.meta.cpu()
+    H = int(meta[1])
+    rows = groups.head_row[:H].long().cpu()
+    order = torch.argsort(rows)
+    start = groups.head_start[:H].long().cpu()[order]
+    lens = groups.head_len[:H].long().cpu()[order]
+    pos = groups.pos.long().cpu()
+    parts = [pos[s:s + n] for s, n in zip(start.tolist(), lens.tolist())]
+    return rows[order], lens, torch.cat(parts) if parts else pos[:0]
+
+
+def _check_ids(ids, n_rows, scratch, offset):
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise TypeError("group_rows takes 1-D int32 ids")
+    if n_rows < 0 or not 0 <= offset <= 2 ** 31 - 1 - n_rows:
+        raise ValueError(f"group_rows: rows [{offset}, {offset} + {n_rows})")
+    if ids.device.type == "cpu":
+        return
+    if ids.device.type != "cuda":
+        raise ValueError(f"group_rows has no version for device {ids.device}")
+    if scratch is None or scratch.dtype != torch.int32 or scratch.shape != (2, n_rows) \
+            or scratch.device != ids.device or not scratch.is_contiguous():
+        raise ValueError("group_rows: scratch must be the rows' int32 [2, n_rows] "
+                         "group_scratch")
+
+
+def group_rows(ids, n_rows: int, scratch=None, offset: int = 0, second=None):
+    """The :class:`Groups` of int32 ``ids`` [R] over rows ``[offset, offset +
+    n_rows)``; on the card ``scratch`` is the rows' :func:`group_scratch`,
+    kept by the caller from step to step (a grouping's ``row_head`` holds
+    until the next plan on the same scratch). ``second``: another ``(ids,
+    n_rows, scratch, offset)`` grouped in the same launch; then both
+    groupings are returned, in that order."""
+    sets = [(ids, n_rows, scratch, offset)] + ([tuple(second)] if second else [])
+    for s in sets:
+        _check_ids(*s)
+    if len({s[0].device for s in sets}) != 1:
+        raise ValueError("group_rows: the ids must share one device")
+    if ids.device.type == "cpu":
+        out = tuple(group_rows_plain(i, n, off) for i, n, _, off in sets)
+        return out if second else out[0]
+    out, args = [], []
+    for i, n, sc, off in sets:
+        i = i.contiguous()
+        R = i.shape[0]
+        # the Groups buffer, then the kernel's scratch tick and tmp; meta first,
+        # 8-byte aligned: the kernel adds to its first two at once
+        S = max(R, 1)
+        buf = torch.empty(4 + 7 * S, dtype=torch.int32, device=i.device)
+        out.append(Groups(R, n, off, buf, sc[1]))
+        base, cnt = buf.data_ptr(), sc.data_ptr()
+        bufs = (ctypes.c_void_p * 10)(cnt, cnt + 4 * n, base,
+                                      *(base + 16 + 4 * S * k for k in range(7)))
+        args += [i.data_ptr(), R, n, off, ctypes.cast(bufs, ctypes.c_void_p)]
+    if not second:
+        args += [None, 0, 0, 0, None]
+    err = build.library("row_groups").row_groups_plan(len(sets), *args,
+                                                       build.stream_handle(ids))
+    build.check(err, "group_rows")
+    group_rows.launches += 1
+    return tuple(out) if second else out[0]
+
+
+group_rows.launches = 0
+
+
+def row_sum_plain(src, groups: Groups, ids):
+    """The rows of ``src`` whose ``ids`` fall in the grouping's rows added
+    into float32 zeros [L, D] in position order (``index_add_``), rounded
+    once to ``src``'s type: what ``index_add_`` in that type computes on
+    the CPU."""
+    local, own = _local(ids, groups.L, groups.offset)
+    out = torch.zeros((groups.L,) + tuple(src.shape[1:]), device=src.device)
+    return out.index_add_(0, local[own], src[own].float()).to(src.dtype)
+
+
+def row_sum(src, ids, groups: Groups):
+    """[L, D] of ``src``'s type: for each row of the grouping, the rows of
+    ``src`` [R, D] at its positions added in float32 in position order and
+    rounded once (0 for a row no id names), the function of
+    :func:`row_sum_plain`. ``groups``: the
+    :class:`Groups` of ``ids`` (the plain version on the CPU reads the ids
+    instead)."""
+    if src.dtype not in build.DTYPES or src.dim() != 2:
+        raise TypeError(f"row_sum takes [R, D] rows of a type of {tuple(build.DTYPES)}")
+    if ids.shape != (src.shape[0],) or groups.R != src.shape[0]:
+        raise ValueError(f"row_sum: {src.shape[0]} rows, {ids.shape[0]} ids, a grouping of "
+                         f"{groups.R}")
+    if src.device.type == "cpu":
+        return row_sum_plain(src, groups, ids)
+    if src.device.type != "cuda" or groups.meta.device != src.device:
+        raise ValueError(f"row_sum has no version for device {src.device}")
+    src = src.contiguous()
+    D = src.shape[1]
+    out = torch.empty((groups.L, D), dtype=src.dtype, device=src.device)
+    vec = int(D * src.element_size() % 16 == 0 and src.data_ptr() % 16 == 0
+              and out.data_ptr() % 16 == 0)
+    err = build.library("row_groups").row_sum(
+        src.data_ptr(), groups.L, D, build.DTYPES[src.dtype], vec, groups.pointers(),
+        out.data_ptr(), build.stream_handle(src))
+    build.check(err, "row_sum")
+    row_sum.launches += 1
+    return out
+
+
+row_sum.launches = 0

@@ -7,14 +7,21 @@ inserts the collective from the sharding annotations; here it is explicit:
 
 - forward: each rank gathers the rows it owns (zeros for the others), then
   one ``all_reduce(SUM)`` over the model group hands every rank all rows;
-- backward: each rank scatter-adds the upstream rows it owns into its
-  shard's gradient. Every rank of the group computed the same loss from the
-  same rows, so no collective is needed there; the data-parallel sum of the
-  gradients follows in the train step.
+- backward: each rank adds the upstream rows it owns into its shard's
+  gradient, each row's in position order (``ops/row_groups.py::row_sum``
+  over the grouping of the ids by the shard's rows: on the card no float
+  atomic, so the sums repeat run to run). Every rank of the group computed
+  the same loss from the same rows, so no collective is needed there; the
+  data-parallel sum of the gradients follows in the train step.
 """
 
 import torch
 import torch.distributed as dist
+
+from recbole_cdr_tpu_torch.ops.row_groups import group_rows, group_scratch, row_sum
+
+#: per (device, shard rows), the kept scratch of the backward's grouping
+_SCRATCH = {}
 
 
 class _ShardedLookup(torch.autograd.Function):
@@ -26,16 +33,21 @@ class _ShardedLookup(torch.autograd.Function):
         safe = torch.where(own, local, 0)
         rows = torch.where(own[:, None], shard[safe], 0).contiguous()
         dist.all_reduce(rows, group=group)
-        ctx.save_for_backward(safe, own)
-        ctx.shard_shape = shard.shape
+        ctx.save_for_backward(ids.to(torch.int32))
+        ctx.offset, ctx.n_rows = offset, shard.shape[0]
         return rows
 
     @staticmethod
     def backward(ctx, grad):
-        safe, own = ctx.saved_tensors
-        out = torch.zeros(ctx.shard_shape, dtype=grad.dtype, device=grad.device)
-        out.index_add_(0, safe[own], grad[own])
-        return out, None, None, None
+        (ids,) = ctx.saved_tensors
+        L, dev = ctx.n_rows, ids.device
+        scratch = None
+        if dev.type == "cuda":
+            scratch = _SCRATCH.get((dev, L))
+            if scratch is None:
+                scratch = _SCRATCH[(dev, L)] = group_scratch(L, dev)
+        groups = group_rows(ids, L, scratch, ctx.offset)
+        return row_sum(grad.contiguous(), ids, groups), None, None, None
 
 
 def sharded_lookup(shard: torch.Tensor, ids: torch.Tensor, offset: int, group) -> torch.Tensor:

@@ -82,11 +82,8 @@ import torch
 from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator, ValueEvaluator
 from recbole_cdr_tpu_torch.parallel.distributed import is_coordinator, put_replicated, put_sharded
 from recbole_cdr_tpu_torch.parallel.mesh import make_mesh, shard_params
-from recbole_cdr_tpu_torch.ops.sparse_adam import (
-    adam_step_size,
-    first_position_scratch,
-    sparse_adam,
-)
+from recbole_cdr_tpu_torch.ops.row_groups import group_rows, group_scratch
+from recbole_cdr_tpu_torch.ops.sparse_adam import adam_step_size, sparse_adam
 from recbole_cdr_tpu_torch.trainer.device_loop import (
     DeviceEpochLoop,
     TorchRandomSource,
@@ -280,19 +277,21 @@ class SparseAdam:
                    for n, p in self.params.items()},
             "count": {n: 0 for n in self.params},
         }
-        #: kernel B6's first-occurrence scratch per table (or shard), kept
-        #: so a step costs O(rows touched), not O(rows)
-        self._firstpos = {}
+        #: the kept scratch of each table's (or shard's) grouping of a step's
+        #: ids (``ops/row_groups.py``), so a step costs O(rows touched), not
+        #: O(rows)
+        self._group_scratch = {}
         #: the first global row of each row-sharded table's shard
         self.row_offsets = {n: s.offset for n, s in getattr(model, "table_shards", {}).items()}
 
-    def row_update(self, p, mu, nu, g_rows, ids, c, firstpos=None, row_offset=0):
+    def row_update(self, p, mu, nu, g_rows, ids, c, groups=None, row_offset=0):
         """One SparseAdam step for one table, in place: ``g_rows[j]`` is the
         grad of global row ``ids[j]`` (duplicates allowed; rows outside
         ``p``'s ``[row_offset, row_offset + len(p))`` skipped), ``c`` the
-        table's step count after this step's increment."""
+        table's step count after this step's increment; ``groups`` the ids'
+        grouping over those rows (``group_rows``; the card needs it)."""
         sparse_adam(p, mu, nu, g_rows, ids, adam_step_size(self.lr, self.b1, self.b2, c),
-                    self.b1, self.b2, self.eps, firstpos=firstpos, row_offset=row_offset)
+                    self.b1, self.b2, self.eps, groups=groups, row_offset=row_offset)
 
     def dense_entry_update(self, g, mu, nu, c):
         """torch dense-Adam step for one parameter: returns (update, mu, nu),
@@ -308,12 +307,14 @@ class SparseAdam:
     @torch.no_grad()
     def step_table(self, name, g_rows, ids):
         p = self.params[name]
-        if p.device.type == "cuda" and name not in self._firstpos:
-            self._firstpos[name] = first_position_scratch(p.shape[0], p.device)
+        offset, groups = self.row_offsets.get(name, 0), None
+        if p.device.type == "cuda":  # the plain version on the CPU reads the ids
+            if name not in self._group_scratch:
+                self._group_scratch[name] = group_scratch(p.shape[0], p.device)
+            groups = group_rows(ids, p.shape[0], self._group_scratch[name], offset)
         self.state["count"][name] += 1
         self.row_update(p.data, self.state["mu"][name], self.state["nu"][name],
-                        g_rows, ids, self.state["count"][name], self._firstpos.get(name),
-                        self.row_offsets.get(name, 0))
+                        g_rows, ids, self.state["count"][name], groups, offset)
 
     @torch.no_grad()
     def step_dense(self, name, grad):
@@ -360,7 +361,7 @@ def make_sparse_train_step(model, optimizer, phase, spec, trainable,
             sub = {n: model.rows(n, idx[n]) for n in spec}
         for t in sub.values():
             t.requires_grad_()
-        with model.shards_suspended(spec):
+        with model.sub_tables(spec):
             loss = call_with(model, sub, loss_fn, batch2, rng)
         loss.backward()
         for n in spec:

@@ -6,8 +6,11 @@ fewer unmasked items than k, swap-or-not grids taller than one launch's grid,
 history widths with and without 16-byte loads, embedding widths that are
 not a multiple of the warp; every ``streaming_topk`` template at the
 catalog's 1,100,001 items, a history row spanning many item ranges and
-user blocks smaller than the kernel's row block; ``sparse_adam`` with every
-id on one row, more ids than rows, and odd widths; ``rank_sum`` with ties
+user blocks smaller than the kernel's row block; K1's backward in its three
+forms (grouped, positions, a broken promise of positions) and ``sparse_adam``
+(every id on one row, more ids than rows, odd widths, row shards) bit-equal
+to their plain versions on CPU copies and run to run, the plan of a step's
+ids (``group_rows``) and the row-sharded lookup's backward (``row_sum``); ``rank_sum`` with ties
 everywhere, history, masked positives, rows without positives and rows
 longer than its shared-memory chunk, at shapes reaching every branch of its
 launch plan (a row over a thread-block cluster, one block a row), 1,600
@@ -79,6 +82,7 @@ from recbole_cdr_tpu_torch.ops import natr_attention as b9
 from recbole_cdr_tpu_torch.ops import neg_sampler as k2
 from recbole_cdr_tpu_torch.ops import rank_sum as b7
 from recbole_cdr_tpu_torch.ops import rating_vector as b11
+from recbole_cdr_tpu_torch.ops import row_groups
 from recbole_cdr_tpu_torch.ops import shuffle as k3
 from recbole_cdr_tpu_torch.ops import sparse_adam as b6
 from recbole_cdr_tpu_torch.ops import topk as b5
@@ -143,20 +147,45 @@ def test_neg_sampler_matches_plain(gen, H, ranges, neg_num):
     assert torch.equal(got, k2.sample_negatives_plain(base, uids, hist, ranges, neg_num))
 
 
+def _k1_case(form, D, dtype, gen):
+    """K1's operands for one backward form: ``grouped``, random ids into
+    whole tables (the plan of each); ``positions``, sub-tables read by
+    position (the user table's rows shared by two pairs each, BPR's user
+    slot); ``broken``, tables marked as read by position whose random ids
+    break that (the kernel recomputes them)."""
+    P = 20_000
+    Nu, Ni = {"grouped": (3000, 900), "positions": (P // 2, P), "broken": (4000, 2000)}[form]
+    U = torch.randn(Nu, D, device="cuda", generator=gen).to(dtype)
+    I = torch.randn(Ni, D, device="cuda", generator=gen).to(dtype)
+    if form == "positions":
+        u = (torch.arange(P, device="cuda") % Nu).int()
+        i = torch.arange(P, device="cuda", dtype=torch.int32)
+    else:
+        u, i = _ints(0, Nu, (P,), gen), _ints(0, Ni, (P,), gen)
+    g = torch.randn(P, device="cuda", generator=gen).to(dtype)
+    positions = (form != "grouped",) * 2
+    return U, I, u, i, g, positions
+
+
+@pytest.mark.parametrize("form", ["grouped", "positions", "broken"])
 @pytest.mark.parametrize("D", [64, 48, 100])
-def test_gather_dot_matches_plain(gen, D):
-    U = torch.randn(3000, D, device="cuda", generator=gen)
-    I = torch.randn(900, D, device="cuda", generator=gen)
-    u = _ints(0, 3000, (20_000,), gen)
-    i = _ints(0, 900, (20_000,), gen)
-    g = torch.randn(20_000, device="cuda", generator=gen)
-    torch.testing.assert_close(k1.gather_dot_forward(U, I, u, i), k1.gather_dot_plain(U, I, u, i),
-                               rtol=1e-5, atol=1e-4)
-    dU, dI = k1.gather_dot_backward(U, I, u, i, g)
-    pU, pI = k1.gather_dot_backward_plain(U, I, u, i, g)
-    # atomics add in a run-dependent order
-    torch.testing.assert_close(dU, pU, rtol=1e-5, atol=1e-3)
-    torch.testing.assert_close(dI, pI, rtol=1e-5, atol=1e-3)
+def test_gather_dot_matches_plain(gen, D, form):
+    """Scores within tolerance of the plain version (another summation
+    order); the backward in every form ``torch.equal`` to the plain version
+    on CPU copies (each row's terms added in position order, as index_add_
+    adds them there) and to a second run."""
+    U, I, u, i, g, positions = _k1_case(form, D, torch.float32, gen)
+    s = k1.gather_dot_forward(U, I, u, i)
+    torch.testing.assert_close(s, k1.gather_dot_plain(U, I, u, i), rtol=1e-5, atol=1e-4)
+    assert torch.equal(s, k1.gather_dot_forward(U, I, u, i))
+    rescans = k1.positions_rescans("cuda")
+    runs = [k1.gather_dot_backward(U, I, u, i, g, k1.backward_groups(U, I, u, i, positions))
+            for _ in range(2)]
+    # a broken promise is recomputed, and counted, once a launch
+    assert k1.positions_rescans("cuda") == rescans + 2 * (form == "broken")
+    want = k1.gather_dot_backward_plain(*(t.cpu() for t in (U, I, u, i, g)))
+    for got, again, ref in zip(*runs, want):
+        assert torch.equal(got, again) and torch.equal(got.cpu(), ref)
 
 
 def _csr(hist):
@@ -242,74 +271,140 @@ def test_streaming_topk_tensor_core_edges(gen, D, k):
         assert torch.equal(got_i[clear], want_i[clear]), (I, D, k)
 
 
+def _b6_steps(p, mu, nu, steps, offset=0):
+    """``steps`` (ids, gradient rows, step size) through the kernel, the
+    grouping built on one kept scratch, and through the plain version on CPU
+    copies; returns the plain version's (p, mu, nu)."""
+    L = p.shape[0]
+    scratch = row_groups.group_scratch(L, "cuda")
+    ref = [t.cpu() for t in (p, mu, nu)]
+    for ids, g, step in steps:
+        groups = row_groups.group_rows(ids, L, scratch, offset)
+        b6.sparse_adam(p, mu, nu, g, ids, step, groups=groups, row_offset=offset)
+        b6.sparse_adam_plain(*ref, g.cpu(), ids.cpu(), step, 0.9, 0.999, 1e-8, offset)
+    torch.cuda.synchronize()
+    assert not scratch[0].any()  # the counters are left ready
+    return ref
+
+
 @pytest.mark.parametrize("N,D,R,kind", [(1_400_000, 64, 32_768, "random"), (1000, 64, 5000, "random"),
                                          (300, 33, 4096, "one_row"), (77, 65, 200, "random"),
                                          (1000, 1, 999, "unique")])
 def test_sparse_adam_matches_plain(gen, N, D, R, kind):
-    """Three steps on one scratch. Rows touched once must match the plain
-    version exactly; coalesced rows add with atomics in a run-dependent
-    order, within atol 1e-6 and rtol 1e-5 (rows touched up to ~100 times).
-    The float32 sum of n terms has a relative error near sqrt(n) eps times
-    sum|g| / |sum g|, about 2e-4 at the one-row case's n = 4096 normal
-    terms, so that case is held to rtol 1e-3."""
-    p = torch.randn(N, D, device="cuda", generator=gen)
-    mu = torch.zeros_like(p)
-    nu = torch.zeros_like(p)
-    pp, pmu, pnu = p.clone(), mu.clone(), nu.clone()
-    firstpos = b6.first_position_scratch(N, "cuda")
+    """Three steps on one kept scratch, random normal gradients: p, mu and
+    nu ``torch.equal`` to the plain version on CPU copies (each row's
+    gradient rows added in position order, as index_add_ adds them there),
+    every row touched up to 4,096 times included, and to a second run."""
+    start = torch.randn(N, D, device="cuda", generator=gen)
+    steps = []
     for c in range(1, 4):
         ids = {"random": lambda: _ints(0, N, (R,), gen),
                "one_row": lambda: torch.full((R,), 7, dtype=torch.int32, device="cuda"),
                "unique": lambda: torch.randperm(N, device="cuda", generator=gen)[:R].int()}[kind]()
-        g = torch.randn(R, D, device="cuda", generator=gen)
-        step = b6.adam_step_size(1e-3, 0.9, 0.999, c)
-        b6.sparse_adam(p, mu, nu, g, ids, step, firstpos=firstpos)
-        b6.sparse_adam_plain(pp, pmu, pnu, g, ids, step, 0.9, 0.999, 1e-8)
-        torch.cuda.synchronize()
-        for got, want in ((p, pp), (mu, pmu), (nu, pnu)):
-            torch.testing.assert_close(got, want, rtol=1e-3 if kind == "one_row" else 1e-5,
-                                       atol=1e-6)
-        if kind == "unique":
-            assert torch.equal(p, pp) and torch.equal(mu, pmu) and torch.equal(nu, pnu)
-    assert bool((firstpos == b6.INT32_MAX).all())  # the scratch is left ready
+        steps.append((ids, torch.randn(R, D, device="cuda", generator=gen),
+                      b6.adam_step_size(1e-3, 0.9, 0.999, c)))
+    runs = []
+    for _ in range(2):
+        state = (start.clone(), torch.zeros_like(start), torch.zeros_like(start))
+        ref = _b6_steps(*state, steps)
+        runs.append(state)
+    for got, again, want in zip(*runs, ref):
+        assert torch.equal(got, again) and torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("N,D,m", [(1000, 64, 2), (1000, 33, 3), (77, 65, 4)])
+@pytest.mark.parametrize("N,D,m", [(1000, 64, 2), (1000, 33, 3), (77, 65, 4), (1000, 64, 1)])
 def test_sparse_adam_row_shards_match_plain(gen, N, D, m):
     """B6's row-shard form: every shard of ceil(N / m) rows (the last
     padded) at its offset, two steps on the global occurrences of the step
     (every shard's rows, duplicates across them, and ``OCCURRENCE_PAD``
-    padding, which every shard skips): rows touched once equal the plain
-    version exactly, coalesced rows within ``test_sparse_adam_matches_plain``'s
-    tolerance, the pad rows untouched, the scratch left ready."""
+    padding, which every shard skips): ``torch.equal`` to the plain version
+    on CPU copies and to a second run, the pad rows untouched."""
     from recbole_cdr_tpu_torch.parallel.mesh import OCCURRENCE_PAD
 
     L = -(-N // m)
     R = 6 * N
     start = torch.zeros(L * m, D, device="cuda")
     start[:N] = torch.randn(N, D, device="cuda", generator=gen)
+    steps = []
+    for c in range(1, 3):
+        ids = _ints(0, N, (R,), gen)
+        ids[::7] = OCCURRENCE_PAD
+        steps.append((ids, torch.randn(R, D, device="cuda", generator=gen),
+                      b6.adam_step_size(1e-3, 0.9, 0.999, c)))
     for j in range(m):
         off = j * L
-        p, mu, nu = start[off:off + L].clone(), torch.zeros(L, D, device="cuda"), \
-            torch.zeros(L, D, device="cuda")
-        pp, pmu, pnu = p.clone(), mu.clone(), nu.clone()
-        firstpos = b6.first_position_scratch(L, "cuda")
-        for c in range(1, 3):
-            ids = _ints(0, N, (R,), gen)
-            ids[::7] = OCCURRENCE_PAD
-            g = torch.randn(R, D, device="cuda", generator=gen)
-            step = b6.adam_step_size(1e-3, 0.9, 0.999, c)
-            b6.sparse_adam(p, mu, nu, g, ids, step, firstpos=firstpos, row_offset=off)
-            b6.sparse_adam_plain(pp, pmu, pnu, g, ids, step, 0.9, 0.999, 1e-8, off)
-            torch.cuda.synchronize()
-            local = ids.long() - off
-            hits = torch.bincount(local[(local >= 0) & (local < L)], minlength=L)
-            for got, want in ((p, pp), (mu, pmu), (nu, pnu)):
-                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-                if c == 1:
-                    assert torch.equal(got[hits == 1], want[hits == 1])
-        assert torch.equal(p[N - off:], start[N:off + L])  # the padding
-        assert bool((firstpos == b6.INT32_MAX).all())
+        runs = []
+        for _ in range(2):
+            state = (start[off:off + L].clone(), torch.zeros(L, D, device="cuda"),
+                     torch.zeros(L, D, device="cuda"))
+            ref = _b6_steps(*state, steps, off)
+            runs.append(state)
+        for got, again, want in zip(*runs, ref):
+            assert torch.equal(got, again) and torch.equal(got.cpu(), want)
+        assert torch.equal(runs[0][0][N - off:], start[N:off + L])  # the padding
+
+
+@pytest.mark.parametrize("case", ["empty", "distinct", "every_other", "outside",
+                                  "popular", "catalog"])
+def test_group_rows_matches_plain(gen, case):
+    """The plan against its plain version on CPU copies, heads compared in
+    row order (the card's come in no set order): empty ids, all distinct,
+    one id at every other position, ids outside the shard (and the mesh's
+    padding), one row at 6,000 positions among random ones, and a catalog
+    step's 16,384 ids over 1.1M rows; the same heads listed as big; each time
+    a second set in the same launch, and twice on one kept scratch, which is
+    left zero."""
+    from recbole_cdr_tpu_torch.parallel.mesh import OCCURRENCE_PAD
+
+    L, off = {"outside": (500, 1000), "catalog": (1_100_001, 0)}.get(case, (3000, 0))
+    R = {"empty": 0, "distinct": 2500, "catalog": 16_384}.get(case, 12_000)
+    if case == "distinct":
+        ids = torch.randperm(L, device="cuda", generator=gen)[:R].int()
+    elif case == "outside":
+        ids = _ints(0, 2000, (R,), gen)
+        ids[::5] = OCCURRENCE_PAD
+    else:
+        ids = _ints(0, L, (R,), gen)
+        if case == "every_other":
+            ids[::2] = 17
+        if case == "popular":
+            ids[torch.randperm(R, device="cuda", generator=gen)[:6000]] = 5
+    other = _ints(0, 700, (9000,), gen)
+    scratch, scratch2 = row_groups.group_scratch(L, "cuda"), row_groups.group_scratch(700, "cuda")
+    for _ in range(2):
+        got, got2 = row_groups.group_rows(ids, L, scratch, off, second=(other, 700, scratch2, 0))
+        for grp, want in ((got, row_groups.group_rows_plain(ids.cpu(), L, off)),
+                          (got2, row_groups.group_rows_plain(other.cpu(), 700))):
+            assert torch.equal(grp.meta[:3].cpu(), want.meta[:3])
+            for a, b in zip(row_groups.canonical(grp), row_groups.canonical(want)):
+                assert torch.equal(a, b)
+            H, n_big = int(want.meta[1]), int(want.meta[2])
+            rows = grp.head_row[:H].long()
+            assert torch.equal(grp.head_row[grp.row_head[rows].long()], grp.head_row[:H])
+            assert torch.equal(*(torch.sort(g.head_row[g.big[:n_big].long()].cpu()).values
+                                 for g in (grp, want)))
+    assert not scratch[0].any() and not scratch2[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 33])
+def test_row_sum_matches_plain(gen, D, dtype):
+    """The row-sharded lookup's backward: each shard's rows of a step's
+    gradient rows (ids across every shard, duplicates) ``torch.equal`` to
+    the plain version on CPU copies and to a second run; rows no id names
+    are 0."""
+    N, m, P = 5000, 3, 40_000
+    L = -(-N // m)
+    ids = _ints(0, N, (P,), gen)
+    src = torch.randn(P, D, device="cuda", generator=gen).to(dtype)
+    for j in range(m):
+        scratch = row_groups.group_scratch(L, "cuda")
+        runs = [row_groups.row_sum(src, ids, row_groups.group_rows(ids, L, scratch, j * L))
+                for _ in range(2)]
+        want = row_groups.row_sum_plain(src.cpu(), row_groups.group_rows_plain(ids.cpu(), L, j * L),
+                                        ids.cpu())
+        assert runs[0].dtype == dtype
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0].cpu(), want)
 
 
 def _random_csr(N, nnz, gen):
@@ -768,9 +863,9 @@ def test_natr_on_the_card(gen, tmp_path, monkeypatch):
     counts = _run_on_the_card(tmp_path, monkeypatch, model="NATR",
                               train_epochs=["SOURCE:1", "TARGET:1"],
                               metrics=["Recall", "MRR", "NDCG", "Hit", "Precision", "GAUC"])
-    path = ("gather_dot_forward", "gather_dot_backward", "neg_sampler", "swap_or_not",
-            "masked_topk", "rank_sum", "natr_attention_forward", "natr_attention_backward",
-            "natr_anchor_table", "natr_pair_grid")
+    path = ("gather_dot_forward", "gather_dot_backward", "group_rows", "neg_sampler",
+            "swap_or_not", "masked_topk", "rank_sum", "natr_attention_forward",
+            "natr_attention_backward", "natr_anchor_table", "natr_pair_grid")
     assert all(counts[k] > 0 for k in path), counts
     assert all(counts[k] == 0 for k in counts if k not in path), counts
 
@@ -841,8 +936,8 @@ def test_mapping_models_on_the_card(gen, tmp_path, monkeypatch, model, extra):
     DCDCSR run; B5 to B11 never."""
     counts = _run_on_the_card(tmp_path, monkeypatch, model=model, **extra)
     path = ("neg_sampler", "swap_or_not", "masked_topk")
-    if model != "SSCDR":
-        path += ("gather_dot_forward", "gather_dot_backward")
+    if model != "SSCDR":  # K1's backward groups the step's ids by row
+        path += ("gather_dot_forward", "gather_dot_backward", "group_rows")
     assert all(counts[k] > 0 for k in path), counts
     assert counts["benchmark_topk"] == (model == "DCDCSR"), counts
     assert all(counts[k] == 0 for k in counts if k not in path + ("benchmark_topk",)), counts
@@ -986,32 +1081,30 @@ def test_neg_sampler_popularity_matches_plain(gen, n_alias, H, neg_num):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("form", ["grouped", "positions", "broken"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [64, 48, 100])
-def test_gather_dot_bf16_matches_plain(gen, D, dtype):
+def test_gather_dot_bf16_matches_plain(gen, D, dtype, form):
     """K1's 16-bit form: scores within one ulp of the type of the plain
     version's (both sum in float32 and round once; plus 2^-18 of the sum of
-    the products' magnitudes, the float32 sums' order), gradients within 2^-8
-    of the sum of the magnitudes of the terms each adds (float32 atomics,
-    then one rounding to the type)."""
-    U = torch.randn(3000, D, device="cuda", generator=gen).to(dtype)
-    I = torch.randn(900, D, device="cuda", generator=gen).to(dtype)
-    u = _ints(0, 3000, (20_000,), gen)
-    i = _ints(0, 900, (20_000,), gen)
-    g = torch.randn(20_000, device="cuda", generator=gen).to(dtype)
+    the products' magnitudes, the float32 sums' order); gradients in every
+    form ``torch.equal`` to the plain version on CPU copies (float32 sums in
+    position order, rounded once) and to a second run."""
+    U, I, u, i, g, positions = _k1_case(form, D, dtype, gen)
     got, want = k1.gather_dot_forward(U, I, u, i), k1.gather_dot_plain(U, I, u, i)
     assert got.dtype == dtype
     # one ulp, plus the float32 sums' order where they cancel to near 0
     absum = k1.gather_dot_plain(U.float().abs(), I.float().abs(), u, i)
     ulp = torch.finfo(dtype).eps * want.float().abs() + 2 ** -18 * absum
     assert bool(((got.float() - want.float()).abs() <= ulp).all())
-    dU, dI = k1.gather_dot_backward(U, I, u, i, g)
-    pU, pI = k1.gather_dot_backward_plain(U, I, u, i, g)
-    gabs = g.float().abs()
-    aU, aI = k1.gather_dot_backward_plain(U.float().abs(), I.float().abs(), u, i, gabs)
-    for got, want, absum in ((dU, pU, aU), (dI, pI, aI)):
+    rescans = k1.positions_rescans("cuda")
+    runs = [k1.gather_dot_backward(U, I, u, i, g, k1.backward_groups(U, I, u, i, positions))
+            for _ in range(2)]
+    assert k1.positions_rescans("cuda") == rescans + 2 * (form == "broken")
+    ref = k1.gather_dot_backward_plain(*(t.cpu() for t in (U, I, u, i, g)))
+    for got, again, want in zip(*runs, ref):
         assert got.dtype == dtype
-        assert bool(((got.float() - want.float()).abs() <= 2 ** -8 * absum + 1e-6).all())
+        assert torch.equal(got, again) and torch.equal(got.cpu(), want)
 
 
 def test_bf16_catalog_path_on_the_card(gen, tmp_path, monkeypatch):
@@ -1021,9 +1114,11 @@ def test_bf16_catalog_path_on_the_card(gen, tmp_path, monkeypatch):
                               streaming_topk_threshold=1, compute_dtype="bfloat16",
                               eval_score_dtype="bfloat16")
     path = ("gather_dot_forward_bf16", "gather_dot_backward_bf16", "neg_sampler",
-            "swap_or_not", "streaming_topk_bf16", "sparse_adam")
+            "swap_or_not", "streaming_topk_bf16", "sparse_adam", "group_rows")
     assert all(counts[k] > 0 for k in path), counts
     assert all(counts[k] == 0 for k in counts if k not in path), counts
+    # K1 reads the step's sub-tables by position: the plans are B6's alone
+    assert counts["group_rows"] == counts["sparse_adam"], counts
 
 
 @pytest.mark.parametrize("model,extra", [

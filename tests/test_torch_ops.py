@@ -1,7 +1,8 @@
 """The port's kernel modules against the JAX functions they replace, on the
 CPU (where each wrapper runs its plain PyTorch version): K2 and K3 bit-exact
 with the same random bits, K4 with exact ids under deliberate ties, K1 within
-the oracle tolerances of ``tests/test_oracle_equivalence.py``."""
+the oracle tolerances of ``tests/test_oracle_equivalence.py`` in each of its
+backward's forms, and the tables its backward reads by position."""
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +19,7 @@ from recbole_cdr_tpu.trainer.device_loop import (
 )
 
 from recbole_cdr_tpu_torch.ops import launch_counts
-from recbole_cdr_tpu_torch.ops.gather_dot import gather_dot
+from recbole_cdr_tpu_torch.ops.gather_dot import POSITIONS, backward_groups, gather_dot
 from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk
 from recbole_cdr_tpu_torch.ops.neg_sampler import sample_negatives
 from recbole_cdr_tpu_torch.ops.shuffle import swap_or_not
@@ -115,12 +116,21 @@ def test_masked_topk_matches_jax_exact_with_ties():
 
 # ------------------------------------------------------------------ K1
 
-def test_gather_dot_matches_cmf_score_and_grads():
+@pytest.mark.parametrize("form", ["grouped", "positions", "broken"])
+def test_gather_dot_matches_cmf_score_and_grads(form):
+    """``grouped``: random ids into whole tables; ``positions``: sub-tables
+    read by position (the user table's rows shared by two pairs each, BPR's
+    user slot); ``broken``: random ids into tables marked as read by
+    position, whose backward falls back to the grouped sums."""
     rng = np.random.default_rng(4)
-    U = (rng.standard_normal((50, 64)) * 0.1).astype(np.float32)
-    I = (rng.standard_normal((40, 64)) * 0.1).astype(np.float32)
-    u = rng.integers(0, 50, 300).astype(np.int32)
-    i = rng.integers(0, 40, 300).astype(np.int32)
+    Nu, Ni = {"grouped": (50, 40), "positions": (150, 300), "broken": (60, 100)}[form]
+    U = (rng.standard_normal((Nu, 64)) * 0.1).astype(np.float32)
+    I = (rng.standard_normal((Ni, 64)) * 0.1).astype(np.float32)
+    if form == "positions":
+        u, i = np.arange(300) % Nu, np.arange(300)
+    else:
+        u, i = rng.integers(0, Nu, 300), rng.integers(0, Ni, 300)
+    u, i = u.astype(np.int32), i.astype(np.int32)
     w = rng.standard_normal(300).astype(np.float32)
 
     def f(p):
@@ -130,11 +140,30 @@ def test_gather_dot_matches_cmf_score_and_grads():
     (_, js), jg = jax.value_and_grad(f, has_aux=True)({"U": U, "I": I})
     tU = torch.tensor(U, requires_grad=True)
     tI = torch.tensor(I, requires_grad=True)
-    ts = gather_dot(tU, tI, _t(u), _t(i))
+    ts = gather_dot(tU, tI, _t(u), _t(i), (form != "grouped",) * 2)
     (ts * torch.from_numpy(w)).sum().backward()
     np.testing.assert_allclose(ts.detach().numpy(), np.asarray(js), **LOSS_TOL)
     np.testing.assert_allclose(tU.grad.numpy(), np.asarray(jg["U"]), **GRAD_TOL)
     np.testing.assert_allclose(tI.grad.numpy(), np.asarray(jg["I"]), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3])
+def test_backward_groups_reads_positions_only_where_promised(slots):
+    """K1's backward reads a table by position only where the caller marks
+    it and the pairs are a whole multiple of its rows (``slots`` pairs a
+    row: 2 is BPR's user slot shared by the positive and the negative);
+    any other table gets the grouping of its ids (None on the CPU, whose
+    plain version reads the ids)."""
+    R = 64
+    P = slots * R
+    U, I = torch.zeros(R, 8), torch.zeros(P, 8)
+    u = (torch.arange(P) % R).int()
+    i = torch.arange(P, dtype=torch.int32)
+    assert backward_groups(U, I, u, i, (True, True)) == (POSITIONS, POSITIONS)
+    assert backward_groups(U, I, u, i, (False, True)) == (None, POSITIONS)
+    assert backward_groups(U, I, u, i) == (None, None)
+    short = torch.zeros(R + 1, 8)  # P is no multiple of its rows
+    assert backward_groups(short, I, u, i, (True, True)) == (None, POSITIONS)
 
 
 # ------------------------------------------------------------ dispatch
