@@ -64,13 +64,16 @@ Phases, in order; any failure exits non-zero:
    validation every epoch and GAUC among the metrics, the best parameters
    reloaded for the test pass: K1 exactly once forward and once backward per
    SOURCE step and never elsewhere; B9's forward and backward once per
-   TARGET step; B9's anchor table once per TARGET evaluation pass (each
-   validation sees new parameters, the test pass the reloaded best ones) and
-   its pair grid once per user tile of every TARGET validation and of the
-   test pass (the predict fallback's tiles of ``user_batch`` rows); K4 and
-   B7 once per tile of every validation and of the test pass; B5, B6 and B8
-   never; the loss falls within each phase, every metric is finite and GAUC
-   lies in (0, 1);
+   TARGET step; the plan once per K1 backward and once per B9 forward (the
+   step's anchor ids); B9's anchor table once per TARGET evaluation pass
+   (each validation sees new parameters, the test pass the reloaded best
+   ones) and its pair grid once per user tile of every TARGET validation and
+   of the test pass (the predict fallback's tiles of ``user_batch`` rows); K4
+   and B7 once per tile of every validation and of the test pass; B5, B6 and
+   B8 never; the loss falls within each phase, every metric is finite and
+   GAUC lies in (0, 1); then the run again with the same seed
+   (``check_repeats``): the trained parameters ``torch.equal``, every
+   epoch's loss and every metric equal (K1 and B9 sum in a fixed order);
 7. DTCDR paths: ``run_recbole_cdr(model="DTCDR")`` on the card at DTCDR's
    published width (``properties/model/DTCDR.yaml``: embedding 64,
    ``mlp_hidden_size`` [32, 16], dropout 0.1, alpha 0.5) on the dense path's
@@ -227,11 +230,16 @@ and two kernel runs equal; its launch plan (``ops/rank_sum.py::
 rank_sum_plan``: one block a row on that dense tile, a row over a
 thread-block cluster on the fallback tile and the candidate batches) is
 printed beside each of its records. B9 (``natr_attention_forward`` /
-``natr_attention_backward``) is held at a TARGET step's shapes (8,192
-pairs, H = 50, D = 64) in both overlap modes (user anchors with their item
-histories, item anchors with their user histories), empty-history anchors
-included, within ``B9_TOL`` of its plain version, and two kernel runs
-bit-equal; its full-sort form (``natr_full_sort``: the anchor table, then
+``natr_attention_backward``: the anchor table, the pairs' anchor ids and
+queries; one anchor stage per distinct anchor, from the plan of the ids) is
+held at a TARGET step's shapes (8,192 pairs over about 2,100 repeated
+anchors, H = 50, D = 64) in both overlap modes (user anchors with their
+item histories, item anchors with their user histories), empty-history
+anchors included, within ``B9_TOL`` of its plain version (the table's
+gradient 0 on every row no pair names), and two kernel runs bit-equal, each
+backward from its forward's kept values on the table's one kept plan; the
+device time of each of their kernels is printed (``natr_split``); its
+full-sort form (``natr_full_sort``: the anchor table, then
 the pair grid) on one tile of the predict fallback ([32 users, the target
 item space]) in both modes, within ``B9_TOL["full_sort"]`` of the one-call
 plain version and bit-equal from run to run; the anchor table alone over
@@ -268,7 +276,8 @@ B7's the cluster barriers (UCGABAR) of their short-tile forms, and every
 instantiation of B16's grid kernel its tensor-core products (HMMA), and
 every one of B15's its products (HMMA, or HGMMA where the published
 tower runs on wgmma); it prints the counts, and fails where the library
-of B11, K1, B6 or the plan (``FIXED_ORDER_SOURCES``) holds a float atomic.
+of B11, K1, B6, the plan or B9 (``FIXED_ORDER_SOURCES``) holds a float
+atomic.
 B13's time is printed beside B5's from the same run, with its launch plan
 and the item bytes the plan reads from L2 into the SMs (modelled from the
 plan, not read from a counter), and beside the time of the same call on
@@ -385,6 +394,7 @@ Nothing here imports jax or the JAX package.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1052,7 +1062,8 @@ SASS_OPCODES = {
 #: run in a fixed order: B11's, K1's, B6's and the plan's with the
 #: row-sharded lookup's backward
 FLOAT_ATOMIC = r"\b(?:RED|ATOMG?|ATOMS)\.[A-Z0-9_.]*\b(?:F16|BF16|F32|F64)"
-FIXED_ORDER_SOURCES = ("rating_vector", "gather_dot", "sparse_adam", "row_groups")
+FIXED_ORDER_SOURCES = ("rating_vector", "gather_dot", "sparse_adam", "row_groups",
+                       "natr_attention")
 
 
 def check_sass():
@@ -1411,15 +1422,15 @@ def kernel_checks(dev):
     lr = float(cconfig["learning_rate"])
     P0 = 0.1 * torch.randn(N, D, device=dev, generator=g)
     grads = [torch.randn(R, D, device=dev, generator=g) for _ in range(B6_STEPS)]
-    scratch = row_groups.group_scratch(N, dev)
+    plan = row_groups.RowPlan(N, dev, capacity=R)
     runs = [(P0.clone(), torch.zeros_like(P0), torch.zeros_like(P0)) for _ in range(2)]
     plain = (P0.cpu(), torch.zeros(N, D), torch.zeros(N, D))
     tp = torch.nn.Parameter(P0.clone())
     topt = torch.optim.SparseAdam([tp], lr=lr)
     for c, (ids, G) in enumerate(zip(step_ids, grads), 1):
         step = b6.adam_step_size(lr, 0.9, 0.999, c)
-        for state in runs:  # each run groups the ids anew on the same kept scratch
-            b6.sparse_adam(*state, G, ids, step, groups=row_groups.group_rows(ids, N, scratch))
+        for state in runs:  # each run groups the ids anew on the same kept plan
+            b6.sparse_adam(*state, G, ids, step, groups=row_groups.group_rows(ids, plan))
         b6.sparse_adam_plain(*plain, G.cpu(), ids.cpu(), step, 0.9, 0.999, 1e-8)
         tp.grad = torch.sparse_coo_tensor(ids.long()[None], G, (N, D))
         topt.step()
@@ -1437,13 +1448,13 @@ def kernel_checks(dev):
             f"sparse_adam {name} against torch.optim.SparseAdam: error {float(diff.max())}"
         err = max(err, float((got.cpu() - want).abs().max()))
         err_torch = max(err_torch, float(diff.max()))
-    assert not scratch[0].any(), "group_rows left its counters dirty"
+    assert not plan.scratch[0].any(), "group_rows left its counters dirty"
     print(f"  sparse_adam: {B6_STEPS} steps on random normal gradients, max_abs_err {err:.3g} "
           f"against the plain version on CPU copies, bit-equal run to run; max_abs_err "
           f"against torch.optim.SparseAdam {err_torch:.3g}", flush=True)
     ids, G = step_ids[0], grads[0]
     step = b6.adam_step_size(lr, 0.9, 0.999, 1)
-    groups = row_groups.group_rows(ids, N, scratch)
+    groups = row_groups.group_rows(ids, plan)
     check_plan(groups, ids, N)
     n_own, n_rows = (int(x) for x in groups.meta[:2])
     plain_dev = (P0.clone(), torch.zeros_like(P0), torch.zeros_like(P0))
@@ -1453,10 +1464,10 @@ def kernel_checks(dev):
            err, 4 * n_own + G.numel() * 4 + 6 * n_rows * D * 4, n_rows * D * 12 + R * D,
            library_fn=topt.step)
     record("group_rows",
-           lambda: row_groups.group_rows(ids, N, scratch),
+           lambda: row_groups.group_rows(ids, plan),
            lambda: row_groups.group_rows_plain(ids, N),
            0.0, *plan_work(R, n_own, n_rows), library_fn=lambda: torch.sort(ids, stable=True))
-    del runs, kern, plain, plain_dev, tp, topt, P0, grads, scratch
+    del runs, kern, plain, plain_dev, tp, topt, P0, grads, plan
 
     # ---- the plan of K1's dense step (both tables' ids in one launch) ------
     Uk, Ik, uu, ii = k1_step
@@ -1476,7 +1487,7 @@ def kernel_checks(dev):
     # ---- the row-sharded lookup's backward: a dense step's user rows, m = 2
     L = -(-Uk.shape[0] // 2)
     src = torch.randn(P, D, device=dev, generator=g)
-    lookup = row_groups.group_rows(uu, L, row_groups.group_scratch(L, dev))
+    lookup = row_groups.group_rows(uu, row_groups.RowPlan(L, dev))
     got = row_groups.row_sum(src, uu, lookup)
     want = row_groups.row_sum_plain(src.cpu(), lookup, uu.cpu())
     assert torch.equal(got.cpu(), want) and torch.equal(got, row_groups.row_sum(src, uu, lookup)), \
@@ -1856,6 +1867,51 @@ def natr_work(n_rows, n_slots, n_pairs, D, backward=False):
     return n_rows * row + n_slots * slot + n_pairs * pair
 
 
+def kernel_split(fn, reps=10):
+    """{kernel name: mean device ms per call of ``fn``} from a torch.profiler
+    trace of ``reps`` calls (a trace can lose launches, which undercounts)."""
+    from collections import defaultdict
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(PROFILER_TRACES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events:
+            break
+    split = defaultdict(float)
+    for e in events:
+        m = re.search(r"\w+_kernel", e.name)
+        split[m.group(0) if m else e.name[:40]] += e.time_range.elapsed_us() / reps / 1e3
+    return dict(split)
+
+
+def natr_split(hist, table, anchors, q, w, gz, plan):
+    """Prints where B9's training forward (the plan, the transfer, the
+    heads) and backward (the rows, the block-order sum) spend their device
+    time, from a trace."""
+    from recbole_cdr_tpu_torch.ops import natr_attention as b9
+
+    kept = []
+    for what, fn in (("forward",
+                      lambda: b9.natr_attention_forward(hist, table, anchors, q, w, plan)),
+                     ("backward", lambda: b9.natr_attention_backward(hist, table, anchors, q,
+                                                                     w, gz, kept[0]))):
+        if what == "backward":  # after the forward's calls, which group anew
+            kept.append(b9._forward_call(hist, table, anchors, q, w, plan)[1])
+        split = kernel_split(fn)
+        print(f"  natr_attention {what} split (device ms a call): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda x: -x[1])), flush=True)
+
+
 def natr_products(n_rows, D, backward=False):
     """The matrix products' share of ``natr_work`` (the transfer ``src @ W``;
     the backward's dW and dx): what a 16-bit form may run on the tensor
@@ -1878,6 +1934,7 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
     )
     from recbole_cdr_tpu_torch.ops import masked_topk as k4, rank_sum as b7
     from recbole_cdr_tpu_torch.ops import natr_attention as b9
+    from recbole_cdr_tpu_torch.ops.row_groups import RowPlan
     from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
     from recbole_cdr_tpu_torch.trainer.trainer import make_predict_full_sort
     from recbole_cdr_tpu_torch.utils.enums import TrainMode
@@ -1932,26 +1989,33 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
         anchors[:8], anchors[8:16] = 0, (nu if items_mode else ni) - 1
         assert not bool(hist.mask[anchors[:16].long()].any())
         own, other = ("tu", "ti") if items_mode else ("ti", "tu")
-        pu = tables[own][anchors.long()]
+        table = tables[own]
+        pu = table[anchors.long()]
         q = tables[other][(step_items if items_mode else step_users).long()]
         print(f"  natr_attention [{mode}]: P {P}, H {hm.shape[1]}, D {D}, "
               f"{int(torch.unique(anchors).numel())} distinct anchors", flush=True)
 
-        a = b9.natr_attention_forward(hist, anchors, pu, q, w)
-        b = b9.natr_attention_forward_plain(hist, anchors, pu, q, w)
+        plan = RowPlan(table.shape[0], dev)  # the model's kept plan of the table
+        a, kept = b9._forward_call(hist, table, anchors, q, w, plan)
+        b = b9.natr_attention_forward_plain(hist, table, anchors, q, w)
         err_f = close(a, b, B9_TOL["forward"], f"natr_attention_forward [{mode}]")
-        assert torch.equal(a, b9.natr_attention_forward(hist, anchors, pu, q, w)), \
-            "natr_attention_forward differs run to run"
-        ka = b9.natr_attention_backward(hist, anchors, pu, q, w, gz)
-        pa = b9.natr_attention_backward_plain(hist, anchors, pu, q, w, gz)
-        names = ("dpu", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da")
+        # the backward from the forward's kept values, as the autograd path
+        # runs it; then both again: bit-equal
+        ka = b9.natr_attention_backward(hist, table, anchors, q, w, gz, kept)
+        pa = b9.natr_attention_backward_plain(hist, table, anchors, q, w, gz)
+        names = ("dtable", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da")
         err_b = 0.0
         for name, x, y in zip(names, ka, pa):
             if name == "db_da":  # 0 in exact arithmetic: beta depends on b_s - b_p
                 assert float(x.abs().max()) <= B9_TOL["backward"][0], f"db_da {float(x)}"
                 continue
             err_b = max(err_b, close(x, y, B9_TOL["backward"], f"natr_attention_backward {name} [{mode}]"))
-        again = b9.natr_attention_backward(hist, anchors, pu, q, w, gz)
+        untouched = torch.ones(table.shape[0], dtype=torch.bool, device=dev)
+        untouched[anchors.long()] = False
+        assert not bool(ka[0][untouched].any()), "natr_attention_backward: an untouched row"
+        logits, kept = b9._forward_call(hist, table, anchors, q, w, plan)
+        assert torch.equal(logits, a), "natr_attention_forward differs run to run"
+        again = b9.natr_attention_backward(hist, table, anchors, q, w, gz, kept)
         assert all(torch.equal(x, y) for x, y in zip(ka, again)), \
             "natr_attention_backward differs run to run"
 
@@ -1967,45 +2031,56 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
         assert torch.equal(c, b9.natr_full_sort(hist, fa, fp, fq, w, items_mode))
         print(f"  natr_attention [{mode}]: max_abs_err forward {err_f:.3g}, backward "
               f"{err_b:.3g}, full-sort {err_s:.3g}", flush=True)
-        bf16 = natr_bf16_checks(hist, anchors, pu, q, w, gz, fa, fp, fq, items_mode, mode)
+        bf16 = natr_bf16_checks(hist, table, anchors, q, w, gz, fa, fp, fq, items_mode, mode,
+                                plan)
         if not items_mode:
             continue
 
         n_anchor = int(torch.unique(anchors).numel())
         rows = int(torch.unique(hist.ids[torch.unique(anchors).long()]).numel())
         fixed = 4 * (D * D + 3 * D + 2)
-        fwd_bytes = n_anchor * H * 5 + rows * D * 4 + 2 * P * D * 4 + P * 8 + fixed
+        # each distinct anchor's history, source rows and table row, each
+        # pair's id, query and logit; the backward also reads g and writes
+        # dq and every row of d(table)
+        N = table.shape[0]
+        fwd_bytes = n_anchor * H * 5 + rows * D * 4 + (n_anchor + P) * D * 4 + P * 8 + fixed
+        bwd_bytes = fwd_bytes + P * 4 + (P + N) * D * 4 + fixed
         print(f"  natr_attention: {n_anchor} distinct anchors gather {rows} distinct "
               f"source rows", flush=True)
+        # the forward with its plan; the backward from a forward's kept values
+        # (the training step's call)
         record("natr_attention_forward",
-               lambda: b9.natr_attention_forward(hist, anchors, pu, q, w),
-               lambda: b9.natr_attention_forward_plain(hist, anchors, pu, q, w),
+               lambda: b9.natr_attention_forward(hist, table, anchors, q, w, plan),
+               lambda: b9.natr_attention_forward_plain(hist, table, anchors, q, w),
                err_f, fwd_bytes, natr_work(rows, n_anchor * H, P, D),
-               library_fn=lambda: library_natr_forward(hist, anchors, pu, q, w))
+               library_fn=lambda: library_natr_forward(hist, table, anchors, q, w))
+        _, kept = b9._forward_call(hist, table, anchors, q, w, plan)
         record("natr_attention_backward",
-               lambda: b9.natr_attention_backward(hist, anchors, pu, q, w, gz),
-               lambda: b9.natr_attention_backward_plain(hist, anchors, pu, q, w, gz),
-               err_b, fwd_bytes + P * 4 + 2 * P * D * 4 + fixed,
-               natr_work(rows, n_anchor * H, P, D, backward=True),
-               library_fn=lambda: library_natr_backward(hist, anchors, pu, q, w, gz))
+               lambda: b9.natr_attention_backward(hist, table, anchors, q, w, gz, kept),
+               lambda: b9.natr_attention_backward_plain(hist, table, anchors, q, w, gz),
+               err_b, bwd_bytes, natr_work(rows, n_anchor * H, P, D, backward=True),
+               library_fn=lambda: library_natr_backward(hist, table, anchors, q, w, gz))
+        natr_split(hist, table, anchors, q, w, gz, plan)
         # the 16-bit forms on the same operands rounded to bf16: 2-byte floats
-        h16, a16, pu16, q16, w16, gz16 = bf16["training"]
+        h16, t16, a16, q16, w16, gz16 = bf16["training"]
         fixed16 = 2 * (D * D + 3 * D + 2)
-        fwd16 = n_anchor * H * 5 + rows * D * 2 + 2 * P * D * 2 + P * 6 + fixed16
+        fwd16 = n_anchor * H * 5 + rows * D * 2 + (n_anchor + P) * D * 2 + P * 6 + fixed16
+        bwd16 = fwd16 + P * 2 + (P + N) * D * 2 + fixed16
         record("natr_attention_forward_bf16",
-               lambda: b9.natr_attention_forward(h16, a16, pu16, q16, w16),
-               lambda: b9.natr_attention_forward_plain(h16, a16, pu16, q16, w16),
+               lambda: b9.natr_attention_forward(h16, t16, a16, q16, w16, plan),
+               lambda: b9.natr_attention_forward_plain(h16, t16, a16, q16, w16),
                bf16["errors"]["forward"], fwd16,
                natr_work(rows, n_anchor * H, P, D) - natr_products(rows, D),
                bf16_ops=natr_products(rows, D),
-               library_fn=lambda: library_natr_forward(h16, a16, pu16, q16, w16))
+               library_fn=lambda: library_natr_forward(h16, t16, a16, q16, w16))
+        _, kept16 = b9._forward_call(h16, t16, a16, q16, w16, plan)
         record("natr_attention_backward_bf16",
-               lambda: b9.natr_attention_backward(h16, a16, pu16, q16, w16, gz16),
-               lambda: b9.natr_attention_backward_plain(h16, a16, pu16, q16, w16, gz16),
-               bf16["errors"]["backward"], fwd16 + P * 2 + 2 * P * D * 2 + fixed16,
+               lambda: b9.natr_attention_backward(h16, t16, a16, q16, w16, gz16, kept16),
+               lambda: b9.natr_attention_backward_plain(h16, t16, a16, q16, w16, gz16),
+               bf16["errors"]["backward"], bwd16,
                natr_work(rows, n_anchor * H, P, D, backward=True)
                - natr_products(rows, D, True), bf16_ops=natr_products(rows, D, True),
-               library_fn=lambda: library_natr_backward(h16, a16, pu16, q16, w16, gz16))
+               library_fn=lambda: library_natr_backward(h16, t16, a16, q16, w16, gz16))
         # the anchor table as the NATR run builds it: every target user at once
         tds = dataset.target_domain_dataset
         n_tu = tds.num(tds.uid_field)
@@ -2025,7 +2100,7 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
                err_t, n_tu * H * 5 + rows_t * D * 4 + 2 * n_tu * D * 4 + fixed,
                natr_work(rows_t, n_tu * H, 0, D), reps=10,
                library_fn=lambda: library_natr_anchor(hist, every, t_pu, w))
-        t_pu16 = t_pu.to(pu16.dtype)
+        t_pu16 = t_pu.to(t16.dtype)
         table16 = b9.natr_anchor_table(h16, every, t_pu16, w16)
         err_t16 = close16(table16, b9.anchor_plain(h16, every, t_pu16, w16), "natr_anchor_table_bf16")
         assert torch.equal(table16, b9.natr_anchor_table(h16, every, t_pu16, w16)), \
@@ -2051,7 +2126,7 @@ def natr_checks(dev, g, config, dataset, train_data, valid_data, record):
                err_g, (2 * B + n_target) * D * 4 + B * n_target * 4 + 4 * (D + 1),
                natr_work(0, 0, B * n_target, D), reps=50,
                library_fn=lambda: library_natr_grid(su_t, fp, fq, w))
-        su16, fp16, fq16 = table16[fs_users.long()], fp.to(pu16.dtype), fq.to(pu16.dtype)
+        su16, fp16, fq16 = table16[fs_users.long()], fp.to(t16.dtype), fq.to(t16.dtype)
         g16 = b9.natr_pair_grid(su16, fp16, fq16, w16, True)
         err_g16 = close16(g16, b9.pair_grid_plain(su16, fp16, fq16, w16, True),
                           "natr_pair_grid_bf16")
@@ -2143,11 +2218,11 @@ def close16(got, want, what, dtype=BF16, tol=B9_BF16_TOL):
     return within(got, want, torch.full_like(want, tol, dtype=torch.float32), what)
 
 
-def natr_bf16_checks(hist, anchors, pu, q, w, gz, fa, fp, fq, items_mode, mode):
+def natr_bf16_checks(hist, table, anchors, q, w, gz, fa, fp, fq, items_mode, mode, plan):
     """B9's 16-bit training forward and backward and its full-sort form on the
     operands of phase 2's float32 checks rounded to bf16, against their plain
-    versions (``B9_BF16_TOL``), reruns bit-equal. Returns the operands and
-    the errors."""
+    versions (``B9_BF16_TOL``), reruns bit-equal; ``plan``: the RowPlan of
+    the table's rows. Returns the operands and the errors."""
     import torch
 
     from recbole_cdr_tpu_torch.ops import natr_attention as b9
@@ -2155,21 +2230,22 @@ def natr_bf16_checks(hist, anchors, pu, q, w, gz, fa, fp, fq, items_mode, mode):
     dt = getattr(torch, BF16)
     h16 = b9.History(hist.src.to(dt), hist.ids, hist.mask)
     w16 = b9.Weights(*(t.to(dt) for t in w))
-    pu16, q16, gz16 = pu.to(dt), q.to(dt), gz.to(dt)
-    a = b9.natr_attention_forward(h16, anchors, pu16, q16, w16)
-    err_f = close16(a, b9.natr_attention_forward_plain(h16, anchors, pu16, q16, w16),
+    t16, q16, gz16 = table.to(dt), q.to(dt), gz.to(dt)
+    a, kept = b9._forward_call(h16, t16, anchors, q16, w16, plan)
+    err_f = close16(a, b9.natr_attention_forward_plain(h16, t16, anchors, q16, w16),
                     f"natr_attention_forward_bf16 [{mode}]")
-    assert torch.equal(a, b9.natr_attention_forward(h16, anchors, pu16, q16, w16)), \
-        "natr_attention_forward_bf16 differs run to run"
-    ka = b9.natr_attention_backward(h16, anchors, pu16, q16, w16, gz16)
-    pa = b9.natr_attention_backward_plain(h16, anchors, pu16, q16, w16, gz16)
+    ka = b9.natr_attention_backward(h16, t16, anchors, q16, w16, gz16, kept)
+    pa = b9.natr_attention_backward_plain(h16, t16, anchors, q16, w16, gz16)
     err_b = 0.0
-    for name, x, y in zip(("dpu", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da"), ka, pa):
+    for name, x, y in zip(("dtable", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da"),
+                          ka, pa):
         if name == "db_da":  # 0 in exact arithmetic: beta depends on b_s - b_p
             assert float(x.float().abs().max()) <= 1e-5, f"db_da {float(x)}"
             continue
         err_b = max(err_b, close16(x, y, f"natr_attention_backward_bf16 {name} [{mode}]"))
-    again = b9.natr_attention_backward(h16, anchors, pu16, q16, w16, gz16)
+    again, kept = b9._forward_call(h16, t16, anchors, q16, w16, plan)
+    assert torch.equal(a, again), "natr_attention_forward_bf16 differs run to run"
+    again = b9.natr_attention_backward(h16, t16, anchors, q16, w16, gz16, kept)
     assert all(torch.equal(x, y) for x, y in zip(ka, again)), \
         "natr_attention_backward_bf16 differs run to run"
     fp16, fq16 = fp.to(dt), fq.to(dt)
@@ -2177,7 +2253,7 @@ def natr_bf16_checks(hist, anchors, pu, q, w, gz, fa, fp, fq, items_mode, mode):
     err_s = close16(c, b9.natr_full_sort_plain(h16, fa, fp16, fq16, w16, items_mode),
                     f"natr_full_sort_bf16 [{mode}]")
     assert torch.equal(c, b9.natr_full_sort(h16, fa, fp16, fq16, w16, items_mode))
-    return {"training": (h16, anchors, pu16, q16, w16, gz16),
+    return {"training": (h16, t16, anchors, q16, w16, gz16),
             "errors": {"forward": err_f, "backward": err_b, "full_sort": err_s}}
 
 
@@ -2204,19 +2280,21 @@ def library_natr_blend(su, pu, q, w):
     return ((beta * su + (1 - beta) * pu) * q).sum(-1)
 
 
-def library_natr_forward(hist, anchors, pu, q, w):
+def library_natr_forward(hist, table, anchors, q, w):
+    """The chain from the anchor table: its rows gathered per pair."""
+    pu = table[anchors.long()]
     return library_natr_blend(library_natr_anchor(hist, anchors, pu, w), pu, q, w)
 
 
-def library_natr_backward(hist, anchors, pu, q, w, g):
+def library_natr_backward(hist, table, anchors, q, w, g):
     """Autograd of the torch chain for the gradients B9's backward returns."""
     import torch
 
     from recbole_cdr_tpu_torch.ops.natr_attention import Weights
 
-    leaves = [t.detach().requires_grad_() for t in (pu, q, *w)]
+    leaves = [t.detach().requires_grad_() for t in (table, q, *w)]
     with torch.enable_grad():
-        out = library_natr_forward(hist, anchors, leaves[0], leaves[1], Weights(*leaves[2:]))
+        out = library_natr_forward(hist, leaves[0], anchors, leaves[1], Weights(*leaves[2:]))
         return torch.autograd.grad(out, leaves, g)
 
 
@@ -3178,6 +3256,7 @@ def main():
     hist = _report_run(result, wall, c, NATR_PATH)
     check_natr_run(result, hist, c)
     recalls["natr"] = result["test_result"]["recall@10"]
+    check_repeats("NATR", natr_config(), result, saved=True)
 
     print("== phase 7: DTCDR paths, run_recbole_cdr(model='DTCDR') on the card: NeuMF and DMF, "
           "full-sort, candidate and labeled evaluation", flush=True)
@@ -3355,7 +3434,10 @@ def check_natr_run(result, hist, c):
                        for h in hist if h["phase"] == "TARGET")
     test_tiles = -(-result["test_users"] // user_batch(result["test_users"], n_target))
     target_passes = sum("valid_seconds" in h for h in hist if h["phase"] == "TARGET") + 1
+    # the plans: one per K1 backward (both source tables in one launch), one
+    # per B9 forward (the step's anchor ids)
     want = {"gather_dot_forward": steps["SOURCE"], "gather_dot_backward": steps["SOURCE"],
+            "group_rows": steps["SOURCE"] + steps["TARGET"],
             "natr_attention_forward": steps["TARGET"],
             "natr_attention_backward": steps["TARGET"],
             "natr_anchor_table": target_passes,  # new parameters each pass, the test's loaded
@@ -4215,11 +4297,11 @@ def check_b6_shards(dev, record, shape, g_rows, ids):
             off = j * L
             rows = slice(off, off + L)
             start = {"p": table[rows], "mu": mu0[rows], "nu": nu0[rows]}
-            scratch = row_groups.group_scratch(L, dev)
+            plan = row_groups.RowPlan(L, dev, off, R)
             runs = []
             for _ in range(2):
                 state = tuple(t.clone() for t in start.values())
-                groups = row_groups.group_rows(ids, L, scratch, off)
+                groups = row_groups.group_rows(ids, plan)
                 b6.sparse_adam(*state, g_rows, ids, step, groups=groups, row_offset=off)
                 runs.append(state)
             plain = tuple(t.cpu() for t in start.values())
@@ -4234,7 +4316,7 @@ def check_b6_shards(dev, record, shape, g_rows, ids):
                 assert torch.equal(got[untouched], before[untouched]), \
                     f"sparse_adam m={m} shard {j}: {name} of an untouched row changed"
                 err = max(err, float((got.cpu() - want).abs().max()))
-            assert not scratch[0].any(), "group_rows left its counters dirty"
+            assert not plan.scratch[0].any(), "group_rows left its counters dirty"
         kern = runs[0]
         n_own, n_rows = (int(x) for x in groups.meta[:2])
         print(f"  sparse_adam row shards m={m}: the plan walks {R} occurrences, the update the "
@@ -4258,7 +4340,7 @@ def check_b6_shards(dev, record, shape, g_rows, ids):
                                             off),
                err, 4 * n_own + n_own * D * 4 + 6 * n_rows * D * 4, n_rows * D * 12 + n_own * D,
                library_fn=library, shape=f"row shard m={m}")
-        record("group_rows", lambda: row_groups.group_rows(ids, L, scratch, off),
+        record("group_rows", lambda: row_groups.group_rows(ids, plan),
                lambda: row_groups.group_rows_plain(ids, L, off), 0.0,
                *plan_work(R, n_own, n_rows), library_fn=lambda: torch.sort(ids, stable=True),
                shape=f"row shard m={m}")

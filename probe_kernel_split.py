@@ -20,9 +20,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 """
 
 import os
-import re
 import sys
-from collections import defaultdict
 
 #: the probe's cuts of csrc/conet_tower.cu: (what, replaced by) per variant
 VARIANTS = {
@@ -36,33 +34,6 @@ VARIANTS = {
 }
 B, I = 2048, 4980
 TOWER = [64, 32, 16, 8]
-
-
-def kernel_split(fn, reps=10):
-    """{kernel name: mean device ms per call of ``fn``} from a torch.profiler
-    trace of ``reps`` calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    import chip_smoke as cs
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(cs.PROFILER_TRACES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = cs._device_events(prof)
-        if events:
-            break
-    split = defaultdict(float)
-    for e in events:
-        m = re.search(r"(plan|forward_combine|forward|head_sum|table_combine|table|tower)_kernel",
-                      e.name)
-        split[m.group(0) if m else e.name[:40]] += e.time_range.elapsed_us() / reps / 1e3
-    return dict(split)
 
 
 def show(what, split):
@@ -124,6 +95,7 @@ def main():
     from recbole_cdr_tpu_torch.ops import conet_tower as b15
     from recbole_cdr_tpu_torch.ops import rating_vector as b11
 
+    kernel_split = cs.kernel_split
     dev = torch.device("cuda")
     cs.gen_data()
     csr, x, ids, gout, N = b11_operands(dev)

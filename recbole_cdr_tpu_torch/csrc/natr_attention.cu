@@ -21,40 +21,55 @@
 // a step then moves ~6 MB and the forward is bound near 2 us by bytes, the
 // backward near 3 us; a [32, ~5,000] full-sort tile near 1.6 us by its
 // pairs' O(D) blends (10 D + 13 operations a pair: the products su_d q_d and
-// pu_d q_d serve both the gates and the dots). The training kernels are far
-// above their bounds: they run the transfer once per slot of every anchor
-// they take (H D^2 multiply-adds per anchor, ~30 flops per gathered byte, so
-// each anchor stage is compute-heavy) and take one anchor per pair. Design:
-// su and pu depend only on the anchor, so the anchor stage runs once per
-// anchor it takes and the pair stage once per pair, where JAX's fallback
-// repeats the whole attention for every pair. Training takes one anchor per
-// pair. Full-sort scoring splits in two launches: the anchor table (the
-// anchor stage of every anchor row of the domain, once per parameter
-// version: the caller caches it, so an evaluation pass builds it once and
-// no user tile relaunches it) and the pair grid, one launch per tile, whose
-// blocks stage 8 anchor or query rows and 32 of the other side's in shared
-// memory with 16-byte loads and give each thread a 2 x 1 tile of pairs; one
-// pass over D keeps four sums per pair (both gates' sums and both dots), so
-// an item row is read from device memory once per block rather than once per
-// pair thread. Anchor stage: persistent blocks of 256
-// threads keep W in shared memory and take one anchor at a time: the block
-// gathers the H rows into shared memory (padded stride, no bank conflicts),
-// computes the transfer with a 4 x 4 register tile per thread, reduces the
-// unit-attention scores one warp per slot, takes the softmax in one warp and
-// the weighted sum one thread per column. The pair stage gives one thread
-// per pair, float4 loads along D. The backward recomputes the anchor stage
-// (nothing of the forward is kept), then walks the chain rule back to
-// d(pu), d(q) and the weight gradients; the weight gradients are sums over
-// all pairs, so each block keeps its partial sums in registers (dW as a 4 x 4
-// tile per thread, an [H, D] x [H, D] product per anchor) and writes them
-// once, and a second launch adds the blocks' partials in block order. No
-// atomics: every result is bit-reproducible from run to run. Elementwise
-// steps use round-to-nearest intrinsics where the plain version rounds a
-// product and a sum separately. Not done yet: transferring each distinct
-// source row once (one [rows, D] x [D, D] product, then gathering h),
-// sharing one anchor between the pairs of a training step that have it,
-// tensor cores for the transfer (3xTF32 keeps float32 accuracy).
+// pu_d q_d serve both the gates and the dots).
 //
+// Training (natr_attention_forward / _backward). The op takes the anchor
+// side's table [N, D] and each pair's anchor id, as JAX's _phase2_logit
+// gathers pu inside, and reads the plan of the step's anchors over the
+// table's rows (ops/row_groups.py::group_rows, csrc/row_groups.cuh): one
+// head per distinct anchor with its pairs' positions in ascending order.
+//   forward: (1) the transfer of the whole source table, T = src @ W + b,
+//     each row once (4 x 4 register tiles, W in shared memory). Per step
+//     the distinct rows the histories name are ~4,000 of NATR's ~8k-13k
+//     source rows, but finding them takes a plan of the ~105,000 history
+//     slots, which costs more than the whole table's transfer at these
+//     sizes (probe_row_groups.py); (2) persistent blocks take one head at a
+//     time: its H transferred rows into shared memory, the scores one warp a
+//     slot, the softmax in one warp, su one thread a column, then the pair
+//     stage one thread a pair of the head. The forward keeps T, and per head
+//     su and the softmax (rounded and unrounded), for the backward.
+//   backward: the rows the step's anchors name counted per span of 1,024
+//     rows (the span's other gradient rows written 0); persistent blocks take
+//     equal shares of those rows in ascending row order (block b the ranks
+//     [b T / G, (b + 1) T / G)), so the work is even and every sum runs in an
+//     order the ids alone fix (a block per chunk of rows, the first cut, left
+//     the busiest block twice the mean). A head's row: the pair stage's
+//     chain rule one warp a pair, kWarps pairs at a time, their d(su), d(pu)
+//     and d(w_da) terms added in position order; then the anchor stage's
+//     chain rule once, from the summed d(su): d(att), the softmax's slope,
+//     d(pu) through the scores, dT in place and dW += E^T dT; the row's
+//     gradient, the pairs' d(pu) plus the anchor stage's, written once. Each
+//     block keeps its weight gradients' partial sums in registers and writes
+//     them once; a second launch adds the blocks' partials in block order.
+//     No float atomic: the results repeat bit for bit.
+// Elementwise steps use round-to-nearest intrinsics where the plain version
+// rounds a product and a sum separately. Not done: the transfer on the
+// tensor cores (at ~67 MFLOP a step it takes a few microseconds on the CUDA
+// cores); more than one head at a time per block (a head's chain of
+// dependent loads and barriers, not its arithmetic, sets the time).
+//
+// Full-sort scoring splits in two launches: the anchor table (the anchor
+// stage of every anchor row of the domain, once per parameter version: the
+// caller caches it, so an evaluation pass builds it once and no user tile
+// relaunches it; persistent blocks of 256 threads keep W in shared memory
+// and take one anchor at a time, gathering its H rows and transferring them
+// with a 4 x 4 register tile per thread) and the pair grid, one launch per
+// tile, whose blocks stage 8 anchor or query rows and 32 of the other side's
+// in shared memory with 16-byte loads and give each thread a 2 x 1 tile of
+// pairs; one pass over D keeps four sums per pair (both gates' sums and both
+// dots), so an item row is read from device memory once per block rather
+// than once per pair thread.
+
 // B9-bf16, the 16-bit form (NATR under compute_dtype: bfloat16; float16
 // through the same template): every operand and output is 16-bit (the
 // source table, the history rows, pu, q, the weights, the upstream gradient;
@@ -62,15 +77,18 @@
 // widened exactly as they are staged (shared memory stays float32); each dot
 // and each sum over H or D accumulates in float32 and is rounded to the
 // 16-bit type where JAX's bf16 _phase2_logit has a named intermediate:
-// h = hist_e @ W + b, the attention logits with the -10000 mask (-9984 in
+// h = hist_e @ W + b (rounded once per source row by the training
+// transfer, as once per slot before: sharing a row changes no value), the
+// attention logits with the -10000 mask (-9984 in
 // bf16), the softmax, su, b_s and b_p, beta, zu (per element) and the logit;
 // the grid's sigmoid too. With zu rounded per element the grid cannot
 // regroup its dots as the float32 form does, so its 16-bit instances walk D
 // twice (the gates, then the blend). The backward is the float32 chain rule
 // on those rounded values (the rounding passes gradients through
-// unchanged), beta's and the softmax's slopes at their unrounded values, and every gradient
-// rounded once to the operands' type: the weight gradients after the
-// block-order sum. The float32 form is the same template with every
+// unchanged), beta's and the softmax's slopes at their unrounded values, and
+// every gradient rounded once to the operands' type: the weight gradients
+// after the block-order sum, a table row's after its pairs' and its anchor
+// stage's float32 terms are added. The float32 form is the same template with every
 // rounding the identity.
 
 #include <cfloat>
@@ -79,6 +97,7 @@
 #include <stdint.h>
 
 #include "float16.cuh"
+#include "row_groups.cuh"
 
 namespace {
 
@@ -100,25 +119,22 @@ __host__ __device__ inline int hpad(int H, int rpass) {
   return ((H > 0 ? H : 1) + rpass - 1) / rpass * rpass;
 }
 
+// the anchor table's kernel's shared memory (Smem)
 inline size_t smem_bytes(int D, int H) {
   const int hp = hpad(H, 4 * kThreads / (D / 4));
   const size_t floats = (size_t)D * D + (size_t)hp * (D + 1) + (size_t)hp * D +
-                        3 * (size_t)hp + 4 * (size_t)D + kThreads;
+                        2 * (size_t)hp + 2 * (size_t)D;
   return 4 * floats + 4 * (size_t)hp + (size_t)hp;
 }
 
 struct Smem {
   float* W;    // [D, D] transfer weight
   float* E;    // [hp, D + 1] gathered history rows
-  float* T;    // [hp, D] transferred rows (the backward overwrites them with dT)
+  float* T;    // [hp, D] transferred rows
   float* att;  // [hp] softmax, rounded to the operands' type
-  float* s;    // [hp] scores, then the unrounded softmax, then the scores' gradient
-  float* da;   // [hp] gradient of att
+  float* s;    // [hp] scores, then the unrounded softmax
   float* pu;   // [D]
   float* su;   // [D]
-  float* dsu;  // [D]
-  float* dpu;  // [D] the pair stage's part of d(pu)
-  float* red;  // [kThreads] reduction scratch
   int* hid;    // [hp] history ids
   uint8_t* msk;  // [hp] history mask
 };
@@ -132,12 +148,8 @@ __device__ Smem carve(unsigned char* base, int hp) {
   m.T = f;   f += hp * D;
   m.att = f; f += hp;
   m.s = f;   f += hp;
-  m.da = f;  f += hp;
   m.pu = f;  f += D;
   m.su = f;  f += D;
-  m.dsu = f; f += D;
-  m.dpu = f; f += D;
-  m.red = f; f += kThreads;
   m.hid = reinterpret_cast<int*>(f);
   m.msk = reinterpret_cast<uint8_t*>(m.hid + hp);
   return m;
@@ -281,15 +293,19 @@ anchor_kernel(const T* __restrict__ src, const int* __restrict__ ids,
   }
 }
 
-// the pair stage of one pair: its logit, rounded to T
+// the pair stage of one pair: its logit, rounded to T, from the anchor's su
+// and pu (float32 values of T in shared memory, 16-byte aligned) and the
+// pair's query q
 template <int D, typename T>
-__device__ __forceinline__ float blend(const T* __restrict__ su, const T* __restrict__ pu,
+__device__ __forceinline__ float blend(const float* su, const float* pu,
                                        const T* __restrict__ q, const T* __restrict__ w,
                                        float b_da) {
   float bs = 0.f, bp = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    const float4 s = ld4(su + d), p = ld4(pu + d), x = ld4(q + d), ww = ld4(w + d);
+    const float4 s = *reinterpret_cast<const float4*>(su + d);
+    const float4 p = *reinterpret_cast<const float4*>(pu + d);
+    const float4 x = ld4(q + d), ww = ld4(w + d);
     bs = fmaf(relu_mul(s.x, x.x), ww.x, bs);
     bs = fmaf(relu_mul(s.y, x.y), ww.y, bs);
     bs = fmaf(relu_mul(s.z, x.z), ww.z, bs);
@@ -307,24 +323,15 @@ __device__ __forceinline__ float blend(const T* __restrict__ su, const T* __rest
   float acc = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    const float4 s = ld4(su + d), p = ld4(pu + d), x = ld4(q + d);
+    const float4 s = *reinterpret_cast<const float4*>(su + d);
+    const float4 p = *reinterpret_cast<const float4*>(pu + d);
+    const float4 x = ld4(q + d);
     acc = fmaf(rnd<T>(__fadd_rn(__fmul_rn(beta, s.x), __fmul_rn(omb, p.x))), x.x, acc);
     acc = fmaf(rnd<T>(__fadd_rn(__fmul_rn(beta, s.y), __fmul_rn(omb, p.y))), x.y, acc);
     acc = fmaf(rnd<T>(__fadd_rn(__fmul_rn(beta, s.z), __fmul_rn(omb, p.z))), x.z, acc);
     acc = fmaf(rnd<T>(__fadd_rn(__fmul_rn(beta, s.w), __fmul_rn(omb, p.w))), x.w, acc);
   }
   return rnd<T>(acc);
-}
-
-// `n` aligned pairs (anchor i, query i) -> logits
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-pair_kernel(const T* __restrict__ su, const T* __restrict__ pu, const T* __restrict__ q,
-            const T* __restrict__ w_da, const T* __restrict__ b_da, int n,
-            T* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  st1(out + i, blend<D, T>(su + i * D, pu + i * D, q + i * D, w_da, ld1(b_da)));
 }
 
 // ---- the full-sort grid -----------------------------------------------------
@@ -479,146 +486,448 @@ pair_grid_kernel(const T* __restrict__ su, const T* __restrict__ pu, const T* __
   }
 }
 
+// ---- training: the whole-table transfer and one anchor stage per head ------
+
+// T [Ns, D] float32 = src @ W + b, each value rounded to T: RPASS rows a
+// block, the sums as the anchor stage's transfer makes them
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-backward_kernel(const T* __restrict__ src, const int* __restrict__ ids,
-                const uint8_t* __restrict__ mask, const int* __restrict__ anchors,
-                const T* __restrict__ pu, const T* __restrict__ q, const T* __restrict__ W,
-                const T* __restrict__ b, const T* __restrict__ w_ua,
-                const T* __restrict__ b_ua, const T* __restrict__ w_da,
-                const T* __restrict__ b_da, int P, int H, const T* __restrict__ g,
-                T* __restrict__ dpu, T* __restrict__ dq, float* __restrict__ partial) {
+transfer_kernel(const T* __restrict__ src, int Ns, const T* __restrict__ W,
+                const T* __restrict__ b, float* __restrict__ out) {
+  using S = Shape<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Ws = reinterpret_cast<float*>(smem);  // [D, D]
+  float* E = Ws + D * D;                       // [RPASS, EST]
+  const int tid = threadIdx.x, r0 = blockIdx.x * S::RPASS;
+  for (int i = tid; i < D * D; i += kThreads) Ws[i] = ld1(W + i);
+  for (int i = tid; i < S::RPASS * D; i += kThreads) {
+    const int j = i / D, k = i - j * D;
+    E[j * S::EST + k] = r0 + j < Ns ? ld1(src + (long long)(r0 + j) * D + k) : 0.f;
+  }
+  __syncthreads();
+  const int tx = tid % S::C4, ty = tid / S::C4;
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  const float* e0 = E + ty * S::EST;
+#pragma unroll 4
+  for (int k = 0; k < D; ++k) {
+    const float4 w = *reinterpret_cast<const float4*>(Ws + k * D + 4 * tx);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float e = e0[r * S::RT * S::EST + k];
+      acc[r][0] = fmaf(e, w.x, acc[r][0]);
+      acc[r][1] = fmaf(e, w.y, acc[r][1]);
+      acc[r][2] = fmaf(e, w.z, acc[r][2]);
+      acc[r][3] = fmaf(e, w.w, acc[r][3]);
+    }
+  }
+  float bias[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) bias[c] = ld1(b + 4 * tx + c);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = r0 + ty + S::RT * r;
+    if (j < Ns)
+      *reinterpret_cast<float4*>(out + (long long)j * D + 4 * tx) = make_float4(
+          rnd<T>(__fadd_rn(acc[r][0], bias[0])), rnd<T>(__fadd_rn(acc[r][1], bias[1])),
+          rnd<T>(__fadd_rn(acc[r][2], bias[2])), rnd<T>(__fadd_rn(acc[r][3], bias[3])));
+  }
+}
+
+inline size_t transfer_smem_bytes(int D) {
+  const int rpass = 4 * (kThreads / (D / 4));
+  return 4 * ((size_t)D * D + (size_t)rpass * (D + 1));
+}
+
+// What the forward keeps per head for the backward (float32 values of T):
+// su [heads, D], the softmax rounded to T and unrounded [heads, H].
+struct Keep {
+  float* su;
+  float* att;
+  float* attq;
+};
+
+// the training kernels' shared memory, float32 words then ints (the
+// backward's include a span's rows and a scan's scratch)
+inline size_t head_smem_bytes(int D, int H, bool backward) {
+  size_t f = 2 * (size_t)D + (size_t)H * D + 2 * (size_t)H, n = H;
+  if (backward) {
+    f += 2 * (size_t)D + (size_t)H * D + (size_t)H + kThreads + 3 * (size_t)kWarps * D + kWarps;
+    n += 4 * kThreads + kWarps + 2;
+  }
+  return 4 * (f + n);
+}
+
+// one anchor's H transferred rows into Ts [H, D] (its ids into hid)
+template <int D>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ Tall,
+                                           const int* __restrict__ ids, int a, int H, int* hid,
+                                           float* Ts) {
+  for (int j = threadIdx.x; j < H; j += kThreads) hid[j] = __ldg(ids + (long long)a * H + j);
+  __syncthreads();
+  for (int i = threadIdx.x; i < H * (D / 4); i += kThreads) {
+    const int j = i / (D / 4), c = 4 * (i % (D / 4));
+    *reinterpret_cast<float4*>(Ts + j * D + c) =
+        __ldg(reinterpret_cast<const float4*>(Tall + (long long)hid[j] * D + c));
+  }
+}
+
+// Persistent blocks, one head at a time: the anchor stage from the
+// transferred rows, kept for the backward, then the pair stage of each of the
+// head's pairs (one thread a pair): logits [P].
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads)
+forward_kernel(const float* __restrict__ Tall, const int* __restrict__ ids,
+               const uint8_t* __restrict__ mask, int H, const T* __restrict__ table,
+               const T* __restrict__ q, const T* __restrict__ w_ua,
+               const T* __restrict__ b_ua, const T* __restrict__ w_da,
+               const T* __restrict__ b_da, GroupsView g, Keep keep, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* pu = reinterpret_cast<float*>(smem);  // [D]
+  float* su = pu + D;                          // [D]
+  float* Ts = su + D;                          // [H, D]
+  float* s = Ts + H * D;                       // [H] scores, then the unrounded softmax
+  float* att = s + H;                          // [H]
+  int* hid = reinterpret_cast<int*>(att + H);  // [H]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float bua = ld1(b_ua), bda = ld1(b_da);
+  const int heads = __ldg(g.meta + 1);
+  for (int h = blockIdx.x; h < heads; h += gridDim.x) {
+    const int a = __ldg(g.head_row + h);
+    for (int d = tid; d < D; d += kThreads) pu[d] = ld1(table + (long long)a * D + d);
+    stage_rows<D>(Tall, ids, a, H, hid, Ts);
+    __syncthreads();
+    for (int j = warp; j < H; j += kWarps) {
+      float acc = 0.f;
+      for (int d = lane; d < D; d += 32) acc = fmaf(relu_mul(pu[d], Ts[j * D + d]), ld1(w_ua + d), acc);
+      acc = warp_sum(acc);
+      if (lane == 0)
+        s[j] = rnd<T>(__fadd_rn(__fadd_rn(acc, bua),
+                                __ldg(mask + (long long)a * H + j) ? 0.f : -10000.f));
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float mx = -INFINITY;
+      for (int j = lane; j < H; j += 32) mx = fmaxf(mx, s[j]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < H; j += 32) {
+        const float e = expf(__fsub_rn(s[j], mx));
+        att[j] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int j = lane; j < H; j += 32) {
+        const float x = __fdiv_rn(att[j], sum);
+        att[j] = rnd<T>(x);
+        keep.attq[(long long)h * H + j] = x;
+        keep.att[(long long)h * H + j] = att[j];
+      }
+    }
+    __syncthreads();
+    for (int d = tid; d < D; d += kThreads) {
+      float acc = 0.f;
+      for (int j = 0; j < H; ++j) acc = fmaf(att[j], Ts[j * D + d], acc);
+      su[d] = rnd<T>(acc);
+      keep.su[(long long)h * D + d] = su[d];
+    }
+    __syncthreads();
+    const int st = __ldg(g.head_start + h), n = __ldg(g.head_len + h);
+    for (int k = tid; k < n; k += kThreads) {
+      const int p = __ldg(g.pos + st + k);
+      st1(out + p, blend<D, T>(su, pu, q + (long long)p * D, w_da, bda));
+    }
+    __syncthreads();  // the next head rewrites the shared arrays
+  }
+}
+
+// rows of the table a span covers, four a thread: the backward counts the
+// rows a pair's anchor names per span, then each block finds its rows
+constexpr int kSpan = 4 * kThreads;
+
+// block-wide exclusive scan of v over kThreads threads, its total in *total
+__device__ __forceinline__ int block_excl_scan(int v, int* warp_tot, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int t = warp_tot[w];
+    if (w < warp) before += t;
+    all += t;
+  }
+  __syncthreads();  // warp_tot is rewritten by the next scan
+  *total = all;
+  return before + x - v;
+}
+
+// counts[s] = the rows of span s that a pair's anchor names (a head's
+// row); the span's other rows of d(table) [N, D] are written 0 (the heads'
+// rows are written once by the backward)
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads) span_count_kernel(GroupsView g, int N,
+                                                             int* __restrict__ counts,
+                                                             T* __restrict__ dtable) {
+  __shared__ int warp_tot[kWarps];
+  __shared__ unsigned char named[kSpan];
+  const long long s0 = (long long)blockIdx.x * kSpan, r0 = s0 + 4 * threadIdx.x;
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool h = r0 + k < N && head_of(g, (int)(r0 + k)) >= 0;
+    named[4 * threadIdx.x + k] = h;
+    n += h;
+  }
+  int total;
+  block_excl_scan(n, warp_tot, &total);  // its barriers publish named
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+  const long long rows = N - s0 < kSpan ? N - s0 : kSpan;
+  for (long long i = threadIdx.x; i < rows * D; i += kThreads)
+    if (!named[i / D]) st1(dtable + s0 * D + i, 0.f);
+}
+
+// The backward over the heads in their rows' order: block b takes the heads
+// of ranks [b T / G, (b + 1) T / G) among the T rows a pair's anchor names,
+// in ascending row order (found from the spans' counts), so the blocks' work
+// is even and every sum runs in an order the ids alone fix. Per head: d(table)
+// of its row (span_count_kernel zeroed the others), dq of its pairs, and this
+// block's partial weight gradients [dW | db | dw_ua | db_ua | dw_da | db_da].
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 1)
+backward_kernel(const T* __restrict__ src, const float* __restrict__ Tall,
+                const int* __restrict__ ids, int H, const T* __restrict__ table, int N,
+                const T* __restrict__ q, const T* __restrict__ w_ua,
+                const T* __restrict__ w_da, const T* __restrict__ b_da, GroupsView g,
+                const int* __restrict__ counts, Keep keep, const T* __restrict__ gz,
+                T* __restrict__ dtable, T* __restrict__ dq, float* __restrict__ partial) {
   using S = Shape<D>;
   constexpr int V = D / 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hp = hpad(H, S::RPASS);
-  Smem m = carve<D>(smem, hp);
-  stage_weight<D, T>(W, m);
-  __syncthreads();
+  float* pu = reinterpret_cast<float*>(smem);  // [D]
+  float* su = pu + D;                          // [D]
+  float* Ts = su + D;                          // [H, D], then dT
+  float* s = Ts + H * D;                       // [H] unrounded softmax, then d(scores)
+  float* att = s + H;                          // [H] rounded softmax
+  float* dsu = att + H;                        // [D] the head's d(su)
+  float* dpu = dsu + D;                        // [D] its pairs' d(pu)
+  float* E = dpu + D;                          // [H, D] the source rows
+  float* da = E + H * D;                       // [H]
+  float* red = da + H;                         // [kThreads]
+  float* slot_su = red + kThreads;             // [kWarps, D] a pair's d(su)
+  float* slot_pu = slot_su + kWarps * D;       // [kWarps, D] its d(pu)
+  float* slot_wda = slot_pu + kWarps * D;      // [kWarps, D] its d(w_da)
+  float* slot_bda = slot_wda + kWarps * D;     // [kWarps]
+  int* hid = reinterpret_cast<int*>(slot_bda + kWarps);  // [H]
+  int* mine = hid + H;                                   // [kSpan] this span's rows
+  int* scan = mine + kSpan;                              // [kWarps + 2]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid % S::C4, ty = tid / S::C4;  // dW tile
   const int pd = tid % D, jg = tid / D;          // (j, d) pass
-  const float bua = ld1(b_ua), bda = ld1(b_da);
+  const float bda = ld1(b_da);
 
   float acc_w[S::RK][4];
 #pragma unroll
   for (int r = 0; r < S::RK; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc_w[r][c] = 0.f;
-  float acc_b = 0.f, acc_wua = 0.f, acc_bua = 0.f, acc_bda = 0.f;
-  float acc_wda[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) acc_wda[v] = 0.f;
+  float acc_b = 0.f, acc_wua = 0.f, acc_bua = 0.f, acc_bda = 0.f, acc_wda = 0.f;
 
-  for (int p = blockIdx.x; p < P; p += gridDim.x) {
-    anchor_stage<D, T>(src, ids, mask, __ldg(anchors + p), H, hp, pu + (long long)p * D, b,
-                       w_ua, bua, m);
+  const int heads = __ldg(g.meta + 1), n_spans = (N + kSpan - 1) / kSpan;
+  const int lo = (int)((long long)heads * blockIdx.x / gridDim.x);
+  const int hi = (int)((long long)heads * (blockIdx.x + 1) / gridDim.x);
+  // the span holding rank lo, and the ranks before it
+  int span = n_spans, base = 0;
+  for (int s0 = 0, before = 0; lo < hi && s0 < n_spans; s0 += kThreads) {
+    const int c = s0 + tid < n_spans ? __ldg(counts + s0 + tid) : 0;
+    int total;
+    const int x = block_excl_scan(c, scan, &total);
+    if (s0 + tid < n_spans && before + x <= lo && lo < before + x + c) {
+      scan[kWarps] = s0 + tid;
+      scan[kWarps + 1] = before + x;
+    }
+    __syncthreads();
+    if (before + total > lo) {
+      span = scan[kWarps];
+      base = scan[kWarps + 1];
+      break;
+    }
+    before += total;
+  }
+  for (; span < n_spans && base < hi; ++span) {
+    // this span's rows a pair names, with their ranks; this block's in order
+    const long long r4 = (long long)span * kSpan + 4 * tid;
+    int h4[4], n = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      h4[k] = r4 + k < N ? head_of(g, (int)(r4 + k)) : -1;
+      n += h4[k] >= 0;
+    }
+    int total;
+    int rank = base + block_excl_scan(n, scan, &total);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (h4[k] < 0) continue;
+      if (rank >= lo && rank < hi) mine[rank - (base > lo ? base : lo)] = (int)(r4 + k);
+      ++rank;
+    }
+    __syncthreads();
+    const int first = base > lo ? base : lo;
+    const int last = base + total < hi ? base + total : hi;
+    base += total;
+    for (int c = 0; c < last - first; ++c) {
+      const long long r = mine[c];
+      const int h = head_of(g, (int)r);
+      for (int d = tid; d < D; d += kThreads) {
+        pu[d] = ld1(table + r * D + d);
+        su[d] = keep.su[(long long)h * D + d];
+      }
+      for (int j = tid; j < H; j += kThreads) {
+        s[j] = keep.attq[(long long)h * H + j];
+        att[j] = keep.att[(long long)h * H + j];
+      }
+      stage_rows<D>(Tall, ids, (int)r, H, hid, Ts);
+      for (int i = tid; i < H * D; i += kThreads) {
+        const int j = i / D, k = i - j * D;
+        E[i] = ld1(src + (long long)hid[j] * D + k);
+      }
+      __syncthreads();
 
-    // the pair stage's chain rule, one warp: d(su), the direct d(pu), d(q)
-    if (warp == 0) {
-      const float gp = ld1(g + p);
-      float sv[V], pv[V], qv[V], wv[V];
-      float bs = 0.f, bp = 0.f;
+      // the pair stage's chain rule, a warp a pair, kWarps pairs at a time;
+      // their terms added in position order
+      const int st = __ldg(g.head_start + h), n = __ldg(g.head_len + h);
+      for (int k0 = 0; k0 < n; k0 += kWarps) {
+        const int m = n - k0 < kWarps ? n - k0 : kWarps;
+        if (warp < m) {
+          const int p = __ldg(g.pos + st + k0 + warp);
+          const float gp = ld1(gz + p);
+          float sv[V], pv[V], qv[V], wv[V];
+          float bs = 0.f, bp = 0.f;
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const int d = lane + 32 * v;
-        sv[v] = m.su[d];
-        pv[v] = m.pu[d];
-        qv[v] = ld1(q + (long long)p * D + d);
-        wv[v] = ld1(w_da + d);
-        bs = fmaf(relu_mul(sv[v], qv[v]), wv[v], bs);
-        bp = fmaf(relu_mul(pv[v], qv[v]), wv[v], bp);
+          for (int v = 0; v < V; ++v) {
+            const int d = lane + 32 * v;
+            sv[v] = su[d];
+            pv[v] = pu[d];
+            qv[v] = ld1(q + (long long)p * D + d);
+            wv[v] = ld1(w_da + d);
+            bs = fmaf(relu_mul(sv[v], qv[v]), wv[v], bs);
+            bp = fmaf(relu_mul(pv[v], qv[v]), wv[v], bp);
+          }
+          bs = rnd<T>(__fadd_rn(warp_sum(bs), bda));
+          bp = rnd<T>(__fadd_rn(warp_sum(bp), bda));
+          const float es = expf(bs), ep = expf(bp);
+          // beta's value is rounded to T, its slope taken at the unrounded quotient
+          const float beta_q = __fdiv_rn(es, __fadd_rn(es, ep));
+          const float beta = rnd<T>(beta_q);
+          const float omb = __fsub_rn(1.f, beta);
+          float dbeta = 0.f;
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            dbeta = fmaf(__fmul_rn(gp, qv[v]), __fsub_rn(sv[v], pv[v]), dbeta);
+          dbeta = warp_sum(dbeta);
+          // d b_s; d b_p = -d b_s
+          const float dbs = __fmul_rn(__fmul_rn(dbeta, beta_q), __fsub_rn(1.f, beta_q));
+          const float dbp = -dbs;
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const int d = lane + 32 * v;
+            const float dz = __fmul_rn(gp, qv[v]);
+            const float us = __fmul_rn(sv[v], qv[v]), up = __fmul_rn(pv[v], qv[v]);
+            const float gs = us > 0.f ? __fmul_rn(dbs, wv[v]) : 0.f;
+            const float gq = up > 0.f ? __fmul_rn(dbp, wv[v]) : 0.f;
+            slot_su[warp * D + d] = fmaf(gs, qv[v], __fmul_rn(beta, dz));
+            slot_pu[warp * D + d] = fmaf(gq, qv[v], __fmul_rn(omb, dz));
+            const float z = rnd<T>(__fadd_rn(__fmul_rn(beta, sv[v]), __fmul_rn(omb, pv[v])));
+            st1(dq + (long long)p * D + d,
+                rnd<T>(fmaf(gq, pv[v], fmaf(gs, sv[v], __fmul_rn(gp, z)))));
+            slot_wda[warp * D + d] = fmaf(dbs, fmaxf(us, 0.f), __fmul_rn(dbp, fmaxf(up, 0.f)));
+          }
+          if (lane == 0) slot_bda[warp] = __fadd_rn(dbs, dbp);
+        }
+        __syncthreads();
+        if (tid < D) {
+          float xs = k0 ? dsu[tid] : 0.f, xp = k0 ? dpu[tid] : 0.f;
+          for (int w = 0; w < m; ++w) {
+            xs = __fadd_rn(xs, slot_su[w * D + tid]);
+            xp = __fadd_rn(xp, slot_pu[w * D + tid]);
+            acc_wda = __fadd_rn(acc_wda, slot_wda[w * D + tid]);
+          }
+          dsu[tid] = xs;
+          dpu[tid] = xp;
+        }
+        if (tid == 0)
+          for (int w = 0; w < m; ++w) acc_bda = __fadd_rn(acc_bda, slot_bda[w]);
+        __syncthreads();
       }
-      bs = rnd<T>(__fadd_rn(warp_sum(bs), bda));
-      bp = rnd<T>(__fadd_rn(warp_sum(bp), bda));
-      const float es = expf(bs), ep = expf(bp);
-      // beta's value is rounded to T, its slope taken at the unrounded quotient
-      const float beta_q = __fdiv_rn(es, __fadd_rn(es, ep));
-      const float beta = rnd<T>(beta_q);
-      const float omb = __fsub_rn(1.f, beta);
-      float dbeta = 0.f;
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        dbeta = fmaf(__fmul_rn(gp, qv[v]), __fsub_rn(sv[v], pv[v]), dbeta);
-      dbeta = warp_sum(dbeta);
-      // d b_s; d b_p = -d b_s
-      const float dbs = __fmul_rn(__fmul_rn(dbeta, beta_q), __fsub_rn(1.f, beta_q));
-      const float dbp = -dbs;
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const int d = lane + 32 * v;
-        const float dz = __fmul_rn(gp, qv[v]);
-        const float us = __fmul_rn(sv[v], qv[v]), up = __fmul_rn(pv[v], qv[v]);
-        const float gs = us > 0.f ? __fmul_rn(dbs, wv[v]) : 0.f;
-        const float gq = up > 0.f ? __fmul_rn(dbp, wv[v]) : 0.f;
-        m.dsu[d] = fmaf(gs, qv[v], __fmul_rn(beta, dz));
-        m.dpu[d] = fmaf(gq, qv[v], __fmul_rn(omb, dz));
-        const float z = rnd<T>(__fadd_rn(__fmul_rn(beta, sv[v]), __fmul_rn(omb, pv[v])));
-        st1(dq + (long long)p * D + d,
-            rnd<T>(fmaf(gq, pv[v], fmaf(gs, sv[v], __fmul_rn(gp, z)))));
-        acc_wda[v] = fmaf(dbs, fmaxf(us, 0.f), fmaf(dbp, fmaxf(up, 0.f), acc_wda[v]));
-      }
-      if (lane == 0) acc_bda = __fadd_rn(acc_bda, __fadd_rn(dbs, dbp));
-    }
-    __syncthreads();
 
-    // d(att_j) = d(su) . h_j, one warp per slot
-    for (int j = warp; j < H; j += kWarps) {
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32) acc = fmaf(m.dsu[d], m.T[j * D + d], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) m.da[j] = acc;
-    }
-    __syncthreads();
-    // the softmax's backward at its unrounded weights (in m.s):
-    // d(s_j) = att_j (d(att_j) - sum_k att_k d(att_k))
-    if (warp == 0) {
-      float c = 0.f;
-      for (int j = lane; j < H; j += 32) c = fmaf(m.s[j], m.da[j], c);
-      c = warp_sum(c);
-      for (int j = lane; j < H; j += 32) m.s[j] = __fmul_rn(m.s[j], __fsub_rn(m.da[j], c));
-    }
-    __syncthreads();
-
-    // (j, d) pass: d(pu) and d(w_ua) through the scores, then dT in place
-    {
-      const float pud = m.pu[pd], wud = ld1(w_ua + pd), dsud = m.dsu[pd];
-      float dpu_part = 0.f;
-      for (int j = jg; j < H; j += S::JG) {
-        const float t = m.T[j * D + pd];
-        const float y = __fmul_rn(pud, t);
-        const float ds = m.s[j];
-        const float dy = y > 0.f ? __fmul_rn(ds, wud) : 0.f;
-        dpu_part = fmaf(dy, t, dpu_part);
-        acc_wua = fmaf(ds, fmaxf(y, 0.f), acc_wua);
-        const float dt = fmaf(m.att[j], dsud, __fmul_rn(dy, pud));
-        m.T[j * D + pd] = dt;
-        acc_b = __fadd_rn(acc_b, dt);
+      // the anchor stage's chain rule, once: d(att_j) = d(su) . h_j, a warp a slot
+      for (int j = warp; j < H; j += kWarps) {
+        float acc = 0.f;
+        for (int d = lane; d < D; d += 32) acc = fmaf(dsu[d], Ts[j * D + d], acc);
+        acc = warp_sum(acc);
+        if (lane == 0) da[j] = acc;
       }
-      m.red[tid] = dpu_part;
-    }
-    if (tid == 0)
-      for (int j = 0; j < H; ++j) acc_bua = __fadd_rn(acc_bua, m.s[j]);
-    __syncthreads();
-    if (tid < D) {
-      float s = m.dpu[tid];
-      for (int k = 0; k < S::JG; ++k) s = __fadd_rn(s, m.red[k * D + tid]);
-      st1(dpu + (long long)p * D + tid, rnd<T>(s));
-    }
-    // dW += E^T dT over the real slots
-    for (int j = 0; j < H; ++j) {
-      const float4 dt = *reinterpret_cast<const float4*>(m.T + j * D + 4 * tx);
-      const float* e = m.E + j * S::EST + ty;
+      __syncthreads();
+      // the softmax's backward at its unrounded weights (in s):
+      // d(s_j) = att_j (d(att_j) - sum_k att_k d(att_k))
+      if (warp == 0) {
+        float cc = 0.f;
+        for (int j = lane; j < H; j += 32) cc = fmaf(s[j], da[j], cc);
+        cc = warp_sum(cc);
+        for (int j = lane; j < H; j += 32) s[j] = __fmul_rn(s[j], __fsub_rn(da[j], cc));
+      }
+      __syncthreads();
+      // (j, d) pass: d(pu) and d(w_ua) through the scores, then dT in place
+      {
+        const float pud = pu[pd], wud = ld1(w_ua + pd), dsud = dsu[pd];
+        float dpu_part = 0.f;
+        for (int j = jg; j < H; j += S::JG) {
+          const float t = Ts[j * D + pd];
+          const float y = __fmul_rn(pud, t);
+          const float ds = s[j];
+          const float dy = y > 0.f ? __fmul_rn(ds, wud) : 0.f;
+          dpu_part = fmaf(dy, t, dpu_part);
+          acc_wua = fmaf(ds, fmaxf(y, 0.f), acc_wua);
+          const float dt = fmaf(att[j], dsud, __fmul_rn(dy, pud));
+          Ts[j * D + pd] = dt;
+          acc_b = __fadd_rn(acc_b, dt);
+        }
+        red[tid] = dpu_part;
+      }
+      if (tid == 0)
+        for (int j = 0; j < H; ++j) acc_bua = __fadd_rn(acc_bua, s[j]);
+      __syncthreads();
+      // the row's gradient: its pairs' d(pu) in position order, then the
+      // anchor stage's
+      if (tid < D) {
+        float x = dpu[tid];
+        for (int k = 0; k < S::JG; ++k) x = __fadd_rn(x, red[k * D + tid]);
+        st1(dtable + r * D + tid, rnd<T>(x));
+      }
+      // dW += E^T dT
+      for (int j = 0; j < H; ++j) {
+        const float4 dt = *reinterpret_cast<const float4*>(Ts + j * D + 4 * tx);
+        const float* e = E + j * D + ty;
 #pragma unroll
-      for (int r = 0; r < S::RK; ++r) {
-        const float x = e[S::RT * r];
-        acc_w[r][0] = fmaf(x, dt.x, acc_w[r][0]);
-        acc_w[r][1] = fmaf(x, dt.y, acc_w[r][1]);
-        acc_w[r][2] = fmaf(x, dt.z, acc_w[r][2]);
-        acc_w[r][3] = fmaf(x, dt.w, acc_w[r][3]);
+        for (int rr = 0; rr < S::RK; ++rr) {
+          const float x = e[S::RT * rr];
+          acc_w[rr][0] = fmaf(x, dt.x, acc_w[rr][0]);
+          acc_w[rr][1] = fmaf(x, dt.y, acc_w[rr][1]);
+          acc_w[rr][2] = fmaf(x, dt.z, acc_w[rr][2]);
+          acc_w[rr][3] = fmaf(x, dt.w, acc_w[rr][3]);
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
+    __syncthreads();  // mine is rewritten by the next span
   }
 
   // this block's partial sums: [dW | db | dw_ua | db_ua | dw_da | db_da]
@@ -627,28 +936,25 @@ backward_kernel(const T* __restrict__ src, const int* __restrict__ ids,
   for (int r = 0; r < S::RK; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) part[(ty + S::RT * r) * D + 4 * tx + c] = acc_w[r][c];
-  m.red[tid] = acc_b;
+  red[tid] = acc_b;
   __syncthreads();
   if (tid < D) {
-    float s = 0.f;
-    for (int k = 0; k < S::JG; ++k) s = __fadd_rn(s, m.red[k * D + tid]);
-    part[D * D + tid] = s;
+    float x = 0.f;
+    for (int k = 0; k < S::JG; ++k) x = __fadd_rn(x, red[k * D + tid]);
+    part[D * D + tid] = x;
   }
   __syncthreads();
-  m.red[tid] = acc_wua;
+  red[tid] = acc_wua;
   __syncthreads();
   if (tid < D) {
-    float s = 0.f;
-    for (int k = 0; k < S::JG; ++k) s = __fadd_rn(s, m.red[k * D + tid]);
-    part[D * D + D + tid] = s;
+    float x = 0.f;
+    for (int k = 0; k < S::JG; ++k) x = __fadd_rn(x, red[k * D + tid]);
+    part[D * D + D + tid] = x;
+    part[D * D + 2 * D + 1 + tid] = acc_wda;
   }
   if (tid == 0) {
     part[D * D + 2 * D] = acc_bua;
     part[D * D + 3 * D + 1] = acc_bda;
-  }
-  if (warp == 0) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) part[D * D + 2 * D + 1 + lane + 32 * v] = acc_wda[v];
   }
 }
 
@@ -663,20 +969,42 @@ reduce_kernel(const float* __restrict__ partial, int blocks, int n, T* __restric
   st1(out + i, rnd<T>(s));
 }
 
-// blocks of a persistent launch: every SM full, never more blocks than work
+// blocks of a persistent launch: every SM full, never more blocks than work.
+// The SM count and each (kernel, shared memory) pair's occupancy are asked
+// once per process and device, and the kernel's shared-memory attribute set
+// then to the most it has needed, so a call asks the runtime nothing; every
+// launch of these kernels takes its block count from here first.
 template <typename K>
 int persistent_blocks(K kernel, size_t smem, int work) {
   if (work <= 0) return 0;
-  int dev = 0, sms = 0, occ = 0;
+  struct Seen {
+    const void* kernel;
+    size_t smem;
+    int dev, full;
+  };
+  static Seen seen[64];
+  static int n_seen = 0;
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -(int)e;
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].kernel == (const void*)kernel && seen[i].smem == smem && seen[i].dev == dev)
+      return seen[i].full < work ? seen[i].full : work;
+  // the kernel's attribute only ever rises, so every earlier answer holds
+  size_t most = smem;
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].kernel == (const void*)kernel && seen[i].dev == dev && seen[i].smem > most)
+      most = seen[i].smem;
+  int sms = 0, occ = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem);
   if (e != cudaSuccess) return -(int)e;
-  const long long full = (long long)sms * (occ > 0 ? occ : 1);
-  return (int)(full < work ? full : work);
+  const int full = sms * (occ > 0 ? occ : 1);
+  if (n_seen < 64) seen[n_seen++] = {(const void*)kernel, smem, dev, full};
+  return full < work ? full : work;
 }
 
 // su [A, D] of anchors [A] with pu [A, D]: one persistent launch over every SM
@@ -694,46 +1022,69 @@ int anchor_table(const T* src, const int* ids, const uint8_t* mask, const int* a
 }
 
 template <int D, typename T>
-int forward(const T* src, const int* ids, const uint8_t* mask, const int* anchors,
-            const T* pu, const T* q, const T* W, const T* b, const T* w_ua, const T* b_ua,
-            const T* w_da, const T* b_da, int H, int P, T* su, T* out, cudaStream_t stream) {
-  const int e =
-      anchor_table<D, T>(src, ids, mask, anchors, pu, W, b, w_ua, b_ua, H, P, su, stream);
-  if (e != 0) return e;
-  if (P > 0)
-    pair_kernel<D, T><<<(unsigned)((P + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-        su, pu, q, w_da, b_da, P, out);
-  return (int)cudaGetLastError();
-}
-
-template <int D, typename T>
 int pair_grid(const T* su, const T* pu, const T* q, const T* w_da, const T* b_da, int A,
               int Nq, bool anchor_is_row, T* out, cudaStream_t stream) {
   const int R = anchor_is_row ? A : Nq, C = anchor_is_row ? Nq : A;
   if (R <= 0 || C <= 0) return (int)cudaGetLastError();
   const size_t smem = grid_smem_bytes<D>();
   auto kernel = anchor_is_row ? pair_grid_kernel<D, true, T> : pair_grid_kernel<D, false, T>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // each instance's fixed shared memory, allowed once per process
+  static const cudaError_t rows =
+      cudaFuncSetAttribute(pair_grid_kernel<D, true, T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static const cudaError_t cols =
+      cudaFuncSetAttribute(pair_grid_kernel<D, false, T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = anchor_is_row ? rows : cols;
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((C + kGridCols - 1) / kGridCols, (R + kGridRows - 1) / kGridRows);
   kernel<<<grid, kGridThreads, smem, stream>>>(su, pu, q, w_da, b_da, R, C, out);
   return (int)cudaGetLastError();
 }
 
+// the training forward: the transfer, then the heads (su kept); Tall [Ns, D]
+// and keep are the caller's scratch
 template <int D, typename T>
-int backward(const T* src, const int* ids, const uint8_t* mask, const int* anchors,
-             const T* pu, const T* q, const T* W, const T* b, const T* w_ua, const T* b_ua,
-             const T* w_da, const T* b_da, int H, int P, const T* g, T* dpu, T* dq,
-             float* partial, int blocks, T* out, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, H);
+int forward(const T* src, int Ns, const int* ids, const uint8_t* mask, int H, const T* table,
+            const T* q, const T* W, const T* b, const T* w_ua, const T* b_ua, const T* w_da,
+            const T* b_da, const GroupsView& g, int P, float* Tall, Keep keep, T* out,
+            cudaStream_t stream) {
+  const size_t tsmem = transfer_smem_bytes(D);
+  // the instance's fixed shared memory, allowed once per process
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      transfer_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tsmem);
+  cudaError_t e = allowed;
+  if (e != cudaSuccess) return (int)e;
+  const int rpass = Shape<D>::RPASS;
+  if (Ns > 0)
+    transfer_kernel<D, T><<<(Ns + rpass - 1) / rpass, kThreads, tsmem, stream>>>(src, Ns, W, b,
+                                                                                  Tall);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = head_smem_bytes(D, H, false);
+  const int blocks = persistent_blocks(forward_kernel<D, T>, smem, P);
+  if (blocks < 0) return -blocks;
+  if (blocks > 0)
+    forward_kernel<D, T><<<blocks, kThreads, smem, stream>>>(Tall, ids, mask, H, table, q, w_ua,
+                                                             b_ua, w_da, b_da, g, keep, out);
+  return (int)cudaGetLastError();
+}
+
+// the training backward: the spans' counts (and d(table)'s rows no anchor
+// names, zeroed), the heads' kernel, then the block-order sum of its
+// partials into out [dW | db | dw_ua | db_ua | dw_da | db_da]
+template <int D, typename T>
+int backward(const T* src, const float* Tall, const int* ids, int H, const T* table, int N,
+             const T* q, const T* w_ua, const T* w_da, const T* b_da, const GroupsView& g,
+             Keep keep, const T* gz, T* dtable, T* dq, float* partial, int* counts, int blocks,
+             T* out, cudaStream_t stream) {
+  const size_t smem = head_smem_bytes(D, H, true);
   const int n = Shape<D>::NPART;
   if (blocks > 0) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        backward_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    span_count_kernel<D, T><<<(N + kSpan - 1) / kSpan, kThreads, 0, stream>>>(g, N, counts,
+                                                                              dtable);
     backward_kernel<D, T><<<blocks, kThreads, smem, stream>>>(
-        src, ids, mask, anchors, pu, q, W, b, w_ua, b_ua, w_da, b_da, P, H, g, dpu, dq,
+        src, Tall, ids, H, table, N, q, w_ua, w_da, b_da, g, counts, keep, gz, dtable, dq,
         partial);
     const cudaError_t e2 = cudaGetLastError();
     if (e2 != cudaSuccess) return (int)e2;
@@ -765,25 +1116,6 @@ int backward(const T* src, const int* ids, const uint8_t* mask, const int* ancho
     default: return (int)cudaErrorInvalidValue;                       \
   }
 
-#define NATR_ARGS                                                                  \
-  const void *src, const void *ids, const void *mask, const void *anchors,         \
-      const void *pu, const void *q, const void *W, const void *b, const void *w_ua, \
-      const void *b_ua, const void *w_da, const void *b_da, int H, int D
-#define NATR_PASS(T)                                                               \
-  (const T*)src, (const int*)ids, (const uint8_t*)mask, (const int*)anchors,       \
-      (const T*)pu, (const T*)q, (const T*)W, (const T*)b, (const T*)w_ua,         \
-      (const T*)b_ua, (const T*)w_da, (const T*)b_da, H
-
-// anchors: [P] rows of the history ids / mask [N_anchor, H]; pu, q: [P, D];
-// su: [P, D] scratch; out: [P] logits
-extern "C" int natr_attention_forward(NATR_ARGS, int P, void* su, void* out, int dtype,
-                                      void* stream) {
-#define NATR_FWD(d, T) \
-  forward<d, T>(NATR_PASS(T), P, (T*)su, (T*)out, (cudaStream_t)stream)
-  NATR_DISPATCH(NATR_FWD)
-#undef NATR_FWD
-}
-
 // anchors: [A] rows of the history ids / mask [N_anchor, H]; pu: [A, D];
 // su: [A, D] out
 extern "C" int natr_anchor_table(const void* src, const void* ids, const void* mask,
@@ -810,34 +1142,60 @@ extern "C" int natr_pair_grid(const void* su, const void* pu, const void* q, con
 #undef NATR_GRID
 }
 
-// the backward's block count for P pairs (its partial-sum scratch has one
-// row per block), or minus a CUDA error code
-extern "C" int natr_attention_backward_blocks(int D, int H, int P, int dtype) {
-  const size_t smem = smem_bytes(D, H);
-#define NATR_BLOCKS(d, T) persistent_blocks(backward_kernel<d, T>, smem, P)
-  switch (dtype * 1000 + D) {
-    case 32: return NATR_BLOCKS(32, float);
-    case 64: return NATR_BLOCKS(64, float);
-    case 128: return NATR_BLOCKS(128, float);
-    case 1032: return NATR_BLOCKS(32, __nv_bfloat16);
-    case 1064: return NATR_BLOCKS(64, __nv_bfloat16);
-    case 1128: return NATR_BLOCKS(128, __nv_bfloat16);
-    case 2032: return NATR_BLOCKS(32, __half);
-    case 2064: return NATR_BLOCKS(64, __half);
-    case 2128: return NATR_BLOCKS(128, __half);
-    default: return -(int)cudaErrorInvalidValue;
-  }
+// The training forward. src [Ns, D] the source table; ids, mask [>= N, H]
+// the anchors' histories; table [N, D] the anchor side's table; q [P, D] the
+// pairs' queries; plan: the seven addresses of the grouping of the pairs'
+// anchor ids [P] over the table's rows (ops/row_groups.py::Groups); Tall
+// float32 [Ns, D], su [P, D], att and attq [P, H] scratch the backward reads;
+// out [P] logits.
+extern "C" int natr_attention_forward(const void* src, int Ns, const void* ids,
+                                      const void* mask, int H, int D, const void* table,
+                                      const void* q, const void* W, const void* b,
+                                      const void* w_ua, const void* b_ua, const void* w_da,
+                                      const void* b_da, const void* const* plan, int P,
+                                      void* Tall, void* su, void* att, void* attq, void* out,
+                                      int dtype, void* stream) {
+  const GroupsView g = groups_view(plan);
+  const Keep keep{(float*)su, (float*)att, (float*)attq};
+#define NATR_FWD(d, T)                                                                     \
+  forward<d, T>((const T*)src, Ns, (const int*)ids, (const uint8_t*)mask, H, (const T*)table, \
+                (const T*)q, (const T*)W, (const T*)b, (const T*)w_ua, (const T*)b_ua,       \
+                (const T*)w_da, (const T*)b_da, g, P, (float*)Tall, keep, (T*)out,           \
+                (cudaStream_t)stream)
+  NATR_DISPATCH(NATR_FWD)
+#undef NATR_FWD
+}
+
+// the backward's block count for a table of N rows (its partial-sum scratch
+// has one row per block), or minus a CUDA error code
+extern "C" int natr_attention_backward_blocks(int D, int H, int N, int dtype) {
+  const size_t smem = head_smem_bytes(D, H, true);
+#define NATR_BLOCKS(d, T) persistent_blocks(backward_kernel<d, T>, smem, N)
+  NATR_DISPATCH(NATR_BLOCKS)
 #undef NATR_BLOCKS
 }
 
-// g: [P]; dpu, dq: [P, D]; partial: float32 [max(blocks, 1), D*D + 3D + 2];
-// out: the summed weight gradients [dW | db | dw_ua | db_ua | dw_da | db_da]
-extern "C" int natr_attention_backward(NATR_ARGS, int P, const void* g, void* dpu, void* dq,
-                                       void* partial, int blocks, void* out, int dtype,
+// The training backward, from the forward's plan and scratch (Tall, su, att,
+// attq) and g [P]: dtable [N, D] (every row written: 0 where no pair's
+// anchor), dq [P, D]; partial float32 [max(blocks, 1), D*D + 3D + 2] and
+// counts int32 [ceil(N / 1024)] scratch; out the summed weight gradients
+// [dW | db | dw_ua | db_ua | dw_da | db_da].
+extern "C" int natr_attention_backward(const void* src, const void* ids, int H, int D,
+                                       const void* table, int N, const void* q,
+                                       const void* w_ua, const void* w_da, const void* b_da,
+                                       const void* const* plan, const void* Tall,
+                                       const void* su, const void* att, const void* attq,
+                                       const void* g, void* dtable, void* dq, void* partial,
+                                       void* counts, int blocks, void* out, int dtype,
                                        void* stream) {
-#define NATR_BWD(d, T)                                                                  \
-  backward<d, T>(NATR_PASS(T), P, (const T*)g, (T*)dpu, (T*)dq, (float*)partial, blocks, \
-                 (T*)out, (cudaStream_t)stream)
+  const GroupsView gv = groups_view(plan);
+  const Keep keep{(float*)su, (float*)att, (float*)attq};
+#define NATR_BWD(d, T)                                                                      \
+  backward<d, T>((const T*)src, (const float*)Tall, (const int*)ids, H, (const T*)table, N,  \
+                 (const T*)q, (const T*)w_ua, (const T*)w_da, (const T*)b_da, gv, keep,      \
+                 (const T*)g, (T*)dtable, (T*)dq, (float*)partial, (int*)counts, blocks,     \
+                 (T*)out,                                                                   \
+                 (cudaStream_t)stream)
   NATR_DISPATCH(NATR_BWD)
 #undef NATR_BWD
 }

@@ -228,11 +228,15 @@ class CrossDomainRecommender(nn.Module):
     def rows(self, name: str, ids: torch.Tensor) -> torch.Tensor:
         """Rows ``ids`` of table ``name`` (a parameter or a buffer): a
         gather, or for a row-sharded table the lookup over the model group
-        (``parallel/embedding.py``)."""
+        (``parallel/embedding.py``). The gather is ``F.embedding``, as in
+        every model's training gathers: its backward adds a row's gradient
+        rows in an order the ids fix, on the CPU (where the index gather's
+        backward adds them by atomic adds over threads, in an order that
+        changes from run to run) and on the card."""
         table = getattr(self, name)
         shard = self.table_shards.get(name)
         if shard is None:
-            return table[ids.long()]
+            return nn.functional.embedding(ids.long(), table)
         return sharded_lookup(table, ids, shard.offset, self.mesh.model_group)
 
     def pair_rows(self, user_name: str, item_name: str, user, item):

@@ -76,15 +76,15 @@ class CLFM(CrossDomainRecommender):
         return torch.cat(parts, -1)
 
     def _forward(self, user, item, domain: str):
-        user_e = getattr(self, f"{domain}_user_embedding")[user.long()]
-        item_e = getattr(self, f"{domain}_item_embedding")[item.long()]
+        user_e = nn.functional.embedding(user.long(), getattr(self, f"{domain}_user_embedding"))
+        item_e = nn.functional.embedding(item.long(), getattr(self, f"{domain}_item_embedding"))
         return (self._factors(user_e, domain) * item_e).sum(-1)  # logits
 
     def _domain_loss(self, batch, domain: str, uid: str, iid: str, label: str):
         user, item = batch[uid].long(), batch[iid].long()
         weight = batch[f"{domain}_sample_weight"]
-        rows = [getattr(self, f"{domain}_user_embedding")[user],
-                getattr(self, f"{domain}_item_embedding")[item]]
+        rows = [nn.functional.embedding(user, getattr(self, f"{domain}_user_embedding")),
+                nn.functional.embedding(item, getattr(self, f"{domain}_item_embedding"))]
         return (bce_loss(self._forward(user, item, domain), batch[label], weight)
                 + self.reg_weight * emb_loss(rows, weight))
 

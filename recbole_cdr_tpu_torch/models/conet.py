@@ -65,8 +65,11 @@ class CoNet(CrossDomainRecommender):
         """Both towers with the cross-stitch on the overlapped rows
         (`conet.py:83-105`): the final hidden of (source, target)."""
         user, item = user.long(), item.long()
-        src_x = torch.cat([self.source_user_embedding[user], self.source_item_embedding[item]], -1)
-        tgt_x = torch.cat([self.target_user_embedding[user], self.target_item_embedding[item]], -1)
+        embed = nn.functional.embedding
+        src_x = torch.cat([embed(user, self.source_user_embedding),
+                           embed(item, self.source_item_embedding)], -1)
+        tgt_x = torch.cat([embed(user, self.target_user_embedding),
+                           embed(item, self.target_item_embedding)], -1)
         if self.mode == "overlap_users":
             overlap = user < self.overlapped_num_users
         else:

@@ -14,7 +14,11 @@ builds them), truncated to ``max_inter_length``.
 
 In the TARGET phase B9 receives the source table detached: the phase freezes
 it, and where JAX computes its gradient and the optimizer mask discards it,
-the port computes none.
+the port computes none. B9 takes the anchor side's whole table and the
+pairs' anchor ids, as JAX's ``_phase2_logit`` gathers inside, and groups a
+step's anchor ids by row on a plan the model keeps per anchor table
+(``ops/row_groups.py::RowPlan``), so the kernels run one anchor stage per
+distinct anchor.
 
 Under ``compute_dtype: bfloat16`` both phases run on the trainer's 16-bit
 copies: SOURCE through K1's 16-bit form (also on the sparse step's
@@ -49,6 +53,7 @@ from recbole_cdr_tpu_torch.ops.natr_attention import (
     natr_attention,
     natr_pair_grid,
 )
+from recbole_cdr_tpu_torch.ops.row_groups import RowPlan
 from recbole_cdr_tpu_torch.utils.enums import InputType
 
 
@@ -126,14 +131,24 @@ class NATR(CrossDomainRecommender):
     def _phase1_logit(self, user, item):
         return gather_dot(self.source_user_embedding, self.source_item_embedding, user, item)
 
+    def _anchor_plan(self, table):
+        """The kept plan of the anchor table's rows (one per device and row
+        count): the one source of B9's plans."""
+        plans = self.__dict__.setdefault("_anchor_plans", {})
+        key = (table.device, table.shape[0])
+        if key not in plans:
+            plans[key] = RowPlan(table.shape[0], table.device)
+        return plans[key]
+
     def _phase2_logit(self, user, item):
-        user_e = self.target_user_embedding[user.long()]
-        item_e = self.target_item_embedding[item.long()]
         if self.mode == "overlap_items":
-            anchors, pu, qi = user, user_e, item_e
+            table, anchors, qi = self.target_user_embedding, user, nn.functional.embedding(
+                item.long(), self.target_item_embedding)
         else:
-            anchors, pu, qi = item, item_e, user_e
-        return natr_attention(self._history(), anchors.to(torch.int32), pu, qi, self._weights())
+            table, anchors, qi = self.target_item_embedding, item, nn.functional.embedding(
+                user.long(), self.target_user_embedding)
+        return natr_attention(self._history(), table, anchors.to(torch.int32), qi,
+                              self._weights(), self._anchor_plan(table))
 
     # ----------------------------------------------------------------- losses
 

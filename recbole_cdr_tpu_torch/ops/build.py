@@ -92,11 +92,12 @@ _SIGNATURES = {
     "rank_sum": {"rank_sum": [_P, _I, _I, _P, _P, _P, _P] + [_I] * 5 + [_P, _P],
                  "rank_sum_candidates": [_P, _I, _I, _P, _P] + [_I] * 4 + [_P, _P]},
     "natr_attention": {
-        "natr_attention_forward": [_P] * 12 + [_I] * 3 + [_P, _P, _I, _P],
+        "natr_attention_forward": [_P, _I, _P, _P, _I, _I, _P, _P] + [_P] * 6 + [_P, _I]
+                                  + [_P] * 5 + [_I, _P],
         "natr_anchor_table": [_P] * 9 + [_I] * 3 + [_P, _I, _P],
         "natr_pair_grid": [_P] * 5 + [_I] * 4 + [_P, _I, _P],
         "natr_attention_backward_blocks": [_I, _I, _I, _I],
-        "natr_attention_backward": [_P] * 12 + [_I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P],
+        "natr_attention_backward": [_P, _P, _I, _I, _P, _I] + [_P] * 14 + [_I, _P, _I, _P],
     },
     "rating_vector": {
         "rating_vector_plan": [_P, _I, _I] + [_P] * 12,
@@ -228,5 +229,10 @@ def check(err: int, kernel: str) -> None:
 
 
 def stream_handle(t) -> int:
-    """The current CUDA stream of ``t``'s device, as a pointer-sized int."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as a pointer-sized int:
+    torch's raw accessor where the build has it (it makes no ``Stream``
+    object, a few microseconds of host time a kernel call)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(t.device).cuda_stream
+    return raw(t.device.index)

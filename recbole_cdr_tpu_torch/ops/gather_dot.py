@@ -26,7 +26,7 @@ run for CPU tensors and serve as the kernels' reference.
 import torch
 
 from recbole_cdr_tpu_torch.ops import build
-from recbole_cdr_tpu_torch.ops.row_groups import Groups, group_rows, group_scratch
+from recbole_cdr_tpu_torch.ops.row_groups import Groups, RowPlan, group_rows
 
 
 #: the table types of the kernels and their C type codes: float32, and the
@@ -207,9 +207,9 @@ def gather_dot_backward_bf16(U, I, u, i, g, groups):
 gather_dot_backward_bf16.launches = 0
 
 
-#: per (device, rows, table slot), the kept scratch of the autograd
-#: backward's groupings
-_SCRATCH = {}
+#: per (device, rows, table slot), the kept plan of the autograd backward's
+#: groupings
+_PLANS = {}
 
 
 def backward_groups(U, I, u, i, positions=(False, False)):
@@ -226,9 +226,10 @@ def backward_groups(U, I, u, i, positions=(False, False)):
         sides.append(None)
         if table.device.type == "cuda":
             key = (table.device, N, k)
-            if key not in _SCRATCH:
-                _SCRATCH[key] = group_scratch(N, table.device)
-            need.append((k, (ids, N, _SCRATCH[key], 0)))
+            plan = _PLANS.get(key)
+            if plan is None:
+                plan = _PLANS[key] = RowPlan(N, table.device, capacity=ids.shape[0])
+            need.append((k, (ids, plan)))
     if need:
         built = group_rows(*need[0][1], second=need[1][1] if len(need) > 1 else None)
         for (k, _), grp in zip(need, built if len(need) > 1 else (built,)):

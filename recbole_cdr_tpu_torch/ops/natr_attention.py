@@ -18,11 +18,18 @@ target embedding). With ``h_j = src[hist[a, j]] @ W + b`` for every slot
 anchor stage once per anchor and the O(D) pair stage per pair. Four
 wrappers, each counting its calls that launch:
 
-- :func:`natr_attention_forward`: training, one anchor per pair, logits [P]
-  (two kernels);
-- :func:`natr_attention_backward`: the gradients of ``pu``, ``q``, ``W``,
-  ``b``, ``w_ua``, ``b_ua``, ``w_da``, ``b_da`` (none for the source table,
-  which NATR freezes in the phase that runs this; two kernels);
+- :func:`natr_attention_forward`: training, logits [P] of P pairs, each
+  named by its anchor's id into the anchor side's table [N, D] (JAX's
+  ``_phase2_logit`` gathers ``pu`` from it inside) and its query ``q``; on
+  the card one anchor stage per distinct anchor of the step, from the plan
+  of the anchor ids over the table's rows (``ops/row_groups.py::
+  group_rows``, its own launch and count), and each source row transferred
+  once (two kernels);
+- :func:`natr_attention_backward`: the gradients of the anchor table (each
+  row its pairs' terms added in position order, 0 where no pair names it),
+  ``q``, ``W``, ``b``, ``w_ua``, ``b_ua``, ``w_da``, ``b_da`` (none for the
+  source table, which NATR freezes in the phase that runs this; two
+  kernels);
 - :func:`natr_anchor_table`: ``su`` of a set of anchors, the anchor stage
   alone (full-sort scoring builds it once per parameter version);
 - :func:`natr_pair_grid`: a [rows, cols] grid of sigmoid probabilities from
@@ -52,6 +59,7 @@ from typing import NamedTuple
 import torch
 
 from recbole_cdr_tpu_torch.ops import build
+from recbole_cdr_tpu_torch.ops.row_groups import RowPlan, group_rows
 
 #: the kernels' widths (D = source width = target width), threads per block
 #: and shared-memory budget
@@ -59,6 +67,8 @@ WIDTHS = (32, 64, 128)
 DTYPES = build.DTYPES
 THREADS = 256
 SMEM_LIMIT = 227 * 1024
+#: the table rows of one span of the training backward's counts (``kSpan``)
+SPAN = 4 * THREADS
 
 
 class Weights(NamedTuple):
@@ -122,26 +132,32 @@ def blend_plain(su, pu, q, w: Weights):
     return _blend(su, pu, q, Weights(*ws), build.rounding(dtype)).to(dtype)
 
 
-def _forward_wide(hist: History, anchors, pu, q, w: Weights, dtype):
-    """The logits in the working type, from working-type ``pu``, ``q`` and
-    weights, rounded as ``dtype`` computes."""
+def _forward_wide(hist: History, anchors, table, q, w: Weights, dtype):
+    """The logits in the working type, from working-type ``table``, ``q``
+    and weights, rounded as ``dtype`` computes. ``pu`` is gathered with
+    ``F.embedding``, whose backward adds each row's terms in position order
+    on every device."""
     r = build.rounding(dtype)
+    pu = torch.nn.functional.embedding(anchors.long(), table)
     su = _anchor(hist.src.to(build.wide(dtype)), hist.ids, hist.mask, anchors.long(), pu, w, r)
     return _blend(su, pu, q, w, r)
 
 
-def natr_attention_forward_plain(hist: History, anchors, pu, q, w: Weights):
-    pu_w, q_w, *ws = _widen(pu, q, *w)
-    return _forward_wide(hist, anchors, pu_w, q_w, Weights(*ws), pu.dtype).to(pu.dtype)
+def natr_attention_forward_plain(hist: History, table, anchors, q, w: Weights):
+    table_w, q_w, *ws = _widen(table, q, *w)
+    return _forward_wide(hist, anchors, table_w, q_w, Weights(*ws), table.dtype).to(table.dtype)
 
 
-def natr_attention_backward_plain(hist: History, anchors, pu, q, w: Weights, g):
-    dtype = pu.dtype
+def natr_attention_backward_plain(hist: History, table, anchors, q, w: Weights, g):
+    """(d table, dq, dW, db, dw_ua, db_ua, dw_da, db_da): autograd through
+    the plain forward, each gradient rounded once to the operands' type."""
+    dtype = table.dtype
     with torch.enable_grad():
-        leaves = [t.detach().to(build.wide(dtype)).requires_grad_() for t in (pu, q, *w)]
+        leaves = [t.detach().to(build.wide(dtype)).requires_grad_() for t in (table, q, *w)]
         logit = _forward_wide(hist, anchors, leaves[0], leaves[1], Weights(*leaves[2:]), dtype)
-        grads = torch.autograd.grad(logit, leaves, g.to(logit.dtype))
-    return tuple(x.to(dtype) for x in grads)
+        grads = torch.autograd.grad(logit, leaves, g.to(logit.dtype), allow_unused=True)
+    return tuple((torch.zeros_like(x) if d is None else d).to(dtype)
+                 for x, d in zip(leaves, grads))
 
 
 def pair_grid_plain(su, pu, q, w: Weights, anchor_is_row: bool):
@@ -163,13 +179,14 @@ def natr_full_sort_plain(hist: History, anchors, pu, q, w: Weights, anchor_is_ro
 # ---------------------------------------------------------------- checks
 
 def smem_bytes(D: int, H: int) -> int:
-    """The kernels' dynamic shared memory for width D and H history slots
-    (``csrc/natr_attention.cu``: the transfer weight, the gathered history
-    rows with a padded stride, the transferred rows, per-slot and per-width
-    vectors and a reduction scratch)."""
+    """The anchor table's kernel's dynamic shared memory for width D and H
+    history slots (``csrc/natr_attention.cu::smem_bytes``: the transfer
+    weight, the gathered history rows with a padded stride, the transferred
+    rows, per-slot and per-width vectors); the wrappers refuse a history
+    that does not fit it."""
     rows = 4 * THREADS // (D // 4)
     hp = -(-max(H, 1) // rows) * rows
-    floats = D * D + hp * (D + 1) + hp * D + 3 * hp + 4 * D + THREADS
+    floats = D * D + hp * (D + 1) + hp * D + 2 * hp + 2 * D
     return 4 * floats + 4 * hp + hp
 
 
@@ -197,16 +214,22 @@ def _aligned(*tensors):
     return [x.clone() if x.data_ptr() % 16 else x for x in t]
 
 
-def _check(hist: History, anchors, pu, q, w: Weights, *extra, types=tuple(DTYPES)):
+def _check(hist: History, anchors, pu, q, w: Weights, *extra, types=tuple(DTYPES),
+           table=None):
+    """The operands' checks; ``table``: the training ops' anchor table [N,
+    D], whose rows the anchors name (``pu`` then stands for it)."""
     src, ids, mask = hist
     if ids.dtype != torch.int32 or anchors.dtype != torch.int32 or mask.dtype != torch.bool:
         raise TypeError("natr_attention takes int32 history and anchor ids and a bool mask")
     D = src.shape[1] if src.dim() == 2 else -1
+    rows = pu.shape[0] if table is None else q.shape[0]
     if (src.dim() != 2 or pu.dim() != 2 or q.dim() != 2 or pu.shape[1] != D
             or q.shape[1] != D or ids.dim() != 2 or mask.shape != ids.shape
-            or anchors.dim() != 1 or pu.shape[0] != anchors.shape[0]):
+            or anchors.dim() != 1 or rows != anchors.shape[0]
+            or (table is not None and ids.shape[0] < pu.shape[0])):
         raise ValueError(f"natr_attention: src {tuple(src.shape)}, history {tuple(ids.shape)}, "
-                         f"anchors {tuple(anchors.shape)}, pu {tuple(pu.shape)}, "
+                         f"anchors {tuple(anchors.shape)}, "
+                         f"{'pu' if table is None else 'table'} {tuple(pu.shape)}, "
                          f"q {tuple(q.shape)}")
     want = {"W": (D, D), "b": (D,), "w_ua": (D, 1), "b_ua": (1,), "w_da": (D, 1),
             "b_da": (1,)}
@@ -229,28 +252,64 @@ def _args(hist: History, anchors, pu, q, w: Weights):
 
 # --------------------------------------------------------------- wrappers
 
-def _forward(hist: History, anchors, pu, q, w: Weights, name):
-    if q.shape[0] != pu.shape[0]:
-        raise ValueError(f"{name}: one query per pair")
-    keep, args = _args(hist, anchors, pu, q, w)
-    P, D = pu.shape
-    su = torch.empty(P, D, dtype=pu.dtype, device=pu.device)
-    out = torch.empty(P, dtype=pu.dtype, device=pu.device)
+class Kept(NamedTuple):
+    """What the training forward keeps for its backward: the plan of the
+    step's anchor ids and its ``generation`` at the forward, the transferred
+    source table (float32 [Ns, D]), and per head ``su`` [P, D] and the
+    softmax rounded and unrounded [P, H] (float32 values of the operands'
+    type)."""
+
+    plan: object
+    generation: int
+    transferred: torch.Tensor
+    su: torch.Tensor
+    att: torch.Tensor
+    attq: torch.Tensor
+
+
+def _check_plan(table, plan):
+    """``plan`` must be the caller's ``RowPlan`` of the whole table's rows."""
+    if (not isinstance(plan, RowPlan) or plan.L != table.shape[0] or plan.offset != 0
+            or plan.device != table.device):
+        raise ValueError("natr_attention: the plan must be a RowPlan of the anchor table's rows")
+
+
+def _forward(hist: History, table, anchors, q, w: Weights, plan, name):
+    """(logits, Kept) on the card: the plan, then the C entry."""
+    groups = group_rows(anchors, plan)
+    src, ids, mask, table, q, *ws = _aligned(hist.src, hist.ids, hist.mask, table, q, *w)
+    (Ns, D), H, P = src.shape, ids.shape[1], q.shape[0]
+    dev = q.device
+    kept = Kept(plan, plan.generation, torch.empty(Ns, D, device=dev),
+                torch.empty(P, D, device=dev), torch.empty(P, H, device=dev),
+                torch.empty(P, H, device=dev))
+    out = torch.empty(P, dtype=q.dtype, device=dev)
     err = build.library("natr_attention").natr_attention_forward(
-        *args, P, su.data_ptr(), out.data_ptr(), DTYPES[pu.dtype], build.stream_handle(pu))
+        src.data_ptr(), Ns, ids.data_ptr(), mask.data_ptr(), H, D, table.data_ptr(),
+        q.data_ptr(), *(x.data_ptr() for x in ws), groups.pointers(), P,
+        *(x.data_ptr() for x in kept[2:]), out.data_ptr(), DTYPES[q.dtype],
+        build.stream_handle(q))
     build.check(err, name)
-    return out
+    return out, kept
 
 
-def natr_attention_forward(hist: History, anchors, pu, q, w: Weights):
-    """[P] logits of P pairs, pair p anchored at ``anchors[p]`` with
-    ``pu[p]`` and queried by ``q[p]``, in the operands' type; 16-bit
-    operands go to :func:`natr_attention_forward_bf16`."""
-    if not _check(hist, anchors, pu, q, w):
-        return natr_attention_forward_plain(hist, anchors, pu, q, w)
-    if pu.dtype != torch.float32:
-        return natr_attention_forward_bf16(hist, anchors, pu, q, w)
-    out = _forward(hist, anchors, pu, q, w, "natr_attention_forward")
+def natr_attention_forward(hist: History, table, anchors, q, w: Weights, plan):
+    """[P] logits of P pairs, pair p anchored at row ``anchors[p]`` of the
+    anchor side's ``table`` [N, D] (``pu`` = that row) and queried by
+    ``q[p]``, in the operands' type; ``plan``: the ``RowPlan`` of the
+    table's rows the caller keeps. 16-bit operands go to
+    :func:`natr_attention_forward_bf16`."""
+    return _forward_call(hist, table, anchors, q, w, plan)[0]
+
+
+def _forward_call(hist, table, anchors, q, w, plan):
+    """(logits, Kept or None on the CPU), counted by the form's wrapper."""
+    _check_plan(table, plan)
+    if not _check(hist, anchors, table, q, w, table=table):
+        return natr_attention_forward_plain(hist, table, anchors, q, w), None
+    if table.dtype != torch.float32:
+        return _forward_bf16(hist, table, anchors, q, w, plan)
+    out = _forward(hist, table, anchors, q, w, plan, "natr_attention_forward")
     natr_attention_forward.launches += 1
     return out
 
@@ -258,55 +317,72 @@ def natr_attention_forward(hist: History, anchors, pu, q, w: Weights):
 natr_attention_forward.launches = 0
 
 
-def natr_attention_forward_bf16(hist: History, anchors, pu, q, w: Weights):
-    """B9's 16-bit training forward: bfloat16 (or float16) operands, float32
-    sums, logits rounded at JAX's bf16 intermediates."""
-    if not _check(hist, anchors, pu, q, w, types=build.FLOAT16):
-        return natr_attention_forward_plain(hist, anchors, pu, q, w)
-    out = _forward(hist, anchors, pu, q, w, "natr_attention_forward_bf16")
+def _forward_bf16(hist, table, anchors, q, w, plan):
+    if not _check(hist, anchors, table, q, w, types=build.FLOAT16, table=table):
+        return natr_attention_forward_plain(hist, table, anchors, q, w), None
+    out = _forward(hist, table, anchors, q, w, plan, "natr_attention_forward_bf16")
     natr_attention_forward_bf16.launches += 1
     return out
+
+
+def natr_attention_forward_bf16(hist: History, table, anchors, q, w: Weights, plan):
+    """B9's 16-bit training forward: bfloat16 (or float16) operands, float32
+    sums, logits rounded at JAX's bf16 intermediates."""
+    _check_plan(table, plan)
+    return _forward_bf16(hist, table, anchors, q, w, plan)[0]
 
 
 natr_attention_forward_bf16.launches = 0
 
 
-def _backward(hist: History, anchors, pu, q, w: Weights, g, name):
-    if q.shape[0] != pu.shape[0] or g.shape != (pu.shape[0],):
-        raise ValueError(f"{name}: one query and one gradient per pair")
-    keep, args = _args(hist, anchors, pu, q, w)
-    g = g.contiguous()
-    P, D = pu.shape
-    dpu = torch.empty_like(keep[4])
-    dq = torch.empty_like(keep[5])
+def _backward(hist: History, table, anchors, q, w: Weights, g, kept, name):
+    """The gradients on the card, from the forward's ``kept`` values, whose
+    plan must not have grouped other ids since."""
+    if g.shape != (q.shape[0],):
+        raise ValueError(f"{name}: one gradient per pair")
+    if not isinstance(kept, Kept):
+        raise ValueError(f"{name}: the card's backward takes the forward's kept values")
+    if kept.plan.generation != kept.generation:
+        raise ValueError(f"{name}: the forward's plan has grouped other ids since")
+    src, ids, table, q, w_ua, w_da, b_da, g = _aligned(
+        hist.src, hist.ids, table, q, w.w_ua, w.w_da, w.b_da, g)
+    (N, D), H, P = table.shape, ids.shape[1], q.shape[0]
+    dtable, dq = torch.empty_like(table), torch.empty_like(q)
     n_part = D * D + 3 * D + 2
     lib = build.library("natr_attention")
-    blocks = lib.natr_attention_backward_blocks(D, hist.ids.shape[1], P, DTYPES[pu.dtype])
+    blocks = lib.natr_attention_backward_blocks(D, H, N, DTYPES[q.dtype])
     if blocks < 0:
         build.check(-blocks, name)
-    partial = torch.empty(max(blocks, 1), n_part, dtype=torch.float32, device=pu.device)
-    flat = torch.empty(n_part, dtype=pu.dtype, device=pu.device)
+    partial = torch.empty(max(blocks, 1), n_part, dtype=torch.float32, device=q.device)
+    counts = torch.empty(max(-(-N // SPAN), 1), dtype=torch.int32, device=q.device)
+    flat = torch.empty(n_part, dtype=q.dtype, device=q.device)
     err = lib.natr_attention_backward(
-        *args, P, g.data_ptr(), dpu.data_ptr(), dq.data_ptr(), partial.data_ptr(), blocks,
-        flat.data_ptr(), DTYPES[pu.dtype], build.stream_handle(pu))
+        src.data_ptr(), ids.data_ptr(), H, D, table.data_ptr(), N, q.data_ptr(),
+        w_ua.data_ptr(), w_da.data_ptr(), b_da.data_ptr(), kept.plan.groups.pointers(),
+        *(x.data_ptr() for x in kept[2:]), g.data_ptr(), dtable.data_ptr(), dq.data_ptr(),
+        partial.data_ptr(), counts.data_ptr(), blocks, flat.data_ptr(), DTYPES[q.dtype],
+        build.stream_handle(q))
     build.check(err, name)
     dW, db, dw_ua, db_ua, dw_da, db_da = torch.split(flat, [D * D, D, D, 1, D, 1])
-    return (dpu, dq, dW.reshape(D, D), db, dw_ua.reshape(D, 1), db_ua,
+    return (dtable, dq, dW.reshape(D, D), db, dw_ua.reshape(D, 1), db_ua,
             dw_da.reshape(D, 1), db_da)
 
 
-def natr_attention_backward(hist: History, anchors, pu, q, w: Weights, g):
-    """(dpu, dq, dW, db, dw_ua, db_ua, dw_da, db_da) from the gradient ``g``
-    [P] of the logits, in the operands' type. The weight gradients are sums
-    over the pairs: each block of the kernel writes its partial sums and a
+def natr_attention_backward(hist: History, table, anchors, q, w: Weights, g, kept):
+    """(d table, dq, dW, db, dw_ua, db_ua, dw_da, db_da) from the gradient
+    ``g`` [P] of the logits, in the operands' type: a table row's gradient
+    is its pairs' pair-stage terms added in position order plus its anchor
+    stage's, once; 0 for a row no pair names. The weight gradients are sums
+    over the heads: each block of the kernel writes its partial sums and a
     second launch adds them in block order, so the result does not change
-    from run to run. 16-bit operands go to
-    :func:`natr_attention_backward_bf16`."""
-    if not _check(hist, anchors, pu, q, w, g):
-        return natr_attention_backward_plain(hist, anchors, pu, q, w, g)
-    if pu.dtype != torch.float32:
-        return natr_attention_backward_bf16(hist, anchors, pu, q, w, g)
-    out = _backward(hist, anchors, pu, q, w, g, "natr_attention_backward")
+    from run to run. ``kept``: the :class:`Kept` of the forward of these
+    operands (:func:`_forward_call`'s; None on the CPU). 16-bit
+    operands go to :func:`natr_attention_backward_bf16`."""
+    if not _check(hist, anchors, table, q, w, g, table=table):
+        return natr_attention_backward_plain(hist, table, anchors, q, w, g)
+    if table.dtype != torch.float32:
+        return natr_attention_backward_bf16(hist, table, anchors, q, w, g, kept)
+    out = _backward(hist, table, anchors, q, w, g, kept, "natr_attention_backward")
     natr_attention_backward.launches += 1
     return out
 
@@ -314,12 +390,12 @@ def natr_attention_backward(hist: History, anchors, pu, q, w: Weights, g):
 natr_attention_backward.launches = 0
 
 
-def natr_attention_backward_bf16(hist: History, anchors, pu, q, w: Weights, g):
+def natr_attention_backward_bf16(hist: History, table, anchors, q, w: Weights, g, kept):
     """B9's 16-bit backward: the float32 chain rule on the forward's rounded
     values, float32 partial sums, each gradient rounded once."""
-    if not _check(hist, anchors, pu, q, w, g, types=build.FLOAT16):
-        return natr_attention_backward_plain(hist, anchors, pu, q, w, g)
-    out = _backward(hist, anchors, pu, q, w, g, "natr_attention_backward_bf16")
+    if not _check(hist, anchors, table, q, w, g, types=build.FLOAT16, table=table):
+        return natr_attention_backward_plain(hist, table, anchors, q, w, g)
+    out = _backward(hist, table, anchors, q, w, g, kept, "natr_attention_backward_bf16")
     natr_attention_backward_bf16.launches += 1
     return out
 
@@ -430,22 +506,28 @@ def natr_full_sort(hist: History, anchors, pu, q, w: Weights, anchor_is_row: boo
 
 class _NatrAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pu, q, W, b, w_ua, b_ua, w_da, b_da, hist, anchors):
-        ctx.save_for_backward(pu, q, W, b, w_ua, b_ua, w_da, b_da)
+    def forward(ctx, table, q, W, b, w_ua, b_ua, w_da, b_da, hist, anchors, plan):
+        w = Weights(W, b, w_ua, b_ua, w_da, b_da)
+        out, ctx.kept = _forward_call(hist, table, anchors, q, w, plan)
+        ctx.save_for_backward(table, q, W, b, w_ua, b_ua, w_da, b_da)
         ctx.hist, ctx.anchors = hist, anchors
-        return natr_attention_forward(hist, anchors, pu, q, Weights(W, b, w_ua, b_ua, w_da, b_da))
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        pu, q, *w = ctx.saved_tensors
-        grads = natr_attention_backward(ctx.hist, ctx.anchors, pu, q, Weights(*w),
-                                        g.contiguous())
-        return (*grads, None, None)
+        table, q, *w = ctx.saved_tensors
+        grads = natr_attention_backward(ctx.hist, table, ctx.anchors, q, Weights(*w),
+                                        g.contiguous(), ctx.kept)
+        ctx.kept = None
+        return (*grads, None, None, None)
 
 
-def natr_attention(hist: History, anchors, pu, q, w: Weights):
-    """Differentiable logits [P]: gradients reach ``pu``, ``q`` and the
-    weights, never the source table (pass it detached)."""
+def natr_attention(hist: History, table, anchors, q, w: Weights, plan):
+    """Differentiable logits [P] of the pairs (row ``anchors[p]`` of
+    ``table``, ``q[p]``): gradients reach ``table``, ``q`` and the weights,
+    never the source table (pass it detached). ``plan``: the ``RowPlan`` of
+    the table's rows the caller keeps; the forward's grouping and its
+    anchor stages serve the backward."""
     if hist.src.requires_grad:
         raise ValueError("natr_attention takes no gradient for the source table: detach it")
-    return _NatrAttention.apply(pu, q, *w, hist, anchors)
+    return _NatrAttention.apply(table, q, *w, hist, anchors, plan)

@@ -12,11 +12,16 @@ replaces the grouping XLA does inside its scatter-add and scatter-min
 ``recbole_cdr_tpu/trainer/trainer.py:274-311``).
 
 The kernels are ``csrc/row_groups.cu``: the plan is integer work only and
-O(R) a step, with two int32 arrays of L kept with the table between steps
-(:func:`group_scratch`), so a 1.1M-row table costs nothing per step. The
-card's heads come in no set order; each head's positions are in position
-order. The plain versions below (a stable sort, heads in row order) run for
-CPU tensors and serve as the kernels' reference.
+O(R) a step, by inboxes in shared memory up to 16,384 ids and by four
+rounds of atomics above. Each table (or shard) keeps a :class:`RowPlan`,
+built once where its caller keeps its state: two int32 arrays of L (so a
+1.1M-row table costs nothing per step), the :class:`Groups` buffer and the
+kernels' scratch at the largest R seen, and the C array of their addresses. A step's
+call checks the ids and makes one C call with ints; it allocates nothing
+unless R grows past every earlier step's. The card's heads come in no set
+order; each head's positions are in position order. The plain versions
+below (a stable sort, heads in row order) run for CPU tensors and serve as
+the kernels' reference.
 """
 
 import ctypes
@@ -42,21 +47,23 @@ class Groups:
     positions, which the kernels sum a block each (in no set order on the
     card). All but ``row_head`` lie in one int32 buffer: ``meta`` (4), then
     ``head_row``, ``head_start``, ``head_len``, ``pos`` and ``big`` of
-    max(R, 1) each (and the card's scratch after them); the fields are views
-    of it."""
+    ``stride`` >= max(R, 1) each (and the card's scratch after them); the
+    fields are views of it. On the card the object belongs to its
+    :class:`RowPlan` and holds the plan's last grouping."""
 
-    __slots__ = ("R", "L", "offset", "buf", "row_head")
-    _FIELDS = ("head_row", "head_start", "head_len", "pos", "big")
+    __slots__ = ("R", "L", "offset", "buf", "row_head", "stride", "_ptrs")
 
-    def __init__(self, R, L, offset, buf, row_head):
+    def __init__(self, R, L, offset, buf, row_head, stride=None):
         self.R, self.L, self.offset, self.buf, self.row_head = R, L, offset, buf, row_head
+        self.stride = max(R, 1) if stride is None else stride
+        self._ptrs = None
 
     @property
     def meta(self):
         return self.buf[:4]
 
     def _field(self, k):
-        n = max(self.R, 1)
+        n = self.stride
         return self.buf[4 + k * n:4 + (k + 1) * n]
 
     head_row = property(lambda self: self._field(0))
@@ -68,18 +75,57 @@ class Groups:
     def pointers(self):
         """A C array of the seven arrays' addresses (meta, head_row,
         head_start, head_len, pos, row_head, big), in the order the kernels
-        take them (the caller keeps it alive across the launch)."""
-        base, n = self.buf.data_ptr(), 4 * max(self.R, 1)
-        return (ctypes.c_void_p * 7)(base, base + 16, base + 16 + n, base + 16 + 2 * n,
-                                     base + 16 + 3 * n, self.row_head.data_ptr(),
-                                     base + 16 + 4 * n)
+        take them; built once, kept with the object."""
+        if self._ptrs is None:
+            base, n = self.buf.data_ptr(), 4 * self.stride
+            self._ptrs = (ctypes.c_void_p * 7)(base, base + 16, base + 16 + n,
+                                               base + 16 + 2 * n, base + 16 + 3 * n,
+                                               self.row_head.data_ptr(), base + 16 + 4 * n)
+        return self._ptrs
 
 
-def group_scratch(n_rows: int, device) -> torch.Tensor:
-    """The kept scratch of a table (or shard) of ``n_rows`` rows: int32 [2,
-    n_rows], the counters (zeros, which every plan leaves so) and the row ->
-    head map (never cleared)."""
-    return torch.zeros((2, n_rows), dtype=torch.int32, device=device)
+class RowPlan:
+    """What the plans of one table (or one shard: rows ``[offset, offset +
+    n_rows)``) keep from step to step, made once by the caller that keeps
+    the table's state: on the card the int32 [2, n_rows] counters (zeros,
+    which every plan leaves so) and row -> head map (never cleared), the
+    :class:`Groups` buffer and the four rounds' ``tick`` / ``tmp`` at the
+    largest R planned so far (``capacity``), and the C array of the ten
+    addresses the kernels take (the counters, tick and tmp serve the four
+    rounds alone, above 16,384 ids). On the CPU it holds the rows alone.
+    ``generation`` counts the plans made; a grouping read after a later plan
+    on the same object is stale."""
+
+    def __init__(self, n_rows: int, device, offset: int = 0, capacity: int = 0):
+        if n_rows < 0 or not 0 <= offset <= 2 ** 31 - 1 - n_rows:
+            raise ValueError(f"RowPlan: rows [{offset}, {offset} + {n_rows})")
+        self.L, self.offset, self.device = n_rows, offset, torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"group_rows has no version for device {self.device}")
+        self.generation = 0
+        self.capacity, self.groups, self._addr = 0, None, None
+        if self.device.type == "cuda":
+            self.scratch = torch.zeros((2, n_rows), dtype=torch.int32, device=self.device)
+            self._grow(max(capacity, 1))
+
+    def __deepcopy__(self, memo):
+        """A copy (of a model that keeps the plan) shares none of the
+        scratch: a fresh plan of the same rows."""
+        return RowPlan(self.L, self.device, self.offset, self.capacity)
+
+    def _grow(self, R: int):
+        """The Groups buffer, then the kernel's tick and tmp, at stride R;
+        meta first, 8-byte aligned: the kernel adds to its first two at
+        once."""
+        self.capacity = R
+        buf = torch.empty(4 + 7 * R, dtype=torch.int32, device=self.device)
+        self.groups = Groups(0, self.L, self.offset, buf, self.scratch[1], stride=R)
+        base, cnt = buf.data_ptr(), self.scratch.data_ptr()
+        self._ptrs = (ctypes.c_void_p * 10)(cnt, cnt + 4 * self.L, base,
+                                            *(base + 16 + 4 * R * k for k in range(7)))
+        self._addr = ctypes.addressof(self._ptrs)
 
 
 def _local(ids, n_rows, offset):
@@ -127,56 +173,59 @@ def canonical(groups: Groups):
     return rows[order], lens, torch.cat(parts) if parts else pos[:0]
 
 
-def _check_ids(ids, n_rows, scratch, offset):
+def _ready(ids, plan: RowPlan):
+    """The ids' length, after the per-step checks (the plan's own were made
+    once), growing the plan's buffer where the ids outgrow it."""
     if ids.dtype != torch.int32 or ids.dim() != 1:
         raise TypeError("group_rows takes 1-D int32 ids")
-    if n_rows < 0 or not 0 <= offset <= 2 ** 31 - 1 - n_rows:
-        raise ValueError(f"group_rows: rows [{offset}, {offset} + {n_rows})")
-    if ids.device.type == "cpu":
-        return
-    if ids.device.type != "cuda":
-        raise ValueError(f"group_rows has no version for device {ids.device}")
-    if scratch is None or scratch.dtype != torch.int32 or scratch.shape != (2, n_rows) \
-            or scratch.device != ids.device or not scratch.is_contiguous():
-        raise ValueError("group_rows: scratch must be the rows' int32 [2, n_rows] "
-                         "group_scratch")
+    if ids.device != plan.device:
+        raise ValueError(f"group_rows: ids on {ids.device}, a plan of rows on {plan.device}")
+    R = ids.shape[0]
+    if R > plan.capacity and plan.device.type == "cuda":
+        plan._grow(R)
+    return R
 
 
-def group_rows(ids, n_rows: int, scratch=None, offset: int = 0, second=None):
-    """The :class:`Groups` of int32 ``ids`` [R] over rows ``[offset, offset +
-    n_rows)``; on the card ``scratch`` is the rows' :func:`group_scratch`,
-    kept by the caller from step to step (a grouping's ``row_head`` holds
-    until the next plan on the same scratch). ``second``: another ``(ids,
-    n_rows, scratch, offset)`` grouped in the same launch; then both
-    groupings are returned, in that order."""
-    sets = [(ids, n_rows, scratch, offset)] + ([tuple(second)] if second else [])
-    for s in sets:
-        _check_ids(*s)
-    if len({s[0].device for s in sets}) != 1:
-        raise ValueError("group_rows: the ids must share one device")
+def group_rows(ids, plan: RowPlan, second=None):
+    """The :class:`Groups` of int32 ``ids`` [R] over the rows of ``plan``
+    (its table's :class:`RowPlan`, kept by the caller from step to step; on
+    the card the grouping is the plan's own object and holds until the next
+    plan on it). ``second``: another ``(ids, plan)`` grouped in the same
+    launch; then both groupings are returned, in that order."""
     if ids.device.type == "cpu":
-        out = tuple(group_rows_plain(i, n, off) for i, n, _, off in sets)
-        return out if second else out[0]
-    out, args = [], []
-    for i, n, sc, off in sets:
-        i = i.contiguous()
-        R = i.shape[0]
-        # the Groups buffer, then the kernel's scratch tick and tmp; meta first,
-        # 8-byte aligned: the kernel adds to its first two at once
-        S = max(R, 1)
-        buf = torch.empty(4 + 7 * S, dtype=torch.int32, device=i.device)
-        out.append(Groups(R, n, off, buf, sc[1]))
-        base, cnt = buf.data_ptr(), sc.data_ptr()
-        bufs = (ctypes.c_void_p * 10)(cnt, cnt + 4 * n, base,
-                                      *(base + 16 + 4 * S * k for k in range(7)))
-        args += [i.data_ptr(), R, n, off, ctypes.cast(bufs, ctypes.c_void_p)]
-    if not second:
-        args += [None, 0, 0, 0, None]
-    err = build.library("row_groups").row_groups_plan(len(sets), *args,
-                                                       build.stream_handle(ids))
+        sets = [(ids, plan)] + ([tuple(second)] if second else [])
+        for i, p in sets:
+            _ready(i, p)
+        out = []
+        for i, p in sets:
+            out.append(group_rows_plain(i, p.L, p.offset))
+            p.generation += 1
+        return tuple(out) if second else out[0]
+    R0 = _ready(ids, plan)
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    if second:
+        ids1, plan1 = second
+        if plan1 is plan:
+            raise ValueError("group_rows: two groupings need two plans")
+        R1 = _ready(ids1, plan1)
+        if not ids1.is_contiguous():
+            ids1 = ids1.contiguous()
+        rest = (ids1.data_ptr(), R1, plan1.L, plan1.offset, plan1._addr)
+    else:
+        rest = (None, 0, 0, 0, None)
+    err = build.library("row_groups").row_groups_plan(
+        2 if second else 1, ids.data_ptr(), R0, plan.L, plan.offset, plan._addr, *rest,
+        build.stream_handle(ids))
     build.check(err, "group_rows")
     group_rows.launches += 1
-    return tuple(out) if second else out[0]
+    plan.generation += 1
+    plan.groups.R = R0
+    if not second:
+        return plan.groups
+    plan1.generation += 1
+    plan1.groups.R = R1
+    return plan.groups, plan1.groups
 
 
 group_rows.launches = 0

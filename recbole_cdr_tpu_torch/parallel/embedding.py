@@ -18,10 +18,11 @@ inserts the collective from the sharding annotations; here it is explicit:
 import torch
 import torch.distributed as dist
 
-from recbole_cdr_tpu_torch.ops.row_groups import group_rows, group_scratch, row_sum
+from recbole_cdr_tpu_torch.ops.row_groups import RowPlan, group_rows, row_sum
 
-#: per (device, shard rows), the kept scratch of the backward's grouping
-_SCRATCH = {}
+#: per (device, shard rows, shard offset), the kept plan of the backward's
+#: grouping
+_PLANS = {}
 
 
 class _ShardedLookup(torch.autograd.Function):
@@ -40,13 +41,11 @@ class _ShardedLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
-        L, dev = ctx.n_rows, ids.device
-        scratch = None
-        if dev.type == "cuda":
-            scratch = _SCRATCH.get((dev, L))
-            if scratch is None:
-                scratch = _SCRATCH[(dev, L)] = group_scratch(L, dev)
-        groups = group_rows(ids, L, scratch, ctx.offset)
+        key = (ids.device, ctx.n_rows, ctx.offset)
+        plan = _PLANS.get(key)
+        if plan is None:
+            plan = _PLANS[key] = RowPlan(ctx.n_rows, ids.device, ctx.offset, ids.shape[0])
+        groups = group_rows(ids, plan)
         return row_sum(grad.contiguous(), ids, groups), None, None, None
 
 

@@ -82,7 +82,7 @@ import torch
 from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator, ValueEvaluator
 from recbole_cdr_tpu_torch.parallel.distributed import is_coordinator, put_replicated, put_sharded
 from recbole_cdr_tpu_torch.parallel.mesh import make_mesh, shard_params
-from recbole_cdr_tpu_torch.ops.row_groups import group_rows, group_scratch
+from recbole_cdr_tpu_torch.ops.row_groups import RowPlan, group_rows
 from recbole_cdr_tpu_torch.ops.sparse_adam import adam_step_size, sparse_adam
 from recbole_cdr_tpu_torch.trainer.device_loop import (
     DeviceEpochLoop,
@@ -277,10 +277,10 @@ class SparseAdam:
                    for n, p in self.params.items()},
             "count": {n: 0 for n in self.params},
         }
-        #: the kept scratch of each table's (or shard's) grouping of a step's
-        #: ids (``ops/row_groups.py``), so a step costs O(rows touched), not
-        #: O(rows)
-        self._group_scratch = {}
+        #: the kept plan of each table's (or shard's) grouping of a step's ids
+        #: (``ops/row_groups.py::RowPlan``), so a step costs O(rows touched),
+        #: not O(rows), and one C call
+        self._row_plans = {}
         #: the first global row of each row-sharded table's shard
         self.row_offsets = {n: s.offset for n, s in getattr(model, "table_shards", {}).items()}
 
@@ -309,9 +309,11 @@ class SparseAdam:
         p = self.params[name]
         offset, groups = self.row_offsets.get(name, 0), None
         if p.device.type == "cuda":  # the plain version on the CPU reads the ids
-            if name not in self._group_scratch:
-                self._group_scratch[name] = group_scratch(p.shape[0], p.device)
-            groups = group_rows(ids, p.shape[0], self._group_scratch[name], offset)
+            plan = self._row_plans.get(name)
+            if plan is None:
+                plan = self._row_plans[name] = RowPlan(p.shape[0], p.device, offset,
+                                                       ids.shape[0])
+            groups = group_rows(ids, plan)
         self.state["count"][name] += 1
         self.row_update(p.data, self.state["mu"][name], self.state["nu"][name],
                         g_rows, ids, self.state["count"][name], groups, offset)

@@ -15,9 +15,11 @@ everywhere, history, masked positives, rows without positives and rows
 longer than its shared-memory chunk, at shapes reaching every branch of its
 launch plan (a row over a thread-block cluster, one block a row), 1,600
 positives in a row, the candidate form at its shared-memory limit; the NATR
-attention's forward, backward
-and full-sort forms at every kernel width, with empty and single-slot
-histories, in both overlap modes; ``streaming_topk``'s tensor-core edges
+attention's training forward and backward (from the anchor table, one
+anchor stage per distinct anchor, a popular anchor at every eighth pair;
+the table's gradient zero on untouched rows, reruns bit-equal alone and
+from the forward's kept values) and full-sort forms at every kernel width,
+with empty and single-slot histories, in both overlap modes; ``streaming_topk``'s tensor-core edges
 (D of 8 to 256, k of 1 to 64, partial row blocks and item tiles, a row
 masked down to k items); the anchor table and the pair grid at every
 kernel width; DTCDR's rating-vector product (B11) with empty rows, rows of
@@ -273,17 +275,16 @@ def test_streaming_topk_tensor_core_edges(gen, D, k):
 
 def _b6_steps(p, mu, nu, steps, offset=0):
     """``steps`` (ids, gradient rows, step size) through the kernel, the
-    grouping built on one kept scratch, and through the plain version on CPU
+    grouping built on one kept plan, and through the plain version on CPU
     copies; returns the plain version's (p, mu, nu)."""
-    L = p.shape[0]
-    scratch = row_groups.group_scratch(L, "cuda")
+    plan = row_groups.RowPlan(p.shape[0], "cuda", offset)
     ref = [t.cpu() for t in (p, mu, nu)]
     for ids, g, step in steps:
-        groups = row_groups.group_rows(ids, L, scratch, offset)
+        groups = row_groups.group_rows(ids, plan)
         b6.sparse_adam(p, mu, nu, g, ids, step, groups=groups, row_offset=offset)
         b6.sparse_adam_plain(*ref, g.cpu(), ids.cpu(), step, 0.9, 0.999, 1e-8, offset)
     torch.cuda.synchronize()
-    assert not scratch[0].any()  # the counters are left ready
+    assert not plan.scratch[0].any()  # the counters are left ready
     return ref
 
 
@@ -345,19 +346,23 @@ def test_sparse_adam_row_shards_match_plain(gen, N, D, m):
 
 
 @pytest.mark.parametrize("case", ["empty", "distinct", "every_other", "outside",
-                                  "popular", "catalog"])
+                                  "popular", "catalog", "beyond_inboxes"])
 def test_group_rows_matches_plain(gen, case):
     """The plan against its plain version on CPU copies, heads compared in
     row order (the card's come in no set order): empty ids, all distinct,
     one id at every other position, ids outside the shard (and the mesh's
-    padding), one row at 6,000 positions among random ones, and a catalog
-    step's 16,384 ids over 1.1M rows; the same heads listed as big; each time
-    a second set in the same launch, and twice on one kept scratch, which is
-    left zero."""
+    padding), one row at 6,000 positions among random ones, a catalog
+    step's 16,384 ids over 1.1M rows (these by the sorted inboxes), and
+    40,000 ids, 20,000 of them one row (by the four rounds; the shorter last
+    step by the inboxes on the same kept plan); the same heads listed as
+    big; each time a second set in the same launch, on one kept plan a
+    table's, which is left zero: twice, then a shorter last step (R below
+    the plan's capacity, its fields at the capacity's stride)."""
     from recbole_cdr_tpu_torch.parallel.mesh import OCCURRENCE_PAD
 
     L, off = {"outside": (500, 1000), "catalog": (1_100_001, 0)}.get(case, (3000, 0))
-    R = {"empty": 0, "distinct": 2500, "catalog": 16_384}.get(case, 12_000)
+    R = {"empty": 0, "distinct": 2500, "catalog": 16_384, "beyond_inboxes": 40_000}.get(
+        case, 12_000)
     if case == "distinct":
         ids = torch.randperm(L, device="cuda", generator=gen)[:R].int()
     elif case == "outside":
@@ -367,13 +372,14 @@ def test_group_rows_matches_plain(gen, case):
         ids = _ints(0, L, (R,), gen)
         if case == "every_other":
             ids[::2] = 17
-        if case == "popular":
-            ids[torch.randperm(R, device="cuda", generator=gen)[:6000]] = 5
+        if case in ("popular", "beyond_inboxes"):
+            ids[torch.randperm(R, device="cuda", generator=gen)[:R // 2]] = 5
     other = _ints(0, 700, (9000,), gen)
-    scratch, scratch2 = row_groups.group_scratch(L, "cuda"), row_groups.group_scratch(700, "cuda")
-    for _ in range(2):
-        got, got2 = row_groups.group_rows(ids, L, scratch, off, second=(other, 700, scratch2, 0))
-        for grp, want in ((got, row_groups.group_rows_plain(ids.cpu(), L, off)),
+    plan, plan2 = row_groups.RowPlan(L, "cuda", off), row_groups.RowPlan(700, "cuda")
+    for step in (ids, ids, ids[:R // 3]):
+        got, got2 = row_groups.group_rows(step, plan, second=(other, plan2))
+        assert got.stride == plan.capacity >= got.R == step.shape[0]
+        for grp, want in ((got, row_groups.group_rows_plain(step.cpu(), L, off)),
                           (got2, row_groups.group_rows_plain(other.cpu(), 700))):
             assert torch.equal(grp.meta[:3].cpu(), want.meta[:3])
             for a, b in zip(row_groups.canonical(grp), row_groups.canonical(want)):
@@ -383,7 +389,7 @@ def test_group_rows_matches_plain(gen, case):
             assert torch.equal(grp.head_row[grp.row_head[rows].long()], grp.head_row[:H])
             assert torch.equal(*(torch.sort(g.head_row[g.big[:n_big].long()].cpu()).values
                                  for g in (grp, want)))
-    assert not scratch[0].any() and not scratch2[0].any()
+    assert not plan.scratch[0].any() and not plan2.scratch[0].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -398,9 +404,8 @@ def test_row_sum_matches_plain(gen, D, dtype):
     ids = _ints(0, N, (P,), gen)
     src = torch.randn(P, D, device="cuda", generator=gen).to(dtype)
     for j in range(m):
-        scratch = row_groups.group_scratch(L, "cuda")
-        runs = [row_groups.row_sum(src, ids, row_groups.group_rows(ids, L, scratch, j * L))
-                for _ in range(2)]
+        plan = row_groups.RowPlan(L, "cuda", j * L)
+        runs = [row_groups.row_sum(src, ids, row_groups.group_rows(ids, plan)) for _ in range(2)]
         want = row_groups.row_sum_plain(src.cpu(), row_groups.group_rows_plain(ids.cpu(), L, j * L),
                                         ids.cpu())
         assert runs[0].dtype == dtype
@@ -614,29 +619,58 @@ def _natr_close(got, want, rtol, what):
     assert err <= 1e-5 + rtol * float(want.abs().max()), f"{what}: error {err}"
 
 
-@pytest.mark.parametrize("D,H,A", [(64, 50, 8192), (64, 1, 300), (32, 70, 1000),
-                                   (128, 100, 500)])
-def test_natr_attention_matches_plain(gen, D, H, A):
+def _natr_training(gen, D, H, A, popular):
+    """A training call's operands: the history of 3,000 anchor ids over a
+    source table of 5,000 rows, the anchor table [3,000, D], A pairs (their
+    anchors repeat: ~2,800 distinct at A = 8,192; with ``popular`` one
+    anchor takes every eighth pair), queries and an upstream gradient."""
     hist, anchors, w = _natr_inputs(gen, D, H, 5000, 3000, A)
-    pu = 0.3 * torch.randn(A, D, device="cuda", generator=gen)
+    if popular:
+        anchors[4::8] = 5
+    table = 0.3 * torch.randn(3000, D, device="cuda", generator=gen)
     q = 0.3 * torch.randn(A, D, device="cuda", generator=gen)
     g = torch.randn(A, device="cuda", generator=gen)
-    got = b9.natr_attention_forward(hist, anchors, pu, q, w)
+    return hist, table, anchors, q, w, g
+
+
+@pytest.mark.parametrize("D,H,A,popular", [(64, 50, 8192, False), (64, 50, 8192, True),
+                                           (64, 1, 300, False), (32, 70, 1000, False),
+                                           (128, 100, 500, False)])
+def test_natr_attention_matches_plain(gen, D, H, A, popular):
+    """B9's training forward and backward (one anchor stage per distinct
+    anchor, from the plan of the anchor ids) against their plain versions:
+    the logits, the anchor table's gradient (0 on every row no pair names)
+    and the others within ``B9_TOL``; reruns bit-equal, each backward from
+    its forward's kept values, as the autograd path runs it; a backward whose
+    plan has grouped other ids since is refused."""
+    hist, table, anchors, q, w, g = _natr_training(gen, D, H, A, popular)
+    plan = row_groups.RowPlan(table.shape[0], "cuda")
+    ops.reset_launch_counts()
+    got, kept = b9._forward_call(hist, table, anchors, q, w, plan)
     torch.cuda.synchronize()
-    _natr_close(got, b9.natr_attention_forward_plain(hist, anchors, pu, q, w), 1e-4, "forward")
-    assert torch.equal(got, b9.natr_attention_forward(hist, anchors, pu, q, w))
-    grads = b9.natr_attention_backward(hist, anchors, pu, q, w, g)
+    assert ops.launch_counts()["group_rows"] == 1
+    _natr_close(got, b9.natr_attention_forward_plain(hist, table, anchors, q, w), 1e-4,
+                "forward")
+    grads = b9.natr_attention_backward(hist, table, anchors, q, w, g, kept)
     torch.cuda.synchronize()
-    plain = b9.natr_attention_backward_plain(hist, anchors, pu, q, w, g)
-    names = ("dpu", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da")
+    plain = b9.natr_attention_backward_plain(hist, table, anchors, q, w, g)
+    names = ("dtable", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da")
     for name, x, y in zip(names, grads, plain):
         assert x.shape == y.shape, name
         if name == "db_da":  # 0 in exact arithmetic: beta depends on b_s - b_p
             assert float(x.abs().max()) <= 1e-5
         else:
             _natr_close(x, y, 1e-3, name)
-    again = b9.natr_attention_backward(hist, anchors, pu, q, w, g)
+    untouched = torch.ones(table.shape[0], dtype=torch.bool, device="cuda")
+    untouched[anchors.long()] = False
+    assert not bool(grads[0][untouched].any())
+    logits, kept = b9._forward_call(hist, table, anchors, q, w, plan)
+    again = b9.natr_attention_backward(hist, table, anchors, q, w, g, kept)
+    assert torch.equal(logits, got)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    assert torch.equal(b9.natr_attention_forward(hist, table, anchors, q, w, plan), got)
+    with pytest.raises(ValueError, match="grouped other ids"):
+        b9.natr_attention_backward(hist, table, anchors, q, w, g, kept)
 
 
 @pytest.mark.parametrize("anchor_is_row", [True, False])
@@ -868,6 +902,9 @@ def test_natr_on_the_card(gen, tmp_path, monkeypatch):
             "natr_attention_backward", "natr_anchor_table", "natr_pair_grid")
     assert all(counts[k] > 0 for k in path), counts
     assert all(counts[k] == 0 for k in counts if k not in path), counts
+    # a plan per K1 backward and per B9 forward (the step's anchor ids)
+    assert counts["group_rows"] == (counts["gather_dot_backward"]
+                                    + counts["natr_attention_forward"]), counts
 
 
 @pytest.mark.parametrize("mode", ["full", "uniform 20", "labeled"])
@@ -1577,29 +1614,28 @@ def test_natr_attention_bf16_matches_plain(gen, D, H, A, dtype):
     versions on the same 16-bit inputs (empty, one-slot and full
     histories), within ``_natr16_close``; two runs bit-equal; the 16-bit
     wrappers count, the float32 ones do not."""
-    hist, anchors, w = _natr_inputs(gen, D, H, 5000, 3000, A)
-    pu = 0.3 * torch.randn(A, D, device="cuda", generator=gen)
-    q = 0.3 * torch.randn(A, D, device="cuda", generator=gen)
-    g = torch.randn(A, device="cuda", generator=gen)
-    hist, anchors, w, pu, q, g = _natr16(hist, anchors, w, dtype, pu, q, g)
+    hist, table, anchors, q, w, g = _natr_training(gen, D, H, A, A == 8192)
+    hist, anchors, w, table, q, g = _natr16(hist, anchors, w, dtype, table, q, g)
+    plan = row_groups.RowPlan(table.shape[0], "cuda")
     ops.reset_launch_counts()
-    got = b9.natr_attention_forward(hist, anchors, pu, q, w)
-    grads = b9.natr_attention_backward(hist, anchors, pu, q, w, g)
+    got, kept = b9._forward_call(hist, table, anchors, q, w, plan)
+    grads = b9.natr_attention_backward(hist, table, anchors, q, w, g, kept)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts["natr_attention_forward_bf16"] == counts["natr_attention_backward_bf16"] == 1
     assert counts["natr_attention_forward"] == counts["natr_attention_backward"] == 0
-    _natr16_close(got, b9.natr_attention_forward_plain(hist, anchors, pu, q, w), "forward")
-    assert torch.equal(got, b9.natr_attention_forward(hist, anchors, pu, q, w))
-    plain = b9.natr_attention_backward_plain(hist, anchors, pu, q, w, g)
-    names = ("dpu", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da")
+    _natr16_close(got, b9.natr_attention_forward_plain(hist, table, anchors, q, w), "forward")
+    plain = b9.natr_attention_backward_plain(hist, table, anchors, q, w, g)
+    names = ("dtable", "dq", "dW", "db", "dw_ua", "db_ua", "dw_da", "db_da")
     for name, x, y in zip(names, grads, plain):
         assert x.shape == y.shape and x.dtype == dtype, name
         if name == "db_da":  # 0 in exact arithmetic: beta depends on b_s - b_p
             assert float(x.float().abs().max()) <= 1e-5
         else:
             _natr16_close(x, y, name)
-    again = b9.natr_attention_backward(hist, anchors, pu, q, w, g)
+    logits, kept = b9._forward_call(hist, table, anchors, q, w, plan)
+    again = b9.natr_attention_backward(hist, table, anchors, q, w, g, kept)
+    assert torch.equal(logits, got)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
 
 

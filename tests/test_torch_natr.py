@@ -9,8 +9,10 @@ its case:
 
 - history matrices and their masks: exactly equal;
 - B9 alone (``_phase2_logit`` and its ``jax.vjp``, short, truncated and
-  empty histories): ``LOSS_TOL`` on the logits, ``GRAD_TOL`` on the
-  gradients (``tests/test_oracle_equivalence.py:31-32``);
+  empty histories, and a step whose pairs share few anchors, each many
+  times: the shared anchor stage): ``LOSS_TOL`` on the logits, ``GRAD_TOL``
+  on the gradients, the anchor table's included
+  (``tests/test_oracle_equivalence.py:31-32``);
 - the SOURCE and TARGET losses and every trainable parameter's gradient:
   ``LOSS_TOL`` / ``GRAD_TOL``;
 - the predict fallback's full-sort probabilities: atol 2e-6 (probabilities
@@ -57,6 +59,7 @@ from recbole_cdr_tpu_torch.ops.natr_attention import (
     natr_attention,
     natr_full_sort_plain,
 )
+from recbole_cdr_tpu_torch.ops.row_groups import RowPlan
 from recbole_cdr_tpu_torch.trainer.trainer import (
     build_optimizer,
     make_predict_full_sort,
@@ -168,12 +171,28 @@ def _anchor_ids(model, rng, n):
     return users, items
 
 
-@pytest.mark.parametrize("max_len", [50, 2])
-def test_attention_plain_matches_phase2_logit(pair, max_len):
+def _shared_anchor_ids(model, rng, n):
+    """Pair ids whose anchors are six entities, each at many pairs: PAD and
+    a source-only entity (empty histories), the longest history and three
+    others."""
+    users, items = _anchor_ids(model, rng, n)
+    anchors = users if model.mode == "overlap_items" else items
+    few = anchors[:6].copy()
+    anchors[:] = few[rng.integers(0, 6, n)]
+    anchors[:6] = few
+    return users, items
+
+
+@pytest.mark.parametrize("max_len,anchors_of", [(50, "distinct"), (2, "distinct"),
+                                                (50, "shared")])
+def test_attention_plain_matches_phase2_logit(pair, max_len, anchors_of):
     """B9's plain forward and backward, through ``natr_attention`` on CPU
-    tensors, against ``_phase2_logit`` and its ``jax.vjp`` with random
+    tensors (the anchor side's whole table, gathered inside as JAX
+    gathers), against ``_phase2_logit`` and its ``jax.vjp`` with random
     weights (numpy seed 0) and a random cotangent; ``max_len`` 2 truncates
-    most histories."""
+    most histories; ``shared`` gives the 64 pairs six anchors, each at
+    many pairs. A call without a ``RowPlan`` of the anchor table's rows is
+    refused."""
     jmodel, tmodel = pair["jmodel"], pair["tmodel"]
     saved = jmodel.max_inter_length, jmodel._history, jmodel._hist_mask
     hist, _, lens = (pair["jdataset"].history_item_matrix if jmodel.mode == "overlap_items"
@@ -186,7 +205,8 @@ def test_attention_plain_matches_phase2_logit(pair, max_len):
         rng = np.random.default_rng(0)
         params = jax.tree_util.tree_map(
             lambda a: (0.3 * rng.normal(size=a.shape)).astype(np.float32), pair["params"])
-        users, items = _anchor_ids(tmodel, rng, 64)
+        users, items = (_anchor_ids if anchors_of == "distinct" else _shared_anchor_ids)(
+            tmodel, rng, 64)
         g = rng.normal(size=64).astype(np.float32)
         want, vjp = jax.vjp(jax.jit(lambda p: jmodel._phase2_logit(p, jnp.asarray(users),
                                                                    jnp.asarray(items))), params)
@@ -198,21 +218,26 @@ def test_attention_plain_matches_phase2_logit(pair, max_len):
                 else "source_user_embedding"].detach()
         history = History(src, torch.from_numpy(hist.astype(np.int32)),
                           torch.from_numpy(np.asarray(jmodel._hist_mask)))
-        pu = t["target_user_embedding"][torch.from_numpy(users)]
-        qi = t["target_item_embedding"][torch.from_numpy(items)]
-        anchors = users
+        table, qi, anchors = (t["target_user_embedding"],
+                              t["target_item_embedding"][torch.from_numpy(items)], users)
         if tmodel.mode == "overlap_users":
-            pu, qi, anchors = qi, pu, items
+            table, qi, anchors = (t["target_item_embedding"],
+                                  t["target_user_embedding"][torch.from_numpy(users)], items)
         w = Weights(t["transfer.w"], t["transfer.b"], t["unit_attention.w"],
                     t["unit_attention.b"], t["domain_attention.w"], t["domain_attention.b"])
         ops.reset_launch_counts()
-        got = natr_attention(history, torch.from_numpy(anchors.astype(np.int32)), pu, qi, w)
+        ids = torch.from_numpy(anchors.astype(np.int32))
+        for other in (None, RowPlan(table.shape[0] + 1, "cpu")):
+            with pytest.raises(ValueError, match="RowPlan of the anchor table's rows"):
+                natr_attention(history, table, ids, qi, w, other)
+        got = natr_attention(history, table, ids, qi, w, RowPlan(table.shape[0], "cpu"))
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **LOSS_TOL)
         got.backward(torch.from_numpy(g))
         for name in TARGET_PARAMS:
             np.testing.assert_allclose(t[name].grad.numpy(), _jax_grad(want_g, name),
                                        err_msg=name, **GRAD_TOL)
-        assert ops.launch_counts()["natr_attention_forward"] == 0  # plain on the CPU
+        counts = ops.launch_counts()  # plain on the CPU: no launch, no plan
+        assert counts["natr_attention_forward"] == counts["group_rows"] == 0
     finally:
         jmodel.max_inter_length, jmodel._history, jmodel._hist_mask = saved
 

@@ -5,15 +5,24 @@ position, ids outside a shard and the mesh's padding, one popular row, which
 is listed as a head of more than ``BIG_TERMS`` positions), and
 the row sum that reads it against numpy's sequential adds in float32,
 rounded once (what ``index_add_`` gives on the CPU, 16-bit rows included).
-The card's plan and row sum are held to these plain versions in
-``tests/test_torch_cuda.py``."""
+One kept :class:`RowPlan` serves steps of different lengths, the shorter
+last step included. The card's plan and row sum are held to these plain
+versions in ``tests/test_torch_cuda.py``."""
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 from recbole_cdr_tpu_torch.ops import launch_counts
-from recbole_cdr_tpu_torch.ops.row_groups import BIG_TERMS, canonical, group_rows, row_sum
+from recbole_cdr_tpu_torch.ops.row_groups import (
+    BIG_TERMS,
+    RowPlan,
+    canonical,
+    group_rows,
+    row_sum,
+)
 from recbole_cdr_tpu_torch.parallel.mesh import OCCURRENCE_PAD
 
 
@@ -48,7 +57,7 @@ def _reference(ids, rows, offset):
 def test_group_rows_plain_matches_numpy(kind):
     ids, rows, offset = _case(kind, np.random.default_rng(7))
     before = launch_counts()["group_rows"]
-    g = group_rows(torch.from_numpy(ids), rows, None, offset)
+    g = group_rows(torch.from_numpy(ids), RowPlan(rows, "cpu", offset))
     assert launch_counts()["group_rows"] == before  # the plain version: no launch
     ref = _reference(ids, rows, offset)
     n_own = sum(len(p) for _, p in ref)
@@ -77,12 +86,43 @@ def test_group_rows_groups_two_sets_at_once():
     rng = np.random.default_rng(3)
     a = rng.integers(0, 30, 90).astype(np.int32)
     b = rng.integers(0, 12, 40).astype(np.int32)
-    ga, gb = group_rows(torch.from_numpy(a), 30, None, 0, second=(torch.from_numpy(b), 12, None, 0))
+    ga, gb = group_rows(torch.from_numpy(a), RowPlan(30, "cpu"),
+                        second=(torch.from_numpy(b), RowPlan(12, "cpu")))
     for g, ids, rows in ((ga, a, 30), (gb, b, 12)):
         ref = _reference(ids, rows, 0)
         assert [r for r, _ in ref] == canonical(g)[0].tolist()
         np.testing.assert_array_equal(canonical(g)[2].numpy(),
                                       np.concatenate([p for _, p in ref]))
+
+
+def test_row_plan_kept_across_steps():
+    """One plan of a shard's rows, kept from step to step as a table's
+    state keeps it: steps of 500, 64, 0 and 301 ids (the shorter last step
+    after a longer one) each group as the numpy reference, and every plan
+    counts in ``generation``."""
+    rng = np.random.default_rng(5)
+    plan = RowPlan(25, "cpu", 30)
+    for k, R in enumerate((500, 64, 0, 301)):
+        ids = rng.integers(0, 100, R).astype(np.int32)
+        ids[::3] = 41  # one popular row of the shard
+        g = group_rows(torch.from_numpy(ids), plan)
+        ref = _reference(ids, 25, 30)
+        assert g.R == R and plan.generation == k + 1
+        assert canonical(g)[0].tolist() == [r for r, _ in ref]
+        np.testing.assert_array_equal(canonical(g)[2].numpy(),
+                                      np.concatenate([p for _, p in ref] or [np.zeros(0)]))
+    twin = copy.deepcopy(plan)  # a copied model's plan: the same rows, fresh
+    assert twin is not plan and (twin.L, twin.offset, twin.generation) == (25, 30, 0)
+
+
+def test_row_plan_rejects_other_ids():
+    """The per-step checks: int32 1-D ids on the plan's device; the plan's
+    rows checked once, when it is made."""
+    plan = RowPlan(10, "cpu")
+    with pytest.raises(TypeError, match="int32"):
+        group_rows(torch.zeros(3, dtype=torch.int64), plan)
+    with pytest.raises(ValueError, match="rows"):
+        RowPlan(10, "cpu", 2 ** 31 - 5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -94,7 +134,8 @@ def test_row_sum_plain_adds_in_position_order(kind, dtype):
     ids, rows, offset = _case(kind, rng)
     src = rng.standard_normal((len(ids), 5)).astype(np.float32)
     src_t = torch.from_numpy(src).to(dtype)
-    got = row_sum(src_t, torch.from_numpy(ids), group_rows(torch.from_numpy(ids), rows, None, offset))
+    got = row_sum(src_t, torch.from_numpy(ids),
+                  group_rows(torch.from_numpy(ids), RowPlan(rows, "cpu", offset)))
     want = np.zeros((rows, 5), np.float32)
     wide = src_t.float().numpy()
     for r, positions in _reference(ids, rows, offset):
