@@ -216,10 +216,21 @@ Phases, in order; any failure exits non-zero:
 B8 (``graph_layer_forward`` / ``graph_layer_backward``) is held in phase 2
 at the bench pair's source graph (about 50,400 rows and 441,000 nonzeros,
 D = 64, dropout 0.3 from random bits): within ``B8_TOL`` of its plain
-version, and two kernel runs bit-equal (a gather with no atomics). Its bytes
-bound charges the unique bytes (CSR, x, bits, the other dense operands, the
-outputs), not the nnz x D row gathers, which hit the L2 (x is 12.9 MB of its
-50 MB).
+version, and two kernel runs bit-equal (a gather with no float atomic: its
+rows of several blocks are finished by their last block from the blocks'
+partials in block order). Its bytes bound charges the unique bytes (CSR, x,
+bits, the other dense operands, the outputs), not the nnz x D row gathers,
+which hit the L2 (x is 12.9 MB of its 50 MB). ``python3
+probe_graph_layer.py [--parent DIR]`` splits its time by kernel and times
+variants of its source and schedule at the same graph.
+
+B2 (``neg_sampler``) is held in phase 2 exactly (``torch.equal``) against
+its plain version on a source-stream epoch of the dense pair, with the
+stream's live history lengths (``DomainDeviceData.lens``), as B2a is below;
+their bounds (``sampler_work``) charge each slot's rounds up to its first
+clean one, each drawn and compared with the user's live entries, and the
+lines print H, the slots' mean and largest live lengths and that compare
+count.
 
 B7 (``rank_sum``) is held in phase 2 on the dense path's first validation
 tile ([2,048, 5,001]) with integer-valued scores (ties everywhere) and with
@@ -263,10 +274,10 @@ streaming tile cast to bf16 (scores within ``B13_TOL``, ids equal wherever
 neighbouring scores differ by more; bound: one bf16 tensor-core product a
 score; library: B5's route on the exactly upcast operands); B2a exactly,
 at a catalog source-stream epoch (one slot per source interaction, the
-stream's history matrix, the alias table of its items). B2a's bound
-(``b2a_work``) charges bytes: the two bit streams, the uids and the output,
-each distinct user's real history entries and the alias table, once each,
-and one draw's operations per slot.
+stream's history matrix and live lengths, the alias table of its items).
+B2a's bound (``b2a_work``) charges bytes: the two bit streams, the uids and
+the output, each distinct user's live history entries and the alias table,
+once each, and one draw's operations per slot.
 
 Phase 2 also reads the SASS of the built libraries (``check_sass``,
 ``cuobjdump --dump-sass``): every instantiation of B13's tile kernel must
@@ -276,8 +287,8 @@ B7's the cluster barriers (UCGABAR) of their short-tile forms, and every
 instantiation of B16's grid kernel its tensor-core products (HMMA), and
 every one of B15's its products (HMMA, or HGMMA where the published
 tower runs on wgmma); it prints the counts, and fails where the library
-of B11, K1, B6, the plan or B9 (``FIXED_ORDER_SOURCES``) holds a float
-atomic.
+of B11, K1, B6, the plan, B9 or B8 (``FIXED_ORDER_SOURCES``) holds a
+float atomic.
 B13's time is printed beside B5's from the same run, with its launch plan
 and the item bytes the plan reads from L2 into the SMs (modelled from the
 plan, not read from a counter), and beside the time of the same call on
@@ -1059,11 +1070,11 @@ SASS_OPCODES = {
 }
 #: a float atomic in SASS (RED or ATOM on F16, BF16, F32 or F64): the
 #: libraries of ``FIXED_ORDER_SOURCES`` must hold none, so that their sums
-#: run in a fixed order: B11's, K1's, B6's and the plan's with the
-#: row-sharded lookup's backward
+#: run in a fixed order: B11's, K1's, B6's, B9's, B8's and the plan's with
+#: the row-sharded lookup's backward
 FLOAT_ATOMIC = r"\b(?:RED|ATOMG?|ATOMS)\.[A-Z0-9_.]*\b(?:F16|BF16|F32|F64)"
 FIXED_ORDER_SOURCES = ("rating_vector", "gather_dot", "sparse_adam", "row_groups",
-                       "natr_attention")
+                       "natr_attention", "graph_layer")
 
 
 def check_sass():
@@ -1171,17 +1182,18 @@ def kernel_checks(dev):
     uid = loop.src.uid[a.long()].reshape(-1)
     base = torch.randint(-2 ** 31, 2 ** 31, (uid.shape[0],), dtype=torch.int32,
                          device=dev, generator=g)
-    hist, ranges = loop.src.hist, loop.src.cand_ranges
-    a = k2.sample_negatives(base, uid, hist, ranges, 1)
-    b = k2.sample_negatives_plain(base, uid, hist, ranges, 1)
-    err = int((a - b).abs().max())
-    assert err == 0, "neg_sampler disagrees with its plain version"
-    T, H = uid.shape[0], hist.shape[1]
-    n_users = int(torch.unique(uid).numel())
+    hist, ranges, lens = loop.src.hist, loop.src.cand_ranges, loop.src.lens
+    a = k2.sample_negatives(base, uid, hist, ranges, 1, lens)
+    b = k2.sample_negatives_plain(base, uid, hist, ranges, 1, lens=lens)
+    assert torch.equal(a, b), "neg_sampler disagrees with its plain version"
+    s0, l0, s1, n_cand = k2._runs(ranges)
+    ranks = k2._remix(base) % n_cand
+    n_bytes, n_ops = sampler_work(uid, hist, lens, 1,
+                                  torch.where(ranks < l0, s0 + ranks, s1 + (ranks - l0)))
     record("neg_sampler",
-           lambda: k2.sample_negatives(base, uid, hist, ranges, 1),
-           lambda: k2.sample_negatives_plain(base, uid, hist, ranges, 1),
-           float(err), 12 * T + 4 * n_users * H, T * k2.R_ROUNDS * (H + 12), reps=5)
+           lambda: k2.sample_negatives(base, uid, hist, ranges, 1, lens),
+           lambda: k2.sample_negatives_plain(base, uid, hist, ranges, 1, lens=lens),
+           0.0, n_bytes, n_ops, reps=5)
 
     # ---- K1: one train step's pairs of both domains ---------------------
     U = torch.randn(dataset.num_total_user, config["embedding_size"], device=dev, generator=g)
@@ -1648,41 +1660,78 @@ def popularity_checks(dev, g, ctrain, cdataset, record):
     base, accept = bits(), bits()
     print(f"  neg_sampler_popularity at a catalog source-stream epoch: {T} slots, history "
           f"[{data.hist.shape[0]}, {H}], alias table of {n} items", flush=True)
-    out = k2.sample_negatives_popularity(base, accept, uid, data.hist, alias, 1)
-    check_b2a(record, (base, accept, uid, data.hist, alias, 1, out))
+    out = k2.sample_negatives_popularity(base, accept, uid, data.hist, alias, 1, data.lens)
+    check_b2a(record, (base, accept, uid, data.hist, alias, 1, data.lens, out))
 
 
-def b2a_work(uids, hist, alias, neg_num):
-    """(bytes, operations) that B2a's function needs for one call: the two
-    bit streams, the uids and the output, each distinct user's real history
-    entries (the padding id, the item count, is the matrix's largest entry)
-    and the alias table, each once; one draw per slot (its first round,
-    about 24 32-bit operations: two murmur3 finalisers, the modulo, the
-    acceptance test and the selects). The rounds a slot redraws and the
-    membership tests are not charged."""
+def sampler_work(uids, hist, lens, neg_num, cand):
+    """(bytes, operations) that B2's function needs for one call: the bit
+    stream, the uids and the output, and each distinct user's live history
+    entries, each once; per slot, its rounds up to its first clean one (all
+    R when none is clean), each drawn (12 32-bit operations) and compared
+    with the slot's live entries. ``cand`` [R, slots] are the slots'
+    candidates. Prints H, the mean and the largest live length of the slots'
+    users and the compares counted, beside the R * H a slot the padded rows
+    would take."""
     import torch
 
+    from recbole_cdr_tpu_torch.ops import neg_sampler as k2
+
+    R, T = k2.R_ROUNDS, uids.shape[0] * neg_num
+    users = uids.long().repeat(neg_num)
+    slot_lens = lens[users].long()
+    live = int(lens[torch.unique(uids).long()].long().sum())
+    cols = torch.arange(hist.shape[1], device=hist.device)
+    rounds = torch.empty(T, dtype=torch.long, device=hist.device)
+    chunk = max(1, (1 << 27) // (R * hist.shape[1]))
+    for lo in range(0, T, chunk):
+        rows = hist[users[lo:lo + chunk]].long()
+        hit = (rows[None] == cand[:, lo:lo + chunk, None]) & (cols < slot_lens[lo:lo + chunk, None])
+        clean = ~hit.any(-1)
+        rounds[lo:lo + chunk] = torch.where(clean.any(0), clean.to(torch.int8).argmax(0) + 1, R)
+    compares = int((rounds * slot_lens).sum())
+    print(f"  neg_sampler: {T} slots, H {hist.shape[1]}, live history of the slots' users "
+          f"mean {float(slot_lens.float().mean()):.2f}, largest {int(slot_lens.max())}; rounds "
+          f"a slot to its first clean one mean {float(rounds.float().mean()):.3f}; {compares} "
+          f"compares (R * H a slot: {T * R * hist.shape[1]})", flush=True)
+    return 12 * T + 4 * live, compares + int(rounds.sum()) * 12
+
+
+def b2a_work(base, accept, uids, hist, alias, neg_num, lens):
+    """(bytes, operations) that B2a's function needs for one call: the two
+    bit streams, the uids and the output, each distinct user's live history
+    entries and the alias table, each once; one draw per slot (its first
+    round, about 24 32-bit operations: two murmur3 finalisers, the modulo,
+    the acceptance test and the selects). The rounds a slot redraws and the
+    membership tests are not charged. Prints the slots' live lengths as
+    ``sampler_work`` does."""
+    from recbole_cdr_tpu_torch.ops import neg_sampler as k2
+
     T = uids.shape[0] * neg_num
-    rows = hist[torch.unique(uids).long()]
-    real = int((rows < hist.max()).sum())
-    return 12 * T + 4 * uids.shape[0] + 4 * real + 12 * alias[0].shape[0], 24 * T
+    cand = k2._alias_candidates(base, accept, alias)
+    n_bytes = sampler_work(uids, hist, lens, neg_num, cand)[0]
+    return n_bytes + 4 * T + 12 * alias[0].shape[0], 24 * T
 
 
 def check_b2a(record, call):
-    """Hold one B2a call (base, accept, uids, hist, alias, neg_num, out)
-    exactly against its plain version on the same inputs, and time it
+    """Hold one B2a call (base, accept, uids, hist, alias, neg_num, lens,
+    out) exactly against its plain version on the same inputs, and time it
     through ``record``."""
     import torch
 
     from recbole_cdr_tpu_torch.ops import neg_sampler as k2
 
-    base, accept, uids, hist, alias, neg_num, out = call
-    want = k2.sample_negatives_plain(base, uids, hist, None, neg_num, alias, accept)
+    base, accept, uids, hist, alias, neg_num, lens, out = call
+    want = k2.sample_negatives_plain(base, uids, hist, None, neg_num, alias, accept, lens)
     assert torch.equal(out, want), "neg_sampler_popularity disagrees with its plain version"
-    n_bytes, n_ops = b2a_work(uids, hist, alias, neg_num)
+    if record is None:
+        return
+    n_bytes, n_ops = b2a_work(base, accept, uids, hist, alias, neg_num, lens)
     record("neg_sampler_popularity",
-           lambda: k2.sample_negatives_popularity(base, accept, uids, hist, alias, neg_num),
-           lambda: k2.sample_negatives_plain(base, uids, hist, None, neg_num, alias, accept),
+           lambda: k2.sample_negatives_popularity(base, accept, uids, hist, alias, neg_num,
+                                                  lens),
+           lambda: k2.sample_negatives_plain(base, uids, hist, None, neg_num, alias, accept,
+                                             lens),
            0.0, n_bytes, n_ops, reps=5)
 
 
@@ -3740,9 +3789,10 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
     grad_rms = []
     real_b2a = loop_module.sample_negatives_popularity
 
-    def capture_b2a(base, accept, uids, hist_m, alias, neg_num):
-        out = real_b2a(base, accept, uids, hist_m, alias, neg_num)
-        drawn.append((base, accept, uids, hist_m, alias, neg_num, out.clone()))
+    def capture_b2a(base, accept, uids, hist_m, alias, neg_num, lens):
+        out = real_b2a(base, accept, uids, hist_m, alias, neg_num, lens)
+        assert lens is not None, "the device loop draws without its rows' live lengths"
+        drawn.append((base, accept, uids, hist_m, alias, neg_num, lens, out.clone()))
         return out
 
     real_steps = {cls: cls.step for cls in (trainer_module.OptaxAdagrad,
@@ -3807,7 +3857,7 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
         if model == "CMF":
             # the target stream's draws: its alias table holds target item
             # ids only (the source's also holds source-only ids, above them)
-            tgt = [(d[4], d[6]) for d in drawn[first:] if int(d[4][0].max()) < n_target]
+            tgt = [(d[4], d[7]) for d in drawn[first:] if int(d[4][0].max()) < n_target]
             share = alias_shares(tgt[0][0], n_target)
             neg = torch.cat([out for _, out in tgt]).cpu().numpy()
             freq = np.bincount(neg, minlength=n_target) / len(neg)
@@ -3826,7 +3876,7 @@ def run_precision_and_popularity_paths(counts, records, catalog_recall):
     check_k1(main_path_recorder(records, "9a's first sparse step's sub-tables in float32"),
              Ub.float(), Ib.float(), u, i, gb.float(), positions)
     for call in drawn:
-        check_b2a(lambda *a, **k: None, call)
+        check_b2a(None, call)
     largest = max(drawn, key=lambda d: d[2].shape[0])
     print(f"B2a: all {len(drawn)} calls of 9b and 9c equal to the plain version; timed at "
           f"the largest, {largest[2].shape[0]} slots on history [{largest[3].shape[0]}, "

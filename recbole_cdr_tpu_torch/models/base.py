@@ -229,10 +229,12 @@ class CrossDomainRecommender(nn.Module):
         """Rows ``ids`` of table ``name`` (a parameter or a buffer): a
         gather, or for a row-sharded table the lookup over the model group
         (``parallel/embedding.py``). The gather is ``F.embedding``, as in
-        every model's training gathers: its backward adds a row's gradient
-        rows in an order the ids fix, on the CPU (where the index gather's
-        backward adds them by atomic adds over threads, in an order that
-        changes from run to run) and on the card."""
+        the training gathers of every model but NeuMF's
+        (``models/dtcdr.py::_neumf_embeddings``) and SSCDR's loss
+        (``models/sscdr.py``), which still index: its backward adds a row's
+        gradient rows in an order the ids fix, on the CPU (where the index
+        gather's backward adds them by atomic adds over threads, in an order
+        that changes from run to run) and on the card."""
         table = getattr(self, name)
         shard = self.table_shards.get(name)
         if shard is None:

@@ -184,9 +184,9 @@ class BiTGCF(CrossDomainRecommender):
         t_logit = gather_dot(t_user_all, t_item_all, tu, ti)
 
         s_loss = bce_loss(s_logit, batch[self.SOURCE_LABEL], sw) + self.reg_weight * emb_loss(
-            [self.source_user_embedding[su.long()], self.source_item_embedding[si.long()]], sw)
+            [self.rows("source_user_embedding", su), self.rows("source_item_embedding", si)], sw)
         t_loss = bce_loss(t_logit, batch[self.TARGET_LABEL], tw) + self.reg_weight * emb_loss(
-            [self.target_user_embedding[tu.long()], self.target_item_embedding[ti.long()]], tw)
+            [self.rows("target_user_embedding", tu), self.rows("target_item_embedding", ti)], tw)
         return s_loss + t_loss
 
     def loss_fn(self, phase: str):

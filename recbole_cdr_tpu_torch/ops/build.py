@@ -65,9 +65,9 @@ _SIGNATURES = {
                                            _P],
     },
     "neg_sampler": {
-        "neg_sampler": [_P, _P, _I, _P, _I, ctypes.c_longlong, ctypes.c_uint,
+        "neg_sampler": [_P, _P, _I, _P, _I, _P, ctypes.c_longlong, ctypes.c_uint,
                         _I, _I, _I, _P, _P],
-        "neg_sampler_popularity": [_P, _P, _P, _I, _P, _I, ctypes.c_longlong, _P, _P, _P,
+        "neg_sampler_popularity": [_P, _P, _P, _I, _P, _I, _P, ctypes.c_longlong, _P, _P, _P,
                                    ctypes.c_uint, _P, _P],
     },
     "shuffle": {"swap_or_not": [_P, _P, _I, _I, _I, _P, _P, _I, _P]},
@@ -85,9 +85,8 @@ _SIGNATURES = {
         "sparse_adam": [_P] * 4 + [_I, _I, _P] + [_F] * 6 + [_I, _P],
     },
     "graph_layer": {
-        "graph_layer_forward": [_P] * 8 + [_I, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
-        "graph_layer_backward": [_P] * 8 + [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P,
-                                            _I, _I, _I, _P],
+        "graph_layer_forward": [_P, _I, _I] + [_P] * 7 + [_F, _P, _P, _P, _I, _I, _I, _P],
+        "graph_layer_backward": [_P, _I, _I] + [_P] * 8 + [_F] + [_P] * 4 + [_I, _I, _I, _P],
     },
     "rank_sum": {"rank_sum": [_P, _I, _I, _P, _P, _P, _P] + [_I] * 5 + [_P, _P],
                  "rank_sum_candidates": [_P, _I, _I, _P, _P] + [_I] * 4 + [_P, _P]},

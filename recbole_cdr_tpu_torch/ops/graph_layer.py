@@ -35,49 +35,76 @@ import torch
 from recbole_cdr_tpu_torch.ops import build
 
 
-#: nonzeros per piece of the kernel's work (``csrc/graph_layer.cu``)
-PIECE = 64
+#: nonzeros per piece of the kernel's work, and pieces per block of its
+#: launch (the C entries refuse a value other than ``csrc/graph_layer.cu``'s
+#: ``kPieces``)
+PIECE = 32
+PIECES_PER_BLOCK = 16
+#: a piece's slot when it is its row's only piece
+SINGLE = -2
 DTYPES = build.DTYPES
 
 
 class CSR(NamedTuple):
     """A sparse [N, N] matrix, ``row_ptr`` int32 [N + 1], ``col`` int32
     [nnz], ``val`` float32 [nnz], and the kernel's schedule of it (made by
-    :func:`make_csr`): each row is cut into pieces of at most ``PIECE``
-    nonzeros, at least one per row; piece ``p`` covers row ``piece_row[p]``
-    from nonzero ``piece_lo[p]``. A row of several pieces is "heavy": its
-    pieces write partial sums to the slots ``piece_slot[p]`` (-1 for a light
-    row's piece), and heavy row ``heavy_row[h]`` owns the slots
-    ``heavy_ptr[h]`` to ``heavy_ptr[h + 1]``, in piece order."""
+    :func:`make_csr`). Each row is cut into pieces of at most ``PIECE``
+    nonzeros, at least one per row, the rows of several pieces first (their
+    longer pieces start first), each part in row order; ``pieces`` int32 [P, 4]
+    holds each piece's (row, lo, hi, slot): its nonzeros ``lo`` to ``hi``
+    and its slot. The kernel's block ``b`` takes pieces ``b * PIECES_PER_BLOCK``
+    onwards. A row's only piece has slot ``SINGLE``; the pieces of a row
+    inside one block are summed there, slot -1; a row over several blocks
+    is "split": the first of its pieces in each block has the slot of the
+    float32 partial that block writes for it. Split row ``h`` owns the slots
+    ``split_ptr[h]`` to ``split_ptr[h + 1]``, in block order,
+    ``slot_owner[s]`` names the split row of slot ``s``, and
+    ``split_count`` int32 [splits] is the kernel's count of a split row's
+    blocks that are done: zeros between launches (the last block of a row
+    sets its count back to 0), so two launches on one CSR must not run at
+    once."""
 
     row_ptr: torch.Tensor
     col: torch.Tensor
     val: torch.Tensor
-    piece_row: torch.Tensor
-    piece_lo: torch.Tensor
-    piece_slot: torch.Tensor
-    heavy_row: torch.Tensor
-    heavy_ptr: torch.Tensor
+    pieces: torch.Tensor
+    slot_owner: torch.Tensor
+    split_ptr: torch.Tensor
+    split_count: torch.Tensor
 
 
 def make_csr(row_ptr, col, val) -> CSR:
     """A :class:`CSR` with its schedule, on the device of ``row_ptr``."""
     dev = row_ptr.device
     n = row_ptr.shape[0] - 1
-    deg = (row_ptr[1:] - row_ptr[:-1]).long()
+    ptr = row_ptr.long()
+    deg = ptr[1:] - ptr[:-1]
     pieces = torch.clamp((deg + PIECE - 1) // PIECE, min=1)
-    piece_row = torch.repeat_interleave(torch.arange(n, device=dev), pieces)
-    first = torch.cumsum(pieces, 0) - pieces
-    idx = torch.arange(piece_row.shape[0], device=dev) - first[piece_row]
-    heavy = pieces > 1
-    in_heavy = heavy[piece_row]
-    slot = torch.where(in_heavy, torch.cumsum(in_heavy.long(), 0) - 1, -1)
-    heavy_ptr = torch.zeros(int(heavy.sum()) + 1, dtype=torch.long, device=dev)
-    torch.cumsum(pieces[heavy], 0, out=heavy_ptr[1:])
+    rows = torch.arange(n, device=dev)
+    rows = torch.cat([rows[pieces > 1], rows[pieces == 1]])  # the order of the pieces
+    first = torch.empty_like(pieces)                  # each row's first piece
+    first[rows] = torch.cumsum(pieces[rows], 0) - pieces[rows]
+    r = torch.repeat_interleave(rows, pieces[rows])   # each piece's row
+    p = torch.arange(r.shape[0], device=dev)
+    idx = p - first[r]
+    lo = ptr[r] + idx * PIECE
+    hi = torch.minimum(lo + PIECE, ptr[r + 1])
+    b_first, b_last = first // PIECES_PER_BLOCK, (first + pieces - 1) // PIECES_PER_BLOCK
+    split = (b_last > b_first)[rows]                  # in piece order
+    n_seg = (b_last - b_first + 1)[rows][split]
+    split_ptr = torch.zeros(n_seg.shape[0] + 1, dtype=torch.long, device=dev)
+    torch.cumsum(n_seg, 0, out=split_ptr[1:])
+    split_of = torch.full_like(pieces, -1)            # a split row's index
+    split_of[rows[split]] = torch.arange(n_seg.shape[0], device=dev)
+    leads = (split_of[r] >= 0) & ((idx == 0) | (p % PIECES_PER_BLOCK == 0))
+    slot = torch.where(leads, split_ptr[split_of[r].clamp(min=0)] + p // PIECES_PER_BLOCK
+                       - b_first[r], -1)
+    slot = torch.where(pieces[r] == 1, SINGLE, slot)
     i32 = lambda t: t.to(torch.int32).contiguous()
-    return CSR(i32(row_ptr), i32(col), val.to(torch.float32).contiguous(), i32(piece_row),
-               i32(row_ptr[piece_row].long() + idx * PIECE), i32(slot),
-               i32(torch.nonzero(heavy).reshape(-1)), i32(heavy_ptr))
+    return CSR(i32(row_ptr), i32(col), val.to(torch.float32).contiguous(),
+               i32(torch.stack([r, lo, hi, slot], 1)),
+               i32(torch.repeat_interleave(torch.arange(n_seg.shape[0], device=dev), n_seg)),
+               i32(split_ptr), torch.zeros(n_seg.shape[0], dtype=torch.int32, device=dev))
 
 
 def csr_from_scipy(m) -> CSR:
@@ -144,8 +171,8 @@ def _check(csr: CSR, x, bits, *dense, types=tuple(DTYPES)):
         raise ValueError("graph_layer: dropout bits must be int32 of the table's shape")
     if any(t.dtype != x.dtype or t.shape != x.shape for t in dense):
         raise ValueError("graph_layer: dense operands must be of the table's type and shape")
-    if csr.piece_row.dtype != torch.int32 \
-            or csr.heavy_ptr.shape != (csr.heavy_row.shape[0] + 1,):
+    if csr.pieces.dtype != torch.int32 or csr.pieces.dim() != 2 or csr.pieces.shape[1] != 4 \
+            or csr.split_ptr.shape != (csr.split_count.shape[0] + 1,):
         raise ValueError("graph_layer: the CSR has no schedule: build it with make_csr")
     tensors = (*csr, x, *dense) + ((bits,) if bits is not None else ())
     if len({t.device for t in tensors}) != 1:
@@ -159,12 +186,13 @@ def _ptr(t):
 
 
 def _schedule_args(csr: CSR, D: int):
-    """The C interface's schedule arguments, and the partial-sum scratch."""
-    n_pieces, n_heavy = csr.piece_row.shape[0], csr.heavy_row.shape[0]
-    # a light row has one piece and no slot: the slots are the other pieces
-    slots = n_pieces - (csr.row_ptr.shape[0] - 1 - n_heavy)
-    partial = torch.empty(slots, D, dtype=torch.float32, device=csr.val.device)
-    args = [t.data_ptr() for t in csr] + [n_pieces, n_heavy, PIECE]
+    """The C interface's schedule arguments, and the partials' scratch: one
+    float32 row per slot."""
+    partial = torch.empty(csr.slot_owner.shape[0], D, dtype=torch.float32,
+                          device=csr.val.device)
+    args = [csr.pieces.data_ptr(), csr.pieces.shape[0], PIECES_PER_BLOCK, csr.col.data_ptr(),
+            csr.val.data_ptr(),
+            csr.slot_owner.data_ptr(), csr.split_ptr.data_ptr(), csr.split_count.data_ptr()]
     return args, partial
 
 

@@ -6,7 +6,11 @@ Port of ``recbole_cdr_tpu/trainer/device_loop.py:205-325 _sample_negatives``
 uint32 base bits are remixed into R = 16 candidate ranks by the murmur3
 finalizer of ``base + r * 0x9E3779B9``, ranks map to item ids over the runs,
 and the first round whose candidate is not in the user's history row wins
-(round R-1 when none is clean). B2a, :func:`sample_negatives_popularity`,
+(round R-1 when none is clean). Only the first ``lens[u]`` entries of a
+user's row are compared (``lens`` None: every entry): the device loop's
+rows hold each user's history first and padding after it, so the walk
+stops at the history's end; entries past ``lens[u]`` are ignored, whatever
+they hold. B2a, :func:`sample_negatives_popularity`,
 is the popularity form (the alias branch, JAX :250-268): a second uint32
 stream per slot, remixed the same way, accepts each round's column with its
 alias probability or takes the column's alias, and the candidate is that
@@ -60,10 +64,10 @@ def _alias_candidates(base, accept, alias):
 
 
 def sample_negatives_plain(base, uids, hist, cand_ranges, neg_num: int, alias=None,
-                           accept=None):
+                           accept=None, lens=None):
     """The kernels' arithmetic: uniform over ``cand_ranges``, or with
     ``alias`` (values, prob, alias) and its ``accept`` stream the popularity
-    draw."""
+    draw; with ``lens``, each row's first ``lens[u]`` entries only."""
     total = uids.shape[0] * neg_num
     if alias is not None:
         cand = _alias_candidates(base, accept, alias)
@@ -75,21 +79,38 @@ def sample_negatives_plain(base, uids, hist, cand_ranges, neg_num: int, alias=No
     H = hist.shape[1]
     chunk = max(1, _PLAIN_CHUNK_ELEMS // (R_ROUNDS * max(H, 1)))
     coll = torch.zeros((R_ROUNDS, total), dtype=torch.bool, device=base.device)
+    cols = torch.arange(H, device=base.device)
     for lo in range(0, total, chunk):
         rows = hist[users[lo:lo + chunk]].to(torch.int64)  # [c, H]
-        coll[:, lo:lo + chunk] = (rows[None] == cand[:, lo:lo + chunk, None]).any(-1)
+        hit = rows[None] == cand[:, lo:lo + chunk, None]
+        if lens is not None:
+            hit &= cols < lens.to(torch.int64)[users[lo:lo + chunk], None]
+        coll[:, lo:lo + chunk] = hit.any(-1)
     clean = ~coll
     first = clean.to(torch.int8).argmax(0)
     idx = torch.where(clean.any(0), first, R_ROUNDS - 1)
     return cand.gather(0, idx[None])[0].to(torch.int32)
 
 
-def sample_negatives(base, uids, hist, cand_ranges, neg_num: int):
+def _check_lens(lens, hist, what):
+    if lens is None:
+        return None
+    if lens.dtype != torch.int32 or lens.shape != (hist.shape[0],):
+        raise ValueError(f"{what}: lens must be int32 [{hist.shape[0]}], one per history row, "
+                         f"got {lens.dtype} {tuple(lens.shape)}")
+    if lens.device != hist.device:
+        raise ValueError(f"{what} operands must share one device")
+    return lens.contiguous()
+
+
+def sample_negatives(base, uids, hist, cand_ranges, neg_num: int, lens=None):
     """int32 [len(uids) * neg_num] negatives.
 
     base: int32 bit patterns of one uint32 per slot; uids: int32 [B];
-    hist: int32 [num_users, H] padded history rows (padding never equals a
-    candidate); cand_ranges: ((start, length), ...) with at most two runs."""
+    hist: int32 [num_users, H] history rows (padding never equals a
+    candidate); cand_ranges: ((start, length), ...) with at most two runs;
+    lens: None (every entry of a row is live) or int32 [num_users], the
+    live entries at the start of each row (the rest is ignored)."""
     total = uids.shape[0] * neg_num
     if base.dtype != torch.int32 or uids.dtype != torch.int32 or hist.dtype != torch.int32:
         raise TypeError("neg_sampler takes int32 base bits, uids and history")
@@ -97,8 +118,9 @@ def sample_negatives(base, uids, hist, cand_ranges, neg_num: int):
         raise ValueError(f"neg_sampler shapes: base {base.shape}, uids {uids.shape}, hist {hist.shape}")
     if len({base.device, uids.device, hist.device}) != 1:
         raise ValueError("neg_sampler operands must share one device")
+    lens = _check_lens(lens, hist, "neg_sampler")
     if base.device.type == "cpu":
-        return sample_negatives_plain(base, uids, hist, cand_ranges, neg_num)
+        return sample_negatives_plain(base, uids, hist, cand_ranges, neg_num, lens=lens)
     if base.device.type != "cuda":
         raise ValueError(f"neg_sampler has no version for device {base.device}")
     s0, l0, s1, n_cand = _runs(cand_ranges)
@@ -106,8 +128,8 @@ def sample_negatives(base, uids, hist, cand_ranges, neg_num: int):
     out = torch.empty(total, dtype=torch.int32, device=base.device)
     err = build.library("neg_sampler").neg_sampler(
         base.data_ptr(), uids.data_ptr(), max(uids.shape[0], 1), hist.data_ptr(),
-        hist.shape[1], total, n_cand, s0, l0, s1, out.data_ptr(),
-        build.stream_handle(base),
+        hist.shape[1], None if lens is None else lens.data_ptr(), total, n_cand, s0, l0, s1,
+        out.data_ptr(), build.stream_handle(base),
     )
     build.check(err, "neg_sampler")
     sample_negatives.launches += 1
@@ -129,11 +151,11 @@ def _check_alias(alias, device):
         raise ValueError("neg_sampler_popularity operands must share one device")
 
 
-def sample_negatives_popularity(base, accept, uids, hist, alias, neg_num: int):
+def sample_negatives_popularity(base, accept, uids, hist, alias, neg_num: int, lens=None):
     """B2a: int32 [len(uids) * neg_num] popularity negatives.
 
     base, accept: int32 bit patterns of one uint32 per slot each (the column
-    and the acceptance streams); uids, hist as :func:`sample_negatives`;
+    and the acceptance streams); uids, hist, lens as :func:`sample_negatives`;
     alias: (values int32 [n], prob float32 [n], alias int32 [n]) of the
     sampler's alias table."""
     total = uids.shape[0] * neg_num
@@ -146,8 +168,9 @@ def sample_negatives_popularity(base, accept, uids, hist, alias, neg_num: int):
     if len({base.device, accept.device, uids.device, hist.device}) != 1:
         raise ValueError("neg_sampler_popularity operands must share one device")
     _check_alias(alias, base.device)
+    lens = _check_lens(lens, hist, "neg_sampler_popularity")
     if base.device.type == "cpu":
-        return sample_negatives_plain(base, uids, hist, None, neg_num, alias, accept)
+        return sample_negatives_plain(base, uids, hist, None, neg_num, alias, accept, lens)
     if base.device.type != "cuda":
         raise ValueError(f"neg_sampler_popularity has no version for device {base.device}")
     values, prob, alias_idx = (t.contiguous() for t in alias)
@@ -155,7 +178,8 @@ def sample_negatives_popularity(base, accept, uids, hist, alias, neg_num: int):
     out = torch.empty(total, dtype=torch.int32, device=base.device)
     err = build.library("neg_sampler").neg_sampler_popularity(
         base.data_ptr(), accept.data_ptr(), uids.data_ptr(), max(uids.shape[0], 1),
-        hist.data_ptr(), hist.shape[1], total, values.data_ptr(), prob.data_ptr(),
+        hist.data_ptr(), hist.shape[1], None if lens is None else lens.data_ptr(), total,
+        values.data_ptr(), prob.data_ptr(),
         alias_idx.data_ptr(), values.shape[0], out.data_ptr(), build.stream_handle(base),
     )
     build.check(err, "neg_sampler_popularity")

@@ -68,8 +68,11 @@ COMPLEMENT_BUDGET = 64 << 20
 def _device_hist(used, num_users: int, cap: int = None):
     """Padded per-user history matrix [U, H] from a sampler's UsedIds,
     H <= ``cap``. Padding uses the sentinel ``num_items`` (never equals a
-    candidate id). Returns (hist, heavy_uids) — heavy users' rows hold only
-    their first ``cap`` items and MUST be overridden by the complement path."""
+    candidate id). Returns (hist, heavy_uids, lens) — heavy users' rows hold
+    only their first ``cap`` items and MUST be overridden by the complement
+    path; ``lens`` int32 [U] is each row's count of items, clipped to H: a
+    row's items are its first ``lens[u]`` entries, in ascending item order,
+    and the rest of it is padding."""
     cap = HIST_WIDTH_CAP if cap is None else cap
     keys = used.keys
     uids = (keys // used.num_items).astype(np.int64)
@@ -83,7 +86,7 @@ def _device_hist(used, num_users: int, cap: int = None):
     pos_in = np.arange(len(uids)) - starts[uids]
     keep = pos_in < H
     hist[uids[keep], pos_in[keep]] = iids[keep]
-    return hist, heavy_uids
+    return hist, heavy_uids, np.minimum(counts[:num_users], H).astype(np.int32)
 
 
 def _heavy_complements(used, heavy_uids, candidate_ids, num_users: int):
@@ -237,8 +240,10 @@ class DomainDeviceData:
             cap = HIST_WIDTH_CAP
             while cap < max_deg and int((counts > cap).sum()) * n_cand > COMPLEMENT_BUDGET:
                 cap *= 2
-        hist_np, heavy_uids = _device_hist(sampler.used, num_users, cap)
+        hist_np, heavy_uids, lens = _device_hist(sampler.used, num_users, cap)
         self.hist = put(hist_np)
+        # each row's live entries, so that the sampler walks no padding
+        self.lens = put(lens)
         self.heavy = None
         if len(heavy_uids):
             self.heavy = tuple(put(a) for a in _heavy_complements(
@@ -351,11 +356,11 @@ class DeviceEpochLoop:
             if data.alias is not None:
                 neg = sample_negatives_popularity(
                     base, self.source.accept_bits(epoch, domain, step_lo, total),
-                    flat_uid, data.hist, data.alias, self.neg_num,
+                    flat_uid, data.hist, data.alias, self.neg_num, data.lens,
                 )
             else:
                 neg = sample_negatives(base, flat_uid, data.hist, data.cand_ranges,
-                                       self.neg_num)
+                                       self.neg_num, data.lens)
             if data.heavy is not None:
                 neg = self._heavy_override(data, domain, flat_uid, neg, epoch, step_lo)
             neg = neg.reshape(self.neg_num, n_steps, dstep)

@@ -54,6 +54,8 @@ from recbole_cdr_tpu_torch.models.bitgcf import BiTGCF
 from recbole_cdr_tpu_torch.ops import launch_counts, reset_launch_counts
 from recbole_cdr_tpu_torch.ops.graph_layer import (
     PIECE,
+    PIECES_PER_BLOCK,
+    SINGLE,
     csr_from_scipy,
     graph_layer,
     graph_layer_backward,
@@ -305,11 +307,17 @@ def test_run_recbole_cdr_bitgcf_on_cpu(extra, capsys):
     assert fell_back == ("phase_optimizer" in extra)
 
 
-@pytest.mark.parametrize("degrees", [[0, 1, 64, 65, 5000, 3, 0], [0], [200], [7] * 40])
+@pytest.mark.parametrize("degrees", [[0, 1, 64, 65, 5000, 3, 0], [0], [200], [7] * 40,
+                                     [1] * 15 + [65, 20_001, 3]])
 def test_make_csr_schedule_covers_each_nonzero_once(degrees):
     """The kernel's work split, replayed on the host: the pieces of each row
-    cover its nonzeros once, in order, at most ``PIECE`` at a time; a row of
-    several pieces owns consecutive partial slots, summed in piece order."""
+    cover its nonzeros once, in order, at most ``PIECE`` at a time; a block
+    of ``PIECES_PER_BLOCK`` pieces sums each run of one row's pieces in
+    piece order; a row over several blocks (a split row, of more than 20,000
+    nonzeros in the last case) has one partial slot a block, consecutive and
+    in block order, named by the first of its pieces in each block, and is
+    finished from its slots in that order; a row's only piece is marked
+    ``SINGLE``."""
     rng = np.random.default_rng(len(degrees))
     n = len(degrees)
     row_ptr = torch.tensor(np.concatenate([[0], np.cumsum(degrees)]), dtype=torch.int32)
@@ -320,24 +328,45 @@ def test_make_csr_schedule_covers_each_nonzero_once(degrees):
     x = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
     out = torch.full((n, 3), float("nan"))
     partial = {}
-    for p in range(csr.piece_row.shape[0]):  # the piece launch
-        row, lo = int(csr.piece_row[p]), int(csr.piece_lo[p])
-        hi = min(lo + PIECE, int(row_ptr[row + 1]))
-        assert int(row_ptr[row]) <= lo <= hi and (hi > lo or degrees[row] == 0)
-        acc = (val[lo:hi, None] * x[col[lo:hi].long()]).sum(0)
-        slot = int(csr.piece_slot[p])
-        if slot < 0:
-            out[row] = acc
-        else:
-            assert slot not in partial
-            partial[slot] = acc
-    for h in range(csr.heavy_row.shape[0]):  # the heavy-row launch
-        s0, s1 = int(csr.heavy_ptr[h]), int(csr.heavy_ptr[h + 1])
-        out[int(csr.heavy_row[h])] = sum(partial[s] for s in range(s0, s1))
-    assert sorted(partial) == list(range(len(partial)))
-    # the wrapper's scratch size, from shapes alone
-    assert len(partial) == csr.piece_row.shape[0] - (n - csr.heavy_row.shape[0])
-    assert csr.heavy_row.tolist() == [r for r, d in enumerate(degrees) if d > PIECE]
+    covered = np.zeros(nnz, np.int64)
+    pieces = csr.pieces.tolist()
+    for b0 in range(0, len(pieces), PIECES_PER_BLOCK):  # a block of the launch
+        block = pieces[b0:b0 + PIECES_PER_BLOCK]
+        for g, (row, lo, hi, slot) in enumerate(block):
+            assert int(row_ptr[row]) <= lo <= hi <= int(row_ptr[row + 1]) and hi - lo <= PIECE
+            covered[lo:hi] += 1
+            assert (slot == SINGLE) == (degrees[row] <= PIECE)
+            if g and block[g - 1][0] == row:  # not the first of its row in the block
+                assert slot == -1
+                continue
+            run = [q for q in block[g:] if q[0] == row]
+            run = run[:next((k for k in range(1, len(run)) if run[k][0] != row), len(run))]
+            acc = torch.zeros(3)
+            for _, a, z, _ in run:  # the run's pieces in piece order
+                acc = acc + (val[a:z, None] * x[col[a:z].long()]).sum(0)
+            if slot < 0:
+                out[row] = acc
+            else:
+                assert slot not in partial
+                partial[slot] = acc
+    assert (covered == 1).all()
+    split_rows = [r for r in range(n)
+                  if np.unique(np.flatnonzero(csr.pieces[:, 0].numpy() == r)
+                               // PIECES_PER_BLOCK).size > 1]
+    assert csr.split_ptr.shape[0] == len(split_rows) + 1
+    assert sorted(partial) == list(range(len(partial))) == list(range(int(csr.split_ptr[-1])))
+    assert csr.slot_owner.shape[0] == len(partial) and not csr.split_count.any()
+    for h, row in enumerate(split_rows):  # the last block of each split row
+        s0, s1 = int(csr.split_ptr[h]), int(csr.split_ptr[h + 1])
+        assert s1 - s0 >= 2 and (csr.slot_owner[s0:s1] == h).all()
+        lead = [p for p, q in enumerate(pieces) if q[0] == row and q[3] >= 0]
+        assert [pieces[p][3] for p in lead] == list(range(s0, s1))  # block order
+        assert [p // PIECES_PER_BLOCK for p in lead] == sorted(
+            {p // PIECES_PER_BLOCK for p, q in enumerate(pieces) if q[0] == row})
+        acc = partial[s0]
+        for s in range(s0 + 1, s1):
+            acc = acc + partial[s]
+        out[row] = acc
     torch.testing.assert_close(out, torch.from_numpy(
         np.stack([sum((float(val[k]) * x[int(col[k])].numpy()
                        for k in range(int(row_ptr[r]), int(row_ptr[r + 1]))), np.zeros(3))

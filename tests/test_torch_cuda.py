@@ -136,17 +136,46 @@ def test_swap_or_not_matches_plain(gen, R, L, n, per_row):
     assert torch.equal(got, k3.swap_or_not_plain(x, n, keys, salts))
 
 
-@pytest.mark.parametrize("H,ranges,neg_num", [(400, ((1, 2000), (5000, 6000)), 1),
-                                              (37, ((1, 30),), 2), (250, ((7, 5000),), 1)])
-def test_neg_sampler_matches_plain(gen, H, ranges, neg_num):
+def _history_rows(n_users, H, sentinel, gen, rows):
+    """(hist int32 [n_users, H], lens or None) for the sampler's card tests.
+    "full": random ids below ``sentinel`` in every entry, no lens. "padded":
+    the device loop's rows, each user's live entries (random ids below the
+    sentinel, most rows short, a few over the warp's walk, user 0 at the
+    full width H) first and the sentinel after them. "junk": the same live
+    entries and random ids below the sentinel past them, which the kernel
+    must ignore."""
+    hist = _ints(0, sentinel, (n_users, H), gen)
+    if rows == "full":
+        return hist, None
+    lens = torch.minimum(_ints(0, 40, (n_users,), gen) * _ints(1, 4, (n_users,), gen) ** 3,
+                         torch.tensor(H, device="cuda")).to(torch.int32)
+    lens[0] = H
+    past = torch.arange(H, device="cuda")[None, :] >= lens[:, None]
+    if rows == "padded":
+        hist = torch.where(past, sentinel, hist).to(torch.int32)
+    return hist, lens
+
+
+@pytest.mark.parametrize("H,ranges,neg_num,rows", [
+    (400, ((1, 2000), (5000, 6000)), 1, "full"), (37, ((1, 30),), 2, "full"),
+    (250, ((7, 5000),), 1, "full"), (2048, ((1, 2000), (5000, 6000)), 1, "padded"),
+    (2048, ((7, 5000),), 2, "junk"), (402, ((1, 30),), 1, "junk")])
+def test_neg_sampler_matches_plain(gen, H, ranges, neg_num, rows):
+    """B2 bit-exact against its plain version: whole rows, the device loop's
+    sentinel-padded rows with their live lengths (one user at the 2,048
+    cap), and rows with junk past their live lengths."""
     n_users = 4000
     hi = ranges[-1][0] + ranges[-1][1]
-    hist = _ints(0, hi, (n_users, H), gen)
+    hist, lens = _history_rows(n_users, H, hi, gen, rows)
     uids = _ints(0, n_users, (30_000,), gen)
+    uids[:64] = 0
     base = _ints(-2 ** 31, 2 ** 31, (30_000 * neg_num,), gen)
-    got = k2.sample_negatives(base, uids, hist, ranges, neg_num)
+    got = k2.sample_negatives(base, uids, hist, ranges, neg_num, lens)
     torch.cuda.synchronize()
-    assert torch.equal(got, k2.sample_negatives_plain(base, uids, hist, ranges, neg_num))
+    want = k2.sample_negatives_plain(base, uids, hist, ranges, neg_num, lens=lens)
+    assert torch.equal(got, want)
+    if rows == "padded":  # the sentinels never match: the whole rows give the same
+        assert torch.equal(got, k2.sample_negatives(base, uids, hist, ranges, neg_num))
 
 
 def _k1_case(form, D, dtype, gen):
@@ -412,17 +441,25 @@ def test_row_sum_matches_plain(gen, D, dtype):
         assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0].cpu(), want)
 
 
-def _random_csr(N, nnz, gen):
+#: the heavy rows 2 and 3 (and columns 2 and 3) of ``_random_csr``: how
+#: many nonzeros each gets beyond the random ones
+HEAVY_ROWS = {"mixed": (65, 5000), "long": (65, 20_001), "light": (0, 0)}
+
+
+def _random_csr(N, nnz, gen, rows="mixed"):
     """A random non-symmetric [N, N] CSR and its transpose's CSR: row 0 has
     no nonzero, row 1 (and column 1) exactly one, rows 2 and 3 (and columns
-    2 and 3) 64 + 1 and 5,000 more than the rest, so that the kernel splits
-    them into several pieces; duplicates allowed."""
+    2 and 3) ``HEAVY_ROWS[rows]`` more than the rest ("mixed": 64 + 1 and
+    5,000, so that the kernel splits them into several pieces; "long": a
+    row over 20,000; "light": none, every row one piece at the tests'
+    densities); duplicates allowed."""
+    n2, n3 = HEAVY_ROWS[rows]
     rows = _ints(0, N, (nnz,), gen).long()
     cols = _ints(0, N, (nnz,), gen).long()
     if N > 3:
         keep = (rows != 0) & (rows != 1) & (cols != 1)
-        extra = [torch.full((n,), r, device="cuda") for r, n in ((2, 65), (3, 5000))]
-        extra_cols = _ints(4, N, (5065,), gen).long()
+        extra = [torch.full((n,), r, device="cuda") for r, n in ((2, n2), (3, n3))]
+        extra_cols = _ints(4, N, (n2 + n3,), gen).long()
         rows = torch.cat([rows[keep], torch.tensor([1, 2], device="cuda"), *extra, extra_cols])
         cols = torch.cat([cols[keep], torch.tensor([N - 1, 1], device="cuda"), extra_cols,
                           *extra])
@@ -441,8 +478,9 @@ def _close_to_exact(got, exact, absum, what):
     """|got - exact| <= 1e-6 + 2e-5 * absum + 1e-6 * |exact| per element:
     float32 sums of n terms in any order are off by at most ~n * eps *
     sum|terms| from the exact sum; the kernel's chains are at most 64
-    nonzeros plus, for a row of several pieces, one sum over its pieces
-    (<= 79 here); the epilogue rounds once more."""
+    nonzeros plus, for a row of several pieces, a sum over its pieces in a
+    block (<= 16) and one over its blocks (<= 20 here); the epilogue rounds
+    once more."""
     err = (got.double() - exact).abs()
     bad = err > 1e-6 + 2e-5 * absum + 1e-6 * exact.abs()
     assert not bool(bad.any()), (
@@ -450,14 +488,17 @@ def _close_to_exact(got, exact, absum, what):
         f"{float(err.max()):.3g}, rows {torch.nonzero(bad)[:5, 0].tolist()}")
 
 
-@pytest.mark.parametrize("N,nnz,D,drop", [(53_002, 1_000_000, 64, 0.3), (3000, 40_000, 48, 0.0),
-                                          (3000, 40_000, 192, 0.3), (1, 1, 64, 0.3),
-                                          (500, 4000, 37, 0.3), (500, 4000, 64, 0.0)])
-def test_graph_layer_matches_plain(gen, N, nnz, D, drop):
+@pytest.mark.parametrize("N,nnz,D,drop,rows", [
+    (53_002, 1_000_000, 64, 0.3, "mixed"), (3000, 40_000, 48, 0.0, "mixed"),
+    (3000, 40_000, 192, 0.3, "mixed"), (1, 1, 64, 0.3, "mixed"), (500, 4000, 37, 0.3, "mixed"),
+    (500, 4000, 64, 0.0, "mixed"), (53_002, 400_000, 64, 0.3, "long"),
+    (3000, 40_000, 64, 0.3, "light")])
+def test_graph_layer_matches_plain(gen, N, nnz, D, drop, rows):
     """Forward and backward against the plain version run in float64 on the
     same inputs, within ``_close_to_exact``'s bound, and two kernel runs
-    bit-equal (no atomics)."""
-    csr, csr_t = _random_csr(N, nnz, gen)
+    bit-equal (no float atomics); a row over 20,000 nonzeros, and a graph
+    of light rows only."""
+    csr, csr_t = _random_csr(N, nnz, gen, rows)
     x = torch.randn(N, D, device="cuda", generator=gen)
     g = torch.randn(N, D, device="cuda", generator=gen)
     bits = _ints(-2 ** 31, 2 ** 31, (N, D), gen) if drop else None
@@ -483,9 +524,25 @@ def test_graph_layer_matches_plain(gen, N, nnz, D, drop):
     new2, side2 = b8.graph_layer_forward(csr, x, bits, keep)
     assert torch.equal(new, new2) and torch.equal(side, side2)
     assert torch.equal(gx, b8.graph_layer_backward(csr_t, x, side, bits, keep, g))
-    if N > 3:  # the empty row: side 0; rows of several pieces on both sides
+    if N > 3:  # the empty row: side 0; rows over several blocks on both sides
         assert bool((side[0] == 0).all())
-        assert csr.heavy_row.shape[0] >= 2 and csr_t.heavy_row.shape[0] >= 2
+        for m in (csr, csr_t):
+            assert (m.split_count.shape[0] >= 1) == (rows != "light")
+            assert bool((m.pieces[:, 3] == b8.SINGLE).all()) == (rows == "light")
+            assert not bool(m.split_count.any())  # the counts are back at 0
+
+
+def test_graph_layer_refuses_another_block_size(gen, monkeypatch):
+    """Both C entries refuse a schedule laid out for another number of
+    pieces a block than the kernel's (its blocks would sum partials that no
+    block wrote)."""
+    csr, csr_t = _random_csr(500, 4000, gen)
+    x = torch.randn(500, 64, device="cuda", generator=gen)
+    monkeypatch.setattr(b8, "PIECES_PER_BLOCK", b8.PIECES_PER_BLOCK // 2)
+    with pytest.raises(RuntimeError, match="graph_layer_forward"):
+        b8.graph_layer_forward(csr, x)
+    with pytest.raises(RuntimeError, match="graph_layer_backward"):
+        b8.graph_layer_backward(csr_t, x, x, None, 1.0, x)
 
 
 @pytest.mark.parametrize("B,I,P,integer", [(64, 5001, 25, True), (64, 5001, 25, False),
@@ -1099,22 +1156,26 @@ def test_streaming_topk_bf16_hopper_edges(gen, B, I, D, k, dtype):
         assert torch.equal(got_i[clear], want_i[clear])
 
 
-@pytest.mark.parametrize("n_alias,H,neg_num", [(300_000, 400, 1), (40, 37, 2), (1, 8, 1)])
-def test_neg_sampler_popularity_matches_plain(gen, n_alias, H, neg_num):
+@pytest.mark.parametrize("n_alias,H,neg_num,rows", [
+    (300_000, 400, 1, "full"), (40, 37, 2, "full"), (1, 8, 1, "full"),
+    (300_000, 2048, 1, "padded"), (40, 64, 2, "junk")])
+def test_neg_sampler_popularity_matches_plain(gen, n_alias, H, neg_num, rows):
     """B2a bit-exact: the alias draw and the rejection, a one-column table
-    included."""
+    included; rows with live lengths as ``test_neg_sampler_matches_plain``'s."""
     n_users = 4000
     values = torch.randperm(2 * n_alias, device="cuda", generator=gen)[:n_alias].to(torch.int32) + 1
     prob = torch.rand(n_alias, device="cuda", generator=gen) * 1.2
     alias = _ints(-1, n_alias, (n_alias,), gen)
-    hist = _ints(0, 2 * n_alias + 1, (n_users, H), gen)
+    hist, lens = _history_rows(n_users, H, 2 * n_alias + 1, gen, rows)
     uids = _ints(0, n_users, (30_000,), gen)
+    uids[:64] = 0
     base = _ints(-2 ** 31, 2 ** 31, (30_000 * neg_num,), gen)
     accept = _ints(-2 ** 31, 2 ** 31, (30_000 * neg_num,), gen)
-    got = k2.sample_negatives_popularity(base, accept, uids, hist, (values, prob, alias), neg_num)
+    got = k2.sample_negatives_popularity(base, accept, uids, hist, (values, prob, alias), neg_num,
+                                         lens)
     torch.cuda.synchronize()
     want = k2.sample_negatives_plain(base, uids, hist, None, neg_num, (values, prob, alias),
-                                     accept)
+                                     accept, lens)
     assert torch.equal(got, want)
 
 
@@ -1538,10 +1599,12 @@ def _to(csr, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("N,nnz,D,drop", [(53_002, 1_000_000, 64, 0.3), (3000, 40_000, 32, 0.0),
-                                          (3000, 40_000, 128, 0.3), (500, 4000, 64, 0.0),
-                                          (500, 4000, 37, 0.3)])
-def test_graph_layer_bf16_matches_plain(gen, N, nnz, D, drop, dtype):
+@pytest.mark.parametrize("N,nnz,D,drop,rows", [
+    (53_002, 1_000_000, 64, 0.3, "mixed"), (3000, 40_000, 32, 0.0, "mixed"),
+    (3000, 40_000, 128, 0.3, "mixed"), (500, 4000, 64, 0.0, "mixed"),
+    (500, 4000, 37, 0.3, "mixed"), (53_002, 400_000, 64, 0.3, "long"),
+    (3000, 40_000, 64, 0.0, "light")])
+def test_graph_layer_bf16_matches_plain(gen, N, nnz, D, drop, rows, dtype):
     """B8's 16-bit form against its plain version on the same 16-bit inputs
     (light rows and rows of several pieces, D 32 / 64 / 128 and one without
     vector loads, dropout on and off): side within one step of the plain
@@ -1549,7 +1612,7 @@ def test_graph_layer_bf16_matches_plain(gen, N, nnz, D, drop, dtype):
     order), new within two steps of the magnitudes it adds, gx within one
     step of its own plus 2^-16 of its product's terms; two runs bit-equal
     (no atomics); the wrappers count the 16-bit launches only."""
-    csr, csr_t = (_to(m, dtype) for m in _random_csr(N, nnz, gen))
+    csr, csr_t = (_to(m, dtype) for m in _random_csr(N, nnz, gen, rows))
     x = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
     g = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
     bits = _ints(-2 ** 31, 2 ** 31, (N, D), gen) if drop else None

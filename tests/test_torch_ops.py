@@ -4,6 +4,8 @@ with the same random bits, K4 with exact ids under deliberate ties, K1 within
 the oracle tolerances of ``tests/test_oracle_equivalence.py`` in each of its
 backward's forms, and the tables its backward reads by position."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 from recbole_cdr_tpu.evaluator.evaluator import _apply_masks_pairs
 from recbole_cdr_tpu.trainer.device_loop import (
     _contiguous_ranges,
+    _device_hist,
     _sample_negatives,
     _shuffle_keys,
     _swap_or_not,
@@ -21,8 +24,9 @@ from recbole_cdr_tpu.trainer.device_loop import (
 from recbole_cdr_tpu_torch.ops import launch_counts
 from recbole_cdr_tpu_torch.ops.gather_dot import POSITIONS, backward_groups, gather_dot
 from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk
-from recbole_cdr_tpu_torch.ops.neg_sampler import sample_negatives
+from recbole_cdr_tpu_torch.ops.neg_sampler import sample_negatives, sample_negatives_plain
 from recbole_cdr_tpu_torch.ops.shuffle import swap_or_not
+from recbole_cdr_tpu_torch.trainer import device_loop as torch_loop
 
 LOSS_TOL = dict(rtol=2e-4, atol=1e-6)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-6)
@@ -68,6 +72,62 @@ def test_neg_sampler_matches_jax_bit_exact(candidates, H, neg_num):
     np.testing.assert_array_equal(got, want)
     # the fully covered user really took the fallback round
     assert np.isin(got[np.tile(uids, neg_num) == 1], candidates).all()
+
+
+def _used_ids(seed, n_users, n_items, n_inter):
+    """A sampler's used-set (``keys`` = uid * num_items + iid, unique and
+    sorted, as ``sampler/sampler.py`` builds it) of random interactions
+    with skewed user degrees, users 1 .. n_users - 1."""
+    rng = np.random.default_rng(seed)
+    uids = rng.zipf(1.5, n_inter) % (n_users - 1) + 1
+    iids = rng.integers(1, n_items, n_inter)
+    return SimpleNamespace(keys=np.unique(uids * n_items + iids), num_items=n_items)
+
+
+@pytest.mark.parametrize("cap,neg_num", [(None, 1), (None, 2), (6, 1)])
+def test_neg_sampler_loop_lens_match_jax(cap, neg_num):
+    """The plain version walking only each row's first ``lens[u]`` entries
+    (the device loop's history and lens) equals JAX's ``_sample_negatives``
+    comparing the whole padded rows, on the same rows, bits and candidate
+    runs; with ``cap`` the heavy users' rows are cut to the cap (their
+    lens is the cap)."""
+    n_users, n_items = 40, 90
+    used = _used_ids(5, n_users, n_items, 900)
+    hist, heavy, lens = torch_loop._device_hist(used, n_users, cap)
+    want_hist, want_heavy = _device_hist(used, n_users, cap)
+    np.testing.assert_array_equal(hist, np.asarray(want_hist))
+    np.testing.assert_array_equal(heavy, want_heavy)
+    assert (cap is not None) == bool(len(heavy)) and lens.max() == hist.shape[1]
+    candidates = np.arange(1, n_items)
+    ranges = _contiguous_ranges(candidates)
+    uids = np.random.default_rng(6).integers(0, n_users, 500).astype(np.int32)
+    key = jax.random.PRNGKey(9)
+    want = np.asarray(_sample_negatives(key, jnp.asarray(uids), jnp.asarray(hist),
+                                        jnp.asarray(candidates, jnp.int32), neg_num,
+                                        cand_ranges=ranges))
+    bits = _t(jax.random.bits(key, (len(uids) * neg_num,), dtype=jnp.uint32))
+    got = sample_negatives_plain(bits, _t(uids), _t(hist), ranges, neg_num,
+                                 lens=torch.from_numpy(lens))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # junk past lens is ignored: the rows' padding replaced by candidates
+    junk = np.where(np.arange(hist.shape[1]) < lens[:, None], hist,
+                    np.random.default_rng(7).integers(1, n_items, hist.shape))
+    got = sample_negatives(bits, _t(uids), _t(junk.astype(np.int32)), ranges, neg_num,
+                           lens=torch.from_numpy(lens))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("cap", [None, 4, 1])
+def test_device_hist_lens_count_live_entries(cap):
+    """The device loop's ``lens`` is each history row's count of entries
+    that are not the padding sentinel (``num_items``), and those entries
+    come first in the row."""
+    used = _used_ids(11, 25, 60, 400)
+    hist, _, lens = torch_loop._device_hist(used, 25, cap)
+    assert lens.dtype == np.int32 and lens.shape == (25,)
+    live = hist != used.num_items
+    np.testing.assert_array_equal(lens, live.sum(1))
+    np.testing.assert_array_equal(live, np.arange(hist.shape[1]) < lens[:, None])
 
 
 # ------------------------------------------------------------------ K3
