@@ -161,8 +161,10 @@ Phases, in order; any failure exits non-zero:
    32, 16, 8]) on the dense path's pair (overlapping on items), BOTH:2 with
    validation every epoch: K2 and K3 twice per epoch, K4 once per
    evaluation tile; DeepAPF's B16 (``deepapf_forward`` /
-   ``deepapf_backward``) exactly once each per training step and its grid
-   (``deepapf_grid``) once per tile of the predict fallback; CoNet's B15
+   ``deepapf_backward``, from the five tables and the step's ids) exactly
+   once each per training step, the plan of the step's keys (``group_rows``)
+   once per step, and its grid (``deepapf_grid``) once per tile of the
+   predict fallback; CoNet's B15
    (``conet_tower``) once per dense tile, and what each of its validation
    passes allocates beyond what the run holds as it starts less than
    ``CONET_VALID_HEADROOM`` (the pass's peak above parameters and moments
@@ -284,11 +286,11 @@ Phase 2 also reads the SASS of the built libraries (``check_sass``,
 hold HGMMA (wgmma), UTMALDG (TMA loads) and SYNCS (mbarriers) and at most
 the one block barrier before its roles split, K4's kernel (B10's too) and
 B7's the cluster barriers (UCGABAR) of their short-tile forms, and every
-instantiation of B16's grid kernel its tensor-core products (HMMA), and
-every one of B15's its products (HMMA, or HGMMA where the published
-tower runs on wgmma); it prints the counts, and fails where the library
-of B11, K1, B6, the plan, B9 or B8 (``FIXED_ORDER_SOURCES``) holds a
-float atomic.
+instantiation of B16's grid, forward and backward pair kernels its
+tensor-core products (HMMA), and every one of B15's its products (HMMA, or
+HGMMA where the published tower runs on wgmma); it prints the counts, and
+fails where the library of B11, K1, B6, the plan, B9, B8 or B16
+(``FIXED_ORDER_SOURCES``) holds a float atomic.
 B13's time is printed beside B5's from the same run, with its launch plan
 and the item bytes the plan reads from L2 into the SMs (modelled from the
 plan, not read from a counter), and beside the time of the same call on
@@ -321,14 +323,20 @@ integer-valued (ties everywhere) and normal scores; the candidate form takes
 each positive's column from its index (no positions tensor).
 
 B16 (``deepapf_forward`` / ``deepapf_backward`` / ``deepapf_grid``) is
-held in phase 2 at a training step's 16,384 pairs of both domains and on a
+held in phase 2 at a training step's 16,384 pairs of both domains (from
+the five tables and the pairs' ids, the source pairs first) and on a
 fallback tile ([32 users, every target item]), at D 32, 64 and 128, with
 the items and, on the same ids, the users as the entity, entity ids equal
-to the overlapped count and one above it among the pairs: within
-``B16_TOL`` of its plain version, the masked share rows' gradient exactly
-0, two runs bit-equal; timed at the main path's (D 64, items). Its library
-yardstick is the torch chain on cuBLAS with both attention branches in one
-product. The grid's bound is its products in 3xTF32 on the tensor cores
+to the overlapped count and one above it among the pairs of both domains:
+within ``B16_TOL`` of its plain version (the five tables' gradients and
+the weights'), the masked entities' share rows exactly 0, every table's
+gradient and the rest bit-equal from run to run; timed at the main path's
+(D 64, items), the backward with its plan. Its library yardstick is the
+same function in torch: ``F.embedding`` gathers, the chain on cuBLAS with
+both attention branches in one product, and autograd into the tables. The
+pair kernels' bound is the rows the step names, each read once, the ids,
+the logits (and the whole tables' gradients, written once), their products
+in 3xTF32 on the tensor cores. The grid's bound is its products in 3xTF32 on the tensor cores
 (the form the kernel runs, ``mma.sync``) and the rest on the CUDA cores;
 the bound with every operation on the CUDA cores (the earlier pair
 kernels' form) is printed beside it, with the grid's tile
@@ -362,7 +370,8 @@ the 16-bit operands' two bytes.
 Phase 2 holds the 16-bit forms of B16 and B15 the same way, at the main
 path's shapes, in bfloat16 (the record) and float16 (the record's
 ``shapes``): B16-bf16's forward and backward on the training step's pairs
-within ``B16_BF16_TOL``, the masked share rows' gradient exactly 0; the
+within ``B16_BF16_TOL``, the masked entities' share rows exactly 0 (in
+bfloat16 also at D 32 and 128 and with the users the entity); the
 16-bit probabilities of B16-bf16's grid on the fallback tile (D 64, items
 the entity, the tables doubled so that they spread) and of B15-bf16 at the
 dense tile by ``close_prob16``: each within a few steps of its plain
@@ -649,6 +658,9 @@ B11_BF16_TOL = (1e-6, 2 ** -17, BF16_STEP)
 B16_TOL = {"forward": (1e-5, 1e-4), "grid": (1e-6, 1e-4), "backward": (1e-5, 1e-3)}
 #: the widths phase 2 holds B16 at; the main path's, 64, is timed
 B16_WIDTHS = (32, 64, 128)
+#: B16's backward outputs: the five tables' gradients, then the weights'
+B16_GRADS = ("d_share", "d_only_src", "d_only_tgt", "d_other_src", "d_other_tgt", "dW", "db",
+             "dw2", "dpl")
 #: B16-bf16 tolerance per output tensor (B9_BF16_TOL's form): both round x,
 #: z, the a's, alpha, entity_e and the logit (the grid's sigmoid) from
 #: float32 sums in other orders, so an intermediate may land a step apart
@@ -703,7 +715,7 @@ PHASE11_RUNS = (
 PHASE11_PATHS = {
     "clfm": ("neg_sampler", "swap_or_not", "masked_topk"),
     "deepapf": ("neg_sampler", "swap_or_not", "masked_topk", "deepapf_forward",
-                "deepapf_backward", "deepapf_grid"),
+                "deepapf_backward", "group_rows", "deepapf_grid"),
     "conet": ("neg_sampler", "swap_or_not", "masked_topk", "conet_tower"),
 }
 #: CoNet's device memory a validation pass may allocate beyond what the run
@@ -1054,32 +1066,56 @@ def make_recorder(out):
 #: mbarrier operations (SYNCS), the TMA ones their TMA loads (UTMALDG), and
 #: at most the one block barrier before its roles split; every instantiation
 #: of K4's kernel (B10's too) and of B7's the cluster barriers of their
-#: short-tile forms (UCGABAR); every instantiation of B16's grid kernel its
-#: tensor-core products (HMMA: 3xTF32 in float32, bf16 / f16 in 16 bits);
+#: short-tile forms (UCGABAR); every instantiation of B16's grid, forward
+#: and backward pair kernels its tensor-core products (HMMA: 3xTF32 in
+#: float32, bf16 / f16 in 16 bits, TF32 in the backward);
 #: every instantiation of B15's its tensor-core products (HMMA on mma.sync,
 #: HGMMA on wgmma: the published tower's), HGMMA in one.
-#: Source -> (kernel, opcodes in every instantiation, opcodes in at least
-#: one, opcodes counted)
+#: Source -> (kernel or kernels, opcodes in every instantiation of each,
+#: opcodes in at least one, opcodes counted)
 SASS_OPCODES = {
     "streaming_topk": ("tile16_kernel", ("HGMMA", "SYNCS"), ("UTMALDG",),
                        ("HGMMA", "UTMALDG", "SYNCS", "BAR.SYNC")),
     "masked_topk": ("masked_topk_kernel", ("UCGABAR",), (), ("UCGABAR", "BAR.SYNC")),
     "rank_sum": ("rank_sum_kernel", ("UCGABAR",), (), ("UCGABAR", "BAR.SYNC")),
-    "deepapf_attention": ("grid_kernel", ("HMMA",), (), ("HMMA", "BAR.SYNC")),
+    "deepapf_attention": (("grid_kernel", "forward_kernel", "backward_kernel"), ("HMMA",), (),
+                          ("HMMA", "BAR.SYNC")),
     "conet_tower": ("tower_kernel", (), ("HGMMA",), ("HMMA", "HGMMA", "BAR.SYNC")),
 }
 #: a float atomic in SASS (RED or ATOM on F16, BF16, F32 or F64): the
 #: libraries of ``FIXED_ORDER_SOURCES`` must hold none, so that their sums
-#: run in a fixed order: B11's, K1's, B6's, B9's, B8's and the plan's with
-#: the row-sharded lookup's backward
+#: run in a fixed order: B11's, K1's, B6's, B9's, B8's, B16's and the
+#: plan's with the row-sharded lookup's backward
 FLOAT_ATOMIC = r"\b(?:RED|ATOMG?|ATOMS)\.[A-Z0-9_.]*\b(?:F16|BF16|F32|F64)"
 FIXED_ORDER_SOURCES = ("rating_vector", "gather_dot", "sparse_adam", "row_groups",
-                       "natr_attention", "graph_layer")
+                       "natr_attention", "graph_layer", "deepapf_attention")
+
+
+def check_kernel_sass(source, kernel, sass, each, some, counted):
+    """``check_sass`` on the instantiations of one kernel of ``source``'s
+    SASS."""
+    import re
+
+    funcs = [f for f in sass.split("Function : ")[1:] if kernel in f.split("\n", 1)[0]]
+    assert funcs, f"{source}: no {kernel} in the SASS"
+    counts = [{op: len(re.findall(r"\b" + re.escape(op), f)) for op in counted} for f in funcs]
+    total = {op: sum(c[op] for c in counts) for op in counted}
+    print(f"  SASS {source}.cu {kernel} ({len(funcs)} instantiations): "
+          + ", ".join(f"{op} {n}" for op, n in total.items()), flush=True)
+    for op in each:
+        assert all(c[op] for c in counts), f"an instantiation of {kernel} has no {op}"
+    for op in some:
+        assert total[op], f"no instantiation of {kernel} has {op}"
+    if source == "streaming_topk":
+        assert all(c["BAR.SYNC"] <= 1 for c in counts), f"{kernel} holds block barriers"
+    if source == "conet_tower":
+        assert all(c["HMMA"] or c["HGMMA"] for c in counts), \
+            f"an instantiation of {kernel} has no tensor-core product"
 
 
 def check_sass():
     """Count the opcodes of ``SASS_OPCODES`` in each instantiation of B13's,
-    K4's, B7's, B16's grid and B15's kernels (``cuobjdump --dump-sass`` of
+    K4's, B7's, B16's grid and pair and B15's kernels (``cuobjdump --dump-sass`` of
     the built libraries) and fail where one is absent, where B13's selection
     holds a block barrier, or where a library of ``FIXED_ORDER_SOURCES``
     holds a float atomic."""
@@ -1089,25 +1125,11 @@ def check_sass():
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     build.build_all()  # a run of phase 2 alone has built nothing yet
-    for source, (kernel, each, some, counted) in SASS_OPCODES.items():
+    for source, (kernels, each, some, counted) in SASS_OPCODES.items():
         sass = subprocess.run([cuobjdump, "--dump-sass", build._lib_path(source)],
                               capture_output=True, text=True, check=True).stdout
-        funcs = [f for f in sass.split("Function : ")[1:] if kernel in f.split("\n", 1)[0]]
-        assert funcs, f"{source}: no {kernel} in the SASS"
-        counts = [{op: len(re.findall(r"\b" + re.escape(op), f)) for op in counted}
-                  for f in funcs]
-        total = {op: sum(c[op] for c in counts) for op in counted}
-        print(f"  SASS {source}.cu {kernel} ({len(funcs)} instantiations): "
-              + ", ".join(f"{op} {n}" for op, n in total.items()), flush=True)
-        for op in each:
-            assert all(c[op] for c in counts), f"an instantiation of {kernel} has no {op}"
-        for op in some:
-            assert total[op], f"no instantiation of {kernel} has {op}"
-        if source == "streaming_topk":
-            assert all(c["BAR.SYNC"] <= 1 for c in counts), f"{kernel} holds block barriers"
-        if source == "conet_tower":
-            assert all(c["HMMA"] or c["HGMMA"] for c in counts), \
-                f"an instantiation of {kernel} has no tensor-core product"
+        for kernel in (kernels,) if isinstance(kernels, str) else kernels:
+            check_kernel_sass(source, kernel, sass, each, some, counted)
     for source in FIXED_ORDER_SOURCES:
         sass = subprocess.run([cuobjdump, "--dump-sass", build._lib_path(source)],
                               capture_output=True, text=True, check=True).stdout
@@ -1317,7 +1339,8 @@ def kernel_checks(dev):
     dtcdr_checks(dev, g, record)
 
     # ---- B16 and B15: DeepAPF's attention and CoNet's tower (phase 11) ---
-    deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii)
+    deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii,
+                         xs["source_user_id"][0].shape[0])
 
     # ---- the catalog path's data ----------------------------------------
     cconfig = CDRConfig(model="CMF", config_dict=catalog_config(), _cli_args=[])
@@ -2629,9 +2652,9 @@ def conet_products(n_pairs, widths):
     return n_pairs * (2 * prods + 2 * widths[-1])
 
 
-def library_deepapf(share, only, other, mask, w):
-    """B16's library route: the torch chain on cuBLAS, both attention
-    branches in one product."""
+def library_deepapf_chain(share, only, other, mask, w):
+    """B16's logits of gathered rows in torch: the chain on cuBLAS, both
+    attention branches in one product."""
     import torch
 
     from recbole_cdr_tpu_torch.ops.deepapf_attention import MASKED
@@ -2645,15 +2668,51 @@ def library_deepapf(share, only, other, mask, w):
     return ((ent * other) @ w.pl)[:, 0]
 
 
-def library_deepapf_backward(share, only, other, mask, w, g):
+def library_deepapf(tabs, pairs, overlapped, w):
+    """B16's library route: the rows by ``F.embedding`` (the shared table's
+    over both domains' ids at once), then ``library_deepapf_chain``."""
+    import torch
+    import torch.nn.functional as F
+
+    ent = torch.cat([pairs.ent_src, pairs.ent_tgt]).long()
+
+    def two(src, tgt, a, b):
+        return torch.cat([F.embedding(a.long(), src), F.embedding(b.long(), tgt)])
+
+    return library_deepapf_chain(
+        F.embedding(ent, tabs.share),
+        two(tabs.only_src, tabs.only_tgt, pairs.ent_src, pairs.ent_tgt),
+        two(tabs.other_src, tabs.other_tgt, pairs.oth_src, pairs.oth_tgt), ent > overlapped, w)
+
+
+def library_deepapf_backward(tabs, pairs, overlapped, w, g):
+    """The library route's gradients: autograd through ``library_deepapf``
+    into the five tables and the weights."""
     import torch
 
-    from recbole_cdr_tpu_torch.ops.deepapf_attention import Weights
+    from recbole_cdr_tpu_torch.ops.deepapf_attention import Tables, Weights
 
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (share, only, other, *w)]
-        logit = library_deepapf(*leaves[:3], mask, Weights(*leaves[3:]))
+        leaves = [t.detach().requires_grad_() for t in (*tabs, *w)]
+        logit = library_deepapf(Tables(*leaves[:5]), pairs, overlapped, Weights(*leaves[5:]))
         return torch.autograd.grad(logit, leaves, g)
+
+
+def b16_step_bytes(tabs, pairs, esize, backward=False):
+    """Bytes B16's forward (backward) must move at a step: each row the
+    step's ids name read once, the ids, the logits (the logits' gradient),
+    the weights; the backward also writes the five tables' gradients whole
+    and the weights'."""
+    import torch
+
+    D = tabs.share.shape[1]
+    ent = torch.cat([pairs.ent_src, pairs.ent_tgt])
+    named = sum(int(torch.unique(i).numel()) for i in
+                (ent, pairs.ent_src, pairs.ent_tgt, pairs.oth_src, pairs.oth_tgt))
+    P = int(ent.numel())
+    fixed = esize * (D * D + 3 * D)
+    out = 0 if not backward else esize * D * sum(t.shape[0] for t in tabs) + fixed
+    return esize * D * named + 8 * P + esize * P + fixed + out
 
 
 def library_conet(hu, hi, b0, layers, out_layer):
@@ -2681,11 +2740,12 @@ def b15_scale(hu, hi, b0, layers, out_layer, chunk=512):
     return torch.cat(parts, 1)
 
 
-def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
+def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii, n_src):
     """Hold B16 (forward, backward, grid) against its plain version in both
     modes at D 32, 64 and 128, a training step's pairs (``uu``, ``ii``: both
-    domains' 16,384) and a fallback tile, ids at and above the overlapped
-    count among them, two runs bit-equal, and time the main path's (D 64,
+    domains' 16,384, the first ``n_src`` the source domain's) from the five
+    tables and a fallback tile, ids at and above the overlapped count among
+    both domains' pairs, two runs bit-equal, and time the main path's (D 64,
     items as the entity); hold B15 at the published tower and at a
     narrower one for 1, 32 and 2,048 users against every target item, a
     saturating call included, K4's ids on its probabilities where
@@ -2716,33 +2776,36 @@ def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
     for D in B16_WIDTHS:
         w = b16.Weights(rnd(D, D, scale=D ** -0.5), rnd(D, scale=0.1), rnd(D, 1, scale=0.3),
                         rnd(D, 1, scale=0.3))
-        tabs = {s: (rnd(nu, D, scale=0.3), rnd(nu, D, scale=0.3)) for s in ("user",)}
-        tabs["item"] = (rnd(ni, D, scale=0.3), rnd(ni, D, scale=0.3))
+        tables = {"user": [rnd(nu, D, scale=0.3) for _ in range(3)],
+                  "item": [rnd(ni, D, scale=0.3) for _ in range(3)]}
         for side in ("item", "user"):
             other_side = "user" if side == "item" else "item"
             ent, oth = (ii, uu) if side == "item" else (uu, ii)
-            ent = ent.clone()
+            ent = ent.clone()  # the overlapped count and the one above it, in both domains
             ent[:4] = torch.tensor([n_ov[side], n_ov[side] + 1, n_ov[side], 0], device=dev)
-            share_t, only_t = tabs[side]
-            other_t = tabs[other_side][1]
-            share, only, other = share_t[ent.long()], only_t[ent.long()], other_t[oth.long()]
-            mask = ent > n_ov[side]
+            ent[n_src:n_src + 4] = torch.tensor([n_ov[side] + 1, n_ov[side], 0, n_ov[side]],
+                                                device=dev)
+            share_t, only_s, only_t = tables[side]
+            other_t = tables[other_side][2]
+            tabs = b16.Tables(share_t, only_s, only_t, tables[other_side][1], other_t)
+            pairs = b16.Pairs(ent[:n_src], oth[:n_src], ent[n_src:], oth[n_src:])
+            masked = torch.unique(ent[ent > n_ov[side]].long())
+            named = torch.unique(ent[ent <= n_ov[side]].long())
             tag = f"D {D}, {side}s the entity"
-            a = b16.deepapf_forward(share, only, other, mask, w)
-            err_f = close(a, b16.deepapf_forward_plain(share, only, other, mask, w),
-                          B16_TOL["forward"], f"deepapf_forward [{tag}]")
-            assert torch.equal(a, b16.deepapf_forward(share, only, other, mask, w)), \
-                "deepapf_forward differs run to run"
-            ka = b16.deepapf_backward(share, only, other, mask, w, gz)
-            pa = b16.deepapf_backward_plain(share, only, other, mask, w, gz)
+            args = (tabs, pairs, n_ov[side], w)
+            a = b16.deepapf_forward(*args)
+            err_f = close(a, b16.deepapf_forward_plain(*args), B16_TOL["forward"],
+                          f"deepapf_forward [{tag}]")
+            assert torch.equal(a, b16.deepapf_forward(*args)), "deepapf_forward differs run to run"
+            ka = b16.deepapf_backward(*args, gz)
+            pa = b16.deepapf_backward_plain(*args, gz)
             err_b = 0.0
-            for name, x, y in zip(("d_share", "d_only", "d_other", "dW", "db", "dw2", "dpl"),
-                                  ka, pa):
+            for name, x, y in zip(B16_GRADS, ka, pa):
                 err_b = max(err_b, close(x, y, B16_TOL["backward"],
                                          f"deepapf_backward {name} [{tag}]"))
-            assert not bool(ka[0][mask].any()), "a masked share row got a gradient"
-            assert bool(ka[0][~mask].any())
-            again = b16.deepapf_backward(share, only, other, mask, w, gz)
+            assert not bool(ka[0][masked].any()), "a masked entity's share row got a gradient"
+            assert bool(ka[0][named].any())
+            again = b16.deepapf_backward(*args, gz)
             assert all(torch.equal(x, y) for x, y in zip(ka, again)), \
                 "deepapf_backward differs run to run"
             grid_args = (share_t, only_t, other_t, fs_users, grid_items, n_ov[side],
@@ -2752,29 +2815,34 @@ def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
             err_g = close(c, b16.deepapf_grid_plain(*grid_args), B16_TOL["grid"],
                           f"deepapf_grid [{tag}]")
             assert torch.equal(c, b16.deepapf_grid(*grid_args)), "deepapf_grid differs run to run"
-            print(f"  deepapf_attention [{tag}]: P {P}, {int(mask.sum())} masked; max_abs_err "
-                  f"forward {err_f:.3g}, backward {err_b:.3g}, grid {err_g:.3g}", flush=True)
-            if D != 64 or side != "item":
+            print(f"  deepapf_attention [{tag}]: P {P} ({n_src} source), {masked.numel()} masked "
+                  f"entities; max_abs_err forward {err_f:.3g}, backward {err_b:.3g}, grid "
+                  f"{err_g:.3g}", flush=True)
+            if D != 64 or side != "item":  # the main path's 16-bit forms: b16_bf16_checks
+                e16 = check_b16_16(args, gz, masked, BF16, f"[{tag}, {BF16}]")[:2]
+                print(f"  deepapf_attention_bf16 [{tag}]: max_abs_err forward {e16[0]:.3g}, "
+                      f"backward {e16[1]:.3g}", flush=True)
                 continue
-            row_bytes = 3 * P * D * 4
             fixed = 4 * (D * D + 3 * D)
-            record("deepapf_forward",
-                   lambda: b16.deepapf_forward(share, only, other, mask, w),
-                   lambda: b16.deepapf_forward_plain(share, only, other, mask, w),
-                   err_f, row_bytes + P + 4 * P + fixed, deepapf_work(P, D),
-                   library_fn=lambda: library_deepapf(share, only, other, mask, w))
-            record("deepapf_backward",
-                   lambda: b16.deepapf_backward(share, only, other, mask, w, gz),
-                   lambda: b16.deepapf_backward_plain(share, only, other, mask, w, gz),
-                   err_b, 2 * row_bytes + P + 4 * P + 2 * fixed, deepapf_work(P, D, True),
-                   library_fn=lambda: library_deepapf_backward(share, only, other, mask, w, gz))
+            products = deepapf_products(P, D)
+            record("deepapf_forward", lambda: b16.deepapf_forward(*args),
+                   lambda: b16.deepapf_forward_plain(*args), err_f,
+                   b16_step_bytes(tabs, pairs, 4), deepapf_work(P, D) - products,
+                   tf32_ops=TF32_PRODUCTS_PER_SCORE * products,
+                   library_fn=lambda: library_deepapf(*args))
+            products = deepapf_products(P, D, True)
+            record("deepapf_backward", lambda: b16.deepapf_backward(*args, gz),
+                   lambda: b16.deepapf_backward_plain(*args, gz), err_b,
+                   b16_step_bytes(tabs, pairs, 4, True), deepapf_work(P, D, True) - products,
+                   tf32_ops=TF32_PRODUCTS_PER_SCORE * products,
+                   library_fn=lambda: library_deepapf_backward(*args, gz))
             B = fs_users.shape[0]
 
             def library_grid():
                 e, o = b16.grid_pairs(fs_users, grid_items, True)
                 e, o = e.long(), o.long()
-                return torch.sigmoid(library_deepapf(share_t[e], only_t[e], other_t[o],
-                                                     e > n_ov[side], w)).reshape(B, -1)
+                return torch.sigmoid(library_deepapf_chain(share_t[e], only_t[e], other_t[o],
+                                                           e > n_ov[side], w)).reshape(B, -1)
 
             n_pairs = B * n_target
             grid_bytes = 3 * (B + n_target) * D * 4 + 4 * n_pairs + fixed
@@ -2784,12 +2852,12 @@ def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
                    tf32_ops=TF32_PRODUCTS_PER_SCORE * deepapf_products(n_pairs, D),
                    library_fn=library_grid, reps=20)
             # beside the 3xTF32 bound (the kernel's products): all of it on
-            # the CUDA cores, the form of the earlier pair kernels
+            # the CUDA cores, the form of the parent's pair kernels
             cuda_core_ms = bound(grid_bytes, deepapf_work(n_pairs, D) + 3 * n_pairs)[0]
             print(f"  deepapf_grid: tiles of {min(8, B)} users x 16 items; bound on the CUDA "
                   f"cores {cuda_core_ms:.4f} ms", flush=True)
-            b16_bf16_checks(record, (share, only, other), mask, w, gz, grid_args)
-        del tabs
+            b16_bf16_checks(record, args, gz, grid_args, masked)
+        del tables
 
     # ---- B15: the target tower of CoNet over every target item -----------
     ev = FullSortEvaluator(config)
@@ -2857,51 +2925,67 @@ def deepapf_conet_checks(dev, g, record, dataset, valid_data, config, uu, ii):
         del hi_all
 
 
-def b16_bf16_checks(record, rows, mask, w, gz, grid_args):
-    """B16-bf16's forward, backward and grid on the main path's operands of
-    phase 2's float32 checks (a training step's pairs at D 64, the items the
-    entity, and a fallback tile, its tables scaled by ``GRID16_SCALE``),
-    rounded to bfloat16 (the records) and to float16 (their ``shapes``),
-    against their plain versions (forward and backward ``B16_BF16_TOL``, the
-    grid's probabilities ``close_prob16`` with the float32 grid rounded only
-    at its output a control that must fail), the masked share rows' gradient
-    exactly 0, reruns bit-equal, and timed: bounds the float32 forms' work
-    on 2-byte operands, the products at the 16-bit tensor rate; library
-    routes the torch chains in 16 bits."""
+def check_b16_16(args, gz, masked, dt_name, tag):
+    """B16's 16-bit forward and backward on ``args``' float32 operands
+    rounded to ``dt_name`` against their plain versions (``B16_BF16_TOL``),
+    the ``masked`` entities' share rows exactly 0, reruns bit-equal.
+    Returns (the forward's and the backward's errors, the 16-bit operands,
+    the 16-bit gradient)."""
     import torch
 
     from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
 
-    P, D = rows[0].shape
+    tabs, pairs, overlapped, w = args
+    dt = getattr(torch, dt_name)
+    args16 = (b16.Tables(*(t.to(dt) for t in tabs)), pairs, overlapped,
+              b16.Weights(*(t.to(dt) for t in w)))
+    g16 = gz.to(dt)
+    a = b16.deepapf_forward(*args16)
+    err_f = close16(a, b16.deepapf_forward_plain(*args16), f"deepapf_forward_bf16 {tag}",
+                    dt_name, B16_BF16_TOL)
+    assert torch.equal(a, b16.deepapf_forward(*args16)), "deepapf_forward_bf16 differs run to run"
+    ka = b16.deepapf_backward(*args16, g16)
+    pa = b16.deepapf_backward_plain(*args16, g16)
+    err_b = max(close16(x, y, f"deepapf_backward_bf16 {name} {tag}", dt_name, B16_BF16_TOL)
+                for name, x, y in zip(B16_GRADS, ka, pa))
+    assert not bool(ka[0][masked].any()) and bool(ka[0].any())
+    assert all(torch.equal(x, y) for x, y in zip(ka, b16.deepapf_backward(*args16, g16))), \
+        "deepapf_backward_bf16 differs run to run"
+    return err_f, err_b, args16, g16
+
+
+def b16_bf16_checks(record, args, gz, grid_args, masked):
+    """B16-bf16's forward, backward and grid on the main path's operands of
+    phase 2's float32 checks (a training step's pairs at D 64 from the five
+    tables, the items the entity, and a fallback tile, its tables scaled by
+    ``GRID16_SCALE``), rounded to bfloat16 (the records) and to float16
+    (their ``shapes``), against their plain versions (forward and backward
+    ``B16_BF16_TOL``, the grid's probabilities ``close_prob16`` with the
+    float32 grid rounded only at its output a control that must fail), the
+    ``masked`` entities' share rows exactly 0, reruns bit-equal, and timed:
+    bounds the float32 forms' bytes on 2-byte operands, the products at the
+    16-bit tensor rate; library routes the torch chains in 16 bits."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
+
+    tabs, pairs, _, w = args
+    D = tabs.share.shape[1]
+    P = pairs.ent_src.shape[0] + pairs.ent_tgt.shape[0]
     fixed = 2 * (D * D + 3 * D)
     share_t, only_t, other_t, users, items, n_ov, entity_is_item, _ = grid_args
     B, I = users.shape[0], items.shape[0]
     for dt_name in (BF16, "float16"):
         dt = getattr(torch, dt_name)
-        share, only, other = (t.to(dt) for t in rows)
-        w16, g16 = b16.Weights(*(t.to(dt) for t in w)), gz.to(dt)
         tag = f"[D {D}, items the entity, {dt_name}]"
-        a = b16.deepapf_forward(share, only, other, mask, w16)
-        err_f = close16(a, b16.deepapf_forward_plain(share, only, other, mask, w16),
-                        f"deepapf_forward_bf16 {tag}", dt_name, B16_BF16_TOL)
-        assert torch.equal(a, b16.deepapf_forward(share, only, other, mask, w16)), \
-            "deepapf_forward_bf16 differs run to run"
-        ka = b16.deepapf_backward(share, only, other, mask, w16, g16)
-        pa = b16.deepapf_backward_plain(share, only, other, mask, w16, g16)
-        err_b = max(close16(x, y, f"deepapf_backward_bf16 {name} {tag}", dt_name,
-                            B16_BF16_TOL)
-                    for name, x, y in zip(("d_share", "d_only", "d_other", "dW", "db", "dw2",
-                                           "dpl"), ka, pa))
-        assert not bool(ka[0][mask].any()) and bool(ka[0][~mask].any())
-        assert all(torch.equal(x, y) for x, y in
-                   zip(ka, b16.deepapf_backward(share, only, other, mask, w16, g16))), \
-            "deepapf_backward_bf16 differs run to run"
-        tabs = [(GRID16_SCALE * t).to(dt) for t in (share_t, only_t, other_t)]
-        gargs = (*tabs, users, items, n_ov, entity_is_item, w16)
+        err_f, err_b, args16, g16 = check_b16_16(args, gz, masked, dt_name, tag)
+        tabs16, w16 = args16[0], args16[3]
+        grid_tabs = [(GRID16_SCALE * t).to(dt) for t in (share_t, only_t, other_t)]
+        gargs = (*grid_tabs, users, items, n_ov, entity_is_item, w16)
         c = b16.deepapf_grid(*gargs)
         want = b16.deepapf_grid_plain(*gargs)
-        wide = b16.deepapf_grid(*(t.float() for t in tabs), users, items, n_ov, entity_is_item,
-                                b16.Weights(*(t.float() for t in w16)))
+        wide = b16.deepapf_grid(*(t.float() for t in grid_tabs), users, items, n_ov,
+                                entity_is_item, b16.Weights(*(t.float() for t in w16)))
         err_g = close_prob16(c, want, f"deepapf_grid_bf16 {tag}",
                              {"constant 0.5": torch.full_like(want, 0.5),
                               "float32 grid rounded at its output": wide})
@@ -2909,28 +2993,24 @@ def b16_bf16_checks(record, rows, mask, w, gz, grid_args):
         print(f"  deepapf_attention_bf16 {tag}: max_abs_err forward {err_f:.3g}, backward "
               f"{err_b:.3g}, grid {err_g:.3g}", flush=True)
         shape = None if dt_name == BF16 else dt_name
-        row_bytes = 3 * P * D * 2
 
         def library_grid():
             e, o = b16.grid_pairs(users, items, entity_is_item)
             e, o = e.long(), o.long()
-            return torch.sigmoid(library_deepapf(gargs[0][e], gargs[1][e], gargs[2][o],
-                                                 e > n_ov, w16)).reshape(B, -1)
+            return torch.sigmoid(library_deepapf_chain(gargs[0][e], gargs[1][e], gargs[2][o],
+                                                       e > n_ov, w16)).reshape(B, -1)
 
-        record("deepapf_forward_bf16",
-               lambda: b16.deepapf_forward(share, only, other, mask, w16),
-               lambda: b16.deepapf_forward_plain(share, only, other, mask, w16),
-               err_f, row_bytes + P + 2 * P + fixed,
-               deepapf_work(P, D) - deepapf_products(P, D), bf16_ops=deepapf_products(P, D),
-               library_fn=lambda: library_deepapf(share, only, other, mask, w16), shape=shape)
-        record("deepapf_backward_bf16",
-               lambda: b16.deepapf_backward(share, only, other, mask, w16, g16),
-               lambda: b16.deepapf_backward_plain(share, only, other, mask, w16, g16),
-               err_b, 2 * row_bytes + P + 2 * P + 2 * fixed,
+        record("deepapf_forward_bf16", lambda: b16.deepapf_forward(*args16),
+               lambda: b16.deepapf_forward_plain(*args16), err_f,
+               b16_step_bytes(tabs16, pairs, 2), deepapf_work(P, D) - deepapf_products(P, D),
+               bf16_ops=deepapf_products(P, D),
+               library_fn=lambda: library_deepapf(*args16), shape=shape)
+        record("deepapf_backward_bf16", lambda: b16.deepapf_backward(*args16, g16),
+               lambda: b16.deepapf_backward_plain(*args16, g16), err_b,
+               b16_step_bytes(tabs16, pairs, 2, True),
                deepapf_work(P, D, True) - deepapf_products(P, D, True),
                bf16_ops=deepapf_products(P, D, True),
-               library_fn=lambda: library_deepapf_backward(share, only, other, mask, w16, g16),
-               shape=shape)
+               library_fn=lambda: library_deepapf_backward(*args16, g16), shape=shape)
         record("deepapf_grid_bf16", lambda: b16.deepapf_grid(*gargs),
                lambda: b16.deepapf_grid_plain(*gargs), err_g,
                3 * (B + I) * D * 2 + 2 * B * I + fixed,
@@ -4593,7 +4673,8 @@ def conet_pass_allocs(model, hist, before):
 def check_phase11_run(name, result, hist, c, before):
     """Phase 11's checks of one run: BOTH epochs each validated with a
     falling loss; B16 once forward and once backward per step (both
-    domains' pairs in one call) and its grid once per fallback tile; B15 and
+    domains' pairs in one call), the plan of the backward's keys once per
+    step, and its grid once per fallback tile; B15 and
     K4 once per dense tile; K2 and K3 twice per epoch (a stream per domain);
     for CoNet, what each validation pass allocates beyond what the run
     holds at its start (``before``: the run's peak so far and its
@@ -4617,7 +4698,8 @@ def check_phase11_run(name, result, hist, c, before):
         tiles = sum(dense_tiles(u, n_target) for u in users)
     want = {"masked_topk": tiles, "neg_sampler": 2 * E, "swap_or_not": 2 * E}
     if name == "deepapf":
-        want.update(deepapf_forward=steps, deepapf_backward=steps, deepapf_grid=tiles)
+        want.update(deepapf_forward=steps, deepapf_backward=steps, group_rows=steps,
+                    deepapf_grid=tiles)
     if name == "conet":
         want.update(conet_tower=tiles)
     print(f"{steps} training steps, {len(users)} evaluation passes of {tiles} tiles; launches "

@@ -17,32 +17,61 @@
 // masked share logit gets exactly zero gradient (al_s is 0 and its gradient
 // is set to 0, as jnp.where gives it).
 //
-// Bound on an H100: operations. A pair costs two D x D matrix-vector
-// products (4 D^2 flops) plus O(D): at D = 64 about 17.3 k flops, so a
-// training step's 16,384 pairs are ~0.28 GFLOP (4.2 us at 67 TFLOP/s on
-// the CUDA cores) against ~13 MB of rows (3.9 us at 3.35 TB/s). A [32,
-// 4,980] grid tile of the predict fallback holds 2.61 GFLOP of products:
-// 3 x 2.61 over the TF32 tensor rate (495 TFLOP/s) is 16 us in float32 (39
-// us on the CUDA cores), 2.6 us at the bf16 rate of 989 TFLOP/s. The
-// attention input depends on both sides of the pair, so nothing is shared
-// between pairs: unlike NATR (B9) there is no anchor split.
+// A training call's pairs are both domains' at once, the source pairs
+// first: pair q < n_src reads the entity's row of the shared table and of
+// the source domain's entity table, and the other side's row of the source
+// domain's other table, by the ids of the source pairs; the later pairs the
+// target domain's tables (struct Pairs). The rows are read from the tables
+// by id; no gathered [P, D] row set exists.
 //
-// Forward and backward of gathered pairs: persistent blocks of 256 threads
-// keep W (and, in the backward, its transpose) in shared memory for the
-// whole launch and take tiles of TP pairs (2048 / D: 32 at D = 64). A tile
-// stages its pairs' e, o, t rows and the 2 TP rows of x (x_s rows, then x_o
-// rows) in shared memory with 16-byte loads; the product x @ W runs with a
-// 4 x 4 register tile per thread on the CUDA cores; each row's a reduces
-// over the threads of its columns with shuffles. The pair stage gives each
-// pair G = 256 / TP threads and each thread 8 columns. The backward
-// recomputes the forward (nothing of it is kept), then: the pair stage's
-// chain rule into d(a_s) = al_s al_o (d al_s - d al_o) (and -d(a_s) for
-// a_o), dZ = relu'(z) d(a) w2 in shared memory, dW += x^T dZ in registers
-// (D^2 / 256 entries per thread), dx = dZ @ W^T with the same register
-// tile on the staged transpose, and the rows' gradients d e, d o, d t. The
-// weight gradients are sums over every pair: each block keeps its partial
-// sums in registers over its tiles, writes them once, and a second launch
-// adds the blocks' partials in block order.
+// Bound on an H100: a training step's 16,384 pairs at D = 64 read 12.6 MB of
+// rows (3.8 us at 3.35 TB/s); their two D x D products are 0.27 GFLOP, 1.6
+// us in 3xTF32 at 495 TFLOP/s (4.0 us on the CUDA cores). The backward adds
+// the five tables' gradients, written whole (about 30 MB at phase 11's
+// tables), and the products twice more.
+//
+// Forward (forward_kernel): persistent blocks keep W's MMA fragments in
+// shared memory for the whole launch; each warp takes units of 8 MT pairs
+// (the grid's unit: MT = 2 in float32 up to D = 64, else 1), each unit's e,
+// o, t rows staged by cp.async into the warp's own buffer, the next unit's
+// while the current one computes (one buffer where two do not fit: float32
+// at D = 128). The products and the epilogue are the grid's (below): x_s of
+// pair g in row g of an mma.sync tile, x_o in row g + 8, 3xTF32 m16n8k8 in
+// float32, m16n8k16 on the 16-bit values; no block barrier after W.
+//
+// Backward, two launches around the plan of the step's ids:
+// (1) backward_kernel: persistent blocks keep W's fragments for z = x W
+// and for dx = dZ W^T in shared memory (float32 words: every product of the
+// backward runs in TF32 with the split terms, 3xTF32 in float32; 16-bit
+// values are exact in TF32, so their low parts are left out) and take
+// tiles of 8 pairs a warp (64 pairs, 32 where shared memory holds only
+// half), staged by cp.async, the next tile's while one computes. A warp
+// recomputes its pairs' z from the staged rows as the forward does, then in
+// the accumulator fragments the chain rule into d(a_s) = al_s al_o (d al_s
+// - d al_o) (and -d(a_s) for a_o), dZ = relu'(z) d(a) w2, and dx = dZ W^T
+// with dZ's fragments as the A operand (W^T's k order permuted to match);
+// each pair's three row gradients d e, d o, d t go in float32 to a [3, P,
+// D] scratch, its keyed ids to keys (the entity's id + N for a target pair:
+// keys over [source | target] rows of the entity side, N its tables' rows;
+// the other side's id + M the same way). dZ goes to shared memory, and
+// every warp adds its tiles of dW += x^T dZ over the tile's rows; db, dw2
+// and dpl are summed in registers; each block writes its partial sums once.
+// (ops/row_groups.py::group_rows then groups both key sets in one launch.)
+// (2) tables_kernel: the first blocks add the weight partials in block
+// order; the others write the five tables' gradients, every row once, each
+// row's terms from the scratch summed in float32 in position order from
+// the plan and rounded once to the operands' type: the source domain's
+// entity table row r reads key r's positions, the target's key N + r's,
+// the shared table's both (key r's, then key N + r's: position order, the
+// source pairs being first), and the other tables the same over M; a row
+// no pair names is written 0. A row of at most kBigTerms terms is summed by
+// a row group of a warp in order (add_terms); a longer one by a block, in
+// segments of kSegTerms terms summed in order at once, then the segments'
+// sums in order (a popular item's row holds hundreds of terms). No float
+// atomic: every result is bit-reproducible from run to run. Measured on an
+// H100 (PERF.md, probe_deepapf_pairs.py): the tables kernel is the
+// backward's largest launch, its heads' chains of dependent loads and its
+// zero rows' stores adding up rather than overlapping.
 //
 // The grid (grid_kernel), the predict fallback's [B, I] tile from the
 // tables and the ids: persistent blocks keep W's MMA fragments in shared
@@ -50,12 +79,11 @@
 // bi = 16 items (8 in 16 bits when I <= 8; grid() picks them). A
 // tile stages each of its users' rows and each of its items' rows once
 // (cp.async, 16 bytes a copy; a block's first tile while it stages W): 8 +
-// 32 rows serve 128 pairs, where a tile of the pair kernels loaded three
-// rows per pair. A warp takes 8 pairs (8 items of one user) as the 16 rows
-// of an mma.sync tile, x_s of pair g in row g and x_o in row g + 8, and
-// forms x = e * t and o * t straight into its A fragments from the staged
-// rows (in 16 bits one rounding each, as before); W's B fragments are
-// stored in the order the lanes read them (one 8-byte load each), and b
+// 32 rows serve 128 pairs. A warp takes 8 pairs (8 items of one user) as the
+// 16 rows of an mma.sync tile, x_s of pair g in row g and x_o in row g + 8,
+// and forms x = e * t and o * t straight into its A fragments from the
+// staged rows (in 16 bits one rounding each, as before); W's B fragments
+// are stored in the order the lanes read them (one 8-byte load each), and b
 // seeds the accumulators. float32: 3xTF32 m16n8k8 (hi * lo, lo * hi, hi *
 // hi, as B5), float32 accuracy, a warp taking two such tiles at once so
 // that they share each B fragment's load and split; 16 bits: m16n8k16 on
@@ -71,24 +99,23 @@
 // fallback tile), so wgmma is its next step; the 16-bit grid by the
 // per-tile staging and the epilogue.
 //
-// No atomics: every result is bit-reproducible from run to run.
-//
 // B16-bf16, the 16-bit form (DeepAPF under compute_dtype: bfloat16; float16
-// through the same templates): every operand and output is 16-bit (the rows
-// or tables, the weights, the logits' gradient; the logits, the grid's
-// probabilities, every gradient). The pair kernels widen values exactly as
-// they stage them (their shared memory is float32); the grid stages the
-// 16-bit rows and W as they are and feeds them to the tensor cores. Each dot
-// and each sum accumulates in float32 and is rounded to the 16-bit type where
-// JAX's bf16 _forward has a named intermediate: x_s and x_o, x @ W + b, the
-// a's, alpha after the softmax, entity_e, the logit, and the grid's sigmoid.
-// The masked share logit stays the float32 kMasked: under float16 JAX's
-// -1e31 is -inf, and both give alpha_s = 0 exactly and no NaN. The backward
-// is the float32 chain rule on those rounded values (a rounding passes its
-// gradient through unchanged; the softmax's slope at its unrounded value),
-// each gradient rounded once to the operands' type: the rows' as they are
-// written, the weights' after the block-order sum. The float32 form is the
-// same template with every rounding the identity.
+// through the same templates): every operand and output is 16-bit (the
+// tables, the weights, the logits' gradient; the logits, the grid's
+// probabilities, every gradient). Every kernel stages the 16-bit rows as
+// they are; the forward and the grid feed them and W to the tensor cores
+// as they are, the backward widened to TF32, where they are exact. Each
+// dot and each sum accumulates in float32 and is rounded to the 16-bit type
+// where JAX's bf16 _forward has a named intermediate: x_s and x_o, x @ W +
+// b, the a's, alpha after the softmax, entity_e, the logit, and the grid's
+// sigmoid. The masked share logit stays the float32
+// kMasked: under float16 JAX's -1e31 is -inf, and both give alpha_s = 0
+// exactly and no NaN. The backward is the float32 chain rule on those
+// rounded values (a rounding passes its gradient through unchanged; the
+// softmax's slope at its unrounded value), each gradient rounded once to
+// the operands' type: a table row after its float32 sum, the weights' after
+// the block-order sum. The float32 form is the same template with every
+// rounding the identity.
 
 #include <cmath>
 #include <cuda_runtime.h>
@@ -97,432 +124,304 @@
 #include <type_traits>
 
 #include "float16.cuh"
+#include "row_groups.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSmem = 232448;
 constexpr float kMasked = -1e31f;
 
-template <typename T>
-__device__ __forceinline__ float4 rnd4(float4 v) {
-  return make_float4(rnd<T>(v.x), rnd<T>(v.y), rnd<T>(v.z), rnd<T>(v.w));
-}
+// the weight gradients [dW | db | dw2 | dpl], D D + 3 D values
+__host__ __device__ constexpr int npart(int D) { return D * D + 3 * D; }
 
-template <int D>
-struct Shape {
-  static constexpr int C4 = D / 4;             // column groups of 4
-  static constexpr int RT = kThreads / C4;     // row threads of a product
-  static constexpr int ROWS = 4 * RT;          // rows of x in a tile: two per pair
-  static constexpr int TP = ROWS / 2;          // pairs of a tile
-  static constexpr int G = kThreads / TP;      // threads of a pair in its pair stage
-  static constexpr int V = D / G;              // columns of such a thread
-  static constexpr int PS = D + G;             // row stride of the pair rows
-  static constexpr int XS = D + 4;             // row stride of x and dZ
-  static constexpr int RK = D / RT;            // rows of dW per thread
-  static constexpr int NPART = D * D + 3 * D;  // dW | db | dw2 | dpl
-  static_assert(V == 8 && ROWS % 2 == 0, "the tiling assumes 8 columns a pair thread");
-};
-
-template <int D>
-__host__ __device__ constexpr size_t smem_floats(bool backward) {
-  using S = Shape<D>;
-  return (size_t)D * D * (backward ? 2 : 1) + 3 * (size_t)S::TP * S::PS +
-         (size_t)S::ROWS * S::XS * (backward ? 2 : 1) + 3 * D + 2 * S::ROWS + 3 * S::TP;
-}
-
-template <int D>
-size_t smem_bytes(bool backward) {
-  return 4 * smem_floats<D>(backward) + 4 * 3 * (size_t)Shape<D>::TP;
-}
-
-struct Smem {
-  float* W;      // [D, D]
-  float* WT;     // [D, D] its transpose (backward)
-  float* E;      // [TP, PS] shared rows
-  float* O;      // [TP, PS] domain-only rows
-  float* T;      // [TP, PS] the other side's rows
-  float* X;      // [ROWS, XS] x_s rows, then x_o rows; later dx
-  float* dZ;     // [ROWS, XS] (backward)
-  float* b;      // [D]
-  float* w2;     // [D]
-  float* pl;     // [D]
-  float* a;      // [ROWS] attention logits
-  float* da;     // [ROWS] their gradients (backward)
-  float* al;     // [2 TP] al_s, then al_o, rounded to the operands' type
-  float* g;      // [TP] the logits' gradients (backward)
-  int* msk;      // [TP] the share logit is masked
-  int* ent;      // [TP] entity row, -1 past the last pair
-  int* oth;      // [TP] other row
-};
-
-template <int D>
-__device__ Smem carve(unsigned char* base, bool backward) {
-  using S = Shape<D>;
-  Smem m;
-  float* f = reinterpret_cast<float*>(base);
-  m.W = f;   f += D * D;
-  m.WT = f;  f += backward ? D * D : 0;
-  m.E = f;   f += S::TP * S::PS;
-  m.O = f;   f += S::TP * S::PS;
-  m.T = f;   f += S::TP * S::PS;
-  m.X = f;   f += S::ROWS * S::XS;
-  m.dZ = f;  f += backward ? S::ROWS * S::XS : 0;
-  m.b = f;   f += D;
-  m.w2 = f;  f += D;
-  m.pl = f;  f += D;
-  m.a = f;   f += S::ROWS;
-  m.da = f;  f += S::ROWS;
-  m.al = f;  f += 2 * S::TP;
-  m.g = f;   f += S::TP;
-  m.msk = reinterpret_cast<int*>(f);
-  m.ent = m.msk + S::TP;
-  m.oth = m.ent + S::TP;
-  return m;
-}
-
-// a launch's gathered pairs: pair q is row q of share, only, other
+// A call's pairs, the source domain's first: pair q < n_src is source pair
+// q, a later one target pair q - n_src. The entity side's tables have N
+// rows (its shared table and each domain's own), the other side's M.
 template <typename T>
 struct Pairs {
-  const T* share;
-  const T* only;
-  const T* other;
-  const uint8_t* mask;  // the share logit is masked
-  long long n;          // pairs
+  const T* share;    // [N, D] the entity side's shared table
+  const T* only_s;   // [N, D] the source domain's entity table
+  const T* only_t;   // [N, D] the target domain's
+  const T* other_s;  // [M, D] the source domain's other-side table
+  const T* other_t;  // [M, D] the target domain's
+  const int* ent_s;  // [n_src] the source pairs' entity ids
+  const int* oth_s;  // [n_src] their other ids
+  const int* ent_t;  // [n - n_src] the target pairs'
+  const int* oth_t;
+  int n_src, n;
+  int N, M;
+  int overlapped;    // the share logit is masked where the entity id exceeds it
 };
 
-__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
-  return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y), __fmul_rn(a.z, b.z),
-                     __fmul_rn(a.w, b.w));
-}
-
-template <int W>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int off = W / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <int D, typename T>
-__device__ void stage_weights(const T* __restrict__ W, const T* __restrict__ b,
-                              const T* __restrict__ w2, const T* __restrict__ pl,
-                              bool transpose, Smem& m) {
-  for (int i = threadIdx.x; i < D * D; i += kThreads) {
-    const float w = ld1(W + i);
-    m.W[i] = w;
-    if (transpose) m.WT[(i % D) * D + i / D] = w;
-  }
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    m.b[d] = ld1(b + d);
-    m.w2[d] = ld1(w2 + d);
-    m.pl[d] = ld1(pl + d);
-  }
-}
-
-// The tile of pairs [q0, q0 + TP): their rows, x (rounded to T), masks (and
-// the logits' gradients). Ends synchronised.
-template <int D, typename T>
-__device__ void load_tile(const Pairs<T>& pr, long long q0, const T* __restrict__ g, Smem& m) {
-  using S = Shape<D>;
-  const int tid = threadIdx.x;
-  for (int j = tid; j < S::TP; j += kThreads) {
-    const long long q = q0 + j;
-    const bool ok = q < pr.n;
-    int ent = -1, oth = 0, masked = 0;
-    if (ok) {
-      ent = oth = (int)q;
-      masked = __ldg(pr.mask + q) != 0;
-    }
-    m.ent[j] = ent;
-    m.oth[j] = oth;
-    m.msk[j] = masked;
-    if (g != nullptr) m.g[j] = ok ? ld1(g + q) : 0.f;
-  }
-  __syncthreads();
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int e = tid; e < S::TP * S::C4; e += kThreads) {
-    const int j = e / S::C4, d = 4 * (e % S::C4);
-    const int ent = m.ent[j];
-    float4 ev = zero, ov = zero, tv = zero;
-    if (ent >= 0) {
-      const long long er = (long long)ent * D + d, orow = (long long)m.oth[j] * D + d;
-      ev = ld4(pr.share + er);
-      ov = ld4(pr.only + er);
-      tv = ld4(pr.other + orow);
-    }
-    *reinterpret_cast<float4*>(m.E + j * S::PS + d) = ev;
-    *reinterpret_cast<float4*>(m.O + j * S::PS + d) = ov;
-    *reinterpret_cast<float4*>(m.T + j * S::PS + d) = tv;
-    *reinterpret_cast<float4*>(m.X + j * S::XS + d) = rnd4<T>(mul4(ev, tv));
-    *reinterpret_cast<float4*>(m.X + (S::TP + j) * S::XS + d) = rnd4<T>(mul4(ov, tv));
-  }
-  __syncthreads();
-}
-
-// acc = in @ Wm for rows ty + RT r (r < 4) and columns 4 tx .. 4 tx + 3 of
-// the [ROWS, XS] rows `in` and the [D, D] matrix `Wm`
-template <int D>
-__device__ __forceinline__ void product(const float* __restrict__ in, const float* __restrict__ Wm,
-                                        float acc[4][4]) {
-  using S = Shape<D>;
-  const int tx = threadIdx.x % S::C4, ty = threadIdx.x / S::C4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  const float* x0 = in + ty * S::XS;
-#pragma unroll 4
-  for (int k = 0; k < D; ++k) {
-    const float4 w = *reinterpret_cast<const float4*>(Wm + k * D + 4 * tx);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float x = x0[r * S::RT * S::XS + k];
-      acc[r][0] = fmaf(x, w.x, acc[r][0]);
-      acc[r][1] = fmaf(x, w.y, acc[r][1]);
-      acc[r][2] = fmaf(x, w.z, acc[r][2]);
-      acc[r][3] = fmaf(x, w.w, acc[r][3]);
-    }
-  }
-}
-
-// z = x @ W + b into acc (kept for the backward) and a = relu(z) . w2 of
-// every row into m.a, each rounded to T. Ends synchronised.
-template <int D, typename T>
-__device__ void attention_logits(Smem& m, float z[4][4]) {
-  using S = Shape<D>;
-  const int tx = threadIdx.x % S::C4, ty = threadIdx.x / S::C4;
-  product<D>(m.X, m.W, z);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      z[r][c] = rnd<T>(__fadd_rn(z[r][c], m.b[4 * tx + c]));
-      part = fmaf(fmaxf(z[r][c], 0.f), m.w2[4 * tx + c], part);
-    }
-    part = group_sum<S::C4>(part);
-    if (tx == 0) m.a[ty + S::RT * r] = rnd<T>(part);
-  }
-  __syncthreads();
-}
-
-// the softmax of pair j: (al_s, al_o), unrounded
-template <int D>
-__device__ __forceinline__ void softmax2(const Smem& m, int j, float& als, float& alo) {
-  using S = Shape<D>;
-  const float as = m.msk[j] ? kMasked : m.a[j];
-  const float ao = m.a[S::TP + j];
-  const float mx = fmaxf(as, ao);
-  const float es = expf(__fsub_rn(as, mx)), eo = expf(__fsub_rn(ao, mx));
-  const float sum = __fadd_rn(es, eo);
-  als = __fdiv_rn(es, sum);
-  alo = __fdiv_rn(eo, sum);
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-forward_kernel(Pairs<T> pr, const T* __restrict__ W, const T* __restrict__ b,
-               const T* __restrict__ w2, const T* __restrict__ pl, T* __restrict__ out) {
-  using S = Shape<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Smem m = carve<D>(smem, false);
-  stage_weights<D>(W, b, w2, pl, false, m);
-  const int j = threadIdx.x / S::G, l = threadIdx.x % S::G;
-  const long long tiles = (pr.n + S::TP - 1) / S::TP;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long q0 = t * S::TP;
-    load_tile<D>(pr, q0, (const T*)nullptr, m);
-    float z[4][4];
-    attention_logits<D, T>(m, z);
-    float als, alo;
-    softmax2<D>(m, j, als, alo);
-    als = rnd<T>(als);
-    alo = rnd<T>(alo);
-    float acc = 0.f;
-#pragma unroll
-    for (int v = 0; v < S::V; ++v) {
-      const int d = l + S::G * v;
-      const float ent = rnd<T>(__fadd_rn(__fmul_rn(als, m.E[j * S::PS + d]),
-                                         __fmul_rn(alo, m.O[j * S::PS + d])));
-      acc = fmaf(__fmul_rn(ent, m.T[j * S::PS + d]), m.pl[d], acc);
-    }
-    acc = rnd<T>(group_sum<S::G>(acc));
-    if (l == 0 && q0 + j < pr.n) st1(out + q0 + j, acc);
-    __syncthreads();
-  }
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-backward_kernel(Pairs<T> pr, const T* __restrict__ W, const T* __restrict__ b,
-                const T* __restrict__ w2, const T* __restrict__ pl, const T* __restrict__ g,
-                T* __restrict__ d_share, T* __restrict__ d_only, T* __restrict__ d_other,
-                float* __restrict__ partial) {
-  using S = Shape<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Smem m = carve<D>(smem, true);
-  stage_weights<D>(W, b, w2, pl, true, m);
-  const int tid = threadIdx.x;
-  const int tx = tid % S::C4, ty = tid / S::C4;  // product tiles
-  const int j = tid / S::G, l = tid % S::G;      // pair stage
-
-  float acc_w[S::RK][4];
-#pragma unroll
-  for (int r = 0; r < S::RK; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_w[r][c] = 0.f;
-  float acc_b[4] = {0.f, 0.f, 0.f, 0.f}, acc_w2[4] = {0.f, 0.f, 0.f, 0.f};
-  float acc_pl[S::V];
-#pragma unroll
-  for (int v = 0; v < S::V; ++v) acc_pl[v] = 0.f;
-
-  const long long tiles = (pr.n + S::TP - 1) / S::TP;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long q0 = t * S::TP;
-    load_tile<D>(pr, q0, g, m);
-    float z[4][4];
-    attention_logits<D, T>(m, z);
-
-    // the pair stage's chain rule: d(al) from d(ent) = g t pl, then the
-    // softmax's d(a_s) = al_s al_o (d al_s - d al_o), d(a_o) = -d(a_s), its
-    // slope at the unrounded al; the rounded al stay for the rows' gradients
-    {
-      float als, alo;
-      softmax2<D>(m, j, als, alo);
-      const float gj = m.g[j];
-      float ds = 0.f, dov = 0.f;
-#pragma unroll
-      for (int v = 0; v < S::V; ++v) {
-        const int d = l + S::G * v;
-        const float dent = __fmul_rn(__fmul_rn(gj, m.T[j * S::PS + d]), m.pl[d]);
-        ds = fmaf(dent, m.E[j * S::PS + d], ds);
-        dov = fmaf(dent, m.O[j * S::PS + d], dov);
-      }
-      ds = group_sum<S::G>(ds);
-      dov = group_sum<S::G>(dov);
-      if (l == 0) {
-        const float das =
-            m.msk[j] ? 0.f : __fmul_rn(__fmul_rn(als, alo), __fsub_rn(ds, dov));
-        m.da[j] = das;
-        m.da[S::TP + j] = -das;
-        m.al[j] = rnd<T>(als);
-        m.al[S::TP + j] = rnd<T>(alo);
-      }
-    }
-    __syncthreads();
-
-    // dZ = relu'(z) d(a) w2; the block's sums of d(w2) and d(b)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = ty + S::RT * r;
-      const float dar = m.da[row];
-      float dz[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float w = m.w2[4 * tx + c];
-        dz[c] = z[r][c] > 0.f ? __fmul_rn(dar, w) : 0.f;
-        acc_w2[c] = fmaf(dar, fmaxf(z[r][c], 0.f), acc_w2[c]);
-        acc_b[c] = __fadd_rn(acc_b[c], dz[c]);
-      }
-      *reinterpret_cast<float4*>(m.dZ + row * S::XS + 4 * tx) =
-          make_float4(dz[0], dz[1], dz[2], dz[3]);
-    }
-    __syncthreads();
-
-    // dW += x^T dZ: rows ty + RT r of dW, columns 4 tx .. 4 tx + 3
-    for (int row = 0; row < S::ROWS; ++row) {
-      const float4 dz = *reinterpret_cast<const float4*>(m.dZ + row * S::XS + 4 * tx);
-      const float* x = m.X + row * S::XS + ty;
-#pragma unroll
-      for (int r = 0; r < S::RK; ++r) {
-        const float xv = x[S::RT * r];
-        acc_w[r][0] = fmaf(xv, dz.x, acc_w[r][0]);
-        acc_w[r][1] = fmaf(xv, dz.y, acc_w[r][1]);
-        acc_w[r][2] = fmaf(xv, dz.z, acc_w[r][2]);
-        acc_w[r][3] = fmaf(xv, dz.w, acc_w[r][3]);
-      }
-    }
-    // dx = dZ @ W^T, then into X's place once every thread is done reading x
-    float dx[4][4];
-    product<D>(m.dZ, m.WT, dx);
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      *reinterpret_cast<float4*>(m.X + (ty + S::RT * r) * S::XS + 4 * tx) =
-          make_float4(dx[r][0], dx[r][1], dx[r][2], dx[r][3]);
-    __syncthreads();
-
-    // the rows' gradients: d e = al_s d ent + dx_s t, d o = al_o d ent +
-    // dx_o t, d t = g ent pl + dx_s e + dx_o o; d pl += g ent t
-    {
-      const long long q = q0 + j;
-      const bool ok = q < pr.n;
-      const float gj = m.g[j], als = m.al[j], alo = m.al[S::TP + j];
-#pragma unroll
-      for (int v = 0; v < S::V; ++v) {
-        const int d = l + S::G * v;
-        const float e = m.E[j * S::PS + d], o = m.O[j * S::PS + d], tt = m.T[j * S::PS + d];
-        const float dxs = m.X[j * S::XS + d], dxo = m.X[(S::TP + j) * S::XS + d];
-        const float ent = rnd<T>(__fadd_rn(__fmul_rn(als, e), __fmul_rn(alo, o)));
-        const float gent = __fmul_rn(gj, ent);
-        const float dent = __fmul_rn(__fmul_rn(gj, tt), m.pl[d]);
-        acc_pl[v] = fmaf(gent, tt, acc_pl[v]);
-        if (ok) {
-          st1(d_share + q * D + d, rnd<T>(fmaf(dxs, tt, __fmul_rn(als, dent))));
-          st1(d_only + q * D + d, rnd<T>(fmaf(dxo, tt, __fmul_rn(alo, dent))));
-          st1(d_other + q * D + d,
-              rnd<T>(fmaf(dxo, o, fmaf(dxs, e, __fmul_rn(gent, m.pl[d])))));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // this block's partial sums [dW | db | dw2 | dpl], the cross-thread parts
-  // added in a fixed order through X's space
-  float* part = partial + (long long)blockIdx.x * S::NPART;
-#pragma unroll
-  for (int r = 0; r < S::RK; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) part[(ty + S::RT * r) * D + 4 * tx + c] = acc_w[r][c];
-  float* red = m.X;  // [RT, D], then [TP, D]
-#pragma unroll
-  for (int c = 0; c < 4; ++c) red[ty * D + 4 * tx + c] = acc_b[c];
-  __syncthreads();
-  if (tid < D) {
-    float s = 0.f;
-    for (int k = 0; k < S::RT; ++k) s = __fadd_rn(s, red[k * D + tid]);
-    part[D * D + tid] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < 4; ++c) red[ty * D + 4 * tx + c] = acc_w2[c];
-  __syncthreads();
-  if (tid < D) {
-    float s = 0.f;
-    for (int k = 0; k < S::RT; ++k) s = __fadd_rn(s, red[k * D + tid]);
-    part[D * D + D + tid] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int v = 0; v < S::V; ++v) red[j * D + l + S::G * v] = acc_pl[v];
-  __syncthreads();
-  if (tid < D) {
-    float s = 0.f;
-    for (int k = 0; k < S::TP; ++k) s = __fadd_rn(s, red[k * D + tid]);
-    part[D * D + 2 * D + tid] = s;
-  }
-}
-
-// out[i] = sum over blocks k, in order, of partial[k, i], rounded to T
+// pair q's domain (0 source, 1 target), entity id and other id
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-reduce_kernel(const float* __restrict__ partial, int blocks, int n, T* __restrict__ out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < blocks; ++k) s = __fadd_rn(s, partial[(long long)k * n + i]);
-  st1(out + i, rnd<T>(s));
+__device__ __forceinline__ int pair_ids(const Pairs<T>& pr, int q, int& ent, int& oth) {
+  const int dom = q >= pr.n_src;
+  const int i = dom ? q - pr.n_src : q;
+  ent = __ldg((dom ? pr.ent_t : pr.ent_s) + i);
+  oth = __ldg((dom ? pr.oth_t : pr.oth_s) + i);
+  return dom;
+}
+
+// ---- the tables' gradients from the plan -------------------------------------
+
+// the five tables' gradients and their rows
+template <typename T>
+struct TableGrads {
+  T* share;    // [N, D]
+  T* only_s;   // [N, D]
+  T* only_t;
+  T* other_s;  // [M, D]
+  T* other_t;
+  int N, M;
+};
+
+// four float32 values stored at p as T, each rounded once to nearest in T
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float (&v)[4]) {
+  if constexpr (kWide<T>) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    uint2 x;
+    x.x = to_bits<T>(v[0]) | to_bits<T>(v[1]) << 16;
+    x.y = to_bits<T>(v[2]) | to_bits<T>(v[3]) << 16;
+    *reinterpret_cast<uint2*>(p) = x;
+  }
+}
+
+// a row's terms for add_terms: the positions of up to two heads, the
+// first's first, each an unweighted row of the [n, D] scratch
+struct HeadTerms {
+  const int* pos;
+  int st0, n0, st1;
+  __device__ __forceinline__ Term operator()(int k) const {
+    return Term{__ldg(pos + (k < n0 ? st0 + k : st1 + k - n0)), 1.f};
+  }
+};
+
+// (start, length) of head h of a grouping
+__device__ __forceinline__ int2 head_span(const GroupsView& g, int h) {
+  return make_int2(__ldg(g.head_start + h), __ldg(g.head_len + h));
+}
+
+// (start, length) of local row r's head, (0, 0) for none: head_of with the
+// head's span loaded beside its check
+__device__ __forceinline__ int2 span_of(const GroupsView& g, int r) {
+  const int h = __ldg(g.row_head + r);
+  if ((unsigned)h >= (unsigned)__ldg(g.meta + 1)) return make_int2(0, 0);
+  const int row = __ldg(g.head_row + h);
+  const int2 span = make_int2(__ldg(g.head_start + h), __ldg(g.head_len + h));
+  return row == r ? span : make_int2(0, 0);
+}
+
+// the tables kernel's blocks a multiprocessor (its registers' bound): two
+// beat one and three, where it spills (probe_deepapf_pairs.py)
+constexpr int kTablesBlocks = 2;
+
+// a block's row groups (row_geo<4>(D)): G lanes a row group, four columns a
+// lane, `steps` column steps
+template <int D>
+struct RowGroups {
+  RowGeo geo;
+  int gl, group, groups;
+  __device__ RowGroups() {
+    geo = row_geo<4>(D);
+    const int lane = threadIdx.x & 31;
+    gl = lane % geo.G;
+    group = (threadIdx.x >> 5) * geo.per_warp + lane / geo.G;
+    groups = kWarps * geo.per_warp;
+  }
+};
+
+// A row group's sum, written to row (rounded once to T), of the n terms of
+// `terms`, each a row of src [., D], added in order (add_terms, 8 rows in
+// flight a lane). Every lane of the group calls it with the same n.
+template <int D, typename T>
+__device__ __forceinline__ void group_row(const RowGroups<D>& rg, const HeadTerms& terms, int n,
+                                          const float* __restrict__ src, T* row) {
+  for (int s = 0; s < rg.geo.steps; ++s) {
+    const int d = (s * rg.geo.G + rg.gl) * 4;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    add_terms<4, 8, false>(n, terms, src, D, d, rg.geo, acc);
+    if (d < D) store4(row + d, acc);
+  }
+}
+
+// the terms of a segment of block_row's sum: a row of up to 16 segments
+// (512 terms at D = 64) takes one round of the block's row groups
+constexpr int kSegTerms = 32;
+
+// A block's sum of a row of n terms, more than kBigTerms: segments of
+// kSegTerms consecutive terms, a row group each (at once, `groups` of them
+// a round), each added in order from 0; then the round's segment sums added
+// in segment order into the row's running sum (smem: groups + 1 rows of D
+// floats), the row rounded once to T as it is written. The order is fixed
+// by the ids alone. Every thread of the block calls it; it ends with a
+// barrier.
+template <int D, typename T>
+__device__ void block_row(const RowGroups<D>& rg, const HeadTerms& terms, int n,
+                          const float* __restrict__ src, T* row, float* smem) {
+  float* part = smem;
+  float* sum = smem + rg.groups * D;
+  for (int c = threadIdx.x; c < D; c += kThreads) sum[c] = 0.f;
+  const int segs = (n + kSegTerms - 1) / kSegTerms;
+  for (int s0 = 0; s0 < segs; s0 += rg.groups) {
+    const int s = s0 + rg.group, lo = s * kSegTerms;
+    const int len = s < segs ? (n - lo < kSegTerms ? n - lo : kSegTerms) : 0;
+    for (int st = 0; st < rg.geo.steps; ++st) {
+      const int d = (st * rg.geo.G + rg.gl) * 4;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      add_terms<4, 8, false>(len, [&](int k) { return terms(lo + k); }, src, D, d, rg.geo, acc);
+      if (d < D) *reinterpret_cast<float4*>(part + rg.group * D + d) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    }
+    __syncthreads();
+    const int m = segs - s0 < rg.groups ? segs - s0 : rg.groups;
+    for (int c = threadIdx.x; c < D; c += kThreads) {
+      float a = sum[c];
+      for (int k = 0; k < m; ++k) a = __fadd_rn(a, part[k * D + c]);
+      sum[c] = a;
+    }
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < D; c += kThreads) st1(row + c, sum[c]);
+  __syncthreads();  // sum is rewritten by the block's next row
+}
+
+template <int D>
+constexpr size_t block_row_smem() {
+  return sizeof(float) * (kWarps * (size_t)row_geo<4>(D).per_warp + 1) * D;
+}
+
+// Blocks [0, WB): out[i] = the sum over blocks k, in order, of partial[k,
+// i], rounded to T. The others write every row of the five tables
+// (TableGrads) once, from rows [3, n, D] (d e, d o, d t of each pair) and
+// the groupings ge of the entity keys (2 N rows) and go of the other keys
+// (2 M rows): (1) the rows with a key of more than kBigTerms positions, a
+// block each (block_row): a big entity key's own row, then the shared rows
+// of the big entity keys (by the source key where both domains' are big),
+// then the big other keys' rows; (2) every other key's rows by a row group:
+// its domain's entity or other-side row and, for an entity key, the shared
+// row, unless the other domain's key of the row writes it (its source key
+// does, where there is one); (3) the rows no key names, 0: a warp checks 32
+// rows, then writes the zero rows among them in coalesced 16-byte pieces.
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads, kTablesBlocks)
+tables_kernel(const float* __restrict__ partial, int blocks, T* __restrict__ wout,
+              const float* __restrict__ rows, int n, GroupsView ge, GroupsView go,
+              TableGrads<T> tg) {
+  constexpr int NPART = npart(D), WB = (NPART + kThreads - 1) / kThreads;
+  if (blockIdx.x < WB) {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i >= NPART) return;
+    float s = 0.f;
+    for (int k0 = 0; k0 < blocks; k0 += 16) {  // 16 loads in flight, added in block order
+      float v[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        v[k] = k0 + k < blocks ? __ldg(partial + (long long)(k0 + k) * NPART + i) : 0.f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (k0 + k < blocks) s = __fadd_rn(s, v[k]);
+    }
+    st1(wout + i, rnd<T>(s));
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  const RowGroups<D> rg;
+  const int N = tg.N, M = tg.M;
+  const long long plane = (long long)n * D;
+  const float* de = rows;
+  const float* dov = rows + plane;
+  const float* dt = rows + 2 * plane;
+  const int bid = blockIdx.x - WB, nb = gridDim.x - WB;
+  auto long_rows = [&]() {  // (1)
+    const int big_e = __ldg(ge.meta + 2), big_o = __ldg(go.meta + 2);
+    for (int b = bid; b < 2 * big_e + big_o; b += nb) {
+      const bool on_e = b < 2 * big_e;
+      const GroupsView& G = on_e ? ge : go;
+      const int h = __ldg(G.big + (on_e ? b % big_e : b - 2 * big_e));
+      const int key = __ldg(G.head_row + h), base = on_e ? N : M;
+      const bool tgt = key >= base;
+      const int r = key - (tgt ? base : 0);
+      const int2 sp = head_span(G, h);
+      if (b >= big_e && on_e) {  // the shared row
+        const int2 other = span_of(ge, tgt ? r : N + r);  // the other domain's key of the row
+        const int2 s0 = tgt ? other : sp, s1 = tgt ? sp : other;
+        if (tgt && s0.y > kBigTerms) continue;  // the source key's
+        block_row<D>(rg, HeadTerms{ge.pos, s0.x, s0.y, s1.x}, s0.y + s1.y, de,
+                     tg.share + (long long)r * D, reinterpret_cast<float*>(smem));
+        continue;
+      }
+      T* out = on_e ? (tgt ? tg.only_t : tg.only_s) : (tgt ? tg.other_t : tg.other_s);
+      block_row<D>(rg, HeadTerms{G.pos, sp.x, sp.y, 0}, sp.y, on_e ? dov : dt,
+                   out + (long long)r * D, reinterpret_cast<float*>(smem));
+    }
+  };
+
+  auto heads_pass = [&]() {  // (2)
+    const int heads_e = __ldg(ge.meta + 1), heads = heads_e + __ldg(go.meta + 1);
+    for (long long w = (long long)bid * rg.groups + rg.group; w < heads;
+         w += (long long)nb * rg.groups) {  // the same w in a whole row group
+      const bool on_e = w < heads_e;
+      const GroupsView& G = on_e ? ge : go;
+      const int h = on_e ? (int)w : (int)w - heads_e, key = __ldg(G.head_row + h);
+      const int2 sp = head_span(G, h);
+      const int base = on_e ? N : M;
+      const bool tgt = key >= base;
+      const int r = key - (tgt ? base : 0);
+      if (sp.y <= kBigTerms)
+        group_row(rg, HeadTerms{G.pos, sp.x, sp.y, 0}, sp.y, on_e ? dov : dt,
+                  (on_e ? (tgt ? tg.only_t : tg.only_s) : (tgt ? tg.other_t : tg.other_s)) +
+                      (long long)r * D);
+      if (!on_e) continue;
+      const int2 other = span_of(ge, tgt ? r : N + r);  // the other domain's key of the row
+      const int2 s0 = tgt ? other : sp, s1 = tgt ? sp : other;
+      if ((tgt && s0.y > 0) || s0.y > kBigTerms || s1.y > kBigTerms) continue;  // another's row
+      group_row(rg, HeadTerms{ge.pos, s0.x, s0.y, s1.x}, s0.y + s1.y, de,
+                tg.share + (long long)r * D);
+    }
+  };
+
+  auto zero_pass = [&]() {  // (3)
+    constexpr int kPieces = D * (int)sizeof(T) / 16;  // 16-byte pieces of a row
+    const int lane = threadIdx.x & 31;
+    const long long warp = ((long long)bid * kThreads + threadIdx.x) >> 5;
+    const long long warps = ((long long)nb * kThreads) >> 5;
+    const long long total = 3LL * N + 2LL * M;
+    for (long long x0 = warp * 32; x0 < total; x0 += warps * 32) {
+      const long long x = x0 + lane;
+      bool zero = false;
+      unsigned long long row = 0;  // the lane's row's address
+      if (x < total) {
+        int kind, r;  // 0 shared, 1 / 2 the source / target entity table, 3 / 4 other side
+        if (x < 3LL * N) kind = (int)(x / N), r = (int)(x % N);
+        else kind = 3 + (int)((x - 3LL * N) / M), r = (int)((x - 3LL * N) % M);
+        const GroupsView& G = kind < 3 ? ge : go;
+        const int base = kind < 3 ? N : M;
+        zero = !((kind != 2 && kind != 4 && head_of(G, r) >= 0) ||
+                 (kind != 1 && kind != 3 && head_of(G, base + r) >= 0));
+        T* t = kind == 0 ? tg.share : kind == 1 ? tg.only_s : kind == 2 ? tg.only_t
+               : kind == 3 ? tg.other_s : tg.other_t;
+        row = reinterpret_cast<unsigned long long>(t + (long long)r * D);
+      }
+      // the zero rows among the warp's 32, their pieces a lane each
+      const unsigned zm = __ballot_sync(0xffffffffu, zero);
+      const int pieces = __popc(zm) * kPieces;
+      for (int i0 = 0; i0 < pieces; i0 += 32) {
+        const int i = i0 + lane < pieces ? i0 + lane : pieces - 1;
+        uint4* dst = reinterpret_cast<uint4*>(
+            __shfl_sync(0xffffffffu, row, __fns(zm, 0, i / kPieces + 1)));
+        if (i0 + lane < pieces) dst[i % kPieces] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+
+  long_rows();
+  heads_pass();
+  zero_pass();
 }
 
 // blocks of a persistent launch: every SM full, never more blocks than tiles
@@ -542,56 +441,20 @@ int persistent_blocks(K kernel, size_t smem, long long tiles) {
 }
 
 template <int D, typename T>
-int forward(const Pairs<T>& pr, const T* W, const T* b, const T* w2, const T* pl, T* out,
-            cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(false);
-  const long long tiles = (pr.n + Shape<D>::TP - 1) / Shape<D>::TP;
-  const int blocks = persistent_blocks(forward_kernel<D, T>, smem, tiles);
-  if (blocks < 0) return -blocks;
-  if (blocks > 0)
-    forward_kernel<D, T><<<blocks, kThreads, smem, stream>>>(pr, W, b, w2, pl, out);
+int tables(const float* partial, int blocks, T* wout, const float* rows, int n,
+           const GroupsView& ge, const GroupsView& go, const TableGrads<T>& tg,
+           cudaStream_t stream) {
+  constexpr int WB = (npart(D) + kThreads - 1) / kThreads;
+  // as many blocks as run at once (the passes loop over their work)
+  const int rest = grid_for(3LL * tg.N + 2LL * tg.M, kThreads, kTablesBlocks);
+  if (rest <= 0) return (int)cudaErrorInvalidDevice;
+  tables_kernel<D, T><<<WB + rest, kThreads, block_row_smem<D>(), stream>>>(
+      partial, blocks > 0 ? blocks : 1, wout, rows, n, ge, go, tg);
   return (int)cudaGetLastError();
 }
-
-template <int D, typename T>
-int backward(const Pairs<T>& pr, const T* W, const T* b, const T* w2, const T* pl, const T* g,
-             T* d_share, T* d_only, T* d_other, float* partial, int blocks, T* out,
-             cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(true);
-  const int n = Shape<D>::NPART;
-  if (blocks > 0) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        backward_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    backward_kernel<D, T><<<blocks, kThreads, smem, stream>>>(pr, W, b, w2, pl, g, d_share,
-                                                               d_only, d_other, partial);
-    const cudaError_t e2 = cudaGetLastError();
-    if (e2 != cudaSuccess) return (int)e2;
-  } else {
-    const cudaError_t e = cudaMemsetAsync(partial, 0, (size_t)n * sizeof(float), stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  reduce_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      partial, blocks > 0 ? blocks : 1, n, out);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-Pairs<T> gathered(const void* share, const void* only, const void* other, const void* mask,
-                  int P) {
-  Pairs<T> pr{};
-  pr.share = (const T*)share;
-  pr.only = (const T*)only;
-  pr.other = (const T*)other;
-  pr.mask = (const uint8_t*)mask;
-  pr.n = P;
-  return pr;
-}
-
 
 // ---- the grid: 2-D pair tiles, both products on the tensor cores ----------
 
-constexpr int kWarps = kThreads / 32;
 constexpr int kTileUsers = 8;   // at most, users of a grid tile
 constexpr int kTileItems = 16;  // at most, items of a grid tile (a multiple of 8 MT)
 
@@ -812,6 +675,41 @@ __device__ __forceinline__ float blend16(const T* E, const T* O, const T* Tt, co
   return __fadd_rn(lg[0], lg[1]);
 }
 
+// The logit of quad g's pair from its mma tile's accumulators (acc[j] holds
+// columns 8 j + 2 c, + 1 of rows g (x_s) and g + 8 (x_o), z = acc rounded
+// to T) and its staged rows: a = relu(z) . w2, the softmax in the quad
+// (the share logit masked where `masked`), then the logit, in float32 al_s
+// (x_s . pl) + al_o (x_o . pl) from grid_products' dots se, so, in 16 bits
+// from ent rounded as JAX rounds it (blend16), rounded to T. Every lane of
+// the quad returns it.
+template <int D, typename T>
+__device__ __forceinline__ float pair_logit(const float (&acc)[D / 8][4], float se, float so,
+                                            const T* E, const T* O, const T* Tt,
+                                            const float* w2s, const float* pls, bool masked) {
+  const int c = threadIdx.x & 3;
+  float ps[2] = {0.f, 0.f}, po[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const float2 wv = *reinterpret_cast<const float2*>(w2s + 8 * j + 2 * c);
+    ps[0] = fmaf(fmaxf(rnd<T>(acc[j][0]), 0.f), wv.x, ps[0]);
+    ps[1] = fmaf(fmaxf(rnd<T>(acc[j][1]), 0.f), wv.y, ps[1]);
+    po[0] = fmaf(fmaxf(rnd<T>(acc[j][2]), 0.f), wv.x, po[0]);
+    po[1] = fmaf(fmaxf(rnd<T>(acc[j][3]), 0.f), wv.y, po[1]);
+  }
+  const float sa = quad_sum(__fadd_rn(ps[0], ps[1]));  // every lane shuffles
+  const float oa = quad_sum(__fadd_rn(po[0], po[1]));
+  const float as = masked ? kMasked : rnd<T>(sa);
+  const float ao = rnd<T>(oa);
+  const float mx = fmaxf(as, ao);
+  const float es = expf(__fsub_rn(as, mx)), eo = expf(__fsub_rn(ao, mx));
+  const float sum = __fadd_rn(es, eo);
+  const float als = rnd<T>(__fdiv_rn(es, sum)), alo = rnd<T>(__fdiv_rn(eo, sum));
+  if constexpr (kWide<T>)
+    return fmaf(als, quad_sum(se), __fmul_rn(alo, quad_sum(so)));
+  else
+    return rnd<T>(quad_sum(blend16<D, T>(E, O, Tt, pls, als, alo)));
+}
+
 // the grid: [bu users x bi items] tiles of the [B, I] pairs, tile t at users
 // (t % n_ub) bu.., items (t / n_ub) bi..; a warp takes units of MT m-tiles
 // (8 MT consecutive items of one user; m-tile s its items 8 s .. 8 s + 7),
@@ -903,30 +801,9 @@ grid_kernel(const T* __restrict__ share_tab, const T* __restrict__ only_tab,
       grid_products<D, T, MT>(E, O, Tt, wf, bs, pls, acc, se, so);
 #pragma unroll
       for (int s = 0; s < MT; ++s) {
-        // a = relu(z) . w2 from the fragments, z = acc rounded to T: acc[s][j]
-        // holds columns 8 j + 2 c, + 1 of rows g (x_s) and g + 8 (x_o)
-        float ps[2] = {0.f, 0.f}, po[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < G::NT; ++j) {
-          const float2 wv = *reinterpret_cast<const float2*>(w2s + 8 * j + 2 * c);
-          ps[0] = fmaf(fmaxf(rnd<T>(acc[s][j][0]), 0.f), wv.x, ps[0]);
-          ps[1] = fmaf(fmaxf(rnd<T>(acc[s][j][1]), 0.f), wv.y, ps[1]);
-          po[0] = fmaf(fmaxf(rnd<T>(acc[s][j][2]), 0.f), wv.x, po[0]);
-          po[1] = fmaf(fmaxf(rnd<T>(acc[s][j][3]), 0.f), wv.y, po[1]);
-        }
-        const float sa = quad_sum(__fadd_rn(ps[0], ps[1]));  // every lane shuffles
-        const float oa = quad_sum(__fadd_rn(po[0], po[1]));
-        const float as = ent[s] > overlapped ? kMasked : rnd<T>(sa);  // strict >
-        const float ao = rnd<T>(oa);
-        const float mx = fmaxf(as, ao);
-        const float es = expf(__fsub_rn(as, mx)), eo = expf(__fsub_rn(ao, mx));
-        const float sum = __fadd_rn(es, eo);
-        const float als = rnd<T>(__fdiv_rn(es, sum)), alo = rnd<T>(__fdiv_rn(eo, sum));
-        float lg;
-        if constexpr (G::kF32)
-          lg = fmaf(als, quad_sum(se[s]), __fmul_rn(alo, quad_sum(so[s])));
-        else
-          lg = rnd<T>(quad_sum(blend16<D, T>(E[s], O[s], Tt[s], pls, als, alo)));
+        // a = relu(z) . w2, the softmax and the logit (pair_logit)
+        const float lg = pair_logit<D, T>(acc[s], se[s], so[s], E[s], O[s], Tt[s], w2s, pls,
+                                          ent[s] > overlapped);  // strict >
         const int slot = s0 + 8 * s + g;
         if (c == 0 && i0 + slot < I)
           st1(out + (long long)(u0 + u) * I + i0 + slot,
@@ -961,12 +838,516 @@ int grid(const T* share, const T* only, const T* other, const int* users, const 
   return (int)cudaGetLastError();
 }
 
+// ---- the pair forward: a warp's units of pairs on the tensor cores ----------
+
+// a warp's unit (the grid's: 8 MT pairs), its staged rows (e, o, t of each
+// pair, 16 bytes longer than D values), and the block's shared memory: W's
+// fragments, b | w2 | pl widened, then each warp's NBUF buffers (two, so
+// that the next unit's rows load while the current one computes, where they
+// fit)
+template <int D, typename T>
+struct PairUnit {
+  using G = Grid<D, T>;
+  static constexpr int MT = G::MT;
+  static constexpr int UNIT = 8 * MT;
+  static constexpr int ROWS = 3 * UNIT;
+  static constexpr size_t BUF = (size_t)ROWS * G::RS * sizeof(T);
+  static constexpr size_t FIXED = 4 * (size_t)G::WWORDS + 12 * (size_t)D;
+  static constexpr int NBUF = FIXED + 2 * kWarps * BUF <= (size_t)kMaxSmem ? 2 : 1;
+  static constexpr size_t SMEM = FIXED + NBUF * kWarps * BUF;
+};
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads)
+forward_kernel(Pairs<T> pr, const T* __restrict__ W, const T* __restrict__ b,
+               const T* __restrict__ w2, const T* __restrict__ pl, T* __restrict__ out) {
+  using G = Grid<D, T>;
+  using U = PairUnit<D, T>;
+  constexpr int MT = U::MT;
+  constexpr int kRowChunks = D / G::CHUNK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* wf = reinterpret_cast<uint32_t*>(smem);
+  float* bs = reinterpret_cast<float*>(wf + G::WWORDS);
+  float* w2s = bs + D;
+  float* pls = w2s + D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, c = lane & 3;
+  T* bufs = reinterpret_cast<T*>(smem + U::FIXED) + (size_t)warp * U::NBUF * U::ROWS * G::RS;
+  const long long units = ((long long)pr.n + U::UNIT - 1) / U::UNIT;
+  const long long stride = (long long)gridDim.x * kWarps;
+
+  // unit u's rows into buf (zeros past the last pair), one commit group
+  auto stage = [&](long long u, T* buf) {
+    for (int e = lane; e < U::ROWS * kRowChunks; e += 32) {
+      const int r = e / kRowChunks, k = e % kRowChunks, which = r % 3;
+      const long long q = u * U::UNIT + r / 3;
+      const T* src = nullptr;
+      if (q < pr.n) {
+        int ent, oth;
+        const int dom = pair_ids(pr, (int)q, ent, oth);
+        src = which == 0 ? pr.share + (long long)ent * D
+              : which == 1 ? (dom ? pr.only_t : pr.only_s) + (long long)ent * D
+                           : (dom ? pr.other_t : pr.other_s) + (long long)oth * D;
+      }
+      cp_async16(buf + (size_t)r * G::RS + k * G::CHUNK, src ? src + k * G::CHUNK : pr.share,
+                 src != nullptr);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  long long u = (long long)blockIdx.x * kWarps + warp;
+  if (u < units) stage(u, bufs);  // the first unit's copies fly while W is staged
+  stage_fragments<D, T>(W, wf);
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    bs[d] = ld1(b + d);
+    w2s[d] = ld1(w2 + d);
+    pls[d] = ld1(pl + d);
+  }
+  __syncthreads();
+  for (int cur = 0; u < units; u += stride) {
+    T* buf = bufs + (size_t)cur * U::ROWS * G::RS;
+    if constexpr (U::NBUF == 2) {
+      if (u + stride < units) stage(u + stride, bufs + (size_t)(cur ^ 1) * U::ROWS * G::RS);
+      else asm volatile("cp.async.commit_group;\n" ::);  // an empty group keeps the count
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      cur ^= 1;
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncwarp();
+    const T *E[MT], *O[MT], *Tt[MT];
+#pragma unroll
+    for (int s = 0; s < MT; ++s) {
+      E[s] = buf + (size_t)(3 * (8 * s + g)) * G::RS;
+      O[s] = E[s] + G::RS;
+      Tt[s] = O[s] + G::RS;
+    }
+    float acc[MT][G::NT][4], se[MT], so[MT];
+    grid_products<D, T, MT>(E, O, Tt, wf, bs, pls, acc, se, so);
+#pragma unroll
+    for (int s = 0; s < MT; ++s) {
+      // the grid's epilogue (pair_logit)
+      const long long q = u * U::UNIT + 8 * s + g;
+      int ent = 0, oth;
+      if (q < pr.n) pair_ids(pr, (int)q, ent, oth);
+      const float lg = pair_logit<D, T>(acc[s], se[s], so[s], E[s], O[s], Tt[s], w2s, pls,
+                                        ent > pr.overlapped);  // strict >
+      if (c == 0 && q < pr.n) st1(out + q, lg);
+    }
+    __syncwarp();  // buf is restaged next
+    if constexpr (U::NBUF == 1)
+      if (u + stride < units) stage(u + stride, bufs);
+  }
+}
+
+template <int D, typename T>
+int forward(const Pairs<T>& pr, const T* W, const T* b, const T* w2, const T* pl, T* out,
+            cudaStream_t stream) {
+  using U = PairUnit<D, T>;
+  const long long units = ((long long)pr.n + U::UNIT - 1) / U::UNIT;
+  const int blocks =
+      persistent_blocks(forward_kernel<D, T>, U::SMEM, (units + kWarps - 1) / kWarps);
+  if (blocks < 0) return -blocks;
+  if (blocks > 0)
+    forward_kernel<D, T><<<blocks, kThreads, U::SMEM, stream>>>(pr, W, b, w2, pl, out);
+  return (int)cudaGetLastError();
+}
+
+// ---- the backward's pair tiles on the tensor cores ---------------------------
+
+// A value of T in shared memory, widened
+template <typename T>
+__device__ __forceinline__ float sm1(const T* p) {
+  if constexpr (kWide<T>) return *p;
+  else return from_bits<T>(*reinterpret_cast<const unsigned short*>(p));
+}
+
+// the backward's tile: PW warps take 8 pairs each (TP pairs), x_s of pair g
+// in row g of an m16n8k8 tile, x_o in row g + 8, as the forward; every warp
+// then adds its WT m16n8 tiles of dW over the tile's 2 TP rows. Shared
+// memory: W's fragments for z = x W and for dx = dZ W^T (float32 words),
+// b | w2 | pl, NBUF buffers of the tile's e, o, t rows (as the forward's),
+// and dZ [2][TP][ZS] (x_s rows, then x_o rows). Two buffers where they fit,
+// all eight warps in the pair stage where one buffer fits (else four)
+template <int D, typename T>
+constexpr size_t bwd_bytes(int pw, int nbuf) {
+  return 8 * (size_t)D * D + 12 * (size_t)D +
+         (size_t)nbuf * 3 * 8 * pw * (D + 16 / sizeof(T)) * sizeof(T) +
+         2 * 8 * (size_t)pw * (D + 8) * 4;
+}
+
+template <int D, typename T>
+struct BwdTile {
+  static constexpr int NT = D / 8;                      // n-tiles, and k-steps of 8
+  static constexpr int RS = D + 16 / (int)sizeof(T);    // staged row stride (elements)
+  static constexpr int ZS = D + 8;                      // dZ row stride (floats)
+  static constexpr int CHUNK = 16 / (int)sizeof(T);     // elements of a 16-byte copy
+  static constexpr int PW = bwd_bytes<D, T>(kWarps, 1) <= kMaxSmem ? kWarps : kWarps / 2;
+  static constexpr int NBUF = bwd_bytes<D, T>(PW, 2) <= kMaxSmem ? 2 : 1;
+  static constexpr int TP = 8 * PW;
+  static constexpr size_t SMEM = bwd_bytes<D, T>(PW, NBUF);
+  static constexpr int WT = (D / 16) * NT / kWarps;     // dW tiles a warp: one m-tile's
+  static_assert(WT >= 1 && NT % WT == 0, "a warp's dW tiles share one m-tile");
+};
+
+// W [D, D] as float32 B fragments: wf for z = x W (k-step ks, n-tile j, lane
+// L's two words at ((ks NT + j) 32 + L) 2: W[8 ks + c + 4 r][8 j + g]), wt for
+// dx = dZ W^T with its k order permuted so that dZ's accumulator fragments
+// serve as A fragments unchanged (k-step j, n-tile i: W[8 i + g][8 j + 2 c +
+// r]); g = L / 4, c = L % 4, r the word
+template <int D, typename T>
+__device__ void stage_tf32_fragments(const T* __restrict__ W, float* wf, float* wt) {
+  constexpr int NT = D / 8;
+  for (int v = threadIdx.x; v < D * D; v += kThreads) {
+    const int k = v / D, n = v % D;
+    const float w = ld1(W + v);
+    wf[(((k / 8) * NT + n / 8) * 32 + 4 * (n % 8) + k % 4) * 2 + (k % 8) / 4] = w;
+    // W[k][n] is B's (row n, column k) of W^T: n-tile k / 8, k-step n / 8
+    wt[(((n / 8) * NT + k / 8) * 32 + 4 * (k % 8) + (n % 8) / 2) * 2 + n % 2] = w;
+  }
+}
+
+// acc += a b in TF32 with the split terms: a's low part unless a is exact in
+// TF32 (16-bit values), b's unless exact
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  if constexpr (!kExactA) mma_tf32(acc, al, bh0, bh1);  // the small terms first
+  if constexpr (!kExactB) mma_tf32(acc, ah, bl0, bl1);
+  mma_tf32(acc, ah, bh0, bh1);
+}
+
+// rows [3, n, D] float32: each pair's d e, d o and d t; keys [2, n]; partial
+// [gridDim.x, NPART]: the block's sums of [dW | db | dw2 | dpl]
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+backward_kernel(Pairs<T> pr, const T* __restrict__ W, const T* __restrict__ b,
+                const T* __restrict__ w2, const T* __restrict__ pl, const T* __restrict__ g,
+                float* __restrict__ rows, int* __restrict__ keys, float* __restrict__ partial) {
+  using B = BwdTile<D, T>;
+  constexpr int NT = B::NT, WT = B::WT;
+  constexpr bool kExact = !kWide<T>;  // 16-bit values are exact in TF32
+  constexpr int kRowChunks = D / B::CHUNK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* wf = reinterpret_cast<float*>(smem);
+  float* wt = wf + D * D;
+  float* bs = wt + D * D;
+  float* w2s = bs + D;
+  float* pls = w2s + D;
+  T* bufs = reinterpret_cast<T*>(pls + D);
+  float* dZs = reinterpret_cast<float*>(bufs + (size_t)B::NBUF * 3 * B::TP * B::RS);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, c = lane & 3;
+  const long long plane = (long long)pr.n * D;
+  const long long tiles = ((long long)pr.n + B::TP - 1) / B::TP;
+
+  // tile t's rows into buf (zeros past the last pair), one commit group
+  auto stage = [&](long long t, T* buf) {
+    for (int e = threadIdx.x; e < 3 * B::TP * kRowChunks; e += kThreads) {
+      const int r = e / kRowChunks, k = e % kRowChunks, which = r % 3;
+      const long long q = t * B::TP + r / 3;
+      const T* src = nullptr;
+      if (q < pr.n) {
+        int ent, oth;
+        const int dom = pair_ids(pr, (int)q, ent, oth);
+        src = which == 0 ? pr.share + (long long)ent * D
+              : which == 1 ? (dom ? pr.only_t : pr.only_s) + (long long)ent * D
+                           : (dom ? pr.other_t : pr.other_s) + (long long)oth * D;
+      }
+      cp_async16(buf + (size_t)r * B::RS + k * B::CHUNK, src ? src + k * B::CHUNK : pr.share,
+                 src != nullptr);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  if (blockIdx.x < tiles) stage(blockIdx.x, bufs);  // its copies fly while W is staged
+  stage_tf32_fragments<D, T>(W, wf, wt);
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    bs[d] = ld1(b + d);
+    w2s[d] = ld1(w2 + d);
+    pls[d] = ld1(pl + d);
+  }
+  const uint2* wf2 = reinterpret_cast<const uint2*>(wf) + lane;
+  const uint2* wt2 = reinterpret_cast<const uint2*>(wt) + lane;
+
+  // the block's partial sums: dW's tiles in fragments; db, dw2, dpl at the
+  // pair stage's columns 8 j + 2 c + h, over its pairs
+  float aw[WT][4], acc_b[NT][2], acc_w2[NT][2], acc_pl[NT][2];
+#pragma unroll
+  for (int i = 0; i < WT; ++i) aw[i][0] = aw[i][1] = aw[i][2] = aw[i][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) acc_b[j][h] = acc_w2[j][h] = acc_pl[j][h] = 0.f;
+
+  int cur = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    T* buf = bufs + (size_t)cur * 3 * B::TP * B::RS;
+    if constexpr (B::NBUF == 2) {
+      if (t + gridDim.x < tiles) stage(t + gridDim.x, bufs + (size_t)(cur ^ 1) * 3 * B::TP * B::RS);
+      else asm volatile("cp.async.commit_group;\n" ::);  // an empty group keeps the count
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      cur ^= 1;
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp < B::PW) {
+      // the pair stage: pair gq of the warp's 8
+      const int p = 8 * warp + gq;
+      const long long q = t * B::TP + p;
+      const T* E = buf + (size_t)(3 * p) * B::RS;
+      const T* O = E + B::RS;
+      const T* Tt = O + B::RS;
+      int ent = -1, oth = 0, dom = 0;
+      float gv = 0.f;
+      if (q < pr.n) {
+        dom = pair_ids(pr, (int)q, ent, oth);
+        gv = ld1(g + q);
+        if (c == 0) {
+          keys[q] = dom ? ent + pr.N : ent;
+          keys[pr.n + q] = dom ? oth + pr.M : oth;
+        }
+      }
+      const bool masked = ent > pr.overlapped;
+
+      // z = b + x W, x formed in the A fragments (rounded to T)
+      float acc[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 bv = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * c);
+        acc[j][0] = acc[j][2] = bv.x;
+        acc[j][1] = acc[j][3] = bv.y;
+      }
+#pragma unroll 2
+      for (int ks = 0; ks < NT; ++ks) {
+        const int k = 8 * ks + c;
+        const float t0 = sm1(Tt + k), t1 = sm1(Tt + k + 4);
+        const float x[4] = {rnd<T>(__fmul_rn(sm1(E + k), t0)), rnd<T>(__fmul_rn(sm1(O + k), t0)),
+                            rnd<T>(__fmul_rn(sm1(E + k + 4), t1)),
+                            rnd<T>(__fmul_rn(sm1(O + k + 4), t1))};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split(x[i], ah[i], al[i]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint2 w = wf2[(ks * NT + j) * 32];
+          uint32_t bh0, bl0, bh1, bl1;
+          split(__uint_as_float(w.x), bh0, bl0);
+          split(__uint_as_float(w.y), bh1, bl1);
+          mma3<kExact, kExact>(acc[j], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+
+      // the attention logits and the softmax (every lane of the quad), the
+      // chain rule into d(a_s) = al_s al_o (d al_s - d al_o), d(a_o) = -d(a_s)
+      float ps[2] = {0.f, 0.f}, po[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 wv = *reinterpret_cast<const float2*>(w2s + 8 * j + 2 * c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = rnd<T>(acc[j][i]);
+        ps[0] = fmaf(fmaxf(acc[j][0], 0.f), wv.x, ps[0]);
+        ps[1] = fmaf(fmaxf(acc[j][1], 0.f), wv.y, ps[1]);
+        po[0] = fmaf(fmaxf(acc[j][2], 0.f), wv.x, po[0]);
+        po[1] = fmaf(fmaxf(acc[j][3], 0.f), wv.y, po[1]);
+      }
+      const float sa = quad_sum(__fadd_rn(ps[0], ps[1]));
+      const float oa = quad_sum(__fadd_rn(po[0], po[1]));
+      const float as = masked ? kMasked : rnd<T>(sa);  // strict >
+      const float ao = rnd<T>(oa);
+      const float mx = fmaxf(as, ao);
+      const float es = expf(__fsub_rn(as, mx)), eo = expf(__fsub_rn(ao, mx));
+      const float sum = __fadd_rn(es, eo);
+      const float als_u = __fdiv_rn(es, sum), alo_u = __fdiv_rn(eo, sum);
+      const float als = rnd<T>(als_u), alo = rnd<T>(alo_u);
+      float ds = 0.f, dov = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = 8 * j + 2 * c + h;
+          const float dent = __fmul_rn(__fmul_rn(gv, sm1(Tt + d)), pls[d]);
+          ds = fmaf(dent, sm1(E + d), ds);
+          dov = fmaf(dent, sm1(O + d), dov);
+        }
+      ds = quad_sum(ds);
+      dov = quad_sum(dov);
+      const float das = masked ? 0.f : __fmul_rn(__fmul_rn(als_u, alo_u), __fsub_rn(ds, dov));
+      const float dao = -das;
+
+      // dZ = relu'(z) d(a) w2 in acc's place and into dZs; the sums of db, dw2
+      float* zs = dZs + (size_t)p * B::ZS;
+      float* zo = dZs + (size_t)(B::TP + p) * B::ZS;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 wv = *reinterpret_cast<const float2*>(w2s + 8 * j + 2 * c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float w = h ? wv.y : wv.x;
+          const float z_s = acc[j][h], z_o = acc[j][2 + h];
+          const float dzs = z_s > 0.f ? __fmul_rn(das, w) : 0.f;
+          const float dzo = z_o > 0.f ? __fmul_rn(dao, w) : 0.f;
+          acc_w2[j][h] = fmaf(dao, fmaxf(z_o, 0.f), fmaf(das, fmaxf(z_s, 0.f), acc_w2[j][h]));
+          acc_b[j][h] = __fadd_rn(__fadd_rn(acc_b[j][h], dzs), dzo);
+          acc[j][h] = dzs;
+          acc[j][2 + h] = dzo;
+        }
+        *reinterpret_cast<float2*>(zs + 8 * j + 2 * c) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(zo + 8 * j + 2 * c) = make_float2(acc[j][2], acc[j][3]);
+      }
+
+      // dx = dZ W^T: dZ's n-tile j is the A fragment of k-step j as it lies
+      float dx[NT][4];
+#pragma unroll
+      for (int i = 0; i < NT; ++i) dx[i][0] = dx[i][1] = dx[i][2] = dx[i][3] = 0.f;
+#pragma unroll 2
+      for (int j = 0; j < NT; ++j) {
+        const float a[4] = {acc[j][0], acc[j][2], acc[j][1], acc[j][3]};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split(a[i], ah[i], al[i]);
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          const uint2 w = wt2[(j * NT + i) * 32];
+          uint32_t bh0, bl0, bh1, bl1;
+          split(__uint_as_float(w.x), bh0, bl0);
+          split(__uint_as_float(w.y), bh1, bl1);
+          mma3<false, kExact>(dx[i], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+
+      // the rows' gradients, in float32: d e = al_s d ent + dx_s t, d o =
+      // al_o d ent + dx_o t, d t = g ent pl + dx_s e + dx_o o; d pl += g ent t
+      float* dr = rows + q * D;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        float ge[2], go[2], gt[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = 8 * i + 2 * c + h;
+          const float e = sm1(E + d), o = sm1(O + d), tt = sm1(Tt + d);
+          const float dxs = dx[i][h], dxo = dx[i][2 + h];
+          const float en = rnd<T>(__fadd_rn(__fmul_rn(als, e), __fmul_rn(alo, o)));
+          const float gent = __fmul_rn(gv, en);
+          const float dent = __fmul_rn(__fmul_rn(gv, tt), pls[d]);
+          acc_pl[i][h] = fmaf(gent, tt, acc_pl[i][h]);
+          ge[h] = fmaf(dxs, tt, __fmul_rn(als, dent));
+          go[h] = fmaf(dxo, tt, __fmul_rn(alo, dent));
+          gt[h] = fmaf(dxo, o, fmaf(dxs, e, __fmul_rn(gent, pls[d])));
+        }
+        if (q < pr.n) {
+          const int d = 8 * i + 2 * c;
+          *reinterpret_cast<float2*>(dr + d) = make_float2(ge[0], ge[1]);
+          *reinterpret_cast<float2*>(dr + plane + d) = make_float2(go[0], go[1]);
+          *reinterpret_cast<float2*>(dr + 2 * plane + d) = make_float2(gt[0], gt[1]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // dW += x^T dZ over the tile's rows: the warp's WT tiles of m-tile mt
+    // (rows 16 mt .. of dW), k-step s the x rows of pairs 8 (s / 2) .. + 7,
+    // x_s for even s, x_o for odd; A[m][kk] = x[pair kk][16 mt + m], B[kk][n] = dZ
+    {
+      const int mt = warp * WT / NT, n0 = warp * WT % NT;
+#pragma unroll 2
+      for (int s = 0; s < 2 * B::PW; ++s) {
+        const int side = s & 1, p0 = 8 * (s >> 1) + c;
+        const T* X0 = buf + (size_t)(3 * p0 + side) * B::RS + 16 * mt + gq;
+        const T* T0 = buf + (size_t)(3 * p0 + 2) * B::RS + 16 * mt + gq;
+        const T* X1 = X0 + 12 * B::RS;  // pair p0 + 4
+        const T* T1 = T0 + 12 * B::RS;
+        const float x[4] = {rnd<T>(__fmul_rn(sm1(X0), sm1(T0))),
+                            rnd<T>(__fmul_rn(sm1(X0 + 8), sm1(T0 + 8))),
+                            rnd<T>(__fmul_rn(sm1(X1), sm1(T1))),
+                            rnd<T>(__fmul_rn(sm1(X1 + 8), sm1(T1 + 8)))};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split(x[i], ah[i], al[i]);
+        const float* z0 = dZs + (size_t)(side * B::TP + p0) * B::ZS + gq;
+        const float* z1 = z0 + 4 * B::ZS;
+#pragma unroll
+        for (int i = 0; i < WT; ++i) {
+          const int n = 8 * (n0 + i);
+          uint32_t bh0, bl0, bh1, bl1;
+          split(z0[n], bh0, bl0);
+          split(z1[n], bh1, bl1);
+          mma3<kExact, false>(aw[i], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    __syncthreads();  // the rows and dZ are restaged next
+    if constexpr (B::NBUF == 1)
+      if (t + gridDim.x < tiles) stage(t + gridDim.x, bufs);
+  }
+
+  // this block's partial sums [dW | db | dw2 | dpl]: dW from its fragments;
+  // the others over the 8 pairs of a warp (shuffles in a fixed tree), then
+  // over the warps in order through dZs' space
+  float* part = partial + (long long)blockIdx.x * npart(D);
+  {
+    const int mt = warp * WT / NT, n0 = warp * WT % NT;
+#pragma unroll
+    for (int i = 0; i < WT; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        part[(16 * mt + gq + 8 * (r / 2)) * D + 8 * (n0 + i) + 2 * c + r % 2] = aw[i][r];
+  }
+  float* red = dZs;  // [kWarps][3][D]
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[3] = {acc_b[j][h], acc_w2[j][h], acc_pl[j][h]};
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+        if (gq == 0) red[(warp * 3 + k) * D + 8 * j + 2 * c + h] = v[k];
+      }
+    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * D; i += kThreads) {
+    float s = 0.f;
+    for (int w = 0; w < B::PW; ++w) s = __fadd_rn(s, red[w * 3 * D + i]);
+    part[D * D + i] = s;
+  }
+}
+
+template <int D, typename T>
+int backward(const Pairs<T>& pr, const T* W, const T* b, const T* w2, const T* pl, const T* g,
+             float* rows, int* keys, float* partial, int blocks, cudaStream_t stream) {
+  const size_t smem = BwdTile<D, T>::SMEM;
+  if (blocks > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        backward_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    backward_kernel<D, T><<<blocks, kThreads, smem, stream>>>(pr, W, b, w2, pl, g, rows, keys,
+                                                               partial);
+  } else {
+    const cudaError_t e =
+        cudaMemsetAsync(partial, 0, (size_t)npart(D) * sizeof(float), stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+Pairs<T> pairs_of(const void* const* tabs, const void* const* ids, int n_src, int n, int N, int M,
+                  int overlapped) {
+  return {(const T*)tabs[0], (const T*)tabs[1], (const T*)tabs[2], (const T*)tabs[3],
+          (const T*)tabs[4], (const int*)ids[0], (const int*)ids[1], (const int*)ids[2],
+          (const int*)ids[3], n_src, n, N, M, overlapped};
+}
+
 }  // namespace
 
 // Each entry takes the operands' type code, dtype: 0 float32, 1 bfloat16, 2
 // float16 (every floating operand and output of one call has that type; the
-// partial sums stay float32), and the width D (32, 64 or 128); the pair (D,
-// dtype) picks the instance, and any other pair returns INVALID.
+// partial sums and the row scratch stay float32), and the width D (32, 64 or
+// 128); the pair (D, dtype) picks the instance, and any other pair returns
+// INVALID.
 #define DEEPAPF_DISPATCH(CALL, INVALID)                               \
   switch (dtype * 1000 + D) {                                         \
     case 32: return CALL(32, float);                                  \
@@ -983,15 +1364,21 @@ int grid(const T* share, const T* only, const T* other, const int* users, const 
 
 #define DEEPAPF_W(T) (const T*)W, (const T*)b, (const T*)w2, (const T*)pl
 
-// share, only, other: [P, D] gathered rows; mask: [P] bool; W [D, D], b
-// [D], w2 [D], pl [D]; out: [P] logits
-extern "C" int deepapf_forward(const void* share, const void* only, const void* other,
-                               const void* mask, const void* W, const void* b, const void* w2,
-                               const void* pl, int P, int D, void* out, int dtype,
-                               void* stream) {
-#define DEEPAPF_FWD(d, T)                                                                 \
-  forward<d, T>(gathered<T>(share, only, other, mask, P), DEEPAPF_W(T), (T*)out,   \
-                       (cudaStream_t)stream)
+// The pair entries' operands: tabs, the five tables' addresses (the entity
+// side's shared table [N, D], the source and the target domain's entity
+// tables [N, D], the source and the target domain's other-side tables [M,
+// D]); ids, four int32 arrays' (the source pairs' entity and other ids
+// [n_src], the target pairs' [n - n_src]); a pair's share logit is masked
+// where its entity id exceeds overlapped. W [D, D], b [D], w2 [D], pl [D].
+
+// out: [n] logits, the source pairs' first
+extern "C" int deepapf_forward(const void* const* tabs, const void* const* ids, int n_src, int n,
+                               int overlapped, const void* W, const void* b, const void* w2,
+                               const void* pl, int D, void* out, int dtype, void* stream) {
+  if (n < 0 || n_src < 0 || n_src > n) return (int)cudaErrorInvalidValue;
+#define DEEPAPF_FWD(d, T)                                                                  \
+  forward<d, T>(pairs_of<T>(tabs, ids, n_src, n, 0, 0, overlapped), DEEPAPF_W(T), (T*)out, \
+                (cudaStream_t)stream)
   DEEPAPF_DISPATCH(DEEPAPF_FWD, (int)cudaErrorInvalidValue)
 #undef DEEPAPF_FWD
 }
@@ -1011,27 +1398,49 @@ extern "C" int deepapf_grid(const void* share_tab, const void* only_tab, const v
 #undef DEEPAPF_GRID
 }
 
-// the backward's block count for P pairs (its partial-sum scratch has one
+// the backward's block count for n pairs (its partial-sum scratch has one
 // row per block), or minus a CUDA error code
-extern "C" int deepapf_backward_blocks(int D, int P, int dtype) {
+extern "C" int deepapf_backward_blocks(int D, int n, int dtype) {
 #define DEEPAPF_BLOCKS(d, T)                                                    \
-  persistent_blocks(backward_kernel<d, T>, smem_bytes<d>(true),                 \
-                    ((long long)P + Shape<d>::TP - 1) / Shape<d>::TP)
+  persistent_blocks(backward_kernel<d, T>, BwdTile<d, T>::SMEM,                 \
+                    ((long long)n + BwdTile<d, T>::TP - 1) / BwdTile<d, T>::TP)
   DEEPAPF_DISPATCH(DEEPAPF_BLOCKS, -(int)cudaErrorInvalidValue)
 #undef DEEPAPF_BLOCKS
 }
 
-// g: [P]; d_share, d_only, d_other: [P, D]; partial: float32 [max(blocks,
-// 1), D*D + 3D]; out: the summed weight gradients [dW | db | dw2 | dpl]
-extern "C" int deepapf_backward(const void* share, const void* only, const void* other,
-                                const void* mask, const void* W, const void* b, const void* w2,
-                                const void* pl, int P, int D, const void* g, void* d_share,
-                                void* d_only, void* d_other, void* partial, int blocks,
-                                void* out, int dtype, void* stream) {
-#define DEEPAPF_BWD(d, T)                                                                   \
-  backward<d, T>(gathered<T>(share, only, other, mask, P), DEEPAPF_W(T), (const T*)g,       \
-                 (T*)d_share, (T*)d_only, (T*)d_other, (float*)partial, blocks, (T*)out,     \
+// The backward's first launch. g: [n] the logits' gradients; rows: float32
+// [3, n, D] out, each pair's gradients of its shared, entity and other-side
+// rows; keys: int32 [2, n] out, each pair's entity id (+ N for a target
+// pair) and other id (+ M); partial: float32 [max(blocks, 1), D*D + 3D]
+extern "C" int deepapf_backward(const void* const* tabs, const void* const* ids, int n_src, int n,
+                                int N, int M, int overlapped, const void* W, const void* b,
+                                const void* w2, const void* pl, int D, const void* g, void* rows,
+                                void* keys, void* partial, int blocks, int dtype, void* stream) {
+  if (n < 0 || n_src < 0 || n_src > n || N < 0 || M < 0) return (int)cudaErrorInvalidValue;
+#define DEEPAPF_BWD(d, T)                                                                    \
+  backward<d, T>(pairs_of<T>(tabs, ids, n_src, n, N, M, overlapped), DEEPAPF_W(T),          \
+                 (const T*)g, (float*)rows, (int*)keys, (float*)partial, blocks,             \
                  (cudaStream_t)stream)
   DEEPAPF_DISPATCH(DEEPAPF_BWD, (int)cudaErrorInvalidValue)
 #undef DEEPAPF_BWD
+}
+
+// The backward's second launch. out: the summed weight gradients [dW | db |
+// dw2 | dpl]; rows: the first launch's; plan_e, plan_o: the groupings of its
+// keys over 2 N and 2 M rows (meta, head_row, head_start, head_len, pos,
+// row_head, big); grads: the five tables' gradients, in tabs' order, every
+// row written
+extern "C" int deepapf_backward_tables(const void* partial, int blocks, void* out, const void* rows,
+                                       int n, int D, const void* const* plan_e,
+                                       const void* const* plan_o, void* const* grads, int N,
+                                       int M, int dtype, void* stream) {
+  if (n < 0 || N < 0 || M < 0) return (int)cudaErrorInvalidValue;
+#define DEEPAPF_TABLES(d, T)                                                                 \
+  tables<d, T>((const float*)partial, blocks, (T*)out, (const float*)rows, n,                \
+               groups_view(plan_e), groups_view(plan_o),                                     \
+               TableGrads<T>{(T*)grads[0], (T*)grads[1], (T*)grads[2], (T*)grads[3],         \
+                             (T*)grads[4], N, M},                                            \
+               (cudaStream_t)stream)
+  DEEPAPF_DISPATCH(DEEPAPF_TABLES, (int)cudaErrorInvalidValue)
+#undef DEEPAPF_TABLES
 }

@@ -231,10 +231,12 @@ class CrossDomainRecommender(nn.Module):
         (``parallel/embedding.py``). The gather is ``F.embedding``, as in
         the training gathers of every model but NeuMF's
         (``models/dtcdr.py::_neumf_embeddings``) and SSCDR's loss
-        (``models/sscdr.py``), which still index: its backward adds a row's
-        gradient rows in an order the ids fix, on the CPU (where the index
-        gather's backward adds them by atomic adds over threads, in an order
-        that changes from run to run) and on the card."""
+        (``models/sscdr.py``), which still index, and DeepAPF's, which has
+        none (kernel B16 reads its tables by id and writes their gradients
+        itself): its backward adds a row's gradient rows in an order the ids
+        fix, on the CPU (where the index gather's backward adds them by
+        atomic adds over threads, in an order that changes from run to
+        run) and on the card."""
         table = getattr(self, name)
         shard = self.table_shards.get(name)
         if shard is None:

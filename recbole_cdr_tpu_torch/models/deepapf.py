@@ -10,8 +10,10 @@ loaded by the reference and used nowhere; so here.
 
 Every pair's logit goes through kernel B16 (``ops/deepapf_attention.py``):
 one forward and one backward launch per training step, both domains' pairs
-in one call; the gathers of the pairs' rows stay torch's, so their
-gradients scatter into the tables through the gathers' own autograd.
+in one call, which takes the five live tables and the pairs' ids (no gather
+and no concatenation of rows): the kernels read each row by id, and the
+backward writes the tables' gradients itself, each row summed in a fixed
+order from the plan of the step's ids.
 
 No full-sort form, as in JAX: the trainer scores full-sort evaluation
 through :meth:`predict_grid`, the predict fallback, which scores a whole
@@ -33,7 +35,13 @@ from recbole_cdr_tpu_torch.models.base import (
     init_embedding,
     xavier_normal,
 )
-from recbole_cdr_tpu_torch.ops.deepapf_attention import Weights, deepapf_attention, deepapf_grid
+from recbole_cdr_tpu_torch.ops.deepapf_attention import (
+    Pairs,
+    Tables,
+    Weights,
+    deepapf_attention,
+    deepapf_grid,
+)
 from recbole_cdr_tpu_torch.utils.enums import InputType
 
 
@@ -88,27 +96,33 @@ class DeepAPF(CrossDomainRecommender):
         mlp = getattr(self, f"{self._entity}_mlp")
         return Weights(mlp[0].w, mlp[0].b, mlp[1].w, self.predict_layer)
 
-    def _rows(self, user, item, domain: str):
-        """(share, only, other rows, mask) of the pairs (user, item) of
-        ``domain``."""
-        user, item = user.long(), item.long()
-        if self._entity == "user":
-            ent, oth, n_ov = user, item, self.overlapped_num_users
-            other = getattr(self, f"{domain}_item_embedding")[oth]
-        else:
-            ent, oth, n_ov = item, user, self.overlapped_num_items
-            other = getattr(self, f"{domain}_user_embedding")[oth]
+    @property
+    def _overlapped(self) -> int:
+        return self.overlapped_num_users if self._entity == "user" else self.overlapped_num_items
+
+    def _tables(self, source: str = "source") -> Tables:
+        """The entity side's shared table, then each domain's entity and
+        other-side tables (``source``'s in the source slots: "target" for a
+        call of target pairs alone)."""
         side = self._entity
-        share = getattr(self, f"share_{side}_embedding")[ent]
-        only = getattr(self, f"{domain}_{side}_embedding")[ent]
-        return share, only, other, ent > n_ov  # strict >, as the reference's
+        other = "item" if side == "user" else "user"
+        return Tables(getattr(self, f"share_{side}_embedding"),
+                      getattr(self, f"{source}_{side}_embedding"),
+                      getattr(self, f"target_{side}_embedding"),
+                      getattr(self, f"{source}_{other}_embedding"),
+                      getattr(self, f"target_{other}_embedding"))
+
+    def _ids(self, user, item):
+        """(entity ids, other ids) of the pairs (user, item), int32."""
+        user, item = user.to(torch.int32), item.to(torch.int32)
+        return (user, item) if self._entity == "user" else (item, user)
 
     def loss(self, batch, rng=None):
         """Both domains' pairs through one B16 call."""
-        s = self._rows(batch[self.SOURCE_USER_ID], batch[self.SOURCE_ITEM_ID], "source")
-        t = self._rows(batch[self.TARGET_USER_ID], batch[self.TARGET_ITEM_ID], "target")
-        logits = deepapf_attention(*(torch.cat(pair) for pair in zip(s, t)), self._weights())
-        n = s[0].shape[0]
+        pairs = Pairs(*self._ids(batch[self.SOURCE_USER_ID], batch[self.SOURCE_ITEM_ID]),
+                      *self._ids(batch[self.TARGET_USER_ID], batch[self.TARGET_ITEM_ID]))
+        logits = deepapf_attention(self._tables(), pairs, self._overlapped, self._weights())
+        n = pairs.ent_src.shape[0]
         return (bce_loss(logits[:n], batch[self.SOURCE_LABEL], batch["source_sample_weight"])
                 + bce_loss(logits[n:], batch[self.TARGET_LABEL], batch["target_sample_weight"]))
 
@@ -116,19 +130,17 @@ class DeepAPF(CrossDomainRecommender):
         return self.loss
 
     def predict(self, batch):
-        rows = self._rows(batch[self.TARGET_USER_ID], batch[self.TARGET_ITEM_ID], "target")
-        return torch.sigmoid(deepapf_attention(*rows, self._weights()))
+        ent, oth = self._ids(batch[self.TARGET_USER_ID], batch[self.TARGET_ITEM_ID])
+        pairs = Pairs(ent[:0], oth[:0], ent, oth)
+        return torch.sigmoid(deepapf_attention(self._tables("target"), pairs, self._overlapped,
+                                               self._weights()))
 
     def predict_grid(self, users, items):
         """Probabilities of the target pairs ``users [B]`` x ``items [I]`` in
         one launch of B16's grid form."""
-        side = self._entity
-        other = "item" if side == "user" else "user"
-        n_ov = self.overlapped_num_users if side == "user" else self.overlapped_num_items
-        return deepapf_grid(getattr(self, f"share_{side}_embedding"),
-                            getattr(self, f"target_{side}_embedding"),
-                            getattr(self, f"target_{other}_embedding"),
-                            users, items, n_ov, side == "item", self._weights())
+        tabs = self._tables("target")
+        return deepapf_grid(tabs.share, tabs.only_tgt, tabs.other_tgt, users, items,
+                            self._overlapped, self._entity == "item", self._weights())
 
     def full_sort_fn(self, phase: str = "TARGET"):
         """None: the trainer scores through the predict fallback."""

@@ -108,10 +108,11 @@ _SIGNATURES = {
     "benchmark_topk": {"benchmark_topk": [_P] * 4 + [_I] * 5 + [_P] * 6},
     "conet_tower": {"conet_tower": [_P, _P, _P, _I, _I, _P] + [_I] * 7 + [_P, _I, _P]},
     "deepapf_attention": {
-        "deepapf_forward": [_P] * 8 + [_I, _I, _P, _I, _P],
+        "deepapf_forward": [_P, _P, _I, _I, _I] + [_P] * 4 + [_I, _P, _I, _P],
         "deepapf_grid": [_P] * 5 + [_I] * 4 + [_P] * 4 + [_I, _P, _I, _P],
         "deepapf_backward_blocks": [_I, _I, _I],
-        "deepapf_backward": [_P] * 8 + [_I, _I] + [_P] * 5 + [_I, _P, _I, _P],
+        "deepapf_backward": [_P, _P] + [_I] * 5 + [_P] * 4 + [_I] + [_P] * 4 + [_I, _I, _P],
+        "deepapf_backward_tables": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P],
     },
     "row_groups": {
         "row_groups_plan": [_I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P],

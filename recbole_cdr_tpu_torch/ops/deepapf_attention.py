@@ -7,18 +7,29 @@ row ``e`` and its domain-only row ``o``, and the other side's row ``t``:
 
 - ``a_s = relu((e * t) @ W + b) @ w2`` and ``a_o = relu((o * t) @ W + b) @
   w2`` (the attention MLP, ``w2`` without bias);
-- ``a_s`` is -1e31 where the entity does not overlap (``mask``: the
-  caller's ``id > overlapped_num``, strict as the reference's);
+- ``a_s`` is -1e31 where the entity does not overlap (its id exceeds the
+  overlapped count: the reference's strict ``id > overlapped_num``);
 - ``(al_s, al_o) = softmax(a_s, a_o)``, ``ent = al_s e + al_o o``;
 - ``logit = (ent * t) @ pl`` (``pl``: the model's ``predict_layer``).
 
-Three wrappers, each counting its calls that launch:
+A training call takes both domains' pairs at once, as the tables and the
+ids (:class:`Tables`, :class:`Pairs`): the source pairs first, each reading
+the entity side's shared table and the source domain's entity and
+other-side tables by id, then the target pairs, reading the target
+domain's. The kernels read every row from the tables by id; no gathered
+row set exists.
 
-- :func:`deepapf_forward`: logits [P] of P gathered pairs;
-- :func:`deepapf_backward`: the gradients of the three row sets [P, D] and
-  of ``W``, ``b``, ``w2``, ``pl`` (summed over the pairs, block partials
-  added in block order: bit-equal from run to run); the scatter of the row
-  gradients into the tables stays the gathers' own autograd;
+Five wrappers, each counting its calls that launch:
+
+- :func:`deepapf_forward`: logits [P] of the pairs;
+- :func:`deepapf_backward`: the gradients of the five tables, every row
+  written (0 where no pair names it; dense Adam reads whole tables), each
+  row's terms summed in float32 in position order from the grouping of the
+  step's ids (``ops/row_groups.py::group_rows``, one launch for the entity
+  and the other keys, each on a ``RowPlan`` kept in :data:`_PLANS`) and
+  rounded once to the tables' type (a popular row in segments of 32 terms,
+  then the segments' sums in order), and of ``W``, ``b``, ``w2``, ``pl``
+  (block partials added in block order): bit-equal from run to run;
 - :func:`deepapf_grid`: sigmoid probabilities [B, I] of users [B] x items
   [I], the rows read from the tables by id (the predict fallback's tile; no
   [B I, D] pair tensor exists), in 2-D tiles of at most 8 users x 16 items
@@ -28,29 +39,33 @@ Three wrappers, each counting its calls that launch:
 :func:`deepapf_attention` is the differentiable form.
 
 Under ``compute_dtype: bfloat16`` every floating operand is 16-bit (the
-rows, the tables, the weights, the logits' gradient) and so is every
-output. The 16-bit forms (``*_bf16``, float16 through the same templates)
-sum in float32 and round to the operands' type where JAX's bf16 ``_forward``
-has a named intermediate: ``x_s`` and ``x_o``, ``x @ W + b``, the ``a``s,
-``alpha`` after the softmax, ``entity_e``, the logit, and the grid's
-sigmoid. Their backward is the float32 chain rule on those rounded values
-(a rounding passes its gradient through unchanged; the softmax's slope at
-its unrounded value), each gradient rounded once to the operands' type. The
-masked share logit stays the float32 -1e31 inside, so under float16, where
-JAX's -1e31 is -inf, ``alpha`` is 0 all the same and no NaN arises.
+tables, the weights, the logits' gradient) and so is every output. The
+16-bit forms (``*_bf16``, float16 through the same templates) sum in float32
+and round to the operands' type where JAX's bf16 ``_forward`` has a named
+intermediate: ``x_s`` and ``x_o``, ``x @ W + b``, the ``a``s, ``alpha``
+after the softmax, ``entity_e``, the logit, and the grid's sigmoid. Their
+backward is the float32 chain rule on those rounded values (a rounding
+passes its gradient through unchanged; the softmax's slope at its unrounded
+value), each gradient rounded once to the operands' type. The masked share
+logit stays the float32 -1e31 inside, so under float16, where JAX's -1e31 is
+-inf, ``alpha`` is 0 all the same and no NaN arises.
 
 The kernels are ``csrc/deepapf_attention.cu``; the plain versions below run
-for CPU tensors and serve as the kernels' reference (the plain backward is
-autograd through the plain forward).
+for CPU tensors and serve as the kernels' reference (the plain gathers are
+``F.embedding``, whose backward adds a row's terms in position order; the
+plain backward is autograd through the plain forward).
 """
 
+import ctypes
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from recbole_cdr_tpu_torch.ops import build
 # B9's checks and widths (D 32, 64, 128) serve B16's kernels too
 from recbole_cdr_tpu_torch.ops.natr_attention import WIDTHS, _aligned, _on_card  # noqa: F401
+from recbole_cdr_tpu_torch.ops.row_groups import RowPlan, group_rows
 
 #: the masked share logit (`deepapf.py:82,94`)
 MASKED = -1e31
@@ -70,6 +85,28 @@ class Weights(NamedTuple):
     pl: torch.Tensor
 
 
+class Tables(NamedTuple):
+    """A call's tables: the entity side's shared table [N, D], each domain's
+    entity table [N, D] and other-side table [M, D]."""
+
+    share: torch.Tensor
+    only_src: torch.Tensor
+    only_tgt: torch.Tensor
+    other_src: torch.Tensor
+    other_tgt: torch.Tensor
+
+
+class Pairs(NamedTuple):
+    """A call's pairs as int32 ids, the source domain's first: each
+    domain's entity ids and other-side ids (``ent_src``, ``oth_src`` [P_s];
+    ``ent_tgt``, ``oth_tgt`` [P_t])."""
+
+    ent_src: torch.Tensor
+    oth_src: torch.Tensor
+    ent_tgt: torch.Tensor
+    oth_tgt: torch.Tensor
+
+
 # ------------------------------------------------------------------ plain
 
 def _logits(share, only, other, mask, w: Weights, r):
@@ -85,20 +122,40 @@ def _logits(share, only, other, mask, w: Weights, r):
     return r((ent * other) @ w.pl).squeeze(-1)
 
 
-def deepapf_forward_plain(share, only, other, mask, w: Weights):
-    """Logits [P] of the pairs in the operands' type (JAX's formula in torch,
+def _gather(tabs: Tables, pairs: Pairs):
+    """(shared, entity, other-side rows [P, D], entity ids [P]) of the
+    pairs, by ``F.embedding``: the shared table's rows in one gather over
+    both domains' ids, so its backward adds a row's terms in position
+    order."""
+    ent = torch.cat([pairs.ent_src, pairs.ent_tgt]).long()
+
+    def two(src, tgt, a, b):
+        return torch.cat([F.embedding(a.long(), src), F.embedding(b.long(), tgt)])
+
+    return (F.embedding(ent, tabs.share),
+            two(tabs.only_src, tabs.only_tgt, pairs.ent_src, pairs.ent_tgt),
+            two(tabs.other_src, tabs.other_tgt, pairs.oth_src, pairs.oth_tgt), ent)
+
+
+def deepapf_forward_plain(tabs: Tables, pairs: Pairs, overlapped: int, w: Weights):
+    """Logits [P] of the pairs in the tables' type (JAX's formula in torch,
     in float32 for 16-bit operands, rounded as they compute)."""
-    dtype = share.dtype
-    share, only, other, *ws = (t.to(build.wide(dtype)) for t in (share, only, other, *w))
-    return _logits(share, only, other, mask, Weights(*ws), build.rounding(dtype)).to(dtype)
+    dtype = tabs.share.dtype
+    wide = build.wide(dtype)
+    share, only, other, ent = _gather(tabs, pairs)
+    return _logits(share.to(wide), only.to(wide), other.to(wide), ent > overlapped,
+                   Weights(*(t.to(wide) for t in w)), build.rounding(dtype)).to(dtype)
 
 
-def deepapf_backward_plain(share, only, other, mask, w: Weights, g):
-    dtype = share.dtype
+def deepapf_backward_plain(tabs: Tables, pairs: Pairs, overlapped: int, w: Weights, g):
+    """(d_share, d_only_src, d_only_tgt, d_other_src, d_other_tgt, dW, db,
+    dw2, dpl) in the tables' type: autograd through the plain forward on
+    the tables widened whole, each gradient rounded once."""
+    dtype = tabs.share.dtype
     with torch.enable_grad():
-        leaves = [t.detach().to(build.wide(dtype)).requires_grad_()
-                  for t in (share, only, other, *w)]
-        logit = _logits(leaves[0], leaves[1], leaves[2], mask, Weights(*leaves[3:]),
+        leaves = [t.detach().to(build.wide(dtype)).requires_grad_() for t in (*tabs, *w)]
+        share, only, other, ent = _gather(Tables(*leaves[:5]), pairs)
+        logit = _logits(share, only, other, ent > overlapped, Weights(*leaves[5:]),
                         build.rounding(dtype))
         grads = torch.autograd.grad(logit, leaves, g.to(logit.dtype))
     return tuple(x.to(dtype) for x in grads)
@@ -141,15 +198,19 @@ def _check_weights(what: str, D: int, w: Weights):
             raise ValueError(f"{what}: {name} {tuple(t.shape)}, want {want[name]}")
 
 
-def _check_pairs(share, only, other, mask, w: Weights, *extra, types=tuple(build.DTYPES)):
+def _check_pairs(tabs: Tables, pairs: Pairs, w: Weights, *extra, types=tuple(build.DTYPES)):
+    share, other = tabs.share, tabs.other_src
     D = share.shape[1] if share.dim() == 2 else -1
-    if share.dim() != 2 or only.shape != share.shape or other.shape != share.shape:
-        raise ValueError(f"deepapf_attention: share {tuple(share.shape)}, only "
-                         f"{tuple(only.shape)}, other {tuple(other.shape)}")
-    if mask.dtype != torch.bool or mask.shape != (share.shape[0],):
-        raise ValueError("deepapf_attention takes a bool mask [P]")
+    if (share.dim() != 2 or tabs.only_src.shape != share.shape or tabs.only_tgt.shape != share.shape
+            or other.dim() != 2 or other.shape[1] != D or tabs.other_tgt.shape != other.shape):
+        raise ValueError("deepapf_attention: tables "
+                         + ", ".join(str(tuple(t.shape)) for t in tabs))
+    if any(t.dtype != torch.int32 or t.dim() != 1 for t in pairs):
+        raise TypeError("deepapf_attention takes 1-D int32 ids")
+    if pairs.oth_src.shape != pairs.ent_src.shape or pairs.oth_tgt.shape != pairs.ent_tgt.shape:
+        raise ValueError("deepapf_attention: one entity and one other id a pair")
     _check_weights("deepapf_attention", D, w)
-    return _on_card("deepapf_attention", D, (share, only, other, *w, *extra), (mask,), types)
+    return _on_card("deepapf_attention", D, (*tabs, *w, *extra), pairs, types)
 
 
 def _check_grid(share_tab, only_tab, other_tab, users, items, w: Weights, types):
@@ -166,26 +227,41 @@ def _check_grid(share_tab, only_tab, other_tab, users, items, w: Weights, types)
 
 # --------------------------------------------------------------- wrappers
 
-def _forward(share, only, other, mask, w: Weights, name):
-    keep = _aligned(share, only, other, mask, w.W, w.b, w.w2, w.pl)
-    P, D = share.shape
-    out = torch.empty(P, dtype=share.dtype, device=share.device)
+def _addresses(tensors):
+    """A C array of the tensors' addresses."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _operands(tabs: Tables, pairs: Pairs, w: Weights):
+    """(the tables, the ids and the weights, contiguous and 16-byte aligned
+    where the kernels load 16 bytes; the source pairs; all pairs)."""
+    keep = _aligned(*tabs, *w)
+    ids = [t.contiguous() for t in pairs]
+    n_src = ids[0].shape[0]
+    return keep[:5], ids, keep[5:], n_src, n_src + ids[2].shape[0]
+
+
+def _forward(tabs: Tables, pairs: Pairs, overlapped, w: Weights, name):
+    tables, ids, ws, n_src, n = _operands(tabs, pairs, w)
+    D = tabs.share.shape[1]
+    out = torch.empty(n, dtype=tabs.share.dtype, device=tabs.share.device)
     err = build.library("deepapf_attention").deepapf_forward(
-        *(x.data_ptr() for x in keep), P, D, out.data_ptr(), build.DTYPES[share.dtype],
-        build.stream_handle(share))
+        _addresses(tables), _addresses(ids), n_src, n, int(overlapped),
+        *(x.data_ptr() for x in ws), D, out.data_ptr(), build.DTYPES[tabs.share.dtype],
+        build.stream_handle(out))
     build.check(err, name)
     return out
 
 
-def deepapf_forward(share, only, other, mask, w: Weights):
-    """Logits [P] of the pairs (row p of ``share``, ``only``, ``other``;
-    ``mask[p]`` masks the pair's share logit), in the operands' type; 16-bit
-    operands go to :func:`deepapf_forward_bf16`."""
-    if not _check_pairs(share, only, other, mask, w):
-        return deepapf_forward_plain(share, only, other, mask, w)
-    if share.dtype != torch.float32:
-        return deepapf_forward_bf16(share, only, other, mask, w)
-    out = _forward(share, only, other, mask, w, "deepapf_forward")
+def deepapf_forward(tabs: Tables, pairs: Pairs, overlapped: int, w: Weights):
+    """Logits [P_s + P_t] of the pairs, the source pairs' first, in the
+    tables' type; a pair's share logit is masked where its entity id exceeds
+    ``overlapped``. 16-bit operands go to :func:`deepapf_forward_bf16`."""
+    if not _check_pairs(tabs, pairs, w):
+        return deepapf_forward_plain(tabs, pairs, overlapped, w)
+    if tabs.share.dtype != torch.float32:
+        return deepapf_forward_bf16(tabs, pairs, overlapped, w)
+    out = _forward(tabs, pairs, overlapped, w, "deepapf_forward")
     deepapf_forward.launches += 1
     return out
 
@@ -193,12 +269,12 @@ def deepapf_forward(share, only, other, mask, w: Weights):
 deepapf_forward.launches = 0
 
 
-def deepapf_forward_bf16(share, only, other, mask, w: Weights):
+def deepapf_forward_bf16(tabs: Tables, pairs: Pairs, overlapped: int, w: Weights):
     """B16's 16-bit forward: bfloat16 (or float16) operands, float32 sums,
     logits rounded at JAX's bf16 intermediates."""
-    if not _check_pairs(share, only, other, mask, w, types=build.FLOAT16):
-        return deepapf_forward_plain(share, only, other, mask, w)
-    out = _forward(share, only, other, mask, w, "deepapf_forward_bf16")
+    if not _check_pairs(tabs, pairs, w, types=build.FLOAT16):
+        return deepapf_forward_plain(tabs, pairs, overlapped, w)
+    out = _forward(tabs, pairs, overlapped, w, "deepapf_forward_bf16")
     deepapf_forward_bf16.launches += 1
     return out
 
@@ -206,37 +282,62 @@ def deepapf_forward_bf16(share, only, other, mask, w: Weights):
 deepapf_forward_bf16.launches = 0
 
 
-def _backward(share, only, other, mask, w: Weights, g, name):
-    if g.shape != (share.shape[0],):
+#: per (device, rows, 0 for the entity keys or 1 for the other keys), the
+#: kept plan of the backward's groupings
+_PLANS = {}
+
+
+def _plan(device, rows: int, slot: int, capacity: int) -> RowPlan:
+    key = (device, rows, slot)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = RowPlan(rows, device, capacity=capacity)
+    return plan
+
+
+def _backward(tabs: Tables, pairs: Pairs, overlapped, w: Weights, g, name):
+    """Launch (1) writes each pair's row gradients (float32) and keys, the
+    plan groups the keys (one ``group_rows`` launch), launch (2) writes the
+    five tables' gradients and adds the weights'."""
+    tables, ids, ws, n_src, n = _operands(tabs, pairs, w)
+    if g.shape != (n,):
         raise ValueError(f"{name}: one gradient per pair")
-    keep = _aligned(share, only, other, mask, w.W, w.b, w.w2, w.pl, g)
-    P, D = share.shape
-    d_rows = [torch.empty(P, D, dtype=share.dtype, device=share.device) for _ in range(3)]
+    g = g.contiguous()
+    dev, dtype, code = g.device, tabs.share.dtype, build.DTYPES[tabs.share.dtype]
+    (N, D), M = tabs.share.shape, tabs.other_src.shape[0]
     n_part = D * D + 3 * D
-    lib = build.library("deepapf_attention")
-    blocks = lib.deepapf_backward_blocks(D, P, build.DTYPES[share.dtype])
+    lib, stream = build.library("deepapf_attention"), build.stream_handle(g)
+    blocks = lib.deepapf_backward_blocks(D, n, code)
     if blocks < 0:
         build.check(-blocks, name)
-    partial = torch.empty(max(blocks, 1), n_part, dtype=torch.float32, device=share.device)
-    flat = torch.empty(n_part, dtype=share.dtype, device=share.device)
-    err = lib.deepapf_backward(*(x.data_ptr() for x in keep[:8]), P, D, keep[8].data_ptr(),
-                               *(x.data_ptr() for x in d_rows), partial.data_ptr(), blocks,
-                               flat.data_ptr(), build.DTYPES[share.dtype],
-                               build.stream_handle(share))
-    build.check(err, name)
+    rows = torch.empty(3, n, D, dtype=torch.float32, device=dev)
+    keys = torch.empty(2, n, dtype=torch.int32, device=dev)
+    partial = torch.empty(max(blocks, 1), n_part, dtype=torch.float32, device=dev)
+    build.check(lib.deepapf_backward(
+        _addresses(tables), _addresses(ids), n_src, n, N, M, int(overlapped),
+        *(x.data_ptr() for x in ws), D, g.data_ptr(), rows.data_ptr(), keys.data_ptr(),
+        partial.data_ptr(), blocks, code, stream), name)
+    ge, go = group_rows(keys[0], _plan(dev, 2 * N, 0, n),
+                        second=(keys[1], _plan(dev, 2 * M, 1, n)))
+    grads = [torch.empty(t.shape, dtype=dtype, device=dev) for t in tables]
+    flat = torch.empty(n_part, dtype=dtype, device=dev)
+    build.check(lib.deepapf_backward_tables(
+        partial.data_ptr(), blocks, flat.data_ptr(), rows.data_ptr(), n, D, ge.pointers(),
+        go.pointers(), _addresses(grads), N, M, code, stream), name)
     dW, db, dw2, dpl = torch.split(flat, [D * D, D, D, D])
-    return (*d_rows, dW.reshape(D, D), db, dw2.reshape(D, 1), dpl.reshape(D, 1))
+    return (*grads, dW.reshape(D, D), db, dw2.reshape(D, 1), dpl.reshape(D, 1))
 
 
-def deepapf_backward(share, only, other, mask, w: Weights, g):
-    """(d_share, d_only, d_other, dW, db, dw2, dpl) from the gradient ``g``
-    [P] of the logits, in the operands' type; 16-bit operands go to
+def deepapf_backward(tabs: Tables, pairs: Pairs, overlapped: int, w: Weights, g):
+    """(d_share, d_only_src, d_only_tgt, d_other_src, d_other_tgt, dW, db,
+    dw2, dpl) from the gradient ``g`` [P] of the logits, in the tables' type,
+    every table row written; 16-bit operands go to
     :func:`deepapf_backward_bf16`."""
-    if not _check_pairs(share, only, other, mask, w, g):
-        return deepapf_backward_plain(share, only, other, mask, w, g)
-    if share.dtype != torch.float32:
-        return deepapf_backward_bf16(share, only, other, mask, w, g)
-    out = _backward(share, only, other, mask, w, g, "deepapf_backward")
+    if not _check_pairs(tabs, pairs, w, g):
+        return deepapf_backward_plain(tabs, pairs, overlapped, w, g)
+    if tabs.share.dtype != torch.float32:
+        return deepapf_backward_bf16(tabs, pairs, overlapped, w, g)
+    out = _backward(tabs, pairs, overlapped, w, g, "deepapf_backward")
     deepapf_backward.launches += 1
     return out
 
@@ -244,12 +345,13 @@ def deepapf_backward(share, only, other, mask, w: Weights, g):
 deepapf_backward.launches = 0
 
 
-def deepapf_backward_bf16(share, only, other, mask, w: Weights, g):
+def deepapf_backward_bf16(tabs: Tables, pairs: Pairs, overlapped: int, w: Weights, g):
     """B16's 16-bit backward: the float32 chain rule on the forward's rounded
-    values, float32 partial sums, each gradient rounded once."""
-    if not _check_pairs(share, only, other, mask, w, g, types=build.FLOAT16):
-        return deepapf_backward_plain(share, only, other, mask, w, g)
-    out = _backward(share, only, other, mask, w, g, "deepapf_backward_bf16")
+    values, each table row and each weight gradient summed in float32 and
+    rounded once."""
+    if not _check_pairs(tabs, pairs, w, g, types=build.FLOAT16):
+        return deepapf_backward_plain(tabs, pairs, overlapped, w, g)
+    out = _backward(tabs, pairs, overlapped, w, g, "deepapf_backward_bf16")
     deepapf_backward_bf16.launches += 1
     return out
 
@@ -308,19 +410,20 @@ deepapf_grid_bf16.launches = 0
 
 class _DeepAPFAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, share, only, other, W, b, w2, pl, mask):
-        ctx.save_for_backward(share, only, other, W, b, w2, pl)
-        ctx.mask = mask
-        return deepapf_forward(share, only, other, mask, Weights(W, b, w2, pl))
+    def forward(ctx, pairs, overlapped, *floats):
+        ctx.save_for_backward(*floats)
+        ctx.pairs, ctx.overlapped = pairs, overlapped
+        return deepapf_forward(Tables(*floats[:5]), pairs, overlapped, Weights(*floats[5:]))
 
     @staticmethod
     def backward(ctx, g):
-        share, only, other, *w = ctx.saved_tensors
-        grads = deepapf_backward(share, only, other, ctx.mask, Weights(*w), g.contiguous())
-        return (*grads, None)
+        floats = ctx.saved_tensors
+        grads = deepapf_backward(Tables(*floats[:5]), ctx.pairs, ctx.overlapped,
+                                 Weights(*floats[5:]), g)
+        return (None, None, *grads)
 
 
-def deepapf_attention(share, only, other, mask, w: Weights):
-    """Differentiable logits [P]: gradients reach the three row sets and the
-    four weights."""
-    return _DeepAPFAttention.apply(share, only, other, *w, mask)
+def deepapf_attention(tabs: Tables, pairs: Pairs, overlapped: int, w: Weights):
+    """Differentiable logits [P_s + P_t] of the pairs: gradients reach the
+    five tables (whole, as dense Adam reads them) and the four weights."""
+    return _DeepAPFAttention.apply(pairs, overlapped, *tabs, *w)

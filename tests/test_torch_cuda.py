@@ -45,8 +45,9 @@ the mesh-sharded streaming top-k (its local stage at each shard's offset,
 then its merge), against its plain version and one B5 (or B13) call over
 the whole table, pad rows past the items included; and CMF over a one-rank
 NCCL mesh through the entry point. B16, DeepAPF's attention-gated score
-(forward, backward and grid) at every kernel width, partial tiles, masked
-pairs and the overlapped count's boundary, the grid's 2-D tiles ragged in
+(forward and backward from the five tables and both domains' ids, and the
+grid) at every kernel width, partial tiles, masked entities and the
+overlapped count's boundary, the grid's 2-D tiles ragged in
 both directions with every entity masked or none, in float32 and float16; B15, CoNet's tower, at the
 published tower, widths padded to a multiple of 4, a one-layer tower and
 the largest (weights staged layer by layer), a saturating call; both
@@ -1414,27 +1415,48 @@ def _b16_weights(gen, D):
                    r(D, 1, scale=0.3))
 
 
+def _b16_call(gen, D, P, dtype=torch.float32, scale=0.3, overlapped=3600):
+    """B16's operands for P pairs, the first (P + 1) // 2 the source
+    domain's, on five tables (6,000 entity rows, 5,000 other-side rows),
+    random ids with the overlapped count and the one above it first (40% of
+    the entities masked), and the logits' gradient: ((tables, pairs,
+    overlapped, weights), gradient, entity ids)."""
+    N, M = 6000, 5000
+    tabs = b16.Tables(*((scale * torch.randn(n, D, device="cuda", generator=gen)).to(dtype)
+                        for n in (N, N, N, M, M)))
+    ent, oth = _ints(0, N, (P,), gen), _ints(0, M, (P,), gen)
+    if overlapped >= 0:
+        ent[:2] = torch.tensor([overlapped, overlapped + 1], device="cuda")[:min(2, P)]
+    n_src = (P + 1) // 2
+    pairs = b16.Pairs(ent[:n_src], oth[:n_src], ent[n_src:], oth[n_src:])
+    w = b16.Weights(*(t.to(dtype) for t in _b16_weights(gen, D)))
+    g = torch.randn(P, device="cuda", generator=gen).to(dtype)
+    return (tabs, pairs, overlapped, w), g, ent
+
+
+def _share_rows(ent, overlapped):
+    """(the masked entities, the unmasked ones) of the call's ids."""
+    return (torch.unique(ent[ent > overlapped].long()),
+            torch.unique(ent[ent <= overlapped].long()))
+
+
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("P", [16_384, 37, 1])
 def test_deepapf_attention_matches_plain(gen, D, P):
-    """B16's forward and backward against their plain versions, every tile
-    size's tail, the masked pairs' share rows exactly without gradient,
-    two runs bit-equal."""
-    from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
-
-    rows = [0.3 * torch.randn(P, D, device="cuda", generator=gen) for _ in range(3)]
-    mask = torch.rand(P, device="cuda", generator=gen) < 0.4
-    mask[0] = False
-    w = _b16_weights(gen, D)
-    g = torch.randn(P, device="cuda", generator=gen)
-    a = b16.deepapf_forward(*rows, mask, w)
-    _b16_close(a, b16.deepapf_forward_plain(*rows, mask, w), "forward")
-    assert torch.equal(a, b16.deepapf_forward(*rows, mask, w))
-    ka = b16.deepapf_backward(*rows, mask, w, g)
-    for x, y in zip(ka, b16.deepapf_backward_plain(*rows, mask, w, g)):
+    """B16's forward and backward from the five tables and both domains'
+    ids against their plain versions, every tile size's tail, the masked
+    entities' share rows exactly without gradient, two runs bit-equal."""
+    args, g, ent = _b16_call(gen, D, P)
+    a = b16.deepapf_forward(*args)
+    _b16_close(a, b16.deepapf_forward_plain(*args), "forward")
+    assert torch.equal(a, b16.deepapf_forward(*args))
+    ka = b16.deepapf_backward(*args, g)
+    for x, y in zip(ka, b16.deepapf_backward_plain(*args, g)):
+        assert x.shape == y.shape
         _b16_close(x, y, "backward")
-    assert not ka[0][mask].any() and ka[0][~mask].any()
-    assert all(torch.equal(x, y) for x, y in zip(ka, b16.deepapf_backward(*rows, mask, w, g)))
+    masked, named = _share_rows(ent, args[2])
+    assert not ka[0][masked].any() and ka[0][named].any()
+    assert all(torch.equal(x, y) for x, y in zip(ka, b16.deepapf_backward(*args, g)))
 
 
 @pytest.mark.parametrize("D", [32, 64, 128])
@@ -1489,12 +1511,8 @@ def test_deepapf_grid_tiles_match_plain(gen, B, I, D, entity_is_item, dtype):
 
 
 def test_deepapf_rejects_other_widths(gen):
-    from recbole_cdr_tpu_torch.ops import deepapf_attention as b16
-
-    rows = [torch.randn(8, 48, device="cuda", generator=gen) for _ in range(3)]
-    mask = torch.zeros(8, dtype=torch.bool, device="cuda")
     with pytest.raises(ValueError, match="widths"):
-        b16.deepapf_forward(*rows, mask, _b16_weights(gen, 48))
+        b16.deepapf_forward(*_b16_call(gen, 48, 8)[0])
 
 
 def _b15_case(gen, H0, later, B, I):
@@ -1546,16 +1564,18 @@ def test_conet_tower_rejects_wide_towers(gen):
 
 @pytest.mark.parametrize("model", ["CLFM", "DeepAPF", "CoNet"])
 def test_both_phase_models_on_the_card(gen, tmp_path, monkeypatch, model):
-    """CLFM (dense full-sort), DeepAPF (B16 in training and the predict
-    fallback's grid) and CoNet (B15 in the dense full-sort): K2, K3 and K4
-    and the model's kernels, no other."""
+    """CLFM (dense full-sort), DeepAPF (B16 in training, the plan of each
+    backward's keys, and the predict fallback's grid) and CoNet (B15 in the
+    dense full-sort): K2, K3 and K4 and the model's kernels, no other."""
     counts = _run_on_the_card(tmp_path, monkeypatch, model=model)
     path = ("neg_sampler", "swap_or_not", "masked_topk")
-    path += {"CLFM": (), "DeepAPF": ("deepapf_forward", "deepapf_backward", "deepapf_grid"),
+    path += {"CLFM": (), "DeepAPF": ("deepapf_forward", "deepapf_backward", "group_rows",
+                                     "deepapf_grid"),
              "CoNet": ("conet_tower",)}[model]
     assert all(counts[k] > 0 for k in path), counts
     assert all(counts[k] == 0 for k in counts if k not in path), counts
     assert counts.get("deepapf_forward", 0) == counts.get("deepapf_backward", 0)
+    assert counts.get("group_rows", 0) == counts.get("deepapf_backward", 0)
 
 
 # ---- the 16-bit forms of B8, B9 and B11 (compute_dtype: bfloat16) ----------
@@ -1796,13 +1816,6 @@ def test_rating_vector_bf16_matches_plain(gen, R, N, D, B, same, dtype):
 
 # ---- the 16-bit forms of B16 and B15 ---------------------------------------
 
-def _b16_16(gen, D, dtype, P):
-    rows = [(0.3 * torch.randn(P, D, device="cuda", generator=gen)).to(dtype) for _ in range(3)]
-    w = b16.Weights(*(t.to(dtype) for t in _b16_weights(gen, D)))
-    g = torch.randn(P, device="cuda", generator=gen).to(dtype)
-    return rows, w, g
-
-
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("P", [16_384, 37])
@@ -1810,27 +1823,28 @@ def test_deepapf_attention_bf16_matches_plain(gen, D, P, dtype):
     """B16's 16-bit forward and backward against their plain versions on the
     same 16-bit operands within ``_natr16_close`` (both round x, z, the a's,
     alpha, entity_e and the logit from float32 sums in other orders), every
-    output 16-bit, the masked share rows exactly without gradient, two runs
-    bit-equal; the 16-bit wrappers count, the float32 ones do not."""
-    rows, w, g = _b16_16(gen, D, dtype, P)
-    mask = torch.rand(P, device="cuda", generator=gen) < 0.4
-    mask[0] = False
+    output 16-bit, the masked entities' share rows exactly without gradient,
+    two runs bit-equal; the 16-bit wrappers count, the float32 ones do
+    not."""
+    args, g, ent = _b16_call(gen, D, P, dtype)
     ops.reset_launch_counts()
-    a = b16.deepapf_forward(*rows, mask, w)
-    ka = b16.deepapf_backward(*rows, mask, w, g)
+    a = b16.deepapf_forward(*args)
+    ka = b16.deepapf_backward(*args, g)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts["deepapf_forward_bf16"] == counts["deepapf_backward_bf16"] == 1
     assert counts["deepapf_forward"] == counts["deepapf_backward"] == 0
     assert a.dtype == dtype and all(x.dtype == dtype for x in ka)
-    _natr16_close(a, b16.deepapf_forward_plain(*rows, mask, w), "forward")
-    assert torch.equal(a, b16.deepapf_forward(*rows, mask, w))
-    names = ("d_share", "d_only", "d_other", "dW", "db", "dw2", "dpl")
-    for name, x, y in zip(names, ka, b16.deepapf_backward_plain(*rows, mask, w, g)):
+    _natr16_close(a, b16.deepapf_forward_plain(*args), "forward")
+    assert torch.equal(a, b16.deepapf_forward(*args))
+    names = ("d_share", "d_only_src", "d_only_tgt", "d_other_src", "d_other_tgt", "dW", "db",
+             "dw2", "dpl")
+    for name, x, y in zip(names, ka, b16.deepapf_backward_plain(*args, g)):
         assert x.shape == y.shape, name
         _natr16_close(x, y, name)
-    assert not ka[0][mask].any() and ka[0][~mask].any()
-    assert all(torch.equal(x, y) for x, y in zip(ka, b16.deepapf_backward(*rows, mask, w, g)))
+    masked, named = _share_rows(ent, args[2])
+    assert not ka[0][masked].any() and ka[0][named].any()
+    assert all(torch.equal(x, y) for x, y in zip(ka, b16.deepapf_backward(*args, g)))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -1865,20 +1879,21 @@ def test_deepapf_float16_masked_logit_has_no_nan(gen):
     the plain versions' within ``_natr16_close``, the share rows' gradients
     exactly 0. Large attention logits (wide rows) included."""
     P, D, dtype = 4096, 64, torch.float16
-    rows, w, g = _b16_16(gen, D, dtype, P)
-    rows = [(4 * r.float()).to(dtype) for r in rows]
-    mask = torch.ones(P, dtype=torch.bool, device="cuda")
-    a = b16.deepapf_forward(*rows, mask, w)
-    ka = b16.deepapf_backward(*rows, mask, w, g)
+    # the overlapped count -2: every entity id above it, every pair masked
+    args, g, _ = _b16_call(gen, D, P, dtype, scale=1.2, overlapped=-2)
+    a = b16.deepapf_forward(*args)
+    ka = b16.deepapf_backward(*args, g)
     assert bool(torch.isfinite(a).all()) and all(bool(torch.isfinite(x).all()) for x in ka)
-    _natr16_close(a, b16.deepapf_forward_plain(*rows, mask, w), "forward")
+    _natr16_close(a, b16.deepapf_forward_plain(*args), "forward")
     assert not ka[0].any()
-    for x, y in zip(ka, b16.deepapf_backward_plain(*rows, mask, w, g)):
+    for x, y in zip(ka, b16.deepapf_backward_plain(*args, g)):
         _natr16_close(x, y, "backward")
+    tabs, w = args[0], args[3]
     ids = torch.arange(64, dtype=torch.int32, device="cuda")
-    grid = b16.deepapf_grid(*rows, ids, ids, -1, True, w)  # every entity above -1: masked
+    grid_args = (tabs.share, tabs.only_tgt, tabs.other_tgt, ids, ids, -1, True, w)
+    grid = b16.deepapf_grid(*grid_args)  # every entity above -1: masked
     assert bool(torch.isfinite(grid).all())
-    _natr16_close(grid, b16.deepapf_grid_plain(*rows, ids, ids, -1, True, w), "grid")
+    _natr16_close(grid, b16.deepapf_grid_plain(*grid_args), "grid")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -1929,7 +1944,7 @@ def test_conet_tower_bf16_matches_plain(gen, H0, later, B, I, dtype):
                                       "masked_topk")),
     ("CoNet", {}, ("neg_sampler", "swap_or_not", "masked_topk", "conet_tower_bf16")),
     ("DeepAPF", {}, ("neg_sampler", "swap_or_not", "masked_topk", "deepapf_forward_bf16",
-                     "deepapf_backward_bf16", "deepapf_grid_bf16")),
+                     "deepapf_backward_bf16", "group_rows", "deepapf_grid_bf16")),
 ])
 def test_bf16_models_on_the_card(gen, tmp_path, monkeypatch, model, extra, path):
     """BiTGCF, NATR (SOURCE then TARGET), DTCDR's DMF, CoNet and DeepAPF

@@ -5,10 +5,12 @@ of ``tests/test_user_overlap.py`` on users. The same weights
 (``params_from_jax``: ``user_mlp.0.w``, ``user_mlp.1.w``, ...) and, for the
 epoch, the same random bits go to both. Tolerances, each with its case:
 
-- B16's plain forward and backward on random rows against JAX's
-  ``_forward`` and its ``jax.vjp``, and the loss and every parameter's
-  gradient on a batch: ``LOSS_TOL`` / ``GRAD_TOL``
-  (``tests/test_oracle_equivalence.py:31-32``);
+- B16's plain forward and backward, from the five tables and both
+  domains' ids, against JAX's ``_forward`` of each domain and its
+  ``jax.vjp``, and the loss and every parameter's gradient on a batch:
+  ``LOSS_TOL`` / ``GRAD_TOL`` (``tests/test_oracle_equivalence.py:31-32``);
+- two runs of B16's plain backward with four torch threads: bit-equal (its
+  ``F.embedding`` gathers add a row's terms in position order);
 - ``predict`` and the predict fallback's full-sort probabilities
   (``predict_grid``, one B16 grid call a tile) against JAX's ``predict_fn``
   and ``make_predict_full_sort``: rtol 2e-4, atol 2e-5
@@ -35,8 +37,11 @@ from recbole_cdr_tpu_torch import ops, run_recbole_cdr
 from recbole_cdr_tpu_torch.models.base import CrossDomainRecommender
 from recbole_cdr_tpu_torch.models.deepapf import DeepAPF
 from recbole_cdr_tpu_torch.ops.deepapf_attention import (
+    Pairs,
+    Tables,
     Weights,
     deepapf_attention,
+    deepapf_backward,
     deepapf_grid,
     deepapf_grid_plain,
 )
@@ -98,59 +103,93 @@ def test_params_from_jax_names(pair):
     assert "user_mlp.1.b" not in named
 
 
-def _entity_ids(model, rng, n):
-    """Random target pairs whose entity ids include the overlapped count and
-    the one above it (the strict ``>``), PAD and the largest id."""
-    users = rng.integers(0, model.total_num_users, n)
-    items = rng.integers(0, model.total_num_items, n)
-    ent, n_ov, total = ((users, model.overlapped_num_users, model.total_num_users)
-                        if model.mode == "overlap_users"
-                        else (items, model.overlapped_num_items, model.total_num_items))
-    ent[:4] = [n_ov, n_ov + 1, 0, total - 1]
-    return users, items
+def _b16_call(pair, n=48):
+    """Random weights (numpy seed 0) and both domains' pairs, ``n`` each:
+    the entity ids of each domain include 0, the overlapped count, the one
+    above it (the strict ``>``) and the largest id, and the target pairs
+    repeat the source pairs' first entities, so a share row collects pairs
+    of both domains. Returns (params, (users, items) per domain, the port's
+    parameters as leaves, its B16 operands)."""
+    tmodel = pair["tmodel"]
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(
+        lambda a: (0.3 * rng.normal(size=a.shape)).astype(np.float32), pair["params"])
+    side = "user" if tmodel.mode == "overlap_users" else "item"
+    n_ov, total = ((tmodel.overlapped_num_users, tmodel.total_num_users) if side == "user"
+                   else (tmodel.overlapped_num_items, tmodel.total_num_items))
+    doms = {}
+    for d in ("source", "target"):
+        users = rng.integers(0, tmodel.total_num_users, n).astype(np.int32)
+        items = rng.integers(0, tmodel.total_num_items, n).astype(np.int32)
+        ent = users if side == "user" else items
+        ent[:4] = [0, n_ov, n_ov + 1, total - 1]
+        ent[4:8] = ent[8:12]  # repeats inside a domain
+        if d == "target":
+            ent[12:20] = doms["source"][0 if side == "user" else 1][12:20]
+        doms[d] = (users, items)
+    t = {k: torch.from_numpy(np.array(v)).requires_grad_()
+         for k, v in params_from_jax(params).items()}
+    other_side = "item" if side == "user" else "user"
+    tabs = Tables(t[f"share_{side}_embedding"], t[f"source_{side}_embedding"],
+                  t[f"target_{side}_embedding"], t[f"source_{other_side}_embedding"],
+                  t[f"target_{other_side}_embedding"])
+    ids = [torch.from_numpy(a) for d in ("source", "target")
+           for a in (doms[d] if side == "user" else doms[d][::-1])]
+    w = Weights(t[f"{side}_mlp.0.w"], t[f"{side}_mlp.0.b"], t[f"{side}_mlp.1.w"],
+                t["predict_layer"])
+    return params, doms, t, (tabs, Pairs(*ids), n_ov, w)
 
 
 def test_b16_plain_matches_forward_and_vjp(pair):
     """B16's plain forward and backward, through ``deepapf_attention`` on
-    CPU tensors, against ``_forward`` and its ``jax.vjp`` with random
-    weights (numpy seed 0) and a random cotangent; the masked share rows
-    get exactly zero gradient, the unmasked ones do not."""
+    CPU tensors (the five tables and both domains' ids), against
+    ``_forward`` of each domain and its ``jax.vjp`` with respect to every
+    table and weight, for a random cotangent; the masked entities' share
+    rows get exactly zero gradient, the overlapped count's does not."""
     jmodel, tmodel = pair["jmodel"], pair["tmodel"]
-    rng = np.random.default_rng(0)
-    params = jax.tree_util.tree_map(
-        lambda a: (0.3 * rng.normal(size=a.shape)).astype(np.float32), pair["params"])
-    users, items = _entity_ids(tmodel, rng, 64)
-    g = rng.normal(size=64).astype(np.float32)
-    want, vjp = jax.vjp(jax.jit(lambda p: jmodel._forward(p, jnp.asarray(users),
-                                                          jnp.asarray(items), "target")), params)
-    (want_g,) = vjp(jnp.asarray(g))
+    params, doms, t, (tabs, pairs, n_ov, w) = _b16_call(pair)
+    n = doms["source"][0].shape[0]
+    g = np.random.default_rng(1).normal(size=2 * n).astype(np.float32)
 
-    t = {k: torch.from_numpy(np.array(v)).requires_grad_()
-         for k, v in params_from_jax(params).items()}
-    side = "user" if tmodel.mode == "overlap_users" else "item"
-    other_side = "item" if side == "user" else "user"
-    ent = torch.from_numpy(users if side == "user" else items)
-    oth = torch.from_numpy(items if side == "user" else users)
-    n_ov = tmodel.overlapped_num_users if side == "user" else tmodel.overlapped_num_items
+    def both(p):
+        return jnp.concatenate([jmodel._forward(p, jnp.asarray(u), jnp.asarray(i), d)
+                                for d, (u, i) in doms.items()])
+
+    want, vjp = jax.vjp(jax.jit(both), params)
+    (want_g,) = vjp(jnp.asarray(g))
+    ent = torch.cat([pairs.ent_src, pairs.ent_tgt]).long()
     mask = ent > n_ov
-    assert mask.tolist()[:2] == [False, True]
-    w = Weights(t[f"{side}_mlp.0.w"], t[f"{side}_mlp.0.b"], t[f"{side}_mlp.1.w"],
-                t["predict_layer"])
+    assert mask[:3].tolist() == [False, False, True]
     ops.reset_launch_counts()
-    got = deepapf_attention(t[f"share_{side}_embedding"][ent], t[f"target_{side}_embedding"][ent],
-                            t[f"target_{other_side}_embedding"][oth], mask, w)
+    got = deepapf_attention(tabs, pairs, n_ov, w)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **LOSS_TOL)
     got.backward(torch.from_numpy(g))
-    for name in (f"share_{side}_embedding", f"target_{side}_embedding",
-                 f"target_{other_side}_embedding", f"{side}_mlp.0.w", f"{side}_mlp.0.b",
-                 f"{side}_mlp.1.w", "predict_layer"):
+    side = "user" if tmodel.mode == "overlap_users" else "item"
+    other_side = "item" if side == "user" else "user"
+    names = [f"{p}_{side}_embedding" for p in ("share", "source", "target")]
+    names += [f"{p}_{other_side}_embedding" for p in ("source", "target")]
+    names += [f"{side}_mlp.0.w", f"{side}_mlp.0.b", f"{side}_mlp.1.w", "predict_layer"]
+    for name in names:
         np.testing.assert_allclose(t[name].grad.numpy(), jax_leaf(want_g, name), err_msg=name,
                                    **GRAD_TOL)
     share_g = t[f"share_{side}_embedding"].grad
-    masked = torch.unique(ent[mask])
-    assert torch.all(share_g[masked] == 0)
-    assert torch.all(share_g[n_ov].abs().sum() > 0)
+    assert torch.all(share_g[torch.unique(ent[mask])] == 0)
+    assert share_g[n_ov].abs().sum() > 0
     assert not any(ops.launch_counts().values())  # plain on the CPU
+
+
+def test_b16_plain_backward_repeats_across_threads(pair):
+    """Two runs of B16's plain backward on the CPU with four torch threads
+    give bit-equal gradients of every table and weight."""
+    _, _, _, (tabs, pairs, n_ov, w) = _b16_call(pair, n=2048)
+    g = torch.from_numpy(np.random.default_rng(2).normal(size=4096).astype(np.float32))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        runs = [deepapf_backward(tabs, pairs, n_ov, w, g) for _ in range(2)]
+    finally:
+        torch.set_num_threads(threads)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_deepapf_loss_and_grads_match_jax(pair):

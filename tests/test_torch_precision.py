@@ -263,19 +263,23 @@ def _mixed_cases():
     gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
     r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
-    rows, mask, g = [r(6, 32) for _ in range(3)], torch.zeros(6, dtype=torch.bool), r(6)
+    tabs, g = b16.Tables(*(r(6, 32) for _ in range(5))), r(6)
     w = b16.Weights(r(32, 32), r(32), r(32, 1), r(32, 1))
     w16 = b16.Weights(*(t.to(bf) for t in w))
-    rows16 = [t.to(bf) for t in rows]
+    tabs16 = b16.Tables(*(t.to(bf) for t in tabs))
     ids = torch.arange(3, dtype=torch.int32)
+    pairs = b16.Pairs(ids, ids, ids, ids)
     hu, hi, b0, layers, out = r(3, 8), r(5, 8), r(8), [(r(8, 4), r(4))], (r(4, 1), r(1))
     return {
-        "forward-weights": (b16.deepapf_forward, (*rows16, mask, w)),
-        "backward-gradient": (b16.deepapf_backward, (*rows16, mask, w16, g)),
+        "forward-weights": (b16.deepapf_forward, (tabs16, pairs, 2, w)),
+        "backward-gradient": (b16.deepapf_backward, (tabs16, pairs, 2, w16, g)),
         "backward-fp16-row": (b16.deepapf_backward,
-                              (*rows16[:2], rows[2].half(), mask, w16, g.to(bf))),
-        "grid-tables": (b16.deepapf_grid, (*rows16[:2], rows[2], ids, ids, 2, True, w16)),
-        "grid_bf16-float32": (b16.deepapf_grid_bf16, (*rows, ids, ids, 2, True, w)),
+                              (tabs16._replace(other_tgt=tabs.other_tgt.half()), pairs, 2, w16,
+                               g.to(bf))),
+        "grid-tables": (b16.deepapf_grid, (tabs16.share, tabs16.only_tgt, tabs.other_tgt, ids,
+                                           ids, 2, True, w16)),
+        "grid_bf16-float32": (b16.deepapf_grid_bf16, (tabs.share, tabs.only_tgt,
+                                                      tabs.other_tgt, ids, ids, 2, True, w)),
         "tower-layers": (b15.conet_tower, (hu.to(bf), hi.to(bf), b0.to(bf), layers,
                                            tuple(t.to(bf) for t in out))),
         "tower_bf16-float32": (b15.conet_tower_bf16, (hu, hi, b0, layers, out)),
