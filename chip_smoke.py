@@ -18,6 +18,14 @@ Phases, in order; any failure exits non-zero:
    the device, torch.profiler kernel durations; see ``device_ms``), and the
    kernel's time per back-to-back call including launch overhead
    (``call_ms``, from CUDA events);
+   K3 (B3, ``swap_or_not``) is one launch a stream (the slots, their
+   permutation and the gathers of the rows' users and items), held bit for
+   bit against its plain version and timed at one dense-path epoch's source
+   stream (cycling), target stream and EMCDR's OVERLAP stream; its bound
+   charges the integer-pipe instructions of one round, counted in the built
+   kernel's SASS (``b3_round_ops``), at ``PEAK_INT32_OPS_PER_S``; B14's merge
+   is held bit for bit against its plain version on sorted, tie-heavy,
+   padded lists (``check_b14_merge``);
    B5 and B6 are held and timed at the catalog path's shapes (phase 4):
    B5's ids exactly on integer-valued factors, its scores within
    ``B5_TOL`` on normal ones; B6, over ``B6_STEPS`` steps of random normal
@@ -146,7 +154,9 @@ Phases, in order; any failure exits non-zero:
    version; on normal ones within ``B5_TOL`` of the plain version, ids
    equal wherever neighbours are clear of a near tie; once in bf16 against
    B13 (exactly on integer-valued factors); each stage timed at one shard
-   and at the main path's width (one shard: the whole table); (b) the
+   and at the main path's width (one shard: the whole table), and an empty
+   kernel (``torch.cuda._sleep(0)``) timed the same way as the launch
+   floor beside the merge's records; (b) the
    catalog path through ``run_recbole_cdr(model="CMF")`` with dense Adam,
    BOTH:2, over a one-rank NCCL mesh (``mesh_shape`` 1 x 1, ``distributed``
    on ``tcp://127.0.0.1:<free port>``): B14's local stage and merge exactly
@@ -509,6 +519,12 @@ MAPPING_PATHS = {
 #: the CUDA cores, used as the rate of the kernels' 32-bit scalar operations
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
+#: the rate of 32-bit integer instructions on the SMs' integer pipe: the
+#: Hopper white paper's 64 INT32 lanes an SM (half its 128 FP32 lanes) at the
+#: boost clock behind the data sheet's float32 rate (67e12 = 132 SMs x 128
+#: lanes x 2 flops an FMA x 1.98 GHz), one operation an instruction. B3's
+#: bound charges its round's integer-pipe instructions (``b3_round_ops``) at it
+PEAK_INT32_OPS_PER_S = PEAK_SCALAR_OPS_PER_S / 4
 #: and the dense TF32 tensor-core rate: B5 scores in 3xTF32, three TF32
 #: products (2 D flops each) per float32 score
 PEAK_TF32_OPS_PER_S = 495e12
@@ -1013,14 +1029,14 @@ def call_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes, n_ops, tf32_ops=0, bf16_ops=0):
+def bound(n_bytes, n_ops, tf32_ops=0, bf16_ops=0, int_ops=0):
     """(least ms, "bytes" or "operations"): the larger of the bytes over the
     memory rate and the operations over their peak, ``n_ops`` 32-bit scalar
     operations on the CUDA cores plus ``tf32_ops`` and ``bf16_ops`` on the
-    tensor cores."""
+    tensor cores and ``int_ops`` instructions on the integer pipe."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (n_ops / PEAK_SCALAR_OPS_PER_S + tf32_ops / PEAK_TF32_OPS_PER_S
-             + bf16_ops / PEAK_BF16_OPS_PER_S) * 1e3
+             + bf16_ops / PEAK_BF16_OPS_PER_S + int_ops / PEAK_INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1030,11 +1046,11 @@ def make_recorder(out):
     record under ``out[name]``."""
 
     def record(name, kernel_fn, plain_fn, equal, n_bytes, n_ops, library_fn=None, reps=20,
-               shape=None, tf32_ops=0, bf16_ops=0):
+               shape=None, tf32_ops=0, bf16_ops=0, int_ops=0):
         """Time a kernel, its plain version and its library call; with
         ``shape``, as a second shape of an already recorded kernel, kept
         under the record's ``shapes``."""
-        b_ms, b_by = bound(n_bytes, n_ops, tf32_ops, bf16_ops)
+        b_ms, b_by = bound(n_bytes, n_ops, tf32_ops, bf16_ops, int_ops)
         timed = {"ms": device_ms(kernel_fn, reps),
                  "plain_ms": device_ms(plain_fn, max(3, reps // 4), 1)}
         if library_fn:
@@ -1140,6 +1156,100 @@ def check_sass():
         assert not atomics, f"{source}.cu holds float atomics: {sorted(set(atomics))}"
 
 
+#: SASS opcodes (their first word) that issue to the SMs' integer pipe, and
+#: the integer multiply-adds, which issue to the FMA pipe
+INT_PIPE_OPS = ("IADD3", "LOP3", "SHF", "IMNMX", "VIMNMX", "VIADDMNMX", "SEL", "ISETP", "LEA",
+                "IABS", "PRMT", "MOV", "BMSK", "SGXT", "FLO", "POPC")
+FMA_PIPE_INT_OPS = ("IMAD", "IMUL")
+#: rounds of one pass of B3's round loop (``csrc/shuffle.cu``'s unroll)
+B3_UNROLL = 16
+
+
+def sass_loops(func):
+    """Each loop of one function's SASS (``cuobjdump``'s ``/*addr*/ [@pred]
+    OPCODE operands ;`` lines), as its instructions' texts from a branch's
+    target to the branch, for each branch back to a lower address."""
+    texts, at, loops = [], {}, []
+    for line in func.splitlines():
+        ins = re.search(r"/\*([0-9a-f]+)\*/\s+([^;]*);", line)
+        if not ins:
+            continue
+        at[int(ins.group(1), 16)] = len(texts)
+        texts.append(ins.group(2).strip())
+        target = re.search(r"\bBRA\s+(0x[0-9a-f]+)", ins.group(2))
+        if target and int(target.group(1), 16) in at:
+            loops.append(texts[at[int(target.group(1), 16)]:])
+    return loops
+
+
+def sass_instruction(text):
+    """(opcode's first word, [operands]) of one SASS instruction's text
+    (``[@pred] OPCODE a, b, ...``)."""
+    words = text.split(None, 2) if text.startswith("@") else [""] + text.split(None, 1)
+    ops = words[2] if len(words) > 2 else ""
+    return words[1].split(".")[0], [o.strip() for o in ops.split(",") if o.strip()]
+
+
+def b3_round_ops():
+    """(integer-pipe, integer multiply-add) SASS instructions of one
+    swap-or-not round of B3's built kernel: its round loop (the loop of
+    ``B3_UNROLL`` shared loads of a round's keys), less the loop's control
+    (the branch, the compare that sets its predicate and the updates of the
+    registers it compares), over ``B3_UNROLL`` rounds."""
+    from recbole_cdr_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", build._lib_path("shuffle")],
+                          capture_output=True, text=True, check=True).stdout
+    func = next(f for f in sass.split("Function : ")[1:] if "stream_kernel" in f.split("\n")[0])
+    body = [[sass_instruction(t) for t in lp] for lp in sass_loops(func)]
+    body = [lp for lp in body if sum(op == "LDS" for op, _ in lp) == B3_UNROLL]
+    assert len(body) == 1, f"B3's stream_kernel: {len(body)} loops of {B3_UNROLL} shared loads"
+    body = body[0]
+    branch = len(body) - 1
+    setp = max(i for i, (op, _) in enumerate(body) if op == "ISETP")
+    counter = {o for o in body[setp][1][2:] if re.fullmatch(r"U?R\d+", o)}
+    control = {branch, setp} | {i for i, (_, args) in enumerate(body)
+                                if args and args[0] in counter}
+    work = [op for i, (op, _) in enumerate(body) if i not in control]
+    per = [sum(op in kind for op in work) / B3_UNROLL for kind in (INT_PIPE_OPS, FMA_PIPE_INT_OPS)]
+    print(f"  SASS shuffle.cu stream_kernel: its round loop holds {len(body)} instructions, "
+          f"{len(control)} of them its control; a round {per[0]:g} on the integer pipe and "
+          f"{per[1]:g} IMAD", flush=True)
+    return per
+
+
+def check_b14_merge(dev):
+    """B14's merge alone on sorted lists as its local stage writes them, at
+    phase 4's streaming tile (2,048 rows, k 10) and at k 64, m of
+    ``B14_SHARDS`` and 8: integer scores in {-3..3} (exact ties within and
+    across lists), list j's ids above list j - 1's, every third row padded
+    with (-inf, INT32_MAX) after a few entries: the kernel equals its plain
+    version bit for bit."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import topk as b5
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    B, span = B14_TILE[0], 1000
+    for k in (B14_TILE[3], 64):
+        for m in (*B14_SHARDS, 8):
+            s = torch.randint(-3, 4, (m, B, k), device=dev, generator=g).float()
+            ids = torch.rand(m, B, span, device=dev, generator=g).argsort(-1)[..., :k]
+            ids = (ids + span * torch.arange(m, device=dev)[:, None, None]).to(torch.int32)
+            order = (-s * (span * m) + ids).argsort(-1)  # (score desc, id asc)
+            s, ids = s.gather(-1, order), ids.gather(-1, order)
+            rows = torch.arange(B, device=dev)
+            keep = torch.where(rows % 3 == 0, rows % (k + 1), k)[None, :, None]
+            pad = torch.arange(k, device=dev)[None, None, :] >= keep
+            s, ids = s.masked_fill(pad, -torch.inf), ids.masked_fill(pad, b5.INT32_MAX)
+            got, want = b5.sharded_topk_merge(s, ids, k), b5.sharded_topk_merge_plain(s, ids, k)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+                f"sharded_topk_merge differs from its plain version on tied lists, m={m} k={k}"
+    print(f"  sharded_topk_merge on sorted tie-heavy padded lists ({B} rows, k "
+          f"{B14_TILE[3]} and 64, m {(*B14_SHARDS, 8)}): equal to its plain version", flush=True)
+
+
 def kernel_checks(dev):
     """Hold K1-K4 against their plain versions at the dense path's shapes,
     B5 and B6 at the catalog path's, and time them. Returns {kernel name:
@@ -1177,31 +1287,40 @@ def kernel_checks(dev):
 
     record = make_recorder(out)
 
-    # ---- K3: the epoch shuffle of both domains, one whole epoch ----------
+    # ---- K3 (B3): one epoch's streams, a launch each: the source (cycling),
+    # the target and EMCDR's OVERLAP stream of the overlapped items ---------
     n_steps = loop.steps_per_epoch
     shuf = loop._shuffle_material(0)
-    s = torch.arange(n_steps, device=dev)
-    c = s // loop.src_batches_per_cycle
-    slots = (s % loop.src_batches_per_cycle)[:, None] * loop.src_step + torch.arange(loop.src_step, device=dev)
-    x_src = torch.where(slots < loop.src.n, slots, 0).to(torch.int32)
-    keys_src, salts_src = shuf["src"][0][c], shuf["src"][1][c]
-    slots_t = s[:, None] * loop.step + torch.arange(loop.step, device=dev)
-    x_tgt = torch.where(slots_t < loop.tgt.n, slots_t, 0).to(torch.int32)
-    keys_tgt, salts_tgt = shuf["tgt"]
-    a = k3.swap_or_not(x_src, loop.src.n, keys_src, salts_src)
-    b = k3.swap_or_not_plain(x_src, loop.src.n, keys_src, salts_src)
-    a2 = k3.swap_or_not(x_tgt, loop.tgt.n, keys_tgt, salts_tgt)
-    b2 = k3.swap_or_not_plain(x_tgt, loop.tgt.n, keys_tgt, salts_tgt)
-    err = max(int((a - b).abs().max()), int((a2 - b2).abs().max()))
-    assert err == 0, "swap_or_not disagrees with its plain version"
-    n3 = x_src.numel()
-    record("swap_or_not",
-           lambda: k3.swap_or_not(x_src, loop.src.n, keys_src, salts_src),
-           lambda: k3.swap_or_not_plain(x_src, loop.src.n, keys_src, salts_src),
-           float(err), 8 * n3 + keys_src.numel() * 8, n3 * k3.SHUFFLE_ROUNDS * 12)
+    round_ops = b3_round_ops()[0]
+    n_over = dataset.num_overlap_item
+    over_step = MAPPING_WIDTHS["EMCDR"]["overlap_batch_size"]
+    over_keys = [t.reshape(-1, k3.SHUFFLE_ROUNDS) for t in src_.shuffle_keys(0, "over", n_over)]
+    streams = {
+        None: (loop.src.pairs, loop.src.n, *shuf["src"], 0, n_steps,
+               loop.src_step, loop.src_batches_per_cycle),
+        "target": (loop.tgt.pairs, loop.tgt.n, *shuf["tgt"], 0, n_steps,
+                   loop.step, 0),
+        "overlap": (torch.arange(n_over, dtype=torch.int32, device=dev), n_over,
+                    *over_keys, 0, -(-n_over // over_step), over_step, 0),
+    }
+    for shape, args in streams.items():
+        got, want = k3.swap_or_not(*args), k3.swap_or_not_stream_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"swap_or_not disagrees with its plain version on the {shape or 'source'} stream"
+        if shape is None:
+            src_stream = got
+        table, n, keys, _, _, n_st, dstep, _ = args
+        T = n_st * dstep
+        cols = table.shape[1] if table.dim() == 2 else 1
+        record("swap_or_not", lambda args=args: k3.swap_or_not(*args),
+               lambda args=args: k3.swap_or_not_stream_plain(*args), 0.0,
+               T * (8 * cols + 4) + keys.numel() * 8, 0, shape=shape,
+               int_ops=T * k3.SHUFFLE_ROUNDS * round_ops if n > 1 else 0)
+
+    check_b14_merge(dev)
 
     # ---- K2: the source domain's negatives for one whole epoch ----------
-    uid = loop.src.uid[a.long()].reshape(-1)
+    uid = src_stream[0].reshape(-1)
     base = torch.randint(-2 ** 31, 2 ** 31, (uid.shape[0],), dtype=torch.int32,
                          device=dev, generator=g)
     hist, ranges, lens = loop.src.hist, loop.src.cand_ranges, loop.src.lens
@@ -3454,7 +3573,7 @@ def main():
         "neg_sampler": ("recbole_cdr_tpu_torch/csrc/neg_sampler.cu",
                         "recbole_cdr_tpu/trainer/device_loop.py:205"),
         "swap_or_not": ("recbole_cdr_tpu_torch/csrc/shuffle.cu",
-                        "recbole_cdr_tpu/trainer/device_loop.py:63"),
+                        "recbole_cdr_tpu/trainer/device_loop.py:483"),
         "masked_topk": ("recbole_cdr_tpu_torch/csrc/masked_topk.cu",
                         "recbole_cdr_tpu/evaluator/evaluator.py:40"),
         "streaming_topk": ("recbole_cdr_tpu_torch/csrc/streaming_topk.cu",
@@ -4222,6 +4341,9 @@ def check_b14(dev, record):
         record("sharded_topk_merge", lambda: b5.sharded_topk_merge(cs, ci, k),
                lambda: b5.sharded_topk_merge_plain(cs, ci, k), 0.0, (m + 1) * B * k * 8,
                m * B * k, library_fn=library_merge, shape=shape)
+    floor = device_ms(lambda: torch.cuda._sleep(0))[0]
+    print(f"  launch floor: an empty kernel (torch.cuda._sleep(0)) {floor:.4f} ms a launch, "
+          "queued as the records' calls", flush=True)
 
 
 def run_mesh_paths(dev, refs):

@@ -108,12 +108,21 @@
 // below the total item count, so the pad rows of the last shard never enter
 // (a shard with fewer than k such rows pads its list with (-inf, INT_MAX), as
 // a short range does). Between the stages the lists travel by an all_gather
-// over the model group, outside the kernels. Merge: B5's merge kernel over the
-// [m, B, k] lists in shard order, by (score desc, id asc): the shards' ids
-// ascend with the shard, so this is the stable merge of the lists
-// concatenated in shard order, and ties go to the lowest global id, as in one
-// top-k over the whole row: ids equal the unsharded top-k exactly. On 16-bit
-// factors the local stage is B13's tile kernel at the same offset.
+// over the model group, outside the kernels. On 16-bit factors the local
+// stage is B13's tile kernel at the same offset. Merge (rank_merge_kernel):
+// the k best of the [m, B, k] lists, each sorted by (score desc, id asc) as
+// the local stage writes it, in shard order, whose ids ascend with the shard.
+// The stable order of the lists concatenated in shard order (JAX's top_k,
+// and ties to the lowest global id, as in one top-k over the whole row) puts
+// candidate (l, r, s), rank r of list l, at
+//   r + sum over l' < l of #{s' >= s in l'} + sum over l' > l of #{s' > s in l'},
+// each count one binary search of the sorted list l'. One thread places one
+// candidate: no step waits on another, and a candidate whose place is below
+// k is written there (the places of sorted lists are a permutation of [0, m
+// k)). Bound: bytes, the lists read once and [B, k] written once; the
+// kernel's time is its launch and one dependent round trip to memory. A
+// block stages its rows' lists once in shared memory, as integer keys of the
+// scores' order, so that a search step is one compare.
 
 #include <cfloat>
 #include <climits>
@@ -610,6 +619,93 @@ merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i, i
     }
     if (idxs[0] == bi) pop_front<K>(vals, idxs);
   }
+}
+
+// ---- B14's merge: every candidate placed by its rank ------------------
+
+constexpr int kMergeThreads = 256;
+
+// a float's order as a signed int (x < y iff key(x) < key(y); -0 as +0)
+__device__ __forceinline__ int order_key(float x) {
+  const int b = __float_as_int(x + 0.0f);
+  return b ^ ((b >> 31) & 0x7FFFFFFF);
+}
+
+// block (k, lists, rows): thread (r, l, rb) holds rank r of list l of row
+// row0 + rb (lists beyond blockDim.y wrap) and adds to r, for each of the m
+// - 1 other lists, how many of its leading entries come before it: s' >= s
+// from an earlier list (ties to the earlier list), s' > s from a later one,
+// that is key(s') > key(s) - 1 or key(s') > key(s). Each count is a binary
+// search by steps of 2^kLog down to 1 (2^kLog <= k < 2^(kLog + 1)) over the
+// lists' keys staged in shared memory, padded to 2^(kLog + 1) entries with
+// INT_MIN, free of branches so that a warp's lanes never diverge
+template <int kLog>
+__global__ void __launch_bounds__(1024)
+rank_merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i, int B, int m,
+                  int k, float* __restrict__ out_s, int* __restrict__ out_i) {
+  constexpr int kPad = 2 << kLog;
+  extern __shared__ int merge_keys[];  // [m][rows][kPad]
+  const int rows = blockDim.z, r = threadIdx.x, rb = threadIdx.z;
+  const int row = blockIdx.x * rows + rb;
+  float v0 = 0.0f;  // the thread's first candidate, kept from staging
+  int id0 = 0;
+  for (int l = threadIdx.y; l < m && row < B; l += blockDim.y) {
+    const long long at = ((long long)l * B + row) * k + r;
+    const float s = cand_s[at];
+    if (l == (int)threadIdx.y) {
+      v0 = s;
+      id0 = cand_i[at];
+    }
+    int* list = merge_keys + (l * rows + rb) * kPad;
+    list[r] = order_key(s);
+    if (k + r < kPad) list[k + r] = INT_MIN;
+  }
+  __syncthreads();
+  for (int l = threadIdx.y; l < m && row < B; l += blockDim.y) {
+    const long long at = ((long long)l * B + row) * k + r;
+    const bool first = l == (int)threadIdx.y;
+    const float v = first ? v0 : cand_s[at];
+    const int key = order_key(v);
+    int place = r;
+    for (int j = 0; j < m - 1; ++j) {  // the same trips in every lane
+      const int l2 = j + (j >= l);       // skips list l
+      const int* other = merge_keys + (l2 * rows + rb) * kPad;
+      const int above = l2 < l ? key - 1 : key;
+      int lo = 0;
+#pragma unroll
+      for (int step = 1 << kLog; step > 0; step >>= 1) lo += other[lo + step - 1] > above ? step : 0;
+      place += lo;
+    }
+    if (place < k) {
+      out_s[(long long)row * k + place] = v;
+      out_i[(long long)row * k + place] = first ? id0 : cand_i[at];
+    }
+  }
+}
+
+int rank_merge_launch(const float* cs, const int* ci, int B, int m, int k, float* os, int* oi,
+                      cudaStream_t st) {
+  int lg = 0;
+  while ((2 << lg) <= k) ++lg;  // 2^lg <= k < 2^(lg + 1)
+  const int lists = min(m, 1024 / k);
+  const int rows = max(1, min(kMergeThreads / (m * k), 64));
+  const size_t smem = (size_t)rows * m * (2 << lg) * 4;
+  const dim3 grid((B + rows - 1) / rows), block(k, lists, rows);
+  switch (lg) {
+#define B14_MERGE(L)                                                            \
+  case L:                                                                       \
+    rank_merge_kernel<L><<<grid, block, smem, st>>>(cs, ci, B, m, k, os, oi); \
+    break;
+    B14_MERGE(0)
+    B14_MERGE(1)
+    B14_MERGE(2)
+    B14_MERGE(3)
+    B14_MERGE(4)
+    B14_MERGE(5)
+    B14_MERGE(6)
+#undef B14_MERGE
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---- B13: the 16-bit tile kernel on wgmma fed by TMA -------------------
@@ -1366,12 +1462,14 @@ extern "C" int streaming_topk_16(const void* U, const void* T, int B, int I, int
 }
 
 // B14's merge: the k best of n candidate lists per row by (score desc, id
-// asc). cand_s / cand_i: [n, B, k] (the model group's lists in shard order);
-// out_s / out_i: [B, k]
+// asc). cand_s / cand_i: [n, B, k], each row's list sorted by (score desc,
+// id asc), the model group's lists in shard order (ids ascending with the
+// shard); out_s / out_i: [B, k]. n k scores and ids of a row fit the
+// static shared-memory limit (n k <= 6,144)
 extern "C" int streaming_topk_merge(const void* cand_s, const void* cand_i, int B, int n, int k,
                                     void* out_s, void* out_i, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (n <= 0 || k <= 0 || k > 64) return (int)cudaErrorInvalidValue;
-  return merge_any((const float*)cand_s, (const int*)cand_i, B, n, k, (float*)out_s,
-                   (int*)out_i, (cudaStream_t)stream);
+  if (n <= 0 || k <= 0 || k > 64 || n * k * 8 > 48 * 1024) return (int)cudaErrorInvalidValue;
+  return rank_merge_launch((const float*)cand_s, (const int*)cand_i, B, n, k, (float*)out_s,
+                           (int*)out_i, (cudaStream_t)stream);
 }

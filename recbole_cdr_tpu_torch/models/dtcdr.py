@@ -149,9 +149,10 @@ class DTCDR(CrossDomainRecommender):
         return getattr(self, f"{domain}_predict")(h).squeeze(-1)
 
     def _neumf_embeddings(self, user, item):
-        u, i = user.long(), item.long()
-        return (torch.maximum(self.source_user_embedding[u], self.target_user_embedding[u]),
-                torch.maximum(self.source_item_embedding[i], self.target_item_embedding[i]))
+        return (torch.maximum(self.rows("source_user_embedding", user),
+                              self.rows("target_user_embedding", user)),
+                torch.maximum(self.rows("source_item_embedding", item),
+                              self.rows("target_item_embedding", item)))
 
     # -------------------------------------------------------------------- DMF
 

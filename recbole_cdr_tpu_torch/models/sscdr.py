@@ -179,11 +179,10 @@ class SSCDR(CrossDomainRecommender):
         return None
 
     def _domain_triplet(self, batch, prefix, uid_key, iid_key, neg_key, w_key):
-        users = getattr(self, f"{prefix}_user_embedding")
-        items = getattr(self, f"{prefix}_item_embedding")
-        ue = self._normalize(users[batch[uid_key].long()])
-        pe = self._normalize(items[batch[iid_key].long()])
-        ne = self._normalize(items[batch[neg_key].long()])
+        users, items = f"{prefix}_user_embedding", f"{prefix}_item_embedding"
+        ue = self._normalize(self.rows(users, batch[uid_key]))
+        pe = self._normalize(self.rows(items, batch[iid_key]))
+        ne = self._normalize(self.rows(items, batch[neg_key]))
         return self._triplet(ue, pe, ne, batch[w_key])
 
     def loss_fn(self, phase: str):
@@ -193,15 +192,15 @@ class SSCDR(CrossDomainRecommender):
                 self.SOURCE_NEG_ITEM_ID, "source_sample_weight")
         if phase == "OVERLAP":
             def loss(batch, rng=None):
-                idx = batch["overlap"].long()
+                idx = batch["overlap"]
                 w = batch["overlap_sample_weight"]
                 ent, other = (("user", "item") if self.mode == "overlap_users"
                               else ("item", "user"))
-                src_e = getattr(self, f"source_{ent}_embedding")[idx]
-                tgt_e = getattr(self, f"target_{ent}_embedding")[idx]
-                neighbours = getattr(self, f"source_{other}_embedding")
-                map_pos = self._map(neighbours[batch["overlap_pos"].long()])
-                map_neg = self._map(neighbours[batch["overlap_neg"].long()])
+                src_e = self.rows(f"source_{ent}_embedding", idx)
+                tgt_e = self.rows(f"target_{ent}_embedding", idx)
+                neighbours = f"source_{other}_embedding"
+                map_pos = self._map(self.rows(neighbours, batch["overlap_pos"]))
+                map_neg = self._map(self.rows(neighbours, batch["overlap_neg"]))
                 loss_s = weighted_mean(torch.mean((self._map(src_e) - tgt_e) ** 2, -1), w)
                 loss_u = self._triplet(self._normalize(tgt_e), self._normalize(map_pos),
                                        self._normalize(map_neg), w)
@@ -214,8 +213,8 @@ class SSCDR(CrossDomainRecommender):
     # ---------------------------------------------------------------- scoring
 
     def _mapped_user_e(self, user):
-        mapped = self._map(self.source_user_embedding[user])
-        direct = self.target_user_embedding[user]
+        mapped = self._map(self.rows("source_user_embedding", user))
+        direct = self.rows("target_user_embedding", user)
         return torch.where((user < self.overlapped_num_users)[:, None], mapped, direct)
 
     def _overlap_tables(self, user):
@@ -226,7 +225,7 @@ class SSCDR(CrossDomainRecommender):
         overlap_item_e = self._map(self.source_item_embedding[:self.overlapped_num_items])
         target_item_e = self.target_item_embedding[
             self.overlapped_num_items:self.target_num_items]
-        return self.target_user_embedding[user], torch.cat([overlap_item_e, target_item_e], 0)
+        return self.rows("target_user_embedding", user), torch.cat([overlap_item_e, target_item_e], 0)
 
     def predict(self, batch):
         """Negative squared distances of the batch's pairs (``predict_fn``,
@@ -235,31 +234,31 @@ class SSCDR(CrossDomainRecommender):
             prefix = self.phase.lower()
             ukey = self.SOURCE_USER_ID if prefix == "source" else self.TARGET_USER_ID
             ikey = self.SOURCE_ITEM_ID if prefix == "source" else self.TARGET_ITEM_ID
-            ue = self._normalize(getattr(self, f"{prefix}_user_embedding")[batch[ukey].long()])
-            ie = self._normalize(getattr(self, f"{prefix}_item_embedding")[batch[ikey].long()])
+            ue = self._normalize(self.rows(f"{prefix}_user_embedding", batch[ukey]))
+            ie = self._normalize(self.rows(f"{prefix}_item_embedding", batch[ikey]))
             return -self._dist2(ue, ie)
         user = batch[self.TARGET_USER_ID].long()
         item = batch[self.TARGET_ITEM_ID].long()
         if self.mode == "overlap_users":
             ue = self._mapped_user_e(user)
-            ie = self.target_item_embedding[item]
+            ie = self.rows("target_item_embedding", item)
         else:
-            ue = self.target_user_embedding[user]
-            mapped = self._map(self.source_item_embedding[item])
+            ue = self.rows("target_user_embedding", user)
+            mapped = self._map(self.rows("source_item_embedding", item))
             ie = torch.where((item < self.overlapped_num_items)[:, None], mapped,
-                             self.target_item_embedding[item])
+                             self.rows("target_item_embedding", item))
         return -self._dist2(self._normalize(ue), self._normalize(ie))
 
     def full_sort(self, users, phase: str = "TARGET"):
         """-||u - i||^2 over the item space, expanded as a matmul
         (`sscdr.py:314-363`)."""
         if phase == "SOURCE":
-            user_e = self._normalize(self.source_user_embedding[users])
+            user_e = self._normalize(self.rows("source_user_embedding", users))
             item_e = self._normalize(torch.cat([
                 self.source_item_embedding[:self.overlapped_num_items],
                 self.source_item_embedding[self.target_num_items:]], 0))
         elif phase == "TARGET":
-            user_e = self._normalize(self.target_user_embedding[users])
+            user_e = self._normalize(self.rows("target_user_embedding", users))
             item_e = self._normalize(self.target_item_embedding[:self.target_num_items])
         else:
             user_e, item_e = (self._normalize(t) for t in self._overlap_tables(users))

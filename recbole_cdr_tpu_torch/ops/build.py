@@ -70,7 +70,7 @@ _SIGNATURES = {
         "neg_sampler_popularity": [_P, _P, _P, _I, _P, _I, _P, ctypes.c_longlong, _P, _P, _P,
                                    ctypes.c_uint, _P, _P],
     },
-    "shuffle": {"swap_or_not": [_P, _P, _I, _I, _I, _P, _P, _I, _P]},
+    "shuffle": {"swap_or_not": [_P, _I, _P, _P, _P] + [_I] * 5 + [_P, _P, _I, _P]},
     "masked_topk": {"masked_topk": [_P, _I, _I, _P, _P, _I] + [_I] * 5 + [_P, _P],
                     "candidate_topk": [_P, _I, _I, _P, _I] + [_I] * 5 + [_P, _P]},
     "streaming_topk": {

@@ -25,9 +25,9 @@ plan :func:`streaming_topk_bf16_plan`. B14
 (:func:`sharded_streaming_topk`) splits the item axis over a mesh's
 ``model`` axis: each rank runs B5's or B13's tile kernel on its rows of the
 table at their global offset (:func:`sharded_topk_local`), an ``all_gather`` over
-the model group collects the m [B, k] lists, and B5's merge kernel merges
-them (:func:`sharded_topk_merge`); the ids equal one call over the whole
-table. The plain versions below run for CPU tensors and serve as the
+the model group collects the m [B, k] lists, and a merge kernel places each
+candidate by its rank (:func:`sharded_topk_merge`); the ids equal one call
+over the whole table. The plain versions below run for CPU tensors and serve as the
 kernels' reference.
 """
 
@@ -355,10 +355,23 @@ def sharded_topk_merge_plain(cand_s, cand_i, k: int):
     return _merge_lists(cand_s, cand_i, k)
 
 
+#: the most candidates of a row the merge kernel stages (its scores and ids
+#: within 48 KB of shared memory)
+MAX_MERGE_CANDIDATES = 6144
+
+
 def sharded_topk_merge(cand_s, cand_i, k: int):
     """B14's merge: (scores [B, k], ids [B, k]) of the k best of the m
     candidate lists ``cand_s`` float32 / ``cand_i`` int32 [m, B, k] (the
-    model group's local stages, in shard order) by (score desc, id asc)."""
+    model group's local stages, in shard order) by (score desc, id asc).
+
+    Requires what :func:`sharded_topk_local` writes: each row's list sorted
+    by (score desc, id asc), padded at its end with (-inf, INT32_MAX), and
+    the ids of an earlier list below those of a later one. The kernel places
+    candidate r of list l at r plus the entries of earlier lists that score
+    at least as high and of later lists that score higher (a binary search
+    of each), which is the stable merge of the lists concatenated in order
+    (:func:`sharded_topk_merge_plain`) only for sorted lists."""
     if (cand_s.dim() != 3 or cand_s.shape != cand_i.shape or cand_s.dtype != torch.float32
             or cand_i.dtype != torch.int32 or cand_s.device != cand_i.device):
         raise ValueError(f"sharded_topk_merge takes float32 / int32 lists [m, B, k]: "
@@ -366,6 +379,9 @@ def sharded_topk_merge(cand_s, cand_i, k: int):
     if not 1 <= k <= MAX_K or cand_s.shape[2] != k:
         raise ValueError(f"sharded_topk_merge takes lists of k, 1 <= k <= {MAX_K}: "
                          f"{cand_s.shape[2]}, k={k}")
+    if cand_s.shape[0] * k > MAX_MERGE_CANDIDATES:
+        raise ValueError(f"sharded_topk_merge takes at most {MAX_MERGE_CANDIDATES} "
+                         f"candidates a row: {cand_s.shape[0]} lists of {k}")
     if cand_s.device.type == "cpu":
         return sharded_topk_merge_plain(cand_s, cand_i, k)
     if cand_s.device.type != "cuda":

@@ -2,8 +2,9 @@
 
 Port of ``recbole_cdr_tpu/trainer/device_loop.py``. The interaction arrays,
 per-user history matrix and candidate-id runs live on the device; per epoch
-the loop builds every step's batch IN BULK (the epoch shuffle through kernel
-K3, ``ops/shuffle.py``; the negatives through kernel K2,
+the loop builds every step's batch IN BULK (the epoch shuffle and the
+gathers of its rows through one launch of kernel K3 a stream,
+``ops/shuffle.py``; the negatives through kernel K2,
 ``ops/neg_sampler.py``), in segments bounded by ``SEGMENT_BYTES``, then a
 Python loop walks the per-step slices through the trainer's step function
 (loss -> backward -> optimizer step; for ``phase_optimizer: sparse`` the
@@ -215,8 +216,10 @@ class DomainDeviceData:
 
     def __init__(self, table, sampler, num_users: int, device):
         put = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
-        self.uid = put(table[table.uid_field])
-        self.iid = put(table[table.iid_field])
+        # each interaction's user and item side by side, which the stream
+        # reads in one load
+        self.pairs = put(np.stack([table[table.uid_field], table[table.iid_field]], 1))
+        self.uid = self.pairs[:, 0]
         self.n = len(table)
         self.uid_field = table.uid_field
         self.iid_field = table.iid_field
@@ -333,22 +336,10 @@ class DeviceEpochLoop:
         """Bulk [n_steps, dstep] uid/iid/weight + [neg, n_steps, dstep]
         negatives for steps [step_lo, step_lo + n_steps)."""
         keys, salts = shuf                                  # [K, ROUNDS]
-        s = step_lo + torch.arange(n_steps, device=self.device)
-        cols = torch.arange(dstep, device=self.device)
-        if cycle:
-            c = s // self.src_batches_per_cycle
-            local = s % self.src_batches_per_cycle
-            slots = local[:, None] * dstep + cols[None, :]
-            keys, salts = keys[c], salts[c]                 # one permutation per cycle
-        else:
-            slots = s[:, None] * dstep + cols[None, :]
-        valid = slots < data.n
-        rows = swap_or_not(
-            (torch.where(valid, slots, 0) % max(data.n, 1)).to(torch.int32), data.n, keys, salts,
-        ).long()
-        uid = data.uid[rows]
-        iid = data.iid[rows]
-        weight = valid.to(torch.float32)
+        # one launch: the slots, their permutation (one per source cycle
+        # when ``cycle``) and the rows' users and items
+        uid, iid, weight = swap_or_not(data.pairs, data.n, keys, salts, step_lo, n_steps, dstep,
+                                       self.src_batches_per_cycle if cycle else 0)
         if self.neg_num > 0:
             total = n_steps * dstep * self.neg_num
             flat_uid = uid.reshape(-1)
@@ -411,13 +402,9 @@ class DeviceEpochLoop:
         overlapped ids, the slots past the end weighted 0
         (``recbole_cdr_tpu/trainer/device_loop.py:560-570``)."""
         keys, salts = shuf
-        s = step_lo + torch.arange(n_steps, device=self.device)
-        slots = s[:, None] * self.step + torch.arange(self.step, device=self.device)[None, :]
-        valid = slots < self.n_over
-        n = max(self.n_over, 1)
-        pos = swap_or_not((torch.where(valid, slots, 0) % n).to(torch.int32), n, keys, salts)
-        return {"overlap": self.overlap_ids[pos.long()],
-                "overlap_sample_weight": valid.to(torch.float32)}
+        ids, weight = swap_or_not(self.overlap_ids, self.n_over, keys, salts, step_lo, n_steps,
+                                  self.step)
+        return {"overlap": ids, "overlap_sample_weight": weight}
 
     def _build_xs(self, shuf, epoch, step_lo, n_steps):
         """Every step's batch of steps [step_lo, step_lo + n_steps): both

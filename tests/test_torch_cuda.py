@@ -2,7 +2,9 @@
 over the edge cases the main path's shapes do not reach: ``masked_topk`` with
 k up to 64 and every branch of its launch plan (a row split over a
 thread-block cluster, eight rows a block, wide history bitmaps), run to run,
-fewer unmasked items than k, swap-or-not grids taller than one launch's grid,
+fewer unmasked items than k, B3's epoch streams (one key row or one a
+source cycle, many key rows a block, segments past step 0, n below a step,
+n of 1 and 0, the OVERLAP stream, the catalog's, several blocks an SM),
 history widths with and without 16-byte loads, embedding widths that are
 not a multiple of the warp; every ``streaming_topk`` template at the
 catalog's 1,100,001 items, a history row spanning many item ranges and
@@ -43,7 +45,8 @@ bit-exact, K1-bf16 forward and backward; and the entry point on the
 catalog path in bf16 and with popularity negatives on both streams. B14,
 the mesh-sharded streaming top-k (its local stage at each shard's offset,
 then its merge), against its plain version and one B5 (or B13) call over
-the whole table, pad rows past the items included; and CMF over a one-rank
+the whole table, pad rows past the items included, and the merge alone at
+1 to 8 lists of k 1, 17, 50 and 64 with ties and padding; and CMF over a one-rank
 NCCL mesh through the entry point. B16, DeepAPF's attention-gated score
 (forward and backward from the five tables and both domains' ids, and the
 grid) at every kernel width, partial tiles, masked entities and the
@@ -125,16 +128,73 @@ def test_masked_topk_matches_plain(gen, B, I, k):
     assert torch.equal(got, k4.masked_topk(scores, row_ptr, items, k))  # run to run
 
 
-@pytest.mark.parametrize("R,L,n,per_row", [(49, 4096, 200_000, False), (49, 4096, 150_000, True),
-                                           (3, 5, 1, False), (70_000, 3, 1000, True)])
-def test_swap_or_not_matches_plain(gen, R, L, n, per_row):
-    x = _ints(0, max(n, 1), (R, L), gen)
-    K = R if per_row else 1
+#: B3's streams: (step_lo, n_steps, dstep, n, batches a source cycle or 0,
+#: the table's columns: 2, a domain's users and items; 1, the overlapped
+#: ids). One key row, or one a cycle (a cycle of one step: a key row a
+#: step, 70,000 rows at dstep 3, many rows a block); the source stream of
+#: the dense path (19 steps of 4,096, one cycle of 147 steps); segments that
+#: start past step 0; n below one step, n of 1 and 0; the OVERLAP stream (one
+#: table of overlapped ids); the catalog's 482 steps of 16,384 (several
+#: blocks an SM)
+STREAMS = [(0, 49, 4096, 200_000, 0, 2), (0, 49, 4096, 150_000, 1, 2), (0, 3, 5, 1, 0, 2),
+           (0, 70_000, 3, 1000, 1, 2), (0, 19, 4096, 600_000, 147, 2),
+           (0, 49, 4096, 150_000, 10, 2), (7, 12, 4096, 100_000, 0, 2),
+           (7, 12, 4096, 100_000, 5, 2), (0, 2, 4096, 1000, 0, 2), (0, 3, 8, 1, 1, 2),
+           (0, 2, 8, 0, 0, 2), (0, 21, 100, 2000, 0, 1), (3, 5, 100, 2000, 0, 1),
+           (0, 482, 16_384, 2_400_000, 0, 2)]
+
+
+@pytest.mark.parametrize("step_lo,n_steps,dstep,n,per_cycle,cols", STREAMS)
+def test_swap_or_not_matches_plain(gen, step_lo, n_steps, dstep, n, per_cycle, cols):
+    """B3's one launch a stream against its plain version on the same card
+    tensors, bit for bit: each column of the table at the permuted rows and
+    the weights; a second launch equal."""
+    K = -(-(step_lo + n_steps) // per_cycle) if per_cycle else 1
     keys = _ints(0, max(n, 1), (K, 64), gen)
     salts = _ints(-2 ** 31, 2 ** 31, (K, 64), gen)
-    got = k3.swap_or_not(x, n, keys, salts)
+    table = _ints(0, 1 << 30, (max(n, 1), 2) if cols == 2 else (max(n, 1),), gen)
+    ops.reset_launch_counts()
+    got = k3.swap_or_not(table, n, keys, salts, step_lo, n_steps, dstep, per_cycle)
     torch.cuda.synchronize()
-    assert torch.equal(got, k3.swap_or_not_plain(x, n, keys, salts))
+    assert ops.launch_counts()["swap_or_not"] == 1
+    want = k3.swap_or_not_stream_plain(table, n, keys, salts, step_lo, n_steps, dstep,
+                                       per_cycle)
+    assert len(got) == cols + 1 and all(torch.equal(a, b) for a, b in zip(got, want))
+    again = k3.swap_or_not(table, n, keys, salts, step_lo, n_steps, dstep, per_cycle)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _sorted_lists(m, B, k, gen, span=1000):
+    """[m, B, k] lists as B14's local stage writes them, on the card: scores
+    in {-3..3} (exact ties everywhere), list l's ids in [l span, (l + 1)
+    span), each row sorted by (score desc, id asc); every third row of a
+    list keeps only its first (row mod (k + 1)) entries, padded with (-inf,
+    INT32_MAX)."""
+    s = torch.randint(-3, 4, (m, B, k), device="cuda", generator=gen).float()
+    ids = torch.rand(m, B, span, device="cuda", generator=gen).argsort(-1)[..., :k]
+    ids = (ids + span * torch.arange(m, device="cuda")[:, None, None]).to(torch.int32)
+    key = -s * (span * m) + ids  # (score desc, id asc), exact in float32 at these sizes
+    order = key.argsort(-1)
+    s, ids = s.gather(-1, order), ids.gather(-1, order)
+    rows = torch.arange(B, device="cuda")
+    keep = torch.where(rows % 3 == 0, rows % (k + 1), k)[None, :, None]
+    pad = torch.arange(k, device="cuda")[None, None, :] >= keep
+    return s.masked_fill(pad, -torch.inf), ids.masked_fill(pad, b5.INT32_MAX)
+
+
+@pytest.mark.parametrize("k", [1, 17, 50, 64])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_sharded_topk_merge_matches_plain(gen, m, k):
+    """B14's merge (every candidate placed by its rank) against
+    ``sharded_topk_merge_plain`` on sorted lists with exact ties across and
+    within lists and padded rows, bit for bit; one launch a call."""
+    cs, ci = _sorted_lists(m, 300, k, gen)
+    ops.reset_launch_counts()
+    got = b5.sharded_topk_merge(cs, ci, k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sharded_topk_merge"] == 1
+    want = b5.sharded_topk_merge_plain(cs, ci, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _history_rows(n_users, H, sentinel, gen, rows):

@@ -25,7 +25,7 @@ from recbole_cdr_tpu_torch.ops import launch_counts
 from recbole_cdr_tpu_torch.ops.gather_dot import POSITIONS, backward_groups, gather_dot
 from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk
 from recbole_cdr_tpu_torch.ops.neg_sampler import sample_negatives, sample_negatives_plain
-from recbole_cdr_tpu_torch.ops.shuffle import swap_or_not
+from recbole_cdr_tpu_torch.ops.shuffle import swap_or_not, swap_or_not_plain
 from recbole_cdr_tpu_torch.trainer import device_loop as torch_loop
 
 LOSS_TOL = dict(rtol=2e-4, atol=1e-6)
@@ -142,16 +142,101 @@ def test_swap_or_not_matches_jax_exact(n, per_row):
     else:
         want = _swap_or_not(jnp.asarray(x), n, keys, salts)
     k, s = _t(keys).reshape(-1, 64), _t(salts).reshape(-1, 64)
-    got = swap_or_not(_t(x), n, k, s).numpy()
+    got = swap_or_not_plain(_t(x), n, k, s).numpy()
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
 @pytest.mark.parametrize("n", [2, 97, 4096])
 def test_swap_or_not_is_a_bijection(n):
+    """One step of n slots through the stream over the table 0..n-1: the
+    rows it reads are a permutation, every slot weighted 1."""
     keys, salts = _shuffle_keys(jax.random.PRNGKey(n), n)
-    out = swap_or_not(torch.arange(n, dtype=torch.int32)[None], n,
-                      _t(keys)[None], _t(salts)[None]).numpy()[0]
-    assert sorted(out.tolist()) == list(range(n))
+    rows, weight = swap_or_not(torch.arange(n, dtype=torch.int32), n,
+                               _t(keys)[None], _t(salts)[None], 0, 1, n)
+    assert sorted(rows[0].tolist()) == list(range(n))
+    assert torch.equal(weight, torch.ones(1, n))
+
+
+def _jax_stream_rows(n, keys, salts, step_lo, n_steps, dstep, per_cycle):
+    """The permuted rows and weights of ``domain_stream``
+    (``recbole_cdr_tpu/trainer/device_loop.py:490-506``): keys [K, 64] per
+    source cycle when ``per_cycle``, else one [64] permutation."""
+    s = step_lo + jnp.arange(n_steps)
+    if per_cycle:
+        c = s // per_cycle
+        slots = (s % per_cycle)[:, None] * dstep + jnp.arange(dstep)[None, :]
+        valid = slots < n
+        rows = _swap_or_not(jnp.where(valid, slots, 0), n, keys[c][:, None, :],
+                            salts[c][:, None, :])
+    else:
+        slots = s[:, None] * dstep + jnp.arange(dstep)[None, :]
+        valid = slots < n
+        rows = _swap_or_not(jnp.where(valid, slots, 0) % max(n, 1), n, keys, salts)
+    return np.asarray(rows), np.asarray(valid.astype(jnp.float32))
+
+
+#: (n, dstep, step_lo, n_steps, batches a source cycle or 0)
+STREAMS = {
+    "whole_steps": (1000, 100, 0, 10, 0),
+    "last_step_short": (937, 100, 0, 10, 0),
+    "segment": (937, 100, 4, 6, 0),
+    "past_the_end": (937, 100, 8, 4, 0),
+    "cycling": (937, 100, 0, 25, 10),
+    "cycling_segment": (937, 100, 7, 12, 10),
+    "one_row": (1, 8, 0, 3, 0),
+    "one_row_cycling": (1, 8, 0, 3, 1),
+    "empty": (0, 8, 0, 2, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(STREAMS))
+def test_swap_or_not_stream_matches_jax(case):
+    """The port's domain stream (``DeviceEpochLoop._domain_stream`` with no
+    negatives: one B3 call, its plain version here) against JAX's
+    ``domain_stream`` rows, users, items and weights, bit for bit, from
+    JAX's keys: cycling or not, n no multiple of the step, a segment that
+    starts past step 0, n of 1 and 0."""
+    n, dstep, step_lo, n_steps, per_cycle = STREAMS[case]
+    K = -(-(step_lo + n_steps) // per_cycle) if per_cycle else 1
+    keys, salts = _shuffle_keys(jax.random.PRNGKey(3), n, (K,) if per_cycle else ())
+    rows, weight = _jax_stream_rows(n, keys, salts, step_lo, n_steps, dstep, per_cycle)
+    rng = np.random.default_rng(4)
+    uid = rng.integers(0, 1 << 20, max(n, 1)).astype(np.int32)
+    iid = rng.integers(0, 1 << 20, max(n, 1)).astype(np.int32)
+    k, s = _t(keys).reshape(-1, 64), _t(salts).reshape(-1, 64)
+    loop = SimpleNamespace(neg_num=0, device=torch.device("cpu"),
+                           src_batches_per_cycle=per_cycle)
+    data = SimpleNamespace(pairs=_t(np.stack([uid, iid], 1)), n=n)
+    got_u, got_i, got_w, neg = torch_loop.DeviceEpochLoop._domain_stream(
+        loop, data, "src", (k, s), step_lo, n_steps, dstep, per_cycle > 0, 0)
+    np.testing.assert_array_equal(got_u.numpy(), uid[rows])
+    np.testing.assert_array_equal(got_i.numpy(), iid[rows])
+    np.testing.assert_array_equal(got_w.numpy(), weight)
+    assert got_u.dtype == got_i.dtype == torch.int32 and neg.shape == (0, n_steps, dstep)
+    got_rows, _ = swap_or_not(torch.arange(max(n, 1), dtype=torch.int32), n, k, s, step_lo,
+                              n_steps, dstep, per_cycle)
+    np.testing.assert_array_equal(got_rows.numpy(), rows)
+
+
+@pytest.mark.parametrize("n_over,step,step_lo,n_steps", [
+    (300, 32, 0, 10), (300, 32, 3, 7), (1, 16, 0, 2), (0, 16, 0, 1)])
+def test_overlap_stream_matches_jax(n_over, step, step_lo, n_steps):
+    """``DeviceEpochLoop._overlap_xs`` against the OVERLAP branch of JAX's
+    ``build_xs`` (``recbole_cdr_tpu/trainer/device_loop.py:560-570``): the
+    shuffled overlapped ids and their weights, bit for bit."""
+    keys, salts = _shuffle_keys(jax.random.PRNGKey(9), n_over)
+    s = step_lo + jnp.arange(n_steps)
+    slots = s[:, None] * step + jnp.arange(step)[None, :]
+    valid = slots < n_over
+    ids = np.random.default_rng(5).permutation(1 << 12)[:max(n_over, 1)].astype(np.int32)
+    want = ids[np.asarray(_swap_or_not(jnp.where(valid, slots, 0) % max(n_over, 1),
+                                       max(n_over, 1), keys, salts))]
+    loop = SimpleNamespace(overlap_ids=_t(ids), n_over=n_over, step=step)
+    got = torch_loop.DeviceEpochLoop._overlap_xs(
+        loop, (_t(keys).reshape(-1, 64), _t(salts).reshape(-1, 64)), step_lo, n_steps)
+    np.testing.assert_array_equal(got["overlap"].numpy(), want)
+    np.testing.assert_array_equal(got["overlap_sample_weight"].numpy(),
+                                  np.asarray(valid.astype(jnp.float32)))
 
 
 # ------------------------------------------------------------------ K4
@@ -232,12 +317,12 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
     """CPU tensors take the plain version (no launch is counted); a device
     with neither version raises instead of falling back."""
     before = launch_counts()
-    x = torch.arange(8, dtype=torch.int32)[None]
+    x = torch.arange(8, dtype=torch.int32)
     keys = torch.zeros((1, 64), dtype=torch.int32)
-    swap_or_not(x, 8, keys, keys)
+    swap_or_not(x, 8, keys, keys, 0, 1, 8)
     assert launch_counts() == before
     with pytest.raises(ValueError):
-        swap_or_not(x.to("meta"), 8, keys.to("meta"), keys.to("meta"))
+        swap_or_not(x.to("meta"), 8, keys.to("meta"), keys.to("meta"), 0, 1, 8)
     with pytest.raises(ValueError):
         masked_topk(torch.zeros((2, 5), device="meta"),
                     torch.zeros(3, dtype=torch.int32, device="meta"),

@@ -41,6 +41,10 @@ from recbole_cdr_tpu_torch.evaluator.evaluator import FullSortEvaluator
 from recbole_cdr_tpu_torch.models.cmf import CMF
 from recbole_cdr_tpu_torch.ops import launch_counts, reset_launch_counts
 from recbole_cdr_tpu_torch.ops.topk import (
+    INT32_MAX,
+    sharded_topk_local_plain,
+    sharded_topk_merge,
+    sharded_topk_merge_plain,
     streaming_topk,
     streaming_topk_bf16,
     streaming_topk_plain,
@@ -187,6 +191,94 @@ def test_streaming_topk_rejects_bad_arguments():
         streaming_topk(args[0].double(), *args[1:], 5)
     with pytest.raises(ValueError, match="row_ptr"):
         streaming_topk(args[0], args[1], args[2][:-1], args[3], 5)
+
+
+# ------------------------------------------------------------------ B14
+
+def _sorted_lists(m, B, k, seed, span=1000):
+    """[m, B, k] candidate lists as B14's local stage writes them: integer
+    scores in {-3..3} (ties everywhere), list l's ids drawn from [l span,
+    (l + 1) span), each row sorted by (score desc, id asc) and holding a
+    random number of real entries (0 to k), padded with (-inf, INT32_MAX)."""
+    rng = np.random.default_rng(seed)
+    ss = np.full((m, B, k), -np.inf, np.float32)
+    ii = np.full((m, B, k), INT32_MAX, np.int32)
+    for l in range(m):
+        for b in range(B):
+            n = int(rng.integers(0, k + 1)) if b % 3 else k
+            ids = rng.choice(span, n, replace=False) + l * span
+            sc = rng.integers(-3, 4, n).astype(np.float32)
+            order = np.lexsort((ids, -sc))
+            ss[l, b, :n], ii[l, b, :n] = sc[order], ids[order]
+    return ss, ii
+
+
+def _rank_places(ss):
+    """The merge kernel's placement: candidate r of list l goes to r plus the
+    entries of earlier lists scoring at least as high and of later lists
+    scoring higher. [m, B, k] places."""
+    m, B, k = ss.shape
+    places = np.broadcast_to(np.arange(k), (m, B, k)).copy()
+    for l in range(m):
+        for l2 in range(m):
+            if l2 != l:
+                other = ss[l2][:, None, :]
+                mine = ss[l][:, :, None]
+                places[l] += ((other >= mine) if l2 < l else (other > mine)).sum(-1)
+    return places
+
+
+@pytest.mark.parametrize("m,k", [(1, 1), (1, 17), (2, 1), (2, 50), (3, 17), (4, 64),
+                                 (4, 10)])
+def test_rank_placement_is_the_stable_merge(m, k):
+    """The rank formula of B14's merge kernel, in numpy, on sorted lists full
+    of ties and padding: the places of a row are a permutation of [0, m k),
+    and the k placed first equal JAX's ``lax.top_k`` of the lists
+    concatenated in shard order (``make_sharded_streaming_topk``) and
+    ``sharded_topk_merge_plain``, bit for bit."""
+    B = 40
+    ss, ii = _sorted_lists(m, B, k, seed=m * 100 + k)
+    places = _rank_places(ss)
+    flat = places.transpose(1, 0, 2).reshape(B, m * k)
+    assert (np.sort(flat, 1) == np.arange(m * k)).all()
+    got_s = np.full((B, k), np.nan, np.float32)
+    got_i = np.zeros((B, k), np.int32)
+    rows, lists, ranks = np.nonzero(places.transpose(1, 0, 2) < k)
+    at = places.transpose(1, 0, 2)[rows, lists, ranks]
+    got_s[rows, at] = ss[lists, rows, ranks]
+    got_i[rows, at] = ii[lists, rows, ranks]
+    cat_s = jnp.asarray(ss.transpose(1, 0, 2).reshape(B, m * k))
+    cat_i = jnp.asarray(ii.transpose(1, 0, 2).reshape(B, m * k))
+    want_s, pos = jax.lax.top_k(cat_s, k)
+    want_i = np.asarray(jnp.take_along_axis(cat_i, pos, axis=1))
+    np.testing.assert_array_equal(got_s, np.asarray(want_s))
+    np.testing.assert_array_equal(got_i, want_i)
+    for merge in (sharded_topk_merge_plain, sharded_topk_merge):  # the wrapper: plain on CPU
+        p_s, p_i = merge(torch.from_numpy(ss), torch.from_numpy(ii), k)
+        np.testing.assert_array_equal(p_s.numpy(), got_s)
+        np.testing.assert_array_equal(p_i.numpy(), got_i)
+
+
+@pytest.mark.parametrize("m,k", [(1, 10), (3, 17), (4, 64)])
+def test_sharded_local_lists_are_sorted(m, k):
+    """What B14's merge kernel requires of its input: each shard's local list
+    (the plain version) sorted by (score desc, id asc), real entries inside
+    the shard's columns, padding (-inf, INT32_MAX) only at the end, and every
+    id of a shard below those of the next."""
+    I = 200
+    U, T, _, row_ptr, items = _case(24, I, 8, 30, seed=m + k)
+    L = -(-I // m)
+    lists = [sharded_topk_local_plain(*(torch.from_numpy(a) for a in (U, T[j * L:(j + 1) * L],
+                                                                       row_ptr, items)),
+                                      k, j * L, I) for j in range(m)]
+    for j, (s, i) in enumerate(lists):
+        s, i = s.numpy(), i.numpy().astype(np.int64)
+        pad = i == INT32_MAX
+        assert (s[pad] == -np.inf).all() and not np.isinf(s[~pad]).any()
+        assert (np.diff(pad.astype(int), axis=1) >= 0).all()  # padding last
+        assert ((i[~pad] >= j * L) & (i[~pad] < min((j + 1) * L, I))).all()
+        ahead = (s[:, :-1] > s[:, 1:]) | ((s[:, :-1] == s[:, 1:]) & (i[:, :-1] < i[:, 1:]))
+        assert (ahead | (pad[:, :-1] & pad[:, 1:])).all()
 
 
 # ------------------------------------------------------------ evaluator
