@@ -320,10 +320,12 @@ at every other id of the batch, and at the tower tables' shape (every
 target item), within ``B11_TOL`` of its plain version, the error of each
 element against the sum of its terms' absolute values; a second run of the
 forward and of the backward ``torch.equal`` to the first, in both forms
-(B11 has no float atomic: ``check_sass`` fails on one in its library). Its
-plan (``rating_vector_plan``) is held equal to its plain version (a stable
-sort) on each ids tensor and timed beside ``torch.sort(stable=True)``; the
-forward and backward are timed from one plan. Their bound charges the
+(B11 has no float atomic: ``check_sass`` fails on one in its library). The
+ids' grouping (``group_rows`` on a ``RowPlan`` over the history's rows) is
+held equal to its plain version on each ids tensor, and a DMF step's one
+launch for both sides (users and items on their two plans) is timed on the
+device and per call on the host; the forward and backward are timed from
+one grouping. Their bound charges the
 distinct rows' work: each distinct id's history entries and the table rows
 they name read once, the ids, the output and one add per entry and
 column. B10 (``candidate_topk``) and B7's
@@ -475,11 +477,11 @@ DTCDR_LABELED_METRICS = ["AUC", "MAE", "RMSE", "LogLoss"]
 DTCDR_PATHS = {
     "dtcdr_neumf": ("neg_sampler", "swap_or_not", "masked_topk", "rank_sum"),
     "dtcdr_dmf": ("neg_sampler", "swap_or_not", "masked_topk", "rank_sum",
-                  "rating_vector_forward", "rating_vector_backward", "rating_vector_plan"),
+                  "rating_vector_forward", "rating_vector_backward", "group_rows"),
     "dtcdr_uniform": ("neg_sampler", "swap_or_not", "candidate_topk", "rank_sum_candidates",
-                      "rating_vector_forward", "rating_vector_backward", "rating_vector_plan"),
+                      "rating_vector_forward", "rating_vector_backward", "group_rows"),
     "dtcdr_labeled": ("neg_sampler", "swap_or_not", "rating_vector_forward",
-                      "rating_vector_backward", "rating_vector_plan"),
+                      "rating_vector_backward", "group_rows"),
 }
 #: the DTCDR run that phase 7 repeats with the same seed: DMF trains and
 #: evaluates bit for bit the same (B11 sums in a fixed order)
@@ -487,9 +489,10 @@ DTCDR_REPEATED = "dtcdr_labeled"
 #: B11 launches per DMF training step (forward and backward) and per
 #: evaluation pass (forward): one per linear table
 B11_PER_STEP = 4
-#: B11 plans per DMF training step and evaluation pass: one per ids tensor
-#: (the users', the items'), shared by both tables of a side and the backward
-B11_PLANS_PER_STEP = 2
+#: ``group_rows`` launches per DMF training step and evaluation pass: one
+#: for both sides' ids (users and items on the model's two ``RowPlan``s),
+#: read by both tables of a side and the backward
+B11_PLANS_PER_STEP = 1
 
 #: phase 8's runs: (name, model, schedule), each phase cut to
 #: ``MAPPING_EPOCHS`` epochs from the published 300 (DCDCSR's BOTH: 50)
@@ -1086,7 +1089,8 @@ def make_recorder(out):
 #: and backward pair kernels its tensor-core products (HMMA: 3xTF32 in
 #: float32, bf16 / f16 in 16 bits, TF32 in the backward);
 #: every instantiation of B15's its tensor-core products (HMMA on mma.sync,
-#: HGMMA on wgmma: the published tower's), HGMMA in one.
+#: HGMMA on wgmma: the published tower's), HGMMA in one; every instantiation
+#: of B12's screen its 3xTF32 products (HMMA).
 #: Source -> (kernel or kernels, opcodes in every instantiation of each,
 #: opcodes in at least one, opcodes counted)
 SASS_OPCODES = {
@@ -1097,6 +1101,7 @@ SASS_OPCODES = {
     "deepapf_attention": (("grid_kernel", "forward_kernel", "backward_kernel"), ("HMMA",), (),
                           ("HMMA", "BAR.SYNC")),
     "conet_tower": ("tower_kernel", (), ("HGMMA",), ("HMMA", "HGMMA", "BAR.SYNC")),
+    "benchmark_topk": ("screen_kernel", ("HMMA",), (), ("HMMA", "BAR.SYNC")),
 }
 #: a float atomic in SASS (RED or ATOM on F16, BF16, F32 or F64): the
 #: libraries of ``FIXED_ORDER_SOURCES`` must hold none, so that their sums
@@ -2496,6 +2501,55 @@ def library_natr_grid(su, pu, q, w):
     return torch.sigmoid(library_natr_blend(su[:, None, :], pu[:, None, :], q[None, :, :], w))
 
 
+def host_call_ms(fn, reps=200):
+    """Host milliseconds a call of ``fn`` takes to return, over ``reps``
+    calls issued back to back (the device runs behind them)."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def dmf_plan_line(model, users, items):
+    """Print DMF's grouping of a step's ids as the model makes it: one
+    ``group_rows`` launch for both sides on the model's two kept plans, held
+    equal to the plain version, its device ms (queued), its host ms a call,
+    its bound, and the route its ids take (the inboxes up to
+    ``row_groups.INBOX_IDS`` ids a grouping, else the four rounds); then the
+    same for the tower tables' ``arange``s of every target user and item."""
+    import torch
+
+    from recbole_cdr_tpu_torch.ops import row_groups
+
+    up, ip = model._row_plans(users.device)
+    nu, ni = model.target_num_users, model.target_num_items
+    every = (torch.arange(nu, dtype=torch.int32, device=users.device),
+             torch.arange(ni, dtype=torch.int32, device=users.device))
+    for what, (a, b) in (("a DMF step", (users, items)), ("the tower tables", every)):
+        def one():
+            return row_groups.group_rows(a, up, second=(b, ip))
+        ga, gb = one()
+        check_plan(ga, a, up.L)
+        check_plan(gb, b, ip.L)
+        own = int(ga.meta[0]) + int(gb.meta[0])
+        heads = int(ga.meta[1]) + int(gb.meta[1])
+        b_ms, b_by = bound(*plan_work(a.shape[0] + b.shape[0], own, heads))
+        ms, how = device_ms(one, 20)
+        route = "inboxes" if max(a.shape[0], b.shape[0]) <= row_groups.INBOX_IDS else "rounds"
+        print(f"  group_rows [{what}, both sides in one launch]: {a.shape[0]} + {b.shape[0]} ids "
+              f"over {up.L} / {ip.L} rows, {heads} heads, route {route}; kernel {ms:.4f} ms "
+              f"({how}), host {host_call_ms(one):.4f} ms a call, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+
+
 def dtcdr_checks(dev, g, record):
     """Hold B11 against its plain version at a DMF training step's shapes on
     its four histories and at the tower tables' shape, and time the source
@@ -2510,6 +2564,7 @@ def dtcdr_checks(dev, g, record):
     from recbole_cdr_tpu_torch.ops import candidate_topk as b10
     from recbole_cdr_tpu_torch.ops import rank_sum as b7
     from recbole_cdr_tpu_torch.ops import rating_vector as b11
+    from recbole_cdr_tpu_torch.ops import row_groups
     from recbole_cdr_tpu_torch.ops.masked_topk import masked_topk_plan, sm_count
     from recbole_cdr_tpu_torch.trainer.device_loop import DeviceEpochLoop, TorchRandomSource
     from recbole_cdr_tpu_torch.utils import init_seed
@@ -2551,11 +2606,13 @@ def dtcdr_checks(dev, g, record):
     timed = None
 
     def hold_b11(name, csr, N, ids, x, gout):
-        """B11 and B11-bf16 on one history and one ids tensor from one plan:
-        forward and backward within tolerance of their plain versions, and
-        a second run of each bit-equal."""
-        plan = b11.rating_vector_plan(ids, csr.ptr.shape[0] - 1)
-        check_plan(plan, ids)
+        """B11 and B11-bf16 on one history and one ids tensor from one
+        grouping (on a plan of its own): forward and backward within
+        tolerance of their plain versions, and a second run of each
+        bit-equal."""
+        R = csr.ptr.shape[0] - 1
+        plan = row_groups.group_rows(ids, row_groups.RowPlan(R, dev))
+        check_plan(plan, ids, R)
         for key, table in (("", x), ("_bf16", x.to(dt16))):
             dtype = table.dtype
             got = b11.rating_vector_forward(csr, table, ids, plan)
@@ -2581,18 +2638,6 @@ def dtcdr_checks(dev, g, record):
         print(f"  rating_vector [{name}]: both forms' forward and backward bit-equal over two "
               "runs", flush=True)
         return plan
-
-    def check_plan(plan, ids):
-        """The plan kernel against its plain version: equal, but for the
-        order of the big heads' list."""
-        want = b11.rating_vector_plan_plain(ids, plan.R)
-        H = int(want.meta[0])
-        assert torch.equal(plan.meta, want.meta), (plan.meta, want.meta)
-        for field, n in (("row_head", None), ("head_row", H), ("head_start", H + 1),
-                         ("pos", None)):
-            assert torch.equal(getattr(plan, field)[:n], getattr(want, field)[:n]), field
-        n_big = int(want.meta[1])
-        assert torch.equal(torch.sort(plan.big[:n_big]).values, want.big[:n_big]), "big"
 
     for name, table, ids in (("s_items", model.source_user_linear, users),
                              ("t_items", model.target_user_linear, users),
@@ -2620,7 +2665,7 @@ def dtcdr_checks(dev, g, record):
              csr, N, heavy, x, gout)
     # the tower tables' shape: every target item on the source user side
     every = torch.arange(model.target_num_items, dtype=torch.int32, device=dev)
-    every_plan = b11.rating_vector_plan(every, csr.ptr.shape[0] - 1)
+    every_plan = row_groups.group_rows(every, row_groups.RowPlan(csr.ptr.shape[0] - 1, dev))
     errs["forward"] = max(errs["forward"], close(
         b11.rating_vector_forward(csr, x, every, every_plan),
         b11.rating_vector_plain(csr, x, every),
@@ -2636,15 +2681,7 @@ def dtcdr_checks(dev, g, record):
     vec[owner, flat] = 1.0
     jax_ms = device_ms(lambda: vec @ x, 10)[0]
     csr_bytes = 8 * n_ids + 4 * n_entries
-    R = csr.ptr.shape[0] - 1
-    # the plan: the ids read; the row map, heads, starts and positions written
-    record("rating_vector_plan", lambda: b11.rating_vector_plan(ids, R),
-           lambda: b11.rating_vector_plan_plain(ids, R), 0.0,
-           4 * (B + (R + 1) + 2 * n_ids + 1 + B), 0,
-           library_fn=lambda: torch.sort(ids, stable=True), reps=10)
-    print(f"  rating_vector_plan: {B} ids over {R + 1} keys, {n_ids} heads; library yardstick "
-          "torch.sort(stable=True) of the ids; the forward and backward below are timed from "
-          "one plan (a step builds one per ids tensor, 2 a step, for 8 B11 calls)", flush=True)
+    dmf_plan_line(model, users, items)
     record("rating_vector_forward",
            lambda: b11.rating_vector_forward(csr, x, ids, plan),
            lambda: b11.rating_vector_plain(csr, x, ids),
@@ -3598,8 +3635,6 @@ def main():
                                   "recbole_cdr_tpu/models/dtcdr.py:127"),
         "rating_vector_backward": ("recbole_cdr_tpu_torch/csrc/rating_vector.cu",
                                    "recbole_cdr_tpu/models/dtcdr.py:127"),
-        "rating_vector_plan": ("recbole_cdr_tpu_torch/csrc/rating_vector.cu",
-                               "recbole_cdr_tpu/models/dtcdr.py:127"),
         "candidate_topk": ("recbole_cdr_tpu_torch/csrc/masked_topk.cu",
                            "recbole_cdr_tpu/evaluator/evaluator.py:88"),
         "rank_sum_candidates": ("recbole_cdr_tpu_torch/csrc/rank_sum.cu",
@@ -3781,7 +3816,7 @@ def check_dtcdr_run(mode, cfg, result, hist, c):
     if cfg["base_model"] == "DMF":
         want = {"rating_vector_forward": B11_PER_STEP * (steps + passes),
                 "rating_vector_backward": B11_PER_STEP * steps,
-                "rating_vector_plan": B11_PLANS_PER_STEP * (steps + passes)}
+                "group_rows": B11_PLANS_PER_STEP * (steps + passes)}
     if mode == "full":
         n_target = result["model"].target_num_items
 
@@ -4155,6 +4190,9 @@ def check_b12(args, records):
     M, D = rest.shape
     n_ov = src.shape[0]
     out, idx, sim = b12.benchmark_topk(*args)
+    again = b12.benchmark_topk(*args)
+    assert torch.equal(idx, again[1]) and torch.equal(sim, again[2]), "B12 differs run to run"
+    assert torch.equal(out.nan_to_num(7.0), again[0].nan_to_num(7.0)), "B12 differs run to run"
     p_out, p_idx, p_sim = b12.benchmark_topk_plain(*args)
     zero = (rest == 0).all(1)
     assert (idx[zero] == torch.arange(k, device=rest.device)).all(), "tie rule"
@@ -4169,8 +4207,16 @@ def check_b12(args, records):
     err = float(diff[torch.isfinite(diff)].max()) if diff.numel() else 0.0
     print(f"B12 at BOTH entry: [{M}, {D}] rows against [{n_ov}, {D}], k {k}; "
           f"{int(zero.sum())} all-zero rows, {int(clear.sum())} rows clear of a near tie "
-          f"at the k-th, {int(torch.isnan(out).any(1).sum())} NaN rows (sn + t_pop = 0)",
-          flush=True)
+          f"at the k-th, {int(torch.isnan(out).any(1).sum())} NaN rows (sn + t_pop = 0); "
+          "two runs bit-equal", flush=True)
+    n_rows = M - int(zero.sum())  # the rows the screen takes
+    splits, span = b12.benchmark_topk_plan(
+        max(n_rows, 1), n_ov, k,
+        torch.cuda.get_device_properties(rest.device).multi_processor_count)
+    print(f"B12's plan: {n_rows} of {M} rows hold a value other than 0, "
+          f"{-(-n_rows // b12.ROWS)} row blocks x {splits} column ranges of {span} source rows, "
+          f"{b12.blocks_per_sm(k)} blocks an SM, {b12.screen_smem_bytes(k)} bytes of shared "
+          "memory a block", flush=True)
 
     def library():
         sims = torch.matmul(rest, src.T)
@@ -4184,13 +4230,23 @@ def check_b12(args, records):
 
     flops = 2 * M * n_ov * D
     n_bytes = 4 * (M * D + n_ov * D + n_ov + M) + 4 * M * D + 8 * M * k
+    # the kernel's work on this run's tables: the product of the rows that
+    # hold a value other than 0 in 3xTF32 on the tensor cores, the form B5
+    # computes its scores in, and at least the k results' float32 chains a
+    # row on the CUDA cores (an all-zero row's similarities are 0 unread)
     make_recorder(records)("benchmark_topk", lambda: b12.benchmark_topk(*args),
-                           lambda: b12.benchmark_topk_plain(*args), err, n_bytes, flops,
-                           library_fn=library)
-    # beside the CUDA-core bound: the same product in 3xTF32 on the tensor
-    # cores, the form B5 computes its scores in
+                           lambda: b12.benchmark_topk_plain(*args), err, n_bytes,
+                           2 * n_rows * k * D, library_fn=library,
+                           tf32_ops=TF32_PRODUCTS_PER_SCORE * 2 * n_rows * n_ov * D)
+    # beside it, every row's product: in 3xTF32, and on the CUDA cores in
+    # float32 as the reference computes it (the first design's bound)
     records["benchmark_topk"]["tf32_bound_ms"] = (
         TF32_PRODUCTS_PER_SCORE * flops / PEAK_TF32_OPS_PER_S * 1e3)
+    records["benchmark_topk"]["cuda_core_bound_ms"] = bound(n_bytes, flops)[0]
+    print(f"  benchmark_topk bounds: {n_rows} rows' product in 3xTF32 "
+          f"{records['benchmark_topk']['bound_ms']:.4f} ms; every row's in 3xTF32 "
+          f"{records['benchmark_topk']['tf32_bound_ms']:.4f} ms, float32 on the CUDA cores "
+          f"{records['benchmark_topk']['cuda_core_bound_ms']:.4f} ms", flush=True)
 
 
 def _free_port():

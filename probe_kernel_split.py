@@ -94,14 +94,16 @@ def main():
     from recbole_cdr_tpu_torch.ops import build
     from recbole_cdr_tpu_torch.ops import conet_tower as b15
     from recbole_cdr_tpu_torch.ops import rating_vector as b11
+    from recbole_cdr_tpu_torch.ops import row_groups
 
     kernel_split = cs.kernel_split
     dev = torch.device("cuda")
     cs.gen_data()
     csr, x, ids, gout, N = b11_operands(dev)
     R = csr.ptr.shape[0] - 1
-    show("rating_vector_plan", kernel_split(lambda: b11.rating_vector_plan(ids, R)))
-    plan = b11.rating_vector_plan(ids, R)
+    row_plan = row_groups.RowPlan(R, dev)
+    show("group_rows", kernel_split(lambda: row_groups.group_rows(ids, row_plan)))
+    plan = row_groups.group_rows(ids, row_plan)
     for table in (x, x.to(torch.bfloat16)):
         show(f"rating_vector_forward [{table.dtype}]",
              kernel_split(lambda: b11.rating_vector_forward(csr, table, ids, plan)))

@@ -19,14 +19,17 @@
 // atomic. Batches repeat popular ids (a popular item is in hundreds of a
 // step's pairs, with thousands of history entries), so all work is per
 // distinct id ("head"):
-//   1. the plan (plan_kernel, one cooperative launch of many blocks, built
-//      once per ids tensor and shared by every table and direction that
-//      takes it): the positions counted per id with integer atomics, a scan
-//      of the counts over the ids, each position placed in its id's bucket
-//      by an integer ticket, then ordered inside the bucket by counting the
-//      bucket's smaller positions. Out come the heads in id order, each
-//      head's positions in position order, and a map from history row to
-//      head (-1 for a row absent from the batch);
+//   1. the grouping of the ids by row (ops/row_groups.py::group_rows, the
+//      plan K1, B6, B9 and B16 read too; csrc/row_groups.cuh), built once a
+//      step for both sides' ids in one launch and shared by every table and
+//      direction that takes those ids: each distinct id's positions in
+//      position order, the heads in no set order, and a map from history
+//      row to head that is never cleared (a row has a head only where the
+//      head names it back: head_of). Ids outside the rows have no head; the
+//      forward writes their output rows as zeros. The forward walks the
+//      history's short rows in row order, skipping a row without a head,
+//      and sums the pieces of every long row, present or not: that costs
+//      less than the grouping's unsorted heads and a head check a piece;
 //   2. one fixed-order gather-sum (warp_sum), "CSR rows x dense rows ->
 //      float32 rows", used three ways: forward, the head's history row of
 //      the table; backward (a), the head's positions' rows of gout into
@@ -42,8 +45,8 @@
 //      them in piece order, a warp a row, or a block a row of more than 32
 //      pieces (the host's lists of both; the block's 8 warps each sum a
 //      contiguous run, then warp 0's, 1's, ... sums are added in order). A
-//      head of more than kBigPositions positions is summed by a block the
-//      same way.
+//      head of more than kBigTerms positions (the grouping's big list) is
+//      summed by a block the same way.
 // The forward writes each head's sum to every one of its positions and the
 // backward writes every table row once (0 where no present row holds it),
 // so nothing is zeroed before a launch; the 16-bit form rounds each table
@@ -58,26 +61,19 @@
 // promotion's cast, so it is the float32 row sum rounded once to the
 // table's type.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "float16.cuh"
-
-namespace cg = cooperative_groups;
+#include "row_groups.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;           // rows a row group loads before it adds them
-constexpr int kBigPositions = 64;    // a head with more positions is summed by a block
-constexpr int kMaxPlanBlocks = 1024;
-constexpr int kMaxD = 1024;          // the block sums' shared memory: (kWarps + 1) D floats
 constexpr int kGridPerSM = 8;
-
-// the plan's bucket of an id: itself, or R for an id outside [0, R)
-__device__ __forceinline__ int key_of(int id, int R) { return id >= 0 && id < R ? id : R; }
+// the block sums' shared memory, (kWarps + 1) D floats, bounds D at
+// row_groups.cuh's kMaxD
 
 // a warp's lanes over a row of D values: RW row groups of G lanes, VEC
 // consecutive values a lane (one 16-byte float32 or 8-byte 16-bit load when
@@ -202,132 +198,44 @@ __device__ void block_sum(int lo, int hi, RowOf row_of, const T* __restrict__ sr
   __syncthreads();
 }
 
-// ---- the plan ----------------------------------------------------------------
-
-// block-wide exclusive scan of (a, b); returns the block's totals
-__device__ __forceinline__ int2 block_scan(int& a, int& b) {
-  __shared__ int2 warp_tot[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = a, y = b;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int px = __shfl_up_sync(0xffffffffu, x, off), py = __shfl_up_sync(0xffffffffu, y, off);
-    if (lane >= off) x += px, y += py;
-  }
-  if (lane == 31) warp_tot[warp] = make_int2(x, y);
-  __syncthreads();
-  int2 before = make_int2(0, 0), total = make_int2(0, 0);
-  for (int w = 0; w < kWarps; ++w) {
-    const int2 t = warp_tot[w];
-    if (w < warp) before.x += t.x, before.y += t.y;
-    total.x += t.x, total.y += t.y;
-  }
-  a = before.x + x - a;
-  b = before.y + y - b;
-  __syncthreads();
-  return total;
-}
-
-// Keys 0..R (R for an id outside [0, R)). Out: meta[0] the heads H, meta[1]
-// the big heads; row_head[k] the head of key k or -1; head_row[h] its key;
-// head_start[h] .. head_start[h + 1] its positions pos[] in increasing order;
-// big[0 .. meta[1]) the heads of more than kBigPositions positions (in no set
-// order: each is summed on its own). Scratch: cnt, start, fill [R + 1], tmp
-// [B], bsum [2 gridDim.x].
-__global__ void __launch_bounds__(kThreads)
-plan_kernel(const int* __restrict__ ids, int B, int R, int* meta, int* row_head,
-            int* head_row, int* head_start, int* pos, int* big, int* cnt, int* start,
-            int* fill, int* tmp, int* bsum) {
-  cg::grid_group grid = cg::this_grid();
-  const int K = R + 1;
-  const int n_threads = gridDim.x * kThreads;
-  const int gtid = blockIdx.x * kThreads + threadIdx.x;
-  for (int k = gtid; k < K; k += n_threads) cnt[k] = 0, fill[k] = 0;
-  if (gtid == 0) meta[1] = 0;
-  grid.sync();
-  for (int b = gtid; b < B; b += n_threads) atomicAdd(cnt + key_of(ids[b], R), 1);
-  grid.sync();
-  // each block scans its run of keys: positions before each key, heads before it
-  const int per_block = (K + gridDim.x - 1) / gridDim.x;
-  const int k0 = min(K, (int)blockIdx.x * per_block), k1 = min(K, k0 + per_block);
-  int run_pos = 0, run_heads = 0;
-  for (int base = k0; base < k1; base += kThreads) {
-    const int k = base + threadIdx.x;
-    int c = k < k1 ? cnt[k] : 0, h = c > 0;
-    const int2 tot = block_scan(c, h);
-    if (k < k1) start[k] = run_pos + c, row_head[k] = run_heads + h;
-    run_pos += tot.x, run_heads += tot.y;
-  }
-  if (threadIdx.x == 0) bsum[2 * blockIdx.x] = run_pos, bsum[2 * blockIdx.x + 1] = run_heads;
-  grid.sync();
-  int off_pos = 0, off_heads = 0;
-  for (int j = 0; j < (int)blockIdx.x; ++j) off_pos += bsum[2 * j], off_heads += bsum[2 * j + 1];
-  for (int k = k0 + threadIdx.x; k < k1; k += kThreads) {
-    const int c = cnt[k], s = off_pos + start[k];
-    start[k] = s;
-    if (c > 0) {
-      const int h = off_heads + row_head[k];
-      row_head[k] = h, head_row[h] = k, head_start[h] = s;
-      if (c > kBigPositions) big[atomicAdd(meta + 1, 1)] = h;
-    } else {
-      row_head[k] = -1;
-    }
-  }
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
-    meta[0] = off_heads + run_heads;
-    head_start[off_heads + run_heads] = B;
-  }
-  grid.sync();
-  for (int b = gtid; b < B; b += n_threads) {
-    const int k = key_of(ids[b], R);
-    tmp[start[k] + atomicAdd(fill + k, 1)] = b;
-  }
-  grid.sync();
-  // a position's place in its bucket: the bucket's positions below it
-  for (int b = gtid; b < B; b += n_threads) {
-    const int k = key_of(ids[b], R), s = start[k], n = cnt[k];
-    int rank = 0;
-#pragma unroll 8
-    for (int j = s; j < s + n; ++j) rank += tmp[j] < b;
-    pos[s + rank] = b;
-  }
-}
-
 // ---- the gather-sums -----------------------------------------------------------
 
-// Forward, first pass: the heads whose rows are short, a warp each, their
-// sums written to all their positions; the pieces of long rows of present
-// heads, a warp each, into part[piece].
+// Forward, first pass: the short history rows that have a head, a warp each
+// in row order (a row without one is skipped by its head check), their sums
+// written to all their head's positions; the pieces of every long row, a warp
+// each, into part[piece] (combine_kernel reads a present row's alone); the
+// rows of ids outside [0, R) (no head: read only when the grouping left some
+// of the B ids out) as zeros.
 template <int VEC, typename T>
 __global__ void __launch_bounds__(kThreads)
 forward_kernel(const int* __restrict__ ptr, const int* __restrict__ cols, int R,
                const int* __restrict__ p_row, const int* __restrict__ p_first, int n_pieces,
-               int piece, const T* __restrict__ table, int D, const int* __restrict__ meta,
-               const int* __restrict__ row_head, const int* __restrict__ head_row,
-               const int* __restrict__ head_start, const int* __restrict__ pos,
-               float* __restrict__ part, float* __restrict__ out) {
+               int piece, const T* __restrict__ table, int D, const int* __restrict__ ids,
+               int B, GroupsView gr, float* __restrict__ part, float* __restrict__ out) {
   const Geo g = geo<VEC>(D);
   const int lane = threadIdx.x & 31, sub = lane / g.G;
-  const int H = meta[0], total = H + n_pieces;
+  const int total = R + n_pieces;
+  if (__ldg(gr.meta) < B) {
+    for (int b = blockIdx.x * kThreads + threadIdx.x; b < B; b += gridDim.x * kThreads)
+      if ((unsigned)__ldg(ids + b) >= (unsigned)R)
+        for (int d = 0; d < D; ++d) out[(long long)b * D + d] = 0.f;
+  }
   const auto col_of = [&](int j) { return cols[j]; };
   for (int w = blockIdx.x * kWarps + (threadIdx.x >> 5); w < total; w += gridDim.x * kWarps) {
-    if (w < H) {
-      const int r = head_row[w];
-      int lo = 0, hi = 0;
-      if (r < R) {
-        if (p_first[r + 1] > p_first[r]) continue;  // a long row: the pieces and combine_kernel
-        lo = ptr[r], hi = ptr[r + 1];
-      }
-      const int q0 = head_start[w], q1 = head_start[w + 1];
+    if (w < R) {
+      const int r = w, h = head_of(gr, r);
+      // absent, or a long row: the pieces and combine_kernel
+      if (h < 0 || p_first[r + 1] > p_first[r]) continue;
+      const int lo = ptr[r], hi = ptr[r + 1];
+      const int q0 = gr.head_start[h], q1 = q0 + gr.head_len[h];
       for (int s = 0; s < g.steps; ++s) {
         const int d = (s * g.G + lane % g.G) * VEC;
         float acc[VEC];
         warp_sum<VEC>(lo, hi, col_of, table, D, d, g, acc);
-        warp_scatter<VEC>(q0, q1, pos, out, D, d, g, acc);
+        warp_scatter<VEC>(q0, q1, gr.pos, out, D, d, g, acc);
       }
     } else {
-      const int p = w - H, r = p_row[p];
-      if (row_head[r] < 0) continue;
+      const int p = w - R, r = p_row[p];
       const int lo = ptr[r] + (p - p_first[r]) * piece, hi = min(lo + piece, ptr[r + 1]);
       for (int s = 0; s < g.steps; ++s) {
         const int d = (s * g.G + lane % g.G) * VEC;
@@ -348,24 +256,23 @@ forward_kernel(const int* __restrict__ ptr, const int* __restrict__ cols, int R,
 template <int VEC, typename T, bool kFwd>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const int* __restrict__ p_first, const int* __restrict__ big_rows, int n_big,
-               const int* __restrict__ small_rows, int n_small,
-               const int* __restrict__ row_head, const int* __restrict__ head_start,
-               const int* __restrict__ pos, const float* __restrict__ part, int D,
-               T* __restrict__ out) {
+               const int* __restrict__ small_rows, int n_small, GroupsView gr,
+               const float* __restrict__ part, int D, T* __restrict__ out) {
   extern __shared__ float red[];
   const Geo g = geo<VEC>(D);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, sub = lane / g.G;
   const auto same = [](int j) { return j; };
   for (int i = blockIdx.x; i < n_big; i += gridDim.x) {
     const int r = big_rows[i];
-    if (kFwd && row_head[r] < 0) continue;
+    const int h = kFwd ? head_of(gr, r) : 0;
+    if (h < 0) continue;
     block_sum<VEC>(p_first[r], p_first[r + 1], same, part, D, red);
     const float* sum = red + kWarps * D;
     if constexpr (kFwd) {
-      const int h = row_head[r], q1 = head_start[h + 1];
-      for (int base = head_start[h] + 32 * warp; base < q1; base += 32 * kWarps) {
+      const int q1 = gr.head_start[h] + gr.head_len[h];
+      for (int base = gr.head_start[h] + 32 * warp; base < q1; base += 32 * kWarps) {
         const int n = min(32, q1 - base);
-        const int mine = lane < n ? pos[base + lane] : 0;
+        const int mine = lane < n ? gr.pos[base + lane] : 0;
         for (int k = 0; k < n; ++k) {
           const long long p = __shfl_sync(0xffffffffu, mine, k);
           for (int d = lane; d < D; d += 32) out[p * D + d] = sum[d];
@@ -378,14 +285,15 @@ combine_kernel(const int* __restrict__ p_first, const int* __restrict__ big_rows
   }
   for (int w = blockIdx.x * kWarps + warp; w < n_small; w += gridDim.x * kWarps) {
     const int r = small_rows[w];
-    if (kFwd && row_head[r] < 0) continue;
+    const int h = kFwd ? head_of(gr, r) : 0;
+    if (h < 0) continue;
     for (int s = 0; s < g.steps; ++s) {
       const int d = (s * g.G + lane % g.G) * VEC;
       float acc[VEC];
       warp_sum<VEC>(p_first[r], p_first[r + 1], same, part, D, d, g, acc);
       if constexpr (kFwd) {
-        const int h = row_head[r];
-        warp_scatter<VEC>(head_start[h], head_start[h + 1], pos, out, D, d, g, acc);
+        const int q0 = gr.head_start[h];
+        warp_scatter<VEC>(q0, q0 + gr.head_len[h], gr.pos, out, D, d, g, acc);
       } else if (sub == 0 && d < D) {
         store<VEC>(out + (long long)r * D + d, acc);
       }
@@ -397,27 +305,25 @@ combine_kernel(const int* __restrict__ p_first, const int* __restrict__ big_rows
 // order: a block for each big head, a warp for each other head.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
-head_sum_kernel(const int* __restrict__ meta, const int* __restrict__ head_start,
-                const int* __restrict__ pos, const int* __restrict__ big,
-                const float* __restrict__ gout, int D, float* __restrict__ gsum) {
+head_sum_kernel(GroupsView gr, const float* __restrict__ gout, int D, float* __restrict__ gsum) {
   extern __shared__ float red[];
   const Geo g = geo<VEC>(D);
   const int lane = threadIdx.x & 31, sub = lane / g.G;
-  const int H = meta[0], n_big = meta[1];
-  const auto pos_of = [&](int j) { return pos[j]; };
+  const int H = __ldg(gr.meta + 1), n_big = __ldg(gr.meta + 2);
+  const auto pos_of = [&](int j) { return gr.pos[j]; };
   for (int i = blockIdx.x; i < n_big; i += gridDim.x) {
-    const int h = big[i];
-    block_sum<VEC>(head_start[h], head_start[h + 1], pos_of, gout, D, red);
+    const int h = gr.big[i], q0 = gr.head_start[h];
+    block_sum<VEC>(q0, q0 + gr.head_len[h], pos_of, gout, D, red);
     for (int d = threadIdx.x; d < D; d += kThreads) gsum[(long long)h * D + d] = red[kWarps * D + d];
     __syncthreads();
   }
   for (int h = blockIdx.x * kWarps + (threadIdx.x >> 5); h < H; h += gridDim.x * kWarps) {
-    const int q0 = head_start[h], q1 = head_start[h + 1];
-    if (q1 - q0 > kBigPositions) continue;
+    const int q0 = gr.head_start[h], n = gr.head_len[h];
+    if (n > kBigTerms) continue;
     for (int s = 0; s < g.steps; ++s) {
       const int d = (s * g.G + lane % g.G) * VEC;
       float acc[VEC];
-      warp_sum<VEC>(q0, q1, pos_of, gout, D, d, g, acc);
+      warp_sum<VEC>(q0, q0 + n, pos_of, gout, D, d, g, acc);
       if (sub == 0 && d < D) store<VEC>(gsum + (long long)h * D + d, acc);
     }
   }
@@ -430,12 +336,16 @@ template <int VEC, typename T>
 __global__ void __launch_bounds__(kThreads)
 table_kernel(const int* __restrict__ tptr, const int* __restrict__ tcols, int N,
              const int* __restrict__ p_row, const int* __restrict__ p_first, int n_pieces,
-             int piece, const int* __restrict__ row_head, const float* __restrict__ gsum, int D,
+             int piece, GroupsView gr, const float* __restrict__ gsum, int D,
              float* __restrict__ part, T* __restrict__ dtable) {
   const Geo g = geo<VEC>(D);
   const int lane = threadIdx.x & 31, sub = lane / g.G;
-  const int total = N + n_pieces;
-  const auto head_of = [&](int j) { return row_head[tcols[j]]; };
+  const int total = N + n_pieces, H = __ldg(gr.meta + 1);
+  // the head of the history row of entry j, or -1 (head_of, with H kept)
+  const auto head_at = [&](int j) {
+    const int r = tcols[j], h = __ldg(gr.row_head + r);
+    return (unsigned)h < (unsigned)H && __ldg(gr.head_row + h) == r ? h : -1;
+  };
   for (int w = blockIdx.x * kWarps + (threadIdx.x >> 5); w < total; w += gridDim.x * kWarps) {
     const bool whole = w < N;
     const int p = w - N, c = whole ? w : p_row[p];
@@ -445,7 +355,7 @@ table_kernel(const int* __restrict__ tptr, const int* __restrict__ tcols, int N,
     for (int s = 0; s < g.steps; ++s) {
       const int d = (s * g.G + lane % g.G) * VEC;
       float acc[VEC];
-      warp_sum<VEC>(lo, hi, head_of, gsum, D, d, g, acc);
+      warp_sum<VEC>(lo, hi, head_at, gsum, D, d, g, acc);
       if (sub != 0 || d >= D) continue;
       if (whole) store<VEC>(dtable + (long long)c * D + d, acc);
       else store<VEC>(part + (long long)p * D + d, acc);
@@ -474,103 +384,67 @@ int combine_blocks(int n_big, int n_small, int most) {
 template <int VEC, typename T>
 int forward_launch(const int* ptr, const int* cols, int R, const int* p_row, const int* p_first,
                    int n_pieces, const int* big_rows, int n_big, const int* small_rows,
-                   int n_small, int piece, const void* table,
-                   int D, const int* meta, const int* row_head, const int* head_row,
-                   const int* head_start, const int* pos, float* part, float* out,
-                   cudaStream_t st) {
+                   int n_small, int piece, const void* table, int D, const int* ids, int B,
+                   const GroupsView& gr, float* part, float* out, cudaStream_t st) {
   const int blocks = grid_blocks(kGridPerSM);
   if (blocks <= 0) return (int)cudaErrorInvalidDevice;
   forward_kernel<VEC, T><<<blocks, kThreads, 0, st>>>(ptr, cols, R, p_row, p_first, n_pieces,
-                                                     piece, (const T*)table, D, meta, row_head,
-                                                     head_row, head_start, pos, part, out);
+                                                     piece, (const T*)table, D, ids, B, gr,
+                                                     part, out);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_big + n_small == 0) return (int)e;
   combine_kernel<VEC, float, true>
       <<<combine_blocks(n_big, n_small, blocks), kThreads, red_bytes(D), st>>>(
-          p_first, big_rows, n_big, small_rows, n_small, row_head, head_start, pos, part, D,
-          out);
+          p_first, big_rows, n_big, small_rows, n_small, gr, part, D, out);
   return (int)cudaGetLastError();
 }
 
 template <int VEC, typename T>
 int backward_launch(const int* tptr, const int* tcols, int N, const int* p_row,
                     const int* p_first, int n_pieces, const int* big_rows, int n_big,
-                    const int* small_rows, int n_small, int piece, const float* gout, int D, const int* meta, const int* row_head,
-                    const int* head_start, const int* pos, const int* big, float* gsum,
-                    float* part, void* dtable, cudaStream_t st) {
+                    const int* small_rows, int n_small, int piece, const float* gout, int D,
+                    const GroupsView& gr, float* gsum, float* part, void* dtable,
+                    cudaStream_t st) {
   const int blocks = grid_blocks(kGridPerSM);
   if (blocks <= 0) return (int)cudaErrorInvalidDevice;
-  head_sum_kernel<VEC><<<blocks, kThreads, red_bytes(D), st>>>(meta, head_start, pos, big,
-                                                               gout, D, gsum);
+  head_sum_kernel<VEC><<<blocks, kThreads, red_bytes(D), st>>>(gr, gout, D, gsum);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || N == 0) return (int)e;
   table_kernel<VEC, T><<<blocks, kThreads, 0, st>>>(tptr, tcols, N, p_row, p_first, n_pieces,
-                                                   piece, row_head, gsum, D, part, (T*)dtable);
+                                                   piece, gr, gsum, D, part, (T*)dtable);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_big + n_small == 0) return (int)e;
   combine_kernel<VEC, T, false>
       <<<combine_blocks(n_big, n_small, blocks), kThreads, red_bytes(D), st>>>(
-          p_first, big_rows, n_big, small_rows, n_small, row_head, head_start, pos, part, D,
-          (T*)dtable);
+          p_first, big_rows, n_big, small_rows, n_small, gr, part, D, (T*)dtable);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The plan of ids [B] over keys 0..R (see plan_kernel): meta [2], row_head
-// [R + 1], head_row [B], head_start [B + 1], pos [B], big [B] out; cnt,
-// start, fill [R + 1], tmp [B], bsum [2 * 1024] scratch; all int32.
-extern "C" int rating_vector_plan(const void* ids, int B, int R, void* meta, void* row_head,
-                                  void* head_row, void* head_start, void* pos, void* big,
-                                  void* cnt, void* start, void* fill, void* tmp, void* bsum,
-                                  void* stream) {
-  if (B < 0 || R < 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, occ = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, plan_kernel, kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
-  const int need = ((B > R + 1 ? B : R + 1) + kThreads - 1) / kThreads;
-  int blocks = sms * (occ < 2 ? occ : 2);
-  blocks = blocks < need ? blocks : need;
-  blocks = blocks < kMaxPlanBlocks ? blocks : kMaxPlanBlocks;
-  if (blocks < 1) blocks = 1;
-  const int* i = (const int*)ids;
-  int *m = (int*)meta, *rh = (int*)row_head, *hr = (int*)head_row, *hs = (int*)head_start,
-      *p = (int*)pos, *bg = (int*)big, *c = (int*)cnt, *s = (int*)start, *f = (int*)fill,
-      *t = (int*)tmp, *bs = (int*)bsum;
-  void* args[] = {&i, &B, &R, &m, &rh, &hr, &hs, &p, &bg, &c, &s, &f, &t, &bs};
-  e = cudaLaunchCooperativeKernel((const void*)plan_kernel, blocks, kThreads, args, 0,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
 // Forward: out float32 [B, D] (every row written) from the table [N, D] of
 // dtype (0 float32, 1 bfloat16, 2 float16), the history (ptr [R + 1], cols)
 // with its static pieces (p_row [n_pieces], p_first [R + 1], `piece` entries
 // each; the cut rows of more than 32 pieces big_rows [n_big], the others
-// small_rows [n_small]) and the plan of the ids; part: float32
-// [n_pieces, D] scratch. vec: 4 when D % 4 == 0 and every row is 16-byte
-// (float32) or 8-byte (16-bit) aligned, else 1.
+// small_rows [n_small]), the ids [B] and their grouping over the history's
+// rows (groups: a C array of its seven arrays' addresses, row_groups.cuh);
+// part: float32 [n_pieces, D] scratch. vec: 4 when D % 4 == 0 and every row
+// is 16-byte (float32) or 8-byte (16-bit) aligned, else 1.
 extern "C" int rating_vector_forward(const void* ptr, const void* cols, int R, const void* p_row,
                                      const void* p_first, int n_pieces, const void* big_rows,
                                      int n_big, const void* small_rows, int n_small, int piece,
-                                     const void* table, int D,
-                                     int dtype, int vec, const void* meta, const void* row_head,
-                                     const void* head_row, const void* head_start,
-                                     const void* pos, void* part, void* out, void* stream) {
+                                     const void* table, int D, int dtype, int vec,
+                                     const void* ids, int B, const void* const* groups,
+                                     void* part, void* out, void* stream) {
   if (D <= 0 || D > kMaxD || piece <= 0 || (vec != 1 && vec != 4) || (vec == 4 && D % 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const GroupsView gr = groups_view(groups);
 #define B11_FWD(V, T)                                                                         \
   forward_launch<V, T>((const int*)ptr, (const int*)cols, R, (const int*)p_row,               \
                        (const int*)p_first, n_pieces, (const int*)big_rows, n_big,            \
-                       (const int*)small_rows, n_small, piece,                                \
-                       table, D, (const int*)meta, (const int*)row_head,                      \
-                       (const int*)head_row, (const int*)head_start, (const int*)pos,         \
-                       (float*)part, (float*)out, st)
+                       (const int*)small_rows, n_small, piece, table, D, (const int*)ids, B,  \
+                       gr, (float*)part, (float*)out, st)
   switch (dtype * 2 + (vec == 4)) {
     case 0: return B11_FWD(1, float);
     case 1: return B11_FWD(4, float);
@@ -584,26 +458,24 @@ extern "C" int rating_vector_forward(const void* ptr, const void* cols, int R, c
 }
 
 // Backward: dtable [N, D] of dtype (every row written once) from gout
-// float32 [B, D], the plan of the ids, and the transposed history (tptr [N +
-// 1], tcols: the history rows holding each table row, increasing) with its
-// static pieces; gsum float32 [B, D] and part float32 [n_pieces, D] scratch.
+// float32 [B, D], the grouping of the ids (as the forward's), and the
+// transposed history (tptr [N + 1], tcols: the history rows holding each
+// table row, increasing) with its static pieces; gsum float32 [B, D] and
+// part float32 [n_pieces, D] scratch.
 extern "C" int rating_vector_backward(const void* tptr, const void* tcols, int N,
                                       const void* p_row, const void* p_first, int n_pieces,
                                       const void* big_rows, int n_big, const void* small_rows,
-                                      int n_small, int piece,
-                                      const void* gout, int D, int vec, const void* meta,
-                                      const void* row_head, const void* head_start,
-                                      const void* pos, const void* big, void* gsum, void* part,
+                                      int n_small, int piece, const void* gout, int D, int vec,
+                                      const void* const* groups, void* gsum, void* part,
                                       int dtype, void* dtable, void* stream) {
   if (D <= 0 || D > kMaxD || piece <= 0 || (vec != 1 && vec != 4) || (vec == 4 && D % 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const GroupsView gr = groups_view(groups);
 #define B11_BWD(V, T)                                                                          \
   backward_launch<V, T>((const int*)tptr, (const int*)tcols, N, (const int*)p_row,             \
                         (const int*)p_first, n_pieces, (const int*)big_rows, n_big,            \
-                        (const int*)small_rows, n_small, piece,                                \
-                        (const float*)gout, D, (const int*)meta, (const int*)row_head,         \
-                        (const int*)head_start, (const int*)pos, (const int*)big,              \
+                        (const int*)small_rows, n_small, piece, (const float*)gout, D, gr,     \
                         (float*)gsum, (float*)part, dtable, st)
   switch (dtype * 2 + (vec == 4)) {
     case 0: return B11_BWD(1, float);

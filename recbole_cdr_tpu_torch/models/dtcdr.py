@@ -22,8 +22,9 @@ with the item's history.
   item's source and target user histories (source ids compacted into the
   dense source axis, ``[overlap | source-only]``). A training step makes one
   B11 launch per table, forward and backward, over both domains' ids, and
-  one B11 plan per ids tensor (users, items), which both tables of that
-  side and both directions share. The
+  one ``group_rows`` launch that groups both sides' ids (users, items) on
+  the model's two kept ``RowPlan``s; both tables of a side and both
+  directions read that side's grouping. The
   histories are CSRs of each row's distinct non-PAD entries, each with the
   kernels' layout (its transpose and the pieces of its long rows): the JAX
   package's padded ``[rows, max degree]`` matrices would take ~1.2 GB of host
@@ -33,8 +34,8 @@ with the item's history.
 No full-sort form, as in JAX: the trainer scores through :meth:`predict_grid`,
 the predict fallback. In evaluation (``model.eval()``) ``predict`` and
 ``predict_grid`` read tower tables built once per parameter version: DMF's
-target user and item towers of every target id (four B11 launches a pass),
-NeuMF's maxed embeddings.
+target user and item towers of every target id (four B11 launches and one
+``group_rows`` a pass), NeuMF's maxed embeddings.
 """
 
 import torch
@@ -54,8 +55,8 @@ from recbole_cdr_tpu_torch.ops.rating_vector import (
     history_csr,
     history_tensors,
     rating_vector,
-    rating_vector_plan,
 )
+from recbole_cdr_tpu_torch.ops.row_groups import RowPlan, group_rows
 from recbole_cdr_tpu_torch.utils.enums import InputType
 
 #: DMF's histories: name -> (domain, history of users or of items)
@@ -156,17 +157,34 @@ class DTCDR(CrossDomainRecommender):
 
     # -------------------------------------------------------------------- DMF
 
+    def _row_plans(self, device):
+        """The kept plans of the two sides' history rows on ``device``
+        (users over ``total_num_users`` rows, items over
+        ``total_num_items``): the one source of B11's groupings."""
+        plans = self.__dict__.setdefault("_dmf_plans", {})
+        if device not in plans:
+            plans[device] = (RowPlan(self.total_num_users, device),
+                             RowPlan(self.total_num_items, device))
+        return plans[device]
+
     def _dmf_embeddings(self, user, item):
         """The towers' inputs of pairs (``user``, ``item``): four B11
-        launches, one per linear table, from one plan per side."""
-        def side(names, ids, n_rows):
-            ids = ids.to(torch.int32)
-            plan = rating_vector_plan(ids, n_rows)
-            return torch.maximum(*(rating_vector(self._csr(n), getattr(self, _TABLES[n]), ids,
-                                                 plan) for n in names))
+        launches, one per linear table, from one ``group_rows`` launch for
+        both sides. On the card a grouping is its plan's own object and holds
+        until the next grouping on that plan; only this method groups on
+        these plans, and a step's backward runs before the next step's loss
+        or evaluation pass calls it again, so the backwards read the
+        groupings of their own forward."""
+        user, item = user.to(torch.int32), item.to(torch.int32)
+        user_plan, item_plan = self._row_plans(user.device)
+        user_groups, item_groups = group_rows(user, user_plan, second=(item, item_plan))
 
-        return (side(("s_items", "t_items"), user, self.total_num_users),
-                side(("s_users", "t_users"), item, self.total_num_items))
+        def side(names, ids, groups):
+            return torch.maximum(*(rating_vector(self._csr(n), getattr(self, _TABLES[n]), ids,
+                                                 groups) for n in names))
+
+        return (side(("s_items", "t_items"), user, user_groups),
+                side(("s_users", "t_users"), item, item_groups))
 
     def _dmf_head(self, user_e, item_e, domain):
         user_h = self._mlp(getattr(self, f"{domain}_user_fc"), user_e)

@@ -56,7 +56,6 @@ WRAPPERS = {
     "deepapf_grid": deepapf_attention.deepapf_grid,
     "rating_vector_forward_bf16": rating_vector.rating_vector_forward_bf16,
     "rating_vector_backward_bf16": rating_vector.rating_vector_backward_bf16,
-    "rating_vector_plan": rating_vector.rating_vector_plan,
     "graph_layer_forward_bf16": graph_layer.graph_layer_forward_bf16,
     "graph_layer_backward_bf16": graph_layer.graph_layer_backward_bf16,
     "natr_attention_forward_bf16": natr_attention.natr_attention_forward_bf16,

@@ -99,13 +99,13 @@ _SIGNATURES = {
         "natr_attention_backward": [_P, _P, _I, _I, _P, _I] + [_P] * 14 + [_I, _P, _I, _P],
     },
     "rating_vector": {
-        "rating_vector_plan": [_P, _I, _I] + [_P] * 12,
-        "rating_vector_forward": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I]
-                                 + [_P] * 8,
+        "rating_vector_forward": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I,
+                                  _P, _I] + [_P] * 4,
         "rating_vector_backward": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I]
-                                  + [_P] * 7 + [_I, _P, _P],
+                                  + [_P] * 3 + [_I, _P, _P],
     },
-    "benchmark_topk": {"benchmark_topk": [_P] * 4 + [_I] * 5 + [_P] * 6},
+    "benchmark_topk": {"benchmark_topk_rows": [_P, _I, _I, _P, _P, _P, _P],
+                       "benchmark_topk": [_P] * 4 + [_I, _P, _P] + [_I] * 6 + [_P] * 6},
     "conet_tower": {"conet_tower": [_P, _P, _P, _I, _I, _P] + [_I] * 7 + [_P, _I, _P]},
     "deepapf_attention": {
         "deepapf_forward": [_P, _P, _I, _I, _I] + [_P] * 4 + [_I, _P, _I, _P],

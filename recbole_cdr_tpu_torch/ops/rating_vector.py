@@ -20,13 +20,16 @@ cast).
 
 The kernels are ``csrc/rating_vector.cu``. Every float sum there runs in an
 order fixed by the inputs, so two runs are bit-equal. They work per distinct
-id of a batch, from a plan (:func:`rating_vector_plan`, a kernel of its own)
-built once per ids tensor and shared by every table and direction that takes
-those ids; the backward walks the transposed history, and rows longer than
-``PIECE`` entries are cut into static pieces, both built once per history on
-the host (:func:`history_layout`). The plain versions below, an
-``index_add_`` over the gathered [nnz, D] rows, run for CPU tensors and
-serve as the kernels' reference.
+id of a batch, from the ids' grouping by history row
+(:class:`~recbole_cdr_tpu_torch.ops.row_groups.Groups`, made by
+:func:`~recbole_cdr_tpu_torch.ops.row_groups.group_rows` on a ``RowPlan``
+over the history's rows; DMF groups both sides' ids in one launch a step)
+and shared by every table and direction that takes those ids; the backward
+walks the transposed history, and rows longer than ``PIECE`` entries are cut
+into static pieces, both built once per history on the host
+(:func:`history_layout`). The plain versions below, an ``index_add_`` over
+the gathered [nnz, D] rows, run for CPU tensors (they read the ids, not the
+grouping) and serve as the kernels' reference.
 """
 
 from typing import NamedTuple
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from recbole_cdr_tpu_torch.ops import build
+from recbole_cdr_tpu_torch.ops.row_groups import Groups
 
 DTYPES = build.DTYPES
 #: history entries of a static piece: a row with more is summed piece by
@@ -42,8 +46,6 @@ DTYPES = build.DTYPES
 PIECE = 64
 #: pieces of a row whose partial sums a block adds (a warp adds fewer)
 BIG_PIECES = 32
-#: the plan kernel's scratch for its blocks' sums (two ints a block)
-_PLAN_BLOCK_SUMS = 2 * 1024
 
 
 class HistoryLayout(NamedTuple):
@@ -74,25 +76,6 @@ class HistoryCSR(NamedTuple):
     ptr: torch.Tensor
     cols: torch.Tensor
     layout: HistoryLayout
-
-
-class Plan(NamedTuple):
-    """A batch of ids grouped by id (:func:`rating_vector_plan`), int32
-    tensors: ``meta[0]`` the distinct ids ("heads") H, ``meta[1]`` the heads
-    of more than 64 positions; ``row_head[k]`` the head of key k (an id in
-    [0, R), or R for every other id) or -1; ``head_row[h]`` head h's key, in
-    increasing order; ``pos[head_start[h]:head_start[h + 1]]`` its positions,
-    increasing; ``big[:meta[1]]`` the heads of more than 64 positions (the
-    kernel lists them in no set order). Only the first H (H + 1) entries of
-    ``head_row`` (``head_start``) are defined."""
-    R: int
-    B: int
-    meta: torch.Tensor
-    row_head: torch.Tensor
-    head_row: torch.Tensor
-    head_start: torch.Tensor
-    pos: torch.Tensor
-    big: torch.Tensor
 
 
 def history_csr(rows: np.ndarray, cols: np.ndarray, n_rows: int):
@@ -178,51 +161,11 @@ def rating_vector_backward_plain(csr: HistoryCSR, n_rows: int, ids, gout,
     return dtable.index_add_(0, csr.cols[entry].long(), gout[owner]).to(dtype)
 
 
-def rating_vector_plan_plain(ids, R: int) -> Plan:
-    """The plan of ``ids`` over keys 0..R in torch (a stable sort by key)."""
-    B, dev = ids.shape[0], ids.device
-    key = torch.where((ids >= 0) & (ids < R), ids, R).long()
-    order = torch.sort(key, stable=True).indices
-    heads, counts = torch.unique_consecutive(key[order], return_counts=True)
-    H = heads.shape[0]
-    row_head = torch.full((R + 1,), -1, dtype=torch.int32, device=dev)
-    row_head[heads] = torch.arange(H, dtype=torch.int32, device=dev)
-    head_start = torch.zeros(B + 1, dtype=torch.int32, device=dev)
-    head_start[1:H + 1] = torch.cumsum(counts, 0).to(torch.int32)
-    big = torch.nonzero(counts > 64).flatten().to(torch.int32)
-    head_row = torch.zeros(B, dtype=torch.int32, device=dev)
-    head_row[:H] = heads.to(torch.int32)
-    meta = torch.tensor([H, big.shape[0]], dtype=torch.int32, device=dev)
-    return Plan(R, B, meta, row_head, head_row, head_start, order.to(torch.int32),
-                torch.cat([big, torch.zeros(B - big.shape[0], dtype=torch.int32, device=dev)]))
-
-
 def _check_ids(ids, what):
     if ids.dtype != torch.int32 or ids.dim() != 1:
         raise TypeError(f"{what} takes 1-D int32 ids")
     if ids.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} has no version for device {ids.device}")
-
-
-def rating_vector_plan(ids, R: int) -> Plan:
-    """The :class:`Plan` of int32 ``ids`` [B] over history rows [0, R): one
-    per ids tensor, shared by every table and direction that takes it."""
-    _check_ids(ids, "rating_vector_plan")
-    if ids.device.type == "cpu":
-        return rating_vector_plan_plain(ids, R)
-    ids = ids.contiguous()
-    B = ids.shape[0]
-    sizes = (2, R + 1, B, B + 1, B, B, R + 1, R + 1, R + 1, B, _PLAN_BLOCK_SUMS)
-    buf = torch.empty(sum(sizes), dtype=torch.int32, device=ids.device)
-    parts = torch.split(buf, sizes)
-    err = build.library("rating_vector").rating_vector_plan(
-        ids.data_ptr(), B, R, *(t.data_ptr() for t in parts), build.stream_handle(ids))
-    build.check(err, "rating_vector_plan")
-    rating_vector_plan.launches += 1
-    return Plan(R, B, *parts[:6])
-
-
-rating_vector_plan.launches = 0
 
 
 def _check(csr: HistoryCSR, ids, dense, what, types=(torch.float32,)):
@@ -240,18 +183,28 @@ def _check(csr: HistoryCSR, ids, dense, what, types=(torch.float32,)):
         raise ValueError(f"{what} has no version for device {dense.device}")
 
 
-def _kernel_args(csr: HistoryCSR, n_cols: int, ids, plan, device, what):
-    """(the CSR contiguous, its layout) for a launch, once the layout and
-    the plan are checked against the history and the ids."""
+def _check_groups(csr: HistoryCSR, ids, groups, what):
+    """The grouping must be of these ids over the history's rows from 0."""
+    if not isinstance(groups, Groups):
+        raise TypeError(f"{what} takes the ids' Groups (ops.row_groups.group_rows), "
+                        f"got {type(groups).__name__}")
+    R = csr.ptr.shape[0] - 1
+    if groups.R != ids.shape[0] or groups.L != R or groups.offset != 0:
+        raise ValueError(f"{what}: a grouping of {groups.R} ids over rows [{groups.offset}, "
+                         f"{groups.offset + groups.L}) for {ids.shape[0]} ids over [0, {R})")
+    if groups.meta.device != ids.device:
+        raise ValueError(f"{what}: a grouping on {groups.meta.device} for ids on {ids.device}")
+
+
+def _kernel_args(csr: HistoryCSR, n_cols: int):
+    """(the CSR contiguous, its layout) for a launch, once the layout is
+    checked against the history."""
     layout = csr.layout
     R = csr.ptr.shape[0] - 1
     if layout.p_first.shape[0] != R + 1 or layout.tptr.shape[0] != n_cols + 1:
-        raise ValueError(f"{what}: a layout of {layout.p_first.shape[0] - 1} rows over "
+        raise ValueError(f"a layout of {layout.p_first.shape[0] - 1} rows over "
                          f"{layout.tptr.shape[0] - 1} table rows for a history of {R} over "
                          f"{n_cols}")
-    if plan.R != R or plan.B != ids.shape[0] or plan.meta.device != device:
-        raise ValueError(f"{what}: a plan of {plan.B} ids over {plan.R} rows for {ids.shape[0]} "
-                         f"ids over {R}")
     return HistoryCSR(csr.ptr.contiguous(), csr.cols.contiguous(), layout), layout
 
 
@@ -261,9 +214,9 @@ def _vec(D: int, *tensors) -> int:
     return 4 if ok else 1
 
 
-def _forward(csr: HistoryCSR, table, ids, plan, name):
-    table = table.contiguous()
-    csr, lay = _kernel_args(csr, table.shape[0], ids, plan, table.device, name)
+def _forward(csr: HistoryCSR, table, ids, groups, name):
+    table, ids = table.contiguous(), ids.contiguous()
+    csr, lay = _kernel_args(csr, table.shape[0])
     B, D = ids.shape[0], table.shape[1]
     n_pieces = lay.p_row.shape[0]
     part = torch.empty(max(n_pieces, 1), D, dtype=torch.float32, device=table.device)
@@ -272,19 +225,18 @@ def _forward(csr: HistoryCSR, table, ids, plan, name):
         csr.ptr.data_ptr(), csr.cols.data_ptr(), csr.ptr.shape[0] - 1, lay.p_row.data_ptr(),
         lay.p_first.data_ptr(), n_pieces, lay.p_big.data_ptr(), lay.p_big.shape[0],
         lay.p_small.data_ptr(), lay.p_small.shape[0], PIECE,
-        table.data_ptr(), D, DTYPES[table.dtype], _vec(D, table, out), plan.meta.data_ptr(),
-        plan.row_head.data_ptr(), plan.head_row.data_ptr(), plan.head_start.data_ptr(),
-        plan.pos.data_ptr(), part.data_ptr(), out.data_ptr(), build.stream_handle(table),
+        table.data_ptr(), D, DTYPES[table.dtype], _vec(D, table, out), ids.data_ptr(), B,
+        groups.pointers(), part.data_ptr(), out.data_ptr(), build.stream_handle(table),
     )
     build.check(err, name)
     return out
 
 
-def _backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype, plan, name):
+def _backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype, groups, name):
     """Every table row is written once: the float32 sum over the transposed
     history, rounded once to a 16-bit ``dtype``."""
     gout = gout.contiguous()
-    csr, lay = _kernel_args(csr, n_rows, ids, plan, gout.device, name)
+    csr, lay = _kernel_args(csr, n_rows)
     B, D = ids.shape[0], gout.shape[1]
     n_pieces = lay.tp_row.shape[0]
     gsum = torch.empty(max(B, 1), D, dtype=torch.float32, device=gout.device)
@@ -294,25 +246,25 @@ def _backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype, plan, name):
         lay.tptr.data_ptr(), lay.tcols.data_ptr(), n_rows, lay.tp_row.data_ptr(),
         lay.tp_first.data_ptr(), n_pieces, lay.tp_big.data_ptr(), lay.tp_big.shape[0],
         lay.tp_small.data_ptr(), lay.tp_small.shape[0], PIECE,
-        gout.data_ptr(), D, _vec(D, gout, out), plan.meta.data_ptr(), plan.row_head.data_ptr(),
-        plan.head_start.data_ptr(), plan.pos.data_ptr(), plan.big.data_ptr(), gsum.data_ptr(),
+        gout.data_ptr(), D, _vec(D, gout, out), groups.pointers(), gsum.data_ptr(),
         part.data_ptr(), DTYPES[dtype], out.data_ptr(), build.stream_handle(gout),
     )
     build.check(err, name)
     return out
 
 
-def rating_vector_forward(csr: HistoryCSR, table, ids, plan: Plan):
+def rating_vector_forward(csr: HistoryCSR, table, ids, groups: Groups):
     """float32 [B, D]: the sum of ``table``'s rows at each id's history; a
-    16-bit table goes to :func:`rating_vector_forward_bf16`. ``plan``: these
-    ids' :func:`rating_vector_plan` (the plain version on the CPU reads
-    none)."""
+    16-bit table goes to :func:`rating_vector_forward_bf16`. ``groups``: the
+    ids' grouping over the history's rows (``group_rows`` on a ``RowPlan``
+    of them; checked on every device, read by the kernels alone)."""
     _check(csr, ids, table, "rating_vector_forward", tuple(DTYPES))
+    _check_groups(csr, ids, groups, "rating_vector_forward")
     if table.device.type == "cpu":
         return rating_vector_plain(csr, table, ids)
     if table.dtype != torch.float32:
-        return rating_vector_forward_bf16(csr, table, ids, plan)
-    out = _forward(csr, table, ids, plan, "rating_vector_forward")
+        return rating_vector_forward_bf16(csr, table, ids, groups)
+    out = _forward(csr, table, ids, groups, "rating_vector_forward")
     rating_vector_forward.launches += 1
     return out
 
@@ -320,13 +272,14 @@ def rating_vector_forward(csr: HistoryCSR, table, ids, plan: Plan):
 rating_vector_forward.launches = 0
 
 
-def rating_vector_forward_bf16(csr: HistoryCSR, table, ids, plan: Plan):
+def rating_vector_forward_bf16(csr: HistoryCSR, table, ids, groups: Groups):
     """B11's 16-bit form: a bfloat16 (or float16) table's rows at each id's
     history, widened and summed in float32, float32 [B, D]."""
     _check(csr, ids, table, "rating_vector_forward_bf16", build.FLOAT16)
+    _check_groups(csr, ids, groups, "rating_vector_forward_bf16")
     if table.device.type == "cpu":
         return rating_vector_plain(csr, table, ids)
-    out = _forward(csr, table, ids, plan, "rating_vector_forward_bf16")
+    out = _forward(csr, table, ids, groups, "rating_vector_forward_bf16")
     rating_vector_forward_bf16.launches += 1
     return out
 
@@ -341,17 +294,18 @@ def _check_backward(ids, gout, dtype, what):
         raise TypeError(f"{what}: no table type {dtype}")
 
 
-def rating_vector_backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype, plan: Plan):
+def rating_vector_backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype, groups: Groups):
     """[n_rows, D] of the table's type ``dtype``: for each table row, the
     sum of ``gout[b]`` (float32) over the ids whose history holds it; a
     16-bit ``dtype`` goes to :func:`rating_vector_backward_bf16`."""
     _check(csr, ids, gout, "rating_vector_backward")
     _check_backward(ids, gout, dtype, "rating_vector_backward")
+    _check_groups(csr, ids, groups, "rating_vector_backward")
     if gout.device.type == "cpu":
         return rating_vector_backward_plain(csr, n_rows, ids, gout, dtype)
     if dtype != torch.float32:
-        return rating_vector_backward_bf16(csr, n_rows, ids, gout, dtype, plan)
-    out = _backward(csr, n_rows, ids, gout, dtype, plan, "rating_vector_backward")
+        return rating_vector_backward_bf16(csr, n_rows, ids, gout, dtype, groups)
+    out = _backward(csr, n_rows, ids, gout, dtype, groups, "rating_vector_backward")
     rating_vector_backward.launches += 1
     return out
 
@@ -359,16 +313,17 @@ def rating_vector_backward(csr: HistoryCSR, n_rows: int, ids, gout, dtype, plan:
 rating_vector_backward.launches = 0
 
 
-def rating_vector_backward_bf16(csr: HistoryCSR, n_rows: int, ids, gout, dtype, plan: Plan):
+def rating_vector_backward_bf16(csr: HistoryCSR, n_rows: int, ids, gout, dtype, groups: Groups):
     """B11's 16-bit backward: each table row's float32 gradient sum rounded
     once to ``dtype`` (bfloat16 or float16) as it is written."""
     _check(csr, ids, gout, "rating_vector_backward_bf16")
     _check_backward(ids, gout, dtype, "rating_vector_backward_bf16")
+    _check_groups(csr, ids, groups, "rating_vector_backward_bf16")
     if dtype == torch.float32:
         raise TypeError("rating_vector_backward_bf16 returns a 16-bit gradient")
     if gout.device.type == "cpu":
         return rating_vector_backward_plain(csr, n_rows, ids, gout, dtype)
-    out = _backward(csr, n_rows, ids, gout, dtype, plan, "rating_vector_backward_bf16")
+    out = _backward(csr, n_rows, ids, gout, dtype, groups, "rating_vector_backward_bf16")
     rating_vector_backward_bf16.launches += 1
     return out
 
@@ -378,21 +333,24 @@ rating_vector_backward_bf16.launches = 0
 
 class _RatingVector(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, csr, ids, plan):
-        ctx.csr, ctx.ids, ctx.plan = csr, ids, plan
+    def forward(ctx, table, csr, ids, groups):
+        ctx.csr, ctx.ids, ctx.groups = csr, ids, groups
         ctx.n_rows, ctx.dtype = table.shape[0], table.dtype
-        return rating_vector_forward(csr, table, ids, plan)
+        return rating_vector_forward(csr, table, ids, groups)
 
     @staticmethod
     def backward(ctx, g):
         return (rating_vector_backward(ctx.csr, ctx.n_rows, ctx.ids, g.contiguous(), ctx.dtype,
-                                       ctx.plan),
+                                       ctx.groups),
                 None, None, None)
 
 
-def rating_vector(csr: HistoryCSR, table, ids, plan: Plan):
+def rating_vector(csr: HistoryCSR, table, ids, groups: Groups):
     """Differentiable (in ``table``) ``_rating_vector(history, ids, N) @ table``
     for int32 ``ids``: the sum of ``table``'s rows at each id's history,
     float32 for a float32, bfloat16 or float16 table. The forward and the
-    backward both read ``plan``, these ids' :func:`rating_vector_plan`."""
-    return _RatingVector.apply(table, csr, ids, plan)
+    backward both read ``groups``, the ids' grouping over the history's rows
+    (``group_rows`` on a ``RowPlan`` of them); on the card it is the plan's
+    own object, so no other ``group_rows`` call on that plan may come
+    between the forward and the backward."""
+    return _RatingVector.apply(table, csr, ids, groups)

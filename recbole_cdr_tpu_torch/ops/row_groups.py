@@ -32,6 +32,10 @@ from recbole_cdr_tpu_torch.ops import build
 #: a head of more positions is summed by a whole block in the kernels that
 #: read a grouping (``kBigTerms`` of ``csrc/row_groups.cuh``)
 BIG_TERMS = 64
+#: the most ids a grouping takes through the inboxes (``kInboxMax`` of
+#: ``csrc/row_groups.cu``); a launch whose larger grouping has more runs the
+#: four rounds
+INBOX_IDS = 16_384
 
 
 class Groups:

@@ -853,18 +853,33 @@ def _b11_close(got, want, absum, what):
         f"{what}: error {float(diff.max())}"
 
 
-def _b11_plan_shared(csr, table, ids, g, plan, want, absum):
-    """Two tables on the same ids from one plan, through autograd: each
-    gradient within tolerance of the plain one, the two bit-equal; the plan
-    built once for the forward of both and the backward of both."""
+def _b11_groups_shared(csr, table, ids, g, plan, groups, want, absum):
+    """Two tables on the same ids from one grouping, through autograd: each
+    gradient within tolerance of the plain one, the two bit-equal; the ids
+    grouped once for the forward of both and the backward of both, and a
+    second grouping on the same plan the same as the first."""
     ops.reset_launch_counts()
     t, t2 = table.clone().requires_grad_(), (2 * table).requires_grad_()
-    (b11.rating_vector(csr, t, ids, plan) + b11.rating_vector(csr, t2, ids, plan)).backward(g)
+    (b11.rating_vector(csr, t, ids, groups) + b11.rating_vector(csr, t2, ids, groups)).backward(g)
     _b11_close(t.grad.float(), want.float(), absum, "autograd")
     assert torch.equal(t.grad, t2.grad)
-    built = b11.rating_vector_plan(ids, csr.ptr.shape[0] - 1)
-    assert ops.launch_counts()["rating_vector_plan"] == 1  # the one just above
-    assert torch.equal(built.pos, plan.pos) and torch.equal(built.row_head, plan.row_head)
+    assert ops.launch_counts()["group_rows"] == 0
+    first = row_groups.canonical(groups)
+    row_groups.group_rows(ids, plan)
+    assert ops.launch_counts()["group_rows"] == 1  # the one just above
+    assert all(torch.equal(a, b) for a, b in zip(first, row_groups.canonical(plan.groups)))
+
+
+def _b11_history(R, N):
+    """Row 0 empty, row 1 of up to 5,000 entries (79 pieces of 64), the rest
+    of 0 to 200, on the card."""
+    lens = torch.randint(0, 200, (R,), generator=torch.Generator().manual_seed(R))
+    lens[0], lens[1] = 0, min(5000, N - 1)
+    rows = [torch.randperm(N - 1, generator=torch.Generator().manual_seed(r))[:int(c)] + 1
+            for r, c in enumerate(lens)]
+    ptr, cols = b11.history_csr(torch.repeat_interleave(torch.arange(R), lens).numpy(),
+                                torch.cat(rows).numpy(), R)
+    return b11.history_tensors(ptr, cols, N, "cuda")
 
 
 @pytest.mark.parametrize("R,N,D,B,same", [(3000, 27_800, 64, 16_384, False),
@@ -876,34 +891,65 @@ def test_rating_vector_matches_plain(gen, R, N, D, B, same):
     to 200; ids repeat (the first 64 all row 1, others drawn from 50 rows);
     an id whose row is empty among them, or (``same``) every id row 1.
     Forward and backward within ``B11_TOL`` and bit-equal over two runs;
-    one plan serves two tables and both directions."""
-    lens = torch.randint(0, 200, (R,), generator=torch.Generator().manual_seed(R))
-    lens[0], lens[1] = 0, min(5000, N - 1)
-    rows = [torch.randperm(N - 1, generator=torch.Generator().manual_seed(r))[:int(c)] + 1
-            for r, c in enumerate(lens)]
-    ptr, cols = b11.history_csr(torch.repeat_interleave(torch.arange(R), lens).numpy(),
-                                torch.cat(rows).numpy(), R)
-    csr = b11.history_tensors(ptr, cols, N, "cuda")
+    one grouping (``group_rows``) serves two tables and both directions."""
+    csr = _b11_history(R, N)
     ids = _ints(0, min(R, 50), (B,), gen)
     ids[:64], ids[64] = 1, 0
     if same:
         ids[:] = 1
-    plan = b11.rating_vector_plan(ids, R)
+    plan = row_groups.RowPlan(R, "cuda")
+    groups = row_groups.group_rows(ids, plan)
     table = torch.randn(N, D, device="cuda", generator=gen)
     g = torch.randn(B, D, device="cuda", generator=gen)
-    got = b11.rating_vector_forward(csr, table, ids, plan)
+    got = b11.rating_vector_forward(csr, table, ids, groups)
     torch.cuda.synchronize()
     _b11_close(got, b11.rating_vector_plain(csr, table, ids),
                b11.rating_vector_plain(csr, table.abs(), ids), "forward")
     assert torch.equal(got[0], got[63]) and (same or bool((got[64] == 0).all()))
-    assert torch.equal(got, b11.rating_vector_forward(csr, table, ids, plan))
-    dt = b11.rating_vector_backward(csr, N, ids, g, torch.float32, plan)
+    assert torch.equal(got, b11.rating_vector_forward(csr, table, ids, groups))
+    dt = b11.rating_vector_backward(csr, N, ids, g, torch.float32, groups)
     torch.cuda.synchronize()
     want = b11.rating_vector_backward_plain(csr, N, ids, g)
     absum = b11.rating_vector_backward_plain(csr, N, ids, g.abs())
     _b11_close(dt, want, absum, "backward")
-    assert torch.equal(dt, b11.rating_vector_backward(csr, N, ids, g, torch.float32, plan))
-    _b11_plan_shared(csr, table, ids, g, plan, want, absum)
+    assert torch.equal(dt, b11.rating_vector_backward(csr, N, ids, g, torch.float32, groups))
+    _b11_groups_shared(csr, table, ids, g, plan, groups, want, absum)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rating_vector_reads_past_stale_row_heads(gen, dtype):
+    """Two steps' ids through one ``RowPlan`` in turn: the first names rows
+    0-2,999 (so every entry of the plan's row map is set), the second 50
+    rows of them, a shifted set, and ids outside the rows (-1, R, R + 7).
+    The second step's forward and backward, read past the first step's
+    stale row map, equal bit for bit those from a fresh plan's grouping, and
+    the out-of-range ids' output rows are zeros."""
+    R, N, D = 3000, 27_800, 64
+    csr = _b11_history(R, N)
+    table = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
+    plan = row_groups.RowPlan(R, "cuda")
+    first = torch.randperm(R, device="cuda", generator=gen).to(torch.int32).repeat(3)
+    row_groups.group_rows(first, plan)
+    g1 = torch.randn(first.shape[0], D, device="cuda", generator=gen)
+    b11.rating_vector_forward(csr, table, first, plan.groups)
+    b11.rating_vector_backward(csr, N, first, g1, dtype, plan.groups)
+    ids = _ints(1000, 1050, (8192,), gen)
+    ids[:70] = 1
+    ids[70], ids[71], ids[72] = -1, R, R + 7
+    g = torch.randn(ids.shape[0], D, device="cuda", generator=gen)
+    stale = row_groups.group_rows(ids, plan)
+    got = (b11.rating_vector_forward(csr, table, ids, stale),
+           b11.rating_vector_backward(csr, N, ids, g, dtype, stale))
+    fresh = row_groups.group_rows(ids, row_groups.RowPlan(R, "cuda"))
+    want = (b11.rating_vector_forward(csr, table, ids, fresh),
+            b11.rating_vector_backward(csr, N, ids, g, dtype, fresh))
+    torch.cuda.synchronize()
+    assert int(stale.meta[0]) == ids.shape[0] - 3
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool((got[0][70:73] == 0).all())
+    own = ids[(ids >= 0) & (ids < R)]
+    _b11_close(got[0][(ids >= 0) & (ids < R)], b11.rating_vector_plain(csr, table, own),
+               b11.rating_vector_plain(csr, table.abs(), own), "forward after a stale map")
 
 
 @pytest.mark.parametrize("B,C,k", [(25, 2525, 10), (40, 7, 7), (3, 1, 1), (64, 300, 64),
@@ -1043,14 +1089,23 @@ def test_dtcdr_on_the_card(gen, tmp_path, monkeypatch, mode):
     path = {"full": ("masked_topk", "rank_sum"),
             "uniform 20": ("candidate_topk", "rank_sum_candidates"), "labeled": ()}[mode]
     path += ("neg_sampler", "swap_or_not", "rating_vector_forward", "rating_vector_backward",
-             "rating_vector_plan")
+             "group_rows")
     assert all(counts[k] > 0 for k in path), counts
     assert all(counts[k] == 0 for k in counts if k not in path), counts
+    # one grouping of both sides' ids a step and an evaluation pass, for its
+    # four B11 forwards
+    assert counts["rating_vector_forward"] == 4 * counts["group_rows"], counts
 
 
 @pytest.mark.parametrize("M,n_ov,D,k", [(9000, 2001, 64, 10), (300, 20, 37, 1),
                                         (1000, 500, 130, 17), (70, 33, 8, 32),
-                                        (5, 2001, 64, 16)])
+                                        (5, 2001, 64, 16),
+                                        # the screen's tiles cut: M off the 64-row
+                                        # blocks, n_ov under one 64-row tile and off
+                                        # the MMA's 8, D 32 / 64 / 100, k 1-32
+                                        (1000, 45, 32, 16), (777, 2001, 100, 10),
+                                        (130, 61, 64, 17), (4097, 300, 32, 32),
+                                        (200, 3000, 100, 1), (65, 59, 64, 10)])
 def test_benchmark_topk_matches_plain(gen, M, n_ov, D, k):
     """B12 against its plain version: ids exact where the k-th and (k+1)-th
     similarity differ by more than 1e-5 (the all-zero rows: exactly 0..k-1),
@@ -1076,6 +1131,42 @@ def test_benchmark_topk_matches_plain(gen, M, n_ov, D, k):
     torch.testing.assert_close(sim, p_sim, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(out[clear], p_out[clear], atol=1e-5, rtol=1e-5, equal_nan=True)
     assert torch.isnan(out).any() == torch.isnan(p_out).any()
+
+
+@pytest.mark.parametrize("copies", [3, 50])
+def test_benchmark_topk_near_ties(gen, copies):
+    """Source rows in groups of ``copies`` near-copies of 10 rows (each within
+    1e-7 of its group's row, the group's first copy exact), so a row's best
+    candidates differ by far less than the screen's error: with 3 copies the
+    lists hold them, with 50 they outgrow their room and the rows are
+    rescored whole. Per row: k distinct ids ordered by similarity (value
+    descending, the lower id first on a tie), each within 1e-5 of its float64
+    similarity, none below the (k+1)-th float64 similarity by more than
+    1e-5; the similarities within B12's tolerance of the plain version's;
+    two runs bit-equal."""
+    M, D, k = 300, 64, 10
+    n_ov = 10 * copies
+    base = torch.randn((10, D), generator=gen, device="cuda") * 0.3
+    noise = torch.randn((n_ov, D), generator=gen, device="cuda") * 1e-7
+    noise[::10] = 0.0
+    src = base.repeat(copies, 1) + noise
+    rest = torch.randn((M, D), generator=gen, device="cuda") * 0.3
+    s_pop = _ints(0, 5, (n_ov,), gen).float()
+    t_pop = _ints(1, 5, (M,), gen).float()
+    out, idx, sim = b12.benchmark_topk(rest, src, s_pop, t_pop, k)
+    out2, idx2, sim2 = b12.benchmark_topk(rest, src, s_pop, t_pop, k)
+    assert torch.equal(idx, idx2) and torch.equal(sim, sim2) and torch.equal(out, out2)
+    exact = rest.double() @ src.double().T
+    assert bool((idx.sort(1).values.diff(1) > 0).all())  # distinct
+    picked = exact.gather(1, idx.long())
+    assert bool(((picked - sim.double()).abs() <= 1e-5).all())
+    assert bool((sim[:, :-1] >= sim[:, 1:]).all())
+    tie = sim[:, :-1] == sim[:, 1:]
+    assert bool((idx[:, :-1][tie] < idx[:, 1:][tie]).all())
+    kth = torch.topk(exact, k + 1, 1).values[:, k]
+    assert bool((picked.min(1).values >= kth - 1e-5).all())
+    p_sim = b12.benchmark_topk_plain(rest, src, s_pop, t_pop, k)[2]
+    torch.testing.assert_close(sim, p_sim, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("model,extra", [
@@ -1826,35 +1917,29 @@ def test_rating_vector_bf16_matches_plain(gen, R, N, D, B, same, dtype):
     B11_TOL of the plain version), the backward's float32 sums rounded once
     to the table's type (within one step of the plain version's plus
     2^-17 of the terms' magnitudes), twice, bit-equal, and through autograd
-    (one plan for two tables and both directions); ``same``: every id row
+    (one grouping for two tables and both directions); ``same``: every id row
     1, of 5,000 entries."""
-    lens = torch.randint(0, 200, (R,), generator=torch.Generator().manual_seed(R))
-    lens[0], lens[1] = 0, min(5000, N - 1)
-    rows = [torch.randperm(N - 1, generator=torch.Generator().manual_seed(r))[:int(c)] + 1
-            for r, c in enumerate(lens)]
-    ptr, cols = b11.history_csr(torch.repeat_interleave(torch.arange(R), lens).numpy(),
-                                torch.cat(rows).numpy(), R)
-    csr = b11.history_tensors(ptr, cols, N, "cuda")
+    csr = _b11_history(R, N)
     ids = _ints(0, min(R, 50), (B,), gen)
     ids[:64], ids[64] = 1, 0
     if same:
         ids[:] = 1
-    plan = b11.rating_vector_plan(ids, R)
+    groups = row_groups.group_rows(ids, row_groups.RowPlan(R, "cuda"))
     table = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
     g = torch.randn(B, D, device="cuda", generator=gen)
     ops.reset_launch_counts()
-    got = b11.rating_vector_forward(csr, table, ids, plan)
+    got = b11.rating_vector_forward(csr, table, ids, groups)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32
     _b11_close(got, b11.rating_vector_plain(csr, table, ids),
                b11.rating_vector_plain(csr, table.abs(), ids), "forward")
     assert torch.equal(got[0], got[63]) and (same or bool((got[64] == 0).all()))
-    assert torch.equal(got, b11.rating_vector_forward(csr, table, ids, plan))
+    assert torch.equal(got, b11.rating_vector_forward(csr, table, ids, groups))
     want = b11.rating_vector_backward_plain(csr, N, ids, g, dtype)
     absum = b11.rating_vector_backward_plain(csr, N, ids, g.abs())
     runs = []
     for what in ("backward", "backward, second run"):
-        dt = b11.rating_vector_backward(csr, N, ids, g, dtype, plan)
+        dt = b11.rating_vector_backward(csr, N, ids, g, dtype, groups)
         torch.cuda.synchronize()
         assert dt.dtype == dtype
         diff = (dt.float() - want.float()).abs()
@@ -1862,15 +1947,15 @@ def test_rating_vector_bf16_matches_plain(gen, R, N, D, B, same, dtype):
         runs.append(dt)
     assert torch.equal(*runs)
     t = table.clone().requires_grad_()
-    b11.rating_vector(csr, t, ids, plan).backward(g)
+    b11.rating_vector(csr, t, ids, groups).backward(g)
     assert t.grad.dtype == dtype
     counts = ops.launch_counts()
     assert counts["rating_vector_forward_bf16"] == 3 and counts["rating_vector_backward_bf16"] == 3
     assert counts["rating_vector_forward"] == counts["rating_vector_backward"] == 0
     ops.reset_launch_counts()
     t, t2 = table.clone().requires_grad_(), (2 * table).requires_grad_()
-    (b11.rating_vector(csr, t, ids, plan) + b11.rating_vector(csr, t2, ids, plan)).backward(g)
-    assert ops.launch_counts()["rating_vector_plan"] == 0
+    (b11.rating_vector(csr, t, ids, groups) + b11.rating_vector(csr, t2, ids, groups)).backward(g)
+    assert ops.launch_counts()["group_rows"] == 0
     assert torch.equal(t.grad, t2.grad) and t.grad.dtype == dtype
 
 
@@ -2000,7 +2085,7 @@ def test_conet_tower_bf16_matches_plain(gen, H0, later, B, I, dtype):
       "natr_attention_backward_bf16", "natr_anchor_table_bf16", "natr_pair_grid_bf16",
       "masked_topk")),
     ("DTCDR", {"base_model": "DMF"}, ("rating_vector_forward_bf16",
-                                      "rating_vector_backward_bf16", "rating_vector_plan",
+                                      "rating_vector_backward_bf16", "group_rows",
                                       "masked_topk")),
     ("CoNet", {}, ("neg_sampler", "swap_or_not", "masked_topk", "conet_tower_bf16")),
     ("DeepAPF", {}, ("neg_sampler", "swap_or_not", "masked_topk", "deepapf_forward_bf16",

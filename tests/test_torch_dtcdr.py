@@ -57,8 +57,8 @@ from recbole_cdr_tpu_torch.ops.rating_vector import (
     rating_vector,
     rating_vector_backward_plain,
     rating_vector_plain,
-    rating_vector_plan,
 )
+from recbole_cdr_tpu_torch.ops.row_groups import BIG_TERMS, RowPlan, canonical, group_rows
 from recbole_cdr_tpu_torch.trainer.trainer import (
     build_optimizer,
     make_predict_full_sort,
@@ -206,7 +206,7 @@ def test_rating_vector_plain_matches_dense_form():
     t = torch.from_numpy(table).requires_grad_()
     tid = torch.from_numpy(ids.astype(np.int32))
     ops.reset_launch_counts()
-    got = rating_vector(csr, t, tid, rating_vector_plan(tid, case["R"]))
+    got = rating_vector(csr, t, tid, group_rows(tid, RowPlan(case["R"], "cpu")))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **LOSS_TOL)
     np.testing.assert_array_equal(got[:4].detach().numpy(), 0.0)
     got.backward(torch.from_numpy(g))
@@ -260,32 +260,86 @@ def test_transposed_histories_equal_jax(dmf):
                                       err_msg=name)
 
 
-def test_plan_plain_groups_ids():
-    """B11's plan in torch: the keys (ids, an out-of-range id as R), each
-    key's positions increasing, the heads of more than 64 positions, and a
-    shared plan leaving the rating vector unchanged."""
+def test_dmf_grouping_from_group_rows(dmf, monkeypatch):
+    """The grouping DMF builds for B11 (one ``group_rows`` call for both
+    sides' ids, duplicates, PAD 0 and one id at more than ``BIG_TERMS``
+    positions among them): every id's positions in ascending order, that id
+    the one big head, and B11 from it equal to its plain version exactly."""
+    model = dmf["tmodel"]
     rng = np.random.default_rng(5)
-    R, B = 30, 500
-    ids = rng.integers(0, R, B).astype(np.int32)
-    ids[:100], ids[100], ids[101] = 7, -1, R + 3
-    plan = rating_vector_plan(torch.from_numpy(ids), R)
-    key = np.where((ids >= 0) & (ids < R), ids, R)
-    heads = np.unique(key)
-    H = len(heads)
-    assert plan.meta.tolist() == [H, int((np.bincount(key)[heads] > 64).sum())]
-    np.testing.assert_array_equal(plan.head_row[:H].numpy(), heads)
-    np.testing.assert_array_equal(plan.pos.numpy(), np.argsort(key, kind="stable"))
-    np.testing.assert_array_equal(plan.head_start[:H + 1].numpy(),
-                                  np.searchsorted(np.sort(key), np.append(heads, R + 1)))
-    row_head = np.full(R + 1, -1)
-    row_head[heads] = np.arange(H)
-    np.testing.assert_array_equal(plan.row_head.numpy(), row_head)
-    assert plan.head_row[plan.big[:plan.meta[1]].long()].tolist() == [7]
-    case = _dense_case(200, 170, 140)
+    ids = {"user": rng.integers(0, model.total_num_users, 300).astype(np.int32),
+           "item": rng.integers(0, model.total_num_items, 300).astype(np.int32)}
+    for side in ids.values():
+        side[:BIG_TERMS + 36], side[BIG_TERMS + 36] = 7, 0
+    calls = []
+    real = dtcdr_module.group_rows
+    monkeypatch.setattr(dtcdr_module, "group_rows",
+                        lambda *a, **kw: calls.append(real(*a, **kw)) or calls[-1])
+    with torch.no_grad():
+        user_e, item_e = model._dmf_embeddings(torch.from_numpy(ids["user"]),
+                                               torch.from_numpy(ids["item"]))
+    assert len(calls) == 1 and len(calls[0]) == 2
+    for (side, names), groups, got in zip(
+            (("user", ("s_items", "t_items")), ("item", ("s_users", "t_users"))), calls[0],
+            (user_e, item_e)):
+        x = ids[side]
+        rows, lens, pos = canonical(groups)
+        heads, counts = np.unique(x, return_counts=True)
+        np.testing.assert_array_equal(rows.numpy(), heads)
+        np.testing.assert_array_equal(lens.numpy(), counts)
+        np.testing.assert_array_equal(pos.numpy(), np.argsort(x, kind="stable"))
+        big = groups.big[:int(groups.meta[2])].long()
+        assert groups.head_row[big].tolist() == [7]
+        tid = torch.from_numpy(x)
+        want = []
+        for name in names:
+            table = getattr(model, dtcdr_module._TABLES[name]).detach()
+            plain = rating_vector_plain(model._csr(name), table, tid)
+            torch.testing.assert_close(rating_vector(model._csr(name), table, tid, groups),
+                                       plain, rtol=0, atol=0)
+            want.append(plain)
+        torch.testing.assert_close(got, torch.maximum(*want), rtol=0, atol=0)
+
+
+def test_dmf_keeps_one_row_plan_per_side(dmf):
+    """DMF keeps two ``RowPlan``s, users' and items' rows, made on its first
+    loss and reused by the next (each loss groups both sides once); a deep
+    copy of the model carries plans of the same rows."""
+    model = copy.deepcopy(dmf["tmodel"])
+    model.__dict__.pop("_dmf_plans", None)  # a fresh model: the fixture's is shared
+    batch = _tbatch(_batch(dmf["jtrain"]))
+    model.loss(batch)
+    (dev, plans), = model.__dict__["_dmf_plans"].items()
+    model.loss(batch)
+    (dev2, plans2), = model.__dict__["_dmf_plans"].items()
+    assert dev == dev2 == torch.device("cpu")
+    assert plans2[0] is plans[0] and plans2[1] is plans[1]
+    assert [p.L for p in plans] == [model.total_num_users, model.total_num_items]
+    assert [p.generation for p in plans] == [2, 2]
+    copied = copy.deepcopy(model)
+    (dev3, plans3), = copied.__dict__["_dmf_plans"].items()
+    assert dev3 == dev
+    assert [isinstance(p, RowPlan) for p in plans3] == [True, True]
+    assert all(a is not b for a, b in zip(plans3, plans))
+    assert [(p.L, p.offset) for p in plans3] == [(p.L, p.offset) for p in plans]
+
+
+def test_rating_vector_rejects_a_foreign_grouping():
+    """B11 takes only the grouping of its own ids over its history's rows:
+    another ids count, another row count, a shard's offset or an object
+    that is no grouping raise before any work."""
+    case = _dense_case()
     csr = history_tensors(case["ptr"], case["cols"], case["N"])
     tid, t = torch.from_numpy(case["ids"].astype(np.int32)), torch.from_numpy(case["table"])
-    torch.testing.assert_close(rating_vector(csr, t, tid, rating_vector_plan(tid, case["R"])),
-                               rating_vector_plain(csr, t, tid), rtol=0, atol=0)
+    R = case["R"]
+    assert torch.equal(rating_vector(csr, t, tid, group_rows(tid, RowPlan(R, "cpu"))),
+                       rating_vector_plain(csr, t, tid))
+    for groups in (group_rows(tid[:-1], RowPlan(R, "cpu")), group_rows(tid, RowPlan(R + 1, "cpu")),
+                   group_rows(tid, RowPlan(R, "cpu", offset=1))):
+        with pytest.raises(ValueError, match="grouping"):
+            rating_vector(csr, t, tid, groups)
+    with pytest.raises(TypeError, match="Groups"):
+        rating_vector(csr, t, tid, None)
 
 
 def test_dtcdr_loss_and_grads_match_jax(pair):

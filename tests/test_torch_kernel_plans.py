@@ -163,3 +163,87 @@ def test_rank_sum_count_by_search_equals_plain(seed):
     args = [torch.from_numpy(a) for a in (scores, row_ptr, items, pos, pmask)]
     assert torch.equal(_search_rank_sum(*args), b7.rank_sum_plain(*args))
 
+
+
+# ------------------------------------------------ B12's screening launch plan
+
+from recbole_cdr_tpu_torch.ops import benchmark_topk as b12  # noqa: E402
+
+#: an SM's shared memory for its blocks, each with 1 KB of its own reserved
+SM_SMEM = 233_472
+
+
+@pytest.mark.parametrize("M,n_ov,k,sms", [
+    (1, 1, 1, 1), (64, 64, 1, 132), (65, 65, 17, 114), (10_000, 2000, 10, 132),
+    (9000, 2001, 32, 132), (5, 100_000, 16, 132), (100_000, 64, 10, 132), (1, 7, 7, 1),
+    (300, 20, 1, 132), (12_000, 4096, 32, 16)])
+def test_benchmark_topk_plan_covers_every_column(M, n_ov, k, sms):
+    """The plan's ranges: 1 to ``MAX_SPLITS`` of whole tiles, together
+    covering every source row, none empty; as many blocks as the SMs hold
+    fit their shared memory (and one block an H100's 232,448 bytes)."""
+    splits, span = b12.benchmark_topk_plan(M, n_ov, k, sms)
+    assert 1 <= splits <= b12.MAX_SPLITS and span % b12.COLS == 0
+    assert splits * span >= n_ov > (splits - 1) * span
+    assert splits <= _cdiv(n_ov, b12.COLS)
+    smem = b12.screen_smem_bytes(k)
+    assert smem <= SMEM_LIMIT
+    assert b12.blocks_per_sm(k) * (smem + 1024) <= SM_SMEM
+    slots, row_blocks = sms * b12.blocks_per_sm(k), _cdiv(M, b12.ROWS)
+    if 2 * row_blocks <= slots and _cdiv(n_ov, b12.COLS) >= 2 * b12.MAX_SPLITS:
+        assert splits > 1  # few rows: the columns are split
+    # no count of ranges gives the SMs less to do by the plan's measure
+    def cost(per):
+        n = _cdiv(_cdiv(n_ov, b12.COLS), per)
+        return (per + b12.RANGE_COST) * max(1.0, row_blocks * n / slots)
+
+    for n in range(1, b12.MAX_SPLITS + 1):
+        assert cost(span // b12.COLS) <= cost(_cdiv(_cdiv(n_ov, b12.COLS), n))
+
+
+def test_benchmark_topk_plan_at_phase8():
+    """Phase 8's DCDCSR tables on 132 SMs (8,970 rest rows against 2,001
+    overlapped, k 10): its 2,990 rows that hold a value other than 0 take
+    six ranges of 6 tiles, 282 blocks in 264 slots (9 tile-costs by the
+    plan's measure, where five ranges of 7 take 10); had every row a value,
+    two ranges of 16 tiles."""
+    assert b12.benchmark_topk_plan(2990, 2001, 10, 132) == (6, 384)
+    assert b12.benchmark_topk_plan(8970, 2001, 10, 132) == (2, 1024)
+
+
+@pytest.mark.parametrize("M,n_ov,k,sms", [(0, 10, 1, 132), (10, 0, 1, 132), (10, 10, 0, 132),
+                                          (10, 40, 33, 132), (10, 10, 1, 0)])
+def test_benchmark_topk_plan_rejects(M, n_ov, k, sms):
+    with pytest.raises(ValueError):
+        b12.benchmark_topk_plan(M, n_ov, k, sms)
+
+
+def _tf32(x):
+    """x cut to TF32 as the tensor core reads it (the top 19 bits)."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+@pytest.mark.parametrize("D", [8, 37, 64, 130])
+def test_screen_error_bounds_3xtf32(D):
+    """The screen's bound in torch on the CPU: similarities summed as the
+    tensor cores do in 3xTF32 (each operand's TF32 part, its float32 rest
+    read as TF32; hi*hi + hi*lo + lo*hi, the terms exact in float32, added
+    in float32) lie within ``screen_error`` of the rows' largest |values|
+    of the float32 fmaf chain (float64 products and adds rounded to float32
+    each step), on normal rows and on rows whose values span 2^-20 to 2^20."""
+    rng = np.random.default_rng(D)
+    a = rng.normal(size=(40, D)).astype(np.float32)
+    b = rng.normal(size=(50, D)).astype(np.float32)
+    a[20:] *= np.exp2(rng.integers(-20, 21, size=(20, D))).astype(np.float32)
+    b[25:] *= np.exp2(rng.integers(-20, 21, size=(25, D))).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ah, bh = _tf32(ta), _tf32(tb)
+    al, bl = _tf32(ta - ah), _tf32(tb - bh)
+    s = torch.zeros(40, 50)
+    for d in range(D):
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            s = s + x[:, d:d + 1] * y[None, :, d]
+    f = torch.zeros(40, 50, dtype=torch.float32)
+    for d in range(D):
+        f = (ta[:, d:d + 1].double() * tb[None, :, d].double() + f.double()).float()
+    e = b12.screen_error(D, ta.double().abs().amax(1)[:, None], tb.double().abs().amax(1)[None])
+    assert bool(((s.double() - f.double()).abs() <= e).all())
